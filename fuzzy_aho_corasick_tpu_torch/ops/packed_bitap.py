@@ -1,0 +1,587 @@
+"""Packed multi-pattern shift-AND NFA: tables, kernels and the exact glue.
+
+One device pass scans the whole corpus against the *entire* dictionary:
+bit-vector fields (reference src/prefilter.rs:186-236) are packed into a
+shared set of u64 limbs (a field never straddles a u64), and the Wu-Manber
+``k+1``-row recurrence (reference src/prefilter.rs:410-435) runs over all
+limbs at once.
+
+Packing soundness: a left shift leaks each field's last bit into the next
+field's bit 0 — but every row's recurrence ORs the start mask (bit 0 of every
+field) before any use, so the leak is absorbed; u64 limbs never carry into
+each other, and no field straddles a limb, so no other cross-talk exists.
+
+:class:`PackedExact` (``k = 0``) packs the **output-bearing trie nodes**
+(path string, length = depth) — not raw patterns — because merged AC outputs
+emit suffix patterns with the full walked span (reference builder
+output-union src/builder.rs:239-276). A hit *is* an exact state-arrival at
+that node.
+
+Device work, per search (:func:`packed_hits`):
+
+1. :func:`scan_flags` — the CUDA kernel ``scan_flags_kernel``
+   (``csrc/packed_bitap.cu``) writes one u8 any-hit flag per stream
+   position;
+2. :func:`compact_indices` — ascending hit positions (``torch.nonzero``);
+3. :func:`replay_words` — the CUDA kernel ``replay_words_kernel`` replays
+   the NFA from the fresh state over each hit's trailing ``halo`` symbols and
+   returns its match words.
+
+Each wrapper runs its plain torch version (``scan_flags_torch``,
+``replay_words_torch``) for tensors on the CPU, and launches its kernel for
+CUDA tensors — there is no fallback from one to the other.
+
+Tables are u64 limb words held as int64 bit patterns (``tables_from_numpy``
+converts the JAX package's u32-pair numpy tables). The plain versions split
+them into u32 halves in int64 tensors, because ``<<`` on a negative int64 is
+not a u64 shift.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _cuda_build
+from .compact import compact_indices
+
+#: Max packed alphabet (the kernels hold the [A, W] word table in shared
+#: memory and mask symbols to 7 bits).
+MAX_ALPHABET_PACKED = 128
+#: Max u64 limbs (the kernels are instantiated for W = 1..8).
+MAX_LIMBS = 8
+#: Max error rows the kernels are instantiated for.
+MAX_K = 6
+#: Largest warm-up halo the scan kernel stages (m_max + k <= 64 + 6).
+HALO_MAX = 128
+#: Outer corpus slice per dispatch on the streaming branch.
+STREAM_CHUNK = 1 << 26
+#: Largest corpus the resident path serves; larger inputs stream in slices.
+RESIDENT_MAX = 1 << 27
+#: Stream positions per chunk in the plain scan (one row of its batch).
+PLAIN_CHUNK = 256
+
+#: Kernel launches per wrapper (CUDA launches only; the plain versions on CPU
+#: tensors do not count).
+LAUNCHES = {"scan": 0, "replay": 0}
+
+_M32 = 0xFFFFFFFF
+
+
+def _pack_fields(lengths: List[int]) -> Optional[List[Tuple[int, int]]]:
+    """First-fit (limb, bit offset) per field; None if some field > 64 bits."""
+    out: List[Tuple[int, int]] = []
+    w, off = 0, 0
+    for m in lengths:
+        if m < 1 or m > 64:
+            return None
+        if off + m > 64:
+            w, off = w + 1, 0
+        out.append((w, off))
+        off += m
+    return out
+
+
+def _word_table(limb: np.ndarray, A: int, W: int) -> np.ndarray:
+    """[A, W] u64 per-symbol limb words -> [A, 2W] i32 (u32 bit patterns,
+    low half first; symbol 0 is the dead/pad class and stays all-zero)."""
+    tbl = np.zeros((A, 2 * W), dtype=np.uint32)
+    for lw in range(W):
+        tbl[:, 2 * lw] = (limb[:, lw] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        tbl[:, 2 * lw + 1] = (limb[:, lw] >> np.uint64(32)).astype(np.uint32)
+    return tbl.view(np.int32)
+
+
+def _starts_mask(offsets: List[Tuple[int, int]], W: int) -> np.ndarray:
+    starts = np.zeros(2 * W, dtype=np.uint32)
+    for lw, lo in offsets:
+        starts[2 * lw + (lo >> 5)] |= np.uint32(1) << np.uint32(lo & 31)
+    return starts
+
+
+def _last_bit_mask(offsets, lengths, rows, row_of, W) -> np.ndarray:
+    """[rows, 2W] u32 with each field's last bit set on its designated row."""
+    mask = np.zeros((rows, 2 * W), dtype=np.uint32)
+    for i, ((lw, lo), m) in enumerate(zip(offsets, lengths)):
+        bit = lo + m - 1
+        mask[row_of(i), 2 * lw + (bit >> 5)] |= np.uint32(1) << np.uint32(bit & 31)
+    return mask
+
+
+def fuzzy_masks(offsets, lengths, W: int, ks: List[int]) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(match [k+1, 2W], init [k+1, 2W], k) for per-field budgets ``ks``; the
+    init rows reproduce the reference's fresh-start state ``(1 << d) - 1``
+    per field (reference src/prefilter.rs:414-418). The numpy form of the JAX
+    package's ``PackedFuzzy.fuzzy_masks``, so ``k >= 1`` tables can be built
+    without the prefilter."""
+    k = max(ks)
+    match = _last_bit_mask(offsets, lengths, k + 1, lambda i: ks[i], W)
+    init = np.zeros((k + 1, 2 * W), dtype=np.uint32)
+    for (lw, lo), m in zip(offsets, lengths):
+        for d in range(1, k + 1):
+            word = np.uint64((1 << min(d, m)) - 1) << np.uint64(lo)
+            init[d, 2 * lw] |= np.uint32(word & np.uint64(0xFFFFFFFF))
+            init[d, 2 * lw + 1] |= np.uint32(word >> np.uint64(32))
+    return match, init, k
+
+
+def notlast_mask(offsets, lengths, W: int) -> np.ndarray:
+    """[2W] u32 mask with every field's LAST bit cleared — the Damerau
+    recurrence's bc_next guard (a shr1 of a char mask must not leak a
+    neighbouring field's first char into this field's last position)."""
+    last = _last_bit_mask(offsets, lengths, 1, lambda i: 0, W)[0]
+    return np.uint32(0xFFFFFFFF) ^ last
+
+
+class PackedExact:
+    """Output-node packing for exact (k = 0) search.
+
+    Symbols are a compact remap of the dense char classes to just the classes
+    appearing on trie edges (everything else -> 0, which matches nothing)."""
+
+    __slots__ = ("W", "A", "fields", "word_tbl", "starts", "m_max", "ascii_tbl", "remap")
+
+    def __init__(self, W, A, fields, word_tbl, starts, m_max, ascii_tbl, remap):
+        self.W = W
+        self.A = A
+        #: per field: (node_id, depth, limb, bit, path node ids)
+        self.fields = fields
+        self.word_tbl = word_tbl
+        self.starts = starts
+        self.m_max = m_max
+        self.ascii_tbl = ascii_tbl  # byte -> packed symbol (u8[256])
+        self.remap = remap  # dense class -> packed symbol (u8[num_classes])
+
+    @staticmethod
+    def build(engine) -> Optional["PackedExact"]:
+        dense = engine.dense
+        nodes = engine.nodes
+        if nodes[0].output:
+            return None  # empty patterns: oracle semantics (NaN), no kernel
+
+        # Trie walk collecting output-bearing nodes with their class paths.
+        out_nodes: List[Tuple[int, List[int], List[int]]] = []
+        used: dict[int, int] = {}
+        stack = [(0, [], [0])]
+        while stack:
+            ni, cls_path, node_path = stack.pop()
+            node = nodes[ni]
+            if node.output and ni != 0:
+                out_nodes.append((ni, cls_path, node_path))
+            for fc, nxt, _single in node.edges:
+                cid = dense.char_class.get(fc, 0)
+                if cid not in used:
+                    used[cid] = len(used) + 1  # packed symbols start at 1
+                stack.append((nxt, cls_path + [used[cid]], node_path + [nxt]))
+        if not out_nodes:
+            return None
+        A = len(used) + 1
+        if A > MAX_ALPHABET_PACKED:
+            return None
+
+        lengths = [len(p) for _, p, _ in out_nodes]
+        offsets = _pack_fields(lengths)
+        if offsets is None:
+            return None
+        W = max(w for w, _ in offsets) + 1
+        if W > MAX_LIMBS:
+            return None
+
+        limb = np.zeros((A, W), dtype=np.uint64)
+        for (ni, cls_path, _np_), (lw, lo) in zip(out_nodes, offsets):
+            for i, sym in enumerate(cls_path):
+                limb[sym, lw] |= np.uint64(1) << np.uint64(lo + i)
+        fields = [
+            (ni, len(cls), lw, lo, node_path)
+            for (ni, cls, node_path), (lw, lo) in zip(out_nodes, offsets)
+        ]
+
+        remap = np.zeros(dense.num_classes, dtype=np.uint8)
+        for cid, sym in used.items():
+            remap[cid] = sym
+        ascii_tbl = remap[np.minimum(dense.ascii_class, dense.num_classes - 1)].astype(np.uint8)
+        return PackedExact(
+            W, A, fields, _word_table(limb, A, W), _starts_mask(offsets, W),
+            max(lengths), ascii_tbl, remap,
+        )
+
+    def transcode(self, haystack: str, view, dense) -> np.ndarray:
+        """Haystack -> packed u8 symbol stream (a 256-entry table gather on
+        the host for ASCII)."""
+        if view.ascii:
+            return self.ascii_tbl[np.frombuffer(view.hay_bytes(), dtype=np.uint8)]
+        ids = dense.transcode(haystack, view)
+        return self.remap[np.minimum(ids, len(self.remap) - 1)]
+
+    def match_mask(self) -> np.ndarray:
+        offs = [(lw, lo) for _, _, lw, lo, _ in self.fields]
+        lens = [d for _, d, _, _, _ in self.fields]
+        return _last_bit_mask(offs, lens, 1, lambda i: 0, self.W)
+
+
+def packed_exact_of(engine) -> Optional[PackedExact]:
+    pk = getattr(engine, "_packed_exact_cache", None)
+    if pk is None:
+        pk = PackedExact.build(engine)
+        engine._packed_exact_cache = pk if pk is not None else False
+    return pk if pk is not False else None
+
+
+def _field_bits(pk) -> tuple:
+    """(u32 column, shift) of each field's last bit in the match words."""
+    out = []
+    for _ni, depth, lw, fo, _path in pk.fields:
+        bit = fo + depth - 1
+        out.append((2 * lw + (bit >> 5), bit & 31))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Tables on the device
+# ---------------------------------------------------------------------------
+
+class ScanTables:
+    """The scan's tables on one device: u64 limb words as int64 bit patterns.
+
+    ``tbl`` [A, W], ``starts`` [W], ``match`` and ``init`` [k + 1, W],
+    ``notlast`` [W] or None (None: plain recurrence; set with ``k >= 1``:
+    Damerau recurrence, swap = one error)."""
+
+    __slots__ = ("A", "W", "k", "tbl", "starts", "match", "init", "notlast")
+
+    def __init__(self, tbl, starts, match, init, notlast):
+        self.A, self.W = tbl.shape
+        self.k = match.shape[0] - 1
+        self.tbl = tbl
+        self.starts = starts
+        self.match = match
+        self.init = init
+        self.notlast = notlast
+
+    @property
+    def device(self) -> torch.device:
+        return self.tbl.device
+
+    @property
+    def damerau(self) -> bool:
+        return self.notlast is not None and self.k >= 1
+
+
+def _u64_limbs(a) -> np.ndarray:
+    """[..., 2W] u32 bit patterns (any 32-bit dtype) -> [..., W] int64
+    holding each limb's u64 bit pattern."""
+    a = np.ascontiguousarray(a)
+    a = a.view(np.uint32) if a.dtype.itemsize == 4 else a.astype(np.uint32)
+    lo = a[..., 0::2].astype(np.uint64)
+    hi = a[..., 1::2].astype(np.uint64)
+    return np.ascontiguousarray(lo | (hi << np.uint64(32))).view(np.int64)
+
+
+def tables_from_numpy(word_tbl, starts, match, init, notlast=None, device="cpu") -> ScanTables:
+    """The port's tables from the JAX package's numpy arrays: ``word_tbl``
+    [A, 2W] int32 (u32 bit patterns), ``starts`` [2W], ``match`` and ``init``
+    [k + 1, 2W], ``notlast`` [2W] (all u32)."""
+    conv = lambda a: torch.from_numpy(_u64_limbs(a)).to(device)
+    return ScanTables(
+        conv(word_tbl), conv(starts), conv(np.atleast_2d(match)),
+        conv(np.atleast_2d(init)), None if notlast is None else conv(notlast),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain torch versions of the kernels
+# ---------------------------------------------------------------------------
+
+def _halves(t: torch.Tensor):
+    return t & _M32, (t >> 32) & _M32
+
+
+def _shl1(lo, hi):
+    return (lo << 1) & _M32, ((hi << 1) & _M32) | (lo >> 31)
+
+
+class _PlainNfa:
+    """The recurrence of ``csrc/packed_bitap.cu`` over a batch of B
+    independent streams, in u32 halves (see the kernel source for the
+    equations). Rows 0..k are the error rows, k+1..2k the pending
+    transpositions under Damerau."""
+
+    def __init__(self, T: ScanTables, B: int):
+        self.k, self.dam = T.k, T.damerau
+        self.tbl = _halves(T.tbl)
+        self.st = _halves(T.starts)
+        self.match = [_halves(T.match[d]) for d in range(self.k + 1)]
+        if self.dam:
+            self.nl = _halves(T.notlast)
+        shape = (B, T.W)
+        self.rows = [
+            tuple(h.expand(shape).clone() for h in _halves(T.init[d]))
+            for d in range(self.k + 1)
+        ] + [
+            (torch.zeros(shape, dtype=torch.int64, device=T.device),) * 2
+            for _ in range(self.k if self.dam else 0)
+        ]
+
+    def step(self, sym: torch.Tensor):
+        """Advance every stream by one symbol; returns the (lo, hi) match
+        words [B, W]."""
+        k = self.k
+        bc_lo, bc_hi = self.tbl[0][sym], self.tbl[1][sym]
+        st_lo, st_hi = self.st
+        prev = self.rows
+        new = [None] * len(prev)
+        s_lo, s_hi = _shl1(*prev[0])
+        new[0] = ((s_lo | st_lo) & bc_lo, (s_hi | st_hi) & bc_hi)
+        if self.dam:
+            nl_lo, nl_hi = self.nl
+            bcn_lo = ((bc_lo >> 1) | ((bc_hi << 31) & _M32)) & nl_lo
+            bcn_hi = (bc_hi >> 1) & nl_hi
+            sbc_lo, sbc_hi = _shl1(bc_lo, bc_hi)
+        for d in range(1, k + 1):
+            a_lo, a_hi = _shl1(*prev[d])
+            u_lo = prev[d - 1][0] | new[d - 1][0]
+            u_hi = prev[d - 1][1] | new[d - 1][1]
+            b_lo, b_hi = _shl1(u_lo, u_hi)
+            n_lo = (a_lo & bc_lo) | b_lo | prev[d - 1][0] | st_lo
+            n_hi = (a_hi & bc_hi) | b_hi | prev[d - 1][1] | st_hi
+            if self.dam:
+                t_lo, t_hi = _shl1(*prev[k + d])
+                n_lo = n_lo | (t_lo & sbc_lo)
+                n_hi = n_hi | (t_hi & sbc_hi)
+                p_lo, p_hi = _shl1(*prev[d - 1])
+                new[k + d] = ((p_lo | st_lo) & bcn_lo, (p_hi | st_hi) & bcn_hi)
+            new[d] = (n_lo, n_hi)
+        self.rows = new
+        w_lo = new[0][0] & self.match[0][0]
+        w_hi = new[0][1] & self.match[0][1]
+        for d in range(1, k + 1):
+            w_lo = w_lo | (new[d][0] & self.match[d][0])
+            w_hi = w_hi | (new[d][1] & self.match[d][1])
+        return w_lo, w_hi
+
+
+def scan_flags_torch(ids: torch.Tensor, T: ScanTables, halo: int) -> torch.Tensor:
+    """Plain version of ``scan_flags_kernel``: u8 [n] flags, 1 where some
+    field's match bit is set at that stream position. Vectorised over
+    ``PLAIN_CHUNK``-symbol slices of the stream, each warmed up from the fresh
+    state over the ``halo`` symbols before it (positions < 0 read as the
+    dead symbol 0); a Python loop walks the positions."""
+    n = ids.numel()
+    if n == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=ids.device)
+    chunk = PLAIN_CHUNK
+    nch = -(-n // chunk)
+    padded = torch.zeros(halo + nch * chunk, dtype=torch.int64, device=ids.device)
+    padded[halo : halo + n] = ids.to(torch.int64)
+    rows = padded.unfold(0, halo + chunk, chunk)  # [nch, halo + chunk]
+    nfa = _PlainNfa(T, nch)
+    flags = torch.zeros((nch, chunk), dtype=torch.uint8, device=ids.device)
+    for t in range(halo + chunk):
+        w_lo, w_hi = nfa.step(rows[:, t])
+        if t >= halo:
+            flags[:, t - halo] = ((w_lo | w_hi) != 0).any(dim=1).to(torch.uint8)
+    return flags.reshape(-1)[:n]
+
+
+def replay_words_torch(ids: torch.Tensor, pos: torch.Tensor, T: ScanTables,
+                       halo: int) -> torch.Tensor:
+    """Plain version of ``replay_words_kernel``: for each stream position in
+    ``pos``, replay ``ids[pos - halo + 1 .. pos]`` from the fresh state
+    (reads outside the stream are symbol 0) and return the match words as
+    int64 [len(pos), 2W] u32 halves, low half first per limb."""
+    kh = pos.numel()
+    if kh == 0:
+        return torch.zeros((0, 2 * T.W), dtype=torch.int64, device=ids.device)
+    n = ids.numel()
+    idx = pos.reshape(-1, 1) + torch.arange(-halo + 1, 1, device=ids.device)
+    ok = (idx >= 0) & (idx < n)
+    win = torch.where(ok, ids[idx.clamp(0, n - 1)].to(torch.int64), 0)
+    nfa = _PlainNfa(T, kh)
+    for t in range(halo):
+        w_lo, w_hi = nfa.step(win[:, t])
+    return torch.stack([w_lo, w_hi], dim=2).reshape(kh, 2 * T.W)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(ids: torch.Tensor, T: ScanTables, halo: int) -> None:
+    if ids.dtype != torch.uint8 or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous 1-D uint8 tensor")
+    if T.device != ids.device:
+        raise ValueError(f"tables on {T.device}, ids on {ids.device}")
+    if not (1 <= halo <= HALO_MAX):
+        raise ValueError(f"halo {halo} outside 1..{HALO_MAX}")
+    if T.A > MAX_ALPHABET_PACKED or T.W > MAX_LIMBS or T.k > MAX_K:
+        raise ValueError(f"tables A={T.A} W={T.W} k={T.k} beyond the kernel limits")
+
+
+def _tables_args(T: ScanTables):
+    return (_ptr(T.tbl), _ptr(T.starts), _ptr(T.match), _ptr(T.init),
+            _ptr(T.notlast), T.A, T.W, T.k)
+
+
+def scan_flags(ids: torch.Tensor, T: ScanTables, halo: int) -> torch.Tensor:
+    """u8 [n] any-hit flags. CPU tensors run :func:`scan_flags_torch`; CUDA
+    tensors launch ``scan_flags_kernel``."""
+    _check(ids, T, halo)
+    if ids.device.type == "cpu":
+        return scan_flags_torch(ids, T, halo)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no scan kernel for device {ids.device}")
+    n = ids.numel()
+    flags = torch.empty(n, dtype=torch.uint8, device=ids.device)
+    if n == 0:
+        return flags
+    kern = _cuda_build.load()
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = kern.lib.fac_scan_flags(
+            ids.data_ptr(), n, *_tables_args(T), halo, flags.data_ptr(), stream
+        )
+    kern.check(rc, "scan_flags")
+    LAUNCHES["scan"] += 1
+    return flags
+
+
+def replay_words(ids: torch.Tensor, pos: torch.Tensor, T: ScanTables, halo: int) -> torch.Tensor:
+    """int64 [len(pos), 2W] match words at each hit position (u32 halves).
+    CPU tensors run :func:`replay_words_torch`; CUDA tensors launch
+    ``replay_words_kernel``. ``pos`` must hold positions < len(ids)."""
+    _check(ids, T, halo)
+    if pos.dtype != torch.int64 or pos.device != ids.device:
+        raise ValueError("pos must be int64 on the ids' device")
+    if ids.device.type == "cpu":
+        return replay_words_torch(ids, pos, T, halo)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no replay kernel for device {ids.device}")
+    pos = pos.contiguous()
+    kh = pos.numel()
+    words = torch.empty((kh, 2 * T.W), dtype=torch.int64, device=ids.device)
+    if kh == 0:
+        return words
+    kern = _cuda_build.load()
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = kern.lib.fac_replay_words(
+            ids.data_ptr(), ids.numel(), pos.data_ptr(), kh, *_tables_args(T),
+            halo, words.data_ptr(), stream,
+        )
+    kern.check(rc, "replay_words")
+    LAUNCHES["replay"] += 1
+    return words
+
+
+def packed_hits(ids: torch.Tensor, T: ScanTables, halo: int):
+    """Shift-AND pass emitting per-hit (end positions, match words).
+
+    Returns ``(count, pos [count] int64, words [count, 2W])``: ``pos`` is the
+    stream index of each hit's last symbol, ascending; ``words`` the OR over
+    error rows of the per-field match bits at that position (u32 halves)."""
+    flags = scan_flags(ids, T, halo)
+    pos = compact_indices(flags)
+    words = replay_words(ids, pos, T, halo)
+    return pos.numel(), pos, words
+
+
+# ---------------------------------------------------------------------------
+# Exact lane
+# ---------------------------------------------------------------------------
+
+_SPACE_COUNTER = itertools.count(1)
+
+
+def _space_token(engine) -> int:
+    """Stable per-engine id for device-corpus cache keys (id() could be
+    reused after GC; this token never is)."""
+    tok = getattr(engine, "_dev_space_token", None)
+    if tok is None:
+        tok = next(_SPACE_COUNTER)
+        engine._dev_space_token = tok
+    return tok
+
+
+def _exact_consts(engine, pk: PackedExact, device: torch.device):
+    """(tables, field columns, field shifts) of the exact lane on ``device``,
+    cached on the engine (``engine.to`` drops the cache)."""
+    cache = getattr(engine, "_packed_dev_consts", None)
+    if cache is None or cache[0] != device:
+        fb = _field_bits(pk)
+        cache = (device, (
+            tables_from_numpy(
+                pk.word_tbl, pk.starts, pk.match_mask(),
+                np.zeros((1, 2 * pk.W), np.uint32), device=device,
+            ),
+            torch.tensor([c for c, _ in fb], dtype=torch.int64, device=device),
+            torch.tensor([s for _, s in fb], dtype=torch.int64, device=device),
+        ))
+        engine._packed_dev_consts = cache
+    return cache[1]
+
+
+def _run_exact_kernel(ids: torch.Tensor, T: ScanTables, halo: int, cols, shs):
+    """Field emissions of one exact pass: (positions, field indices) as numpy
+    int64, field-major with positions ascending within each field. Field
+    bits are expanded on the device, so one (pos, field) pair per emission
+    crosses to the host, in one copy."""
+    count, pos, w = packed_hits(ids, T, halo)
+    if count == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    bits = (w[:, cols] >> shs) & 1                      # [K, F]
+    eidx = compact_indices(bits.T.reshape(-1))          # field-major
+    out = torch.stack([pos[eidx % count], eidx // count]).cpu().numpy()
+    return out[0], out[1]
+
+
+def exact_hits_packed(engine, haystack: str, view):
+    """All exact state-arrivals at output nodes: (ends [h], node field [h])
+    as numpy arrays; ends are end-exclusive grapheme indices. None when the
+    engine isn't packable."""
+    from ..utils import device_corpus
+
+    pk = packed_exact_of(engine)
+    if pk is None:
+        return None
+    halo = pk.m_max
+
+    n_graphemes = len(view)
+    if n_graphemes == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    device = engine.device
+    T, cols, shs = _exact_consts(engine, pk, device)
+    transcode = lambda h: np.ascontiguousarray(pk.transcode(h, view, engine.dense), dtype=np.uint8)
+
+    if n_graphemes <= RESIDENT_MAX:
+        # Resident path: the transcoded corpus stays on the device across
+        # searches; a repeated search ships nothing but the hits back.
+        ids_dev, n = device_corpus.resident(
+            haystack, ("pk-exact", _space_token(engine)), transcode, device
+        )
+        pos, fld = _run_exact_kernel(ids_dev, T, halo, cols, shs)
+        keep = pos < n
+        return pos[keep] + 1, fld[keep]
+
+    # Streaming path for corpora past the resident budget: slices overlap by
+    # m_max - 1 symbols so every match ends inside exactly one slice's
+    # owned range.
+    ids = transcode(haystack)
+    n = len(ids)
+    ends_all: List[np.ndarray] = []
+    fields_all: List[np.ndarray] = []
+    for c0 in range(0, n, STREAM_CHUNK):
+        c1 = min(n, c0 + STREAM_CHUNK)
+        lo = max(0, c0 - (pk.m_max - 1))
+        ids_dev = torch.from_numpy(ids[lo:c1]).to(device)
+        pos, fld = _run_exact_kernel(ids_dev, T, halo, cols, shs)
+        keep = (pos >= (c0 - lo)) & (pos < (c1 - lo))
+        ends_all.append(pos[keep] + lo + 1)
+        fields_all.append(fld[keep])
+    return np.concatenate(ends_all), np.concatenate(fields_all)

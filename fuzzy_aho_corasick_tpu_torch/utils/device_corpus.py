@@ -1,0 +1,142 @@
+"""Device-resident corpus cache.
+
+The deployment model keeps the corpus in device memory and runs many searches
+against it (different engines, thresholds, options) — the analog of the
+reference keeping the haystack in RAM across calls. A repeated search then
+ships nothing to the device; only the compacted hits come back.
+
+``resident`` maps (haystack, symbol-space, device) -> a torch uint8 tensor of
+transcoded symbol ids on that device, padded with zeros (the dead symbol) to
+a bucketed length. Keyed by the haystack's *content* (sampled for multi-MB
+strings — see ``_content_key``); a full string equality check guards against
+key collisions. LRU-evicted by total device bytes.
+
+The JAX package also keeps a packed u32 word view of each corpus
+(``resident_words``) for its aligned window fetch; the CUDA kernels read the
+u8 stream directly, so the port does not carry it.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+#: Device bytes the cache may hold before LRU eviction.
+CAPACITY_BYTES = 8 << 30
+#: Smallest bucketed length.
+MIN_BUCKET = 1 << 16
+#: Guaranteed dead-symbol tail past ``n`` in every resident buffer, so
+#: kernels may read fixed-width windows starting anywhere < n without
+#: clamping.
+TAIL_MARGIN = 128
+
+_lru: "OrderedDict[tuple, tuple]" = OrderedDict()  # key -> (hay, dev, n)
+_held_bytes = 0
+
+#: Above this length the cache key samples the content instead of hashing
+#: all of it. Hits are still verified by full string equality, so a sample
+#: collision costs one memcmp, never correctness.
+_SAMPLED_HASH_MIN = 1 << 20
+
+#: Last (query str, entry str) PAIR verified (by full equality) per content
+#: key, so a repeated search with the same str object skips the memcmp. The
+#: pair matters: vouching for the content KEY alone would trust any replaced
+#: entry under a colliding sampled hash. Both strs are immutable, so identity
+#: of BOTH endpoints implies the memcmp'd equality.
+_VERIFIED: "OrderedDict[tuple, tuple]" = OrderedDict()
+_VERIFIED_MAX = 32
+
+
+def _hit_fresh(hkey: tuple, stored, haystack: str) -> bool:
+    """Whether ``stored`` (the LRU entry's haystack) matches ``haystack`` —
+    by identity, by this exact pair's prior verification, or by one memcmp."""
+    if stored is haystack:
+        return True
+    v = _VERIFIED.get(hkey)
+    if v is not None and v[0] is haystack and v[1] is stored:
+        return True
+    if stored == haystack:
+        _VERIFIED[hkey] = (haystack, stored)
+        _VERIFIED.move_to_end(hkey)
+        while len(_VERIFIED) > _VERIFIED_MAX:
+            _VERIFIED.popitem(last=False)
+        return True
+    return False
+
+
+def _evict_to_capacity() -> None:
+    global _held_bytes
+    while _held_bytes > CAPACITY_BYTES and len(_lru) > 1:
+        _, (_, old_dev, _old_n) = _lru.popitem(last=False)
+        _held_bytes -= old_dev.numel() * old_dev.element_size()
+
+
+def _content_key(haystack: str) -> tuple:
+    n = len(haystack)
+    if n < _SAMPLED_HASH_MIN:
+        return (hash(haystack), n)
+    mid = n >> 1
+    return (
+        hash((haystack[:2048], haystack[mid : mid + 2048], haystack[-2048:])),
+        n,
+    )
+
+
+def bucket_len(n: int) -> int:
+    """Smallest length >= n of the form (8..15)/8 * 2^k (<= 12.5%
+    overshoot; the scan kernels do work proportional to the bucket, so
+    overshoot is wasted throughput; every bucket is a multiple of
+    2^(k-3) >= 8192)."""
+    b = MIN_BUCKET
+    while b < n:
+        p = 1 << (b.bit_length() - 1)  # containing power of two
+        b += p // 8 if b != p else b // 8
+    return b
+
+
+def resident(
+    haystack: str,
+    space: tuple,
+    transcode: Callable[[str], np.ndarray],
+    device: torch.device,
+) -> Tuple[torch.Tensor, int]:
+    """Tensor on ``device`` of ``transcode(haystack)`` padded with zeros to
+    ``bucket_len(n + TAIL_MARGIN)``; ships at most once per (haystack
+    content, space, device).
+
+    ``space`` must identify the symbol mapping (e.g. an engine's packed
+    alphabet id); zero must be a dead symbol in that space (the pad tail).
+    Returns (tensor, n).
+    """
+    global _held_bytes
+    hkey = _content_key(haystack)
+    key = hkey + (space, str(device))
+    hit = _lru.get(key)
+    if hit is not None and _hit_fresh(hkey, hit[0], haystack):
+        if hit[0] is not haystack:  # skip the memcmp for the sibling lookups
+            _lru[key] = (haystack,) + hit[1:]
+        _lru.move_to_end(key)
+        return hit[1], hit[2]
+
+    ids = transcode(haystack)
+    n = len(ids)
+    nb = bucket_len(max(n, 1) + TAIL_MARGIN)
+    pad = np.zeros(nb, dtype=ids.dtype)
+    pad[:n] = ids
+    dev = torch.from_numpy(pad).to(device)
+
+    _held_bytes += dev.numel() * dev.element_size()
+    _lru[key] = (haystack, dev, n)
+    _evict_to_capacity()
+    return dev, n
+
+
+def clear() -> None:
+    """Drop every cached device buffer (tests / memory pressure)."""
+    global _held_bytes
+    _lru.clear()
+    _VERIFIED.clear()
+    _held_bytes = 0

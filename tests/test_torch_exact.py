@@ -1,0 +1,155 @@
+"""The exact slice end to end: the port's ``search_raw`` on the CPU is
+list-equal to the JAX package's ``backend="device"`` result (Pallas in
+interpret mode) and match-set-equal to the oracle — pattern, start, end, f32
+similarity bits, edits. The tolerance is exact: the work is integer and
+bitwise, and similarities are pattern weights copied, not computed."""
+
+import numpy as np
+import pytest
+
+from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
+from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+from fuzzy_aho_corasick_tpu import SearchOptions as JaxOptions
+from fuzzy_aho_corasick_tpu.ops import packed_bitap as jpb
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, SearchOptions
+from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
+from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+
+HEADLINE = [
+    "tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla",
+    "ullamcorper", "pellentesque", "sagittis", "condimentum", "habitasse",
+    "malesuada", "scelerisque", "imperdiet", "vulputate", "ridiculus",
+    "parturient",
+]
+FILLER = ["lorem", "ipsum", "dolor", "sit", "amet", "elit", "eros", "porta", "orci"]
+
+
+def _corpus(seed: int, words: int, needles, case_mix: bool = True) -> str:
+    """Filler words with needles at 1 in 7, space-joined; mixed case."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(words):
+        w = FILLER[int(rng.integers(len(FILLER)))]
+        if rng.integers(7) == 0:
+            w = needles[int(rng.integers(len(needles)))]
+        if case_mix and rng.integers(4) == 0:
+            w = w.upper()
+        out.append(w)
+    return " ".join(out)
+
+
+def _tuples(matches):
+    return [
+        (m.pattern_index, m.start, m.end,
+         np.float32(m.similarity).view(np.uint32).item(), m.edits)
+        for m in matches
+    ]
+
+
+def _engines(patterns, ci=True):
+    jax_e = JaxBuilder.new().case_insensitive(ci).build(patterns)
+    port_e = FuzzyAhoCorasickBuilder.new().case_insensitive(ci).device("cpu").build(patterns)
+    jax_e.backend = "device"
+    port_e.backend = "device"
+    return jax_e, port_e
+
+
+def _check(jax_e, port_e, hay, thr):
+    got = _tuples(port_e.search_raw(hay, thr))
+    assert port_e.last_stats["backend"] == "device-exact-packed"
+    assert got == _tuples(jax_e.search_raw(hay, thr))
+    port_e.backend = "oracle"
+    assert sorted(got) == sorted(_tuples(port_e.search_raw(hay, thr)))
+    port_e.backend = "device"
+    return got
+
+
+WEIGHTED = [("tincidunt", 0.4), ("phaetra", 0.9), ("sollicitudin", 0.6), "venenatis"]
+CYRILLIC = ["привет", "мир", "Москва", "ирина", "тест"]
+
+
+@pytest.mark.parametrize(
+    "patterns,ci,hay,thr,want_min",
+    [
+        (HEADLINE, True, _corpus(11, 700, HEADLINE[:3] + ["fringilla"]), 0.5, 40),
+        (HEADLINE + ["Lorem"], False, _corpus(12, 700, HEADLINE[:4]), 0.5, 20),
+        (WEIGHTED, True, _corpus(13, 700, ["tincidunt", "phaetra", "sollicitudin"]), 0.5, 20),
+        (CYRILLIC, True, _corpus(14, 500, ["привет", "МИР", "москва", "иРИНа"]), 0.5, 20),
+        (HEADLINE, True, "", 0.5, 0),
+    ],
+    ids=["headline", "case-sensitive", "weights-below-threshold", "cyrillic", "empty"],
+)
+def test_search_raw_list_equal_to_jax_device(patterns, ci, hay, thr, want_min):
+    jax_e, port_e = _engines(patterns, ci)
+    got = _check(jax_e, port_e, hay, thr)
+    assert len(got) >= want_min
+    if patterns is WEIGHTED:  # tincidunt (0.4) never reaches 0.5
+        assert {p for p, *_ in got} == {1, 2}
+
+
+def test_streaming_branch_matches_resident(monkeypatch):
+    needles = ["tincidunt", "phaetra", "sollicitudin"]
+    words = _corpus(15, 800, needles).split(" ")
+    # Matches straddling every 1024-symbol slice edge.
+    hay = " ".join(words)
+    for edge in (1024, 2048, 3072):
+        hay = hay[: edge - 4] + "sollicitudin" + hay[edge + 8 :]
+    jax_e, port_e = _engines(HEADLINE)
+    resident = _tuples(port_e.search_raw(hay, 0.5))
+    device_corpus.clear()
+    for mod in (jpb, tpb):
+        monkeypatch.setattr(mod, "RESIDENT_MAX", 1500)
+        monkeypatch.setattr(mod, "STREAM_CHUNK", 1024)
+    got = _check(jax_e, port_e, hay, 0.5)
+    assert sorted(got) == sorted(resident)
+    starts = {s for p, s, *_ in got if p == 2}
+    assert {1020, 2044, 3068} <= starts
+
+
+def test_search_sorted_non_overlapping():
+    jax_e, port_e = _engines(HEADLINE + ["tinc", "dunt", "tincidun"])
+    hay = _corpus(16, 600, ["tincidunt", "phaetra", "tincid", "dunt"])
+    j_opts = JaxOptions.new().with_threshold(0.5).sorted().non_overlapping()
+    p_opts = SearchOptions.new().with_threshold(0.5).sorted().non_overlapping()
+    got = _tuples(port_e.search(hay, p_opts))
+    assert got == _tuples(jax_e.search(hay, j_opts))
+    assert len(got) > 10
+
+
+def test_lanes_not_ported_raise_on_device_and_auto():
+    big = _corpus(17, 4000, HEADLINE[:3])
+    assert len(big) >= FuzzyAhoCorasickBuilder.new().build(["x"]).AUTO_DEVICE_MIN
+    fuzzy = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(1))
+             .device("cpu").build(HEADLINE))
+    for backend in ("device", "auto"):
+        fuzzy.backend = backend
+        with pytest.raises(NotImplementedError, match="fuzzy DP lane"):
+            fuzzy.search_raw(big, 0.8)
+    # Below AUTO_DEVICE_MIN 'auto' stays on the host, as in the JAX package.
+    small = "tincidunt tinciduntt phaetr"
+    fuzzy.backend = "auto"
+    ref = JaxBuilder.new().fuzzy(JaxLimits.new().edits(1)).build(HEADLINE)
+    ref.backend = "oracle"
+    want = sorted(_tuples(ref.search_raw(small, 0.8)))
+    assert len(want) >= 3 and sorted(_tuples(fuzzy.search_raw(small, 0.8))) == want
+    # An exact engine that the packed lane cannot hold (field > 64).
+    wide = FuzzyAhoCorasickBuilder.new().device("cpu").build(["a" * 70])
+    wide.backend = "device"
+    with pytest.raises(NotImplementedError, match="goto-walk"):
+        wide.search_raw(big, 0.5)
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda e: e.with_prefilter(),
+        lambda e: e.search_stream(None, 0.5, print),
+        lambda e: e.save("unused.npz"),
+        lambda e: FuzzyAhoCorasickBuilder.new().build_replacer({"a": "b"}),
+    ],
+    ids=["prefilter", "streaming", "serialize", "replacer"],
+)
+def test_entry_points_not_ported_raise(call):
+    engine = FuzzyAhoCorasickBuilder.new().device("cpu").build(["abc"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        call(engine)

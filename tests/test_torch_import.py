@@ -1,0 +1,95 @@
+"""The torch port stands alone: no JAX, no JAX package, and no ``regex`` on
+the ASCII path; CUDA is never replaced by the CPU behind the caller's back."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
+from fuzzy_aho_corasick_tpu.utils import graphemes as jax_graphemes
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder
+from fuzzy_aho_corasick_tpu_torch.utils import graphemes as port_graphemes
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "fuzzy_aho_corasick_tpu_torch"
+
+_CHILD = r"""
+import sys
+sys.modules["regex"] = None  # any import of regex now raises ImportError
+sys.path.insert(0, sys.argv[1])
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder
+engine = (FuzzyAhoCorasickBuilder.new().case_insensitive(True).device("cpu")
+          .build(sys.argv[3].split(",")))
+engine.backend = "device"
+got = engine.search_raw(sys.argv[2], 0.5)
+print(sorted((m.pattern_index, m.start, m.end) for m in got))
+print(engine.last_stats["backend"], "jax" in sys.modules,
+      "fuzzy_aho_corasick_tpu" in sys.modules)
+"""
+_WORDS = ["he", "she", "his", "hers", "tincidunt"]
+_HAY = "Ushers and his TINCIDUNT\r\nshe"
+
+
+def test_ascii_exact_search_runs_without_jax_or_regex():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD, str(ROOT), _HAY, ",".join(_WORDS)],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    matches_line, state_line = out.stdout.strip().splitlines()[-2:]
+    ref = JaxBuilder.new().case_insensitive(True).build(_WORDS)
+    ref.backend = "oracle"
+    want = sorted((m.pattern_index, m.start, m.end) for m in ref.search_raw(_HAY, 0.5))
+    assert len(want) == 9
+    assert matches_line == repr(want)
+    assert state_line == "device-exact-packed False False"
+
+
+def test_port_sources_import_no_jax():
+    bad = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|fuzzy_aho_corasick_tpu)(\.|\s|$)", re.M
+    )
+    offenders = [
+        str(p.relative_to(ROOT))
+        for p in PORT.rglob("*.py")
+        if bad.search(p.read_text())
+    ]
+    assert offenders == []
+    assert not bad.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_cuda_request_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    engine = FuzzyAhoCorasickBuilder.new().build(["abc"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        engine.to("cuda")
+    # The builder's default device is cuda: the device path refuses to run
+    # rather than carrying on on the CPU.
+    engine.backend = "device"
+    with pytest.raises(RuntimeError, match="cuda"):
+        engine.search_raw("xxabcxx", 0.5)
+
+
+@pytest.mark.parametrize(
+    "text", ["", "abc", "a\r\nb", "\r\r\n\n", "\n\r", "x\r", "\r\nA\r\n"]
+)
+def test_ascii_segmentation_matches_reference(text):
+    assert port_graphemes.graphemes(text) == jax_graphemes.graphemes(text)
+    assert port_graphemes.grapheme_len(text) == jax_graphemes.grapheme_len(text)
+    for ci in (False, True):
+        assert port_graphemes.fold_graphemes(text, ci) == jax_graphemes.fold_graphemes(text, ci)
+
+
+def test_unicode_segmentation_without_regex_names_it(monkeypatch):
+    monkeypatch.setattr(port_graphemes, "_GRAPHEME_RE", None)
+    monkeypatch.setitem(sys.modules, "regex", None)
+    with pytest.raises(ImportError, match="regex"):
+        port_graphemes.graphemes("été")
