@@ -111,7 +111,8 @@ class FuzzyAhoCorasick:
         or its name); returns ``self``. Asking for CUDA where there is none
         raises — the engine never carries on on the CPU in its place."""
         self.device = checked_device(device)
-        self._packed_dev_consts = None
+        self._packed_dev_consts = None  # exact lane's scan tables
+        self._dp_dev_consts = None  # fuzzy scan tables, DP tables, node ceilings
         return self
 
     def _device_engine(self):

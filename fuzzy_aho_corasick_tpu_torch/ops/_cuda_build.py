@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use by ``nvcc`` for ``sm_90a`` into a
+The sources are compiled at first use by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, which is loaded with ``ctypes``:
 tensors pass as ``data_ptr()`` and the stream as
 ``torch.cuda.current_stream().cuda_stream``, all ``c_void_p``. The library
@@ -26,14 +27,19 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "packed_bitap.cu",)
+SOURCES = (_PKG / "csrc" / "packed_bitap.cu", _PKG / "csrc" / "banded_dp.cu")
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # The DP keeps the oracle's f32 operation order: nothing may be
+    # contracted into a fused multiply-add.
+    "-fmad=false",
 )
 
-_c_void_p, _c_ll, _c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_c_void_p, _c_ll, _c_int, _c_f = (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+)
 _SIGNATURES = {
     # ids, n, tbl, starts, match, init, notlast, A, W, k, halo, flags, stream
     "fac_scan_flags": [_c_void_p, _c_ll] + [_c_void_p] * 5 + [_c_int] * 4
@@ -42,6 +48,13 @@ _SIGNATURES = {
     # words, stream
     "fac_replay_words": [_c_void_p, _c_ll, _c_void_p, _c_ll] + [_c_void_p] * 5
     + [_c_int] * 4 + [_c_void_p, _c_void_p],
+    # cand_field, cand_start, M, ids, ids_u8, npad, limit, path_cls,
+    # path_node, depth, Lmax, F, sim, C, node_ceil, sb_edge, out_count, N,
+    # max_pen, p_sub, p_ins, p_del, p_swap, floor, E, deadend, pen, cnt,
+    # stream
+    "fac_banded_dp": [_c_void_p, _c_void_p, _c_ll, _c_void_p, _c_int, _c_ll, _c_ll]
+    + [_c_void_p] * 3 + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3
+    + [_c_int] + [_c_f] * 6 + [_c_int] * 2 + [_c_void_p] * 3,
 }
 
 
@@ -90,6 +103,37 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _build(out_dir: Path, so: Path) -> str:
+    """Compile every source to an object, one ``nvcc`` each in parallel,
+    then link the shared library; returns the build log."""
+    nvcc = _nvcc()
+    jobs = []
+    for src in SOURCES:
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = "", False
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + out
+        failed |= proc.returncode != 0
+    if not failed:
+        tmp = out_dir / f"libfac_kernels.{os.getpid()}.so.tmp"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _c, obj, _p in jobs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout
+        failed = proc.returncode != 0
+        if not failed:
+            os.replace(tmp, so)
+    for _c, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{log[-6000:]}")
+    return log
+
+
 def load() -> Kernels:
     """Build (once per source hash) and load the kernel library."""
     global _LOADED
@@ -102,16 +146,9 @@ def load() -> Kernels:
         seconds = 0.0
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libfac_kernels.{os.getpid()}.so.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _build(out_dir, so)
             seconds = time.perf_counter() - t0
-            log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            log_path.write_text(log)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-4000:]}")
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

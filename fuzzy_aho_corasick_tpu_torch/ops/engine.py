@@ -1,13 +1,19 @@
 """Device search engine: dispatch layer over the CUDA kernels.
 
-Same contract as the JAX package's ``ops/engine.py``: ``supports`` says
-whether the device path serves an (engine, haystack) pair, ``search_raw``
-serves it. The port carries the exact lane. The JAX package's other device
-lanes (fuzzy, beamed, mapped, typed) are still to port; an engine that would
-reach one of them is *supported* here and ``search_raw`` raises
-``NotImplementedError`` naming the lane, so a device-sized haystack never
-runs on the pure-Python oracle in their place. ``supports`` is False only
-where the JAX package itself routes to the host.
+Same contract and the same eligibility as the JAX package's
+``ops/engine.py``: ``supports`` says whether the device path serves an
+(engine, haystack) pair, ``search_raw`` serves it. An engine is claimed by a
+lane exactly when the JAX package claims it (the host-only spec builders of
+``ops/verify_dp`` decide the mapped and typed lanes, as there); everything
+else is served by the host oracle.
+
+Ported lanes: exact (``ops/exact``) and the FAST fuzzy DP lane
+(``ops/fuzzy``, ``ops/verify_dp``), for beamed engines too. The mapped,
+typed and forbid DP lanes, the large-dictionary lane and the beam lanes are
+not ported yet: where the JAX package would serve an engine on one of them,
+``search_raw`` raises ``NotImplementedError`` naming its ROADMAP item, so a
+device-sized haystack never runs on the pure-Python oracle in their place.
+Where the JAX package itself falls back to the oracle, so does the port.
 """
 
 from __future__ import annotations
@@ -39,6 +45,13 @@ def _max_edit_budget(engine) -> Optional[int]:
     return budget
 
 
+def _not_ported(lane: str, item: str):
+    raise NotImplementedError(
+        f"this engine needs the {lane}, which is not ported to the torch "
+        f"package yet (ROADMAP queue A item {item})"
+    )
+
+
 class DeviceEngine:
     """Per-engine device dispatcher (lazily constructed by
     :class:`fuzzy_aho_corasick_tpu_torch.automaton.FuzzyAhoCorasick`)."""
@@ -46,47 +59,130 @@ class DeviceEngine:
     def __init__(self, engine):
         self.engine = engine
         e = engine
-        no_root = not e.nodes[0].output
-        fast = 1 <= e.max_edits_fast <= 6 and not e.has_pattern_limits
         # Exact mode: no edit budget anywhere -> the packed shift-AND lane.
         self._exact_ok = _max_edit_budget(e) == 0 and not e.mappings
-        # The JAX package's other lanes, by its own eligibility conditions
-        # (ops/engine.py there): fuzzy fast path (beamed or not), mapped,
-        # typed. The mapped and typed lanes also consult their DP specs
-        # there; the port, not having them, treats every engine in their
-        # envelope as theirs.
-        if self._exact_ok:
-            self._pending = None
-        elif fast and not e.mappings and no_root:
-            self._pending = (
-                "beamed fuzzy DP lane (ROADMAP queue A item 4)"
-                if e.beam_width is not None or e.auto_beam is not None
-                else "fuzzy DP lane (ROADMAP queue A item 3)"
+        # Beam configs (beam_width / auto_beam) are the reference's speed
+        # knobs bounding the host BFS frontier (src/search.rs:578-589); the
+        # device DP has no frontier to bound, so beamed engines are served by
+        # the exact DP lane, and fall back to the (beamed) host oracle whole
+        # where it declines.
+        self._beamed = e.beam_width is not None or e.auto_beam is not None
+        # Fuzzy fast-path mode: global total-edits budget 1..6, no
+        # per-pattern limits, no mappings (reference src/builder.rs:446-468).
+        self._fuzzy_ok = (
+            1 <= e.max_edits_fast <= 6
+            and not e.has_pattern_limits
+            and not e.mappings
+            and not e.nodes[0].output  # no empty patterns
+        )
+        # Mapped mode: FAST budget + multi-char mappings, where MappedSpec
+        # models the engine (single-byte edges, pb <= 3, |ha - pb| <= 1).
+        self._mapped_ok = False
+        if (
+            1 <= e.max_edits_fast <= 6
+            and not e.has_pattern_limits
+            and e.mappings
+            and not e.nodes[0].output
+        ):
+            from .verify_dp import mapped_spec_of
+
+            self._mapped_ok = mapped_spec_of(e) is not None
+        # Typed mode: per-type caps and/or per-pattern limits, where
+        # TypedSpec and the packed prefilter model hold the engine.
+        self._typed_ok = False
+        if (
+            not self._exact_ok
+            and not self._fuzzy_ok
+            and not self._mapped_ok
+            and not e.mappings
+            and not e.nodes[0].output
+        ):
+            from .packed_bitap import packed_fuzzy_of
+            from .verify_dp import typed_spec_of, verify_fields_of
+
+            self._typed_ok = (
+                typed_spec_of(e) is not None
+                and packed_fuzzy_of(e) is not None
+                and verify_fields_of(e) is not None
             )
-        elif fast and e.mappings and no_root:
-            self._pending = "mapped DP lane (ROADMAP queue A item 4)"
-        elif not e.mappings and no_root:
-            self._pending = "typed DP lane (ROADMAP queue A item 4)"
-        else:
-            self._pending = None
 
     def supports(self, haystack: str) -> bool:
-        """Whether the device path serves this (engine, haystack) pair."""
-        if self._pending is not None:
-            return True
+        """Whether the device path serves this (engine, haystack) pair with
+        results identical to the oracle (possibly via host fallback for
+        haystacks outside a lane's model, as in the JAX package)."""
+        if not (self._exact_ok or self._fuzzy_ok or self._typed_ok
+                or self._mapped_ok):
+            return False
         # Root-output (empty-pattern) exact configs keep the oracle's NaN
         # semantics; not worth a kernel.
-        return self._exact_ok and not self.engine.nodes[0].output
+        if self._exact_ok and self.engine.nodes[0].output:
+            return False
+        return True
 
     def search_raw(self, haystack: str, threshold: float) -> List[FuzzyMatch]:
+        from .. import oracle
         from ..automaton import checked_device
+        from ..utils.graphemes import view_of
 
-        if self._pending is not None:
-            raise NotImplementedError(
-                f"this engine needs the {self._pending}, which is not ported "
-                "to the torch package yet"
-            )
-        checked_device(self.engine.device)
-        from .exact import exact_search_device
+        e = self.engine
+        checked_device(e.device)
+        if self._exact_ok:
+            from .exact import exact_search_device
 
-        return exact_search_device(self.engine, haystack, threshold)
+            return exact_search_device(e, haystack, threshold)
+        if self._fuzzy_ok:
+            if not self._beamed:
+                from .fuzzy import fuzzy_search_device
+
+                return fuzzy_search_device(e, haystack, threshold)
+            # Beamed: the DP lane only. Where it declines, the JAX package
+            # takes the large-dictionary lane if the engine does not pack,
+            # else the beamed host oracle.
+            from .packed_bitap import packed_fuzzy_of
+            from .verify_dp import fuzzy_search_dp
+
+            view = view_of(haystack, e.case_insensitive)
+            n = len(view)
+            if n == 0:
+                return []
+            res = fuzzy_search_dp(e, haystack, threshold, view, n)
+            if res is not None:
+                return res
+            if packed_fuzzy_of(e) is None:
+                _not_ported("large-dictionary lane", "5")
+            return oracle.search_raw(e, haystack, threshold)
+        return self._unported_dp_lane(haystack, threshold, mapped=self._mapped_ok)
+
+    def _unported_dp_lane(self, haystack: str, threshold: float, mapped: bool):
+        """The mapped and typed lanes: serve on the host exactly where the JAX
+        package does (empty haystack; haystack gate of the mapped lane; the
+        DP's host-side declines), and raise where it would run its device
+        DP."""
+        from .. import oracle
+        from ..utils.graphemes import view_of
+        from .verify_dp import dp_plan, forbid_spec_of, mapped_spec_of, typed_spec_of
+
+        e = self.engine
+        view = view_of(haystack, e.case_insensitive)
+        n = len(view)
+        if n == 0:
+            return []
+        forbid = None if mapped else forbid_spec_of(e)
+        if mapped:
+            lane = "mapped DP lane"
+            # Every grapheme must be one code point (the class model's
+            # identity guarantee).
+            if not haystack.isascii() and n != len(haystack):
+                return oracle.search_raw(e, haystack, threshold)
+            plan = dp_plan(e, threshold, n, maps=mapped_spec_of(e))
+        elif forbid is not None:
+            lane = "forbid DP lane"
+            plan = dp_plan(e, threshold, n, forbid=forbid)
+        else:
+            lane = "typed DP lane"
+            plan = dp_plan(e, threshold, n, typed=typed_spec_of(e))
+        if plan is None:
+            return oracle.search_raw(e, haystack, threshold)
+        if 0.0 > plan.max_pen:
+            return []  # the budget admits nothing; no device work
+        _not_ported(lane, "4")

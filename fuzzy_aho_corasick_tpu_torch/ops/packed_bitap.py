@@ -65,8 +65,8 @@ RESIDENT_MAX = 1 << 27
 PLAIN_CHUNK = 256
 
 #: Kernel launches per wrapper (CUDA launches only; the plain versions on CPU
-#: tensors do not count).
-LAUNCHES = {"scan": 0, "replay": 0}
+#: tensors do not count). ``dp`` counts ``verify_dp.banded_dp``.
+LAUNCHES = {"scan": 0, "replay": 0, "dp": 0}
 
 _M32 = 0xFFFFFFFF
 
@@ -227,6 +227,71 @@ def packed_exact_of(engine) -> Optional[PackedExact]:
     if pk is None:
         pk = PackedExact.build(engine)
         engine._packed_exact_cache = pk if pk is not None else False
+    return pk if pk is not False else None
+
+
+class PackedFuzzy:
+    """Pattern packing with per-pattern row budgets (prefilter model): one
+    field per pattern, the fuzzy DP lane's scan tables."""
+
+    __slots__ = ("filt", "W", "A", "offsets", "ms", "word_tbl", "starts", "m_max")
+
+    def __init__(self, filt, W, A, offsets, ms, word_tbl, starts, m_max):
+        self.filt = filt
+        self.W = W
+        self.A = A
+        self.offsets = offsets
+        self.ms = ms
+        self.word_tbl = word_tbl
+        self.starts = starts
+        self.m_max = m_max
+
+    @staticmethod
+    def build(engine) -> Optional["PackedFuzzy"]:
+        from ..prefilter import BitapFilter
+
+        filt = getattr(engine, "_bitap_filter_cache", None)
+        if filt is None:
+            # allow_mappings: mapped engines use the packed scan with an
+            # edit-count-based budget (ops/verify_dp.MappedSpec), never the
+            # threshold-based k_for. Engines without mappings are unaffected.
+            filt = BitapFilter.build(engine, allow_mappings=True)
+            engine._bitap_filter_cache = filt if filt is not None else False
+        if filt is False or filt is None:
+            return None
+        A = len(filt.symbol_ids) + 1
+        if A > MAX_ALPHABET_PACKED:
+            return None
+        ms = [bp.m for bp in filt.patterns]
+        offsets = _pack_fields(ms)
+        if offsets is None:
+            return None
+        W = max(w for w, _ in offsets) + 1
+        if W > MAX_LIMBS:
+            return None
+        limb = np.zeros((A, W), dtype=np.uint64)
+        for bp, (lw, lo) in zip(filt.patterns, offsets):
+            limb[: len(bp.mask), lw] |= bp.mask << np.uint64(lo)
+        return PackedFuzzy(
+            filt, W, A, offsets, ms, _word_table(limb, A, W),
+            _starts_mask(offsets, W), max(ms),
+        )
+
+    def notlast(self) -> np.ndarray:
+        """[2W] u32: every field's last bit cleared (see :func:`notlast_mask`)."""
+        return notlast_mask(self.offsets, self.ms, self.W)
+
+    def fuzzy_masks(self, ks: List[int]) -> Tuple[np.ndarray, np.ndarray, int]:
+        """(match [k+1, 2W], init [k+1, 2W], k) for per-pattern budgets (see
+        :func:`fuzzy_masks`)."""
+        return fuzzy_masks(self.offsets, self.ms, self.W, ks)
+
+
+def packed_fuzzy_of(engine) -> Optional[PackedFuzzy]:
+    pk = getattr(engine, "_packed_fuzzy_cache", None)
+    if pk is None:
+        pk = PackedFuzzy.build(engine)
+        engine._packed_fuzzy_cache = pk if pk is not None else False
     return pk if pk is not False else None
 
 

@@ -1,0 +1,1086 @@
+"""Banded Damerau DP verify: the fast fuzzy path for packed engines.
+
+The trie is a *tree*, so a BFS state at node ``v`` with ``j`` haystack
+symbols consumed is reachable only along ``v``'s unique root path — its
+minimum penalty is exactly the banded weighted edit distance between
+``path(v)`` and ``haystack[s : s+j]`` (substitution scaled by the similarity
+table, insertion/deletion/swap at their configured penalties; reference edit
+branches src/search.rs:776-1089). So instead of expanding a beam of trie
+states per anchor, the lane:
+
+1. runs the packed multi-pattern shift-AND scan once over the corpus with
+   per-pattern error budgets (``packed_bitap.packed_hits``: the CUDA kernels
+   ``scan_flags_kernel`` and ``replay_words_kernel``) — every true match of
+   pattern ``p`` fires p's bit at the match's exact end position;
+2. expands each (pattern, end) hit into candidate (output-node field, start)
+   pairs: a <=E-edit match of a depth-``d`` output node consumes ``d + net``
+   haystack symbols with ``net`` in [-E, E], so ``start = end - d - delta``
+   (:func:`expand_candidates`);
+3. verifies each candidate with a banded (2E+1 diagonals) Damerau DP over the
+   field's path string, replicating the oracle's f32 penalty arithmetic,
+   weakest-link floor, per-node prune ceilings and global budget guards
+   (:func:`banded_dp`: the CUDA kernel ``banded_dp_kernel`` in
+   ``csrc/banded_dp.cu``, or its plain version :func:`banded_dp_torch` for
+   CPU tensors);
+4. thresholds the emission channels into compacted match rows
+   (:func:`emit_rows`), which cross to the host in one copy per slice and are
+   decoded there (``ops/emit.decode_matches``).
+
+Emission semantics: the oracle's span end ``me`` is the column of the last
+*consuming* move (exact/substitution/swap); insertions advance ``j`` without
+advancing ``me`` and deletions advance neither (reference state updates
+src/search.rs:776-1089). The DP therefore carries two channels per cell:
+
+* ``pen``  — min penalty over ALL scripts (continuation channel: feeds the
+  next row's transitions);
+* ``pen_e`` — min penalty over scripts whose moves after the last consume are
+  deletions only (emission channel): ``pen_e(i,j) = min(diag/swap arrivals,
+  pen_e(i-1,j) + p_del)``. Emission at row ``d`` column ``e`` reads
+  ``pen_e(d, e)`` — trailing insertions never emit.
+
+Each cell keeps one state PER EDIT COUNT (a Pareto front over (penalty,
+edits)); per-cell ties on equal penalty keep the earlier arrival, in the BFS
+push order exact/substitution > swap > insertion > deletion
+(src/search.rs:776-1089).
+
+The host-only eligibility predicates of the JAX package's other DP lanes
+(:class:`MappedSpec`, :class:`TypedSpec`, :func:`forbid_spec_of`) are carried
+here too: ``ops/engine.DeviceEngine`` uses them to claim exactly the engines
+the JAX package claims. Those lanes themselves are not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _cuda_build
+from .compact import compact_indices
+
+
+class VerifyFields:
+    """Host-side DP tables: one field per output-bearing trie node.
+
+    Suffix patterns merged into a deeper node's output list (reference
+    builder output-union src/builder.rs:239-276) emit with the full walked
+    span, so the DP string is the *node path*, not the pattern — the same
+    field model as ops/packed_bitap.PackedExact.
+    """
+
+    __slots__ = (
+        "num_fields", "depth", "node", "path_cls", "path_node", "max_depth",
+        "pat2field", "nf_max",
+    )
+
+    def __init__(self, num_fields, depth, node, path_cls, path_node, max_depth,
+                 pat2field, nf_max):
+        self.num_fields = num_fields
+        self.depth = depth
+        self.node = node
+        self.path_cls = path_cls
+        self.path_node = path_node
+        self.max_depth = max_depth
+        self.pat2field = pat2field
+        self.nf_max = nf_max
+
+    @staticmethod
+    def build(engine) -> Optional["VerifyFields"]:
+        dense = engine.dense
+        nodes = engine.nodes
+        if nodes[0].output:
+            return None  # empty patterns keep oracle semantics
+
+        fields: list = []  # (node_id, class path, node path)
+        stack = [(0, [], [])]
+        while stack:
+            ni, cls_path, node_path = stack.pop()
+            node = nodes[ni]
+            if node.output and ni != 0:
+                fields.append((ni, cls_path, node_path))
+            for fc, nxt, _single in node.edges:
+                cid = dense.char_class.get(fc, 0)
+                stack.append((nxt, cls_path + [cid], node_path + [nxt]))
+        if not fields:
+            return None
+
+        F = len(fields)
+        max_depth = max(len(p) for _, p, _ in fields)
+        depth = np.asarray([len(p) for _, p, _ in fields], dtype=np.int32)
+        node_arr = np.asarray([ni for ni, _, _ in fields], dtype=np.int32)
+        path_cls = np.zeros((F, max_depth), dtype=np.int32)
+        path_node = np.zeros((F, max_depth), dtype=np.int32)
+        for i, (_ni, cls, npath) in enumerate(fields):
+            path_cls[i, : len(cls)] = cls
+            path_node[i, : len(npath)] = npath
+
+        # pattern -> fields whose node.output contains it (usually one).
+        P = len(engine._patterns)
+        lists: list[list[int]] = [[] for _ in range(P)]
+        for i, (ni, _c, _n) in enumerate(fields):
+            for p in nodes[ni].output:
+                lists[p].append(i)
+        nf_max = max(len(l) for l in lists)
+        if nf_max == 0:
+            return None
+        pat2field = np.full((P, nf_max), -1, dtype=np.int32)
+        for p, l in enumerate(lists):
+            pat2field[p, : len(l)] = l
+        return VerifyFields(F, depth, node_arr, path_cls, path_node, max_depth,
+                            pat2field, nf_max)
+
+
+def verify_fields_of(engine) -> Optional[VerifyFields]:
+    vf = getattr(engine, "_verify_fields_cache", None)
+    if vf is None:
+        vf = VerifyFields.build(engine)
+        engine._verify_fields_cache = vf if vf is not None else False
+    return vf if vf is not False else None
+
+
+# ---------------------------------------------------------------------------
+# Mapped-engine eligibility: static mapping-arrival tables for the banded DP
+# ---------------------------------------------------------------------------
+
+#: Deepest pattern-side mapping walk the DP history window supports.
+MAPPED_PB_MAX = 3
+#: Unrolled-DP row bound (mapping arrivals need static window indices).
+MAPPED_LMAX = 24
+
+
+class MappedSpec:
+    """Static mapping-arrival tables for the banded DP (device lane for
+    multi-char mappings — reference hot-loop branch src/search.rs:883-923,
+    precompute src/builder.rs:383-442).
+
+    A mapping at path offset ``i`` of a field consumes ``ha`` haystack
+    symbols and ``pb`` pattern symbols at a fixed penalty, counting as one
+    substitution-class edit. Because the trie is a tree, a
+    ``MappingTransition`` at node ``u = node_at(i)`` whose ``next`` equals
+    ``node_at(i + pb)`` applies to exactly that segment of the field's path
+    — so every mapping the oracle can take along a root-to-output path
+    becomes one static DP arrival ``(row i+pb, col j) <- (row i, col j-ha)``.
+
+    ``maps`` is a tuple of ``(i_to, pb, drift, hay_cls, penalty, fields)``
+    entries with ``drift = ha - pb`` (|drift| <= 1 keeps the band width at
+    2E+1). ``k`` is the packed-scan budget: every edit costs at most
+    ``max(2, max(pb, ha))`` unit bitap errors, and the threshold-derived
+    ``k_for`` is unsound here because a score-1.0 mapping has penalty 0 —
+    so ``k = E * cmax`` from the edit budget alone.
+    """
+
+    __slots__ = ("maps", "k", "ph")
+
+    def __init__(self, maps, k, ph):
+        self.maps = maps
+        self.k = k
+        self.ph = ph
+
+    @staticmethod
+    def build(engine) -> Optional["MappedSpec"]:
+        from .packed_bitap import packed_fuzzy_of
+
+        if not engine.mappings:
+            return None
+        E = engine.max_edits_fast
+        if not 1 <= E <= 6:
+            return None
+        dense = engine.dense
+        if dense.has_multibyte_edges:
+            # Exact transitions under mappings follow single-byte edges only
+            # on the ASCII path / full-grapheme equality otherwise
+            # (src/structs.rs:499-519); the class model matches the oracle
+            # only when every edge is a single ASCII char.
+            return None
+        vf = verify_fields_of(engine)
+        if vf is None or vf.max_depth > MAPPED_LMAX:
+            return None
+        pk = packed_fuzzy_of(engine)
+        if pk is None:
+            return None
+
+        nodes = engine.nodes
+        cmax = 2  # swap costs 2 unit bitap errors (reference prefilter.rs:174-183)
+        grouped: dict[tuple, list] = {}
+        for fi in range(vf.num_fields):
+            d = int(vf.depth[fi])
+            path_node = vf.path_node[fi]
+
+            def node_at(i: int) -> int:
+                return 0 if i == 0 else int(path_node[i - 1])
+
+            for i in range(d):
+                mts = engine.mappings.get(node_at(i))
+                if not mts:
+                    continue
+                for mt in mts:
+                    pb = nodes[mt.next].depth - nodes[node_at(i)].depth
+                    if pb < 1 or i + pb > d or node_at(i + pb) != mt.next:
+                        continue
+                    if any(len(g) != 1 for g in mt.haystack):
+                        # Multi-char haystack graphemes can never occur under
+                        # the lane's haystack gate (all graphemes 1 code
+                        # point) — the entry is statically unmatchable.
+                        continue
+                    ha = len(mt.haystack)
+                    drift = ha - pb
+                    if pb > MAPPED_PB_MAX or abs(drift) > 1:
+                        return None  # whole engine declines -> oracle
+                    hay_cls = tuple(dense.char_class.get(g, 0) for g in mt.haystack)
+                    if 0 in hay_cls:
+                        return None  # defensive: dense must class every hay char
+                    key = (i + pb, pb, drift, hay_cls, float(np.float32(mt.penalty)))
+                    grouped.setdefault(key, []).append(fi)
+        maps = tuple(
+            (i_to, pb, drift, hay_cls, pen, tuple(sorted(set(fields))))
+            for (i_to, pb, drift, hay_cls, pen), fields in sorted(grouped.items())
+        )
+        k = E * max(cmax, max(
+            (max(pb, pb + drift) for _t, pb, drift, _h, _p, _f in maps),
+            default=1,
+        ))
+        from ..prefilter import MAX_USEFUL_K
+
+        if k > MAX_USEFUL_K:
+            return None
+        ph = max([2] + [pb for _t, pb, _d, _h, _p, _f in maps])
+        return MappedSpec(maps, k, ph)
+
+
+def mapped_spec_of(engine) -> Optional[MappedSpec]:
+    ms = getattr(engine, "_mapped_spec_cache", None)
+    if ms is None:
+        ms = MappedSpec.build(engine)
+        engine._mapped_spec_cache = ms if ms is not None else False
+    return ms if ms is not False else None
+
+
+# ---------------------------------------------------------------------------
+# Typed-limits eligibility: channels are edit-type VECTORS, not counts
+# ---------------------------------------------------------------------------
+
+_CAP_BIG = 255
+#: Most type-vector channels the typed DP compiles (E=4 all-free needs 70;
+#: tighter per-type caps keep higher budgets under this too).
+MAX_TYPED_CHANNELS = 96
+
+
+def _caps_of(lim) -> tuple:
+    """(cap_edits, cap_ins, cap_del, cap_subs, cap_swaps) with None -> BIG
+    (finalized limits: either ``edits_`` set with per-type None = unlimited
+    within the total, or ``edits_`` None with every per-type cap set —
+    reference src/structs.rs:317-335)."""
+    if lim is None:
+        return (0, 0, 0, 0, 0)
+    g = lambda v: _CAP_BIG if v is None else int(v)
+    return (g(lim.edits_), g(lim.insertions_), g(lim.deletions_),
+            g(lim.substitutions_), g(lim.swaps_))
+
+
+def _total_of(lim) -> int:
+    if lim is None:
+        return 0
+    if lim.edits_ is not None:
+        return int(lim.edits_)
+    return int((lim.insertions_ or 0) + (lim.deletions_ or 0)
+               + (lim.substitutions_ or 0) + (lim.swaps_ or 0))
+
+
+class TypedSpec:
+    """Static channel spec for per-type / per-pattern limit configurations.
+
+    The uniform DP keeps one state per (cell, edit COUNT); with per-type
+    caps two equal-penalty scripts with different type mixes are no longer
+    interchangeable, so channels become the feasible type VECTORS
+    (i, d, s, w) — exactly the oracle's visited-key granularity
+    (src/search.rs:31-50). Per-node caps (reference get_node_limits,
+    src/search.rs:60-71 + ahead-checks 87-169) mask moves per path row;
+    per-pattern emission limits (src/search.rs:151-169) mask channels per
+    limits-class at emission.
+    """
+
+    __slots__ = (
+        "vecs", "E", "sub_src", "ins_src", "del_src", "swap_src", "cnts",
+        "node_caps", "root_caps", "limcls", "adm", "n_limcls",
+    )
+
+    @staticmethod
+    def build(engine) -> Optional["TypedSpec"]:
+        pats = engine._patterns
+        lims = [p.limits if p.limits is not None else engine.limits for p in pats]
+        if all(l is None for l in lims):
+            return None
+        totals = [_total_of(l) for l in lims]
+        E = max(totals)
+        if not (1 <= E <= 6):
+            return None  # matches the FAST-path ceiling; beyond, oracle serves
+        caps = [_caps_of(l) for l in lims]
+        loose = tuple(max(c[i] for c in caps) for i in range(5))
+        # Feasible vectors under the loosest applicable caps; the channel
+        # count grows ~E^4 unconstrained, and MAX_TYPED_CHANNELS bounds the
+        # kernel size — past it the oracle serves.
+        vecs = []
+        for i in range(min(E, loose[1]) + 1):
+            for d in range(min(E, loose[2]) + 1):
+                for su in range(min(E, loose[3]) + 1):
+                    for w in range(min(E, loose[4]) + 1):
+                        if i + d + su + w <= min(E, loose[0]):
+                            vecs.append((i, d, su, w))
+        if len(vecs) > MAX_TYPED_CHANNELS:
+            return None
+        vecs.sort(key=lambda v: (sum(v), v))
+        index = {v: c for c, v in enumerate(vecs)}
+        spec = TypedSpec()
+        spec.vecs = tuple(vecs)
+        spec.E = E
+        spec.sub_src = tuple(
+            index.get((v[0], v[1], v[2] - 1, v[3]), -1) for v in vecs
+        )
+        spec.ins_src = tuple(
+            index.get((v[0] - 1, v[1], v[2], v[3]), -1) for v in vecs
+        )
+        spec.del_src = tuple(
+            index.get((v[0], v[1] - 1, v[2], v[3]), -1) for v in vecs
+        )
+        spec.swap_src = tuple(
+            index.get((v[0], v[1], v[2], v[3] - 1), -1) for v in vecs
+        )
+        spec.cnts = tuple(
+            v[0] | (v[1] << 8) | (v[2] << 16) | (v[3] << 24) for v in vecs
+        )
+
+        # Per-node caps (pattern_index -> its limits, else the global).
+        nodes = engine.nodes
+        nc = np.zeros((len(nodes), 5), dtype=np.int32)
+        gcaps = _caps_of(engine.limits)
+        for ni, node in enumerate(nodes):
+            pi = node.pattern_index
+            if pi is not None and pats[pi].limits is not None:
+                nc[ni] = _caps_of(pats[pi].limits)
+            else:
+                nc[ni] = gcaps
+        spec.node_caps = nc
+        spec.root_caps = tuple(int(x) for x in nc[0])
+
+        # Emission admissibility per limits-class (src/search.rs:151-169).
+        sig_ids: dict = {}
+        limcls = np.zeros(len(pats), dtype=np.int32)
+        adm = []
+        for pi, l in enumerate(lims):
+            cs = _caps_of(l)
+            lc = sig_ids.get(cs)
+            if lc is None:
+                lc = len(adm)
+                sig_ids[cs] = lc
+                adm.append(tuple(
+                    int(sum(v) <= cs[0] and v[0] <= cs[1] and v[1] <= cs[2]
+                        and v[2] <= cs[3] and v[3] <= cs[4])
+                    for v in vecs
+                ))
+            limcls[pi] = lc
+        spec.limcls = limcls
+        spec.adm = tuple(adm)
+        spec.n_limcls = len(adm)
+        return spec
+
+
+def forbid_spec_of(engine) -> Optional[tuple]:
+    """(E, no_ins, no_del, no_sub, no_swap) for configurations that are a
+    total edit budget with some edit types simply FORBIDDEN (cap 0) and the
+    rest unlimited within the total — e.g. ``edits(2).swaps(0)``. The JAX
+    package serves these on the count-channel DP with the forbidden arrivals
+    compiled out."""
+    if engine.has_pattern_limits or engine.mappings:
+        return None
+    lim = engine.limits
+    if lim is None or lim.edits_ is None or not 1 <= lim.edits_ <= 6:
+        return None
+    caps = (lim.insertions_, lim.deletions_, lim.substitutions_, lim.swaps_)
+    if any(c not in (None, 0) for c in caps):
+        return None
+    if all(c is None for c in caps):
+        return None  # plain FAST config; served without this routing
+    return (int(lim.edits_),) + tuple(c == 0 for c in caps)
+
+
+def typed_spec_of(engine) -> Optional[TypedSpec]:
+    sp = getattr(engine, "_typed_spec_cache", None)
+    if sp is None:
+        sp = TypedSpec.build(engine)
+        engine._typed_spec_cache = sp if sp is not None else False
+    return sp if sp is not False else None
+
+
+# ---------------------------------------------------------------------------
+# DP tables on the device
+# ---------------------------------------------------------------------------
+
+class DpTables:
+    """The DP's tables on one device.
+
+    ``depth`` [F], ``node`` [F], ``path_cls`` / ``path_node`` [F, Lmax]
+    (int32: per field, its depth, output node, and the class and node id of
+    each path row), ``sim`` [C, C] f32 class similarity, ``out_list``
+    [N, MO] int32 output patterns per node (-1 padded), ``pat_len`` /
+    ``pat_weight`` [P] f32, ``sb_edge`` [N, C] int8 single-byte edges,
+    ``out_count`` [N] int32, ``node_ceil`` [N] f32 per-node prune ceilings
+    at one threshold (or None)."""
+
+    __slots__ = ("depth", "node", "path_cls", "path_node", "sim", "out_list",
+                 "pat_len", "pat_weight", "sb_edge", "out_count", "node_ceil")
+
+    def __init__(self, **arrays):
+        for name in self.__slots__:
+            setattr(self, name, arrays[name])
+
+    @property
+    def Lmax(self) -> int:
+        return self.path_cls.shape[1]
+
+    @property
+    def C(self) -> int:
+        return self.sim.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.depth.device
+
+    def with_ceil(self, node_ceil: torch.Tensor) -> "DpTables":
+        """The same tables with the ceilings of another threshold."""
+        arrays = {name: getattr(self, name) for name in self.__slots__}
+        arrays["node_ceil"] = node_ceil
+        return DpTables(**arrays)
+
+
+def dp_tables_from_numpy(depth, node, path_cls, path_node, sim, out_list,
+                         pat_len, pat_weight, sb_edge, out_count,
+                         node_ceil=None, device="cpu") -> DpTables:
+    """The DP's tables on ``device`` from the numpy arrays both packages
+    build (``VerifyFields`` arrays, ``dense.sim`` / ``out_list`` /
+    ``pat_len`` / ``pat_weight`` / ``sb_edge`` / ``out_count``, and the
+    per-node ceilings of one threshold)."""
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+    F = len(depth)
+    return DpTables(
+        depth=put(depth, np.int32), node=put(node, np.int32),
+        path_cls=put(np.reshape(path_cls, (F, -1)), np.int32),
+        path_node=put(np.reshape(path_node, (F, -1)), np.int32),
+        sim=put(sim, np.float32), out_list=put(out_list, np.int32),
+        pat_len=put(pat_len, np.float32), pat_weight=put(pat_weight, np.float32),
+        sb_edge=put(sb_edge, np.int8), out_count=put(out_count, np.int32),
+        node_ceil=None if node_ceil is None else put(node_ceil, np.float32),
+    )
+
+
+class DpPenalties(NamedTuple):
+    """The DP's f32 scalars: global budget ``max_pen``, per-edit penalties,
+    and the weakest-link similarity ``floor``."""
+
+    max_pen: np.float32
+    p_sub: np.float32
+    p_ins: np.float32
+    p_del: np.float32
+    p_swap: np.float32
+    floor: np.float32
+
+
+# ---------------------------------------------------------------------------
+# Candidate expansion
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _combos(E: int, BITS: tuple, P2F: tuple, DEPTHS: tuple) -> np.ndarray:
+    """[5, n_combo] int64 (match-word column, bit, field, start offset
+    ``d + b - E``, ``b == 0``) per (pattern, field, band), combo-major in
+    the JAX package's order."""
+    rows = []
+    for p, (col, sh) in enumerate(BITS):
+        for fld in P2F[p]:
+            d = DEPTHS[fld]
+            for b in range(2 * E + 1):
+                rows.append((col, sh, fld, d + (b - E), int(b == 0)))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 5).T.copy()
+
+
+def expand_candidates(pos, words, start_lo, start_hi, pos_hi, E, BITS, P2F, DEPTHS):
+    """Hit (pos, words) -> candidate (field, start) pairs with ``start_lo <=
+    start < start_hi`` and hit position ``< pos_hi`` (the sliced path keeps
+    the starts a slice owns; reference ownership rule src/stream.rs:262-297).
+
+    ``pos`` [K] int64 ascending hit positions and ``words`` [K, 2W] int64
+    u32 halves, as ``packed_hits`` returns them. ``BITS`` holds each
+    pattern's (match-word column, bit), ``P2F`` each pattern's fields and
+    ``DEPTHS`` each field's depth (python ints).
+
+    Order as in the JAX package: combo-major over (pattern, field, band),
+    hits ascending within each combo. Run dedup: a hit run at consecutive
+    ends e-1, e for the same pattern generates the same (field, start) from
+    (e, b) and (e-1, b-1), so only the b == 0 copy (or the run's first end)
+    is kept. Returns (cand_field, cand_start), int32 [M] each."""
+    dev = pos.device
+    K = pos.numel()
+    col, sh, fld, off, first = torch.from_numpy(_combos(E, BITS, P2F, DEPTHS)).to(dev)
+    if K == 0 or col.numel() == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        return empty, empty.clone()
+    fired = ((words[:, col] >> sh) & 1) == 1                      # [K, n_combo]
+    hit_ok = (pos >= 0) & (pos < pos_hi)
+    prev_same = torch.zeros(K, dtype=torch.bool, device=dev)
+    prev_same[1:] = pos[1:] == pos[:-1] + 1
+    dup = torch.zeros_like(fired)
+    dup[1:] = fired[:-1] & prev_same[1:, None]
+    ends = pos + 1
+    start = ends[:, None] - off[None, :]                          # [K, n_combo]
+    ok = (
+        fired & hit_ok[:, None] & (start >= start_lo) & (start < start_hi)
+        & ((first == 1)[None, :] | ~dup)
+    )
+    idx = compact_indices(ok.T.reshape(-1))                        # combo-major
+    c = idx // K
+    h = idx - c * K
+    cand_field = fld[c].to(torch.int32)
+    cand_start = (ends[h] - off[c]).to(torch.int32)
+    return cand_field, cand_start
+
+
+# ---------------------------------------------------------------------------
+# Banded DP: plain version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
+                    pens: DpPenalties, E: int, deadend: bool = False):
+    """Plain version of ``banded_dp_kernel``: the JAX package's
+    ``verify_dp._banded_dp`` (count channels, no mappings, nothing
+    forbidden), op for op in f32.
+
+    ``cand_field`` / ``cand_start`` [M] int32 (field -1 = dead slot),
+    ``ids`` the dense class-id stream (reads below 0 or at/after ``limit``
+    are out of text, -1), ``T`` the tables with ``node_ceil`` set.
+    ``deadend`` enables the reference's last-edit dead-end filter
+    (src/search.rs:839-847, 994-1007, 1050-1063): an edit move that spends
+    the final budget unit is dropped unless the resulting node has output or
+    a single-byte edge matching the next text char.
+
+    Returns (pen [B*NE, M] f32, cnt [B*NE, M] int32): the emission channel
+    at row ``depth``, column ``depth + (b - E)``, per exact edit count, row
+    ``b * NE + e``; dead cells carry +inf. Counts pack the script's edit
+    types as ``ins | del << 8 | sub << 16 | swap << 24``."""
+    dev = cand_field.device
+    B, NE = 2 * E + 1, E + 1
+    M = cand_field.numel()
+    Lmax = T.Lmax
+    f32 = torch.float32
+    INF = float("inf")
+    scal = lambda x: torch.tensor(float(np.float32(x)), dtype=f32, device=dev)
+    max_pen, p_sub, p_ins, p_del, p_swap, floor = (scal(x) for x in pens)
+
+    f = cand_field.clamp(min=0).long()
+    alive = cand_field >= 0
+    WLEN = Lmax + 2 * E + 1 + (1 if deadend else 0)
+    idx = (cand_start.long() - (E + 1))[None, :] + torch.arange(WLEN, device=dev)[:, None]
+    sym = ids[idx.clamp(0, ids.numel() - 1)].long()
+    win = torch.where((idx >= 0) & (idx < limit), sym, -1)        # [WLEN, M]
+    pcls = T.path_cls.long()[f].T                                   # [Lmax, M]
+    pnode = T.path_node.long()[f].T
+    dpth = torch.where(alive, T.depth.long()[f], 0)
+    ceil_t = T.node_ceil[pnode]                                     # [Lmax, M]
+    if deadend:
+        out_t = T.out_count[pnode] > 0
+        sbe = T.sb_edge.long()
+
+    def grid(val, dtype):
+        return [[torch.full((M,), val, dtype=dtype, device=dev) for _ in range(NE)]
+                for _ in range(B)]
+
+    zero_or_inf = torch.where(alive, 0.0, INF).to(f32)
+    prev_pen, prev_cnt = grid(INF, f32), grid(0, torch.int32)
+    prev_pen[E][0] = zero_or_inf
+    prev2_pen, prev2_cnt = grid(INF, f32), grid(0, torch.int32)   # row -1
+    preve_pen, preve_cnt = grid(INF, f32), grid(0, torch.int32)   # emission row 0
+    preve_pen[E][0] = zero_or_inf
+    emit_pen, emit_cnt = grid(INF, f32), grid(0, torch.int32)
+
+    def merge(bp, bc, op, oc, ok):
+        take = ok & (op < bp)
+        return torch.where(take, op, bp), torch.where(take, oc, bc)
+
+    for i in range(1, Lmax + 1):
+        row_live = alive & (i <= dpth)
+        pc, pc_prev = pcls[i - 1], pcls[max(i - 2, 0)]
+        ceil_i = ceil_t[i - 1]
+        hcs, okrow = [], []
+        cons_pen, cons_cnt = grid(INF, f32), grid(0, torch.int32)
+        new_pen, new_cnt = grid(INF, f32), grid(0, torch.int32)
+        for b in range(B):
+            hc = win[i + b]
+            if deadend:
+                nxt = win[i + b + 1]
+                edge = sbe[pnode[i - 1], nxt.clamp(min=0)] > 0
+                okrow.append(out_t[i - 1] | ((nxt >= 0) & edge))
+            hcs.append(hc)
+        for b in range(B):
+            j = i + (b - E)  # haystack symbols consumed at this cell
+            hc, hc_jm1 = hcs[b], win[i - 1 + b]
+            sim = torch.where(hc >= 0, T.sim[pc, hc.clamp(min=0)], 0.0)
+            spen = p_sub * (1.0 - sim)
+            for e in range(NE):
+                # exact: (i-1, b, e) — no edit (src/search.rs:776-798). The
+                # count is carried even where the penalty is dead, as in JAX.
+                p_pen = prev_pen[b][e]
+                bp = torch.full_like(p_pen, INF)
+                if j >= 1:
+                    bp = torch.where(torch.isfinite(p_pen) & (hc == pc), p_pen, INF)
+                bc = prev_cnt[b][e]
+                if e >= 1 and j >= 1:
+                    # substitution: (i-1, b, e-1) (src/search.rs:803-874)
+                    q_pen, q_cnt = prev_pen[b][e - 1], prev_cnt[b][e - 1]
+                    ok_s = (
+                        torch.isfinite(q_pen) & (hc >= 0) & (hc != pc)
+                        & ~(sim < floor) & ~(spen > (max_pen - q_pen))
+                    )
+                    if deadend and e == NE - 1:
+                        ok_s = ok_s & okrow[b]
+                    bp, bc = merge(bp, bc, q_pen + spen, q_cnt + 0x1_0000, ok_s)
+                if e >= 1 and i >= 2 and j >= 2:
+                    # swap: (i-2, b, e-1) (src/search.rs:935-989)
+                    s_pen, s_cnt = prev2_pen[b][e - 1], prev2_cnt[b][e - 1]
+                    ok_sw = (
+                        torch.isfinite(s_pen) & ~(p_swap > (max_pen - s_pen))
+                        & (hc >= 0) & (hc_jm1 >= 0)
+                        & (hc == pc_prev) & (hc_jm1 == pc)
+                    )
+                    bp, bc = merge(bp, bc, s_pen + p_swap, s_cnt + 0x100_0000, ok_sw)
+                cons_pen[b][e], cons_cnt[b][e] = bp, bc
+                if e >= 1 and b + 1 < B:
+                    # deletion: (i-1, b+1, e-1) — consume pc only
+                    # (src/search.rs:1035-1089; column j is band b+1 on row i-1)
+                    d_pen, d_cnt = prev_pen[b + 1][e - 1], prev_cnt[b + 1][e - 1]
+                    ok_del = torch.isfinite(d_pen) & ~(p_del > (max_pen - d_pen))
+                    if deadend and e == NE - 1:
+                        ok_del = ok_del & okrow[b]
+                    bp, bc = merge(bp, bc, d_pen + p_del, d_cnt + 0x100, ok_del)
+                new_pen[b][e], new_cnt[b][e] = bp, bc
+
+        # insertion: same row, (b-1, e-1) -> b — consume hc only, ascending b
+        # (src/search.rs:994-1029), reading the already-updated band b-1.
+        # Forbidden from cells with zero hay consumed: source col j-1 >= 1.
+        for b in range(1, B):
+            j = i + (b - E)
+            if j < 2:
+                continue
+            for e in range(1, NE):
+                ip, ic = new_pen[b - 1][e - 1], new_cnt[b - 1][e - 1]
+                ok_ins = (
+                    torch.isfinite(ip) & ~(p_ins > (max_pen - ip)) & (hcs[b] >= 0)
+                )
+                if deadend and e == NE - 1:
+                    ok_ins = ok_ins & okrow[b]
+                new_pen[b][e], new_cnt[b][e] = merge(
+                    new_pen[b][e], new_cnt[b][e], ip + p_ins, ic + 1, ok_ins
+                )
+
+        # Per-node prune ceiling + row liveness (src/search.rs:637-642), and
+        # the emission channel: min(consuming arrival, trailing deletion from
+        # the emission channel one row up — column j is band b+1 there).
+        newe_pen, newe_cnt = grid(INF, f32), grid(0, torch.int32)
+        emit_here = row_live & (i == dpth)
+        for b in range(B):
+            for e in range(NE):
+                dead = ~row_live | (new_pen[b][e] > ceil_i)
+                new_pen[b][e] = torch.where(dead, INF, new_pen[b][e])
+                ep, ec = cons_pen[b][e], cons_cnt[b][e]
+                if e >= 1 and b + 1 < B:
+                    t_pen, t_cnt = preve_pen[b + 1][e - 1], preve_cnt[b + 1][e - 1]
+                    ok_t = torch.isfinite(t_pen) & ~(p_del > (max_pen - t_pen))
+                    if deadend and e == NE - 1:
+                        ok_t = ok_t & okrow[b]
+                    ep, ec = merge(ep, ec, t_pen + p_del, t_cnt + 0x100, ok_t)
+                edead = ~row_live | (ep > ceil_i)
+                newe_pen[b][e] = torch.where(edead, INF, ep)
+                newe_cnt[b][e] = ec
+                emit_pen[b][e] = torch.where(emit_here, newe_pen[b][e], emit_pen[b][e])
+                emit_cnt[b][e] = torch.where(emit_here, newe_cnt[b][e], emit_cnt[b][e])
+        prev2_pen, prev2_cnt = prev_pen, prev_cnt
+        prev_pen, prev_cnt = new_pen, new_cnt
+        preve_pen, preve_cnt = newe_pen, newe_cnt
+
+    pen = torch.stack([emit_pen[b][e] for b in range(B) for e in range(NE)])
+    cnt = torch.stack([emit_cnt[b][e] for b in range(B) for e in range(NE)])
+    return pen, cnt
+
+
+#: Edit budgets the DP kernel is instantiated for.
+MAX_E = 6
+
+
+def _check_dp(cand_field, cand_start, ids, T: DpTables, E: int) -> None:
+    for name, t in (("cand_field", cand_field), ("cand_start", cand_start)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
+    if cand_field.shape != cand_start.shape:
+        raise ValueError("cand_field and cand_start differ in shape")
+    if ids.dtype not in (torch.uint8, torch.int32) or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous 1-D uint8 or int32 tensor")
+    if not (cand_field.device == cand_start.device == ids.device == T.device):
+        raise ValueError(
+            f"candidates on {cand_field.device}, ids on {ids.device}, tables on {T.device}"
+        )
+    if T.node_ceil is None:
+        raise ValueError("tables carry no node ceilings (DpTables.with_ceil)")
+    if not 1 <= E <= MAX_E:
+        raise ValueError(f"edit budget {E} outside 1..{MAX_E}")
+
+
+def banded_dp(cand_field, cand_start, ids, limit, T: DpTables,
+              pens: DpPenalties, E: int, deadend: bool = False):
+    """(pen [B*NE, M] f32, cnt [B*NE, M] int32) of the banded DP (see
+    :func:`banded_dp_torch`). CPU tensors run :func:`banded_dp_torch`; CUDA
+    tensors launch ``banded_dp_kernel``."""
+    from .packed_bitap import LAUNCHES
+
+    _check_dp(cand_field, cand_start, ids, T, E)
+    if ids.device.type == "cpu":
+        return banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no DP kernel for device {ids.device}")
+    M = cand_field.numel()
+    rows = (2 * E + 1) * (E + 1)
+    pen = torch.empty((rows, M), dtype=torch.float32, device=ids.device)
+    cnt = torch.empty((rows, M), dtype=torch.int32, device=ids.device)
+    if M == 0:
+        return pen, cnt
+    kern = _cuda_build.load()
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = kern.lib.fac_banded_dp(
+            cand_field.data_ptr(), cand_start.data_ptr(), M,
+            ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
+            T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(),
+            T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C, T.node_ceil.data_ptr(),
+            T.sb_edge.data_ptr(), T.out_count.data_ptr(), T.out_count.numel(),
+            *(float(np.float32(x)) for x in pens),
+            E, int(bool(deadend)), pen.data_ptr(), cnt.data_ptr(), stream,
+        )
+    kern.check(rc, "banded_dp")
+    LAUNCHES["dp"] += 1
+    return pen, cnt
+
+
+# ---------------------------------------------------------------------------
+# Emission
+# ---------------------------------------------------------------------------
+
+def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
+    """DP emission channels -> match rows, int32 [K, 5]: (start, penalty f32
+    bits, span ``me``, pattern, packed edit counts).
+
+    The NE edit-count channels of one (candidate, band) map to the same
+    (pattern, start, end), and the host keeps the max similarity, so they are
+    pre-minimised here with strict <: the lowest edit count wins penalty
+    ties. Emission order is channel-major (band, output slot) x candidate, as
+    in the JAX package. The similarity test is a superset
+    (``sim >= thr - slack``); the host recomputes it exactly."""
+    B, NE = 2 * E + 1, E + 1
+    M = cand_field.numel()
+    MO = T.out_list.shape[1]
+    alive = cand_field >= 0
+    f = cand_field.clamp(min=0).long()
+    start = cand_start
+    d = T.depth[f]
+    pats = T.out_list[T.node[f].long()]                              # [M, MO]
+    p_safe = pats.clamp(min=0).long()
+    pl, pw = T.pat_len[p_safe], T.pat_weight[p_safe]
+    thr32 = np.float32(thr)
+    slack = np.float32(1e-4) + np.float32(1e-4) * np.abs(thr32)
+    bound = float(np.float32(thr32 - slack))
+    ok_rows, pen_best, cnt_best = [], [], []
+    for b in range(B):
+        ends_b = start + d + (b - E)
+        span_ok = alive & (ends_b <= limit) & (ends_b >= start)
+        pen_b, cnt_b = pen[b * NE], cnt[b * NE]
+        for e in range(1, NE):
+            take = pen[b * NE + e] < pen_b
+            pen_b = torch.where(take, pen[b * NE + e], pen_b)
+            cnt_b = torch.where(take, cnt[b * NE + e], cnt_b)
+        pen_best.append(pen_b)
+        cnt_best.append(cnt_b)
+        fin = torch.isfinite(pen_b)
+        pen_s = torch.where(fin, pen_b, 0.0)
+        for o in range(MO):
+            sim = ((pl[:, o] - pen_s) / pl[:, o]) * pw[:, o]
+            ok_rows.append(span_ok & fin & (pats[:, o] >= 0) & (sim >= bound))
+    gidx = compact_indices(torch.stack(ok_rows).reshape(-1))
+    m = gidx % M
+    chan = gidx // M
+    o = chan % MO
+    b = chan // MO
+    pen_bits = torch.stack(pen_best).view(torch.int32)[b, m]
+    return torch.stack([
+        start[m], pen_bits, d[m] + (b - E).to(torch.int32), pats[m, o],
+        torch.stack(cnt_best)[b, m],
+    ], dim=1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The lane
+# ---------------------------------------------------------------------------
+
+#: Slice length of the sliced pipeline (grapheme symbols); corpora of at
+#: least 1.5 slices are cut into overlapping slices.
+SLICE_SYMS = 16 << 20
+#: Candidate-stage work budget: hits x (fields x bands) past this declines.
+MAX_EXPAND = 1 << 27
+
+
+class _Plan(NamedTuple):
+    pk: object
+    vf: VerifyFields
+    ks: Tuple[int, ...]
+    dam: bool
+    k: int
+    E: int
+    n_combo: int
+    ceil: np.ndarray
+    max_pen: np.float32
+
+
+def dp_plan(engine, threshold, n: int, typed=None, maps=None, forbid=None
+            ) -> Optional[_Plan]:
+    """The host decisions the JAX package's ``fuzzy_search_dp`` makes before
+    any device work, or None where it declines (the caller falls back):
+    corpus past ``RESIDENT_MAX``, no packed tables or DP fields, or a
+    threshold budget the scan cannot serve. ``typed`` / ``maps`` / ``forbid``
+    pick the budgets of the lanes that are not ported yet, so the dispatcher
+    can tell where the JAX package would serve an engine on its device."""
+    from .packed_bitap import RESIDENT_MAX, packed_fuzzy_of
+
+    thr = np.float32(threshold)
+    if n > RESIDENT_MAX:
+        return None
+    pk = packed_fuzzy_of(engine)
+    if pk is None:
+        return None
+    vf = verify_fields_of(engine)
+    if vf is None:
+        return None
+    if maps is not None:
+        ks = [maps.k] * len(pk.filt.patterns)
+        dam = False
+    else:
+        # Damerau-aware scan budgets: the scan's native transposition
+        # transition prices a swap at 1 bitap error instead of 2, so
+        # swap-permitting configs scan with fewer error rows and a more
+        # selective filter. The plain model serves when it wins nothing.
+        ks_p = [pk.filt.k_for(bp, thr) for bp in pk.filt.patterns]
+        ks_d = [pk.filt.k_for(bp, thr, damerau=True) for bp in pk.filt.patterns]
+        dam = None not in ks_d and (None in ks_p or max(ks_d) < max(ks_p))
+        ks = ks_d if dam else ks_p
+        if None in ks:
+            return None
+    if forbid is not None:
+        E = forbid[0]
+    else:
+        E = engine.max_edits_fast if typed is None else typed.E
+    n_combo = int((vf.pat2field >= 0).sum()) * (2 * E + 1)
+    ceil = engine.prune_len_arr - np.float32(engine.prune_len_over_weight_arr * thr)
+    return _Plan(pk, vf, tuple(ks), dam, max(ks), E, n_combo, ceil, np.float32(ceil[0]))
+
+
+def _dev_cache(engine, key: tuple, build):
+    """Per-engine cache of small device tables (scan tables, DP tables, node
+    ceilings); ``engine.to`` drops it."""
+    cache = getattr(engine, "_dp_dev_consts", None)
+    if cache is None:
+        cache = {}
+        engine._dp_dev_consts = cache
+    hit = cache.get(key)
+    if hit is None:
+        hit = build()
+        cache[key] = hit
+    return hit
+
+
+def _statics(engine, pk, vf) -> tuple:
+    """(BITS, P2F, DEPTHS) of :func:`expand_candidates`, cached."""
+    statics = getattr(engine, "_dp_statics", None)
+    if statics is None:
+        bits = tuple(
+            (2 * lw + ((lo + m_p - 1) >> 5), (lo + m_p - 1) & 31)
+            for (lw, lo), m_p in zip(pk.offsets, pk.ms)
+        )
+        p2f = tuple(tuple(int(fi) for fi in row if fi >= 0) for row in vf.pat2field)
+        statics = (bits, p2f, tuple(int(dd) for dd in vf.depth))
+        engine._dp_statics = statics
+    return statics
+
+
+class _Part(NamedTuple):
+    """One slice of the corpus as the DP lane runs it: the prefilter and
+    dense symbol streams on the device, the slice's symbol count, the
+    window ``[lo, hi)`` of match starts it owns, and its global offset."""
+
+    ids_pf: torch.Tensor
+    ids_de: torch.Tensor
+    local_n: int
+    lo: int
+    hi: int
+    base: int
+
+
+class DpRun(NamedTuple):
+    """Everything the lane needs on the device for one search: scan tables,
+    DP tables with this threshold's ceilings, penalties, the candidate
+    expansion's static tables, the dead-end flag, and the corpus slices."""
+
+    plan: _Plan
+    T_scan: object
+    T: DpTables
+    pens: DpPenalties
+    statics: tuple
+    deadend: bool
+    halo: int
+    parts: List[_Part]
+
+
+def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int) -> DpRun:
+    """The device tables and resident corpus slices for ``plan``.
+
+    Corpora of at least 1.5 ``SLICE_SYMS`` (with a dense alphabet of at most
+    256 classes) are cut into overlapping slices: slice i owns match starts
+    in its core range, its buffer carries a left scan warm-up halo (pattern
+    length + error budget) and a right completion halo (max depth + E), so
+    every owned match ends in-buffer (reference stream-window rule
+    src/stream.rs:262-297)."""
+    from ..utils import device_corpus
+    from .packed_bitap import _space_token, tables_from_numpy
+
+    pk, vf, E = plan.pk, plan.vf, plan.E
+    halo = pk.m_max + plan.k
+    dense = engine.dense
+    device = engine.device
+    dkey = str(device)
+    T_scan = _dev_cache(engine, ("scan", plan.ks, plan.dam, dkey), lambda: tables_from_numpy(
+        pk.word_tbl, pk.starts, *pk.fuzzy_masks(list(plan.ks))[:2],
+        notlast=pk.notlast() if plan.dam else None, device=device,
+    ))
+    T_base = _dev_cache(engine, ("dp", dkey), lambda: dp_tables_from_numpy(
+        vf.depth, vf.node, vf.path_cls, vf.path_node, dense.sim, dense.out_list,
+        dense.pat_len, dense.pat_weight, dense.sb_edge, dense.out_count,
+        device=device,
+    ))
+    T = T_base.with_ceil(_dev_cache(
+        engine, ("ceil", plan.ceil.tobytes(), dkey),
+        lambda: torch.from_numpy(np.ascontiguousarray(plan.ceil, np.float32)).to(device),
+    ))
+    pens = engine.penalties
+    dp_pens = DpPenalties(plan.max_pen, pens.substitution, pens.insertion,
+                          pens.deletion, pens.swap, engine.min_symbol_similarity)
+
+    tok = _space_token(engine)
+    hay_bytes = view.hay_bytes() if view.ascii else None
+    pf_transcode = lambda h: np.ascontiguousarray(
+        pk.filt.transcode(h, hay_bytes=hay_bytes)[0], dtype=np.uint8
+    )
+    narrow = dense.num_classes <= 256
+    de_transcode = lambda h: np.ascontiguousarray(
+        dense.transcode(h, view), dtype=np.uint8 if narrow else np.int32
+    )
+    if narrow and n >= SLICE_SYMS + (SLICE_SYMS >> 1):
+        S = max(2, -(-n // SLICE_SYMS))
+        Q = -(-n // S)
+        R_halo = vf.max_depth + E
+        bounds, meta = [], []
+        for si in range(S):
+            g0 = si * Q
+            g1 = min(n, g0 + Q)
+            base = max(0, g0 - halo)
+            end = min(n, g1 + R_halo)
+            bounds.append((base, end - base))
+            meta.append((end - base, g0 - base, g1 - base, base))
+        pad_len = device_corpus.bucket_len(max(ln for _, ln in bounds) + device_corpus.TAIL_MARGIN)
+        pf_slices = device_corpus.resident_sliced(
+            haystack, ("pk-fuzzy", tok), pf_transcode, tuple(bounds), pad_len, device)
+        de_slices = device_corpus.resident_sliced(
+            haystack, ("dense", tok), de_transcode, tuple(bounds), pad_len, device)
+        parts = [_Part(pf, de, *m) for pf, de, m in zip(pf_slices, de_slices, meta)]
+    else:
+        ids_pf, n_pf = device_corpus.resident(haystack, ("pk-fuzzy", tok), pf_transcode, device)
+        ids_de, n_de = device_corpus.resident(haystack, ("dense", tok), de_transcode, device)
+        assert n_pf == n_de == n
+        parts = [_Part(ids_pf, ids_de, n, 0, n, 0)]
+    return DpRun(plan, T_scan, T, dp_pens, _statics(engine, pk, vf),
+                 bool(dense.has_multibyte_edges), halo, parts)
+
+
+def dp_candidates(run: DpRun, part: _Part):
+    """(hit count, cand_field, cand_start) of one slice: the packed scan and
+    replay kernels, then :func:`expand_candidates` over the slice's owned
+    starts. The expansion is skipped (empty candidates) when the hit count
+    times ``n_combo`` passes ``MAX_EXPAND``."""
+    from .packed_bitap import packed_hits
+
+    count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo)
+    if count * run.plan.n_combo > MAX_EXPAND:
+        empty = torch.zeros(0, dtype=torch.int32, device=pos.device)
+        return count, empty, empty
+    cand_field, cand_start = expand_candidates(
+        pos, words, part.lo, part.hi, part.local_n, run.plan.E, *run.statics)
+    return count, cand_field, cand_start
+
+
+def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int) -> Optional[List]:
+    """DP-verified fuzzy search for FAST-path engines (uniform edit budget
+    E = ``engine.max_edits_fast``); oracle-identical matches. None where the
+    lane declines — the caller falls back, as the JAX package's callers do.
+
+    The JAX package declines up front on a guess of the hit capacity; here
+    the scan's real hit count decides (``hits * n_combo > MAX_EXPAND``), so
+    an engine can be routed differently from the JAX package at that edge.
+    The output is equal either way.
+
+    Large corpora run as overlapping slices (:func:`dp_inputs`), one after
+    another; each slice's match rows cross to the host in one copy."""
+    from .emit import decode_matches
+
+    plan = dp_plan(engine, threshold, n)
+    if plan is None:
+        return None
+    if np.float32(0.0) > plan.max_pen:
+        return []
+    thr = np.float32(threshold)
+    E = plan.E
+    run = dp_inputs(engine, haystack, plan, view, n)
+    row_parts = []
+    sum_h = sum_c = 0
+    for part in run.parts:
+        count, cand_field, cand_start = dp_candidates(run, part)
+        if count * plan.n_combo > MAX_EXPAND:
+            return None  # unselective scan: decline, the caller falls back
+        pen, cnt = banded_dp(cand_field, cand_start, part.ids_de, part.local_n,
+                             run.T, run.pens, E, run.deadend)
+        rows = emit_rows(pen, cnt, cand_field, cand_start, run.T, part.local_n,
+                         thr, E).cpu().numpy()
+        rows[:, 0] += part.base  # slice-local starts -> global graphemes
+        row_parts.append(rows)
+        sum_h += count
+        sum_c += cand_field.numel()
+    rows = row_parts[0] if len(row_parts) == 1 else np.concatenate(row_parts)
+    results = decode_matches(
+        engine, view, haystack, n,
+        rows[:, 0], rows[:, 2], rows[:, 3],
+        np.ascontiguousarray(rows[:, 1]).view(np.float32), rows[:, 4], thr,
+    )
+    engine.last_stats = {
+        "backend": "device-fuzzy-dp",
+        "hits": sum_h,
+        "candidates": sum_c,
+        "positions": int(n),
+        "emissions": len(rows),
+        "matches": len(results),
+        "slices": len(run.parts),
+    }
+    return results

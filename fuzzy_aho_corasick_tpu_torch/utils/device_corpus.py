@@ -11,6 +11,9 @@ a bucketed length. Keyed by the haystack's *content* (sampled for multi-MB
 strings — see ``_content_key``); a full string equality check guards against
 key collisions. LRU-evicted by total device bytes.
 
+``resident_sliced`` holds overlapping slices of a corpus as separate
+zero-padded buffers of one common length, for the sliced fuzzy DP lane.
+
 The JAX package also keeps a packed u32 word view of each corpus
 (``resident_words``) for its aligned window fetch; the CUDA kernels read the
 u8 stream directly, so the port does not carry it.
@@ -19,7 +22,7 @@ u8 stream directly, so the port does not carry it.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +135,54 @@ def resident(
     _lru[key] = (haystack, dev, n)
     _evict_to_capacity()
     return dev, n
+
+
+def resident_sliced(
+    haystack: str,
+    space: tuple,
+    transcode: Callable[[str], np.ndarray],
+    bounds: Tuple[Tuple[int, int], ...],
+    pad_len: int,
+    device: torch.device,
+) -> List[torch.Tensor]:
+    """Overlapping corpus slices as tensors on ``device`` (uint8 spaces
+    only), one per ``(base, local_n)`` in ``bounds``: ``ids[base : base +
+    local_n]`` zero-padded to the common length ``pad_len``.
+
+    Each slice is a buffer of its own, not a view into the whole resident
+    corpus, so every symbol past a slice's ``local_n`` is the dead symbol 0.
+    Transcodes the whole haystack at most once per miss and ships each slice
+    at most once per (content, space, device)."""
+    global _held_bytes
+    hkey = _content_key(haystack)
+    keys = [hkey + (space, "sl", base, ln, pad_len, str(device)) for base, ln in bounds]
+    res: List[Optional[torch.Tensor]] = [None] * len(bounds)
+    missing = []
+    for i, key in enumerate(keys):
+        hit = _lru.get(key)
+        if hit is not None and _hit_fresh(hkey, hit[0], haystack):
+            if hit[0] is not haystack:
+                _lru[key] = (haystack,) + hit[1:]
+            _lru.move_to_end(key)
+            res[i] = hit[1]
+        else:
+            missing.append(i)
+    if not missing:
+        return res
+
+    ids_full = transcode(haystack)
+    if ids_full.dtype != np.uint8:
+        raise ValueError("sliced residency is for uint8 symbol spaces only")
+    for i in missing:
+        base, ln = bounds[i]
+        pad = np.zeros(pad_len, dtype=np.uint8)
+        pad[:ln] = ids_full[base : base + ln]
+        dev = torch.from_numpy(pad).to(device)
+        res[i] = dev
+        _held_bytes += pad_len
+        _lru[keys[i]] = (haystack, dev, ln)
+    _evict_to_capacity()
+    return res
 
 
 def clear() -> None:

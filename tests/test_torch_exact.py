@@ -119,19 +119,27 @@ def test_search_sorted_non_overlapping():
 def test_lanes_not_ported_raise_on_device_and_auto():
     big = _corpus(17, 4000, HEADLINE[:3])
     assert len(big) >= FuzzyAhoCorasickBuilder.new().build(["x"]).AUTO_DEVICE_MIN
-    fuzzy = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(1))
+    # Typed, mapped and forbid engines that the JAX package serves on its device.
+    typed = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().insertions(1).deletions(1))
              .device("cpu").build(HEADLINE))
-    for backend in ("device", "auto"):
-        fuzzy.backend = backend
-        with pytest.raises(NotImplementedError, match="fuzzy DP lane"):
-            fuzzy.search_raw(big, 0.8)
+    mapped = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(1))
+              .mapping("ß", "ss").device("cpu").build(["strasse", "tincidunt"]))
+    forbid = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(2).swaps(0))
+              .device("cpu").build(HEADLINE))
+    for engine, lane in ((typed, "typed DP lane"), (mapped, "mapped DP lane"),
+                         (forbid, "forbid DP lane")):
+        assert engine._device_engine().supports(big)
+        for backend in ("device", "auto"):
+            engine.backend = backend
+            with pytest.raises(NotImplementedError, match=lane):
+                engine.search_raw(big, 0.8)
     # Below AUTO_DEVICE_MIN 'auto' stays on the host, as in the JAX package.
-    small = "tincidunt tinciduntt phaetr"
-    fuzzy.backend = "auto"
-    ref = JaxBuilder.new().fuzzy(JaxLimits.new().edits(1)).build(HEADLINE)
+    small = "tincidunt tinciduntt phaetr tincidnt"
+    typed.backend = "auto"
+    ref = JaxBuilder.new().fuzzy(JaxLimits.new().insertions(1).deletions(1)).build(HEADLINE)
     ref.backend = "oracle"
     want = sorted(_tuples(ref.search_raw(small, 0.8)))
-    assert len(want) >= 3 and sorted(_tuples(fuzzy.search_raw(small, 0.8))) == want
+    assert len(want) >= 3 and sorted(_tuples(typed.search_raw(small, 0.8))) == want
     # An exact engine that the packed lane cannot hold (field > 64).
     wide = FuzzyAhoCorasickBuilder.new().device("cpu").build(["a" * 70])
     wide.backend = "device"

@@ -22,11 +22,13 @@ _CHILD = r"""
 import sys
 sys.modules["regex"] = None  # any import of regex now raises ImportError
 sys.path.insert(0, sys.argv[1])
-from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder
-engine = (FuzzyAhoCorasickBuilder.new().case_insensitive(True).device("cpu")
-          .build(sys.argv[3].split(",")))
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits
+builder = FuzzyAhoCorasickBuilder.new().case_insensitive(True).device("cpu")
+if len(sys.argv) > 4:
+    builder = builder.fuzzy(FuzzyLimits.new().edits(int(sys.argv[4])))
+engine = builder.build(sys.argv[3].split(","))
 engine.backend = "device"
-got = engine.search_raw(sys.argv[2], 0.5)
+got = engine.search_raw(sys.argv[2], 0.5 if len(sys.argv) == 4 else 0.8)
 print(sorted((m.pattern_index, m.start, m.end) for m in got))
 print(engine.last_stats["backend"], "jax" in sys.modules,
       "fuzzy_aho_corasick_tpu" in sys.modules)
@@ -50,6 +52,27 @@ def test_ascii_exact_search_runs_without_jax_or_regex():
     assert len(want) == 9
     assert matches_line == repr(want)
     assert state_line == "device-exact-packed False False"
+
+
+def test_ascii_fuzzy_search_runs_without_jax_or_regex():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    hay = "Ushers and his TINCIDNT, tincidunt\r\nshe tnicidunt " * 3
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD, str(ROOT), hay, "tincidunt,phaetra", "1"],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    matches_line, state_line = out.stdout.strip().splitlines()[-2:]
+    from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+
+    ref = JaxBuilder.new().fuzzy(JaxLimits.new().edits(1)).case_insensitive(True).build(
+        ["tincidunt", "phaetra"])
+    ref.backend = "oracle"
+    want = sorted((m.pattern_index, m.start, m.end) for m in ref.search_raw(hay, 0.8))
+    assert len(want) >= 9
+    assert matches_line == repr(want)
+    assert state_line == "device-fuzzy-dp False False"
 
 
 def test_port_sources_import_no_jax():
