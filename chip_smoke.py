@@ -6,33 +6,53 @@ points a user calls (build an engine, ``search_raw``), and checks every CUDA
 kernel they run against its plain torch version. Phases:
 
 1. card: ``nvidia-smi`` name and power limit, CUDA version, device name;
-2. build: compile ``csrc/packed_bitap.cu`` and ``csrc/banded_dp.cu`` with
-   nvcc (sm_90a, one process per source, in parallel) from the checkout;
-   report build seconds and ptxas registers / spills;
-3. kernel vs plain on the card, bit for bit: the scan and replay kernels on
-   the headline dictionary's exact tables over a 4 MiB slice and on k=1
-   Damerau / k=2 tables over planted 1- and 2-edit words; the banded DP
-   kernel on the candidates of the headline ``edits(1)`` engine and of an
-   ``edits(2)`` engine over the same planted slice, and of a dictionary with
-   multi-byte edges (the dead-end filter) over a Unicode corpus;
+2. build: compile ``csrc/packed_bitap.cu``, ``csrc/banded_dp.cu`` and
+   ``csrc/dp_pipeline.cu`` with nvcc (sm_90a, one process per source, in
+   parallel) from the checkout; report build seconds and ptxas registers /
+   spills;
+3. kernel vs plain on the card, bit for bit. The hit-list scan's three
+   kernels (``scan_bits``, ``block_offsets``, ``hit_words``): the headline
+   dictionary's exact tables over a 4 MiB slice; k = 1 Damerau, k = 2 and
+   k = 3 Damerau tables over planted 1- and 2-edit words, and over views
+   that start 1 and 5 bytes off alignment; a text without hits; a text
+   where every position hits; streams of 1, 15, 16, 17 and 33 symbols;
+   words ending one before, on and one after the edges of the scan's blocks
+   and chunks, at each chunk length. The DP-only kernel (``banded_dp``) on the candidates of the
+   headline ``edits(1)`` and ``edits(2)`` engines and of a dictionary with
+   multi-byte edges (the dead-end filter) over a Unicode corpus. The
+   expansion + DP + emission kernel (``dp_pipeline``) on the same three, on
+   int32 ids, on views 3 bytes off alignment, at a threshold that a
+   similarity ties exactly (also checked against the oracle), on a text
+   without hits and on one with a hit run at every word, each time with
+   ``block_offsets`` held on the count pass's counts;
 4. exact main path: the headline 16-word case-insensitive dictionary
    searched exact (threshold 0.5) over a 96 MiB seeded corpus, two warm-up
-   searches then best of three; the match set must equal an independent
-   ``str.find`` count; the scan and replay launch counters must be > 0;
+   searches then three timed ones, the plain versions locked out; the match
+   set must equal an independent ``str.find`` count; the scan's three launch
+   counters must be > 0; kernel launches, copies and host waits per search
+   from torch.profiler;
 4b. fuzzy main path: the same dictionary with ``edits(1)`` at threshold 0.8
    over the same corpus, timed the same way; the plain versions are locked
-   out during the run and the scan, replay and DP launch counters must be
-   > 0; the match set must equal an independent one built by the port's
-   oracle over each distinct word context (no scan, no DP, no slicing);
+   out during the run, the scan's and the pipeline's launch counters must be
+   > 0 and the DP-only kernel's 0; the match set must equal an independent
+   one built by the port's oracle over each distinct word context (no scan,
+   no DP, no slicing); launches, copies and waits per search; the stages'
+   host-clock times;
 5. parity: device vs the port's oracle on 64 KiB (exact) and 32 KiB with
    planted edits (fuzzy); the exact streaming branch vs the resident one on
    8 MiB; the fuzzy sliced pipeline (1 MiB slices) vs unsliced on 8 MiB;
 6. times: CUDA-event times of each kernel and of its plain version at the
-   main paths' shapes, and their agreement there.
+   main paths' shapes (``block_offsets`` at the scan's and at the
+   pipeline's), the bound worked out from those inputs alone (bytes over
+   the card's memory rate against integer or float32 instructions over its
+   instruction rate), their agreement there, and the scan at each chunk
+   length it takes on streams around the lengths where the wrapper's pick
+   switches.
 
-Any failed phase raises, so the script exits non-zero. It prints one JSON
-line of kernel results before the last line, and as the last line
-``{"ok": true, "device": {...}}``. Run from the repository root:
+Any failed phase raises, so the script exits non-zero. Before the last line
+it prints one JSON line of kernel results and the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Run from the
+repository root:
 
     python3 chip_smoke.py
 """
@@ -158,22 +178,80 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def compare(tpb, torch, ids, T, halo, what):
-    """Kernel vs plain version of both kernels on ``ids``; returns the hit
-    positions and the largest absolute difference seen (0 when bit-equal)."""
-    fk = tpb.scan_flags(ids, T, halo)
-    fp = tpb.scan_flags_torch(ids, T, halo)
-    pos = tpb.compact_indices(fp)
-    wk = tpb.replay_words(ids, pos, T, halo)
-    wp = tpb.replay_words_torch(ids, pos, T, halo)
+def compare_scan(tpb, torch, ids, T, halo, what, want_hits=True, chunk=None):
+    """The three kernels of the hit-list scan against their plain versions
+    on ``ids``, bit for bit, each fed the plain version's inputs; ``chunk``
+    as ``scan_bits`` takes it. Returns the hit count and the three
+    max_abs_err (0 when equal)."""
+    bits_k, counts_k = tpb.scan_bits(ids, T, halo, chunk)
+    bits_p, counts_p = tpb.scan_bits_torch(ids, T, halo)
+    offs_k = tpb.block_offsets(counts_p)
+    offs_p = tpb.block_offsets_torch(counts_p)
+    count = int(offs_p[-1])
+    pos_k, words_k = tpb.hit_words(ids, bits_p, offs_p, count, T, halo)
+    pos_p, words_p = tpb.hit_words_torch(ids, bits_p, offs_p, count, T, halo)
     torch.cuda.synchronize()
-    err_scan = int((fk.to(torch.int16) - fp.to(torch.int16)).abs().max()) if fk.numel() else 0
-    err_replay = int((wk - wp).abs().max()) if wk.numel() else 0
-    log(f"  {what}: n={ids.numel()} hits={pos.numel()} "
-        f"scan max_abs_err={err_scan} replay max_abs_err={err_replay}")
-    require(err_scan == 0 and err_replay == 0, f"{what}: kernel disagrees with plain version")
-    require(pos.numel() > 0, f"{what}: no hits to compare")
-    return pos, err_scan, err_replay
+    diff = lambda x, y: int((x.long() - y.long()).abs().max()) if x.numel() else 0
+    errs = (max(diff(bits_k, bits_p), diff(counts_k, counts_p)), diff(offs_k, offs_p),
+            max(diff(pos_k, pos_p), diff(words_k, words_p)))
+    log(f"  {what}: n={ids.numel()} hits={count} max_abs_err scan_bits={errs[0]} "
+        f"block_offsets={errs[1]} hit_words={errs[2]}")
+    require(bits_k.shape == bits_p.shape and pos_k.shape == pos_p.shape
+            and words_k.shape == words_p.shape, f"{what}: shapes differ")
+    require(errs == (0, 0, 0), f"{what}: a scan kernel disagrees with its plain version")
+    require(count > 0 or not want_hits, f"{what}: no hits to compare")
+    return count, errs
+
+
+def lane_inputs(vdp, engine, text: str, thr: float, what: str):
+    """(plan, run) of the DP lane for ``text``: tables and slices on the card."""
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    view = view_of(text, engine.case_insensitive)
+    plan = vdp.dp_plan(engine, thr, len(view))
+    require(plan is not None, f"{what}: the DP lane declined")
+    return plan, vdp.dp_inputs(engine, text, plan, view, len(view))
+
+
+def pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift=0, wide=False):
+    """Arguments of ``dp_pipeline`` / ``dp_pipeline_torch`` for one slice;
+    ``shift`` drops that many leading symbols (an unaligned view), ``wide``
+    hands the dense ids over as int32 (the form of alphabets past 256 classes)."""
+    window = vdp.DpWindow(max(part.lo - shift, 0), part.hi - shift, part.local_n - shift)
+    ids = part.ids_de[shift:]
+    return (pos, words, window, ids.int() if wide else ids, part.local_n - shift, run.T,
+            run.pens, np.float32(thr), plan.E, run.deadend, run.statics)
+
+
+def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want_rows=True,
+                     wide=False):
+    """``dp_pipeline_kernel`` against ``dp_pipeline_torch`` on the first
+    slice of ``text``: the same rows in the same order, bit for bit, and the
+    same candidate count; and ``block_offsets`` against its plain version on
+    the counts of the kernel's count pass. Returns the two max_abs_err."""
+    plan, run = lane_inputs(vdp, engine, text, thr, what)
+    part = run.parts[0]
+    hits, pos, words = tpb.packed_hits(part.ids_pf[shift:], run.T_scan, run.halo)
+    args = pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift, wide)
+    rows_k, cand_k = vdp.dp_pipeline(*args)
+    rows_p, cand_p = vdp.dp_pipeline_torch(*args)
+    torch.cuda.synchronize()
+    same = rows_k.shape == rows_p.shape and cand_k == cand_p
+    err = float((rows_k.long() - rows_p.long()).abs().max()) if same and rows_k.numel() else 0.0
+    n_counts, err_offs = 0, 0
+    if hits:
+        counts = vdp.dp_pipeline_counts(*args)
+        n_counts = counts.numel()
+        err_offs = int((tpb.block_offsets(counts).long()
+                        - tpb.block_offsets_torch(counts).long()).abs().max())
+    log(f"  {what}: E={plan.E} k={plan.k} damerau={plan.dam} dead-end={run.deadend} "
+        f"n={part.local_n - shift} hits={hits} candidates={cand_k} vs {cand_p} "
+        f"rows={rows_k.shape[0]} vs {rows_p.shape[0]}, max_abs_err {err}; block_offsets over "
+        f"the count pass's {n_counts} counts, max_abs_err {err_offs}")
+    require(same and err == 0.0, f"{what}: dp_pipeline disagrees with dp_pipeline_torch")
+    require(err_offs == 0, f"{what}: block_offsets disagrees on the count pass's counts")
+    require(rows_p.shape[0] > 0 or not want_rows, f"{what}: no rows to compare")
+    return err, err_offs
 
 
 def compare_dp(vdp, torch, engine, text: str, thr: float, what: str):
@@ -208,9 +286,10 @@ def compare_dp(vdp, torch, engine, text: str, thr: float, what: str):
 
 
 def ptxas_summary(log_text: str):
-    """(lines for the main paths' instantiations: the W=3 scan and replay at
-    k=0 and at k<=2 with Damerau rows, and every banded DP instantiation;
-    number of instantiations, number of them with spills, max registers)."""
+    """(lines for the main paths' instantiations: the W=3 scan and hit-list
+    kernels at k=0 and at k=1 with Damerau rows, the offsets scan, every
+    banded DP instantiation and the u8 pipeline ones; number of
+    instantiations, number of them with spills, max registers)."""
     import re
 
     entries, cur = [], None
@@ -225,13 +304,16 @@ def ptxas_summary(log_text: str):
     main = []
     for e in entries:
         name = e["name"]
-        dp = re.search(r"banded_dp_kernelILi(\d)ELb([01])E([hi])", name)
-        if dp:
-            label = (f"banded_dp<E={dp.group(1)},deadend={dp.group(2)},"
-                     f"{'u8' if dp.group(3) == 'h' else 'int32'}>")
-        elif "ILi3ELi0ELb0E" in name or "ILi3ELi2ELb1E" in name:
-            kind = "scan" if "scan_flags" in name else "replay"
-            label = f"{kind}<W=3,{'K=0' if 'ILi3ELi0ELb0E' in name else 'K<=2,Damerau'}>"
+        dp = re.search(r"(banded_dp|dp_pipeline)_kernelILi(\d)ELb([01])E([hi])", name)
+        scan = re.search(r"(scan_bits|hit_words)_kernelILi3ELi([01])ELb([01])E(?:Li(\d+)E)?", name)
+        if dp and (dp.group(1) == "banded_dp" or dp.group(4) == "h"):
+            label = (f"{dp.group(1)}<E={dp.group(2)},deadend={dp.group(3)},"
+                     f"{'u8' if dp.group(4) == 'h' else 'int32'}>")
+        elif scan and scan.group(2) == scan.group(3):
+            label = f"{scan.group(1)}<W=3,K={scan.group(2)},Damerau={scan.group(3)}" + (
+                f",chunk={scan.group(4)}>" if scan.group(4) else ">")
+        elif "block_offsets_kernel" in name:
+            label = "block_offsets"
         else:
             continue
         main.append(f"{label}: {e.get('regs')} registers, {e.get('spill')} bytes spill stores")
@@ -263,10 +345,12 @@ class plain_locked:
 
 
 def profile_search(torch, fn, reps: int):
-    """torch.profiler over ``reps`` calls of ``fn``: (wall ms per call,
-    device ms per call summed over the device's own events (kernels and
-    copies), lines of the top device events, {event name: device ms per
-    call})."""
+    """torch.profiler over ``reps`` calls of ``fn``: a dict with the wall ms
+    per call, the device ms per call summed over the device's own events
+    (kernels and copies), the lines of the top device events, {event name:
+    device ms per call}, and per call the kernels launched, the copies
+    made, and the host's waits on the device (``cuda*Synchronize`` calls,
+    which a copy to the host or ``.item()`` makes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -276,31 +360,42 @@ def profile_search(torch, fn, reps: int):
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    rows = []
+    rows, waits = [], 0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CPU:
-            continue  # host ops also carry the time of the kernels they launched
-        rows.append((ev.self_device_time_total / reps / 1e3, ev.count // reps, ev.key))
+            # host ops also carry the time of the kernels they launched
+            if "Synchronize" in ev.key:
+                waits += ev.count
+            continue
+        rows.append((ev.self_device_time_total / reps / 1e3, ev.count / reps, ev.key))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    lines = [f"{ms:9.4f} ms x{cnt:<4d} {key[:90]}" for ms, cnt, key in rows[:12]]
-    return wall, busy, lines, {key: ms for ms, _cnt, key in rows}
+    copies = sum(cnt for _ms, cnt, key in rows if key.startswith(("Memcpy", "Memset")))
+    return {
+        "wall": wall, "busy": sum(r[0] for r in rows),
+        "lines": [f"{ms:9.4f} ms x{cnt:<6.1f} {key[:90]}" for ms, cnt, key in rows[:12]],
+        "by_event": {key: ms for ms, _cnt, key in rows},
+        "kernels": sum(cnt for _ms, cnt, _key in rows) - copies, "copies": copies,
+        "waits": waits / reps,
+    }
 
 
-def stage_breakdown(torch, vdp, engine, corpus: str, thr: float):
+def device_ms(prof: dict, name: str) -> float:
+    return sum(v for k, v in prof["by_event"].items() if name in k)
+
+
+def stage_breakdown(torch, tpb, vdp, engine, corpus: str, thr: float):
     """Host-clock ms of each stage of one fuzzy search, each stage ended by a
     synchronise: plan and device inputs (cache lookups), then per slice the
-    scan, compaction, replay and expansion, the DP, the emission with its
-    readback, and the host decode."""
+    hit-list scan, the expansion + DP + emission step, the rows' copy to the
+    host, and the host decode."""
     import numpy as np
 
     from fuzzy_aho_corasick_tpu_torch.ops.emit import decode_matches
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
-    ms = dict.fromkeys(("view, plan, inputs", "scan + replay + expand", "banded_dp",
-                        "emit + readback", "decode"), 0.0)
+    ms = dict.fromkeys(("view, plan, inputs", "packed_hits", "dp_pipeline",
+                        "rows to host", "decode"), 0.0)
 
     def lap(name, t0):
         torch.cuda.synchronize()
@@ -315,16 +410,14 @@ def stage_breakdown(torch, vdp, engine, corpus: str, thr: float):
     t = lap("view, plan, inputs", t)
     rows = []
     for part in run.parts:
-        _h, cf, cs = vdp.dp_candidates(run, part)
-        t = lap("scan + replay + expand", t)
-        pen, cnt = vdp.banded_dp(cf, cs, part.ids_de, part.local_n, run.T, run.pens,
-                                 plan.E, run.deadend)
-        t = lap("banded_dp", t)
-        r = vdp.emit_rows(pen, cnt, cf, cs, run.T, part.local_n, np.float32(thr),
-                          plan.E).cpu().numpy()
+        _h, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+        t = lap("packed_hits", t)
+        r, _c = vdp.dp_pipeline(*pipeline_args(vdp, np, plan, run, part, pos, words, thr))
+        t = lap("dp_pipeline", t)
+        r = r.cpu().numpy()
         r[:, 0] += part.base
         rows.append(r)
-        t = lap("emit + readback", t)
+        t = lap("rows to host", t)
     r = np.concatenate(rows)
     out = decode_matches(engine, view, corpus, len(view), r[:, 0], r[:, 2], r[:, 3],
                          np.ascontiguousarray(r[:, 1]).view(np.float32), r[:, 4],
@@ -373,6 +466,30 @@ def event_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+#: Peak rates of one H100 SXM (NVIDIA's data sheet): device memory bytes/s;
+#: float32 lane-instructions/s outside the tensor cores (67 TFLOP/s at two
+#: flops per FMA); integer and logic lane-instructions/s (64 INT32 lanes per
+#: SM against 128 float32 lanes: half the float32 rate).
+MEM_RATE, F32_RATE, INT_RATE = 3.35e12, 33.5e12, 16.75e12
+#: Instructions one DP cell (row, band, edit channel) costs: the compares,
+#: adds and selects of its five arrivals, the ceiling and the emission channel.
+DP_CELL_INSTR = 40
+
+
+def scan_instr(W: int, k: int, damerau: bool) -> int:
+    """Integer instructions the recurrence needs per symbol with 3-input
+    logic ops: per 32-bit half of a limb 3 for row 0 (the last of them also
+    folds the row's match bits into the hit test), 6 per error row, with
+    Damerau rows 3 more per row and 2 for the shifted class mask. The bound
+    counts every stream symbol once: the warm-up a chunked scan repeats is
+    the kernel's cost, not the function's."""
+    return 2 * W * (3 + 6 * k + (3 * k + 2 if damerau else 0))
+
+
+def bound_ms(nbytes: float, ops: float, rate: float):
+    """(least ms the card could take, which of the two binds)."""
+    t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> int:
@@ -417,6 +534,9 @@ def main() -> int:
     log(f"phase 2 build: {kern.path.relative_to(HERE)} nvcc {kern.build_seconds:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s); {n_inst} kernel instantiations, "
         f"{n_spill} with spills, max {max_regs} registers")
+    for line in kern.log.splitlines():
+        if line.startswith("[done "):
+            log(f"  nvcc job {line}")
     for line in main_lines:
         log(f"  ptxas {line}")
 
@@ -430,17 +550,57 @@ def main() -> int:
     pk = tpb.packed_exact_of(engine)
     require((pk.W, pk.A, pk.m_max) == (3, 21, 12), f"headline tables W/A/m_max {pk.W}/{pk.A}/{pk.m_max}")
     T, cols, shs = tpb._exact_consts(engine, pk, dev)
+    exact_ids = lambda text: torch.from_numpy(
+        pk.transcode(text, view_of(text, True), engine.dense)).to(dev)
+    errs_scan = [0, 0, 0]  # scan_bits, block_offsets, hit_words
+
+    def scan_case(ids, tables, halo, what, want_hits=True, chunk=None):
+        count, errs = compare_scan(tpb, torch, ids, tables, halo, what, want_hits, chunk)
+        for i, e in enumerate(errs):
+            errs_scan[i] = max(errs_scan[i], e)
+        return count
+
     slice4 = corpus[: 4 << 20]
-    ids4 = torch.from_numpy(pk.transcode(slice4, view_of(slice4, True), engine.dense)).to(dev)
-    _pos, err_scan_all, err_replay_all = compare(tpb, torch, ids4, T, pk.m_max,
-                                                 "exact k=0 W=3 A=21, 4 MiB")
+    ids4 = exact_ids(slice4)
+    scan_case(ids4, T, pk.m_max, "exact k=0 W=3 A=21, 4 MiB")
     edited = plant(slice4, SEED + 1, 4000)
-    for k, dam in ((1, True), (2, False)):
+    for k, dam in ((1, True), (2, False), (3, True)):
         TF, lut, halo = fuzzy_tables(tpb, HEADLINE, k, dam, dev)
         fids = torch.from_numpy(lut[np.frombuffer(edited.encode(), np.uint8)]).to(dev)
-        _pos, es, er = compare(tpb, torch, fids, TF, halo,
-                               f"k={k} {'Damerau' if dam else 'plain'} W={TF.W}, 4 MiB planted edits")
-        err_scan_all, err_replay_all = max(err_scan_all, es), max(err_replay_all, er)
+        scan_case(fids, TF, halo,
+                  f"k={k} {'Damerau' if dam else 'plain'} W={TF.W}, 4 MiB planted edits")
+        if k == 1:
+            for shift in (1, 5):
+                scan_case(fids[shift:], TF, halo, f"k=1 Damerau, view unaligned by {shift}")
+    # No hit anywhere; a hit at every position; streams shorter than a word.
+    n_zero = scan_case(exact_ids("lorem ipsum dolor sit amet " * 40000), T, pk.m_max,
+                       "exact, filler only", want_hits=False)
+    require(n_zero == 0, "filler text has hits")
+    TA, lut_a, halo_a = fuzzy_tables(tpb, ["a", "aa"], 1, False, dev)
+    n_all = 3 * tpb.SCAN_BLOCK_SYMS + 77
+    require(scan_case(torch.from_numpy(lut_a[np.full(n_all, ord("a"), np.uint8)]).to(dev),
+                      TA, halo_a, "k=1 'a'/'aa' over a run of a: every position hits") == n_all,
+            "not every position hit")
+    for n_short in (1, 15, 16, 17, 33):
+        scan_case(exact_ids("phaetra tincidunt phaetra sagittis ")[:n_short], T, pk.m_max,
+                  f"exact, stream of {n_short}", want_hits=False)
+    # Words ending on, before and after the edges of the scan's blocks and
+    # of a thread's chunks, at every chunk length the kernel takes.
+    filler = ("lorem ipsum dolor sit amet " * 4000).encode()[: 2 * tpb.SCAN_BLOCK_SYMS + 500]
+    for chunk in tpb.SCAN_CHUNKS:
+        for d in (-1, 0, 1):
+            edges = [e + d for e in (chunk, 2 * chunk, tpb.SCAN_BLOCK_SYMS, 2 * tpb.SCAN_BLOCK_SYMS)]
+            buf = bytearray(filler)
+            for end in edges:  # the word's last symbol at position end - 1
+                buf[end - 7: end] = b"phaetra"
+            ids_e = exact_ids(buf.decode())
+            scan_case(ids_e, T, pk.m_max, f"exact, chunk {chunk}, words ending {d:+d} around "
+                      "block and chunk edges", chunk=chunk)
+            _c, pos_e, _w = tpb.packed_hits(ids_e, T, pk.m_max)
+            require(pos_e.tolist() == [e - 1 for e in edges],
+                    "the hits at block and chunk edges are not the planted ones, in order")
+    for chunk in tpb.SCAN_CHUNKS:
+        scan_case(fids, TF, halo, f"k=3 Damerau, chunk {chunk}", chunk=chunk)
 
     def fuzzy_engine(words, edits):
         eng = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(edits))
@@ -451,34 +611,76 @@ def main() -> int:
     fuzzy = fuzzy_engine(HEADLINE, 1)
     uni = fuzzy_engine(UNICODE_WORDS, 1)
     require(uni.dense.has_multibyte_edges, "the Unicode dictionary has multi-byte edges")
+    fuzzy2 = fuzzy_engine(HEADLINE, 2)
+    uni_text = unicode_corpus(40000, SEED + 3)
     err_dp_all = 0.0
     for eng, text, thr, what in (
         (fuzzy, edited, 0.8, "DP headline edits(1), 4 MiB planted edits"),
-        (fuzzy_engine(HEADLINE, 2), edited, 0.8, "DP headline edits(2), 4 MiB planted edits"),
-        (uni, unicode_corpus(40000, SEED + 3), 0.6, "DP multi-byte edges (dead-end), Unicode"),
+        (fuzzy2, edited, 0.8, "DP headline edits(2), 4 MiB planted edits"),
+        (uni, uni_text, 0.6, "DP multi-byte edges (dead-end), Unicode"),
     ):
         err_dp_all = max(err_dp_all, compare_dp(vdp, torch, eng, text, thr, what))
+    keyf = lambda m: (m.pattern_index, m.start, m.end,
+                      np.float32(m.similarity).view(np.uint32).item(),
+                      m.insertions, m.deletions, m.substitutions, m.swaps)
+    # A threshold that a match's similarity ties exactly.
+    tie_text = plant(corpus[: 256 << 10], SEED + 5, 600)
+    tie = max(np.float32(m.similarity) for m in fuzzy.search_raw(tie_text, 0.8)
+              if m.similarity < 1.0)
+    tie_dev = sorted(map(keyf, fuzzy.search_raw(tie_text, float(tie))))
+    fuzzy.backend = "oracle"
+    tie_ora = sorted(map(keyf, fuzzy.search_raw(tie_text, float(tie))))
+    fuzzy.backend = "device"
+    n_tied = sum(1 for t in tie_dev if t[3] == tie.view(np.uint32).item())
+    log(f"  threshold {float(tie)!r} tied by {n_tied} matches: device {len(tie_dev)} vs oracle "
+        f"{len(tie_ora)} matches, equal {tie_dev == tie_ora}")
+    require(tie_dev == tie_ora and n_tied > 0, "device disagrees with the oracle at a tied threshold")
+    err_pipe_all, err_offs = compare_pipeline(
+        tpb, vdp, torch, np, uni, uni_text, 0.6,
+        "pipeline multi-byte edges (dead-end), Unicode, int32 ids", wide=True)
+    errs_scan[1] = max(errs_scan[1], err_offs)
+    for eng, text, thr, what, shift, want_rows in (
+        (fuzzy, edited, 0.8, "pipeline headline edits(1), 4 MiB planted edits", 0, True),
+        (fuzzy, edited, 0.8, "pipeline headline edits(1), views unaligned by 3", 3, True),
+        (fuzzy2, edited, 0.8, "pipeline headline edits(2) (k=2 scan), 4 MiB planted edits", 0, True),
+        (uni, uni_text, 0.6, "pipeline multi-byte edges (dead-end), Unicode", 0, True),
+        (fuzzy, tie_text, float(tie), "pipeline at the tied threshold", 0, True),
+        (fuzzy, "lorem ipsum dolor sit amet " * 20000, 0.8, "pipeline, filler only", 0, False),
+        (fuzzy, "tincidunt " * 30000, 0.8, "pipeline, a hit run at every word", 0, True),
+    ):
+        err, err_offs = compare_pipeline(tpb, vdp, torch, np, eng, text, thr, what, shift,
+                                         want_rows)
+        err_pipe_all, errs_scan[1] = max(err_pipe_all, err), max(errs_scan[1], err_offs)
+
+    plain_names = [(tpb, n) for n in ("scan_flags_torch", "replay_words_torch", "scan_bits_torch",
+                                      "block_offsets_torch", "hit_words_torch")]
+    plain_names += [(vdp, n) for n in ("expand_candidates", "banded_dp_torch", "emit_rows",
+                                       "dp_pipeline_torch")]
+    scan_keys = ("scan_bits", "block_offsets", "hit_words")
 
     # 4. main path, full size
     log("phase 4 main path:")
     for key in tpb.LAUNCHES:
         tpb.LAUNCHES[key] = 0
-    t0 = time.perf_counter()
-    got = engine.search_raw(corpus, 0.5)
-    first_s = time.perf_counter() - t0
-    engine.search_raw(corpus, 0.5)
-    best = float("inf")
-    for _ in range(3):
-        torch.cuda.synchronize()
+    with plain_locked(*plain_names):
         t0 = time.perf_counter()
         got = engine.search_raw(corpus, 0.5)
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
+        first_s = time.perf_counter() - t0
+        engine.search_raw(corpus, 0.5)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = engine.search_raw(corpus, 0.5)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     launches = dict(tpb.LAUNCHES)
+    best = min(times)
     log(f"  {len(corpus)} bytes, first search {first_s:.3f} s (transcode + upload), "
-        f"best of 3 {best * 1e3:.3f} ms = {len(corpus) / best / 1e9:.3f} GB/s, "
-        f"{len(got)} matches, launches {launches}")
-    require(launches["scan"] > 0 and launches["replay"] > 0, "main path did not launch both kernels")
+        f"best of 3 {best * 1e3:.3f} ms (all {', '.join(f'{t * 1e3:.3f}' for t in times)}) = "
+        f"{len(corpus) / best / 1e9:.3f} GB/s, {len(got)} matches, launches {launches}")
+    require(all(launches[k] > 0 for k in scan_keys), "main path did not launch the scan's kernels")
+    require(launches["dp"] == 0 and launches["dp_pipeline"] == 0, "exact path launched a DP kernel")
     require(engine.last_stats["backend"] == "device-exact-packed", "main path backend")
     dev_set = {(m.pattern_index, m.start, m.end) for m in got}
     require(all(m.similarity == 1.0 and m.edits == 0 for m in got), "exact matches carry weight 1.0")
@@ -493,46 +695,49 @@ def main() -> int:
     require(len(got) == len(dev_set) and dev_set == want, "main path disagrees with str.find")
     require(len(want) > 1000, "too few matches to be a real check")
 
-    # Where the time goes (host clock around synchronised stages).
+    # Where the time goes.
     ids_dev, _n = device_corpus.resident(
         corpus, ("pk-exact", tpb._space_token(engine)),
         lambda h: pk.transcode(h, view_of(h, True), engine.dense), dev)
     dev_s = event_ms(torch, lambda: tpb._run_exact_kernel(ids_dev, T, pk.m_max, cols, shs), 5)
-    scan_only = event_ms(torch, lambda: tpb.scan_flags(ids_dev, T, pk.m_max), 20)
-    log(f"  breakdown: search_raw {best * 1e3:.3f} ms; device pass + readback "
-        f"{dev_s:.3f} ms (scan kernel {scan_only:.3f} ms); host rest "
-        f"{best * 1e3 - dev_s:.3f} ms")
+    prof_x = profile_search(torch, lambda: engine.search_raw(corpus, 0.5), 5)
+    log(f"  breakdown: search_raw {best * 1e3:.3f} ms; device pass + readback {dev_s:.3f} ms; "
+        f"host rest {best * 1e3 - dev_s:.3f} ms")
+    log(f"  torch.profiler over 5 searches: wall {prof_x['wall']:.3f} ms per search, device busy "
+        f"{prof_x['busy']:.3f} ms ({prof_x['busy'] / prof_x['wall']:.3f} of wall); per search "
+        f"{prof_x['kernels']:.1f} kernel launches, {prof_x['copies']:.1f} copies, "
+        f"{prof_x['waits']:.1f} host waits")
+    for line in prof_x["lines"][:8]:
+        log(f"    {line}")
 
     # 4b. fuzzy main path, full size
     log("phase 4b fuzzy main path:")
     t_phase = time.perf_counter()
     for k in tpb.LAUNCHES:
         tpb.LAUNCHES[k] = 0
-    with plain_locked((tpb, "scan_flags_torch"), (tpb, "replay_words_torch"),
-                      (vdp, "banded_dp_torch")):
+    with plain_locked(*plain_names):
         t0 = time.perf_counter()
         got_f = fuzzy.search_raw(corpus, 0.8)
         first_f = time.perf_counter() - t0
         fuzzy.search_raw(corpus, 0.8)
-        best_f = float("inf")
+        times_f = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got_f = fuzzy.search_raw(corpus, 0.8)
             torch.cuda.synchronize()
-            best_f = min(best_f, time.perf_counter() - t0)
+            times_f.append(time.perf_counter() - t0)
     launches_f = dict(tpb.LAUNCHES)
+    best_f = min(times_f)
     stats = dict(fuzzy.last_stats)
     log(f"  {len(corpus)} bytes, first search {first_f:.3f} s (transcode + upload), "
-        f"best of 3 {best_f * 1e3:.3f} ms = {len(corpus) / best_f / 1e9:.3f} GB/s, "
-        f"{len(got_f)} matches, launches {launches_f}")
+        f"best of 3 {best_f * 1e3:.3f} ms (all {', '.join(f'{t * 1e3:.3f}' for t in times_f)}) = "
+        f"{len(corpus) / best_f / 1e9:.3f} GB/s, {len(got_f)} matches, launches {launches_f}")
     log(f"  last_stats {stats}")
     require(stats["backend"] == "device-fuzzy-dp", "fuzzy main path backend")
-    require(all(launches_f[k] > 0 for k in ("scan", "replay", "dp")),
-            "fuzzy main path did not launch all three kernels")
-    keyf = lambda m: (m.pattern_index, m.start, m.end,
-                      np.float32(m.similarity).view(np.uint32).item(),
-                      m.insertions, m.deletions, m.substitutions, m.swaps)
+    require(all(launches_f[k] > 0 for k in scan_keys + ("dp_pipeline",)),
+            "fuzzy main path did not launch the scan's kernels and the pipeline kernel")
+    require(launches_f["dp"] == 0, "fuzzy main path went through the DP-only kernel")
     dev_f = {keyf(m) for m in got_f}
     require(len(dev_f) == len(got_f), "fuzzy main path repeats a match")
     t0 = time.perf_counter()
@@ -543,16 +748,19 @@ def main() -> int:
     require(len(want_f) > 1000, "too few fuzzy matches to be a real check")
     log(f"  fuzzy matches {len(got_f)} = 3 x exact matches ({len(got)}): "
         f"{len(got_f) == 3 * len(got)}")
-    wall_f, busy_f, prof_lines, by_event = profile_search(
-        torch, lambda: fuzzy.search_raw(corpus, 0.8), 3)
-    log(f"  torch.profiler over 3 searches: wall {wall_f:.3f} ms per search, device busy "
-        f"{busy_f:.3f} ms ({busy_f / wall_f:.3f} of wall)")
-    for line in prof_lines:
+    prof_f = profile_search(torch, lambda: fuzzy.search_raw(corpus, 0.8), 3)
+    log(f"  torch.profiler over 3 searches: wall {prof_f['wall']:.3f} ms per search, device busy "
+        f"{prof_f['busy']:.3f} ms ({prof_f['busy'] / prof_f['wall']:.3f} of wall); per search "
+        f"{prof_f['kernels']:.1f} kernel launches, {prof_f['copies']:.1f} copies, "
+        f"{prof_f['waits']:.1f} host waits, over {stats['slices']} slices")
+    for line in prof_f["lines"]:
         log(f"    {line}")
-    for name in ("scan_flags_kernel", "replay_words_kernel", "banded_dp_kernel"):
-        dev_ms = sum(v for k, v in by_event.items() if name in k)
-        log(f"    {name}: {dev_ms:.4f} ms device time per search")
-    stages, n_stage = stage_breakdown(torch, vdp, fuzzy, corpus, 0.8)
+    kernel_names = ("scan_bits_kernel", "block_offsets_kernel", "hit_words_kernel",
+                    "dp_pipeline_kernel")
+    for name in kernel_names:
+        log(f"    {name}: {device_ms(prof_f, name):.4f} ms device time per fuzzy search, "
+            f"{device_ms(prof_x, name):.4f} ms per exact search")
+    stages, n_stage = stage_breakdown(torch, tpb, vdp, fuzzy, corpus, 0.8)
     require(n_stage == len(got_f), "stage breakdown found other matches")
     log(f"  stages (host clock, synchronised, ms per search): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
@@ -605,88 +813,158 @@ def main() -> int:
     require(n_slices == 8 and sliced_r == whole_r and len(whole_r) > 0,
             "sliced fuzzy search disagrees with unsliced")
 
-    # 6. times and agreement at the main path's shapes
-    log("phase 6 times at main-path shapes:")
-    halo = pk.m_max
-    flags_k = tpb.scan_flags(ids_dev, T, halo)
-    flags_p = tpb.scan_flags_torch(ids_dev, T, halo)
-    pos = tpb.compact_indices(flags_k)
-    words_k = tpb.replay_words(ids_dev, pos, T, halo)
-    words_p = tpb.replay_words_torch(ids_dev, pos, T, halo)
-    torch.cuda.synchronize()
-    err_scan = int((flags_k.to(torch.int16) - flags_p.to(torch.int16)).abs().max())
-    err_replay = int((words_k - words_p).abs().max())
-    require(err_scan == 0 and err_replay == 0, "kernels disagree at main-path shapes")
-    scan_ms = event_ms(torch, lambda: tpb.scan_flags(ids_dev, T, halo), 20)
-    scan_plain_ms = event_ms(torch, lambda: tpb.scan_flags_torch(ids_dev, T, halo), 3)
-    replay_ms = event_ms(torch, lambda: tpb.replay_words(ids_dev, pos, T, halo), 20)
-    replay_plain_ms = event_ms(torch, lambda: tpb.replay_words_torch(ids_dev, pos, T, halo), 5)
-    log(f"  scan_flags: {ids_dev.numel()} symbols, kernel {scan_ms:.4f} ms, plain "
-        f"{scan_plain_ms:.4f} ms, max_abs_err {err_scan}")
-    log(f"  replay_words: {pos.numel()} hits, kernel {replay_ms:.4f} ms, plain "
-        f"{replay_plain_ms:.4f} ms, max_abs_err {err_replay}")
-
-    # The fuzzy path's shapes: one slice of the main path (k = 1 Damerau
-    # scan and replay, then the DP over that slice's candidates).
-    view = view_of(corpus, True)
-    plan = vdp.dp_plan(fuzzy, 0.8, len(view))
-    run = vdp.dp_inputs(fuzzy, corpus, plan, view, len(view))
+    # 6. times, bounds and agreement at the main paths' shapes
+    log("phase 6 times at main-path shapes (CUDA events; device time is the profiler's above):")
+    plan, run = lane_inputs(vdp, fuzzy, corpus, 0.8, "main-path shapes")
     fpart = run.parts[0]
-    ids_f, T_f, halo_f = fpart.ids_pf, run.T_scan, run.halo
-    flags_k = tpb.scan_flags(ids_f, T_f, halo_f)
-    flags_p = tpb.scan_flags_torch(ids_f, T_f, halo_f)
-    pos_f = tpb.compact_indices(flags_k)
-    words_k = tpb.replay_words(ids_f, pos_f, T_f, halo_f)
-    words_p = tpb.replay_words_torch(ids_f, pos_f, T_f, halo_f)
-    hits_f, cf, cs = vdp.dp_candidates(run, fpart)
+    log(f"  fuzzy slice 1 of {len(run.parts)}: {fpart.local_n} symbols "
+        f"({fpart.ids_pf.numel()} padded), k={plan.k} damerau={plan.dam} halo={run.halo}")
+    scan_rec = {}
+    for tag, ids_s, T_s, halo_s in (("exact", ids_dev, T, pk.m_max),
+                                    ("fuzzy", fpart.ids_pf, run.T_scan, run.halo)):
+        hits = scan_case(ids_s, T_s, halo_s, f"{tag} main-path shape")
+        bits_s, counts_s = tpb.scan_bits(ids_s, T_s, halo_s)
+        offs_s = tpb.block_offsets(counts_s)
+        n_s, W_s = ids_s.numel(), T_s.W
+        instr = scan_instr(W_s, T_s.k, T_s.damerau)
+        rec = {
+            "scan_bits": (
+                event_ms(torch, lambda: tpb.scan_bits(ids_s, T_s, halo_s), 20),
+                event_ms(torch, lambda: tpb.scan_bits_torch(ids_s, T_s, halo_s), 3),
+                bound_ms(n_s + n_s / 8 + 4 * counts_s.numel(), instr * n_s, INT_RATE), None),
+            "block_offsets": (
+                event_ms(torch, lambda: tpb.block_offsets(counts_s), 20),
+                event_ms(torch, lambda: tpb.block_offsets_torch(counts_s), 20),
+                bound_ms(8 * counts_s.numel() + 4, counts_s.numel(), INT_RATE),
+                event_ms(torch, lambda: torch.cumsum(counts_s, 0), 20)),
+            "hit_words": (
+                event_ms(torch, lambda: tpb.hit_words(ids_s, bits_s, offs_s, hits, T_s, halo_s), 20),
+                event_ms(torch, lambda: tpb.hit_words_torch(ids_s, bits_s, offs_s, hits, T_s, halo_s), 5),
+                bound_ms(n_s / 8 + 4 * offs_s.numel() + hits * (halo_s + 8 + 16 * W_s),
+                         instr * hits * halo_s, INT_RATE), None),
+        }
+        scan_rec[tag] = rec
+        for name, (ms, plain, (b_ms, b_by), lib) in rec.items():
+            log(f"  {name} {tag}: {n_s} symbols, {hits} hits, kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's "
+                f"time)" + (f", torch.cumsum {lib:.4f} ms" if lib is not None else ""))
+        whole = event_ms(torch, lambda: tpb.packed_hits(ids_s, T_s, halo_s), 20)
+        log(f"  packed_hits {tag} (three kernels and the count's readback): {whole:.4f} ms")
+
+    # The scan at every chunk length the kernel takes, on streams on both
+    # sides of the lengths where scan_chunk switches, beside its pick.
+    fill = torch.cuda.get_device_properties(dev).multi_processor_count * tpb.SCAN_FILL_THREADS
+    ids_fz = torch.cat([p.ids_pf[: p.local_n] for p in run.parts])
+    sweep = []
+    for tag, ids_s, T_s, halo_s, n_main in (
+            ("exact k=0", ids_dev, T, pk.m_max, ids_dev.numel()),
+            (f"fuzzy k={plan.k} damerau={plan.dam}", ids_fz, run.T_scan, run.halo,
+             fpart.ids_pf.numel())):
+        sizes = {n_main, *(int(fill * c * f) // 16 * 16 for c in (256, 512) for f in (0.75, 1.25))}
+        for n_s in sorted(x for x in sizes if x <= ids_s.numel()):
+            head = ids_s[:n_s]
+            ms = {c: event_ms(torch, lambda c=c: tpb.scan_bits(head, T_s, halo_s, c), 10)
+                  for c in tpb.SCAN_CHUNKS}
+            picked = tpb.scan_chunk(n_s, dev)
+            log(f"  scan_bits {tag}, {n_s} symbols, by chunk: "
+                + ", ".join(f"{c}: {t:.4f} ms" for c, t in ms.items())
+                + f"; scan_chunk picks {picked}, {ms[picked] / min(ms.values()):.3f} x the best")
+            sweep.append({"tables": tag, "n": n_s, "ms_by_chunk": ms, "picked": picked})
+    del ids_fz
+
+    # The DP step on slice 1: the pipeline kernel, and the DP-only kernel on
+    # the same candidates.
+    hits_f, pos_f, words_f = tpb.packed_hits(fpart.ids_pf, run.T_scan, run.halo)
+    p_args = pipeline_args(vdp, np, plan, run, fpart, pos_f, words_f, 0.8)
+    rows_k, cand_k = vdp.dp_pipeline(*p_args)
+    rows_p, cand_p = vdp.dp_pipeline_torch(*p_args)
+    _h, cf, cs = vdp.dp_candidates(run, fpart)
     dp_args = (cf, cs, fpart.ids_de, fpart.local_n, run.T, run.pens, plan.E, run.deadend)
     pen_k, cnt_k = vdp.banded_dp(*dp_args)
     pen_p, cnt_p = vdp.banded_dp_torch(*dp_args)
     torch.cuda.synchronize()
-    err_scan_f = int((flags_k.to(torch.int16) - flags_p.to(torch.int16)).abs().max())
-    err_replay_f = int((words_k - words_p).abs().max())
-    require(err_scan_f == 0 and err_replay_f == 0, "k=1 Damerau kernels disagree at main-path shapes")
+    require(torch.equal(rows_k, rows_p) and cand_k == cand_p == cf.numel(),
+            "dp_pipeline disagrees at main-path shapes")
     require(torch.equal(pen_k.view(torch.int32), pen_p.view(torch.int32))
             and torch.equal(cnt_k, cnt_p), "DP kernel disagrees at main-path shapes")
-    both = torch.isfinite(pen_k)
-    err_dp = max(float((pen_k - pen_p)[both].abs().max()) if bool(both.any()) else 0.0,
-                 float((cnt_k - cnt_p).abs().max()))
-    scan_f_ms = event_ms(torch, lambda: tpb.scan_flags(ids_f, T_f, halo_f), 20)
-    scan_f_plain_ms = event_ms(torch, lambda: tpb.scan_flags_torch(ids_f, T_f, halo_f), 3)
-    replay_f_ms = event_ms(torch, lambda: tpb.replay_words(ids_f, pos_f, T_f, halo_f), 20)
-    replay_f_plain_ms = event_ms(torch, lambda: tpb.replay_words_torch(ids_f, pos_f, T_f, halo_f), 5)
+    B, NE = 2 * plan.E + 1, plan.E + 1
+    cells = int(run.T.depth[cf.long()].sum()) * B * NE
+    tables = sum(t.numel() * t.element_size() for t in (
+        run.T.path_cls, run.T.path_node, run.T.depth, run.T.sim, run.T.node_ceil))
+    window = cf.numel() * (run.T.Lmax + 2 * plan.E + 2)
+    pipe_bound = bound_ms(pos_f.numel() * 8 + words_f.numel() * 8 + tables + window
+                          + rows_k.numel() * 4, cells * DP_CELL_INSTR, F32_RATE)
+    dp_bound = bound_ms(cf.numel() * 8 + tables + window + pen_k.numel() * 8,
+                        cells * DP_CELL_INSTR, F32_RATE)
+    # block_offsets as the pipeline calls it: the count pass's counts.
+    counts_pipe = vdp.dp_pipeline_counts(*p_args)
+    offs_pipe, offs_pipe_p = tpb.block_offsets(counts_pipe), tpb.block_offsets_torch(counts_pipe)
+    err_offs = int((offs_pipe.long() - offs_pipe_p.long()).abs().max())
+    errs_scan[1] = max(errs_scan[1], err_offs)
+    require(err_offs == 0, "block_offsets disagrees on the pipeline's counts at main-path shapes")
+    offs_pipe_rec = (
+        event_ms(torch, lambda: tpb.block_offsets(counts_pipe), 20),
+        event_ms(torch, lambda: tpb.block_offsets_torch(counts_pipe), 20),
+        bound_ms(8 * counts_pipe.numel() + 4, counts_pipe.numel(), INT_RATE),
+        event_ms(torch, lambda: torch.cumsum(counts_pipe, 0), 20))
+    log(f"  block_offsets on the pipeline's {counts_pipe.numel()} counts: kernel "
+        f"{offs_pipe_rec[0]:.4f} ms, plain {offs_pipe_rec[1]:.4f} ms, bound "
+        f"{offs_pipe_rec[2][0]:.5f} ms by {offs_pipe_rec[2][1]}, torch.cumsum "
+        f"{offs_pipe_rec[3]:.4f} ms, max_abs_err {err_offs}")
+    pipe_ms = event_ms(torch, lambda: vdp.dp_pipeline(*p_args), 20)
+    pipe_plain_ms = event_ms(torch, lambda: vdp.dp_pipeline_torch(*p_args), 3)
     dp_ms = event_ms(torch, lambda: vdp.banded_dp(*dp_args), 20)
     dp_plain_ms = event_ms(torch, lambda: vdp.banded_dp_torch(*dp_args), 3)
-    log(f"  fuzzy slice 1 of {len(run.parts)}: {fpart.local_n} symbols "
-        f"({ids_f.numel()} padded), k={plan.k} damerau={plan.dam} halo={halo_f}")
-    log(f"  scan_flags k=1 Damerau: kernel {scan_f_ms:.4f} ms, plain {scan_f_plain_ms:.4f} ms, "
-        f"max_abs_err {err_scan_f}")
-    log(f"  replay_words k=1 Damerau: {pos_f.numel()} hits, kernel {replay_f_ms:.4f} ms, "
-        f"plain {replay_f_plain_ms:.4f} ms, max_abs_err {err_replay_f}")
+    prof_p = profile_search(torch, lambda: vdp.dp_pipeline(*p_args), 10)
+    log(f"  dp_pipeline E={plan.E}: {hits_f} hits x {plan.n_combo} combos, {cand_k} candidates, "
+        f"{rows_k.shape[0]} rows; wrapper (two passes, offsets, totals' readback) {pipe_ms:.4f} ms, "
+        f"device time {device_ms(prof_p, 'dp_pipeline_kernel'):.4f} ms for both passes, plain "
+        f"{pipe_plain_ms:.4f} ms, bound {pipe_bound[0]:.4f} ms by {pipe_bound[1]}, max_abs_err 0")
     log(f"  banded_dp E={plan.E}: {cf.numel()} candidates, "
         f"{int(torch.isfinite(pen_k).sum())} live channels, kernel {dp_ms:.4f} ms, "
-        f"plain {dp_plain_ms:.4f} ms, max_abs_err {err_dp}")
+        f"plain {dp_plain_ms:.4f} ms, bound {dp_bound[0]:.4f} ms by {dp_bound[1]}, max_abs_err 0")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc/packed_bitap.cu"
-    print(json.dumps({"kernels": [
-        {"name": "scan_flags", "route": "cuda", "source": src,
-         "replaces": "fuzzy_aho_corasick_tpu/ops/packed_bitap.py:534",
-         "launches": launches["scan"] + launches_f["scan"],
-         "max_abs_err": max(err_scan, err_scan_f, err_scan_all),
-         "ms": scan_ms, "plain_ms": scan_plain_ms,
-         "fuzzy_ms": scan_f_ms, "fuzzy_plain_ms": scan_f_plain_ms},
-        {"name": "replay_words", "route": "cuda", "source": src,
-         "replaces": "fuzzy_aho_corasick_tpu/ops/packed_bitap.py:620",
-         "launches": launches["replay"] + launches_f["replay"],
-         "max_abs_err": max(err_replay, err_replay_f, err_replay_all),
-         "ms": replay_ms, "plain_ms": replay_plain_ms,
-         "fuzzy_ms": replay_f_ms, "fuzzy_plain_ms": replay_f_plain_ms},
-        {"name": "banded_dp", "route": "cuda", "source": f"{PKG}/csrc/banded_dp.cu",
-         "replaces": "fuzzy_aho_corasick_tpu/ops/verify_dp.py:292",
-         "launches": launches_f["dp"], "max_abs_err": max(err_dp, err_dp_all),
-         "ms": dp_ms, "plain_ms": dp_plain_ms},
-    ]}))
+    jax_pb = "fuzzy_aho_corasick_tpu/ops/packed_bitap.py"
+
+    def record(name, source, replaces, n_launch, err, ms, plain_ms, bound, lib, **extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib, **extra}
+
+    kernels = []
+    for i, (name, replaces) in enumerate((
+        ("scan_bits", f"{jax_pb}:534"), ("block_offsets", "fuzzy_aho_corasick_tpu/ops/compact.py:1"),
+        ("hit_words", f"{jax_pb}:620"),
+    )):
+        ms, plain, bound, lib = scan_rec["exact"][name]
+        f_ms, f_plain, f_bound, _lib = scan_rec["fuzzy"][name]
+        kernels.append(record(
+            name, src, replaces, launches[name] + launches_f[name], errs_scan[i], ms, plain,
+            bound, lib, fuzzy_ms=f_ms, fuzzy_plain_ms=f_plain, fuzzy_bound_ms=f_bound[0],
+            **({"pipeline_counts_ms": offs_pipe_rec[0], "pipeline_counts_plain_ms": offs_pipe_rec[1],
+                "pipeline_counts_bound_ms": offs_pipe_rec[2][0],
+                "pipeline_counts_library_ms": offs_pipe_rec[3]} if name == "block_offsets" else {}),
+            device_ms_per_exact_search=device_ms(prof_x, name + "_kernel"),
+            device_ms_per_fuzzy_search=device_ms(prof_f, name + "_kernel")))
+    kernels.append(record(
+        "dp_pipeline", f"{PKG}/csrc/dp_pipeline.cu", "fuzzy_aho_corasick_tpu/ops/verify_dp.py:1297",
+        launches_f["dp_pipeline"], err_pipe_all, pipe_ms, pipe_plain_ms, pipe_bound, None,
+        device_ms_per_fuzzy_search=device_ms(prof_f, "dp_pipeline_kernel")))
+    # The DP-only kernel shares the pipeline's DP body; no search runs it, so
+    # it is held against its plain version here and not counted on a path.
+    held = [record("banded_dp", f"{PKG}/csrc/banded_dp.cu",
+                   "fuzzy_aho_corasick_tpu/ops/verify_dp.py:292", 0, err_dp_all, dp_ms,
+                   dp_plain_ms, dp_bound, None)]
+    print(json.dumps({"kernels": kernels, "held_against_plain_only": held,
+                      "scan_chunk_sweep": sweep,
+                      "searches": {
+                          "exact_ms": [t * 1e3 for t in times],
+                          "fuzzy_ms": [t * 1e3 for t in times_f],
+                          "exact_launches_copies_waits": [prof_x["kernels"], prof_x["copies"], prof_x["waits"]],
+                          "fuzzy_launches_copies_waits": [prof_f["kernels"], prof_f["copies"], prof_f["waits"]]}}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,13 +1,19 @@
-// Packed multi-pattern shift-AND (Wu-Manber) NFA for Hopper (sm_90a).
+// Packed multi-pattern shift-AND (Wu-Manber) NFA for Hopper (sm_90a): the
+// ordered hit-list scan.
 //
 // Replaces the JAX package's one Pallas kernel body
 // (fuzzy_aho_corasick_tpu/ops/packed_bitap.py::_kernel_factory) in its two
-// call shapes:
+// call shapes, and the compaction between them:
 //
-//   scan_flags_kernel   <- _pallas_scan   : one u8 any-hit flag per stream
-//                                           position, in stream order.
-//   replay_words_kernel <- _replay_words  : for each compacted hit, the 2W
-//                                           u32 match words at that position.
+//   scan_bits_kernel     <- _pallas_scan  : one hit BIT per stream position
+//                                           (u32 words, bit i of word j is
+//                                           position 32 j + i) and the number
+//                                           of hits of every block.
+//   block_offsets_kernel <- the prefix sum of ops/compact.py: exclusive
+//                                           offsets of the block counts; the
+//                                           last entry is the hit count.
+//   hit_words_kernel     <- _replay_words : ascending hit positions and, for
+//                                           each, the 2W u32 match words.
 //
 // What it computes. Pattern fields are packed into W (1..8) u64 limbs; a
 // field never straddles a limb. Rows 0..k hold the error-budget states; with
@@ -21,58 +27,74 @@
 //   Damerau, with bcn = (bc >> 1) & notlast and sbc = bc << 1:
 //     new[d]   |= (pend[d] << 1) & sbc
 //     pend'[d]  = ((prev[d-1] << 1) | starts) & bcn
-//   match words = OR over d of new[d] & match[d]; flag = any word != 0.
+//   match words = OR over d of new[d] & match[d]; hit = any word != 0.
+//
+// The code uses (pend << 1) & (bc << 1) == (pend & bc) << 1, so the
+// transposition arrival shares the one shift of (prev[d-1] | new[d-1]).
 //
 // Semantics kept exactly (checklist):
 //   * the recurrence above, ``starts`` ORed into every row >= 1, the notlast
-//     guard and sbc/bcn for transpositions (packed_bitap.py:434-477);
+//     guard for transpositions (packed_bitap.py:434-477);
 //   * symbol 0 is dead, and reads before the stream start (and past its
 //     end) are symbol 0: the fresh state's fixpoint (packed_bitap.py:521-531);
-//   * every thread starts from the fresh state (init rows, empty pending
+//   * every chain starts from the fresh state (init rows, empty pending
 //     rows) ``halo`` symbols before the first position it reports, the same
 //     warm-up the Pallas lanes and replay windows use;
-//   * flags come out in stream order, so compaction yields ascending hit
-//     positions (packed_bitap.py:802-807);
-//   * flags over the padded tail are computed; the host drops them by
-//     ``pos < n``.
+//   * hit positions come out ascending (packed_bitap.py:802-807): bits are
+//     kept in stream order and turned into positions block by block behind
+//     an exclusive scan of the block counts;
+//   * positions >= n carry no bit; hits on a caller's padded tail inside n
+//     are reported, and the caller drops them by ``pos < n_real``.
 //
-// What bounds it on the H100. The scan touches 1 byte read and 1 byte
-// written per symbol of device memory and does O(W * k) integer ops per
-// symbol, so at small W and k it is bound by device-memory bytes, and by
-// integer issue beyond that. Its design: one thread owns one contiguous
-// chunk of SCAN_CHUNK symbols; a block stages its SCAN_THREADS chunks plus
-// the left halo into shared memory with coalesced 16-byte loads (neighbouring
-// threads own far-apart chunks, so reading their bytes straight from global
-// memory would not coalesce), padded by 4 bytes per chunk so the per-thread
-// reads hit distinct banks; the [A, W] u64 word table sits in shared memory
+// What bounds it on the H100. The scan reads 1 byte and writes 1 bit per
+// symbol of device memory, but needs about 14 integer instructions per
+// 32-bit state word and symbol at k = 1 with Damerau rows (a u64 limb op is
+// two of them), so at every table shape it is bound by the integer
+// instruction rate, not by bytes. Its design: no per-symbol output (bits,
+// not bytes, and no library compaction pass behind it); an instance per
+// exact row count k = 0, 1, 2 (k = 3..6 share one instance that masks rows at
+// run time), so no row is carried that the call does not use; one thread
+// scans one contiguous chunk, read 16 bytes at a time straight from global
+// memory one round ahead (the sectors are used in full, and without a
+// staging buffer the block's shared memory is the 3 KiB of tables, so
+// registers alone set the occupancy; two interleaved chunks per thread
+// measured slower than one, for the registers they take, and neither a hit
+// test per four symbols nor the match masks in registers moved the time);
+// the chunk length is the caller's (a launch parameter, the block's thread
+// count follows from it): long chunks spend less on the warm-up, short ones
+// give a small stream enough threads to fill the card, so the wrapper picks
+// it from the stream's length and the card's size;
+// the [A, W] u64 word table sits in shared memory
 // (one lookup per limb per symbol: the TPU kernel's per-class select loop
-// and baked constants existed because the TPU had no cheap gather); flags
-// are kept as bits in shared memory and written out as coalesced 16-byte
-// stores. The replay kernel is one thread per hit over ``halo`` u8 reads;
-// hits are ~1e-3 of positions, so it is small beside the scan.
+// and baked constants existed because the TPU had no cheap gather).
+// hit_words_kernel replays the NFA over the ``halo`` symbols behind each
+// hit; a block first writes its positions in order, then deals its hits out
+// to its threads, so a run of hits costs one replay's latency. Hits are
+// ~1e-3 of positions, so it is small beside the scan.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int SCAN_THREADS = 128;
-constexpr int SCAN_CHUNK = 256;  // stream symbols each thread reports
-constexpr int HALO_MAX = 128;    // staged left halo; callers need halo <= it
-constexpr int BLOCK_SYMS = SCAN_THREADS * SCAN_CHUNK;
-constexpr int STAGE_SYMS = HALO_MAX + BLOCK_SYMS;
-constexpr int STAGE_BYTES = STAGE_SYMS + 4 * (STAGE_SYMS / SCAN_CHUNK + 1);
-constexpr int BITS_WORDS = BLOCK_SYMS / 32;
-constexpr int REPLAY_THREADS = 128;
+constexpr int BLOCK_SYMS = 16384;    // stream symbols per block of the scan
+constexpr int BLOCK_WORDS = BLOCK_SYMS / 32;
+// Symbols one thread scans, the caller's choice within these limits: a
+// multiple of 32 (whole bit words) that gives the block whole warps.
+constexpr int CHUNK_MIN = 128, CHUNK_MAX = 512;
+constexpr int SCAN_THREADS_MAX = BLOCK_SYMS / CHUNK_MIN;
+constexpr int HITS_THREADS = 256;
+constexpr int HITS_WORDS = BLOCK_WORDS / HITS_THREADS;  // bit words per thread
+constexpr int OFFSETS_THREADS = 1024;
+constexpr int HALO_MAX = 128;
 constexpr int MAX_A = 128;
 constexpr int MAX_W = 8;
 constexpr int MAX_K = 6;
 
-static_assert(HALO_MAX % 16 == 0 && SCAN_CHUNK % 32 == 0, "staging layout");
-
-// Shared-memory offset of staged byte r: 4 pad bytes after every chunk, so
-// thread i reading its byte j lands on bank (i + j / 4) mod 32.
-__device__ __forceinline__ int swz(int r) { return r + 4 * (r / SCAN_CHUNK); }
+static_assert(CHUNK_MIN % 32 == 0 && BLOCK_SYMS % CHUNK_MAX == 0 &&
+              (BLOCK_SYMS / CHUNK_MAX) % 32 == 0, "whole bit words and whole warps");
+static_assert(BLOCK_WORDS % HITS_THREADS == 0 && HITS_WORDS >= 1,
+              "hit_words_kernel gives every thread the same number of bit words");
 
 struct Tables {
   const uint64_t* tbl;      // [A, W] per-symbol limb words (symbol 0 all-zero)
@@ -82,21 +104,23 @@ struct Tables {
   const uint64_t* notlast;  // [W] every field's last bit cleared, or null
 };
 
-// Per-thread NFA state. KMAX is the row count the instance is built for;
-// the runtime budget k <= KMAX masks the rows past it, so every array index
-// is static and the state stays in registers.
-template <int W, int KMAX, bool DAM>
+// Per-chain NFA state. K is the row count the instance is built for: for
+// K <= 2 the call's k equals K; the K == MAX_K instance serves k = 3..6 and
+// masks the rows past k at run time. Every array index is static, so the
+// state stays in registers.
+template <int W, int K, bool DAM>
 struct Nfa {
-  static constexpr int ROWS = (KMAX + 1) + (DAM ? KMAX : 0);
+  static constexpr int ROWS = (K + 1) + (DAM ? K : 0);
+  static constexpr bool MASKED = K == MAX_K;
   uint64_t r[ROWS][W];
 
-  __device__ __forceinline__ void reset(const uint64_t* s_init, int k) {
+  __device__ __forceinline__ void reset(const uint64_t* s_init) {
 #pragma unroll
-    for (int d = 0; d <= KMAX; ++d)
+    for (int d = 0; d <= K; ++d)
 #pragma unroll
-      for (int w = 0; w < W; ++w) r[d][w] = (d <= k) ? s_init[d * W + w] : 0ull;
+      for (int w = 0; w < W; ++w) r[d][w] = s_init[d * W + w];  // rows > k hold 0
 #pragma unroll
-    for (int d = KMAX + 1; d < ROWS; ++d)
+    for (int d = K + 1; d < ROWS; ++d)
 #pragma unroll
       for (int w = 0; w < W; ++w) r[d][w] = 0ull;
   }
@@ -106,31 +130,31 @@ struct Nfa {
                                        const uint64_t* st, const uint64_t* nl,
                                        const uint64_t* s_match, int k,
                                        uint64_t* out) {
+    const uint64_t* row = s_tbl + (sym & (MAX_A - 1)) * W;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      const uint64_t bc = s_tbl[(sym & (MAX_A - 1)) * W + w];
+      const uint64_t bc = row[w];
       const uint64_t old0 = r[0][w];
-      const uint64_t n0 = ((old0 << 1) | st[w]) & bc;
+      uint64_t x = (old0 << 1) | st[w];  // ((prev[d-1] << 1) | starts), d = 1
+      const uint64_t n0 = x & bc;
       r[0][w] = n0;
       uint64_t acc = n0 & s_match[w];
-      uint64_t bcn = 0, sbc = 0;
-      if constexpr (DAM) {
-        bcn = (bc >> 1) & nl[w];
-        sbc = bc << 1;
-      }
+      uint64_t bcn = 0;
+      if constexpr (DAM) bcn = (bc >> 1) & nl[w];
       uint64_t prev_dm1 = old0, new_dm1 = n0;
 #pragma unroll
-      for (int d = 1; d <= KMAX; ++d) {
-        if (d <= k) {
+      for (int d = 1; d <= K; ++d) {
+        if (!MASKED || d <= k) {
           const uint64_t old = r[d][w];
-          uint64_t nd = ((old << 1) & bc) | ((prev_dm1 | new_dm1) << 1) |
-                        prev_dm1 | st[w];
+          uint64_t carry = prev_dm1 | new_dm1;
           if constexpr (DAM) {
-            nd |= (r[KMAX + d][w] << 1) & sbc;
-            r[KMAX + d][w] = ((prev_dm1 << 1) | st[w]) & bcn;
+            carry |= r[K + d][w] & bc;
+            r[K + d][w] = x & bcn;
           }
+          const uint64_t nd = ((old << 1) & bc) | (carry << 1) | prev_dm1 | st[w];
           r[d][w] = nd;
           acc |= nd & s_match[d * W + w];
+          x = (old << 1) | st[w];
           prev_dm1 = old;
           new_dm1 = nd;
         }
@@ -138,17 +162,30 @@ struct Nfa {
       out[w] = acc;
     }
   }
+
+  // Advance one symbol; whether some field's match bit is set.
+  __device__ __forceinline__ bool step_any(const uint64_t* s_tbl, int sym,
+                                           const uint64_t* st, const uint64_t* nl,
+                                           const uint64_t* s_match, int k) {
+    uint64_t out[W];
+    step(s_tbl, sym, st, nl, s_match, k, out);
+    uint64_t any = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) any |= out[w];
+    return any != 0;
+  }
 };
 
 // Loads the tables shared by both kernels into shared memory / registers.
-template <int W, int KMAX>
+// Rows past the call's k (the masked instance) read as zero.
+template <int W, int K>
 __device__ __forceinline__ void load_tables(const Tables& tb, int A, int k,
                                             uint64_t* s_tbl, uint64_t* s_match,
                                             uint64_t* s_init, uint64_t* st,
                                             uint64_t* nl, int tid, int nthreads) {
   for (int i = tid; i < A * W; i += nthreads) s_tbl[i] = tb.tbl[i];
   for (int i = A * W + tid; i < MAX_A * W; i += nthreads) s_tbl[i] = 0ull;
-  for (int i = tid; i < (KMAX + 1) * W; i += nthreads) {
+  for (int i = tid; i < (K + 1) * W; i += nthreads) {
     const bool live = i / W <= k;
     s_match[i] = live ? tb.match[i] : 0ull;
     s_init[i] = live ? tb.init[i] : 0ull;
@@ -160,227 +197,344 @@ __device__ __forceinline__ void load_tables(const Tables& tb, int A, int k,
   }
 }
 
-template <int W, int KMAX, bool DAM>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_flags_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb,
-                  int A, int k, int halo, uint8_t* __restrict__ flags) {
+__device__ __forceinline__ int sym_at(const uint8_t* __restrict__ ids, long long n,
+                                      long long q) {
+  return (q >= 0 && q < n) ? (int)__ldg(ids + q) : 0;
+}
+
+// Stream bytes [g, g + 16) as four little-endian words; bytes outside the
+// stream read as 0. One 16-byte load where the address allows it.
+__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ ids, long long n,
+                                        long long g, bool aligned) {
+  if (aligned && g >= 0 && g + 16 <= n) {
+    return __ldg(reinterpret_cast<const uint4*>(ids + g));
+  }
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) word |= (uint32_t)sym_at(ids, n, g + 4 * j + b) << (8 * b);
+    v[j] = word;
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ uint32_t pick(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// Bits of positions >= n cleared from the word that covers [p, p + 32).
+__device__ __forceinline__ uint32_t clip_word(uint32_t word, long long p, long long n) {
+  if (p >= n) return 0u;
+  if (p + 32 > n) return word & ((1u << (int)(n - p)) - 1u);
+  return word;
+}
+
+// One thread scans ``chunk`` symbols; the block of BLOCK_SYMS / chunk
+// threads covers BLOCK_SYMS.
+template <int W, int K, bool DAM>
+__global__ void __launch_bounds__(SCAN_THREADS_MAX)
+scan_bits_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb,
+                 int A, int k, int halo, int chunk, uint32_t* __restrict__ bits,
+                 int* __restrict__ block_counts) {
+  const int THREADS = blockDim.x;  // BLOCK_SYMS / chunk
   __shared__ uint64_t s_tbl[MAX_A * W];
-  __shared__ uint64_t s_match[(KMAX + 1) * W];
-  __shared__ uint64_t s_init[(KMAX + 1) * W];
-  __shared__ __align__(16) uint8_t s_ids[STAGE_BYTES];
-  __shared__ uint32_t s_bits[BITS_WORDS];  // [chunk word j][thread]
+  __shared__ uint64_t s_match[(K + 1) * W];
+  __shared__ uint64_t s_init[(K + 1) * W];
+  __shared__ int s_count;
 
   const int tid = threadIdx.x;
-  const long long blk0 = (long long)blockIdx.x * BLOCK_SYMS;
   uint64_t st[W], nl[W];
-  load_tables<W, KMAX>(tb, A, k, s_tbl, s_match, s_init, st, nl, tid,
-                       SCAN_THREADS);
-
-  // Stage stream bytes [blk0 - HALO_MAX, blk0 + BLOCK_SYMS): 16-byte units,
-  // neighbouring threads on neighbouring units; out of range reads as 0.
-  const long long g0 = blk0 - HALO_MAX;
-  const bool aligned = (reinterpret_cast<uintptr_t>(ids) & 15) == 0;
-  for (int r = tid * 16; r < STAGE_SYMS; r += SCAN_THREADS * 16) {
-    const long long g = g0 + r;
-    uint32_t v[4];
-    if (aligned && g >= 0 && g + 16 <= n) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(ids + g));
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t word = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const long long gb = g + 4 * j + b;
-          const uint32_t byte = (gb >= 0 && gb < n) ? ids[gb] : 0u;
-          word |= byte << (8 * b);
-        }
-        v[j] = word;
-      }
-    }
-    uint32_t* dst = reinterpret_cast<uint32_t*>(s_ids + swz(r));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dst[j] = v[j];
-  }
+  load_tables<W, K>(tb, A, k, s_tbl, s_match, s_init, st, nl, tid, THREADS);
+  if (tid == 0) s_count = 0;
   __syncthreads();
 
-  // This thread's chunk: block-relative positions [c0, c0 + SCAN_CHUNK),
-  // warmed up from the fresh state over [c0 - halo, c0).
-  const int c0 = tid * SCAN_CHUNK;
-  if (blk0 + c0 < n) {
-    Nfa<W, KMAX, DAM> nfa;
-    nfa.reset(s_init, k);
-    uint64_t out[W];
-    for (int q = c0 - halo; q < c0; ++q) {
-      nfa.step(s_tbl, s_ids[swz(q + HALO_MAX)], st, nl, s_match, k, out);
-    }
+  // This thread reports positions [c0, c0 + chunk), warmed up from the
+  // fresh state over [c0 - halo, c0).
+  const long long c0 = ((long long)blockIdx.x * THREADS + tid) * chunk;
+  const bool aligned = (reinterpret_cast<uintptr_t>(ids) & 15) == 0;
+  int hits = 0;
+  if (c0 < n) {
+    Nfa<W, K, DAM> nfa;
+    nfa.reset(s_init);
+    for (int q = -halo; q < 0; ++q)
+      nfa.step_any(s_tbl, sym_at(ids, n, c0 + q), st, nl, s_match, k);
+    // 16 symbols a round; the next round's bytes are loaded before this
+    // round's are stepped through.
+    uint4 cur = load16(ids, n, c0, aligned), nxt = cur;
+    uint32_t word = 0u;
+    const int rounds = chunk / 16;
 #pragma unroll 1
-    for (int j = 0; j < SCAN_CHUNK / 32; ++j) {
-      uint32_t bits = 0;
+    for (int h = 0; h < rounds; ++h) {
+      if (h + 1 < rounds) nxt = load16(ids, n, c0 + (h + 1) * 16, aligned);
 #pragma unroll 1
-      for (int b = 0; b < 32; b += 4) {
-        const int q = c0 + j * 32 + b;
-        const uint32_t four =
-            *reinterpret_cast<const uint32_t*>(s_ids + swz(q + HALO_MAX));
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t four = pick(cur, j);
+        uint32_t nib = 0u;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          nfa.step(s_tbl, (four >> (8 * i)) & 0xFF, st, nl, s_match, k, out);
-          uint64_t any = 0;
-#pragma unroll
-          for (int w = 0; w < W; ++w) any |= out[w];
-          bits |= (any != 0 ? 1u : 0u) << (b + i);
+          const bool hit = nfa.step_any(s_tbl, (four >> (8 * i)) & 0xFF, st, nl, s_match, k);
+          nib |= (hit ? 1u : 0u) << i;
         }
+        word |= nib << ((h & 1) * 16 + j * 4);
       }
-      s_bits[j * SCAN_THREADS + tid] = bits;
+      cur = nxt;
+      if (h & 1) {
+        const long long p = c0 + (h / 2) * 32;
+        const uint32_t out = clip_word(word, p, n);
+        bits[p / 32] = out;
+        hits += __popc(out);
+        word = 0u;
+      }
     }
   } else {
-#pragma unroll 1
-    for (int j = 0; j < SCAN_CHUNK / 32; ++j) s_bits[j * SCAN_THREADS + tid] = 0u;
+    for (int t = 0; t < chunk / 32; ++t) bits[c0 / 32 + t] = 0u;
   }
-  __syncthreads();
 
-  // Write flags [blk0, blk0 + BLOCK_SYMS) as 16-byte units in stream order.
-  for (int p = tid * 16; p < BLOCK_SYMS; p += SCAN_THREADS * 16) {
-    const long long g = blk0 + p;
-    if (g >= n) break;
-    const int owner = p / SCAN_CHUNK;
-    const int j = (p % SCAN_CHUNK) / 32;
-    const uint32_t half = (s_bits[j * SCAN_THREADS + owner] >> (p % 32)) & 0xFFFFu;
-    uint32_t v[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t x = (half >> (4 * i)) & 0xFu;
-      v[i] = (x & 1u) | ((x & 2u) << 7) | ((x & 4u) << 14) | ((x & 8u) << 21);
-    }
-    if (g + 16 <= n && (reinterpret_cast<uintptr_t>(flags + g) & 15) == 0) {
-      *reinterpret_cast<uint4*>(flags + g) = make_uint4(v[0], v[1], v[2], v[3]);
-    } else {
-      for (int b = 0; b < 16 && g + b < n; ++b) {
-        flags[g + b] = (uint8_t)((v[b >> 2] >> (8 * (b & 3))) & 0xFF);
-      }
-    }
-  }
+  for (int o = 16; o > 0; o >>= 1) hits += __shfl_down_sync(0xFFFFFFFFu, hits, o);
+  if ((tid & 31) == 0 && hits != 0) atomicAdd(&s_count, hits);
+  __syncthreads();
+  if (tid == 0) block_counts[blockIdx.x] = s_count;
 }
 
-template <int W, int KMAX, bool DAM>
-__global__ void __launch_bounds__(REPLAY_THREADS)
-replay_words_kernel(const uint8_t* __restrict__ ids, long long n,
-                    const long long* __restrict__ pos, long long nhits,
-                    Tables tb, int A, int k, int halo,
-                    long long* __restrict__ words) {
+// Exclusive scan of ``counts`` [len] into ``offsets`` [len + 1]
+// (offsets[len] = the total), one block walking the array in tiles.
+__global__ void __launch_bounds__(OFFSETS_THREADS)
+block_offsets_kernel(const int* __restrict__ counts, long long len,
+                     int* __restrict__ offsets) {
+  __shared__ int s_warp[OFFSETS_THREADS / 32];
+  __shared__ int s_carry;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_carry = 0;
+  __syncthreads();
+  for (long long base = 0; base < len; base += OFFSETS_THREADS) {
+    const long long i = base + tid;
+    const int v = i < len ? counts[i] : 0;
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+      if (lane >= o) incl += up;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int w = s_warp[lane];  // OFFSETS_THREADS / 32 == 32 warp sums
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xFFFFFFFFu, w, o);
+        if (lane >= o) w += up;
+      }
+      s_warp[lane] = w;  // inclusive over warps
+    }
+    __syncthreads();
+    const int carry = s_carry;
+    const int before = carry + (warp > 0 ? s_warp[warp - 1] : 0) + incl - v;
+    if (i < len) offsets[i] = before;
+    __syncthreads();
+    if (tid == OFFSETS_THREADS - 1) s_carry = carry + s_warp[OFFSETS_THREADS / 32 - 1];
+    __syncthreads();
+  }
+  if (tid == 0) offsets[len] = s_carry;
+}
+static_assert(OFFSETS_THREADS == 1024, "block_offsets_kernel scans 32 warp sums in one warp");
+
+// Block b turns the set bits of its BLOCK_WORDS bit words into positions
+// pos[offsets[b] ..) in ascending order and replays the NFA over the
+// ``halo`` symbols that end at each of them.
+template <int W, int K, bool DAM>
+__global__ void __launch_bounds__(HITS_THREADS)
+hit_words_kernel(const uint8_t* __restrict__ ids, long long n,
+                 const uint32_t* __restrict__ bits,
+                 const int* __restrict__ offsets, Tables tb, int A, int k,
+                 int halo, long long* pos, long long* __restrict__ words) {
   __shared__ uint64_t s_tbl[MAX_A * W];
-  __shared__ uint64_t s_match[(KMAX + 1) * W];
-  __shared__ uint64_t s_init[(KMAX + 1) * W];
-  uint64_t st[W], nl[W];
-  load_tables<W, KMAX>(tb, A, k, s_tbl, s_match, s_init, st, nl, threadIdx.x,
-                       REPLAY_THREADS);
-  __syncthreads();
+  __shared__ uint64_t s_match[(K + 1) * W];
+  __shared__ uint64_t s_init[(K + 1) * W];
+  __shared__ int s_warp[HITS_THREADS / 32];
 
-  const long long h = (long long)blockIdx.x * REPLAY_THREADS + threadIdx.x;
-  if (h >= nhits) return;
-  const long long p = pos[h];
-  Nfa<W, KMAX, DAM> nfa;
-  nfa.reset(s_init, k);
-  uint64_t out[W];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int base = offsets[blockIdx.x], next = offsets[blockIdx.x + 1];
+  if (next == base) return;  // no hit in this block
+  uint64_t st[W], nl[W];
+  load_tables<W, K>(tb, A, k, s_tbl, s_match, s_init, st, nl, tid, HITS_THREADS);
+
+  const long long word0 = (long long)blockIdx.x * BLOCK_WORDS + tid * HITS_WORDS;
+  uint32_t mine[HITS_WORDS];
+  int cnt = 0;
 #pragma unroll
-  for (int w = 0; w < W; ++w) out[w] = 0ull;
-  // Replay ids[p - halo + 1 .. p] from the fresh state; reads outside the
-  // stream are the dead symbol 0.
-  for (long long q = p - halo + 1; q <= p; ++q) {
-    const int sym = (q >= 0 && q < n) ? ids[q] : 0;
-    nfa.step(s_tbl, sym, st, nl, s_match, k, out);
+  for (int j = 0; j < HITS_WORDS; ++j) {
+    mine[j] = bits[word0 + j];
+    cnt += __popc(mine[j]);
   }
-  long long* dst = words + h * (2 * W);
+  int incl = cnt;
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-    dst[2 * w] = (long long)(out[w] & 0xFFFFFFFFull);
-    dst[2 * w + 1] = (long long)(out[w] >> 32);
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();  // also orders the table loads before the replays
+  int rank = base + incl - cnt;
+  for (int w = 0; w < warp; ++w) rank += s_warp[w];
+
+  // Positions first, in order; then the block's hits are dealt out to its
+  // threads one each, so a run of hits inside one bit word is replayed by
+  // as many threads and not by one.
+#pragma unroll
+  for (int j = 0; j < HITS_WORDS; ++j) {
+    uint32_t m = mine[j];
+    while (m != 0) {
+      const int bit = __ffs(m) - 1;
+      m &= m - 1;
+      pos[rank++] = (word0 + j) * 32 + bit;
+    }
+  }
+  __syncthreads();  // the block's positions are written
+  for (int r = base + tid; r < next; r += HITS_THREADS) {
+    const long long p = pos[r];
+    Nfa<W, K, DAM> nfa;
+    nfa.reset(s_init);
+    uint64_t out[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) out[w] = 0ull;
+    // Replay ids[p - halo + 1 .. p] from the fresh state; reads outside
+    // the stream are the dead symbol 0.
+    for (long long q = p - halo + 1; q <= p; ++q)
+      nfa.step(s_tbl, sym_at(ids, n, q), st, nl, s_match, k, out);
+    long long* dst = words + (long long)r * (2 * W);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      dst[2 * w] = (long long)(out[w] & 0xFFFFFFFFull);
+      dst[2 * w + 1] = (long long)(out[w] >> 32);
+    }
   }
 }
 
-// Variant of the row count: k == 0 exact; k <= 2 and k <= 6 with masking.
-template <int W, int KMAX, bool DAM>
-cudaError_t launch_variant(bool replay, const uint8_t* ids, long long n,
-                           const long long* pos, long long nhits,
-                           const Tables& tb, int A, int k, int halo, void* out,
-                           cudaStream_t stream) {
-  if (replay) {
-    const long long blocks = (nhits + REPLAY_THREADS - 1) / REPLAY_THREADS;
-    replay_words_kernel<W, KMAX, DAM><<<(unsigned)blocks, REPLAY_THREADS, 0, stream>>>(
-        ids, n, pos, nhits, tb, A, k, halo, static_cast<long long*>(out));
-  } else {
-    const long long blocks = (n + BLOCK_SYMS - 1) / BLOCK_SYMS;
-    scan_flags_kernel<W, KMAX, DAM><<<(unsigned)blocks, SCAN_THREADS, 0, stream>>>(
-        ids, n, tb, A, k, halo, static_cast<uint8_t*>(out));
+struct Call {
+  bool hits;  // false: scan_bits_kernel, true: hit_words_kernel
+  const uint8_t* ids;
+  long long n, nblocks;
+  Tables tb;
+  int A, k, halo;
+  int chunk;  // symbols per thread of the scan
+  uint32_t* bits;
+  int* counts;  // block counts (scan) or their exclusive offsets (hits)
+  long long* pos;
+  long long* words;
+  cudaStream_t stream;
+};
+
+template <int W, int K, bool DAM>
+cudaError_t launch_scan(const Call& c) {
+  if (c.chunk < CHUNK_MIN || c.chunk > CHUNK_MAX || c.chunk % 32 != 0 ||
+      BLOCK_SYMS % c.chunk != 0 || (BLOCK_SYMS / c.chunk) % 32 != 0) {
+    return cudaErrorInvalidValue;
   }
+  scan_bits_kernel<W, K, DAM><<<(unsigned)c.nblocks, BLOCK_SYMS / c.chunk, 0, c.stream>>>(
+      c.ids, c.n, c.tb, c.A, c.k, c.halo, c.chunk, c.bits, c.counts);
   return cudaGetLastError();
 }
 
-template <int W>
-cudaError_t launch_w(bool replay, const uint8_t* ids, long long n,
-                     const long long* pos, long long nhits, const Tables& tb,
-                     int A, int k, int halo, void* out, cudaStream_t stream) {
-  const bool dam = tb.notlast != nullptr && k >= 1;
-  if (k == 0)
-    return launch_variant<W, 0, false>(replay, ids, n, pos, nhits, tb, A, k, halo, out, stream);
-  if (k <= 2)
-    return dam ? launch_variant<W, 2, true>(replay, ids, n, pos, nhits, tb, A, k, halo, out, stream)
-               : launch_variant<W, 2, false>(replay, ids, n, pos, nhits, tb, A, k, halo, out, stream);
-  return dam ? launch_variant<W, MAX_K, true>(replay, ids, n, pos, nhits, tb, A, k, halo, out, stream)
-             : launch_variant<W, MAX_K, false>(replay, ids, n, pos, nhits, tb, A, k, halo, out, stream);
+template <int W, int K, bool DAM>
+cudaError_t launch_hits(const Call& c) {
+  hit_words_kernel<W, K, DAM><<<(unsigned)c.nblocks, HITS_THREADS, 0, c.stream>>>(
+      c.ids, c.n, c.bits, c.counts, c.tb, c.A, c.k, c.halo, c.pos, c.words);
+  return cudaGetLastError();
 }
 
-cudaError_t dispatch(bool replay, const void* ids, long long n, const void* pos,
-                     long long nhits, const void* tbl, const void* starts,
-                     const void* match, const void* init, const void* notlast,
-                     int A, int W, int k, int halo, void* out, void* stream) {
-  if (A < 1 || A > MAX_A || W < 1 || W > MAX_W || k < 0 || k > MAX_K ||
-      halo < 1 || halo > HALO_MAX ||
-      n < 1 || (replay && nhits < 1)) {
+template <int W, int K>
+cudaError_t launch_k(const Call& c) {
+  if (K >= 1 && c.tb.notlast != nullptr)
+    return c.hits ? launch_hits<W, K, K >= 1>(c) : launch_scan<W, K, K >= 1>(c);
+  return c.hits ? launch_hits<W, K, false>(c) : launch_scan<W, K, false>(c);
+}
+
+// One instance per exact row count k = 0, 1, 2; k = 3..6 share the masked one.
+template <int W>
+cudaError_t launch_w(const Call& c) {
+  switch (c.k) {
+    case 0: return launch_k<W, 0>(c);
+    case 1: return launch_k<W, 1>(c);
+    case 2: return launch_k<W, 2>(c);
+    default: return launch_k<W, MAX_K>(c);
+  }
+}
+
+cudaError_t dispatch(const Call& c, int W) {
+  if (c.A < 1 || c.A > MAX_A || W < 1 || W > MAX_W || c.k < 0 || c.k > MAX_K ||
+      c.halo < 1 || c.halo > HALO_MAX || c.n < 1 ||
+      c.nblocks != (c.n + BLOCK_SYMS - 1) / BLOCK_SYMS || c.nblocks > 0x7FFFFFFFll) {
     return cudaErrorInvalidValue;
   }
-  const Tables tb{static_cast<const uint64_t*>(tbl), static_cast<const uint64_t*>(starts),
-                  static_cast<const uint64_t*>(match), static_cast<const uint64_t*>(init),
-                  static_cast<const uint64_t*>(notlast)};
-  const uint8_t* u8 = static_cast<const uint8_t*>(ids);
-  const long long* p = static_cast<const long long*>(pos);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 1: return launch_w<1>(replay, u8, n, p, nhits, tb, A, k, halo, out, s);
-    case 2: return launch_w<2>(replay, u8, n, p, nhits, tb, A, k, halo, out, s);
-    case 3: return launch_w<3>(replay, u8, n, p, nhits, tb, A, k, halo, out, s);
-    case 4: return launch_w<4>(replay, u8, n, p, nhits, tb, A, k, halo, out, s);
-    case 5: return launch_w<5>(replay, u8, n, p, nhits, tb, A, k, halo, out, s);
-    case 6: return launch_w<6>(replay, u8, n, p, nhits, tb, A, k, halo, out, s);
-    case 7: return launch_w<7>(replay, u8, n, p, nhits, tb, A, k, halo, out, s);
-    case 8: return launch_w<8>(replay, u8, n, p, nhits, tb, A, k, halo, out, s);
+    case 1: return launch_w<1>(c);
+    case 2: return launch_w<2>(c);
+    case 3: return launch_w<3>(c);
+    case 4: return launch_w<4>(c);
+    case 5: return launch_w<5>(c);
+    case 6: return launch_w<6>(c);
+    case 7: return launch_w<7>(c);
+    case 8: return launch_w<8>(c);
     default: return cudaErrorInvalidValue;
   }
+}
+
+Tables tables_of(const void* tbl, const void* starts, const void* match,
+                 const void* init, const void* notlast) {
+  return Tables{static_cast<const uint64_t*>(tbl), static_cast<const uint64_t*>(starts),
+                static_cast<const uint64_t*>(match), static_cast<const uint64_t*>(init),
+                static_cast<const uint64_t*>(notlast)};
 }
 
 }  // namespace
 
 extern "C" {
 
-// ids: u8 [n]; flags: u8 [n]. Tables are u64 (see Tables). Returns the
-// launch's cudaError_t (0 = launched).
-int fac_scan_flags(const void* ids, long long n, const void* tbl,
-                   const void* starts, const void* match, const void* init,
-                   const void* notlast, int A, int W, int k, int halo,
-                   void* flags, void* stream) {
-  return (int)dispatch(false, ids, n, nullptr, 0, tbl, starts, match, init,
-                       notlast, A, W, k, halo, flags, stream);
+// Stream positions one block of the scan covers; the callers size ``bits``
+// (nblocks * fac_scan_block_syms() / 32 words) and ``counts`` from it.
+int fac_scan_block_syms() { return BLOCK_SYMS; }
+
+// ids: u8 [n]; chunk: symbols per thread (128, 256 or 512); bits: u32
+// [nblocks * BLOCK_SYMS / 32], every word written; counts: int32 [nblocks].
+// Tables are u64 (see Tables). Returns the launch's cudaError_t (0 =
+// launched).
+int fac_scan_bits(const void* ids, long long n, const void* tbl,
+                  const void* starts, const void* match, const void* init,
+                  const void* notlast, int A, int W, int k, int halo, int chunk,
+                  long long nblocks, void* bits, void* counts, void* stream) {
+  const Call c{false, static_cast<const uint8_t*>(ids), n, nblocks,
+               tables_of(tbl, starts, match, init, notlast), A, k, halo, chunk,
+               static_cast<uint32_t*>(bits), static_cast<int*>(counts), nullptr,
+               nullptr, static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(c, W);
 }
 
-// pos: int64 [nhits] stream positions < n; words: int64 [nhits, 2W] holding
-// the u32 halves (low, high) of each limb's match word.
-int fac_replay_words(const void* ids, long long n, const void* pos,
-                     long long nhits, const void* tbl, const void* starts,
-                     const void* match, const void* init, const void* notlast,
-                     int A, int W, int k, int halo, void* words, void* stream) {
-  return (int)dispatch(true, ids, n, pos, nhits, tbl, starts, match, init,
-                       notlast, A, W, k, halo, words, stream);
+// counts: int32 [len]; offsets: int32 [len + 1].
+int fac_block_offsets(const void* counts, long long len, void* offsets, void* stream) {
+  if (len < 1) return (int)cudaErrorInvalidValue;
+  block_offsets_kernel<<<1, OFFSETS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(counts), len, static_cast<int*>(offsets));
+  return (int)cudaGetLastError();
+}
+
+// bits and offsets as the two kernels above wrote them; pos: int64 [hits];
+// words: int64 [hits, 2W] holding the u32 halves (low, high) of each limb's
+// match word.
+int fac_hit_words(const void* ids, long long n, const void* bits,
+                  const void* offsets, const void* tbl, const void* starts,
+                  const void* match, const void* init, const void* notlast,
+                  int A, int W, int k, int halo, long long nblocks, void* pos,
+                  void* words, void* stream) {
+  const Call c{true, static_cast<const uint8_t*>(ids), n, nblocks,
+               tables_of(tbl, starts, match, init, notlast), A, k, halo, 0,
+               static_cast<uint32_t*>(const_cast<void*>(bits)),
+               static_cast<int*>(const_cast<void*>(offsets)),
+               static_cast<long long*>(pos), static_cast<long long*>(words),
+               static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(c, W);
 }
 
 const char* fac_error_string(int code) {

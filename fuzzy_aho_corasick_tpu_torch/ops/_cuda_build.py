@@ -27,7 +27,11 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "packed_bitap.cu", _PKG / "csrc" / "banded_dp.cu")
+SOURCES = tuple(
+    _PKG / "csrc" / name for name in ("packed_bitap.cu", "banded_dp.cu", "dp_pipeline.cu")
+)
+#: Headers the sources include (part of the build's hash).
+HEADERS = (_PKG / "csrc" / "banded_dp.cuh",)
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,13 +45,16 @@ _c_void_p, _c_ll, _c_int, _c_f = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 )
 _SIGNATURES = {
-    # ids, n, tbl, starts, match, init, notlast, A, W, k, halo, flags, stream
-    "fac_scan_flags": [_c_void_p, _c_ll] + [_c_void_p] * 5 + [_c_int] * 4
-    + [_c_void_p, _c_void_p],
-    # ids, n, pos, nhits, tbl, starts, match, init, notlast, A, W, k, halo,
-    # words, stream
-    "fac_replay_words": [_c_void_p, _c_ll, _c_void_p, _c_ll] + [_c_void_p] * 5
-    + [_c_int] * 4 + [_c_void_p, _c_void_p],
+    # ids, n, tbl, starts, match, init, notlast, A, W, k, halo, chunk, nblocks,
+    # bits, counts, stream
+    "fac_scan_bits": [_c_void_p, _c_ll] + [_c_void_p] * 5 + [_c_int] * 5
+    + [_c_ll] + [_c_void_p] * 3,
+    # counts, len, offsets, stream
+    "fac_block_offsets": [_c_void_p, _c_ll, _c_void_p, _c_void_p],
+    # ids, n, bits, offsets, tbl, starts, match, init, notlast, A, W, k, halo,
+    # nblocks, pos, words, stream
+    "fac_hit_words": [_c_void_p, _c_ll] + [_c_void_p] * 7 + [_c_int] * 4
+    + [_c_ll] + [_c_void_p] * 3,
     # cand_field, cand_start, M, ids, ids_u8, npad, limit, path_cls,
     # path_node, depth, Lmax, F, sim, C, node_ceil, sb_edge, out_count, N,
     # max_pen, p_sub, p_ins, p_del, p_swap, floor, E, deadend, pen, cnt,
@@ -55,6 +62,18 @@ _SIGNATURES = {
     "fac_banded_dp": [_c_void_p, _c_void_p, _c_ll, _c_void_p, _c_int, _c_ll, _c_ll]
     + [_c_void_p] * 3 + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3
     + [_c_int] + [_c_f] * 6 + [_c_int] * 2 + [_c_void_p] * 3,
+    # pos, words, K, W2, combos, n_combo, start_lo, start_hi, pos_hi, ids,
+    # ids_u8, npad, limit, path_cls, path_node, depth, node, Lmax, F, sim, C,
+    # node_ceil, sb_edge, out_count, N, out_list, MO, pat_len, pat_weight,
+    # max_pen, p_sub, p_ins, p_del, p_swap, floor, bound, E, deadend, write,
+    # nblk, counts, offsets, rows, stream
+    "fac_dp_pipeline": [_c_void_p, _c_void_p, _c_ll, _c_int, _c_void_p, _c_int]
+    + [_c_ll] * 3 + [_c_void_p, _c_int, _c_ll, _c_ll] + [_c_void_p] * 4
+    + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int]
+    + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3
+    + [_c_ll] + [_c_void_p] * 4,
+    "fac_scan_block_syms": [],
+    "fac_dp_pipeline_threads": [],
 }
 
 
@@ -94,9 +113,18 @@ def _nvcc() -> str:
     return found
 
 
+def _extra_flags(nvcc: str) -> tuple:
+    """``--split-compile=0`` (optimise a source's kernels on all cores) where
+    this nvcc has it; the many template instantiations build in about half
+    the time with it."""
+    out = subprocess.run([nvcc, "--help"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True).stdout
+    return ("--split-compile=0",) if "--split-compile" in out else ()
+
+
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -107,16 +135,19 @@ def _build(out_dir: Path, so: Path) -> str:
     """Compile every source to an object, one ``nvcc`` each in parallel,
     then link the shared library; returns the build log."""
     nvcc = _nvcc()
+    extra = _extra_flags(nvcc)
     jobs = []
     for src in SOURCES:
         obj = out_dir / f"{src.stem}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((cmd, obj, proc))
     log, failed = "", False
+    t0 = time.perf_counter()
     for cmd, _obj, proc in jobs:
         out, _ = proc.communicate()
-        log += " ".join(cmd) + "\n" + out
+        # Jobs run together, so this is the time until this one had ended.
+        log += " ".join(cmd) + f"\n[done {time.perf_counter() - t0:.1f} s after start]\n" + out
         failed |= proc.returncode != 0
     if not failed:
         tmp = out_dir / f"libfac_kernels.{os.getpid()}.so.tmp"

@@ -17,19 +17,24 @@ emit suffix patterns with the full walked span (reference builder
 output-union src/builder.rs:239-276). A hit *is* an exact state-arrival at
 that node.
 
-Device work, per search (:func:`packed_hits`):
+Device work, per search (:func:`packed_hits`), three kernels of
+``csrc/packed_bitap.cu`` and one scalar read back:
 
-1. :func:`scan_flags` — the CUDA kernel ``scan_flags_kernel``
-   (``csrc/packed_bitap.cu``) writes one u8 any-hit flag per stream
-   position;
-2. :func:`compact_indices` — ascending hit positions (``torch.nonzero``);
-3. :func:`replay_words` — the CUDA kernel ``replay_words_kernel`` replays
-   the NFA from the fresh state over each hit's trailing ``halo`` symbols and
-   returns its match words.
+1. :func:`scan_bits` — ``scan_bits_kernel`` writes one hit *bit* per stream
+   position (packed u32 words) and the number of hits of every
+   ``SCAN_BLOCK_SYMS``-symbol block;
+2. :func:`block_offsets` — ``block_offsets_kernel``, the exclusive scan of
+   the block counts; its last entry, the hit count, is the one value the
+   host reads (to size the outputs);
+3. :func:`hit_words` — ``hit_words_kernel`` turns each block's set bits into
+   ascending hit positions behind its offset and replays the NFA from the
+   fresh state over each hit's trailing ``halo`` symbols for its match words.
 
-Each wrapper runs its plain torch version (``scan_flags_torch``,
-``replay_words_torch``) for tensors on the CPU, and launches its kernel for
-CUDA tensors — there is no fallback from one to the other.
+Each wrapper runs its plain torch version (``scan_bits_torch``,
+``block_offsets_torch``, ``hit_words_torch``; built from
+``scan_flags_torch``, ``torch.nonzero`` and ``replay_words_torch``) for
+tensors on the CPU, and launches its kernel for CUDA tensors — there is no
+fallback from one to the other.
 
 Tables are u64 limb words held as int64 bit patterns (``tables_from_numpy``
 converts the JAX package's u32-pair numpy tables). The plain versions split
@@ -55,7 +60,7 @@ MAX_ALPHABET_PACKED = 128
 MAX_LIMBS = 8
 #: Max error rows the kernels are instantiated for.
 MAX_K = 6
-#: Largest warm-up halo the scan kernel stages (m_max + k <= 64 + 6).
+#: Largest warm-up halo the scan kernels take (m_max + k <= 64 + 6).
 HALO_MAX = 128
 #: Outer corpus slice per dispatch on the streaming branch.
 STREAM_CHUNK = 1 << 26
@@ -64,9 +69,21 @@ RESIDENT_MAX = 1 << 27
 #: Stream positions per chunk in the plain scan (one row of its batch).
 PLAIN_CHUNK = 256
 
+#: Stream positions per block of ``scan_bits_kernel`` (BLOCK_SYMS in
+#: ``csrc/packed_bitap.cu``; the wrapper checks it against the built library).
+SCAN_BLOCK_SYMS = 16384
+#: Chunk lengths ``scan_bits_kernel`` takes (symbols per thread), longest first.
+SCAN_CHUNKS = (512, 256, 128)
+#: Threads per multiprocessor a chunk length must leave the scan (see
+#: :func:`scan_chunk`): 20 warps, five per scheduler. On an H100 80GB HBM3
+#: (700 W) this picked a length within 8 % of the best of the three on
+#: streams of 16 M to 109 M symbols; ``chip_smoke.py`` prints that sweep.
+SCAN_FILL_THREADS = 640
+
 #: Kernel launches per wrapper (CUDA launches only; the plain versions on CPU
-#: tensors do not count). ``dp`` counts ``verify_dp.banded_dp``.
-LAUNCHES = {"scan": 0, "replay": 0, "dp": 0}
+#: tensors do not count). ``dp`` counts ``verify_dp.banded_dp`` and
+#: ``dp_pipeline`` both passes of ``verify_dp.dp_pipeline``.
+LAUNCHES = {"scan_bits": 0, "block_offsets": 0, "hit_words": 0, "dp": 0, "dp_pipeline": 0}
 
 _M32 = 0xFFFFFFFF
 
@@ -429,7 +446,7 @@ class _PlainNfa:
 
 
 def scan_flags_torch(ids: torch.Tensor, T: ScanTables, halo: int) -> torch.Tensor:
-    """Plain version of ``scan_flags_kernel``: u8 [n] flags, 1 where some
+    """u8 [n] flags (the scan's hit bits, one byte each), 1 where some
     field's match bit is set at that stream position. Vectorised over
     ``PLAIN_CHUNK``-symbol slices of the stream, each warmed up from the fresh
     state over the ``halo`` symbols before it (positions < 0 read as the
@@ -453,7 +470,7 @@ def scan_flags_torch(ids: torch.Tensor, T: ScanTables, halo: int) -> torch.Tenso
 
 def replay_words_torch(ids: torch.Tensor, pos: torch.Tensor, T: ScanTables,
                        halo: int) -> torch.Tensor:
-    """Plain version of ``replay_words_kernel``: for each stream position in
+    """The replay of ``hit_words_kernel``: for each stream position in
     ``pos``, replay ``ids[pos - halo + 1 .. pos]`` from the fresh state
     (reads outside the stream are symbol 0) and return the match words as
     int64 [len(pos), 2W] u32 halves, low half first per limb."""
@@ -470,6 +487,43 @@ def replay_words_torch(ids: torch.Tensor, pos: torch.Tensor, T: ScanTables,
     return torch.stack([w_lo, w_hi], dim=2).reshape(kh, 2 * T.W)
 
 
+def scan_bits_torch(ids: torch.Tensor, T: ScanTables, halo: int):
+    """Plain version of ``scan_bits_kernel``: (bits int32 [nblocks *
+    SCAN_BLOCK_SYMS / 32], counts int32 [nblocks]). Bit ``i`` of word ``j``
+    is the hit flag of stream position ``32 j + i`` (positions >= n carry
+    none); ``counts[b]`` is the number of hits of block ``b``."""
+    n = ids.numel()
+    nblocks = -(-n // SCAN_BLOCK_SYMS)
+    flags = torch.zeros(nblocks * SCAN_BLOCK_SYMS, dtype=torch.int64, device=ids.device)
+    flags[:n] = scan_flags_torch(ids, T, halo)
+    weights = torch.ones(32, dtype=torch.int64, device=ids.device) << torch.arange(
+        32, device=ids.device)
+    words = (flags.reshape(-1, 32) * weights).sum(dim=1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    counts = flags.reshape(nblocks, SCAN_BLOCK_SYMS).sum(dim=1).to(torch.int32)
+    return words, counts
+
+
+def block_offsets_torch(counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``block_offsets_kernel``: int32 [len + 1] exclusive
+    scan of ``counts``, the total last."""
+    out = torch.zeros(counts.numel() + 1, dtype=torch.int32, device=counts.device)
+    out[1:] = torch.cumsum(counts, dim=0)
+    return out
+
+
+def hit_words_torch(ids: torch.Tensor, bits: torch.Tensor, offsets: torch.Tensor,
+                    count: int, T: ScanTables, halo: int):
+    """Plain version of ``hit_words_kernel``: (pos int64 [count] ascending,
+    words int64 [count, 2W]) from the scan's bit words."""
+    lanes = torch.arange(32, device=bits.device)
+    flags = (bits.to(torch.int64).reshape(-1, 1) >> lanes) & 1
+    pos = torch.nonzero(flags.reshape(-1)).reshape(-1)
+    if pos.numel() != count or int(offsets[-1]) != count:
+        raise ValueError(f"{pos.numel()} bits set, offsets end at {int(offsets[-1])}, count {count}")
+    return pos, replay_words_torch(ids, pos, T, halo)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -483,10 +537,20 @@ def _check(ids: torch.Tensor, T: ScanTables, halo: int) -> None:
         raise ValueError("ids must be a contiguous 1-D uint8 tensor")
     if T.device != ids.device:
         raise ValueError(f"tables on {T.device}, ids on {ids.device}")
+    if ids.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no scan kernel for device {ids.device}")
     if not (1 <= halo <= HALO_MAX):
         raise ValueError(f"halo {halo} outside 1..{HALO_MAX}")
     if T.A > MAX_ALPHABET_PACKED or T.W > MAX_LIMBS or T.k > MAX_K:
         raise ValueError(f"tables A={T.A} W={T.W} k={T.k} beyond the kernel limits")
+    if not 1 <= ids.numel() < 1 << 31:
+        raise ValueError(f"stream of {ids.numel()} symbols outside 1..2^31 - 1")
+
+
+def _check_int32(name: str, t: torch.Tensor, numel: int, device) -> None:
+    if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
+            or t.numel() != numel or t.device != device:
+        raise ValueError(f"{name} must be a contiguous int32 [{numel}] tensor on {device}")
 
 
 def _tables_args(T: ScanTables):
@@ -494,67 +558,129 @@ def _tables_args(T: ScanTables):
             _ptr(T.notlast), T.A, T.W, T.k)
 
 
-def scan_flags(ids: torch.Tensor, T: ScanTables, halo: int) -> torch.Tensor:
-    """u8 [n] any-hit flags. CPU tensors run :func:`scan_flags_torch`; CUDA
-    tensors launch ``scan_flags_kernel``."""
+def _kernels():
+    """The built library, checked against this module's block size."""
+    kern = _cuda_build.load()
+    if kern.lib.fac_scan_block_syms() != SCAN_BLOCK_SYMS:
+        raise RuntimeError(
+            f"library scans {kern.lib.fac_scan_block_syms()} symbols per block, "
+            f"SCAN_BLOCK_SYMS is {SCAN_BLOCK_SYMS}")
+    return kern
+
+
+def scan_chunk(n: int, device: torch.device) -> int:
+    """Symbols one thread of ``scan_bits_kernel`` scans on a stream of ``n``
+    symbols: the longest of ``SCAN_CHUNKS`` (less warm-up per reported
+    symbol) that still leaves ``SCAN_FILL_THREADS`` threads for each of the
+    card's multiprocessors, else the shortest."""
+    fill = torch.cuda.get_device_properties(device).multi_processor_count * SCAN_FILL_THREADS
+    for chunk in SCAN_CHUNKS:
+        if n >= chunk * fill:
+            return chunk
+    return SCAN_CHUNKS[-1]
+
+
+def scan_bits(ids: torch.Tensor, T: ScanTables, halo: int, chunk: Optional[int] = None):
+    """(bits int32 [nblocks * SCAN_BLOCK_SYMS / 32], counts int32 [nblocks]):
+    one hit bit per stream position and the hits per block (see
+    :func:`scan_bits_torch`). CPU tensors run the plain version; CUDA tensors
+    launch ``scan_bits_kernel``, each thread scanning ``chunk`` symbols
+    (:func:`scan_chunk` of the stream where None; the result does not depend
+    on it)."""
     _check(ids, T, halo)
+    if chunk is not None and chunk not in SCAN_CHUNKS:
+        raise ValueError(f"chunk {chunk} is none of {SCAN_CHUNKS}")
     if ids.device.type == "cpu":
-        return scan_flags_torch(ids, T, halo)
-    if ids.device.type != "cuda":
-        raise ValueError(f"no scan kernel for device {ids.device}")
+        return scan_bits_torch(ids, T, halo)
     n = ids.numel()
-    flags = torch.empty(n, dtype=torch.uint8, device=ids.device)
-    if n == 0:
-        return flags
-    kern = _cuda_build.load()
+    if chunk is None:
+        chunk = scan_chunk(n, ids.device)
+    nblocks = -(-n // SCAN_BLOCK_SYMS)
+    bits = torch.empty(nblocks * (SCAN_BLOCK_SYMS // 32), dtype=torch.int32, device=ids.device)
+    counts = torch.empty(nblocks, dtype=torch.int32, device=ids.device)
+    kern = _kernels()
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = kern.lib.fac_scan_flags(
-            ids.data_ptr(), n, *_tables_args(T), halo, flags.data_ptr(), stream
+        rc = kern.lib.fac_scan_bits(
+            ids.data_ptr(), n, *_tables_args(T), halo, chunk, nblocks,
+            bits.data_ptr(), counts.data_ptr(), stream,
         )
-    kern.check(rc, "scan_flags")
-    LAUNCHES["scan"] += 1
-    return flags
+    kern.check(rc, "scan_bits")
+    LAUNCHES["scan_bits"] += 1
+    return bits, counts
 
 
-def replay_words(ids: torch.Tensor, pos: torch.Tensor, T: ScanTables, halo: int) -> torch.Tensor:
-    """int64 [len(pos), 2W] match words at each hit position (u32 halves).
-    CPU tensors run :func:`replay_words_torch`; CUDA tensors launch
-    ``replay_words_kernel``. ``pos`` must hold positions < len(ids)."""
+def block_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """int32 [len + 1]: exclusive scan of the int32 ``counts``, the total
+    last. CPU tensors run :func:`block_offsets_torch`; CUDA tensors launch
+    ``block_offsets_kernel``."""
+    _check_int32("counts", counts, counts.numel(), counts.device)
+    if counts.numel() == 0:
+        raise ValueError("counts is empty")
+    if counts.device.type == "cpu":
+        return block_offsets_torch(counts)
+    if counts.device.type != "cuda":
+        raise ValueError(f"no scan kernel for device {counts.device}")
+    offsets = torch.empty(counts.numel() + 1, dtype=torch.int32, device=counts.device)
+    kern = _cuda_build.load()
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = kern.lib.fac_block_offsets(
+            counts.data_ptr(), counts.numel(), offsets.data_ptr(), stream)
+    kern.check(rc, "block_offsets")
+    LAUNCHES["block_offsets"] += 1
+    return offsets
+
+
+def hit_words(ids: torch.Tensor, bits: torch.Tensor, offsets: torch.Tensor,
+              count: int, T: ScanTables, halo: int):
+    """(pos int64 [count] ascending, words int64 [count, 2W] u32 halves) from
+    the bit words and block offsets of :func:`scan_bits` and
+    :func:`block_offsets`; ``count`` is ``offsets[-1]``, read by the caller.
+    CPU tensors run :func:`hit_words_torch`; CUDA tensors launch
+    ``hit_words_kernel``."""
     _check(ids, T, halo)
-    if pos.dtype != torch.int64 or pos.device != ids.device:
-        raise ValueError("pos must be int64 on the ids' device")
+    nblocks = -(-ids.numel() // SCAN_BLOCK_SYMS)
+    _check_int32("bits", bits, nblocks * (SCAN_BLOCK_SYMS // 32), ids.device)
+    _check_int32("offsets", offsets, nblocks + 1, ids.device)
+    if count == 0:
+        return (torch.zeros(0, dtype=torch.int64, device=ids.device),
+                torch.zeros((0, 2 * T.W), dtype=torch.int64, device=ids.device))
     if ids.device.type == "cpu":
-        return replay_words_torch(ids, pos, T, halo)
-    if ids.device.type != "cuda":
-        raise ValueError(f"no replay kernel for device {ids.device}")
-    pos = pos.contiguous()
-    kh = pos.numel()
-    words = torch.empty((kh, 2 * T.W), dtype=torch.int64, device=ids.device)
-    if kh == 0:
-        return words
-    kern = _cuda_build.load()
+        return hit_words_torch(ids, bits, offsets, count, T, halo)
+    pos = torch.empty(count, dtype=torch.int64, device=ids.device)
+    words = torch.empty((count, 2 * T.W), dtype=torch.int64, device=ids.device)
+    kern = _kernels()
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = kern.lib.fac_replay_words(
-            ids.data_ptr(), ids.numel(), pos.data_ptr(), kh, *_tables_args(T),
-            halo, words.data_ptr(), stream,
+        rc = kern.lib.fac_hit_words(
+            ids.data_ptr(), ids.numel(), bits.data_ptr(), offsets.data_ptr(),
+            *_tables_args(T), halo, nblocks, pos.data_ptr(), words.data_ptr(), stream,
         )
-    kern.check(rc, "replay_words")
-    LAUNCHES["replay"] += 1
-    return words
+    kern.check(rc, "hit_words")
+    LAUNCHES["hit_words"] += 1
+    return pos, words
 
 
-def packed_hits(ids: torch.Tensor, T: ScanTables, halo: int):
+def packed_hits(ids: torch.Tensor, T: ScanTables, halo: int, max_count: Optional[int] = None):
     """Shift-AND pass emitting per-hit (end positions, match words).
 
     Returns ``(count, pos [count] int64, words [count, 2W])``: ``pos`` is the
     stream index of each hit's last symbol, ascending; ``words`` the OR over
-    error rows of the per-field match bits at that position (u32 halves)."""
-    flags = scan_flags(ids, T, halo)
-    pos = compact_indices(flags)
-    words = replay_words(ids, pos, T, halo)
-    return pos.numel(), pos, words
+    error rows of the per-field match bits at that position (u32 halves).
+    The hit count is the one value read back from the device between the
+    kernels. With ``count > max_count`` the positions and words are not
+    produced: ``(count, None, None)``."""
+    if ids.numel() == 0:
+        return (0, torch.zeros(0, dtype=torch.int64, device=ids.device),
+                torch.zeros((0, 2 * T.W), dtype=torch.int64, device=ids.device))
+    bits, counts = scan_bits(ids, T, halo)
+    offsets = block_offsets(counts)
+    count = int(offsets[-1])
+    if max_count is not None and count > max_count:
+        return count, None, None
+    pos, words = hit_words(ids, bits, offsets, count, T, halo)
+    return count, pos, words
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ states per anchor, the lane:
 
 1. runs the packed multi-pattern shift-AND scan once over the corpus with
    per-pattern error budgets (``packed_bitap.packed_hits``: the CUDA kernels
-   ``scan_flags_kernel`` and ``replay_words_kernel``) — every true match of
-   pattern ``p`` fires p's bit at the match's exact end position;
+   ``scan_bits_kernel``, ``block_offsets_kernel`` and ``hit_words_kernel``)
+   — every true match of pattern ``p`` fires p's bit at the match's exact
+   end position, and the hits come out as an ordered list;
 2. expands each (pattern, end) hit into candidate (output-node field, start)
    pairs: a <=E-edit match of a depth-``d`` output node consumes ``d + net``
    haystack symbols with ``net`` in [-E, E], so ``start = end - d - delta``
@@ -25,6 +26,13 @@ states per anchor, the lane:
 4. thresholds the emission channels into compacted match rows
    (:func:`emit_rows`), which cross to the host in one copy per slice and are
    decoded there (``ops/emit.decode_matches``).
+
+On the card steps 2-4 are one kernel per slice, ``dp_pipeline_kernel``
+(``csrc/dp_pipeline.cu``, wrapper :func:`dp_pipeline`): it takes the hit list
+and writes the match rows, in the order the three functions above give them
+(:func:`dp_pipeline_torch` is their composition, the kernel's plain version).
+:func:`banded_dp` stays as the entry point that holds the DP body, which both
+kernels share, against its plain version channel by channel.
 
 Emission semantics: the oracle's span end ``me`` is the column of the last
 *consuming* move (exact/substitution/swap); insertions advance ``j`` without
@@ -774,6 +782,14 @@ def banded_dp(cand_field, cand_start, ids, limit, T: DpTables,
 # Emission
 # ---------------------------------------------------------------------------
 
+def emit_bound(thr) -> float:
+    """The f32 bound of the emission's similarity test: the threshold less a
+    slack (the host recomputes the test exactly)."""
+    thr32 = np.float32(thr)
+    slack = np.float32(1e-4) + np.float32(1e-4) * np.abs(thr32)
+    return float(np.float32(thr32 - slack))
+
+
 def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
     """DP emission channels -> match rows, int32 [K, 5]: (start, penalty f32
     bits, span ``me``, pattern, packed edit counts).
@@ -794,9 +810,7 @@ def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
     pats = T.out_list[T.node[f].long()]                              # [M, MO]
     p_safe = pats.clamp(min=0).long()
     pl, pw = T.pat_len[p_safe], T.pat_weight[p_safe]
-    thr32 = np.float32(thr)
-    slack = np.float32(1e-4) + np.float32(1e-4) * np.abs(thr32)
-    bound = float(np.float32(thr32 - slack))
+    bound = emit_bound(thr)
     ok_rows, pen_best, cnt_best = [], [], []
     for b in range(B):
         ends_b = start + d + (b - E)
@@ -823,6 +837,152 @@ def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
         start[m], pen_bits, d[m] + (b - E).to(torch.int32), pats[m, o],
         torch.stack(cnt_best)[b, m],
     ], dim=1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Expansion, DP and emission as one step
+# ---------------------------------------------------------------------------
+
+#: Emission channels (bands x output slots) the pipeline kernel takes.
+MAX_CHANNELS = 128
+
+
+class DpWindow(NamedTuple):
+    """What a slice owns: candidate starts in ``[start_lo, start_hi)`` from
+    hits at positions below ``pos_hi``."""
+
+    start_lo: int
+    start_hi: int
+    pos_hi: int
+
+
+def dp_pipeline_torch(pos, words, window: DpWindow, ids, limit, T: DpTables,
+                      pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple):
+    """Plain version of ``dp_pipeline_kernel``: :func:`expand_candidates`,
+    :func:`banded_dp_torch`, :func:`emit_rows`. Returns (rows int32 [K, 5],
+    number of candidates)."""
+    cand_field, cand_start = expand_candidates(pos, words, *window, E, *statics)
+    pen, cnt = banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend)
+    rows = emit_rows(pen, cnt, cand_field, cand_start, T, limit, thr, E)
+    return rows, cand_field.numel()
+
+
+def pipeline_max_hits(n_combo: int, MO: int, E: int) -> int:
+    """Most hits :func:`dp_pipeline` takes in one call: the work budget
+    ``MAX_EXPAND`` over (combo, hit) items, and int32 offsets over their
+    candidates and rows (at most one of each per item and emission channel)."""
+    items = min(MAX_EXPAND, ((1 << 31) - 1) // ((2 * E + 1) * MO + 1))
+    return items // max(n_combo, 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _combos_on(device: str, E: int, BITS: tuple, P2F: tuple, DEPTHS: tuple) -> torch.Tensor:
+    """:func:`_combos` as an int32 [5, n_combo] tensor on ``device``."""
+    return torch.from_numpy(_combos(E, BITS, P2F, DEPTHS).astype(np.int32)).to(device)
+
+
+def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
+                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple):
+    """Checks the arguments of :func:`dp_pipeline` and, on CUDA tensors, runs
+    the kernel's count pass. Returns None for CPU tensors and for an empty
+    hit list, else (launch, counts, channels, blocks): ``counts`` int32
+    [(channels + 1) * blocks] holds every block's rows per emission channel
+    and, in the last row, its candidates; ``launch(1, offsets, rows)`` runs
+    the write pass."""
+    from . import packed_bitap as pb
+
+    for name, t in (("pos", pos), ("words", words)):
+        if t.dtype != torch.int64 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int64 tensor")
+    if pos.dim() != 1 or words.dim() != 2 or words.shape[0] != pos.numel():
+        raise ValueError("pos must be [H] and words [H, 2W]")
+    if ids.dtype not in (torch.uint8, torch.int32) or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous 1-D uint8 or int32 tensor")
+    if not (pos.device == words.device == ids.device == T.device):
+        raise ValueError(f"hits on {pos.device}, ids on {ids.device}, tables on {T.device}")
+    if T.node_ceil is None:
+        raise ValueError("tables carry no node ceilings (DpTables.with_ceil)")
+    if not 1 <= E <= MAX_E:
+        raise ValueError(f"edit budget {E} outside 1..{MAX_E}")
+    if ids.device.type == "cpu":
+        return None
+    if ids.device.type != "cuda":
+        raise ValueError(f"no DP kernel for device {ids.device}")
+    dev = ids.device
+    combos = _combos_on(str(dev), E, *statics)
+    H, n_combo = pos.numel(), combos.shape[1]
+    MO = T.out_list.shape[1]
+    nch = (2 * E + 1) * MO
+    if nch > MAX_CHANNELS:
+        raise ValueError(f"{nch} emission channels, the kernel takes {MAX_CHANNELS}")
+    if H * n_combo * (nch + 1) >= 1 << 31:
+        raise ValueError(f"{H} hits x {n_combo} combos x {nch} channels overflow int32 offsets")
+    if H == 0 or n_combo == 0:
+        return None
+    kern = _cuda_build.load()
+    nblk = -(-(H * n_combo) // kern.lib.fac_dp_pipeline_threads())
+    counts = torch.empty((nch + 1) * nblk, dtype=torch.int32, device=dev)
+
+    def launch(write: int, offsets, rows):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = kern.lib.fac_dp_pipeline(
+                pos.data_ptr(), words.data_ptr(), H, words.shape[1],
+                combos.data_ptr(), n_combo, *(int(x) for x in window),
+                ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
+                T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(),
+                T.node.data_ptr(), T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C,
+                T.node_ceil.data_ptr(), T.sb_edge.data_ptr(), T.out_count.data_ptr(),
+                T.out_count.numel(), T.out_list.data_ptr(), MO,
+                T.pat_len.data_ptr(), T.pat_weight.data_ptr(),
+                *(float(np.float32(x)) for x in pens), emit_bound(thr),
+                E, int(bool(deadend)), write, nblk, counts.data_ptr(),
+                None if offsets is None else offsets.data_ptr(),
+                None if rows is None else rows.data_ptr(), stream,
+            )
+        kern.check(rc, "dp_pipeline")
+        pb.LAUNCHES["dp_pipeline"] += 1
+
+    launch(0, None, None)
+    return launch, counts, nch, nblk
+
+
+def dp_pipeline_counts(*args) -> torch.Tensor:
+    """The count pass of :func:`dp_pipeline` alone, same arguments, CUDA
+    tensors with at least one hit: the per-block counts that
+    ``block_offsets`` scans between the two passes."""
+    passed = _count_pass(*args)
+    if passed is None:
+        raise ValueError("the count pass runs on CUDA tensors with at least one hit")
+    return passed[1]
+
+
+def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
+                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple):
+    """Hit list -> match rows of one slice: (rows int32 [K, 5] on the hits'
+    device, number of candidates). ``pos`` [H] int64 ascending and ``words``
+    [H, 2W] int64 as ``packed_hits`` returns them; ``statics`` the (BITS,
+    P2F, DEPTHS) of :func:`expand_candidates`; rows as :func:`emit_rows`
+    orders them. CPU tensors run :func:`dp_pipeline_torch`; CUDA tensors
+    launch ``dp_pipeline_kernel`` twice (a count pass and a write pass, with
+    ``block_offsets_kernel`` between them) and read the two totals back."""
+    from . import packed_bitap as pb
+
+    passed = _count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics)
+    if passed is None:
+        if ids.device.type == "cpu":
+            return dp_pipeline_torch(pos, words, window, ids, limit, T, pens, thr, E,
+                                     deadend, statics)
+        return torch.zeros((0, 5), dtype=torch.int32, device=ids.device), 0
+    launch, counts, nch, nblk = passed
+    offsets = pb.block_offsets(counts)
+    # The rows' total ends the last channel's counts, the grand total (rows
+    # and candidates) the array: one strided read of two values.
+    n_rows, n_all = offsets[nch * nblk::nblk].tolist()
+    rows = torch.empty((n_rows, 5), dtype=torch.int32, device=ids.device)
+    if n_rows:
+        launch(1, offsets, rows)
+    return rows, n_all - n_rows
 
 
 # ---------------------------------------------------------------------------
@@ -1017,15 +1177,17 @@ def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int) -> DpRun:
 
 
 def dp_candidates(run: DpRun, part: _Part):
-    """(hit count, cand_field, cand_start) of one slice: the packed scan and
-    replay kernels, then :func:`expand_candidates` over the slice's owned
-    starts. The expansion is skipped (empty candidates) when the hit count
-    times ``n_combo`` passes ``MAX_EXPAND``."""
+    """(hit count, cand_field, cand_start) of one slice: the hit-list scan,
+    then :func:`expand_candidates` over the slice's owned starts; the
+    candidates :func:`banded_dp` is held against its plain version on. The
+    expansion is skipped (empty candidates) when the hit count times
+    ``n_combo`` passes ``MAX_EXPAND``."""
     from .packed_bitap import packed_hits
 
-    count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo)
-    if count * run.plan.n_combo > MAX_EXPAND:
-        empty = torch.zeros(0, dtype=torch.int32, device=pos.device)
+    count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo,
+                                    MAX_EXPAND // max(run.plan.n_combo, 1))
+    if pos is None:
+        empty = torch.zeros(0, dtype=torch.int32, device=part.ids_pf.device)
         return count, empty, empty
     cand_field, cand_start = expand_candidates(
         pos, words, part.lo, part.hi, part.local_n, run.plan.E, *run.statics)
@@ -1038,13 +1200,16 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int) -> Optional[
     lane declines — the caller falls back, as the JAX package's callers do.
 
     The JAX package declines up front on a guess of the hit capacity; here
-    the scan's real hit count decides (``hits * n_combo > MAX_EXPAND``), so
+    the scan's real hit count decides (:func:`pipeline_max_hits`), so
     an engine can be routed differently from the JAX package at that edge.
     The output is equal either way.
 
     Large corpora run as overlapping slices (:func:`dp_inputs`), one after
-    another; each slice's match rows cross to the host in one copy."""
+    another. Per slice: the hit-list scan (``packed_hits``), the expansion,
+    DP and emission as one step (:func:`dp_pipeline`), and one copy of the
+    match rows to the host."""
     from .emit import decode_matches
+    from .packed_bitap import packed_hits
 
     plan = dp_plan(engine, threshold, n)
     if plan is None:
@@ -1056,18 +1221,19 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int) -> Optional[
     run = dp_inputs(engine, haystack, plan, view, n)
     row_parts = []
     sum_h = sum_c = 0
+    max_hits = pipeline_max_hits(plan.n_combo, run.T.out_list.shape[1], E)
     for part in run.parts:
-        count, cand_field, cand_start = dp_candidates(run, part)
-        if count * plan.n_combo > MAX_EXPAND:
+        count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo, max_hits)
+        if pos is None:
             return None  # unselective scan: decline, the caller falls back
-        pen, cnt = banded_dp(cand_field, cand_start, part.ids_de, part.local_n,
-                             run.T, run.pens, E, run.deadend)
-        rows = emit_rows(pen, cnt, cand_field, cand_start, run.T, part.local_n,
-                         thr, E).cpu().numpy()
+        rows, n_cand = dp_pipeline(
+            pos, words, DpWindow(part.lo, part.hi, part.local_n), part.ids_de,
+            part.local_n, run.T, run.pens, thr, E, run.deadend, run.statics)
+        rows = rows.cpu().numpy()
         rows[:, 0] += part.base  # slice-local starts -> global graphemes
         row_parts.append(rows)
         sum_h += count
-        sum_c += cand_field.numel()
+        sum_c += n_cand
     rows = row_parts[0] if len(row_parts) == 1 else np.concatenate(row_parts)
     results = decode_matches(
         engine, view, haystack, n,

@@ -128,11 +128,11 @@ def test_wrappers_refuse_unknown_devices_and_shapes():
     T = tpb.tables_from_numpy(word_tbl, starts, match, init)
     t = torch.from_numpy(ids)
     with pytest.raises(ValueError, match="halo"):
-        tpb.scan_flags(t, T, tpb.HALO_MAX + 1)
+        tpb.scan_bits(t, T, tpb.HALO_MAX + 1)
     with pytest.raises(ValueError, match="uint8"):
-        tpb.scan_flags(t.to(torch.int32), T, halo)
+        tpb.scan_bits(t.to(torch.int32), T, halo)
     with pytest.raises(ValueError, match="tables on"):
-        tpb.scan_flags(t.to("meta"), T, halo)
+        tpb.scan_bits(t.to("meta"), T, halo)
     before = dict(tpb.LAUNCHES)
     tpb.packed_hits(t, T, halo)
     assert tpb.LAUNCHES == before  # CPU tensors run the plain versions
