@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port on one CUDA card.
 
-Drives the port's two main paths once at full size, through the entry
-points a user calls (build an engine, ``search_raw``), and checks every CUDA
-kernel they run against its plain torch version. Phases:
+Drives the port's main paths (the exact lane and the four lanes of the DP
+family) once each at full size, through the entry points a user calls
+(build an engine, ``search_raw``), and checks every CUDA kernel they run
+against its plain torch version. Phases:
 
 1. card: ``nvidia-smi`` name and power limit, CUDA version, device name;
-2. build: compile ``csrc/packed_bitap.cu``, ``csrc/banded_dp.cu`` and
-   ``csrc/dp_pipeline.cu`` with nvcc (sm_90a, one process per source, in
-   parallel) from the checkout; report build seconds and ptxas registers /
-   spills;
+2. build: compile ``csrc/packed_bitap.cu``, ``csrc/banded_dp.cu``,
+   ``csrc/dp_pipeline.cu`` and ``csrc/dp_typed.cu`` with nvcc (sm_90a, one
+   process per source, in parallel) from the checkout; report build seconds
+   and ptxas registers / spills;
 3. kernel vs plain on the card, bit for bit. The hit-list scan's three
    kernels (``scan_bits``, ``block_offsets``, ``hit_words``): the headline
    dictionary's exact tables over a 4 MiB slice; k = 1 Damerau, k = 2 and
@@ -24,7 +25,19 @@ kernel they run against its plain torch version. Phases:
    int32 ids, on views 3 bytes off alignment, at a threshold that a
    similarity ties exactly (also checked against the oracle), on a text
    without hits and on one with a hit run at every word, each time with
-   ``block_offsets`` held on the count pass's counts;
+   ``block_offsets`` held on the count pass's counts. The forbid, mapped
+   and typed variants (``lane_kernel_checks``): ``banded_dp`` and
+   ``dp_pipeline`` with each forbid flag (``edits(2)`` and ``edits(3)``
+   without swaps; ``edits(2)`` without insertions, deletions,
+   substitutions) and with mapping arrivals (rn <-> m on the headline
+   dictionary + ``modern``; ß <-> ss and æ <-> ae, drift +1 and -1 in both
+   directions; a scored mapping; ``edits(2)`` mapped); ``banded_dp_typed``
+   and ``dp_pipeline_typed`` on ``substitutions(1)`` (2 channels),
+   ``insertions(1).deletions(1)``, ``edits(2).substitutions(1)`` (14),
+   ``edits(4).substitutions(1)`` (55) and a dictionary with three limits
+   classes; the DP-only kernels on int32 ids too; a threshold that a typed
+   match's similarity ties; the typed wrapper's refusal past the bytes its
+   counts may take; a text without hits per lane;
 4. exact main path: the headline 16-word case-insensitive dictionary
    searched exact (threshold 0.5) over a 96 MiB seeded corpus, two warm-up
    searches then three timed ones, the plain versions locked out; the match
@@ -34,18 +47,43 @@ kernel they run against its plain torch version. Phases:
 4b. fuzzy main path: the same dictionary with ``edits(1)`` at threshold 0.8
    over the same corpus, timed the same way; the plain versions are locked
    out during the run, the scan's and the pipeline's launch counters must be
-   > 0 and the DP-only kernel's 0; the match set must equal an independent
+   > 0 and the other DP kernels' 0; the match set must equal an independent
    one built by the port's oracle over each distinct word context (no scan,
-   no DP, no slicing); launches, copies and waits per search; the stages'
-   host-clock times;
-5. parity: device vs the port's oracle on 64 KiB (exact) and 32 KiB with
-   planted edits (fuzzy); the exact streaming branch vs the resident one on
-   8 MiB; the fuzzy sliced pipeline (1 MiB slices) vs unsliced on 8 MiB;
+   no DP, no slicing; the contexts are found once per corpus and searched
+   by one pool of worker processes kept for the run, which works through
+   the four engines' contexts during phases 3 and 5 and is idle before the
+   first timed search); launches, copies and
+   waits per search, with the wrapper's launch count beside the profiler's
+   event count; the stages' host-clock times;
+4c, 4d, 4e. the forbid, typed and mapped lanes at full width
+   (``lane_main_path``), each through ``search_raw`` over the 96 MiB corpus
+   after a probe on 1 MiB through the same entry point with the oracle
+   locked out (the engine's own routing picks the lane), two warm-ups and three timed searches with the
+   plain versions and the oracle locked out: 4c the headline dictionary
+   with ``edits(2).swaps(0)`` at 0.62; 4d the same with ``edits(1)``, one
+   pattern exact-only and one ``substitutions(1)`` only, at 0.8; 4e the
+   dictionary + ``modern`` with the mapping rn <-> m and ``edits(1)`` at
+   0.8, every 50th ``commodo`` of the corpus a ``modem``. Each must report
+   its lane's backend name, launch the scan's kernels and its own pipeline
+   kernel and no other lane's, and equal the context oracle's match set; a
+   lane that declined at 96 MiB would run at the largest power-of-two
+   prefix it serves and say so;
+5. parity (run between phases 3 and 4, while the context oracle's workers
+   are busy): device vs the port's oracle on 64 KiB (exact) and 32 KiB with
+   planted edits (fuzzy, each of the three lanes, and a typed engine with
+   14 channels, ``edits(2).substitutions(1)``); the exact streaming
+   branch vs the resident one on 8 MiB; the sliced pipeline (1 MiB slices)
+   vs unsliced on 8 MiB for the fuzzy and the forbid lane;
 6. times: CUDA-event times of each kernel and of its plain version at the
    main paths' shapes (``block_offsets`` at the scan's and at the
-   pipeline's), the bound worked out from those inputs alone (bytes over
-   the card's memory rate against integer or float32 instructions over its
-   instruction rate), their agreement there, and the scan at each chunk
+   pipeline's; each lane's pipeline and DP-only kernel on slice 1 of its
+   phase's search, where the scan's three kernels on the lane's own tables
+   and ``block_offsets`` on its count pass's counts are held against their
+   plain versions too; the same for ``edits(2).substitutions(1)``, typed
+   with 14 channels behind a k = 2 scan, beside its searches over the whole
+   corpus), the bound worked out from those inputs alone (bytes
+   over the card's memory rate against integer or float32 instructions over
+   its instruction rate), their agreement there, and the scan at each chunk
    length it takes on streams around the lengths where the wrapper's pick
    switches.
 
@@ -62,6 +100,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "fuzzy_aho_corasick_tpu_torch"
@@ -84,8 +123,10 @@ SEED = 42
 UNICODE_WORDS = ["привет", "москва", "ирина", "тест", "café", "naïve", "straße"]
 UNICODE_FILLER = ["и", "мы", "тесты", "кафе", "она", "дом", "cafe", "weiter", "über"]
 #: Characters a word context carries past its word's trailing space: with
-#: E = 1 a match spans at most Lmax + E = 13 characters.
-CONTEXT_TAIL = 14
+#: E = 2 a match spans at most Lmax + E = 14 characters.
+CONTEXT_TAIL = 15
+#: The engines of phases 4c, 4d, 4e, as ``recipe_engine`` names them.
+LANES = ("forbid", "typed", "mapped")
 
 
 def log(msg: str) -> None:
@@ -208,9 +249,21 @@ def lane_inputs(vdp, engine, text: str, thr: float, what: str):
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
     view = view_of(text, engine.case_insensitive)
-    plan = vdp.dp_plan(engine, thr, len(view))
+    specs = vdp.lane_specs_of(engine)
+    plan = vdp.dp_plan(engine, thr, len(view), *specs)
     require(plan is not None, f"{what}: the DP lane declined")
-    return plan, vdp.dp_inputs(engine, text, plan, view, len(view))
+    return plan, vdp.dp_inputs(engine, text, plan, view, len(view), *specs)
+
+
+def variant_name(run) -> str:
+    v = run.variant
+    if v.typed is not None:
+        return f"typed NCH={v.typed.nch} classes={v.typed.adm.shape[0]}"
+    if v.maps is not None:
+        return f"mapped entries={len(v.maps.entries)} ph={v.maps.ph}"
+    if v.forbid is not None:
+        return "forbid " + "".join(n for n, f in zip(("ins ", "del ", "sub ", "swap "), v.forbid) if f).strip()
+    return "fast"
 
 
 def pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift=0, wide=False):
@@ -220,7 +273,7 @@ def pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift=0, wide=False
     window = vdp.DpWindow(max(part.lo - shift, 0), part.hi - shift, part.local_n - shift)
     ids = part.ids_de[shift:]
     return (pos, words, window, ids.int() if wide else ids, part.local_n - shift, run.T,
-            run.pens, np.float32(thr), plan.E, run.deadend, run.statics)
+            run.pens, np.float32(thr), plan.E, run.deadend, run.statics, run.variant)
 
 
 def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want_rows=True,
@@ -244,8 +297,8 @@ def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want
         n_counts = counts.numel()
         err_offs = int((tpb.block_offsets(counts).long()
                         - tpb.block_offsets_torch(counts).long()).abs().max())
-    log(f"  {what}: E={plan.E} k={plan.k} damerau={plan.dam} dead-end={run.deadend} "
-        f"n={part.local_n - shift} hits={hits} candidates={cand_k} vs {cand_p} "
+    log(f"  {what}: {variant_name(run)} E={plan.E} k={plan.k} damerau={plan.dam} "
+        f"dead-end={run.deadend} n={part.local_n - shift} hits={hits} candidates={cand_k} vs {cand_p} "
         f"rows={rows_k.shape[0]} vs {rows_p.shape[0]}, max_abs_err {err}; block_offsets over "
         f"the count pass's {n_counts} counts, max_abs_err {err_offs}")
     require(same and err == 0.0, f"{what}: dp_pipeline disagrees with dp_pipeline_torch")
@@ -254,33 +307,43 @@ def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want
     return err, err_offs
 
 
-def compare_dp(vdp, torch, engine, text: str, thr: float, what: str):
-    """DP kernel vs ``banded_dp_torch`` on the candidates the lane builds for
-    ``text`` (its first slice), bit for bit. Returns the max_abs_err."""
-    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+def dp_only(vdp, run, cf, cs, ids, limit, E):
+    """(kernel call, plain call) of the DP-only entry point of ``run``'s
+    variant on candidates (cf, cs): each returns (pen, cnt or None)."""
+    if run.variant.typed is not None:
+        args = (cf, cs, ids, limit, run.T, run.pens, E, run.variant.typed)
+        return (lambda: (vdp.banded_dp_typed(*args), None),
+                lambda: (vdp.banded_dp_typed_torch(*args), None))
+    args = (cf, cs, ids, limit, run.T, run.pens, E, run.deadend, run.variant.forbid,
+            run.variant.maps)
+    return lambda: vdp.banded_dp(*args), lambda: vdp.banded_dp_torch(*args)
 
-    view = view_of(text, engine.case_insensitive)
-    n = len(view)
-    plan = vdp.dp_plan(engine, thr, n)
-    require(plan is not None, f"{what}: the DP lane declined")
-    run = vdp.dp_inputs(engine, text, plan, view, n)
+
+def compare_dp(vdp, torch, engine, text: str, thr: float, what: str, wide=False):
+    """The DP-only kernel of the engine's lane (``banded_dp``, or
+    ``banded_dp_typed``) vs its plain version on the candidates the lane
+    builds for ``text`` (its first slice), channel by channel, bit for bit;
+    ``wide`` hands the ids over as int32. Returns the max_abs_err."""
+    plan, run = lane_inputs(vdp, engine, text, thr, what)
     part = run.parts[0]
     hits, cf, cs = vdp.dp_candidates(run, part)
-    args = (cf, cs, part.ids_de, part.local_n, run.T, run.pens, plan.E, run.deadend)
-    pen_k, cnt_k = vdp.banded_dp(*args)
-    pen_p, cnt_p = vdp.banded_dp_torch(*args)
+    ids = part.ids_de.int() if wide else part.ids_de
+    kernel, plain = dp_only(vdp, run, cf, cs, ids, part.local_n, plan.E)
+    pen_k, cnt_k = kernel()
+    pen_p, cnt_p = plain()
     torch.cuda.synchronize()
-    equal = (torch.equal(pen_k.view(torch.int32), pen_p.view(torch.int32))
-             and torch.equal(cnt_k, cnt_p))
+    equal = (pen_k.shape == pen_p.shape
+             and torch.equal(pen_k.view(torch.int32), pen_p.view(torch.int32))
+             and (cnt_k is None or torch.equal(cnt_k, cnt_p)))
     both = torch.isfinite(pen_k) & torch.isfinite(pen_p)
     err = max(float((pen_k - pen_p)[both].abs().max()) if bool(both.any()) else 0.0,
-              float((cnt_k - cnt_p).abs().max()) if cnt_k.numel() else 0.0)
+              float((cnt_k - cnt_p).abs().max()) if cnt_k is not None and cnt_k.numel() else 0.0)
     live = int(torch.isfinite(pen_p).sum())
-    log(f"  {what}: E={plan.E} k={plan.k} damerau={plan.dam} dead-end={run.deadend} "
-        f"C={run.T.C} {'u8' if part.ids_de.dtype == torch.uint8 else 'int32'} ids, "
-        f"n={n} hits={hits} candidates={cf.numel()} live channels={live}; "
+    log(f"  {what}: {variant_name(run)} E={plan.E} k={plan.k} damerau={plan.dam} "
+        f"dead-end={run.deadend} C={run.T.C} {'u8' if ids.dtype == torch.uint8 else 'int32'} ids, "
+        f"n={part.local_n} hits={hits} candidates={cf.numel()} live channels={live}; "
         f"bit-equal {equal}, max_abs_err {err}")
-    require(equal, f"{what}: DP kernel disagrees with banded_dp_torch")
+    require(equal, f"{what}: DP kernel disagrees with its plain version")
     require(cf.numel() > 0 and live > 0, f"{what}: nothing to compare")
     return err
 
@@ -288,8 +351,8 @@ def compare_dp(vdp, torch, engine, text: str, thr: float, what: str):
 def ptxas_summary(log_text: str):
     """(lines for the main paths' instantiations: the W=3 scan and hit-list
     kernels at k=0 and at k=1 with Damerau rows, the offsets scan, every
-    banded DP instantiation and the u8 pipeline ones; number of
-    instantiations, number of them with spills, max registers)."""
+    banded DP instantiation, the u8 pipeline ones and the two typed kernels;
+    number of instantiations, number of them with spills, max registers)."""
     import re
 
     entries, cur = [], None
@@ -304,11 +367,13 @@ def ptxas_summary(log_text: str):
     main = []
     for e in entries:
         name = e["name"]
-        dp = re.search(r"(banded_dp|dp_pipeline)_kernelILi(\d)ELb([01])E([hi])", name)
+        dp = re.search(r"(banded_dp|dp_pipeline)_kernelILi(\d)ELb([01])ELb([01])E([hi])", name)
         scan = re.search(r"(scan_bits|hit_words)_kernelILi3ELi([01])ELb([01])E(?:Li(\d+)E)?", name)
-        if dp and (dp.group(1) == "banded_dp" or dp.group(4) == "h"):
-            label = (f"{dp.group(1)}<E={dp.group(2)},deadend={dp.group(3)},"
-                     f"{'u8' if dp.group(4) == 'h' else 'int32'}>")
+        if dp and (dp.group(1) == "banded_dp" or dp.group(5) == "h"):
+            label = (f"{dp.group(1)}<E={dp.group(2)},deadend={dp.group(3)},maps={dp.group(4)},"
+                     f"{'u8' if dp.group(5) == 'h' else 'int32'}>")
+        elif "_typed_kernel" in name:
+            label = "dp_pipeline_typed" if "dp_pipeline_typed" in name else "banded_dp_typed"
         elif scan and scan.group(2) == scan.group(3):
             label = f"{scan.group(1)}<W=3,K={scan.group(2)},Damerau={scan.group(3)}" + (
                 f",chunk={scan.group(4)}>" if scan.group(4) else ">")
@@ -322,6 +387,10 @@ def ptxas_summary(log_text: str):
     return main, len(entries), spills, regs
 
 
+class LockedOut(AssertionError):
+    """A function that ``plain_locked`` locked out was called."""
+
+
 class plain_locked:
     """Within the block, the plain versions of the kernels raise: a main
     path that reached one would fail instead of running on it."""
@@ -333,7 +402,7 @@ class plain_locked:
         self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
 
         def refuse(*_a, **_k):
-            raise AssertionError("a plain version ran on the main path")
+            raise LockedOut("a plain version ran on the main path")
 
         for m, n, _f in self.saved:
             setattr(m, n, refuse)
@@ -344,24 +413,28 @@ class plain_locked:
         return False
 
 
-def profile_search(torch, fn, reps: int):
+def profile_search(torch, fn, reps: int, counters=None):
     """torch.profiler over ``reps`` calls of ``fn``: a dict with the wall ms
     per call, the device ms per call summed over the device's own events
     (kernels and copies), the lines of the top device events, {event name:
     device ms per call}, and per call the kernels launched, the copies
     made, and the host's waits on the device (``cuda*Synchronize`` calls,
-    which a copy to the host or ``.item()`` makes)."""
+    which a copy to the host or ``.item()`` makes). With ``counters`` (the
+    wrappers' launch counts) also ``counted``, what each grew by over the
+    profiled calls, to hold beside ``events``, the profiler's event counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = dict(counters or {})
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    rows, waits = [], 0
+    counted = {k: v - before[k] for k, v in (counters or {}).items()}
+    rows, waits, events = [], 0, {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CPU:
             # host ops also carry the time of the kernels they launched
@@ -369,6 +442,7 @@ def profile_search(torch, fn, reps: int):
                 waits += ev.count
             continue
         rows.append((ev.self_device_time_total / reps / 1e3, ev.count / reps, ev.key))
+        events[ev.key] = ev.count
     rows.sort(reverse=True)
     copies = sum(cnt for _ms, cnt, key in rows if key.startswith(("Memcpy", "Memset")))
     return {
@@ -376,12 +450,35 @@ def profile_search(torch, fn, reps: int):
         "lines": [f"{ms:9.4f} ms x{cnt:<6.1f} {key[:90]}" for ms, cnt, key in rows[:12]],
         "by_event": {key: ms for ms, _cnt, key in rows},
         "kernels": sum(cnt for _ms, cnt, _key in rows) - copies, "copies": copies,
-        "waits": waits / reps,
+        "waits": waits / reps, "counted": counted, "events": events, "reps": reps,
     }
 
 
 def device_ms(prof: dict, name: str) -> float:
     return sum(v for k, v in prof["by_event"].items() if name in k)
+
+
+def pipeline_device_time(prof: dict, key: str) -> str:
+    """The pipeline kernel's device time per call of its wrapper (a count
+    and a write pass), both as the profile's sum and as twice the mean per
+    event, with the launches the wrapper counted beside the profile's events:
+    the two times differ where the profile holds fewer events than launches."""
+    name = key + "_kernel"
+    return (f"device time {device_ms(prof, name):.4f} ms per call summed over the profile, "
+            f"{2 * launch_ms(prof, name):.4f} ms as 2 x the mean event ({prof['counted'][key]} "
+            f"launches counted, {event_count(prof, name)} events profiled)")
+
+
+def event_count(prof: dict, name: str) -> int:
+    """Events of the kernel ``name`` in the whole profile."""
+    return sum(v for k, v in prof["events"].items() if name in k)
+
+
+def launch_ms(prof: dict, name: str) -> float:
+    """Mean device ms of one launch of the kernel ``name``: the profile's
+    sum over its event count. It stays right where the profile holds fewer
+    events than the wrapper counted launches."""
+    return device_ms(prof, name) * prof["reps"] / max(event_count(prof, name), 1)
 
 
 def stage_breakdown(torch, tpb, vdp, engine, corpus: str, thr: float):
@@ -405,8 +502,7 @@ def stage_breakdown(torch, tpb, vdp, engine, corpus: str, thr: float):
     torch.cuda.synchronize()
     t = time.perf_counter()
     view = view_of(corpus, engine.case_insensitive)
-    plan = vdp.dp_plan(engine, thr, len(view))
-    run = vdp.dp_inputs(engine, corpus, plan, view, len(view))
+    plan, run = lane_inputs(vdp, engine, corpus, thr, "stage breakdown")
     t = lap("view, plan, inputs", t)
     rows = []
     for part in run.parts:
@@ -426,31 +522,114 @@ def stage_breakdown(torch, tpb, vdp, engine, corpus: str, thr: float):
     return ms, len(out)
 
 
-def context_oracle_set(oracle, engine, corpus: str, thr: float, key):
-    """The match set of ``engine`` over ``corpus`` (ASCII, single-space
-    separated words), built by the port's oracle without the scan, the DP
-    or the slicing: one oracle search per distinct context "word, its
-    trailing space, and the next ``CONTEXT_TAIL`` characters", keeping the
-    matches that start inside the word or its space, shifted to every
-    occurrence of that context. Returns (set, number of contexts)."""
+def match_key(m):
+    """(pattern, start, end, f32 similarity bits, the four edit counts)."""
     import numpy as np
 
-    n = len(corpus)
-    spaces = np.flatnonzero(np.frombuffer(corpus.encode(), np.uint8) == 32)
-    starts = np.concatenate([[0], spaces + 1]).tolist()
-    ends = np.minimum(np.concatenate([spaces + 1 + CONTEXT_TAIL, [n]]), n).tolist()
-    groups = {}
-    for s, e in zip(starts, ends):
-        if s < e:
-            groups.setdefault(corpus[s:e], []).append(s)
+    return (m.pattern_index, m.start, m.end, np.float32(m.similarity).view(np.uint32).item(),
+            m.insertions, m.deletions, m.substitutions, m.swaps)
+
+
+def recipe_engine(ctx, name: str):
+    """The engines of the full-size phases by name, so that a worker process
+    can build its own: ``fuzzy1`` (4b), ``forbid`` (4c), ``typed`` (4d),
+    ``mapped`` (4e)."""
+    L, P = ctx.Limits, ctx.Pattern
+    if name == "fuzzy1":
+        return make_engine(ctx, HEADLINE, L.new().edits(1))
+    if name == "forbid":
+        return make_engine(ctx, HEADLINE, L.new().edits(2).swaps(0))
+    if name == "typed":
+        words = [P.of(("phaetra", 1.0, 0)) if w == "phaetra"
+                 else P.of("sollicitudin").fuzzy(L.new().substitutions(1)) if w == "sollicitudin"
+                 else w for w in HEADLINE]
+        return make_engine(ctx, words, L.new().edits(1))
+    if name == "mapped":
+        return make_engine(ctx, HEADLINE + ["modern"], L.new().edits(1), mappings=[("rn", "m")])
+    raise ValueError(name)
+
+
+def _oracle_worker_init():
+    """Worker start-up: import the port once, so that the jobs find it loaded."""
+    sys.path.insert(0, HERE)
+    import fuzzy_aho_corasick_tpu_torch  # noqa: F401
+
+
+def _oracle_contexts(job):
+    """Worker: the oracle's matches that start inside the first word (or its
+    space) of each context, positions relative to the context."""
+    name, thr, contexts = job
+    import torch
+
+    from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern, oracle
+
+    ctx = SimpleNamespace(dev=torch.device("cpu"), Builder=FuzzyAhoCorasickBuilder,
+                          Limits=FuzzyLimits, Pattern=Pattern)
+    engine = recipe_engine(ctx, name)
+    out = []
+    for text in contexts:
+        own = text.find(" ") + 1 or len(text)
+        out.append([match_key(m) for m in oracle.search_raw(engine, text, thr) if m.start < own])
+    return out
+
+
+def word_contexts(corpus: str, tail: int = CONTEXT_TAIL):
+    """The distinct word contexts of ``corpus`` (ASCII, single-space separated
+    words): "word, its trailing space, and the next ``tail`` characters" (at
+    least the longest span a match can have). Returns (contexts, starts):
+    ``starts[g]`` is the array of the positions where context ``g`` begins.
+    Engines that share a corpus share its contexts."""
+    import numpy as np
+
+    raw = np.frombuffer(corpus.encode(), np.uint8)
+    n = raw.size
+    spaces = np.flatnonzero(raw == 32)
+    begin = np.concatenate([[0], spaces + 1])
+    end = np.minimum(np.concatenate([spaces + 1 + tail, [n]]), n)
+    begin, lens = begin[begin < end], (end - begin)[begin < end]
+    width = int(lens.max())
+    # One fixed-width row per word, zero past the context's end (the corpus
+    # holds no NUL), grouped by a 64-bit multiply-add hash of the row; equal
+    # hashes are then held to be equal rows.
+    width = -(-width // 8) * 8
+    padded = np.concatenate([raw, np.zeros(width, np.uint8)])
+    rows = np.lib.stride_tricks.sliding_window_view(padded, width)[begin]
+    rows[np.arange(width) >= lens[:, None]] = 0
+    odd = np.random.default_rng(SEED).integers(1 << 62, size=width // 8, dtype=np.uint64) * 2 + 1
+    hashed = (rows.view(np.uint64) * odd).sum(axis=1, dtype=np.uint64)
+    _keys, first, inverse = np.unique(hashed, return_index=True, return_inverse=True)
+    inverse = inverse.ravel()
+    require(bool((rows == rows[first[inverse]]).all()), "two word contexts share a hash")
+    order = np.argsort(inverse, kind="stable")
+    cuts = np.searchsorted(inverse[order], np.arange(1, first.size))
+    contexts = [corpus[b: b + w] for b, w in zip(begin[first].tolist(), lens[first].tolist())]
+    return contexts, np.split(begin[order], cuts)
+
+
+def context_oracle_start(pool, workers: int, name: str, thr: float, contexts):
+    """Deals the oracle searches of ``recipe_engine(name)`` over ``contexts``
+    out to the ``workers`` processes of ``pool``; returns the pending result
+    that :func:`context_oracle_set` waits for."""
+    jobs = [(name, thr, contexts[w::workers]) for w in range(workers)]
+    return pool.map_async(_oracle_contexts, jobs, chunksize=1)
+
+
+def context_oracle_set(pending, workers: int, starts):
+    """The match set of an engine over the corpus whose :func:`word_contexts`
+    are (contexts, ``starts``), built by the port's oracle without the scan,
+    the DP or the slicing: one oracle search per distinct context
+    (``pending``, from :func:`context_oracle_start`), keeping the matches
+    that start inside the word or its space, shifted to every occurrence of
+    that context."""
+    found = pending.get()
     want = set()
-    for ctx, occ in groups.items():
-        own = ctx.find(" ") + 1 or len(ctx)
-        for m in oracle.search_raw(engine, ctx, thr):
-            if m.start < own:
-                p, st, en, *rest = key(m)
-                want.update((p, s + st, s + en, *rest) for s in occ)
-    return want, len(groups)
+    for w, matches in enumerate(found):
+        for at, ms in zip(starts[w::workers], matches):
+            if ms:
+                at = at.tolist()
+                for p, st, en, *rest in ms:
+                    want.update((p, s + st, s + en, *rest) for s in at)
+    return want
 
 
 def event_ms(torch, fn, reps: int) -> float:
@@ -492,6 +671,296 @@ def bound_ms(nbytes: float, ops: float, rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: The mapped lane's Unicode dictionary (ß <-> ss, æ <-> ae: drift +1 and -1
+#: in both directions) and the words of its corpus.
+GERMAN = ["strasse", "weiss", "fussball", "aether", "grosse"]
+GERMAN_TEXT = ["der", "die", "und", "mit", "straße", "strasse", "weiß", "wiess", "fußball",
+               "æther", "aether", "wei", "ss", "ß", "strase", "fusball", "große", "grosze"]
+
+
+def plant_words(text: str, seed: int, count: int, words) -> str:
+    """``text`` (ASCII) with ``count`` of ``words`` written over it at seeded
+    positions, each followed by a space."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    buf = bytearray(text.encode())
+    for at in rng.integers(0, len(buf) - 32, size=count).tolist():
+        w = words[int(rng.integers(len(words)))] + " "
+        buf[at:at + len(w)] = w.encode()
+    return buf.decode()
+
+
+def word_corpus(words, count: int, seed: int) -> str:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return " ".join(words[i] for i in rng.integers(len(words), size=count).tolist())
+
+
+def sparse_modem(text: str) -> str:
+    """Every 50th ``commodo`` of ``text`` replaced by ``modem``, which the
+    pattern ``modern`` matches at similarity 1.0 through the mapping rn <-> m."""
+    import re
+
+    seen = [0]
+
+    def swap(mo):
+        seen[0] += 1
+        return "modem" if seen[0] % 50 == 0 else mo.group(0)
+
+    return re.sub(r"\bcommodo\b", swap, text)
+
+
+def make_engine(ctx, words, limits, mappings=(), scored=()):
+    b = ctx.Builder.new().fuzzy(limits).case_insensitive(True).device(ctx.dev)
+    for a, c in mappings:
+        b = b.mapping(a, c)
+    for a, c, score in scored:
+        b = b.mapping_scored(a, c, score)
+    eng = b.build(words)
+    eng.backend = "device"
+    return eng
+
+
+def lane_kernel_checks(ctx, edited: str, keyf, lanes):
+    """Phase 3 for the forbid, mapped and typed lanes: the DP-only kernels
+    (``banded_dp`` with the forbid mask and with mapping arrivals,
+    ``banded_dp_typed``) channel by channel and the pipeline kernels
+    (``dp_pipeline``, ``dp_pipeline_typed``) row by row against their plain
+    versions, bit for bit. ``lanes`` are the main-path engines (forbid,
+    typed, mapped). Returns {kernel: max_abs_err}."""
+    torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
+    L, P = ctx.Limits, ctx.Pattern
+    forbid2, typed2, mapped_rn = lanes
+    mib, quarter = edited[: 1 << 20], edited[: 256 << 10]
+    rn_text = sparse_modem(plant_words(mib, SEED + 6, 1500,
+                                       ["modem", "modern", "moderm", "modrn", "rnodern"]))
+    de_text = word_corpus(GERMAN_TEXT, 60000, SEED + 7)
+    ou_text = word_corpus(["colour", "color", "honour", "honor", "colr", "the", "and", "coulor",
+                           "hounor", "of"], 60000, SEED + 8)
+    head = lambda lim: make_engine(ctx, HEADLINE, lim)
+    # (what, engine, text, threshold, also on int32 ids)
+    cases = [
+        ("forbid edits(2).swaps(0)", forbid2, edited, 0.62, True),
+        ("forbid edits(3).swaps(0)", head(L.new().edits(3).swaps(0)), quarter, 0.5, False),
+        ("forbid edits(2).insertions(0)", head(L.new().edits(2).insertions(0)), quarter, 0.62, False),
+        ("forbid edits(2).deletions(0)", head(L.new().edits(2).deletions(0)), quarter, 0.62, False),
+        ("forbid edits(2).substitutions(0)", head(L.new().edits(2).substitutions(0)), quarter,
+         0.62, False),
+        ("mapped edits(1) rn<->m, headline + modern", mapped_rn, rn_text, 0.8, True),
+        ("mapped edits(1) ß<->ss æ<->ae, Unicode", make_engine(
+            ctx, GERMAN, L.new().edits(1), mappings=[("ß", "ss"), ("æ", "ae")]), de_text, 0.6,
+         False),
+        ("mapped edits(1) scored ou<->o 0.6", make_engine(
+            ctx, ["color", "honor"], L.new().edits(1), scored=[("ou", "o", 0.6)]), ou_text, 0.5,
+         False),
+        ("mapped edits(2) ß<->ss, Unicode", make_engine(
+            ctx, GERMAN, L.new().edits(2), mappings=[("ß", "ss")]), de_text, 0.5, False),
+        ("typed substitutions(1)", head(L.new().substitutions(1)), edited, 0.8, True),
+        ("typed insertions(1).deletions(1)", head(L.new().insertions(1).deletions(1)), mib, 0.7,
+         False),
+        ("typed edits(2).substitutions(1)", head(L.new().edits(2).substitutions(1)), mib, 0.62,
+         False),
+        ("typed edits(4).substitutions(1)", make_engine(
+            ctx, HEADLINE[:4], L.new().edits(4).substitutions(1)), edited[: 64 << 10], 0.6, False),
+        ("typed edits(1), one pattern exact-only, one substitutions(1)", typed2, edited, 0.8,
+         False),
+    ]
+    errs = dict.fromkeys(("banded_dp", "dp_pipeline", "banded_dp_typed", "dp_pipeline_typed",
+                          "block_offsets"), 0.0)
+
+    def pipe_case(eng, text, thr, what, want_rows=True):
+        typed = vdp.lane_specs_of(eng)[0] is not None
+        err, err_offs = compare_pipeline(tpb, vdp, torch, np, eng, text, thr, "pipeline " + what,
+                                         want_rows=want_rows)
+        key = "dp_pipeline_typed" if typed else "dp_pipeline"
+        errs[key] = max(errs[key], err)
+        errs["block_offsets"] = max(errs["block_offsets"], err_offs)
+
+    for what, eng, text, thr, wide in cases:
+        key = "banded_dp_typed" if vdp.lane_specs_of(eng)[0] is not None else "banded_dp"
+        errs[key] = max(errs[key], compare_dp(vdp, torch, eng, text, thr, "DP " + what))
+        if wide:
+            errs[key] = max(errs[key], compare_dp(vdp, torch, eng, text, thr,
+                                                  "DP " + what + ", int32 ids", wide=True))
+        pipe_case(eng, text, thr, what)
+    # A threshold that a typed match's similarity ties; texts without hits.
+    tie_text = edited[: 256 << 10]
+    tie = max(np.float32(m.similarity) for m in typed2.search_raw(tie_text, 0.8)
+              if m.similarity < 1.0)
+    tie_dev = sorted(map(keyf, typed2.search_raw(tie_text, float(tie))))
+    typed2.backend = "oracle"
+    tie_ora = sorted(map(keyf, typed2.search_raw(tie_text, float(tie))))
+    typed2.backend = "device"
+    n_tied = sum(1 for t in tie_dev if t[3] == tie.view(np.uint32).item())
+    log(f"  typed lane, threshold {float(tie)!r} tied by {n_tied} matches: device {len(tie_dev)} "
+        f"vs oracle {len(tie_ora)} matches, equal {tie_dev == tie_ora}")
+    require(tie_dev == tie_ora and n_tied > 0, "typed lane disagrees with the oracle at a tied threshold")
+    pipe_case(typed2, tie_text, float(tie), "typed at the tied threshold")
+    # Past the bytes its per-warp counts may take, the typed wrapper refuses.
+    plan, run = lane_inputs(vdp, typed2, tie_text, 0.8, "typed count bound")
+    part = run.parts[0]
+    _h, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    saved, vdp.TYPED_COUNT_BYTES = vdp.TYPED_COUNT_BYTES, 64
+    try:
+        vdp.dp_pipeline(*pipeline_args(vdp, np, plan, run, part, pos, words, 0.8))
+        refused = False
+    except ValueError:
+        refused = True
+    finally:
+        vdp.TYPED_COUNT_BYTES = saved
+    log(f"  typed pipeline wrapper with its counts bounded to 64 bytes: refused {refused}")
+    require(refused, "the typed wrapper took counts past their bound")
+    nothing = "lorem ipsum dolor sit amet " * 20000
+    for eng, thr, what in ((forbid2, 0.9, "forbid"), (mapped_rn, 0.95, "mapped"),
+                           (typed2, 0.8, "typed")):
+        pipe_case(eng, nothing, thr, what + ", filler only", want_rows=False)
+    return errs
+
+
+def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, backend: str,
+                   locked, scan_keys, pipe_key: str, oracle_set, min_matches: int):
+    """One DP lane (``engine`` is ``recipe_engine(name)``) at full width through
+    ``search_raw``: a probe on 1 MiB,
+    then over ``corpus`` (or, where the lane declines there, over its largest
+    power-of-two prefix the lane serves) one first search, one warm-up and
+    three timed ones with the plain versions and the oracle locked out; the
+    launch counters; the match set against the context oracle
+    (``oracle_set(name, text, thr)``); the profiler's launches, copies and
+    waits per search."""
+    torch, tpb, vdp = ctx.torch, ctx.tpb, ctx.vdp
+    t_phase = time.perf_counter()
+
+    def served(text):
+        # Through the entry point, so that the engine's own routing picks
+        # the lane; a lane that declined would reach the locked-out oracle.
+        try:
+            with plain_locked((ctx.oracle, "search_raw")):
+                engine.search_raw(text, thr)
+        except LockedOut:
+            return False
+        return True
+
+    require(served(corpus[: 1 << 20]), f"{tag}: the lane declines on a 1 MiB probe")
+    text, note = corpus, ""
+    while not served(text):
+        size = 1 << ((len(text) - 1).bit_length() - 1)
+        note = f" (the lane declined at {len(text)} bytes: run at {size})"
+        text = corpus[:size]
+        require(size >= 1 << 20, f"{tag}: the lane declines at every size")
+    for k in tpb.LAUNCHES:
+        tpb.LAUNCHES[k] = 0
+    with plain_locked(*locked):
+        engine.search_raw(text, thr)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = engine.search_raw(text, thr)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = dict(tpb.LAUNCHES)
+    stats = dict(engine.last_stats)
+    best = min(times)
+    log(f"  {len(text)} bytes{note}, best of 3 {best * 1e3:.3f} ms (all "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) = {len(text) / best / 1e9:.3f} GB/s, "
+        f"{len(got)} matches, launches {launches}")
+    log(f"  last_stats {stats}")
+    require(stats["backend"] == backend, f"{tag}: backend {stats['backend']}, expected {backend}")
+    require(all(launches[k] > 0 for k in scan_keys + (pipe_key,)),
+            f"{tag}: the lane did not launch the scan's kernels and {pipe_key}")
+    require(all(v == 0 for k, v in launches.items() if k not in scan_keys + (pipe_key,)),
+            f"{tag}: the lane launched a kernel of another lane")
+    dev_set = {match_key(m) for m in got}
+    require(len(dev_set) == len(got), f"{tag}: the lane repeats a match")
+    t0 = time.perf_counter()
+    want, n_ctx = oracle_set(name, text, thr)
+    log(f"  independent context oracle (tail {CONTEXT_TAIL}): {n_ctx} contexts, {len(want)} "
+        f"matches, {time.perf_counter() - t0:.1f} s; equal: {dev_set == want}")
+    require(dev_set == want, f"{tag}: the lane disagrees with the context oracle")
+    require(len(want) > min_matches, f"{tag}: too few matches to be a real check")
+    prof = profile_search(torch, lambda: engine.search_raw(text, thr), 3, tpb.LAUNCHES)
+    log(f"  torch.profiler over 3 searches: wall {prof['wall']:.3f} ms per search, device busy "
+        f"{prof['busy']:.3f} ms ({prof['busy'] / prof['wall']:.3f} of wall); per search "
+        f"{prof['kernels']:.1f} kernel launches, {prof['copies']:.1f} copies, "
+        f"{prof['waits']:.1f} host waits, over {stats['slices']} slices; {pipe_key}: the "
+        f"wrapper counted {prof['counted'][pipe_key]} launches, the profiler shows "
+        f"{event_count(prof, pipe_key + '_kernel')} events")
+    for line in prof["lines"][:8]:
+        log(f"    {line}")
+    stages, n_stage = stage_breakdown(torch, tpb, vdp, engine, text, thr)
+    require(n_stage == len(got), f"{tag}: stage breakdown found other matches")
+    log("  stages (host clock, synchronised, ms per search): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; sum {sum(stages.values()):.3f}")
+    log(f"  phase {tag} {time.perf_counter() - t_phase:.1f} s")
+    return SimpleNamespace(text=text, times=times, launches=launches, stats=stats, prof=prof,
+                           matches=len(got), stages=stages)
+
+
+def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
+    """Phase 6 for one lane at its main-path shape (slice 1 of ``text``): the
+    scan's three kernels against their plain versions on the lane's own
+    tables and slice, ``block_offsets`` against its plain version on the
+    count pass's counts, CUDA-event ms of the pipeline wrapper and of the
+    DP-only kernel beside their plain versions, the bound from these inputs,
+    and their agreement there. Returns ((ms, plain ms, bound), (ms, plain ms,
+    bound), (max_abs_err of scan_bits, block_offsets, hit_words)): the
+    pipeline, the DP-only kernel, the scan."""
+    torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
+    plan, run = lane_inputs(vdp, engine, text, thr, tag)
+    part = run.parts[0]
+    _n, scan_errs = compare_scan(
+        tpb, torch, part.ids_pf, run.T_scan, run.halo,
+        f"{tag} main-path shape, k={plan.k} damerau={plan.dam} halo={run.halo}")
+    hits, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    p_args = pipeline_args(vdp, np, plan, run, part, pos, words, thr)
+    counts = vdp.dp_pipeline_counts(*p_args)
+    err_offs = int((tpb.block_offsets(counts).long()
+                    - tpb.block_offsets_torch(counts).long()).abs().max())
+    log(f"  {tag}: block_offsets over the count pass's {counts.numel()} counts, "
+        f"max_abs_err {err_offs}")
+    require(err_offs == 0, f"{tag}: block_offsets disagrees on the count pass's counts")
+    scan_errs = (scan_errs[0], max(scan_errs[1], err_offs), scan_errs[2])
+    rows_k, cand_k = vdp.dp_pipeline(*p_args)
+    rows_p, cand_p = vdp.dp_pipeline_torch(*p_args)
+    _h, cf, cs = vdp.dp_candidates(run, part)
+    kernel, plain = dp_only(vdp, run, cf, cs, part.ids_de, part.local_n, plan.E)
+    pen_k, cnt_k = kernel()
+    pen_p, cnt_p = plain()
+    torch.cuda.synchronize()
+    require(torch.equal(rows_k, rows_p) and cand_k == cand_p == cf.numel(),
+            f"{tag}: the pipeline kernel disagrees at main-path shapes")
+    require(torch.equal(pen_k.view(torch.int32), pen_p.view(torch.int32))
+            and (cnt_k is None or torch.equal(cnt_k, cnt_p)),
+            f"{tag}: the DP-only kernel disagrees at main-path shapes")
+    B = 2 * plan.E + 1
+    chans = run.variant.typed.nch if run.variant.typed is not None else plan.E + 1
+    cells = int(run.T.depth[cf.long()].sum()) * B * chans
+    tables = sum(t.numel() * t.element_size() for t in (
+        run.T.path_cls, run.T.path_node, run.T.depth, run.T.sim, run.T.node_ceil))
+    window = cf.numel() * (run.T.Lmax + 2 * plan.E + 2)
+    pipe_bound = bound_ms(pos.numel() * 8 + words.numel() * 8 + tables + window
+                          + rows_k.numel() * 4, cells * DP_CELL_INSTR, F32_RATE)
+    dp_bound = bound_ms(cf.numel() * 8 + tables + window
+                        + pen_k.numel() * (4 if cnt_k is None else 8),
+                        cells * DP_CELL_INSTR, F32_RATE)
+    pipe_ms = event_ms(torch, lambda: vdp.dp_pipeline(*p_args), 10)
+    pipe_plain_ms = event_ms(torch, lambda: vdp.dp_pipeline_torch(*p_args), 1)
+    dp_ms = event_ms(torch, kernel, 10)
+    dp_plain_ms = event_ms(torch, plain, 1)
+    prof = profile_search(torch, lambda: vdp.dp_pipeline(*p_args), 20, tpb.LAUNCHES)
+    key = "dp_pipeline_typed" if run.variant.typed is not None else "dp_pipeline"
+    log(f"  {tag} slice 1 of {len(run.parts)} ({variant_name(run)}, E={plan.E}, k={plan.k}): "
+        f"{hits} hits x {plan.n_combo} combos, {cand_k} candidates, {rows_k.shape[0]} rows; "
+        f"pipeline wrapper {pipe_ms:.4f} ms, {pipeline_device_time(prof, key)}, "
+        f"plain {pipe_plain_ms:.4f} ms, bound {pipe_bound[0]:.4f} ms by {pipe_bound[1]}; "
+        f"DP-only kernel {dp_ms:.4f} ms, plain {dp_plain_ms:.4f} ms, bound {dp_bound[0]:.4f} ms "
+        f"by {dp_bound[1]}; max_abs_err 0 both")
+    return (pipe_ms, pipe_plain_ms, pipe_bound), (dp_ms, dp_plain_ms, dp_bound), scan_errs
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG}/ is not beside this script; run it from the "
@@ -504,9 +973,32 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import multiprocessing
+
+    # The context oracle's worker processes, one set for the run, started
+    # once the kernels are built and stopped however the run ends.
+    workers = max(1, min(8, os.cpu_count() or 1))
+    pools = []
+
+    def start_pool():
+        pools.append(multiprocessing.get_context("spawn").Pool(
+            workers, initializer=_oracle_worker_init))
+        return pools[0]
+
+    try:
+        return smoke(torch, start_pool, workers)
+    finally:
+        for pool in pools:
+            pool.terminate()
+            pool.join()
+
+
+def smoke(torch, start_pool, workers: int) -> int:
+    """Phases 1-6 on the card; ``start_pool()`` starts the context oracle's
+    ``workers`` processes."""
     import numpy as np
 
-    from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, oracle
+    from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern, oracle
     from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build
     from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
     from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as vdp
@@ -514,7 +1006,12 @@ def main() -> int:
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
     dev = torch.device("cuda")
+    ctx = SimpleNamespace(torch=torch, np=np, tpb=tpb, vdp=vdp, dev=dev, oracle=oracle,
+                          Builder=FuzzyAhoCorasickBuilder, Limits=FuzzyLimits, Pattern=Pattern)
     t_start = time.perf_counter()
+
+    def phase(title):
+        log(f"{title} [{time.perf_counter() - t_start:.1f} s into the run]")
 
     # 1. card
     smi = subprocess.run(
@@ -541,9 +1038,43 @@ def main() -> int:
         log(f"  ptxas {line}")
 
     # 3. kernel vs plain on the card
-    log("phase 3 kernel vs plain:")
+    phase("phase 3 kernel vs plain:")
+    pool = start_pool()
     corpus = build_corpus(CORPUS_BYTES, SEED)
     require(len(corpus) == CORPUS_BYTES, "corpus size")
+    mapped_corpus = sparse_modem(corpus)
+
+    # The context oracle of phases 4b-4e: the contexts once per corpus, the
+    # oracle searches once per engine, begun here in the worker processes
+    # beside the comparisons of this phase and of phase 5, which no clock on
+    # the host times.
+    t0 = time.perf_counter()
+    mapped_contexts = pool.apply_async(word_contexts, (mapped_corpus,))
+    contexts_of, pending = {corpus: word_contexts(corpus)}, {}
+
+    def oracle_start(name, text, thr):
+        if text not in contexts_of:
+            contexts_of[text] = word_contexts(text)
+        pending[name, text, thr] = context_oracle_start(pool, workers, name, thr,
+                                                        contexts_of[text][0])
+
+    def oracle_set(name, text, thr):
+        if (name, text, thr) not in pending:  # a prefix the lane fell back to
+            oracle_start(name, text, thr)
+        contexts, starts = contexts_of[text]
+        return (context_oracle_set(pending.pop((name, text, thr)), workers, starts),
+                len(contexts))
+
+    oracle_jobs = (("forbid", corpus, 0.62), ("fuzzy1", corpus, 0.8), ("typed", corpus, 0.8),
+                   ("mapped", mapped_corpus, 0.8))
+    for job in oracle_jobs:
+        if job[1] is mapped_corpus:
+            contexts_of[mapped_corpus] = mapped_contexts.get()
+        oracle_start(*job)
+    log(f"  word contexts (tail {CONTEXT_TAIL}): {len(contexts_of[corpus][0])} distinct in the "
+        f"{len(corpus)}-byte corpus, {len(contexts_of[mapped_corpus][0])} in the "
+        f"{len(mapped_corpus)}-byte one, {time.perf_counter() - t0:.1f} s; the oracle's "
+        f"{workers} workers have the four engines' searches")
     engine = (FuzzyAhoCorasickBuilder.new().case_insensitive(True).device(dev)
               .build(HEADLINE))
     engine.backend = "device"
@@ -602,27 +1133,21 @@ def main() -> int:
     for chunk in tpb.SCAN_CHUNKS:
         scan_case(fids, TF, halo, f"k=3 Damerau, chunk {chunk}", chunk=chunk)
 
-    def fuzzy_engine(words, edits):
-        eng = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(edits))
-               .case_insensitive(True).device(dev).build(words))
-        eng.backend = "device"
-        return eng
-
-    fuzzy = fuzzy_engine(HEADLINE, 1)
-    uni = fuzzy_engine(UNICODE_WORDS, 1)
+    fuzzy = recipe_engine(ctx, "fuzzy1")
+    uni = make_engine(ctx, UNICODE_WORDS, FuzzyLimits.new().edits(1))
     require(uni.dense.has_multibyte_edges, "the Unicode dictionary has multi-byte edges")
-    fuzzy2 = fuzzy_engine(HEADLINE, 2)
+    fuzzy2 = make_engine(ctx, HEADLINE, FuzzyLimits.new().edits(2))
     uni_text = unicode_corpus(40000, SEED + 3)
     err_dp_all = 0.0
-    for eng, text, thr, what in (
-        (fuzzy, edited, 0.8, "DP headline edits(1), 4 MiB planted edits"),
-        (fuzzy2, edited, 0.8, "DP headline edits(2), 4 MiB planted edits"),
-        (uni, uni_text, 0.6, "DP multi-byte edges (dead-end), Unicode"),
+    for eng, text, thr, what, wide in (
+        (fuzzy, edited, 0.8, "DP headline edits(1), 4 MiB planted edits", False),
+        (fuzzy, edited, 0.8, "DP headline edits(1), int32 ids", True),
+        (fuzzy2, edited, 0.8, "DP headline edits(2), 4 MiB planted edits", False),
+        (uni, uni_text, 0.6, "DP multi-byte edges (dead-end), Unicode", False),
+        (uni, uni_text, 0.6, "DP multi-byte edges (dead-end), int32 ids", True),
     ):
-        err_dp_all = max(err_dp_all, compare_dp(vdp, torch, eng, text, thr, what))
-    keyf = lambda m: (m.pattern_index, m.start, m.end,
-                      np.float32(m.similarity).view(np.uint32).item(),
-                      m.insertions, m.deletions, m.substitutions, m.swaps)
+        err_dp_all = max(err_dp_all, compare_dp(vdp, torch, eng, text, thr, what, wide))
+    keyf = match_key
     # A threshold that a match's similarity ties exactly.
     tie_text = plant(corpus[: 256 << 10], SEED + 5, 600)
     tie = max(np.float32(m.similarity) for m in fuzzy.search_raw(tie_text, 0.8)
@@ -652,14 +1177,102 @@ def main() -> int:
                                          want_rows)
         err_pipe_all, errs_scan[1] = max(err_pipe_all, err), max(errs_scan[1], err_offs)
 
+    lanes = tuple(recipe_engine(ctx, name) for name in LANES)
+    lane_errs = lane_kernel_checks(ctx, edited, keyf, lanes)
+    err_dp_all = max(err_dp_all, lane_errs["banded_dp"])
+    err_pipe_all = max(err_pipe_all, lane_errs["dp_pipeline"])
+    errs_scan[1] = max(errs_scan[1], lane_errs["block_offsets"])
+
     plain_names = [(tpb, n) for n in ("scan_flags_torch", "replay_words_torch", "scan_bits_torch",
                                       "block_offsets_torch", "hit_words_torch")]
     plain_names += [(vdp, n) for n in ("expand_candidates", "banded_dp_torch", "emit_rows",
-                                       "dp_pipeline_torch")]
+                                       "dp_pipeline_torch", "banded_dp_typed_torch",
+                                       "emit_rows_typed")]
     scan_keys = ("scan_bits", "block_offsets", "hit_words")
 
-    # 4. main path, full size
-    log("phase 4 main path:")
+    # 5. parity, ahead of phase 4: the oracle's workers are busy meanwhile.
+    forbid_e, typed_e, mapped_e = lanes
+    phase("phase 5 parity:")
+    key = lambda m: (m.pattern_index, m.start, m.end,
+                     np.float32(m.similarity).view(np.uint32).item(), m.edits)
+    prefix = corpus[: 64 << 10]
+    for what, text in (("64 KiB prefix", prefix),
+                       ("64 KiB prefix + 400 planted words", plant(prefix, SEED + 2, 400, (0, 0)))):
+        dev_r = sorted(map(key, engine.search_raw(text, 0.5)))
+        engine.backend = "oracle"
+        ora_r = sorted(map(key, engine.search_raw(text, 0.5)))
+        engine.backend = "device"
+        log(f"  {what}, device vs oracle: {len(dev_r)} vs {len(ora_r)} matches, "
+            f"equal {dev_r == ora_r}")
+        require(dev_r == ora_r and len(dev_r) > 0, "device disagrees with the oracle")
+    part = corpus[: 8 << 20]
+    resident_r = sorted(map(key, engine.search_raw(part, 0.5)))
+    saved = tpb.RESIDENT_MAX, tpb.STREAM_CHUNK
+    tpb.RESIDENT_MAX, tpb.STREAM_CHUNK = 1 << 22, 1 << 21
+    stream_r = sorted(map(key, engine.search_raw(part, 0.5)))
+    tpb.RESIDENT_MAX, tpb.STREAM_CHUNK = saved
+    log(f"  8 MiB streaming (2 MiB slices) vs resident: {len(stream_r)} vs "
+        f"{len(resident_r)} matches, equal {stream_r == resident_r}")
+    require(stream_r == resident_r and len(stream_r) > 0, "streaming disagrees with resident")
+    text = plant(corpus[: 32 << 10], SEED + 4, 300)
+    dev_r = sorted(map(keyf, fuzzy.search_raw(text, 0.8)))
+    require(fuzzy.last_stats["backend"] == "device-fuzzy-dp", "fuzzy parity backend")
+    fuzzy.backend = "oracle"
+    ora_r = sorted(map(keyf, fuzzy.search_raw(text, 0.8)))
+    fuzzy.backend = "device"
+    log(f"  fuzzy 32 KiB prefix + 300 planted 1-2 edit words, device vs oracle: "
+        f"{len(dev_r)} vs {len(ora_r)} matches, equal {dev_r == ora_r}")
+    require(dev_r == ora_r and len(dev_r) > 100, "fuzzy device disagrees with the oracle")
+    whole_r = sorted(map(keyf, fuzzy.search_raw(part, 0.8)))
+    require(fuzzy.last_stats["slices"] == 1, "8 MiB runs as one slice")
+    saved = vdp.SLICE_SYMS
+    vdp.SLICE_SYMS = 1 << 20
+    try:
+        sliced_r = sorted(map(keyf, fuzzy.search_raw(part, 0.8)))
+        n_slices = fuzzy.last_stats["slices"]
+    finally:
+        vdp.SLICE_SYMS = saved
+    log(f"  fuzzy 8 MiB in {n_slices} slices of 1 MiB vs unsliced: {len(sliced_r)} vs "
+        f"{len(whole_r)} matches, equal {sliced_r == whole_r}")
+    require(n_slices == 8 and sliced_r == whole_r and len(whole_r) > 0,
+            "sliced fuzzy search disagrees with unsliced")
+
+    typed14 = make_engine(ctx, HEADLINE, FuzzyLimits.new().edits(2).substitutions(1))
+    for eng, thr, backend, what in ((forbid_e, 0.62, "device-fuzzy-dp-forbid", "forbid"),
+                                    (typed_e, 0.8, "device-fuzzy-dp-typed", "typed"),
+                                    (typed14, 0.62, "device-fuzzy-dp-typed",
+                                     "typed edits(2).substitutions(1)"),
+                                    (mapped_e, 0.8, "device-fuzzy-dp-mapped", "mapped")):
+        lane_text = sparse_modem(plant_words(text, SEED + 9, 60, ["modem", "moderm", "modern"]))
+        dev_r = sorted(map(keyf, eng.search_raw(lane_text, thr)))
+        require(eng.last_stats["backend"] == backend, f"{what} parity backend")
+        eng.backend = "oracle"
+        ora_r = sorted(map(keyf, eng.search_raw(lane_text, thr)))
+        eng.backend = "device"
+        log(f"  {what} lane, 32 KiB prefix + planted words, device vs oracle: {len(dev_r)} vs "
+            f"{len(ora_r)} matches, equal {dev_r == ora_r}")
+        require(dev_r == ora_r and len(dev_r) > 100, f"{what} lane disagrees with the oracle")
+    whole_r = sorted(map(keyf, forbid_e.search_raw(part, 0.62)))
+    require(forbid_e.last_stats["slices"] == 1, "8 MiB runs as one slice")
+    saved = vdp.SLICE_SYMS
+    vdp.SLICE_SYMS = 1 << 20
+    try:
+        sliced_r = sorted(map(keyf, forbid_e.search_raw(part, 0.62)))
+        n_slices = forbid_e.last_stats["slices"]
+    finally:
+        vdp.SLICE_SYMS = saved
+    log(f"  forbid lane, 8 MiB in {n_slices} slices of 1 MiB vs unsliced: {len(sliced_r)} vs "
+        f"{len(whole_r)} matches, equal {sliced_r == whole_r}")
+    require(n_slices == 8 and sliced_r == whole_r and len(whole_r) > 0,
+            "sliced forbid search disagrees with unsliced")
+
+    # 4. main path, full size. The host's clock times the searches from here
+    # on: the oracle's workers have to be idle.
+    t0 = time.perf_counter()
+    for job in oracle_jobs:
+        pending[job].wait()
+    log(f"  waited {time.perf_counter() - t0:.1f} s more for the context oracle's workers")
+    phase("phase 4 main path:")
     for key in tpb.LAUNCHES:
         tpb.LAUNCHES[key] = 0
     with plain_locked(*plain_names):
@@ -711,7 +1324,7 @@ def main() -> int:
         log(f"    {line}")
 
     # 4b. fuzzy main path, full size
-    log("phase 4b fuzzy main path:")
+    phase("phase 4b fuzzy main path:")
     t_phase = time.perf_counter()
     for k in tpb.LAUNCHES:
         tpb.LAUNCHES[k] = 0
@@ -737,22 +1350,25 @@ def main() -> int:
     require(stats["backend"] == "device-fuzzy-dp", "fuzzy main path backend")
     require(all(launches_f[k] > 0 for k in scan_keys + ("dp_pipeline",)),
             "fuzzy main path did not launch the scan's kernels and the pipeline kernel")
-    require(launches_f["dp"] == 0, "fuzzy main path went through the DP-only kernel")
+    require(launches_f["dp"] == launches_f["dp_typed"] == launches_f["dp_pipeline_typed"] == 0,
+            "fuzzy main path went through a kernel of another lane")
     dev_f = {keyf(m) for m in got_f}
     require(len(dev_f) == len(got_f), "fuzzy main path repeats a match")
     t0 = time.perf_counter()
-    want_f, n_ctx = context_oracle_set(oracle, fuzzy, corpus, 0.8, keyf)
-    log(f"  independent context oracle: {n_ctx} contexts, {len(want_f)} matches, "
+    want_f, n_ctx = oracle_set("fuzzy1", corpus, 0.8)
+    log(f"  independent context oracle (tail {CONTEXT_TAIL}): {n_ctx} contexts, {len(want_f)} matches, "
         f"{time.perf_counter() - t0:.1f} s; equal: {dev_f == want_f}")
     require(dev_f == want_f, "fuzzy main path disagrees with the context oracle")
     require(len(want_f) > 1000, "too few fuzzy matches to be a real check")
     log(f"  fuzzy matches {len(got_f)} = 3 x exact matches ({len(got)}): "
         f"{len(got_f) == 3 * len(got)}")
-    prof_f = profile_search(torch, lambda: fuzzy.search_raw(corpus, 0.8), 3)
+    prof_f = profile_search(torch, lambda: fuzzy.search_raw(corpus, 0.8), 3, tpb.LAUNCHES)
     log(f"  torch.profiler over 3 searches: wall {prof_f['wall']:.3f} ms per search, device busy "
         f"{prof_f['busy']:.3f} ms ({prof_f['busy'] / prof_f['wall']:.3f} of wall); per search "
         f"{prof_f['kernels']:.1f} kernel launches, {prof_f['copies']:.1f} copies, "
-        f"{prof_f['waits']:.1f} host waits, over {stats['slices']} slices")
+        f"{prof_f['waits']:.1f} host waits, over {stats['slices']} slices; dp_pipeline: the "
+        f"wrapper counted {prof_f['counted']['dp_pipeline']} launches, the profiler shows "
+        f"{event_count(prof_f, 'dp_pipeline_kernel')} events")
     for line in prof_f["lines"]:
         log(f"    {line}")
     kernel_names = ("scan_bits_kernel", "block_offsets_kernel", "hit_words_kernel",
@@ -767,54 +1383,32 @@ def main() -> int:
         + f"; sum {sum(stages.values()):.3f}")
     log(f"  phase 4b {time.perf_counter() - t_phase:.1f} s")
 
-    # 5. parity
-    log("phase 5 parity:")
-    key = lambda m: (m.pattern_index, m.start, m.end,
-                     np.float32(m.similarity).view(np.uint32).item(), m.edits)
-    prefix = corpus[: 64 << 10]
-    for what, text in (("64 KiB prefix", prefix),
-                       ("64 KiB prefix + 400 planted words", plant(prefix, SEED + 2, 400, (0, 0)))):
-        dev_r = sorted(map(key, engine.search_raw(text, 0.5)))
-        engine.backend = "oracle"
-        ora_r = sorted(map(key, engine.search_raw(text, 0.5)))
-        engine.backend = "device"
-        log(f"  {what}, device vs oracle: {len(dev_r)} vs {len(ora_r)} matches, "
-            f"equal {dev_r == ora_r}")
-        require(dev_r == ora_r and len(dev_r) > 0, "device disagrees with the oracle")
-    part = corpus[: 8 << 20]
-    resident_r = sorted(map(key, engine.search_raw(part, 0.5)))
-    saved = tpb.RESIDENT_MAX, tpb.STREAM_CHUNK
-    tpb.RESIDENT_MAX, tpb.STREAM_CHUNK = 1 << 22, 1 << 21
-    stream_r = sorted(map(key, engine.search_raw(part, 0.5)))
-    tpb.RESIDENT_MAX, tpb.STREAM_CHUNK = saved
-    log(f"  8 MiB streaming (2 MiB slices) vs resident: {len(stream_r)} vs "
-        f"{len(resident_r)} matches, equal {stream_r == resident_r}")
-    require(stream_r == resident_r and len(stream_r) > 0, "streaming disagrees with resident")
-    text = plant(corpus[: 32 << 10], SEED + 4, 300)
-    dev_r = sorted(map(keyf, fuzzy.search_raw(text, 0.8)))
-    require(fuzzy.last_stats["backend"] == "device-fuzzy-dp", "fuzzy parity backend")
-    fuzzy.backend = "oracle"
-    ora_r = sorted(map(keyf, fuzzy.search_raw(text, 0.8)))
-    fuzzy.backend = "device"
-    log(f"  fuzzy 32 KiB prefix + 300 planted 1-2 edit words, device vs oracle: "
-        f"{len(dev_r)} vs {len(ora_r)} matches, equal {dev_r == ora_r}")
-    require(dev_r == ora_r and len(dev_r) > 100, "fuzzy device disagrees with the oracle")
-    whole_r = sorted(map(keyf, fuzzy.search_raw(part, 0.8)))
-    require(fuzzy.last_stats["slices"] == 1, "8 MiB runs as one slice")
-    saved = vdp.SLICE_SYMS
-    vdp.SLICE_SYMS = 1 << 20
-    try:
-        sliced_r = sorted(map(keyf, fuzzy.search_raw(part, 0.8)))
-        n_slices = fuzzy.last_stats["slices"]
-    finally:
-        vdp.SLICE_SYMS = saved
-    log(f"  fuzzy 8 MiB in {n_slices} slices of 1 MiB vs unsliced: {len(sliced_r)} vs "
-        f"{len(whole_r)} matches, equal {sliced_r == whole_r}")
-    require(n_slices == 8 and sliced_r == whole_r and len(whole_r) > 0,
-            "sliced fuzzy search disagrees with unsliced")
+    # 4c, 4d, 4e. the forbid, typed and mapped lanes, full size. The oracle is
+    # locked out beside the plain versions: a lane that declined would run
+    # for hours on it.
+    locked = plain_names + [(oracle, "search_raw")]
+    lane_runs = {}
+    for tag, name, title, eng, text, thr, backend, pipe_key, floor in (
+        ("4c", "forbid", "forbid lane, edits(2).swaps(0), threshold 0.62", forbid_e, corpus, 0.62,
+         "device-fuzzy-dp-forbid", "dp_pipeline", 1000),
+        ("4d", "typed", "typed lane, edits(1) with an exact-only and a substitutions(1) pattern, "
+         "threshold 0.8", typed_e, corpus, 0.8, "device-fuzzy-dp-typed", "dp_pipeline_typed",
+         1000),
+        ("4e", "mapped", "mapped lane, headline + modern, rn <-> m, edits(1), threshold 0.8, every 50th "
+         "commodo a modem", mapped_e, mapped_corpus, 0.8, "device-fuzzy-dp-mapped",
+         "dp_pipeline", 1000),
+    ):
+        phase(f"phase {tag} {title}:")
+        lane_runs[tag] = lane_main_path(ctx, tag, name, eng, text, thr, backend, locked,
+                                        scan_keys, pipe_key, oracle_set, floor)
+    n_modem = sum(1 for m in mapped_e.search_raw(lane_runs["4e"].text[: 4 << 20], 0.8)
+                  if m.pattern_index == len(HEADLINE) and m.similarity == 1.0
+                  and m.substitutions == 1)
+    log(f"  4e: {n_modem} modem -> modern matches at similarity 1.0 in the first 4 MiB")
+    require(n_modem > 0, "the mapped lane found no modem through the mapping")
 
     # 6. times, bounds and agreement at the main paths' shapes
-    log("phase 6 times at main-path shapes (CUDA events; device time is the profiler's above):")
+    phase("phase 6 times at main-path shapes (CUDA events; device time is the profiler's above):")
     plan, run = lane_inputs(vdp, fuzzy, corpus, 0.8, "main-path shapes")
     fpart = run.parts[0]
     log(f"  fuzzy slice 1 of {len(run.parts)}: {fpart.local_n} symbols "
@@ -915,14 +1509,38 @@ def main() -> int:
     pipe_plain_ms = event_ms(torch, lambda: vdp.dp_pipeline_torch(*p_args), 3)
     dp_ms = event_ms(torch, lambda: vdp.banded_dp(*dp_args), 20)
     dp_plain_ms = event_ms(torch, lambda: vdp.banded_dp_torch(*dp_args), 3)
-    prof_p = profile_search(torch, lambda: vdp.dp_pipeline(*p_args), 10)
+    prof_p = profile_search(torch, lambda: vdp.dp_pipeline(*p_args), 20, tpb.LAUNCHES)
     log(f"  dp_pipeline E={plan.E}: {hits_f} hits x {plan.n_combo} combos, {cand_k} candidates, "
         f"{rows_k.shape[0]} rows; wrapper (two passes, offsets, totals' readback) {pipe_ms:.4f} ms, "
-        f"device time {device_ms(prof_p, 'dp_pipeline_kernel'):.4f} ms for both passes, plain "
+        f"{pipeline_device_time(prof_p, 'dp_pipeline')}, plain "
         f"{pipe_plain_ms:.4f} ms, bound {pipe_bound[0]:.4f} ms by {pipe_bound[1]}, max_abs_err 0")
     log(f"  banded_dp E={plan.E}: {cf.numel()} candidates, "
         f"{int(torch.isfinite(pen_k).sum())} live channels, kernel {dp_ms:.4f} ms, "
         f"plain {dp_plain_ms:.4f} ms, bound {dp_bound[0]:.4f} ms by {dp_bound[1]}, max_abs_err 0")
+    lane_times = {
+        tag: lane_kernel_times(ctx, f"{tag} {what}", eng, lane_runs[tag].text, thr)
+        for tag, what, eng, thr in (("4c", "forbid", forbid_e, 0.62), ("4d", "typed", typed_e, 0.8),
+                                    ("4e", "mapped", mapped_e, 0.8))}
+    # A typed engine with many channels (5 bands x 14 type vectors behind a
+    # k = 2 scan) at a full slice, and its searches over the whole corpus.
+    with plain_locked(*locked):
+        typed14.search_raw(corpus, 0.62)
+        times_14 = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got_14 = typed14.search_raw(corpus, 0.62)
+            torch.cuda.synchronize()
+            times_14.append(time.perf_counter() - t0)
+    log(f"  typed edits(2).substitutions(1), {len(corpus)} bytes: best of 3 "
+        f"{min(times_14) * 1e3:.3f} ms (all {', '.join(f'{t * 1e3:.3f}' for t in times_14)}), "
+        f"{len(got_14)} matches, last_stats {typed14.last_stats}")
+    require(typed14.last_stats["backend"] == "device-fuzzy-dp-typed", "typed14 backend")
+    lane_times["typed14"] = lane_kernel_times(ctx, "typed edits(2).substitutions(1)", typed14,
+                                              corpus, 0.62)
+    for _p, _d, errs in lane_times.values():
+        for i, e in enumerate(errs):
+            errs_scan[i] = max(errs_scan[i], e)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc/packed_bitap.cu"
@@ -941,7 +1559,8 @@ def main() -> int:
         ms, plain, bound, lib = scan_rec["exact"][name]
         f_ms, f_plain, f_bound, _lib = scan_rec["fuzzy"][name]
         kernels.append(record(
-            name, src, replaces, launches[name] + launches_f[name], errs_scan[i], ms, plain,
+            name, src, replaces, launches[name] + launches_f[name]
+            + sum(lane.launches[name] for lane in lane_runs.values()), errs_scan[i], ms, plain,
             bound, lib, fuzzy_ms=f_ms, fuzzy_plain_ms=f_plain, fuzzy_bound_ms=f_bound[0],
             **({"pipeline_counts_ms": offs_pipe_rec[0], "pipeline_counts_plain_ms": offs_pipe_rec[1],
                 "pipeline_counts_bound_ms": offs_pipe_rec[2][0],
@@ -957,11 +1576,35 @@ def main() -> int:
     held = [record("banded_dp", f"{PKG}/csrc/banded_dp.cu",
                    "fuzzy_aho_corasick_tpu/ops/verify_dp.py:292", 0, err_dp_all, dp_ms,
                    dp_plain_ms, dp_bound, None)]
+    # The lanes of phases 4c-4e: the pipeline kernel each one's searches
+    # launched, and its DP-only entry point.
+    jax_vd = "fuzzy_aho_corasick_tpu/ops/verify_dp.py"
+    for tag, name, dp_name, source, replaces, dp_replaces, err, dp_err in (
+        ("4c", "dp_pipeline[forbid]", "banded_dp[forbid]", "dp_pipeline.cu", f"{jax_vd}:355",
+         f"{jax_vd}:355", err_pipe_all, err_dp_all),
+        ("4e", "dp_pipeline[maps]", "banded_dp[maps]", "dp_pipeline.cu", f"{jax_vd}:611",
+         f"{jax_vd}:611", err_pipe_all, err_dp_all),
+        ("4d", "dp_pipeline_typed", "banded_dp_typed", "dp_typed.cu", f"{jax_vd}:1208",
+         f"{jax_vd}:935", lane_errs["dp_pipeline_typed"], lane_errs["banded_dp_typed"]),
+    ):
+        lane, (pipe_t, dp_t, _scan_errs) = lane_runs[tag], lane_times[tag]
+        key = "dp_pipeline_typed" if tag == "4d" else "dp_pipeline"
+        kernels.append(record(
+            name, f"{PKG}/csrc/{source}", replaces, lane.launches[key], err, *pipe_t, None,
+            device_ms_per_search=device_ms(lane.prof, key + "_kernel")))
+        held.append(record(dp_name, f"{PKG}/csrc/" + ("dp_typed.cu" if tag == "4d" else "banded_dp.cu"),
+                           dp_replaces, 0, dp_err, *dp_t, None))
     print(json.dumps({"kernels": kernels, "held_against_plain_only": held,
                       "scan_chunk_sweep": sweep,
                       "searches": {
                           "exact_ms": [t * 1e3 for t in times],
+                          "typed14_ms": [t * 1e3 for t in times_14],
                           "fuzzy_ms": [t * 1e3 for t in times_f],
+                          **{f"{tag}_ms": [t * 1e3 for t in lane.times]
+                             for tag, lane in lane_runs.items()},
+                          **{f"{tag}_launches_copies_waits": [
+                              lane.prof["kernels"], lane.prof["copies"], lane.prof["waits"]]
+                             for tag, lane in lane_runs.items()},
                           "exact_launches_copies_waits": [prof_x["kernels"], prof_x["copies"], prof_x["waits"]],
                           "fuzzy_launches_copies_waits": [prof_f["kernels"], prof_f["copies"], prof_f["waits"]]}}))
     print(smi)

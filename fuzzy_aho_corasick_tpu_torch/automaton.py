@@ -8,11 +8,12 @@ lazily built tables for the CUDA kernels, which live on the engine's torch
 configuration is kernel-eligible, and to the host oracle otherwise — both
 produce identical match sets (differential-tested).
 
-The port carries the exact lane only. A configuration that the JAX package
-serves on one of its other device lanes (fuzzy, mapped, typed, beamed) raises
-``NotImplementedError`` instead of silently running the pure-Python oracle
-on a device-sized haystack. Prefilter, streaming and serialization are not
-ported yet either (ROADMAP queue A).
+The port carries the exact lane and the DP family (the uniform-budget fuzzy
+lane and the forbid, typed and mapped lanes). A configuration that the JAX
+package serves on one of its other device lanes (large dictionary, beam
+frontier) raises ``NotImplementedError`` instead of silently running the
+pure-Python oracle on a device-sized haystack. Prefilter, streaming and
+serialization are not ported yet either (ROADMAP queue A).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 // Banded Damerau DP over fuzzy candidates, for Hopper (sm_90a).
 //
 // Replaces the JAX package's XLA device function
-// fuzzy_aho_corasick_tpu/ops/verify_dp.py::_banded_dp (count channels; no
-// mapping arrivals, no forbidden edit types), which XLA compiled from an
+// fuzzy_aho_corasick_tpu/ops/verify_dp.py::_banded_dp (count channels, with
+// its FORBID and MAPS options: see banded_dp.cuh), which XLA compiled from an
 // unrolled graph of Lmax x B x NE vector ops. Its plain torch version is
 // ops/verify_dp.py::banded_dp_torch; the wrapper is verify_dp.banded_dp.
 //
@@ -74,7 +74,7 @@ struct DpArgs {
   int32_t* cnt_out;           // [B * NE, M]
 };
 
-template <int E, bool DEADEND, typename Sym>
+template <int E, bool DEADEND, bool MAPS, typename Sym>
 __global__ void __launch_bounds__(DP_THREADS)
 banded_dp_kernel(DpArgs a, bool sim_smem) {
   constexpr int B = 2 * E + 1;
@@ -89,7 +89,7 @@ banded_dp_kernel(DpArgs a, bool sim_smem) {
   int emit_cnt[B][NE];
   const int f = __ldg(a.cand_field + m);
   if (f >= 0) {
-    dp_body<E, DEADEND, Sym>(a.core, s_sim, sim_smem, f, __ldg(a.cand_start + m),
+    dp_body<E, DEADEND, MAPS, Sym>(a.core, s_sim, sim_smem, f, __ldg(a.cand_start + m),
                              emit_pen, emit_cnt);
   } else {
 #pragma unroll
@@ -111,22 +111,29 @@ banded_dp_kernel(DpArgs a, bool sim_smem) {
     }
 }
 
+// The mapped lane has no multi-byte edges, so MAPS and DEADEND never meet.
 template <int E>
-cudaError_t launch_e(const DpArgs& a, bool deadend, bool u8, cudaStream_t stream) {
+cudaError_t launch_e(const DpArgs& a, bool deadend, bool maps, bool u8, cudaStream_t stream) {
   const long long blocks = (a.M + DP_THREADS - 1) / DP_THREADS;
   const size_t shm = sim_smem_bytes(a.core.C);
   const bool smem = shm != 0;
   const unsigned g = (unsigned)blocks;
+  if (deadend && maps) return cudaErrorInvalidValue;
   if (deadend) {
     if (u8)
-      banded_dp_kernel<E, true, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
+      banded_dp_kernel<E, true, false, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
     else
-      banded_dp_kernel<E, true, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
+      banded_dp_kernel<E, true, false, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
+  } else if (maps) {
+    if (u8)
+      banded_dp_kernel<E, false, true, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
+    else
+      banded_dp_kernel<E, false, true, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
   } else {
     if (u8)
-      banded_dp_kernel<E, false, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
+      banded_dp_kernel<E, false, false, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
     else
-      banded_dp_kernel<E, false, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
+      banded_dp_kernel<E, false, false, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem);
   }
   return cudaGetLastError();
 }
@@ -138,6 +145,9 @@ extern "C" {
 // cand_field, cand_start: int32 [M]; ids: u8 (ids_u8 = 1) or int32 [npad];
 // path_cls, path_node: int32 [F, Lmax]; depth: int32 [F]; sim: f32 [C, C];
 // node_ceil: f32 [N]; sb_edge: int8 [N, C]; out_count: int32 [N];
+// forbid: the edit types switched off (DpCore::forbid); map_tab int32
+// [n, 9], map_rowptr int32 [Lmax + 2], map_fields int32 [n, map_fw]: the
+// mapping arrivals, all null without mappings;
 // pen: f32 [(2E+1)(E+1), M]; cnt: int32 [(2E+1)(E+1), M]. Returns the
 // launch's cudaError_t (0 = launched).
 int fac_banded_dp(const void* cand_field, const void* cand_start, long long M,
@@ -146,10 +156,13 @@ int fac_banded_dp(const void* cand_field, const void* cand_start, long long M,
                   int Lmax, int F, const void* sim, int C, const void* node_ceil,
                   const void* sb_edge, const void* out_count, int N,
                   float max_pen, float p_sub, float p_ins, float p_del,
-                  float p_swap, float floor_, int E, int deadend, void* pen,
-                  void* cnt, void* stream) {
+                  float p_swap, float floor_, int E, int deadend, int forbid,
+                  const void* map_tab, const void* map_rowptr, const void* map_fields,
+                  int map_fw, void* pen, void* cnt, void* stream) {
   if (M < 1 || E < 1 || E > MAX_E || Lmax < 1 || F < 1 || C < 1 || N < 1 ||
-      limit < 0 || limit > npad) {
+      limit < 0 || limit > npad || forbid < 0 || forbid > 15 ||
+      (map_tab != nullptr && (map_rowptr == nullptr || map_fields == nullptr ||
+                              map_fw < (F + 31) / 32))) {
     return (int)cudaErrorInvalidValue;
   }
   DpArgs a;
@@ -173,17 +186,22 @@ int fac_banded_dp(const void* cand_field, const void* cand_start, long long M,
   a.core.p_del = p_del;
   a.core.p_swap = p_swap;
   a.core.floor_ = floor_;
+  a.core.forbid = forbid;
+  a.core.map_tab = static_cast<const int32_t*>(map_tab);
+  a.core.map_rowptr = static_cast<const int32_t*>(map_rowptr);
+  a.core.map_fields = static_cast<const int32_t*>(map_fields);
+  a.core.map_fw = map_fw;
   a.pen_out = static_cast<float*>(pen);
   a.cnt_out = static_cast<int32_t*>(cnt);
-  const bool de = deadend != 0, u8 = ids_u8 != 0;
+  const bool de = deadend != 0, mp = map_tab != nullptr, u8 = ids_u8 != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (E) {
-    case 1: return (int)launch_e<1>(a, de, u8, s);
-    case 2: return (int)launch_e<2>(a, de, u8, s);
-    case 3: return (int)launch_e<3>(a, de, u8, s);
-    case 4: return (int)launch_e<4>(a, de, u8, s);
-    case 5: return (int)launch_e<5>(a, de, u8, s);
-    case 6: return (int)launch_e<6>(a, de, u8, s);
+    case 1: return (int)launch_e<1>(a, de, mp, u8, s);
+    case 2: return (int)launch_e<2>(a, de, mp, u8, s);
+    case 3: return (int)launch_e<3>(a, de, mp, u8, s);
+    case 4: return (int)launch_e<4>(a, de, mp, u8, s);
+    case 5: return (int)launch_e<5>(a, de, mp, u8, s);
+    case 6: return (int)launch_e<6>(a, de, mp, u8, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,10 +3,12 @@
 //
 // Replaces the device body of the JAX package's one-dispatch pipeline
 // fuzzy_aho_corasick_tpu/ops/verify_dp.py::_dp_pipeline_jit behind the scan:
-// _expand_candidates, _banded_dp and _emit_rows, which XLA fused from
-// whole-array ops with static capacities. Its plain torch version is
+// _expand_candidates, _banded_dp (with its FORBID and MAPS options, see
+// banded_dp.cuh) and _emit_rows, which XLA fused from whole-array ops with
+// static capacities. Its plain torch version is
 // ops/verify_dp.py::dp_pipeline_torch (expand_candidates -> banded_dp_torch
-// -> emit_rows); the wrapper is verify_dp.dp_pipeline.
+// -> emit_rows); the wrapper is verify_dp.dp_pipeline. The typed lane's
+// counterpart of this kernel is dp_typed.cu.
 //
 // What it computes. The grid is the uncompacted (combo, hit) product,
 // combo-major: item g = c * K + h pairs combo c = (pattern bit, field, band)
@@ -72,7 +74,7 @@ struct PipeArgs {
   int32_t* rows;            // [total, 5] (write pass)
 };
 
-template <int E, bool DEADEND, typename Sym>
+template <int E, bool DEADEND, bool MAPS, typename Sym>
 __global__ void __launch_bounds__(DP_THREADS)
 dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
   constexpr int B = 2 * E + 1;
@@ -113,7 +115,7 @@ dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
   if (alive) {
     float emit_pen[B][NE];
     int emit_cnt[B][NE];
-    dp_body<E, DEADEND, Sym>(a.core, s_sim, sim_smem, f, s, emit_pen, emit_cnt);
+    dp_body<E, DEADEND, MAPS, Sym>(a.core, s_sim, sim_smem, f, s, emit_pen, emit_cnt);
 #pragma unroll
     for (int b = 0; b < B; ++b) {
       float pb = emit_pen[b][0];
@@ -199,22 +201,29 @@ dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
   }
 }
 
+// The mapped lane has no multi-byte edges, so MAPS and DEADEND never meet.
 template <int E>
-cudaError_t launch_e(const PipeArgs& a, bool deadend, bool u8, bool write,
+cudaError_t launch_e(const PipeArgs& a, bool deadend, bool maps, bool u8, bool write,
                      cudaStream_t stream) {
   const size_t shm = sim_smem_bytes(a.core.C);
   const bool smem = shm != 0;
   const unsigned g = (unsigned)a.nblk;
+  if (deadend && maps) return cudaErrorInvalidValue;
   if (deadend) {
     if (u8)
-      dp_pipeline_kernel<E, true, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
+      dp_pipeline_kernel<E, true, false, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
     else
-      dp_pipeline_kernel<E, true, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
+      dp_pipeline_kernel<E, true, false, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
+  } else if (maps) {
+    if (u8)
+      dp_pipeline_kernel<E, false, true, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
+    else
+      dp_pipeline_kernel<E, false, true, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
   } else {
     if (u8)
-      dp_pipeline_kernel<E, false, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
+      dp_pipeline_kernel<E, false, false, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
     else
-      dp_pipeline_kernel<E, false, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
+      dp_pipeline_kernel<E, false, false, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
   }
   return cudaGetLastError();
 }
@@ -229,7 +238,8 @@ int fac_dp_pipeline_threads() { return DP_THREADS; }
 
 // pos: int64 [K]; words: int64 [K, W2]; combos: int32 [5, n_combo]; the DP
 // tables as fac_banded_dp takes them; node: int32 [F]; out_list: int32
-// [N, MO]; pat_len, pat_weight: f32 [P]. write == 0: counts int32
+// [N, MO]; pat_len, pat_weight: f32 [P]; forbid and the map_* tables as
+// fac_banded_dp takes them. write == 0: counts int32
 // [(2E+1) MO + 1, nblk] is written; write == 1: offsets (the exclusive scan
 // of counts, int32) is read and rows int32 [total, 5] written. Returns the
 // launch's cudaError_t (0 = launched).
@@ -244,12 +254,15 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
                     const void* pat_len, const void* pat_weight,
                     float max_pen, float p_sub, float p_ins, float p_del,
                     float p_swap, float floor_, float bound, int E, int deadend,
-                    int write, long long nblk, void* counts, const void* offsets,
-                    void* rows, void* stream) {
+                    int forbid, const void* map_tab, const void* map_rowptr,
+                    const void* map_fields, int map_fw, int write, long long nblk,
+                    void* counts, const void* offsets, void* rows, void* stream) {
   if (K < 1 || W2 < 2 || n_combo < 1 || E < 1 || E > MAX_E || Lmax < 1 || F < 1 ||
       C < 1 || N < 1 || MO < 1 || (2 * E + 1) * MO > MAX_CHANNELS || limit < 0 ||
       limit > npad || nblk != (K * n_combo + DP_THREADS - 1) / DP_THREADS ||
-      nblk > 0x7FFFFFFFll) {
+      nblk > 0x7FFFFFFFll || forbid < 0 || forbid > 15 ||
+      (map_tab != nullptr && (map_rowptr == nullptr || map_fields == nullptr ||
+                              map_fw < (F + 31) / 32))) {
     return (int)cudaErrorInvalidValue;
   }
   PipeArgs a;
@@ -270,6 +283,11 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
   a.core.p_del = p_del;
   a.core.p_swap = p_swap;
   a.core.floor_ = floor_;
+  a.core.forbid = forbid;
+  a.core.map_tab = static_cast<const int32_t*>(map_tab);
+  a.core.map_rowptr = static_cast<const int32_t*>(map_rowptr);
+  a.core.map_fields = static_cast<const int32_t*>(map_fields);
+  a.core.map_fw = map_fw;
   a.pos = static_cast<const long long*>(pos);
   a.words = static_cast<const long long*>(words);
   a.K = K;
@@ -289,15 +307,15 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
   a.counts = static_cast<int32_t*>(counts);
   a.offsets = static_cast<const int32_t*>(offsets);
   a.rows = static_cast<int32_t*>(rows);
-  const bool de = deadend != 0, u8 = ids_u8 != 0, wr = write != 0;
+  const bool de = deadend != 0, mp = map_tab != nullptr, u8 = ids_u8 != 0, wr = write != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (E) {
-    case 1: return (int)launch_e<1>(a, de, u8, wr, s);
-    case 2: return (int)launch_e<2>(a, de, u8, wr, s);
-    case 3: return (int)launch_e<3>(a, de, u8, wr, s);
-    case 4: return (int)launch_e<4>(a, de, u8, wr, s);
-    case 5: return (int)launch_e<5>(a, de, u8, wr, s);
-    case 6: return (int)launch_e<6>(a, de, u8, wr, s);
+    case 1: return (int)launch_e<1>(a, de, mp, u8, wr, s);
+    case 2: return (int)launch_e<2>(a, de, mp, u8, wr, s);
+    case 3: return (int)launch_e<3>(a, de, mp, u8, wr, s);
+    case 4: return (int)launch_e<4>(a, de, mp, u8, wr, s);
+    case 5: return (int)launch_e<5>(a, de, mp, u8, wr, s);
+    case 6: return (int)launch_e<6>(a, de, mp, u8, wr, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,10 +7,10 @@ lane exactly when the JAX package claims it (the host-only spec builders of
 ``ops/verify_dp`` decide the mapped and typed lanes, as there); everything
 else is served by the host oracle.
 
-Ported lanes: exact (``ops/exact``) and the FAST fuzzy DP lane
-(``ops/fuzzy``, ``ops/verify_dp``), for beamed engines too. The mapped,
-typed and forbid DP lanes, the large-dictionary lane and the beam lanes are
-not ported yet: where the JAX package would serve an engine on one of them,
+Ported lanes: exact (``ops/exact``) and the DP family of ``ops/verify_dp``
+— the FAST fuzzy lane (``ops/fuzzy``; beamed engines too), and the forbid,
+typed and mapped lanes. The large-dictionary lane and the beam lanes are not
+ported yet: where the JAX package would serve an engine on one of them,
 ``search_raw`` raises ``NotImplementedError`` naming its ROADMAP item, so a
 device-sized haystack never runs on the pure-Python oracle in their place.
 Where the JAX package itself falls back to the oracle, so does the port.
@@ -151,38 +151,10 @@ class DeviceEngine:
             if packed_fuzzy_of(e) is None:
                 _not_ported("large-dictionary lane", "5")
             return oracle.search_raw(e, haystack, threshold)
-        return self._unported_dp_lane(haystack, threshold, mapped=self._mapped_ok)
+        if self._mapped_ok:
+            from .verify_dp import fuzzy_search_mapped_device
 
-    def _unported_dp_lane(self, haystack: str, threshold: float, mapped: bool):
-        """The mapped and typed lanes: serve on the host exactly where the JAX
-        package does (empty haystack; haystack gate of the mapped lane; the
-        DP's host-side declines), and raise where it would run its device
-        DP."""
-        from .. import oracle
-        from ..utils.graphemes import view_of
-        from .verify_dp import dp_plan, forbid_spec_of, mapped_spec_of, typed_spec_of
+            return fuzzy_search_mapped_device(e, haystack, threshold)
+        from .verify_dp import fuzzy_search_typed_device
 
-        e = self.engine
-        view = view_of(haystack, e.case_insensitive)
-        n = len(view)
-        if n == 0:
-            return []
-        forbid = None if mapped else forbid_spec_of(e)
-        if mapped:
-            lane = "mapped DP lane"
-            # Every grapheme must be one code point (the class model's
-            # identity guarantee).
-            if not haystack.isascii() and n != len(haystack):
-                return oracle.search_raw(e, haystack, threshold)
-            plan = dp_plan(e, threshold, n, maps=mapped_spec_of(e))
-        elif forbid is not None:
-            lane = "forbid DP lane"
-            plan = dp_plan(e, threshold, n, forbid=forbid)
-        else:
-            lane = "typed DP lane"
-            plan = dp_plan(e, threshold, n, typed=typed_spec_of(e))
-        if plan is None:
-            return oracle.search_raw(e, haystack, threshold)
-        if 0.0 > plan.max_pen:
-            return []  # the budget admits nothing; no device work
-        _not_ported(lane, "4")
+        return fuzzy_search_typed_device(e, haystack, threshold)

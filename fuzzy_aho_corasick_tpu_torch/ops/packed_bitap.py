@@ -83,7 +83,8 @@ SCAN_FILL_THREADS = 640
 #: Kernel launches per wrapper (CUDA launches only; the plain versions on CPU
 #: tensors do not count). ``dp`` counts ``verify_dp.banded_dp`` and
 #: ``dp_pipeline`` both passes of ``verify_dp.dp_pipeline``.
-LAUNCHES = {"scan_bits": 0, "block_offsets": 0, "hit_words": 0, "dp": 0, "dp_pipeline": 0}
+LAUNCHES = {"scan_bits": 0, "block_offsets": 0, "hit_words": 0, "dp": 0, "dp_pipeline": 0,
+            "dp_typed": 0, "dp_pipeline_typed": 0}
 
 _M32 = 0xFFFFFFFF
 

@@ -51,10 +51,23 @@ edits)); per-cell ties on equal penalty keep the earlier arrival, in the BFS
 push order exact/substitution > swap > insertion > deletion
 (src/search.rs:776-1089).
 
-The host-only eligibility predicates of the JAX package's other DP lanes
-(:class:`MappedSpec`, :class:`TypedSpec`, :func:`forbid_spec_of`) are carried
-here too: ``ops/engine.DeviceEngine`` uses them to claim exactly the engines
-the JAX package claims. Those lanes themselves are not ported yet.
+Three more lanes ride the same pipeline (:func:`fuzzy_search_dp` with
+``forbid`` / ``maps`` / ``typed``; ``ops/engine.DeviceEngine`` claims exactly
+the engines the JAX package claims with :func:`forbid_spec_of`,
+:class:`MappedSpec` and :class:`TypedSpec`):
+
+* forbid — a total edit budget with some edit types capped at 0
+  (``edits(2).swaps(0)``): the count-channel DP with those arrivals switched
+  off by a mask the kernels carry;
+* mapped — multi-char mappings (``.mapping("ß", "ss")``) as extra arrivals
+  ``(row i-pb, band b-drift) -> (row i, band b)`` of the count-channel DP,
+  from a flat table (:class:`MapTables`); the ``MAPS`` instances of
+  ``dp_body`` in ``csrc/banded_dp.cuh``;
+* typed — per-type caps and per-pattern limits: the DP's channels become
+  edit-type vectors (insertions, deletions, substitutions, swaps) with
+  per-node caps on every move and per-pattern admissibility at emission
+  (:class:`TypedTables`, :func:`banded_dp_typed`, :func:`emit_rows_typed`;
+  the kernels of ``csrc/dp_typed.cu``, one warp per candidate).
 """
 
 from __future__ import annotations
@@ -484,6 +497,134 @@ def dp_tables_from_numpy(depth, node, path_cls, path_node, sim, out_list,
     )
 
 
+#: Columns of :attr:`MapTables.table`.
+MAP_COLS = 9
+#: Haystack symbols one mapping arrival may consume (``MAPPED_PB_MAX + 1``).
+MAP_HA_MAX = 4
+
+
+class MapTables:
+    """The mapping arrivals of a :class:`MappedSpec` on one device.
+
+    ``entries`` is ``MappedSpec.maps`` itself (the plain version walks it).
+    ``table`` int32 [n, 9] holds per entry, in the same order (sorted by
+    target row first): target row ``i_to``, ``pb``, ``drift``, ``ha``, the
+    ``ha`` haystack classes last-consumed first (4 columns, -2 padded), and
+    the penalty's f32 bits. ``row_ptr`` int32 [Lmax + 2]: the entries that
+    target row ``i`` are ``row_ptr[i] .. row_ptr[i + 1]``. ``fields`` int32
+    [n, FW]: bit ``f & 31`` of word ``f >> 5`` is set where the entry applies
+    to field ``f``."""
+
+    __slots__ = ("entries", "table", "row_ptr", "fields")
+
+    def __init__(self, entries, table, row_ptr, fields):
+        self.entries = entries
+        self.table = table
+        self.row_ptr = row_ptr
+        self.fields = fields
+
+    @property
+    def ph(self) -> int:
+        """Rows of history the arrivals reach back."""
+        return max([2] + [e[1] for e in self.entries])
+
+
+def map_tables_from_spec(maps: tuple, num_fields: int, Lmax: int, device="cpu") -> MapTables:
+    """``MappedSpec.maps`` (tuples of ``(i_to, pb, drift, hay_cls, penalty,
+    fields)``, sorted) as a :class:`MapTables` on ``device``."""
+    n = len(maps)
+    fw = max(1, -(-num_fields // 32))
+    table = np.zeros((n, MAP_COLS), np.int32)
+    fields = np.zeros((n, fw), np.uint32)
+    row_ptr = np.zeros(Lmax + 2, np.int32)
+    last = 0
+    for mi, (i_to, pb, drift, hay_cls, pen, flds) in enumerate(maps):
+        ha = len(hay_cls)
+        if not (1 <= i_to <= Lmax and 1 <= pb <= MAPPED_PB_MAX and abs(drift) <= 1
+                and ha == pb + drift and ha <= MAP_HA_MAX and i_to >= last):
+            raise ValueError(f"mapping entry {mi} outside the DP's model: {maps[mi][:4]}")
+        last = i_to
+        rev = list(hay_cls[::-1]) + [-2] * (MAP_HA_MAX - ha)
+        table[mi] = [i_to, pb, drift, ha, *rev,
+                     np.float32(pen).view(np.int32).item()]
+        for f in flds:
+            if not 0 <= f < num_fields:
+                raise ValueError(f"mapping entry {mi} names field {f} of {num_fields}")
+            fields[mi, f >> 5] |= np.uint32(1) << np.uint32(f & 31)
+        row_ptr[i_to + 1:] += 1
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return MapTables(tuple(maps), put(table), put(row_ptr), put(fields.view(np.int32)))
+
+
+#: Columns of :attr:`TypedTables.graph`.
+TYPED_COLS = 10
+
+
+class TypedTables:
+    """The typed DP's tables of a :class:`TypedSpec` on one device.
+
+    ``graph`` int32 [NCH, 10] per channel (a type vector, channels sorted by
+    (sum, vector), channel 0 the zero vector): the source channel of its
+    substitution, insertion, deletion and swap arrival (-1: none), the
+    vector's sum, its four components (insertions, deletions,
+    substitutions, swaps) and its packed counts. ``node_caps`` int32 [N, 5]
+    (edits, insertions, deletions, substitutions, swaps; 255 = unlimited),
+    ``root_caps`` int32 [5] the caps of path row 0, ``limcls`` int32 [P] each
+    pattern's limits class, ``adm`` int32 [NLC, NCH] whether a class admits a
+    channel at emission."""
+
+    __slots__ = ("graph", "node_caps", "root_caps", "limcls", "adm")
+
+    def __init__(self, graph, node_caps, root_caps, limcls, adm):
+        self.graph = graph
+        self.node_caps = node_caps
+        self.root_caps = root_caps
+        self.limcls = limcls
+        self.adm = adm
+
+    @property
+    def nch(self) -> int:
+        return self.graph.shape[0]
+
+
+def typed_tables_from_numpy(vecs, sub_src, ins_src, del_src, swap_src, cnts, root_caps,
+                            node_caps, limcls, adm, device="cpu") -> TypedTables:
+    """A :class:`TypedSpec`'s static tuples and numpy arrays as a
+    :class:`TypedTables` on ``device``."""
+    vecs = np.asarray(vecs, np.int64).reshape(-1, 4)
+    nch = len(vecs)
+    if not 1 <= nch <= MAX_TYPED_CHANNELS or vecs[0].any():
+        raise ValueError(f"{nch} typed channels (1..{MAX_TYPED_CHANNELS}, zero vector first)")
+    graph = np.stack([np.asarray(a, np.int64) for a in (sub_src, ins_src, del_src, swap_src)]
+                     + [vecs.sum(1)] + list(vecs.T) + [np.asarray(cnts, np.int64)], axis=1)
+    if graph.shape != (nch, TYPED_COLS) or (graph[:, :4] >= nch).any():
+        raise ValueError("typed channel graph of the wrong shape")
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+    return TypedTables(
+        put(graph), put(np.reshape(node_caps, (-1, 5))), put(np.reshape(root_caps, 5)),
+        put(limcls), put(np.reshape(adm, (-1, nch))))
+
+
+class DpVariant(NamedTuple):
+    """Which DP a lane runs: ``forbid`` the (no_ins, no_del, no_sub, no_swap)
+    flags of the count-channel DP, ``maps`` its mapping arrivals, ``typed``
+    the typed DP's tables (then the other two are unset)."""
+
+    forbid: Optional[Tuple[bool, bool, bool, bool]] = None
+    maps: Optional[MapTables] = None
+    typed: Optional[TypedTables] = None
+
+
+def _forbid_mask(forbid) -> int:
+    """The kernels' mask: bit 0 no insertions, 1 no deletions, 2 no
+    substitutions, 3 no swaps."""
+    if forbid is None:
+        return 0
+    if len(forbid) != 4:
+        raise ValueError("forbid is (no_ins, no_del, no_sub, no_swap)")
+    return sum(1 << i for i, flag in enumerate(forbid) if flag)
+
+
 class DpPenalties(NamedTuple):
     """The DP's f32 scalars: global budget ``max_pen``, per-edit penalties,
     and the weakest-link similarity ``floor``."""
@@ -560,10 +701,10 @@ def expand_candidates(pos, words, start_lo, start_hi, pos_hi, E, BITS, P2F, DEPT
 # ---------------------------------------------------------------------------
 
 def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
-                    pens: DpPenalties, E: int, deadend: bool = False):
+                    pens: DpPenalties, E: int, deadend: bool = False,
+                    forbid=None, maps: Optional[MapTables] = None):
     """Plain version of ``banded_dp_kernel``: the JAX package's
-    ``verify_dp._banded_dp`` (count channels, no mappings, nothing
-    forbidden), op for op in f32.
+    ``verify_dp._banded_dp`` (count channels), op for op in f32.
 
     ``cand_field`` / ``cand_start`` [M] int32 (field -1 = dead slot),
     ``ids`` the dense class-id stream (reads below 0 or at/after ``limit``
@@ -571,7 +712,14 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
     ``deadend`` enables the reference's last-edit dead-end filter
     (src/search.rs:839-847, 994-1007, 1050-1063): an edit move that spends
     the final budget unit is dropped unless the resulting node has output or
-    a single-byte edge matching the next text char.
+    a single-byte edge matching the next text char. ``forbid`` (no_ins,
+    no_del, no_sub, no_swap) drops those arrivals, the trailing deletion of
+    the emission channel with the deletions. ``maps`` adds the mapping
+    arrivals (src/search.rs:883-923): ``(row i-pb, band b-drift) -> (row i,
+    band b)`` consuming ``ha`` haystack symbols equal to the entry's classes,
+    at a fixed penalty, counting one substitution; merged into the consuming
+    and the continuation channel after the deletion and before the
+    insertions, in the entries' order.
 
     Returns (pen [B*NE, M] f32, cnt [B*NE, M] int32): the emission channel
     at row ``depth``, column ``depth + (b - E)``, per exact edit count, row
@@ -585,6 +733,11 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
     INF = float("inf")
     scal = lambda x: torch.tensor(float(np.float32(x)), dtype=f32, device=dev)
     max_pen, p_sub, p_ins, p_del, p_swap, floor = (scal(x) for x in pens)
+    f_ins, f_del, f_sub, f_swap = forbid if forbid is not None else (False,) * 4
+    maps_by_row: dict = {}
+    for i_to, *entry in (maps.entries if maps is not None else ()):
+        maps_by_row.setdefault(i_to, []).append(entry)
+    PH = maps.ph if maps is not None else 2
 
     f = cand_field.clamp(min=0).long()
     alive = cand_field >= 0
@@ -607,7 +760,9 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
     zero_or_inf = torch.where(alive, 0.0, INF).to(f32)
     prev_pen, prev_cnt = grid(INF, f32), grid(0, torch.int32)
     prev_pen[E][0] = zero_or_inf
-    prev2_pen, prev2_cnt = grid(INF, f32), grid(0, torch.int32)   # row -1
+    # hist[p - 1] is row i - p; rows below 0 are dead.
+    hist = [(prev_pen, prev_cnt)] + [(grid(INF, f32), grid(0, torch.int32))
+                                     for _ in range(PH - 1)]
     preve_pen, preve_cnt = grid(INF, f32), grid(0, torch.int32)   # emission row 0
     preve_pen[E][0] = zero_or_inf
     emit_pen, emit_cnt = grid(INF, f32), grid(0, torch.int32)
@@ -617,6 +772,7 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
         return torch.where(take, op, bp), torch.where(take, oc, bc)
 
     for i in range(1, Lmax + 1):
+        (prev_pen, prev_cnt), (prev2_pen, prev2_cnt) = hist[0], hist[1]
         row_live = alive & (i <= dpth)
         pc, pc_prev = pcls[i - 1], pcls[max(i - 2, 0)]
         ceil_i = ceil_t[i - 1]
@@ -643,7 +799,7 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
                 if j >= 1:
                     bp = torch.where(torch.isfinite(p_pen) & (hc == pc), p_pen, INF)
                 bc = prev_cnt[b][e]
-                if e >= 1 and j >= 1:
+                if e >= 1 and j >= 1 and not f_sub:
                     # substitution: (i-1, b, e-1) (src/search.rs:803-874)
                     q_pen, q_cnt = prev_pen[b][e - 1], prev_cnt[b][e - 1]
                     ok_s = (
@@ -653,7 +809,7 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
                     if deadend and e == NE - 1:
                         ok_s = ok_s & okrow[b]
                     bp, bc = merge(bp, bc, q_pen + spen, q_cnt + 0x1_0000, ok_s)
-                if e >= 1 and i >= 2 and j >= 2:
+                if e >= 1 and i >= 2 and j >= 2 and not f_swap:
                     # swap: (i-2, b, e-1) (src/search.rs:935-989)
                     s_pen, s_cnt = prev2_pen[b][e - 1], prev2_cnt[b][e - 1]
                     ok_sw = (
@@ -663,7 +819,7 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
                     )
                     bp, bc = merge(bp, bc, s_pen + p_swap, s_cnt + 0x100_0000, ok_sw)
                 cons_pen[b][e], cons_cnt[b][e] = bp, bc
-                if e >= 1 and b + 1 < B:
+                if e >= 1 and b + 1 < B and not f_del:
                     # deletion: (i-1, b+1, e-1) — consume pc only
                     # (src/search.rs:1035-1089; column j is band b+1 on row i-1)
                     d_pen, d_cnt = prev_pen[b + 1][e - 1], prev_cnt[b + 1][e - 1]
@@ -673,10 +829,36 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
                     bp, bc = merge(bp, bc, d_pen + p_del, d_cnt + 0x100, ok_del)
                 new_pen[b][e], new_cnt[b][e] = bp, bc
 
+        # Mapping arrivals: the guard is the oracle's, new_pen > max_pen at
+        # push time. Out-of-text symbols read -1, never a dedicated class.
+        for pb, drift, hay_cls, mpen, fields in maps_by_row.get(i, ()):
+            if i - pb < 0:
+                continue
+            src_pen, src_cnt = hist[pb - 1]
+            ha = len(hay_cls)
+            fm = torch.isin(cand_field, torch.tensor(fields, dtype=torch.int32, device=dev))
+            mp = scal(mpen)
+            for b in range(B):
+                b_src = b - drift
+                if not 0 <= b_src < B or i + (b - E) < ha:
+                    continue
+                ok_m = fm
+                for t in range(ha):
+                    ok_m = ok_m & (win[i + b + 1 - ha + t] == hay_cls[t])
+                for e in range(1, NE):
+                    q_pen = src_pen[b_src][e - 1]
+                    val = q_pen + mp
+                    ok_e = ok_m & torch.isfinite(q_pen) & ~(val > max_pen)
+                    cntv = src_cnt[b_src][e - 1] + 0x1_0000
+                    cons_pen[b][e], cons_cnt[b][e] = merge(
+                        cons_pen[b][e], cons_cnt[b][e], val, cntv, ok_e)
+                    new_pen[b][e], new_cnt[b][e] = merge(
+                        new_pen[b][e], new_cnt[b][e], val, cntv, ok_e)
+
         # insertion: same row, (b-1, e-1) -> b — consume hc only, ascending b
         # (src/search.rs:994-1029), reading the already-updated band b-1.
         # Forbidden from cells with zero hay consumed: source col j-1 >= 1.
-        for b in range(1, B):
+        for b in (range(1, B) if not f_ins else ()):
             j = i + (b - E)
             if j < 2:
                 continue
@@ -701,7 +883,7 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
                 dead = ~row_live | (new_pen[b][e] > ceil_i)
                 new_pen[b][e] = torch.where(dead, INF, new_pen[b][e])
                 ep, ec = cons_pen[b][e], cons_cnt[b][e]
-                if e >= 1 and b + 1 < B:
+                if e >= 1 and b + 1 < B and not f_del:
                     t_pen, t_cnt = preve_pen[b + 1][e - 1], preve_cnt[b + 1][e - 1]
                     ok_t = torch.isfinite(t_pen) & ~(p_del > (max_pen - t_pen))
                     if deadend and e == NE - 1:
@@ -712,8 +894,7 @@ def banded_dp_torch(cand_field, cand_start, ids, limit, T: DpTables,
                 newe_cnt[b][e] = ec
                 emit_pen[b][e] = torch.where(emit_here, newe_pen[b][e], emit_pen[b][e])
                 emit_cnt[b][e] = torch.where(emit_here, newe_cnt[b][e], emit_cnt[b][e])
-        prev2_pen, prev2_cnt = prev_pen, prev_cnt
-        prev_pen, prev_cnt = new_pen, new_cnt
+        hist = [(new_pen, new_cnt)] + hist[: PH - 1]
         preve_pen, preve_cnt = newe_pen, newe_cnt
 
     pen = torch.stack([emit_pen[b][e] for b in range(B) for e in range(NE)])
@@ -743,16 +924,35 @@ def _check_dp(cand_field, cand_start, ids, T: DpTables, E: int) -> None:
         raise ValueError(f"edit budget {E} outside 1..{MAX_E}")
 
 
+def _map_args(maps: Optional[MapTables], T: DpTables) -> tuple:
+    """The C entries' mapping arguments: table, row pointers, field masks
+    (None without mappings) and the masks' words per entry."""
+    if maps is None:
+        return None, None, None, 0
+    if maps.table.device != T.device:
+        raise ValueError(f"mapping tables on {maps.table.device}, DP tables on {T.device}")
+    if maps.row_ptr.numel() != T.Lmax + 2:
+        raise ValueError("mapping tables were built for another Lmax")
+    return (maps.table.data_ptr(), maps.row_ptr.data_ptr(), maps.fields.data_ptr(),
+            maps.fields.shape[1])
+
+
 def banded_dp(cand_field, cand_start, ids, limit, T: DpTables,
-              pens: DpPenalties, E: int, deadend: bool = False):
+              pens: DpPenalties, E: int, deadend: bool = False,
+              forbid=None, maps: Optional[MapTables] = None):
     """(pen [B*NE, M] f32, cnt [B*NE, M] int32) of the banded DP (see
     :func:`banded_dp_torch`). CPU tensors run :func:`banded_dp_torch`; CUDA
     tensors launch ``banded_dp_kernel``."""
     from .packed_bitap import LAUNCHES
 
     _check_dp(cand_field, cand_start, ids, T, E)
+    mask = _forbid_mask(forbid)
+    if maps is not None and deadend:
+        raise ValueError("the mapped DP has no dead-end filter")
+    map_args = _map_args(maps, T)
     if ids.device.type == "cpu":
-        return banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend)
+        return banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend,
+                               forbid, maps)
     if ids.device.type != "cuda":
         raise ValueError(f"no DP kernel for device {ids.device}")
     M = cand_field.numel()
@@ -771,11 +971,201 @@ def banded_dp(cand_field, cand_start, ids, limit, T: DpTables,
             T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C, T.node_ceil.data_ptr(),
             T.sb_edge.data_ptr(), T.out_count.data_ptr(), T.out_count.numel(),
             *(float(np.float32(x)) for x in pens),
-            E, int(bool(deadend)), pen.data_ptr(), cnt.data_ptr(), stream,
+            E, int(bool(deadend)), mask, *map_args,
+            pen.data_ptr(), cnt.data_ptr(), stream,
         )
     kern.check(rc, "banded_dp")
     LAUNCHES["dp"] += 1
     return pen, cnt
+
+
+# ---------------------------------------------------------------------------
+# Typed DP: channels are edit-type vectors
+# ---------------------------------------------------------------------------
+
+def banded_dp_typed_torch(cand_field, cand_start, ids, limit, T: DpTables,
+                          pens: DpPenalties, E: int, TT: TypedTables):
+    """Plain version of ``banded_dp_typed_kernel``: the JAX package's
+    ``verify_dp._banded_dp_typed``, op for op in f32.
+
+    The recurrences of :func:`banded_dp_torch` without a dead-end filter,
+    over ``NCH`` channels that are edit-type vectors: a substitution,
+    insertion, deletion or swap arrives in channel ``ch`` from the channel
+    with one edit of that type less (``TT.graph``), and only where the
+    source's edit total and that type's count are below the node's caps
+    (reference ahead-checks src/search.rs:87-169). Substitution, deletion
+    and the emission channel's trailing deletion read the caps of path row
+    ``i - 1`` (row 0: ``TT.root_caps``), insertion and swap those of row
+    ``i``. Counts are static per channel, so only penalties come back:
+    pen [B*NCH, M] f32, row ``b * NCH + ch``, +inf where dead."""
+    dev = cand_field.device
+    B, NCH = 2 * E + 1, TT.nch
+    M = cand_field.numel()
+    Lmax = T.Lmax
+    f32 = torch.float32
+    INF = float("inf")
+    scal = lambda x: torch.tensor(float(np.float32(x)), dtype=f32, device=dev)
+    max_pen, p_sub, p_ins, p_del, p_swap, floor = (scal(x) for x in pens)
+
+    f = cand_field.clamp(min=0).long()
+    alive = cand_field >= 0
+    WLEN = Lmax + 2 * E + 1
+    idx = (cand_start.long() - (E + 1))[None, :] + torch.arange(WLEN, device=dev)[:, None]
+    sym = ids[idx.clamp(0, ids.numel() - 1)].long()
+    win = torch.where((idx >= 0) & (idx < limit), sym, -1)        # [WLEN, M]
+    pcls = T.path_cls.long()[f].T                                   # [Lmax, M]
+    pnode = T.path_node.long()[f].T
+    dpth = torch.where(alive, T.depth.long()[f], 0)
+    ceil_t = T.node_ceil[pnode]                                     # [Lmax, M]
+    caps_t = TT.node_caps.long()[pnode]                             # [Lmax, M, 5]
+    root = TT.root_caps.long()
+
+    graph = TT.graph.long()
+    srcs = [graph[:, q] for q in range(4)]                          # sub, ins, del, swap
+    has_sub, has_ins, has_del, has_swap = ((s >= 0)[:, None] for s in srcs)
+    sub_c, ins_c, del_c, swap_c = (s.clamp(min=0) for s in srcs)
+    vsum, v_ins, v_del, v_sub, v_swap = (graph[:, 4 + q] for q in range(5))
+
+    def caps_of(row: int):
+        """The five caps of path row ``row``, [M] each (row 0: the root's)."""
+        if row == 0:
+            return [root[q].expand(M) for q in range(5)]
+        return [caps_t[row - 1, :, q] for q in range(5)]
+
+    def below(src, comp, cap_e, cap_q):
+        """[NCH, M]: the source channel's total and its ``comp`` count are
+        below the caps."""
+        return (vsum[src][:, None] < cap_e[None, :]) & (comp[src][:, None] < cap_q[None, :])
+
+    def merge(bp, op, ok):
+        return torch.where(ok & (op < bp), op, bp)
+
+    zero_or_inf = torch.where(alive, 0.0, INF).to(f32)
+    prev = torch.full((B, NCH, M), INF, dtype=f32, device=dev)
+    prev[E, 0] = zero_or_inf
+    prev2 = torch.full_like(prev, INF)                              # row -1
+    preve = prev.clone()                                            # emission row 0
+    emit = torch.full_like(prev, INF)
+
+    for i in range(1, Lmax + 1):
+        row_live = alive & (i <= dpth)
+        pc, pc_prev = pcls[i - 1], pcls[max(i - 2, 0)]
+        ceil_i = ceil_t[i - 1]
+        ce_1, _ci_1, cd_1, cs_1, _cw_1 = caps_of(i - 1)
+        ce_0, ci_0, _cd_0, _cs_0, cw_0 = caps_of(i)
+        cons, new = [], []
+        for b in range(B):
+            j = i + (b - E)
+            hc, hc_jm1 = win[i + b], win[i - 1 + b]
+            sim = torch.where(hc >= 0, T.sim[pc, hc.clamp(min=0)], 0.0)
+            spen = p_sub * (1.0 - sim)
+            p_pen = prev[b]
+            bp = torch.full_like(p_pen, INF)
+            if j >= 1:
+                bp = torch.where(torch.isfinite(p_pen) & (hc == pc)[None, :], p_pen, INF)
+                q_pen = prev[b][sub_c]
+                ok_s = (
+                    has_sub & torch.isfinite(q_pen)
+                    & ((hc >= 0) & (hc != pc) & ~(sim < floor))[None, :]
+                    & ~(spen[None, :] > (max_pen - q_pen))
+                    & below(sub_c, v_sub, ce_1, cs_1)
+                )
+                bp = merge(bp, q_pen + spen[None, :], ok_s)
+            if i >= 2 and j >= 2:
+                s_pen = prev2[b][swap_c]
+                ok_sw = (
+                    has_swap & torch.isfinite(s_pen) & ~(p_swap > (max_pen - s_pen))
+                    & ((hc >= 0) & (hc_jm1 >= 0) & (hc == pc_prev) & (hc_jm1 == pc))[None, :]
+                    & below(swap_c, v_swap, ce_0, cw_0)
+                )
+                bp = merge(bp, s_pen + p_swap, ok_sw)
+            cons.append(bp)
+            if b + 1 < B:
+                d_pen = prev[b + 1][del_c]
+                ok_del = (
+                    has_del & torch.isfinite(d_pen) & ~(p_del > (max_pen - d_pen))
+                    & below(del_c, v_del, ce_1, cd_1)
+                )
+                bp = merge(bp, d_pen + p_del, ok_del)
+            new.append(bp)
+
+        # insertion: ascending b over the already-updated band b-1
+        for b in range(1, B):
+            if i + (b - E) < 2:
+                continue
+            ip = new[b - 1][ins_c]
+            ok_ins = (
+                has_ins & torch.isfinite(ip) & ~(p_ins > (max_pen - ip))
+                & (win[i + b] >= 0)[None, :] & below(ins_c, v_ins, ce_0, ci_0)
+            )
+            new[b] = merge(new[b], ip + p_ins, ok_ins)
+
+        newe = []
+        for b in range(B):
+            dead = ~row_live[None, :] | (new[b] > ceil_i[None, :])
+            new[b] = torch.where(dead, INF, new[b])
+            ep = cons[b]
+            if b + 1 < B:
+                t_pen = preve[b + 1][del_c]
+                ok_t = (
+                    has_del & torch.isfinite(t_pen) & ~(p_del > (max_pen - t_pen))
+                    & below(del_c, v_del, ce_1, cd_1)
+                )
+                ep = merge(ep, t_pen + p_del, ok_t)
+            edead = ~row_live[None, :] | (ep > ceil_i[None, :])
+            newe.append(torch.where(edead, INF, ep))
+        prev2, prev, preve = prev, torch.stack(new), torch.stack(newe)
+        emit = torch.where((row_live & (i == dpth))[None, None, :], preve, emit)
+    return emit.reshape(B * NCH, M)
+
+
+def _check_typed(T: DpTables, TT: TypedTables) -> None:
+    if TT.graph.device != T.device:
+        raise ValueError(f"typed tables on {TT.graph.device}, DP tables on {T.device}")
+    if TT.graph.dim() != 2 or TT.graph.shape[1] != TYPED_COLS or not 1 <= TT.nch <= MAX_TYPED_CHANNELS:
+        raise ValueError(f"typed channel graph of shape {tuple(TT.graph.shape)}")
+    if TT.node_caps.shape != (T.out_count.numel(), 5) or TT.root_caps.numel() != 5:
+        raise ValueError("node caps must be [N, 5] and root caps [5]")
+    if TT.limcls.numel() != T.pat_len.numel() or TT.adm.dim() != 2 or TT.adm.shape[1] != TT.nch:
+        raise ValueError("limits classes must be [P] and admissibility [NLC, NCH]")
+    for name in TypedTables.__slots__:
+        t = getattr(TT, name)
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"typed table {name} must be contiguous int32")
+
+
+def banded_dp_typed(cand_field, cand_start, ids, limit, T: DpTables,
+                    pens: DpPenalties, E: int, TT: TypedTables):
+    """pen [B*NCH, M] f32 of the typed DP (see :func:`banded_dp_typed_torch`).
+    CPU tensors run the plain version; CUDA tensors launch
+    ``banded_dp_typed_kernel``."""
+    from .packed_bitap import LAUNCHES
+
+    _check_dp(cand_field, cand_start, ids, T, E)
+    _check_typed(T, TT)
+    if ids.device.type == "cpu":
+        return banded_dp_typed_torch(cand_field, cand_start, ids, limit, T, pens, E, TT)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no DP kernel for device {ids.device}")
+    M = cand_field.numel()
+    pen = torch.empty(((2 * E + 1) * TT.nch, M), dtype=torch.float32, device=ids.device)
+    if M == 0:
+        return pen
+    kern = _cuda_build.load()
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = kern.lib.fac_banded_dp_typed(
+            cand_field.data_ptr(), cand_start.data_ptr(), M,
+            ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
+            T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(),
+            T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C, T.node_ceil.data_ptr(),
+            T.out_count.numel(), *(float(np.float32(x)) for x in pens), E,
+            TT.graph.data_ptr(), TT.nch, TT.node_caps.data_ptr(), TT.root_caps.data_ptr(),
+            pen.data_ptr(), stream,
+        )
+    kern.check(rc, "banded_dp_typed")
+    LAUNCHES["dp_typed"] += 1
+    return pen
 
 
 # ---------------------------------------------------------------------------
@@ -839,12 +1229,75 @@ def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
     ], dim=1).to(torch.int32)
 
 
+def emit_rows_typed(pen, cand_field, cand_start, T: DpTables, TT: TypedTables,
+                    limit, thr, E):
+    """Typed DP channels -> match rows, int32 [K, 5] as :func:`emit_rows`
+    gives them, in the same order (the JAX package's ``_emit_rows_typed``).
+
+    Per band and limits class the channels the class admits are minimised
+    with strict <, in channel order (fewest edits first), and the winning
+    channel's static counts are kept; each output slot then takes the row of
+    its pattern's limits class (reference emission-time check
+    src/search.rs:151-169)."""
+    B, NCH = 2 * E + 1, TT.nch
+    M = cand_field.numel()
+    MO = T.out_list.shape[1]
+    alive = cand_field >= 0
+    f = cand_field.clamp(min=0).long()
+    start = cand_start
+    d = T.depth[f]
+    pats = T.out_list[T.node[f].long()]                              # [M, MO]
+    p_safe = pats.clamp(min=0).long()
+    pl, pw = T.pat_len[p_safe], T.pat_weight[p_safe]
+    patcls = TT.limcls.long()[p_safe]                                # [M, MO]
+    adm = TT.adm.tolist()
+    cnts = TT.graph[:, 9].tolist()
+    bound = emit_bound(thr)
+    ok_rows, pen_rows, cnt_rows = [], [], []
+    ar = torch.arange(M, device=pen.device)
+    for b in range(B):
+        ends_b = start + d + (b - E)
+        span_ok = alive & (ends_b <= limit) & (ends_b >= start)
+        pen_lc, cnt_lc = [], []
+        for row in adm:
+            pen_b = torch.full((M,), float("inf"), dtype=torch.float32, device=pen.device)
+            cnt_b = torch.zeros(M, dtype=torch.int32, device=pen.device)
+            for ch in range(NCH):
+                if row[ch]:
+                    take = pen[b * NCH + ch] < pen_b
+                    pen_b = torch.where(take, pen[b * NCH + ch], pen_b)
+                    cnt_b = torch.where(take, cnts[ch], cnt_b)
+            pen_lc.append(pen_b)
+            cnt_lc.append(cnt_b)
+        pen_lc, cnt_lc = torch.stack(pen_lc), torch.stack(cnt_lc)   # [NLC, M]
+        for o in range(MO):
+            pen_sel, cnt_sel = pen_lc[patcls[:, o], ar], cnt_lc[patcls[:, o], ar]
+            fin = torch.isfinite(pen_sel)
+            pen_s = torch.where(fin, pen_sel, 0.0)
+            sim = ((pl[:, o] - pen_s) / pl[:, o]) * pw[:, o]
+            ok_rows.append(span_ok & fin & (pats[:, o] >= 0) & (sim >= bound))
+            pen_rows.append(pen_sel)
+            cnt_rows.append(cnt_sel)
+    gidx = compact_indices(torch.stack(ok_rows).reshape(-1))
+    m = gidx % M
+    chan = gidx // M
+    o = chan % MO
+    b = chan // MO
+    pen_bits = torch.stack(pen_rows).view(torch.int32)[chan, m]
+    return torch.stack([
+        start[m], pen_bits, d[m] + (b - E).to(torch.int32), pats[m, o],
+        torch.stack(cnt_rows)[chan, m],
+    ], dim=1).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Expansion, DP and emission as one step
 # ---------------------------------------------------------------------------
 
-#: Emission channels (bands x output slots) the pipeline kernel takes.
+#: Emission channels (bands x output slots) the pipeline kernels take.
 MAX_CHANNELS = 128
+#: The count-channel DP, nothing forbidden, no mappings.
+FAST = DpVariant()
 
 
 class DpWindow(NamedTuple):
@@ -857,21 +1310,51 @@ class DpWindow(NamedTuple):
 
 
 def dp_pipeline_torch(pos, words, window: DpWindow, ids, limit, T: DpTables,
-                      pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple):
-    """Plain version of ``dp_pipeline_kernel``: :func:`expand_candidates`,
-    :func:`banded_dp_torch`, :func:`emit_rows`. Returns (rows int32 [K, 5],
-    number of candidates)."""
+                      pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
+                      variant: DpVariant = FAST):
+    """Plain version of ``dp_pipeline_kernel`` and ``dp_pipeline_typed_kernel``:
+    :func:`expand_candidates`, then :func:`banded_dp_torch` and
+    :func:`emit_rows`, or for a typed ``variant``
+    :func:`banded_dp_typed_torch` and :func:`emit_rows_typed`. Returns (rows
+    int32 [K, 5], number of candidates)."""
     cand_field, cand_start = expand_candidates(pos, words, *window, E, *statics)
-    pen, cnt = banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend)
-    rows = emit_rows(pen, cnt, cand_field, cand_start, T, limit, thr, E)
+    if variant.typed is not None:
+        pen = banded_dp_typed_torch(cand_field, cand_start, ids, limit, T, pens, E,
+                                    variant.typed)
+        rows = emit_rows_typed(pen, cand_field, cand_start, T, variant.typed, limit, thr, E)
+    else:
+        pen, cnt = banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend,
+                                   variant.forbid, variant.maps)
+        rows = emit_rows(pen, cnt, cand_field, cand_start, T, limit, thr, E)
     return rows, cand_field.numel()
 
 
-def pipeline_max_hits(n_combo: int, MO: int, E: int) -> int:
+#: (combo, hit) items per counting unit of ``dp_pipeline_typed_kernel`` (one
+#: warp; ``TY_UNIT`` of csrc/dp_typed.cu), against a block of 128 items for
+#: ``dp_pipeline_kernel``.
+TYPED_UNIT = 8
+#: Most bytes the typed pipeline's per-unit counts may take; their exclusive
+#: scan takes as many again.
+TYPED_COUNT_BYTES = 64 << 20
+
+
+def _typed_count_entries(items: int, channels: int) -> int:
+    """int32 entries of the typed count pass's array over ``items`` (combo,
+    hit) items: one per warp for each emission channel and for the candidates."""
+    return (channels + 1) * -(-items // TYPED_UNIT)
+
+
+def pipeline_max_hits(n_combo: int, MO: int, E: int, typed: bool = False) -> int:
     """Most hits :func:`dp_pipeline` takes in one call: the work budget
     ``MAX_EXPAND`` over (combo, hit) items, and int32 offsets over their
-    candidates and rows (at most one of each per item and emission channel)."""
-    items = min(MAX_EXPAND, ((1 << 31) - 1) // ((2 * E + 1) * MO + 1))
+    candidates and rows (at most one of each per item and emission channel).
+    The ``typed`` kernel counts per warp of ``TYPED_UNIT`` items, 16 entries
+    where the count-channel kernel has one, so there the counts' bytes
+    (``TYPED_COUNT_BYTES``) bound the items too."""
+    channels = (2 * E + 1) * MO
+    items = min(MAX_EXPAND, ((1 << 31) - 1) // (channels + 1))
+    if typed:
+        items = min(items, TYPED_COUNT_BYTES // 4 // (channels + 1) * TYPED_UNIT)
     return items // max(n_combo, 1)
 
 
@@ -882,13 +1365,15 @@ def _combos_on(device: str, E: int, BITS: tuple, P2F: tuple, DEPTHS: tuple) -> t
 
 
 def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
-                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple):
+                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
+                variant: DpVariant = FAST):
     """Checks the arguments of :func:`dp_pipeline` and, on CUDA tensors, runs
     the kernel's count pass. Returns None for CPU tensors and for an empty
-    hit list, else (launch, counts, channels, blocks): ``counts`` int32
-    [(channels + 1) * blocks] holds every block's rows per emission channel
-    and, in the last row, its candidates; ``launch(1, offsets, rows)`` runs
-    the write pass."""
+    hit list, else (launch, counts, channels, units): ``counts`` int32
+    [(channels + 1) * units] holds every unit's rows per emission channel
+    and, in the last row, its candidates (a unit is one block of
+    ``dp_pipeline_kernel``, one warp of ``dp_pipeline_typed_kernel``);
+    ``launch(1, offsets, rows)`` runs the write pass."""
     from . import packed_bitap as pb
 
     for name, t in (("pos", pos), ("words", words)):
@@ -904,6 +1389,15 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
         raise ValueError("tables carry no node ceilings (DpTables.with_ceil)")
     if not 1 <= E <= MAX_E:
         raise ValueError(f"edit budget {E} outside 1..{MAX_E}")
+    typed = variant.typed
+    if typed is not None:
+        if deadend or variant.forbid is not None or variant.maps is not None:
+            raise ValueError("the typed DP takes no dead-end filter, forbid flags or mappings")
+        _check_typed(T, typed)
+    mask = _forbid_mask(variant.forbid)
+    if variant.maps is not None and deadend:
+        raise ValueError("the mapped DP has no dead-end filter")
+    map_args = _map_args(variant.maps, T)
     if ids.device.type == "cpu":
         return None
     if ids.device.type != "cuda":
@@ -917,39 +1411,58 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
         raise ValueError(f"{nch} emission channels, the kernel takes {MAX_CHANNELS}")
     if H * n_combo * (nch + 1) >= 1 << 31:
         raise ValueError(f"{H} hits x {n_combo} combos x {nch} channels overflow int32 offsets")
+    if typed is not None and 4 * _typed_count_entries(H * n_combo, nch) > TYPED_COUNT_BYTES:
+        raise ValueError(f"{H} hits x {n_combo} combos x {nch} channels: the typed count "
+                         f"pass's counts pass {TYPED_COUNT_BYTES} bytes")
     if H == 0 or n_combo == 0:
         return None
     kern = _cuda_build.load()
-    nblk = -(-(H * n_combo) // kern.lib.fac_dp_pipeline_threads())
-    counts = torch.empty((nch + 1) * nblk, dtype=torch.int32, device=dev)
+    unit = kern.lib.fac_dp_pipeline_typed_unit() if typed is not None \
+        else kern.lib.fac_dp_pipeline_threads()
+    if typed is not None and unit != TYPED_UNIT:
+        raise RuntimeError(f"dp_typed.cu counts per {unit} items, this module per {TYPED_UNIT}")
+    nunits = -(-(H * n_combo) // unit)
+    counts = torch.empty((nch + 1) * nunits, dtype=torch.int32, device=dev)
+    head = (
+        pos.data_ptr(), words.data_ptr(), H, words.shape[1],
+        combos.data_ptr(), n_combo, *(int(x) for x in window),
+        ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
+        T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(),
+        T.node.data_ptr(), T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C,
+        T.node_ceil.data_ptr(),
+    )
+    outs = (
+        T.out_count.numel(), T.out_list.data_ptr(), MO,
+        T.pat_len.data_ptr(), T.pat_weight.data_ptr(),
+        *(float(np.float32(x)) for x in pens), emit_bound(thr), E,
+    )
 
     def launch(write: int, offsets, rows):
+        tail = (write, nunits, counts.data_ptr(),
+                None if offsets is None else offsets.data_ptr(),
+                None if rows is None else rows.data_ptr())
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = kern.lib.fac_dp_pipeline(
-                pos.data_ptr(), words.data_ptr(), H, words.shape[1],
-                combos.data_ptr(), n_combo, *(int(x) for x in window),
-                ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
-                T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(),
-                T.node.data_ptr(), T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C,
-                T.node_ceil.data_ptr(), T.sb_edge.data_ptr(), T.out_count.data_ptr(),
-                T.out_count.numel(), T.out_list.data_ptr(), MO,
-                T.pat_len.data_ptr(), T.pat_weight.data_ptr(),
-                *(float(np.float32(x)) for x in pens), emit_bound(thr),
-                E, int(bool(deadend)), write, nblk, counts.data_ptr(),
-                None if offsets is None else offsets.data_ptr(),
-                None if rows is None else rows.data_ptr(), stream,
-            )
-        kern.check(rc, "dp_pipeline")
-        pb.LAUNCHES["dp_pipeline"] += 1
+            if typed is not None:
+                rc = kern.lib.fac_dp_pipeline_typed(
+                    *head, *outs, typed.graph.data_ptr(), typed.nch,
+                    typed.node_caps.data_ptr(), typed.root_caps.data_ptr(),
+                    typed.limcls.data_ptr(), typed.adm.data_ptr(), typed.adm.shape[0],
+                    *tail, stream)
+            else:
+                rc = kern.lib.fac_dp_pipeline(
+                    *head, T.sb_edge.data_ptr(), T.out_count.data_ptr(), *outs,
+                    int(bool(deadend)), mask, *map_args, *tail, stream)
+        kern.check(rc, "dp_pipeline_typed" if typed is not None else "dp_pipeline")
+        pb.LAUNCHES["dp_pipeline_typed" if typed is not None else "dp_pipeline"] += 1
 
     launch(0, None, None)
-    return launch, counts, nch, nblk
+    return launch, counts, nch, nunits
 
 
 def dp_pipeline_counts(*args) -> torch.Tensor:
     """The count pass of :func:`dp_pipeline` alone, same arguments, CUDA
-    tensors with at least one hit: the per-block counts that
+    tensors with at least one hit: the per-unit counts that
     ``block_offsets`` scans between the two passes."""
     passed = _count_pass(*args)
     if passed is None:
@@ -958,27 +1471,31 @@ def dp_pipeline_counts(*args) -> torch.Tensor:
 
 
 def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
-                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple):
+                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
+                variant: DpVariant = FAST):
     """Hit list -> match rows of one slice: (rows int32 [K, 5] on the hits'
     device, number of candidates). ``pos`` [H] int64 ascending and ``words``
     [H, 2W] int64 as ``packed_hits`` returns them; ``statics`` the (BITS,
-    P2F, DEPTHS) of :func:`expand_candidates`; rows as :func:`emit_rows`
-    orders them. CPU tensors run :func:`dp_pipeline_torch`; CUDA tensors
-    launch ``dp_pipeline_kernel`` twice (a count pass and a write pass, with
-    ``block_offsets_kernel`` between them) and read the two totals back."""
+    P2F, DEPTHS) of :func:`expand_candidates`; ``variant`` the DP the lane
+    runs; rows as :func:`emit_rows` orders them. CPU tensors run
+    :func:`dp_pipeline_torch`; CUDA tensors launch ``dp_pipeline_kernel``
+    (``dp_pipeline_typed_kernel`` for a typed variant) twice, a count pass
+    and a write pass with ``block_offsets_kernel`` between them, and read
+    the two totals back."""
     from . import packed_bitap as pb
 
-    passed = _count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics)
+    passed = _count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics,
+                         variant)
     if passed is None:
         if ids.device.type == "cpu":
             return dp_pipeline_torch(pos, words, window, ids, limit, T, pens, thr, E,
-                                     deadend, statics)
+                                     deadend, statics, variant)
         return torch.zeros((0, 5), dtype=torch.int32, device=ids.device), 0
-    launch, counts, nch, nblk = passed
+    launch, counts, nch, nunits = passed
     offsets = pb.block_offsets(counts)
     # The rows' total ends the last channel's counts, the grand total (rows
     # and candidates) the array: one strided read of two values.
-    n_rows, n_all = offsets[nch * nblk::nblk].tolist()
+    n_rows, n_all = offsets[nch * nunits::nunits].tolist()
     rows = torch.empty((n_rows, 5), dtype=torch.int32, device=ids.device)
     if n_rows:
         launch(1, offsets, rows)
@@ -1014,8 +1531,9 @@ def dp_plan(engine, threshold, n: int, typed=None, maps=None, forbid=None
     any device work, or None where it declines (the caller falls back):
     corpus past ``RESIDENT_MAX``, no packed tables or DP fields, or a
     threshold budget the scan cannot serve. ``typed`` / ``maps`` / ``forbid``
-    pick the budgets of the lanes that are not ported yet, so the dispatcher
-    can tell where the JAX package would serve an engine on its device."""
+    pick the lane's budgets: the mapped lane scans with the uniform budget
+    ``maps.k`` and no Damerau rows, and the DP's ``E`` is the forbid spec's,
+    the typed spec's, or ``engine.max_edits_fast``."""
     from .packed_bitap import RESIDENT_MAX, packed_fuzzy_of
 
     thr = np.float32(threshold)
@@ -1094,7 +1612,8 @@ class _Part(NamedTuple):
 class DpRun(NamedTuple):
     """Everything the lane needs on the device for one search: scan tables,
     DP tables with this threshold's ceilings, penalties, the candidate
-    expansion's static tables, the dead-end flag, and the corpus slices."""
+    expansion's static tables, the dead-end flag, the DP variant, and the
+    corpus slices."""
 
     plan: _Plan
     T_scan: object
@@ -1102,12 +1621,16 @@ class DpRun(NamedTuple):
     pens: DpPenalties
     statics: tuple
     deadend: bool
+    variant: DpVariant
     halo: int
     parts: List[_Part]
 
 
-def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int) -> DpRun:
-    """The device tables and resident corpus slices for ``plan``.
+def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int,
+              typed: Optional[TypedSpec] = None, maps: Optional[MappedSpec] = None,
+              forbid: Optional[tuple] = None) -> DpRun:
+    """The device tables and resident corpus slices for ``plan``; ``typed``
+    / ``maps`` / ``forbid`` as :func:`dp_plan` took them.
 
     Corpora of at least 1.5 ``SLICE_SYMS`` (with a dense alphabet of at most
     256 classes) are cut into overlapping slices: slice i owns match starts
@@ -1139,6 +1662,22 @@ def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int) -> DpRun:
     pens = engine.penalties
     dp_pens = DpPenalties(plan.max_pen, pens.substitution, pens.insertion,
                           pens.deletion, pens.swap, engine.min_symbol_similarity)
+    variant = DpVariant(
+        forbid=None if forbid is None else tuple(bool(x) for x in forbid[1:]),
+        maps=None if maps is None else _dev_cache(
+            engine, ("maps", dkey),
+            lambda: map_tables_from_spec(maps.maps, vf.num_fields, vf.max_depth, device)),
+        typed=None if typed is None else _dev_cache(
+            engine, ("typed", dkey),
+            lambda: typed_tables_from_numpy(
+                typed.vecs, typed.sub_src, typed.ins_src, typed.del_src, typed.swap_src,
+                typed.cnts, typed.root_caps, typed.node_caps, typed.limcls, typed.adm,
+                device)),
+    )
+    # The last-edit dead-end filter is the FAST path's; typed and forbid
+    # configurations run the reference's general path, which has none
+    # (src/search.rs:204-393), and mapped engines have no multi-byte edges.
+    deadend = bool(dense.has_multibyte_edges) and typed is None and forbid is None
 
     tok = _space_token(engine)
     hay_bytes = view.hay_bytes() if view.ascii else None
@@ -1172,8 +1711,8 @@ def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int) -> DpRun:
         ids_de, n_de = device_corpus.resident(haystack, ("dense", tok), de_transcode, device)
         assert n_pf == n_de == n
         parts = [_Part(ids_pf, ids_de, n, 0, n, 0)]
-    return DpRun(plan, T_scan, T, dp_pens, _statics(engine, pk, vf),
-                 bool(dense.has_multibyte_edges), halo, parts)
+    return DpRun(plan, T_scan, T, dp_pens, _statics(engine, pk, vf), deadend, variant,
+                 halo, parts)
 
 
 def dp_candidates(run: DpRun, part: _Part):
@@ -1194,10 +1733,16 @@ def dp_candidates(run: DpRun, part: _Part):
     return count, cand_field, cand_start
 
 
-def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int) -> Optional[List]:
-    """DP-verified fuzzy search for FAST-path engines (uniform edit budget
-    E = ``engine.max_edits_fast``); oracle-identical matches. None where the
+def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int,
+                    typed: Optional[TypedSpec] = None, maps: Optional[MappedSpec] = None,
+                    forbid: Optional[tuple] = None) -> Optional[List]:
+    """DP-verified fuzzy search; oracle-identical matches. None where the
     lane declines — the caller falls back, as the JAX package's callers do.
+    Without a spec it serves FAST-path engines (uniform edit budget E =
+    ``engine.max_edits_fast``); ``forbid`` (:func:`forbid_spec_of`) switches
+    edit types off, ``maps`` (:class:`MappedSpec`) adds mapping arrivals,
+    ``typed`` (:class:`TypedSpec`) runs the type-vector DP — at most one of
+    the three.
 
     The JAX package declines up front on a guess of the hit capacity; here
     the scan's real hit count decides (:func:`pipeline_max_hits`), so
@@ -1211,24 +1756,24 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int) -> Optional[
     from .emit import decode_matches
     from .packed_bitap import packed_hits
 
-    plan = dp_plan(engine, threshold, n)
+    plan = dp_plan(engine, threshold, n, typed, maps, forbid)
     if plan is None:
         return None
     if np.float32(0.0) > plan.max_pen:
         return []
     thr = np.float32(threshold)
     E = plan.E
-    run = dp_inputs(engine, haystack, plan, view, n)
+    run = dp_inputs(engine, haystack, plan, view, n, typed, maps, forbid)
     row_parts = []
     sum_h = sum_c = 0
-    max_hits = pipeline_max_hits(plan.n_combo, run.T.out_list.shape[1], E)
+    max_hits = pipeline_max_hits(plan.n_combo, run.T.out_list.shape[1], E, typed is not None)
     for part in run.parts:
         count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo, max_hits)
         if pos is None:
             return None  # unselective scan: decline, the caller falls back
         rows, n_cand = dp_pipeline(
             pos, words, DpWindow(part.lo, part.hi, part.local_n), part.ids_de,
-            part.local_n, run.T, run.pens, thr, E, run.deadend, run.statics)
+            part.local_n, run.T, run.pens, thr, E, run.deadend, run.statics, run.variant)
         rows = rows.cpu().numpy()
         rows[:, 0] += part.base  # slice-local starts -> global graphemes
         row_parts.append(rows)
@@ -1241,7 +1786,12 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int) -> Optional[
         np.ascontiguousarray(rows[:, 1]).view(np.float32), rows[:, 4], thr,
     )
     engine.last_stats = {
-        "backend": "device-fuzzy-dp",
+        "backend": (
+            "device-fuzzy-dp-typed" if typed is not None
+            else "device-fuzzy-dp-mapped" if maps is not None
+            else "device-fuzzy-dp-forbid" if forbid is not None
+            else "device-fuzzy-dp"
+        ),
         "hits": sum_h,
         "candidates": sum_c,
         "positions": int(n),
@@ -1250,3 +1800,64 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int) -> Optional[
         "slices": len(run.parts),
     }
     return results
+
+
+def lane_specs_of(engine) -> tuple:
+    """(typed, maps, forbid) as the device dispatchers hand them to
+    :func:`fuzzy_search_dp` for ``engine``; at most one is set. An engine
+    with mappings gets its :class:`MappedSpec`; a plain total-edits engine
+    (the FAST lane) gets none; any other gets its forbid spec where
+    :func:`forbid_spec_of` holds it, else its :class:`TypedSpec`. A spec the
+    engine does not have is None."""
+    if engine.mappings:
+        return None, mapped_spec_of(engine), None
+    if not engine.has_pattern_limits and 1 <= engine.max_edits_fast <= MAX_E:
+        return None, None, None
+    forbid = forbid_spec_of(engine)
+    if forbid is not None:
+        return None, None, forbid
+    return typed_spec_of(engine), None, None
+
+
+def fuzzy_search_typed_device(engine, haystack: str, threshold) -> List:
+    """Device search for per-type / per-pattern limit configurations: the
+    forbid lane where :func:`forbid_spec_of` holds the engine, else the
+    typed lane. Falls back to the host oracle where the lane declines (a
+    threshold budget past the scan's, an unselective scan)."""
+    from .. import oracle
+    from ..utils.graphemes import view_of
+
+    typed, _maps, forbid = lane_specs_of(engine)
+    if typed is None and forbid is None:
+        raise ValueError("the engine has no typed spec (DeviceEngine gates on typed_spec_of)")
+    view = view_of(haystack, engine.case_insensitive)
+    n = len(view)
+    if n == 0:
+        return []
+    res = fuzzy_search_dp(engine, haystack, threshold, view, n, typed=typed, forbid=forbid)
+    if res is None:
+        return oracle.search_raw(engine, haystack, threshold)
+    return res
+
+
+def fuzzy_search_mapped_device(engine, haystack: str, threshold) -> List:
+    """Device search for mapped engines. Falls back to the host oracle where
+    the lane declines, and for a haystack with a grapheme of more than one
+    code point: the class model's identity guarantee needs one code point
+    per grapheme (grapheme count == code-point count tests it exactly)."""
+    from .. import oracle
+    from ..utils.graphemes import view_of
+
+    spec = lane_specs_of(engine)[1]
+    if spec is None:
+        raise ValueError("the engine has no mapped spec (DeviceEngine gates on mapped_spec_of)")
+    view = view_of(haystack, engine.case_insensitive)
+    n = len(view)
+    if n == 0:
+        return []
+    if not haystack.isascii() and n != len(haystack):
+        return oracle.search_raw(engine, haystack, threshold)
+    res = fuzzy_search_dp(engine, haystack, threshold, view, n, maps=spec)
+    if res is None:
+        return oracle.search_raw(engine, haystack, threshold)
+    return res

@@ -1,0 +1,676 @@
+"""The forbid, mapped and typed DP lanes, port against the JAX package on the
+CPU.
+
+(a) ``banded_dp_torch`` with forbid flags and with mapping arrivals equals
+    the JAX ``_banded_dp`` (``FORBID`` / ``MAPS``), and
+    ``banded_dp_typed_torch`` the JAX ``_banded_dp_typed``, bit for bit (f32
+    bit patterns of every channel, packed edit counts) on the same
+    candidates; the port's tables go through ``map_tables_from_spec`` and
+    ``typed_tables_from_numpy`` from the numpy arrays the JAX side reads.
+(b) ``emit_rows_typed`` equals the JAX ``_emit_rows_typed``: the same rows in
+    the same order.
+(c) Whole searches (``backend = "device"`` and ``"auto"``) equal the JAX
+    package's device search and the oracle: pattern, start, end, f32
+    similarity bits and the four edit counts; ``last_stats["backend"]``
+    carries the JAX package's lane names.
+(d) The fallbacks: a haystack with a combining mark, a mapped engine with
+    multi-byte edges, a typed budget past the channel bound.
+(e) A similarity that ties the threshold on a typed engine.
+
+Both sides get the same inputs, made from a seed. The tolerance is exact
+equality everywhere: the DP replays the JAX package's f32 operations in the
+same order, and everything else is integer."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
+from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+from fuzzy_aho_corasick_tpu import Pattern as JaxPattern
+from fuzzy_aho_corasick_tpu.ops import verify_dp as jvd
+from fuzzy_aho_corasick_tpu.utils.graphemes import view_of
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern
+from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
+from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as tvd
+from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+
+
+def _variants(variants, reps):
+    """The reference tests' corpus: filler with one variant per repetition."""
+    parts = []
+    for i in range(reps):
+        parts += ["lorem ipsum dolor " * (1 + i % 3), variants[i % len(variants)], " "]
+    return "".join(parts)
+
+
+def _words(words, count, seed):
+    rng = np.random.default_rng(seed)
+    return " ".join(words[i] for i in rng.integers(len(words), size=count).tolist())
+
+
+GERMAN_TEXT = ["der", "die", "und", "mit", "straße", "strasse", "weiß", "wiess", "fußball",
+               "æther", "aether", "wei", "ss", "ß", "strase", "grosze", "größe"]
+
+#: name -> (engine configuration, patterns, haystack, thresholds, lane).
+#: ``patterns`` may be a function of (Limits, Pattern) where a pattern
+#: carries its own limits.
+CONFIGS = {
+    # tests/test_typed_limits.py
+    "typed-substitutions": (
+        lambda b, L: b.fuzzy(L.new().substitutions(1)), ["needle", "pattern"],
+        _variants(["needle", "needlz", "nedle", "neeedle", "enedle", "pattern", "pXttern"], 90),
+        (0.7,), "typed"),
+    "typed-ins-del": (
+        lambda b, L: b.fuzzy(L.new().insertions(1).deletions(1)), ["needle", "haystack"],
+        _variants(["needle", "neeedle", "nedle", "needlz", "nedlee", "haystack", "hystack"], 90),
+        (0.55,), "typed"),
+    "typed-per-pattern": (
+        lambda b, L: b.fuzzy(L.new().edits(1)),
+        lambda L, P: [P.of(("strict", 1.0, 0)), "needle"],
+        _variants(["strict", "strlct", "needle", "nedle"], 80), (0.55,), "typed"),
+    "typed-counts": (
+        lambda b, L: b.fuzzy(L.new().insertions(2).substitutions(1)), ["needle"],
+        _variants(["needle", "neeedle", "needlz", "neeedlz"], 60), (0.5,), "typed"),
+    "typed-total-sub-cap": (
+        lambda b, L: b.fuzzy(L.new().edits(2).substitutions(1)), ["nedle", "patrn"],
+        _variants(["nedle", "nexle", "nxdlx", "ndle", "neddle", "patrn", "ptarn", "paXrn"], 60),
+        (0.5,), "typed"),
+    "forbid-swaps": (
+        lambda b, L: b.fuzzy(L.new().edits(2).swaps(0)), ["needle"],
+        _variants(["needle", "enedle", "nedl", "needlz", "neXdlz"], 90), (0.5,), "forbid"),
+    "forbid-insertions": (
+        lambda b, L: b.fuzzy(L.new().edits(2).insertions(0)), ["pattern", "needle"],
+        _words(["patern", "pattern", "nedle", "neelde", "filler", "der", "neeedle", "pattXrn"],
+               300, 3), (0.6,), "forbid"),
+    "forbid-del-sub": (
+        lambda b, L: b.fuzzy(L.new().edits(2).deletions(0).substitutions(0)),
+        ["pattern", "needle"],
+        _words(["patern", "patttern", "nedle", "neelde", "filler", "neeedle", "pattXrn", "needle"],
+               300, 4), (0.6,), "forbid"),
+    # tests/test_mapped_device.py
+    "mapped-eszett": (
+        lambda b, L: b.fuzzy(L.new().edits(1)).mapping("ß", "ss").mapping("æ", "ae"),
+        ["strasse", "weiss", "fussball", "aether"], _words(GERMAN_TEXT, 400, 5),
+        (0.45, 0.75), "mapped"),
+    "mapped-rn-m": (
+        lambda b, L: b.fuzzy(L.new().edits(1)).mapping("rn", "m"), ["modern"],
+        ("pad " * 50) + "modem and modern and moderm " * 6, (0.5, 0.8), "mapped"),
+    "mapped-scored": (
+        lambda b, L: b.fuzzy(L.new().edits(1)).mapping_scored("ou", "o", 0.6), ["color"],
+        ("pad " * 50) + "colour and color and coluor " * 6, (0.5,), "mapped"),
+    "mapped-edits2": (
+        lambda b, L: b.fuzzy(L.new().edits(2)).mapping("ß", "ss"), ["strasse", "grosse"],
+        ("pad " * 50) + "straße grosze straze größe strasse " * 4, (0.4, 0.8), "mapped"),
+}
+BACKEND = {"typed": "device-fuzzy-dp-typed", "forbid": "device-fuzzy-dp-forbid",
+           "mapped": "device-fuzzy-dp-mapped"}
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(name):
+    """The configuration built by both packages (case-insensitive), cached:
+    the JAX side compiles its DP once per engine."""
+    configure, patterns, _hay, _thrs, _lane = CONFIGS[name]
+    jp = patterns(JaxLimits, JaxPattern) if callable(patterns) else patterns
+    tp = patterns(FuzzyLimits, Pattern) if callable(patterns) else patterns
+    jax_e = configure(JaxBuilder.new(), JaxLimits).case_insensitive(True).build(jp)
+    port_e = (configure(FuzzyAhoCorasickBuilder.new(), FuzzyLimits).case_insensitive(True)
+              .device("cpu").build(tp))
+    jax_e.backend = port_e.backend = "device"
+    return jax_e, port_e
+
+
+def _tuples(matches):
+    return [
+        (m.pattern_index, m.start, m.end, np.float32(m.similarity).view(np.uint32).item(),
+         m.insertions, m.deletions, m.substitutions, m.swaps)
+        for m in matches
+    ]
+
+
+def _specs(mod, engine, lane):
+    """(typed, maps, forbid) of ``engine`` from the package ``mod``."""
+    if lane == "mapped":
+        return None, mod.mapped_spec_of(engine), None
+    if lane == "forbid":
+        return None, None, mod.forbid_spec_of(engine)
+    return mod.typed_spec_of(engine), None, None
+
+
+def _candidates(name, thr):
+    """The port's lane inputs for the configuration's haystack and its
+    candidates, with extra ones at position 0, at and near the limit, and
+    dead slots; the zero-padded ids both sides read."""
+    _c, _p, hay, _t, lane = CONFIGS[name]
+    jax_e, port_e = _pair(name)
+    view = view_of(hay, True)
+    n = len(view)
+    specs = _specs(tvd, port_e, lane)
+    plan = tvd.dp_plan(port_e, thr, n, *specs)
+    run = tvd.dp_inputs(port_e, hay, plan, view, n, *specs)
+    part = run.parts[0]
+    _count, cf, cs = tvd.dp_candidates(run, part)
+    assert cf.numel() > 20
+    F = plan.vf.num_fields
+    rng = np.random.default_rng(7)
+    extra_f = np.concatenate([np.arange(F), np.arange(F), rng.integers(F, size=32), [-1, -1]])
+    extra_s = np.concatenate([np.zeros(F), np.full(F, n), rng.integers(n - 20, n + 1, size=32),
+                              [0, n]])
+    cand_field = torch.cat([cf, torch.from_numpy(extra_f.astype(np.int32))])
+    cand_start = torch.cat([cs, torch.from_numpy(extra_s.astype(np.int32))])
+    ids = np.zeros(-(-(n + 128) // 32) * 32, np.uint8)
+    ids[:n] = part.ids_de.numpy()[:n]
+    return jax_e, port_e, plan, run, n, cand_field, cand_start, ids
+
+
+# ---------------------------------------------------------------------------
+# (a) the DP variants
+# ---------------------------------------------------------------------------
+
+@functools.partial(jax.jit, static_argnames=("E", "Lmax", "C", "MAPS", "FORBID"))
+def _jax_dp(cand_field, cand_start, path_cls, path_node, depth, ids_pad, limit, sim, node_ceil,
+            max_pen, p_sub, p_ins, p_del, p_swap, floor, E, Lmax, C, MAPS, FORBID):
+    return jvd._banded_dp(
+        cand_field, cand_start, path_cls, path_node, depth, ids_pad, limit, sim, node_ceil,
+        max_pen, p_sub, p_ins, p_del, p_swap, floor, E, Lmax, C, MAPS=MAPS, FORBID=FORBID)
+
+
+@pytest.mark.parametrize("name", [n for n, c in CONFIGS.items() if c[4] != "typed"])
+def test_banded_dp_forbid_and_maps_bit_equal_to_jax(name):
+    thr = CONFIGS[name][3][0]
+    lane = CONFIGS[name][4]
+    jax_e, port_e, plan, run, n, cand_field, cand_start, ids = _candidates(name, thr)
+    _typed, jmaps, jforbid = _specs(jvd, jax_e, lane)
+    vf, dense = plan.vf, port_e.dense
+    if lane == "mapped":
+        # The port's table comes from the JAX package's spec, through the
+        # numpy -> torch function.
+        maps = tvd.map_tables_from_spec(jmaps.maps, vf.num_fields, vf.max_depth)
+        assert maps.entries == tvd.mapped_spec_of(port_e).maps and len(maps.entries) > 0
+        forbid = None
+    else:
+        maps, forbid = None, tuple(jforbid[1:])
+        assert forbid == run.variant.forbid and any(forbid)
+    got_pen, got_cnt = tvd.banded_dp_torch(cand_field, cand_start, torch.from_numpy(ids), n,
+                                           run.T, run.pens, plan.E, False, forbid, maps)
+    # Without mappings a large unrolled body takes the JAX function's
+    # row-loop form (path tables padded past its unroll bound of 24 rows),
+    # which compiles in a fraction of the time; mapping arrivals need the
+    # unrolled form.
+    Lj = vf.max_depth if lane == "mapped" else 25
+    pad = lambda a: np.pad(a, ((0, 0), (0, Lj - a.shape[1]))).reshape(-1)
+    want_pen, want_cnt = _jax_dp(
+        jnp.asarray(cand_field.numpy()), jnp.asarray(cand_start.numpy()),
+        pad(vf.path_cls), pad(vf.path_node), vf.depth, jnp.asarray(ids), np.int32(n),
+        dense.sim.reshape(-1), plan.ceil.astype(np.float32),
+        *(np.float32(x) for x in run.pens), E=plan.E, Lmax=Lj, C=dense.num_classes,
+        MAPS=None if jmaps is None else jmaps.maps, FORBID=forbid)
+    want_pen, want_cnt = np.asarray(want_pen), np.asarray(want_cnt)
+    assert got_pen.shape == want_pen.shape
+    assert np.array_equal(got_pen.numpy().view(np.uint32), want_pen.view(np.uint32))
+    assert np.array_equal(got_cnt.numpy(), want_cnt)
+    live = np.isfinite(want_pen)
+    assert live.sum() > 10
+    cnt = want_cnt[live]
+    if lane == "mapped":
+        assert ((cnt >> 16) & 0xFF).max() >= 1  # a mapping or substitution arrived
+    else:
+        for shift, off in zip((0, 8, 16, 24), forbid):
+            assert not off or ((cnt >> shift) & 0xFF).max() == 0
+    # The wrapper takes the plain version for CPU tensors and counts nothing.
+    before = dict(tpb.LAUNCHES)
+    pen2, cnt2 = tvd.banded_dp(cand_field, cand_start, torch.from_numpy(ids), n, run.T,
+                               run.pens, plan.E, False, forbid, maps)
+    assert tpb.LAUNCHES == before
+    assert torch.equal(pen2.view(torch.int32), got_pen.view(torch.int32))
+    assert torch.equal(cnt2, got_cnt)
+
+
+@functools.partial(jax.jit, static_argnames=("E", "Lmax", "C", "TYPED"))
+def _jax_dp_typed(cand_field, cand_start, path_cls, path_node, depth, node_caps, ids_pad, limit,
+                  sim, node_ceil, max_pen, p_sub, p_ins, p_del, p_swap, floor, E, Lmax, C, TYPED):
+    return jvd._banded_dp_typed(
+        cand_field, cand_start, path_cls, path_node, depth, node_caps, ids_pad, limit, sim,
+        node_ceil, max_pen, p_sub, p_ins, p_del, p_swap, floor, E, Lmax, C, TYPED=TYPED)
+
+
+def _typed_tables(spec):
+    """The port's typed tables from a (JAX package) spec's numpy arrays."""
+    return tvd.typed_tables_from_numpy(
+        spec.vecs, spec.sub_src, spec.ins_src, spec.del_src, spec.swap_src, spec.cnts,
+        spec.root_caps, spec.node_caps, spec.limcls, spec.adm)
+
+
+@functools.lru_cache(maxsize=None)
+def _typed_dp(name):
+    """Both packages' typed DP on the configuration's candidates."""
+    thr = CONFIGS[name][3][0]
+    jax_e, port_e, plan, run, n, cand_field, cand_start, ids = _candidates(name, thr)
+    spec = jvd.typed_spec_of(jax_e)
+    TT = _typed_tables(spec)
+    vf, dense = plan.vf, port_e.dense
+    got = tvd.banded_dp_typed_torch(cand_field, cand_start, torch.from_numpy(ids), n, run.T,
+                                    run.pens, plan.E, TT)
+    want = np.asarray(_jax_dp_typed(
+        jnp.asarray(cand_field.numpy()), jnp.asarray(cand_start.numpy()),
+        vf.path_cls.reshape(-1), vf.path_node.reshape(-1), vf.depth,
+        np.ascontiguousarray(spec.node_caps.reshape(-1)), jnp.asarray(ids), np.int32(n),
+        dense.sim.reshape(-1), plan.ceil.astype(np.float32),
+        *(np.float32(x) for x in run.pens), E=plan.E, Lmax=vf.max_depth, C=dense.num_classes,
+        TYPED=(spec.vecs, spec.sub_src, spec.ins_src, spec.del_src, spec.swap_src,
+               spec.root_caps)))
+    return spec, TT, plan, run, n, cand_field, cand_start, ids, got, want
+
+
+TYPED_DP = ["typed-substitutions", "typed-ins-del", "typed-per-pattern", "typed-counts"]
+
+
+@pytest.mark.parametrize("name", TYPED_DP)
+def test_banded_dp_typed_torch_bit_equal_to_jax(name):
+    spec, TT, plan, run, n, cand_field, cand_start, ids, got, want = _typed_dp(name)
+    assert plan.E == spec.E and TT.nch == len(spec.vecs)
+    assert got.shape == want.shape == ((2 * plan.E + 1) * TT.nch, cand_field.numel())
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    live = np.isfinite(want).reshape(2 * plan.E + 1, TT.nch, -1)
+    assert live[:, 0].any() and live[:, 1:].any()  # the zero vector and edit channels
+    before = dict(tpb.LAUNCHES)
+    again = tvd.banded_dp_typed(cand_field, cand_start, torch.from_numpy(ids), n, run.T,
+                                run.pens, plan.E, TT)
+    assert tpb.LAUNCHES == before
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# (b) the typed emission
+# ---------------------------------------------------------------------------
+
+@functools.partial(jax.jit, static_argnames=("E", "MO", "CAND", "KG", "TYPED_EMIT"))
+def _jax_emit_typed(pen, cand_field, cand_start, depth, node, out_list, pat_len, pat_weight,
+                    limcls, limit, thr, E, MO, CAND, KG, TYPED_EMIT):
+    return jvd._emit_rows_typed(pen, cand_field, cand_start, depth, node, out_list, pat_len,
+                                pat_weight, limcls, limit, thr, E, MO, CAND, KG,
+                                TYPED_EMIT=TYPED_EMIT)
+
+
+@pytest.mark.parametrize("name", TYPED_DP)
+def test_emit_rows_typed_equal_to_jax(name):
+    spec, TT, plan, run, n, cand_field, cand_start, _ids, got_pen, want_pen = _typed_dp(name)
+    thr = np.float32(CONFIGS[name][3][0])
+    port_e = _pair(name)[1]
+    dense, vf = port_e.dense, plan.vf
+    rows = tvd.emit_rows_typed(got_pen, cand_field, cand_start, run.T, TT, n, thr, plan.E).numpy()
+    M = cand_field.numel()
+    KG = 1 << 14
+    total, packed = _jax_emit_typed(
+        jnp.asarray(want_pen), jnp.asarray(cand_field.numpy()), jnp.asarray(cand_start.numpy()),
+        vf.depth, vf.node, dense.out_list, dense.pat_len, dense.pat_weight, spec.limcls,
+        np.int32(n), thr, E=plan.E, MO=dense.max_out, CAND=M, KG=KG,
+        TYPED_EMIT=(spec.vecs, spec.cnts, spec.adm))
+    total = int(total)
+    assert 10 < total < KG and rows.shape == (total, 5)
+    packed = np.asarray(packed)[:total].astype(np.int64)
+    col2 = packed[:, 2]
+    c12 = col2 & 0xFFF  # the JAX rows pack span, pattern and 3-bit counts in one word
+    counts = (c12 & 7) | ((c12 >> 3) & 7) << 8 | ((c12 >> 6) & 7) << 16 | ((c12 >> 9) & 7) << 24
+    want = np.stack([packed[:, 0], packed[:, 1], col2 >> 24, (col2 >> 12) & 0xFFF, counts], axis=1)
+    assert np.array_equal(rows.astype(np.int64), want)
+    if name == "typed-per-pattern":
+        # The exact-only pattern emits no row with an edit.
+        strict = rows[rows[:, 3] == 0]
+        assert len(strict) > 0 and not strict[:, 4].any()
+        assert rows[rows[:, 3] == 1][:, 4].any()
+
+
+# ---------------------------------------------------------------------------
+# The numpy -> torch table functions and the wrappers' checks
+# ---------------------------------------------------------------------------
+
+def test_map_tables_from_spec():
+    _jax_e, port_e = _pair("mapped-rn-m")
+    spec = tvd.mapped_spec_of(port_e)
+    vf = tvd.verify_fields_of(port_e)
+    mt = tvd.map_tables_from_spec(spec.maps, vf.num_fields, vf.max_depth)
+    assert mt.ph == spec.ph and mt.table.shape == (len(spec.maps), tvd.MAP_COLS)
+    shapes = set()
+    for row, fields, (i_to, pb, drift, hay_cls, pen, flds) in zip(
+            mt.table.tolist(), mt.fields.tolist(), spec.maps):
+        ha = len(hay_cls)
+        assert row[:4] == [i_to, pb, drift, ha]
+        assert row[4:4 + ha] == list(hay_cls[::-1]) and row[4 + ha:8] == [-2] * (4 - ha)
+        assert np.int32(row[8]).view(np.float32) == np.float32(pen)
+        assert [f for f in range(vf.num_fields) if fields[f >> 5] >> (f & 31) & 1] == list(flds)
+        shapes.add((pb, ha))
+    assert shapes == {(2, 1), (1, 2)}  # rn -> m and m -> rn
+    ptr = mt.row_ptr.tolist()
+    for i in range(vf.max_depth + 1):
+        assert [e[0] for e in spec.maps[ptr[i]:ptr[i + 1]]] == [i] * (ptr[i + 1] - ptr[i])
+    assert ptr[-1] == len(spec.maps)
+    with pytest.raises(ValueError, match="outside the DP's model"):
+        tvd.map_tables_from_spec(((1, 4, 0, (1, 2, 3, 4), 0.0, (0,)),), 1, 8)
+    with pytest.raises(ValueError, match="outside the DP's model"):
+        tvd.map_tables_from_spec(spec.maps[::-1], vf.num_fields, vf.max_depth)
+    with pytest.raises(ValueError, match="names field"):
+        tvd.map_tables_from_spec(((1, 1, 0, (1,), 0.0, (3,)),), 2, 8)
+
+
+def test_typed_tables_and_wrappers_refuse_bad_inputs():
+    spec, TT, plan, run, n, cf, cs, ids, _got, _want = _typed_dp("typed-per-pattern")
+    assert TT.graph.shape == (5, tvd.TYPED_COLS) and TT.adm.shape == (spec.n_limcls, 5)
+    assert TT.graph[:, 4].tolist() == [sum(v) for v in spec.vecs]
+    assert TT.root_caps.tolist() == list(spec.root_caps)
+    with pytest.raises(ValueError, match="typed channels"):
+        tvd.typed_tables_from_numpy(
+            spec.vecs[1:], spec.sub_src[1:], spec.ins_src[1:], spec.del_src[1:],
+            spec.swap_src[1:], spec.cnts[1:], spec.root_caps, spec.node_caps, spec.limcls,
+            [a[1:] for a in spec.adm])
+    ids_t = torch.from_numpy(ids)
+    bad = tvd.TypedTables(TT.graph, TT.node_caps[:-1], TT.root_caps, TT.limcls, TT.adm)
+    with pytest.raises(ValueError, match="node caps"):
+        tvd.banded_dp_typed(cf, cs, ids_t, n, run.T, run.pens, plan.E, bad)
+    bad = tvd.TypedTables(TT.graph.long(), TT.node_caps, TT.root_caps, TT.limcls, TT.adm)
+    with pytest.raises(ValueError, match="int32"):
+        tvd.banded_dp_typed(cf, cs, ids_t, n, run.T, run.pens, plan.E, bad)
+    _count, pos, words = tpb.packed_hits(run.parts[0].ids_pf, run.T_scan, run.halo)
+    window = tvd.DpWindow(0, n, n)
+    args = (pos, words, window, run.parts[0].ids_de, n, run.T, run.pens, 0.55, plan.E)
+    with pytest.raises(ValueError, match="typed DP takes no"):
+        tvd.dp_pipeline(*args, True, run.statics, run.variant)
+    with pytest.raises(ValueError, match="forbid is"):
+        tvd.dp_pipeline(*args, False, run.statics, tvd.DpVariant(forbid=(True, False)))
+    _j, mapped_e = _pair("mapped-eszett")  # deeper fields than this engine's
+    vf = tvd.verify_fields_of(mapped_e)
+    other = tvd.map_tables_from_spec(tvd.mapped_spec_of(mapped_e).maps, vf.num_fields,
+                                     vf.max_depth)
+    with pytest.raises(ValueError, match="another Lmax"):
+        tvd.banded_dp(cf, cs, ids_t, n, run.T, run.pens, plan.E, False, None, other)
+    with pytest.raises(ValueError, match="no dead-end filter"):
+        tvd.banded_dp(cf, cs, ids_t, n, run.T, run.pens, plan.E, True, None, other)
+
+
+# ---------------------------------------------------------------------------
+# (c) whole searches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_search_equal_to_jax_device_and_oracle(name):
+    _c, _p, hay, thrs, lane = CONFIGS[name]
+    jax_e, port_e = _pair(name)
+    dev = port_e._device_engine()
+    assert (dev._mapped_ok, dev._typed_ok) == ((True, False) if lane == "mapped" else (False, True))
+    for thr in thrs:
+        got = _tuples(port_e.search_raw(hay, thr))
+        stats = port_e.last_stats
+        assert stats["backend"] == BACKEND[lane]
+        want = _tuples(jax_e.search_raw(hay, thr))
+        assert jax_e.last_stats["backend"] == BACKEND[lane]
+        assert sorted(got) == sorted(want)
+        jax_e.backend = port_e.backend = "oracle"
+        ora = sorted(_tuples(jax_e.search_raw(hay, thr)))
+        assert sorted(got) == ora == sorted(_tuples(port_e.search_raw(hay, thr)))
+        jax_e.backend = port_e.backend = "device"
+        assert len(got) >= 4
+    assert stats["slices"] == 1 and stats["candidates"] >= stats["hits"] > 0
+    raw = hay.encode()  # match offsets are bytes
+    texts = {raw[s:e].decode() for _p, s, e, *_ in got}
+    if name == "typed-substitutions":
+        assert {"needlz", "pXttern"} <= texts and not {"nedle", "neeedle"} & texts
+    if name == "typed-per-pattern":
+        assert {"strict", "nedle"} <= texts and "strlct" not in texts
+    if name == "forbid-swaps":
+        assert "nedl" in texts and all(t[7] == 0 for t in got)
+    if name == "mapped-eszett":
+        exact = {raw[s:e].decode() for _p, s, e, sim, *_ in got
+                 if sim == np.float32(1).view(np.uint32)}
+        assert {"straße", "strasse", "weiß", "fußball", "æther"} <= exact
+    if name == "mapped-rn-m":  # the mapping counts as one substitution
+        assert any(hay[t[1]:t[2]] == "modem" and t[4:] == (0, 0, 1, 0) for t in got)
+
+
+def test_auto_backend_serves_the_lanes(monkeypatch):
+    for name in ("typed-ins-del", "forbid-swaps", "mapped-eszett"):
+        _c, _p, hay, thrs, lane = CONFIGS[name]
+        _jax_e, port_e = _pair(name)
+        want = _tuples(port_e.search_raw(hay, thrs[0]))
+        monkeypatch.setattr(type(port_e), "AUTO_DEVICE_MIN", 64)
+        port_e.backend = "auto"
+        try:
+            assert _tuples(port_e.search_raw(hay, thrs[0])) == want
+            assert port_e.last_stats["backend"] == BACKEND[lane]
+        finally:
+            port_e.backend = "device"
+
+
+def test_sliced_forbid_equals_unsliced(monkeypatch):
+    _jax_e, port_e = _pair("forbid-swaps")
+    hay = CONFIGS["forbid-swaps"][2]
+    whole = _tuples(port_e.search_raw(hay, 0.5))
+    monkeypatch.setattr(tvd, "SLICE_SYMS", 900)
+    device_corpus.clear()
+    sliced = _tuples(port_e.search_raw(hay, 0.5))
+    assert port_e.last_stats["slices"] >= 4
+    assert port_e.last_stats["backend"] == "device-fuzzy-dp-forbid"
+    assert sliced == whole and len(whole) > 50
+
+
+def _draw_limits(rng):
+    """(total, ((setter, cap), ...)): a total budget of 1-2 edits with each
+    per-type cap set one time in three."""
+    total = 1 + int(rng.integers(2))
+    caps = tuple((setter, int(rng.integers(total + 1)))
+                 for setter in ("insertions", "deletions", "substitutions", "swaps")
+                 if rng.integers(3) == 0)
+    return total, caps
+
+
+def _limits(L, drawn):
+    lim = L.new().edits(drawn[0])
+    for setter, cap in drawn[1]:
+        lim = getattr(lim, setter)(cap)
+    return lim
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_typed_lane_random_configs(seed):
+    """Random per-type caps and per-pattern limits (a reduced
+    tests/test_fuzz_lanes.py::test_typed_lane_random_configs)."""
+    vocab = ["hello", "world", "lorem", "cell", "holder"]
+    rng = np.random.default_rng(seed)
+    for _draw in range(60):
+        pats = sorted({vocab[int(i)] for i in rng.integers(len(vocab), size=3)})
+        own = [_draw_limits(rng) if rng.integers(3) == 0 else None for _ in pats]
+        glob = _draw_limits(rng)
+
+        def build(B, L, P):
+            specs = [p if lim is None else P.of(p).fuzzy(_limits(L, lim))
+                     for p, lim in zip(pats, own)]
+            return B.new().fuzzy(_limits(L, glob)).build(specs)
+
+        port_e = build(FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern).to("cpu")
+        # Typed or forbid engines only, and no body the JAX side compiles
+        # for minutes.
+        if port_e._device_engine()._typed_ok and len(tvd.typed_spec_of(port_e).vecs) <= 12:
+            break
+    else:
+        pytest.fail("no typed configuration drawn")
+    jax_e = build(JaxBuilder, JaxLimits, JaxPattern)
+    words = vocab + ["helo", "wrld", "lorme", "cel", "hodler", "a", "xx", "holdder"]
+    hay = _words(words, 160, seed)
+    thr = float(rng.choice([0.55, 0.65, 0.75]))
+    jax_e.backend = port_e.backend = "device"
+    got = sorted(_tuples(port_e.search_raw(hay, thr)))
+    lane = port_e.last_stats["backend"]
+    assert lane in ("device-fuzzy-dp-typed", "device-fuzzy-dp-forbid")
+    assert got == sorted(_tuples(jax_e.search_raw(hay, thr)))
+    assert jax_e.last_stats["backend"] == lane
+    port_e.backend = "oracle"
+    assert got == sorted(_tuples(port_e.search_raw(hay, thr))) and len(got) > 0
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+def test_mapped_lane_random_configs(seed):
+    """Random mapping tables, multi-char and scored (a reduced
+    tests/test_fuzz_lanes.py::test_mapped_lane_random_configs)."""
+    pool = [("rn", "m", None), ("cl", "d", None), ("vv", "w", None), ("oo", "0", 0.8),
+            ("nn", "m", 0.7), ("ii", "u", None)]
+    vocab = ["modern", "world", "clean", "wood", "dinner", "suit"]
+    rng = np.random.default_rng(seed)
+    chosen = [pool[int(i)] for i in rng.choice(len(pool), size=3, replace=False)]
+    pats = sorted({vocab[int(i)] for i in rng.choice(len(vocab), size=3, replace=False)})
+
+    def build(B, L):
+        b = B.new().fuzzy(L.new().edits(1))
+        for a, c, score in chosen:
+            b = b.mapping(a, c) if score is None else b.mapping_scored(a, c, score)
+        return b.build(pats)
+
+    jax_e = build(JaxBuilder, JaxLimits)
+    port_e = build(FuzzyAhoCorasickBuilder, FuzzyLimits).to("cpu")
+    assert port_e._device_engine()._mapped_ok
+    hay = _words(vocab + ["modem", "wean", "dimer", "w00d", "vvorld", "dean", "suut", "wor1d"],
+                 200, seed)
+    thr = float(rng.choice([0.5, 0.6, 0.7]))
+    jax_e.backend = port_e.backend = "device"
+    got = sorted(_tuples(port_e.search_raw(hay, thr)))
+    assert port_e.last_stats["backend"] == "device-fuzzy-dp-mapped"
+    assert got == sorted(_tuples(jax_e.search_raw(hay, thr)))
+    port_e.backend = "oracle"
+    assert got == sorted(_tuples(port_e.search_raw(hay, thr))) and len(got) > 10
+
+
+# ---------------------------------------------------------------------------
+# (d) fallbacks, (e) ties
+# ---------------------------------------------------------------------------
+
+def test_combining_mark_haystack_falls_back_to_the_oracle():
+    build = lambda B, L: (B.new().fuzzy(L.new().edits(1)).case_insensitive(True)
+                          .mapping("é", "e").build(["cafe"]))
+    jax_e = build(JaxBuilder, JaxLimits)
+    port_e = build(FuzzyAhoCorasickBuilder, FuzzyLimits).to("cpu")
+    hay = ("pad " * 40) + "café and cafe"  # 'é' as e + combining acute
+    assert port_e._device_engine()._mapped_ok
+    jax_e.backend = port_e.backend = "device"
+    got = sorted(_tuples(port_e.search_raw(hay, 0.5)))
+    assert "device" not in port_e.last_stats["backend"]  # the oracle served it
+    assert got == sorted(_tuples(jax_e.search_raw(hay, 0.5))) and len(got) >= 2
+    # With every grapheme one code point the lane serves the same engine.
+    port_e.search_raw(("pad " * 40) + "café and cafe", 0.5)
+    assert port_e.last_stats["backend"] == "device-fuzzy-dp-mapped"
+    assert port_e.search_raw("", 0.5) == []
+
+
+def test_mapped_engine_with_multibyte_edges_declines():
+    build = lambda B, L: (B.new().fuzzy(L.new().edits(1)).case_insensitive(True)
+                          .mapping("æ", "ae").build(["encyclopædia"]))
+    jax_e = build(JaxBuilder, JaxLimits)
+    port_e = build(FuzzyAhoCorasickBuilder, FuzzyLimits).to("cpu")
+    assert jvd.mapped_spec_of(jax_e) is None and tvd.mapped_spec_of(port_e) is None
+    hay = "x" * 100
+    assert not port_e._device_engine().supports(hay)
+    assert not jax_e._device_engine().supports(hay)
+    port_e.backend = "auto"
+    got = port_e.search_raw(("x " * 40) + "encyclopaedia", 0.9)
+    assert len(got) == 1 and _tuples(got) == _tuples(jax_e.search_raw(("x " * 40) + "encyclopaedia", 0.9))
+
+
+def test_typed_budget_past_the_channel_bound_declines(monkeypatch):
+    build = lambda B, L: (B.new().fuzzy(L.new().insertions(2).deletions(2).substitutions(2)
+                                        .swaps(2)).case_insensitive(True).build(["pattern"]))
+    jax_e = build(JaxBuilder, JaxLimits)
+    port_e = build(FuzzyAhoCorasickBuilder, FuzzyLimits).to("cpu")
+    assert jvd.typed_spec_of(jax_e) is None and tvd.typed_spec_of(port_e) is None
+    assert not port_e._device_engine().supports("x" * 100)
+    got = _tuples(port_e.search_raw("the pattren and pttern here", 0.6))
+    assert len(got) >= 2 and sorted(got) == sorted(_tuples(
+        jax_e.search_raw("the pattren and pttern here", 0.6)))
+    # More hits than the expansion's work budget takes: the lane declines
+    # and the oracle serves the same matches.
+    _jax_t, typed_e = _pair("typed-ins-del")
+    hay = CONFIGS["typed-ins-del"][2][:600]
+    served = _tuples(typed_e.search_raw(hay, 0.55))
+    assert typed_e.last_stats["backend"] == "device-fuzzy-dp-typed"
+    monkeypatch.setattr(tvd, "MAX_EXPAND", 8)
+    view = view_of(hay, True)
+    assert tvd.fuzzy_search_dp(typed_e, hay, 0.55, view, len(view),
+                               typed=tvd.typed_spec_of(typed_e)) is None
+    declined = _tuples(typed_e.search_raw(hay, 0.55))
+    assert "device" not in typed_e.last_stats["backend"]
+    assert sorted(declined) == sorted(served) and len(served) > 0
+
+
+def test_to_drops_the_lane_tables():
+    for name, key in (("typed-per-pattern", "typed"), ("mapped-rn-m", "maps")):
+        _jax_e, port_e = _pair(name)
+        port_e.search_raw(CONFIGS[name][2], CONFIGS[name][3][0])
+        assert any(k[0] == key for k in port_e._dp_dev_consts)
+        port_e.to("cpu")
+        assert port_e._dp_dev_consts is None
+        assert len(port_e.search_raw(CONFIGS[name][2], CONFIGS[name][3][0])) > 0
+
+
+def test_similarity_tying_the_threshold_on_a_typed_engine():
+    jax_e, port_e = _pair("typed-per-pattern")
+    hay = "lorem nedle ipsum NEEDLE dolor needlx amet enedle strict strlct " * 30
+    sims = {np.uint32(t[3]).view(np.float32) for t in _tuples(port_e.search_raw(hay, 0.55))}
+    ties = sorted(x for x in sims if x < 1.0)
+    assert len(ties) >= 2
+    kept = 0
+    for thr in (ties[0], ties[-1]):
+        got = _tuples(port_e.search_raw(hay, float(thr)))
+        assert port_e.last_stats["backend"] == "device-fuzzy-dp-typed"
+        assert got == _tuples(jax_e.search_raw(hay, float(thr)))
+        jax_e.backend = "oracle"
+        assert sorted(got) == sorted(_tuples(jax_e.search_raw(hay, float(thr))))
+        jax_e.backend = "device"
+        kept += np.float32(thr).view(np.uint32).item() in {t[3] for t in got}
+    assert kept >= 1
+
+
+def test_typed_lane_declines_past_its_count_bytes(monkeypatch):
+    """The typed kernel counts per warp of ``TYPED_UNIT`` items, so the bytes
+    of its counts bound the hits it takes: past them the lane declines (None),
+    the oracle serves the same matches."""
+    for n_c, MO, E in ((48, 1, 1), (48, 16, 1), (600, 40, 3), (1, 1, 1)):
+        most = tvd.pipeline_max_hits(n_c, MO, E, typed=True)
+        assert most <= tvd.pipeline_max_hits(n_c, MO, E)
+        assert 4 * tvd._typed_count_entries(most * n_c, (2 * E + 1) * MO) <= tvd.TYPED_COUNT_BYTES
+    assert tvd.pipeline_max_hits(48, 1, 1, typed=True) < tvd.pipeline_max_hits(48, 1, 1)
+    _jax_t, typed_e = _pair("typed-ins-del")
+    hay = CONFIGS["typed-ins-del"][2][:600]
+    view = view_of(hay, True)
+    spec = tvd.typed_spec_of(typed_e)
+    served = _tuples(typed_e.search_raw(hay, 0.55))
+    stats = dict(typed_e.last_stats)
+    assert stats["backend"] == "device-fuzzy-dp-typed" and stats["hits"] > 1
+    plan = tvd.dp_plan(typed_e, 0.55, len(view), typed=spec)
+    channels = 2 * plan.E + 1  # one output slot per node
+    # Room for one hit fewer than the scan finds in the one slice.
+    monkeypatch.setattr(tvd, "TYPED_COUNT_BYTES", 4 * tvd._typed_count_entries(
+        (stats["hits"] - 1) * plan.n_combo, channels))
+    assert tvd.fuzzy_search_dp(typed_e, hay, 0.55, view, len(view), typed=spec) is None
+    declined = _tuples(typed_e.search_raw(hay, 0.55))
+    assert "device" not in typed_e.last_stats["backend"]
+    assert sorted(declined) == sorted(served) and len(served) > 0
+    # The count-channel lanes are not bound by it.
+    _jax_f, forbid_e = _pair("forbid-swaps")
+    assert len(forbid_e.search_raw(CONFIGS["forbid-swaps"][2], CONFIGS["forbid-swaps"][3][0])) > 0
+    assert forbid_e.last_stats["backend"] == "device-fuzzy-dp-forbid"
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_lane_specs_of_routes_as_the_dispatchers(name):
+    """``lane_specs_of`` sets the one spec of the lane that ``search_raw``
+    reports for the engine, and none for a plain total-edits engine."""
+    _jax_e, port_e = _pair(name)
+    lane = CONFIGS[name][4]
+    specs = tvd.lane_specs_of(port_e)
+    assert [s is not None for s in specs] == [lane == "typed", lane == "mapped", lane == "forbid"]
+    for got, want in zip(specs, _specs(tvd, port_e, lane)):
+        assert got is want or got == want
+    plain = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(2)).device("cpu")
+             .build(["needle"]))
+    assert tvd.lane_specs_of(plain) == (None, None, None)

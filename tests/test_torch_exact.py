@@ -126,13 +126,23 @@ def test_lanes_not_ported_raise_on_device_and_auto():
               .mapping("ß", "ss").device("cpu").build(["strasse", "tincidunt"]))
     forbid = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(2).swaps(0))
               .device("cpu").build(HEADLINE))
-    for engine, lane in ((typed, "typed DP lane"), (mapped, "mapped DP lane"),
-                         (forbid, "forbid DP lane")):
+    # The port serves all three on its DP lanes, under 'device' and 'auto',
+    # with the JAX package's lane names, and equal to the oracle.
+    mid = big[:5000] + " strase tincidnt phartra tincidutn pharetraa"
+    for engine, lane in ((typed, "device-fuzzy-dp-typed"), (mapped, "device-fuzzy-dp-mapped"),
+                         (forbid, "device-fuzzy-dp-forbid")):
         assert engine._device_engine().supports(big)
+        served = []
         for backend in ("device", "auto"):
             engine.backend = backend
-            with pytest.raises(NotImplementedError, match=lane):
-                engine.search_raw(big, 0.8)
+            served.append(sorted(_tuples(engine.search_raw(big, 0.8))))
+            assert engine.last_stats["backend"] == lane
+        assert served[0] == served[1] and len(served[0]) > 50
+        engine.backend = "device"
+        got = sorted(_tuples(engine.search_raw(mid, 0.8)))
+        assert engine.last_stats["backend"] == lane
+        engine.backend = "oracle"
+        assert got == sorted(_tuples(engine.search_raw(mid, 0.8))) and len(got) > 10
     # Below AUTO_DEVICE_MIN 'auto' stays on the host, as in the JAX package.
     small = "tincidunt tinciduntt phaetr tincidnt"
     typed.backend = "auto"
