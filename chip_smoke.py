@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port on one CUDA card.
 
-Drives the port's main paths (the exact lane and the four lanes of the DP
-family) once each at full size, through the entry points a user calls
-(build an engine, ``search_raw``), and checks every CUDA kernel they run
-against its plain torch version. Phases:
+Drives the port's main paths (the exact lane, the four lanes of the DP
+family and the large-dictionary lane) once each at full size, through the
+entry points a user calls (build an engine, ``search_raw``), and checks every
+CUDA kernel they run against its plain torch version. Phases:
 
 1. card: ``nvidia-smi`` name and power limit, CUDA version, device name;
-2. build: compile ``csrc/packed_bitap.cu``, ``csrc/banded_dp.cu``,
-   ``csrc/dp_pipeline.cu`` and ``csrc/dp_typed.cu`` with nvcc (sm_90a, one
+2. build: compile the six sources of ``csrc/`` with nvcc (sm_90a, one
    process per source, in parallel) from the checkout; report build seconds
    and ptxas registers / spills;
 3. kernel vs plain on the card, bit for bit. The hit-list scan's three
@@ -37,7 +36,14 @@ against its plain torch version. Phases:
    ``edits(4).substitutions(1)`` (55) and a dictionary with three limits
    classes; the DP-only kernels on int32 ids too; a threshold that a typed
    match's similarity ties; the typed wrapper's refusal past the bytes its
-   counts may take; a text without hits per lane;
+   counts may take; a text without hits per lane. The large-dictionary lane
+   (``many_kernel_checks``): the wide scan's kernels (``scan_bits_wide``,
+   ``hit_words_wide``) at W = 9, 31, 32, 64 limbs, alphabets of 27 and 128
+   symbols, k = 0, 1 (Damerau), 2, 4 (Damerau) on streams of 50,013
+   symbols; per chunk of the folded and the plain layout, over 1 MiB of the
+   many1k corpus, over 3-letter words (no containment test) and over filler
+   only, ``many_expand`` with and without the containment test, ``dp_list``
+   on the lane's own candidates and the whole step (``many_pipeline``);
 4. exact main path: the headline 16-word case-insensitive dictionary
    searched exact (threshold 0.5) over a 96 MiB seeded corpus, two warm-up
    searches then three timed ones, the plain versions locked out; the match
@@ -68,6 +74,16 @@ against its plain torch version. Phases:
    kernel and no other lane's, and equal the context oracle's match set; a
    lane that declined at 96 MiB would run at the largest power-of-two
    prefix it serves and say so;
+4f. the large-dictionary lane, many1k (``bench.py:187-229``: 1,000 random
+   words, ``edits(1)``, 0.82, the first 24 MiB of the corpus with 4,000
+   planted typos), through ``search_raw`` with the folded layout and then
+   with the plain chunking (the lane's fold switch off), each timed as 4c-4e
+   with the plain versions and the oracle locked out, launching the wide
+   scan, ``block_offsets``, ``many_expand`` and ``dp_list`` and no other
+   kernel, and equal to the context oracle (one oracle search per distinct
+   word context of the 24 MiB, begun in phase 3); launches, copies and waits
+   per search, the stages, and per chunk its hits, pairs, candidates and
+   rows;
 5. parity (run between phases 3 and 4, while the context oracle's workers
    are busy): device vs the port's oracle on 64 KiB (exact) and 32 KiB with
    planted edits (fuzzy, each of the three lanes, and a typed engine with
@@ -85,7 +101,8 @@ against its plain torch version. Phases:
    over the card's memory rate against integer or float32 instructions over
    its instruction rate), their agreement there, and the scan at each chunk
    length it takes on streams around the lengths where the wrapper's pick
-   switches.
+   switches; the large-dictionary lane's kernels at the folded many1k
+   chunk over 24 MiB, the wide scan held against its plain version there.
 
 Any failed phase raises, so the script exits non-zero. Before the last line
 it prints one JSON line of kernel results and the card's name and power
@@ -127,6 +144,13 @@ UNICODE_FILLER = ["и", "мы", "тесты", "кафе", "она", "дом", "c
 CONTEXT_TAIL = 15
 #: The engines of phases 4c, 4d, 4e, as ``recipe_engine`` names them.
 LANES = ("forbid", "typed", "mapped")
+#: The many1k configuration (``bench.py:187-229``): 1,000 random lowercase
+#: words of 6-11 letters drawn from seed 7, ``edits(1)``, case-insensitive,
+#: threshold 0.82, over the first 24 MiB of the corpus with 4,000 planted
+#: one-substitution typos of its words of 9 or more letters.
+MANY_THRESHOLD = 0.82
+MANY_BYTES = 24 << 20
+MANY_TYPOS = 4000
 
 
 def log(msg: str) -> None:
@@ -351,7 +375,9 @@ def compare_dp(vdp, torch, engine, text: str, thr: float, what: str, wide=False)
 def ptxas_summary(log_text: str):
     """(lines for the main paths' instantiations: the W=3 scan and hit-list
     kernels at k=0 and at k=1 with Damerau rows, the offsets scan, every
-    banded DP instantiation, the u8 pipeline ones and the two typed kernels;
+    banded DP instantiation, the u8 pipeline ones, the two typed kernels,
+    the wide scan and hit-list kernels at k=1, the expansion and the DP over
+    a list at E=1;
     number of instantiations, number of them with spills, max registers)."""
     import re
 
@@ -369,7 +395,20 @@ def ptxas_summary(log_text: str):
         name = e["name"]
         dp = re.search(r"(banded_dp|dp_pipeline)_kernelILi(\d)ELb([01])ELb([01])E([hi])", name)
         scan = re.search(r"(scan_bits|hit_words)_kernelILi3ELi([01])ELb([01])E(?:Li(\d+)E)?", name)
-        if dp and (dp.group(1) == "banded_dp" or dp.group(5) == "h"):
+        wide = re.search(r"(scan_bits|hit_words)_wide_kernelILi(\d)ELi(\d+)ELi(\d)ELb([01])E", name)
+        dp_list = re.search(r"dp_list_kernelILi(\d)ELb([01])E", name)
+        if wide:
+            if wide.group(4) != "1":
+                continue
+            label = (f"{wide.group(1)}_wide<LPL={wide.group(2)},G={wide.group(3)},"
+                     f"K={wide.group(4)},Damerau={wide.group(5)}>")
+        elif dp_list:
+            if dp_list.group(1) != "1":
+                continue
+            label = f"dp_list<E={dp_list.group(1)},deadend={dp_list.group(2)}>"
+        elif "many_expand_kernel" in name:
+            label = "many_expand"
+        elif dp and (dp.group(1) == "banded_dp" or dp.group(5) == "h"):
             label = (f"{dp.group(1)}<E={dp.group(2)},deadend={dp.group(3)},maps={dp.group(4)},"
                      f"{'u8' if dp.group(5) == 'h' else 'int32'}>")
         elif "_typed_kernel" in name:
@@ -546,7 +585,38 @@ def recipe_engine(ctx, name: str):
         return make_engine(ctx, words, L.new().edits(1))
     if name == "mapped":
         return make_engine(ctx, HEADLINE + ["modern"], L.new().edits(1), mappings=[("rn", "m")])
+    if name == "many1k":
+        return make_engine(ctx, many_words(1000, 7), L.new().edits(1))
     raise ValueError(name)
+
+
+def many_words(count: int, seed: int, length=(6, 12), letters="abcdefghijklmnopqrstuvwxyz"):
+    """``bench.py``'s many1k dictionary recipe: ``count`` random words with
+    lengths in ``length`` (a half-open range), sorted, duplicates dropped."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return sorted({
+        "".join(letters[i] for i in rng.integers(0, len(letters), size=int(m)))
+        for m in rng.integers(*length, size=count)
+    })
+
+
+def many_corpus(corpus: str, words, typos: int = MANY_TYPOS) -> str:
+    """``bench.py``'s many1k corpus: ``corpus`` with ``typos`` one-substitution
+    typos (third letter) of the words of 9 or more letters, each between
+    spaces, at a fixed step."""
+    long_pats = [p for p in words if len(p) >= 9]
+    buf = bytearray(corpus.encode())
+    step = max(1, len(buf) // typos)
+    for j in range(typos):
+        p = long_pats[j % len(long_pats)]
+        w = (" " + p[:2] + ("x" if p[2] != "x" else "y") + p[3:] + " ").encode()
+        at = 100 + j * step
+        if at + len(w) >= len(buf):
+            break
+        buf[at:at + len(w)] = w
+    return buf.decode()
 
 
 def _oracle_worker_init():
@@ -961,6 +1031,405 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     return (pipe_ms, pipe_plain_ms, pipe_bound), (dp_ms, dp_plain_ms, dp_bound), scan_errs
 
 
+def wide_tables(tpb, W: int, k: int, damerau: bool, A: int, seed: int, device):
+    """Scan tables of exactly ``W`` limbs over an alphabet of ``A`` symbols:
+    random words (symbol lists of 6-14 symbols) packed first-fit until the
+    next one would open limb W. Returns (tables, words, halo)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = []
+    while True:
+        w = rng.integers(1, A, size=int(rng.integers(6, 15))).tolist()
+        offs = tpb._pack_fields([len(x) for x in words + [w]])
+        if max(lw for lw, _ in offs) + 1 > W:
+            break
+        words.append(w)
+    ms = [len(w) for w in words]
+    offs = tpb._pack_fields(ms)
+    require(max(lw for lw, _ in offs) + 1 == W, f"wide tables of {W} limbs")
+    limb = np.zeros((A, W), np.uint64)
+    for w, (lw, lo) in zip(words, offs):
+        for i, c in enumerate(w):
+            limb[c, lw] |= np.uint64(1) << np.uint64(lo + i)
+    match, init, kk = tpb.fuzzy_masks(offs, ms, W, [k] * len(words))
+    notlast = tpb.notlast_mask(offs, ms, W) if damerau else None
+    T = tpb.tables_from_numpy(tpb._word_table(limb, A, W), tpb._starts_mask(offs, W), match,
+                              init, notlast, device=device)
+    return T, words, max(ms) + kk
+
+
+def wide_stream(words, A: int, n: int, seed: int, k: int):
+    """``n`` random symbols of ``A`` (symbol 0, the dead one, included) with
+    words of ``words`` written over them at 1 position in 40, each with up to
+    ``k`` substitutions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, A, size=n).astype(np.uint8)
+    for at in rng.integers(0, n - 16, size=n // 40).tolist():
+        w = list(words[int(rng.integers(len(words)))])
+        for _ in range(int(rng.integers(0, k + 1))):
+            w[int(rng.integers(len(w)))] = int(rng.integers(1, A))
+        ids[at:at + len(w)] = w
+    return ids
+
+
+def many_kernel_checks(ctx, many_text: str):
+    """Phase 3 for the large-dictionary lane, bit for bit against the plain
+    versions: the wide scan's kernels at W in {9, 31, 32, 64} x k in {0,
+    1 Damerau, 2, 4 Damerau} on streams of 50,013 symbols; and per chunk of
+    the folded and the plain layout, over 1 MiB of the many1k corpus and over
+    a text of 3-letter words (rows shallower than the containment test's 4
+    classes), ``many_expand`` with and without the dense ids (the
+    containment test), ``dp_list`` on the lane's own candidates and the whole
+    step (``many_pipeline``), and on the first chunk the step over hit ranges
+    (``compare_many_ranges``). Returns {kernel: max_abs_err}, as measured."""
+    torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    errs = dict.fromkeys(("scan_bits_wide", "block_offsets", "hit_words_wide", "many_expand",
+                          "dp_list"), 0)
+    for W, A in ((9, 128), (31, 27), (32, 27), (64, 128)):
+        for k, dam in ((0, False), (1, True), (2, False), (4, True)):
+            T, words, halo = wide_tables(tpb, W, k, dam, A, SEED + W + k, ctx.dev)
+            ids = torch.from_numpy(wide_stream(words, A, 50013, SEED + W * k, k)).to(ctx.dev)
+            _n, e = compare_scan(tpb, torch, ids, T, halo,
+                                 f"wide W={W} A={A} k={k} {'Damerau' if dam else 'plain'}")
+            for key, err in zip(("scan_bits_wide", "block_offsets", "hit_words_wide"), e):
+                errs[key] = max(errs[key], err)
+
+    short = many_words(600, SEED + 11, length=(3, 4))
+    short_text = " ".join(w if i % 3 else w[:1] + "q" + w[2:]
+                          for i, w in enumerate(short[int(j)] for j in
+                                                np.random.default_rng(SEED).integers(
+                                                    len(short), size=8000)))
+    many_e = recipe_engine(ctx, "many1k")
+    cases = (("many1k, 1 MiB", many_e, many_text[: 1 << 20], MANY_THRESHOLD),
+             ("3-letter words", make_engine(ctx, short, ctx.Limits.new().edits(1)), short_text,
+              0.6),
+             ("many1k, filler only", many_e, "lorem ipsum dolor " * 20000, MANY_THRESHOLD))
+    ranges_done = False
+    for what, eng, text, thr in cases:
+        for fold in (True, False):
+            spec = many.many_spec_of(eng, fold=fold)
+            if spec is None:
+                log(f"  {what}: no {'folded' if fold else 'plain'} layout")
+                continue
+            view = view_of(text, True)
+            n = len(view)
+            run = many.many_inputs(eng, spec, text, thr, view, n)
+            for ci, chunk in enumerate(run.chunks):
+                e = compare_many_chunk(ctx, run, chunk, n, thr,
+                                       f"{what}, {'folded' if fold else 'plain'} chunk {ci + 1} of "
+                                       f"{len(run.chunks)}", without_ids=True)
+                for key in e:
+                    errs[key] = max(errs[key], e[key])
+                if not ranges_done:
+                    errs["many_expand"] = max(errs["many_expand"], compare_many_ranges(
+                        ctx, run, chunk, n, thr, f"{what}, {'folded' if fold else 'plain'}"))
+                    ranges_done = True
+    return errs
+
+
+def int_err(a, b) -> float:
+    """max_abs_err of two integer tensors (or ints); inf where the shapes
+    differ."""
+    if isinstance(a, int):
+        return float(abs(a - b))
+    if a.shape != b.shape:
+        return float("inf")
+    return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+
+
+def compare_many_chunk(ctx, run, chunk, n: int, thr: float, what: str, without_ids=False):
+    """``many_expand``, ``dp_list`` and the whole chunk step
+    (``many_pipeline``) against their plain versions on one chunk of the
+    many lane's ``run``, each kernel fed its plain version's inputs, bit for
+    bit; ``without_ids`` also expands without the dense ids (no containment
+    test). Returns {kernel: max_abs_err}."""
+    torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
+    hits, pos, words = tpb.packed_hits(run.ids_pf, chunk.T_scan, run.halo)
+    window = vdp.DpWindow(0, n, n)
+    err_x, counts = 0.0, []
+    for ids in ((run.ids_de, None) if without_ids else (run.ids_de,)):
+        got = many.many_expand(pos, words, window, run.E, chunk.X, ids, run.k)
+        want = many.expand_candidates_sparse(pos, words, window, run.E, chunk.X, ids, run.k)
+        torch.cuda.synchronize()
+        err_x = max([err_x] + [int_err(g, w) for g, w in zip(got, want)])
+        counts.append((want[0], want[1].numel()))
+        if ids is not None:
+            cf, cs = want[1], want[2]
+    dp_args = (cf, cs, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E, run.deadend)
+    rows_k, rows_p = many.dp_list(*dp_args), many.dp_list_torch(*dp_args)
+    step_args = (run.ids_pf, run.ids_de, n, chunk, run.halo, run.T, run.pens, np.float32(thr),
+                 run.E, run.deadend, run.hit_ceil)
+    step_k, step_p = many.many_pipeline(*step_args), many.many_pipeline_torch(*step_args)
+    torch.cuda.synchronize()
+    err_dp = int_err(rows_k, rows_p)
+    err_step = max(int_err(g, w) for g, w in zip(step_k, step_p))
+    log(f"  {what}: W={chunk.T_scan.W} R={chunk.X.R} rd={chunk.X.rd_min}..{chunk.X.rd_max} "
+        f"k={run.k} damerau={run.dam} hits={hits}; many_expand (pairs, candidates) with the dense "
+        f"ids {counts[0]}" + (f", without {counts[1]}" if without_ids else "")
+        + f", max_abs_err {err_x}; dp_list {rows_p.shape[0]} rows, max_abs_err {err_dp}; "
+        f"many_pipeline {tuple(step_p[1:])} with {step_p.rows.shape[0]} rows, max_abs_err "
+        f"{err_step}")
+    require(err_x == 0.0, f"{what}: many_expand disagrees with its plain version")
+    require(err_dp == 0.0, f"{what}: dp_list disagrees with dp_list_torch")
+    require(err_step == 0.0, f"{what}: many_pipeline disagrees with many_pipeline_torch")
+    return {"many_expand": err_x, "dp_list": err_dp}
+
+
+def compare_many_ranges(ctx, run, chunk, n: int, thr: float, what: str) -> float:
+    """The chunk step over ranges of its hit list (the form it takes past
+    ``many_max_hits``): ``many_expand`` over the second half of the hits,
+    handed its preceding hit, against its plain version; both halves'
+    candidates together against one call's, as multisets; and
+    ``many_pipeline`` in ranges of a third of the hits against its plain
+    version in the same ranges (bit for bit) and against itself in one range
+    (counts equal, rows as multisets). Returns the expansion's max_abs_err."""
+    torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
+    hits, pos, words = tpb.packed_hits(run.ids_pf, chunk.T_scan, run.halo)
+    require(hits >= 6, f"{what}: too few hits to cut into ranges")
+    window = vdp.DpWindow(0, n, n)
+    a = hits // 2
+    x_args = (window, run.E, chunk.X, run.ids_de, run.k)
+    got = many.many_expand(pos[a - 1:], words[a - 1:], *x_args, 1)
+    want = many.expand_candidates_sparse(pos[a - 1:], words[a - 1:], *x_args, 1)
+    first = many.many_expand(pos[:a], words[:a], *x_args)
+    whole = many.many_expand(pos, words, *x_args)
+    torch.cuda.synchronize()
+    err = max(int_err(g, w) for g, w in zip(got, want))
+    pairs_of = lambda cf, cs: sorted(zip(cf.tolist(), cs.tolist()))
+    halves = pairs_of(torch.cat((first[1], got[1])), torch.cat((first[2], got[2])))
+    step_args = (run.ids_pf, run.ids_de, n, chunk, run.halo, run.T, run.pens, np.float32(thr),
+                 run.E, run.deadend, run.hit_ceil)
+    one = many.many_pipeline(*step_args)
+    saved = many.many_max_hits
+    many.many_max_hits = lambda X, E, nch: -(-hits // 3)
+    try:
+        step_k, step_p = many.many_pipeline(*step_args), many.many_pipeline_torch(*step_args)
+    finally:
+        many.many_max_hits = saved
+    torch.cuda.synchronize()
+    err_step = max(int_err(g, w) for g, w in zip(step_k, step_p))
+    rows_of = lambda r: sorted(map(tuple, r.tolist()))
+    log(f"  {what}, hit ranges: many_expand over hits {a}..{hits - 1} with hit {a - 1} before "
+        f"them: {want[1].numel()} candidates, max_abs_err {err}; the halves' candidates "
+        f"{'equal' if halves == pairs_of(whole[1], whole[2]) else 'unequal'} to one call's; "
+        f"many_pipeline in 3 ranges {tuple(step_k[1:])}, max_abs_err {err_step} against its "
+        f"plain version, in one range {tuple(one[1:])}")
+    require(err == 0.0, f"{what}: many_expand over a hit range disagrees with its plain version")
+    require(halves == pairs_of(whole[1], whole[2]) and first[0] + got[0] == whole[0],
+            f"{what}: the hit ranges' candidates differ from one call's")
+    require(err_step == 0.0, f"{what}: many_pipeline in ranges disagrees with its plain version")
+    require(tuple(step_k[1:]) == tuple(one[1:]) and rows_of(step_k.rows) == rows_of(one.rows),
+            f"{what}: many_pipeline in ranges differs from one range")
+    return err
+
+
+def many_stage_breakdown(ctx, engine, text: str, thr: float, fold: bool):
+    """Host-clock ms of each stage of one many1k search, each ended by a
+    synchronise, and per chunk its (hits, pairs, candidates, rows)."""
+    torch, np, tpb, many = ctx.torch, ctx.np, ctx.tpb, ctx.many
+    from fuzzy_aho_corasick_tpu_torch.ops.emit import decode_matches
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    ms = dict.fromkeys(("view, spec, inputs", "packed_hits", "many_expand", "dp_list",
+                        "rows to host", "decode"), 0.0)
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t0) * 1e3
+        return time.perf_counter()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    view = view_of(text, engine.case_insensitive)
+    n = len(view)
+    run = many.many_inputs(engine, many.many_spec_of(engine, fold=fold), text, thr, view, n)
+    t = lap("view, spec, inputs", t)
+    rows, per_chunk = [], []
+    from fuzzy_aho_corasick_tpu_torch.ops.verify_dp import DpWindow
+
+    for chunk in run.chunks:
+        hits, pos, words = tpb.packed_hits(run.ids_pf, chunk.T_scan, run.halo, run.hit_ceil)
+        t = lap("packed_hits", t)
+        pairs, cf, cs = many.many_expand(pos, words, DpWindow(0, n, n), run.E, chunk.X,
+                                         run.ids_de, run.k)
+        t = lap("many_expand", t)
+        r = many.dp_list(cf, cs, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E,
+                         run.deadend)
+        t = lap("dp_list", t)
+        rows.append(r.cpu().numpy())
+        t = lap("rows to host", t)
+        per_chunk.append((hits, pairs, cf.numel(), len(rows[-1])))
+    r = np.concatenate(rows)
+    out = decode_matches(engine, view, text, n, r[:, 0], r[:, 2], r[:, 3],
+                         np.ascontiguousarray(r[:, 1]).view(np.float32), r[:, 4], np.float32(thr))
+    lap("decode", t)
+    return ms, len(out), per_chunk
+
+
+def many_main_path(ctx, tag: str, engine, text: str, thr: float, fold: bool, locked, want):
+    """Phase 4f: the many1k search through ``search_raw`` over ``text``, with
+    the folded layout (``fold``) or the plain chunking (the lane's fold
+    switch off): a probe on 1 MiB, one first search, one warm-up and three
+    timed ones with the plain versions and the oracle locked out; the launch
+    counters; the match set against the context oracle's ``want``; the
+    profiler's launches, copies and waits per search; the stages."""
+    torch, tpb, many = ctx.torch, ctx.tpb, ctx.many
+    t_phase = time.perf_counter()
+    saved = many.FOLD
+    many.FOLD = fold
+    keys = ("scan_bits_wide", "block_offsets", "hit_words_wide", "many_expand", "dp_list")
+    try:
+        with plain_locked((ctx.oracle, "search_raw")):
+            engine.search_raw(text[: 1 << 20], thr)
+        for key in tpb.LAUNCHES:
+            tpb.LAUNCHES[key] = 0
+        with plain_locked(*locked):
+            t0 = time.perf_counter()
+            engine.search_raw(text, thr)
+            first = time.perf_counter() - t0
+            engine.search_raw(text, thr)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = engine.search_raw(text, thr)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        launches = dict(tpb.LAUNCHES)
+        stats = dict(engine.last_stats)
+        best = min(times)
+        log(f"  {len(text)} bytes, first search {first:.3f} s, best of 3 {best * 1e3:.3f} ms "
+            f"(all {', '.join(f'{t * 1e3:.3f}' for t in times)}) = "
+            f"{len(text) / best / 1e9:.3f} GB/s, {len(got)} matches, launches {launches}")
+        log(f"  last_stats {stats}")
+        require(stats["backend"] == "device-fuzzy-many" and stats["folded"] == fold,
+                f"{tag}: backend {stats['backend']} folded {stats['folded']}")
+        require(all(launches[k] > 0 for k in keys), f"{tag}: the lane did not launch its kernels")
+        require(all(v == 0 for k, v in launches.items() if k not in keys),
+                f"{tag}: the lane launched a kernel of another lane")
+        dev_set = {match_key(m) for m in got}
+        require(len(dev_set) == len(got), f"{tag}: the lane repeats a match")
+        log(f"  equal to the context oracle's {len(want)} matches: {dev_set == want}")
+        require(dev_set == want, f"{tag}: the lane disagrees with the context oracle")
+        prof = profile_search(torch, lambda: engine.search_raw(text, thr), 3, tpb.LAUNCHES)
+        log(f"  torch.profiler over 3 searches: wall {prof['wall']:.3f} ms per search, device "
+            f"busy {prof['busy']:.3f} ms ({prof['busy'] / prof['wall']:.3f} of wall); per search "
+            f"{prof['kernels']:.1f} kernel launches, {prof['copies']:.1f} copies, "
+            f"{prof['waits']:.1f} host waits over {stats['chunks']} chunks")
+        for line in prof["lines"][:8]:
+            log(f"    {line}")
+        stages, n_stage, per_chunk = many_stage_breakdown(ctx, engine, text, thr, fold)
+        require(n_stage == len(got), f"{tag}: stage breakdown found other matches")
+        log("  stages (host clock, synchronised, ms per search): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+            + f"; sum {sum(stages.values()):.3f}")
+        log("  per chunk (hits, pairs, candidates, rows): "
+            + ", ".join(str(c) for c in per_chunk))
+    finally:
+        many.FOLD = saved
+    log(f"  phase {tag} {time.perf_counter() - t_phase:.1f} s")
+    return SimpleNamespace(times=times, launches=launches, stats=stats, prof=prof,
+                           matches=len(got), stages=stages, per_chunk=per_chunk)
+
+
+def many_kernel_times(ctx, engine, text: str, thr: float):
+    """Phase 6 for the large-dictionary lane at its main-path shapes (the
+    folded layout's one chunk and the plain layout's five over the 24 MiB
+    corpus): every kernel of each chunk against its plain version there
+    (``compare_scan``, ``compare_many_chunk``); then, on the folded chunk,
+    CUDA-event ms of each kernel beside its plain version and the bound from
+    these inputs. Returns ({kernel: (ms, plain ms, (bound ms, by), library
+    ms)}, {kernel: max_abs_err})."""
+    torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    view = view_of(text, True)
+    n = len(view)
+    errs = dict.fromkeys(("scan_bits_wide", "block_offsets", "hit_words_wide", "many_expand",
+                          "dp_list"), 0.0)
+    runs = {fold: many.many_inputs(engine, many.many_spec_of(engine, fold=fold), text, thr, view,
+                                   n) for fold in (True, False)}
+    for fold, run_f in runs.items():
+        for ci, chunk in enumerate(run_f.chunks):
+            what = (f"many1k main-path shape, {'folded' if fold else 'plain'} chunk {ci + 1} of "
+                    f"{len(run_f.chunks)}")
+            T = chunk.T_scan
+            _h, e = compare_scan(tpb, torch, run_f.ids_pf, T, run_f.halo,
+                                 f"{what}, W={T.W} k={T.k} damerau={T.damerau}")
+            e = dict(zip(("scan_bits_wide", "block_offsets", "hit_words_wide"), e),
+                     **compare_many_chunk(ctx, run_f, chunk, n, thr, what))
+            for key in errs:
+                errs[key] = max(errs[key], e[key])
+    run = runs[True]
+    chunk = run.chunks[0]
+    T, halo, ids = chunk.T_scan, run.halo, run.ids_pf
+    bits, counts = tpb.scan_bits(ids, T, halo)
+    offs = tpb.block_offsets(counts)
+    hits, pos, words = tpb.packed_hits(ids, T, halo)
+    window = vdp.DpWindow(0, n, n)
+    pairs, cf, cs = many.many_expand(pos, words, window, run.E, chunk.X, run.ids_de, run.k)
+    rows = many.dp_list(cf, cs, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E,
+                        run.deadend)
+    N, X = ids.numel(), chunk.X
+    instr = scan_instr(T.W, T.k, T.damerau)
+    B = 2 * run.E + 1
+    wj = 4 + 4 * run.k
+    wp = wj + X.rd_max - X.rd_min
+    cells = int(run.T.depth[cf.long()].sum()) * B * (run.E + 1)
+    tables = sum(t.numel() * t.element_size() for t in (
+        run.T.path_cls, run.T.path_node, run.T.depth, run.T.sim, run.T.node_ceil))
+    x_tables = sum(t.numel() * t.element_size() for t in (X.field, X.shift, X.depth, X.pc))
+    dp_args = (cf, cs, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E, run.deadend)
+    x_args = (pos, words, window, run.E, X, run.ids_de, run.k)
+    rec = {
+        "scan_bits_wide": (
+            event_ms(torch, lambda: tpb.scan_bits(ids, T, halo), 10),
+            event_ms(torch, lambda: tpb.scan_bits_torch(ids, T, halo), 1),
+            bound_ms(N + N / 8 + 4 * counts.numel(), instr * N, INT_RATE), None),
+        "block_offsets": (
+            event_ms(torch, lambda: tpb.block_offsets(counts), 20),
+            event_ms(torch, lambda: tpb.block_offsets_torch(counts), 20),
+            bound_ms(8 * counts.numel() + 4, counts.numel(), INT_RATE),
+            event_ms(torch, lambda: torch.cumsum(counts, 0), 20)),
+        "hit_words_wide": (
+            event_ms(torch, lambda: tpb.hit_words(ids, bits, offs, hits, T, halo), 20),
+            event_ms(torch, lambda: tpb.hit_words_torch(ids, bits, offs, hits, T, halo), 3),
+            bound_ms(N / 8 + 4 * offs.numel() + hits * (halo + 8 + 16 * T.W),
+                     instr * hits * halo, INT_RATE), None),
+        # Reads: the hits' positions and words, the rows of their nonzero
+        # columns, a window per pair; writes the candidates. Operations: per
+        # (pair, row) the bit, dedup and window tests of each band and the
+        # containment compares.
+        "many_expand": (
+            event_ms(torch, lambda: many.many_expand(*x_args), 20),
+            event_ms(torch, lambda: many.expand_candidates_sparse(*x_args), 3),
+            bound_ms(8 * pos.numel() + 8 * words.numel() + x_tables + pairs * wp
+                     + 8 * cf.numel(), pairs * X.R * (8 * B + 4 * wj), INT_RATE), None),
+        "dp_list": (
+            event_ms(torch, lambda: many.dp_list(*dp_args), 20),
+            event_ms(torch, lambda: many.dp_list_torch(*dp_args), 3),
+            bound_ms(8 * cf.numel() + tables + cf.numel() * (run.T.Lmax + 2 * run.E + 2)
+                     + rows.numel() * 4, cells * DP_CELL_INSTR, F32_RATE), None),
+    }
+    for name, (ms, plain, (b_ms, b_by), lib) in rec.items():
+        log(f"  {name} many1k: {N} symbols, {hits} hits, {pairs} pairs, {cf.numel()} candidates, "
+            f"{rows.shape[0]} rows; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.3g} "
+            f"ms by {b_by} ({b_ms / ms:.3g} of the kernel's time)"
+            + (f", torch.cumsum {lib:.4f} ms" if lib is not None else ""))
+    step_args = (run.ids_pf, run.ids_de, n, chunk, halo, run.T, run.pens, np.float32(thr), run.E,
+                 run.deadend, run.hit_ceil)
+    whole = event_ms(torch, lambda: many.many_pipeline(*step_args), 10)
+    whole_plain = event_ms(torch, lambda: many.many_pipeline_torch(*step_args), 1)
+    log(f"  many_pipeline (the chunk's scan, expansion and DP with their readbacks): "
+        f"{whole:.4f} ms, plain {whole_plain:.4f} ms")
+    return rec, errs
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG}/ is not beside this script; run it from the "
@@ -999,14 +1468,14 @@ def smoke(torch, start_pool, workers: int) -> int:
     import numpy as np
 
     from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern, oracle
-    from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build
+    from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build, many
     from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
     from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as vdp
     from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
     dev = torch.device("cuda")
-    ctx = SimpleNamespace(torch=torch, np=np, tpb=tpb, vdp=vdp, dev=dev, oracle=oracle,
+    ctx = SimpleNamespace(torch=torch, np=np, tpb=tpb, vdp=vdp, many=many, dev=dev, oracle=oracle,
                           Builder=FuzzyAhoCorasickBuilder, Limits=FuzzyLimits, Pattern=Pattern)
     t_start = time.perf_counter()
 
@@ -1043,6 +1512,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     corpus = build_corpus(CORPUS_BYTES, SEED)
     require(len(corpus) == CORPUS_BYTES, "corpus size")
     mapped_corpus = sparse_modem(corpus)
+    many_text = many_corpus(corpus[:MANY_BYTES], many_words(1000, 7))
 
     # The context oracle of phases 4b-4e: the contexts once per corpus, the
     # oracle searches once per engine, begun here in the worker processes
@@ -1050,6 +1520,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     # the host times.
     t0 = time.perf_counter()
     mapped_contexts = pool.apply_async(word_contexts, (mapped_corpus,))
+    many_contexts = pool.apply_async(word_contexts, (many_text,))
     contexts_of, pending = {corpus: word_contexts(corpus)}, {}
 
     def oracle_start(name, text, thr):
@@ -1065,16 +1536,19 @@ def smoke(torch, start_pool, workers: int) -> int:
         return (context_oracle_set(pending.pop((name, text, thr)), workers, starts),
                 len(contexts))
 
-    oracle_jobs = (("forbid", corpus, 0.62), ("fuzzy1", corpus, 0.8), ("typed", corpus, 0.8),
-                   ("mapped", mapped_corpus, 0.8))
+    oracle_jobs = (("many1k", many_text, MANY_THRESHOLD), ("forbid", corpus, 0.62),
+                   ("fuzzy1", corpus, 0.8), ("typed", corpus, 0.8), ("mapped", mapped_corpus, 0.8))
     for job in oracle_jobs:
         if job[1] is mapped_corpus:
             contexts_of[mapped_corpus] = mapped_contexts.get()
+        if job[1] is many_text:
+            contexts_of[many_text] = many_contexts.get()
         oracle_start(*job)
     log(f"  word contexts (tail {CONTEXT_TAIL}): {len(contexts_of[corpus][0])} distinct in the "
         f"{len(corpus)}-byte corpus, {len(contexts_of[mapped_corpus][0])} in the "
-        f"{len(mapped_corpus)}-byte one, {time.perf_counter() - t0:.1f} s; the oracle's "
-        f"{workers} workers have the four engines' searches")
+        f"{len(mapped_corpus)}-byte one, {len(contexts_of[many_text][0])} in the "
+        f"{len(many_text)}-byte many1k one, {time.perf_counter() - t0:.1f} s; the oracle's "
+        f"{workers} workers have the five engines' searches")
     engine = (FuzzyAhoCorasickBuilder.new().case_insensitive(True).device(dev)
               .build(HEADLINE))
     engine.backend = "device"
@@ -1182,12 +1656,16 @@ def smoke(torch, start_pool, workers: int) -> int:
     err_dp_all = max(err_dp_all, lane_errs["banded_dp"])
     err_pipe_all = max(err_pipe_all, lane_errs["dp_pipeline"])
     errs_scan[1] = max(errs_scan[1], lane_errs["block_offsets"])
+    many_errs = many_kernel_checks(ctx, many_text)
+    errs_scan[1] = max(errs_scan[1], many_errs["block_offsets"])
 
     plain_names = [(tpb, n) for n in ("scan_flags_torch", "replay_words_torch", "scan_bits_torch",
                                       "block_offsets_torch", "hit_words_torch")]
     plain_names += [(vdp, n) for n in ("expand_candidates", "banded_dp_torch", "emit_rows",
                                        "dp_pipeline_torch", "banded_dp_typed_torch",
                                        "emit_rows_typed")]
+    plain_names += [(many, n) for n in ("expand_candidates_sparse", "dp_list_torch",
+                                        "many_pipeline_torch", "_packed_hits_torch")]
     scan_keys = ("scan_bits", "block_offsets", "hit_words")
 
     # 5. parity, ahead of phase 4: the oracle's workers are busy meanwhile.
@@ -1407,6 +1885,20 @@ def smoke(torch, start_pool, workers: int) -> int:
     log(f"  4e: {n_modem} modem -> modern matches at similarity 1.0 in the first 4 MiB")
     require(n_modem > 0, "the mapped lane found no modem through the mapping")
 
+    # 4f. the large-dictionary lane, many1k, folded then plain.
+    many_e = recipe_engine(ctx, "many1k")
+    t0 = time.perf_counter()
+    want_many, n_ctx = oracle_set("many1k", many_text, MANY_THRESHOLD)
+    log(f"  many1k context oracle (tail {CONTEXT_TAIL}): {n_ctx} contexts, {len(want_many)} "
+        f"matches, {time.perf_counter() - t0:.1f} s")
+    require(len(want_many) > MANY_TYPOS // 2, "many1k: too few matches to be a real check")
+    many_runs = {}
+    for tag, fold in (("4f folded", True), ("4f plain", False)):
+        phase(f"phase {tag}: many1k, 1,000 words, edits(1), threshold {MANY_THRESHOLD}, "
+              f"{'the folded layout' if fold else 'the plain chunking (fold switch off)'}:")
+        many_runs[tag] = many_main_path(ctx, tag, many_e, many_text, MANY_THRESHOLD, fold, locked,
+                                        want_many)
+
     # 6. times, bounds and agreement at the main paths' shapes
     phase("phase 6 times at main-path shapes (CUDA events; device time is the profiler's above):")
     plan, run = lane_inputs(vdp, fuzzy, corpus, 0.8, "main-path shapes")
@@ -1440,7 +1932,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         scan_rec[tag] = rec
         for name, (ms, plain, (b_ms, b_by), lib) in rec.items():
             log(f"  {name} {tag}: {n_s} symbols, {hits} hits, kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's "
+                f"{plain:.4f} ms, bound {b_ms:.3g} ms by {b_by} ({b_ms / ms:.3g} of the kernel's "
                 f"time)" + (f", torch.cumsum {lib:.4f} ms" if lib is not None else ""))
         whole = event_ms(torch, lambda: tpb.packed_hits(ids_s, T_s, halo_s), 20)
         log(f"  packed_hits {tag} (three kernels and the count's readback): {whole:.4f} ms")
@@ -1541,6 +2033,10 @@ def smoke(torch, start_pool, workers: int) -> int:
     for _p, _d, errs in lane_times.values():
         for i, e in enumerate(errs):
             errs_scan[i] = max(errs_scan[i], e)
+    many_rec, many_main_errs = many_kernel_times(ctx, many_e, many_text, MANY_THRESHOLD)
+    for key, err in many_main_errs.items():
+        many_errs[key] = max(many_errs[key], err)
+    errs_scan[1] = max(errs_scan[1], many_errs["block_offsets"])
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc/packed_bitap.cu"
@@ -1560,11 +2056,15 @@ def smoke(torch, start_pool, workers: int) -> int:
         f_ms, f_plain, f_bound, _lib = scan_rec["fuzzy"][name]
         kernels.append(record(
             name, src, replaces, launches[name] + launches_f[name]
-            + sum(lane.launches[name] for lane in lane_runs.values()), errs_scan[i], ms, plain,
+            + sum(lane.launches[name] for lane in (*lane_runs.values(), *many_runs.values())),
+            errs_scan[i], ms, plain,
             bound, lib, fuzzy_ms=f_ms, fuzzy_plain_ms=f_plain, fuzzy_bound_ms=f_bound[0],
             **({"pipeline_counts_ms": offs_pipe_rec[0], "pipeline_counts_plain_ms": offs_pipe_rec[1],
                 "pipeline_counts_bound_ms": offs_pipe_rec[2][0],
-                "pipeline_counts_library_ms": offs_pipe_rec[3]} if name == "block_offsets" else {}),
+                "pipeline_counts_library_ms": offs_pipe_rec[3],
+                "many1k_counts_ms": many_rec[name][0], "many1k_counts_plain_ms": many_rec[name][1],
+                "many1k_counts_bound_ms": many_rec[name][2][0],
+                "many1k_counts_library_ms": many_rec[name][3]} if name == "block_offsets" else {}),
             device_ms_per_exact_search=device_ms(prof_x, name + "_kernel"),
             device_ms_per_fuzzy_search=device_ms(prof_f, name + "_kernel")))
     kernels.append(record(
@@ -1594,12 +2094,32 @@ def smoke(torch, start_pool, workers: int) -> int:
             device_ms_per_search=device_ms(lane.prof, key + "_kernel")))
         held.append(record(dp_name, f"{PKG}/csrc/" + ("dp_typed.cu" if tag == "4d" else "banded_dp.cu"),
                            dp_replaces, 0, dp_err, *dp_t, None))
+    # The large-dictionary lane of phase 4f: the kernels its searches
+    # launched, at the folded layout's main-path shape.
+    jax_many = "fuzzy_aho_corasick_tpu/ops/many.py"
+    for name, source, replaces in (
+        ("scan_bits_wide", "scan_wide.cu", f"{jax_pb}:534"),
+        ("hit_words_wide", "scan_wide.cu", f"{jax_pb}:620"),
+        ("many_expand", "many_expand.cu", f"{jax_many}:330"),
+        ("dp_list", "dp_pipeline.cu", f"{jax_many}:469"),
+    ):
+        kernels.append(record(
+            name, f"{PKG}/csrc/{source}", replaces,
+            sum(run.launches[name] for run in many_runs.values()), many_errs[name],
+            *many_rec[name],
+            device_ms_per_search={tag: device_ms(run.prof, name + "_kernel")
+                                  for tag, run in many_runs.items()}))
     print(json.dumps({"kernels": kernels, "held_against_plain_only": held,
                       "scan_chunk_sweep": sweep,
                       "searches": {
                           "exact_ms": [t * 1e3 for t in times],
                           "typed14_ms": [t * 1e3 for t in times_14],
                           "fuzzy_ms": [t * 1e3 for t in times_f],
+                          **{f"{tag.replace(' ', '_')}_ms": [t * 1e3 for t in run.times]
+                             for tag, run in many_runs.items()},
+                          **{f"{tag.replace(' ', '_')}_launches_copies_waits": [
+                              run.prof["kernels"], run.prof["copies"], run.prof["waits"]]
+                             for tag, run in many_runs.items()},
                           **{f"{tag}_ms": [t * 1e3 for t in lane.times]
                              for tag, lane in lane_runs.items()},
                           **{f"{tag}_launches_copies_waits": [

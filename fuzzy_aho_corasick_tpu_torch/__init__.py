@@ -3,12 +3,12 @@
 
 Same public surface as the JAX package for the parts ported so far: build an
 engine, call ``search_raw`` / ``search`` / the segmentation helpers. Exact
-search and the DP family of fuzzy searches (a uniform edit budget, edit types
-switched off, per-type and per-pattern limits, multi-character mappings) run
-on the GPU through hand-written CUDA kernels (``csrc/packed_bitap.cu``,
-``csrc/dp_pipeline.cu``, ``csrc/dp_typed.cu``, ``csrc/banded_dp.cu``, built
-with ``nvcc`` at first use); configurations whose device lanes are not ported
-yet (large dictionaries, the beam lanes) raise ``NotImplementedError``.
+search, the DP family of fuzzy searches (a uniform edit budget, edit types
+switched off, per-type and per-pattern limits, multi-character mappings) and
+fuzzy search over large dictionaries (up to 4095 patterns) run on the GPU
+through hand-written CUDA kernels (``csrc/*.cu``, built with ``nvcc`` at first
+use); configurations whose device lanes are not ported yet (the beam lanes)
+raise ``NotImplementedError``.
 
 The engine's device tables live on a torch device, ``cuda`` by default::
 

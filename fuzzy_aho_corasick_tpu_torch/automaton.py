@@ -8,12 +8,12 @@ lazily built tables for the CUDA kernels, which live on the engine's torch
 configuration is kernel-eligible, and to the host oracle otherwise — both
 produce identical match sets (differential-tested).
 
-The port carries the exact lane and the DP family (the uniform-budget fuzzy
-lane and the forbid, typed and mapped lanes). A configuration that the JAX
-package serves on one of its other device lanes (large dictionary, beam
-frontier) raises ``NotImplementedError`` instead of silently running the
-pure-Python oracle on a device-sized haystack. Prefilter, streaming and
-serialization are not ported yet either (ROADMAP queue A).
+The port carries the exact lane, the DP family (the uniform-budget fuzzy
+lane and the forbid, typed and mapped lanes) and the large-dictionary lane.
+A configuration that the JAX package serves on one of its other device lanes
+(the beam frontier) raises ``NotImplementedError`` instead of silently
+running the pure-Python oracle on a device-sized haystack. Prefilter,
+streaming and serialization are not ported yet either (ROADMAP queue A).
 """
 
 from __future__ import annotations

@@ -10,6 +10,14 @@
 // -> emit_rows); the wrapper is verify_dp.dp_pipeline. The typed lane's
 // counterpart of this kernel is dp_typed.cu.
 //
+// dp_list_kernel runs the same DP and emission over a list of candidates
+// (field, start) instead of the (combo, hit) grid: the large-dictionary
+// lane's _banded_dp + _emit_rows of fuzzy_aho_corasick_tpu/ops/many.py::
+// _many_pipeline_jit, behind its own expansion (many_expand.cu). Item g is
+// candidate g; a dead slot (field -1) emits nothing. Plain version:
+// verify_dp.banded_dp_torch -> verify_dp.emit_rows; the wrapper is
+// many.dp_list.
+//
 // What it computes. The grid is the uncompacted (combo, hit) product,
 // combo-major: item g = c * K + h pairs combo c = (pattern bit, field, band)
 // with hit h of the ordered hit list. Per item:
@@ -61,6 +69,8 @@ struct PipeArgs {
   int W2;
   const int32_t* combos;    // [5, n_combo]: word column, bit, field, start offset, b == 0
   int n_combo;
+  const int32_t* cand_field;  // [K] candidates of dp_list_kernel (K is their count)
+  const int32_t* cand_start;
   long long start_lo, start_hi, pos_hi;
   const int32_t* node;      // [F] output node of each field
   const int32_t* out_list;  // [N, MO] patterns of each node, -1 padded
@@ -74,38 +84,17 @@ struct PipeArgs {
   int32_t* rows;            // [total, 5] (write pass)
 };
 
+// The DP of one item (alive: field f >= 0, start s) and its emission: the
+// count pass writes the block's rows per channel and its live items, the
+// write pass its rows. Every thread of the block calls it.
 template <int E, bool DEADEND, bool MAPS, typename Sym>
-__global__ void __launch_bounds__(DP_THREADS)
-dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
+__device__ __forceinline__ void dp_emit(const PipeArgs& a, const float* s_sim, bool sim_smem,
+                                        bool write, bool alive, int f, long long s,
+                                        int (*s_wc)[NWARPS]) {
   constexpr int B = 2 * E + 1;
   constexpr int NE = E + 1;
-  extern __shared__ float s_sim[];
-  __shared__ int s_wc[MAX_CHANNELS + 1][NWARPS];
-
-  load_sim(a.core, s_sim, sim_smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long g = (long long)blockIdx.x * DP_THREADS + tid;
   const int nch = B * a.MO;
-
-  // Expansion.
-  bool alive = false;
-  int f = 0;
-  long long s = 0;
-  if (g < a.K * a.n_combo) {
-    const int c = (int)(g / a.K);
-    const long long h = g - (long long)c * a.K;
-    const int col = __ldg(a.combos + c);
-    const int sh = __ldg(a.combos + a.n_combo + c);
-    const long long p = __ldg(a.pos + h);
-    const bool fired = ((__ldg(a.words + h * a.W2 + col) >> sh) & 1) != 0;
-    bool dup = false;
-    if (h > 0 && __ldg(a.pos + h - 1) + 1 == p)
-      dup = ((__ldg(a.words + (h - 1) * a.W2 + col) >> sh) & 1) != 0;
-    s = p + 1 - __ldg(a.combos + 3 * a.n_combo + c);
-    alive = fired && p >= 0 && p < a.pos_hi && s >= a.start_lo && s < a.start_hi &&
-            (__ldg(a.combos + 4 * a.n_combo + c) != 0 || !dup);
-    f = __ldg(a.combos + 2 * a.n_combo + c);
-  }
 
   // DP and the per-band minimum over the edit channels (strict <: the
   // lowest edit count wins penalty ties).
@@ -201,6 +190,56 @@ dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
   }
 }
 
+template <int E, bool DEADEND, bool MAPS, typename Sym>
+__global__ void __launch_bounds__(DP_THREADS)
+dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
+  extern __shared__ float s_sim[];
+  __shared__ int s_wc[MAX_CHANNELS + 1][NWARPS];
+
+  load_sim(a.core, s_sim, sim_smem);
+  const long long g = (long long)blockIdx.x * DP_THREADS + threadIdx.x;
+
+  // Expansion.
+  bool alive = false;
+  int f = 0;
+  long long s = 0;
+  if (g < a.K * a.n_combo) {
+    const int c = (int)(g / a.K);
+    const long long h = g - (long long)c * a.K;
+    const int col = __ldg(a.combos + c);
+    const int sh = __ldg(a.combos + a.n_combo + c);
+    const long long p = __ldg(a.pos + h);
+    const bool fired = ((__ldg(a.words + h * a.W2 + col) >> sh) & 1) != 0;
+    bool dup = false;
+    if (h > 0 && __ldg(a.pos + h - 1) + 1 == p)
+      dup = ((__ldg(a.words + (h - 1) * a.W2 + col) >> sh) & 1) != 0;
+    s = p + 1 - __ldg(a.combos + 3 * a.n_combo + c);
+    alive = fired && p >= 0 && p < a.pos_hi && s >= a.start_lo && s < a.start_hi &&
+            (__ldg(a.combos + 4 * a.n_combo + c) != 0 || !dup);
+    f = __ldg(a.combos + 2 * a.n_combo + c);
+  }
+
+  dp_emit<E, DEADEND, MAPS, Sym>(a, s_sim, sim_smem, write, alive, f, s, s_wc);
+}
+
+// Item g: candidate g of the list (field -1: a dead slot).
+template <int E, bool DEADEND>
+__global__ void __launch_bounds__(DP_THREADS)
+dp_list_kernel(PipeArgs a, bool sim_smem, bool write) {
+  extern __shared__ float s_sim[];
+  __shared__ int s_wc[MAX_CHANNELS + 1][NWARPS];
+
+  load_sim(a.core, s_sim, sim_smem);
+  const long long g = (long long)blockIdx.x * DP_THREADS + threadIdx.x;
+  int f = -1;
+  long long s = 0;
+  if (g < a.K) {
+    f = __ldg(a.cand_field + g);
+    s = __ldg(a.cand_start + g);
+  }
+  dp_emit<E, DEADEND, false, uint8_t>(a, s_sim, sim_smem, write, f >= 0, f, s, s_wc);
+}
+
 // The mapped lane has no multi-byte edges, so MAPS and DEADEND never meet.
 template <int E>
 cudaError_t launch_e(const PipeArgs& a, bool deadend, bool maps, bool u8, bool write,
@@ -226,6 +265,60 @@ cudaError_t launch_e(const PipeArgs& a, bool deadend, bool maps, bool u8, bool w
       dp_pipeline_kernel<E, false, false, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
   }
   return cudaGetLastError();
+}
+
+template <int E>
+cudaError_t launch_list_e(const PipeArgs& a, bool deadend, bool write, cudaStream_t stream) {
+  const size_t shm = sim_smem_bytes(a.core.C);
+  const unsigned g = (unsigned)a.nblk;
+  if (deadend)
+    dp_list_kernel<E, true><<<g, DP_THREADS, shm, stream>>>(a, shm != 0, write);
+  else
+    dp_list_kernel<E, false><<<g, DP_THREADS, shm, stream>>>(a, shm != 0, write);
+  return cudaGetLastError();
+}
+
+// The arguments both entries share; false where they are out of range.
+bool fill_core(PipeArgs& a, const void* ids, long long npad, long long limit,
+               const void* path_cls, const void* path_node, const void* depth,
+               const void* node, int Lmax, int F, const void* sim, int C,
+               const void* node_ceil, const void* sb_edge, const void* out_count, int N,
+               const void* out_list, int MO, const void* pat_len, const void* pat_weight,
+               float max_pen, float p_sub, float p_ins, float p_del, float p_swap,
+               float floor_, float bound, int E, long long nblk, void* counts,
+               const void* offsets, void* rows) {
+  if (E < 1 || E > MAX_E || Lmax < 1 || F < 1 || C < 1 || N < 1 || MO < 1 ||
+      (2 * E + 1) * MO > MAX_CHANNELS || limit < 0 || limit > npad || nblk > 0x7FFFFFFFll) {
+    return false;
+  }
+  a.core.ids = ids;
+  a.core.limit = limit;
+  a.core.path_cls = static_cast<const int32_t*>(path_cls);
+  a.core.path_node = static_cast<const int32_t*>(path_node);
+  a.core.depth = static_cast<const int32_t*>(depth);
+  a.core.Lmax = Lmax;
+  a.core.sim = static_cast<const float*>(sim);
+  a.core.C = C;
+  a.core.node_ceil = static_cast<const float*>(node_ceil);
+  a.core.sb_edge = static_cast<const int8_t*>(sb_edge);
+  a.core.out_count = static_cast<const int32_t*>(out_count);
+  a.core.max_pen = max_pen;
+  a.core.p_sub = p_sub;
+  a.core.p_ins = p_ins;
+  a.core.p_del = p_del;
+  a.core.p_swap = p_swap;
+  a.core.floor_ = floor_;
+  a.node = static_cast<const int32_t*>(node);
+  a.out_list = static_cast<const int32_t*>(out_list);
+  a.MO = MO;
+  a.pat_len = static_cast<const float*>(pat_len);
+  a.pat_weight = static_cast<const float*>(pat_weight);
+  a.bound = bound;
+  a.nblk = nblk;
+  a.counts = static_cast<int32_t*>(counts);
+  a.offsets = static_cast<const int32_t*>(offsets);
+  a.rows = static_cast<int32_t*>(rows);
+  return true;
 }
 
 }  // namespace
@@ -257,32 +350,16 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
                     int forbid, const void* map_tab, const void* map_rowptr,
                     const void* map_fields, int map_fw, int write, long long nblk,
                     void* counts, const void* offsets, void* rows, void* stream) {
-  if (K < 1 || W2 < 2 || n_combo < 1 || E < 1 || E > MAX_E || Lmax < 1 || F < 1 ||
-      C < 1 || N < 1 || MO < 1 || (2 * E + 1) * MO > MAX_CHANNELS || limit < 0 ||
-      limit > npad || nblk != (K * n_combo + DP_THREADS - 1) / DP_THREADS ||
-      nblk > 0x7FFFFFFFll || forbid < 0 || forbid > 15 ||
+  PipeArgs a{};
+  if (K < 1 || W2 < 2 || n_combo < 1 || nblk != (K * n_combo + DP_THREADS - 1) / DP_THREADS ||
+      forbid < 0 || forbid > 15 ||
       (map_tab != nullptr && (map_rowptr == nullptr || map_fields == nullptr ||
-                              map_fw < (F + 31) / 32))) {
+                              map_fw < (F + 31) / 32)) ||
+      !fill_core(a, ids, npad, limit, path_cls, path_node, depth, node, Lmax, F, sim, C,
+                 node_ceil, sb_edge, out_count, N, out_list, MO, pat_len, pat_weight, max_pen,
+                 p_sub, p_ins, p_del, p_swap, floor_, bound, E, nblk, counts, offsets, rows)) {
     return (int)cudaErrorInvalidValue;
   }
-  PipeArgs a;
-  a.core.ids = ids;
-  a.core.limit = limit;
-  a.core.path_cls = static_cast<const int32_t*>(path_cls);
-  a.core.path_node = static_cast<const int32_t*>(path_node);
-  a.core.depth = static_cast<const int32_t*>(depth);
-  a.core.Lmax = Lmax;
-  a.core.sim = static_cast<const float*>(sim);
-  a.core.C = C;
-  a.core.node_ceil = static_cast<const float*>(node_ceil);
-  a.core.sb_edge = static_cast<const int8_t*>(sb_edge);
-  a.core.out_count = static_cast<const int32_t*>(out_count);
-  a.core.max_pen = max_pen;
-  a.core.p_sub = p_sub;
-  a.core.p_ins = p_ins;
-  a.core.p_del = p_del;
-  a.core.p_swap = p_swap;
-  a.core.floor_ = floor_;
   a.core.forbid = forbid;
   a.core.map_tab = static_cast<const int32_t*>(map_tab);
   a.core.map_rowptr = static_cast<const int32_t*>(map_rowptr);
@@ -297,16 +374,6 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
   a.start_lo = start_lo;
   a.start_hi = start_hi;
   a.pos_hi = pos_hi;
-  a.node = static_cast<const int32_t*>(node);
-  a.out_list = static_cast<const int32_t*>(out_list);
-  a.MO = MO;
-  a.pat_len = static_cast<const float*>(pat_len);
-  a.pat_weight = static_cast<const float*>(pat_weight);
-  a.bound = bound;
-  a.nblk = nblk;
-  a.counts = static_cast<int32_t*>(counts);
-  a.offsets = static_cast<const int32_t*>(offsets);
-  a.rows = static_cast<int32_t*>(rows);
   const bool de = deadend != 0, mp = map_tab != nullptr, u8 = ids_u8 != 0, wr = write != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (E) {
@@ -316,6 +383,43 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
     case 4: return (int)launch_e<4>(a, de, mp, u8, wr, s);
     case 5: return (int)launch_e<5>(a, de, mp, u8, wr, s);
     case 6: return (int)launch_e<6>(a, de, mp, u8, wr, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// cand_field, cand_start: int32 [M] (field -1: a dead slot); ids: u8
+// [npad]; the DP and emission tables as fac_dp_pipeline takes them. write ==
+// 0: counts int32 [(2E+1) MO + 1, nblk] is written (the last row: live
+// candidates); write == 1: offsets (their exclusive scan) is read and rows
+// int32 [total, 5] written, channel-major, candidates in order. Returns the
+// launch's cudaError_t (0 = launched).
+int fac_dp_list(const void* cand_field, const void* cand_start, long long M, const void* ids,
+                long long npad, long long limit, const void* path_cls, const void* path_node,
+                const void* depth, const void* node, int Lmax, int F, const void* sim, int C,
+                const void* node_ceil, const void* sb_edge, const void* out_count, int N,
+                const void* out_list, int MO, const void* pat_len, const void* pat_weight,
+                float max_pen, float p_sub, float p_ins, float p_del, float p_swap,
+                float floor_, float bound, int E, int deadend, int write, long long nblk,
+                void* counts, const void* offsets, void* rows, void* stream) {
+  PipeArgs a{};
+  if (M < 1 || nblk != (M + DP_THREADS - 1) / DP_THREADS ||
+      !fill_core(a, ids, npad, limit, path_cls, path_node, depth, node, Lmax, F, sim, C,
+                 node_ceil, sb_edge, out_count, N, out_list, MO, pat_len, pat_weight, max_pen,
+                 p_sub, p_ins, p_del, p_swap, floor_, bound, E, nblk, counts, offsets, rows)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.cand_field = static_cast<const int32_t*>(cand_field);
+  a.cand_start = static_cast<const int32_t*>(cand_start);
+  a.K = M;
+  const bool de = deadend != 0, wr = write != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (E) {
+    case 1: return (int)launch_list_e<1>(a, de, wr, s);
+    case 2: return (int)launch_list_e<2>(a, de, wr, s);
+    case 3: return (int)launch_list_e<3>(a, de, wr, s);
+    case 4: return (int)launch_list_e<4>(a, de, wr, s);
+    case 5: return (int)launch_list_e<5>(a, de, wr, s);
+    case 6: return (int)launch_list_e<6>(a, de, wr, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,5 @@
 // Packed multi-pattern shift-AND (Wu-Manber) NFA for Hopper (sm_90a): the
-// ordered hit-list scan.
+// ordered hit-list scan at W = 1..8 limbs (scan_wide.cu takes W = 9..64).
 //
 // Replaces the JAX package's one Pallas kernel body
 // (fuzzy_aho_corasick_tpu/ops/packed_bitap.py::_kernel_factory) in its two
@@ -72,109 +72,11 @@
 // to its threads, so a run of hits costs one replay's latency. Hits are
 // ~1e-3 of positions, so it is small beside the scan.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "packed_bitap.cuh"
 
 namespace {
 
-constexpr int BLOCK_SYMS = 16384;    // stream symbols per block of the scan
-constexpr int BLOCK_WORDS = BLOCK_SYMS / 32;
-// Symbols one thread scans, the caller's choice within these limits: a
-// multiple of 32 (whole bit words) that gives the block whole warps.
-constexpr int CHUNK_MIN = 128, CHUNK_MAX = 512;
-constexpr int SCAN_THREADS_MAX = BLOCK_SYMS / CHUNK_MIN;
-constexpr int HITS_THREADS = 256;
-constexpr int HITS_WORDS = BLOCK_WORDS / HITS_THREADS;  // bit words per thread
-constexpr int OFFSETS_THREADS = 1024;
-constexpr int HALO_MAX = 128;
-constexpr int MAX_A = 128;
-constexpr int MAX_W = 8;
-constexpr int MAX_K = 6;
-
-static_assert(CHUNK_MIN % 32 == 0 && BLOCK_SYMS % CHUNK_MAX == 0 &&
-              (BLOCK_SYMS / CHUNK_MAX) % 32 == 0, "whole bit words and whole warps");
-static_assert(BLOCK_WORDS % HITS_THREADS == 0 && HITS_WORDS >= 1,
-              "hit_words_kernel gives every thread the same number of bit words");
-
-struct Tables {
-  const uint64_t* tbl;      // [A, W] per-symbol limb words (symbol 0 all-zero)
-  const uint64_t* starts;   // [W] bit 0 of every field
-  const uint64_t* match;    // [k + 1, W] last bit of every field, per row
-  const uint64_t* init;     // [k + 1, W] fresh-start state
-  const uint64_t* notlast;  // [W] every field's last bit cleared, or null
-};
-
-// Per-chain NFA state. K is the row count the instance is built for: for
-// K <= 2 the call's k equals K; the K == MAX_K instance serves k = 3..6 and
-// masks the rows past k at run time. Every array index is static, so the
-// state stays in registers.
-template <int W, int K, bool DAM>
-struct Nfa {
-  static constexpr int ROWS = (K + 1) + (DAM ? K : 0);
-  static constexpr bool MASKED = K == MAX_K;
-  uint64_t r[ROWS][W];
-
-  __device__ __forceinline__ void reset(const uint64_t* s_init) {
-#pragma unroll
-    for (int d = 0; d <= K; ++d)
-#pragma unroll
-      for (int w = 0; w < W; ++w) r[d][w] = s_init[d * W + w];  // rows > k hold 0
-#pragma unroll
-    for (int d = K + 1; d < ROWS; ++d)
-#pragma unroll
-      for (int w = 0; w < W; ++w) r[d][w] = 0ull;
-  }
-
-  // Advance one symbol; out[w] = OR over rows of (new & match) for limb w.
-  __device__ __forceinline__ void step(const uint64_t* s_tbl, int sym,
-                                       const uint64_t* st, const uint64_t* nl,
-                                       const uint64_t* s_match, int k,
-                                       uint64_t* out) {
-    const uint64_t* row = s_tbl + (sym & (MAX_A - 1)) * W;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const uint64_t bc = row[w];
-      const uint64_t old0 = r[0][w];
-      uint64_t x = (old0 << 1) | st[w];  // ((prev[d-1] << 1) | starts), d = 1
-      const uint64_t n0 = x & bc;
-      r[0][w] = n0;
-      uint64_t acc = n0 & s_match[w];
-      uint64_t bcn = 0;
-      if constexpr (DAM) bcn = (bc >> 1) & nl[w];
-      uint64_t prev_dm1 = old0, new_dm1 = n0;
-#pragma unroll
-      for (int d = 1; d <= K; ++d) {
-        if (!MASKED || d <= k) {
-          const uint64_t old = r[d][w];
-          uint64_t carry = prev_dm1 | new_dm1;
-          if constexpr (DAM) {
-            carry |= r[K + d][w] & bc;
-            r[K + d][w] = x & bcn;
-          }
-          const uint64_t nd = ((old << 1) & bc) | (carry << 1) | prev_dm1 | st[w];
-          r[d][w] = nd;
-          acc |= nd & s_match[d * W + w];
-          x = (old << 1) | st[w];
-          prev_dm1 = old;
-          new_dm1 = nd;
-        }
-      }
-      out[w] = acc;
-    }
-  }
-
-  // Advance one symbol; whether some field's match bit is set.
-  __device__ __forceinline__ bool step_any(const uint64_t* s_tbl, int sym,
-                                           const uint64_t* st, const uint64_t* nl,
-                                           const uint64_t* s_match, int k) {
-    uint64_t out[W];
-    step(s_tbl, sym, st, nl, s_match, k, out);
-    uint64_t any = 0;
-#pragma unroll
-    for (int w = 0; w < W; ++w) any |= out[w];
-    return any != 0;
-  }
-};
+using namespace fac_scan;
 
 // Loads the tables shared by both kernels into shared memory / registers.
 // Rows past the call's k (the masked instance) read as zero.
@@ -195,40 +97,6 @@ __device__ __forceinline__ void load_tables(const Tables& tb, int A, int k,
     st[w] = tb.starts[w];
     nl[w] = tb.notlast != nullptr ? tb.notlast[w] : ~0ull;
   }
-}
-
-__device__ __forceinline__ int sym_at(const uint8_t* __restrict__ ids, long long n,
-                                      long long q) {
-  return (q >= 0 && q < n) ? (int)__ldg(ids + q) : 0;
-}
-
-// Stream bytes [g, g + 16) as four little-endian words; bytes outside the
-// stream read as 0. One 16-byte load where the address allows it.
-__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ ids, long long n,
-                                        long long g, bool aligned) {
-  if (aligned && g >= 0 && g + 16 <= n) {
-    return __ldg(reinterpret_cast<const uint4*>(ids + g));
-  }
-  uint32_t v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) word |= (uint32_t)sym_at(ids, n, g + 4 * j + b) << (8 * b);
-    v[j] = word;
-  }
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ uint32_t pick(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// Bits of positions >= n cleared from the word that covers [p, p + 32).
-__device__ __forceinline__ uint32_t clip_word(uint32_t word, long long p, long long n) {
-  if (p >= n) return 0u;
-  if (p + 32 > n) return word & ((1u << (int)(n - p)) - 1u);
-  return word;
 }
 
 // One thread scans ``chunk`` symbols; the block of BLOCK_SYMS / chunk
@@ -355,44 +223,13 @@ hit_words_kernel(const uint8_t* __restrict__ ids, long long n,
   __shared__ uint64_t s_init[(K + 1) * W];
   __shared__ int s_warp[HITS_THREADS / 32];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int base = offsets[blockIdx.x], next = offsets[blockIdx.x + 1];
   if (next == base) return;  // no hit in this block
   uint64_t st[W], nl[W];
   load_tables<W, K>(tb, A, k, s_tbl, s_match, s_init, st, nl, tid, HITS_THREADS);
 
-  const long long word0 = (long long)blockIdx.x * BLOCK_WORDS + tid * HITS_WORDS;
-  uint32_t mine[HITS_WORDS];
-  int cnt = 0;
-#pragma unroll
-  for (int j = 0; j < HITS_WORDS; ++j) {
-    mine[j] = bits[word0 + j];
-    cnt += __popc(mine[j]);
-  }
-  int incl = cnt;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-    if (lane >= o) incl += up;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();  // also orders the table loads before the replays
-  int rank = base + incl - cnt;
-  for (int w = 0; w < warp; ++w) rank += s_warp[w];
-
-  // Positions first, in order; then the block's hits are dealt out to its
-  // threads one each, so a run of hits inside one bit word is replayed by
-  // as many threads and not by one.
-#pragma unroll
-  for (int j = 0; j < HITS_WORDS; ++j) {
-    uint32_t m = mine[j];
-    while (m != 0) {
-      const int bit = __ffs(m) - 1;
-      m &= m - 1;
-      pos[rank++] = (word0 + j) * 32 + bit;
-    }
-  }
-  __syncthreads();  // the block's positions are written
+  block_positions(bits, base, pos, s_warp);
   for (int r = base + tid; r < next; r += HITS_THREADS) {
     const long long p = pos[r];
     Nfa<W, K, DAM> nfa;
@@ -412,20 +249,6 @@ hit_words_kernel(const uint8_t* __restrict__ ids, long long n,
     }
   }
 }
-
-struct Call {
-  bool hits;  // false: scan_bits_kernel, true: hit_words_kernel
-  const uint8_t* ids;
-  long long n, nblocks;
-  Tables tb;
-  int A, k, halo;
-  int chunk;  // symbols per thread of the scan
-  uint32_t* bits;
-  int* counts;  // block counts (scan) or their exclusive offsets (hits)
-  long long* pos;
-  long long* words;
-  cudaStream_t stream;
-};
 
 template <int W, int K, bool DAM>
 cudaError_t launch_scan(const Call& c) {
@@ -464,11 +287,7 @@ cudaError_t launch_w(const Call& c) {
 }
 
 cudaError_t dispatch(const Call& c, int W) {
-  if (c.A < 1 || c.A > MAX_A || W < 1 || W > MAX_W || c.k < 0 || c.k > MAX_K ||
-      c.halo < 1 || c.halo > HALO_MAX || c.n < 1 ||
-      c.nblocks != (c.n + BLOCK_SYMS - 1) / BLOCK_SYMS || c.nblocks > 0x7FFFFFFFll) {
-    return cudaErrorInvalidValue;
-  }
+  if (!call_ok(c) || W < 1 || W > MAX_W) return cudaErrorInvalidValue;
   switch (W) {
     case 1: return launch_w<1>(c);
     case 2: return launch_w<2>(c);
@@ -480,13 +299,6 @@ cudaError_t dispatch(const Call& c, int W) {
     case 8: return launch_w<8>(c);
     default: return cudaErrorInvalidValue;
   }
-}
-
-Tables tables_of(const void* tbl, const void* starts, const void* match,
-                 const void* init, const void* notlast) {
-  return Tables{static_cast<const uint64_t*>(tbl), static_cast<const uint64_t*>(starts),
-                static_cast<const uint64_t*>(match), static_cast<const uint64_t*>(init),
-                static_cast<const uint64_t*>(notlast)};
 }
 
 }  // namespace
@@ -505,10 +317,8 @@ int fac_scan_bits(const void* ids, long long n, const void* tbl,
                   const void* starts, const void* match, const void* init,
                   const void* notlast, int A, int W, int k, int halo, int chunk,
                   long long nblocks, void* bits, void* counts, void* stream) {
-  const Call c{false, static_cast<const uint8_t*>(ids), n, nblocks,
-               tables_of(tbl, starts, match, init, notlast), A, k, halo, chunk,
-               static_cast<uint32_t*>(bits), static_cast<int*>(counts), nullptr,
-               nullptr, static_cast<cudaStream_t>(stream)};
+  const Call c = make_call(false, ids, n, nblocks, tbl, starts, match, init, notlast, A, k,
+                           halo, chunk, bits, counts, nullptr, nullptr, stream);
   return (int)dispatch(c, W);
 }
 
@@ -528,12 +338,8 @@ int fac_hit_words(const void* ids, long long n, const void* bits,
                   const void* match, const void* init, const void* notlast,
                   int A, int W, int k, int halo, long long nblocks, void* pos,
                   void* words, void* stream) {
-  const Call c{true, static_cast<const uint8_t*>(ids), n, nblocks,
-               tables_of(tbl, starts, match, init, notlast), A, k, halo, 0,
-               static_cast<uint32_t*>(const_cast<void*>(bits)),
-               static_cast<int*>(const_cast<void*>(offsets)),
-               static_cast<long long*>(pos), static_cast<long long*>(words),
-               static_cast<cudaStream_t>(stream)};
+  const Call c = make_call(true, ids, n, nblocks, tbl, starts, match, init, notlast, A, k,
+                           halo, 0, bits, offsets, pos, words, stream);
   return (int)dispatch(c, W);
 }
 

@@ -29,10 +29,11 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("packed_bitap.cu", "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu")
+    for name in ("packed_bitap.cu", "scan_wide.cu", "many_expand.cu", "banded_dp.cu",
+                 "dp_pipeline.cu", "dp_typed.cu")
 )
 #: Headers the sources include (part of the build's hash).
-HEADERS = (_PKG / "csrc" / "banded_dp.cuh",)
+HEADERS = tuple(_PKG / "csrc" / name for name in ("packed_bitap.cuh", "banded_dp.cuh"))
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,12 +51,32 @@ _SIGNATURES = {
     # bits, counts, stream
     "fac_scan_bits": [_c_void_p, _c_ll] + [_c_void_p] * 5 + [_c_int] * 5
     + [_c_ll] + [_c_void_p] * 3,
+    # the same for W = 9..64 (csrc/scan_wide.cu)
+    "fac_scan_bits_wide": [_c_void_p, _c_ll] + [_c_void_p] * 5 + [_c_int] * 5
+    + [_c_ll] + [_c_void_p] * 3,
     # counts, len, offsets, stream
     "fac_block_offsets": [_c_void_p, _c_ll, _c_void_p, _c_void_p],
     # ids, n, bits, offsets, tbl, starts, match, init, notlast, A, W, k, halo,
     # nblocks, pos, words, stream
     "fac_hit_words": [_c_void_p, _c_ll] + [_c_void_p] * 7 + [_c_int] * 4
     + [_c_ll] + [_c_void_p] * 3,
+    # the same for W = 9..64 (csrc/scan_wide.cu)
+    "fac_hit_words_wide": [_c_void_p, _c_ll] + [_c_void_p] * 7 + [_c_int] * 4
+    + [_c_ll] + [_c_void_p] * 3,
+    # pos, words, K, h0, W2, field, shift, depth, pc, R, E, start_lo,
+    # start_hi, pos_hi, ids, npad, k, rd_min, rd_max, write, nblk, counts,
+    # offsets, cand_field, cand_start, stream
+    "fac_many_expand": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int] + [_c_void_p] * 4
+    + [_c_int] * 2 + [_c_ll] * 3 + [_c_void_p, _c_ll] + [_c_int] * 4 + [_c_ll]
+    + [_c_void_p] * 5,
+    # cand_field, cand_start, M, ids, npad, limit, path_cls, path_node, depth,
+    # node, Lmax, F, sim, C, node_ceil, sb_edge, out_count, N, out_list, MO,
+    # pat_len, pat_weight, max_pen, p_sub, p_ins, p_del, p_swap, floor, bound,
+    # E, deadend, write, nblk, counts, offsets, rows, stream
+    "fac_dp_list": [_c_void_p, _c_void_p, _c_ll, _c_void_p, _c_ll, _c_ll] + [_c_void_p] * 4
+    + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int]
+    + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3 + [_c_ll]
+    + [_c_void_p] * 4,
     # cand_field, cand_start, M, ids, ids_u8, npad, limit, path_cls,
     # path_node, depth, Lmax, F, sim, C, node_ceil, sb_edge, out_count, N,
     # max_pen, p_sub, p_ins, p_del, p_swap, floor, E, deadend, forbid,
@@ -92,6 +113,8 @@ _SIGNATURES = {
     + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 4
     + [_c_int] * 2 + [_c_ll] + [_c_void_p] * 4,
     "fac_scan_block_syms": [],
+    "fac_scan_wide_chunk": [],
+    "fac_many_expand_items": [],
     "fac_dp_pipeline_threads": [],
     "fac_dp_pipeline_typed_unit": [],
 }

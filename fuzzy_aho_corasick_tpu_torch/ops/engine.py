@@ -7,13 +7,14 @@ lane exactly when the JAX package claims it (the host-only spec builders of
 ``ops/verify_dp`` decide the mapped and typed lanes, as there); everything
 else is served by the host oracle.
 
-Ported lanes: exact (``ops/exact``) and the DP family of ``ops/verify_dp``
-— the FAST fuzzy lane (``ops/fuzzy``; beamed engines too), and the forbid,
-typed and mapped lanes. The large-dictionary lane and the beam lanes are not
-ported yet: where the JAX package would serve an engine on one of them,
-``search_raw`` raises ``NotImplementedError`` naming its ROADMAP item, so a
-device-sized haystack never runs on the pure-Python oracle in their place.
-Where the JAX package itself falls back to the oracle, so does the port.
+Ported lanes: exact (``ops/exact``), the DP family of ``ops/verify_dp`` —
+the FAST fuzzy lane (``ops/fuzzy``; beamed engines too), and the forbid,
+typed and mapped lanes — and the large-dictionary lane (``ops/many``). The
+beam lanes are not ported yet: where the JAX package would serve an engine
+on one of them, ``search_raw`` raises ``NotImplementedError`` naming its
+ROADMAP item, so a device-sized haystack never runs on the pure-Python oracle
+in their place. Where the JAX package itself falls back to the oracle, so
+does the port.
 """
 
 from __future__ import annotations
@@ -43,13 +44,6 @@ def _max_edit_budget(engine) -> Optional[int]:
         if lim is not None:
             budget = max(budget, edits_of(lim))
     return budget
-
-
-def _not_ported(lane: str, item: str):
-    raise NotImplementedError(
-        f"this engine needs the {lane}, which is not ported to the torch "
-        f"package yet (ROADMAP queue A item {item})"
-    )
 
 
 class DeviceEngine:
@@ -135,9 +129,10 @@ class DeviceEngine:
                 from .fuzzy import fuzzy_search_device
 
                 return fuzzy_search_device(e, haystack, threshold)
-            # Beamed: the DP lane only. Where it declines, the JAX package
-            # takes the large-dictionary lane if the engine does not pack,
-            # else the beamed host oracle.
+            # Beamed: the DP lane, then the large-dictionary lane if the
+            # engine does not pack; where they decline, the beamed host
+            # oracle (the JAX package's order).
+            from .many import fuzzy_search_many
             from .packed_bitap import packed_fuzzy_of
             from .verify_dp import fuzzy_search_dp
 
@@ -146,11 +141,11 @@ class DeviceEngine:
             if n == 0:
                 return []
             res = fuzzy_search_dp(e, haystack, threshold, view, n)
-            if res is not None:
-                return res
-            if packed_fuzzy_of(e) is None:
-                _not_ported("large-dictionary lane", "5")
-            return oracle.search_raw(e, haystack, threshold)
+            if res is None and packed_fuzzy_of(e) is None:
+                res = fuzzy_search_many(e, haystack, threshold, view, n)
+            if res is None:
+                return oracle.search_raw(e, haystack, threshold)
+            return res
         if self._mapped_ok:
             from .verify_dp import fuzzy_search_mapped_device
 

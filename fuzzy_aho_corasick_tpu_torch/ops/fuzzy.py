@@ -3,15 +3,14 @@
 The JAX package serves these engines on three device lanes, tried in order
 (its ``ops/fuzzy.fuzzy_search_device``):
 
-1. the banded-DP verify lane (``ops/verify_dp.fuzzy_search_dp``) — ported;
-2. the large-dictionary lane (``ops/many``) when the dictionary does not fit
-   the packed scan tables — not ported yet (ROADMAP queue A item 5);
+1. the banded-DP verify lane (``ops/verify_dp.fuzzy_search_dp``);
+2. the large-dictionary lane (``ops/many.fuzzy_search_many``) when the
+   dictionary does not fit the packed scan tables;
 3. the beam-frontier kernels (the fused E=1 pipeline and the chunked beam
    rounds) — not ported yet (ROADMAP queue A item 7).
 
-Where the DP lane declines, the port raises ``NotImplementedError`` naming the
-lane the JAX package would take instead; it never runs the pure-Python
-oracle in its place.
+Where the first two decline, the port raises ``NotImplementedError`` naming
+the beam lanes; it never runs the pure-Python oracle in their place.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import numpy as np
 def fuzzy_search_device(engine, haystack: str, threshold: float, view=None) -> List["FuzzyMatch"]:
     """Device fuzzy search (FAST-path configs): oracle-identical matches."""
     from ..utils.graphemes import view_of
+    from .many import fuzzy_search_many
     from .packed_bitap import packed_fuzzy_of
     from .verify_dp import fuzzy_search_dp
 
@@ -41,13 +41,11 @@ def fuzzy_search_device(engine, haystack: str, threshold: float, view=None) -> L
     if dp is not None:
         return dp
     if packed_fuzzy_of(engine) is None:
-        raise NotImplementedError(
-            "this engine's dictionary does not fit the packed scan tables; the "
-            "large-dictionary lane that serves it is not ported to the torch "
-            "package yet (ROADMAP queue A item 5)"
-        )
+        res = fuzzy_search_many(engine, haystack, threshold, view, n)
+        if res is not None:
+            return res
     raise NotImplementedError(
-        "the fuzzy DP lane declined this search; the beam-frontier lanes that "
-        "serve it are not ported to the torch package yet (ROADMAP queue A "
-        "item 7)"
+        "the fuzzy DP and large-dictionary lanes declined this search; the "
+        "beam-frontier lanes that serve it are not ported to the torch "
+        "package yet (ROADMAP queue A item 7)"
     )

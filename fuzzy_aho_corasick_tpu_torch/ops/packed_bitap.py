@@ -30,6 +30,12 @@ Device work, per search (:func:`packed_hits`), three kernels of
    ascending hit positions behind its offset and replays the NFA from the
    fresh state over each hit's trailing ``halo`` symbols for its match words.
 
+Tables of up to ``MAX_LIMBS`` limbs run those kernels; wider ones, up to
+``MAX_SCAN_LIMBS`` (the large-dictionary lane, ``ops/many``), run
+``scan_bits_wide_kernel`` and ``hit_words_wide_kernel`` of
+``csrc/scan_wide.cu``, whose outputs are the same, so the plain versions and
+``block_offsets`` serve both.
+
 Each wrapper runs its plain torch version (``scan_bits_torch``,
 ``block_offsets_torch``, ``hit_words_torch``; built from
 ``scan_flags_torch``, ``torch.nonzero`` and ``replay_words_torch``) for
@@ -56,8 +62,11 @@ from .compact import compact_indices
 #: Max packed alphabet (the kernels hold the [A, W] word table in shared
 #: memory and mask symbols to 7 bits).
 MAX_ALPHABET_PACKED = 128
-#: Max u64 limbs (the kernels are instantiated for W = 1..8).
+#: Max u64 limbs of the packed DP lanes' tables (the narrow kernels are
+#: instantiated for W = 1..8).
 MAX_LIMBS = 8
+#: Max u64 limbs the scan takes (the wide kernels serve W = 9..64).
+MAX_SCAN_LIMBS = 64
 #: Max error rows the kernels are instantiated for.
 MAX_K = 6
 #: Largest warm-up halo the scan kernels take (m_max + k <= 64 + 6).
@@ -74,6 +83,9 @@ PLAIN_CHUNK = 256
 SCAN_BLOCK_SYMS = 16384
 #: Chunk lengths ``scan_bits_kernel`` takes (symbols per thread), longest first.
 SCAN_CHUNKS = (512, 256, 128)
+#: Symbols one chain of ``scan_bits_wide_kernel`` scans (WIDE_CHUNK in
+#: ``csrc/scan_wide.cu``; the wrapper checks it against the built library).
+SCAN_WIDE_CHUNK = 512
 #: Threads per multiprocessor a chunk length must leave the scan (see
 #: :func:`scan_chunk`): 20 warps, five per scheduler. On an H100 80GB HBM3
 #: (700 W) this picked a length within 8 % of the best of the three on
@@ -81,10 +93,14 @@ SCAN_CHUNKS = (512, 256, 128)
 SCAN_FILL_THREADS = 640
 
 #: Kernel launches per wrapper (CUDA launches only; the plain versions on CPU
-#: tensors do not count). ``dp`` counts ``verify_dp.banded_dp`` and
-#: ``dp_pipeline`` both passes of ``verify_dp.dp_pipeline``.
+#: tensors do not count). ``dp`` counts ``verify_dp.banded_dp``,
+#: ``dp_pipeline`` both passes of ``verify_dp.dp_pipeline``; ``scan_bits`` and
+#: ``hit_words`` count the narrow kernels, the ``_wide`` keys the wide ones;
+#: ``many_expand`` and ``dp_list`` both passes of ``many.many_expand`` and
+#: ``many.dp_list``.
 LAUNCHES = {"scan_bits": 0, "block_offsets": 0, "hit_words": 0, "dp": 0, "dp_pipeline": 0,
-            "dp_typed": 0, "dp_pipeline_typed": 0}
+            "dp_typed": 0, "dp_pipeline_typed": 0, "scan_bits_wide": 0, "hit_words_wide": 0,
+            "many_expand": 0, "dp_list": 0}
 
 _M32 = 0xFFFFFFFF
 
@@ -542,7 +558,7 @@ def _check(ids: torch.Tensor, T: ScanTables, halo: int) -> None:
         raise ValueError(f"no scan kernel for device {ids.device}")
     if not (1 <= halo <= HALO_MAX):
         raise ValueError(f"halo {halo} outside 1..{HALO_MAX}")
-    if T.A > MAX_ALPHABET_PACKED or T.W > MAX_LIMBS or T.k > MAX_K:
+    if T.A > MAX_ALPHABET_PACKED or T.W > MAX_SCAN_LIMBS or T.k > MAX_K:
         raise ValueError(f"tables A={T.A} W={T.W} k={T.k} beyond the kernel limits")
     if not 1 <= ids.numel() < 1 << 31:
         raise ValueError(f"stream of {ids.numel()} symbols outside 1..2^31 - 1")
@@ -566,6 +582,10 @@ def _kernels():
         raise RuntimeError(
             f"library scans {kern.lib.fac_scan_block_syms()} symbols per block, "
             f"SCAN_BLOCK_SYMS is {SCAN_BLOCK_SYMS}")
+    if kern.lib.fac_scan_wide_chunk() != SCAN_WIDE_CHUNK:
+        raise RuntimeError(
+            f"library's wide scan takes {kern.lib.fac_scan_wide_chunk()} symbols per chain, "
+            f"SCAN_WIDE_CHUNK is {SCAN_WIDE_CHUNK}")
     return kern
 
 
@@ -587,27 +607,32 @@ def scan_bits(ids: torch.Tensor, T: ScanTables, halo: int, chunk: Optional[int] 
     :func:`scan_bits_torch`). CPU tensors run the plain version; CUDA tensors
     launch ``scan_bits_kernel``, each thread scanning ``chunk`` symbols
     (:func:`scan_chunk` of the stream where None; the result does not depend
-    on it)."""
+    on it), or for tables wider than ``MAX_LIMBS`` ``scan_bits_wide_kernel``,
+    each chain scanning ``SCAN_WIDE_CHUNK``."""
     _check(ids, T, halo)
-    if chunk is not None and chunk not in SCAN_CHUNKS:
-        raise ValueError(f"chunk {chunk} is none of {SCAN_CHUNKS}")
+    wide = T.W > MAX_LIMBS
+    chunks = (SCAN_WIDE_CHUNK,) if wide else SCAN_CHUNKS
+    if chunk is not None and chunk not in chunks:
+        raise ValueError(f"chunk {chunk} is none of {chunks}")
     if ids.device.type == "cpu":
         return scan_bits_torch(ids, T, halo)
     n = ids.numel()
     if chunk is None:
-        chunk = scan_chunk(n, ids.device)
+        chunk = SCAN_WIDE_CHUNK if wide else scan_chunk(n, ids.device)
     nblocks = -(-n // SCAN_BLOCK_SYMS)
     bits = torch.empty(nblocks * (SCAN_BLOCK_SYMS // 32), dtype=torch.int32, device=ids.device)
     counts = torch.empty(nblocks, dtype=torch.int32, device=ids.device)
     kern = _kernels()
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = kern.lib.fac_scan_bits(
+        entry = kern.lib.fac_scan_bits_wide if wide else kern.lib.fac_scan_bits
+        rc = entry(
             ids.data_ptr(), n, *_tables_args(T), halo, chunk, nblocks,
             bits.data_ptr(), counts.data_ptr(), stream,
         )
-    kern.check(rc, "scan_bits")
-    LAUNCHES["scan_bits"] += 1
+    name = "scan_bits_wide" if wide else "scan_bits"
+    kern.check(rc, name)
+    LAUNCHES[name] += 1
     return bits, counts
 
 
@@ -639,7 +664,8 @@ def hit_words(ids: torch.Tensor, bits: torch.Tensor, offsets: torch.Tensor,
     the bit words and block offsets of :func:`scan_bits` and
     :func:`block_offsets`; ``count`` is ``offsets[-1]``, read by the caller.
     CPU tensors run :func:`hit_words_torch`; CUDA tensors launch
-    ``hit_words_kernel``."""
+    ``hit_words_kernel``, or ``hit_words_wide_kernel`` for tables wider than
+    ``MAX_LIMBS``."""
     _check(ids, T, halo)
     nblocks = -(-ids.numel() // SCAN_BLOCK_SYMS)
     _check_int32("bits", bits, nblocks * (SCAN_BLOCK_SYMS // 32), ids.device)
@@ -654,12 +680,15 @@ def hit_words(ids: torch.Tensor, bits: torch.Tensor, offsets: torch.Tensor,
     kern = _kernels()
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = kern.lib.fac_hit_words(
+        wide = T.W > MAX_LIMBS
+        entry = kern.lib.fac_hit_words_wide if wide else kern.lib.fac_hit_words
+        rc = entry(
             ids.data_ptr(), ids.numel(), bits.data_ptr(), offsets.data_ptr(),
             *_tables_args(T), halo, nblocks, pos.data_ptr(), words.data_ptr(), stream,
         )
-    kern.check(rc, "hit_words")
-    LAUNCHES["hit_words"] += 1
+    name = "hit_words_wide" if wide else "hit_words"
+    kern.check(rc, name)
+    LAUNCHES[name] += 1
     return pos, words
 
 

@@ -75,6 +75,33 @@ def test_ascii_fuzzy_search_runs_without_jax_or_regex():
     assert state_line == "device-fuzzy-dp False False"
 
 
+def test_large_dictionary_search_runs_without_jax_or_regex():
+    """The large-dictionary lane (``ops/many``: the wide scan, the sparse
+    expansion and the DP over a candidate list) in a child without JAX."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    words = sorted({"".join("abcdefghijklmnopqrstuvwxyz"[i] for i in rng.integers(0, 26, size=9))
+                    for _ in range(120)})
+    hay = " ".join(w[:3] + "q" + w[4:] if i % 2 else w for i, w in enumerate(words[:30]))
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD, str(ROOT), hay, ",".join(words), "1"],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    matches_line, state_line = out.stdout.strip().splitlines()[-2:]
+    from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+
+    ref = JaxBuilder.new().fuzzy(JaxLimits.new().edits(1)).case_insensitive(True).build(words)
+    ref.backend = "oracle"
+    want = sorted((m.pattern_index, m.start, m.end) for m in ref.search_raw(hay, 0.8))
+    assert len(want) >= 30
+    assert matches_line == repr(want)
+    assert state_line == "device-fuzzy-many False False"
+
+
 def test_port_sources_import_no_jax():
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|fuzzy_aho_corasick_tpu)(\.|\s|$)", re.M
