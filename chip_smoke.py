@@ -84,6 +84,19 @@ CUDA kernel they run against its plain torch version. Phases:
    word context of the 24 MiB, begun in phase 3); launches, copies and waits
    per search, the stages, and per chunk its hits, pairs, candidates and
    rows;
+4g. exact-wide: the first 300 many1k words built exact (case-insensitive,
+   threshold 0.5) over the 24 MiB many1k corpus with 4,000 exact copies of
+   them planted: the wide packed scan at k = 0 (W between 9 and 64 limbs;
+   the JAX package walks such a dictionary), timed as 4c-4e, launching
+   ``scan_bits_wide``, ``block_offsets`` and ``hit_words_wide`` and no other
+   kernel, equal to an independent overlapping ``str.find`` set and to the
+   oracle on 32 KiB with 300 planted words;
+4h. exact1k: all 1,000 words, exact, over the same corpus: past 64 limbs,
+   so the goto walk (torch code, no kernel of ``csrc/``) serves it; checked
+   as 4g, with the walk's stage times (root step, compaction, walk,
+   readback) and its bound; then a 70-character pattern (past the packed
+   lane's 64) over 1 MiB with 64 planted runs of 70-80 a's against
+   ``str.find``;
 5. parity (run between phases 3 and 4, while the context oracle's workers
    are busy): device vs the port's oracle on 64 KiB (exact) and 32 KiB with
    planted edits (fuzzy, each of the three lanes, and a typed engine with
@@ -102,7 +115,13 @@ CUDA kernel they run against its plain torch version. Phases:
    its instruction rate), their agreement there, and the scan at each chunk
    length it takes on streams around the lengths where the wrapper's pick
    switches; the large-dictionary lane's kernels at the folded many1k
-   chunk over 24 MiB, the wide scan held against its plain version there.
+   chunk over 24 MiB, the wide scan held against its plain version there;
+   the wide scan's kernels at k = 0 at exact-wide's shape against their
+   plain versions; slice 1's hit list of the fuzzy and the typed lane run
+   by the pipeline kernels in 3 ranges (each handed its preceding hit, the
+   rows put back in one range's order by their tags) against one range,
+   each range's kernel call against its plain version, rows and tags bit for
+   bit, and the decoded matches.
 
 Any failed phase raises, so the script exits non-zero. Before the last line
 it prints one JSON line of kernel results and the card's name and power
@@ -303,17 +322,18 @@ def pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift=0, wide=False
 def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want_rows=True,
                      wide=False):
     """``dp_pipeline_kernel`` against ``dp_pipeline_torch`` on the first
-    slice of ``text``: the same rows in the same order, bit for bit, and the
-    same candidate count; and ``block_offsets`` against its plain version on
-    the counts of the kernel's count pass. Returns the two max_abs_err."""
+    slice of ``text``: the same rows in the same order, bit for bit, the
+    same row tags and the same candidate count; and ``block_offsets``
+    against its plain version on the counts of the kernel's count pass.
+    Returns the two max_abs_err."""
     plan, run = lane_inputs(vdp, engine, text, thr, what)
     part = run.parts[0]
     hits, pos, words = tpb.packed_hits(part.ids_pf[shift:], run.T_scan, run.halo)
     args = pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift, wide)
-    rows_k, cand_k = vdp.dp_pipeline(*args)
-    rows_p, cand_p = vdp.dp_pipeline_torch(*args)
+    rows_k, cand_k, tags_k = vdp.dp_pipeline(*args, tags=True)
+    rows_p, cand_p, tags_p = vdp.dp_pipeline_torch(*args, tags=True)
     torch.cuda.synchronize()
-    same = rows_k.shape == rows_p.shape and cand_k == cand_p
+    same = rows_k.shape == rows_p.shape and cand_k == cand_p and torch.equal(tags_k, tags_p)
     err = float((rows_k.long() - rows_p.long()).abs().max()) if same and rows_k.numel() else 0.0
     n_counts, err_offs = 0, 0
     if hits:
@@ -1337,6 +1357,235 @@ def many_main_path(ctx, tag: str, engine, text: str, thr: float, fold: bool, loc
                            matches=len(got), stages=stages, per_chunk=per_chunk)
 
 
+def make_exact(ctx, words):
+    """An exact (edits = 0), case-insensitive engine on the card."""
+    eng = ctx.Builder.new().case_insensitive(True).device(ctx.dev).build(words)
+    eng.backend = "device"
+    return eng
+
+
+def find_set(text: str, words):
+    """Every (pattern, start, end) of ``words`` in the lowercased ASCII
+    ``text``, overlapping, by ``str.find``."""
+    low = text.lower()
+    want = set()
+    for pi, w in enumerate(words):
+        at = low.find(w)
+        while at >= 0:
+            want.add((pi, at, at + len(w)))
+            at = low.find(w, at + 1)
+    return want
+
+
+def exact_main_path(ctx, tag: str, engine, words, text: str, backend: str, locked, keys):
+    """Phases exact-wide and exact1k: the exact engine over ``text`` through
+    ``search_raw`` at threshold 0.5, one first search, one warm-up and three
+    timed ones with the plain versions and the oracle locked out; the launch
+    counters (``keys`` must run, no other kernel); the match set against the
+    independent ``str.find`` set, and against the oracle on 32 KiB with
+    planted words; the profiler's launches, copies and waits per search."""
+    torch, tpb = ctx.torch, ctx.tpb
+    t_phase = time.perf_counter()
+    for key in tpb.LAUNCHES:
+        tpb.LAUNCHES[key] = 0
+    with plain_locked(*locked):
+        t0 = time.perf_counter()
+        engine.search_raw(text, 0.5)
+        first = time.perf_counter() - t0
+        engine.search_raw(text, 0.5)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = engine.search_raw(text, 0.5)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = dict(tpb.LAUNCHES)
+    stats = dict(engine.last_stats)
+    best = min(times)
+    log(f"  {len(text)} bytes, first search {first:.3f} s (transcode + upload), best of 3 "
+        f"{best * 1e3:.3f} ms (all {', '.join(f'{t * 1e3:.3f}' for t in times)}) = "
+        f"{len(text) / best / 1e9:.3f} GB/s, {len(got)} matches, launches {launches}")
+    log(f"  last_stats {stats}")
+    require(stats["backend"] == backend, f"{tag}: backend {stats['backend']}, expected {backend}")
+    require(all(launches[k] > 0 for k in keys), f"{tag}: the search did not launch {keys}")
+    require(all(v == 0 for k, v in launches.items() if k not in keys),
+            f"{tag}: the search launched a kernel of another lane")
+    dev_set = {(m.pattern_index, m.start, m.end) for m in got}
+    require(all(m.similarity == 1.0 and m.edits == 0 for m in got),
+            f"{tag}: exact matches carry weight 1.0")
+    t0 = time.perf_counter()
+    want = find_set(text, words)
+    log(f"  independent str.find count {len(want)} ({time.perf_counter() - t0:.1f} s); equal: "
+        f"{dev_set == want}")
+    require(len(got) == len(dev_set) and dev_set == want, f"{tag}: disagrees with str.find")
+    require(len(want) > 1000, f"{tag}: too few matches to be a real check")
+    small = plant_words(text[: 32 << 10], SEED + 12, 300, words)
+    dev_r = sorted(map(match_key, engine.search_raw(small, 0.5)))
+    require(engine.last_stats["backend"] == backend, f"{tag}: 32 KiB backend")
+    engine.backend = "oracle"
+    ora_r = sorted(map(match_key, engine.search_raw(small, 0.5)))
+    engine.backend = "device"
+    log(f"  32 KiB with 300 planted words, device vs oracle: {len(dev_r)} vs {len(ora_r)} "
+        f"matches, equal {dev_r == ora_r}")
+    require(dev_r == ora_r and len(dev_r) > 100, f"{tag}: disagrees with the oracle")
+    prof = profile_search(torch, lambda: engine.search_raw(text, 0.5), 3, tpb.LAUNCHES)
+    log(f"  torch.profiler over 3 searches: wall {prof['wall']:.3f} ms per search, device busy "
+        f"{prof['busy']:.3f} ms ({prof['busy'] / prof['wall']:.3f} of wall); per search "
+        f"{prof['kernels']:.1f} kernel launches, {prof['copies']:.1f} copies, "
+        f"{prof['waits']:.1f} host waits")
+    for line in prof["lines"][:8]:
+        log(f"    {line}")
+    log(f"  phase {tag} {time.perf_counter() - t_phase:.1f} s")
+    return SimpleNamespace(times=times, launches=launches, stats=stats, prof=prof,
+                           matches=len(got))
+
+
+def walk_stages(ctx, engine, text: str):
+    """The goto walk of ``engine`` over ``text`` stage by stage (host clock,
+    each stage ended by a synchronise, best of 3): the root step, the
+    compaction of its survivors, the walk, the readback; the whole walk by
+    CUDA events; the bound (one gather of a symbol and a goto entry per
+    walk and step, the arrivals written once, over the memory rate); and a
+    ``torch.gather`` of the root row as the one PyTorch call that computes
+    the root step."""
+    torch, np, tpb = ctx.torch, ctx.np, ctx.tpb
+    from fuzzy_aho_corasick_tpu_torch.ops import exact
+    from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    dense = engine.dense
+    ids, n = device_corpus.resident(
+        text, ("dense", tpb._space_token(engine)),
+        lambda h: np.ascontiguousarray(dense.transcode(h, view_of(h, True)), dtype=np.uint8),
+        ctx.dev)
+    goto, emits = exact.walk_tables(engine, 0.5, ctx.dev)
+    L = dense.max_depth
+    ms = dict.fromkeys(("root step", "compaction", "walk", "readback"), float("inf"))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        root = exact.walk_root(ids, n, goto)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pos, st = exact.walk_compact(root)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        found, alive = exact.walk_steps(ids, n, pos, st, goto, emits, L)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        found.cpu()
+        t4 = time.perf_counter()
+        for key, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            ms[key] = min(ms[key], dt * 1e3)
+    whole = event_ms(torch, lambda: exact.goto_walk(ids, n, goto, emits, L), 5)
+    idsl = ids[:n].long()
+    gather = event_ms(torch, lambda: torch.gather(goto[0], 0, idsl), 20)
+    nbytes = 5 * n + 5 * sum(alive) + 24 * found.shape[1]
+    bound = bound_ms(nbytes, sum(alive) + n, INT_RATE)
+    log(f"  goto walk: {n} symbols, {goto.shape[0]} nodes x {goto.shape[1]} classes, depth {L}; "
+        f"alive per span {alive}; {found.shape[1]} arrivals; stages (host clock, synchronised, "
+        f"best of 3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; the whole walk {whole:.4f} ms (CUDA events), bound {bound[0]:.4f} ms by {bound[1]} "
+        f"({bound[0] / whole:.3g} of it); torch.gather of the root row {gather:.4f} ms")
+    return {"name": "goto_walk", "route": "torch", "source": f"{PKG}/ops/exact.py",
+            "replaces": "fuzzy_aho_corasick_tpu/ops/exact.py:45", "ms": whole,
+            "stages_ms": ms, "alive_per_span": alive, "arrivals": int(found.shape[1]),
+            "bound_ms": bound[0], "bound_by": bound[1], "root_step_library_ms": gather}
+
+
+def wide_exact_times(ctx, engine, text: str, errs_in):
+    """Phase 6 for the wide scan at k = 0 at exact-wide's main-path shape:
+    the two wide kernels and ``block_offsets`` against their plain versions
+    (``compare_scan``), then CUDA-event ms of the wide kernels beside their
+    plain versions and the bound from these inputs. Returns ({kernel: (ms,
+    plain ms, (bound ms, by), library ms)}, {kernel: max_abs_err})."""
+    torch, tpb = ctx.torch, ctx.tpb
+    from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    pk = tpb.packed_exact_of(engine)
+    T, _cols, _shs = tpb._exact_consts(engine, pk, ctx.dev)
+    ids, _n = device_corpus.resident(
+        text, ("pk-exact", tpb._space_token(engine)),
+        lambda h: pk.transcode(h, view_of(h, True), engine.dense), ctx.dev)
+    halo = pk.m_max
+    hits, errs = compare_scan(tpb, torch, ids, T, halo,
+                              f"exact-wide main-path shape, W={T.W} k=0")
+    bits, counts = tpb.scan_bits(ids, T, halo)
+    offs = tpb.block_offsets(counts)
+    N, instr = ids.numel(), scan_instr(T.W, 0, False)
+    rec = {
+        "scan_bits_wide[k=0]": (
+            event_ms(torch, lambda: tpb.scan_bits(ids, T, halo), 10),
+            event_ms(torch, lambda: tpb.scan_bits_torch(ids, T, halo), 1),
+            bound_ms(N + N / 8 + 4 * counts.numel(), instr * N, INT_RATE), None),
+        "hit_words_wide[k=0]": (
+            event_ms(torch, lambda: tpb.hit_words(ids, bits, offs, hits, T, halo), 20),
+            event_ms(torch, lambda: tpb.hit_words_torch(ids, bits, offs, hits, T, halo), 3),
+            bound_ms(N / 8 + 4 * offs.numel() + hits * (halo + 8 + 16 * T.W),
+                     instr * hits * halo, INT_RATE), None),
+    }
+    for name, (ms, plain, (b_ms, b_by), _lib) in rec.items():
+        log(f"  {name} exact-wide: {N} symbols, W={T.W}, {hits} hits, kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b_ms:.3g} ms by {b_by} ({b_ms / ms:.3g} of the kernel's time)")
+    return rec, {"scan_bits_wide[k=0]": errs[0], "hit_words_wide[k=0]": errs[2],
+                 "block_offsets": max(errs_in, errs[1])}
+
+
+def compare_ranges(ctx, engine, text: str, thr: float, what: str):
+    """Phase 6 for the ranged pipeline: slice 1's hit list of ``engine``'s
+    DP lane run as one range and as 3 ranges (``dp_pipeline_ranges``, each
+    range handed its preceding hit, the rows put back in one range's order
+    by their tags). Each range's kernel call against its plain version (rows,
+    candidates and tags, bit for bit); the 3 ranges' rows equal to one
+    range's, and their decoded matches too. Returns (kernel key, one-range
+    ms, 3-range ms, plain 3-range ms)."""
+    torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
+    from fuzzy_aho_corasick_tpu_torch.ops.emit import decode_matches
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    plan, run = lane_inputs(vdp, engine, text, thr, what)
+    part = run.parts[0]
+    hits, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    args = pipeline_args(vdp, np, plan, run, part, pos, words, thr)[2:]
+    per = -(-hits // 3)
+    one, n_one = vdp.dp_pipeline(pos, words, *args)
+    three, n_three = vdp.dp_pipeline_ranges(pos, words, per, *args)
+    # The ranges as dp_pipeline_ranges cuts them: (hits, words, h0).
+    ranges = [(pos[a - min(a, 1):a + per], words[a - min(a, 1):a + per], min(a, 1))
+              for a in range(0, hits, per)]
+    for r_pos, r_words, h0 in ranges:
+        rows_k, cand_k, tags_k = vdp.dp_pipeline(r_pos, r_words, *args, h0=h0, tags=True)
+        rows_p, cand_p, tags_p = vdp.dp_pipeline_torch(r_pos, r_words, *args, h0=h0, tags=True)
+        torch.cuda.synchronize()
+        require(torch.equal(rows_k, rows_p) and cand_k == cand_p and torch.equal(tags_k, tags_p),
+                f"{what}: the pipeline kernel disagrees with its plain version on a range")
+    view = view_of(text, True)
+
+    def decoded(r):
+        r = r.cpu().numpy()
+        out = decode_matches(engine, view, text, len(view), r[:, 0], r[:, 2], r[:, 3],
+                             np.ascontiguousarray(r[:, 1]).view(np.float32), r[:, 4],
+                             np.float32(thr))
+        return sorted(map(match_key, out))
+
+    same = torch.equal(one, three) and n_one == n_three
+    log(f"  {what}: slice 1 of {len(run.parts)}, {hits} hits in 3 ranges of {per}: {n_three} "
+        f"candidates, {three.shape[0]} rows, equal to one range's {n_one} / {one.shape[0]}: "
+        f"{same}; each range's kernel call bit-equal to its plain version (rows, tags)")
+    require(same and decoded(one) == decoded(three), f"{what}: 3 ranges differ from one")
+    key = "dp_pipeline_typed" if run.variant.typed is not None else "dp_pipeline"
+    t_one = event_ms(torch, lambda: vdp.dp_pipeline(pos, words, *args), 10)
+    t_three = event_ms(torch, lambda: vdp.dp_pipeline_ranges(pos, words, per, *args), 10)
+    t_plain = event_ms(torch, lambda: [vdp.dp_pipeline_torch(r_pos, r_words, *args, h0=h0,
+                                                             tags=True)
+                                       for r_pos, r_words, h0 in ranges], 1)
+    log(f"  {what}: one range {t_one:.4f} ms, 3 ranges {t_three:.4f} ms, plain 3 ranges "
+        f"(without the sort) {t_plain:.4f} ms")
+    return key, t_one, t_three, t_plain
+
+
 def many_kernel_times(ctx, engine, text: str, thr: float):
     """Phase 6 for the large-dictionary lane at its main-path shapes (the
     folded layout's one chunk and the plain layout's five over the 24 MiB
@@ -1899,6 +2148,47 @@ def smoke(torch, start_pool, workers: int) -> int:
         many_runs[tag] = many_main_path(ctx, tag, many_e, many_text, MANY_THRESHOLD, fold, locked,
                                         want_many)
 
+    # 4g, 4h. Exact dictionaries past the narrow packed lane, over the 24 MiB
+    # many1k corpus with 4,000 exact copies of the first 300 words planted:
+    # exact-wide (those 300 words, the wide packed scan at k = 0) and exact1k
+    # (all 1,000 words, past 64 limbs: the goto walk, torch code).
+    words1k = many_words(1000, 7)
+    exact_text = plant_words(many_text, SEED + 11, MANY_TYPOS, words1k[:300])
+    wide_e, k1_e = make_exact(ctx, words1k[:300]), make_exact(ctx, words1k)
+    W_wide = tpb.packed_exact_of(wide_e).W
+    exact_runs = {}
+    phase(f"phase 4g exact-wide: the first 300 many1k words, exact, threshold 0.5, W = {W_wide} "
+          f"limbs:")
+    require(tpb.MAX_LIMBS < W_wide <= tpb.MAX_SCAN_LIMBS, "exact-wide: not the wide packed form")
+    exact_runs["exact-wide"] = exact_main_path(
+        ctx, "exact-wide", wide_e, words1k[:300], exact_text, "device-exact-packed", locked,
+        ("scan_bits_wide", "block_offsets", "hit_words_wide"))
+    require(exact_runs["exact-wide"].stats["limbs"] == W_wide, "exact-wide: limbs in last_stats")
+    phase(f"phase 4h exact1k: the {len(words1k)} many1k words, exact, threshold 0.5, past "
+          f"{tpb.MAX_SCAN_LIMBS} limbs (the goto walk):")
+    require(tpb.packed_exact_of(k1_e) is None, "exact1k: the dictionary packs")
+    exact_runs["exact1k"] = exact_main_path(ctx, "exact1k", k1_e, words1k, exact_text,
+                                            "device-exact", locked, ())
+    walk_rec = walk_stages(ctx, k1_e, exact_text)
+    # A 70-character pattern (past the packed lane's 64) over 1 MiB with 64
+    # runs of 70-80 a's: overlapping matches.
+    long_e = make_exact(ctx, ["a" * 70])
+    rng = np.random.default_rng(SEED + 13)
+    buf = bytearray(many_text[: 1 << 20].encode())
+    for at in rng.integers(0, len(buf) - 100, size=64).tolist():
+        r = int(rng.integers(70, 81))
+        buf[at:at + r + 2] = (" " + "a" * r + " ").encode()
+    long_text = buf.decode()
+    with plain_locked(*locked):
+        got_long = long_e.search_raw(long_text, 0.5)
+    want_long = find_set(long_text, ["a" * 70])
+    got_long_set = {(m.pattern_index, m.start, m.end) for m in got_long}
+    log(f"  70-character pattern over {len(long_text)} bytes: backend "
+        f"{long_e.last_stats['backend']}, {len(got_long)} matches, str.find {len(want_long)}, "
+        f"equal {got_long_set == want_long}")
+    require(long_e.last_stats["backend"] == "device-exact" and got_long_set == want_long
+            and len(got_long) == len(want_long) > 64, "70-character pattern disagrees")
+
     # 6. times, bounds and agreement at the main paths' shapes
     phase("phase 6 times at main-path shapes (CUDA events; device time is the profiler's above):")
     plan, run = lane_inputs(vdp, fuzzy, corpus, 0.8, "main-path shapes")
@@ -2037,6 +2327,11 @@ def smoke(torch, start_pool, workers: int) -> int:
     for key, err in many_main_errs.items():
         many_errs[key] = max(many_errs[key], err)
     errs_scan[1] = max(errs_scan[1], many_errs["block_offsets"])
+    wide_rec, wide_errs = wide_exact_times(ctx, wide_e, exact_text, errs_scan[1])
+    errs_scan[1] = wide_errs["block_offsets"]
+    range_recs = [compare_ranges(ctx, fuzzy, corpus, 0.8, "dp_pipeline (FAST) in ranges"),
+                  compare_ranges(ctx, typed_e, lane_runs["4d"].text, 0.8,
+                                 "dp_pipeline_typed in ranges")]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc/packed_bitap.cu"
@@ -2056,7 +2351,8 @@ def smoke(torch, start_pool, workers: int) -> int:
         f_ms, f_plain, f_bound, _lib = scan_rec["fuzzy"][name]
         kernels.append(record(
             name, src, replaces, launches[name] + launches_f[name]
-            + sum(lane.launches[name] for lane in (*lane_runs.values(), *many_runs.values())),
+            + sum(lane.launches[name] for lane in (*lane_runs.values(), *many_runs.values(),
+                                                   *exact_runs.values())),
             errs_scan[i], ms, plain,
             bound, lib, fuzzy_ms=f_ms, fuzzy_plain_ms=f_plain, fuzzy_bound_ms=f_bound[0],
             **({"pipeline_counts_ms": offs_pipe_rec[0], "pipeline_counts_plain_ms": offs_pipe_rec[1],
@@ -2109,7 +2405,18 @@ def smoke(torch, start_pool, workers: int) -> int:
             *many_rec[name],
             device_ms_per_search={tag: device_ms(run.prof, name + "_kernel")
                                   for tag, run in many_runs.items()}))
+    # The wide kernels at k = 0, the exact-wide search of phase 4g.
+    for name, replaces in (("scan_bits_wide[k=0]", f"{jax_pb}:534"),
+                           ("hit_words_wide[k=0]", f"{jax_pb}:620")):
+        base = name.split("[")[0]
+        kernels.append(record(
+            name, f"{PKG}/csrc/scan_wide.cu", replaces, exact_runs["exact-wide"].launches[base],
+            wide_errs[name], *wide_rec[name],
+            device_ms_per_search=device_ms(exact_runs["exact-wide"].prof, base + "_kernel")))
+    ranged = [{"name": f"{key}[3 ranges]", "one_range_ms": one, "three_ranges_ms": three,
+               "plain_three_ranges_ms": plain} for key, one, three, plain in range_recs]
     print(json.dumps({"kernels": kernels, "held_against_plain_only": held,
+                      "ranged_pipelines": ranged, "torch_paths": [walk_rec],
                       "scan_chunk_sweep": sweep,
                       "searches": {
                           "exact_ms": [t * 1e3 for t in times],
@@ -2126,6 +2433,11 @@ def smoke(torch, start_pool, workers: int) -> int:
                               lane.prof["kernels"], lane.prof["copies"], lane.prof["waits"]]
                              for tag, lane in lane_runs.items()},
                           "exact_launches_copies_waits": [prof_x["kernels"], prof_x["copies"], prof_x["waits"]],
+                          **{f"{tag}_ms": [t * 1e3 for t in run.times]
+                             for tag, run in exact_runs.items()},
+                          **{f"{tag}_launches_copies_waits": [
+                              run.prof["kernels"], run.prof["copies"], run.prof["waits"]]
+                             for tag, run in exact_runs.items()},
                           "fuzzy_launches_copies_waits": [prof_f["kernels"], prof_f["copies"], prof_f["waits"]]}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,13 @@
 
 Same public surface as the JAX package for the parts ported so far: build an
 engine, call ``search_raw`` / ``search`` / the segmentation helpers. Exact
-search, the DP family of fuzzy searches (a uniform edit budget, edit types
-switched off, per-type and per-pattern limits, multi-character mappings) and
-fuzzy search over large dictionaries (up to 4095 patterns) run on the GPU
-through hand-written CUDA kernels (``csrc/*.cu``, built with ``nvcc`` at first
-use); configurations whose device lanes are not ported yet (the beam lanes)
-raise ``NotImplementedError``.
+search (the packed shift-AND lane, then a goto walk in torch for the
+dictionaries that do not pack), the DP family of fuzzy searches (a uniform
+edit budget, edit types switched off, per-type and per-pattern limits,
+multi-character mappings) and fuzzy search over large dictionaries run on the
+GPU through hand-written CUDA kernels (``csrc/*.cu``, built with ``nvcc`` at
+first use); configurations whose device lanes are not ported yet (the beam
+lanes, fuzzy corpora past ``RESIDENT_MAX``) raise ``NotImplementedError``.
 
 The engine's device tables live on a torch device, ``cuda`` by default::
 

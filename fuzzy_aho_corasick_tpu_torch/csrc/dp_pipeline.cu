@@ -19,8 +19,11 @@
 // many.dp_list.
 //
 // What it computes. The grid is the uncompacted (combo, hit) product,
-// combo-major: item g = c * K + h pairs combo c = (pattern bit, field, band)
-// with hit h of the ordered hit list. Per item:
+// combo-major: item g = c * (K - h0) + h - h0 pairs combo c = (pattern bit,
+// field, band) with hit h of the ordered hit list, over the hits h0 <= h < K
+// (hits before h0 are read only as the predecessor of hit h0: a caller that
+// splits a long hit list into ranges hands each range its preceding hit, as
+// many_expand.cu's callers do). Per item:
 //   * expansion: the pattern's bit fired in the hit's match words, the hit
 //     lies below pos_hi, start = pos + 1 - (depth + b - E) lies in the
 //     slice's window [start_lo, start_hi), and the run dedup (a hit whose
@@ -36,6 +39,10 @@
 // Output: int32 rows (start, penalty f32 bits, span, pattern, packed edit
 // counts), ordered channel-major over (band, slot), then by g, which is the
 // candidates' combo-major, hit-ascending order: the order emit_rows gives.
+// On request each row also gets a tag, channel * n_combo + c: a caller that
+// ran a hit list in ranges sorts the rows of all ranges by it (stably) and
+// so restores the order one range would have given, which decode's tie rule
+// (the earliest row of a span wins a similarity tie) reads.
 //
 // Ordered output without a sort or a compaction pass: the kernel runs
 // twice. The count pass writes, per block, the number of rows of every
@@ -66,6 +73,7 @@ struct PipeArgs {
   const long long* pos;     // [K] ascending hit positions
   const long long* words;   // [K, W2] u32 halves of the match words
   long long K;
+  long long h0;             // first hit expanded; hits before it only feed the dedup
   int W2;
   const int32_t* combos;    // [5, n_combo]: word column, bit, field, start offset, b == 0
   int n_combo;
@@ -82,14 +90,16 @@ struct PipeArgs {
   int32_t* counts;          // [NCH + 1, nblk] (count pass)
   const int32_t* offsets;   // exclusive scan of counts (write pass)
   int32_t* rows;            // [total, 5] (write pass)
+  int32_t* tags;            // [total] channel * n_combo + combo, or null (write pass)
 };
 
-// The DP of one item (alive: field f >= 0, start s) and its emission: the
-// count pass writes the block's rows per channel and its live items, the
-// write pass its rows. Every thread of the block calls it.
+// The DP of one item (alive: field f >= 0, start s; combo c) and its
+// emission: the count pass writes the block's rows per channel and its live
+// items, the write pass its rows (and their tags, where asked). Every thread
+// of the block calls it.
 template <int E, bool DEADEND, bool MAPS, typename Sym>
 __device__ __forceinline__ void dp_emit(const PipeArgs& a, const float* s_sim, bool sim_smem,
-                                        bool write, bool alive, int f, long long s,
+                                        bool write, bool alive, int f, long long s, int c,
                                         int (*s_wc)[NWARPS]) {
   constexpr int B = 2 * E + 1;
   constexpr int NE = E + 1;
@@ -185,6 +195,7 @@ __device__ __forceinline__ void dp_emit(const PipeArgs& a, const float* s_sim, b
         row[2] = d + (b - E);
         row[3] = pat;
         row[4] = cnt_best[b];
+        if (a.tags != nullptr) a.tags[r] = ch * a.n_combo + c;
       }
     }
   }
@@ -201,11 +212,12 @@ dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
 
   // Expansion.
   bool alive = false;
-  int f = 0;
+  int f = 0, c = 0;
   long long s = 0;
-  if (g < a.K * a.n_combo) {
-    const int c = (int)(g / a.K);
-    const long long h = g - (long long)c * a.K;
+  const long long KI = a.K - a.h0;
+  if (g < KI * a.n_combo) {
+    c = (int)(g / KI);
+    const long long h = a.h0 + g - (long long)c * KI;
     const int col = __ldg(a.combos + c);
     const int sh = __ldg(a.combos + a.n_combo + c);
     const long long p = __ldg(a.pos + h);
@@ -219,7 +231,7 @@ dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
     f = __ldg(a.combos + 2 * a.n_combo + c);
   }
 
-  dp_emit<E, DEADEND, MAPS, Sym>(a, s_sim, sim_smem, write, alive, f, s, s_wc);
+  dp_emit<E, DEADEND, MAPS, Sym>(a, s_sim, sim_smem, write, alive, f, s, c, s_wc);
 }
 
 // Item g: candidate g of the list (field -1: a dead slot).
@@ -237,7 +249,7 @@ dp_list_kernel(PipeArgs a, bool sim_smem, bool write) {
     f = __ldg(a.cand_field + g);
     s = __ldg(a.cand_start + g);
   }
-  dp_emit<E, DEADEND, false, uint8_t>(a, s_sim, sim_smem, write, f >= 0, f, s, s_wc);
+  dp_emit<E, DEADEND, false, uint8_t>(a, s_sim, sim_smem, write, f >= 0, f, s, 0, s_wc);
 }
 
 // The mapped lane has no multi-byte edges, so MAPS and DEADEND never meet.
@@ -326,17 +338,18 @@ bool fill_core(PipeArgs& a, const void* ids, long long npad, long long limit,
 extern "C" {
 
 // Threads per block of the pipeline: the callers size ``counts`` from it
-// (nblk = ceil(K * n_combo / fac_dp_pipeline_threads())).
+// (nblk = ceil((K - h0) * n_combo / fac_dp_pipeline_threads())).
 int fac_dp_pipeline_threads() { return DP_THREADS; }
 
-// pos: int64 [K]; words: int64 [K, W2]; combos: int32 [5, n_combo]; the DP
-// tables as fac_banded_dp takes them; node: int32 [F]; out_list: int32
-// [N, MO]; pat_len, pat_weight: f32 [P]; forbid and the map_* tables as
-// fac_banded_dp takes them. write == 0: counts int32
-// [(2E+1) MO + 1, nblk] is written; write == 1: offsets (the exclusive scan
-// of counts, int32) is read and rows int32 [total, 5] written. Returns the
-// launch's cudaError_t (0 = launched).
-int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
+// pos: int64 [K]; words: int64 [K, W2]; the hits h0..K-1 are expanded;
+// combos: int32 [5, n_combo]; the DP tables as fac_banded_dp takes them;
+// node: int32 [F]; out_list: int32 [N, MO]; pat_len, pat_weight: f32 [P];
+// forbid and the map_* tables as fac_banded_dp takes them. write == 0:
+// counts int32 [(2E+1) MO + 1, nblk] is written; write == 1: offsets (the
+// exclusive scan of counts, int32) is read and rows int32 [total, 5]
+// written, and where tags is not null the rows' tags int32 [total]. Returns
+// the launch's cudaError_t (0 = launched).
+int fac_dp_pipeline(const void* pos, const void* words, long long K, long long h0, int W2,
                     const void* combos, int n_combo, long long start_lo,
                     long long start_hi, long long pos_hi,
                     const void* ids, int ids_u8, long long npad, long long limit,
@@ -349,9 +362,10 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
                     float p_swap, float floor_, float bound, int E, int deadend,
                     int forbid, const void* map_tab, const void* map_rowptr,
                     const void* map_fields, int map_fw, int write, long long nblk,
-                    void* counts, const void* offsets, void* rows, void* stream) {
+                    void* counts, const void* offsets, void* rows, void* tags, void* stream) {
   PipeArgs a{};
-  if (K < 1 || W2 < 2 || n_combo < 1 || nblk != (K * n_combo + DP_THREADS - 1) / DP_THREADS ||
+  if (K < 1 || h0 < 0 || h0 >= K || W2 < 2 || n_combo < 1 ||
+      nblk != ((K - h0) * n_combo + DP_THREADS - 1) / DP_THREADS ||
       forbid < 0 || forbid > 15 ||
       (map_tab != nullptr && (map_rowptr == nullptr || map_fields == nullptr ||
                               map_fw < (F + 31) / 32)) ||
@@ -368,12 +382,14 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, int W2,
   a.pos = static_cast<const long long*>(pos);
   a.words = static_cast<const long long*>(words);
   a.K = K;
+  a.h0 = h0;
   a.W2 = W2;
   a.combos = static_cast<const int32_t*>(combos);
   a.n_combo = n_combo;
   a.start_lo = start_lo;
   a.start_hi = start_hi;
   a.pos_hi = pos_hi;
+  a.tags = static_cast<int32_t*>(tags);
   const bool de = deadend != 0, mp = map_tab != nullptr, u8 = ids_u8 != 0, wr = write != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (E) {

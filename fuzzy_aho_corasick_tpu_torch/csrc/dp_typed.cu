@@ -37,8 +37,10 @@
 // each kernel serves every engine. Like the count-channel DP it is bound by
 // dependent-instruction latency per candidate, not by bytes.
 //
-// The pipeline kernel keeps dp_pipeline.cu's order (channel-major over
-// (band, slot), then by item) with the same two passes around
+// The pipeline kernel keeps dp_pipeline.cu's items (combo-major over the
+// hits h0..K-1, a hit before h0 read only as the predecessor of hit h0), its
+// order (channel-major over (band, slot), then by item) and its optional
+// row tags (channel * n_combo + combo), with the same two passes around
 // block_offsets_kernel, but its counting unit is a warp, not a block: a warp
 // expands its TY_UNIT (combo, hit) items, then runs its live candidates one
 // after another in item order, so a lane that owns emission channel c counts
@@ -271,6 +273,7 @@ struct TypedPipeArgs {
   const long long* pos;     // [K] ascending hit positions
   const long long* words;   // [K, W2] u32 halves of the match words
   long long K;
+  long long h0;             // first hit expanded; hits before it only feed the dedup
   int W2;
   const int32_t* combos;    // [5, n_combo]: word column, bit, field, start offset, b == 0
   int n_combo;
@@ -287,6 +290,7 @@ struct TypedPipeArgs {
   int32_t* counts;          // [NCH + 1, nunits] (count pass)
   const int32_t* offsets;   // exclusive scan of counts (write pass)
   int32_t* rows;            // [total, 5] (write pass)
+  int32_t* tags;            // [total] channel * n_combo + combo, or null (write pass)
 };
 
 __global__ void __launch_bounds__(TY_THREADS)
@@ -302,12 +306,13 @@ dp_pipeline_typed_kernel(TypedPipeArgs a, bool write) {
 
   // Expansion of this lane's item (dp_pipeline.cu).
   const long long gi = unit * TY_UNIT + lane;
+  const long long KI = a.K - a.h0;
   bool alive = false;
-  int f = 0;
+  int f = 0, c = 0;
   long long s = 0;
-  if (lane < TY_UNIT && gi < a.K * a.n_combo) {
-    const int c = (int)(gi / a.K);
-    const long long h = gi - (long long)c * a.K;
+  if (lane < TY_UNIT && gi < KI * a.n_combo) {
+    c = (int)(gi / KI);
+    const long long h = a.h0 + gi - (long long)c * KI;
     const int col = __ldg(a.combos + c);
     const int sh = __ldg(a.combos + a.n_combo + c);
     const long long p = __ldg(a.pos + h);
@@ -330,8 +335,8 @@ dp_pipeline_typed_kernel(TypedPipeArgs a, bool write) {
 #pragma unroll
   for (int it = 0; it < CH_PER_LANE; ++it) {
     run[it] = 0;
-    const int c = lane + 32 * it;
-    base[it] = (write && c < nce) ? __ldg(a.offsets + (long long)c * a.nunits + unit) : 0;
+    const int ce = lane + 32 * it;
+    base[it] = (write && ce < nce) ? __ldg(a.offsets + (long long)ce * a.nunits + unit) : 0;
   }
 
   // The warp's live candidates, in item order.
@@ -340,15 +345,16 @@ dp_pipeline_typed_kernel(TypedPipeArgs a, bool write) {
     live &= live - 1;
     const int cf = __shfl_sync(0xFFFFFFFFu, f, from);
     const long long cs = __shfl_sync(0xFFFFFFFFu, s, from);
+    const int cc = __shfl_sync(0xFFFFFFFFu, c, from);
     const float* emit = typed_dp_warp(a.core, s_mem, mem, cf, cs, lane);
     const int d = __ldg(a.core.depth + cf);
     const int node = __ldg(a.node + cf);
     const int start = (int)cs;
 #pragma unroll
     for (int it = 0; it < CH_PER_LANE; ++it) {
-      const int c = lane + 32 * it;
-      if (c >= nce) continue;
-      const int b = c / a.MO, o = c - b * a.MO;
+      const int ce = lane + 32 * it;
+      if (ce >= nce) continue;
+      const int b = ce / a.MO, o = ce - b * a.MO;
       const int pat = __ldg(a.out_list + (long long)node * a.MO + o);
       const int ends_b = start + d + (b - E);
       if (pat < 0 || ends_b > a.core.limit || ends_b < start) continue;
@@ -374,6 +380,7 @@ dp_pipeline_typed_kernel(TypedPipeArgs a, bool write) {
         row[2] = d + (b - E);
         row[3] = pat;
         row[4] = s_mem[bch * GCOLS + G_CNT];
+        if (a.tags != nullptr) a.tags[base[it] + run[it]] = ce * a.n_combo + cc;
       }
       ++run[it];
     }
@@ -383,8 +390,8 @@ dp_pipeline_typed_kernel(TypedPipeArgs a, bool write) {
   if (!write) {
 #pragma unroll
     for (int it = 0; it < CH_PER_LANE; ++it) {
-      const int c = lane + 32 * it;
-      if (c < nce) a.counts[(long long)c * a.nunits + unit] = run[it];
+      const int ce = lane + 32 * it;
+      if (ce < nce) a.counts[(long long)ce * a.nunits + unit] = run[it];
     }
     if (lane == 0) a.counts[(long long)nce * a.nunits + unit] = n_cand;
   }
@@ -436,7 +443,7 @@ bool fill_core(TypedCore& c, const void* ids, int ids_u8, long long npad, long l
 extern "C" {
 
 // (combo, hit) items per counting unit of fac_dp_pipeline_typed: the callers
-// size ``counts`` from it (nunits = ceil(K * n_combo / unit)).
+// size ``counts`` from it (nunits = ceil((K - h0) * n_combo / unit)).
 int fac_dp_pipeline_typed_unit() { return TY_UNIT; }
 
 // The typed DP alone. cand_field, cand_start: int32 [M]; the DP tables as
@@ -474,8 +481,9 @@ int fac_banded_dp_typed(const void* cand_field, const void* cand_start, long lon
 // fac_dp_pipeline takes them, without the dead-end tables; limcls: int32 [P];
 // adm: int32 [nlc, nch]. write == 0: counts int32 [(2E+1) MO + 1, nunits] is
 // written; write == 1: offsets (the exclusive scan of counts, int32) is read
-// and rows int32 [total, 5] written. Returns the launch's cudaError_t.
-int fac_dp_pipeline_typed(const void* pos, const void* words, long long K, int W2,
+// and rows int32 [total, 5] written, and where tags is not null the rows'
+// tags int32 [total]. Returns the launch's cudaError_t.
+int fac_dp_pipeline_typed(const void* pos, const void* words, long long K, long long h0, int W2,
                           const void* combos, int n_combo, long long start_lo,
                           long long start_hi, long long pos_hi,
                           const void* ids, int ids_u8, long long npad, long long limit,
@@ -488,19 +496,22 @@ int fac_dp_pipeline_typed(const void* pos, const void* words, long long K, int W
                           const void* graph, int nch, const void* node_caps,
                           const void* root_caps, const void* limcls, const void* adm, int nlc,
                           int write, long long nunits, void* counts, const void* offsets,
-                          void* rows, void* stream) {
+                          void* rows, void* tags, void* stream) {
   TypedPipeArgs a;
-  if (K < 1 || W2 < 2 || n_combo < 1 || MO < 1 || nlc < 1 || limcls == nullptr ||
+  if (K < 1 || h0 < 0 || h0 >= K || W2 < 2 || n_combo < 1 || MO < 1 || nlc < 1 ||
+      limcls == nullptr ||
       adm == nullptr ||
       !fill_core(a.core, ids, ids_u8, npad, limit, path_cls, path_node, depth, Lmax, F, sim, C,
                  node_ceil, N, max_pen, p_sub, p_ins, p_del, p_swap, floor_, E, graph, nch,
                  node_caps, root_caps) ||
-      (2 * E + 1) * MO > MAX_CHANNELS || nunits != (K * n_combo + TY_UNIT - 1) / TY_UNIT) {
+      (2 * E + 1) * MO > MAX_CHANNELS ||
+      nunits != ((K - h0) * n_combo + TY_UNIT - 1) / TY_UNIT) {
     return (int)cudaErrorInvalidValue;
   }
   a.pos = static_cast<const long long*>(pos);
   a.words = static_cast<const long long*>(words);
   a.K = K;
+  a.h0 = h0;
   a.W2 = W2;
   a.combos = static_cast<const int32_t*>(combos);
   a.n_combo = n_combo;
@@ -519,6 +530,7 @@ int fac_dp_pipeline_typed(const void* pos, const void* words, long long K, int W
   a.counts = static_cast<int32_t*>(counts);
   a.offsets = static_cast<const int32_t*>(offsets);
   a.rows = static_cast<int32_t*>(rows);
+  a.tags = static_cast<int32_t*>(tags);
   const size_t shm = smem_bytes(E, nch, Lmax);
   cudaError_t rc = allow_smem(dp_pipeline_typed_kernel, shm);
   if (rc != cudaSuccess) return (int)rc;

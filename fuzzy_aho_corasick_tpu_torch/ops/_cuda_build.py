@@ -85,33 +85,33 @@ _SIGNATURES = {
     + [_c_void_p] * 3 + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3
     + [_c_int] + [_c_f] * 6 + [_c_int] * 3 + [_c_void_p] * 3 + [_c_int]
     + [_c_void_p] * 3,
-    # pos, words, K, W2, combos, n_combo, start_lo, start_hi, pos_hi, ids,
-    # ids_u8, npad, limit, path_cls, path_node, depth, node, Lmax, F, sim, C,
-    # node_ceil, sb_edge, out_count, N, out_list, MO, pat_len, pat_weight,
-    # max_pen, p_sub, p_ins, p_del, p_swap, floor, bound, E, deadend, forbid,
-    # map_tab, map_rowptr, map_fields, map_fw, write, nblk, counts, offsets,
-    # rows, stream
-    "fac_dp_pipeline": [_c_void_p, _c_void_p, _c_ll, _c_int, _c_void_p, _c_int]
+    # pos, words, K, h0, W2, combos, n_combo, start_lo, start_hi, pos_hi,
+    # ids, ids_u8, npad, limit, path_cls, path_node, depth, node, Lmax, F,
+    # sim, C, node_ceil, sb_edge, out_count, N, out_list, MO, pat_len,
+    # pat_weight, max_pen, p_sub, p_ins, p_del, p_swap, floor, bound, E,
+    # deadend, forbid, map_tab, map_rowptr, map_fields, map_fw, write, nblk,
+    # counts, offsets, rows, tags, stream
+    "fac_dp_pipeline": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_void_p, _c_int]
     + [_c_ll] * 3 + [_c_void_p, _c_int, _c_ll, _c_ll] + [_c_void_p] * 4
     + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int]
     + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3
-    + [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll] + [_c_void_p] * 4,
+    + [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll] + [_c_void_p] * 5,
     # cand_field, cand_start, M, ids, ids_u8, npad, limit, path_cls,
     # path_node, depth, Lmax, F, sim, C, node_ceil, N, max_pen, p_sub, p_ins,
     # p_del, p_swap, floor, E, graph, nch, node_caps, root_caps, pen, stream
     "fac_banded_dp_typed": [_c_void_p, _c_void_p, _c_ll, _c_void_p, _c_int, _c_ll, _c_ll]
     + [_c_void_p] * 3 + [_c_int] * 2 + [_c_void_p, _c_int, _c_void_p, _c_int]
     + [_c_f] * 6 + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 4,
-    # pos, words, K, W2, combos, n_combo, start_lo, start_hi, pos_hi, ids,
-    # ids_u8, npad, limit, path_cls, path_node, depth, node, Lmax, F, sim, C,
-    # node_ceil, N, out_list, MO, pat_len, pat_weight, max_pen, p_sub, p_ins,
-    # p_del, p_swap, floor, bound, E, graph, nch, node_caps, root_caps,
-    # limcls, adm, nlc, write, nunits, counts, offsets, rows, stream
-    "fac_dp_pipeline_typed": [_c_void_p, _c_void_p, _c_ll, _c_int, _c_void_p, _c_int]
+    # pos, words, K, h0, W2, combos, n_combo, start_lo, start_hi, pos_hi,
+    # ids, ids_u8, npad, limit, path_cls, path_node, depth, node, Lmax, F,
+    # sim, C, node_ceil, N, out_list, MO, pat_len, pat_weight, max_pen, p_sub,
+    # p_ins, p_del, p_swap, floor, bound, E, graph, nch, node_caps, root_caps,
+    # limcls, adm, nlc, write, nunits, counts, offsets, rows, tags, stream
+    "fac_dp_pipeline_typed": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_void_p, _c_int]
     + [_c_ll] * 3 + [_c_void_p, _c_int, _c_ll, _c_ll] + [_c_void_p] * 4
     + [_c_int] * 2 + [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_int]
     + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 4
-    + [_c_int] * 2 + [_c_ll] + [_c_void_p] * 4,
+    + [_c_int] * 2 + [_c_ll] + [_c_void_p] * 5,
     "fac_scan_block_syms": [],
     "fac_scan_wide_chunk": [],
     "fac_many_expand_items": [],

@@ -7,14 +7,14 @@ lane exactly when the JAX package claims it (the host-only spec builders of
 ``ops/verify_dp`` decide the mapped and typed lanes, as there); everything
 else is served by the host oracle.
 
-Ported lanes: exact (``ops/exact``), the DP family of ``ops/verify_dp`` —
-the FAST fuzzy lane (``ops/fuzzy``; beamed engines too), and the forbid,
-typed and mapped lanes — and the large-dictionary lane (``ops/many``). The
-beam lanes are not ported yet: where the JAX package would serve an engine
-on one of them, ``search_raw`` raises ``NotImplementedError`` naming its
-ROADMAP item, so a device-sized haystack never runs on the pure-Python oracle
-in their place. Where the JAX package itself falls back to the oracle, so
-does the port.
+Ported lanes: exact (``ops/exact``: the packed lane, then the goto walk),
+the DP family of ``ops/verify_dp`` — the FAST fuzzy lane (``ops/fuzzy``;
+beamed engines too), and the forbid, typed and mapped lanes — and the
+large-dictionary lane (``ops/many``). The beam lanes are not ported yet:
+where the JAX package would serve an engine on one of them, ``search_raw``
+raises ``NotImplementedError`` naming its ROADMAP item, so a device-sized
+haystack never runs on the pure-Python oracle in their place. Where the JAX
+package itself falls back to the oracle, so does the port.
 """
 
 from __future__ import annotations
@@ -53,7 +53,8 @@ class DeviceEngine:
     def __init__(self, engine):
         self.engine = engine
         e = engine
-        # Exact mode: no edit budget anywhere -> the packed shift-AND lane.
+        # Exact mode: no edit budget anywhere -> the packed shift-AND lane,
+        # or the goto walk where the dictionary does not pack.
         self._exact_ok = _max_edit_budget(e) == 0 and not e.mappings
         # Beam configs (beam_width / auto_beam) are the reference's speed
         # knobs bounding the host BFS frontier (src/search.rs:578-589); the

@@ -1,20 +1,32 @@
-"""Exact-match (edits = 0) device search through the packed shift-AND lane.
+"""Exact-match (edits = 0) device search: the packed shift-AND lane, then
+the goto walk.
 
 With no edit budget the reference's per-start BFS degenerates to a pure trie
 walk (reference src/search.rs:776-798); every match is an exact arrival at
-an output-bearing trie node, which the packed kernel (ops/packed_bitap.py)
-finds in one pass over the corpus regardless of dictionary size.
+an output-bearing trie node. Two lanes find them:
 
-Matches the oracle exactly, including the per-node prune ceiling
+* the packed lane (:func:`exact_search_packed`, ops/packed_bitap.py): one
+  pass of the shift-AND kernels over the corpus regardless of dictionary
+  size, the narrow kernels up to ``MAX_LIMBS`` limbs and the wide ones up to
+  ``MAX_SCAN_LIMBS`` (the JAX package packs only the narrow form and walks
+  the rest);
+* the goto walk (:func:`exact_search_walk`) for what does not pack: more
+  than 128 symbol classes, a field longer than 64 graphemes, or more than
+  ``MAX_SCAN_LIMBS`` limbs. It is the JAX package's
+  ``exact._exact_scan_rows`` as torch code on the engine's device: the root
+  step is a gather of the goto table's root row (the JAX one-hot matmul
+  over three u8 planes was a TPU workaround), the starts alive after it are
+  compacted once, and the survivors walk the goto table one symbol per step,
+  compacted again after every step and emitting at output nodes. Each start
+  is walked once over the whole corpus, so each match is reported once
+  (ownership by start, with no halo duplicates to drop), and the buffers are
+  sized by the counts ``torch.nonzero`` reads, with no capacity retries.
+
+Both match the oracle exactly, including the per-node prune ceiling
 ``0 > prune_len - prune_len_over_weight * thr`` which can drop a match whose
-similarity ties the threshold (f32 rounding — reference src/search.rs:637-642);
-the ceiling is evaluated host-side per (threshold, node) and applied to each
-packed field's trie path.
-
-Engines the packed lane cannot hold (more than 128 symbol classes, a field
-longer than 64 graphemes, more than 8 limbs) are served in the JAX package by
-a goto-walk kernel (``exact._exact_scan_rows``); it is not ported yet
-(ROADMAP queue A item 7), so they raise ``NotImplementedError`` here.
+similarity ties the threshold (f32 rounding — reference src/search.rs:637-642):
+the packed lane applies it host-side to each field's trie path, the walk
+folds it into the goto table as an alive mask.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 
 def _packed_path_alive(engine, thr: np.float32):
@@ -40,11 +53,44 @@ def _packed_path_alive(engine, thr: np.float32):
     )
 
 
+def _emit(engine, view, start_g: np.ndarray, end_g: np.ndarray, node: np.ndarray, thr):
+    """Arrivals (start, end, output node) -> per-output-pattern matches
+    (reference emission src/search.rs:659-737; exact similarity is the
+    pattern weight). Object construction is deferred (structs.LazyMatchList)."""
+    from ..structs import LazyMatchList
+
+    dense = engine.dense
+    pats = dense.out_list[node]                                # [H, MO]
+    cols_s, cols_e, cols_p = [], [], []
+    for o in range(pats.shape[1]):
+        p_o = pats[:, o].astype(np.int64)
+        ok = (p_o >= 0) & (dense.pat_weight[np.maximum(p_o, 0)] >= thr)
+        if ok.any():
+            cols_s.append(start_g[ok])
+            cols_e.append(end_g[ok])
+            cols_p.append(p_o[ok])
+    if not cols_s:
+        return []
+    sg = np.concatenate(cols_s)
+    eg = np.concatenate(cols_e)
+    pat = np.concatenate(cols_p)
+    sim = dense.pat_weight[pat].astype(np.float32)
+    hay_bytes = view.hay_bytes()
+    offs = view.offsets_array(len(hay_bytes))
+    if offs is None:
+        sb, eb = sg, eg
+    else:
+        sb, eb = offs[sg], offs[eg]
+    return LazyMatchList(
+        engine._patterns, hay_bytes, sb, eb, pat, sim,
+        np.zeros(len(pat), dtype=np.int64),
+    )
+
+
 def exact_search_packed(engine, haystack: str, threshold: float, view) -> Optional[List["FuzzyMatch"]]:
-    """Exact search via the packed multi-field shift-AND kernel
+    """Exact search via the packed multi-field shift-AND kernels
     (ops/packed_bitap.py) — one pass over the corpus regardless of dictionary
     size. None when the engine isn't packable."""
-    from ..structs import LazyMatchList
     from .packed_bitap import exact_hits_packed
 
     thr = np.float32(threshold)
@@ -58,63 +104,140 @@ def exact_search_packed(engine, haystack: str, threshold: float, view) -> Option
         return None
     ends, fidx = got
 
-    hay_bytes = view.hay_bytes()
-    is_ascii = view.ascii
-    n = len(haystack) if is_ascii else len(view)
-    dense = engine.dense
+    n = len(haystack) if view.ascii else len(view)
     engine.last_stats = {
         "backend": "device-exact-packed",
         "positions": int(n),
         "emissions": int(len(ends)),
+        "limbs": int(pk.W),
     }
-
-    # Vectorized emission: field hits -> per-output-pattern match columns
-    # (reference emission src/search.rs:659-737; exact similarity is the
-    # pattern weight). Object construction is deferred (structs.LazyMatchList).
     keep = field_alive[fidx]
     ends = np.asarray(ends, dtype=np.int64)[keep]
     fidx = np.asarray(fidx, dtype=np.int64)[keep]
     depth_arr = np.asarray([d for _, d, _, _, _ in pk.fields], dtype=np.int64)
     node_arr = np.asarray([ni for ni, _, _, _, _ in pk.fields], dtype=np.int64)
-    start_g = ends - depth_arr[fidx]
-    node = node_arr[fidx]
-    pats = dense.out_list[node]                                # [H, MO]
-    cols_s, cols_e, cols_p = [], [], []
-    for o in range(pats.shape[1]):
-        p_o = pats[:, o].astype(np.int64)
-        ok = (p_o >= 0) & (dense.pat_weight[np.maximum(p_o, 0)] >= thr)
-        if ok.any():
-            cols_s.append(start_g[ok])
-            cols_e.append(ends[ok])
-            cols_p.append(p_o[ok])
-    if not cols_s:
+    return _emit(engine, view, ends - depth_arr[fidx], ends, node_arr[fidx], thr)
+
+
+# ---------------------------------------------------------------------------
+# The goto walk
+# ---------------------------------------------------------------------------
+
+def walk_tables(engine, thr, device):
+    """(goto int32 [N, C] with the threshold's alive mask folded in, emits
+    bool [N]: the node has outputs) on ``device``, cached per threshold
+    (``engine.to`` drops them); None where the root itself is pruned. A
+    pruned node becomes unreachable (JAX ``exact.py:276-283``)."""
+    from .verify_dp import _dev_cache
+
+    dense = engine.dense
+    ceil = engine.prune_len_arr - np.float32(engine.prune_len_over_weight_arr * np.float32(thr))
+    alive = np.asarray(ceil >= 0.0, dtype=bool)
+    if not alive[0]:
+        return None
+
+    def build():
+        goto = np.where((dense.goto >= 0) & alive[np.maximum(dense.goto, 0)], dense.goto, -1)
+        goto[~alive, :] = -1
+        return (torch.from_numpy(np.ascontiguousarray(goto, dtype=np.int32)).to(device),
+                torch.from_numpy(np.asarray(dense.out_count > 0)).to(device))
+
+    return _dev_cache(engine, ("goto", alive.tobytes(), str(device)), build)
+
+
+def walk_root(ids: torch.Tensor, n: int, goto: torch.Tensor) -> torch.Tensor:
+    """The root step: int32 [n], the node every start reaches on its first
+    symbol (-1: none), a gather of the goto table's root row."""
+    return goto[0][ids[:n].long()]
+
+
+def walk_compact(st: torch.Tensor):
+    """(starts int64 [S], nodes int32 [S]) of the live entries of ``st``,
+    ascending; ``torch.nonzero`` reads their count."""
+    pos = torch.nonzero(st >= 0).squeeze(1)
+    return pos, st[pos]
+
+
+def walk_steps(ids: torch.Tensor, n: int, pos: torch.Tensor, st: torch.Tensor,
+               goto: torch.Tensor, emits: torch.Tensor, L: int):
+    """The walk of the survivors ``pos`` (at nodes ``st`` after one symbol)
+    over at most ``L`` symbols: (starts, spans, nodes) int64 [3, H] of every
+    arrival at an output node, span by span, starts ascending within a span,
+    and the walks alive at each span. A walk that would read past symbol
+    ``n - 1`` ends."""
+    C = goto.shape[1]
+    flat = goto.reshape(-1)
+    sym = ids[:n].long()
+    out, alive = [], []
+    for span in range(1, L + 1):
+        if span > 1:
+            at = pos + (span - 1)
+            nxt = flat[st.long() * C + sym[at.clamp(max=n - 1)]]
+            live = torch.nonzero((nxt >= 0) & (at < n)).squeeze(1)
+            pos, st = pos[live], nxt[live]
+        if pos.numel() == 0:
+            break
+        alive.append(pos.numel())
+        hit = torch.nonzero(emits[st.long()]).squeeze(1)
+        out.append(torch.stack([pos[hit], torch.full_like(hit, span), st[hit].long()]))
+    if not out:
+        return torch.zeros((3, 0), dtype=torch.int64, device=ids.device), alive
+    return torch.cat(out, dim=1), alive
+
+
+def goto_walk(ids: torch.Tensor, n: int, goto: torch.Tensor, emits: torch.Tensor, L: int):
+    """Every exact arrival at an output node from a start below ``n``:
+    (starts, spans, nodes) int64 [3, H] on the device, and the walks alive
+    at each span (the first two are the JAX package's ``survivors_stage1``
+    and ``survivors_stage2``)."""
+    pos, st = walk_compact(walk_root(ids, n, goto))
+    return walk_steps(ids, n, pos, st, goto, emits, L)
+
+
+def exact_search_walk(engine, haystack: str, threshold: float, view) -> List["FuzzyMatch"]:
+    """Exact search by the goto walk (see the module docstring): the JAX
+    package's ``exact_search_device`` past its packed lane."""
+    from ..utils import device_corpus
+    from .packed_bitap import _space_token
+
+    thr = np.float32(threshold)
+    dense = engine.dense
+    n = len(view)
+    if n == 0:
         return []
-    sg = np.concatenate(cols_s)
-    eg = np.concatenate(cols_e)
-    pat = np.concatenate(cols_p)
-    sim = dense.pat_weight[pat].astype(np.float32)
-    offs = view.offsets_array(len(hay_bytes))
-    if offs is None:
-        sb, eb = sg, eg
-    else:
-        sb, eb = offs[sg], offs[eg]
-    return LazyMatchList(
-        engine._patterns, hay_bytes, sb, eb, pat, sim,
-        np.zeros(len(pat), dtype=np.int64),
-    )
+    device = engine.device
+    tables = walk_tables(engine, thr, device)
+    if tables is None:
+        return []
+    goto, emits = tables
+    narrow = dense.num_classes <= 256
+    ids, n_ids = device_corpus.resident(
+        haystack, ("dense", _space_token(engine)),
+        lambda h: np.ascontiguousarray(dense.transcode(h, view),
+                                       dtype=np.uint8 if narrow else np.int32),
+        device)
+    assert n_ids == n
+    found, alive = goto_walk(ids, n, goto, emits, max(dense.max_depth, 1))
+    start, span, node = found.cpu().numpy()
+    stage1, stage2 = (alive + [0, 0])[:2]
+    engine.last_stats = {
+        "backend": "device-exact",
+        "positions": int(n),
+        "survivors_stage1": stage1,
+        "survivors_stage2": stage2,
+        "emissions": int(start.size),
+    }
+    return _emit(engine, view, start, start + span, node, thr)
 
 
 def exact_search_device(engine, haystack: str, threshold: float, view=None) -> List["FuzzyMatch"]:
-    """Device exact search: oracle-identical match list (unsorted)."""
+    """Device exact search: oracle-identical match list (unsorted). The
+    packed lane where the dictionary packs, else the goto walk."""
     from ..utils.graphemes import view_of
 
     if view is None:
         view = view_of(haystack, engine.case_insensitive)
     packed = exact_search_packed(engine, haystack, threshold, view)
-    if packed is None:
-        raise NotImplementedError(
-            "this exact engine does not fit the packed shift-AND lane; the "
-            "goto-walk lane that serves it is not ported yet "
-            "(ROADMAP queue A item 7)"
-        )
-    return packed
+    if packed is not None:
+        return packed
+    return exact_search_walk(engine, haystack, threshold, view)

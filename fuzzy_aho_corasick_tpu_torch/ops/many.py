@@ -57,10 +57,6 @@ from .compact import compact_indices
 
 #: Uniform u64 limb budget per PLAIN (unsuperimposed) chunk.
 MANY_LIMBS = 32
-#: Most patterns the lane serves (the JAX package's emission rows hold the
-#: pattern id in 12 bits; the port keeps the gate so that both packages
-#: route the same engines).
-MANY_MAX_PATTERNS = 4095
 
 #: Folded-layout tuning (see :func:`_fold_assign`): total false-fire budget
 #: per corpus position (split across length strata), the superposition cap
@@ -170,8 +166,6 @@ class ManyPackSpec:
         if vf is None:
             return None
         pats = filt.patterns
-        if len(pats) > MANY_MAX_PATTERNS:
-            return None
         A = len(filt.symbol_ids) + 1
         if A > MAX_ALPHABET_PACKED:
             return None

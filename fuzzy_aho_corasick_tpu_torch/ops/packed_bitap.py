@@ -31,7 +31,8 @@ Device work, per search (:func:`packed_hits`), three kernels of
    fresh state over each hit's trailing ``halo`` symbols for its match words.
 
 Tables of up to ``MAX_LIMBS`` limbs run those kernels; wider ones, up to
-``MAX_SCAN_LIMBS`` (the large-dictionary lane, ``ops/many``), run
+``MAX_SCAN_LIMBS`` (exact dictionaries past 8 limbs, and the
+large-dictionary lane, ``ops/many``), run
 ``scan_bits_wide_kernel`` and ``hit_words_wide_kernel`` of
 ``csrc/scan_wide.cu``, whose outputs are the same, so the plain versions and
 ``block_offsets`` serve both.
@@ -65,7 +66,8 @@ MAX_ALPHABET_PACKED = 128
 #: Max u64 limbs of the packed DP lanes' tables (the narrow kernels are
 #: instantiated for W = 1..8).
 MAX_LIMBS = 8
-#: Max u64 limbs the scan takes (the wide kernels serve W = 9..64).
+#: Max u64 limbs the scan takes (the wide kernels serve W = 9..64), and the
+#: exact lane's limb bound.
 MAX_SCAN_LIMBS = 64
 #: Max error rows the kernels are instantiated for.
 MAX_K = 6
@@ -221,7 +223,7 @@ class PackedExact:
         if offsets is None:
             return None
         W = max(w for w, _ in offsets) + 1
-        if W > MAX_LIMBS:
+        if W > MAX_SCAN_LIMBS:
             return None
 
         limb = np.zeros((A, W), dtype=np.uint64)

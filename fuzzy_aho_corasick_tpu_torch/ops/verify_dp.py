@@ -655,7 +655,8 @@ def _combos(E: int, BITS: tuple, P2F: tuple, DEPTHS: tuple) -> np.ndarray:
     return np.asarray(rows, dtype=np.int64).reshape(-1, 5).T.copy()
 
 
-def expand_candidates(pos, words, start_lo, start_hi, pos_hi, E, BITS, P2F, DEPTHS):
+def expand_candidates(pos, words, start_lo, start_hi, pos_hi, E, BITS, P2F, DEPTHS,
+                      h0: int = 0, combos: bool = False):
     """Hit (pos, words) -> candidate (field, start) pairs with ``start_lo <=
     start < start_hi`` and hit position ``< pos_hi`` (the sliced path keeps
     the starts a slice owns; reference ownership rule src/stream.rs:262-297).
@@ -663,21 +664,24 @@ def expand_candidates(pos, words, start_lo, start_hi, pos_hi, E, BITS, P2F, DEPT
     ``pos`` [K] int64 ascending hit positions and ``words`` [K, 2W] int64
     u32 halves, as ``packed_hits`` returns them. ``BITS`` holds each
     pattern's (match-word column, bit), ``P2F`` each pattern's fields and
-    ``DEPTHS`` each field's depth (python ints).
+    ``DEPTHS`` each field's depth (python ints). Hits before ``h0`` are not
+    expanded, only read as the predecessor of hit ``h0`` (a range of a
+    longer hit list, handed its preceding hit).
 
     Order as in the JAX package: combo-major over (pattern, field, band),
     hits ascending within each combo. Run dedup: a hit run at consecutive
     ends e-1, e for the same pattern generates the same (field, start) from
     (e, b) and (e-1, b-1), so only the b == 0 copy (or the run's first end)
-    is kept. Returns (cand_field, cand_start), int32 [M] each."""
+    is kept. Returns (cand_field, cand_start), int32 [M] each, and with
+    ``combos`` each candidate's combo index too."""
     dev = pos.device
     K = pos.numel()
     col, sh, fld, off, first = torch.from_numpy(_combos(E, BITS, P2F, DEPTHS)).to(dev)
     if K == 0 or col.numel() == 0:
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
-        return empty, empty.clone()
+        return (empty, empty.clone()) + ((empty.clone(),) if combos else ())
     fired = ((words[:, col] >> sh) & 1) == 1                      # [K, n_combo]
-    hit_ok = (pos >= 0) & (pos < pos_hi)
+    hit_ok = (pos >= 0) & (pos < pos_hi) & (torch.arange(K, device=dev) >= h0)
     prev_same = torch.zeros(K, dtype=torch.bool, device=dev)
     prev_same[1:] = pos[1:] == pos[:-1] + 1
     dup = torch.zeros_like(fired)
@@ -693,6 +697,8 @@ def expand_candidates(pos, words, start_lo, start_hi, pos_hi, E, BITS, P2F, DEPT
     h = idx - c * K
     cand_field = fld[c].to(torch.int32)
     cand_start = (ends[h] - off[c]).to(torch.int32)
+    if combos:
+        return cand_field, cand_start, c.to(torch.int32)
     return cand_field, cand_start
 
 
@@ -1180,7 +1186,14 @@ def emit_bound(thr) -> float:
     return float(np.float32(thr32 - slack))
 
 
-def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
+def _row_tags(chan, m, combo, n_combo: int):
+    """The rows' tags, ``channel * n_combo + combo`` of the row's candidate
+    (``csrc/dp_pipeline.cu``)."""
+    return (chan * n_combo + combo.long()[m]).to(torch.int32)
+
+
+def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E,
+              combo=None, n_combo: int = 0):
     """DP emission channels -> match rows, int32 [K, 5]: (start, penalty f32
     bits, span ``me``, pattern, packed edit counts).
 
@@ -1189,7 +1202,9 @@ def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
     pre-minimised here with strict <: the lowest edit count wins penalty
     ties. Emission order is channel-major (band, output slot) x candidate, as
     in the JAX package. The similarity test is a superset
-    (``sim >= thr - slack``); the host recomputes it exactly."""
+    (``sim >= thr - slack``); the host recomputes it exactly. With the
+    candidates' ``combo`` indices (of ``n_combo``) also returns the rows'
+    tags (:func:`_row_tags`)."""
     B, NE = 2 * E + 1, E + 1
     M = cand_field.numel()
     MO = T.out_list.shape[1]
@@ -1223,16 +1238,18 @@ def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
     o = chan % MO
     b = chan // MO
     pen_bits = torch.stack(pen_best).view(torch.int32)[b, m]
-    return torch.stack([
+    rows = torch.stack([
         start[m], pen_bits, d[m] + (b - E).to(torch.int32), pats[m, o],
         torch.stack(cnt_best)[b, m],
     ], dim=1).to(torch.int32)
+    return rows if combo is None else (rows, _row_tags(chan, m, combo, n_combo))
 
 
 def emit_rows_typed(pen, cand_field, cand_start, T: DpTables, TT: TypedTables,
-                    limit, thr, E):
+                    limit, thr, E, combo=None, n_combo: int = 0):
     """Typed DP channels -> match rows, int32 [K, 5] as :func:`emit_rows`
-    gives them, in the same order (the JAX package's ``_emit_rows_typed``).
+    gives them, in the same order (the JAX package's ``_emit_rows_typed``),
+    and the rows' tags where ``combo`` is given.
 
     Per band and limits class the channels the class admits are minimised
     with strict <, in channel order (fewest edits first), and the winning
@@ -1284,10 +1301,11 @@ def emit_rows_typed(pen, cand_field, cand_start, T: DpTables, TT: TypedTables,
     o = chan % MO
     b = chan // MO
     pen_bits = torch.stack(pen_rows).view(torch.int32)[chan, m]
-    return torch.stack([
+    rows = torch.stack([
         start[m], pen_bits, d[m] + (b - E).to(torch.int32), pats[m, o],
         torch.stack(cnt_rows)[chan, m],
     ], dim=1).to(torch.int32)
+    return rows if combo is None else (rows, _row_tags(chan, m, combo, n_combo))
 
 
 # ---------------------------------------------------------------------------
@@ -1311,21 +1329,28 @@ class DpWindow(NamedTuple):
 
 def dp_pipeline_torch(pos, words, window: DpWindow, ids, limit, T: DpTables,
                       pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
-                      variant: DpVariant = FAST):
+                      variant: DpVariant = FAST, h0: int = 0, tags: bool = False):
     """Plain version of ``dp_pipeline_kernel`` and ``dp_pipeline_typed_kernel``:
-    :func:`expand_candidates`, then :func:`banded_dp_torch` and
-    :func:`emit_rows`, or for a typed ``variant``
-    :func:`banded_dp_typed_torch` and :func:`emit_rows_typed`. Returns (rows
-    int32 [K, 5], number of candidates)."""
-    cand_field, cand_start = expand_candidates(pos, words, *window, E, *statics)
+    :func:`expand_candidates` of the hits from ``h0`` on, then
+    :func:`banded_dp_torch` and :func:`emit_rows`, or for a typed
+    ``variant`` :func:`banded_dp_typed_torch` and :func:`emit_rows_typed`.
+    Returns (rows int32 [K, 5], number of candidates), and with ``tags`` the
+    rows' tags (int32 [K], ``channel * n_combo + combo``) last."""
+    cand_field, cand_start, combo = expand_candidates(pos, words, *window, E, *statics, h0=h0,
+                                                      combos=True)
+    tag_args = (combo, _combos(E, *statics).shape[1]) if tags else ()
     if variant.typed is not None:
         pen = banded_dp_typed_torch(cand_field, cand_start, ids, limit, T, pens, E,
                                     variant.typed)
-        rows = emit_rows_typed(pen, cand_field, cand_start, T, variant.typed, limit, thr, E)
+        rows = emit_rows_typed(pen, cand_field, cand_start, T, variant.typed, limit, thr, E,
+                               *tag_args)
     else:
         pen, cnt = banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend,
                                    variant.forbid, variant.maps)
-        rows = emit_rows(pen, cnt, cand_field, cand_start, T, limit, thr, E)
+        rows = emit_rows(pen, cnt, cand_field, cand_start, T, limit, thr, E, *tag_args)
+    if tags:
+        rows, row_tags = rows
+        return rows, cand_field.numel(), row_tags
     return rows, cand_field.numel()
 
 
@@ -1345,17 +1370,17 @@ def _typed_count_entries(items: int, channels: int) -> int:
 
 
 def pipeline_max_hits(n_combo: int, MO: int, E: int, typed: bool = False) -> int:
-    """Most hits :func:`dp_pipeline` takes in one call: the work budget
-    ``MAX_EXPAND`` over (combo, hit) items, and int32 offsets over their
-    candidates and rows (at most one of each per item and emission channel).
-    The ``typed`` kernel counts per warp of ``TYPED_UNIT`` items, 16 entries
-    where the count-channel kernel has one, so there the counts' bytes
-    (``TYPED_COUNT_BYTES``) bound the items too."""
+    """Most hits :func:`dp_pipeline` takes in one call (one range of a
+    longer hit list, :func:`dp_pipeline_ranges`): int32 offsets over their
+    (combo, hit) items' candidates and rows (at most one of each per item
+    and emission channel). The ``typed`` kernel counts per warp of
+    ``TYPED_UNIT`` items, 16 entries where the count-channel kernel has one,
+    so there the counts' bytes (``TYPED_COUNT_BYTES``) bound the items too."""
     channels = (2 * E + 1) * MO
-    items = min(MAX_EXPAND, ((1 << 31) - 1) // (channels + 1))
+    items = ((1 << 31) - 1) // (channels + 1)
     if typed:
         items = min(items, TYPED_COUNT_BYTES // 4 // (channels + 1) * TYPED_UNIT)
-    return items // max(n_combo, 1)
+    return max(1, items // max(n_combo, 1))
 
 
 @functools.lru_cache(maxsize=64)
@@ -1366,14 +1391,14 @@ def _combos_on(device: str, E: int, BITS: tuple, P2F: tuple, DEPTHS: tuple) -> t
 
 def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
                 pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
-                variant: DpVariant = FAST):
+                variant: DpVariant = FAST, h0: int = 0):
     """Checks the arguments of :func:`dp_pipeline` and, on CUDA tensors, runs
     the kernel's count pass. Returns None for CPU tensors and for an empty
     hit list, else (launch, counts, channels, units): ``counts`` int32
     [(channels + 1) * units] holds every unit's rows per emission channel
     and, in the last row, its candidates (a unit is one block of
     ``dp_pipeline_kernel``, one warp of ``dp_pipeline_typed_kernel``);
-    ``launch(1, offsets, rows)`` runs the write pass."""
+    ``launch(1, offsets, rows, tags)`` runs the write pass."""
     from . import packed_bitap as pb
 
     for name, t in (("pos", pos), ("words", words)):
@@ -1398,13 +1423,15 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
     if variant.maps is not None and deadend:
         raise ValueError("the mapped DP has no dead-end filter")
     map_args = _map_args(variant.maps, T)
+    if not 0 <= h0 <= max(pos.numel() - 1, 0):
+        raise ValueError(f"first hit {h0} outside the {pos.numel()} hits")
     if ids.device.type == "cpu":
         return None
     if ids.device.type != "cuda":
         raise ValueError(f"no DP kernel for device {ids.device}")
     dev = ids.device
     combos = _combos_on(str(dev), E, *statics)
-    H, n_combo = pos.numel(), combos.shape[1]
+    H, n_combo = pos.numel() - h0, combos.shape[1]
     MO = T.out_list.shape[1]
     nch = (2 * E + 1) * MO
     if nch > MAX_CHANNELS:
@@ -1414,7 +1441,9 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
     if typed is not None and 4 * _typed_count_entries(H * n_combo, nch) > TYPED_COUNT_BYTES:
         raise ValueError(f"{H} hits x {n_combo} combos x {nch} channels: the typed count "
                          f"pass's counts pass {TYPED_COUNT_BYTES} bytes")
-    if H == 0 or n_combo == 0:
+    if nch * n_combo >= 1 << 31:
+        raise ValueError(f"{nch} channels x {n_combo} combos overflow the int32 row tags")
+    if H <= 0 or n_combo == 0:
         return None
     kern = _cuda_build.load()
     unit = kern.lib.fac_dp_pipeline_typed_unit() if typed is not None \
@@ -1424,7 +1453,7 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
     nunits = -(-(H * n_combo) // unit)
     counts = torch.empty((nch + 1) * nunits, dtype=torch.int32, device=dev)
     head = (
-        pos.data_ptr(), words.data_ptr(), H, words.shape[1],
+        pos.data_ptr(), words.data_ptr(), pos.numel(), h0, words.shape[1],
         combos.data_ptr(), n_combo, *(int(x) for x in window),
         ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
         T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(),
@@ -1437,10 +1466,11 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
         *(float(np.float32(x)) for x in pens), emit_bound(thr), E,
     )
 
-    def launch(write: int, offsets, rows):
+    def launch(write: int, offsets, rows, tags=None):
         tail = (write, nunits, counts.data_ptr(),
                 None if offsets is None else offsets.data_ptr(),
-                None if rows is None else rows.data_ptr())
+                None if rows is None else rows.data_ptr(),
+                None if tags is None else tags.data_ptr())
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             if typed is not None:
@@ -1472,34 +1502,63 @@ def dp_pipeline_counts(*args) -> torch.Tensor:
 
 def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
                 pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
-                variant: DpVariant = FAST):
+                variant: DpVariant = FAST, h0: int = 0, tags: bool = False):
     """Hit list -> match rows of one slice: (rows int32 [K, 5] on the hits'
-    device, number of candidates). ``pos`` [H] int64 ascending and ``words``
-    [H, 2W] int64 as ``packed_hits`` returns them; ``statics`` the (BITS,
-    P2F, DEPTHS) of :func:`expand_candidates`; ``variant`` the DP the lane
-    runs; rows as :func:`emit_rows` orders them. CPU tensors run
-    :func:`dp_pipeline_torch`; CUDA tensors launch ``dp_pipeline_kernel``
-    (``dp_pipeline_typed_kernel`` for a typed variant) twice, a count pass
-    and a write pass with ``block_offsets_kernel`` between them, and read
-    the two totals back."""
+    device, number of candidates), and with ``tags`` the rows' tags (int32
+    [K], ``channel * n_combo + combo``) last. ``pos`` [H] int64 ascending
+    and ``words`` [H, 2W] int64 as ``packed_hits`` returns them, of which
+    the hits from ``h0`` on are expanded (see :func:`expand_candidates`);
+    ``statics`` the (BITS, P2F, DEPTHS) of :func:`expand_candidates`;
+    ``variant`` the DP the lane runs; rows as :func:`emit_rows` orders them.
+    CPU tensors run :func:`dp_pipeline_torch`; CUDA tensors launch
+    ``dp_pipeline_kernel`` (``dp_pipeline_typed_kernel`` for a typed
+    variant) twice, a count pass and a write pass with
+    ``block_offsets_kernel`` between them, and read the two totals back."""
     from . import packed_bitap as pb
 
     passed = _count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics,
-                         variant)
+                         variant, h0)
     if passed is None:
         if ids.device.type == "cpu":
             return dp_pipeline_torch(pos, words, window, ids, limit, T, pens, thr, E,
-                                     deadend, statics, variant)
-        return torch.zeros((0, 5), dtype=torch.int32, device=ids.device), 0
+                                     deadend, statics, variant, h0, tags)
+        empty = torch.zeros((0, 5), dtype=torch.int32, device=ids.device)
+        return (empty, 0) + ((empty[:, 0],) if tags else ())
     launch, counts, nch, nunits = passed
     offsets = pb.block_offsets(counts)
     # The rows' total ends the last channel's counts, the grand total (rows
     # and candidates) the array: one strided read of two values.
     n_rows, n_all = offsets[nch * nunits::nunits].tolist()
     rows = torch.empty((n_rows, 5), dtype=torch.int32, device=ids.device)
+    row_tags = torch.empty(n_rows, dtype=torch.int32, device=ids.device) if tags else None
     if n_rows:
-        launch(1, offsets, rows)
-    return rows, n_all - n_rows
+        launch(1, offsets, rows, row_tags)
+    return (rows, n_all - n_rows) + ((row_tags,) if tags else ())
+
+
+def dp_pipeline_ranges(pos, words, max_hits: int, *args):
+    """:func:`dp_pipeline` (arguments ``args`` after the hits) over a hit
+    list of any length: in ranges of at most ``max_hits`` hits
+    (:func:`pipeline_max_hits`), each handed its preceding hit for the run
+    dedup, so that every count stays inside int32. Returns what one call over
+    the whole list would: the rows in its order and the candidates' count.
+    Each range's rows are ordered by (channel, combo, hit) within the range;
+    a stable sort of all ranges' rows by their tags (channel, combo)
+    restores the order of one range, which decode's tie rule reads (the
+    earliest row of a span wins a similarity tie)."""
+    count = pos.numel()
+    if count <= max_hits:
+        return dp_pipeline(pos, words, *args)
+    rows, tags, n_cand = [], [], 0
+    for a in range(0, count, max_hits):
+        h0 = min(a, 1)
+        r, c, t = dp_pipeline(pos[a - h0:a + max_hits], words[a - h0:a + max_hits], *args,
+                              h0=h0, tags=True)
+        rows.append(r)
+        tags.append(t)
+        n_cand += c
+    order = torch.sort(torch.cat(tags), stable=True).indices
+    return torch.cat(rows)[order], n_cand
 
 
 # ---------------------------------------------------------------------------
@@ -1509,8 +1568,6 @@ def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
 #: Slice length of the sliced pipeline (grapheme symbols); corpora of at
 #: least 1.5 slices are cut into overlapping slices.
 SLICE_SYMS = 16 << 20
-#: Candidate-stage work budget: hits x (fields x bands) past this declines.
-MAX_EXPAND = 1 << 27
 
 
 class _Plan(NamedTuple):
@@ -1718,16 +1775,10 @@ def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int,
 def dp_candidates(run: DpRun, part: _Part):
     """(hit count, cand_field, cand_start) of one slice: the hit-list scan,
     then :func:`expand_candidates` over the slice's owned starts; the
-    candidates :func:`banded_dp` is held against its plain version on. The
-    expansion is skipped (empty candidates) when the hit count times
-    ``n_combo`` passes ``MAX_EXPAND``."""
+    candidates :func:`banded_dp` is held against its plain version on."""
     from .packed_bitap import packed_hits
 
-    count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo,
-                                    MAX_EXPAND // max(run.plan.n_combo, 1))
-    if pos is None:
-        empty = torch.zeros(0, dtype=torch.int32, device=part.ids_pf.device)
-        return count, empty, empty
+    count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo)
     cand_field, cand_start = expand_candidates(
         pos, words, part.lo, part.hi, part.local_n, run.plan.E, *run.statics)
     return count, cand_field, cand_start
@@ -1744,10 +1795,12 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int,
     ``typed`` (:class:`TypedSpec`) runs the type-vector DP — at most one of
     the three.
 
-    The JAX package declines up front on a guess of the hit capacity; here
-    the scan's real hit count decides (:func:`pipeline_max_hits`), so
-    an engine can be routed differently from the JAX package at that edge.
-    The output is equal either way.
+    The JAX package declines up front on a guess of the hit capacity (its
+    callers then take the beam lanes, or the oracle for beamed, typed and
+    mapped engines); here a slice's hit list of any length is served, in
+    ranges of at most :func:`pipeline_max_hits` hits where it is longer
+    (:func:`dp_pipeline_ranges`), with the rows of one range's order, so the
+    matches are the JAX package's.
 
     Large corpora run as overlapping slices (:func:`dp_inputs`), one after
     another. Per slice: the hit-list scan (``packed_hits``), the expansion,
@@ -1768,11 +1821,9 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int,
     sum_h = sum_c = 0
     max_hits = pipeline_max_hits(plan.n_combo, run.T.out_list.shape[1], E, typed is not None)
     for part in run.parts:
-        count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo, max_hits)
-        if pos is None:
-            return None  # unselective scan: decline, the caller falls back
-        rows, n_cand = dp_pipeline(
-            pos, words, DpWindow(part.lo, part.hi, part.local_n), part.ids_de,
+        count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo)
+        rows, n_cand = dp_pipeline_ranges(
+            pos, words, max_hits, DpWindow(part.lo, part.hi, part.local_n), part.ids_de,
             part.local_n, run.T, run.pens, thr, E, run.deadend, run.statics, run.variant)
         rows = rows.cpu().numpy()
         rows[:, 0] += part.base  # slice-local starts -> global graphemes
@@ -1823,7 +1874,7 @@ def fuzzy_search_typed_device(engine, haystack: str, threshold) -> List:
     """Device search for per-type / per-pattern limit configurations: the
     forbid lane where :func:`forbid_spec_of` holds the engine, else the
     typed lane. Falls back to the host oracle where the lane declines (a
-    threshold budget past the scan's, an unselective scan)."""
+    threshold budget past the scan's)."""
     from .. import oracle
     from ..utils.graphemes import view_of
 

@@ -587,19 +587,16 @@ def test_typed_budget_past_the_channel_bound_declines(monkeypatch):
     got = _tuples(port_e.search_raw("the pattren and pttern here", 0.6))
     assert len(got) >= 2 and sorted(got) == sorted(_tuples(
         jax_e.search_raw("the pattren and pttern here", 0.6)))
-    # More hits than the expansion's work budget takes: the lane declines
-    # and the oracle serves the same matches.
+    # More hits than one call of the pipeline takes: the lane runs them in
+    # ranges (one hit each here) and serves the same matches on the device.
     _jax_t, typed_e = _pair("typed-ins-del")
     hay = CONFIGS["typed-ins-del"][2][:600]
     served = _tuples(typed_e.search_raw(hay, 0.55))
     assert typed_e.last_stats["backend"] == "device-fuzzy-dp-typed"
-    monkeypatch.setattr(tvd, "MAX_EXPAND", 8)
-    view = view_of(hay, True)
-    assert tvd.fuzzy_search_dp(typed_e, hay, 0.55, view, len(view),
-                               typed=tvd.typed_spec_of(typed_e)) is None
-    declined = _tuples(typed_e.search_raw(hay, 0.55))
-    assert "device" not in typed_e.last_stats["backend"]
-    assert sorted(declined) == sorted(served) and len(served) > 0
+    monkeypatch.setattr(tvd, "pipeline_max_hits", lambda *a, **k: 1)
+    ranged = _tuples(typed_e.search_raw(hay, 0.55))
+    assert typed_e.last_stats["backend"] == "device-fuzzy-dp-typed"
+    assert ranged == served and len(served) > 0
 
 
 def test_to_drops_the_lane_tables():
@@ -632,8 +629,9 @@ def test_similarity_tying_the_threshold_on_a_typed_engine():
 
 def test_typed_lane_declines_past_its_count_bytes(monkeypatch):
     """The typed kernel counts per warp of ``TYPED_UNIT`` items, so the bytes
-    of its counts bound the hits it takes: past them the lane declines (None),
-    the oracle serves the same matches."""
+    of its counts bound the hits one call takes. Past them the lane no longer
+    declines: it runs the hit list in ranges that fit, and serves the same
+    matches on the device."""
     for n_c, MO, E in ((48, 1, 1), (48, 16, 1), (600, 40, 3), (1, 1, 1)):
         most = tvd.pipeline_max_hits(n_c, MO, E, typed=True)
         assert most <= tvd.pipeline_max_hits(n_c, MO, E)
@@ -651,14 +649,31 @@ def test_typed_lane_declines_past_its_count_bytes(monkeypatch):
     # Room for one hit fewer than the scan finds in the one slice.
     monkeypatch.setattr(tvd, "TYPED_COUNT_BYTES", 4 * tvd._typed_count_entries(
         (stats["hits"] - 1) * plan.n_combo, channels))
-    assert tvd.fuzzy_search_dp(typed_e, hay, 0.55, view, len(view), typed=spec) is None
-    declined = _tuples(typed_e.search_raw(hay, 0.55))
-    assert "device" not in typed_e.last_stats["backend"]
-    assert sorted(declined) == sorted(served) and len(served) > 0
+    assert tvd.pipeline_max_hits(plan.n_combo, 1, plan.E, typed=True) < stats["hits"]
+    ranged = _tuples(tvd.fuzzy_search_dp(typed_e, hay, 0.55, view, len(view), typed=spec))
+    assert ranged == served and typed_e.last_stats == stats and len(served) > 0
     # The count-channel lanes are not bound by it.
     _jax_f, forbid_e = _pair("forbid-swaps")
     assert len(forbid_e.search_raw(CONFIGS["forbid-swaps"][2], CONFIGS["forbid-swaps"][3][0])) > 0
     assert forbid_e.last_stats["backend"] == "device-fuzzy-dp-forbid"
+
+
+@pytest.mark.parametrize("name", ["forbid-swaps", "mapped-eszett", "typed-ins-del",
+                                  "typed-per-pattern"])
+def test_lane_runs_long_hit_lists_in_ranges(monkeypatch, name):
+    """Each DP lane runs a slice's hit list in ranges of at most
+    ``pipeline_max_hits`` hits, each handed its preceding hit: ranges of 1,
+    2 and 7 hits give the matches, hits and candidates of one range."""
+    _c, _p, hay, thrs, lane = CONFIGS[name]
+    _jax_e, port_e = _pair(name)
+    hay = hay[:400]
+    whole = _tuples(port_e.search_raw(hay, thrs[0]))
+    stats = dict(port_e.last_stats)
+    assert stats["backend"] == BACKEND[lane] and stats["hits"] > 7 and len(whole) >= 4
+    for range_hits in (1, 2, 7):
+        monkeypatch.setattr(tvd, "pipeline_max_hits", lambda *a, r=range_hits, **k: r)
+        assert _tuples(port_e.search_raw(hay, thrs[0])) == whole
+        assert port_e.last_stats == stats
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

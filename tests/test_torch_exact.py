@@ -150,11 +150,103 @@ def test_lanes_not_ported_raise_on_device_and_auto():
     ref.backend = "oracle"
     want = sorted(_tuples(ref.search_raw(small, 0.8)))
     assert len(want) >= 3 and sorted(_tuples(typed.search_raw(small, 0.8))) == want
-    # An exact engine that the packed lane cannot hold (field > 64).
-    wide = FuzzyAhoCorasickBuilder.new().device("cpu").build(["a" * 70])
-    wide.backend = "device"
-    with pytest.raises(NotImplementedError, match="goto-walk"):
-        wide.search_raw(big, 0.5)
+    # An exact engine that the packed lane cannot hold (field > 64): the
+    # goto walk serves it under 'device' and 'auto', equal to the oracle.
+    wide = FuzzyAhoCorasickBuilder.new().device("cpu").build(["a" * 70, "tincidunt"])
+    hay = big[:3000] + " " + "a" * 75 + " " + big[3000:] + " " + "a" * 70
+    served = []
+    for backend in ("device", "auto"):
+        wide.backend = backend
+        served.append(_tuples(wide.search_raw(hay, 0.5)))
+        assert wide.last_stats["backend"] == "device-exact"
+    wide.backend = "oracle"
+    want = sorted(_tuples(wide.search_raw(hay, 0.5)))
+    assert sorted(served[0]) == sorted(served[1]) == want
+    assert sum(p == 0 for p, *_ in want) == 7 and len(want) > 20
+
+
+def _words(n: int, length: int, seed: int, alphabet: str = "abcdefghijklmnopqrstuvwxyz"):
+    """``n`` distinct words of ``length`` letters, none a prefix of another:
+    with 8 letters, 8 fields per packed limb."""
+    rng = np.random.default_rng(seed)
+    out = set()
+    while len(out) < n:
+        out.add("".join(alphabet[i] for i in rng.integers(len(alphabet), size=length)))
+    return sorted(out)
+
+
+def _planted(words, count: int, seed: int, filler=FILLER) -> str:
+    """Filler with ``count`` of ``words`` planted, some upper-cased."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        w = words[int(rng.integers(len(words)))]
+        out += [FILLER[int(rng.integers(len(FILLER)))], w.upper() if i % 5 == 0 else w]
+    return " ".join(out)
+
+
+_CJK = [chr(0x4E00 + 3 * i) for i in range(300)]
+_LONG = "pellentesque" * 6  # 72 graphemes, past the packed lane's 64
+
+#: name -> (patterns, haystack, threshold, port backend, limbs or None).
+EXACT_CASES = {
+    # The wide packed form (the JAX package walks them).
+    "wide-9": (_words(72, 8, 21), None, 0.5, "device-exact-packed", 9),
+    "wide-31": (_words(248, 8, 22), None, 0.5, "device-exact-packed", 31),
+    "wide-64": (_words(512, 8, 23), None, 0.5, "device-exact-packed", 64),
+    # The goto walk.
+    "walk-field-70": (HEADLINE + [_LONG, "a" * 70], None, 0.5, "device-exact", None),
+    "walk-classes-300": (["".join(_CJK[i:i + 5]) for i in range(0, 300, 5)] + ["привет", "мир"],
+                         None, 0.5, "device-exact", None),
+    "walk-limbs-75": (_words(600, 8, 24), None, 0.5, "device-exact", None),
+    "walk-unicode": (CYRILLIC + ["".join(_CJK[i:i + 3]) for i in range(0, 150, 3)] + ["café"],
+                     None, 0.5, "device-exact", None),
+    # Weight 0.578 at threshold 0.578: the ceiling prunes the 5-grapheme
+    # pattern (f32(5) - f32(5 / 0.578) * 0.578 < 0) and keeps the 6.
+    "walk-prune-tie": ([("prune", 0.578), ("kepted", 0.578), _LONG, "tincidunt"],
+                       None, np.float32(0.578), "device-exact", None),
+}
+
+
+def _exact_hay(name: str) -> str:
+    pats = [p if isinstance(p, str) else p[0] for p in EXACT_CASES[name][0]]
+    hay = _planted(pats, 120, 31)
+    if name == "walk-field-70":
+        hay += " " + "a" * 75 + " " + _LONG + _LONG[:20]
+    if name in ("walk-classes-300", "walk-unicode"):
+        hay = hay.replace(" lorem ", " naïve e\u0301t\u00e9 ") + " мИР привет"
+    if name == "walk-prune-tie":
+        hay += " prune kepted " + _LONG
+    return hay
+
+
+@pytest.mark.parametrize("name", list(EXACT_CASES))
+def test_exact_lanes_equal_to_jax_and_oracle(monkeypatch, name):
+    """Exact engines the narrow packed lane cannot hold: the wide packed
+    form (W = 9..64; at 31 limbs also on the streaming branch) and the goto
+    walk (a field past 64 graphemes, more than 128 symbol classes, more than
+    64 limbs) equal the JAX package's device search (its goto walk) and the
+    oracle, as (pattern, start, end, f32 similarity bits, edits)."""
+    patterns, _hay, thr, backend, limbs = EXACT_CASES[name]
+    hay = _exact_hay(name)
+    jax_e, port_e = _engines(patterns)
+    got = sorted(_tuples(port_e.search_raw(hay, thr)))
+    assert port_e.last_stats["backend"] == backend
+    assert port_e.last_stats.get("limbs") == limbs
+    want = sorted(_tuples(jax_e.search_raw(hay, thr)))
+    assert jax_e.last_stats["backend"] == "device-exact"
+    port_e.backend = "oracle"
+    assert got == want == sorted(_tuples(port_e.search_raw(hay, thr)))
+    assert len(got) >= 60
+    if name == "walk-prune-tie":
+        found = {p for p, *_ in got}
+        assert 1 in found and 0 not in found and "prune" in hay
+    if name == "wide-31":  # slices of 256 symbols, overlapping by m_max - 1
+        monkeypatch.setattr(tpb, "RESIDENT_MAX", 300)
+        monkeypatch.setattr(tpb, "STREAM_CHUNK", 256)
+        device_corpus.clear()
+        port_e.backend = "device"
+        assert sorted(_tuples(port_e.search_raw(hay, thr))) == got
 
 
 @pytest.mark.parametrize(

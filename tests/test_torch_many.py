@@ -15,8 +15,8 @@ the oracle on the CPU.
     by two chunks, wide Damerau, folded, and past the folded hit ceiling;
     and equals the JAX ``fuzzy_search_many`` in tuples and ``last_stats``.
 (e) Routing: ``backend = "device"`` reaches the lane for plain and beamed
-    engines whose dictionary does not pack; past 4095 patterns the port
-    raises the beam lanes' ``NotImplementedError``.
+    engines whose dictionary does not pack, past 4095 patterns too (where
+    the JAX package takes its beam lanes), equal to the oracle.
 
 Both sides get the same numpy inputs, made from a seed. The tolerance is
 exact equality everywhere: the scan and the expansion are integer, and the
@@ -446,11 +446,20 @@ def test_device_backend_routes_to_the_lane():
 
 
 def test_past_the_pattern_gate_raises_the_beam_lanes_error():
+    """The JAX package's 4095-pattern gate (its rows hold the pattern id in
+    12 bits) is not the port's: a 4,200-word ``edits(1)`` engine runs on the
+    large-dictionary lane and equals the oracle and the JAX package (whose
+    host path serves a haystack under ``AUTO_DEVICE_MIN``)."""
     words = [f"{a}{b}{c}word" for a in LETTERS for b in LETTERS for c in LETTERS[:7]][:4200]
     eng = _port(words)
-    assert len(words) > many.MANY_MAX_PATTERNS and many.many_spec_of(eng) is None
-    with pytest.raises(NotImplementedError, match="beam-frontier"):
-        eng.search_raw("abcword and xyzwrod", 0.8)
+    assert len(words) == 4200 and many.many_spec_of(eng) is not None
+    hay = "abcword and xyzwrod zzgword zgzword qqaword " * 3
+    got = sorted(map(_key, eng.search_raw(hay, 0.8)))
+    assert eng.last_stats["backend"] == "device-fuzzy-many"
+    jax_e = JaxBuilder.new().fuzzy(JaxLimits.new().edits(1)).case_insensitive(True).build(words)
+    jax_e.backend = "auto"
+    assert got == sorted(map(_key, jax_e.search_raw(hay, 0.8)))
+    assert got == _oracle_keys(eng, hay, 0.8) and len(got) > 10
 
 
 def test_c_entries_match_their_ctypes_signatures():

@@ -26,12 +26,14 @@ import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
 from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+from fuzzy_aho_corasick_tpu import FuzzyPenalties as JaxPenalties
 from fuzzy_aho_corasick_tpu import Pattern as JaxPattern
 from fuzzy_aho_corasick_tpu.ops import packed_bitap as jpb
 from fuzzy_aho_corasick_tpu.ops import verify_dp as jvd
 from fuzzy_aho_corasick_tpu.utils import device_corpus as jax_corpus
 from fuzzy_aho_corasick_tpu.utils.graphemes import view_of
-from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern
+from fuzzy_aho_corasick_tpu_torch import (
+    FuzzyAhoCorasickBuilder, FuzzyLimits, FuzzyPenalties, Pattern)
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
 from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as tvd
 from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
@@ -368,26 +370,81 @@ def test_pipeline_no_hits_and_refusals(headline):
 
 
 def test_lane_declines_past_the_hit_budget(monkeypatch, headline):
-    """Past the work budget, or where int32 offsets over (combo, hit, channel)
-    would overflow, the lane declines (None) and does not raise."""
+    """The lane no longer declines on the hit budget: past
+    ``pipeline_max_hits`` a slice's hit list runs in ranges of that many
+    hits (``dp_pipeline_ranges``), each handed its preceding hit for the run
+    dedup, and the matches, hits and candidates equal one range's, with hit
+    runs cut between two ranges. ``pipeline_max_hits`` keeps the counts of
+    one range inside int32 offsets."""
     _jax_e, port_e = headline
-    hay = _corpus(69, 2000, HEADLINE, rate=3)
+    hay = _corpus(69, 2000, HEADLINE, rate=3) + " tincidunt" + "t" * 4
     view = view_of(hay, True)
     device_corpus.clear()
     served = tvd.fuzzy_search_dp(port_e, hay, 0.8, view, len(view))
-    hits, n_combo = port_e.last_stats["hits"], tvd.dp_plan(port_e, 0.8, len(view)).n_combo
-    assert served and hits > 10
-    monkeypatch.setattr(tvd, "MAX_EXPAND", hits * n_combo - 1)
-    assert tvd.fuzzy_search_dp(port_e, hay, 0.8, view, len(view)) is None
-    monkeypatch.setattr(tvd, "MAX_EXPAND", hits * n_combo)
-    assert _tuples(tvd.fuzzy_search_dp(port_e, hay, 0.8, view, len(view))) == _tuples(served)
+    stats = dict(port_e.last_stats)
+    assert served and stats["hits"] > 10
+    calls = []
+    real = tvd.dp_pipeline
+    monkeypatch.setattr(tvd, "dp_pipeline", lambda *a, **k: calls.append(k.get("h0", 0))
+                        or real(*a, **k))
+    for range_hits in (1, 2, 7):
+        monkeypatch.setattr(tvd, "pipeline_max_hits", lambda *a, r=range_hits: r)
+        calls.clear()
+        got = tvd.fuzzy_search_dp(port_e, hay, 0.8, view, len(view))
+        assert _tuples(got) == _tuples(served) and port_e.last_stats == stats
+        assert len(calls) == -(-stats["hits"] // range_hits) and set(calls) == {0, 1}
     monkeypatch.undo()
     for n_c, MO, E in ((48, 1, 1), (48, 16, 1), (600, 40, 3), (1, 1, 1)):
         most = tvd.pipeline_max_hits(n_c, MO, E)
-        assert most * n_c <= tvd.MAX_EXPAND
         assert most * n_c * ((2 * E + 1) * MO + 1) < 1 << 31
-    assert tvd.pipeline_max_hits(48, 1, 1) == tvd.MAX_EXPAND // 48  # the budget binds
-    assert tvd.pipeline_max_hits(48, 16, 1) < tvd.MAX_EXPAND // 48  # the offsets bind
+        assert (most + 1) * n_c * ((2 * E + 1) * MO + 1) >= 1 << 31
+    assert tvd.pipeline_max_hits(10 ** 10, 1, 1) == 1
+
+
+def _tie_pair():
+    """``abzz`` and ``bbzz`` both output their suffix ``zz`` in slot 1 at
+    depth 4; with substitutions and swaps both priced 0.6, ``bazz`` is one
+    swap from the first and one substitution from the second, so ``zz`` at
+    that span ties on similarity with different edit counts, and the
+    earliest row wins: the first field's. The second field's row comes from
+    an earlier hit (``bbzz`` fires one position sooner), so a range boundary
+    between the hits puts it first unless the rows are put back in one
+    range's order."""
+    jax_e = (JaxBuilder.new().fuzzy(JaxLimits.new().edits(1))
+             .penalties(JaxPenalties().with_substitution(0.6).with_swap(0.6))
+             .build(["abzz", "bbzz", "zz"]))
+    port_e = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(1))
+              .penalties(FuzzyPenalties().with_substitution(0.6).with_swap(0.6))
+              .device("cpu").build(["abzz", "bbzz", "zz"]))
+    jax_e.backend = port_e.backend = "device"
+    return jax_e, port_e
+
+
+def test_ranges_keep_the_tie_rule(monkeypatch):
+    jax_e, port_e = _tie_pair()
+    hay = "xx bazz yy abzz ww bazz q"
+    view = view_of(hay, True)
+    want = sorted(_tuples(jax_e.search_raw(hay, 0.5)))
+    ties = [t for t in want if t[0] == 2 and (t[1], t[2]) in ((3, 7), (19, 23))]
+    assert len(ties) == 2 and all(t[4:] == (0, 0, 0, 1) for t in ties)  # the swap wins
+    jax_e.backend = "oracle"
+    assert sorted(_tuples(jax_e.search_raw(hay, 0.5))) == want
+    for range_hits in (1, 2, 7):
+        monkeypatch.setattr(tvd, "pipeline_max_hits", lambda *a, r=range_hits: r)
+        assert sorted(_tuples(tvd.fuzzy_search_dp(port_e, hay, 0.5, view, len(view)))) == want
+    # Without the sort by tags, one-hit ranges keep the substitution.
+    plan = tvd.dp_plan(port_e, 0.5, len(view))
+    run = tvd.dp_inputs(port_e, hay, plan, view, len(view))
+    part = run.parts[0]
+    _count, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    args = (tvd.DpWindow(part.lo, part.hi, part.local_n), part.ids_de, part.local_n, run.T,
+            run.pens, np.float32(0.5), plan.E, run.deadend, run.statics)
+    cut = torch.cat([tvd.dp_pipeline(pos[a - min(a, 1):a + 1], words[a - min(a, 1):a + 1], *args,
+                                     h0=min(a, 1))[0] for a in range(pos.numel())])
+    ranged, _n = tvd.dp_pipeline_ranges(pos, words, 1, *args)
+    whole, _n = tvd.dp_pipeline(pos, words, *args)
+    assert torch.equal(ranged, whole) and not torch.equal(cut, whole)
+    assert sorted(map(tuple, cut.tolist())) == sorted(map(tuple, whole.tolist()))
 
 
 def test_row_order_does_not_reach_the_matches(headline):
