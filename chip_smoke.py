@@ -31,12 +31,16 @@ CUDA kernel they run against its plain torch version. Phases:
    substitutions) and with mapping arrivals (rn <-> m on the headline
    dictionary + ``modern``; ß <-> ss and æ <-> ae, drift +1 and -1 in both
    directions; a scored mapping; ``edits(2)`` mapped); ``banded_dp_typed``
-   and ``dp_pipeline_typed`` on ``substitutions(1)`` (2 channels),
+   and the typed step (``typed_expand``, ``typed_dp``, ``typed_emit``, each
+   also alone) on ``substitutions(1)`` (2 channels),
    ``insertions(1).deletions(1)``, ``edits(2).substitutions(1)`` (14),
    ``edits(4).substitutions(1)`` (55) and a dictionary with three limits
    classes; the DP-only kernels on int32 ids too; a threshold that a typed
-   match's similarity ties; the typed wrapper's refusal past the bytes its
-   counts may take; a text without hits per lane. The large-dictionary lane
+   match's similarity ties; the typed step on the second half of a hit list
+   (a first hit h0 and the rows' tags); a text without hits per lane;
+   ``block_offsets`` at 1, 2, 31, 1023-1025 counts, one tile (16,384) and
+   one either side, 129,864 and 2^22 + 7 counts, all zeros, a total just
+   under 2^31 and an unaligned view. The large-dictionary lane
    (``many_kernel_checks``): the wide scan's kernels (``scan_bits_wide``,
    ``hit_words_wide``) at W = 9, 31, 32, 64 limbs, alphabets of 27 and 128
    symbols, k = 0, 1 (Damerau), 2, 4 (Damerau) on streams of 50,013
@@ -107,10 +111,13 @@ CUDA kernel they run against its plain torch version. Phases:
    main paths' shapes (``block_offsets`` at the scan's and at the
    pipeline's; each lane's pipeline and DP-only kernel on slice 1 of its
    phase's search, where the scan's three kernels on the lane's own tables
-   and ``block_offsets`` on its count pass's counts are held against their
-   plain versions too; the same for ``edits(2).substitutions(1)``, typed
-   with 14 channels behind a k = 2 scan, beside its searches over the whole
-   corpus), the bound worked out from those inputs alone (bytes
+   and ``block_offsets`` on every count array the step scans are held
+   against their plain versions too; for the typed lane each of the step's
+   kernels alone; the same for ``edits(2).substitutions(1)``, typed with 14
+   channels behind a k = 2 scan, beside its searches over the whole
+   corpus; ``block_offsets`` beside ``torch.cumsum(..., dtype=torch.int32)``
+   at every shape the searches hand it and at 129,864 and 2^22 + 7 counts),
+   the bound worked out from those inputs alone (bytes
    over the card's memory rate against integer or float32 instructions over
    its instruction rate), their agreement there, and the scan at each chunk
    length it takes on streams around the lengths where the wrapper's pick
@@ -163,6 +170,8 @@ UNICODE_FILLER = ["и", "мы", "тесты", "кафе", "она", "дом", "c
 CONTEXT_TAIL = 15
 #: The engines of phases 4c, 4d, 4e, as ``recipe_engine`` names them.
 LANES = ("forbid", "typed", "mapped")
+#: The launch counters of the typed step's kernels.
+TYPED_KEYS = ("typed_expand", "typed_dp", "typed_emit")
 #: The many1k configuration (``bench.py:187-229``): 1,000 random lowercase
 #: words of 6-11 letters drawn from seed 7, ``edits(1)``, case-insensitive,
 #: threshold 0.82, over the first 24 MiB of the corpus with 4,000 planted
@@ -287,6 +296,49 @@ def compare_scan(tpb, torch, ids, T, halo, what, want_hits=True, chunk=None):
     return count, errs
 
 
+def offsets_edge_checks(tpb, torch, np, dev) -> int:
+    """``block_offsets`` against its plain version at lengths around the
+    kernel's warp, block and tile edges, at 129,864 counts and past 2^22,
+    on all zeros, on counts whose total is
+    just under 2^31 and on a view 4 bytes off alignment. Returns the
+    max_abs_err."""
+    tile = tpb.OFFSETS_TILE
+    rng = np.random.default_rng(SEED + 17)
+    cases = [(f"len {n}", torch.from_numpy(rng.integers(0, 100, n).astype(np.int32)).to(dev))
+             for n in (1, 2, 31, 1023, 1024, 1025, tile - 1, tile, tile + 1, 129864,
+                       (1 << 22) + 7)]
+    cases.append(("all zeros, len 100,000", torch.zeros(100000, dtype=torch.int32, device=dev)))
+    near = ((1 << 31) - 1) // 300007
+    cases.append((f"total {near * 300007} (2^31 - {(1 << 31) - near * 300007})",
+                  torch.full((300007,), near, dtype=torch.int32, device=dev)))
+    cases.append(("unaligned view, len 50,000", cases[-3][1][1:50001]))
+    err = 0
+    for what, counts in cases:
+        got, want = tpb.block_offsets(counts), tpb.block_offsets_torch(counts)
+        e = int_err(got, want)
+        log(f"  block_offsets {what}: total {int(want[-1])}, max_abs_err {e}")
+        require(e == 0, f"block_offsets disagrees with its plain version at {what}")
+        err = max(err, e)
+    return err
+
+
+def offsets_times(tpb, torch, counts, what: str, reps: int = 50) -> dict:
+    """CUDA-event ms of ``block_offsets`` on ``counts`` beside its plain
+    version and ``torch.cumsum(counts, 0, dtype=torch.int32)``, and the bound:
+    each count read once and each offset written once, an add per count."""
+    n = counts.numel()
+    rec = {"what": what, "len": n,
+           "ms": event_ms(torch, lambda: tpb.block_offsets(counts), reps),
+           "plain_ms": event_ms(torch, lambda: tpb.block_offsets_torch(counts), reps),
+           "library_ms": event_ms(torch, lambda: torch.cumsum(counts, 0, dtype=torch.int32), reps)}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(8 * n + 4, n, INT_RATE)
+    log(f"  block_offsets {what}, {n} counts: kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, torch.cumsum {rec['library_ms']:.4f} ms "
+        f"({rec['library_ms'] / rec['ms']:.3f} x the kernel's time), bound "
+        f"{rec['bound_ms']:.3g} ms by {rec['bound_by']}")
+    return rec
+
+
 def lane_inputs(vdp, engine, text: str, thr: float, what: str):
     """(plan, run) of the DP lane for ``text``: tables and slices on the card."""
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
@@ -319,13 +371,47 @@ def pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift=0, wide=False
             run.pens, np.float32(thr), plan.E, run.deadend, run.statics, run.variant)
 
 
+def compare_typed_step(tpb, vdp, torch, args, what: str, h0: int = 0) -> dict:
+    """Each kernel of the typed step against its plain version on one
+    slice's hits (``args``, the arguments of ``dp_pipeline``), bit for bit,
+    each fed the plain version's inputs: the candidate list
+    (``typed_expand``), the live candidates' decisions and the per-tile row
+    counts (``typed_dp``), the rows and tags (``typed_emit``). Returns
+    {kernel: max_abs_err}."""
+    pos, words, window, ids, limit, T, pens, thr, E, _dead, statics, variant = args
+    TT = variant.typed
+    ck = vdp.typed_expand(pos, words, window, E, statics, h0)
+    cp = vdp.typed_expand_torch(pos, words, window, E, statics, h0)
+    M = int(cp.total[0])
+    errs = {"typed_expand": max([int_err(int(ck.total[0]), M)]
+                                + [int_err(a[:M], b) for a, b in zip(ck[:3], cp[:3])])}
+    dec_k, counts_k = vdp.typed_dp(cp, ids, limit, T, pens, thr, E, TT)
+    dec_p, counts_p = vdp.typed_dp_torch(cp, ids, limit, T, pens, thr, E, TT)
+    errs["typed_dp"] = max(int_err(dec_k[:, :M], dec_p[:, :M]), int_err(counts_k, counts_p))
+    offs = tpb.block_offsets_torch(counts_p)
+    n_rows = int(offs[-2])
+    n_combo = vdp._combos(E, *statics).shape[1]
+    rows_k, tags_k = vdp.typed_emit(dec_p, offs, cp, T, TT, E, n_combo, n_rows, tags=True)
+    rows_p, tags_p = vdp.typed_emit_torch(dec_p, offs, cp, T, TT, E, n_combo, n_rows, tags=True)
+    torch.cuda.synchronize()
+    errs["typed_emit"] = max(int_err(rows_k, rows_p), int_err(tags_k, tags_p))
+    log(f"  {what}: typed step h0={h0}, {ck.items} items, {M} candidates, {n_rows} rows, "
+        f"{counts_p.numel()} row counts; max_abs_err " + ", ".join(f"{k} {v}" for k, v in errs.items()))
+    require(all(v == 0 for v in errs.values()), f"{what}: a typed kernel disagrees with its plain "
+            "version")
+    return errs
+
+
 def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want_rows=True,
-                     wide=False):
-    """``dp_pipeline_kernel`` against ``dp_pipeline_torch`` on the first
-    slice of ``text``: the same rows in the same order, bit for bit, the
-    same row tags and the same candidate count; and ``block_offsets``
-    against its plain version on the counts of the kernel's count pass.
-    Returns the two max_abs_err."""
+                     wide=False, errs=None):
+    """``dp_pipeline`` (the count-channel kernel, or the typed step's
+    kernels) against ``dp_pipeline_torch`` on the first slice of ``text``:
+    the same rows in the same order, bit for bit, the same row tags and the
+    same candidate count; for a typed engine each kernel of the step against
+    its plain version (``compare_typed_step``); and ``block_offsets`` against
+    its plain version on every count array the step scans. Returns the
+    step's and block_offsets' max_abs_err; with ``errs`` (a dict) the typed
+    kernels' errors are folded into it."""
     plan, run = lane_inputs(vdp, engine, text, thr, what)
     part = run.parts[0]
     hits, pos, words = tpb.packed_hits(part.ids_pf[shift:], run.T_scan, run.halo)
@@ -335,18 +421,22 @@ def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want
     torch.cuda.synchronize()
     same = rows_k.shape == rows_p.shape and cand_k == cand_p and torch.equal(tags_k, tags_p)
     err = float((rows_k.long() - rows_p.long()).abs().max()) if same and rows_k.numel() else 0.0
-    n_counts, err_offs = 0, 0
+    n_counts, err_offs = [], 0
     if hits:
-        counts = vdp.dp_pipeline_counts(*args)
-        n_counts = counts.numel()
-        err_offs = int((tpb.block_offsets(counts).long()
-                        - tpb.block_offsets_torch(counts).long()).abs().max())
+        for counts in vdp.dp_pipeline_counts(*args):
+            n_counts.append(counts.numel())
+            err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
+                                          - tpb.block_offsets_torch(counts).long()).abs().max()))
+        if run.variant.typed is not None:
+            for key, e in compare_typed_step(tpb, vdp, torch, args, what).items():
+                if errs is not None:
+                    errs[key] = max(errs.get(key, 0), e)
     log(f"  {what}: {variant_name(run)} E={plan.E} k={plan.k} damerau={plan.dam} "
         f"dead-end={run.deadend} n={part.local_n - shift} hits={hits} candidates={cand_k} vs {cand_p} "
         f"rows={rows_k.shape[0]} vs {rows_p.shape[0]}, max_abs_err {err}; block_offsets over "
-        f"the count pass's {n_counts} counts, max_abs_err {err_offs}")
+        f"the step's {n_counts} counts, max_abs_err {err_offs}")
     require(same and err == 0.0, f"{what}: dp_pipeline disagrees with dp_pipeline_torch")
-    require(err_offs == 0, f"{what}: block_offsets disagrees on the count pass's counts")
+    require(err_offs == 0, f"{what}: block_offsets disagrees on the step's counts")
     require(rows_p.shape[0] > 0 or not want_rows, f"{what}: no rows to compare")
     return err, err_offs
 
@@ -395,7 +485,8 @@ def compare_dp(vdp, torch, engine, text: str, thr: float, what: str, wide=False)
 def ptxas_summary(log_text: str):
     """(lines for the main paths' instantiations: the W=3 scan and hit-list
     kernels at k=0 and at k=1 with Damerau rows, the offsets scan, every
-    banded DP instantiation, the u8 pipeline ones, the two typed kernels,
+    banded DP instantiation, the u8 pipeline ones, the typed
+    kernels,
     the wide scan and hit-list kernels at k=1, the expansion and the DP over
     a list at E=1;
     number of instantiations, number of them with spills, max registers)."""
@@ -431,8 +522,11 @@ def ptxas_summary(log_text: str):
         elif dp and (dp.group(1) == "banded_dp" or dp.group(5) == "h"):
             label = (f"{dp.group(1)}<E={dp.group(2)},deadend={dp.group(3)},maps={dp.group(4)},"
                      f"{'u8' if dp.group(5) == 'h' else 'int32'}>")
-        elif "_typed_kernel" in name:
-            label = "dp_pipeline_typed" if "dp_pipeline_typed" in name else "banded_dp_typed"
+        elif "typed" in name:
+            g = re.search(r"typed_dp_kernelILi(\d+)E", name)
+            label = (f"typed_dp<G={g.group(1)}>" if g else
+                     next(k for k in ("typed_dp_rows", "typed_expand", "typed_emit",
+                                      "banded_dp_typed") if k + "_kernel" in name))
         elif scan and scan.group(2) == scan.group(3):
             label = f"{scan.group(1)}<W=3,K={scan.group(2)},Damerau={scan.group(3)}" + (
                 f",chunk={scan.group(4)}>" if scan.group(4) else ">")
@@ -816,9 +910,9 @@ def make_engine(ctx, words, limits, mappings=(), scored=()):
 def lane_kernel_checks(ctx, edited: str, keyf, lanes):
     """Phase 3 for the forbid, mapped and typed lanes: the DP-only kernels
     (``banded_dp`` with the forbid mask and with mapping arrivals,
-    ``banded_dp_typed``) channel by channel and the pipeline kernels
-    (``dp_pipeline``, ``dp_pipeline_typed``) row by row against their plain
-    versions, bit for bit. ``lanes`` are the main-path engines (forbid,
+    ``banded_dp_typed``) channel by channel and the steps (``dp_pipeline``,
+    and the typed step with each of its kernels alone) row by row against
+    their plain versions, bit for bit. ``lanes`` are the main-path engines (forbid,
     typed, mapped). Returns {kernel: max_abs_err}."""
     torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
     L, P = ctx.Limits, ctx.Pattern
@@ -857,14 +951,14 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
         ("typed edits(1), one pattern exact-only, one substitutions(1)", typed2, edited, 0.8,
          False),
     ]
-    errs = dict.fromkeys(("banded_dp", "dp_pipeline", "banded_dp_typed", "dp_pipeline_typed",
-                          "block_offsets"), 0.0)
+    errs = dict.fromkeys(("banded_dp", "dp_pipeline", "banded_dp_typed", "typed_step",
+                          "typed_expand", "typed_dp", "typed_emit", "block_offsets"), 0.0)
 
     def pipe_case(eng, text, thr, what, want_rows=True):
         typed = vdp.lane_specs_of(eng)[0] is not None
         err, err_offs = compare_pipeline(tpb, vdp, torch, np, eng, text, thr, "pipeline " + what,
-                                         want_rows=want_rows)
-        key = "dp_pipeline_typed" if typed else "dp_pipeline"
+                                         want_rows=want_rows, errs=errs)
+        key = "typed_step" if typed else "dp_pipeline"
         errs[key] = max(errs[key], err)
         errs["block_offsets"] = max(errs["block_offsets"], err_offs)
 
@@ -888,20 +982,20 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
         f"vs oracle {len(tie_ora)} matches, equal {tie_dev == tie_ora}")
     require(tie_dev == tie_ora and n_tied > 0, "typed lane disagrees with the oracle at a tied threshold")
     pipe_case(typed2, tie_text, float(tie), "typed at the tied threshold")
-    # Past the bytes its per-warp counts may take, the typed wrapper refuses.
-    plan, run = lane_inputs(vdp, typed2, tie_text, 0.8, "typed count bound")
+    # The typed step on a range of slice 1's hits: a first hit h0 = 1 and
+    # the rows' tags, each kernel against its plain version.
+    plan, run = lane_inputs(vdp, typed2, tie_text, 0.8, "typed range")
     part = run.parts[0]
     _h, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
-    saved, vdp.TYPED_COUNT_BYTES = vdp.TYPED_COUNT_BYTES, 64
-    try:
-        vdp.dp_pipeline(*pipeline_args(vdp, np, plan, run, part, pos, words, 0.8))
-        refused = False
-    except ValueError:
-        refused = True
-    finally:
-        vdp.TYPED_COUNT_BYTES = saved
-    log(f"  typed pipeline wrapper with its counts bounded to 64 bytes: refused {refused}")
-    require(refused, "the typed wrapper took counts past their bound")
+    half = pos.numel() // 2
+    args = pipeline_args(vdp, np, plan, run, part, pos[half - 1:], words[half - 1:], 0.8)
+    for key, e in compare_typed_step(tpb, vdp, torch, args, "typed, the second half of the hits",
+                                     h0=1).items():
+        errs[key] = max(errs[key], e)
+    got = vdp.dp_pipeline(*args, h0=1, tags=True)
+    want = vdp.dp_pipeline_torch(*args, h0=1, tags=True)
+    require(torch.equal(got[0], want[0]) and got[1] == want[1] and torch.equal(got[2], want[2]),
+            "the typed step disagrees with its plain version on a range")
     nothing = "lorem ipsum dolor sit amet " * 20000
     for eng, thr, what in ((forbid2, 0.9, "forbid"), (mapped_rn, 0.95, "mapped"),
                            (typed2, 0.8, "typed")):
@@ -910,7 +1004,7 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
 
 
 def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, backend: str,
-                   locked, scan_keys, pipe_key: str, oracle_set, min_matches: int):
+                   locked, scan_keys, pipe_keys: tuple, oracle_set, min_matches: int):
     """One DP lane (``engine`` is ``recipe_engine(name)``) at full width through
     ``search_raw``: a probe on 1 MiB,
     then over ``corpus`` (or, where the lane declines there, over its largest
@@ -958,9 +1052,9 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
         f"{len(got)} matches, launches {launches}")
     log(f"  last_stats {stats}")
     require(stats["backend"] == backend, f"{tag}: backend {stats['backend']}, expected {backend}")
-    require(all(launches[k] > 0 for k in scan_keys + (pipe_key,)),
-            f"{tag}: the lane did not launch the scan's kernels and {pipe_key}")
-    require(all(v == 0 for k, v in launches.items() if k not in scan_keys + (pipe_key,)),
+    require(all(launches[k] > 0 for k in scan_keys + pipe_keys),
+            f"{tag}: the lane did not launch the scan's kernels and {pipe_keys}")
+    require(all(v == 0 for k, v in launches.items() if k not in scan_keys + pipe_keys),
             f"{tag}: the lane launched a kernel of another lane")
     dev_set = {match_key(m) for m in got}
     require(len(dev_set) == len(got), f"{tag}: the lane repeats a match")
@@ -974,10 +1068,14 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
     log(f"  torch.profiler over 3 searches: wall {prof['wall']:.3f} ms per search, device busy "
         f"{prof['busy']:.3f} ms ({prof['busy'] / prof['wall']:.3f} of wall); per search "
         f"{prof['kernels']:.1f} kernel launches, {prof['copies']:.1f} copies, "
-        f"{prof['waits']:.1f} host waits, over {stats['slices']} slices; {pipe_key}: the "
-        f"wrapper counted {prof['counted'][pipe_key]} launches, the profiler shows "
-        f"{event_count(prof, pipe_key + '_kernel')} events")
-    for line in prof["lines"][:8]:
+        f"{prof['waits']:.1f} host waits, over {stats['slices']} slices; "
+        + "; ".join(f"{k}: the wrapper counted {prof['counted'][k]} launches, the profiler "
+                    f"shows {event_count(prof, k)} events" for k in pipe_keys))
+    step_ms = sum(device_ms(prof, k) for k in pipe_keys)
+    offs_ms = device_ms(prof, "block_offsets_kernel")
+    log(f"  device ms per search: the step's kernels ({', '.join(pipe_keys)}) {step_ms:.4f}, "
+        f"block_offsets {offs_ms:.4f}, the scan {device_ms(prof, 'scan_bits'):.4f}")
+    for line in prof["lines"][:10]:
         log(f"    {line}")
     stages, n_stage = stage_breakdown(torch, tpb, vdp, engine, text, thr)
     require(n_stage == len(got), f"{tag}: stage breakdown found other matches")
@@ -986,18 +1084,69 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
         + f"; sum {sum(stages.values()):.3f}")
     log(f"  phase {tag} {time.perf_counter() - t_phase:.1f} s")
     return SimpleNamespace(text=text, times=times, launches=launches, stats=stats, prof=prof,
-                           matches=len(got), stages=stages)
+                           matches=len(got), stages=stages, step_ms=step_ms, offsets_ms=offs_ms)
+
+
+def typed_step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
+    """Phase 6 for the typed step's kernels on one slice's hits (``args``,
+    the arguments of ``dp_pipeline``): CUDA-event ms of each wrapper beside
+    its plain version, and its bound from these inputs (``tables`` bytes of
+    the DP's tables, ``window`` bytes of the candidates' haystack windows,
+    ``cells`` the DP's cells). Returns ({kernel: (ms, plain ms, bound,
+    None)}, the expansion's and the DP's count arrays)."""
+    torch, tpb, vdp = ctx.torch, ctx.tpb, ctx.vdp
+    pos, words, win, ids, limit, T, pens, thr, E, _dead, statics, variant = args
+    TT = variant.typed
+    cands = vdp.typed_expand(pos, words, win, E, statics)
+    dec, row_counts = vdp.typed_dp(cands, ids, limit, T, pens, thr, E, TT)
+    offsets = tpb.block_offsets(row_counts)
+    n_rows, M = (int(x) for x in offsets[-2:].tolist())
+    M -= n_rows
+    plain_c = vdp.typed_expand_torch(pos, words, win, E, statics)
+    plain_d = vdp.typed_dp_torch(plain_c, ids, limit, T, pens, thr, E, TT)
+    n_combo = vdp._combos(E, *statics).shape[1]
+    nce, items = dec.shape[0], cands.items
+    nblk = cands.block_counts.numel()
+    recs = {
+        "typed_expand": (
+            event_ms(torch, lambda: vdp.typed_expand(pos, words, win, E, statics), 20),
+            event_ms(torch, lambda: vdp.typed_expand_torch(pos, words, win, E, statics), 3),
+            bound_ms(pos.numel() * 8 + words.numel() * 8 + 20 * n_combo + 12 * M + 12 * nblk,
+                     12 * items, INT_RATE), None),
+        "typed_dp": (
+            event_ms(torch, lambda: vdp.typed_dp(cands, ids, limit, T, pens, thr, E, TT), 20),
+            event_ms(torch, lambda: vdp.typed_dp_torch(plain_c, ids, limit, T, pens, thr, E, TT),
+                     3),
+            bound_ms(8 * M + tables + window + 8 * nce * M + 4 * row_counts.numel(),
+                     cells * DP_CELL_INSTR, F32_RATE), None),
+        "typed_emit": (
+            event_ms(torch, lambda: vdp.typed_emit(dec, offsets, cands, T, TT, E, n_combo,
+                                                   n_rows), 20),
+            event_ms(torch, lambda: vdp.typed_emit_torch(plain_d[0], offsets, plain_c, T, TT, E,
+                                                         n_combo, n_rows), 3),
+            bound_ms(8 * nce * M + 12 * M + 4 * offsets.numel() + 20 * n_rows, nce * M,
+                     INT_RATE), None),
+    }
+    for name, (ms, plain, (b_ms, b_by), _lib) in recs.items():
+        log(f"  {tag} {name}: {items} items, {M} candidates, {n_rows} rows; wrapper {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {b_ms:.4g} ms by {b_by} ({b_ms / ms:.3g} of the time)")
+    return recs, (cands.block_counts, row_counts)
 
 
 def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     """Phase 6 for one lane at its main-path shape (slice 1 of ``text``): the
     scan's three kernels against their plain versions on the lane's own
-    tables and slice, ``block_offsets`` against its plain version on the
-    count pass's counts, CUDA-event ms of the pipeline wrapper and of the
-    DP-only kernel beside their plain versions, the bound from these inputs,
-    and their agreement there. Returns ((ms, plain ms, bound), (ms, plain ms,
-    bound), (max_abs_err of scan_bits, block_offsets, hit_words)): the
-    pipeline, the DP-only kernel, the scan."""
+    tables and slice, ``block_offsets`` against its plain version on every
+    count array the step scans and its times there (beside
+    ``torch.cumsum``), CUDA-event ms of the step's wrapper and of the DP-only
+    kernel beside their plain versions, for a typed lane of each of the
+    step's kernels too (``typed_step_times``), the bound from these inputs,
+    and their agreement there. Returns a namespace: ``pipe`` and ``dp``
+    (ms, plain ms, bound) of the step and of the DP-only kernel, ``scan_errs``
+    (max_abs_err of scan_bits, block_offsets, hit_words), ``typed``
+    {kernel: (ms, plain ms, bound, None)} or None, ``offsets`` the
+    ``offsets_times`` records, and ``device_ms`` the step's kernels' device
+    ms per call of the wrapper (torch.profiler)."""
     torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
     plan, run = lane_inputs(vdp, engine, text, thr, tag)
     part = run.parts[0]
@@ -1006,12 +1155,15 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
         f"{tag} main-path shape, k={plan.k} damerau={plan.dam} halo={run.halo}")
     hits, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
     p_args = pipeline_args(vdp, np, plan, run, part, pos, words, thr)
-    counts = vdp.dp_pipeline_counts(*p_args)
-    err_offs = int((tpb.block_offsets(counts).long()
-                    - tpb.block_offsets_torch(counts).long()).abs().max())
-    log(f"  {tag}: block_offsets over the count pass's {counts.numel()} counts, "
-        f"max_abs_err {err_offs}")
-    require(err_offs == 0, f"{tag}: block_offsets disagrees on the count pass's counts")
+    typed = run.variant.typed is not None
+    err_offs, offs_recs = 0, []
+    for i, counts in enumerate(vdp.dp_pipeline_counts(*p_args)):
+        err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
+                                      - tpb.block_offsets_torch(counts).long()).abs().max()))
+        what = (("typed expansion's", "typed step's row")[i] if typed else "count pass's")
+        offs_recs.append(offsets_times(tpb, torch, counts, f"{tag}, the {what} counts"))
+    log(f"  {tag}: block_offsets over the step's counts, max_abs_err {err_offs}")
+    require(err_offs == 0, f"{tag}: block_offsets disagrees on the step's counts")
     scan_errs = (scan_errs[0], max(scan_errs[1], err_offs), scan_errs[2])
     rows_k, cand_k = vdp.dp_pipeline(*p_args)
     rows_p, cand_p = vdp.dp_pipeline_torch(*p_args)
@@ -1021,12 +1173,12 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     pen_p, cnt_p = plain()
     torch.cuda.synchronize()
     require(torch.equal(rows_k, rows_p) and cand_k == cand_p == cf.numel(),
-            f"{tag}: the pipeline kernel disagrees at main-path shapes")
+            f"{tag}: the pipeline's kernels disagree at main-path shapes")
     require(torch.equal(pen_k.view(torch.int32), pen_p.view(torch.int32))
             and (cnt_k is None or torch.equal(cnt_k, cnt_p)),
             f"{tag}: the DP-only kernel disagrees at main-path shapes")
     B = 2 * plan.E + 1
-    chans = run.variant.typed.nch if run.variant.typed is not None else plan.E + 1
+    chans = run.variant.typed.nch if typed else plan.E + 1
     cells = int(run.T.depth[cf.long()].sum()) * B * chans
     tables = sum(t.numel() * t.element_size() for t in (
         run.T.path_cls, run.T.path_node, run.T.depth, run.T.sim, run.T.node_ceil))
@@ -1036,19 +1188,29 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     dp_bound = bound_ms(cf.numel() * 8 + tables + window
                         + pen_k.numel() * (4 if cnt_k is None else 8),
                         cells * DP_CELL_INSTR, F32_RATE)
+    typed_recs = None
+    if typed:
+        typed_recs, _counts = typed_step_times(ctx, tag, p_args, tables, window, cells)
     pipe_ms = event_ms(torch, lambda: vdp.dp_pipeline(*p_args), 10)
     pipe_plain_ms = event_ms(torch, lambda: vdp.dp_pipeline_torch(*p_args), 1)
     dp_ms = event_ms(torch, kernel, 10)
     dp_plain_ms = event_ms(torch, plain, 1)
     prof = profile_search(torch, lambda: vdp.dp_pipeline(*p_args), 20, tpb.LAUNCHES)
-    key = "dp_pipeline_typed" if run.variant.typed is not None else "dp_pipeline"
+    keys = TYPED_KEYS if typed else ("dp_pipeline",)
+    dev_ms = {k: device_ms(prof, k) for k in keys}
+    dev_ms["block_offsets"] = device_ms(prof, "block_offsets_kernel")
+    counted = ", ".join(f"{k} {prof['counted'][k]} launches counted, "
+                        f"{event_count(prof, k)} events" for k in keys)
     log(f"  {tag} slice 1 of {len(run.parts)} ({variant_name(run)}, E={plan.E}, k={plan.k}): "
         f"{hits} hits x {plan.n_combo} combos, {cand_k} candidates, {rows_k.shape[0]} rows; "
-        f"pipeline wrapper {pipe_ms:.4f} ms, {pipeline_device_time(prof, key)}, "
-        f"plain {pipe_plain_ms:.4f} ms, bound {pipe_bound[0]:.4f} ms by {pipe_bound[1]}; "
+        f"step wrapper {pipe_ms:.4f} ms, device ms per call "
+        + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items())
+        + f" ({counted}), plain {pipe_plain_ms:.4f} ms, bound {pipe_bound[0]:.4f} ms by {pipe_bound[1]}; "
         f"DP-only kernel {dp_ms:.4f} ms, plain {dp_plain_ms:.4f} ms, bound {dp_bound[0]:.4f} ms "
         f"by {dp_bound[1]}; max_abs_err 0 both")
-    return (pipe_ms, pipe_plain_ms, pipe_bound), (dp_ms, dp_plain_ms, dp_bound), scan_errs
+    return SimpleNamespace(pipe=(pipe_ms, pipe_plain_ms, pipe_bound),
+                           dp=(dp_ms, dp_plain_ms, dp_bound), scan_errs=scan_errs,
+                           typed=typed_recs, offsets=offs_recs, device_ms=dev_ms)
 
 
 def wide_tables(tpb, W: int, k: int, damerau: bool, A: int, seed: int, device):
@@ -1575,7 +1737,7 @@ def compare_ranges(ctx, engine, text: str, thr: float, what: str):
         f"candidates, {three.shape[0]} rows, equal to one range's {n_one} / {one.shape[0]}: "
         f"{same}; each range's kernel call bit-equal to its plain version (rows, tags)")
     require(same and decoded(one) == decoded(three), f"{what}: 3 ranges differ from one")
-    key = "dp_pipeline_typed" if run.variant.typed is not None else "dp_pipeline"
+    key = "typed_step" if run.variant.typed is not None else "dp_pipeline"
     t_one = event_ms(torch, lambda: vdp.dp_pipeline(pos, words, *args), 10)
     t_three = event_ms(torch, lambda: vdp.dp_pipeline_ranges(pos, words, per, *args), 10)
     t_plain = event_ms(torch, lambda: [vdp.dp_pipeline_torch(r_pos, r_words, *args, h0=h0,
@@ -1644,7 +1806,7 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
             event_ms(torch, lambda: tpb.block_offsets(counts), 20),
             event_ms(torch, lambda: tpb.block_offsets_torch(counts), 20),
             bound_ms(8 * counts.numel() + 4, counts.numel(), INT_RATE),
-            event_ms(torch, lambda: torch.cumsum(counts, 0), 20)),
+            event_ms(torch, lambda: torch.cumsum(counts, 0, dtype=torch.int32), 20)),
         "hit_words_wide": (
             event_ms(torch, lambda: tpb.hit_words(ids, bits, offs, hits, T, halo), 20),
             event_ms(torch, lambda: tpb.hit_words_torch(ids, bits, offs, hits, T, halo), 3),
@@ -1855,6 +2017,7 @@ def smoke(torch, start_pool, workers: int) -> int:
                     "the hits at block and chunk edges are not the planted ones, in order")
     for chunk in tpb.SCAN_CHUNKS:
         scan_case(fids, TF, halo, f"k=3 Damerau, chunk {chunk}", chunk=chunk)
+    errs_scan[1] = max(errs_scan[1], offsets_edge_checks(tpb, torch, np, dev))
 
     fuzzy = recipe_engine(ctx, "fuzzy1")
     uni = make_engine(ctx, UNICODE_WORDS, FuzzyLimits.new().edits(1))
@@ -2077,7 +2240,8 @@ def smoke(torch, start_pool, workers: int) -> int:
     require(stats["backend"] == "device-fuzzy-dp", "fuzzy main path backend")
     require(all(launches_f[k] > 0 for k in scan_keys + ("dp_pipeline",)),
             "fuzzy main path did not launch the scan's kernels and the pipeline kernel")
-    require(launches_f["dp"] == launches_f["dp_typed"] == launches_f["dp_pipeline_typed"] == 0,
+    require(launches_f["dp"] == launches_f["dp_typed"] == 0
+            and all(launches_f[k] == 0 for k in TYPED_KEYS),
             "fuzzy main path went through a kernel of another lane")
     dev_f = {keyf(m) for m in got_f}
     require(len(dev_f) == len(got_f), "fuzzy main path repeats a match")
@@ -2115,19 +2279,18 @@ def smoke(torch, start_pool, workers: int) -> int:
     # for hours on it.
     locked = plain_names + [(oracle, "search_raw")]
     lane_runs = {}
-    for tag, name, title, eng, text, thr, backend, pipe_key, floor in (
+    for tag, name, title, eng, text, thr, backend, pipe_keys, floor in (
         ("4c", "forbid", "forbid lane, edits(2).swaps(0), threshold 0.62", forbid_e, corpus, 0.62,
-         "device-fuzzy-dp-forbid", "dp_pipeline", 1000),
+         "device-fuzzy-dp-forbid", ("dp_pipeline",), 1000),
         ("4d", "typed", "typed lane, edits(1) with an exact-only and a substitutions(1) pattern, "
-         "threshold 0.8", typed_e, corpus, 0.8, "device-fuzzy-dp-typed", "dp_pipeline_typed",
-         1000),
+         "threshold 0.8", typed_e, corpus, 0.8, "device-fuzzy-dp-typed", TYPED_KEYS, 1000),
         ("4e", "mapped", "mapped lane, headline + modern, rn <-> m, edits(1), threshold 0.8, every 50th "
          "commodo a modem", mapped_e, mapped_corpus, 0.8, "device-fuzzy-dp-mapped",
-         "dp_pipeline", 1000),
+         ("dp_pipeline",), 1000),
     ):
         phase(f"phase {tag} {title}:")
         lane_runs[tag] = lane_main_path(ctx, tag, name, eng, text, thr, backend, locked,
-                                        scan_keys, pipe_key, oracle_set, floor)
+                                        scan_keys, pipe_keys, oracle_set, floor)
     n_modem = sum(1 for m in mapped_e.search_raw(lane_runs["4e"].text[: 4 << 20], 0.8)
                   if m.pattern_index == len(HEADLINE) and m.similarity == 1.0
                   and m.substitutions == 1)
@@ -2212,7 +2375,7 @@ def smoke(torch, start_pool, workers: int) -> int:
                 event_ms(torch, lambda: tpb.block_offsets(counts_s), 20),
                 event_ms(torch, lambda: tpb.block_offsets_torch(counts_s), 20),
                 bound_ms(8 * counts_s.numel() + 4, counts_s.numel(), INT_RATE),
-                event_ms(torch, lambda: torch.cumsum(counts_s, 0), 20)),
+                event_ms(torch, lambda: torch.cumsum(counts_s, 0, dtype=torch.int32), 20)),
             "hit_words": (
                 event_ms(torch, lambda: tpb.hit_words(ids_s, bits_s, offs_s, hits, T_s, halo_s), 20),
                 event_ms(torch, lambda: tpb.hit_words_torch(ids_s, bits_s, offs_s, hits, T_s, halo_s), 5),
@@ -2273,7 +2436,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     dp_bound = bound_ms(cf.numel() * 8 + tables + window + pen_k.numel() * 8,
                         cells * DP_CELL_INSTR, F32_RATE)
     # block_offsets as the pipeline calls it: the count pass's counts.
-    counts_pipe = vdp.dp_pipeline_counts(*p_args)
+    counts_pipe, = vdp.dp_pipeline_counts(*p_args)
     offs_pipe, offs_pipe_p = tpb.block_offsets(counts_pipe), tpb.block_offsets_torch(counts_pipe)
     err_offs = int((offs_pipe.long() - offs_pipe_p.long()).abs().max())
     errs_scan[1] = max(errs_scan[1], err_offs)
@@ -2282,7 +2445,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         event_ms(torch, lambda: tpb.block_offsets(counts_pipe), 20),
         event_ms(torch, lambda: tpb.block_offsets_torch(counts_pipe), 20),
         bound_ms(8 * counts_pipe.numel() + 4, counts_pipe.numel(), INT_RATE),
-        event_ms(torch, lambda: torch.cumsum(counts_pipe, 0), 20))
+        event_ms(torch, lambda: torch.cumsum(counts_pipe, 0, dtype=torch.int32), 20))
     log(f"  block_offsets on the pipeline's {counts_pipe.numel()} counts: kernel "
         f"{offs_pipe_rec[0]:.4f} ms, plain {offs_pipe_rec[1]:.4f} ms, bound "
         f"{offs_pipe_rec[2][0]:.5f} ms by {offs_pipe_rec[2][1]}, torch.cumsum "
@@ -2320,8 +2483,8 @@ def smoke(torch, start_pool, workers: int) -> int:
     require(typed14.last_stats["backend"] == "device-fuzzy-dp-typed", "typed14 backend")
     lane_times["typed14"] = lane_kernel_times(ctx, "typed edits(2).substitutions(1)", typed14,
                                               corpus, 0.62)
-    for _p, _d, errs in lane_times.values():
-        for i, e in enumerate(errs):
+    for lane_t in lane_times.values():
+        for i, e in enumerate(lane_t.scan_errs):
             errs_scan[i] = max(errs_scan[i], e)
     many_rec, many_main_errs = many_kernel_times(ctx, many_e, many_text, MANY_THRESHOLD)
     for key, err in many_main_errs.items():
@@ -2329,9 +2492,29 @@ def smoke(torch, start_pool, workers: int) -> int:
     errs_scan[1] = max(errs_scan[1], many_errs["block_offsets"])
     wide_rec, wide_errs = wide_exact_times(ctx, wide_e, exact_text, errs_scan[1])
     errs_scan[1] = wide_errs["block_offsets"]
+    # block_offsets at every shape the searches hand it, and two more, beside
+    # torch.cumsum.
+    offs_shapes = []
+    for tag, rec in scan_rec.items():
+        ms, plain, bound, lib = rec["block_offsets"]
+        offs_shapes.append({"what": f"{tag} scan's counts", "ms": ms, "plain_ms": plain,
+                            "bound_ms": bound[0], "library_ms": lib})
+    offs_shapes.append({"what": "fuzzy1 count pass", "len": counts_pipe.numel(),
+                        "ms": offs_pipe_rec[0], "plain_ms": offs_pipe_rec[1],
+                        "bound_ms": offs_pipe_rec[2][0], "library_ms": offs_pipe_rec[3]})
+    for lane_t in lane_times.values():
+        offs_shapes += lane_t.offsets
+    ms, plain, bound, lib = many_rec["block_offsets"]
+    offs_shapes.append({"what": "many1k folded chunk", "ms": ms, "plain_ms": plain,
+                        "bound_ms": bound[0], "library_ms": lib})
+    rng_o = np.random.default_rng(SEED + 19)
+    for n_o in (129864, (1 << 22) + 7):
+        counts_o = torch.from_numpy(rng_o.integers(0, 100, n_o).astype(np.int32)).to(dev)
+        offs_shapes.append(offsets_times(tpb, torch, counts_o, f"synthetic, {n_o} counts"))
+    typed_offs = lane_times["4d"].offsets[-1]
     range_recs = [compare_ranges(ctx, fuzzy, corpus, 0.8, "dp_pipeline (FAST) in ranges"),
                   compare_ranges(ctx, typed_e, lane_runs["4d"].text, 0.8,
-                                 "dp_pipeline_typed in ranges")]
+                                 "the typed step in ranges")]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc/packed_bitap.cu"
@@ -2360,7 +2543,11 @@ def smoke(torch, start_pool, workers: int) -> int:
                 "pipeline_counts_library_ms": offs_pipe_rec[3],
                 "many1k_counts_ms": many_rec[name][0], "many1k_counts_plain_ms": many_rec[name][1],
                 "many1k_counts_bound_ms": many_rec[name][2][0],
-                "many1k_counts_library_ms": many_rec[name][3]} if name == "block_offsets" else {}),
+                "many1k_counts_library_ms": many_rec[name][3],
+                "typed_counts_ms": typed_offs["ms"], "typed_counts_plain_ms": typed_offs["plain_ms"],
+                "typed_counts_bound_ms": typed_offs["bound_ms"],
+                "typed_counts_library_ms": typed_offs["library_ms"],
+                "shapes": offs_shapes} if name == "block_offsets" else {}),
             device_ms_per_exact_search=device_ms(prof_x, name + "_kernel"),
             device_ms_per_fuzzy_search=device_ms(prof_f, name + "_kernel")))
     kernels.append(record(
@@ -2380,16 +2567,27 @@ def smoke(torch, start_pool, workers: int) -> int:
          f"{jax_vd}:355", err_pipe_all, err_dp_all),
         ("4e", "dp_pipeline[maps]", "banded_dp[maps]", "dp_pipeline.cu", f"{jax_vd}:611",
          f"{jax_vd}:611", err_pipe_all, err_dp_all),
-        ("4d", "dp_pipeline_typed", "banded_dp_typed", "dp_typed.cu", f"{jax_vd}:1208",
-         f"{jax_vd}:935", lane_errs["dp_pipeline_typed"], lane_errs["banded_dp_typed"]),
     ):
-        lane, (pipe_t, dp_t, _scan_errs) = lane_runs[tag], lane_times[tag]
-        key = "dp_pipeline_typed" if tag == "4d" else "dp_pipeline"
+        lane, lane_t = lane_runs[tag], lane_times[tag]
         kernels.append(record(
-            name, f"{PKG}/csrc/{source}", replaces, lane.launches[key], err, *pipe_t, None,
-            device_ms_per_search=device_ms(lane.prof, key + "_kernel")))
-        held.append(record(dp_name, f"{PKG}/csrc/" + ("dp_typed.cu" if tag == "4d" else "banded_dp.cu"),
-                           dp_replaces, 0, dp_err, *dp_t, None))
+            name, f"{PKG}/csrc/{source}", replaces, lane.launches["dp_pipeline"], err,
+            *lane_t.pipe, None, device_ms_per_search=device_ms(lane.prof, "dp_pipeline_kernel")))
+        held.append(record(dp_name, f"{PKG}/csrc/banded_dp.cu", dp_replaces, 0, dp_err,
+                           *lane_t.dp, None))
+    # The typed step of phase 4d, a kernel each: what its searches launched,
+    # its times at slice 1 of 4d and of the 14-channel engine, and the
+    # DP-only entry point.
+    lane, lane_t, t14 = lane_runs["4d"], lane_times["4d"], lane_times["typed14"]
+    lane_errs["typed_emit"] = max(lane_errs["typed_emit"], lane_errs["typed_step"])
+    for name, replaces in (("typed_expand", f"{jax_vd}:1411"), ("typed_dp", f"{jax_vd}:935"),
+                           ("typed_emit", f"{jax_vd}:1208")):
+        kernels.append(record(
+            name, f"{PKG}/csrc/dp_typed.cu", replaces, lane.launches[name], lane_errs[name],
+            *lane_t.typed[name], device_ms_per_search=device_ms(lane.prof, name),
+            typed14_ms=t14.typed[name][0], typed14_plain_ms=t14.typed[name][1],
+            typed14_bound_ms=t14.typed[name][2][0]))
+    held.append(record("banded_dp_typed", f"{PKG}/csrc/dp_typed.cu", f"{jax_vd}:935", 0,
+                       lane_errs["banded_dp_typed"], *lane_t.dp, None))
     # The large-dictionary lane of phase 4f: the kernels its searches
     # launched, at the folded layout's main-path shape.
     jax_many = "fuzzy_aho_corasick_tpu/ops/many.py"
@@ -2420,6 +2618,8 @@ def smoke(torch, start_pool, workers: int) -> int:
                       "scan_chunk_sweep": sweep,
                       "searches": {
                           "exact_ms": [t * 1e3 for t in times],
+                          "typed_step_device_ms_per_search": lane_runs["4d"].step_ms,
+                          "typed_block_offsets_device_ms_per_search": lane_runs["4d"].offsets_ms,
                           "typed14_ms": [t * 1e3 for t in times_14],
                           "fuzzy_ms": [t * 1e3 for t in times_f],
                           **{f"{tag.replace(' ', '_')}_ms": [t * 1e3 for t in run.times]

@@ -1,14 +1,15 @@
 // Banded Damerau DP with edit-type-vector channels, alone and as the
-// expansion + DP + emission step of one corpus slice, for Hopper (sm_90a).
+// expansion -> DP -> emission step of one corpus slice, for Hopper (sm_90a).
 //
 // Replaces the JAX package's XLA device functions
 // fuzzy_aho_corasick_tpu/ops/verify_dp.py::_banded_dp_typed and
-// _emit_rows_typed (and, in front of them, _expand_candidates as
-// dp_pipeline.cu runs it), the typed branch of _dp_pipeline_jit, which XLA
-// compiled per engine from an unrolled graph of Lmax x B x NCH vector ops.
-// Plain torch versions: ops/verify_dp.py::banded_dp_typed_torch,
-// emit_rows_typed, dp_pipeline_torch; wrappers verify_dp.banded_dp_typed and
-// verify_dp.dp_pipeline.
+// _emit_rows_typed (and, in front of them, _expand_candidates), the typed
+// branch of _dp_pipeline_jit, which XLA compiled per engine from an unrolled
+// graph of Lmax x B x NCH vector ops. Plain torch versions (ops/verify_dp.py):
+// expand_candidates, typed_dp_torch (banded_dp_typed_torch, then
+// typed_decisions_torch), typed_rows_torch, and banded_dp_typed_torch for the
+// DP alone; wrappers verify_dp.typed_expand, typed_dp, typed_emit,
+// banded_dp_typed.
 //
 // What it computes. Per candidate (field f, start s) the recurrences of
 // banded_dp.cuh without counts and without a dead-end filter, over NCH
@@ -26,52 +27,66 @@
 // class admits, the winning channel's static counts, and the f32 test
 // ((pl - pen) / pl) * pw >= bound of dp_pipeline.cu.
 //
-// What bounds it on the H100, and the design. A candidate's state is five
-// rows (i-2, i-1, i, and the emission channel of i-1 and i) of B x NCH f32
-// cells: 70 cells for edits(2).substitutions(1), up to 13 x 96. That does
-// not fit one thread's registers, so one WARP runs one candidate: the rows
-// live in shared memory, lanes take the cells of a row (all independent but
-// the insertion pass, which goes band by band with a __syncwarp between),
-// and the channel graph sits in shared memory once per block. NCH, E, the
-// graph and the admissibility table are run-time tables: one instance of
-// each kernel serves every engine. Like the count-channel DP it is bound by
-// dependent-instruction latency per candidate, not by bytes.
-//
-// The pipeline kernel keeps dp_pipeline.cu's items (combo-major over the
-// hits h0..K-1, a hit before h0 read only as the predecessor of hit h0), its
-// order (channel-major over (band, slot), then by item) and its optional
-// row tags (channel * n_combo + combo), with the same two passes around
-// block_offsets_kernel, but its counting unit is a warp, not a block: a warp
-// expands its TY_UNIT (combo, hit) items, then runs its live candidates one
-// after another in item order, so a lane that owns emission channel c counts
-// that channel's rows in a register, and in the write pass that running count
-// is the row's rank behind offsets[c][warp].
+// What bounds it on the H100, and the design. Like the count-channel DP it
+// is bound by the dependent-instruction latency of each candidate's row
+// loop, not by bytes: slice 1 of the typed main path is ~10^4 candidates of
+// ~10 rows. So every live candidate gets its own worker and they all start
+// at once; the step is four launches and one host wait:
+//   1. typed_expand_kernel, a thread per (combo, hit) item (items
+//      combo-major over the hits h0..K-1; a hit before h0 is read only as
+//      the predecessor of hit h0), run as a count pass and a write pass
+//      around block_offsets_kernel (csrc/scan_offsets.cu): the candidate
+//      list (field, start, combo) in item order. At most one candidate per
+//      item, so a block's candidates are a ballot away.
+//   2. typed_dp_kernel, one group of G = 8, 16 or 32 lanes per candidate of
+//      the list, G picked at launch from the B x NCH cells. The grid covers
+//      the item bound (the candidate total is on the card only); blocks past
+//      the total leave at once. Where the cells fit the group (15 for
+//      edits(1) with 5 channels), each lane holds one cell in registers: the
+//      arrivals from row i-1 and i-2 and the insertion pass band by band are
+//      shuffles within the group. Wider engines (70 cells for
+//      edits(2).substitutions(1), up to 13 x 96) keep the five rows in
+//      shared memory, a warp per candidate (typed_dp_warp). The path's
+//      per-row values (class, ceiling, the two caps rows) and the haystack
+//      window are staged in shared memory by the group's lanes in parallel
+//      before the row loop, so the dependent reads node -> ceiling / caps
+//      are paid once per candidate, not once per row. The DP runs once: per
+//      emission channel (band, output slot) it keeps the winning penalty
+//      bits and channel, or no row, in dec [nce, items], and counts its rows
+//      per (channel, tile of TYPED_TILE candidates) (a block's counts
+//      summed in shared memory, then one atomic per channel).
+//   3. block_offsets_kernel over those counts; the host reads the rows' and
+//      the candidates' totals (one strided read, the step's host wait).
+//   4. typed_emit_kernel, a block per tile, a thread per candidate: per
+//      emission channel a block scan of the row flags places the rows, and
+//      the tags (channel * n_combo + combo) where asked, in (channel,
+//      candidate) order, which is (channel, item) order.
+// NCH, E, the graph and the admissibility table are run-time tables: one
+// instance of each kernel serves every engine.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TY_THREADS = 128;
+constexpr int TY_THREADS = 128;   // the DP-only kernel, and the wide DP: a warp per candidate
 constexpr int TY_WARPS = TY_THREADS / 32;
-// (combo, hit) items one warp of the pipeline kernel expands. Its live
-// candidates run one after another, and hits of one word are neighbours in
-// item order, so a warp's queue is as long as its items are many: with 32
-// the fullest warps set the kernel's time. The counts are one entry per warp
-// and emission channel, 16 x dp_pipeline.cu's per item: the wrapper bounds
-// their bytes (verify_dp.TYPED_COUNT_BYTES) and mirrors this constant
-// (verify_dp.TYPED_UNIT).
-constexpr int TY_UNIT = 8;
+constexpr int TD_THREADS = 256;   // the DP over the list with register cells
+constexpr int TE_THREADS = 256;   // items per block of the expansion
+constexpr int TE_WARPS = TE_THREADS / 32;
+constexpr int TYPED_TILE = 1024;  // candidates per row-count tile, and threads of the emission
 constexpr int MAX_E = 6;
 constexpr int MAX_NCH = 96;
 constexpr int MAX_CHANNELS = 128;  // B * MO emission channels a call may have
-constexpr int CH_PER_LANE = MAX_CHANNELS / 32;
 // Columns of the graph table: source channel of the substitution, insertion,
 // deletion and swap arrival (-1: none), the vector's sum, its insertions,
 // deletions, substitutions and swaps, its packed counts.
 constexpr int GCOLS = 10;
 constexpr int G_SUB = 0, G_INS = 1, G_DEL = 2, G_SWAP = 3, G_SUM = 4, G_NI = 5, G_ND = 6,
               G_NS = 7, G_NW = 8, G_CNT = 9;
+static_assert(TYPED_TILE % (TD_THREADS / 8) == 0 && TYPED_TILE % TY_WARPS == 0,
+              "a block's candidates lie in one tile");
+static_assert(MAX_CHANNELS <= TY_THREADS, "a thread per emission channel flushes the counts");
 
 struct TypedCore {
   const void* ids;            // dense class ids, u8 or int32 [npad]
@@ -102,8 +117,90 @@ __device__ __forceinline__ bool fin(float x) {
   return fabsf(x) < __int_as_float(0x7f800000);  // false for +-inf and NaN
 }
 
-// Shared memory of a block, in 4-byte words: the graph, then per warp five
-// rows of B x nch cells and the candidate's haystack window.
+// What row i of the loop reads of the path: its class and the one before,
+// the ceiling of its node, and the caps of rows i-1 and i that the arrivals
+// test.
+struct RowVals {
+  int pc, pc_prev;
+  float ceil_i;
+  int ce_1, cd_1, cs_1;  // row i-1: edits, deletions, substitutions
+  int ce_0, ci_0, cw_0;  // row i: edits, insertions, swaps
+};
+
+// Row values read from the path tables in device memory, row by row.
+struct GlobalRows {
+  const TypedCore* a;
+  const int32_t* pcls;
+  const int32_t* pnode;
+  __device__ __forceinline__ RowVals operator()(int i) const {
+    RowVals r;
+    r.pc = __ldg(pcls + i - 1);
+    r.pc_prev = __ldg(pcls + (i >= 2 ? i - 2 : 0));
+    const int pn = __ldg(pnode + i - 1);
+    r.ceil_i = __ldg(a->node_ceil + pn);
+    const int32_t* c1 = i == 1 ? a->root_caps : a->node_caps + 5ll * __ldg(pnode + i - 2);
+    const int32_t* c0 = a->node_caps + 5ll * pn;
+    r.ce_1 = __ldg(c1);
+    r.cd_1 = __ldg(c1 + 2);
+    r.cs_1 = __ldg(c1 + 3);
+    r.ce_0 = __ldg(c0);
+    r.ci_0 = __ldg(c0 + 1);
+    r.cw_0 = __ldg(c0 + 4);
+    return r;
+  }
+};
+
+// Row values staged in shared memory: cls [Lmax], ceil [Lmax], caps
+// [(Lmax + 1) * 5] with path row 0 the root's caps.
+struct StagedRows {
+  const int32_t* cls;
+  const float* ceil;
+  const int32_t* caps;
+  __device__ __forceinline__ RowVals operator()(int i) const {
+    RowVals r;
+    r.pc = cls[i - 1];
+    r.pc_prev = cls[i >= 2 ? i - 2 : 0];
+    r.ceil_i = ceil[i - 1];
+    const int32_t* c1 = caps + 5 * (i - 1);
+    const int32_t* c0 = caps + 5 * i;
+    r.ce_1 = c1[0];
+    r.cd_1 = c1[2];
+    r.cs_1 = c1[3];
+    r.ce_0 = c0[0];
+    r.ci_0 = c0[1];
+    r.cw_0 = c0[4];
+    return r;
+  }
+};
+
+// 4-byte words of a StagedRows block.
+__host__ __device__ inline int staged_words(int Lmax) { return 2 * Lmax + 5 * (Lmax + 1); }
+
+// The group's lanes (``gl`` of ``G``) stage the rows of a path of depth d.
+__device__ __forceinline__ StagedRows stage_rows(const TypedCore& a, int32_t* mem, int f, int d,
+                                                 int gl, int G) {
+  StagedRows s;
+  int32_t* cls = mem;
+  float* ceil = reinterpret_cast<float*>(mem + a.Lmax);
+  int32_t* caps = mem + 2 * a.Lmax;
+  const int32_t* pcls = a.path_cls + (long long)f * a.Lmax;
+  const int32_t* pnode = a.path_node + (long long)f * a.Lmax;
+  for (int r = gl; r < d; r += G) {
+    cls[r] = __ldg(pcls + r);
+    const int pn = __ldg(pnode + r);
+    ceil[r] = __ldg(a.node_ceil + pn);
+#pragma unroll
+    for (int q = 0; q < 5; ++q) caps[5 * (r + 1) + q] = __ldg(a.node_caps + 5ll * pn + q);
+  }
+  if (gl < 5) caps[gl] = __ldg(a.root_caps + gl);
+  s.cls = cls;
+  s.ceil = ceil;
+  s.caps = caps;
+  return s;
+}
+
+// Shared memory of typed_dp_warp, in 4-byte words: five rows of B x nch
+// cells and the candidate's haystack window.
 __host__ __device__ inline int warp_words(int E, int nch, int Lmax) {
   return 5 * (2 * E + 1) * nch + Lmax + 2 * E + 1;
 }
@@ -113,17 +210,18 @@ inline size_t smem_bytes(int E, int nch, int Lmax) {
 }
 
 // Every thread of the block calls this before any of them leaves.
-__device__ __forceinline__ void load_graph(const TypedCore& a, int32_t* g) {
-  for (int t = threadIdx.x; t < a.nch * GCOLS; t += TY_THREADS) g[t] = __ldg(a.graph + t);
-  __syncthreads();
+__device__ __forceinline__ void load_graph(const TypedCore& a, int32_t* g, int nthreads) {
+  for (int t = threadIdx.x; t < a.nch * GCOLS; t += nthreads) g[t] = __ldg(a.graph + t);
 }
 
-// The DP of one candidate (field f >= 0, start s), run by the 32 lanes of a
-// warp over ``mem`` (warp_words() words of shared memory). Returns the
-// emission channel at row depth(f), [B][nch] in shared memory (+inf where
-// dead); the caller __syncwarp()s before the memory is used again.
+// The DP of one candidate (depth d, start s), run by the 32 lanes of a warp
+// over ``mem`` (warp_words() words of shared memory), the path's row values
+// from ``rows``. Returns the emission channel at row d, [B][nch] in shared
+// memory (+inf where dead); the caller __syncwarp()s before the memory is
+// used again.
+template <typename Rows>
 __device__ const float* typed_dp_warp(const TypedCore& a, const int32_t* g, int32_t* mem,
-                                      int f, long long s, int lane) {
+                                      int d, long long s, int lane, const Rows& rows) {
   const int E = a.E, B = 2 * E + 1, nch = a.nch, cells = B * nch;
   const float INF = __int_as_float(0x7f800000);
   float* prev2 = reinterpret_cast<float*>(mem);  // row i-2
@@ -132,9 +230,6 @@ __device__ const float* typed_dp_warp(const TypedCore& a, const int32_t* g, int3
   float* preve = nw + cells;                     // emission channel of row i-1
   float* newe = preve + cells;                   // emission channel of row i
   int32_t* win = mem + 5 * cells;                // win[o] = hay(s + o - E - 1)
-  const int d = __ldg(a.depth + f);
-  const int32_t* pcls = a.path_cls + (long long)f * a.Lmax;
-  const int32_t* pnode = a.path_node + (long long)f * a.Lmax;
   const float max_pen = a.max_pen;
 
   for (int t = lane; t < d + 2 * E + 1; t += 32) win[t] = hay_at(a, s - E - 1 + t);
@@ -148,14 +243,9 @@ __device__ const float* typed_dp_warp(const TypedCore& a, const int32_t* g, int3
   __syncwarp();
 
   for (int i = 1; i <= d; ++i) {
-    const int pc = __ldg(pcls + i - 1);
-    const int pc_prev = __ldg(pcls + (i >= 2 ? i - 2 : 0));
-    const int pn = __ldg(pnode + i - 1);
-    const float ceil_i = __ldg(a.node_ceil + pn);
-    const int32_t* c1 = i == 1 ? a.root_caps : a.node_caps + 5ll * __ldg(pnode + i - 2);
-    const int32_t* c0 = a.node_caps + 5ll * pn;
-    const int ce_1 = __ldg(c1), cd_1 = __ldg(c1 + 2), cs_1 = __ldg(c1 + 3);
-    const int ce_0 = __ldg(c0), ci_0 = __ldg(c0 + 1), cw_0 = __ldg(c0 + 4);
+    const RowVals r = rows(i);
+    const int pc = r.pc, pc_prev = r.pc_prev;
+    const float ceil_i = r.ceil_i;
 
     // Every cell's arrivals but the insertion, and the emission channel.
     for (int c = lane; c < cells; c += 32) {
@@ -175,8 +265,8 @@ __device__ const float* typed_dp_warp(const TypedCore& a, const int32_t* g, int3
         const int32_t* gs = g + src * GCOLS;
         const float q = prev[b * nch + src];
         const bool ok = j >= 1 && fin(q) && hc >= 0 && hc != pc && !(sim < a.floor_) &&
-                        !(spen > __fsub_rn(max_pen, q)) && gs[G_SUM] < ce_1 &&
-                        gs[G_NS] < cs_1;
+                        !(spen > __fsub_rn(max_pen, q)) && gs[G_SUM] < r.ce_1 &&
+                        gs[G_NS] < r.cs_1;
         const float v = __fadd_rn(q, spen);
         if (ok && v < bp) bp = v;
       }
@@ -187,7 +277,8 @@ __device__ const float* typed_dp_warp(const TypedCore& a, const int32_t* g, int3
         const float sw = prev2[b * nch + src];
         const bool ok = i >= 2 && j >= 2 && fin(sw) &&
                         !(a.p_swap > __fsub_rn(max_pen, sw)) && hc >= 0 && hc_jm1 >= 0 &&
-                        hc == pc_prev && hc_jm1 == pc && gs[G_SUM] < ce_0 && gs[G_NW] < cw_0;
+                        hc == pc_prev && hc_jm1 == pc && gs[G_SUM] < r.ce_0 &&
+                        gs[G_NW] < r.cw_0;
         const float v = __fadd_rn(sw, a.p_swap);
         if (ok && v < bp) bp = v;
       }
@@ -195,7 +286,7 @@ __device__ const float* typed_dp_warp(const TypedCore& a, const int32_t* g, int3
       src = gr[G_DEL];
       if (src >= 0 && b + 1 < B) {
         const int32_t* gs = g + src * GCOLS;
-        if (gs[G_SUM] < ce_1 && gs[G_ND] < cd_1) {
+        if (gs[G_SUM] < r.ce_1 && gs[G_ND] < r.cd_1) {
           // deletion: (i-1, b+1, src), consumes pc only, caps of row i-1
           const float dl = prev[(b + 1) * nch + src];
           const float v = __fadd_rn(dl, a.p_del);
@@ -221,7 +312,7 @@ __device__ const float* typed_dp_warp(const TypedCore& a, const int32_t* g, int3
           const int32_t* gs = g + src * GCOLS;
           const float ip = nw[(b - 1) * nch + src];
           const bool ok = fin(ip) && !(a.p_ins > __fsub_rn(max_pen, ip)) &&
-                          gs[G_SUM] < ce_0 && gs[G_NI] < ci_0;
+                          gs[G_SUM] < r.ce_0 && gs[G_NI] < r.ci_0;
           const float v = __fadd_rn(ip, a.p_ins);
           if (ok && v < nw[b * nch + ch]) nw[b * nch + ch] = v;
         }
@@ -244,6 +335,102 @@ __device__ const float* typed_dp_warp(const TypedCore& a, const int32_t* g, int3
   return preve;  // the emission channel of row d
 }
 
+// The same DP with one cell per lane in registers: lane gl < B * nch of a
+// group of G lanes (mask ``gm``) holds cell gl = b * nch + ch; arrivals are
+// shuffles from the source cell's lane. ``win`` is the staged window
+// (win[o] = hay(s + o - E - 1)). Writes the emission channel at row d to
+// ebuf[gl] (+inf where dead) and syncs the group.
+template <int G>
+__device__ void typed_dp_lanes(const TypedCore& a, const int32_t* g, const int32_t* win,
+                               const StagedRows& rows, int d, int gl, unsigned gm, float* ebuf) {
+  const int E = a.E, B = 2 * E + 1, nch = a.nch;
+  const float INF = __int_as_float(0x7f800000);
+  const float max_pen = a.max_pen;
+  const bool mine = gl < B * nch;
+  const int b = mine ? gl / nch : 0, ch = mine ? gl - (gl / nch) * nch : 0;
+  const int32_t* gr = g + ch * GCOLS;
+  // Each arrival's source lane (the lane itself where there is none) and
+  // the source channel's edit total and count of the arrival's type.
+  const int s_sub = mine ? gr[G_SUB] : -1, s_swap = mine ? gr[G_SWAP] : -1;
+  const int s_del = (mine && b + 1 < B) ? gr[G_DEL] : -1;
+  const int s_ins = (mine && b >= 1) ? gr[G_INS] : -1;
+  const int l_sub = s_sub >= 0 ? b * nch + s_sub : gl;
+  const int l_swap = s_swap >= 0 ? b * nch + s_swap : gl;
+  const int l_del = s_del >= 0 ? (b + 1) * nch + s_del : gl;
+  const int l_ins = s_ins >= 0 ? (b - 1) * nch + s_ins : gl;
+  const int sub_sum = s_sub >= 0 ? g[s_sub * GCOLS + G_SUM] : 0;
+  const int sub_ns = s_sub >= 0 ? g[s_sub * GCOLS + G_NS] : 0;
+  const int swap_sum = s_swap >= 0 ? g[s_swap * GCOLS + G_SUM] : 0;
+  const int swap_nw = s_swap >= 0 ? g[s_swap * GCOLS + G_NW] : 0;
+  const int del_sum = s_del >= 0 ? g[s_del * GCOLS + G_SUM] : 0;
+  const int del_nd = s_del >= 0 ? g[s_del * GCOLS + G_ND] : 0;
+  const int ins_sum = s_ins >= 0 ? g[s_ins * GCOLS + G_SUM] : 0;
+  const int ins_ni = s_ins >= 0 ? g[s_ins * GCOLS + G_NI] : 0;
+
+  // Row 0 is the origin (band E, the zero vector); row -1 is dead.
+  float prev2 = INF;
+  float prev = (mine && gl == E * nch) ? 0.f : INF;
+  float preve = prev;
+  for (int i = 1; i <= d; ++i) {
+    const RowVals r = rows(i);
+    const int j = i + b - E;  // haystack symbols consumed at this cell
+    const int hc = win[i + b], hc_jm1 = win[i - 1 + b];
+    float sim = 0.f;
+    if (hc >= 0) sim = __ldg(a.sim + r.pc * a.C + hc);
+    const float spen = __fmul_rn(a.p_sub, __fsub_rn(1.f, sim));
+    const float q = __shfl_sync(gm, prev, l_sub, G);
+    const float sw = __shfl_sync(gm, prev2, l_swap, G);
+    const float dl = __shfl_sync(gm, prev, l_del, G);
+    const float te = __shfl_sync(gm, preve, l_del, G);
+    // exact: (i-1, b, ch), no edit
+    float bp = (j >= 1 && fin(prev) && hc == r.pc) ? prev : INF;
+    if (s_sub >= 0) {
+      // substitution: (i-1, b, src), caps of row i-1
+      const bool ok = j >= 1 && fin(q) && hc >= 0 && hc != r.pc && !(sim < a.floor_) &&
+                      !(spen > __fsub_rn(max_pen, q)) && sub_sum < r.ce_1 && sub_ns < r.cs_1;
+      const float v = __fadd_rn(q, spen);
+      if (ok && v < bp) bp = v;
+    }
+    if (s_swap >= 0) {
+      // swap: (i-2, b, src), caps of row i
+      const bool ok = i >= 2 && j >= 2 && fin(sw) && !(a.p_swap > __fsub_rn(max_pen, sw)) &&
+                      hc >= 0 && hc_jm1 >= 0 && hc == r.pc_prev && hc_jm1 == r.pc &&
+                      swap_sum < r.ce_0 && swap_nw < r.cw_0;
+      const float v = __fadd_rn(sw, a.p_swap);
+      if (ok && v < bp) bp = v;
+    }
+    float ep = bp;  // the consuming arrivals
+    if (s_del >= 0 && del_sum < r.ce_1 && del_nd < r.cd_1) {
+      // deletion: (i-1, b+1, src), consumes pc only, caps of row i-1
+      const float v = __fadd_rn(dl, a.p_del);
+      if (fin(dl) && !(a.p_del > __fsub_rn(max_pen, dl)) && v < bp) bp = v;
+      // the emission channel's trailing deletion, from its row i-1
+      const float vt = __fadd_rn(te, a.p_del);
+      if (fin(te) && !(a.p_del > __fsub_rn(max_pen, te)) && vt < ep) ep = vt;
+    }
+    float nw = bp;
+    const float newe = ep > r.ceil_i ? INF : ep;
+    // insertion: same row, (b-1, src) -> (b, ch), ascending b over the
+    // updated band b-1; none from cells with zero hay consumed; caps of row i.
+    for (int bb = 1; bb < B; ++bb) {
+      const float ip = __shfl_sync(gm, nw, l_ins, G);
+      if (b == bb && s_ins >= 0 && i + bb - E >= 2 && win[i + bb] >= 0) {
+        const bool ok = fin(ip) && !(a.p_ins > __fsub_rn(max_pen, ip)) && ins_sum < r.ce_0 &&
+                        ins_ni < r.ci_0;
+        const float v = __fadd_rn(ip, a.p_ins);
+        if (ok && v < nw) nw = v;
+      }
+    }
+    // Ceiling of the continuation channel, then the rows move up.
+    if (nw > r.ceil_i) nw = INF;
+    prev2 = prev;
+    prev = nw;
+    preve = newe;
+  }
+  if (mine) ebuf[gl] = preve;
+  __syncwarp(gm);
+}
+
 struct TypedDpArgs {
   TypedCore core;
   const int32_t* cand_field;  // [M], -1 = dead slot
@@ -254,7 +441,8 @@ struct TypedDpArgs {
 
 __global__ void __launch_bounds__(TY_THREADS) banded_dp_typed_kernel(TypedDpArgs a) {
   extern __shared__ int32_t s_mem[];
-  load_graph(a.core, s_mem);
+  load_graph(a.core, s_mem, TY_THREADS);
+  __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long m = (long long)blockIdx.x * TY_WARPS + warp;
   if (m >= a.M) return;
@@ -263,13 +451,21 @@ __global__ void __launch_bounds__(TY_THREADS) banded_dp_typed_kernel(TypedDpArgs
                  warp * warp_words(a.core.E, a.core.nch, a.core.Lmax);
   const int f = __ldg(a.cand_field + m);
   const float* emit = nullptr;
-  if (f >= 0) emit = typed_dp_warp(a.core, s_mem, mem, f, __ldg(a.cand_start + m), lane);
+  if (f >= 0) {
+    const GlobalRows rows{&a.core, a.core.path_cls + (long long)f * a.core.Lmax,
+                          a.core.path_node + (long long)f * a.core.Lmax};
+    emit = typed_dp_warp(a.core, s_mem, mem, __ldg(a.core.depth + f), __ldg(a.cand_start + m),
+                         lane, rows);
+  }
   for (int c = lane; c < cells; c += 32)
     a.pen_out[(long long)c * a.M + m] = emit ? emit[c] : __int_as_float(0x7f800000);
 }
 
-struct TypedPipeArgs {
-  TypedCore core;
+// ---------------------------------------------------------------------------
+// The step of one slice: expansion, DP over the list, emission.
+// ---------------------------------------------------------------------------
+
+struct TypedExpandArgs {
   const long long* pos;     // [K] ascending hit positions
   const long long* words;   // [K, W2] u32 halves of the match words
   long long K;
@@ -278,39 +474,25 @@ struct TypedPipeArgs {
   const int32_t* combos;    // [5, n_combo]: word column, bit, field, start offset, b == 0
   int n_combo;
   long long start_lo, start_hi, pos_hi;
-  const int32_t* node;      // [F] output node of each field
-  const int32_t* out_list;  // [N, MO] patterns of each node, -1 padded
-  int MO;
-  const float* pat_len;     // [P]
-  const float* pat_weight;  // [P]
-  float bound;              // threshold less the emission slack
-  const int32_t* limcls;    // [P] limits class of each pattern
-  const int32_t* adm;       // [NLC, nch] whether a class admits a channel
-  long long nunits;         // warps over the (combo, hit) items
-  int32_t* counts;          // [NCH + 1, nunits] (count pass)
+  int32_t* counts;          // [nblk] candidates per block (count pass)
   const int32_t* offsets;   // exclusive scan of counts (write pass)
-  int32_t* rows;            // [total, 5] (write pass)
-  int32_t* tags;            // [total] channel * n_combo + combo, or null (write pass)
+  int32_t* cand_field;      // [items] (write pass; the first offsets[nblk] are written)
+  int32_t* cand_start;
+  int32_t* cand_combo;
 };
 
-__global__ void __launch_bounds__(TY_THREADS)
-dp_pipeline_typed_kernel(TypedPipeArgs a, bool write) {
-  extern __shared__ int32_t s_mem[];
-  load_graph(a.core, s_mem);
+// Thread g of the grid: item g = c * (K - h0) + h - h0. dp_pipeline.cu's
+// expansion test, a candidate or none per item.
+__global__ void __launch_bounds__(TE_THREADS)
+typed_expand_kernel(TypedExpandArgs a, bool write) {
+  __shared__ int s_warp[TE_WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long unit = (long long)blockIdx.x * TY_WARPS + warp;
-  if (unit >= a.nunits) return;
-  const int E = a.core.E, B = 2 * E + 1, nch = a.core.nch;
-  const int nce = B * a.MO;  // emission channels
-  int32_t* mem = s_mem + nch * GCOLS + warp * warp_words(E, nch, a.core.Lmax);
-
-  // Expansion of this lane's item (dp_pipeline.cu).
-  const long long gi = unit * TY_UNIT + lane;
+  const long long gi = (long long)blockIdx.x * TE_THREADS + threadIdx.x;
   const long long KI = a.K - a.h0;
   bool alive = false;
   int f = 0, c = 0;
   long long s = 0;
-  if (lane < TY_UNIT && gi < KI * a.n_combo) {
+  if (gi < KI * a.n_combo) {
     c = (int)(gi / KI);
     const long long h = a.h0 + gi - (long long)c * KI;
     const int col = __ldg(a.combos + c);
@@ -325,39 +507,59 @@ dp_pipeline_typed_kernel(TypedPipeArgs a, bool write) {
             (__ldg(a.combos + 4 * a.n_combo + c) != 0 || !dup);
     f = __ldg(a.combos + 2 * a.n_combo + c);
   }
-  unsigned live = __ballot_sync(0xFFFFFFFFu, alive);
-  const int n_cand = __popc(live);
-
-  // This lane owns emission channels lane, lane + 32, ...: the rows each
-  // has emitted so far in this warp, and where the warp's rows start.
-  int run[CH_PER_LANE];
-  long long base[CH_PER_LANE];
+  const unsigned bal = __ballot_sync(0xFFFFFFFFu, alive);
+  if (lane == 0) s_warp[warp] = __popc(bal);
+  __syncthreads();
+  if (!write) {
+    if (threadIdx.x == 0) {
+      int total = 0;
 #pragma unroll
-  for (int it = 0; it < CH_PER_LANE; ++it) {
-    run[it] = 0;
-    const int ce = lane + 32 * it;
-    base[it] = (write && ce < nce) ? __ldg(a.offsets + (long long)ce * a.nunits + unit) : 0;
+      for (int w = 0; w < TE_WARPS; ++w) total += s_warp[w];
+      a.counts[blockIdx.x] = total;
+    }
+    return;
   }
+  if (!alive) return;
+  long long at = __ldg(a.offsets + blockIdx.x) + __popc(bal & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) at += s_warp[w];
+  a.cand_field[at] = f;
+  a.cand_start[at] = (int32_t)s;
+  a.cand_combo[at] = c;
+}
 
-  // The warp's live candidates, in item order.
-  while (live) {
-    const int from = __ffs(live) - 1;
-    live &= live - 1;
-    const int cf = __shfl_sync(0xFFFFFFFFu, f, from);
-    const long long cs = __shfl_sync(0xFFFFFFFFu, s, from);
-    const int cc = __shfl_sync(0xFFFFFFFFu, c, from);
-    const float* emit = typed_dp_warp(a.core, s_mem, mem, cf, cs, lane);
-    const int d = __ldg(a.core.depth + cf);
-    const int node = __ldg(a.node + cf);
-    const int start = (int)cs;
-#pragma unroll
-    for (int it = 0; it < CH_PER_LANE; ++it) {
-      const int ce = lane + 32 * it;
-      if (ce >= nce) continue;
-      const int b = ce / a.MO, o = ce - b * a.MO;
-      const int pat = __ldg(a.out_list + (long long)node * a.MO + o);
-      const int ends_b = start + d + (b - E);
-      if (pat < 0 || ends_b > a.core.limit || ends_b < start) continue;
+struct TypedListArgs {
+  TypedCore core;
+  const int32_t* cand_field;  // [items] the candidate list, n_cand of them
+  const int32_t* cand_start;
+  const int32_t* n_cand;      // on the card: the expansion's offsets[nblk]
+  long long items;            // the list's bound, dec's row stride
+  const int32_t* node;        // [F] output node of each field
+  const int32_t* out_list;    // [N, MO] patterns of each node, -1 padded
+  int MO;
+  const float* pat_len;       // [P]
+  const float* pat_weight;    // [P]
+  float bound;                // threshold less the emission slack
+  const int32_t* limcls;      // [P] limits class of each pattern
+  const int32_t* adm;         // [NLC, nch] whether a class admits a channel
+  int2* dec;                  // [nce, items]: (penalty bits, channel), channel -1 = no row
+  int32_t* row_counts;        // [nce * ntile + 1]: rows per (channel, tile); n_cand last
+  long long ntile;
+};
+
+// Per emission channel ce = (band, slot) of candidate m, the lanes of its
+// group (gl of G) decide the row from the emission channel ``emit``
+// [B][nch] (shared memory) and count it in s_cnt.
+__device__ __forceinline__ void typed_decide(const TypedListArgs& a, const float* emit, int f,
+                                             int d, int start, long long m, int gl, int G,
+                                             int* s_cnt) {
+  const int E = a.core.E, nch = a.core.nch, nce = (2 * E + 1) * a.MO;
+  const int node = __ldg(a.node + f);
+  for (int ce = gl; ce < nce; ce += G) {
+    const int b = ce / a.MO, o = ce - b * a.MO;
+    const int pat = __ldg(a.out_list + (long long)node * a.MO + o);
+    const int ends_b = start + d + (b - E);
+    int2 out = make_int2(0, -1);
+    if (pat >= 0 && ends_b <= a.core.limit && ends_b >= start) {
       // Strict <, channels ascending: the fewest edits win penalty ties.
       const int32_t* ad = a.adm + (long long)__ldg(a.limcls + pat) * nch;
       float best = __int_as_float(0x7f800000);
@@ -369,31 +571,187 @@ dp_pipeline_typed_kernel(TypedPipeArgs a, bool write) {
           bch = ch;
         }
       }
-      if (!fin(best)) continue;
-      const float pl = __ldg(a.pat_len + pat);
-      const float sim = __fmul_rn(__fdiv_rn(__fsub_rn(pl, best), pl), __ldg(a.pat_weight + pat));
-      if (!(sim >= a.bound)) continue;
-      if (write) {
-        int32_t* row = a.rows + (base[it] + run[it]) * 5;
-        row[0] = start;
-        row[1] = __float_as_int(best);
-        row[2] = d + (b - E);
-        row[3] = pat;
-        row[4] = s_mem[bch * GCOLS + G_CNT];
-        if (a.tags != nullptr) a.tags[base[it] + run[it]] = ce * a.n_combo + cc;
+      if (fin(best)) {
+        const float pl = __ldg(a.pat_len + pat);
+        const float sim =
+            __fmul_rn(__fdiv_rn(__fsub_rn(pl, best), pl), __ldg(a.pat_weight + pat));
+        if (sim >= a.bound) {
+          out = make_int2(__float_as_int(best), bch);
+          atomicAdd(s_cnt + ce, 1);
+        }
       }
-      ++run[it];
     }
-    __syncwarp();  // the rows are read before the next candidate overwrites them
+    a.dec[(long long)ce * a.items + m] = out;
   }
+}
 
-  if (!write) {
+// The block's row counts into row_counts (every thread calls it).
+__device__ __forceinline__ void flush_counts(const TypedListArgs& a, const int* s_cnt,
+                                             long long first) {
+  __syncthreads();
+  const int nce = (2 * a.core.E + 1) * a.MO;
+  if ((int)threadIdx.x < nce && s_cnt[threadIdx.x] != 0)
+    atomicAdd(a.row_counts + (long long)threadIdx.x * a.ntile + first / TYPED_TILE,
+              s_cnt[threadIdx.x]);
+}
+
+// Shared memory of a block of the DP over the list, in 4-byte words: the
+// graph, the block's row counts, then per group its staged rows and, with
+// register cells, the window and G emission cells, else typed_dp_warp's.
+__host__ __device__ inline int list_group_words(int G, bool regs, int E, int nch, int Lmax) {
+  return staged_words(Lmax) + (regs ? Lmax + 2 * E + 1 + G : warp_words(E, nch, Lmax));
+}
+
+inline size_t list_smem_bytes(int G, bool regs, int E, int nch, int Lmax) {
+  const int groups = (regs ? TD_THREADS : TY_THREADS) / G;
+  return sizeof(int32_t) * ((size_t)nch * GCOLS + MAX_CHANNELS +
+                            (size_t)groups * list_group_words(G, regs, E, nch, Lmax));
+}
+
+// Block start: the first candidate of the block, the candidate total; every
+// block that holds a candidate loads the graph and zeroes its counts.
+// Returns false where the block holds none.
+__device__ __forceinline__ bool list_block_start(const TypedListArgs& a, int32_t* s_mem,
+                                                 int groups, int nthreads, long long& first,
+                                                 int& n_cand) {
+  const int nce = (2 * a.core.E + 1) * a.MO;
+  n_cand = __ldg(a.n_cand);
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.row_counts[(long long)nce * a.ntile] = n_cand;
+  first = (long long)blockIdx.x * groups;
+  if (first >= n_cand) return false;
+  load_graph(a.core, s_mem, nthreads);
+  int* s_cnt = s_mem + a.core.nch * GCOLS;
+  for (int t = threadIdx.x; t < nce; t += nthreads) s_cnt[t] = 0;
+  __syncthreads();
+  return true;
+}
+
+// The DP over the list with one cell per lane: a group of G lanes per
+// candidate (B x nch <= G).
+template <int G>
+__global__ void __launch_bounds__(TD_THREADS) typed_dp_kernel(TypedListArgs a) {
+  extern __shared__ int32_t s_mem[];
+  constexpr int GROUPS = TD_THREADS / G;
+  long long first;
+  int n_cand;
+  if (!list_block_start(a, s_mem, GROUPS, TD_THREADS, first, n_cand)) return;
+  const TypedCore& core = a.core;
+  int* s_cnt = s_mem + core.nch * GCOLS;
+  const int grp = threadIdx.x / G, gl = threadIdx.x % G;
+  const long long m = first + grp;
+  if (m < n_cand) {
+    const unsigned gm =
+        G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+    int32_t* mem = s_mem + core.nch * GCOLS + MAX_CHANNELS +
+                   grp * list_group_words(G, true, core.E, core.nch, core.Lmax);
+    const int f = __ldg(a.cand_field + m);
+    const int start = __ldg(a.cand_start + m);
+    const int d = __ldg(core.depth + f);
+    const StagedRows rows = stage_rows(core, mem, f, d, gl, G);
+    int32_t* win = mem + staged_words(core.Lmax);
+    float* ebuf = reinterpret_cast<float*>(win + core.Lmax + 2 * core.E + 1);
+    for (int t = gl; t < d + 2 * core.E + 1; t += G) win[t] = hay_at(core, start - core.E - 1 + t);
+    __syncwarp(gm);
+    typed_dp_lanes<G>(core, s_mem, win, rows, d, gl, gm, ebuf);
+    typed_decide(a, ebuf, f, d, start, m, gl, G, s_cnt);
+  }
+  flush_counts(a, s_cnt, first);
+}
+
+// The DP over the list for engines whose cells pass a warp: a warp per
+// candidate, its rows in shared memory.
+__global__ void __launch_bounds__(TY_THREADS) typed_dp_rows_kernel(TypedListArgs a) {
+  extern __shared__ int32_t s_mem[];
+  long long first;
+  int n_cand;
+  if (!list_block_start(a, s_mem, TY_WARPS, TY_THREADS, first, n_cand)) return;
+  const TypedCore& core = a.core;
+  int* s_cnt = s_mem + core.nch * GCOLS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long m = first + warp;
+  if (m < n_cand) {
+    int32_t* mem = s_mem + core.nch * GCOLS + MAX_CHANNELS +
+                   warp * list_group_words(32, false, core.E, core.nch, core.Lmax);
+    const int f = __ldg(a.cand_field + m);
+    const int start = __ldg(a.cand_start + m);
+    const int d = __ldg(core.depth + f);
+    const StagedRows rows = stage_rows(core, mem, f, d, lane, 32);
+    __syncwarp();
+    const float* emit =
+        typed_dp_warp(core, s_mem, mem + staged_words(core.Lmax), d, start, lane, rows);
+    typed_decide(a, emit, f, d, start, m, lane, 32, s_cnt);
+  }
+  flush_counts(a, s_cnt, first);
+}
+
+struct TypedEmitArgs {
+  const int32_t* cand_field;  // the candidate list
+  const int32_t* cand_start;
+  const int32_t* cand_combo;
+  const int32_t* n_cand;
+  long long items;
+  const int32_t* depth;       // [F]
+  const int32_t* node;        // [F]
+  const int32_t* out_list;    // [N, MO]
+  int MO, E, n_combo;
+  const int32_t* graph;       // [nch, GCOLS]
+  const int2* dec;            // [nce, items]
+  const int32_t* row_offsets; // exclusive scan of row_counts
+  long long ntile;
+  int32_t* rows;              // [total, 5]
+  int32_t* tags;              // [total] or null
+};
+
+// Block t places the rows of candidates t * TYPED_TILE .. + TYPED_TILE - 1,
+// a thread each, channel by channel.
+__global__ void __launch_bounds__(TYPED_TILE) typed_emit_kernel(TypedEmitArgs a) {
+  __shared__ int s_warp[TYPED_TILE / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_cand = __ldg(a.n_cand);
+  const long long m = (long long)blockIdx.x * TYPED_TILE + threadIdx.x;
+  if ((long long)blockIdx.x * TYPED_TILE >= n_cand) return;
+  const bool live = m < n_cand;
+  int start = 0, d = 0, node = 0, combo = 0;
+  if (live) {
+    const int f = __ldg(a.cand_field + m);
+    start = __ldg(a.cand_start + m);
+    combo = __ldg(a.cand_combo + m);
+    d = __ldg(a.depth + f);
+    node = __ldg(a.node + f);
+  }
+  const int nce = (2 * a.E + 1) * a.MO;
+  for (int ce = 0; ce < nce; ++ce) {
+    const int32_t* off = a.row_offsets + (long long)ce * a.ntile + blockIdx.x;
+    const int base = __ldg(off);
+    if (__ldg(off + 1) == base) continue;  // no row of this channel in the tile
+    const int2 dv = live ? a.dec[(long long)ce * a.items + m] : make_int2(0, -1);
+    const bool row = dv.y >= 0;
+    const unsigned bal = __ballot_sync(0xFFFFFFFFu, row);
+    if (lane == 0) s_warp[warp] = __popc(bal);
+    __syncthreads();
+    if (warp == 0) {
+      const int w = s_warp[lane];
+      int incl = w;
 #pragma unroll
-    for (int it = 0; it < CH_PER_LANE; ++it) {
-      const int ce = lane + 32 * it;
-      if (ce < nce) a.counts[(long long)ce * a.nunits + unit] = run[it];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      s_warp[lane] = incl - w;  // rows of the warps before
     }
-    if (lane == 0) a.counts[(long long)nce * a.nunits + unit] = n_cand;
+    __syncthreads();
+    if (row) {
+      const long long r = base + s_warp[warp] + __popc(bal & ((1u << lane) - 1u));
+      const int b = ce / a.MO, o = ce - b * a.MO;
+      int32_t* out = a.rows + r * 5;
+      out[0] = start;
+      out[1] = dv.x;
+      out[2] = d + (b - a.E);
+      out[3] = __ldg(a.out_list + (long long)node * a.MO + o);
+      out[4] = __ldg(a.graph + dv.y * GCOLS + G_CNT);
+      if (a.tags != nullptr) a.tags[r] = ce * a.n_combo + combo;
+    }
+    __syncthreads();  // s_warp is written again
   }
 }
 
@@ -438,13 +796,27 @@ bool fill_core(TypedCore& c, const void* ids, int ids_u8, long long npad, long l
   return true;
 }
 
+template <int G>
+cudaError_t launch_list_regs(const TypedListArgs& a, cudaStream_t stream) {
+  const size_t shm = list_smem_bytes(G, true, a.core.E, a.core.nch, a.core.Lmax);
+  cudaError_t rc = allow_smem(typed_dp_kernel<G>, shm);
+  if (rc != cudaSuccess) return rc;
+  const long long blocks = (a.items + TD_THREADS / G - 1) / (TD_THREADS / G);
+  if (blocks > 0x7FFFFFFFll) return cudaErrorInvalidValue;
+  typed_dp_kernel<G><<<(unsigned)blocks, TD_THREADS, shm, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// (combo, hit) items per counting unit of fac_dp_pipeline_typed: the callers
-// size ``counts`` from it (nunits = ceil((K - h0) * n_combo / unit)).
-int fac_dp_pipeline_typed_unit() { return TY_UNIT; }
+// Candidates per row-count tile of the typed step (and threads per block of
+// its emission), and (combo, hit) items per block of its expansion: the
+// callers size row_counts (ntile = ceil(items / tile)) and the expansion's
+// counts (nblk = ceil(items / expand_items)) from them.
+int fac_typed_tile() { return TYPED_TILE; }
+int fac_typed_expand_items() { return TE_THREADS; }
 
 // The typed DP alone. cand_field, cand_start: int32 [M]; the DP tables as
 // fac_banded_dp takes them; graph: int32 [nch, 10]; node_caps: int32 [N, 5];
@@ -477,37 +849,24 @@ int fac_banded_dp_typed(const void* cand_field, const void* cand_start, long lon
   return (int)cudaGetLastError();
 }
 
-// Expansion, typed DP and typed emission of one slice. Arguments as
-// fac_dp_pipeline takes them, without the dead-end tables; limcls: int32 [P];
-// adm: int32 [nlc, nch]. write == 0: counts int32 [(2E+1) MO + 1, nunits] is
-// written; write == 1: offsets (the exclusive scan of counts, int32) is read
-// and rows int32 [total, 5] written, and where tags is not null the rows'
-// tags int32 [total]. Returns the launch's cudaError_t.
-int fac_dp_pipeline_typed(const void* pos, const void* words, long long K, long long h0, int W2,
-                          const void* combos, int n_combo, long long start_lo,
-                          long long start_hi, long long pos_hi,
-                          const void* ids, int ids_u8, long long npad, long long limit,
-                          const void* path_cls, const void* path_node, const void* depth,
-                          const void* node, int Lmax, int F, const void* sim, int C,
-                          const void* node_ceil, int N, const void* out_list, int MO,
-                          const void* pat_len, const void* pat_weight,
-                          float max_pen, float p_sub, float p_ins, float p_del,
-                          float p_swap, float floor_, float bound, int E,
-                          const void* graph, int nch, const void* node_caps,
-                          const void* root_caps, const void* limcls, const void* adm, int nlc,
-                          int write, long long nunits, void* counts, const void* offsets,
-                          void* rows, void* tags, void* stream) {
-  TypedPipeArgs a;
-  if (K < 1 || h0 < 0 || h0 >= K || W2 < 2 || n_combo < 1 || MO < 1 || nlc < 1 ||
-      limcls == nullptr ||
-      adm == nullptr ||
-      !fill_core(a.core, ids, ids_u8, npad, limit, path_cls, path_node, depth, Lmax, F, sim, C,
-                 node_ceil, N, max_pen, p_sub, p_ins, p_del, p_swap, floor_, E, graph, nch,
-                 node_caps, root_caps) ||
-      (2 * E + 1) * MO > MAX_CHANNELS ||
-      nunits != ((K - h0) * n_combo + TY_UNIT - 1) / TY_UNIT) {
+// The typed step's expansion. pos: int64 [K]; words: int64 [K, W2]; the
+// hits h0..K-1 are expanded; combos: int32 [5, n_combo]. write == 0: counts
+// int32 [nblk] is written; write == 1: offsets (the exclusive scan of
+// counts) is read and the candidates written to cand_field, cand_start,
+// cand_combo int32 [items]. Returns the launch's cudaError_t.
+int fac_typed_expand(const void* pos, const void* words, long long K, long long h0, int W2,
+                     const void* combos, int n_combo, long long start_lo, long long start_hi,
+                     long long pos_hi, int write, long long nblk, void* counts,
+                     const void* offsets, void* cand_field, void* cand_start, void* cand_combo,
+                     void* stream) {
+  if (K < 1 || h0 < 0 || h0 >= K || W2 < 2 || n_combo < 1 ||
+      nblk != ((K - h0) * n_combo + TE_THREADS - 1) / TE_THREADS || nblk > 0x7FFFFFFFll ||
+      (write == 0 && counts == nullptr) ||
+      (write != 0 && (offsets == nullptr || cand_field == nullptr || cand_start == nullptr ||
+                      cand_combo == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
+  TypedExpandArgs a;
   a.pos = static_cast<const long long*>(pos);
   a.words = static_cast<const long long*>(words);
   a.K = K;
@@ -518,6 +877,47 @@ int fac_dp_pipeline_typed(const void* pos, const void* words, long long K, long 
   a.start_lo = start_lo;
   a.start_hi = start_hi;
   a.pos_hi = pos_hi;
+  a.counts = static_cast<int32_t*>(counts);
+  a.offsets = static_cast<const int32_t*>(offsets);
+  a.cand_field = static_cast<int32_t*>(cand_field);
+  a.cand_start = static_cast<int32_t*>(cand_start);
+  a.cand_combo = static_cast<int32_t*>(cand_combo);
+  typed_expand_kernel<<<(unsigned)nblk, TE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, write != 0);
+  return (int)cudaGetLastError();
+}
+
+// The typed DP over a candidate list and its decisions. cand_field,
+// cand_start: int32 [items], the first *n_cand (on the card) live; the DP
+// tables as fac_banded_dp_typed takes them; node: int32 [F]; out_list:
+// int32 [N, MO]; pat_len, pat_weight: f32 [P]; limcls: int32 [P]; adm:
+// int32 [nlc, nch]; dec: int32 [(2E+1) MO, items, 2] (columns past n_cand
+// untouched); row_counts: int32 [(2E+1) MO * ntile + 1], ntile =
+// ceil(items / fac_typed_tile()): zeroed, then the rows per (channel, tile)
+// are added, and n_cand written last. Returns the launch's cudaError_t.
+int fac_typed_dp(const void* cand_field, const void* cand_start, const void* n_cand,
+                 long long items, const void* ids, int ids_u8, long long npad, long long limit,
+                 const void* path_cls, const void* path_node, const void* depth,
+                 const void* node, int Lmax, int F, const void* sim, int C,
+                 const void* node_ceil, int N, const void* out_list, int MO,
+                 const void* pat_len, const void* pat_weight, float max_pen, float p_sub,
+                 float p_ins, float p_del, float p_swap, float floor_, float bound, int E,
+                 const void* graph, int nch, const void* node_caps, const void* root_caps,
+                 const void* limcls, const void* adm, int nlc, void* dec, void* row_counts,
+                 long long ntile, void* stream) {
+  TypedListArgs a;
+  if (items < 1 || MO < 1 || nlc < 1 || limcls == nullptr || adm == nullptr ||
+      n_cand == nullptr || dec == nullptr || row_counts == nullptr ||
+      !fill_core(a.core, ids, ids_u8, npad, limit, path_cls, path_node, depth, Lmax, F, sim, C,
+                 node_ceil, N, max_pen, p_sub, p_ins, p_del, p_swap, floor_, E, graph, nch,
+                 node_caps, root_caps) ||
+      (2 * E + 1) * MO > MAX_CHANNELS || ntile != (items + TYPED_TILE - 1) / TYPED_TILE) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.cand_field = static_cast<const int32_t*>(cand_field);
+  a.cand_start = static_cast<const int32_t*>(cand_start);
+  a.n_cand = static_cast<const int32_t*>(n_cand);
+  a.items = items;
   a.node = static_cast<const int32_t*>(node);
   a.out_list = static_cast<const int32_t*>(out_list);
   a.MO = MO;
@@ -526,18 +926,66 @@ int fac_dp_pipeline_typed(const void* pos, const void* words, long long K, long 
   a.bound = bound;
   a.limcls = static_cast<const int32_t*>(limcls);
   a.adm = static_cast<const int32_t*>(adm);
-  a.nunits = nunits;
-  a.counts = static_cast<int32_t*>(counts);
-  a.offsets = static_cast<const int32_t*>(offsets);
+  a.dec = static_cast<int2*>(dec);
+  a.row_counts = static_cast<int32_t*>(row_counts);
+  a.ntile = ntile;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(row_counts, 0,
+                                   sizeof(int32_t) * ((2 * E + 1) * MO * ntile + 1), s);
+  if (rc != cudaSuccess) return (int)rc;
+  const int cells = (2 * E + 1) * nch;
+  if (cells <= 8) {
+    rc = launch_list_regs<8>(a, s);
+  } else if (cells <= 16) {
+    rc = launch_list_regs<16>(a, s);
+  } else if (cells <= 32) {
+    rc = launch_list_regs<32>(a, s);
+  } else {
+    const size_t shm = list_smem_bytes(32, false, E, nch, Lmax);
+    rc = allow_smem(typed_dp_rows_kernel, shm);
+    if (rc != cudaSuccess) return (int)rc;
+    const long long blocks = (items + TY_WARPS - 1) / TY_WARPS;
+    if (blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+    typed_dp_rows_kernel<<<(unsigned)blocks, TY_THREADS, shm, s>>>(a);
+    rc = cudaGetLastError();
+  }
+  return (int)rc;
+}
+
+// The typed step's emission. The candidate list (cand_combo too) and n_cand
+// as fac_typed_dp read them; depth, node: int32 [F]; out_list: int32 [N,
+// MO]; graph: int32 [nch, 10]; dec as fac_typed_dp wrote it; row_offsets:
+// the exclusive scan of its row_counts; rows: int32 [total, 5]; tags: int32
+// [total] or null. Returns the launch's cudaError_t.
+int fac_typed_emit(const void* cand_field, const void* cand_start, const void* cand_combo,
+                   const void* n_cand, long long items, const void* depth, const void* node,
+                   const void* out_list, int MO, int E, int n_combo, const void* graph,
+                   const void* dec, const void* row_offsets, long long ntile, void* rows,
+                   void* tags, void* stream) {
+  if (items < 1 || MO < 1 || E < 1 || E > MAX_E || n_combo < 1 || (2 * E + 1) * MO > MAX_CHANNELS ||
+      ntile != (items + TYPED_TILE - 1) / TYPED_TILE || ntile > 0x7FFFFFFFll ||
+      rows == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TypedEmitArgs a;
+  a.cand_field = static_cast<const int32_t*>(cand_field);
+  a.cand_start = static_cast<const int32_t*>(cand_start);
+  a.cand_combo = static_cast<const int32_t*>(cand_combo);
+  a.n_cand = static_cast<const int32_t*>(n_cand);
+  a.items = items;
+  a.depth = static_cast<const int32_t*>(depth);
+  a.node = static_cast<const int32_t*>(node);
+  a.out_list = static_cast<const int32_t*>(out_list);
+  a.MO = MO;
+  a.E = E;
+  a.n_combo = n_combo;
+  a.graph = static_cast<const int32_t*>(graph);
+  a.dec = static_cast<const int2*>(dec);
+  a.row_offsets = static_cast<const int32_t*>(row_offsets);
+  a.ntile = ntile;
   a.rows = static_cast<int32_t*>(rows);
   a.tags = static_cast<int32_t*>(tags);
-  const size_t shm = smem_bytes(E, nch, Lmax);
-  cudaError_t rc = allow_smem(dp_pipeline_typed_kernel, shm);
-  if (rc != cudaSuccess) return (int)rc;
-  const long long blocks = (nunits + TY_WARPS - 1) / TY_WARPS;
-  if (blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
-  dp_pipeline_typed_kernel<<<(unsigned)blocks, TY_THREADS, shm,
-                             static_cast<cudaStream_t>(stream)>>>(a, write != 0);
+  typed_emit_kernel<<<(unsigned)ntile, TYPED_TILE, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,8 @@
 //                                           of hits of every block.
 //   block_offsets_kernel <- the prefix sum of ops/compact.py: exclusive
 //                                           offsets of the block counts; the
-//                                           last entry is the hit count.
+//                                           last entry is the hit count
+//                                           (csrc/scan_offsets.cu).
 //   hit_words_kernel     <- _replay_words : ascending hit positions and, for
 //                                           each, the 2W u32 match words.
 //
@@ -167,48 +168,6 @@ scan_bits_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb,
   if (tid == 0) block_counts[blockIdx.x] = s_count;
 }
 
-// Exclusive scan of ``counts`` [len] into ``offsets`` [len + 1]
-// (offsets[len] = the total), one block walking the array in tiles.
-__global__ void __launch_bounds__(OFFSETS_THREADS)
-block_offsets_kernel(const int* __restrict__ counts, long long len,
-                     int* __restrict__ offsets) {
-  __shared__ int s_warp[OFFSETS_THREADS / 32];
-  __shared__ int s_carry;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) s_carry = 0;
-  __syncthreads();
-  for (long long base = 0; base < len; base += OFFSETS_THREADS) {
-    const long long i = base + tid;
-    const int v = i < len ? counts[i] : 0;
-    int incl = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-      if (lane >= o) incl += up;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int w = s_warp[lane];  // OFFSETS_THREADS / 32 == 32 warp sums
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int up = __shfl_up_sync(0xFFFFFFFFu, w, o);
-        if (lane >= o) w += up;
-      }
-      s_warp[lane] = w;  // inclusive over warps
-    }
-    __syncthreads();
-    const int carry = s_carry;
-    const int before = carry + (warp > 0 ? s_warp[warp - 1] : 0) + incl - v;
-    if (i < len) offsets[i] = before;
-    __syncthreads();
-    if (tid == OFFSETS_THREADS - 1) s_carry = carry + s_warp[OFFSETS_THREADS / 32 - 1];
-    __syncthreads();
-  }
-  if (tid == 0) offsets[len] = s_carry;
-}
-static_assert(OFFSETS_THREADS == 1024, "block_offsets_kernel scans 32 warp sums in one warp");
-
 // Block b turns the set bits of its BLOCK_WORDS bit words into positions
 // pos[offsets[b] ..) in ascending order and replays the NFA over the
 // ``halo`` symbols that end at each of them.
@@ -320,14 +279,6 @@ int fac_scan_bits(const void* ids, long long n, const void* tbl,
   const Call c = make_call(false, ids, n, nblocks, tbl, starts, match, init, notlast, A, k,
                            halo, chunk, bits, counts, nullptr, nullptr, stream);
   return (int)dispatch(c, W);
-}
-
-// counts: int32 [len]; offsets: int32 [len + 1].
-int fac_block_offsets(const void* counts, long long len, void* offsets, void* stream) {
-  if (len < 1) return (int)cudaErrorInvalidValue;
-  block_offsets_kernel<<<1, OFFSETS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(counts), len, static_cast<int*>(offsets));
-  return (int)cudaGetLastError();
 }
 
 // bits and offsets as the two kernels above wrote them; pos: int64 [hits];

@@ -20,7 +20,6 @@ constexpr int CHUNK_MIN = 128, CHUNK_MAX = 512;
 constexpr int SCAN_THREADS_MAX = BLOCK_SYMS / CHUNK_MIN;
 constexpr int HITS_THREADS = 256;
 constexpr int HITS_WORDS = BLOCK_WORDS / HITS_THREADS;  // bit words per thread
-constexpr int OFFSETS_THREADS = 1024;
 constexpr int HALO_MAX = 128;
 constexpr int MAX_A = 128;
 constexpr int MAX_W = 8;

@@ -29,8 +29,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("packed_bitap.cu", "scan_wide.cu", "many_expand.cu", "banded_dp.cu",
-                 "dp_pipeline.cu", "dp_typed.cu")
+    for name in ("packed_bitap.cu", "scan_wide.cu", "scan_offsets.cu", "many_expand.cu",
+                 "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu")
 )
 #: Headers the sources include (part of the build's hash).
 HEADERS = tuple(_PKG / "csrc" / name for name in ("packed_bitap.cuh", "banded_dp.cuh"))
@@ -54,8 +54,8 @@ _SIGNATURES = {
     # the same for W = 9..64 (csrc/scan_wide.cu)
     "fac_scan_bits_wide": [_c_void_p, _c_ll] + [_c_void_p] * 5 + [_c_int] * 5
     + [_c_ll] + [_c_void_p] * 3,
-    # counts, len, offsets, stream
-    "fac_block_offsets": [_c_void_p, _c_ll, _c_void_p, _c_void_p],
+    # counts, len, offsets, status, epoch, stream
+    "fac_block_offsets": [_c_void_p, _c_ll, _c_void_p, _c_void_p, _c_ll, _c_void_p],
     # ids, n, bits, offsets, tbl, starts, match, init, notlast, A, W, k, halo,
     # nblocks, pos, words, stream
     "fac_hit_words": [_c_void_p, _c_ll] + [_c_void_p] * 7 + [_c_int] * 4
@@ -103,20 +103,31 @@ _SIGNATURES = {
     + [_c_void_p] * 3 + [_c_int] * 2 + [_c_void_p, _c_int, _c_void_p, _c_int]
     + [_c_f] * 6 + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 4,
     # pos, words, K, h0, W2, combos, n_combo, start_lo, start_hi, pos_hi,
-    # ids, ids_u8, npad, limit, path_cls, path_node, depth, node, Lmax, F,
-    # sim, C, node_ceil, N, out_list, MO, pat_len, pat_weight, max_pen, p_sub,
-    # p_ins, p_del, p_swap, floor, bound, E, graph, nch, node_caps, root_caps,
-    # limcls, adm, nlc, write, nunits, counts, offsets, rows, tags, stream
-    "fac_dp_pipeline_typed": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_void_p, _c_int]
-    + [_c_ll] * 3 + [_c_void_p, _c_int, _c_ll, _c_ll] + [_c_void_p] * 4
-    + [_c_int] * 2 + [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_int]
-    + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 4
-    + [_c_int] * 2 + [_c_ll] + [_c_void_p] * 5,
+    # write, nblk, counts, offsets, cand_field, cand_start, cand_combo, stream
+    "fac_typed_expand": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_void_p, _c_int]
+    + [_c_ll] * 3 + [_c_int, _c_ll] + [_c_void_p] * 6,
+    # cand_field, cand_start, n_cand, items, ids, ids_u8, npad, limit,
+    # path_cls, path_node, depth, node, Lmax, F, sim, C, node_ceil, N,
+    # out_list, MO, pat_len, pat_weight, max_pen, p_sub, p_ins, p_del,
+    # p_swap, floor, bound, E, graph, nch, node_caps, root_caps, limcls, adm,
+    # nlc, dec, row_counts, ntile, stream
+    "fac_typed_dp": [_c_void_p] * 3 + [_c_ll, _c_void_p, _c_int, _c_ll, _c_ll]
+    + [_c_void_p] * 4 + [_c_int] * 2 + [_c_void_p, _c_int, _c_void_p, _c_int]
+    + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int, _c_void_p, _c_int]
+    + [_c_void_p] * 4 + [_c_int] + [_c_void_p] * 2 + [_c_ll, _c_void_p],
+    # cand_field, cand_start, cand_combo, n_cand, items, depth, node,
+    # out_list, MO, E, n_combo, graph, dec, row_offsets, ntile, rows, tags,
+    # stream
+    "fac_typed_emit": [_c_void_p] * 4 + [_c_ll] + [_c_void_p] * 3 + [_c_int] * 3
+    + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 3,
     "fac_scan_block_syms": [],
     "fac_scan_wide_chunk": [],
     "fac_many_expand_items": [],
     "fac_dp_pipeline_threads": [],
-    "fac_dp_pipeline_typed_unit": [],
+    "fac_offsets_tile": [],
+    "fac_offsets_chain_tile": [],
+    "fac_typed_tile": [],
+    "fac_typed_expand_items": [],
 }
 
 
@@ -211,6 +222,8 @@ def _build(out_dir: Path, so: Path) -> str:
 def load() -> Kernels:
     """Build (once per source hash) and load the kernel library."""
     global _LOADED
+    if _LOADED is not None:
+        return _LOADED
     with _LOCK:
         if _LOADED is not None:
             return _LOADED

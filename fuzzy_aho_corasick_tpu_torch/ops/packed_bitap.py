@@ -17,15 +17,15 @@ emit suffix patterns with the full walked span (reference builder
 output-union src/builder.rs:239-276). A hit *is* an exact state-arrival at
 that node.
 
-Device work, per search (:func:`packed_hits`), three kernels of
-``csrc/packed_bitap.cu`` and one scalar read back:
+Device work, per search (:func:`packed_hits`), three kernels and one
+scalar read back:
 
 1. :func:`scan_bits` — ``scan_bits_kernel`` writes one hit *bit* per stream
    position (packed u32 words) and the number of hits of every
    ``SCAN_BLOCK_SYMS``-symbol block;
-2. :func:`block_offsets` — ``block_offsets_kernel``, the exclusive scan of
-   the block counts; its last entry, the hit count, is the one value the
-   host reads (to size the outputs);
+2. :func:`block_offsets` — ``block_offsets_kernel`` (``csrc/scan_offsets.cu``),
+   the exclusive scan of the block counts; its last entry, the hit count, is
+   the one value the host reads (to size the outputs);
 3. :func:`hit_words` — ``hit_words_kernel`` turns each block's set bits into
    ascending hit positions behind its offset and replays the NFA from the
    fresh state over each hit's trailing ``halo`` symbols for its match words.
@@ -51,6 +51,7 @@ not a u64 shift.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import List, Optional, Tuple
 
@@ -85,6 +86,12 @@ PLAIN_CHUNK = 256
 SCAN_BLOCK_SYMS = 16384
 #: Chunk lengths ``scan_bits_kernel`` takes (symbols per thread), longest first.
 SCAN_CHUNKS = (512, 256, 128)
+#: Counts one block of ``block_offsets_kernel`` scans alone (1024 threads x
+#: 16 counts), and past that the counts of each block of the look-back
+#: chain (OFFSETS_TILE, CHAIN_TILE in ``csrc/scan_offsets.cu``, checked
+#: against the built library).
+OFFSETS_TILE = 16384
+OFFSETS_CHAIN_TILE = 4096
 #: Symbols one chain of ``scan_bits_wide_kernel`` scans (WIDE_CHUNK in
 #: ``csrc/scan_wide.cu``; the wrapper checks it against the built library).
 SCAN_WIDE_CHUNK = 512
@@ -96,13 +103,15 @@ SCAN_FILL_THREADS = 640
 
 #: Kernel launches per wrapper (CUDA launches only; the plain versions on CPU
 #: tensors do not count). ``dp`` counts ``verify_dp.banded_dp``,
-#: ``dp_pipeline`` both passes of ``verify_dp.dp_pipeline``; ``scan_bits`` and
-#: ``hit_words`` count the narrow kernels, the ``_wide`` keys the wide ones;
-#: ``many_expand`` and ``dp_list`` both passes of ``many.many_expand`` and
-#: ``many.dp_list``.
+#: ``dp_pipeline`` both passes of ``verify_dp.dp_pipeline``'s count-channel
+#: step; ``typed_expand`` both passes of ``verify_dp.typed_expand``,
+#: ``typed_dp`` and ``typed_emit`` the typed step's DP and emission;
+#: ``block_offsets`` the launches of :func:`block_offsets`; ``scan_bits`` and ``hit_words`` count the narrow kernels, the
+#: ``_wide`` keys the wide ones; ``many_expand`` and ``dp_list`` both passes
+#: of ``many.many_expand`` and ``many.dp_list``.
 LAUNCHES = {"scan_bits": 0, "block_offsets": 0, "hit_words": 0, "dp": 0, "dp_pipeline": 0,
-            "dp_typed": 0, "dp_pipeline_typed": 0, "scan_bits_wide": 0, "hit_words_wide": 0,
-            "many_expand": 0, "dp_list": 0}
+            "dp_typed": 0, "typed_expand": 0, "typed_dp": 0, "typed_emit": 0,
+            "scan_bits_wide": 0, "hit_words_wide": 0, "many_expand": 0, "dp_list": 0}
 
 _M32 = 0xFFFFFFFF
 
@@ -566,6 +575,27 @@ def _check(ids: torch.Tensor, T: ScanTables, halo: int) -> None:
         raise ValueError(f"stream of {ids.numel()} symbols outside 1..2^31 - 1")
 
 
+def on_device(dev: torch.device):
+    """A context in which a C entry launches on ``dev``: none where ``dev``
+    is the current device (the common case, and free), else
+    ``torch.cuda.device(dev)``."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream, which the kernels launch
+    on (without building a ``torch.cuda.Stream`` where torch offers the raw
+    handle: a wrapper's host time is most of a small launch's cost)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch.cuda.current_device() if dev.index is None else dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _check_int32(name: str, t: torch.Tensor, numel: int, device) -> None:
     if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
             or t.numel() != numel or t.device != device:
@@ -577,9 +607,15 @@ def _tables_args(T: ScanTables):
             _ptr(T.notlast), T.A, T.W, T.k)
 
 
+_CHECKED: Optional[_cuda_build.Kernels] = None
+
+
 def _kernels():
-    """The built library, checked against this module's block size."""
+    """The built library, checked once against this module's block sizes."""
+    global _CHECKED
     kern = _cuda_build.load()
+    if kern is _CHECKED:
+        return kern
     if kern.lib.fac_scan_block_syms() != SCAN_BLOCK_SYMS:
         raise RuntimeError(
             f"library scans {kern.lib.fac_scan_block_syms()} symbols per block, "
@@ -588,6 +624,11 @@ def _kernels():
         raise RuntimeError(
             f"library's wide scan takes {kern.lib.fac_scan_wide_chunk()} symbols per chain, "
             f"SCAN_WIDE_CHUNK is {SCAN_WIDE_CHUNK}")
+    if (kern.lib.fac_offsets_tile(), kern.lib.fac_offsets_chain_tile()) != (
+            OFFSETS_TILE, OFFSETS_CHAIN_TILE):
+        raise RuntimeError("csrc/scan_offsets.cu and packed_bitap disagree on OFFSETS_TILE / "
+                           "OFFSETS_CHAIN_TILE")
+    _CHECKED = kern
     return kern
 
 
@@ -638,23 +679,59 @@ def scan_bits(ids: torch.Tensor, T: ScanTables, halo: int, chunk: Optional[int] 
     return bits, counts
 
 
+#: The multi-tile scan's status words, per (device index, stream handle):
+#: int64 tensors, zeroed when made and never reset (see ``_scan_status``).
+_SCAN_STATUS: dict = {}
+#: Epochs of the multi-tile scan, unique per call.
+_SCAN_EPOCHS = itertools.count(1)
+
+
+def _scan_status(dev: torch.device, stream: int, tiles: int):
+    """(status words, epoch) for one multi-tile ``block_offsets_kernel`` call
+    on ``stream``: the stream's status array (grown to ``tiles`` words) and
+    an epoch no earlier call used, so the kernel tells this call's words
+    from any earlier call's without a reset. Calls on one stream run in
+    order, so one array serves them all."""
+    epoch = next(_SCAN_EPOCHS) & 0xFFFFFFFF
+    if epoch == 0:  # 2^32 calls on: every word could be mistaken, so zero them
+        for words in _SCAN_STATUS.values():
+            words.zero_()
+        epoch = next(_SCAN_EPOCHS) & 0xFFFFFFFF
+    key = (dev.index, stream)
+    words = _SCAN_STATUS.get(key)
+    if words is None or words.numel() < tiles:
+        words = torch.zeros(max(tiles, 64, 0 if words is None else 2 * words.numel()),
+                            dtype=torch.int64, device=dev)
+        _SCAN_STATUS[key] = words
+    return words, epoch
+
+
 def block_offsets(counts: torch.Tensor) -> torch.Tensor:
     """int32 [len + 1]: exclusive scan of the int32 ``counts``, the total
     last. CPU tensors run :func:`block_offsets_torch`; CUDA tensors launch
-    ``block_offsets_kernel``."""
-    _check_int32("counts", counts, counts.numel(), counts.device)
-    if counts.numel() == 0:
+    ``block_offsets_kernel`` once: one block up to ``OFFSETS_TILE`` counts,
+    past it blocks of ``OFFSETS_CHAIN_TILE`` chained by look-back
+    (``_scan_status``). The checks are kept lean:
+    at the callers' sizes the call's host time is most of its cost."""
+    n = counts.numel()
+    dev = counts.device
+    if counts.dtype != torch.int32 or counts.dim() != 1 or not counts.is_contiguous():
+        raise ValueError(f"counts must be a contiguous int32 [{n}] tensor on {dev}")
+    if n == 0:
         raise ValueError("counts is empty")
-    if counts.device.type == "cpu":
-        return block_offsets_torch(counts)
-    if counts.device.type != "cuda":
-        raise ValueError(f"no scan kernel for device {counts.device}")
-    offsets = torch.empty(counts.numel() + 1, dtype=torch.int32, device=counts.device)
-    kern = _cuda_build.load()
-    with torch.cuda.device(counts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = kern.lib.fac_block_offsets(
-            counts.data_ptr(), counts.numel(), offsets.data_ptr(), stream)
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return block_offsets_torch(counts)
+        raise ValueError(f"no scan kernel for device {dev}")
+    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    kern = _CHECKED if _CHECKED is not None else _kernels()
+    with on_device(dev):
+        stream = stream_of(dev)
+        status, epoch = (None, 0) if n <= OFFSETS_TILE else _scan_status(
+            dev, stream, -(-n // OFFSETS_CHAIN_TILE))
+        rc = kern.lib.fac_block_offsets(counts.data_ptr(), n, offsets.data_ptr(),
+                                        None if status is None else status.data_ptr(), epoch,
+                                        stream)
     kern.check(rc, "block_offsets")
     LAUNCHES["block_offsets"] += 1
     return offsets

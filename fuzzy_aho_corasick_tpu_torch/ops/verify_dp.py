@@ -1178,6 +1178,13 @@ def banded_dp_typed(cand_field, cand_start, ids, limit, T: DpTables,
 # Emission
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=256)
+def _pen_floats(pens: DpPenalties) -> tuple:
+    """The DP's f32 scalars as Python floats, the kernels' arguments."""
+    return tuple(float(np.float32(x)) for x in pens)
+
+
+@functools.lru_cache(maxsize=256)
 def emit_bound(thr) -> float:
     """The f32 bound of the emission's similarity test: the threshold less a
     slack (the host recomputes the test exactly)."""
@@ -1245,20 +1252,21 @@ def emit_rows(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E,
     return rows if combo is None else (rows, _row_tags(chan, m, combo, n_combo))
 
 
-def emit_rows_typed(pen, cand_field, cand_start, T: DpTables, TT: TypedTables,
-                    limit, thr, E, combo=None, n_combo: int = 0):
-    """Typed DP channels -> match rows, int32 [K, 5] as :func:`emit_rows`
-    gives them, in the same order (the JAX package's ``_emit_rows_typed``),
-    and the rows' tags where ``combo`` is given.
+def typed_decisions_torch(pen, cand_field, cand_start, T: DpTables, TT: TypedTables,
+                          limit, thr, E):
+    """What the typed emission decides per emission channel (band, output
+    slot) and candidate, int32 [B * MO, M, 2]: the winning penalty's f32
+    bits and channel, or (0, -1) where the channel emits no row.
 
     Per band and limits class the channels the class admits are minimised
-    with strict <, in channel order (fewest edits first), and the winning
-    channel's static counts are kept; each output slot then takes the row of
-    its pattern's limits class (reference emission-time check
-    src/search.rs:151-169)."""
+    with strict <, in channel order (fewest edits first); each output slot
+    takes the minimum of its pattern's limits class (reference emission-time
+    check src/search.rs:151-169), and emits where its span lies in the text,
+    the penalty is finite and the similarity passes :func:`emit_bound`."""
     B, NCH = 2 * E + 1, TT.nch
     M = cand_field.numel()
     MO = T.out_list.shape[1]
+    dev = pen.device
     alive = cand_field >= 0
     f = cand_field.clamp(min=0).long()
     start = cand_start
@@ -1268,44 +1276,67 @@ def emit_rows_typed(pen, cand_field, cand_start, T: DpTables, TT: TypedTables,
     pl, pw = T.pat_len[p_safe], T.pat_weight[p_safe]
     patcls = TT.limcls.long()[p_safe]                                # [M, MO]
     adm = TT.adm.tolist()
-    cnts = TT.graph[:, 9].tolist()
     bound = emit_bound(thr)
-    ok_rows, pen_rows, cnt_rows = [], [], []
-    ar = torch.arange(M, device=pen.device)
+    ar = torch.arange(M, device=dev)
+    dec = []
     for b in range(B):
         ends_b = start + d + (b - E)
         span_ok = alive & (ends_b <= limit) & (ends_b >= start)
-        pen_lc, cnt_lc = [], []
+        pen_lc, ch_lc = [], []
         for row in adm:
-            pen_b = torch.full((M,), float("inf"), dtype=torch.float32, device=pen.device)
-            cnt_b = torch.zeros(M, dtype=torch.int32, device=pen.device)
+            pen_b = torch.full((M,), float("inf"), dtype=torch.float32, device=dev)
+            ch_b = torch.zeros(M, dtype=torch.int32, device=dev)
             for ch in range(NCH):
                 if row[ch]:
                     take = pen[b * NCH + ch] < pen_b
                     pen_b = torch.where(take, pen[b * NCH + ch], pen_b)
-                    cnt_b = torch.where(take, cnts[ch], cnt_b)
+                    ch_b = torch.where(take, ch, ch_b)
             pen_lc.append(pen_b)
-            cnt_lc.append(cnt_b)
-        pen_lc, cnt_lc = torch.stack(pen_lc), torch.stack(cnt_lc)   # [NLC, M]
+            ch_lc.append(ch_b)
+        pen_lc, ch_lc = torch.stack(pen_lc), torch.stack(ch_lc)      # [NLC, M]
         for o in range(MO):
-            pen_sel, cnt_sel = pen_lc[patcls[:, o], ar], cnt_lc[patcls[:, o], ar]
+            pen_sel, ch_sel = pen_lc[patcls[:, o], ar], ch_lc[patcls[:, o], ar]
             fin = torch.isfinite(pen_sel)
             pen_s = torch.where(fin, pen_sel, 0.0)
             sim = ((pl[:, o] - pen_s) / pl[:, o]) * pw[:, o]
-            ok_rows.append(span_ok & fin & (pats[:, o] >= 0) & (sim >= bound))
-            pen_rows.append(pen_sel)
-            cnt_rows.append(cnt_sel)
-    gidx = compact_indices(torch.stack(ok_rows).reshape(-1))
-    m = gidx % M
-    chan = gidx // M
+            ok = span_ok & fin & (pats[:, o] >= 0) & (sim >= bound)
+            dec.append(torch.stack([torch.where(ok, pen_sel.view(torch.int32), 0),
+                                    torch.where(ok, ch_sel, -1)], dim=1))
+    if not dec or M == 0:
+        return torch.zeros((B * MO, M, 2), dtype=torch.int32, device=dev)
+    return torch.stack(dec).to(torch.int32)
+
+
+def typed_rows_torch(dec, cand_field, cand_start, T: DpTables, TT: TypedTables, E,
+                     combo=None, n_combo: int = 0):
+    """The typed rows of decisions ``dec`` (:func:`typed_decisions_torch`,
+    [B * MO, M, 2]), int32 [K, 5] as :func:`emit_rows` gives them: (start,
+    penalty bits, span, pattern, the winning channel's packed counts), in
+    (channel, candidate) order; with the candidates' ``combo`` indices also
+    the rows' tags (:func:`_row_tags`)."""
+    M = cand_field.numel()
+    MO = T.out_list.shape[1]
+    gidx = compact_indices((dec[..., 1] >= 0).reshape(-1))
+    m = gidx % max(M, 1)
+    chan = gidx // max(M, 1)
     o = chan % MO
     b = chan // MO
-    pen_bits = torch.stack(pen_rows).view(torch.int32)[chan, m]
+    f = cand_field.long()[m]
     rows = torch.stack([
-        start[m], pen_bits, d[m] + (b - E).to(torch.int32), pats[m, o],
-        torch.stack(cnt_rows)[chan, m],
+        cand_start[m], dec[chan, m, 0], T.depth[f] + (b - E).to(torch.int32),
+        T.out_list[T.node[f].long(), o], TT.graph[dec[chan, m, 1].long(), 9],
     ], dim=1).to(torch.int32)
     return rows if combo is None else (rows, _row_tags(chan, m, combo, n_combo))
+
+
+def emit_rows_typed(pen, cand_field, cand_start, T: DpTables, TT: TypedTables,
+                    limit, thr, E, combo=None, n_combo: int = 0):
+    """Typed DP channels -> match rows, int32 [K, 5] as :func:`emit_rows`
+    gives them, in the same order (the JAX package's ``_emit_rows_typed``),
+    and the rows' tags where ``combo`` is given: the decisions of
+    :func:`typed_decisions_torch` placed by :func:`typed_rows_torch`."""
+    dec = typed_decisions_torch(pen, cand_field, cand_start, T, TT, limit, thr, E)
+    return typed_rows_torch(dec, cand_field, cand_start, T, TT, E, combo, n_combo)
 
 
 # ---------------------------------------------------------------------------
@@ -1330,7 +1361,8 @@ class DpWindow(NamedTuple):
 def dp_pipeline_torch(pos, words, window: DpWindow, ids, limit, T: DpTables,
                       pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
                       variant: DpVariant = FAST, h0: int = 0, tags: bool = False):
-    """Plain version of ``dp_pipeline_kernel`` and ``dp_pipeline_typed_kernel``:
+    """Plain version of ``dp_pipeline_kernel`` and of the typed step
+    (``typed_expand_kernel``, ``typed_dp_kernel``, ``typed_emit_kernel``):
     :func:`expand_candidates` of the hits from ``h0`` on, then
     :func:`banded_dp_torch` and :func:`emit_rows`, or for a typed
     ``variant`` :func:`banded_dp_typed_torch` and :func:`emit_rows_typed`.
@@ -1354,32 +1386,14 @@ def dp_pipeline_torch(pos, words, window: DpWindow, ids, limit, T: DpTables,
     return rows, cand_field.numel()
 
 
-#: (combo, hit) items per counting unit of ``dp_pipeline_typed_kernel`` (one
-#: warp; ``TY_UNIT`` of csrc/dp_typed.cu), against a block of 128 items for
-#: ``dp_pipeline_kernel``.
-TYPED_UNIT = 8
-#: Most bytes the typed pipeline's per-unit counts may take; their exclusive
-#: scan takes as many again.
-TYPED_COUNT_BYTES = 64 << 20
-
-
-def _typed_count_entries(items: int, channels: int) -> int:
-    """int32 entries of the typed count pass's array over ``items`` (combo,
-    hit) items: one per warp for each emission channel and for the candidates."""
-    return (channels + 1) * -(-items // TYPED_UNIT)
-
-
-def pipeline_max_hits(n_combo: int, MO: int, E: int, typed: bool = False) -> int:
+def pipeline_max_hits(n_combo: int, MO: int, E: int) -> int:
     """Most hits :func:`dp_pipeline` takes in one call (one range of a
     longer hit list, :func:`dp_pipeline_ranges`): int32 offsets over their
     (combo, hit) items' candidates and rows (at most one of each per item
-    and emission channel). The ``typed`` kernel counts per warp of
-    ``TYPED_UNIT`` items, 16 entries where the count-channel kernel has one,
-    so there the counts' bytes (``TYPED_COUNT_BYTES``) bound the items too."""
+    and emission channel). The typed step's decisions (one per item and
+    emission channel) stay inside the same bound."""
     channels = (2 * E + 1) * MO
     items = ((1 << 31) - 1) // (channels + 1)
-    if typed:
-        items = min(items, TYPED_COUNT_BYTES // 4 // (channels + 1) * TYPED_UNIT)
     return max(1, items // max(n_combo, 1))
 
 
@@ -1389,18 +1403,10 @@ def _combos_on(device: str, E: int, BITS: tuple, P2F: tuple, DEPTHS: tuple) -> t
     return torch.from_numpy(_combos(E, BITS, P2F, DEPTHS).astype(np.int32)).to(device)
 
 
-def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
-                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
-                variant: DpVariant = FAST, h0: int = 0):
-    """Checks the arguments of :func:`dp_pipeline` and, on CUDA tensors, runs
-    the kernel's count pass. Returns None for CPU tensors and for an empty
-    hit list, else (launch, counts, channels, units): ``counts`` int32
-    [(channels + 1) * units] holds every unit's rows per emission channel
-    and, in the last row, its candidates (a unit is one block of
-    ``dp_pipeline_kernel``, one warp of ``dp_pipeline_typed_kernel``);
-    ``launch(1, offsets, rows, tags)`` runs the write pass."""
-    from . import packed_bitap as pb
-
+def _check_pipeline(pos, words, ids, T: DpTables, E: int, deadend: bool, statics: tuple,
+                    variant: DpVariant, h0: int) -> None:
+    """The checks of :func:`dp_pipeline`'s arguments; the kernels' channel
+    and int32 bounds only for CUDA tensors."""
     for name, t in (("pos", pos), ("words", words)):
         if t.dtype != torch.int64 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int64 tensor")
@@ -1410,94 +1416,310 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
         raise ValueError("ids must be a contiguous 1-D uint8 or int32 tensor")
     if not (pos.device == words.device == ids.device == T.device):
         raise ValueError(f"hits on {pos.device}, ids on {ids.device}, tables on {T.device}")
+    if ids.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no DP kernel for device {ids.device}")
     if T.node_ceil is None:
         raise ValueError("tables carry no node ceilings (DpTables.with_ceil)")
     if not 1 <= E <= MAX_E:
         raise ValueError(f"edit budget {E} outside 1..{MAX_E}")
-    typed = variant.typed
-    if typed is not None:
+    if variant.typed is not None:
         if deadend or variant.forbid is not None or variant.maps is not None:
             raise ValueError("the typed DP takes no dead-end filter, forbid flags or mappings")
-        _check_typed(T, typed)
-    mask = _forbid_mask(variant.forbid)
+        _check_typed(T, variant.typed)
+    _forbid_mask(variant.forbid)
     if variant.maps is not None and deadend:
         raise ValueError("the mapped DP has no dead-end filter")
-    map_args = _map_args(variant.maps, T)
+    _map_args(variant.maps, T)
     if not 0 <= h0 <= max(pos.numel() - 1, 0):
         raise ValueError(f"first hit {h0} outside the {pos.numel()} hits")
-    if ids.device.type == "cpu":
-        return None
     if ids.device.type != "cuda":
-        raise ValueError(f"no DP kernel for device {ids.device}")
+        return
+    H, n_combo = pos.numel() - h0, _combos(E, *statics).shape[1]
+    nch = (2 * E + 1) * T.out_list.shape[1]
+    if nch > MAX_CHANNELS:
+        raise ValueError(f"{nch} emission channels, the kernel takes {MAX_CHANNELS}")
+    if H * n_combo * (nch + 1) >= 1 << 31:
+        raise ValueError(f"{H} hits x {n_combo} combos x {nch} channels overflow int32 offsets")
+    if nch * n_combo >= 1 << 31:
+        raise ValueError(f"{nch} channels x {n_combo} combos overflow the int32 row tags")
+
+
+def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
+                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
+                variant: DpVariant = FAST, h0: int = 0):
+    """The count pass of the count-channel step (``dp_pipeline_kernel``) on
+    CUDA tensors with at least one hit; the caller checked the arguments.
+    Returns (launch, counts, channels, units): ``counts`` int32 [(channels +
+    1) * units] holds every block's rows per emission channel and, in the
+    last row, its candidates; ``launch(1, offsets, rows, tags)`` runs the
+    write pass."""
+    from . import packed_bitap as pb
+
     dev = ids.device
     combos = _combos_on(str(dev), E, *statics)
     H, n_combo = pos.numel() - h0, combos.shape[1]
     MO = T.out_list.shape[1]
     nch = (2 * E + 1) * MO
-    if nch > MAX_CHANNELS:
-        raise ValueError(f"{nch} emission channels, the kernel takes {MAX_CHANNELS}")
-    if H * n_combo * (nch + 1) >= 1 << 31:
-        raise ValueError(f"{H} hits x {n_combo} combos x {nch} channels overflow int32 offsets")
-    if typed is not None and 4 * _typed_count_entries(H * n_combo, nch) > TYPED_COUNT_BYTES:
-        raise ValueError(f"{H} hits x {n_combo} combos x {nch} channels: the typed count "
-                         f"pass's counts pass {TYPED_COUNT_BYTES} bytes")
-    if nch * n_combo >= 1 << 31:
-        raise ValueError(f"{nch} channels x {n_combo} combos overflow the int32 row tags")
-    if H <= 0 or n_combo == 0:
-        return None
     kern = _cuda_build.load()
-    unit = kern.lib.fac_dp_pipeline_typed_unit() if typed is not None \
-        else kern.lib.fac_dp_pipeline_threads()
-    if typed is not None and unit != TYPED_UNIT:
-        raise RuntimeError(f"dp_typed.cu counts per {unit} items, this module per {TYPED_UNIT}")
-    nunits = -(-(H * n_combo) // unit)
+    nunits = -(-(H * n_combo) // kern.lib.fac_dp_pipeline_threads())
     counts = torch.empty((nch + 1) * nunits, dtype=torch.int32, device=dev)
-    head = (
+    args = (
         pos.data_ptr(), words.data_ptr(), pos.numel(), h0, words.shape[1],
         combos.data_ptr(), n_combo, *(int(x) for x in window),
         ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
         T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(),
         T.node.data_ptr(), T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C,
-        T.node_ceil.data_ptr(),
-    )
-    outs = (
+        T.node_ceil.data_ptr(), T.sb_edge.data_ptr(), T.out_count.data_ptr(),
         T.out_count.numel(), T.out_list.data_ptr(), MO,
         T.pat_len.data_ptr(), T.pat_weight.data_ptr(),
-        *(float(np.float32(x)) for x in pens), emit_bound(thr), E,
+        *_pen_floats(pens), emit_bound(thr), E,
+        int(bool(deadend)), _forbid_mask(variant.forbid), *_map_args(variant.maps, T),
     )
 
     def launch(write: int, offsets, rows, tags=None):
-        tail = (write, nunits, counts.data_ptr(),
+        with pb.on_device(dev):
+            rc = kern.lib.fac_dp_pipeline(
+                *args, write, nunits, counts.data_ptr(),
                 None if offsets is None else offsets.data_ptr(),
                 None if rows is None else rows.data_ptr(),
-                None if tags is None else tags.data_ptr())
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            if typed is not None:
-                rc = kern.lib.fac_dp_pipeline_typed(
-                    *head, *outs, typed.graph.data_ptr(), typed.nch,
-                    typed.node_caps.data_ptr(), typed.root_caps.data_ptr(),
-                    typed.limcls.data_ptr(), typed.adm.data_ptr(), typed.adm.shape[0],
-                    *tail, stream)
-            else:
-                rc = kern.lib.fac_dp_pipeline(
-                    *head, T.sb_edge.data_ptr(), T.out_count.data_ptr(), *outs,
-                    int(bool(deadend)), mask, *map_args, *tail, stream)
-        kern.check(rc, "dp_pipeline_typed" if typed is not None else "dp_pipeline")
-        pb.LAUNCHES["dp_pipeline_typed" if typed is not None else "dp_pipeline"] += 1
+                None if tags is None else tags.data_ptr(),
+                pb.stream_of(dev))
+        kern.check(rc, "dp_pipeline")
+        pb.LAUNCHES["dp_pipeline"] += 1
 
     launch(0, None, None)
     return launch, counts, nch, nunits
 
 
-def dp_pipeline_counts(*args) -> torch.Tensor:
-    """The count pass of :func:`dp_pipeline` alone, same arguments, CUDA
-    tensors with at least one hit: the per-unit counts that
-    ``block_offsets`` scans between the two passes."""
-    passed = _count_pass(*args)
-    if passed is None:
+# ---------------------------------------------------------------------------
+# The typed step: expansion, DP over the candidate list, emission
+# ---------------------------------------------------------------------------
+
+#: Candidates per row-count tile of the typed step, and threads per block of
+#: its emission (TYPED_TILE of csrc/dp_typed.cu; checked against the library).
+TYPED_TILE = 1024
+#: (combo, hit) items per block of the typed expansion (TE_THREADS).
+TYPED_EXPAND_ITEMS = 256
+
+
+class TypedCands(NamedTuple):
+    """The typed step's candidate list: ``field``, ``start``, ``combo``
+    int32, at least ``total`` long, in (combo, hit) item order; ``total``
+    int32 [1] on the list's device (the kernel's count stays on the card);
+    ``items`` the list's bound, (hits - h0) x combos; ``block_counts`` the
+    expansion's per-block counts on CUDA tensors, else None."""
+
+    field: torch.Tensor
+    start: torch.Tensor
+    combo: torch.Tensor
+    total: torch.Tensor
+    items: int
+    block_counts: Optional[torch.Tensor] = None
+
+
+_TYPED_CHECKED: Optional[_cuda_build.Kernels] = None
+
+
+def _typed_kernels():
+    """The built library, checked once against this module's typed geometry."""
+    global _TYPED_CHECKED
+    kern = _cuda_build.load()
+    if kern is not _TYPED_CHECKED:
+        if (kern.lib.fac_typed_tile(), kern.lib.fac_typed_expand_items()) != (
+                TYPED_TILE, TYPED_EXPAND_ITEMS):
+            raise RuntimeError("csrc/dp_typed.cu and verify_dp disagree on TYPED_TILE / "
+                               "TYPED_EXPAND_ITEMS")
+        _TYPED_CHECKED = kern
+    return kern
+
+
+def typed_expand_torch(pos, words, window: DpWindow, E: int, statics: tuple,
+                       h0: int = 0) -> TypedCands:
+    """Plain version of ``typed_expand_kernel``: :func:`expand_candidates`
+    with the candidates' combos, as a :class:`TypedCands` of exactly
+    ``total`` candidates."""
+    field, start, combo = expand_candidates(pos, words, *window, E, *statics, h0=h0,
+                                            combos=True)
+    items = (pos.numel() - h0) * _combos(E, *statics).shape[1]
+    total = torch.tensor([field.numel()], dtype=torch.int32, device=pos.device)
+    return TypedCands(field, start, combo, total, items)
+
+
+def typed_expand(pos, words, window: DpWindow, E: int, statics: tuple,
+                 h0: int = 0) -> TypedCands:
+    """The typed step's candidate list (see :func:`typed_expand_torch`; the
+    caller checked the arguments). CPU tensors run the plain version; CUDA
+    tensors launch ``typed_expand_kernel`` twice, a count pass and a write
+    pass with ``block_offsets_kernel`` between them, and leave the total on
+    the card."""
+    from . import packed_bitap as pb
+
+    if pos.device.type == "cpu":
+        return typed_expand_torch(pos, words, window, E, statics, h0)
+    dev = pos.device
+    combos = _combos_on(str(dev), E, *statics)
+    n_combo = combos.shape[1]
+    items = (pos.numel() - h0) * n_combo
+    nblk = -(-items // TYPED_EXPAND_ITEMS)
+    counts = torch.empty(nblk, dtype=torch.int32, device=dev)
+    kern = _typed_kernels()
+    head = (pos.data_ptr(), words.data_ptr(), pos.numel(), h0, words.shape[1],
+            combos.data_ptr(), n_combo, *(int(x) for x in window))
+    stream = pb.stream_of(dev)
+    with pb.on_device(dev):
+        rc = kern.lib.fac_typed_expand(*head, 0, nblk, counts.data_ptr(), None, None, None,
+                                       None, stream)
+    kern.check(rc, "typed_expand")
+    offsets = pb.block_offsets(counts)
+    cand = torch.empty((3, items), dtype=torch.int32, device=dev)
+    with pb.on_device(dev):
+        rc = kern.lib.fac_typed_expand(*head, 1, nblk, None, offsets.data_ptr(),
+                                       cand[0].data_ptr(), cand[1].data_ptr(),
+                                       cand[2].data_ptr(), stream)
+    kern.check(rc, "typed_expand")
+    pb.LAUNCHES["typed_expand"] += 2
+    return TypedCands(cand[0], cand[1], cand[2], offsets[nblk:], items, counts)
+
+
+def _typed_tiles(items: int) -> int:
+    return -(-items // TYPED_TILE)
+
+
+def typed_dp_torch(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
+                   E: int, TT: TypedTables):
+    """Plain version of ``typed_dp_kernel`` (and ``typed_dp_rows_kernel``):
+    (dec int32 [B * MO, items, 2], row_counts int32 [B * MO * ntile + 1]).
+    ``dec`` holds :func:`typed_decisions_torch` of the first ``total``
+    candidates (of :func:`banded_dp_typed_torch`'s penalties) and (0, -1)
+    past them; ``row_counts`` the rows of each (channel, tile of
+    ``TYPED_TILE`` candidates), channel-major, and ``total`` last."""
+    M = int(cands.total[0])
+    cf, cs = cands.field[:M], cands.start[:M]
+    pen = banded_dp_typed_torch(cf, cs, ids, limit, T, pens, E, TT)
+    live = typed_decisions_torch(pen, cf, cs, T, TT, limit, thr, E)
+    nce, ntile = live.shape[0], _typed_tiles(cands.items)
+    dec = torch.zeros((nce, cands.items, 2), dtype=torch.int32, device=ids.device)
+    dec[..., 1] = -1
+    dec[:, :M] = live
+    flags = torch.zeros((nce, ntile * TYPED_TILE), dtype=torch.int32, device=ids.device)
+    flags[:, :M] = (live[..., 1] >= 0).to(torch.int32)
+    counts = flags.reshape(nce, ntile, TYPED_TILE).sum(dim=2).reshape(-1)
+    return dec, torch.cat([counts, cands.total]).to(torch.int32)
+
+
+def typed_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr, E: int,
+             TT: TypedTables):
+    """(dec, row_counts) of :func:`typed_dp_torch` (the caller checked the
+    arguments). CPU tensors run the plain version; CUDA tensors launch
+    ``typed_dp_kernel`` (a group of 8, 16 or 32 lanes per candidate, one
+    cell each, where B x NCH fits 32 lanes) or ``typed_dp_rows_kernel`` (a
+    warp per candidate, rows in shared memory) over the list's bound;
+    columns of ``dec`` past the total are left unwritten."""
+    from . import packed_bitap as pb
+
+    if ids.device.type == "cpu":
+        return typed_dp_torch(cands, ids, limit, T, pens, thr, E, TT)
+    dev = ids.device
+    MO = T.out_list.shape[1]
+    nce, ntile = (2 * E + 1) * MO, _typed_tiles(cands.items)
+    dec = torch.empty((nce, cands.items, 2), dtype=torch.int32, device=dev)
+    row_counts = torch.empty(nce * ntile + 1, dtype=torch.int32, device=dev)
+    kern = _typed_kernels()
+    with pb.on_device(dev):
+        rc = kern.lib.fac_typed_dp(
+            cands.field.data_ptr(), cands.start.data_ptr(), cands.total.data_ptr(), cands.items,
+            ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
+            T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(), T.node.data_ptr(),
+            T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C, T.node_ceil.data_ptr(),
+            T.out_count.numel(), T.out_list.data_ptr(), MO, T.pat_len.data_ptr(),
+            T.pat_weight.data_ptr(), *_pen_floats(pens), emit_bound(thr), E,
+            TT.graph.data_ptr(), TT.nch, TT.node_caps.data_ptr(), TT.root_caps.data_ptr(),
+            TT.limcls.data_ptr(), TT.adm.data_ptr(), TT.adm.shape[0], dec.data_ptr(),
+            row_counts.data_ptr(), ntile, pb.stream_of(dev))
+    kern.check(rc, "typed_dp")
+    pb.LAUNCHES["typed_dp"] += 1
+    return dec, row_counts
+
+
+def typed_emit_torch(dec, row_offsets, cands: TypedCands, T: DpTables, TT: TypedTables,
+                     E: int, n_combo: int, n_rows: int, tags: bool = False):
+    """Plain version of ``typed_emit_kernel``: (rows int32 [n_rows, 5],
+    tags int32 [n_rows] or None), the decisions of the first ``total``
+    candidates placed by :func:`typed_rows_torch` in (channel, candidate)
+    order, which ``row_offsets`` (the exclusive scan of ``typed_dp``'s
+    row_counts) also gives."""
+    M = int(cands.total[0])
+    combo = cands.combo[:M] if tags else None
+    out = typed_rows_torch(dec[:, :M], cands.field[:M], cands.start[:M], T, TT, E, combo,
+                           n_combo)
+    rows, row_tags = out if tags else (out, None)
+    if rows.shape[0] != n_rows or int(row_offsets[-2]) != n_rows:
+        raise ValueError(f"{rows.shape[0]} rows decided, offsets give {n_rows}")
+    return rows, row_tags
+
+
+def typed_emit(dec, row_offsets, cands: TypedCands, T: DpTables, TT: TypedTables, E: int,
+               n_combo: int, n_rows: int, tags: bool = False):
+    """(rows, tags or None) of :func:`typed_emit_torch`. CPU tensors run the
+    plain version; CUDA tensors launch ``typed_emit_kernel``, a block per
+    tile of candidates, where there is a row to place."""
+    from . import packed_bitap as pb
+
+    if dec.device.type == "cpu":
+        return typed_emit_torch(dec, row_offsets, cands, T, TT, E, n_combo, n_rows, tags)
+    dev = dec.device
+    rows = torch.empty((n_rows, 5), dtype=torch.int32, device=dev)
+    row_tags = torch.empty(n_rows, dtype=torch.int32, device=dev) if tags else None
+    if n_rows == 0:
+        return rows, row_tags
+    kern = _typed_kernels()
+    with pb.on_device(dev):
+        rc = kern.lib.fac_typed_emit(
+            cands.field.data_ptr(), cands.start.data_ptr(), cands.combo.data_ptr(),
+            cands.total.data_ptr(), cands.items, T.depth.data_ptr(), T.node.data_ptr(),
+            T.out_list.data_ptr(), T.out_list.shape[1], E, n_combo, TT.graph.data_ptr(),
+            dec.data_ptr(), row_offsets.data_ptr(), _typed_tiles(cands.items), rows.data_ptr(),
+            None if row_tags is None else row_tags.data_ptr(),
+            pb.stream_of(dev))
+    kern.check(rc, "typed_emit")
+    pb.LAUNCHES["typed_emit"] += 1
+    return rows, row_tags
+
+
+def dp_pipeline_counts(pos, words, window: DpWindow, ids, limit, T: DpTables,
+                       pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
+                       variant: DpVariant = FAST, h0: int = 0) -> tuple:
+    """The counts :func:`dp_pipeline` hands ``block_offsets``, on CUDA tensors
+    with at least one hit: the count-channel step's per-block counts, or the
+    typed step's expansion counts and row counts."""
+    _check_pipeline(pos, words, ids, T, E, deadend, statics, variant, h0)
+    if ids.device.type != "cuda" or pos.numel() - h0 <= 0:
         raise ValueError("the count pass runs on CUDA tensors with at least one hit")
-    return passed[1]
+    if variant.typed is not None:
+        cands = typed_expand(pos, words, window, E, statics, h0)
+        _dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, variant.typed)
+        return cands.block_counts, row_counts
+    return (_count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics,
+                        variant, h0)[1],)
+
+
+def _typed_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
+                    pens: DpPenalties, thr, E: int, statics: tuple, TT: TypedTables,
+                    h0: int, tags: bool):
+    """The typed step of :func:`dp_pipeline` on any device: the candidate
+    list, its DP and decisions, the scan of the row counts, one read of the
+    two totals, the emission."""
+    from . import packed_bitap as pb
+
+    cands = typed_expand(pos, words, window, E, statics, h0)
+    dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, TT)
+    offsets = pb.block_offsets(row_counts)
+    # The rows' total ends the channels' counts, the candidates' total
+    # follows it: one read of two values.
+    n_rows, n_all = offsets[row_counts.numel() - 1:].tolist()
+    rows, row_tags = typed_emit(dec, offsets, cands, T, TT, E, _combos(E, *statics).shape[1],
+                                n_rows, tags)
+    return (rows, n_all - n_rows) + ((row_tags,) if tags else ())
 
 
 def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
@@ -1510,21 +1732,28 @@ def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
     the hits from ``h0`` on are expanded (see :func:`expand_candidates`);
     ``statics`` the (BITS, P2F, DEPTHS) of :func:`expand_candidates`;
     ``variant`` the DP the lane runs; rows as :func:`emit_rows` orders them.
-    CPU tensors run :func:`dp_pipeline_torch`; CUDA tensors launch
-    ``dp_pipeline_kernel`` (``dp_pipeline_typed_kernel`` for a typed
-    variant) twice, a count pass and a write pass with
-    ``block_offsets_kernel`` between them, and read the two totals back."""
+
+    The count-channel variants: CPU tensors run :func:`dp_pipeline_torch`;
+    CUDA tensors launch ``dp_pipeline_kernel`` twice, a count pass and a
+    write pass with ``block_offsets_kernel`` between them, and read the two
+    totals back. The typed variant runs :func:`typed_expand`,
+    :func:`typed_dp`, ``block_offsets`` and :func:`typed_emit` (each its
+    plain version on CPU tensors), so each candidate's DP runs once."""
     from . import packed_bitap as pb
 
-    passed = _count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics,
-                         variant, h0)
-    if passed is None:
-        if ids.device.type == "cpu":
-            return dp_pipeline_torch(pos, words, window, ids, limit, T, pens, thr, E,
-                                     deadend, statics, variant, h0, tags)
-        empty = torch.zeros((0, 5), dtype=torch.int32, device=ids.device)
-        return (empty, 0) + ((empty[:, 0],) if tags else ())
-    launch, counts, nch, nunits = passed
+    _check_pipeline(pos, words, ids, T, E, deadend, statics, variant, h0)
+    empty = pos.numel() - h0 <= 0 or _combos(E, *statics).shape[1] == 0
+    if variant.typed is not None and not empty:
+        return _typed_pipeline(pos, words, window, ids, limit, T, pens, thr, E, statics,
+                               variant.typed, h0, tags)
+    if ids.device.type == "cpu":
+        return dp_pipeline_torch(pos, words, window, ids, limit, T, pens, thr, E,
+                                 deadend, statics, variant, h0, tags)
+    if empty:
+        rows = torch.zeros((0, 5), dtype=torch.int32, device=ids.device)
+        return (rows, 0) + ((rows[:, 0],) if tags else ())
+    launch, counts, nch, nunits = _count_pass(pos, words, window, ids, limit, T, pens, thr, E,
+                                              deadend, statics, variant, h0)
     offsets = pb.block_offsets(counts)
     # The rows' total ends the last channel's counts, the grand total (rows
     # and candidates) the array: one strided read of two values.
@@ -1819,7 +2048,7 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int,
     run = dp_inputs(engine, haystack, plan, view, n, typed, maps, forbid)
     row_parts = []
     sum_h = sum_c = 0
-    max_hits = pipeline_max_hits(plan.n_combo, run.T.out_list.shape[1], E, typed is not None)
+    max_hits = pipeline_max_hits(plan.n_combo, run.T.out_list.shape[1], E)
     for part in run.parts:
         count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo)
         rows, n_cand = dp_pipeline_ranges(

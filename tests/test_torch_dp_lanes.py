@@ -327,6 +327,149 @@ def test_emit_rows_typed_equal_to_jax(name):
 
 
 # ---------------------------------------------------------------------------
+# (b') the typed step's pieces: expansion, DP with decisions, emission
+# ---------------------------------------------------------------------------
+
+#: name -> (limits, patterns (a function of Limits, Pattern), haystack,
+#: threshold, channels, limits classes). Engines of 2, 5, 14 and 55 channels;
+#: ``five-three-classes`` has an exact-only and a substitutions(1) pattern
+#: beside edits(1).
+TYPED_STEP = {
+    "two": (lambda L: L.new().substitutions(1), lambda L, P: ["needle", "pattern"],
+            _variants(["needle", "needlz", "nedle", "pXttern", "pattern"], 60), 0.7, 2, 1),
+    "five-three-classes": (
+        lambda L: L.new().edits(1),
+        lambda L, P: [P.of(("strict", 1.0, 0)), P.of("needle").fuzzy(L.new().substitutions(1)),
+                      "pattern"],
+        _variants(["strict", "strlct", "needle", "nedle", "needlz", "patern", "pattern"], 70),
+        0.55, 5, 3),
+    "fourteen": (lambda L: L.new().edits(2).substitutions(1), lambda L, P: ["nedle", "patrn"],
+                 CONFIGS["typed-total-sub-cap"][2], 0.5, 14, 1),
+    "fifty-five": (lambda L: L.new().edits(4).substitutions(1),
+                   lambda L, P: ["needles", "patterns"],
+                   _variants(["needles", "nedles", "needlesxx", "ptterns", "patterns"], 30),
+                   0.4, 55, 1),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _typed_step_case(name):
+    limits, patterns, hay, thr, nch, nlc = TYPED_STEP[name]
+    port_e = (FuzzyAhoCorasickBuilder.new().fuzzy(limits(FuzzyLimits)).case_insensitive(True)
+              .device("cpu").build(patterns(FuzzyLimits, Pattern)))
+    view = view_of(hay, True)
+    spec = tvd.typed_spec_of(port_e)
+    assert spec is not None and tvd.lane_specs_of(port_e)[0] is spec
+    plan = tvd.dp_plan(port_e, thr, len(view), typed=spec)
+    run = tvd.dp_inputs(port_e, hay, plan, view, len(view), typed=spec)
+    TT = run.variant.typed
+    assert (TT.nch, TT.adm.shape[0]) == (nch, nlc)
+    part = run.parts[0]
+    _count, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    assert pos.numel() > 4
+    window = tvd.DpWindow(part.lo, part.hi, part.local_n)
+    return port_e, hay, thr, plan, run, part, pos, words, window
+
+
+@pytest.mark.parametrize("name", list(TYPED_STEP))
+def test_typed_step_pieces_equal_to_plain_and_jax(name):
+    """``typed_expand`` (the candidate list), ``typed_dp`` (decisions and
+    per-tile row counts) and ``typed_emit`` (rows and tags), each its plain
+    version on CPU tensors, bit for bit against ``dp_pipeline_torch`` and,
+    on the same candidates and penalties, the JAX ``_emit_rows_typed``; u8
+    and int32 ids; the whole step with a first hit ``h0`` and tags."""
+    port_e, hay, thr, plan, run, part, pos, words, window = _typed_step_case(name)
+    TT, E, T = run.variant.typed, plan.E, run.T
+    MO = T.out_list.shape[1]
+    nce = (2 * E + 1) * MO
+    n_combo = tvd._combos(E, *run.statics).shape[1]
+    for ids in (part.ids_de, part.ids_de.int()):
+        cands = tvd.typed_expand(pos, words, window, E, run.statics)
+        cf, cs, cc = tvd.expand_candidates(pos, words, *window, E, *run.statics, combos=True)
+        M = cf.numel()
+        assert int(cands.total[0]) == M > 4 and cands.items == pos.numel() * n_combo
+        assert all(torch.equal(a[:M], b) for a, b in zip(cands[:3], (cf, cs, cc)))
+        dec, row_counts = tvd.typed_dp(cands, ids, part.local_n, T, run.pens, thr, E, TT)
+        ntile = -(-cands.items // tvd.TYPED_TILE)
+        assert dec.shape == (nce, cands.items, 2) and row_counts.shape == (nce * ntile + 1,)
+        assert int(row_counts[-1]) == M and (dec[:, M:, 1] == -1).all()
+        pen = tvd.banded_dp_typed_torch(cf, cs, ids, part.local_n, T, run.pens, E, TT)
+        live = dec[:, :M]
+        assert torch.equal(live, tvd.typed_decisions_torch(pen, cf, cs, T, TT, part.local_n, thr,
+                                                           E))
+        per_tile = torch.zeros((nce, ntile * tvd.TYPED_TILE), dtype=torch.int64)
+        per_tile[:, :M] = (live[..., 1] >= 0).long()
+        assert torch.equal(row_counts[:-1].long(),
+                           per_tile.reshape(nce, ntile, -1).sum(2).reshape(-1))
+        offsets = tpb.block_offsets(row_counts)
+        n_rows = int(offsets[-2])
+        rows, tags = tvd.typed_emit(dec, offsets, cands, T, TT, E, n_combo, n_rows, tags=True)
+        want_rows, want_n, want_tags = tvd.dp_pipeline_torch(
+            pos, words, window, ids, part.local_n, T, run.pens, thr, E, False, run.statics,
+            run.variant, tags=True)
+        assert torch.equal(rows, want_rows) and torch.equal(tags, want_tags) and want_n == M
+        assert n_rows > 4
+        # The rows' channels are the winning channels' (packed counts).
+        assert set(rows[:, 4].tolist()) <= set(TT.graph[:, 9].tolist())
+        # The JAX emission on the same candidates and penalties.
+        spec = tvd.typed_spec_of(port_e)
+        KG = 1 << 14
+        total, packed = _jax_emit_typed(
+            jnp.asarray(pen.numpy()), jnp.asarray(cf.numpy()), jnp.asarray(cs.numpy()),
+            plan.vf.depth, plan.vf.node, port_e.dense.out_list, port_e.dense.pat_len,
+            port_e.dense.pat_weight, spec.limcls, np.int32(part.local_n), np.float32(thr),
+            E=E, MO=port_e.dense.max_out, CAND=M, KG=KG,
+            TYPED_EMIT=(spec.vecs, spec.cnts, spec.adm))
+        assert int(total) == n_rows < KG
+        assert np.array_equal(_unpack_jax_rows(np.asarray(packed)[:n_rows]),
+                              rows.numpy().astype(np.int64))
+    # The whole step with a first hit and tags (a range of a longer list),
+    # as dp_pipeline runs it on CPU tensors.
+    h0 = 2
+    args = (window, part.ids_de, part.local_n, T, run.pens, thr, E, False, run.statics,
+            run.variant)
+    got = tvd.dp_pipeline(pos[h0 - 1:], words[h0 - 1:], *args, h0=1, tags=True)
+    want = tvd.dp_pipeline_torch(pos[h0 - 1:], words[h0 - 1:], *args, h0=1, tags=True)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1] and torch.equal(got[2], want[2])
+
+
+def _unpack_jax_rows(packed):
+    """The JAX typed rows (span, pattern and 3-bit counts packed in one
+    word) as the port's five columns."""
+    packed = packed.astype(np.int64)
+    col2 = packed[:, 2]
+    c12 = col2 & 0xFFF
+    counts = (c12 & 7) | ((c12 >> 3) & 7) << 8 | ((c12 >> 6) & 7) << 16 | ((c12 >> 9) & 7) << 24
+    return np.stack([packed[:, 0], packed[:, 1], col2 >> 24, (col2 >> 12) & 0xFFF, counts], axis=1)
+
+
+def test_typed_step_tied_threshold_and_no_hits():
+    """The typed step at a threshold that a match's similarity ties, and on
+    a slice without hits: rows equal ``dp_pipeline_torch``'s."""
+    port_e, hay, thr, plan, run, part, pos, words, window = _typed_step_case(
+        "five-three-classes")
+    sims = {np.float32(m.similarity) for m in port_e.search_raw(hay, thr) if m.similarity < 1}
+    tie = float(min(sims))
+    args = (window, part.ids_de, part.local_n, run.T, run.pens, np.float32(tie), plan.E, False,
+            run.statics, run.variant)
+    got, n_got = tvd.dp_pipeline(pos, words, *args)
+    want, n_want = tvd.dp_pipeline_torch(pos, words, *args)
+    assert torch.equal(got, want) and n_got == n_want
+    tie_bits = np.float32(tie).view(np.int32)
+    pats = got[:, 3].numpy()
+    pl = port_e.dense.pat_len[pats]
+    sims_got = ((pl - got[:, 1].numpy().view(np.float32)) / pl) * port_e.dense.pat_weight[pats]
+    assert (sims_got.astype(np.float32).view(np.int32) == tie_bits).any()
+    empty_pos = pos[:0]
+    rows, n = tvd.dp_pipeline(empty_pos, words[:0], *args)
+    assert rows.shape == (0, 5) and n == 0
+    # A hit list whose hits expand to no candidate.
+    far = tvd.DpWindow(0, 1, 1)
+    rows, n = tvd.dp_pipeline(pos, words, far, *args[1:])
+    assert rows.shape == (0, 5) and n == 0
+
+
+# ---------------------------------------------------------------------------
 # The numpy -> torch table functions and the wrappers' checks
 # ---------------------------------------------------------------------------
 
@@ -628,15 +771,20 @@ def test_similarity_tying_the_threshold_on_a_typed_engine():
 
 
 def test_typed_lane_declines_past_its_count_bytes(monkeypatch):
-    """The typed kernel counts per warp of ``TYPED_UNIT`` items, so the bytes
-    of its counts bound the hits one call takes. Past them the lane no longer
-    declines: it runs the hit list in ranges that fit, and serves the same
+    """The typed step keeps one decision per (candidate, emission channel)
+    and counts its rows per tile of candidates, so nothing of it grows with
+    a per-warp unit: its hit bound is the count-channel lanes' int32 bound,
+    ``pipeline_max_hits`` with the same arguments. Past the bound the lane
+    does not decline: it runs the hit list in ranges and serves the same
     matches on the device."""
     for n_c, MO, E in ((48, 1, 1), (48, 16, 1), (600, 40, 3), (1, 1, 1)):
-        most = tvd.pipeline_max_hits(n_c, MO, E, typed=True)
-        assert most <= tvd.pipeline_max_hits(n_c, MO, E)
-        assert 4 * tvd._typed_count_entries(most * n_c, (2 * E + 1) * MO) <= tvd.TYPED_COUNT_BYTES
-    assert tvd.pipeline_max_hits(48, 1, 1, typed=True) < tvd.pipeline_max_hits(48, 1, 1)
+        most = tvd.pipeline_max_hits(n_c, MO, E)
+        nce = (2 * E + 1) * MO
+        # candidates and rows, the decisions and the row counts stay in int32
+        assert most * n_c * (nce + 1) < 1 << 31
+        assert most * n_c * nce + -(-most * n_c // tvd.TYPED_TILE) * nce < 1 << 31
+        assert (most + 1) * n_c * (nce + 1) >= 1 << 31
+    assert not hasattr(tvd, "TYPED_COUNT_BYTES") and not hasattr(tvd, "TYPED_UNIT")
     _jax_t, typed_e = _pair("typed-ins-del")
     hay = CONFIGS["typed-ins-del"][2][:600]
     view = view_of(hay, True)
@@ -645,17 +793,19 @@ def test_typed_lane_declines_past_its_count_bytes(monkeypatch):
     stats = dict(typed_e.last_stats)
     assert stats["backend"] == "device-fuzzy-dp-typed" and stats["hits"] > 1
     plan = tvd.dp_plan(typed_e, 0.55, len(view), typed=spec)
-    channels = 2 * plan.E + 1  # one output slot per node
-    # Room for one hit fewer than the scan finds in the one slice.
-    monkeypatch.setattr(tvd, "TYPED_COUNT_BYTES", 4 * tvd._typed_count_entries(
-        (stats["hits"] - 1) * plan.n_combo, channels))
-    assert tvd.pipeline_max_hits(plan.n_combo, 1, plan.E, typed=True) < stats["hits"]
-    ranged = _tuples(tvd.fuzzy_search_dp(typed_e, hay, 0.55, view, len(view), typed=spec))
-    assert ranged == served and typed_e.last_stats == stats and len(served) > 0
-    # The count-channel lanes are not bound by it.
+    # The lane asks for the count-channel lanes' bound, as the forbid lane does.
+    asked, real = [], tvd.pipeline_max_hits
+    monkeypatch.setattr(tvd, "pipeline_max_hits", lambda *a, **k: asked.append((a, k)) or real(*a))
+    assert _tuples(typed_e.search_raw(hay, 0.55)) == served
+    assert asked == [((plan.n_combo, typed_e.dense.max_out, plan.E), {})]
     _jax_f, forbid_e = _pair("forbid-swaps")
     assert len(forbid_e.search_raw(CONFIGS["forbid-swaps"][2], CONFIGS["forbid-swaps"][3][0])) > 0
     assert forbid_e.last_stats["backend"] == "device-fuzzy-dp-forbid"
+    assert len(asked) == 2 and len(asked[1][0]) == 3 and asked[1][1] == {}
+    # Room for one hit fewer than the scan finds in the one slice: ranges.
+    monkeypatch.setattr(tvd, "pipeline_max_hits", lambda *a, **k: stats["hits"] - 1)
+    ranged = _tuples(tvd.fuzzy_search_dp(typed_e, hay, 0.55, view, len(view), typed=spec))
+    assert ranged == served and typed_e.last_stats == stats and len(served) > 0
 
 
 @pytest.mark.parametrize("name", ["forbid-swaps", "mapped-eszett", "typed-ins-del",

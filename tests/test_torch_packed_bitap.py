@@ -136,3 +136,36 @@ def test_wrappers_refuse_unknown_devices_and_shapes():
     before = dict(tpb.LAUNCHES)
     tpb.packed_hits(t, T, halo)
     assert tpb.LAUNCHES == before  # CPU tensors run the plain versions
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 1023, 1024, 1025, tpb.OFFSETS_TILE - 1, tpb.OFFSETS_TILE,
+                               tpb.OFFSETS_TILE + 1])
+def test_block_offsets_equal_to_an_exclusive_scan(n):
+    """``block_offsets`` (its plain version, on CPU tensors) is the int32
+    exclusive scan of the counts with the total last, at lengths around the
+    kernel's warp, block and tile edges."""
+    counts = np.random.default_rng(n).integers(0, 60, size=n).astype(np.int32)
+    before = dict(tpb.LAUNCHES)
+    got = tpb.block_offsets(torch.from_numpy(counts))
+    assert tpb.LAUNCHES == before  # no launch counted for the plain version
+    assert got.dtype == torch.int32 and got.shape == (n + 1,)
+    assert got.tolist() == [0] + np.cumsum(counts, dtype=np.int64).tolist()
+
+
+def test_block_offsets_checks_its_counts():
+    """One count, all zeros, a total just under 2^31; an empty array, other
+    dtypes, shapes and devices raise."""
+    assert tpb.block_offsets(torch.tensor([7], dtype=torch.int32)).tolist() == [0, 7]
+    assert not tpb.block_offsets(torch.zeros(40000, dtype=torch.int32)).any()
+    big = torch.full((3,), (1 << 31) // 3 - 1, dtype=torch.int32)
+    assert tpb.block_offsets(big)[-1] == 3 * ((1 << 31) // 3 - 1) < 1 << 31
+    with pytest.raises(ValueError, match="empty"):
+        tpb.block_offsets(torch.zeros(0, dtype=torch.int32))
+    with pytest.raises(ValueError, match="int32"):
+        tpb.block_offsets(torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError, match="int32"):
+        tpb.block_offsets(torch.zeros((2, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="int32"):
+        tpb.block_offsets(torch.zeros(8, dtype=torch.int32)[::2])
+    with pytest.raises(ValueError, match="no scan kernel"):
+        tpb.block_offsets(torch.zeros(4, dtype=torch.int32, device="meta"))
