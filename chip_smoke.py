@@ -7,7 +7,7 @@ entry points a user calls (build an engine, ``search_raw``), and checks every
 CUDA kernel they run against its plain torch version. Phases:
 
 1. card: ``nvidia-smi`` name and power limit, CUDA version, device name;
-2. build: compile the six sources of ``csrc/`` with nvcc (sm_90a, one
+2. build: compile the seven sources of ``csrc/`` with nvcc (sm_90a, one
    process per source, in parallel) from the checkout; report build seconds
    and ptxas registers / spills;
 3. kernel vs plain on the card, bit for bit. The hit-list scan's three
@@ -45,9 +45,12 @@ CUDA kernel they run against its plain torch version. Phases:
    ``hit_words_wide``) at W = 9, 31, 32, 64 limbs, alphabets of 27 and 128
    symbols, k = 0, 1 (Damerau), 2, 4 (Damerau) on streams of 50,013
    symbols; per chunk of the folded and the plain layout, over 1 MiB of the
-   many1k corpus, over 3-letter words (no containment test) and over filler
-   only, ``many_expand`` with and without the containment test, ``dp_list``
-   on the lane's own candidates and the whole step (``many_pipeline``);
+   many1k corpus, over 3-letter words (no containment test), over filler
+   only (hits without candidates) and with 300 many1k words at
+   ``edits(2)``, the chunk step ``many_step`` (expansion, DP and emission in
+   one kernel) with and without the containment test and the whole chunk
+   (``many_pipeline``), and on the first chunk the step on a range handed
+   its preceding hit (h0 = 1) and the chunk in 3 ranges;
 4. exact main path: the headline 16-word case-insensitive dictionary
    searched exact (threshold 0.5) over a 96 MiB seeded corpus, two warm-up
    searches then three timed ones, the plain versions locked out; the match
@@ -83,7 +86,7 @@ CUDA kernel they run against its plain torch version. Phases:
    planted typos), through ``search_raw`` with the folded layout and then
    with the plain chunking (the lane's fold switch off), each timed as 4c-4e
    with the plain versions and the oracle locked out, launching the wide
-   scan, ``block_offsets``, ``many_expand`` and ``dp_list`` and no other
+   scan, ``block_offsets``, ``hit_words_wide`` and ``many_step`` and no other
    kernel, and equal to the context oracle (one oracle search per distinct
    word context of the 24 MiB, begun in phase 3); launches, copies and waits
    per search, the stages, and per chunk its hits, pairs, candidates and
@@ -122,7 +125,10 @@ CUDA kernel they run against its plain torch version. Phases:
    its instruction rate), their agreement there, and the scan at each chunk
    length it takes on streams around the lengths where the wrapper's pick
    switches; the large-dictionary lane's kernels at the folded many1k
-   chunk over 24 MiB, the wide scan held against its plain version there;
+   chunk over 24 MiB, every chunk of the folded and the plain layout there
+   held against its plain version (the step with the containment test on
+   and off, and the folded chunk in hit ranges), and the step's count and
+   write passes' device times from the profiler;
    the wide scan's kernels at k = 0 at exact-wide's shape against their
    plain versions; slice 1's hit list of the fuzzy and the typed lane run
    by the pipeline kernels in 3 ranges (each handed its preceding hit, the
@@ -487,8 +493,8 @@ def ptxas_summary(log_text: str):
     kernels at k=0 and at k=1 with Damerau rows, the offsets scan, every
     banded DP instantiation, the u8 pipeline ones, the typed
     kernels,
-    the wide scan and hit-list kernels at k=1, the expansion and the DP over
-    a list at E=1;
+    the wide scan and hit-list kernels at k=1, the many lane's step at E=1
+    and E=2;
     number of instantiations, number of them with spills, max registers)."""
     import re
 
@@ -507,18 +513,16 @@ def ptxas_summary(log_text: str):
         dp = re.search(r"(banded_dp|dp_pipeline)_kernelILi(\d)ELb([01])ELb([01])E([hi])", name)
         scan = re.search(r"(scan_bits|hit_words)_kernelILi3ELi([01])ELb([01])E(?:Li(\d+)E)?", name)
         wide = re.search(r"(scan_bits|hit_words)_wide_kernelILi(\d)ELi(\d+)ELi(\d)ELb([01])E", name)
-        dp_list = re.search(r"dp_list_kernelILi(\d)ELb([01])E", name)
+        step = re.search(r"many_step_kernelILi(\d)ELb([01])E", name)
         if wide:
             if wide.group(4) != "1":
                 continue
             label = (f"{wide.group(1)}_wide<LPL={wide.group(2)},G={wide.group(3)},"
                      f"K={wide.group(4)},Damerau={wide.group(5)}>")
-        elif dp_list:
-            if dp_list.group(1) != "1":
+        elif step:
+            if step.group(1) not in ("1", "2"):
                 continue
-            label = f"dp_list<E={dp_list.group(1)},deadend={dp_list.group(2)}>"
-        elif "many_expand_kernel" in name:
-            label = "many_expand"
+            label = f"many_step<E={step.group(1)},deadend={step.group(2)}>"
         elif dp and (dp.group(1) == "banded_dp" or dp.group(5) == "h"):
             label = (f"{dp.group(1)}<E={dp.group(2)},deadend={dp.group(3)},maps={dp.group(4)},"
                      f"{'u8' if dp.group(5) == 'h' else 'int32'}>")
@@ -1261,17 +1265,17 @@ def many_kernel_checks(ctx, many_text: str):
     """Phase 3 for the large-dictionary lane, bit for bit against the plain
     versions: the wide scan's kernels at W in {9, 31, 32, 64} x k in {0,
     1 Damerau, 2, 4 Damerau} on streams of 50,013 symbols; and per chunk of
-    the folded and the plain layout, over 1 MiB of the many1k corpus and over
-    a text of 3-letter words (rows shallower than the containment test's 4
-    classes), ``many_expand`` with and without the dense ids (the
-    containment test), ``dp_list`` on the lane's own candidates and the whole
-    step (``many_pipeline``), and on the first chunk the step over hit ranges
+    the folded and the plain layout, over 1 MiB of the many1k corpus, over a
+    text of 3-letter words (rows shallower than the containment test's 4
+    classes), over filler only (hits, no candidate) and, with the first 300
+    many1k words at ``edits(2)``, over the same 1 MiB, ``many_step`` with and
+    without the containment test and the whole chunk (``many_pipeline``),
+    and on the first chunk the step over hit ranges
     (``compare_many_ranges``). Returns {kernel: max_abs_err}, as measured."""
     torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
-    errs = dict.fromkeys(("scan_bits_wide", "block_offsets", "hit_words_wide", "many_expand",
-                          "dp_list"), 0)
+    errs = dict.fromkeys(("scan_bits_wide", "block_offsets", "hit_words_wide", "many_step"), 0)
     for W, A in ((9, 128), (31, 27), (32, 27), (64, 128)):
         for k, dam in ((0, False), (1, True), (2, False), (4, True)):
             T, words, halo = wide_tables(tpb, W, k, dam, A, SEED + W + k, ctx.dev)
@@ -1287,10 +1291,12 @@ def many_kernel_checks(ctx, many_text: str):
                                                 np.random.default_rng(SEED).integers(
                                                     len(short), size=8000)))
     many_e = recipe_engine(ctx, "many1k")
+    e2 = make_engine(ctx, many_words(1000, 7)[:300], ctx.Limits.new().edits(2))
     cases = (("many1k, 1 MiB", many_e, many_text[: 1 << 20], MANY_THRESHOLD),
              ("3-letter words", make_engine(ctx, short, ctx.Limits.new().edits(1)), short_text,
               0.6),
-             ("many1k, filler only", many_e, "lorem ipsum dolor " * 20000, MANY_THRESHOLD))
+             ("many1k, filler only", many_e, "lorem ipsum dolor " * 20000, MANY_THRESHOLD),
+             ("300 many1k words, edits(2), 1 MiB", e2, many_text[: 1 << 20], 0.75))
     ranges_done = False
     for what, eng, text, thr in cases:
         for fold in (True, False):
@@ -1301,14 +1307,15 @@ def many_kernel_checks(ctx, many_text: str):
             view = view_of(text, True)
             n = len(view)
             run = many.many_inputs(eng, spec, text, thr, view, n)
+            if what.startswith("300"):
+                require(run.E == 2, f"{what}: E = {run.E}")
             for ci, chunk in enumerate(run.chunks):
                 e = compare_many_chunk(ctx, run, chunk, n, thr,
                                        f"{what}, {'folded' if fold else 'plain'} chunk {ci + 1} of "
-                                       f"{len(run.chunks)}", without_ids=True)
-                for key in e:
-                    errs[key] = max(errs[key], e[key])
+                                       f"{len(run.chunks)}", no_containment=True)
+                errs["many_step"] = max(errs["many_step"], e)
                 if not ranges_done:
-                    errs["many_expand"] = max(errs["many_expand"], compare_many_ranges(
+                    errs["many_step"] = max(errs["many_step"], compare_many_ranges(
                         ctx, run, chunk, n, thr, f"{what}, {'folded' if fold else 'plain'}"))
                     ranges_done = True
     return errs
@@ -1324,66 +1331,64 @@ def int_err(a, b) -> float:
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
 
-def compare_many_chunk(ctx, run, chunk, n: int, thr: float, what: str, without_ids=False):
-    """``many_expand``, ``dp_list`` and the whole chunk step
-    (``many_pipeline``) against their plain versions on one chunk of the
-    many lane's ``run``, each kernel fed its plain version's inputs, bit for
-    bit; ``without_ids`` also expands without the dense ids (no containment
-    test). Returns {kernel: max_abs_err}."""
+def compare_many_chunk(ctx, run, chunk, n: int, thr: float, what: str,
+                       no_containment=False) -> float:
+    """``many_step`` and the whole chunk (``many_pipeline``) against their
+    plain versions on one chunk of the many lane's ``run``, bit for bit
+    (rows, pairs, candidates); ``no_containment`` also runs the step without
+    the containment test. Returns the max_abs_err."""
     torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
     hits, pos, words = tpb.packed_hits(run.ids_pf, chunk.T_scan, run.halo)
-    window = vdp.DpWindow(0, n, n)
-    err_x, counts = 0.0, []
-    for ids in ((run.ids_de, None) if without_ids else (run.ids_de,)):
-        got = many.many_expand(pos, words, window, run.E, chunk.X, ids, run.k)
-        want = many.expand_candidates_sparse(pos, words, window, run.E, chunk.X, ids, run.k)
+    args = (vdp.DpWindow(0, n, n), run.ids_de, n, run.T, run.pens, np.float32(thr), run.E,
+            run.deadend, chunk.X, run.k)
+    err, counts = 0.0, []
+    for contain in ((True, False) if no_containment else (True,)):
+        got = many.many_step(pos, words, *args, contain=contain)
+        want = many.many_step_torch(pos, words, *args, contain=contain)
         torch.cuda.synchronize()
-        err_x = max([err_x] + [int_err(g, w) for g, w in zip(got, want)])
-        counts.append((want[0], want[1].numel()))
-        if ids is not None:
-            cf, cs = want[1], want[2]
-    dp_args = (cf, cs, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E, run.deadend)
-    rows_k, rows_p = many.dp_list(*dp_args), many.dp_list_torch(*dp_args)
+        err = max([err] + [int_err(g, w) for g, w in zip(got, want)])
+        counts.append((want[1], want[2], want[0].shape[0]))
+    # The whole chunk, past the folded layout's hit ceiling too.
     step_args = (run.ids_pf, run.ids_de, n, chunk, run.halo, run.T, run.pens, np.float32(thr),
-                 run.E, run.deadend, run.hit_ceil)
+                 run.E, run.deadend, None)
     step_k, step_p = many.many_pipeline(*step_args), many.many_pipeline_torch(*step_args)
     torch.cuda.synchronize()
-    err_dp = int_err(rows_k, rows_p)
     err_step = max(int_err(g, w) for g, w in zip(step_k, step_p))
     log(f"  {what}: W={chunk.T_scan.W} R={chunk.X.R} rd={chunk.X.rd_min}..{chunk.X.rd_max} "
-        f"k={run.k} damerau={run.dam} hits={hits}; many_expand (pairs, candidates) with the dense "
-        f"ids {counts[0]}" + (f", without {counts[1]}" if without_ids else "")
-        + f", max_abs_err {err_x}; dp_list {rows_p.shape[0]} rows, max_abs_err {err_dp}; "
-        f"many_pipeline {tuple(step_p[1:])} with {step_p.rows.shape[0]} rows, max_abs_err "
-        f"{err_step}")
-    require(err_x == 0.0, f"{what}: many_expand disagrees with its plain version")
-    require(err_dp == 0.0, f"{what}: dp_list disagrees with dp_list_torch")
+        f"E={run.E} k={run.k} damerau={run.dam} deadend={run.deadend} hits={hits}; many_step "
+        f"(pairs, candidates, rows) with the containment test {counts[0]}"
+        + (f", without {counts[1]}" if no_containment else "")
+        + f", max_abs_err {err}; many_pipeline {tuple(step_p[1:])} with "
+        f"{step_p.rows.shape[0]} rows, max_abs_err {err_step}")
+    require(err == 0.0, f"{what}: many_step disagrees with many_step_torch")
     require(err_step == 0.0, f"{what}: many_pipeline disagrees with many_pipeline_torch")
-    return {"many_expand": err_x, "dp_list": err_dp}
+    return max(err, err_step)
 
 
 def compare_many_ranges(ctx, run, chunk, n: int, thr: float, what: str) -> float:
     """The chunk step over ranges of its hit list (the form it takes past
-    ``many_max_hits``): ``many_expand`` over the second half of the hits,
-    handed its preceding hit, against its plain version; both halves'
-    candidates together against one call's, as multisets; and
-    ``many_pipeline`` in ranges of a third of the hits against its plain
-    version in the same ranges (bit for bit) and against itself in one range
-    (counts equal, rows as multisets). Returns the expansion's max_abs_err."""
+    ``many_max_hits``): ``many_step`` over the second half of the hits,
+    handed its preceding hit (h0 = 1), against its plain version bit for bit;
+    both halves' rows together against one call's, as multisets, and their
+    pairs and candidates summed; and ``many_pipeline`` in ranges of a third
+    of the hits against its plain version in the same ranges (bit for bit)
+    and against itself in one range (counts equal, rows as multisets).
+    Returns the max_abs_err."""
     torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
     hits, pos, words = tpb.packed_hits(run.ids_pf, chunk.T_scan, run.halo)
     require(hits >= 6, f"{what}: too few hits to cut into ranges")
-    window = vdp.DpWindow(0, n, n)
     a = hits // 2
-    x_args = (window, run.E, chunk.X, run.ids_de, run.k)
-    got = many.many_expand(pos[a - 1:], words[a - 1:], *x_args, 1)
-    want = many.expand_candidates_sparse(pos[a - 1:], words[a - 1:], *x_args, 1)
-    first = many.many_expand(pos[:a], words[:a], *x_args)
-    whole = many.many_expand(pos, words, *x_args)
+    args = (vdp.DpWindow(0, n, n), run.ids_de, n, run.T, run.pens, np.float32(thr), run.E,
+            run.deadend, chunk.X, run.k)
+    got = many.many_step(pos[a - 1:], words[a - 1:], *args, 1)
+    want = many.many_step_torch(pos[a - 1:], words[a - 1:], *args, 1)
+    first = many.many_step(pos[:a], words[:a], *args)
+    whole = many.many_step(pos, words, *args)
     torch.cuda.synchronize()
     err = max(int_err(g, w) for g, w in zip(got, want))
-    pairs_of = lambda cf, cs: sorted(zip(cf.tolist(), cs.tolist()))
-    halves = pairs_of(torch.cat((first[1], got[1])), torch.cat((first[2], got[2])))
+    rows_of = lambda r: sorted(map(tuple, r.tolist()))
+    halves_equal = (rows_of(torch.cat((first[0], got[0]))) == rows_of(whole[0])
+                    and (first[1] + got[1], first[2] + got[2]) == whole[1:])
     step_args = (run.ids_pf, run.ids_de, n, chunk, run.halo, run.T, run.pens, np.float32(thr),
                  run.E, run.deadend, run.hit_ceil)
     one = many.many_pipeline(*step_args)
@@ -1395,19 +1400,17 @@ def compare_many_ranges(ctx, run, chunk, n: int, thr: float, what: str) -> float
         many.many_max_hits = saved
     torch.cuda.synchronize()
     err_step = max(int_err(g, w) for g, w in zip(step_k, step_p))
-    rows_of = lambda r: sorted(map(tuple, r.tolist()))
-    log(f"  {what}, hit ranges: many_expand over hits {a}..{hits - 1} with hit {a - 1} before "
-        f"them: {want[1].numel()} candidates, max_abs_err {err}; the halves' candidates "
-        f"{'equal' if halves == pairs_of(whole[1], whole[2]) else 'unequal'} to one call's; "
-        f"many_pipeline in 3 ranges {tuple(step_k[1:])}, max_abs_err {err_step} against its "
-        f"plain version, in one range {tuple(one[1:])}")
-    require(err == 0.0, f"{what}: many_expand over a hit range disagrees with its plain version")
-    require(halves == pairs_of(whole[1], whole[2]) and first[0] + got[0] == whole[0],
-            f"{what}: the hit ranges' candidates differ from one call's")
+    log(f"  {what}, hit ranges: many_step over hits {a}..{hits - 1} with hit {a - 1} before "
+        f"them (h0 = 1): {tuple(want[1:])} (pairs, candidates), {want[0].shape[0]} rows, "
+        f"max_abs_err {err}; the halves' rows and counts {'equal' if halves_equal else 'unequal'} "
+        f"to one call's; many_pipeline in 3 ranges {tuple(step_k[1:])}, max_abs_err {err_step} "
+        f"against its plain version, in one range {tuple(one[1:])}")
+    require(err == 0.0, f"{what}: many_step over a hit range disagrees with its plain version")
+    require(halves_equal, f"{what}: the hit ranges' rows differ from one call's")
     require(err_step == 0.0, f"{what}: many_pipeline in ranges disagrees with its plain version")
     require(tuple(step_k[1:]) == tuple(one[1:]) and rows_of(step_k.rows) == rows_of(one.rows),
             f"{what}: many_pipeline in ranges differs from one range")
-    return err
+    return max(err, err_step)
 
 
 def many_stage_breakdown(ctx, engine, text: str, thr: float, fold: bool):
@@ -1417,8 +1420,8 @@ def many_stage_breakdown(ctx, engine, text: str, thr: float, fold: bool):
     from fuzzy_aho_corasick_tpu_torch.ops.emit import decode_matches
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
-    ms = dict.fromkeys(("view, spec, inputs", "packed_hits", "many_expand", "dp_list",
-                        "rows to host", "decode"), 0.0)
+    ms = dict.fromkeys(("view, spec, inputs", "packed_hits", "many_step", "rows to host",
+                        "decode"), 0.0)
 
     def lap(name, t0):
         torch.cuda.synchronize()
@@ -1437,15 +1440,13 @@ def many_stage_breakdown(ctx, engine, text: str, thr: float, fold: bool):
     for chunk in run.chunks:
         hits, pos, words = tpb.packed_hits(run.ids_pf, chunk.T_scan, run.halo, run.hit_ceil)
         t = lap("packed_hits", t)
-        pairs, cf, cs = many.many_expand(pos, words, DpWindow(0, n, n), run.E, chunk.X,
-                                         run.ids_de, run.k)
-        t = lap("many_expand", t)
-        r = many.dp_list(cf, cs, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E,
-                         run.deadend)
-        t = lap("dp_list", t)
+        r, pairs, cands = many.many_step(pos, words, DpWindow(0, n, n), run.ids_de, n, run.T,
+                                         run.pens, np.float32(thr), run.E, run.deadend, chunk.X,
+                                         run.k)
+        t = lap("many_step", t)
         rows.append(r.cpu().numpy())
         t = lap("rows to host", t)
-        per_chunk.append((hits, pairs, cf.numel(), len(rows[-1])))
+        per_chunk.append((hits, pairs, cands, len(rows[-1])))
     r = np.concatenate(rows)
     out = decode_matches(engine, view, text, n, r[:, 0], r[:, 2], r[:, 3],
                          np.ascontiguousarray(r[:, 1]).view(np.float32), r[:, 4], np.float32(thr))
@@ -1464,7 +1465,7 @@ def many_main_path(ctx, tag: str, engine, text: str, thr: float, fold: bool, loc
     t_phase = time.perf_counter()
     saved = many.FOLD
     many.FOLD = fold
-    keys = ("scan_bits_wide", "block_offsets", "hit_words_wide", "many_expand", "dp_list")
+    keys = ("scan_bits_wide", "block_offsets", "hit_words_wide", "many_step")
     try:
         with plain_locked((ctx.oracle, "search_raw")):
             engine.search_raw(text[: 1 << 20], thr)
@@ -1752,17 +1753,19 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
     """Phase 6 for the large-dictionary lane at its main-path shapes (the
     folded layout's one chunk and the plain layout's five over the 24 MiB
     corpus): every kernel of each chunk against its plain version there
-    (``compare_scan``, ``compare_many_chunk``); then, on the folded chunk,
-    CUDA-event ms of each kernel beside its plain version and the bound from
-    these inputs. Returns ({kernel: (ms, plain ms, (bound ms, by), library
-    ms)}, {kernel: max_abs_err})."""
+    (``compare_scan``, ``compare_many_chunk`` with the containment test on
+    and off), and the folded chunk's step over hit ranges
+    (``compare_many_ranges``); then, on the folded chunk, CUDA-event ms of
+    each kernel beside its plain version and the bound from these inputs,
+    and the step's passes' device ms from the profiler. Returns ({kernel:
+    (ms, plain ms, (bound ms, by), library ms)}, {kernel: max_abs_err},
+    {the step's pass times})."""
     torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
     view = view_of(text, True)
     n = len(view)
-    errs = dict.fromkeys(("scan_bits_wide", "block_offsets", "hit_words_wide", "many_expand",
-                          "dp_list"), 0.0)
+    errs = dict.fromkeys(("scan_bits_wide", "block_offsets", "hit_words_wide", "many_step"), 0.0)
     runs = {fold: many.many_inputs(engine, many.many_spec_of(engine, fold=fold), text, thr, view,
                                    n) for fold in (True, False)}
     for fold, run_f in runs.items():
@@ -1773,20 +1776,24 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
             _h, e = compare_scan(tpb, torch, run_f.ids_pf, T, run_f.halo,
                                  f"{what}, W={T.W} k={T.k} damerau={T.damerau}")
             e = dict(zip(("scan_bits_wide", "block_offsets", "hit_words_wide"), e),
-                     **compare_many_chunk(ctx, run_f, chunk, n, thr, what))
+                     many_step=compare_many_chunk(ctx, run_f, chunk, n, thr, what,
+                                                  no_containment=True))
             for key in errs:
                 errs[key] = max(errs[key], e[key])
     run = runs[True]
     chunk = run.chunks[0]
+    errs["many_step"] = max(errs["many_step"], compare_many_ranges(
+        ctx, run, chunk, n, thr, "many1k main-path shape, folded chunk"))
     T, halo, ids = chunk.T_scan, run.halo, run.ids_pf
     bits, counts = tpb.scan_bits(ids, T, halo)
     offs = tpb.block_offsets(counts)
     hits, pos, words = tpb.packed_hits(ids, T, halo)
     window = vdp.DpWindow(0, n, n)
-    pairs, cf, cs = many.many_expand(pos, words, window, run.E, chunk.X, run.ids_de, run.k)
-    rows = many.dp_list(cf, cs, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E,
-                        run.deadend)
     N, X = ids.numel(), chunk.X
+    step_args = (pos, words, window, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E,
+                 run.deadend, X, run.k)
+    rows, pairs, n_cand = many.many_step(*step_args)
+    _p, cf, _cs = many.expand_candidates_sparse(pos, words, window, run.E, X, run.ids_de, run.k)
     instr = scan_instr(T.W, T.k, T.damerau)
     B = 2 * run.E + 1
     wj = 4 + 4 * run.k
@@ -1795,8 +1802,15 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
     tables = sum(t.numel() * t.element_size() for t in (
         run.T.path_cls, run.T.path_node, run.T.depth, run.T.sim, run.T.node_ceil))
     x_tables = sum(t.numel() * t.element_size() for t in (X.field, X.shift, X.depth, X.pc))
-    dp_args = (cf, cs, run.ids_de, n, run.T, run.pens, np.float32(thr), run.E, run.deadend)
-    x_args = (pos, words, window, run.E, X, run.ids_de, run.k)
+    # Reads: the hits' positions and words, the rows of their nonzero
+    # columns, a window per pair, the DP's tables and per candidate its
+    # path and window; writes the rows. Operations: per (pair, row) the bit,
+    # dedup and window tests of each band and the containment compares
+    # (integer), and the DP's cells (float32); the larger of the two binds.
+    step_bytes = (8 * pos.numel() + 8 * words.numel() + x_tables + pairs * wp + tables
+                  + n_cand * (run.T.Lmax + 2 * run.E + 2) + rows.numel() * 4)
+    step_bound = max(bound_ms(step_bytes, pairs * X.R * (8 * B + 4 * wj), INT_RATE),
+                     bound_ms(step_bytes, cells * DP_CELL_INSTR, F32_RATE))
     rec = {
         "scan_bits_wide": (
             event_ms(torch, lambda: tpb.scan_bits(ids, T, halo), 10),
@@ -1812,33 +1826,44 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
             event_ms(torch, lambda: tpb.hit_words_torch(ids, bits, offs, hits, T, halo), 3),
             bound_ms(N / 8 + 4 * offs.numel() + hits * (halo + 8 + 16 * T.W),
                      instr * hits * halo, INT_RATE), None),
-        # Reads: the hits' positions and words, the rows of their nonzero
-        # columns, a window per pair; writes the candidates. Operations: per
-        # (pair, row) the bit, dedup and window tests of each band and the
-        # containment compares.
-        "many_expand": (
-            event_ms(torch, lambda: many.many_expand(*x_args), 20),
-            event_ms(torch, lambda: many.expand_candidates_sparse(*x_args), 3),
-            bound_ms(8 * pos.numel() + 8 * words.numel() + x_tables + pairs * wp
-                     + 8 * cf.numel(), pairs * X.R * (8 * B + 4 * wj), INT_RATE), None),
-        "dp_list": (
-            event_ms(torch, lambda: many.dp_list(*dp_args), 20),
-            event_ms(torch, lambda: many.dp_list_torch(*dp_args), 3),
-            bound_ms(8 * cf.numel() + tables + cf.numel() * (run.T.Lmax + 2 * run.E + 2)
-                     + rows.numel() * 4, cells * DP_CELL_INSTR, F32_RATE), None),
+        "many_step": (
+            event_ms(torch, lambda: many.many_step(*step_args), 20),
+            event_ms(torch, lambda: many.many_step_torch(*step_args), 3),
+            step_bound, None),
     }
     for name, (ms, plain, (b_ms, b_by), lib) in rec.items():
-        log(f"  {name} many1k: {N} symbols, {hits} hits, {pairs} pairs, {cf.numel()} candidates, "
-            f"{rows.shape[0]} rows; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.3g} "
-            f"ms by {b_by} ({b_ms / ms:.3g} of the kernel's time)"
+        log(f"  {name} many1k: {N} symbols, {hits} hits, {pairs} pairs, {n_cand} candidates, "
+            f"{rows.shape[0]} rows, {cells} DP cells; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {b_ms:.3g} ms by {b_by} ({b_ms / ms:.3g} of the kernel's time)"
             + (f", torch.cumsum {lib:.4f} ms" if lib is not None else ""))
-    step_args = (run.ids_pf, run.ids_de, n, chunk, halo, run.T, run.pens, np.float32(thr), run.E,
+    # The step's passes on the card: a call (count pass, block_offsets, one
+    # read, write pass); the count pass alone (a bound past 1 emits no row,
+    # so no write pass); and the count pass without a candidate (a window no
+    # start lies in: no containment test, no DP, no emission).
+    no_rows = step_args[:7] + (np.float32(2.0),) + step_args[8:]
+    no_cands = step_args[:2] + (vdp.DpWindow(0, 0, n),) + step_args[3:]
+    require(many.many_step(*no_rows)[0].shape[0] == 0 and many.many_step(*no_cands)[2] == 0,
+            "many_step: the pass-time variants emit")
+    profs = {key: profile_search(torch, lambda a=a: many.many_step(*a), 10, tpb.LAUNCHES)
+             for key, a in (("call", step_args), ("count", no_rows), ("count_no_cands", no_cands))}
+    passes = {key: device_ms(prof, "many_step_kernel") for key, prof in profs.items()}
+    passes["write"] = passes["call"] - passes["count"]
+    passes["candidates_share_of_count"] = 1.0 - passes["count_no_cands"] / passes["count"]
+    log(f"  many_step device ms (profiler, 10 calls): a call {passes['call']:.4f} = count pass "
+        f"{passes['count']:.4f} + write pass {passes['write']:.4f}; the count pass without a "
+        f"candidate {passes['count_no_cands']:.4f}, so the candidates' containment test, DP and "
+        f"emission take {passes['candidates_share_of_count']:.3f} of the count pass; launches "
+        f"counted {profs['call']['counted']['many_step']} / "
+        f"{profs['count']['counted']['many_step']} / "
+        f"{profs['count_no_cands']['counted']['many_step']}, waits per call "
+        f"{profs['call']['waits']:.1f}")
+    pipe_args = (run.ids_pf, run.ids_de, n, chunk, halo, run.T, run.pens, np.float32(thr), run.E,
                  run.deadend, run.hit_ceil)
-    whole = event_ms(torch, lambda: many.many_pipeline(*step_args), 10)
-    whole_plain = event_ms(torch, lambda: many.many_pipeline_torch(*step_args), 1)
-    log(f"  many_pipeline (the chunk's scan, expansion and DP with their readbacks): "
+    whole = event_ms(torch, lambda: many.many_pipeline(*pipe_args), 10)
+    whole_plain = event_ms(torch, lambda: many.many_pipeline_torch(*pipe_args), 1)
+    log(f"  many_pipeline (the chunk's scan and step with their readbacks): "
         f"{whole:.4f} ms, plain {whole_plain:.4f} ms")
-    return rec, errs
+    return rec, errs, passes
 
 
 def main() -> int:
@@ -2077,7 +2102,8 @@ def smoke(torch, start_pool, workers: int) -> int:
                                        "dp_pipeline_torch", "banded_dp_typed_torch",
                                        "emit_rows_typed")]
     plain_names += [(many, n) for n in ("expand_candidates_sparse", "dp_list_torch",
-                                        "many_pipeline_torch", "_packed_hits_torch")]
+                                        "many_step_torch", "many_pipeline_torch",
+                                        "_packed_hits_torch")]
     scan_keys = ("scan_bits", "block_offsets", "hit_words")
 
     # 5. parity, ahead of phase 4: the oracle's workers are busy meanwhile.
@@ -2486,7 +2512,8 @@ def smoke(torch, start_pool, workers: int) -> int:
     for lane_t in lane_times.values():
         for i, e in enumerate(lane_t.scan_errs):
             errs_scan[i] = max(errs_scan[i], e)
-    many_rec, many_main_errs = many_kernel_times(ctx, many_e, many_text, MANY_THRESHOLD)
+    many_rec, many_main_errs, step_passes = many_kernel_times(ctx, many_e, many_text,
+                                                             MANY_THRESHOLD)
     for key, err in many_main_errs.items():
         many_errs[key] = max(many_errs[key], err)
     errs_scan[1] = max(errs_scan[1], many_errs["block_offsets"])
@@ -2594,15 +2621,15 @@ def smoke(torch, start_pool, workers: int) -> int:
     for name, source, replaces in (
         ("scan_bits_wide", "scan_wide.cu", f"{jax_pb}:534"),
         ("hit_words_wide", "scan_wide.cu", f"{jax_pb}:620"),
-        ("many_expand", "many_expand.cu", f"{jax_many}:330"),
-        ("dp_list", "dp_pipeline.cu", f"{jax_many}:469"),
+        ("many_step", "many_step.cu", f"{jax_many}:330, {jax_many}:469"),
     ):
         kernels.append(record(
             name, f"{PKG}/csrc/{source}", replaces,
             sum(run.launches[name] for run in many_runs.values()), many_errs[name],
             *many_rec[name],
             device_ms_per_search={tag: device_ms(run.prof, name + "_kernel")
-                                  for tag, run in many_runs.items()}))
+                                  for tag, run in many_runs.items()},
+            **({"pass_device_ms": step_passes} if name == "many_step" else {})))
     # The wide kernels at k = 0, the exact-wide search of phase 4g.
     for name, replaces in (("scan_bits_wide[k=0]", f"{jax_pb}:534"),
                            ("hit_words_wide[k=0]", f"{jax_pb}:620")):

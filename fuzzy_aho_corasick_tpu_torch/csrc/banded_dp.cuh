@@ -1,8 +1,10 @@
 // Shared device code of the banded Damerau DP (see banded_dp.cu for what it
 // computes and the semantics it keeps): the tables, the per-candidate DP
-// body, and the similarity-table staging. Included by banded_dp.cu (the DP
-// alone, channel outputs) and dp_pipeline.cu (expansion, DP and emission in
-// one kernel), so both run the same body.
+// body, the similarity-table staging and the emission test. Included by
+// banded_dp.cu (the DP alone, channel outputs), dp_pipeline.cu (expansion,
+// DP and emission in one kernel) and many_step.cu (the large-dictionary
+// lane's sparse expansion, DP and emission in one kernel), so all run the
+// same body.
 //
 // Two options of the JAX package's _banded_dp ride the same body:
 //   * FORBID (verify_dp.py:355-363): edit types capped at 0 lose their
@@ -68,11 +70,12 @@ __device__ __forceinline__ void merge(float& bp, int& bc, float op, int oc, bool
   }
 }
 
-// Bytes of dynamic shared memory the similarity table takes (0: read it
-// through the read-only cache instead).
-inline size_t sim_smem_bytes(int C) {
+// Bytes of dynamic shared memory the similarity table takes beside a
+// kernel's ``static_bytes`` of static shared memory (0: read it through the
+// read-only cache instead; a block takes 48 KiB in all without an opt-in).
+inline size_t sim_smem_bytes(int C, size_t static_bytes = 0) {
   const size_t bytes = (size_t)C * C * sizeof(float);
-  return bytes <= (size_t)SIM_SMEM_MAX ? bytes : 0;
+  return bytes + static_bytes <= (size_t)SIM_SMEM_MAX ? bytes : 0;
 }
 
 // Every thread of the block calls this before any of them leaves.
@@ -322,6 +325,57 @@ __device__ __forceinline__ void dp_body(const DpCore& a, const float* s_sim,
     for (int t = 0; t < WN - 1; ++t) w[t] = w[t + 1];
     w[WN - 1] = hay_at(ids, s + i + E + 1, a.limit);
   }
+}
+
+// The emission's tables (verify_dp.py::emit_rows).
+struct EmitTables {
+  const int32_t* node;      // [F] output node of each field
+  const int32_t* out_list;  // [N, MO] patterns of each node, -1 padded
+  int MO;
+  const float* pat_len;     // [P]
+  const float* pat_weight;  // [P]
+  float bound;              // threshold less the emission slack
+};
+
+// Per band the minimum over the NE edit channels, strict <: the lowest edit
+// count wins penalty ties.
+template <int E>
+__device__ __forceinline__ void band_minimum(const float (&emit_pen)[2 * E + 1][E + 1],
+                                             const int (&emit_cnt)[2 * E + 1][E + 1],
+                                             float (&pen_best)[2 * E + 1],
+                                             int (&cnt_best)[2 * E + 1]) {
+#pragma unroll
+  for (int b = 0; b < 2 * E + 1; ++b) {
+    float pb = emit_pen[b][0];
+    int cb = emit_cnt[b][0];
+#pragma unroll
+    for (int e = 1; e < E + 1; ++e) {
+      if (emit_pen[b][e] < pb) {
+        pb = emit_pen[b][e];
+        cb = emit_cnt[b][e];
+      }
+    }
+    pen_best[b] = pb;
+    cnt_best[b] = cb;
+  }
+}
+
+// Whether emission channel (band b, output slot o) of a live candidate
+// (start, field depth d, output node) with band penalty pb emits, and its
+// pattern: a finite penalty, the span inside [start, limit], a pattern in
+// the slot, and the f32 similarity test ((pl - pb) / pl) * pw >= bound, each
+// step rounded as written (the build adds -fmad=false).
+__device__ __forceinline__ bool emits(const EmitTables& t, long long limit, int E, int start,
+                                      int d, int node, int b, float pb, int o, int& pat) {
+  pat = -1;
+  if (!fin(pb)) return false;
+  const int ends_b = start + d + (b - E);
+  if (ends_b > limit || ends_b < start) return false;
+  pat = __ldg(t.out_list + (long long)node * t.MO + o);
+  if (pat < 0) return false;
+  const float pl = __ldg(t.pat_len + pat);
+  const float sim = __fmul_rn(__fdiv_rn(__fsub_rn(pl, pb), pl), __ldg(t.pat_weight + pat));
+  return sim >= t.bound;
 }
 
 }  // namespace fac_dp

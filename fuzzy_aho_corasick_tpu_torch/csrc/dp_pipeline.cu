@@ -8,22 +8,15 @@
 // static capacities. Its plain torch version is
 // ops/verify_dp.py::dp_pipeline_torch (expand_candidates -> banded_dp_torch
 // -> emit_rows); the wrapper is verify_dp.dp_pipeline. The typed lane's
-// counterpart of this kernel is dp_typed.cu.
-//
-// dp_list_kernel runs the same DP and emission over a list of candidates
-// (field, start) instead of the (combo, hit) grid: the large-dictionary
-// lane's _banded_dp + _emit_rows of fuzzy_aho_corasick_tpu/ops/many.py::
-// _many_pipeline_jit, behind its own expansion (many_expand.cu). Item g is
-// candidate g; a dead slot (field -1) emits nothing. Plain version:
-// verify_dp.banded_dp_torch -> verify_dp.emit_rows; the wrapper is
-// many.dp_list.
+// counterpart of this kernel is dp_typed.cu, the large-dictionary lane's
+// many_step.cu.
 //
 // What it computes. The grid is the uncompacted (combo, hit) product,
 // combo-major: item g = c * (K - h0) + h - h0 pairs combo c = (pattern bit,
 // field, band) with hit h of the ordered hit list, over the hits h0 <= h < K
 // (hits before h0 are read only as the predecessor of hit h0: a caller that
 // splits a long hit list into ranges hands each range its preceding hit, as
-// many_expand.cu's callers do). Per item:
+// many_step.cu's callers do). Per item:
 //   * expansion: the pattern's bit fired in the hit's match words, the hit
 //     lies below pos_hi, start = pos + 1 - (depth + b - E) lies in the
 //     slice's window [start_lo, start_hi), and the run dedup (a hit whose
@@ -34,8 +27,8 @@
 //   * emission: per band the strict-< minimum over the NE edit channels, the
 //     span test, and per output slot o of the field's node the f32
 //     similarity test ((pl - pen) / pl) * pw >= bound, each step rounded
-//     as written (__fsub_rn, __fdiv_rn, __fmul_rn; the build adds
-//     -fmad=false) -- verify_dp.py::emit_rows.
+//     as written (band_minimum and emits of banded_dp.cuh) --
+//     verify_dp.py::emit_rows.
 // Output: int32 rows (start, penalty f32 bits, span, pattern, packed edit
 // counts), ordered channel-major over (band, slot), then by g, which is the
 // candidates' combo-major, hit-ascending order: the order emit_rows gives.
@@ -77,15 +70,8 @@ struct PipeArgs {
   int W2;
   const int32_t* combos;    // [5, n_combo]: word column, bit, field, start offset, b == 0
   int n_combo;
-  const int32_t* cand_field;  // [K] candidates of dp_list_kernel (K is their count)
-  const int32_t* cand_start;
   long long start_lo, start_hi, pos_hi;
-  const int32_t* node;      // [F] output node of each field
-  const int32_t* out_list;  // [N, MO] patterns of each node, -1 padded
-  int MO;
-  const float* pat_len;     // [P]
-  const float* pat_weight;  // [P]
-  float bound;              // threshold less the emission slack
+  EmitTables emit;
   long long nblk;
   int32_t* counts;          // [NCH + 1, nblk] (count pass)
   const int32_t* offsets;   // exclusive scan of counts (write pass)
@@ -104,10 +90,10 @@ __device__ __forceinline__ void dp_emit(const PipeArgs& a, const float* s_sim, b
   constexpr int B = 2 * E + 1;
   constexpr int NE = E + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nch = B * a.MO;
+  const int MO = a.emit.MO;
+  const int nch = B * MO;
 
-  // DP and the per-band minimum over the edit channels (strict <: the
-  // lowest edit count wins penalty ties).
+  // DP and the per-band minimum over the edit channels.
   float pen_best[B];
   int cnt_best[B];
   int d = 0, node = 0;
@@ -115,22 +101,9 @@ __device__ __forceinline__ void dp_emit(const PipeArgs& a, const float* s_sim, b
     float emit_pen[B][NE];
     int emit_cnt[B][NE];
     dp_body<E, DEADEND, MAPS, Sym>(a.core, s_sim, sim_smem, f, s, emit_pen, emit_cnt);
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      float pb = emit_pen[b][0];
-      int cb = emit_cnt[b][0];
-#pragma unroll
-      for (int e = 1; e < NE; ++e) {
-        if (emit_pen[b][e] < pb) {
-          pb = emit_pen[b][e];
-          cb = emit_cnt[b][e];
-        }
-      }
-      pen_best[b] = pb;
-      cnt_best[b] = cb;
-    }
+    band_minimum<E>(emit_pen, emit_cnt, pen_best, cnt_best);
     d = __ldg(a.core.depth + f);
-    node = __ldg(a.node + f);
+    node = __ldg(a.emit.node + f);
   } else {
 #pragma unroll
     for (int b = 0; b < B; ++b) {
@@ -141,25 +114,18 @@ __device__ __forceinline__ void dp_emit(const PipeArgs& a, const float* s_sim, b
   const int start = (int)s;
 
   // Whether channel (b, o) emits for this item, and its pattern.
-  auto emits = [&](int b, float pb, int o, int& pat) -> bool {
+  auto emits_here = [&](int b, int o, int& pat) -> bool {
     pat = -1;
-    if (!alive || !fin(pb)) return false;
-    const int ends_b = start + d + (b - E);
-    if (ends_b > a.core.limit || ends_b < start) return false;
-    pat = __ldg(a.out_list + (long long)node * a.MO + o);
-    if (pat < 0) return false;
-    const float pl = __ldg(a.pat_len + pat);
-    const float sim = __fmul_rn(__fdiv_rn(__fsub_rn(pl, pb), pl), __ldg(a.pat_weight + pat));
-    return sim >= a.bound;
+    return alive && emits(a.emit, a.core.limit, E, start, d, node, b, pen_best[b], o, pat);
   };
 
   // Rows of every channel per warp (channel nch: live candidates).
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    for (int o = 0; o < a.MO; ++o) {
+    for (int o = 0; o < MO; ++o) {
       int pat;
-      const unsigned bal = __ballot_sync(0xFFFFFFFFu, emits(b, pen_best[b], o, pat));
-      if (lane == 0) s_wc[b * a.MO + o][warp] = __popc(bal);
+      const unsigned bal = __ballot_sync(0xFFFFFFFFu, emits_here(b, o, pat));
+      if (lane == 0) s_wc[b * MO + o][warp] = __popc(bal);
     }
   }
   {
@@ -180,12 +146,12 @@ __device__ __forceinline__ void dp_emit(const PipeArgs& a, const float* s_sim, b
 
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    for (int o = 0; o < a.MO; ++o) {
+    for (int o = 0; o < MO; ++o) {
       int pat;
-      const bool ok = emits(b, pen_best[b], o, pat);
+      const bool ok = emits_here(b, o, pat);
       const unsigned bal = __ballot_sync(0xFFFFFFFFu, ok);
       if (ok) {
-        const int ch = b * a.MO + o;
+        const int ch = b * MO + o;
         long long r = __ldg(a.offsets + (long long)ch * a.nblk + blockIdx.x) +
                       __popc(bal & ((1u << lane) - 1u));
         for (int w = 0; w < warp; ++w) r += s_wc[ch][w];
@@ -234,29 +200,11 @@ dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
   dp_emit<E, DEADEND, MAPS, Sym>(a, s_sim, sim_smem, write, alive, f, s, c, s_wc);
 }
 
-// Item g: candidate g of the list (field -1: a dead slot).
-template <int E, bool DEADEND>
-__global__ void __launch_bounds__(DP_THREADS)
-dp_list_kernel(PipeArgs a, bool sim_smem, bool write) {
-  extern __shared__ float s_sim[];
-  __shared__ int s_wc[MAX_CHANNELS + 1][NWARPS];
-
-  load_sim(a.core, s_sim, sim_smem);
-  const long long g = (long long)blockIdx.x * DP_THREADS + threadIdx.x;
-  int f = -1;
-  long long s = 0;
-  if (g < a.K) {
-    f = __ldg(a.cand_field + g);
-    s = __ldg(a.cand_start + g);
-  }
-  dp_emit<E, DEADEND, false, uint8_t>(a, s_sim, sim_smem, write, f >= 0, f, s, 0, s_wc);
-}
-
 // The mapped lane has no multi-byte edges, so MAPS and DEADEND never meet.
 template <int E>
 cudaError_t launch_e(const PipeArgs& a, bool deadend, bool maps, bool u8, bool write,
                      cudaStream_t stream) {
-  const size_t shm = sim_smem_bytes(a.core.C);
+  const size_t shm = sim_smem_bytes(a.core.C, sizeof(int) * (MAX_CHANNELS + 1) * NWARPS);
   const bool smem = shm != 0;
   const unsigned g = (unsigned)a.nblk;
   if (deadend && maps) return cudaErrorInvalidValue;
@@ -279,18 +227,7 @@ cudaError_t launch_e(const PipeArgs& a, bool deadend, bool maps, bool u8, bool w
   return cudaGetLastError();
 }
 
-template <int E>
-cudaError_t launch_list_e(const PipeArgs& a, bool deadend, bool write, cudaStream_t stream) {
-  const size_t shm = sim_smem_bytes(a.core.C);
-  const unsigned g = (unsigned)a.nblk;
-  if (deadend)
-    dp_list_kernel<E, true><<<g, DP_THREADS, shm, stream>>>(a, shm != 0, write);
-  else
-    dp_list_kernel<E, false><<<g, DP_THREADS, shm, stream>>>(a, shm != 0, write);
-  return cudaGetLastError();
-}
-
-// The arguments both entries share; false where they are out of range.
+// The DP and emission arguments; false where they are out of range.
 bool fill_core(PipeArgs& a, const void* ids, long long npad, long long limit,
                const void* path_cls, const void* path_node, const void* depth,
                const void* node, int Lmax, int F, const void* sim, int C,
@@ -320,12 +257,12 @@ bool fill_core(PipeArgs& a, const void* ids, long long npad, long long limit,
   a.core.p_del = p_del;
   a.core.p_swap = p_swap;
   a.core.floor_ = floor_;
-  a.node = static_cast<const int32_t*>(node);
-  a.out_list = static_cast<const int32_t*>(out_list);
-  a.MO = MO;
-  a.pat_len = static_cast<const float*>(pat_len);
-  a.pat_weight = static_cast<const float*>(pat_weight);
-  a.bound = bound;
+  a.emit.node = static_cast<const int32_t*>(node);
+  a.emit.out_list = static_cast<const int32_t*>(out_list);
+  a.emit.MO = MO;
+  a.emit.pat_len = static_cast<const float*>(pat_len);
+  a.emit.pat_weight = static_cast<const float*>(pat_weight);
+  a.emit.bound = bound;
   a.nblk = nblk;
   a.counts = static_cast<int32_t*>(counts);
   a.offsets = static_cast<const int32_t*>(offsets);
@@ -399,43 +336,6 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, long long h
     case 4: return (int)launch_e<4>(a, de, mp, u8, wr, s);
     case 5: return (int)launch_e<5>(a, de, mp, u8, wr, s);
     case 6: return (int)launch_e<6>(a, de, mp, u8, wr, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// cand_field, cand_start: int32 [M] (field -1: a dead slot); ids: u8
-// [npad]; the DP and emission tables as fac_dp_pipeline takes them. write ==
-// 0: counts int32 [(2E+1) MO + 1, nblk] is written (the last row: live
-// candidates); write == 1: offsets (their exclusive scan) is read and rows
-// int32 [total, 5] written, channel-major, candidates in order. Returns the
-// launch's cudaError_t (0 = launched).
-int fac_dp_list(const void* cand_field, const void* cand_start, long long M, const void* ids,
-                long long npad, long long limit, const void* path_cls, const void* path_node,
-                const void* depth, const void* node, int Lmax, int F, const void* sim, int C,
-                const void* node_ceil, const void* sb_edge, const void* out_count, int N,
-                const void* out_list, int MO, const void* pat_len, const void* pat_weight,
-                float max_pen, float p_sub, float p_ins, float p_del, float p_swap,
-                float floor_, float bound, int E, int deadend, int write, long long nblk,
-                void* counts, const void* offsets, void* rows, void* stream) {
-  PipeArgs a{};
-  if (M < 1 || nblk != (M + DP_THREADS - 1) / DP_THREADS ||
-      !fill_core(a, ids, npad, limit, path_cls, path_node, depth, node, Lmax, F, sim, C,
-                 node_ceil, sb_edge, out_count, N, out_list, MO, pat_len, pat_weight, max_pen,
-                 p_sub, p_ins, p_del, p_swap, floor_, bound, E, nblk, counts, offsets, rows)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  a.cand_field = static_cast<const int32_t*>(cand_field);
-  a.cand_start = static_cast<const int32_t*>(cand_start);
-  a.K = M;
-  const bool de = deadend != 0, wr = write != 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (E) {
-    case 1: return (int)launch_list_e<1>(a, de, wr, s);
-    case 2: return (int)launch_list_e<2>(a, de, wr, s);
-    case 3: return (int)launch_list_e<3>(a, de, wr, s);
-    case 4: return (int)launch_list_e<4>(a, de, wr, s);
-    case 5: return (int)launch_list_e<5>(a, de, wr, s);
-    case 6: return (int)launch_list_e<6>(a, de, wr, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

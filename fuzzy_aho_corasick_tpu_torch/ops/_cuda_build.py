@@ -29,7 +29,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("packed_bitap.cu", "scan_wide.cu", "scan_offsets.cu", "many_expand.cu",
+    for name in ("packed_bitap.cu", "scan_wide.cu", "scan_offsets.cu", "many_step.cu",
                  "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu")
 )
 #: Headers the sources include (part of the build's hash).
@@ -63,19 +63,15 @@ _SIGNATURES = {
     # the same for W = 9..64 (csrc/scan_wide.cu)
     "fac_hit_words_wide": [_c_void_p, _c_ll] + [_c_void_p] * 7 + [_c_int] * 4
     + [_c_ll] + [_c_void_p] * 3,
-    # pos, words, K, h0, W2, field, shift, depth, pc, R, E, start_lo,
-    # start_hi, pos_hi, ids, npad, k, rd_min, rd_max, write, nblk, counts,
-    # offsets, cand_field, cand_start, stream
-    "fac_many_expand": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int] + [_c_void_p] * 4
-    + [_c_int] * 2 + [_c_ll] * 3 + [_c_void_p, _c_ll] + [_c_int] * 4 + [_c_ll]
-    + [_c_void_p] * 5,
-    # cand_field, cand_start, M, ids, npad, limit, path_cls, path_node, depth,
-    # node, Lmax, F, sim, C, node_ceil, sb_edge, out_count, N, out_list, MO,
-    # pat_len, pat_weight, max_pen, p_sub, p_ins, p_del, p_swap, floor, bound,
-    # E, deadend, write, nblk, counts, offsets, rows, stream
-    "fac_dp_list": [_c_void_p, _c_void_p, _c_ll, _c_void_p, _c_ll, _c_ll] + [_c_void_p] * 4
+    # pos, words, K, h0, W2, field, shift, rdepth, pc, R, k, rd_min, rd_max,
+    # contain, start_lo, start_hi, pos_hi, ids, npad, limit, path_cls,
+    # path_node, depth, node, Lmax, F, sim, C, node_ceil, sb_edge, out_count,
+    # N, out_list, MO, pat_len, pat_weight, max_pen, p_sub, p_ins, p_del,
+    # p_swap, floor, bound, E, deadend, write, counts, offsets, rows, stream
+    "fac_many_step": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int] + [_c_void_p] * 4
+    + [_c_int] * 5 + [_c_ll] * 3 + [_c_void_p, _c_ll, _c_ll] + [_c_void_p] * 4
     + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int]
-    + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3 + [_c_ll]
+    + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3
     + [_c_void_p] * 4,
     # cand_field, cand_start, M, ids, ids_u8, npad, limit, path_cls,
     # path_node, depth, Lmax, F, sim, C, node_ceil, sb_edge, out_count, N,
@@ -122,7 +118,6 @@ _SIGNATURES = {
     + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 3,
     "fac_scan_block_syms": [],
     "fac_scan_wide_chunk": [],
-    "fac_many_expand_items": [],
     "fac_dp_pipeline_threads": [],
     "fac_offsets_tile": [],
     "fac_offsets_chain_tile": [],

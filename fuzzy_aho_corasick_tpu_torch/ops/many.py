@@ -1,5 +1,5 @@
 """Large-dictionary fuzzy lane: pattern-chunked scan -> sparse expansion ->
-banded DP over a candidate list.
+banded DP -> emission.
 
 The fuzzy DP lane (``ops/verify_dp``) packs the whole dictionary into one
 scan of at most ``packed_bitap.MAX_LIMBS`` u64 limbs. A dictionary that does
@@ -24,18 +24,22 @@ on the card:
 
 1. the hit-list scan (``packed_bitap.packed_hits``): at more than
    ``MAX_LIMBS`` limbs ``scan_bits_wide_kernel``, ``block_offsets_kernel``
-   and ``hit_words_wide_kernel`` (``csrc/scan_wide.cu``);
-2. the sparse expansion (:func:`many_expand`, ``many_expand_kernel`` of
-   ``csrc/many_expand.cu``; plain version :func:`expand_candidates_sparse`):
-   each hit's nonzero u32 columns name the verify fields whose match bit
-   lives there, so only those rows expand into candidates;
-3. the banded DP and the emission over the candidate list (:func:`dp_list`,
-   ``dp_list_kernel`` of ``csrc/dp_pipeline.cu``, the DP body of
-   ``csrc/banded_dp.cuh``; plain version :func:`dp_list_torch`);
+   and ``hit_words_wide_kernel`` (``csrc/scan_wide.cu``); the host reads the
+   hit count;
+2. the step (:func:`many_step`, ``many_step_kernel`` of
+   ``csrc/many_step.cu``; plain version :func:`many_step_torch`): the sparse
+   expansion (each hit's nonzero u32 columns name the verify fields whose
+   match bit lives there, so only those rows expand into candidates; plain
+   version :func:`expand_candidates_sparse`), each candidate's banded DP (the
+   body of ``csrc/banded_dp.cuh``) and its emission (plain version
+   :func:`dp_list_torch`), as a count pass and a write pass around
+   ``block_offsets_kernel`` and one host read of the totals, with no
+   candidate list in device memory;
 
-steps 2 and 3 over ranges of at most :func:`many_max_hits` hits, so that no
-count passes int32 offsets, and one copy of the rows to the host. One merged decode
-(``ops/emit.decode_matches``) serves all chunks.
+step 2 over ranges of at most :func:`many_max_hits` hits, so that no count
+passes int32 offsets, and one copy of the rows to the host: three host
+waits per chunk. One merged decode (``ops/emit.decode_matches``) serves all
+chunks.
 
 Not ported: the JAX package's capacity machinery (``_fine_cap``, the cap
 cache, the KH / KH2 / CAND / KG retries, ``_retry_transient``): every count
@@ -299,7 +303,7 @@ def many_spec_of(engine, fold: bool = False) -> Optional[ManyPackSpec]:
 
 
 # ---------------------------------------------------------------------------
-# Sparse candidate expansion
+# The chunk step: sparse expansion, banded DP, emission
 # ---------------------------------------------------------------------------
 
 class ExpandTables(NamedTuple):
@@ -328,7 +332,7 @@ CONTAIN_J = 4
 
 def expand_candidates_sparse(pos, words, window, E: int, X: ExpandTables, ids=None, k: int = 0,
                              h0: int = 0):
-    """Plain version of ``many_expand_kernel``: the JAX package's
+    """The expansion of :func:`many_step_torch`: the JAX package's
     ``many._expand_candidates_sparse``, op for op.
 
     ``pos`` [K] int64 ascending and ``words`` [K, 2W] int64 u32 halves as
@@ -393,16 +397,25 @@ def expand_candidates_sparse(pos, words, window, E: int, X: ExpandTables, ids=No
     return pidx.numel(), fields[idx].to(torch.int32), torch.cat(starts)[idx].to(torch.int32)
 
 
+def dp_list_torch(cand_field, cand_start, ids, limit, T, pens, thr, E: int, deadend: bool):
+    """The DP and emission of :func:`many_step_torch` over a candidate list
+    (``cand_field`` / ``cand_start`` int32 [M]): ``verify_dp.banded_dp_torch``
+    then ``verify_dp.emit_rows``. Returns rows int32 [K, 5]."""
+    from .verify_dp import banded_dp_torch, emit_rows
+
+    pen, cnt = banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend)
+    return emit_rows(pen, cnt, cand_field, cand_start, T, limit, thr, E)
+
+
 def many_max_hits(X: ExpandTables, E: int, nch: int) -> int:
     """Most hits one range of a chunk's hit list may hold: the counts of
-    :func:`many_expand` over it (at most every live row per (band, hit)
-    item, and every column per hit) and those of :func:`dp_list` over its
-    candidates (``nch`` emission channels and a row per candidate) stay
-    inside int32 offsets."""
+    :func:`many_step` over it (per (band, hit) item at most every live row
+    as a candidate, a row per candidate and emission channel, of ``nch``,
+    and every column per hit as a pair) stay inside int32 offsets."""
     return ((1 << 31) - 1) // ((nch + 1) * (2 * E + 1) * max(X.rows, 1) + X.field.shape[0])
 
 
-def _check_expand(pos, words, X: ExpandTables, ids) -> None:
+def _check_step(pos, words, ids, T, E: int, X: ExpandTables, k: int, h0: int) -> None:
     for name, t in (("pos", pos), ("words", words)):
         if t.dtype != torch.int64 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int64 tensor")
@@ -414,138 +427,92 @@ def _check_expand(pos, words, X: ExpandTables, ids) -> None:
                              f"{pos.device}")
     if X.field.shape != (words.shape[1], X.R) or X.pc.shape != (words.shape[1], X.R, CONTAIN_J):
         raise ValueError("expansion tables of another width than the match words")
-    if words.device != pos.device or (ids is not None and ids.device != pos.device):
-        raise ValueError(f"hits on {pos.device}, words on {words.device}")
-    if ids is not None and (ids.dtype != torch.uint8 or ids.dim() != 1 or not ids.is_contiguous()):
+    if ids.dtype != torch.uint8 or ids.dim() != 1 or not ids.is_contiguous():
         raise ValueError("ids must be a contiguous 1-D uint8 tensor")
-
-
-def many_expand(pos, words, window, E: int, X: ExpandTables, ids=None, k: int = 0,
-                h0: int = 0):
-    """(nonzero pairs, cand_field, cand_start int32 [M]) of the sparse
-    expansion of the hits from ``h0`` on (see
-    :func:`expand_candidates_sparse`). CPU tensors run the
-    plain version; CUDA tensors launch ``many_expand_kernel`` twice, a count
-    pass and a write pass with ``block_offsets_kernel`` between them, and
-    read the two totals back."""
-    from . import packed_bitap as pb
-
-    _check_expand(pos, words, X, ids)
+    if not (words.device == pos.device == ids.device == T.device):
+        raise ValueError(f"hits on {pos.device}, words on {words.device}, ids on {ids.device}, "
+                         f"tables on {T.device}")
+    if T.node_ceil is None:
+        raise ValueError("tables carry no node ceilings (DpTables.with_ceil)")
     if not 1 <= E <= 6 or not 0 <= k <= 6:
         raise ValueError(f"edit budget {E} or error rows {k} outside 1..6 / 0..6")
     if not 0 <= h0 <= pos.numel():
         raise ValueError(f"first hit {h0} outside the {pos.numel()} hits")
-    if pos.device.type == "cpu":
-        return expand_candidates_sparse(pos, words, window, E, X, ids, k, h0)
-    if pos.device.type != "cuda":
-        raise ValueError(f"no expansion kernel for device {pos.device}")
-    K, dev = pos.numel(), pos.device
-    empty = torch.zeros(0, dtype=torch.int32, device=dev)
-    if K == h0:
-        return 0, empty, empty.clone()
-    if K - h0 > many_max_hits(X, E, 0):
-        raise ValueError(f"{K - h0} hits: the expansion's counts would overflow int32 offsets")
-    contain = ids is not None and X.rd_max >= CONTAIN_J
-    kern = _cuda_build.load()
-    nblk = -(-((2 * E + 1) * (K - h0)) // kern.lib.fac_many_expand_items())
-    counts = torch.empty(2 * nblk, dtype=torch.int32, device=dev)
-
-    def launch(write: int, offsets, cf, cs):
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = kern.lib.fac_many_expand(
-                pos.data_ptr(), words.data_ptr(), K, h0, words.shape[1],
-                X.field.data_ptr(), X.shift.data_ptr(), X.depth.data_ptr(), X.pc.data_ptr(),
-                X.R, E, *(int(x) for x in window),
-                ids.data_ptr() if contain else None, ids.numel() if contain else 0,
-                k, X.rd_min, X.rd_max, write, nblk, counts.data_ptr(),
-                None if offsets is None else offsets.data_ptr(),
-                None if cf is None else cf.data_ptr(), None if cs is None else cs.data_ptr(),
-                stream,
-            )
-        kern.check(rc, "many_expand")
-        pb.LAUNCHES["many_expand"] += 1
-
-    launch(0, None, None, None)
-    offsets = pb.block_offsets(counts)
-    # Candidates end the first row of counts, pairs the second: one strided
-    # read of two values.
-    n_cand, n_all = offsets[nblk::nblk].tolist()
-    cand_field = torch.empty(n_cand, dtype=torch.int32, device=dev)
-    cand_start = torch.empty(n_cand, dtype=torch.int32, device=dev)
-    if n_cand:
-        launch(1, offsets, cand_field, cand_start)
-    return n_all - n_cand, cand_field, cand_start
 
 
-# ---------------------------------------------------------------------------
-# Banded DP and emission over a candidate list
-# ---------------------------------------------------------------------------
+def many_step_torch(pos, words, window, ids, limit, T, pens, thr, E: int, deadend: bool,
+                    X: ExpandTables, k: int = 0, h0: int = 0, contain: bool = True):
+    """Plain version of ``many_step_kernel``: :func:`expand_candidates_sparse`
+    of the hits from ``h0`` on (the containment test on ``ids`` where
+    ``contain``), then :func:`dp_list_torch` over the candidates with the DP
+    reading ``ids`` up to ``limit``. Returns (rows int32 [K, 5], nonzero
+    pairs, candidates)."""
+    pairs, cand_field, cand_start = expand_candidates_sparse(
+        pos, words, window, E, X, ids if contain else None, k, h0)
+    rows = dp_list_torch(cand_field, cand_start, ids, limit, T, pens, thr, E, deadend)
+    return rows, pairs, cand_field.numel()
 
-def dp_list_torch(cand_field, cand_start, ids, limit, T, pens, thr, E: int, deadend: bool):
-    """Plain version of ``dp_list_kernel``: ``verify_dp.banded_dp_torch``
-    then ``verify_dp.emit_rows``. Returns rows int32 [K, 5]."""
-    from .verify_dp import banded_dp_torch, emit_rows
 
-    pen, cnt = banded_dp_torch(cand_field, cand_start, ids, limit, T, pens, E, deadend)
-    return emit_rows(pen, cnt, cand_field, cand_start, T, limit, thr, E)
-
-
-def dp_list(cand_field, cand_start, ids, limit, T, pens, thr, E: int, deadend: bool):
-    """Match rows int32 [K, 5] of the candidates (``cand_field`` /
-    ``cand_start`` int32 [M], field -1 a dead slot): the count-channel DP
-    and the emission, rows as ``verify_dp.emit_rows`` orders them. CPU
-    tensors run :func:`dp_list_torch`; CUDA tensors launch
-    ``dp_list_kernel`` twice, a count pass and a write pass with
-    ``block_offsets_kernel`` between them, and read the row total back. The
-    kernel reads u8 class ids (dense alphabets of at most 256 classes)."""
+def many_step(pos, words, window, ids, limit, T, pens, thr, E: int, deadend: bool,
+              X: ExpandTables, k: int = 0, h0: int = 0, contain: bool = True):
+    """One range of a chunk's hit list -> match rows: (rows int32 [K, 5] on
+    the hits' device, nonzero (hit, column) pairs, candidates), rows as
+    :func:`dp_list_torch` orders them (see :func:`many_step_torch`).
+    ``pos`` [H] int64 ascending and ``words`` [H, 2W] int64 as
+    ``packed_hits`` returns them; ``window`` a ``verify_dp.DpWindow``;
+    ``ids`` the u8 dense class ids; ``k`` the scan's error rows. CPU tensors
+    run :func:`many_step_torch`; CUDA tensors launch ``many_step_kernel``
+    twice, a count pass and a write pass with ``block_offsets_kernel``
+    between them, and read the three totals back in one read."""
     from . import packed_bitap as pb
-    from .verify_dp import MAX_CHANNELS, _check_dp, emit_bound
+    from .verify_dp import MAX_CHANNELS, _pen_floats, emit_bound
 
-    _check_dp(cand_field, cand_start, ids, T, E)
+    _check_step(pos, words, ids, T, E, X, k, h0)
     if ids.device.type == "cpu":
-        return dp_list_torch(cand_field, cand_start, ids, limit, T, pens, thr, E, deadend)
+        return many_step_torch(pos, words, window, ids, limit, T, pens, thr, E, deadend, X, k,
+                               h0, contain)
     if ids.device.type != "cuda":
-        raise ValueError(f"no DP kernel for device {ids.device}")
-    if ids.dtype != torch.uint8:
-        raise ValueError("dp_list_kernel reads uint8 class ids")
-    M, dev = cand_field.numel(), ids.device
+        raise ValueError(f"no step kernel for device {ids.device}")
+    K, dev = pos.numel(), ids.device
     MO = T.out_list.shape[1]
     nch = (2 * E + 1) * MO
     if nch > MAX_CHANNELS:
         raise ValueError(f"{nch} emission channels, the kernel takes {MAX_CHANNELS}")
-    if M * (nch + 1) >= 1 << 31:
-        raise ValueError(f"{M} candidates x {nch} channels overflow int32 offsets")
-    if M == 0:
-        return torch.zeros((0, 5), dtype=torch.int32, device=dev)
+    if K - h0 > many_max_hits(X, E, nch):
+        raise ValueError(f"{K - h0} hits: the step's counts would overflow int32 offsets")
+    items = (2 * E + 1) * (K - h0)
+    if items == 0:
+        return torch.zeros((0, 5), dtype=torch.int32, device=dev), 0, 0
     kern = _cuda_build.load()
-    nblk = -(-M // kern.lib.fac_dp_pipeline_threads())
-    counts = torch.empty((nch + 1) * nblk, dtype=torch.int32, device=dev)
+    counts = torch.empty((nch + 2) * items, dtype=torch.int32, device=dev)
+    args = (
+        pos.data_ptr(), words.data_ptr(), K, h0, words.shape[1], X.field.data_ptr(),
+        X.shift.data_ptr(), X.depth.data_ptr(), X.pc.data_ptr(), X.R, k, X.rd_min, X.rd_max,
+        int(contain and X.rd_max >= CONTAIN_J), *(int(x) for x in window), ids.data_ptr(),
+        ids.numel(), int(limit), T.path_cls.data_ptr(), T.path_node.data_ptr(),
+        T.depth.data_ptr(), T.node.data_ptr(), T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C,
+        T.node_ceil.data_ptr(), T.sb_edge.data_ptr(), T.out_count.data_ptr(),
+        T.out_count.numel(), T.out_list.data_ptr(), MO, T.pat_len.data_ptr(),
+        T.pat_weight.data_ptr(), *_pen_floats(pens), emit_bound(thr), E, int(bool(deadend)),
+    )
 
     def launch(write: int, offsets, rows):
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = kern.lib.fac_dp_list(
-                cand_field.data_ptr(), cand_start.data_ptr(), M, ids.data_ptr(), ids.numel(),
-                int(limit), T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(),
-                T.node.data_ptr(), T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C,
-                T.node_ceil.data_ptr(), T.sb_edge.data_ptr(), T.out_count.data_ptr(),
-                T.out_count.numel(), T.out_list.data_ptr(), MO, T.pat_len.data_ptr(),
-                T.pat_weight.data_ptr(), *(float(np.float32(x)) for x in pens),
-                emit_bound(thr), E, int(bool(deadend)), write, nblk, counts.data_ptr(),
-                None if offsets is None else offsets.data_ptr(),
-                None if rows is None else rows.data_ptr(), stream,
-            )
-        kern.check(rc, "dp_list")
-        pb.LAUNCHES["dp_list"] += 1
+        with pb.on_device(dev):
+            rc = kern.lib.fac_many_step(
+                *args, write, counts.data_ptr(), None if offsets is None else offsets.data_ptr(),
+                None if rows is None else rows.data_ptr(), pb.stream_of(dev))
+        kern.check(rc, "many_step")
+        pb.LAUNCHES["many_step"] += 1
 
     launch(0, None, None)
     offsets = pb.block_offsets(counts)
-    n_rows = int(offsets[nch * nblk])
+    # The rows' total ends the channels' counts, the candidates' and the
+    # pairs' follow: one strided read of three values.
+    n_rows, n_rc, n_all = offsets[nch * items::items].tolist()
     rows = torch.empty((n_rows, 5), dtype=torch.int32, device=dev)
     if n_rows:
         launch(1, offsets, rows)
-    return rows
+    return rows, n_all - n_rc, n_rc - n_rows
 
 
 # ---------------------------------------------------------------------------
@@ -586,8 +553,8 @@ def _packed_hits_torch(ids, T, halo: int, max_count: Optional[int] = None):
     return count, pos, words
 
 
-def _step(hits_fn, expand_fn, dp_fn, ids_pf, ids_de, n: int, chunk: ManyChunk, halo: int, T,
-          pens, thr, E: int, deadend: bool, hit_ceil: Optional[int]) -> Optional[ManyStep]:
+def _step(hits_fn, step_fn, ids_pf, ids_de, n: int, chunk: ManyChunk, halo: int, T, pens, thr,
+          E: int, deadend: bool, hit_ceil: Optional[int]) -> Optional[ManyStep]:
     from .verify_dp import DpWindow
 
     count, pos, words = hits_fn(ids_pf, chunk.T_scan, halo, hit_ceil)
@@ -599,12 +566,12 @@ def _step(hits_fn, expand_fn, dp_fn, ids_pf, ids_de, n: int, chunk: ManyChunk, h
     rows, pairs, cands = [], 0, 0
     for a in range(0, max(count, 1), max_hits):
         h0 = min(a, 1)
-        p, cand_field, cand_start = expand_fn(
-            pos[a - h0:a + max_hits], words[a - h0:a + max_hits], DpWindow(0, n, n), E, chunk.X,
-            ids_de, chunk.T_scan.k, h0)
+        r, p, c = step_fn(pos[a - h0:a + max_hits], words[a - h0:a + max_hits],
+                          DpWindow(0, n, n), ids_de, n, T, pens, thr, E, deadend, chunk.X,
+                          chunk.T_scan.k, h0)
+        rows.append(r)
         pairs += p
-        cands += cand_field.numel()
-        rows.append(dp_fn(cand_field, cand_start, ids_de, n, T, pens, thr, E, deadend))
+        cands += c
     return ManyStep(rows[0] if len(rows) == 1 else torch.cat(rows), count, pairs, cands)
 
 
@@ -612,16 +579,15 @@ def many_pipeline(ids_pf, ids_de, n: int, chunk: ManyChunk, halo: int, T, pens, 
                   deadend: bool, hit_ceil: Optional[int] = None) -> Optional[ManyStep]:
     """One chunk's search over the resident corpus (``ids_pf`` the prefilter
     symbols, ``ids_de`` the u8 dense class ids, ``n`` symbols of text): the
-    hit-list scan (``packed_bitap.packed_hits``), :func:`many_expand` and
-    :func:`dp_list`, the last two over ranges of at most
-    :func:`many_max_hits` hits (one range at any real corpus). None where
-    the chunk fires more than ``hit_ceil`` hits (the folded layout's
-    ceiling). The host reads the hit count and, per range, the expansion's
-    two totals and the row total."""
+    hit-list scan (``packed_bitap.packed_hits``) and :func:`many_step` over
+    ranges of at most :func:`many_max_hits` hits (one range at any real
+    corpus). None where the chunk fires more than ``hit_ceil`` hits (the
+    folded layout's ceiling). The host reads the hit count and, per range,
+    the step's three totals (one read)."""
     from .packed_bitap import packed_hits
 
-    return _step(packed_hits, many_expand, dp_list, ids_pf, ids_de, n, chunk, halo, T, pens,
-                 thr, E, deadend, hit_ceil)
+    return _step(packed_hits, many_step, ids_pf, ids_de, n, chunk, halo, T, pens, thr, E,
+                 deadend, hit_ceil)
 
 
 def many_pipeline_torch(ids_pf, ids_de, n: int, chunk: ManyChunk, halo: int, T, pens, thr,
@@ -629,8 +595,8 @@ def many_pipeline_torch(ids_pf, ids_de, n: int, chunk: ManyChunk, halo: int, T, 
                         ) -> Optional[ManyStep]:
     """Plain version of :func:`many_pipeline`: the plain versions of every
     kernel it launches, on tensors of any device."""
-    return _step(_packed_hits_torch, expand_candidates_sparse, dp_list_torch, ids_pf, ids_de, n,
-                 chunk, halo, T, pens, thr, E, deadend, hit_ceil)
+    return _step(_packed_hits_torch, many_step_torch, ids_pf, ids_de, n, chunk, halo, T, pens,
+                 thr, E, deadend, hit_ceil)
 
 
 # ---------------------------------------------------------------------------

@@ -107,11 +107,11 @@ SCAN_FILL_THREADS = 640
 #: step; ``typed_expand`` both passes of ``verify_dp.typed_expand``,
 #: ``typed_dp`` and ``typed_emit`` the typed step's DP and emission;
 #: ``block_offsets`` the launches of :func:`block_offsets`; ``scan_bits`` and ``hit_words`` count the narrow kernels, the
-#: ``_wide`` keys the wide ones; ``many_expand`` and ``dp_list`` both passes
-#: of ``many.many_expand`` and ``many.dp_list``.
+#: ``_wide`` keys the wide ones; ``many_step`` both passes of
+#: ``many.many_step``.
 LAUNCHES = {"scan_bits": 0, "block_offsets": 0, "hit_words": 0, "dp": 0, "dp_pipeline": 0,
             "dp_typed": 0, "typed_expand": 0, "typed_dp": 0, "typed_emit": 0,
-            "scan_bits_wide": 0, "hit_words_wide": 0, "many_expand": 0, "dp_list": 0}
+            "scan_bits_wide": 0, "hit_words_wide": 0, "many_step": 0}
 
 _M32 = 0xFFFFFFFF
 

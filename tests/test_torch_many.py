@@ -3,17 +3,24 @@ the oracle on the CPU.
 
 (a) ``_fold_assign`` and the ``ManyPackSpec`` tables (word tables, expansion
     rows, masks) are byte-equal to the JAX package's, folded and plain.
-(b) ``expand_candidates_sparse`` (the plain version of ``many_expand_kernel``)
-    returns the JAX ``_expand_candidates_sparse``'s candidates element by
-    element, with and without the containment pre-verify, on the lane's own
-    hits and on synthetic hit lists with runs and hits at the corpus edges.
+(b) ``expand_candidates_sparse`` (the expansion of ``many_step_kernel``'s
+    plain version) returns the JAX ``_expand_candidates_sparse``'s
+    candidates element by element, with and without the containment
+    pre-verify, on the lane's own hits and on synthetic hit lists with runs
+    and hits at the corpus edges; ``many.many_step`` (CPU tensors: its plain
+    version) returns the rows of the JAX ``_expand_candidates_sparse`` ->
+    ``_banded_dp`` -> ``_emit_rows`` element by element, E = 1 and 2,
+    containment on and off, on a range handed its preceding hit, without
+    hits and without candidates, and on a dictionary with multi-byte edges
+    (the dead-end filter).
 (c) The scan at W = 31 limbs (on the CPU the plain versions of the wide
     kernels) equals the JAX ``packed_hits`` in its traced-table form
     (Pallas in interpret mode).
 (d) ``fuzzy_search_many`` equals the oracle, tuple by tuple with the f32
     similarity bits and edit counts: multi-chunk plain, verify fields shared
     by two chunks, wide Damerau, folded, and past the folded hit ceiling;
-    and equals the JAX ``fuzzy_search_many`` in tuples and ``last_stats``.
+    and equals the JAX ``fuzzy_search_many`` in tuples and ``last_stats``,
+    and in the row it keeps where two fields of one span tie.
 (e) Routing: ``backend = "device"`` reaches the lane for plain and beamed
     engines whose dictionary does not pack, past 4095 patterns too (where
     the JAX package takes its beam lanes), equal to the oracle.
@@ -23,6 +30,7 @@ exact equality everywhere: the scan and the expansion are integer, and the
 DP replays the JAX package's f32 operations in the same order."""
 
 import ctypes
+import functools
 import re
 
 import jax
@@ -33,11 +41,13 @@ import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
 from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+from fuzzy_aho_corasick_tpu import FuzzyPenalties as JaxPenalties
 from fuzzy_aho_corasick_tpu.ops import many as jmany
 from fuzzy_aho_corasick_tpu.ops import packed_bitap as jpb
+from fuzzy_aho_corasick_tpu.ops import verify_dp as jvd
 from fuzzy_aho_corasick_tpu.ops.engine import DeviceEngine as JaxDeviceEngine
 from fuzzy_aho_corasick_tpu.utils.graphemes import view_of as jax_view_of
-from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, oracle
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, FuzzyPenalties, oracle
 from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build, many
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
 from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as tvd
@@ -212,7 +222,9 @@ def test_expand_sparse_equal_to_jax(source, contain):
         pairs, cf, cs = many.expand_candidates_sparse(
             pos, words, tvd.DpWindow(*window), run.E, X, ids, run.k)
         before = dict(tpb.LAUNCHES)
-        assert many.many_expand(pos, words, tvd.DpWindow(*window), run.E, X, ids, run.k)[0] == pairs
+        assert many.many_step(pos, words, tvd.DpWindow(*window), run.ids_de, n, run.T, run.pens,
+                              np.float32(0.8), run.E, run.deadend, X, run.k,
+                              contain=contain)[1:] == (pairs, cf.numel())
         assert tpb.LAUNCHES == before  # CPU tensors run the plain version
         K = pos.numel()
         jp, jc, jf, js = _jax_expand(
@@ -238,10 +250,218 @@ def test_containment_drops_candidates_without_changing_the_matches():
     _p, cf_off, cs_off = many.expand_candidates_sparse(s["pos"], s["words"], window, run.E, X,
                                                        None, run.k)
     assert 0 < cf_on.numel() < cf_off.numel()
-    rows = [many.dp_list(cf, cs, run.ids_de, n, run.T, run.pens, np.float32(0.8), run.E,
-                         run.deadend) for cf, cs in ((cf_on, cs_on), (cf_off, cs_off))]
+    rows = [many.dp_list_torch(cf, cs, run.ids_de, n, run.T, run.pens, np.float32(0.8), run.E,
+                               run.deadend) for cf, cs in ((cf_on, cs_on), (cf_off, cs_off))]
     key = lambda r: sorted(map(tuple, r.tolist()))
     assert key(rows[0]) == key(rows[1]) and len(rows[0]) > 20
+
+
+# ---------------------------------------------------------------------------
+# (b') the chunk step: expansion, DP and emission
+# ---------------------------------------------------------------------------
+
+@functools.partial(jax.jit, static_argnames=("E", "Lmax", "C", "MO", "CAND", "KG", "deadend"))
+def _jax_dp_emit(cf, cs, ids, limit, path_cls, path_node, depth, node, out_list, pat_len,
+                 pat_weight, sim, node_ceil, sb_edge, out_count, pens, thr, E, Lmax, C, MO, CAND,
+                 KG, deadend):
+    """What ``_many_pipeline_jit`` runs behind its expansion: ``_banded_dp``
+    and ``_emit_rows``."""
+    pen, cnt = jvd._banded_dp(cf, cs, path_cls, path_node, depth, ids, limit, sim, node_ceil,
+                              *pens, E, Lmax, C, deadend=deadend, sb_edge_flat=sb_edge,
+                              out_count_arr=out_count)
+    return jvd._emit_rows(pen, cnt, cf, cs, depth, node, out_list, pat_len, pat_weight, limit,
+                          thr, E, MO, CAND, KG)
+
+
+def _unpack_jax_rows(packed):
+    """The JAX 12-byte rows (span, pattern and 3-bit counts packed in one
+    word) as the port's five columns."""
+    packed = packed.astype(np.int64)
+    col2 = packed[:, 2]
+    c12 = col2 & 0xFFF
+    counts = (c12 & 7) | ((c12 >> 3) & 7) << 8 | ((c12 >> 6) & 7) << 16 | ((c12 >> 9) & 7) << 24
+    return np.stack([packed[:, 0], packed[:, 1], col2 >> 24, (col2 >> 12) & 0xFFF, counts], axis=1)
+
+
+#: Hits the JAX step is handed (padded with hits at -1, which it does not
+#: expand), candidates and rows it has room for: one compile per engine and
+#: option.
+_STEP_HITS, _STEP_CAND, _STEP_ROWS = 256, 4096, 8192
+
+
+def _jax_step_rows(run, X, pos, words, window, thr, contain):
+    """(pairs, candidates, rows [total, 5]) of the JAX step over the hits."""
+    K, W2 = words.shape
+    assert K <= _STEP_HITS
+    pos_p = np.full(_STEP_HITS, -1, np.int32)
+    pos_p[:K] = pos.numpy()
+    words_p = np.zeros((_STEP_HITS, W2), np.uint32)
+    words_p[:K] = words.numpy().astype(np.uint32)
+    T, E = run.T, run.E
+    ids = jnp.asarray(run.ids_de.numpy())
+    pairs, cands, cf, cs = _jax_expand(
+        jnp.asarray(pos_p), jnp.asarray(words_p), *map(np.int32, window), E, _STEP_CAND,
+        _STEP_HITS * W2, *(jnp.asarray(t.numpy()) for t in (X.field, X.shift, X.depth)),
+        ids_dense=ids if contain else None, cr_pc=jnp.asarray(X.pc.numpy()), k=run.k,
+        rd_min=X.rd_min, rd_max=X.rd_max)
+    # A large unrolled body takes the JAX DP's row-loop form instead (path
+    # tables padded past its unroll bound of 24 rows, dead past each field's
+    # depth), which compiles in a fraction of the time.
+    Lj = 25 if T.Lmax * (2 * E + 1) * (E + 1) > 100 else T.Lmax
+    pad = lambda t: np.pad(t.numpy(), ((0, 0), (0, Lj - T.Lmax))).reshape(-1)
+    total, rows = _jax_dp_emit(
+        cf, cs, ids, np.int32(window[2]), pad(T.path_cls), pad(T.path_node),
+        *(t.numpy() for t in (T.depth, T.node, T.out_list, T.pat_len, T.pat_weight)),
+        T.sim.numpy().reshape(-1), T.node_ceil.numpy(), T.sb_edge.numpy().reshape(-1),
+        T.out_count.numpy(), tuple(np.float32(x) for x in run.pens), np.float32(thr),
+        E=E, Lmax=Lj, C=T.C, MO=T.out_list.shape[1], CAND=_STEP_CAND, KG=_STEP_ROWS,
+        deadend=run.deadend)
+    cands, total = int(cands), int(total)
+    assert cands <= _STEP_CAND and total <= _STEP_ROWS
+    return int(pairs), cands, _unpack_jax_rows(np.asarray(rows)[:total])
+
+
+_STEP = {}
+
+
+def _step_setup(name: str):
+    """(run, chunk, text length, threshold, pos, words) of one engine's lane
+    hits; built once per engine. "e1": the 400-word folded spec (rows of
+    depth >= 4, so the containment test applies), "e2": 90 words with
+    ``edits(2)``, "deadend": Cyrillic words with ``edits(1)`` (multi-byte
+    edges: the dead-end filter)."""
+    if name not in _STEP:
+        if name == "e1":
+            s = _expand_setup()
+            _STEP[name] = (s["run"], s["chunk"], s["n"], 0.8, s["pos"], s["words"])
+            return _STEP[name]
+        if name == "e2":
+            words = _dictionary(90, seed=43)
+            eng, thr = _port(words, edits=2), 0.7
+            text = _edited(words, 40, 47)
+        else:
+            words = ["привет", "мир", "москва", "ирина", "тест", "кафе", "café", "мосвка"]
+            b = FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(1))
+            eng, thr = b.case_insensitive(True).device("cpu").build(words), 0.6
+            rng = np.random.default_rng(5)
+            fill = ["и", "мира", "тесты", "привет", "кафе", "cafe", "мосвка", "ирнна", "прuвет",
+                    "caff", "кофе"]
+            text = " ".join(fill[int(rng.integers(len(fill)))] for _ in range(40))
+        view = view_of(text, True)
+        run = many.many_inputs(eng, many.many_spec_of(eng), text, thr, view, len(view))
+        assert run.E == (2 if name == "e2" else 1) and run.deadend == (name == "deadend")
+        chunk = run.chunks[0]
+        _count, pos, w = tpb.packed_hits(run.ids_pf, chunk.T_scan, run.halo)
+        _STEP[name] = (run, chunk, len(view), thr, pos, w)
+    return _STEP[name]
+
+
+STEP_CASES = {
+    # engine, containment, hits: "lane" (the lane's own), "range" (the
+    # second half handed its preceding hit), "synthetic", "none", "cut"
+    # (a window that no start lies in: hits and pairs, no candidate)
+    "e1": ("e1", True, "lane"),
+    "e1-no-containment": ("e1", False, "lane"),
+    "e1-range": ("e1", True, "range"),
+    "e1-range-no-containment": ("e1", False, "range"),
+    "e1-synthetic-runs": ("e1", True, "synthetic"),
+    "e1-no-hits": ("e1", True, "none"),
+    "e1-no-candidates": ("e1", True, "cut"),
+    "e2": ("e2", True, "lane"),
+    "e2-no-containment": ("e2", False, "lane"),
+    "e2-range": ("e2", True, "range"),
+    "deadend": ("deadend", True, "lane"),
+    "deadend-range-no-containment": ("deadend", False, "range"),
+}
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_many_step_equal_to_jax(name):
+    """``many.many_step`` on CPU tensors (its plain version, no launch) equals
+    ``dp_list_torch(expand_candidates_sparse(...))`` and the JAX step's rows,
+    pairs and candidates element by element; a range handed its preceding
+    hit equals the plain version element by element, and with the first
+    range its rows are the JAX step's over the whole list, as a multiset."""
+    engine, contain, hits = STEP_CASES[name]
+    run, chunk, n, thr, pos, words = _step_setup(engine)
+    X, thr = chunk.X, np.float32(thr)
+    window = tvd.DpWindow(0, n, n)
+    if hits == "synthetic":
+        pos_np, words_np = _synthetic_hits(X, n, seed=9)
+        keep = slice(0, _STEP_HITS)
+        pos, words = torch.from_numpy(pos_np[keep].copy()), torch.from_numpy(words_np[keep].copy())
+    elif hits == "none":
+        pos, words = pos[:0], words[:0]
+    elif hits == "cut":
+        window = tvd.DpWindow(0, 0, n)
+    assert (pos.numel() > 20) == (hits != "none")
+    args = (run.ids_de, n, run.T, run.pens, thr, run.E, run.deadend, X, run.k)
+
+    def both(p, w, h0=0):
+        before = dict(tpb.LAUNCHES)
+        got = many.many_step(p, w, window, *args, h0=h0, contain=contain)
+        assert tpb.LAUNCHES == before  # CPU tensors run the plain version
+        pairs, cf, cs = many.expand_candidates_sparse(p, w, window, run.E, X,
+                                                      run.ids_de if contain else None, run.k, h0)
+        rows = many.dp_list_torch(cf, cs, run.ids_de, n, run.T, run.pens, thr, run.E,
+                                  run.deadend)
+        assert torch.equal(got[0], rows) and got[1:] == (pairs, cf.numel())
+        assert many.many_step_torch(p, w, window, *args, h0=h0, contain=contain)[1:] == got[1:]
+        return got
+
+    want_pairs, want_cands, want_rows = _jax_step_rows(run, X, pos, words, window, thr, contain)
+    if hits == "range":
+        a = pos.numel() // 2
+        first = both(pos[:a], words[:a])
+        second = both(pos[a - 1:], words[a - 1:], h0=1)
+        rows = torch.cat((first[0], second[0])).numpy()
+        assert sorted(map(tuple, rows.tolist())) == sorted(map(tuple, want_rows.tolist()))
+        assert (first[1] + second[1], first[2] + second[2]) == (want_pairs, want_cands)
+        assert second[2] > 0
+        return
+    rows, pairs, cands = both(pos, words)
+    assert np.array_equal(rows.numpy(), want_rows) and (pairs, cands) == (want_pairs, want_cands)
+    if hits == "none":
+        assert rows.shape == (0, 5) and pairs == cands == 0
+    elif hits == "cut":
+        assert pairs > 0 and cands == 0 and rows.shape[0] == 0
+    else:
+        assert cands > 0 and rows.shape[0] > 0
+
+
+def test_many_lane_tie_order_across_fields_equals_jax(monkeypatch):
+    """The many lane keeps the JAX lane's row order where two fields of one
+    span tie (ROADMAP queue C, open 2). ``abzz`` and ``bbzz`` both output
+    ``zz`` at depth 4; with substitutions and swaps at 0.6, ``bazz`` is one
+    swap from ``abzz`` and one substitution from ``bbzz``, so ``zz`` over
+    ``bazz`` ties on similarity with different edit counts, and
+    ``decode_matches`` keeps the earliest row. Both lanes keep the
+    substitution: (2, 3, 7, sim bits 1060320051, insertions 0, deletions 0,
+    substitutions 1, swaps 0), the same at (2, 19, 23). The oracle keeps the
+    swap there: (2, 3, 7, 1060320051, 0, 0, 0, 1) and (2, 19, 23, ...,
+    0, 0, 0, 1); the DP lane (``verify_dp``) keeps the swap too. The test
+    holds the port to the reference, not to the oracle. Both lanes run the
+    plain chunking at 2 limbs a chunk: the JAX scan in Pallas interpret mode
+    is cheap at that width."""
+    for mod in (jmany, many):
+        monkeypatch.setattr(mod, "MANY_LIMBS", 2)
+    monkeypatch.setenv("FAC_MANY_FOLD", "0")
+    monkeypatch.setattr(many, "FOLD", False)
+    extra = _dictionary(120, seed=7)
+    words = ["abzz", "bbzz", "zz"] + extra
+    jax_e = (JaxBuilder.new().fuzzy(JaxLimits.new().edits(1))
+             .penalties(JaxPenalties().with_substitution(0.6).with_swap(0.6)).build(words))
+    port_e = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(1))
+              .penalties(FuzzyPenalties().with_substitution(0.6).with_swap(0.6))
+              .device("cpu").build(words))
+    hay = "xx bazz yy abzz ww bazz q"
+    jview, view = jax_view_of(hay, False), view_of(hay, False)
+    want = sorted(map(_key, jmany.fuzzy_search_many(jax_e, hay, 0.5, jview, len(jview))))
+    got = sorted(map(_key, many.fuzzy_search_many(port_e, hay, 0.5, view, len(view))))
+    assert port_e.last_stats["backend"] == "device-fuzzy-many"
+    assert got == want
+    ties = [t for t in got if t[0] == 2 and (t[1], t[2]) in ((3, 7), (19, 23))]
+    assert [t[4:] for t in ties] == [(0, 0, 1, 0)] * 2  # the substitution row
 
 
 # ---------------------------------------------------------------------------
