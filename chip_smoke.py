@@ -42,9 +42,14 @@ CUDA kernel they run against its plain torch version. Phases:
    one either side, 129,864 and 2^22 + 7 counts, all zeros, a total just
    under 2^31 and an unaligned view. The large-dictionary lane
    (``many_kernel_checks``): the wide scan's kernels (``scan_bits_wide``,
-   ``hit_words_wide``) at W = 9, 31, 32, 64 limbs, alphabets of 27 and 128
-   symbols, k = 0, 1 (Damerau), 2, 4 (Damerau) on streams of 50,013
-   symbols; per chunk of the folded and the plain layout, over 1 MiB of the
+   ``hit_words_wide``, ``wide_kernel_checks``) on streams of 50,013 symbols
+   at k = 0 at every edge of the k = 0 instance table (W = 9, 16, 17, 24, 25,
+   31, 32, 33, 40, 41, 43, 48, 49, 56, 57, 64) at alphabets of 27 and 128
+   symbols, the library's instance table against ``wide_scan_instance``,
+   and at k = 1 and 2 with and without the Damerau
+   rows, 4 with and 6 without at W = 9, 31, 32, 64; a stream whose first
+   tile holds over 300 hits (k = 0 and k = 1 Damerau) and one without a
+   hit; per chunk of the folded and the plain layout, over 1 MiB of the
    many1k corpus, over 3-letter words (no containment test), over filler
    only (hits without candidates) and with 300 many1k words at
    ``edits(2)``, the chunk step ``many_step`` (expansion, DP and emission in
@@ -130,15 +135,21 @@ CUDA kernel they run against its plain torch version. Phases:
    and off, and the folded chunk in hit ranges), and the step's count and
    write passes' device times from the profiler;
    the wide scan's kernels at k = 0 at exact-wide's shape against their
-   plain versions; slice 1's hit list of the fuzzy and the typed lane run
+   plain versions; at both wide shapes (``wide_kernel_detail``) each wide
+   kernel timed three ways (CUDA events around 10 back-to-back calls,
+   around one call after a synchronise, the profiler's device ms per
+   launch), its registers, the scan's instance (LPL, G, padded width) and
+   the SASS of its main loop per symbol (``cuobjdump -sass``); slice 1's hit list of the fuzzy and the typed lane run
    by the pipeline kernels in 3 ranges (each handed its preceding hit, the
    rows put back in one range's order by their tags) against one range,
    each range's kernel call against its plain version, rows and tags bit for
    bit, and the decoded matches.
 
 Any failed phase raises, so the script exits non-zero. Before the last line
-it prints one JSON line of kernel results and the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Run from the
+it prints one JSON line of kernel results (a kernel's device ms per search
+is the profile's sum, or, where the profile dropped events of it, the mean
+event times the launches counted: ``search_ms``) and the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``. Run from the
 repository root:
 
     python3 chip_smoke.py
@@ -491,10 +502,9 @@ def compare_dp(vdp, torch, engine, text: str, thr: float, what: str, wide=False)
 def ptxas_summary(log_text: str):
     """(lines for the main paths' instantiations: the W=3 scan and hit-list
     kernels at k=0 and at k=1 with Damerau rows, the offsets scan, every
-    banded DP instantiation, the u8 pipeline ones, the typed
-    kernels,
-    the wide scan and hit-list kernels at k=1, the many lane's step at E=1
-    and E=2;
+    banded DP instantiation, the u8 pipeline ones, the typed kernels, the
+    wide scan at k=0 (every LPL) and k=1, the wide hit-list kernel at k=0
+    and k=1, the many lane's step at E=1 and E=2;
     number of instantiations, number of them with spills, max registers)."""
     import re
 
@@ -512,13 +522,18 @@ def ptxas_summary(log_text: str):
         name = e["name"]
         dp = re.search(r"(banded_dp|dp_pipeline)_kernelILi(\d)ELb([01])ELb([01])E([hi])", name)
         scan = re.search(r"(scan_bits|hit_words)_kernelILi3ELi([01])ELb([01])E(?:Li(\d+)E)?", name)
-        wide = re.search(r"(scan_bits|hit_words)_wide_kernelILi(\d)ELi(\d+)ELi(\d)ELb([01])E", name)
+        wide = re.search(r"scan_bits_wide_kernelILi(\d)ELi(\d+)ELi(\d)ELb([01])E", name)
+        wide_hits = re.search(r"hit_words_wide_kernelILi(\d)ELb([01])E", name)
         step = re.search(r"many_step_kernelILi(\d)ELb([01])E", name)
         if wide:
-            if wide.group(4) != "1":
+            if wide.group(3) not in ("0", "1"):
                 continue
-            label = (f"{wide.group(1)}_wide<LPL={wide.group(2)},G={wide.group(3)},"
-                     f"K={wide.group(4)},Damerau={wide.group(5)}>")
+            label = (f"scan_bits_wide<LPL={wide.group(1)},G={wide.group(2)},"
+                     f"K={wide.group(3)},Damerau={wide.group(4)}>")
+        elif wide_hits:
+            if wide_hits.group(1) not in ("0", "1"):
+                continue
+            label = f"hit_words_wide<K={wide_hits.group(1)},Damerau={wide_hits.group(2)}>"
         elif step:
             if step.group(1) not in ("1", "2"):
                 continue
@@ -589,6 +604,7 @@ def profile_search(torch, fn, reps: int, counters=None):
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        torch.cuda.synchronize()  # the last launches end inside the profile
         wall = (time.perf_counter() - t0) * 1e3 / reps
     counted = {k: v - before[k] for k, v in (counters or {}).items()}
     rows, waits, events = [], 0, {}
@@ -636,6 +652,39 @@ def launch_ms(prof: dict, name: str) -> float:
     sum over its event count. It stays right where the profile holds fewer
     events than the wrapper counted launches."""
     return device_ms(prof, name) * prof["reps"] / max(event_count(prof, name), 1)
+
+
+def search_ms(prof: dict, key: str, name: str = None) -> float:
+    """Device ms per profiled call of the kernel the wrapper ``key`` launches
+    (events named ``name``, default ``key + "_kernel"``): the profile's sum
+    over its calls, or, where the profile holds fewer of its events than the
+    wrapper counted launches (the profiler drops an event now and then), the
+    mean event (``launch_ms``) times the launches per call, with a log line
+    saying so."""
+    name = name or key + "_kernel"
+    events, counted = event_count(prof, name), prof["counted"].get(key, 0)
+    if events >= counted:
+        return device_ms(prof, name)
+    log(f"  the profile holds {events} {name} events of {counted} launches counted: its "
+        f"device ms per call is the mean event x {counted / prof['reps']:.2f} launches")
+    return launch_ms(prof, name) * counted / prof["reps"]
+
+
+def wide_fields(detail: dict, name: str) -> dict:
+    """The ``kernels`` line's extra fields for a wide kernel from
+    ``wide_kernel_detail``: its three times, registers, the instance and, for
+    the scan, its SASS per symbol."""
+    x = detail[name]
+    out = {key: x.get(key) for key in ("events_ms", "single_ms", "single_min_ms",
+                                        "profiler_launch_ms", "profiler_events",
+                                        "registers", "spill")}
+    out["instance"] = detail["instance"] if name == "scan_bits_wide" else None
+    loop = x.get("sass_loop")
+    if loop:
+        out["sass_per_symbol_per_lane"] = loop["per_symbol_per_lane"]
+        out["sass_per_symbol_per_chain"] = loop["per_symbol_per_chain"]
+        out["sass_alu_per_symbol_per_chain"] = loop["alu_per_symbol_per_chain"]
+    return out
 
 
 def stage_breakdown(torch, tpb, vdp, engine, corpus: str, thr: float):
@@ -833,6 +882,110 @@ def event_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def single_launch_ms(torch, fn, reps: int = 20):
+    """CUDA-event ms around one call of ``fn`` after a synchronise, ``reps``
+    times: (median, min). No call queues behind another, so the host's time
+    to issue the launch shows in full beside the kernel's."""
+    fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(t0.elapsed_time(t1))
+    out.sort()
+    return out[len(out) // 2], out[0]
+
+
+def three_way_ms(torch, fn, kernel: str, counters, reps: int = 10) -> dict:
+    """A wrapper's kernel timed three ways: CUDA events around ``reps``
+    back-to-back calls (ms per call), events around one call after a
+    synchronise (median and min of 20), and the profiler's device ms per
+    launch of the kernel named ``kernel`` (``launch_ms``) over ``reps`` calls,
+    with the profile's event count beside the launches the wrapper counted
+    (``counters[kernel]``)."""
+    prof = profile_search(torch, fn, reps, counters)
+    single, single_min = single_launch_ms(torch, fn)
+    name = kernel + "_kernel"
+    return {"events_ms": event_ms(torch, fn, reps), "single_ms": single,
+            "single_min_ms": single_min, "profiler_launch_ms": launch_ms(prof, name),
+            "profiler_events": event_count(prof, name),
+            "launches_counted": prof["counted"].get(kernel, 0),
+            "instances": sorted(k[:80] for k in prof["events"] if name in k)}
+
+
+#: Opcodes the integer and logic pipe (64 lanes an SM) issues.
+ALU_OPS = ("LOP3", "SHF", "IADD3", "ISETP", "SEL", "PRMT", "LEA", "IMNMX", "VIMNMX", "POPC",
+           "FLO", "SGXT", "BMSK", "PLOP3", "IABS", "LOP")
+
+
+def sass_loop(so_path: str, mangled: str, lane_bytes: int):
+    """The main loop of the scan kernel ``mangled`` in the library at
+    ``so_path``, read with ``cuobjdump -sass``: of the innermost loops that
+    load from shared memory, the one with the most loads, and its symbols
+    per iteration (the bytes its shared loads read over ``lane_bytes``, what
+    a lane reads per symbol): {"instructions", "lds", "symbols", "alu", "ops":
+    {opcode: count}}, or None where cuobjdump or the loop is missing. The
+    body holds every path of the loop, the ones not taken too (the 16-byte
+    stream load's fallback for a stream's edges)."""
+    import re
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", "-fun", mangled, so_path], capture_output=True,
+                         text=True, timeout=300).stdout
+    ins = []
+    for mo in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+                          out):
+        ins.append((int(mo.group(1), 16), mo.group(2), mo.group(3)))
+    spans = []
+    for addr, op, args in ins:
+        tgt = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and tgt and int(tgt.group(1), 16) <= addr:
+            spans.append((int(tgt.group(1), 16), addr))
+
+    def lds(span):
+        return sum(o.startswith("LDS") for a, o, _ in ins if span[0] <= a <= span[1])
+
+    inner = [sp for sp in spans if lds(sp) and not any(
+        o != sp and sp[0] <= o[0] and o[1] <= sp[1] and lds(o) for o in spans)]
+    if not inner:
+        return None
+    main = max(inner, key=lds)
+    body = [o for a, o, _ in ins if main[0] <= a <= main[1]]
+    width = {"LDS.128": 16, "LDS.64": 8}
+    ops = {}
+    for o in body:
+        ops[o.split(".")[0]] = ops.get(o.split(".")[0], 0) + 1
+    read = sum(width.get(o, 4) for o in body if o.startswith("LDS"))
+    return {"instructions": len(body), "lds": lds(main), "symbols": max(read // lane_bytes, 1),
+            "alu": sum(ops.get(o, 0) for o in ALU_OPS), "ops": ops}
+
+
+def ptxas_entry(log_text: str, pattern: str):
+    """(mangled name, registers, spill-store bytes) of the first kernel in
+    the ``ptxas -v`` report whose mangled name matches ``pattern``, or None."""
+    import re
+
+    name = spill = None
+    for line in log_text.splitlines():
+        if name is None:
+            if "Compiling entry function" in line and re.search(pattern, line.split("'")[1]):
+                name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line:
+            return name, int(line.split("Used")[1].split("registers")[0]), spill
+    return None
+
+
 #: Peak rates of one H100 SXM (NVIDIA's data sheet): device memory bytes/s;
 #: float32 lane-instructions/s outside the tensor cores (67 TFLOP/s at two
 #: flops per FMA); integer and logic lane-instructions/s (64 INT32 lanes per
@@ -857,6 +1010,71 @@ def bound_ms(nbytes: float, ops: float, rate: float):
     """(least ms the card could take, which of the two binds)."""
     t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wide_kernel_detail(ctx, kern, ids, T, halo, instance) -> dict:
+    """The wide kernels at one main-path shape (``ids``, tables ``T``): for
+    ``scan_bits_wide`` and ``hit_words_wide`` the three times of
+    ``three_way_ms``, the bound from these inputs, the registers and spill
+    stores (``ptxas -v``); for the scan also the SASS of its main loop
+    (``sass_loop``) per symbol per lane and per chain. ``instance(W, k)`` is
+    the (LPL, G) the library runs at this shape. Returns {"n", "W", "k",
+    "damerau", "A", "halo", "hits", "instance": {"LPL", "G", "padded_W"},
+    "scan_bits_wide": {...}, "hit_words_wide": {...}}."""
+    import re
+
+    torch, tpb = ctx.torch, ctx.tpb
+    bits, counts = tpb.scan_bits(ids, T, halo)
+    offs = tpb.block_offsets(counts)
+    hits = int(offs[-1])
+    N, instr = ids.numel(), scan_instr(T.W, T.k, T.damerau)
+    lpl, g = instance(T.W, T.k)
+    K, dam = (T.k if T.k <= 2 else tpb.MAX_K), int(T.damerau)
+    rec = {"n": N, "W": T.W, "k": T.k, "damerau": T.damerau, "A": T.A, "halo": halo,
+           "hits": hits, "instance": {"LPL": lpl, "G": g, "padded_W": lpl * g}}
+    scan = three_way_ms(torch, lambda: tpb.scan_bits(ids, T, halo), "scan_bits_wide",
+                        tpb.LAUNCHES)
+    scan["bound"] = bound_ms(N + N / 8 + 4 * counts.numel(), instr * N, INT_RATE)
+    entry = ptxas_entry(kern.log, f"scan_bits_wide_kernelILi{lpl}ELi{g}ELi{K}ELb{dam}E")
+    if entry is not None:
+        scan["registers"], scan["spill"] = entry[1], entry[2]
+        # a lane reads its limbs in 16-byte pairs (an odd count's last half
+        # empty) per symbol
+        loop = sass_loop(str(kern.path), entry[0], 16 * -(-lpl // 2))
+        if loop is not None:
+            loop["per_symbol_per_lane"] = loop["instructions"] / loop["symbols"]
+            loop["per_symbol_per_chain"] = loop["instructions"] * g / loop["symbols"]
+            loop["alu_per_symbol_per_chain"] = loop["alu"] * g / loop["symbols"]
+        scan["sass_loop"] = loop
+    hw = three_way_ms(torch, lambda: tpb.hit_words(ids, bits, offs, hits, T, halo),
+                      "hit_words_wide", tpb.LAUNCHES)
+    hw["bound"] = bound_ms(N / 8 + 4 * offs.numel() + hits * (halo + 8 + 16 * T.W),
+                           instr * hits * halo, INT_RATE)
+    # One instance per k (and Damerau), or, in a library that predates
+    # that, one per (LPL, G) too.
+    entry = (ptxas_entry(kern.log, f"hit_words_wide_kernelILi{K}ELb{dam}E")
+             or ptxas_entry(kern.log, f"hit_words_wide_kernelILi{lpl}ELi{g}ELi{K}ELb{dam}E"))
+    if entry is not None:
+        hw["registers"], hw["spill"] = entry[1], entry[2]
+    rec["scan_bits_wide"], rec["hit_words_wide"] = scan, hw
+    for name in ("scan_bits_wide", "hit_words_wide"):
+        x = rec[name]
+        log(f"  {name} W={T.W} k={T.k}{' Damerau' if T.damerau else ''}, {N} symbols, {hits} "
+            f"hits, instance {re.sub(r'[^<]*<', '<', x['instances'][0]) if x['instances'] else '?'}: "
+            f"events {x['events_ms']:.4f} ms per call over 10, one call after a synchronise "
+            f"{x['single_ms']:.4f} (min {x['single_min_ms']:.4f}), profiler "
+            f"{x['profiler_launch_ms']:.4f} ms per launch ({x['profiler_events']} events, "
+            f"{x['launches_counted']} launches); bound {x['bound'][0]:.4g} ms by {x['bound'][1]} "
+            f"({x['bound'][0] / max(x['profiler_launch_ms'], 1e-9):.3f} of the profiler's time); "
+            f"{x.get('registers')} registers, {x.get('spill')} bytes spilled"
+            + (f"; SASS main loop {x['sass_loop']['instructions']} instructions for "
+               f"{x['sass_loop']['symbols']} symbols = {x['sass_loop']['per_symbol_per_lane']:.1f} "
+               f"per symbol per lane, {x['sass_loop']['per_symbol_per_chain']:.0f} per chain "
+               f"({x['sass_loop']['alu_per_symbol_per_chain']:.0f} integer-pipe), "
+               f"{x['sass_loop']['lds'] / x['sass_loop']['symbols']:.1f} shared loads per "
+               f"symbol per lane; opcodes {x['sass_loop']['ops']}"
+               if x.get("sass_loop") else ""))
+    return rec
 
 
 #: The mapped lane's Unicode dictionary (ß <-> ss, æ <-> ae: drift +1 and -1
@@ -1261,10 +1479,70 @@ def wide_stream(words, A: int, n: int, seed: int, k: int):
     return ids
 
 
+#: Widths at each edge of the k = 0 instance table (8 lanes of ceil(W / 8)
+#: limbs, ``packed_bitap.wide_scan_instance``), the exact-wide dictionary's
+#: 43 and the many1k folded chunk's 31.
+WIDE_K0_WIDTHS = (9, 16, 17, 24, 25, 31, 32, 33, 40, 41, 43, 48, 49, 56, 57, 64)
+
+
+def wide_kernel_checks(ctx) -> dict:
+    """Phase 3 for the wide scan's kernels: the library's instance table
+    (``fac_scan_wide_instance``) against ``wide_scan_instance`` at every W
+    and k; then the kernels bit for bit against their plain versions
+    (``compare_scan``) on streams of 50,013 symbols: at k = 0 every width of
+    ``WIDE_K0_WIDTHS`` at alphabets of 27 and 128 symbols; at k = 1 and 2
+    with and without the Damerau rows, k = 4 with them and k = 6 without, at
+    W = 9, 31, 32 and 64; a stream whose first tile holds over 300 hits, at
+    k = 0 (W = 43) and k = 1 Damerau (W = 31); and a stream without a hit.
+    Returns {kernel: max_abs_err}."""
+    torch, np, tpb = ctx.torch, ctx.np, ctx.tpb
+    errs = dict.fromkeys(("scan_bits_wide", "block_offsets", "hit_words_wide"), 0)
+    lib = ctx.kern.lib
+    for W in range(tpb.MAX_LIMBS + 1, tpb.MAX_SCAN_LIMBS + 1):
+        for k in range(tpb.MAX_K + 1):
+            lpl, g = tpb.wide_scan_instance(W, k)
+            require(lib.fac_scan_wide_instance(W, k) == lpl * 256 + g,
+                    f"W={W} k={k}: the library's instance {lib.fac_scan_wide_instance(W, k)} "
+                    f"is not wide_scan_instance's ({lpl}, {g})")
+    log(f"  the wide scan's instance at W = {tpb.MAX_LIMBS + 1}..{tpb.MAX_SCAN_LIMBS}, k = "
+        f"0..{tpb.MAX_K}: the library's equals wide_scan_instance's")
+
+    def case(W, A, k, dam, n=50013, dense=0, want_hits=True, ids=None):
+        T, words, halo = wide_tables(tpb, W, k, dam, A, SEED + W + k, ctx.dev)
+        if ids is None:
+            ids = wide_stream(words, A, n, SEED + W * (k + 1), k)
+            rng = np.random.default_rng(SEED + W)
+            for at in range(0, dense, 40):  # a word every 40 symbols of the first tile
+                w = words[int(rng.integers(len(words)))]
+                ids[at:at + len(w)] = w
+        what = f"wide W={W} A={A} k={k} {'Damerau' if dam else 'plain'}" + (
+            f", {dense} symbols dense" if dense else "") + ("" if want_hits else ", no hit")
+        ids = torch.from_numpy(ids).to(ctx.dev)
+        count, e = compare_scan(tpb, torch, ids, T, halo, what, want_hits=want_hits)
+        if dense:
+            bits, _c = tpb.scan_bits_torch(ids, T, halo)
+            first = int(sum(bin(int(x) & 0xFFFFFFFF).count("1")
+                            for x in bits[: tpb.SCAN_BLOCK_SYMS // 32].tolist()))
+            require(first > 300, f"{what}: {first} hits in the first tile")
+        require(count == 0 or want_hits, f"{what}: {count} hits")
+        for key, err in zip(("scan_bits_wide", "block_offsets", "hit_words_wide"), e):
+            errs[key] = max(errs[key], err)
+
+    for W in WIDE_K0_WIDTHS:
+        for A in (27, 128):
+            case(W, A, 0, False)
+    for W, A in ((9, 128), (31, 27), (32, 27), (64, 128)):
+        for k, dam in ((1, True), (1, False), (2, False), (2, True), (4, True), (6, False)):
+            case(W, A, k, dam)
+    case(43, 27, 0, False, dense=tpb.SCAN_BLOCK_SYMS)
+    case(31, 27, 1, True, dense=tpb.SCAN_BLOCK_SYMS)
+    case(43, 27, 0, False, want_hits=False, ids=np.zeros(50013, np.uint8))
+    return errs
+
+
 def many_kernel_checks(ctx, many_text: str):
     """Phase 3 for the large-dictionary lane, bit for bit against the plain
-    versions: the wide scan's kernels at W in {9, 31, 32, 64} x k in {0,
-    1 Damerau, 2, 4 Damerau} on streams of 50,013 symbols; and per chunk of
+    versions: the wide scan's kernels (``wide_kernel_checks``); and per chunk of
     the folded and the plain layout, over 1 MiB of the many1k corpus, over a
     text of 3-letter words (rows shallower than the containment test's 4
     classes), over filler only (hits, no candidate) and, with the first 300
@@ -1272,18 +1550,11 @@ def many_kernel_checks(ctx, many_text: str):
     without the containment test and the whole chunk (``many_pipeline``),
     and on the first chunk the step over hit ranges
     (``compare_many_ranges``). Returns {kernel: max_abs_err}, as measured."""
-    torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
+    np, many = ctx.np, ctx.many
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
     errs = dict.fromkeys(("scan_bits_wide", "block_offsets", "hit_words_wide", "many_step"), 0)
-    for W, A in ((9, 128), (31, 27), (32, 27), (64, 128)):
-        for k, dam in ((0, False), (1, True), (2, False), (4, True)):
-            T, words, halo = wide_tables(tpb, W, k, dam, A, SEED + W + k, ctx.dev)
-            ids = torch.from_numpy(wide_stream(words, A, 50013, SEED + W * k, k)).to(ctx.dev)
-            _n, e = compare_scan(tpb, torch, ids, T, halo,
-                                 f"wide W={W} A={A} k={k} {'Damerau' if dam else 'plain'}")
-            for key, err in zip(("scan_bits_wide", "block_offsets", "hit_words_wide"), e):
-                errs[key] = max(errs[key], err)
+    errs.update(wide_kernel_checks(ctx))
 
     short = many_words(600, SEED + 11, length=(3, 4))
     short_text = " ".join(w if i % 3 else w[:1] + "q" + w[2:]
@@ -1657,13 +1928,10 @@ def walk_stages(ctx, engine, text: str):
             "bound_ms": bound[0], "bound_by": bound[1], "root_step_library_ms": gather}
 
 
-def wide_exact_times(ctx, engine, text: str, errs_in):
-    """Phase 6 for the wide scan at k = 0 at exact-wide's main-path shape:
-    the two wide kernels and ``block_offsets`` against their plain versions
-    (``compare_scan``), then CUDA-event ms of the wide kernels beside their
-    plain versions and the bound from these inputs. Returns ({kernel: (ms,
-    plain ms, (bound ms, by), library ms)}, {kernel: max_abs_err})."""
-    torch, tpb = ctx.torch, ctx.tpb
+def exact_wide_inputs(ctx, engine, text: str):
+    """(ids, tables, halo) of the exact engine's packed scan over ``text``,
+    as its search hands them to the scan: the resident transcoded corpus."""
+    tpb = ctx.tpb
     from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
@@ -1672,28 +1940,39 @@ def wide_exact_times(ctx, engine, text: str, errs_in):
     ids, _n = device_corpus.resident(
         text, ("pk-exact", tpb._space_token(engine)),
         lambda h: pk.transcode(h, view_of(h, True), engine.dense), ctx.dev)
-    halo = pk.m_max
+    return ids, T, pk.m_max
+
+
+def wide_exact_times(ctx, engine, text: str, errs_in):
+    """Phase 6 for the wide scan at k = 0 at exact-wide's main-path shape:
+    the two wide kernels and ``block_offsets`` against their plain versions
+    (``compare_scan``), then the wide kernels' times, registers and SASS
+    (``wide_kernel_detail``) beside their plain versions' CUDA-event ms.
+    Returns ({kernel: (ms, plain ms, (bound ms, by), library ms)}, {kernel:
+    max_abs_err}, the detail)."""
+    torch, tpb = ctx.torch, ctx.tpb
+    ids, T, halo = exact_wide_inputs(ctx, engine, text)
     hits, errs = compare_scan(tpb, torch, ids, T, halo,
                               f"exact-wide main-path shape, W={T.W} k=0")
-    bits, counts = tpb.scan_bits(ids, T, halo)
-    offs = tpb.block_offsets(counts)
-    N, instr = ids.numel(), scan_instr(T.W, 0, False)
+    bits, _counts = tpb.scan_bits(ids, T, halo)
+    offs = tpb.block_offsets(_counts)
+    detail = wide_kernel_detail(ctx, ctx.kern, ids, T, halo, tpb.wide_scan_instance)
     rec = {
         "scan_bits_wide[k=0]": (
-            event_ms(torch, lambda: tpb.scan_bits(ids, T, halo), 10),
+            detail["scan_bits_wide"]["events_ms"],
             event_ms(torch, lambda: tpb.scan_bits_torch(ids, T, halo), 1),
-            bound_ms(N + N / 8 + 4 * counts.numel(), instr * N, INT_RATE), None),
+            detail["scan_bits_wide"]["bound"], None),
         "hit_words_wide[k=0]": (
-            event_ms(torch, lambda: tpb.hit_words(ids, bits, offs, hits, T, halo), 20),
+            detail["hit_words_wide"]["events_ms"],
             event_ms(torch, lambda: tpb.hit_words_torch(ids, bits, offs, hits, T, halo), 3),
-            bound_ms(N / 8 + 4 * offs.numel() + hits * (halo + 8 + 16 * T.W),
-                     instr * hits * halo, INT_RATE), None),
+            detail["hit_words_wide"]["bound"], None),
     }
     for name, (ms, plain, (b_ms, b_by), _lib) in rec.items():
-        log(f"  {name} exact-wide: {N} symbols, W={T.W}, {hits} hits, kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {b_ms:.3g} ms by {b_by} ({b_ms / ms:.3g} of the kernel's time)")
+        log(f"  {name} exact-wide: {ids.numel()} symbols, W={T.W}, {hits} hits, kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.3g} ms by {b_by} "
+            f"({b_ms / ms:.3g} of the kernel's event time)")
     return rec, {"scan_bits_wide[k=0]": errs[0], "hit_words_wide[k=0]": errs[2],
-                 "block_offsets": max(errs_in, errs[1])}
+                 "block_offsets": max(errs_in, errs[1])}, detail
 
 
 def compare_ranges(ctx, engine, text: str, thr: float, what: str):
@@ -1757,9 +2036,10 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
     and off), and the folded chunk's step over hit ranges
     (``compare_many_ranges``); then, on the folded chunk, CUDA-event ms of
     each kernel beside its plain version and the bound from these inputs,
-    and the step's passes' device ms from the profiler. Returns ({kernel:
+    and the step's passes' device ms from the profiler; the wide kernels'
+    times, registers and SASS (``wide_kernel_detail``). Returns ({kernel:
     (ms, plain ms, (bound ms, by), library ms)}, {kernel: max_abs_err},
-    {the step's pass times})."""
+    {the step's pass times}, the wide kernels' detail)."""
     torch, np, tpb, vdp, many = ctx.torch, ctx.np, ctx.tpb, ctx.vdp, ctx.many
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
@@ -1794,7 +2074,6 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
                  run.deadend, X, run.k)
     rows, pairs, n_cand = many.many_step(*step_args)
     _p, cf, _cs = many.expand_candidates_sparse(pos, words, window, run.E, X, run.ids_de, run.k)
-    instr = scan_instr(T.W, T.k, T.damerau)
     B = 2 * run.E + 1
     wj = 4 + 4 * run.k
     wp = wj + X.rd_max - X.rd_min
@@ -1811,21 +2090,21 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
                   + n_cand * (run.T.Lmax + 2 * run.E + 2) + rows.numel() * 4)
     step_bound = max(bound_ms(step_bytes, pairs * X.R * (8 * B + 4 * wj), INT_RATE),
                      bound_ms(step_bytes, cells * DP_CELL_INSTR, F32_RATE))
+    detail = wide_kernel_detail(ctx, ctx.kern, ids, T, halo, tpb.wide_scan_instance)
     rec = {
         "scan_bits_wide": (
-            event_ms(torch, lambda: tpb.scan_bits(ids, T, halo), 10),
+            detail["scan_bits_wide"]["events_ms"],
             event_ms(torch, lambda: tpb.scan_bits_torch(ids, T, halo), 1),
-            bound_ms(N + N / 8 + 4 * counts.numel(), instr * N, INT_RATE), None),
+            detail["scan_bits_wide"]["bound"], None),
         "block_offsets": (
             event_ms(torch, lambda: tpb.block_offsets(counts), 20),
             event_ms(torch, lambda: tpb.block_offsets_torch(counts), 20),
             bound_ms(8 * counts.numel() + 4, counts.numel(), INT_RATE),
             event_ms(torch, lambda: torch.cumsum(counts, 0, dtype=torch.int32), 20)),
         "hit_words_wide": (
-            event_ms(torch, lambda: tpb.hit_words(ids, bits, offs, hits, T, halo), 20),
+            detail["hit_words_wide"]["events_ms"],
             event_ms(torch, lambda: tpb.hit_words_torch(ids, bits, offs, hits, T, halo), 3),
-            bound_ms(N / 8 + 4 * offs.numel() + hits * (halo + 8 + 16 * T.W),
-                     instr * hits * halo, INT_RATE), None),
+            detail["hit_words_wide"]["bound"], None),
         "many_step": (
             event_ms(torch, lambda: many.many_step(*step_args), 20),
             event_ms(torch, lambda: many.many_step_torch(*step_args), 3),
@@ -1863,7 +2142,7 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
     whole_plain = event_ms(torch, lambda: many.many_pipeline_torch(*pipe_args), 1)
     log(f"  many_pipeline (the chunk's scan and step with their readbacks): "
         f"{whole:.4f} ms, plain {whole_plain:.4f} ms")
-    return rec, errs, passes
+    return rec, errs, passes, detail
 
 
 def main() -> int:
@@ -1932,6 +2211,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     # 2. build
     t0 = time.perf_counter()
     kern = _cuda_build.load()
+    ctx.kern = kern
     main_lines, n_inst, n_spill, max_regs = ptxas_summary(kern.log)
     log(f"phase 2 build: {kern.path.relative_to(HERE)} nvcc {kern.build_seconds:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s); {n_inst} kernel instantiations, "
@@ -2229,7 +2509,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         corpus, ("pk-exact", tpb._space_token(engine)),
         lambda h: pk.transcode(h, view_of(h, True), engine.dense), dev)
     dev_s = event_ms(torch, lambda: tpb._run_exact_kernel(ids_dev, T, pk.m_max, cols, shs), 5)
-    prof_x = profile_search(torch, lambda: engine.search_raw(corpus, 0.5), 5)
+    prof_x = profile_search(torch, lambda: engine.search_raw(corpus, 0.5), 5, tpb.LAUNCHES)
     log(f"  breakdown: search_raw {best * 1e3:.3f} ms; device pass + readback {dev_s:.3f} ms; "
         f"host rest {best * 1e3 - dev_s:.3f} ms")
     log(f"  torch.profiler over 5 searches: wall {prof_x['wall']:.3f} ms per search, device busy "
@@ -2512,12 +2792,12 @@ def smoke(torch, start_pool, workers: int) -> int:
     for lane_t in lane_times.values():
         for i, e in enumerate(lane_t.scan_errs):
             errs_scan[i] = max(errs_scan[i], e)
-    many_rec, many_main_errs, step_passes = many_kernel_times(ctx, many_e, many_text,
-                                                             MANY_THRESHOLD)
+    many_rec, many_main_errs, step_passes, many_detail = many_kernel_times(
+        ctx, many_e, many_text, MANY_THRESHOLD)
     for key, err in many_main_errs.items():
         many_errs[key] = max(many_errs[key], err)
     errs_scan[1] = max(errs_scan[1], many_errs["block_offsets"])
-    wide_rec, wide_errs = wide_exact_times(ctx, wide_e, exact_text, errs_scan[1])
+    wide_rec, wide_errs, wide_detail = wide_exact_times(ctx, wide_e, exact_text, errs_scan[1])
     errs_scan[1] = wide_errs["block_offsets"]
     # block_offsets at every shape the searches hand it, and two more, beside
     # torch.cumsum.
@@ -2575,12 +2855,12 @@ def smoke(torch, start_pool, workers: int) -> int:
                 "typed_counts_bound_ms": typed_offs["bound_ms"],
                 "typed_counts_library_ms": typed_offs["library_ms"],
                 "shapes": offs_shapes} if name == "block_offsets" else {}),
-            device_ms_per_exact_search=device_ms(prof_x, name + "_kernel"),
-            device_ms_per_fuzzy_search=device_ms(prof_f, name + "_kernel")))
+            device_ms_per_exact_search=search_ms(prof_x, name),
+            device_ms_per_fuzzy_search=search_ms(prof_f, name)))
     kernels.append(record(
         "dp_pipeline", f"{PKG}/csrc/dp_pipeline.cu", "fuzzy_aho_corasick_tpu/ops/verify_dp.py:1297",
         launches_f["dp_pipeline"], err_pipe_all, pipe_ms, pipe_plain_ms, pipe_bound, None,
-        device_ms_per_fuzzy_search=device_ms(prof_f, "dp_pipeline_kernel")))
+        device_ms_per_fuzzy_search=search_ms(prof_f, "dp_pipeline")))
     # The DP-only kernel shares the pipeline's DP body; no search runs it, so
     # it is held against its plain version here and not counted on a path.
     held = [record("banded_dp", f"{PKG}/csrc/banded_dp.cu",
@@ -2598,7 +2878,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         lane, lane_t = lane_runs[tag], lane_times[tag]
         kernels.append(record(
             name, f"{PKG}/csrc/{source}", replaces, lane.launches["dp_pipeline"], err,
-            *lane_t.pipe, None, device_ms_per_search=device_ms(lane.prof, "dp_pipeline_kernel")))
+            *lane_t.pipe, None, device_ms_per_search=search_ms(lane.prof, "dp_pipeline")))
         held.append(record(dp_name, f"{PKG}/csrc/banded_dp.cu", dp_replaces, 0, dp_err,
                            *lane_t.dp, None))
     # The typed step of phase 4d, a kernel each: what its searches launched,
@@ -2610,7 +2890,7 @@ def smoke(torch, start_pool, workers: int) -> int:
                            ("typed_emit", f"{jax_vd}:1208")):
         kernels.append(record(
             name, f"{PKG}/csrc/dp_typed.cu", replaces, lane.launches[name], lane_errs[name],
-            *lane_t.typed[name], device_ms_per_search=device_ms(lane.prof, name),
+            *lane_t.typed[name], device_ms_per_search=search_ms(lane.prof, name, name),
             typed14_ms=t14.typed[name][0], typed14_plain_ms=t14.typed[name][1],
             typed14_bound_ms=t14.typed[name][2][0]))
     held.append(record("banded_dp_typed", f"{PKG}/csrc/dp_typed.cu", f"{jax_vd}:935", 0,
@@ -2627,9 +2907,10 @@ def smoke(torch, start_pool, workers: int) -> int:
             name, f"{PKG}/csrc/{source}", replaces,
             sum(run.launches[name] for run in many_runs.values()), many_errs[name],
             *many_rec[name],
-            device_ms_per_search={tag: device_ms(run.prof, name + "_kernel")
+            device_ms_per_search={tag: search_ms(run.prof, name)
                                   for tag, run in many_runs.items()},
-            **({"pass_device_ms": step_passes} if name == "many_step" else {})))
+            **({"pass_device_ms": step_passes} if name == "many_step" else
+               wide_fields(many_detail, name))))
     # The wide kernels at k = 0, the exact-wide search of phase 4g.
     for name, replaces in (("scan_bits_wide[k=0]", f"{jax_pb}:534"),
                            ("hit_words_wide[k=0]", f"{jax_pb}:620")):
@@ -2637,7 +2918,8 @@ def smoke(torch, start_pool, workers: int) -> int:
         kernels.append(record(
             name, f"{PKG}/csrc/scan_wide.cu", replaces, exact_runs["exact-wide"].launches[base],
             wide_errs[name], *wide_rec[name],
-            device_ms_per_search=device_ms(exact_runs["exact-wide"].prof, base + "_kernel")))
+            device_ms_per_search=search_ms(exact_runs["exact-wide"].prof, base),
+            **wide_fields(wide_detail, base)))
     ranged = [{"name": f"{key}[3 ranges]", "one_range_ms": one, "three_ranges_ms": three,
                "plain_three_ranges_ms": plain} for key, one, three, plain in range_recs]
     print(json.dumps({"kernels": kernels, "held_against_plain_only": held,

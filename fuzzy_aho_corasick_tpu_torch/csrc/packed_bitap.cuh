@@ -19,7 +19,6 @@ constexpr int BLOCK_WORDS = BLOCK_SYMS / 32;
 constexpr int CHUNK_MIN = 128, CHUNK_MAX = 512;
 constexpr int SCAN_THREADS_MAX = BLOCK_SYMS / CHUNK_MIN;
 constexpr int HITS_THREADS = 256;
-constexpr int HITS_WORDS = BLOCK_WORDS / HITS_THREADS;  // bit words per thread
 constexpr int HALO_MAX = 128;
 constexpr int MAX_A = 128;
 constexpr int MAX_W = 8;
@@ -27,8 +26,6 @@ constexpr int MAX_K = 6;
 
 static_assert(CHUNK_MIN % 32 == 0 && BLOCK_SYMS % CHUNK_MAX == 0 &&
               (BLOCK_SYMS / CHUNK_MAX) % 32 == 0, "whole bit words and whole warps");
-static_assert(BLOCK_WORDS % HITS_THREADS == 0 && HITS_WORDS >= 1,
-              "hit_words_kernel gives every thread the same number of bit words");
 
 struct Tables {
   const uint64_t* tbl;      // [A, W] per-symbol limb words (symbol 0 all-zero)
@@ -156,42 +153,68 @@ __device__ __forceinline__ uint32_t clip_word(uint32_t word, long long p, long l
   return word;
 }
 
-// The positions step of the hit-word kernels: block b (of HITS_THREADS
-// threads) writes the positions of the set bits of its BLOCK_WORDS bit words
-// to pos[base ..) in ascending order. Every thread of the block calls it; it
+// The positions step of the hit-word kernels, for a block of THREADS
+// threads: ``load`` reads this thread's share of block b's BLOCK_WORDS bit
+// words (a kernel may issue it before it knows whether the block has a
+// hit); ``positions`` writes the positions of their set bits to
+// pos[base ..) in ascending order, and with ``s_pos`` those of the first
+// ``cap`` ranks to s_pos[rank] too. Every thread of the block calls it; it
 // starts and ends with a barrier, so shared-memory tables stored before it
 // and the positions written by it are visible to the whole block after it.
+template <int THREADS>
+struct BlockWords {
+  static constexpr int N = BLOCK_WORDS / THREADS;  // bit words per thread
+  static_assert(BLOCK_WORDS % THREADS == 0 && N >= 1 && THREADS % 32 == 0,
+                "every thread gets the same number of bit words");
+  uint32_t w[N];
+
+  __device__ __forceinline__ long long word0() const {
+    return (long long)blockIdx.x * BLOCK_WORDS + threadIdx.x * N;
+  }
+
+  __device__ __forceinline__ void load(const uint32_t* __restrict__ bits) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) w[j] = bits[word0() + j];
+  }
+
+  __device__ __forceinline__ void positions(int base, long long* pos, int* s_warp,
+                                            long long* s_pos = nullptr, int cap = 0) const {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) cnt += __popc(w[j]);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+      if (lane >= o) incl += up;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();  // also orders the table loads before the replays
+    int rank = incl - cnt;
+    for (int v = 0; v < warp; ++v) rank += s_warp[v];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      uint32_t m = w[j];
+      while (m != 0) {
+        const int bit = __ffs(m) - 1;
+        m &= m - 1;
+        const long long p = (word0() + j) * 32 + bit;
+        pos[base + rank] = p;
+        if (s_pos != nullptr && rank < cap) s_pos[rank] = p;
+        ++rank;
+      }
+    }
+    __syncthreads();  // the block's positions are written
+  }
+};
+
+// The positions step of hit_words_kernel (a block of HITS_THREADS threads).
 __device__ __forceinline__ void block_positions(const uint32_t* __restrict__ bits, int base,
                                                 long long* pos, int* s_warp) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long word0 = (long long)blockIdx.x * BLOCK_WORDS + tid * HITS_WORDS;
-  uint32_t mine[HITS_WORDS];
-  int cnt = 0;
-#pragma unroll
-  for (int j = 0; j < HITS_WORDS; ++j) {
-    mine[j] = bits[word0 + j];
-    cnt += __popc(mine[j]);
-  }
-  int incl = cnt;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-    if (lane >= o) incl += up;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();  // also orders the table loads before the replays
-  int rank = base + incl - cnt;
-  for (int w = 0; w < warp; ++w) rank += s_warp[w];
-#pragma unroll
-  for (int j = 0; j < HITS_WORDS; ++j) {
-    uint32_t m = mine[j];
-    while (m != 0) {
-      const int bit = __ffs(m) - 1;
-      m &= m - 1;
-      pos[rank++] = (word0 + j) * 32 + bit;
-    }
-  }
-  __syncthreads();  // the block's positions are written
+  BlockWords<HITS_THREADS> words;
+  words.load(bits);
+  words.positions(base, pos, s_warp);
 }
 
 struct Call {

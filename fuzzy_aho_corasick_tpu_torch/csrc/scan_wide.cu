@@ -5,7 +5,8 @@
 // (fuzzy_aho_corasick_tpu/ops/packed_bitap.py::_kernel_factory with
 // consts=None: tables in SMEM, the Damerau recurrence switched on by a traced
 // ``notlast``) in its two call shapes, at the widths the large-dictionary
-// lane (fuzzy_aho_corasick_tpu/ops/many.py) scans with:
+// lane (fuzzy_aho_corasick_tpu/ops/many.py) and the wide exact dictionaries
+// scan with:
 //
 //   scan_bits_wide_kernel <- _pallas_scan  : one hit BIT per stream position
 //                                            and the hits of every block;
@@ -19,26 +20,61 @@
 // (ops/packed_bitap.py) are their plain versions, and the recurrence and
 // every semantic point of packed_bitap.cu hold here as written there.
 //
-// What bounds it on the H100. At W = 31 with k = 1 under the Damerau rows a
-// chain carries 31 x 3 u64 words of state, 186 registers: one thread per
-// chain, as the narrow kernel runs it, cannot hold it, and the recurrence
-// is ~870 integer instructions per symbol, so the scan is bound by the
-// integer instruction rate, never by the 1 byte per symbol it reads. No field
-// straddles a limb and ``notlast`` is per limb, so limbs are independent:
-// a chain is a group of G lanes of one warp (G = 8 or 16), each stepping the
-// same symbols (the same 16-byte loads, one transaction for the group) on
-// its own LPL limbs (2 or 4), with the state in registers. Once per 32
-// symbols the group ORs its hit words with shuffles and its first lane
-// writes the bit word. Every chain runs the same number of steps (chains past
-// the stream read symbol 0 and write zero words), so the shuffles never meet
-// a diverged warp. The [A, W] word table, padded to G x LPL limbs with zero
-// columns, sits in dynamic shared memory (18-73 KiB; above 48 KiB the launch
-// opts in). One chain scans WIDE_CHUNK symbols after its ``halo`` warm-up.
-// hit_words_wide_kernel writes a block's positions as hit_words_kernel
-// does, then deals its hits out to its groups, each lane replaying its limbs.
-// Instances: (LPL, G) = (2, 8) for W = 9..16, (4, 8) for 17..32 and (4, 16)
-// for 33..64, each for k = 0, 1, 2 and the run-time-masked k = 3..6, with
-// and without the Damerau rows.
+// What bounds the scan on the H100: the integer instruction rate, never the
+// 1 byte per symbol it reads. No field straddles a limb and ``notlast`` is
+// per limb, so limbs are independent: a chain is a group of G lanes of one
+// warp, each stepping the same symbols (the same 16-byte loads, one
+// transaction for the group) on its own LPL limbs, with the state in
+// registers. Once per 32 symbols the group ORs its hit words with shuffles
+// and its first lane writes the bit word. Every chain runs the same number
+// of steps (chains past the stream read symbol 0 and write zero words), so
+// the shuffles never meet a diverged warp. One chain scans WIDE_CHUNK
+// symbols after its ``halo`` warm-up.
+//
+// k >= 1 (scan_chains). At W = 31 with k = 1 under the Damerau rows a chain
+// carries 31 x 3 u64 words of state, 186 registers, and ~870 instructions
+// per symbol, which hide the table reads. (LPL, G) = (2, 8) for W = 9..16,
+// (4, 8) for 17..32 and (4, 16) for 33..64, for k = 1, 2 and the
+// run-time-masked k = 3..6, with and without the Damerau rows; the [A, W]
+// word table, padded to G x LPL limbs with zero columns and to MAX_A rows,
+// sits in dynamic shared memory (18-73 KiB).
+//
+// k = 0 (scan_chains_k0). One u64 of state per limb and 6 instructions per
+// limb and symbol, so the per-symbol work a lane repeats whatever its limb
+// count (the byte, the row address, the hit test) and the table reads are
+// no longer hidden. A chain is G0 = 8 lanes of LPL = ceil(W / 8) limbs
+// (2..8: at most 7 limbs computed past W, where a 16-lane chain of 4 limbs
+// computed up to 31), so the per-symbol work is paid by 8 lanes. Only the A
+// live rows of the table are staged, plus a zero row that every symbol >= A
+// reads (the dead symbol); a lane's limbs sit side by side in 16-byte pairs
+// (an odd LPL's last pair half empty), read with one 16-byte load each, the
+// pairs rotated by lane where a slot holds an even number of them, so the
+// 8 lanes of a chain loading one row meet 8 distinct bank groups. Row 0's
+// match words stay in registers. At A = 27 and W = 43 that is 11 KiB, under
+// the 48 KiB a launch gets without opting in.
+//
+// hit_words_wide_kernel writes a block's positions as hit_words_kernel does,
+// then replays its hits a limb per thread: item i of the block is (hit i / W,
+// limb i % W), so a block with three hits of 43 limbs keeps 129 threads busy,
+// where groups of 8-16 lanes kept three groups busy. Its time is a chain of
+// dependent loads per block (offsets and bit words, positions, symbols,
+// table words) times the waves of blocks, so the design shortens both: a
+// block is 128 threads (8 fit an SM at k <= 1), loads its bit words beside
+// its offsets, keeps its first positions in shared memory, and stages
+// nothing: the table words a replay needs come through the read-only cache
+// (a replay reads halo rows of W words, the [A, W] table is a few KiB), each
+// thread issuing a batch of REPLAY_BATCH symbol loads, then their table
+// loads, then their steps. The batch is 12, so that the halos of the
+// exact-wide and many1k dictionaries (11 and 12) take one batch, in 64
+// registers without spills (16 spilled, 8 took two batches: both measured
+// slower). One instance per k (0, 1, 2, the masked 3..6) with and without
+// the Damerau rows.
+//
+// An instance that needs more than 48 KiB of dynamic shared memory (the
+// k >= 1 scan, the k = 0 scan at large A x W) is allowed its largest need
+// once per device, not at every launch.
+
+#include <atomic>
 
 #include "packed_bitap.cuh"
 
@@ -50,9 +86,13 @@ constexpr int WIDE_CHUNK = 512;                           // symbols per chain
 constexpr int WIDE_CHAINS = BLOCK_SYMS / WIDE_CHUNK;      // chains per block
 constexpr int WIDE_MAX_W = 64;
 constexpr int SMEM_DEFAULT = 48 * 1024;
+constexpr int G0 = 8;                                     // lanes per k = 0 chain
+constexpr int REPLAY_BATCH = 12;                          // symbols a replay loads at once
+constexpr int WIDE_HITS_THREADS = 128;                    // threads of a hit-word block
+constexpr int HIT_CACHE = 512;                            // positions a block keeps in smem
 
-// Dynamic shared memory of an instance: the [MAX_A, WP] word table and the
-// [K + 1, WP] match and init rows.
+// Dynamic shared memory of a k >= 1 instance: the [MAX_A, WP] word table and
+// the [K + 1, WP] match and init rows.
 constexpr size_t wide_smem(int WP, int K) {
   return (size_t)(MAX_A + 2 * (K + 1)) * WP * sizeof(uint64_t);
 }
@@ -88,12 +128,36 @@ __device__ __forceinline__ void lane_masks(const Tables& tb, int W, int l0, uint
   }
 }
 
-// A block of WIDE_CHAINS chains of G lanes covers BLOCK_SYMS symbols.
+// Lane ``lane``'s ``word`` ORed over its group of G lanes; the group's first
+// lane writes it as the bit word of positions [p, p + 32) and counts its hits.
+template <int G>
+__device__ __forceinline__ void put_word(uint32_t word, int lane, long long p, long long n,
+                                         uint32_t* __restrict__ bits, int& hits) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) word |= __shfl_xor_sync(0xFFFFFFFFu, word, o);
+  if (lane == 0) {
+    const uint32_t out = clip_word(word, p, n);
+    bits[p / 32] = out;
+    hits += __popc(out);
+  }
+}
+
+// The block's hit count, summed over its threads' ``hits``, to
+// block_counts[blockIdx.x].
+__device__ __forceinline__ void put_count(int hits, int* s_count, int* __restrict__ block_counts) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) hits += __shfl_down_sync(0xFFFFFFFFu, hits, o);
+  if ((threadIdx.x & 31) == 0 && hits != 0) atomicAdd(s_count, hits);
+  __syncthreads();
+  if (threadIdx.x == 0) block_counts[blockIdx.x] = *s_count;
+}
+
+// k >= 1: a block of WIDE_CHAINS chains of G lanes covers BLOCK_SYMS symbols.
 template <int LPL, int G, int K, bool DAM>
-__global__ void __launch_bounds__(WIDE_CHAINS * G)
-scan_bits_wide_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb, int A, int W,
-                      int k, int halo, uint32_t* __restrict__ bits,
-                      int* __restrict__ block_counts) {
+__device__ __forceinline__ void scan_chains(const uint8_t* __restrict__ ids, long long n,
+                                            const Tables& tb, int A, int W, int k, int halo,
+                                            uint32_t* __restrict__ bits,
+                                            int* __restrict__ block_counts) {
   constexpr int WP = LPL * G;
   constexpr int THREADS = WIDE_CHAINS * G;
   extern __shared__ uint64_t s_wide[];
@@ -141,120 +205,272 @@ scan_bits_wide_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb, i
     }
     cur = nxt;
     if (h & 1) {
-#pragma unroll
-      for (int o = G / 2; o > 0; o >>= 1) word |= __shfl_xor_sync(0xFFFFFFFFu, word, o);
-      if (lane == 0) {
-        const long long p = c0 + (h / 2) * 32;
-        const uint32_t out = clip_word(word, p, n);
-        bits[p / 32] = out;
-        hits += __popc(out);
-      }
+      put_word<G>(word, lane, c0 + (h / 2) * 32, n, bits, hits);
       word = 0u;
     }
   }
+  put_count(hits, &s_count, block_counts);
+}
 
+// The k = 0 table rows as staged: lane l's LPL limbs in a slot of SL u64
+// (16-byte pairs), the G0 slots of a row side by side.
+template <int LPL>
+struct K0Row {
+  static constexpr int SL = (LPL + 1) / 2 * 2;  // u64 per slot
+  static constexpr int P = SL / 2;               // 16-byte pairs per slot
+  static constexpr int RS = G0 * SL;             // u64 per row
+
+  // Offset in a row of pair q of lane l's slot. Where P is even the pairs
+  // are rotated by lane: the 8 lanes loading pair q of one row then meet 8
+  // distinct 16-byte bank groups (at odd P the slots' stride spreads them).
+  __device__ static int pair_at(int lane, int q) {
+    const int rot = P % 2 == 0 ? (lane * P / 8) % P : 0;
+    return lane * SL + 2 * ((q + rot) % P);
+  }
+
+  static constexpr size_t smem(int A) { return (size_t)(A + 1) * RS * sizeof(uint64_t); }
+};
+
+// k = 0: a block of WIDE_CHAINS chains of G0 lanes covers BLOCK_SYMS symbols.
+template <int LPL>
+__device__ __forceinline__ void scan_chains_k0(const uint8_t* __restrict__ ids, long long n,
+                                               const Tables& tb, int A, int W, int halo,
+                                               uint32_t* __restrict__ bits,
+                                               int* __restrict__ block_counts) {
+  using R = K0Row<LPL>;
+  constexpr int THREADS = WIDE_CHAINS * G0;
+  extern __shared__ __align__(16) uint64_t s_rows[];  // [A + 1, RS]; row A is zero
+  __shared__ int s_count;
+
+  const int tid = threadIdx.x, lane = tid % G0, chain = tid / G0;
+  for (int i = tid; i < (A + 1) * G0 * LPL; i += THREADS) {
+    const int a = i / (G0 * LPL), w = i - a * (G0 * LPL), l = w / LPL, j = w - l * LPL;
+    s_rows[a * R::RS + R::pair_at(l, j / 2) + (j & 1)] =
+        (a < A && w < W) ? __ldg(tb.tbl + (size_t)a * W + w) : 0ull;
+  }
+  // This lane's limbs l0 + j: state, starts and row 0's match words, all in
+  // registers; past W they are zero (a padded limb never holds a bit).
+  const int l0 = lane * LPL;
+  uint64_t d[LPL], st[LPL], m[LPL];
+  int at[R::P];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) hits += __shfl_down_sync(0xFFFFFFFFu, hits, o);
-  if ((tid & 31) == 0 && hits != 0) atomicAdd(&s_count, hits);
+  for (int j = 0; j < LPL; ++j) {
+    const bool live = l0 + j < W;
+    d[j] = live ? __ldg(tb.init + l0 + j) : 0ull;
+    st[j] = live ? __ldg(tb.starts + l0 + j) : 0ull;
+    m[j] = live ? __ldg(tb.match + l0 + j) : 0ull;
+  }
+#pragma unroll
+  for (int q = 0; q < R::P; ++q) at[q] = R::pair_at(lane, q);
+  if (tid == 0) s_count = 0;
   __syncthreads();
-  if (tid == 0) block_counts[blockIdx.x] = s_count;
+
+  // One symbol: new = ((d << 1) | starts) & row[sym]; whether some field's
+  // last bit is set.
+  auto step = [&](int sym) {
+    const uint64_t* row = s_rows + min(sym, A) * R::RS;
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int q = 0; q < R::P; ++q) {
+      const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(row + at[q]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * q + h;
+        if (j < LPL) {
+          const uint64_t x = ((d[j] << 1) | st[j]) & (h ? v.y : v.x);
+          d[j] = x;
+          const uint64_t y = x & m[j];
+          acc |= (uint32_t)y | (uint32_t)(y >> 32);
+        }
+      }
+    }
+    return acc != 0u;
+  };
+
+  const long long c0 = ((long long)blockIdx.x * WIDE_CHAINS + chain) * WIDE_CHUNK;
+  const bool aligned = (reinterpret_cast<uintptr_t>(ids) & 15) == 0;
+  for (int q = -halo; q < 0; ++q) step(sym_at(ids, n, c0 + q));
+  uint4 cur = load16(ids, n, c0, aligned), nxt = cur;
+  uint32_t word = 0u;
+  int hits = 0;
+  constexpr int rounds = WIDE_CHUNK / 16;
+#pragma unroll 1
+  for (int h = 0; h < rounds; ++h) {
+    if (h + 1 < rounds) nxt = load16(ids, n, c0 + (h + 1) * 16, aligned);
+    uint32_t half = 0u;
+#pragma unroll
+    for (int s = 0; s < 16; ++s) {
+      const uint32_t four = s < 4 ? cur.x : s < 8 ? cur.y : s < 12 ? cur.z : cur.w;
+      if (step((four >> (8 * (s & 3))) & 0xFF)) half |= 1u << s;
+    }
+    word |= half << ((h & 1) * 16);
+    cur = nxt;
+    if (h & 1) {
+      put_word<G0>(word, lane, c0 + (h / 2) * 32, n, bits, hits);
+      word = 0u;
+    }
+  }
+  put_count(hits, &s_count, block_counts);
+}
+
+template <int LPL, int G, int K, bool DAM>
+__global__ void __launch_bounds__(WIDE_CHAINS * G)
+scan_bits_wide_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb, int A, int W,
+                      int k, int halo, uint32_t* __restrict__ bits,
+                      int* __restrict__ block_counts) {
+  if constexpr (K == 0)
+    scan_chains_k0<LPL>(ids, n, tb, A, W, halo, bits, block_counts);
+  else
+    scan_chains<LPL, G, K, DAM>(ids, n, tb, A, W, k, halo, bits, block_counts);
 }
 
 // Block b writes the positions of its set bits to pos[offsets[b] ..) in
-// ascending order, then its groups of G lanes replay the NFA over the
-// ``halo`` symbols that end at each hit, a lane per LPL limbs.
-template <int LPL, int G, int K, bool DAM>
-__global__ void __launch_bounds__(HITS_THREADS)
+// ascending order (the first HIT_CACHE of them to shared memory too), then
+// its threads replay the NFA over the ``halo`` symbols that end at each hit,
+// a thread per (hit, limb). At k <= 1 the registers are held to 64, so that
+// 8 blocks fit an SM.
+template <int K, bool DAM>
+__global__ void __launch_bounds__(WIDE_HITS_THREADS, K <= 1 ? 8 : 1)
 hit_words_wide_kernel(const uint8_t* __restrict__ ids, long long n,
                       const uint32_t* __restrict__ bits, const int* __restrict__ offsets,
                       Tables tb, int A, int W, int k, int halo, long long* pos,
                       long long* __restrict__ words) {
-  constexpr int WP = LPL * G;
-  extern __shared__ uint64_t s_wide[];
-  uint64_t* s_tbl = s_wide;
-  uint64_t* s_match = s_tbl + MAX_A * WP;
-  uint64_t* s_init = s_match + (K + 1) * WP;
-  __shared__ int s_warp[HITS_THREADS / 32];
+  __shared__ int s_warp[WIDE_HITS_THREADS / 32];
+  __shared__ long long s_pos[HIT_CACHE];
 
-  const int tid = threadIdx.x;
+  BlockWords<WIDE_HITS_THREADS> mine;
+  mine.load(bits);  // in flight beside the offsets
   const int base = offsets[blockIdx.x], next = offsets[blockIdx.x + 1];
   if (next == base) return;  // no hit in this block
-  load_wide_tables<WP, K>(tb, A, W, k, s_tbl, s_match, s_init, tid, HITS_THREADS);
-  block_positions(bits, base, pos, s_warp);
+  mine.positions(base, pos, s_warp, s_pos, HIT_CACHE);
 
-  const int lane = tid % G, l0 = lane * LPL;
-  uint64_t st[LPL], nl[LPL];
-  lane_masks<LPL>(tb, W, l0, st, nl);
-  for (int r = base + tid / G; r < next; r += HITS_THREADS / G) {
-    const long long p = pos[r];
-    Nfa<LPL, K, DAM> nfa;
-    nfa.reset(s_init + l0, WP);
-    uint64_t out[LPL];
+  const int items = (next - base) * W;  // at most BLOCK_SYMS x WIDE_MAX_W
+  for (int i = threadIdx.x; i < items; i += WIDE_HITS_THREADS) {
+    const int h = i / W, w = i - h * W, r = base + h;
+    const long long p = h < HIT_CACHE ? s_pos[h] : pos[r];
+    uint64_t st = __ldg(tb.starts + w), nl = ~0ull, mt[K + 1], in[K + 1];
+    if constexpr (DAM) nl = __ldg(tb.notlast + w);
 #pragma unroll
-    for (int j = 0; j < LPL; ++j) out[j] = 0ull;
-    // Replay ids[p - halo + 1 .. p] from the fresh state; reads outside the
-    // stream are the dead symbol 0.
-    for (long long q = p - halo + 1; q <= p; ++q)
-      nfa.step_row(s_tbl + (sym_at(ids, n, q) & (MAX_A - 1)) * WP + l0, st, nl, s_match + l0,
-                   k, out, WP);
-    long long* dst = words + (long long)r * (2 * W);
-#pragma unroll
-    for (int j = 0; j < LPL; ++j) {
-      const int w = l0 + j;
-      if (w < W) {
-        dst[2 * w] = (long long)(out[j] & 0xFFFFFFFFull);
-        dst[2 * w + 1] = (long long)(out[j] >> 32);
-      }
+    for (int d = 0; d <= K; ++d) {  // rows past the call's k read as zero
+      mt[d] = d <= k ? __ldg(tb.match + d * W + w) : 0ull;
+      in[d] = d <= k ? __ldg(tb.init + d * W + w) : 0ull;
     }
+    Nfa<1, K, DAM> nfa;
+    nfa.reset(in, 1);
+    uint64_t out = 0ull;
+    // Replay ids[p - halo + 1 .. p] from the fresh state; reads outside the
+    // stream are the dead symbol 0, symbols >= A a zero row.
+    const long long q0 = p - halo + 1;
+    for (int j0 = 0; j0 < halo; j0 += REPLAY_BATCH) {
+      uint64_t bc[REPLAY_BATCH];
+#pragma unroll
+      for (int t = 0; t < REPLAY_BATCH; ++t) {
+        const int sym = j0 + t < halo ? sym_at(ids, n, q0 + j0 + t) : 0;
+        bc[t] = sym < A ? __ldg(tb.tbl + (size_t)sym * W + w) : 0ull;
+      }
+#pragma unroll
+      for (int t = 0; t < REPLAY_BATCH; ++t)
+        if (j0 + t < halo) nfa.step_row(bc + t, &st, &nl, mt, k, &out, 1);
+    }
+    long long* dst = words + (long long)r * (2 * W) + 2 * w;
+    dst[0] = (long long)(out & 0xFFFFFFFFull);
+    dst[1] = (long long)(out >> 32);
   }
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t shm) {
-  if (shm <= (size_t)SMEM_DEFAULT) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-}
+// An instance's dynamic shared memory past the 48 KiB default: allowed once
+// per device, at the instance's largest need, by its first launch that
+// needs it (the attribute outlives the launch).
+class SmemOptIn {
+ public:
+  template <typename Kern>
+  cudaError_t allow(Kern kern, size_t need, size_t most) {
+    if (need <= (size_t)SMEM_DEFAULT) return cudaSuccess;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (devices_.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    if (err == cudaSuccess) devices_.fetch_or(bit, std::memory_order_acq_rel);
+    return err;
+  }
+
+ private:
+  std::atomic<unsigned long long> devices_{0};
+};
 
 template <int LPL, int G, int K, bool DAM>
-cudaError_t launch_wide(const Call& c, int W) {
-  constexpr size_t shm = wide_smem(LPL * G, K);
-  cudaError_t err;
-  if (c.hits) {
-    auto kern = hit_words_wide_kernel<LPL, G, K, DAM>;
-    if ((err = allow_smem(kern, shm)) != cudaSuccess) return err;
-    kern<<<(unsigned)c.nblocks, HITS_THREADS, shm, c.stream>>>(
-        c.ids, c.n, c.bits, c.counts, c.tb, c.A, W, c.k, c.halo, c.pos, c.words);
-  } else {
-    if (c.chunk != WIDE_CHUNK) return cudaErrorInvalidValue;
-    auto kern = scan_bits_wide_kernel<LPL, G, K, DAM>;
-    if ((err = allow_smem(kern, shm)) != cudaSuccess) return err;
-    kern<<<(unsigned)c.nblocks, WIDE_CHAINS * G, shm, c.stream>>>(
-        c.ids, c.n, c.tb, c.A, W, c.k, c.halo, c.bits, c.counts);
-  }
+cudaError_t launch_scan(const Call& c, int W) {
+  if (c.chunk != WIDE_CHUNK) return cudaErrorInvalidValue;
+  static SmemOptIn opt_in;
+  auto kern = scan_bits_wide_kernel<LPL, G, K, DAM>;
+  const size_t shm = K == 0 ? K0Row<LPL>::smem(c.A) : wide_smem(LPL * G, K);
+  const size_t most = K == 0 ? K0Row<LPL>::smem(MAX_A) : shm;
+  const cudaError_t err = opt_in.allow(kern, shm, most);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)c.nblocks, WIDE_CHAINS * G, shm, c.stream>>>(c.ids, c.n, c.tb, c.A, W, c.k,
+                                                                c.halo, c.bits, c.counts);
   return cudaGetLastError();
 }
 
+template <int K, bool DAM>
+cudaError_t launch_hits(const Call& c, int W) {
+  hit_words_wide_kernel<K, DAM><<<(unsigned)c.nblocks, WIDE_HITS_THREADS, 0, c.stream>>>(
+      c.ids, c.n, c.bits, c.counts, c.tb, c.A, W, c.k, c.halo, c.pos, c.words);
+  return cudaGetLastError();
+}
+
+// An instance per exact row count k = 0, 1, 2, the masked one for k = 3..6,
+// with the Damerau rows at k >= 1 where the call has ``notlast``.
 template <int LPL, int G, int K>
-cudaError_t launch_wide_k(const Call& c, int W) {
-  if (K >= 1 && c.tb.notlast != nullptr) return launch_wide<LPL, G, K, K >= 1>(c, W);
-  return launch_wide<LPL, G, K, false>(c, W);
+cudaError_t launch_k(const Call& c, int W) {
+  const bool dam = K >= 1 && c.tb.notlast != nullptr;
+  if (c.hits) return dam ? launch_hits<K, K >= 1>(c, W) : launch_hits<K, false>(c, W);
+  return dam ? launch_scan<LPL, G, K, K >= 1>(c, W) : launch_scan<LPL, G, K, false>(c, W);
 }
 
 template <int LPL, int G>
-cudaError_t launch_shape(const Call& c, int W) {
+cudaError_t launch_fuzzy(const Call& c, int W) {
   switch (c.k) {
-    case 0: return launch_wide_k<LPL, G, 0>(c, W);
-    case 1: return launch_wide_k<LPL, G, 1>(c, W);
-    case 2: return launch_wide_k<LPL, G, 2>(c, W);
-    default: return launch_wide_k<LPL, G, MAX_K>(c, W);
+    case 1: return launch_k<LPL, G, 1>(c, W);
+    case 2: return launch_k<LPL, G, 2>(c, W);
+    default: return launch_k<LPL, G, MAX_K>(c, W);
   }
+}
+
+// The scan's instance table, (LPL, G) for W limbs at k: at k = 0 G0 lanes of
+// ceil(W / G0) limbs; at k >= 1 (2, 8) for W <= 16, (4, 8) for W <= 32, else
+// (4, 16). ops/packed_bitap.py::wide_scan_instance mirrors it. The hit-word
+// kernel has one instance per k.
+struct Shape {
+  int lpl, g;
+};
+
+constexpr Shape wide_shape(int W, int k) {
+  return k == 0 ? Shape{(W + G0 - 1) / G0, G0}
+         : W <= 16 ? Shape{2, 8}
+         : W <= 32 ? Shape{4, 8}
+                   : Shape{4, 16};
 }
 
 cudaError_t dispatch_wide(const Call& c, int W) {
   if (!call_ok(c) || W <= MAX_W || W > WIDE_MAX_W) return cudaErrorInvalidValue;
-  if (W <= 16) return launch_shape<2, 8>(c, W);
-  if (W <= 32) return launch_shape<4, 8>(c, W);
-  return launch_shape<4, 16>(c, W);
+  const Shape s = wide_shape(W, c.k);
+  if (c.k == 0) {
+    switch (s.lpl) {
+      case 2: return launch_k<2, G0, 0>(c, W);
+      case 3: return launch_k<3, G0, 0>(c, W);
+      case 4: return launch_k<4, G0, 0>(c, W);
+      case 5: return launch_k<5, G0, 0>(c, W);
+      case 6: return launch_k<6, G0, 0>(c, W);
+      case 7: return launch_k<7, G0, 0>(c, W);
+      default: return launch_k<8, G0, 0>(c, W);
+    }
+  }
+  if (s.lpl == 2) return launch_fuzzy<2, 8>(c, W);
+  if (s.g == 8) return launch_fuzzy<4, 8>(c, W);
+  return launch_fuzzy<4, 16>(c, W);
 }
 
 }  // namespace
@@ -264,6 +480,14 @@ extern "C" {
 // Symbols one chain of scan_bits_wide_kernel scans (the ``chunk`` its entry
 // takes).
 int fac_scan_wide_chunk() { return WIDE_CHUNK; }
+
+// The scan's instance for W limbs at k: LPL * 256 + G, or -1 outside W =
+// 9..64, k = 0..6.
+int fac_scan_wide_instance(int W, int k) {
+  if (W <= MAX_W || W > WIDE_MAX_W || k < 0 || k > MAX_K) return -1;
+  const Shape s = wide_shape(W, k);
+  return s.lpl * 256 + s.g;
+}
 
 // As fac_scan_bits (packed_bitap.cu), for W = 9..64; chunk must be
 // fac_scan_wide_chunk().

@@ -118,6 +118,8 @@ _SIGNATURES = {
     + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 3,
     "fac_scan_block_syms": [],
     "fac_scan_wide_chunk": [],
+    # W, k
+    "fac_scan_wide_instance": [_c_int, _c_int],
     "fac_dp_pipeline_threads": [],
     "fac_offsets_tile": [],
     "fac_offsets_chain_tile": [],

@@ -95,6 +95,9 @@ OFFSETS_CHAIN_TILE = 4096
 #: Symbols one chain of ``scan_bits_wide_kernel`` scans (WIDE_CHUNK in
 #: ``csrc/scan_wide.cu``; the wrapper checks it against the built library).
 SCAN_WIDE_CHUNK = 512
+#: Lanes of one chain of ``scan_bits_wide_kernel`` at k = 0 (G0 in
+#: ``csrc/scan_wide.cu``).
+WIDE_K0_LANES = 8
 #: Threads per multiprocessor a chunk length must leave the scan (see
 #: :func:`scan_chunk`): 20 warps, five per scheduler. On an H100 80GB HBM3
 #: (700 W) this picked a length within 8 % of the best of the three on
@@ -632,6 +635,21 @@ def _kernels():
     return kern
 
 
+def wide_scan_instance(W: int, k: int) -> Tuple[int, int]:
+    """(limbs per lane LPL, lanes per chain G) of the ``scan_bits_wide_kernel``
+    instance that scans ``W`` limbs (``MAX_LIMBS`` < W <= ``MAX_SCAN_LIMBS``)
+    at ``k`` error rows: the table of ``dispatch_wide`` in
+    ``csrc/scan_wide.cu``, mirrored. A chain computes LPL x G >= W limbs, the
+    ones past W zero: at k = 0 ``WIDE_K0_LANES`` lanes of ceil(W / 8) limbs
+    (at most 7 past W); at k >= 1 (2, 8) up to 16 limbs, (4, 8) up to 32,
+    else (4, 16) (at most 31 past W)."""
+    if not MAX_LIMBS < W <= MAX_SCAN_LIMBS:
+        raise ValueError(f"W = {W} outside the wide scan's {MAX_LIMBS + 1}..{MAX_SCAN_LIMBS}")
+    if k == 0:
+        return -(-W // WIDE_K0_LANES), WIDE_K0_LANES
+    return (2, 8) if W <= 16 else (4, 8) if W <= 32 else (4, 16)
+
+
 def scan_chunk(n: int, device: torch.device) -> int:
     """Symbols one thread of ``scan_bits_kernel`` scans on a stream of ``n``
     symbols: the longest of ``SCAN_CHUNKS`` (less warm-up per reported
@@ -657,22 +675,20 @@ def scan_bits(ids: torch.Tensor, T: ScanTables, halo: int, chunk: Optional[int] 
     chunks = (SCAN_WIDE_CHUNK,) if wide else SCAN_CHUNKS
     if chunk is not None and chunk not in chunks:
         raise ValueError(f"chunk {chunk} is none of {chunks}")
-    if ids.device.type == "cpu":
+    dev = ids.device
+    if dev.type == "cpu":
         return scan_bits_torch(ids, T, halo)
     n = ids.numel()
     if chunk is None:
-        chunk = SCAN_WIDE_CHUNK if wide else scan_chunk(n, ids.device)
+        chunk = SCAN_WIDE_CHUNK if wide else scan_chunk(n, dev)
     nblocks = -(-n // SCAN_BLOCK_SYMS)
-    bits = torch.empty(nblocks * (SCAN_BLOCK_SYMS // 32), dtype=torch.int32, device=ids.device)
-    counts = torch.empty(nblocks, dtype=torch.int32, device=ids.device)
-    kern = _kernels()
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        entry = kern.lib.fac_scan_bits_wide if wide else kern.lib.fac_scan_bits
-        rc = entry(
-            ids.data_ptr(), n, *_tables_args(T), halo, chunk, nblocks,
-            bits.data_ptr(), counts.data_ptr(), stream,
-        )
+    bits = torch.empty(nblocks * (SCAN_BLOCK_SYMS // 32), dtype=torch.int32, device=dev)
+    counts = torch.empty(nblocks, dtype=torch.int32, device=dev)
+    kern = _CHECKED if _CHECKED is not None else _kernels()
+    entry = kern.lib.fac_scan_bits_wide if wide else kern.lib.fac_scan_bits
+    with on_device(dev):
+        rc = entry(ids.data_ptr(), n, *_tables_args(T), halo, chunk, nblocks, bits.data_ptr(),
+                   counts.data_ptr(), stream_of(dev))
     name = "scan_bits_wide" if wide else "scan_bits"
     kern.check(rc, name)
     LAUNCHES[name] += 1
@@ -746,25 +762,24 @@ def hit_words(ids: torch.Tensor, bits: torch.Tensor, offsets: torch.Tensor,
     ``hit_words_kernel``, or ``hit_words_wide_kernel`` for tables wider than
     ``MAX_LIMBS``."""
     _check(ids, T, halo)
+    dev = ids.device
     nblocks = -(-ids.numel() // SCAN_BLOCK_SYMS)
-    _check_int32("bits", bits, nblocks * (SCAN_BLOCK_SYMS // 32), ids.device)
-    _check_int32("offsets", offsets, nblocks + 1, ids.device)
+    _check_int32("bits", bits, nblocks * (SCAN_BLOCK_SYMS // 32), dev)
+    _check_int32("offsets", offsets, nblocks + 1, dev)
     if count == 0:
-        return (torch.zeros(0, dtype=torch.int64, device=ids.device),
-                torch.zeros((0, 2 * T.W), dtype=torch.int64, device=ids.device))
-    if ids.device.type == "cpu":
+        return (torch.zeros(0, dtype=torch.int64, device=dev),
+                torch.zeros((0, 2 * T.W), dtype=torch.int64, device=dev))
+    if dev.type == "cpu":
         return hit_words_torch(ids, bits, offsets, count, T, halo)
-    pos = torch.empty(count, dtype=torch.int64, device=ids.device)
-    words = torch.empty((count, 2 * T.W), dtype=torch.int64, device=ids.device)
-    kern = _kernels()
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        wide = T.W > MAX_LIMBS
-        entry = kern.lib.fac_hit_words_wide if wide else kern.lib.fac_hit_words
-        rc = entry(
-            ids.data_ptr(), ids.numel(), bits.data_ptr(), offsets.data_ptr(),
-            *_tables_args(T), halo, nblocks, pos.data_ptr(), words.data_ptr(), stream,
-        )
+    pos = torch.empty(count, dtype=torch.int64, device=dev)
+    words = torch.empty((count, 2 * T.W), dtype=torch.int64, device=dev)
+    kern = _CHECKED if _CHECKED is not None else _kernels()
+    wide = T.W > MAX_LIMBS
+    entry = kern.lib.fac_hit_words_wide if wide else kern.lib.fac_hit_words
+    with on_device(dev):
+        rc = entry(ids.data_ptr(), ids.numel(), bits.data_ptr(), offsets.data_ptr(),
+                   *_tables_args(T), halo, nblocks, pos.data_ptr(), words.data_ptr(),
+                   stream_of(dev))
     name = "hit_words_wide" if wide else "hit_words"
     kern.check(rc, name)
     LAUNCHES[name] += 1

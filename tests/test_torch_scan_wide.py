@@ -1,0 +1,152 @@
+"""The wide packed scan (W = 9..64 limbs) at k = 0 on the CPU, where
+``packed_hits`` runs the plain versions of ``scan_bits_wide_kernel`` and
+``hit_words_wide_kernel``.
+
+(a) At every edge of the k = 0 instance table (chains of 8 lanes of
+    ceil(W / 8) limbs) and at W = 43 (the exact-wide dictionary's width),
+    the hit positions and match words equal an independent numpy brute
+    force: each field's symbols compared at every end position, setting the
+    field's last bit in its limb; hits on the first symbol, on the last and
+    across a 16,384-symbol tile edge.
+(b) At W = 43 and W = 9, traced tables, the plain versions equal the JAX
+    ``packed_hits`` (``consts=None``, Pallas in interpret mode).
+(c) ``wide_scan_instance``, the Python mirror of the kernels' instance
+    table, covers W with at most 7 padded limbs at k = 0 and 31 at k >= 1.
+
+Inputs are made with numpy from a seed; the tolerance is exact equality
+(the scan is integer)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fuzzy_aho_corasick_tpu.ops import packed_bitap as jpb
+from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
+
+#: Edges of the k = 0 instance table (LPL = 2..8 limbs per lane) and W = 43.
+K0_EDGES = (9, 16, 17, 24, 25, 32, 33, 40, 41, 43, 48, 49, 56, 57, 64)
+
+
+def _tables(W: int, A: int, seed: int):
+    """Exact (k = 0) tables of exactly ``W`` limbs over symbols 1..A-1: a
+    one-symbol field of symbol A - 1 first, then random words of 6-14
+    symbols of 1..A-2, packed until the next one would open limb W. Returns
+    (ScanTables, numpy word table [A, 2W], starts, match, init, fields as
+    (symbols, limb, bit offset), halo)."""
+    rng = np.random.default_rng(seed)
+    words = [[A - 1]]
+    while True:
+        w = rng.integers(1, A - 1, size=int(rng.integers(6, 15))).tolist()
+        offs = tpb._pack_fields([len(x) for x in words + [w]])
+        if max(lw for lw, _ in offs) + 1 > W:
+            break
+        words.append(w)
+    ms = [len(w) for w in words]
+    offs = tpb._pack_fields(ms)
+    assert max(lw for lw, _ in offs) + 1 == W
+    limb = np.zeros((A, W), np.uint64)
+    for w, (lw, lo) in zip(words, offs):
+        for i, c in enumerate(w):
+            limb[c, lw] |= np.uint64(1) << np.uint64(lo + i)
+    match, init, _k = tpb.fuzzy_masks(offs, ms, W, [0] * len(words))
+    word_tbl, starts = tpb._word_table(limb, A, W), tpb._starts_mask(offs, W)
+    T = tpb.tables_from_numpy(word_tbl, starts, match, init)
+    fields = [(w, lw, lo) for w, (lw, lo) in zip(words, offs)]
+    return T, word_tbl, starts, match, init, fields, max(ms)
+
+
+def _brute_force(ids: np.ndarray, fields, W: int):
+    """(end positions ascending, [count, W] u64 words): every end position
+    of every field's symbols in ``ids``, with the field's last bit set in
+    its limb."""
+    words = np.zeros((len(ids), W), np.uint64)
+    for syms, lw, lo in fields:
+        m = len(syms)
+        if m > len(ids):
+            continue
+        win = np.lib.stride_tricks.sliding_window_view(ids, m)
+        ends = np.nonzero((win == np.asarray(syms, np.uint8)).all(axis=1))[0] + m - 1
+        words[ends, lw] |= np.uint64(1) << np.uint64(lo + m - 1)
+    pos = np.nonzero(words.any(axis=1))[0]
+    return pos, words[pos]
+
+
+def _limb_words(words: torch.Tensor) -> np.ndarray:
+    """int64 [count, 2W] u32 halves -> u64 [count, W]."""
+    a = words.numpy().astype(np.uint64)
+    return a[:, 0::2] | (a[:, 1::2] << np.uint64(32))
+
+
+@pytest.mark.parametrize("W", K0_EDGES)
+def test_k0_hits_equal_brute_force(W):
+    A = 8
+    T, _tbl, _st, _m, _i, fields, halo = _tables(W, A, seed=100 + W)
+    rng = np.random.default_rng(W)
+    n = tpb.SCAN_BLOCK_SYMS + 1500
+    ids = rng.integers(0, A - 1, size=n).astype(np.uint8)  # symbol A - 1 only where planted
+    for at in rng.integers(0, n - 16, size=n // 60).tolist():
+        syms = fields[int(rng.integers(1, len(fields)))][0]
+        ids[at:at + len(syms)] = syms
+    longest = max((f[0] for f in fields), key=len)
+    L, edge = len(longest), tpb.SCAN_BLOCK_SYMS
+    ids[edge - L // 2:edge - L // 2 + L] = longest  # across the tile edge
+    ids[n - 1 - L:n - 1] = longest                 # ending one before the last symbol
+    ids[0] = ids[n - 1] = A - 1                    # the one-symbol field, first and last
+    want_pos, want_words = _brute_force(ids, fields, W)
+    count, pos, words = tpb.packed_hits(torch.from_numpy(ids), T, halo)
+    assert count == len(want_pos) > 100
+    assert {0, edge - L // 2 + L - 1, n - 2, n - 1} <= set(pos.tolist())
+    assert pos.tolist() == want_pos.tolist()
+    assert np.array_equal(_limb_words(words), want_words)
+
+
+@pytest.mark.parametrize("W", (43, 9))
+def test_k0_plain_equal_to_jax_traced_tables(W):
+    """The exact-wide width and the narrowest wide one, over a two-letter
+    alphabet (symbols 1, 2; the one-symbol field takes 3), which keeps the
+    interpreted Pallas body small; the dictionary's words planted at 1 in
+    60 positions."""
+    A = 4
+    T, tbl, starts, match, init, fields, halo = _tables(W, A, seed=W)
+    rng = np.random.default_rng(7 + W)
+    n, nb = 3001, 4096
+    ids = rng.integers(0, A - 1, size=n).astype(np.uint8)
+    for at in rng.integers(0, n - 16, size=n // 60).tolist():
+        syms = fields[int(rng.integers(1, len(fields)))][0]
+        ids[at:at + len(syms)] = syms
+    ids[0] = ids[n - 1] = A - 1
+    NL, TB, chunk, grid = jpb._derive_layout_resident(nb, halo, W, k=0, tables_in_vmem=True)
+    ids_pad = np.zeros(nb, np.uint8)
+    ids_pad[:n] = ids
+    count, pos, jw = jpb.packed_hits(
+        jnp.asarray(ids_pad), jnp.asarray(tbl), jnp.asarray(starts.view(np.int32)),
+        jnp.asarray(match.view(np.int32)), jnp.asarray(init.view(np.int32)), A, W, NL, TB, grid,
+        chunk, halo, 0, 4096, consts=None)
+    count = int(count)
+    assert count <= 4096
+    pos = np.asarray(pos)[:count].astype(np.int64)
+    keep = pos < n
+    before = dict(tpb.LAUNCHES)
+    got_count, got_pos, got_words = tpb.packed_hits(torch.from_numpy(ids), T, halo)
+    assert tpb.LAUNCHES == before  # CPU tensors run the plain versions
+    assert got_pos.tolist() == pos[keep].tolist() and got_count == int(keep.sum()) > 100
+    assert {0, n - 1} <= set(got_pos.tolist())
+    assert np.array_equal(got_words.numpy(), np.asarray(jw)[:count][keep].astype(np.int64))
+
+
+@pytest.mark.parametrize("k", range(tpb.MAX_K + 1))
+def test_wide_scan_instance_covers_every_width(k):
+    padded = []
+    for W in range(tpb.MAX_LIMBS + 1, tpb.MAX_SCAN_LIMBS + 1):
+        lpl, g = tpb.wide_scan_instance(W, k)
+        assert lpl * g >= W
+        padded.append(lpl * g - W)
+        if k == 0:
+            assert g == tpb.WIDE_K0_LANES and 2 <= lpl <= 8
+        else:
+            assert (lpl, g) in ((2, 8), (4, 8), (4, 16))
+    assert max(padded) == (7 if k == 0 else 31)
+    for W in (tpb.MAX_LIMBS, tpb.MAX_SCAN_LIMBS + 1):
+        with pytest.raises(ValueError):
+            tpb.wide_scan_instance(W, k)
