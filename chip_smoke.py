@@ -3,8 +3,10 @@
 
 Drives the port's main paths (the exact lane, the four lanes of the DP
 family and the large-dictionary lane) once each at full size, through the
-entry points a user calls (build an engine, ``search_raw``), and checks every
-CUDA kernel they run against its plain torch version. Phases:
+entry points a user calls (build an engine, ``search_raw``; the streaming
+search and replace, the prefilter, save / load and the small-haystack host
+path above it), and checks every CUDA kernel they run against its plain
+torch version. Phases:
 
 1. card: ``nvidia-smi`` name and power limit, CUDA version, device name;
 2. build: compile the seven sources of ``csrc/`` with nvcc (sm_90a, one
@@ -109,6 +111,34 @@ CUDA kernel they run against its plain torch version. Phases:
    readback) and its bound; then a 70-character pattern (past the packed
    lane's 64) over 1 MiB with 64 planted runs of 70-80 a's against
    ``str.find``;
+4i. the entry points above ``search_raw`` (``stream_replace_cell``,
+   ``joined_stream_cell``, ``small_entry_points``), each with the plain
+   versions and the oracle locked out and the launch counters set to 0 just
+   before it and read just after: (a) ``replace_stream_parallel`` with the
+   bench's recipe (``bench.py:390-440``: 64 shards, a table of 16
+   ``"<x>"``) on the ``edits(1)`` engine at 0.8 over the 96 MiB corpus, two
+   warm passes, best of 3 in MB/s, one ``FAC_TIME=1`` pass for the wait /
+   post / emit split, its bytes equal to ``FuzzyReplacer.replace`` over the
+   whole resident corpus and to ``replace_stream``; (b) the same for the
+   exact engine at 0.5; (c) ``search_stream_parallel`` (64 shards) of the
+   ``edits(1)`` engine over the corpus, a space and the corpus (past
+   ``RESIDENT_MAX``, so no single ``search_raw`` takes it): every match in
+   the context oracle's raw set over that text (the 96 MiB corpus's
+   per-context results reused, the oracle run here on the contexts around
+   the join) and the stream equal to that set resolved window by window,
+   in windows cut by the stream rule itself (``window_geometry``, not the
+   port's ``WindowReader``), with the device bytes the corpus cache holds
+   after it; (d) ``with_prefilter().search`` equal to ``search`` on 1 MiB
+   (device lane), ``save`` / ``load(device="cuda")`` of the ``edits(1)``
+   and many1k engines, each loaded engine equal on 1 MiB, and
+   ``search_basic`` (``bench.py:135-150``: 300 calls on a 39-character
+   haystack, microseconds per call) on the native host BFS, equal to the
+   oracle; (e) ``stream_kernel_checks``: each kernel of those paths held
+   against its plain version on the inputs they hand it, captured from one
+   more run of each stream: every DP slice of every superwindow of (a) and
+   (c) (the short last slices too), the exact scan of each superwindow of
+   (b), and the 1 MiB of (d) (its many1k engine searches the 1 MiB of
+   phase 3's many lane checks);
 5. parity (run between phases 3 and 4, while the context oracle's workers
    are busy): device vs the port's oracle on 64 KiB (exact) and 32 KiB with
    planted edits (fuzzy, each of the three lanes, and a typed engine with
@@ -430,7 +460,14 @@ def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want
     step's and block_offsets' max_abs_err; with ``errs`` (a dict) the typed
     kernels' errors are folded into it."""
     plan, run = lane_inputs(vdp, engine, text, thr, what)
-    part = run.parts[0]
+    return compare_slice_pipeline(tpb, vdp, torch, np, plan, run, run.parts[0], thr, what,
+                                  shift, want_rows, wide, errs)
+
+
+def compare_slice_pipeline(tpb, vdp, torch, np, plan, run, part, thr, what, shift=0,
+                           want_rows=True, wide=False, errs=None):
+    """``compare_pipeline`` on one slice ``part`` of the lane's inputs
+    (``plan``, ``run``)."""
     hits, pos, words = tpb.packed_hits(part.ids_pf[shift:], run.T_scan, run.halo)
     args = pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift, wide)
     rows_k, cand_k, tags_k = vdp.dp_pipeline(*args, tags=True)
@@ -867,6 +904,26 @@ def context_oracle_set(pending, workers: int, starts):
                 for p, st, en, *rest in ms:
                     want.update((p, s + st, s + en, *rest) for s in at)
     return want
+
+
+def reused_oracle_set(name: str, thr: float, base_contexts, found, workers: int, contexts,
+                      starts):
+    """:func:`context_oracle_set` for a text whose distinct word contexts are
+    mostly ``base_contexts``, whose per-context oracle results ``found``
+    (from :func:`context_oracle_start`) are reused; the port's oracle runs
+    here on the contexts that are new. Returns (set, new contexts)."""
+    by_ctx = {}
+    for w, matches in enumerate(found):
+        by_ctx.update(zip(base_contexts[w::workers], matches))
+    missing = [c for c in contexts if c not in by_ctx]
+    by_ctx.update(zip(missing, _oracle_contexts((name, thr, missing))))
+    want = set()
+    for c, at in zip(contexts, starts):
+        if by_ctx[c]:
+            at = at.tolist()
+            for p, st, en, *rest in by_ctx[c]:
+                want.update((p, s + st, s + en, *rest) for s in at)
+    return want, len(missing)
 
 
 def event_ms(torch, fn, reps: int) -> float:
@@ -2145,6 +2202,408 @@ def many_kernel_times(ctx, engine, text: str, thr: float):
     return rec, errs, passes, detail
 
 
+#: Phase 4i's stream settings, the bench's (``bench.py:390-440``): 64
+#: shards and a 16-entry replacement table; the stream rule's window bytes
+#: and smallest read.
+STREAM_SHARDS = 64
+STREAM_WINDOW = 4 << 20
+STREAM_READ_MIN = 64 << 10
+STREAM_TABLE = ["<x>"] * 16
+#: The bench's search_basic haystack and its engine's words
+#: (``bench.py:135-150``).
+BASIC_HAY = "why hello there, wrold of helpful words"
+BASIC_WORDS = ["hello", "world", "help"]
+
+
+def reset_launches(tpb) -> None:
+    for key in tpb.LAUNCHES:
+        tpb.LAUNCHES[key] = 0
+
+
+def stream_replace_cell(ctx, tag: str, engine, text: str, thr: float, locked, want_keys):
+    """Phase 4i (a) / (b): ``replace_stream_parallel`` with the bench's recipe
+    over ``text`` (two warm passes, best of 3, one ``FAC_TIME=1`` pass for
+    the stage split), the plain versions and the oracle locked out, the
+    launch counters set to 0 just before and read just after. Its bytes must
+    equal ``FuzzyReplacer.replace`` over the whole resident text (one
+    ``search_raw``) and ``replace_stream`` over the same bytes."""
+    import gc
+    import io
+
+    from fuzzy_aho_corasick_tpu_torch import FuzzyReplacer, SearchOptions
+
+    torch, tpb = ctx.torch, ctx.tpb
+    t_phase = time.perf_counter()
+    src = text.encode()
+    reset_launches(tpb)
+    with plain_locked(*locked):
+        for _ in range(2):
+            engine.replace_stream_parallel(io.BytesIO(src), io.BytesIO(), STREAM_SHARDS, thr,
+                                           STREAM_TABLE)
+        times = []
+        for _ in range(3):
+            out = io.BytesIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = engine.replace_stream_parallel(io.BytesIO(src), out, STREAM_SHARDS, thr,
+                                                     STREAM_TABLE)
+            times.append(time.perf_counter() - t0)
+        got = out.getvalue()
+        del out
+        gc.collect()
+        os.environ["FAC_TIME"] = "1"
+        try:
+            t0 = time.perf_counter()
+            engine.replace_stream_parallel(io.BytesIO(src), io.BytesIO(), STREAM_SHARDS, thr,
+                                           STREAM_TABLE)
+            timed_ms = (time.perf_counter() - t0) * 1e3
+            stages = dict(engine.last_stats)
+        finally:
+            os.environ.pop("FAC_TIME", None)
+    launches = dict(tpb.LAUNCHES)
+    best = min(times)
+    log(f"  replace_stream_parallel, {STREAM_SHARDS} shards, table {STREAM_TABLE[0]!r} x "
+        f"{len(STREAM_TABLE)}: {len(src)} bytes, best of 3 {best * 1e3:.3f} ms (all "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) = {len(src) / best / 1e6:.1f} MB/s, "
+        f"{written} bytes written, {got.count(b'<x>')} replacements; launches {launches}")
+    log(f"  FAC_TIME stages: {stages}")
+    require(written == len(got), f"{tag}: replace_stream_parallel's count")
+    require(stages.get("backend") == "replace-stream-parallel"
+            and all(k in stages for k in ("wait_ms", "post_ms", "emit_ms")),
+            f"{tag}: FAC_TIME stages")
+    require(all(launches[k] > 0 for k in want_keys),
+            f"{tag}: the stream did not launch {', '.join(want_keys)}")
+    prep_ms = min(producer_alone_ms(engine, src) for _ in range(2))
+    other = timed_ms - stages["wait_ms"] - stages["post_ms"] - stages["emit_ms"]
+    log(f"  the FAC_TIME pass {timed_ms:.3f} ms, of it outside wait, post and emit (the calling "
+        f"thread blocked on the producer's queue): {other:.3f} ms; the producer alone (window "
+        f"cuts, superwindow joins and decodes, no search): {prep_ms:.3f} ms per pass")
+    replacer = FuzzyReplacer(engine, STREAM_TABLE)
+    with plain_locked(*locked):
+        t0 = time.perf_counter()
+        whole = replacer.replace(text, SearchOptions.new().with_threshold(thr)).encode()
+        whole_s = time.perf_counter() - t0
+        seq = io.BytesIO()
+        t0 = time.perf_counter()
+        replacer.replace_stream(io.BytesIO(src), seq, thr)
+        seq_s = time.perf_counter() - t0
+    seq = seq.getvalue()
+    log(f"  whole-input FuzzyReplacer.replace {whole_s:.3f} s, replace_stream {seq_s:.3f} s "
+        f"({len(src) / seq_s / 1e6:.1f} MB/s); equal to the whole-input replace "
+        f"{got == whole}, to replace_stream {got == seq}")
+    require(got == whole, f"{tag}: replace_stream_parallel differs from the whole-input replace")
+    require(got == seq, f"{tag}: replace_stream_parallel differs from replace_stream")
+    require(got.count(b"<x>") > 1000, f"{tag}: too few replacements to be a real check")
+    log(f"  phase {tag} {time.perf_counter() - t_phase:.1f} s")
+    stages["pass_ms"], stages["outside_ms"] = timed_ms, other
+    return SimpleNamespace(times=times, launches=launches, stages=stages, prep_ms=prep_ms,
+                           replacements=got.count(b"<x>"), seq_s=seq_s, nbytes=len(src))
+
+
+def producer_alone_ms(engine, src: bytes) -> float:
+    """Milliseconds for ``replace_stream_parallel``'s producer thread alone
+    (``stream._replace_producer``, the pipeline's own) to cut ``src`` into
+    windows and assemble its superwindow batches."""
+    import io
+
+    from fuzzy_aho_corasick_tpu_torch import stream
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import clear_registered_views
+
+    wr = stream.WindowReader(io.BytesIO(src), stream.DEFAULT_WINDOW, engine.stream_overlap())
+    t0 = time.perf_counter()
+    prod = stream._replace_producer(engine, wr, STREAM_SHARDS)
+    while prod.next() is not None:
+        pass
+    ms = (time.perf_counter() - t0) * 1e3
+    clear_registered_views()
+    return ms
+
+
+def window_geometry(n: int, overlap: int):
+    """(base, bytes, commit) of each window that the stream rule cuts a
+    reader of ``n`` bytes into, where a byte is a grapheme (ASCII without
+    CR LF): a window holds the last ``overlap`` graphemes of the one before
+    it and reads on until it holds ``STREAM_WINDOW`` bytes, at least
+    ``STREAM_READ_MIN`` in one read; it owns the match starts before its
+    last ``overlap`` graphemes, where the next one begins. The first window
+    shorter than ``STREAM_WINDOW`` is the last and owns all of itself.
+    Written from the rule, not from the port's ``WindowReader``."""
+    out, base, carried = [], 0, 0
+    while True:
+        nbytes = min(n - base, max(STREAM_WINDOW, carried + STREAM_READ_MIN))
+        if nbytes < STREAM_WINDOW:
+            out.append((base, nbytes, nbytes))
+            return out
+        out.append((base, nbytes, nbytes - overlap))
+        base, carried = base + nbytes - overlap, overlap
+
+
+def windowed_reference(n: int, raw, words, overlap: int):
+    """The stream's expected output from an independent raw match set: the
+    windows of ``window_geometry(n, overlap)``, each window's raw matches
+    (those inside it) ranked in the Default order (similarity, pattern
+    length, span length descending; start, end, pattern), kept greedily
+    where they overlap no kept match, then those starting before the
+    window's commit, in start order. ``raw`` holds (pattern, start, end, f32
+    similarity bits, insertions, deletions, substitutions, swaps) over the
+    patterns ``words``."""
+    import bisect
+
+    import numpy as np
+
+    rows = np.array(sorted(raw, key=lambda r: (r[1], r[2], r[0])), dtype=np.int64)
+    plen = np.array([len(w) for w in words], dtype=np.int64)
+    sim = rows[:, 3].astype(np.uint32).view(np.float32)
+    out = []
+    for base, nbytes, commit in window_geometry(n, overlap):
+        lo, hi = np.searchsorted(rows[:, 1], [base, base + nbytes])
+        idx = np.arange(lo, hi)
+        idx = idx[rows[idx, 2] <= base + nbytes]
+        s, e, p = rows[idx, 1], rows[idx, 2], rows[idx, 0]
+        order = np.lexsort((p, e, s, -(e - s), -plen[p], -sim[idx].astype(np.float64)))
+        starts, ends, kept = [], [], []
+        for r in idx[order].tolist():
+            a, b = int(rows[r, 1]), int(rows[r, 2])
+            at = bisect.bisect_left(starts, a)
+            if (at == 0 or ends[at - 1] <= a) and (at == len(starts) or starts[at] >= b):
+                starts.insert(at, a)
+                ends.insert(at, b)
+                kept.append(r)
+        kept.sort(key=lambda r: rows[r, 1])
+        out.extend(tuple(rows[r].tolist()) for r in kept if rows[r, 1] - base < commit)
+    return out
+
+
+def joined_stream_cell(ctx, fuzzy, joined: str, raw, locked, want_keys):
+    """Phase 4i (c): ``search_stream_parallel`` over ``joined`` (past
+    ``RESIDENT_MAX``, so no single ``search_raw`` takes it), every match in
+    the context oracle's raw set ``raw`` over that text, and the stream
+    equal to that set resolved window by window (``windowed_reference``, in
+    windows cut by the stream rule, ``window_geometry``)."""
+    import io
+
+    from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+
+    torch, tpb = ctx.torch, ctx.tpb
+    t_phase = time.perf_counter()
+    data = joined.encode()
+    require(len(joined) > tpb.RESIDENT_MAX, "the joined text is under RESIDENT_MAX")
+    got = []
+    held_before = device_corpus.held_bytes()[1]
+    reset_launches(tpb)
+    with plain_locked(*locked):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = fuzzy.search_stream_parallel(io.BytesIO(data), 0.8, STREAM_SHARDS, got.append)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(tpb.LAUNCHES)
+    stats = dict(fuzzy.last_stats)
+    counted, held = device_corpus.held_bytes()
+    keys = [match_key(m) for m in got]
+    log(f"  search_stream_parallel, {STREAM_SHARDS} shards: {n} bytes ({len(joined)} graphemes, "
+        f"RESIDENT_MAX {tpb.RESIDENT_MAX}) in {dt:.3f} s = {n / dt / 1e6:.1f} MB/s, {len(got)} "
+        f"matches; last batch {stats.get('slices')} slices; launches {launches}; the LRU holds "
+        f"{held} bytes on the device (count {counted}; {held_before} before the stream), torch "
+        f"allocated {torch.cuda.memory_allocated()} bytes")
+    require(n == len(data), "the stream's byte count")
+    require(all(launches[k] > 0 for k in want_keys),
+            f"the stream did not launch {', '.join(want_keys)}")
+    require(len(set(keys)) == len(keys), "the stream repeats a match")
+    require(all(data[m.start:m.end].decode() == m.text for m in got), "a match's text")
+    outside = set(keys) - raw
+    t0 = time.perf_counter()
+    # fuzzy1's overlap by the stream rule: its longest pattern plus its one
+    # edit, plus one grapheme.
+    require(joined.isascii() and "\r\n" not in joined, "the joined text is not one byte per "
+            "grapheme")
+    want = windowed_reference(len(data), raw, HEADLINE, max(map(len, HEADLINE)) + 1 + 1)
+    log(f"  context oracle over the joined text: {len(raw)} raw matches (phase 4b's 42,666 per "
+        f"copy); stream matches outside it {len(outside)}; resolved window by window "
+        f"{len(want)} matches ({time.perf_counter() - t0:.1f} s); equal: {keys == want}")
+    require(not outside, "the stream holds a match the oracle does not")
+    require(keys == want, "the stream differs from the oracle resolved window by window")
+    require(len(want) > 20000, "too few stream matches to be a real check")
+    log(f"  phase 4i (c) {time.perf_counter() - t_phase:.1f} s")
+    return SimpleNamespace(seconds=dt, launches=launches, matches=len(got), raw=len(raw),
+                           held=held, held_before=held_before,
+                           allocated=torch.cuda.memory_allocated(), nbytes=n)
+
+
+def captured_searches(engine, drive):
+    """The texts that ``drive()`` hands ``engine.search_raw``, in order: the
+    superwindows a stream joins, as its search worker gets them."""
+    texts = []
+    search_raw = engine.search_raw
+
+    def recording(text, *args, **kw):
+        texts.append(text)
+        return search_raw(text, *args, **kw)
+
+    engine.search_raw = recording
+    try:
+        drive()
+    finally:
+        del engine.search_raw
+    return texts
+
+
+def lane_slice_checks(ctx, engine, text: str, thr: float, what: str):
+    """The DP lane's kernels against their plain versions on every slice of
+    ``text``, the short last one too: the hit-list scan's three kernels
+    (``compare_scan``), then ``dp_pipeline`` and ``block_offsets`` on the
+    step's counts (``compare_slice_pipeline``). Returns ([scan_bits,
+    block_offsets, hit_words] max_abs_err, dp_pipeline's, the slices'
+    lengths, their hits)."""
+    torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
+    plan, run = lane_inputs(vdp, engine, text, thr, what)
+    scan, pipe, hits = [0, 0, 0], 0.0, 0
+    for i, part in enumerate(run.parts):
+        tag = f"{what}, slice {i + 1} of {len(run.parts)}"
+        count, errs = compare_scan(tpb, torch, part.ids_pf, run.T_scan, run.halo, tag,
+                                   want_hits=False)
+        err, err_offs = compare_slice_pipeline(tpb, vdp, torch, np, plan, run, part, thr, tag,
+                                               want_rows=False)
+        scan = [max(a, b) for a, b in zip(scan, errs)]
+        scan[1], pipe, hits = max(scan[1], err_offs), max(pipe, err), hits + count
+    return scan, pipe, [part.local_n for part in run.parts], hits
+
+
+def stream_kernel_checks(ctx, fuzzy, exact, corpus: str, joined: str):
+    """Phase 4i (e): each kernel of 4i's paths against its plain version on
+    the inputs those paths hand it, captured from one more run of each
+    stream (``captured_searches``; its launches are not counted): every DP
+    slice of each superwindow that (a)'s ``replace_stream_parallel`` and
+    (c)'s ``search_stream_parallel`` give the ``edits(1)`` lane
+    (``lane_slice_checks``), the exact scan's three kernels on each that
+    (b) gives the exact engine, and the DP lane on the 1 MiB that (d)'s
+    prefilter and loaded ``edits(1)`` engine search. (d)'s loaded many1k
+    engine searches the 1 MiB on which phase 3 holds the many lane's
+    kernels. Returns ([scan_bits, block_offsets, hit_words] max_abs_err,
+    dp_pipeline's)."""
+    import io
+
+    torch, tpb = ctx.torch, ctx.tpb
+    t_phase = time.perf_counter()
+    src = corpus.encode()
+    jobs = [
+        ("(a)", fuzzy, 0.8, lambda: fuzzy.replace_stream_parallel(
+            io.BytesIO(src), io.BytesIO(), STREAM_SHARDS, 0.8, STREAM_TABLE)),
+        ("(b)", exact, 0.5, lambda: exact.replace_stream_parallel(
+            io.BytesIO(src), io.BytesIO(), STREAM_SHARDS, 0.5, STREAM_TABLE)),
+        ("(c)", fuzzy, 0.8, lambda: fuzzy.search_stream_parallel(
+            io.BytesIO(joined.encode()), 0.8, STREAM_SHARDS, lambda m: None)),
+    ]
+    scan, pipe = [0, 0, 0], 0.0
+    for tag, eng, thr, drive in jobs:
+        texts = captured_searches(eng, drive)
+        require(len(texts) >= 2, f"4i {tag}: the stream made {len(texts)} searches")
+        hits = 0
+        for i, text in enumerate(texts):
+            what = f"4i {tag} superwindow {i + 1} of {len(texts)} ({len(text)} graphemes)"
+            if eng is exact:
+                ids, T, halo = exact_wide_inputs(ctx, eng, text)
+                count, errs = compare_scan(tpb, torch, ids, T, halo, what, want_hits=False)
+                scan = [max(a, b) for a, b in zip(scan, errs)]
+            else:
+                errs, err, lengths, count = lane_slice_checks(ctx, eng, text, thr, what)
+                scan, pipe = [max(a, b) for a, b in zip(scan, errs)], max(pipe, err)
+                log(f"  {what}: slices of {lengths} symbols, {count} hits, every kernel equal "
+                    f"to its plain version")
+            hits += count
+        require(hits > 1000, f"4i {tag}: too few hits to be a real check")
+        del texts
+    errs, err, _lengths, hits = lane_slice_checks(ctx, fuzzy, corpus[: 1 << 20], 0.8,
+                                                  "4i (d) 1 MiB, edits(1)")
+    require(hits > 0, "4i (d): no hits to compare")
+    scan, pipe = [max(a, b) for a, b in zip(scan, errs)], max(pipe, err)
+    torch.cuda.synchronize()
+    log(f"  max_abs_err scan_bits {scan[0]}, block_offsets {scan[1]}, hit_words {scan[2]}, "
+        f"dp_pipeline {pipe}; phase 4i (e) {time.perf_counter() - t_phase:.1f} s")
+    return scan, pipe
+
+
+def small_entry_points(ctx, fuzzy, many_e, corpus: str, many_text: str, locked, keyf):
+    """Phase 4i (d): ``with_prefilter().search`` against ``search`` on 1 MiB;
+    ``save`` then ``load(device="cuda")`` of the fuzzy1 and many1k engines,
+    each loaded engine equal on 1 MiB; ``search_basic`` (the bench's
+    39-character haystack), microseconds per call over 300 calls on the
+    native host BFS, equal to the oracle."""
+    import shutil
+    import tempfile
+
+    from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasick, SearchOptions
+
+    tpb = ctx.tpb
+    out = {}
+    part = corpus[: 1 << 20]
+    opts = SearchOptions.new().with_threshold(0.8).sorted().non_overlapping()
+    reset_launches(tpb)
+    with plain_locked(*locked):
+        pf = fuzzy.with_prefilter()
+        got = [keyf(m) for m in pf.search(part, opts)]
+        pf_backend = fuzzy.last_stats["backend"]
+        want = [keyf(m) for m in fuzzy.search(part, opts)]
+    launches = dict(tpb.LAUNCHES)
+    log(f"  with_prefilter().search on {len(part)} bytes: active {pf.is_active()}, backend "
+        f"{pf_backend}, {len(got)} matches, equal to search {got == want}; launches {launches}")
+    require(pf.is_active() and pf_backend == "device-fuzzy-dp", "prefilter: not the device path")
+    require(got == want and len(got) > 100, "prefilter differs from search")
+    out["prefilter"] = {"matches": len(got), "launches": launches}
+
+    scratch = os.path.join(HERE, "build", "smoke")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)
+    try:
+        for name, eng, text, thr, backend in (
+            ("fuzzy1", fuzzy, part, 0.8, "device-fuzzy-dp"),
+            ("many1k", many_e, many_text[: 1 << 20], MANY_THRESHOLD, "device-fuzzy-many"),
+        ):
+            path = os.path.join(tmp, f"{name}.npz")
+            t0 = time.perf_counter()
+            eng.save(path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = FuzzyAhoCorasick.load(path, device="cuda")
+            load_s = time.perf_counter() - t0
+            loaded.backend = "device"
+            reset_launches(tpb)
+            with plain_locked(*locked):
+                got = sorted(map(keyf, loaded.search_raw(text, thr)))
+                lb = loaded.last_stats["backend"]
+                want = sorted(map(keyf, eng.search_raw(text, thr)))
+            launches = dict(tpb.LAUNCHES)
+            log(f"  {name}: save {save_s:.3f} s ({os.path.getsize(path)} bytes), load "
+                f"{load_s:.3f} s on {loaded.device}; loaded engine {lb}, {len(got)} matches on "
+                f"{len(text)} bytes, equal {got == want}; launches {launches}")
+            require(loaded.device.type == "cuda" and lb == backend, f"{name}: loaded engine's lane")
+            require(got == want and len(got) > 10, f"{name}: loaded engine differs")
+            out[f"save_load_{name}"] = {"save_s": save_s, "load_s": load_s, "matches": len(got),
+                                        "launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    basic = (ctx.Builder.new().fuzzy(ctx.Limits.new().edits(1)).case_insensitive(True)
+             .device(ctx.dev).build(BASIC_WORDS))
+    with plain_locked(*locked):
+        basic.search_raw(BASIC_HAY, 0.7)
+        reps = 300
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = basic.search_raw(BASIC_HAY, 0.7)
+        us = (time.perf_counter() - t0) / reps * 1e6
+        backend = basic.last_stats["backend"]
+    got = sorted(map(keyf, got))
+    basic.backend = "oracle"
+    want = sorted(map(keyf, basic.search_raw(BASIC_HAY, 0.7)))
+    log(f"  search_basic: {us:.2f} us per call over {reps} calls, backend {backend}, "
+        f"{len(got)} matches, equal to the oracle {got == want}")
+    require(backend == "native-bfs", "search_basic did not run the native BFS")
+    require(got == want and len(got) == 10, "search_basic differs from the oracle")
+    out["search_basic_us"] = us
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG}/ is not beside this script; run it from the "
@@ -2237,13 +2696,18 @@ def smoke(torch, start_pool, workers: int) -> int:
     t0 = time.perf_counter()
     mapped_contexts = pool.apply_async(word_contexts, (mapped_corpus,))
     many_contexts = pool.apply_async(word_contexts, (many_text,))
+    # Phase 4i's stream past RESIDENT_MAX: the corpus, a space, the corpus.
+    joined = corpus + " " + corpus
+    joined_contexts = pool.apply_async(word_contexts, (joined,))
     contexts_of, pending = {corpus: word_contexts(corpus)}, {}
+    results_of = {}  # (name, text, thr) -> the oracle's per-context results
 
     def oracle_start(name, text, thr):
         if text not in contexts_of:
             contexts_of[text] = word_contexts(text)
         pending[name, text, thr] = context_oracle_start(pool, workers, name, thr,
                                                         contexts_of[text][0])
+        results_of[name, text, thr] = pending[name, text, thr]
 
     def oracle_set(name, text, thr):
         if (name, text, thr) not in pending:  # a prefix the lane fell back to
@@ -2658,6 +3122,37 @@ def smoke(torch, start_pool, workers: int) -> int:
     require(long_e.last_stats["backend"] == "device-exact" and got_long_set == want_long
             and len(got_long) == len(want_long) > 64, "70-character pattern disagrees")
 
+    # 4i. The entry points above search_raw, through what a user calls:
+    # streaming replace (fuzzy1, then exact), a stream past RESIDENT_MAX, the
+    # prefilter, save / load and search_basic; plain versions and oracle
+    # locked out, the counters set to 0 before each and read after.
+    entry = {}
+    for tag, eng, thr, keys in (("4i (a) fuzzy1", fuzzy, 0.8, scan_keys + ("dp_pipeline",)),
+                                ("4i (b) exact", engine, 0.5, scan_keys)):
+        phase(f"phase {tag}: replace_stream_parallel over the {len(corpus)}-byte corpus, "
+              f"threshold {thr}:")
+        entry[tag] = stream_replace_cell(ctx, tag, eng, corpus, thr, locked, keys)
+    phase(f"phase 4i (c): search_stream_parallel, fuzzy1, over the corpus, a space and the "
+          f"corpus ({len(joined)} bytes):")
+    t0 = time.perf_counter()
+    contexts_j, starts_j = joined_contexts.get()
+    raw_j, n_new = reused_oracle_set("fuzzy1", 0.8, contexts_of[corpus][0],
+                                     results_of["fuzzy1", corpus, 0.8].get(), workers,
+                                     contexts_j, starts_j)
+    log(f"  context oracle (tail {CONTEXT_TAIL}) over the joined text: {len(contexts_j)} "
+        f"contexts, {n_new} not in the corpus's (searched here), {len(raw_j)} matches, "
+        f"{time.perf_counter() - t0:.1f} s")
+    entry["4i (c) joined"] = joined_stream_cell(ctx, fuzzy, joined, raw_j, locked,
+                                                scan_keys + ("dp_pipeline",))
+    phase("phase 4i (d): prefilter, save / load, search_basic:")
+    entry["4i (d)"] = small_entry_points(ctx, fuzzy, many_e, corpus, many_text, locked, keyf)
+    phase("phase 4i (e): the kernels of 4i's paths against their plain versions on the inputs "
+          "those paths hand them:")
+    errs_4i, err_pipe_4i = stream_kernel_checks(ctx, fuzzy, engine, corpus, joined)
+    for i, e in enumerate(errs_4i):
+        errs_scan[i] = max(errs_scan[i], e)
+    err_pipe_all = max(err_pipe_all, err_pipe_4i)
+
     # 6. times, bounds and agreement at the main paths' shapes
     phase("phase 6 times at main-path shapes (CUDA events; device time is the profiler's above):")
     plan, run = lane_inputs(vdp, fuzzy, corpus, 0.8, "main-path shapes")
@@ -2832,6 +3327,16 @@ def smoke(torch, start_pool, workers: int) -> int:
                 "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib, **extra}
 
+    # Phase 4i's paths (the streams, the prefilter, the loaded engines):
+    # their launches count as the main path's too.
+    entry_launches = [entry[tag].launches for tag in ("4i (a) fuzzy1", "4i (b) exact",
+                                                      "4i (c) joined")]
+    entry_launches += [rec["launches"] for rec in entry["4i (d)"].values()
+                       if isinstance(rec, dict)]
+
+    def entry_sum(name):
+        return sum(counts[name] for counts in entry_launches)
+
     kernels = []
     for i, (name, replaces) in enumerate((
         ("scan_bits", f"{jax_pb}:534"), ("block_offsets", "fuzzy_aho_corasick_tpu/ops/compact.py:1"),
@@ -2842,7 +3347,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         kernels.append(record(
             name, src, replaces, launches[name] + launches_f[name]
             + sum(lane.launches[name] for lane in (*lane_runs.values(), *many_runs.values(),
-                                                   *exact_runs.values())),
+                                                   *exact_runs.values())) + entry_sum(name),
             errs_scan[i], ms, plain,
             bound, lib, fuzzy_ms=f_ms, fuzzy_plain_ms=f_plain, fuzzy_bound_ms=f_bound[0],
             **({"pipeline_counts_ms": offs_pipe_rec[0], "pipeline_counts_plain_ms": offs_pipe_rec[1],
@@ -2859,7 +3364,8 @@ def smoke(torch, start_pool, workers: int) -> int:
             device_ms_per_fuzzy_search=search_ms(prof_f, name)))
     kernels.append(record(
         "dp_pipeline", f"{PKG}/csrc/dp_pipeline.cu", "fuzzy_aho_corasick_tpu/ops/verify_dp.py:1297",
-        launches_f["dp_pipeline"], err_pipe_all, pipe_ms, pipe_plain_ms, pipe_bound, None,
+        launches_f["dp_pipeline"] + entry_sum("dp_pipeline"),
+        err_pipe_all, pipe_ms, pipe_plain_ms, pipe_bound, None,
         device_ms_per_fuzzy_search=search_ms(prof_f, "dp_pipeline")))
     # The DP-only kernel shares the pipeline's DP body; no search runs it, so
     # it is held against its plain version here and not counted on a path.
@@ -2905,7 +3411,8 @@ def smoke(torch, start_pool, workers: int) -> int:
     ):
         kernels.append(record(
             name, f"{PKG}/csrc/{source}", replaces,
-            sum(run.launches[name] for run in many_runs.values()), many_errs[name],
+            sum(run.launches[name] for run in many_runs.values()) + entry_sum(name),
+            many_errs[name],
             *many_rec[name],
             device_ms_per_search={tag: search_ms(run.prof, name)
                                   for tag, run in many_runs.items()},
@@ -2922,7 +3429,20 @@ def smoke(torch, start_pool, workers: int) -> int:
             **wide_fields(wide_detail, base)))
     ranged = [{"name": f"{key}[3 ranges]", "one_range_ms": one, "three_ranges_ms": three,
                "plain_three_ranges_ms": plain} for key, one, three, plain in range_recs]
+    streams = {tag: {"bytes": run.nbytes, "ms": [t * 1e3 for t in run.times],
+                     "mb_per_s": run.nbytes / min(run.times) / 1e6, "stages": run.stages,
+                     "replacements": run.replacements, "launches": run.launches,
+                     "producer_alone_ms": run.prep_ms, "replace_stream_s": run.seq_s}
+               for tag, run in entry.items() if tag.startswith(("4i (a)", "4i (b)"))}
+    jr = entry["4i (c) joined"]
+    streams["4i (c) joined"] = {"bytes": jr.nbytes, "s": jr.seconds, "matches": jr.matches,
+                                "oracle_raw_matches": jr.raw, "launches": jr.launches,
+                                "lru_device_bytes": jr.held,
+                                "lru_device_bytes_before": jr.held_before,
+                                "torch_allocated_bytes": jr.allocated}
+    streams["4i (d)"] = entry["4i (d)"]
     print(json.dumps({"kernels": kernels, "held_against_plain_only": held,
+                      "entry_points": streams,
                       "ranged_pipelines": ranged, "torch_paths": [walk_rec],
                       "scan_chunk_sweep": sweep,
                       "searches": {

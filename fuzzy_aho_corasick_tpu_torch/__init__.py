@@ -1,15 +1,25 @@
 """fuzzy_aho_corasick_tpu_torch — the PyTorch + CUDA port of
 ``fuzzy_aho_corasick_tpu``.
 
-Same public surface as the JAX package for the parts ported so far: build an
-engine, call ``search_raw`` / ``search`` / the segmentation helpers. Exact
-search (the packed shift-AND lane, then a goto walk in torch for the
-dictionaries that do not pack), the DP family of fuzzy searches (a uniform
-edit budget, edit types switched off, per-type and per-pattern limits,
-multi-character mappings) and fuzzy search over large dictionaries run on the
-GPU through hand-written CUDA kernels (``csrc/*.cu``, built with ``nvcc`` at
-first use); configurations whose device lanes are not ported yet (the beam
-lanes, fuzzy corpora past ``RESIDENT_MAX``) raise ``NotImplementedError``.
+The JAX package's public surface: build an engine, call ``search_raw`` /
+``search`` / the segmentation helpers, ``replace``, the prefilter
+(``with_prefilter``, :class:`Prefiltered`), find-and-replace
+(``build_replacer``, :class:`FuzzyReplacer`), streaming search and replace
+over a byte reader of any length (``search_stream``, ``stream_matches``,
+``search_stream_parallel``, ``replace_stream``, ``replace_stream_parallel``;
+:class:`StreamMatch`, :class:`StreamMatches`) and ``save`` / ``load`` in the
+JAX package's ``.npz`` format. Exact search (the packed shift-AND lane, then
+a goto walk in torch for the dictionaries that do not pack), the DP family
+of fuzzy searches (a uniform edit budget, edit types switched off, per-type
+and per-pattern limits, multi-character mappings) and fuzzy search over
+large dictionaries run on the GPU through hand-written CUDA kernels
+(``csrc/*.cu``, built with ``nvcc`` at first use into ``build/kernels/``).
+Small haystacks (under ``AUTO_DEVICE_MIN``) run the native-C host BFS
+(``native/fastpath.c``, built with ``gcc`` at first use into
+``build/native/``; the pure-Python oracle where there is no ``gcc``).
+What still raises ``NotImplementedError``: configurations that the JAX
+package serves on its beam lanes, and one ``search_raw`` call on a fuzzy
+engine past ``RESIDENT_MAX`` graphemes (a stream of that size is served).
 
 The engine's device tables live on a torch device, ``cuda`` by default::
 
@@ -33,6 +43,9 @@ from .builder import FuzzyAhoCorasickBuilder
 from .errors import HaystackTooLarge, SearchError
 from .matches import FuzzyMatches
 from .options import DEFAULT_THRESHOLD, Order, Overlap, SearchOptions
+from .prefilter import Prefiltered
+from .replacer import FuzzyReplacer
+from .stream import StreamMatch, StreamMatches
 from .structs import (
     FuzzyLimits,
     FuzzyMatch,
@@ -54,16 +67,20 @@ __all__ = [
     "FuzzyMatch",
     "FuzzyMatches",
     "FuzzyPenalties",
+    "FuzzyReplacer",
     "HaystackTooLarge",
     "NumEdits",
     "Order",
     "Overlap",
     "Pattern",
     "PatternIndex",
+    "Prefiltered",
     "SearchError",
     "SearchOptions",
     "Segment",
     "Similarity",
+    "StreamMatch",
+    "StreamMatches",
     "UnmatchedSegment",
     "DEFAULT_THRESHOLD",
 ]

@@ -9,11 +9,14 @@ configuration is kernel-eligible, and to the host oracle otherwise — both
 produce identical match sets (differential-tested).
 
 The port carries the exact lane, the DP family (the uniform-budget fuzzy
-lane and the forbid, typed and mapped lanes) and the large-dictionary lane.
-A configuration that the JAX package serves on one of its other device lanes
-(the beam frontier) raises ``NotImplementedError`` instead of silently
-running the pure-Python oracle on a device-sized haystack. Prefilter,
-streaming and serialization are not ported yet either (ROADMAP queue A).
+lane and the forbid, typed and mapped lanes), the large-dictionary lane, the
+native-C host BFS for small haystacks, and every entry point above
+``search_raw``: the prefilter, streaming search and replace, and
+save / load. A configuration that the JAX package serves on one of its
+other device lanes (the beam frontier, or one ``search_raw`` call past
+``RESIDENT_MAX`` graphemes on a fuzzy engine) raises ``NotImplementedError``
+instead of silently running the pure-Python oracle on a device-sized
+haystack; a stream of any length is served window by window.
 """
 
 from __future__ import annotations
@@ -165,8 +168,16 @@ class FuzzyAhoCorasick:
         )
 
     def _host_search(self, haystack: str, threshold: float) -> List[FuzzyMatch]:
-        """Host path: the pure-Python oracle (the JAX package's native-C BFS
-        lane is not ported)."""
+        """Host path: the native-C BFS lane when the configuration fits its
+        envelope (the reference's monomorphized hot loop in native code,
+        src/search.rs:418-1119), else the pure-Python oracle. ``backend =
+        "oracle"`` bypasses this so differential tests keep an independent
+        reference implementation."""
+        from .ops import native_bfs
+
+        res = native_bfs.search_raw(self, haystack, threshold)
+        if res is not None:
+            return res
         return oracle.search_raw(self, haystack, threshold)
 
     def search(self, haystack: str, opts: SearchOptions) -> FuzzyMatches:
@@ -215,7 +226,9 @@ class FuzzyAhoCorasick:
 
     # --- prefilter (reference src/prefilter.rs:95-119) ------------------
     def with_prefilter(self):
-        not_ported("with_prefilter", "item 8")
+        from .prefilter import Prefiltered
+
+        return Prefiltered(self)
 
     # --- streaming (reference src/stream.rs) ----------------------------
     def max_match_graphemes(self) -> int:
@@ -250,26 +263,45 @@ class FuzzyAhoCorasick:
         return self.max_match_graphemes() + 1
 
     def search_stream(self, reader, threshold: float, on_match) -> int:
-        not_ported("streaming", "item 8")
+        from .stream import search_stream
+
+        return search_stream(self, reader, threshold, on_match)
 
     def stream_matches(self, reader, threshold: float):
-        not_ported("streaming", "item 8")
+        from .stream import StreamMatches
+
+        return StreamMatches(self, reader, threshold)
 
     def search_stream_parallel(self, reader, threshold: float, shards: int, on_match) -> int:
-        not_ported("streaming", "item 8")
+        from .stream import search_stream_parallel
+
+        return search_stream_parallel(self, reader, threshold, shards, on_match)
 
     def replace_stream(self, reader, writer, threshold: float, callback) -> int:
-        not_ported("streaming", "item 8")
+        from .stream import replace_stream
+
+        return replace_stream(self, reader, writer, threshold, callback)
 
     def replace_stream_parallel(self, reader, writer, shards: int, threshold: float, callback) -> int:
-        not_ported("streaming", "item 8")
+        from .stream import replace_stream_parallel
 
+        return replace_stream_parallel(self, reader, writer, shards, threshold, callback)
+
+    # --- checkpointing (serialize.py) -------------------------------------
     def save(self, path: str) -> None:
-        not_ported("serialization", "item 10")
+        """Serialize the compiled automaton to a ``.npz`` in the JAX
+        package's format (see serialize.save)."""
+        from . import serialize
+
+        serialize.save(self, path)
 
     @staticmethod
-    def load(path: str) -> "FuzzyAhoCorasick":
-        not_ported("serialization", "item 10")
+    def load(path: str, device="cuda") -> "FuzzyAhoCorasick":
+        """Load an engine saved by either package; its device tables are
+        built on ``device`` (see serialize.load)."""
+        from . import serialize
+
+        return serialize.load(path, device)
 
     def __repr__(self) -> str:
         bits = []
@@ -290,10 +322,3 @@ def checked_device(device) -> torch.device:
             "pass device='cpu' explicitly to run the plain torch kernels"
         )
     return dev
-
-
-def not_ported(feature: str, item: str):
-    """Raise for an entry point whose port is still queued in the ROADMAP."""
-    raise NotImplementedError(
-        f"{feature} is not ported to the torch package yet (ROADMAP queue A {item})"
-    )

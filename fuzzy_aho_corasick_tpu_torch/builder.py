@@ -161,11 +161,19 @@ class FuzzyAhoCorasickBuilder:
         self._device = device
         return self
 
-    def build_replacer(self, pairs):
-        """Not ported yet (ROADMAP queue A item 8)."""
-        from .automaton import not_ported
+    def build_replacer(self, pairs) -> "FuzzyReplacer":
+        """Build a turnkey replacer from (pattern, replacement) pairs — any
+        iterable of 2-tuples, or a dict (reference src/builder.rs:156-168)."""
+        from .replacer import FuzzyReplacer
 
-        not_ported("build_replacer", "item 8")
+        if isinstance(pairs, dict):
+            pairs = pairs.items()
+        patterns = []
+        replacements = []
+        for p, r in pairs:
+            patterns.append(p)
+            replacements.append(r)
+        return FuzzyReplacer(self.build(patterns), replacements)
 
     def build(self, inputs: Iterable) -> "FuzzyAhoCorasick":
         """Compile the pattern set into an immutable engine

@@ -216,15 +216,16 @@ class DenseAutomaton:
 
     # ------------------------------------------------------------------
     def transcode_ascii(self, haystack: str, data: bytes = None) -> np.ndarray:
-        """All-ASCII haystack -> class-id stream (a 256-entry table gather);
-        uint8 when the alphabet fits, else int32. ``data``: pre-encoded
-        bytes, skips the encode copy."""
+        """All-ASCII haystack -> class-id stream (native C loop when built,
+        NumPy otherwise); uint8 when the alphabet fits, else int32.
+        ``data``: pre-encoded bytes, skips the encode copy."""
+        from ..utils import native
+
         if data is None:
             data = haystack.encode("ascii")
-        raw = np.frombuffer(data, dtype=np.uint8)
         if self.ascii_class_u8 is not None:
-            return self.ascii_class_u8[raw]
-        return self.ascii_class[raw]
+            return native.transcode_bytes_u8(data, self.ascii_class_u8)
+        return native.transcode_bytes_i32(data, self.ascii_class)
 
     def transcode(self, haystack: str, view=None) -> Optional[np.ndarray]:
         """Haystack -> class-id stream, or None if not transcodable (device

@@ -257,10 +257,12 @@ class PackedExact:
         )
 
     def transcode(self, haystack: str, view, dense) -> np.ndarray:
-        """Haystack -> packed u8 symbol stream (a 256-entry table gather on
-        the host for ASCII)."""
+        """Haystack -> packed u8 symbol stream (native byte-table path for
+        ASCII)."""
+        from ..utils import native
+
         if view.ascii:
-            return self.ascii_tbl[np.frombuffer(view.hay_bytes(), dtype=np.uint8)]
+            return native.transcode_bytes_u8(view.hay_bytes(), self.ascii_tbl)
         ids = dense.transcode(haystack, view)
         return self.remap[np.minimum(ids, len(self.remap) - 1)]
 

@@ -1,20 +1,29 @@
-"""Bit-parallel (Bitap / Wu-Manber) pre-filter model (reference: src/prefilter.rs).
+"""Bit-parallel (Bitap / Wu-Manber) pre-filter (reference: src/prefilter.rs).
 
-Host copy of the JAX package's ``prefilter`` tables: the per-pattern bit
-masks, the symbol alphabet and the threshold-derived error budgets
-(``k_for``). The fuzzy DP lane packs these into the shift-AND scan's limb
-tables (``ops/packed_bitap.PackedFuzzy``).
+Host copy of the JAX package's ``prefilter``. An opt-in fast lane with an
+**identical results** guarantee: the shift-AND scan admits every region
+whose unit-cost Levenshtein distance to some pattern is within a
+conservatively derived budget ``k``, and the full engine re-searches only
+those candidate windows. Configurations that don't reduce to the bit model
+(mappings, patterns > 63 graphemes, free edits, > 255 distinct symbols, huge
+``k``) transparently fall back to the full search.
 
-The public pre-filtered search (``Prefiltered``, ``search_unsorted``) is not
-ported yet (ROADMAP queue A item 8) and raises.
+The same tables (per-pattern bit masks, the symbol alphabet, the
+threshold-derived budgets ``k_for``) feed the fuzzy DP lane's packed
+shift-AND scan on the card (``ops/packed_bitap.PackedFuzzy``); on inputs the
+device serves, ``Prefiltered`` routes there. The host scan for the rest is
+:mod:`fuzzy_aho_corasick_tpu_torch.ops.bitap` (native C, NumPy fallback).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .matches import FuzzyMatches
+from .options import SearchOptions
 from .structs import FuzzyLimits, FuzzyMatch, f32
 from .utils.graphemes import fold_graphemes, graphemes
 
@@ -148,10 +157,15 @@ class BitapFilter:
         """Haystack -> u8 symbol-id stream + grapheme->byte offsets
         (reference src/prefilter.rs:251-281). Offsets ``None`` = identity
         (all-ASCII). ``hay_bytes``: the haystack's already-encoded bytes, if
-        the caller has them."""
+        the caller has them (streaming superwindows are built bytes-first)."""
         if haystack.isascii():
+            from .utils import native
+
             data = hay_bytes if hay_bytes is not None else haystack.encode("ascii")
-            return self.ascii_id[np.frombuffer(data, dtype=np.uint8)], None
+            # Native C table pass: the numpy fancy-index gather holds the
+            # GIL; the C loop releases it for the streaming pipeline's other
+            # threads.
+            return native.transcode_bytes_u8(data, self.ascii_id), None
         from .utils.graphemes import map_singleton_chars, view_of
 
         view = view_of(haystack, self.case_insensitive)
@@ -195,17 +209,104 @@ class BitapFilter:
         return None if k > MAX_USEFUL_K else k
 
     def search_unsorted(self, engine, haystack: str, threshold: float) -> List[FuzzyMatch]:
-        """Pre-filtered raw search: not ported yet."""
-        from .automaton import not_ported
+        """Pre-filtered raw search (reference src/prefilter.rs:304-374).
 
-        not_ported("the pre-filtered search", "item 8")
+        On kernel-eligible configurations the fast lane IS the device path:
+        the packed multi-pattern shift-AND scan is fused into the device
+        pipelines (ops/packed_bitap feeding ops/verify_dp — the device form
+        of the reference's scan-then-re-search), so ``Prefiltered`` routes
+        straight there and only the host window re-search below serves the
+        residual configs (oracle-only engines, tiny inputs).
+        """
+        thr = np.float32(threshold)
+        if engine.backend != "oracle" and len(haystack) >= engine.AUTO_DEVICE_MIN:
+            dev = engine._device_engine()
+            if dev.supports(haystack):
+                return dev.search_raw(haystack, threshold)
+        # Per-pattern budget model: the Damerau-aware recurrence (swap = 1
+        # error — the host form of the packed kernel's pending-transposition
+        # rows, ops/bitap.bitap_windows) whenever it shrinks k; the plain
+        # model otherwise (pending rows cost a little per step and win
+        # nothing when swaps are forbidden), as the device lanes take it.
+        ks: List[int] = []
+        dams: List[bool] = []
+        for bp in self.patterns:
+            k = self.k_for(bp, thr)
+            k_d = self.k_for(bp, thr, damerau=True)
+            dam = k_d is not None and (k is None or k_d < k)
+            if dam:
+                k = k_d
+            if k is None:
+                return engine.search_raw(haystack, threshold)
+            ks.append(k)
+            dams.append(dam)
+
+        ids, offsets = self.transcode(haystack)
+        n = len(ids)
+
+        from .ops.bitap import bitap_windows_auto
+
+        windows: List[Tuple[int, int]] = []
+        for bp, k, dam in zip(self.patterns, ks, dams):
+            bitap_windows_auto(bp.mask, bp.m, k, ids, windows, damerau=dam)
+        if not windows:
+            return []
+
+        windows.sort()
+        merged: List[List[int]] = []
+        for s, e in windows:
+            if merged and s <= merged[-1][1]:
+                if e > merged[-1][1]:
+                    merged[-1][1] = e
+            else:
+                merged.append([s, e])
+
+        hay_bytes = haystack.encode("utf-8")
+
+        def byte_of(i: int) -> int:
+            return i if offsets is None else offsets[i]
+
+        best: Dict[Tuple[int, int, int], FuzzyMatch] = {}
+        for gs, ge in merged:
+            bstart = byte_of(gs)
+            bend = byte_of(min(ge, n))
+            sub = hay_bytes[bstart:bend].decode("utf-8")
+            for m in engine.search_raw(sub, threshold):
+                start = bstart + m.start
+                end = bstart + m.end
+                key = (start, end, m.pattern_index)
+                entry = best.get(key)
+                if entry is None or m.similarity > entry.similarity:
+                    best[key] = dataclasses.replace(
+                        m,
+                        start=start,
+                        end=end,
+                        text=hay_bytes[start:end].decode("utf-8"),
+                    )
+        inner = sorted(best.values(), key=lambda m: (m.start, m.end, m.pattern_index))
+        return inner
 
 
 class Prefiltered:
-    """An engine wrapped with the bit-parallel pre-filter: not ported yet
-    (ROADMAP queue A item 8)."""
+    """An engine wrapped with an optional bit-parallel pre-filter
+    (reference src/prefilter.rs:57-156). Obtain via
+    :meth:`FuzzyAhoCorasick.with_prefilter`."""
 
     def __init__(self, engine):
-        from .automaton import not_ported
+        self.engine = engine
+        self.filter = BitapFilter.build(engine)
 
-        not_ported("Prefiltered", "item 8")
+    def is_active(self) -> bool:
+        """Whether a usable filter was built (reference src/prefilter.rs:121-127)."""
+        return self.filter is not None
+
+    def search(self, haystack: str, opts: SearchOptions) -> FuzzyMatches:
+        """Identical results to ``engine.search`` (reference src/prefilter.rs:135-143)."""
+        opts = SearchOptions.coerce(opts)
+        if self.filter is not None:
+            inner = self.filter.search_unsorted(self.engine, haystack, opts.threshold)
+        else:
+            inner = self.engine.search_raw(haystack, opts.threshold)
+        matches = FuzzyMatches(haystack, inner)
+        matches.apply(opts.order, opts.overlap)
+        return matches

@@ -17,10 +17,17 @@ zero-padded buffers of one common length, for the sliced fuzzy DP lane.
 The JAX package also keeps a packed u32 word view of each corpus
 (``resident_words``) for its aligned window fetch; the CUDA kernels read the
 u8 stream directly, so the port does not carry it.
+
+Searches run off the main thread (the parallel streaming replace's search
+workers), so every read and write of the LRU, its byte count and the
+verified-pair cache happens under one lock. The transcode and the upload of
+a miss run outside it; two threads that miss on one key both upload, and the
+second insert replaces the first, its bytes counted once.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Callable, List, Optional, Tuple
 
@@ -38,6 +45,8 @@ TAIL_MARGIN = 128
 
 _lru: "OrderedDict[tuple, tuple]" = OrderedDict()  # key -> (hay, dev, n)
 _held_bytes = 0
+#: Guards ``_lru``, ``_held_bytes`` and ``_VERIFIED``.
+_LOCK = threading.Lock()
 
 #: Above this length the cache key samples the content instead of hashing
 #: all of it. Hits are still verified by full string equality, so a sample
@@ -70,11 +79,49 @@ def _hit_fresh(hkey: tuple, stored, haystack: str) -> bool:
     return False
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _lookup(hkey: tuple, key: tuple, haystack: str):
+    """The entry under ``key`` if it holds ``haystack``, marked most recent
+    (caller holds ``_LOCK``)."""
+    hit = _lru.get(key)
+    if hit is None or not _hit_fresh(hkey, hit[0], haystack):
+        return None
+    if hit[0] is not haystack:  # skip the memcmp for the sibling lookups
+        hit = (haystack,) + hit[1:]
+        _lru[key] = hit
+    _lru.move_to_end(key)
+    return hit
+
+
+def _insert(key: tuple, entry: tuple) -> None:
+    """Store ``entry`` = (hay, tensor, n) under ``key``, replacing (and
+    uncounting) an entry another thread stored meanwhile (caller holds
+    ``_LOCK``)."""
+    global _held_bytes
+    old = _lru.pop(key, None)
+    if old is not None:
+        _held_bytes -= _nbytes(old[1])
+    _lru[key] = entry
+    _held_bytes += _nbytes(entry[1])
+
+
 def _evict_to_capacity() -> None:
+    """Drop the least recent entries past ``CAPACITY_BYTES`` (caller holds
+    ``_LOCK``)."""
     global _held_bytes
     while _held_bytes > CAPACITY_BYTES and len(_lru) > 1:
         _, (_, old_dev, _old_n) = _lru.popitem(last=False)
-        _held_bytes -= old_dev.numel() * old_dev.element_size()
+        _held_bytes -= _nbytes(old_dev)
+
+
+def held_bytes() -> tuple:
+    """(the byte count the cache keeps, the bytes its entries hold): equal
+    whenever no call is inside the cache."""
+    with _LOCK:
+        return _held_bytes, sum(_nbytes(e[1]) for e in _lru.values())
 
 
 def _content_key(haystack: str) -> tuple:
@@ -114,14 +161,11 @@ def resident(
     alphabet id); zero must be a dead symbol in that space (the pad tail).
     Returns (tensor, n).
     """
-    global _held_bytes
     hkey = _content_key(haystack)
     key = hkey + (space, str(device))
-    hit = _lru.get(key)
-    if hit is not None and _hit_fresh(hkey, hit[0], haystack):
-        if hit[0] is not haystack:  # skip the memcmp for the sibling lookups
-            _lru[key] = (haystack,) + hit[1:]
-        _lru.move_to_end(key)
+    with _LOCK:
+        hit = _lookup(hkey, key, haystack)
+    if hit is not None:
         return hit[1], hit[2]
 
     ids = transcode(haystack)
@@ -131,9 +175,9 @@ def resident(
     pad[:n] = ids
     dev = torch.from_numpy(pad).to(device)
 
-    _held_bytes += dev.numel() * dev.element_size()
-    _lru[key] = (haystack, dev, n)
-    _evict_to_capacity()
+    with _LOCK:
+        _insert(key, (haystack, dev, n))
+        _evict_to_capacity()
     return dev, n
 
 
@@ -153,20 +197,17 @@ def resident_sliced(
     corpus, so every symbol past a slice's ``local_n`` is the dead symbol 0.
     Transcodes the whole haystack at most once per miss and ships each slice
     at most once per (content, space, device)."""
-    global _held_bytes
     hkey = _content_key(haystack)
     keys = [hkey + (space, "sl", base, ln, pad_len, str(device)) for base, ln in bounds]
     res: List[Optional[torch.Tensor]] = [None] * len(bounds)
     missing = []
-    for i, key in enumerate(keys):
-        hit = _lru.get(key)
-        if hit is not None and _hit_fresh(hkey, hit[0], haystack):
-            if hit[0] is not haystack:
-                _lru[key] = (haystack,) + hit[1:]
-            _lru.move_to_end(key)
-            res[i] = hit[1]
-        else:
-            missing.append(i)
+    with _LOCK:
+        for i, key in enumerate(keys):
+            hit = _lookup(hkey, key, haystack)
+            if hit is not None:
+                res[i] = hit[1]
+            else:
+                missing.append(i)
     if not missing:
         return res
 
@@ -177,17 +218,18 @@ def resident_sliced(
         base, ln = bounds[i]
         pad = np.zeros(pad_len, dtype=np.uint8)
         pad[:ln] = ids_full[base : base + ln]
-        dev = torch.from_numpy(pad).to(device)
-        res[i] = dev
-        _held_bytes += pad_len
-        _lru[keys[i]] = (haystack, dev, ln)
-    _evict_to_capacity()
+        res[i] = torch.from_numpy(pad).to(device)
+    with _LOCK:
+        for i in missing:
+            _insert(keys[i], (haystack, res[i], bounds[i][1]))
+        _evict_to_capacity()
     return res
 
 
 def clear() -> None:
     """Drop every cached device buffer (tests / memory pressure)."""
     global _held_bytes
-    _lru.clear()
-    _VERIFIED.clear()
-    _held_bytes = 0
+    with _LOCK:
+        _lru.clear()
+        _VERIFIED.clear()
+        _held_bytes = 0

@@ -106,13 +106,69 @@ def test_port_sources_import_no_jax():
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|fuzzy_aho_corasick_tpu)(\.|\s|$)", re.M
     )
-    offenders = [
-        str(p.relative_to(ROOT))
-        for p in PORT.rglob("*.py")
-        if bad.search(p.read_text())
-    ]
+    sources = {str(p.relative_to(PORT)): p for p in PORT.rglob("*.py")}
+    # The modules above search_raw are scanned too.
+    assert {"stream.py", "serialize.py", "replacer.py", "prefilter.py", "ops/native_bfs.py",
+            "ops/bitap.py", "utils/native.py"} <= set(sources)
+    offenders = [name for name, p in sources.items() if bad.search(p.read_text())]
     assert offenders == []
     assert not bad.search((ROOT / "chip_smoke.py").read_text())
+
+
+#: The entry points above search_raw on one engine; the same code runs in
+#: the child (the port) and here (the JAX package).
+_ENTRY_POINTS = r"""
+def run(pkg, engine):
+    import hashlib, io, tempfile
+    data = b"why hello there, wrold of helpful words " * 300
+    out = io.BytesIO()
+    engine.replace_stream_parallel(data, out, 4, 0.8, ["HI", "EARTH"])
+    hits = []
+    engine.search_stream(data, 0.8, lambda m: hits.append((m.start, m.end)))
+    with tempfile.TemporaryDirectory() as d:
+        engine.save(d + "/e.npz")
+        loaded = pkg.FuzzyAhoCorasick.load(d + "/e.npz")
+    found = engine.with_prefilter().search("hello wrold", pkg.SearchOptions.new().with_threshold(0.8))
+    return (hashlib.sha256(out.getvalue()).hexdigest()[:16], len(hits),
+            hashlib.sha256(repr(hits).encode()).hexdigest()[:16],
+            len(loaded.search_raw("hello wrold", 0.8)), len(found))
+"""
+
+_CHILD_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["regex"] = None
+sys.path.insert(0, sys.argv[1])
+import fuzzy_aho_corasick_tpu_torch as port
+for info in pkgutil.walk_packages(port.__path__, "fuzzy_aho_corasick_tpu_torch."):
+    importlib.import_module(info.name)
+engine = (port.FuzzyAhoCorasickBuilder.new().fuzzy(port.FuzzyLimits.new().edits(1))
+          .case_insensitive(True).device("cpu").build(["hello", "world"]))
+""" + _ENTRY_POINTS + r"""
+print(*run(port, engine), engine.last_stats["backend"],
+      sys.modules["jax"] is not None, "fuzzy_aho_corasick_tpu" in sys.modules)
+"""
+
+
+def test_every_port_module_imports_without_jax_or_regex():
+    """Every module of the port imports with ``jax`` and ``regex`` blocked,
+    and the entry points above ``search_raw`` (streaming search and replace,
+    save / load, the prefilter, the native host BFS) run on ASCII text
+    without them, returning what the JAX package returns."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _CHILD_ALL, str(ROOT)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import fuzzy_aho_corasick_tpu as jax_pkg
+
+    scope = {}
+    exec(_ENTRY_POINTS, scope)
+    ref = (JaxBuilder.new().fuzzy(jax_pkg.FuzzyLimits.new().edits(1)).case_insensitive(True)
+           .build(["hello", "world"]))
+    want = [str(x) for x in scope["run"](jax_pkg, ref)]
+    assert int(want[1]) >= 600
+    assert out.stdout.split() == want + ["native-bfs", "False", "False"]
 
 
 def test_cuda_request_raises_without_a_card():
