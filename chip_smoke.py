@@ -2,7 +2,8 @@
 """Smoke run of the torch port on one CUDA card.
 
 Drives the port's main paths (the exact lane, the four lanes of the DP
-family and the large-dictionary lane) once each at full size, through the
+family, the large-dictionary lane and the beam frontier) once each at full
+size, through the
 entry points a user calls (build an engine, ``search_raw``; the streaming
 search and replace, the prefilter, save / load and the small-haystack host
 path above it), and checks every CUDA kernel they run against its plain
@@ -139,6 +140,29 @@ torch version. Phases:
    (c) (the short last slices too), the exact scan of each superwindow of
    (b), and the 1 MiB of (d) (its many1k engine searches the 1 MiB of
    phase 3's many lane checks);
+4j. the beam-frontier lanes (``beam_cell``), through ``search_raw``, the
+   plain versions locked out (and the oracle, but in (c), whose starts may
+   overflow), the launch counters set to 0 just before and read just after,
+   each a first search and best of 3, then its stages alone
+   (``beam_stage_profile``: the candidate starts, the frontier with its
+   expanded states counted, the whole search profiled) with launches,
+   copies, host waits and the device's busy share: (a) the ``edits(1)``
+   engine over phase 4i (c)'s joined text (past ``RESIDENT_MAX``: the
+   packed anchors in ``STREAM_CHUNK`` segments, the E = 1 pool), equal to
+   the context oracle's 85,332 raw matches; (b) ``cjk1`` (60 CJK words of
+   4 characters, more than 127 prefilter symbols: the seed filter, the pool)
+   and (c) ``cjk2`` (40 words of 5-8 characters, ``edits(2)`` at 0.7: the
+   sorted beam), each over 24 MiB of CJK filler with planted words
+   (``cjk_corpus``), equal to the oracle over each distinct word context
+   (``cjk_contexts``, by characters; positions in bytes); (d) ``a`` x 70
+   and ``hello`` over the many1k corpus with 64 runs of 69-72 a's, equal to
+   the word-context oracle for ``hello`` and to the oracle around each
+   a-run for the long pattern (``arun_oracle_set``); (e)
+   ``beam_kernel_checks``: ``scan_bits``, ``block_offsets`` and
+   ``hit_words`` against their plain versions on (a)'s anchor segments and
+   (d)'s seed pass, and ``frontier_cpu_check``: the first run of chunks of
+   (a), (b) and (c) through the frontier on the card and on the CPU, bit
+   for bit;
 5. parity (run between phases 3 and 4, while the context oracle's workers
    are busy): device vs the port's oracle on 64 KiB (exact) and 32 KiB with
    planted edits (fuzzy, each of the three lanes, and a typed engine with
@@ -226,6 +250,24 @@ TYPED_KEYS = ("typed_expand", "typed_dp", "typed_emit")
 MANY_THRESHOLD = 0.82
 MANY_BYTES = 24 << 20
 MANY_TYPOS = 4000
+#: Phase 4j's beam-lane engines (``recipe_engine`` names) and texts. CJK
+#: dictionaries from U+4E00 + 0..299: ``cjk1`` the 60 words of 4 characters
+#: drawn from seed 1 (``edits(1)``, 0.8: more than 127 prefilter symbols, so
+#: the seed filter and the E = 1 pool); ``cjk2`` 40 words of 5-8 characters
+#: from seed 2 whose first characters are 24 (U+4E00 + 300..323), so the
+#: root's 24 edges leave the E = 2 beam room at the first round
+#: (``edits(2)``, 0.7: the sorted beam); ``long`` a 70-character pattern and
+#: ``hello`` (``edits(1)``, 0.8: past the prefilter's 63 graphemes). The
+#: CJK corpora are 24 MiB of space-joined filler words of a disjoint range
+#: (U+4E00 + 1000..1999, 24 words of ``CJK_FILLER_LEN`` characters) with a
+#: dictionary word planted at 1 in ``CJK_PLANT`` words, a third of them with
+#: one substitution. A match of cjk1 spans at most 5 characters, of cjk2 10:
+#: the tails of their word contexts.
+CJK_PLANT = 200
+CJK_FILLER_LEN = {"cjk1": (3, 6), "cjk2": (5, 9)}
+CJK_TAIL = {"cjk1": 5, "cjk2": 10}
+BEAM_THRESHOLD = {"cjk1": 0.8, "cjk2": 0.7, "long": 0.8}
+LONG_WORDS = ["a" * 70, "hello"]
 
 
 def log(msg: str) -> None:
@@ -791,7 +833,20 @@ def recipe_engine(ctx, name: str):
         return make_engine(ctx, HEADLINE + ["modern"], L.new().edits(1), mappings=[("rn", "m")])
     if name == "many1k":
         return make_engine(ctx, many_words(1000, 7), L.new().edits(1))
+    if name in ("cjk1", "long"):
+        return make_engine(ctx, beam_words(name), L.new().edits(1))
+    if name == "cjk2":
+        return make_engine(ctx, beam_words(name), L.new().edits(2))
     raise ValueError(name)
+
+
+def beam_words(name: str):
+    """The dictionaries of phase 4j's engines (see ``CJK_PLANT``)."""
+    if name == "cjk1":
+        return cjk_words(60, 1, (4, 5))
+    if name == "cjk2":
+        return cjk_words(40, 2, (5, 9), first=24)
+    return LONG_WORDS
 
 
 def many_words(count: int, seed: int, length=(6, 12), letters="abcdefghijklmnopqrstuvwxyz"):
@@ -842,9 +897,100 @@ def _oracle_contexts(job):
     engine = recipe_engine(ctx, name)
     out = []
     for text in contexts:
-        own = text.find(" ") + 1 or len(text)
+        own = len(text[: text.find(" ") + 1 or len(text)].encode())  # match starts are bytes
         out.append([match_key(m) for m in oracle.search_raw(engine, text, thr) if m.start < own])
     return out
+
+
+def cjk_words(count: int, seed: int, length, first=None):
+    """``count`` distinct words of CJK characters from U+4E00 + 0..299 with
+    lengths in ``length`` (a half-open range), drawn from ``seed``; with
+    ``first``, each word's first character from U+4E00 + 300 .. 300 + first."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = set()
+    while len(words) < count:
+        m = int(rng.integers(*length))
+        cps = rng.integers(0, 300, m)
+        if first:
+            cps[0] = 300 + int(rng.integers(first))
+        words.add("".join(chr(0x4E00 + int(c)) for c in cps))
+    return sorted(words)
+
+
+def cjk_corpus(size: int, seed: int, words, filler_len) -> str:
+    """About ``size`` bytes of space-joined CJK filler words (24 words of
+    ``filler_len`` characters from U+4E00 + 1000..1999) with a word of
+    ``words`` at 1 in ``CJK_PLANT``, a third of those with one character
+    substituted by a filler character; whole words only."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fill = lambda m: "".join(chr(0x4E00 + 1000 + int(c)) for c in rng.integers(0, 1000, m))
+    vocab = [fill(int(m)) for m in rng.integers(*filler_len, 24)]
+    count = size // (3 * sum(filler_len) // 2 + 1) + 1024
+    out = [vocab[i] for i in rng.integers(0, 24, count).tolist()]
+    for at in np.flatnonzero(rng.integers(0, CJK_PLANT, count) == 0).tolist():
+        w = words[int(rng.integers(len(words)))]
+        if rng.integers(3) == 0:
+            i = int(rng.integers(len(w)))
+            w = w[:i] + fill(1) + w[i + 1:]
+        out[at] = w
+    nbytes = np.cumsum([len(w.encode()) + 1 for w in out])
+    return " ".join(out[: int(np.searchsorted(nbytes, size))])
+
+
+def cjk_contexts(corpus: str, tail: int):
+    """:func:`word_contexts` for a text of space-separated words of any
+    script: the distinct "word, its space, and the next ``tail``
+    characters", with the byte offsets where each begins (match positions
+    are bytes)."""
+    import numpy as np
+
+    words = corpus.split(" ")
+    clen = np.fromiter(map(len, words), np.int64, len(words))
+    blen = np.fromiter((len(w.encode()) for w in words), np.int64, len(words))
+    cstart = np.concatenate([[0], np.cumsum(clen + 1)[:-1]]).tolist()
+    bstart = np.concatenate([[0], np.cumsum(blen + 1)[:-1]]).tolist()
+    groups = {}
+    for cs, ln, bs in zip(cstart, clen.tolist(), bstart):
+        groups.setdefault(corpus[cs: cs + ln + 1 + tail], []).append(bs)
+    return list(groups), [np.asarray(v, dtype=np.int64) for v in groups.values()]
+
+
+def arun_text(many_text: str) -> str:
+    """Phase 4j (d)'s text: the many1k corpus with 64 runs of 69-72 a's
+    planted between spaces."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 23)
+    buf = bytearray(many_text.encode())
+    for at in rng.integers(0, len(buf) - 100, size=64).tolist():
+        r = int(rng.integers(69, 73))
+        buf[at:at + r + 2] = (" " + "a" * r + " ").encode()
+    return buf.decode()
+
+
+def arun_oracle_set(ctx, text: str, thr: float):
+    """Phase 4j (d)'s matches of the 70-character pattern (index 0 of
+    ``LONG_WORDS``), which a word context's tail is too short to hold: the
+    port's oracle over each run of 35 or more a's with 80 characters on
+    either side, keeping the pattern's matches that start at most 37 before
+    the run (a match of 70 a's with one edit holds 69 of them, cut by at
+    most one other character: a run of 35 or more, and at most 34 a's and
+    the edit before it). The texts are ASCII."""
+    import re
+
+    engine = recipe_engine(SimpleNamespace(**{**vars(ctx), "dev": ctx.torch.device("cpu")}),
+                           "long")
+    want = set()
+    for mo in re.finditer(r"a{35,}", text):
+        lo = max(0, mo.start() - 80)
+        for m in ctx.oracle.search_raw(engine, text[lo: mo.end() + 80], thr):
+            if m.pattern_index == 0 and mo.start() - 37 <= lo + m.start <= mo.end():
+                want.add((0, lo + m.start, lo + m.end, *match_key(m)[3:]))
+    return want
 
 
 def word_contexts(corpus: str, tail: int = CONTEXT_TAIL):
@@ -2523,6 +2669,259 @@ def stream_kernel_checks(ctx, fuzzy, exact, corpus: str, joined: str):
     return scan, pipe
 
 
+def beam_stage_profile(ctx, engine, text: str, thr: float):
+    """Phase 4j's stages of one beam-lane search, each synchronised and
+    profiled alone (one call): the candidate starts (``_candidate_starts``:
+    the packed anchors or the seed filter's exact pass), the frontier
+    (``beam_emissions``), and the rest (the emissions' copy, the host's
+    best-per-span reduction and any oracle rescue) as the search's wall less
+    those two. Counts the frontier's expanded states and their candidates
+    (a wrapper on ``_expand``) for its byte bound."""
+    import numpy as np
+
+    from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    torch = ctx.torch
+    thr32 = np.float32(thr)
+    view = view_of(text, engine.case_insensitive)
+    n = len(view)
+    ceil = engine.prune_len_arr - np.float32(engine.prune_len_over_weight_arr * thr32)
+    found = {}
+
+    def anchors():
+        found["cand"] = tfz._candidate_starts(engine, text, view, n, thr32)
+
+    prof_a = profile_search(torch, anchors, 1, ctx.tpb.LAUNCHES)
+    counted = {"states": 0, "candidates": 0, "rounds": 0}
+    expand = tfz._expand
+
+    def counting(st, et, *args):
+        counted["states"] += st.node.numel()
+        counted["candidates"] += st.node.numel() * (2 * et.shape[1] + 3)
+        counted["rounds"] += 1
+        return expand(st, et, *args)
+
+    def frontier():
+        found["em"] = tfz.beam_emissions(engine, text, view, n, found["cand"], thr32, ceil)
+
+    tfz._expand = counting
+    try:
+        prof_f = profile_search(torch, frontier, 1)
+    finally:
+        tfz._expand = expand
+    counted = {k: v // 2 for k, v in counted.items()}  # the warm-up call of profile_search
+    em, overflow = found["em"]
+    tabs = tfz.beam_tables(engine, ctx.dev)
+    E = engine.max_edits_fast
+    nchunk = tfz._chunk_len(E, engine.dense.max_depth + E, tabs.et_deep.shape[1])
+    anchors = int(found["cand"].numel())
+    return SimpleNamespace(anchors=anchors, n=n, prof_a=prof_a, prof_f=prof_f, counted=counted,
+                           emissions=int(em[0].numel()), overflow=len(overflow),
+                           cand=found["cand"], view=view, ceil=ceil, nchunk=nchunk,
+                           chunks=-(-anchors // nchunk),
+                           runs=-(-anchors // tfz.run_len(E, tabs, nchunk)))
+
+
+def anchors_bound(ctx, engine, thr: float, stages):
+    """(least ms, which binds) for the candidate starts of a beam search:
+    the text's symbols read once and the anchors (int64) written once, and
+    the integer instructions of the scan that finds them (``scan_instr``
+    per symbol): the packed anchors' scan, or the seed engine's exact scan;
+    the seed engine's goto walk is counted by its bytes alone."""
+    import numpy as np
+
+    tpb = ctx.tpb
+    n, out = stages.n, 8 * stages.anchors
+    pk = tpb.packed_fuzzy_of(engine)
+    if pk is not None:
+        ks = [pk.filt.k_for(bp, np.float32(thr)) for bp in pk.filt.patterns]
+        dam = max(ks) > tpb.MAX_K
+        if dam:
+            ks = [pk.filt.k_for(bp, np.float32(thr), damerau=True) for bp in pk.filt.patterns]
+        return bound_ms(n + out, scan_instr(pk.W, max(ks), dam) * n, INT_RATE)
+    spk = tpb.packed_exact_of(engine._seed_filter_cache.seed_engine)
+    if spk is not None:
+        return bound_ms(n + out, scan_instr(spk.W, 0, False) * n, INT_RATE)
+    return bound_ms(n + out, 0, INT_RATE)
+
+
+def frontier_cpu_check(ctx, engine, text: str, thr: float, stages, what: str) -> int:
+    """The frontier on the card against the same code on the CPU, over the
+    first chunk of ``text``'s candidate starts (the JAX package's chunk
+    size): emissions and overflow flags bit for bit. Returns the emissions
+    compared."""
+    import numpy as np
+
+    from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
+    from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+    from fuzzy_aho_corasick_tpu_torch.ops.packed_bitap import _space_token
+
+    torch = ctx.torch
+    E, thr32, n = engine.max_edits_fast, np.float32(thr), stages.n
+    dense = engine.dense
+    ids, _n = device_corpus.resident(
+        text, ("dense", _space_token(engine)),
+        lambda h: np.ascontiguousarray(dense.transcode(h, stages.view),
+                                       dtype=np.uint8 if dense.num_classes <= 256 else np.int32),
+        ctx.dev)
+    out = []
+    for device, ids_d in ((ctx.dev, ids), (torch.device("cpu"), ids.cpu())):
+        tabs = tfz.beam_tables(engine, device)
+        prm = tfz.beam_params(engine, thr32, stages.ceil, n, device)
+        nchunk = tfz._chunk_len(E, prm.T, tabs.et_deep.shape[1])
+        run = nchunk
+        starts = stages.cand[:run].to(device)
+        if E == 1:
+            em, ov = tfz._pool_chunk(starts, tabs, prm, ids_d, nchunk), torch.zeros(0)
+        else:
+            em, ov = tfz._beam_chunk(starts, tabs, prm, ids_d, nchunk, 32 + 24 * E)
+        out.append([f.cpu() for f in em] + [ov.cpu()])
+    err = max(int((a.double() - b.double()).abs().max()) if a.numel() else 0
+              for a, b in zip(*out))
+    same = all(a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+               for a, b in zip(*out))
+    log(f"  {what}: the frontier over {min(run, stages.anchors)} starts on the card and on the "
+        f"CPU: {out[0][0].numel()} emissions each, bit-equal {same} (max_abs_err {err})")
+    require(same and out[0][0].numel() > 0, f"{what}: the frontier differs on the card and "
+            "on the CPU")
+    return out[0][0].numel()
+
+
+def beam_cell(ctx, tag: str, engine, text: str, thr: float, locked, want, oracle_locked=True):
+    """Phase 4j (a)-(d): one beam-lane search through ``search_raw`` over
+    ``text``: a first search (transcodes and uploads), then best of 3, the
+    plain versions locked out (and the oracle, unless the search may rescue
+    an overflowed start), the launch counters set to 0 just before and read
+    just after. It must report ``device-fuzzy`` and equal ``want``, the
+    context oracle's set. Then its stages alone (``beam_stage_profile``)
+    and the whole search profiled once."""
+    torch, tpb = ctx.torch, ctx.tpb
+    t_phase = time.perf_counter()
+    lock = locked if oracle_locked else [t for t in locked if t[0] is not ctx.oracle]
+    reset_launches(tpb)
+    with plain_locked(*lock):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = engine.search_raw(text, thr)
+        first_s = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = engine.search_raw(text, thr)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = dict(tpb.LAUNCHES)
+    stats = dict(engine.last_stats)
+    keys = [match_key(m) for m in got]
+    best = min(times)
+    log(f"  {len(text.encode())} bytes ({stats['positions']} graphemes), first search "
+        f"{first_s:.3f} s, best of 3 {best * 1e3:.3f} ms (all "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) = {len(text.encode()) / best / 1e6:.2f} "
+        f"MB/s, {len(got)} matches; last_stats {stats}; launches {launches}")
+    require(stats["backend"] == "device-fuzzy", f"{tag}: backend {stats['backend']}")
+    require(len(set(keys)) == len(keys), f"{tag}: a match repeats")
+    outside, missing = set(keys) - want, want - set(keys)
+    log(f"  context oracle: {len(want)} matches; equal {not outside and not missing} "
+        f"({len(outside)} found outside it, {len(missing)} missing)")
+    require(not outside and not missing, f"{tag}: the beam lane differs from the context oracle")
+    with plain_locked(*lock):
+        stages = beam_stage_profile(ctx, engine, text, thr)
+        prof = profile_search(torch, lambda: engine.search_raw(text, thr), 1, tpb.LAUNCHES)
+    st = stages.counted
+    f_bytes = st["states"] * (60 + 60 + 2) + stages.emissions * 36
+    f_bound = bound_ms(f_bytes, 0, INT_RATE)
+    a_bound = anchors_bound(ctx, engine, thr, stages)
+    log(f"  anchors {stages.anchors} ({stages.anchors / stages.n:.4f} of the positions), "
+        f"frontier: {st['rounds']} rounds, {st['states']} states expanded, "
+        f"{st['candidates']} candidates, {stages.emissions} emissions, {stages.overflow} "
+        f"overflowed starts")
+    for name, p in (("candidate starts", stages.prof_a), ("frontier", stages.prof_f),
+                    ("whole search", prof)):
+        log(f"  {name}: wall {p['wall']:.3f} ms, device busy {p['busy']:.3f} ms "
+            f"({p['busy'] / p['wall']:.3f} of wall), {p['kernels']:.0f} kernel launches, "
+            f"{p['copies']:.0f} copies, {p['waits']:.0f} host waits")
+        for line in p["lines"][:6]:
+            log(f"    {line}")
+    log(f"  frontier bound (each expanded state read and written once, 60 bytes each, its two "
+        f"symbols, each emission's 36 bytes): {f_bound[0]:.4f} ms by {f_bound[1]} = "
+        f"{f_bound[0] / stages.prof_f['wall']:.2e} of its wall; {stages.chunks} chunks of "
+        f"{stages.nchunk} starts (the JAX package's) in {stages.runs} runs of the frontier")
+    log(f"  candidate starts bound (the text's symbols read once, the anchors written once, "
+        f"the scan's integer instructions): {a_bound[0]:.4f} ms by {a_bound[1]} = "
+        f"{a_bound[0] / stages.prof_a['wall']:.2e} of its wall")
+    log(f"  phase {tag} {time.perf_counter() - t_phase:.1f} s")
+    return SimpleNamespace(times=times, first_s=first_s, launches=launches, stats=stats,
+                           matches=len(got), stages=stages, prof=prof, f_bytes=f_bytes,
+                           f_bound=f_bound, a_bound=a_bound, nbytes=len(text.encode()))
+
+
+def beam_record(tag: str, run) -> dict:
+    """Phase 4j's line in the final JSON's ``torch_paths``."""
+    st, p = run.stages, run.prof
+    return {"name": f"beam lanes {tag}", "route": "torch", "bytes": run.nbytes,
+            "positions": st.n, "anchors": st.anchors, "matches": run.matches,
+            "overflow_rescues": run.stats.get("overflow_rescues"),
+            "ms": [t * 1e3 for t in run.times], "first_s": run.first_s,
+            "launches": run.launches, "search_kernels": p["kernels"],
+            "search_copies": p["copies"], "search_waits": p["waits"],
+            "search_wall_ms": p["wall"], "search_device_busy_ms": p["busy"],
+            "anchors_wall_ms": st.prof_a["wall"], "anchors_busy_ms": st.prof_a["busy"],
+            "anchors_kernels": st.prof_a["kernels"], "frontier_wall_ms": st.prof_f["wall"],
+            "frontier_busy_ms": st.prof_f["busy"], "frontier_kernels": st.prof_f["kernels"],
+            "frontier_waits": st.prof_f["waits"], "frontier_states": st.counted["states"],
+            "frontier_rounds": st.counted["rounds"], "emissions": st.emissions,
+            "chunks": st.chunks, "chunk_starts": st.nchunk,
+            "frontier_bound_ms": run.f_bound[0], "frontier_bound_by": run.f_bound[1],
+            "anchors_bound_ms": run.a_bound[0], "anchors_bound_by": run.a_bound[1]}
+
+
+def beam_kernel_checks(ctx, fuzzy, joined: str, long_e, long_txt: str) -> tuple:
+    """Phase 4j (e), the kernels: ``scan_bits``, ``block_offsets`` and
+    ``hit_words`` against their plain versions on what 4j hands them: the
+    packed anchors' segments of (a) (``STREAM_CHUNK`` symbols and their
+    halo, the prefilter's tables at 0.8) and the seed engine's exact pass of
+    (d) over its text. Returns the three max_abs_err."""
+    import numpy as np
+
+    tpb, torch = ctx.tpb, ctx.torch
+    errs = [0, 0, 0]
+    pk = tpb.packed_fuzzy_of(fuzzy)
+    thr = np.float32(0.8)
+    ks = [pk.filt.k_for(bp, thr) for bp in pk.filt.patterns]
+    match, init, k = pk.fuzzy_masks(ks)
+    halo = pk.m_max + k
+    T = tpb.tables_from_numpy(pk.word_tbl, pk.starts, match, init, device=ctx.dev)
+    ids = np.ascontiguousarray(pk.filt.transcode(joined)[0], dtype=np.uint8)
+    n = len(ids)
+    t0 = time.perf_counter()
+    hits = 0
+    for c0 in range(0, n, tpb.STREAM_CHUNK):
+        lo, hi = max(0, c0 - halo), min(n, c0 + tpb.STREAM_CHUNK + halo)
+        seg = torch.from_numpy(ids[lo:hi]).to(ctx.dev)
+        c, e = compare_scan(tpb, torch, seg, T, halo, f"4j (a) anchors' segment [{lo}, {hi})",
+                            want_hits=False)
+        hits += c
+        errs = [max(a, b) for a, b in zip(errs, e)]
+    require(hits > 0, "4j (a): no hits in the anchors' segments")
+    log(f"  (a)'s segments {time.perf_counter() - t0:.1f} s")
+    seed = long_e._seed_filter_cache.seed_engine
+    spk = tpb.packed_exact_of(seed)
+    Ts, _cols, _shs = tpb._exact_consts(seed, spk, ctx.dev)
+    from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    sids, sn = device_corpus.resident(
+        long_txt, ("pk-exact", tpb._space_token(seed)),
+        lambda h: spk.transcode(h, view_of(h, seed.case_insensitive), seed.dense), ctx.dev)
+    _c, e = compare_scan(tpb, torch, sids[:sn], Ts, spk.m_max,
+                         f"4j (d) seed engine's exact pass ({len(seed.patterns())} pieces, "
+                         f"W={spk.W})")
+    errs = [max(a, b) for a, b in zip(errs, e)]
+    return errs
+
+
 def small_entry_points(ctx, fuzzy, many_e, corpus: str, many_text: str, locked, keyf):
     """Phase 4i (d): ``with_prefilter().search`` against ``search`` on 1 MiB;
     ``save`` then ``load(device="cuda")`` of the fuzzy1 and many1k engines,
@@ -2699,6 +3098,15 @@ def smoke(torch, start_pool, workers: int) -> int:
     # Phase 4i's stream past RESIDENT_MAX: the corpus, a space, the corpus.
     joined = corpus + " " + corpus
     joined_contexts = pool.apply_async(word_contexts, (joined,))
+    # Phase 4j's texts: two CJK corpora (contexts by characters) and the
+    # many1k corpus with a-runs.
+    beam_texts = {name: cjk_corpus(MANY_BYTES, SEED + 21 + i, beam_words(name),
+                                   CJK_FILLER_LEN[name])
+                  for i, name in enumerate(("cjk1", "cjk2"))}
+    beam_texts["long"] = arun_text(many_text)
+    beam_contexts = {name: pool.apply_async(cjk_contexts, (text, CJK_TAIL[name]))
+                     for name, text in beam_texts.items() if name != "long"}
+    beam_contexts["long"] = pool.apply_async(word_contexts, (beam_texts["long"],))
     contexts_of, pending = {corpus: word_contexts(corpus)}, {}
     results_of = {}  # (name, text, thr) -> the oracle's per-context results
 
@@ -2724,6 +3132,11 @@ def smoke(torch, start_pool, workers: int) -> int:
         if job[1] is many_text:
             contexts_of[many_text] = many_contexts.get()
         oracle_start(*job)
+    beam_jobs = tuple((name, text, BEAM_THRESHOLD[name]) for name, text in beam_texts.items())
+    for name, text, thr in beam_jobs:
+        if name in beam_contexts:
+            contexts_of[text] = beam_contexts[name].get()
+        oracle_start(name, text, thr)
     log(f"  word contexts (tail {CONTEXT_TAIL}): {len(contexts_of[corpus][0])} distinct in the "
         f"{len(corpus)}-byte corpus, {len(contexts_of[mapped_corpus][0])} in the "
         f"{len(mapped_corpus)}-byte one, {len(contexts_of[many_text][0])} in the "
@@ -2929,7 +3342,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     # 4. main path, full size. The host's clock times the searches from here
     # on: the oracle's workers have to be idle.
     t0 = time.perf_counter()
-    for job in oracle_jobs:
+    for job in oracle_jobs + beam_jobs:
         pending[job].wait()
     log(f"  waited {time.perf_counter() - t0:.1f} s more for the context oracle's workers")
     phase("phase 4 main path:")
@@ -3153,6 +3566,53 @@ def smoke(torch, start_pool, workers: int) -> int:
         errs_scan[i] = max(errs_scan[i], e)
     err_pipe_all = max(err_pipe_all, err_pipe_4i)
 
+    # 4j. The beam-frontier lanes, through search_raw: one search past
+    # RESIDENT_MAX (packed anchors in segments, the E = 1 pool), a CJK
+    # dictionary at E = 1 and at E = 2 (the seed filter, the pool and the
+    # sorted beam) and a pattern past 63 graphemes; the plain versions
+    # locked out, and the oracle where no start can overflow.
+    beam, beam_engines = {}, {}
+    t_4j = time.perf_counter()
+    phase(f"phase 4j (a): one search_raw of fuzzy1 over the joined text ({len(joined)} bytes, "
+          f"past RESIDENT_MAX), threshold 0.8:")
+    require(len(joined) > tpb.RESIDENT_MAX, "the joined text is under RESIDENT_MAX")
+    beam["4j (a)"] = beam_cell(ctx, "4j (a)", fuzzy, joined, 0.8, locked, raw_j)
+    require(beam["4j (a)"].matches == len(raw_j), "4j (a): not the context oracle's count")
+    beam_engines["4j (a)"] = (fuzzy, joined, 0.8)
+    for tag, name, title, oracle_locked in (
+        ("4j (b)", "cjk1", "CJK, 60 words of 4 characters, edits(1)", True),
+        ("4j (c)", "cjk2", "CJK, 40 words of 5-8 characters, edits(2)", False),
+        ("4j (d)", "long", "a 70-character pattern and hello, edits(1), over the many1k corpus "
+                           "with 64 runs of 69-72 a's", True),
+    ):
+        text, thr = beam_texts[name], BEAM_THRESHOLD[name]
+        phase(f"phase {tag}: {title}, threshold {thr}, {len(text.encode())} bytes:")
+        eng = recipe_engine(ctx, name)
+        t0 = time.perf_counter()
+        want_b, n_ctx = oracle_set(name, text, thr)
+        if name == "long":
+            # The word contexts hold hello's matches; the a-runs' windows
+            # the 70-character pattern's.
+            want_b = {k for k in want_b if k[0] == 1} | arun_oracle_set(ctx, text, thr)
+        log(f"  context oracle: {n_ctx} contexts, {len(want_b)} matches, "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(len(want_b) > 60, f"{tag}: too few matches to be a real check")
+        beam[tag] = beam_cell(ctx, tag, eng, text, thr, locked, want_b, oracle_locked)
+        beam_engines[tag] = (eng, text, thr)
+    for tag, keys in (("4j (a)", ("scan_bits",)), ("4j (d)", scan_keys)):
+        require(all(beam[tag].launches[k] > 0 for k in keys),
+                f"{tag}: the search did not launch {', '.join(keys)}")
+    phase("phase 4j (e): the kernels of 4j's paths against their plain versions on its inputs, "
+          "and one run of the frontier on the card against the CPU:")
+    errs_4j = beam_kernel_checks(ctx, fuzzy, joined, beam_engines["4j (d)"][0],
+                                 beam_texts["long"])
+    for i, e in enumerate(errs_4j):
+        errs_scan[i] = max(errs_scan[i], e)
+    for tag in ("4j (a)", "4j (b)", "4j (c)"):
+        eng, text, thr = beam_engines[tag]
+        frontier_cpu_check(ctx, eng, text, thr, beam[tag].stages, tag)
+    log(f"  phase 4j {time.perf_counter() - t_4j:.1f} s")
+
     # 6. times, bounds and agreement at the main paths' shapes
     phase("phase 6 times at main-path shapes (CUDA events; device time is the profiler's above):")
     plan, run = lane_inputs(vdp, fuzzy, corpus, 0.8, "main-path shapes")
@@ -3333,6 +3793,7 @@ def smoke(torch, start_pool, workers: int) -> int:
                                                       "4i (c) joined")]
     entry_launches += [rec["launches"] for rec in entry["4i (d)"].values()
                        if isinstance(rec, dict)]
+    entry_launches += [run.launches for run in beam.values()]
 
     def entry_sum(name):
         return sum(counts[name] for counts in entry_launches)
@@ -3443,7 +3904,9 @@ def smoke(torch, start_pool, workers: int) -> int:
     streams["4i (d)"] = entry["4i (d)"]
     print(json.dumps({"kernels": kernels, "held_against_plain_only": held,
                       "entry_points": streams,
-                      "ranged_pipelines": ranged, "torch_paths": [walk_rec],
+                      "ranged_pipelines": ranged,
+                      "torch_paths": [walk_rec] + [beam_record(tag, run)
+                                                   for tag, run in beam.items()],
                       "scan_chunk_sweep": sweep,
                       "searches": {
                           "exact_ms": [t * 1e3 for t in times],

@@ -14,12 +14,13 @@ of fuzzy searches (a uniform edit budget, edit types switched off, per-type
 and per-pattern limits, multi-character mappings) and fuzzy search over
 large dictionaries run on the GPU through hand-written CUDA kernels
 (``csrc/*.cu``, built with ``nvcc`` at first use into ``build/kernels/``).
+Fuzzy searches that those lanes decline (alphabets past 128 symbols,
+patterns past 63 graphemes, one ``search_raw`` past ``RESIDENT_MAX``
+graphemes) run the beam-frontier lanes, torch code on the same device
+behind the packed scan's anchors or the seed filter, as in the JAX package.
 Small haystacks (under ``AUTO_DEVICE_MIN``) run the native-C host BFS
 (``native/fastpath.c``, built with ``gcc`` at first use into
 ``build/native/``; the pure-Python oracle where there is no ``gcc``).
-What still raises ``NotImplementedError``: configurations that the JAX
-package serves on its beam lanes, and one ``search_raw`` call on a fuzzy
-engine past ``RESIDENT_MAX`` graphemes (a stream of that size is served).
 
 The engine's device tables live on a torch device, ``cuda`` by default::
 

@@ -8,15 +8,11 @@ lazily built tables for the CUDA kernels, which live on the engine's torch
 configuration is kernel-eligible, and to the host oracle otherwise — both
 produce identical match sets (differential-tested).
 
-The port carries the exact lane, the DP family (the uniform-budget fuzzy
-lane and the forbid, typed and mapped lanes), the large-dictionary lane, the
-native-C host BFS for small haystacks, and every entry point above
-``search_raw``: the prefilter, streaming search and replace, and
-save / load. A configuration that the JAX package serves on one of its
-other device lanes (the beam frontier, or one ``search_raw`` call past
-``RESIDENT_MAX`` graphemes on a fuzzy engine) raises ``NotImplementedError``
-instead of silently running the pure-Python oracle on a device-sized
-haystack; a stream of any length is served window by window.
+The port carries every device lane of the JAX package — exact, the DP
+family (the uniform-budget fuzzy lane and the forbid, typed and mapped
+lanes), the large-dictionary lane and the beam frontier — the native-C
+host BFS for small haystacks, and every entry point above ``search_raw``:
+the prefilter, streaming search and replace, and save / load.
 """
 
 from __future__ import annotations

@@ -7,14 +7,12 @@ lane exactly when the JAX package claims it (the host-only spec builders of
 ``ops/verify_dp`` decide the mapped and typed lanes, as there); everything
 else is served by the host oracle.
 
-Ported lanes: exact (``ops/exact``: the packed lane, then the goto walk),
-the DP family of ``ops/verify_dp`` — the FAST fuzzy lane (``ops/fuzzy``;
-beamed engines too), and the forbid, typed and mapped lanes — and the
-large-dictionary lane (``ops/many``). The beam lanes are not ported yet:
-where the JAX package would serve an engine on one of them, ``search_raw``
-raises ``NotImplementedError`` naming its ROADMAP item, so a device-sized
-haystack never runs on the pure-Python oracle in their place. Where the JAX
-package itself falls back to the oracle, so does the port.
+Lanes: exact (``ops/exact``: the packed lane, then the goto walk), the DP
+family of ``ops/verify_dp`` — the FAST fuzzy lane (``ops/fuzzy``; beamed
+engines too), and the forbid, typed and mapped lanes — the large-dictionary
+lane (``ops/many``) and, for FAST engines that those decline, the beam
+frontier (``ops/fuzzy.beam_search``). Where the JAX package itself falls
+back to the oracle, so does the port.
 """
 
 from __future__ import annotations

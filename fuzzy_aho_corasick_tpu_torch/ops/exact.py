@@ -241,3 +241,54 @@ def exact_search_device(engine, haystack: str, threshold: float, view=None) -> L
     if packed is not None:
         return packed
     return exact_search_walk(engine, haystack, threshold, view)
+
+
+def _outputs_of(engine, start_g: np.ndarray, node: np.ndarray):
+    """Arrivals (start, output node) -> (starts, pattern ids) int64, one pair
+    per pattern in the node's output list."""
+    pats = engine.dense.out_list[node].astype(np.int64)    # [H, MO]
+    ok = pats >= 0
+    return np.broadcast_to(start_g[:, None], pats.shape)[ok], pats[ok]
+
+
+def exact_scan_hits(engine, haystack: str, view=None):
+    """Every exact occurrence of a pattern as numpy int64 arrays (start
+    grapheme, pattern id), at threshold 0: the seed filter's pass
+    (``ops/seeds.py``). The packed lane's hits where the dictionary packs,
+    else the goto walk; each occurrence once, in no particular order."""
+    from ..utils import device_corpus
+    from ..utils.graphemes import view_of
+    from .packed_bitap import _space_token, exact_hits_packed, packed_exact_of
+
+    dense = engine.dense
+    if view is None:
+        view = view_of(haystack, engine.case_insensitive)
+    n = len(view)
+    empty = np.zeros(0, np.int64)
+    if n == 0:
+        return empty, empty
+    got = exact_hits_packed(engine, haystack, view)
+    if got is not None:
+        ends, fidx = got
+        fields = packed_exact_of(engine).fields
+        depth = np.asarray([d for _, d, _, _, _ in fields], dtype=np.int64)
+        node = np.asarray([ni for ni, _, _, _, _ in fields], dtype=np.int64)
+        fidx = np.asarray(fidx, dtype=np.int64)
+        return _outputs_of(engine, np.asarray(ends, dtype=np.int64) - depth[fidx], node[fidx])
+
+    device = engine.device
+    from .verify_dp import _dev_cache
+
+    goto, emits = _dev_cache(engine, ("goto-all", str(device)), lambda: (
+        torch.from_numpy(np.ascontiguousarray(dense.goto, dtype=np.int32)).to(device),
+        torch.from_numpy(np.asarray(dense.out_count > 0)).to(device)))
+    narrow = dense.num_classes <= 256
+    ids, n_ids = device_corpus.resident(
+        haystack, ("dense", _space_token(engine)),
+        lambda h: np.ascontiguousarray(dense.transcode(h, view),
+                                       dtype=np.uint8 if narrow else np.int32),
+        device)
+    assert n_ids == n
+    found, _alive = goto_walk(ids, n, goto, emits, max(dense.max_depth, 1))
+    start, _span, node = found.cpu().numpy()
+    return _outputs_of(engine, start, node)

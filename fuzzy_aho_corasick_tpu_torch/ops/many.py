@@ -50,6 +50,9 @@ environment variable; ``FOLD`` switches the folded layout off.
 
 from __future__ import annotations
 
+import os
+import sys
+import time
 from collections import OrderedDict
 from typing import List, NamedTuple, Optional
 
@@ -753,26 +756,35 @@ def many_inputs(engine, spec: ManyPackSpec, haystack: str, threshold, view, n: i
 
 def _many_search_spec(engine, spec, haystack: str, threshold, view, n: int):
     from .emit import decode_matches
+    from .verify_dp import stage_stats, stage_sync
 
     run = many_inputs(engine, spec, haystack, threshold, view, n)
     if not isinstance(run, ManyRun):
         return run
     thr = np.float32(threshold)
-    parts = []
+    timing = os.environ.get("FAC_TIME") == "1"
+    dev_parts = []
     sum_h = sum_c = 0
+    t0 = time.perf_counter()
     for chunk in run.chunks:
         step = many_pipeline(run.ids_pf, run.ids_de, n, chunk, run.halo, run.T, run.pens, thr,
                              run.E, run.deadend, run.hit_ceil)
         if step is None:
             return _FOLD_OVERFLOW
-        parts.append(step.rows.cpu().numpy())
+        dev_parts.append(step.rows)
         sum_h += step.hits
         sum_c += step.candidates
+    if timing:
+        stage_sync(engine.device)
+    t1 = time.perf_counter()
+    parts = [rows.cpu().numpy() for rows in dev_parts]
+    t2 = time.perf_counter()
     # One merged decode over all chunks: decode_matches sorts globally by
     # (pattern, start, end), so the result does not depend on chunk order;
     # duplicate emissions (a verify field shared by patterns in two chunks)
     # collapse in its best-per-span pass with identical values.
     rows = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    t3 = time.perf_counter()
     results = decode_matches(
         engine, view, haystack, n, rows[:, 0], rows[:, 2], rows[:, 3],
         np.ascontiguousarray(rows[:, 1]).view(np.float32), rows[:, 4], thr,
@@ -788,4 +800,8 @@ def _many_search_spec(engine, spec, haystack: str, threshold, view, n: int):
         "damerau": run.dam,
         "folded": spec.folded,
     }
+    if timing:
+        engine.last_stats.update(stage_stats(t0, t1, t2, t3, sum(r.nbytes for r in parts) >> 10))
+        print(f"[FAC_TIME many] dispatch={(t1 - t0) * 1e3:.1f}ms "
+              f"readback={(t2 - t1) * 1e3:.1f}ms chunks={len(run.chunks)}", file=sys.stderr)
     return results

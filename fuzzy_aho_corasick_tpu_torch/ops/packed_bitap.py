@@ -53,6 +53,8 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -849,12 +851,24 @@ def _run_exact_kernel(ids: torch.Tensor, T: ScanTables, halo: int, cols, shs):
     int64, field-major with positions ascending within each field. Field
     bits are expanded on the device, so one (pos, field) pair per emission
     crosses to the host, in one copy."""
+    timing = os.environ.get("FAC_TIME") == "1"
+    t0 = time.perf_counter()
     count, pos, w = packed_hits(ids, T, halo)
     if count == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     bits = (w[:, cols] >> shs) & 1                      # [K, F]
     eidx = compact_indices(bits.T.reshape(-1))          # field-major
-    out = torch.stack([pos[eidx % count], eidx // count]).cpu().numpy()
+    out = torch.stack([pos[eidx % count], eidx // count])
+    if timing:
+        from .verify_dp import stage_sync
+
+        stage_sync(ids.device)
+        t1 = time.perf_counter()
+    out = out.cpu().numpy()
+    if timing:
+        print(f"[FAC_TIME exact] dispatch={(t1 - t0) * 1e3:.1f}ms "
+              f"readback={(time.perf_counter() - t1) * 1e3:.1f}ms buf={out.nbytes >> 10}KiB "
+              f"hits={count}")
     return out[0], out[1]
 
 
@@ -902,3 +916,89 @@ def exact_hits_packed(engine, haystack: str, view):
         ends_all.append(pos[keep] + lo + 1)
         fields_all.append(fld[keep])
     return np.concatenate(ends_all), np.concatenate(fields_all)
+
+
+# ---------------------------------------------------------------------------
+# Fuzzy anchors (the beam lanes' candidate starts)
+# ---------------------------------------------------------------------------
+
+def hit_flags(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """u8 [n]: the hit flag of each stream position, unpacked from the bit
+    words of :func:`scan_bits` (bit ``i`` of word ``j`` is position
+    ``32 j + i``)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    return ((bits.view(torch.uint8).reshape(-1, 1) >> shifts) & 1).reshape(-1)[:n]
+
+
+def anchor_covered_flags(ids: torch.Tensor, T: ScanTables, halo: int, span: int,
+                         n_live: int) -> torch.Tensor:
+    """u8 [len(ids)]: 1 where a position may start a fuzzy match — some hit
+    of the scan ends at it or within the ``span - 1`` positions after it —
+    and the position is below ``n_live``. The scan's hit bits, dilated
+    backwards over the window span (``compact.dilate_any``)."""
+    from .compact import dilate_any
+
+    bits, _counts = scan_bits(ids, T, halo)
+    covered = dilate_any(hit_flags(bits, ids.numel()), span)
+    covered[n_live:] = 0
+    return covered
+
+
+def fuzzy_anchors_packed(engine, haystack: str, threshold) -> Optional[torch.Tensor]:
+    """Candidate anchor positions (a superset of all match starts) for a
+    fuzzy search at ``threshold``, ascending int64 on the engine's device;
+    None when the engine does not pack or some pattern's budget is past
+    ``MAX_USEFUL_K``. Positions are in the prefilter's grapheme indexing
+    (the engine's for ASCII and for the first-char class stream).
+
+    The scan runs the JAX package's per-pattern budgets (a swap costs two
+    errors). Where one of them is past the kernels' ``MAX_K`` (``edits(4)``
+    and more at a low threshold), the Damerau recurrence runs with the
+    Damerau budgets (at most the edit budget): a smaller superset of the
+    same starts, so the matches are the same and ``last_stats["anchors"]``
+    can be smaller than the JAX package's.
+
+    Haystacks of up to ``RESIDENT_MAX`` characters scan the resident
+    prefilter stream once; longer ones stream ``STREAM_CHUNK`` segments,
+    each with ``halo`` symbols of context on both sides, and keep the
+    anchors of the segment's own range."""
+    from ..utils import device_corpus
+    from .verify_dp import _dev_cache
+
+    pk = packed_fuzzy_of(engine)
+    if pk is None:
+        return None
+    thr = np.float32(threshold)
+    ks = [pk.filt.k_for(bp, thr) for bp in pk.filt.patterns]
+    if None in ks:
+        return None
+    dam = max(ks) > MAX_K
+    if dam:
+        ks = [pk.filt.k_for(bp, thr, damerau=True) for bp in pk.filt.patterns]
+    match, init, k = pk.fuzzy_masks(ks)
+    halo = pk.m_max + k
+    span = halo  # the longest window m + k over the patterns
+    device = engine.device
+    T = _dev_cache(engine, ("anchors", tuple(ks), dam, str(device)), lambda: tables_from_numpy(
+        pk.word_tbl, pk.starts, match, init, notlast=pk.notlast() if dam else None,
+        device=device))
+    transcode = lambda h: np.ascontiguousarray(pk.filt.transcode(h)[0], dtype=np.uint8)
+
+    if len(haystack) == 0:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    # len(haystack) bounds the grapheme count from above.
+    if len(haystack) <= RESIDENT_MAX:
+        ids, n = device_corpus.resident(
+            haystack, ("pk-fuzzy", _space_token(engine)), transcode, device)
+        return compact_indices(anchor_covered_flags(ids[:n], T, halo, span, n))
+
+    ids = transcode(haystack)
+    n = len(ids)
+    parts: List[torch.Tensor] = []
+    for c0 in range(0, n, STREAM_CHUNK):
+        c1 = min(n, c0 + STREAM_CHUNK)
+        lo, hi = max(0, c0 - halo), min(n, c1 + halo)
+        seg = torch.from_numpy(ids[lo:hi]).to(device)
+        a = compact_indices(anchor_covered_flags(seg, T, halo, span, hi - lo)) + lo
+        parts.append(a[(a >= c0) & (a < c1)])
+    return torch.cat(parts)

@@ -12,8 +12,8 @@ The reference parallelizes windows across a ``std::thread`` pool
 search (the engine's kernels already run over all start positions), so
 ``search_stream_parallel`` keeps the reference's exactly-once/ordering
 semantics while the parallelism lives inside the CUDA kernels. A batch joins
-at most the windows that one ``search_raw`` serves (``RESIDENT_MAX``
-graphemes), so a stream of any length runs on the card. The parallel
+at most the windows that one ``search_raw`` serves on its resident lanes
+(``RESIDENT_MAX`` graphemes). The parallel
 replace runs its device searches on a worker thread, with the engine's
 device made current there.
 """
@@ -460,10 +460,11 @@ def search_stream_parallel(
 
 def _windows_per_search(window: int, sep_len: int) -> int:
     """Most windows one superwindow may join so that a single ``search_raw``
-    serves it: at most ``RESIDENT_MAX`` graphemes (a window holds fewer than
-    ``window + READ_MIN`` bytes, a grapheme at least one byte). Past that
-    the port's fuzzy lanes decline one call (the streamed DP lane is not
-    ported), so the stream keeps each batch under it."""
+    takes it on the resident lanes: at most ``RESIDENT_MAX`` graphemes (a
+    window holds fewer than ``window + READ_MIN`` bytes, a grapheme at least
+    one byte). Past that a fuzzy search leaves the DP lane for the beam
+    frontier, which gives the same matches more slowly, so the stream keeps
+    each batch under it (the JAX package joins ``shards`` windows)."""
     from .ops.packed_bitap import RESIDENT_MAX
 
     return max(1, RESIDENT_MAX // (window + READ_MIN + sep_len))

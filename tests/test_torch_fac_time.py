@@ -1,0 +1,74 @@
+"""``FAC_TIME=1`` in the port's device lanes: the exact lane prints its
+``[FAC_TIME exact]`` line, the DP and many lanes print theirs and add the
+JAX package's stage keys (``dispatch_ms``, ``readback_ms``, ``decode_ms``,
+``result_buf_kib``) to ``last_stats``. Without the switch there is no
+line and no key, and the switch changes no match. On the CPU (the kernels'
+plain versions)."""
+
+import numpy as np
+import pytest
+
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits
+
+STAGE_KEYS = {"dispatch_ms", "readback_ms", "decode_ms", "result_buf_kib"}
+WORDS = ["tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla", "malesuada"]
+LETTERS = "abcdefghijklmnopqrstuvwxyz"
+
+
+def _many_words():
+    rng = np.random.default_rng(7)
+    return sorted({"".join(LETTERS[i] for i in rng.integers(0, 26, int(m)))
+                   for m in rng.integers(6, 12, 120)})
+
+
+def _text(words, seed: int) -> str:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2500):
+        w = words[int(rng.integers(len(words)))] if rng.integers(5) == 0 else "lorem"
+        if len(w) > 5 and rng.integers(2):
+            at = int(rng.integers(1, len(w) - 1))
+            w = w[:at] + "x" + w[at + 1:]
+        out.append(w)
+    return " ".join(out)
+
+
+#: lane -> (dictionary, edit budget, threshold, backend, its FAC_TIME tag)
+LANES = {
+    "exact": (WORDS, 0, 0.5, "device-exact-packed", "exact"),
+    "dp": (WORDS, 1, 0.8, "device-fuzzy-dp", "dp"),
+    "many": (None, 1, 0.82, "device-fuzzy-many", "many"),
+}
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_fac_time_stage_stats(lane, monkeypatch, capsys):
+    words, E, thr, backend, tag = LANES[lane]
+    words = words or _many_words()
+    b = FuzzyAhoCorasickBuilder.new().device("cpu")
+    if E:
+        b = b.fuzzy(FuzzyLimits.new().edits(E))
+    engine = b.build(words)
+    engine.backend = "device"
+    text = _text(words, 3)
+    key = lambda m: (m.pattern_index, m.start, m.end, np.float32(m.similarity).item(),
+                     m.insertions, m.deletions, m.substitutions, m.swaps)
+    monkeypatch.delenv("FAC_TIME", raising=False)
+    plain = [key(m) for m in engine.search_raw(text, thr)]
+    stats = dict(engine.last_stats)
+    out = capsys.readouterr()
+    assert stats["backend"] == backend and len(plain) > 50
+    assert not STAGE_KEYS & set(stats) and "FAC_TIME" not in out.out + out.err
+
+    monkeypatch.setenv("FAC_TIME", "1")
+    timed = [key(m) for m in engine.search_raw(text, thr)]
+    out = capsys.readouterr()
+    assert timed == plain
+    assert f"[FAC_TIME {tag}] dispatch=" in out.out + out.err
+    stats_t = engine.last_stats
+    if lane == "exact":
+        assert not STAGE_KEYS & set(stats_t)
+    else:
+        assert STAGE_KEYS <= set(stats_t)
+        assert all(stats_t[k] >= 0 for k in STAGE_KEYS) and stats_t["result_buf_kib"] >= 1
+        assert {k: v for k, v in stats_t.items() if k not in STAGE_KEYS} == stats

@@ -102,6 +102,29 @@ def test_large_dictionary_search_runs_without_jax_or_regex():
     assert state_line == "device-fuzzy-many False False"
 
 
+def test_beam_lane_runs_without_jax_or_regex():
+    """The beam frontier (``ops/fuzzy.beam_search``: a pattern past the
+    prefilter's 63 graphemes) in a child without JAX."""
+    hay = "x hello y hxllo " * 30 + "a" * 70 + " " + "a" * 69 + "b" + "a" * 71
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD, str(ROOT), hay, "a" * 70 + ",hello", "1"],
+        capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    matches_line, state_line = out.stdout.strip().splitlines()[-2:]
+    from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+
+    ref = JaxBuilder.new().fuzzy(JaxLimits.new().edits(1)).case_insensitive(True).build(
+        ["a" * 70, "hello"])
+    ref.backend = "oracle"
+    want = sorted((m.pattern_index, m.start, m.end) for m in ref.search_raw(hay, 0.8))
+    assert len(want) >= 60
+    assert matches_line == repr(want)
+    assert state_line == "device-fuzzy False False"
+
+
 def test_port_sources_import_no_jax():
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|fuzzy_aho_corasick_tpu)(\.|\s|$)", re.M
@@ -109,7 +132,7 @@ def test_port_sources_import_no_jax():
     sources = {str(p.relative_to(PORT)): p for p in PORT.rglob("*.py")}
     # The modules above search_raw are scanned too.
     assert {"stream.py", "serialize.py", "replacer.py", "prefilter.py", "ops/native_bfs.py",
-            "ops/bitap.py", "utils/native.py"} <= set(sources)
+            "ops/bitap.py", "utils/native.py", "ops/seeds.py", "ops/fuzzy.py"} <= set(sources)
     offenders = [name for name, p in sources.items() if bad.search(p.read_text())]
     assert offenders == []
     assert not bad.search((ROOT / "chip_smoke.py").read_text())

@@ -281,6 +281,34 @@ def test_parallel_stream_identity_multibatch():
         assert n == len(out_par.getvalue())
 
 
+def test_parallel_stream_batches_under_resident_max(monkeypatch):
+    """``search_stream_parallel`` joins at most the windows one
+    ``search_raw`` may take (``stream._windows_per_search``, from
+    ``packed_bitap.RESIDENT_MAX``): with ``RESIDENT_MAX`` lowered to two
+    windows' worth, 8 shards over 20 windows run in batches of two, and the
+    stream equals the JAX package's stream at the same windows (its
+    ``search_stream``, which its ``search_stream_parallel`` equals)."""
+    from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
+
+    jax_e, port_e = _engines(["needle", "haystack"])
+    data = _multi_window_input(170_000, seed=9).encode()
+    sep = port_e.max_match_graphemes() + 1
+    monkeypatch.setattr(tpb, "RESIDENT_MAX", 2 * (WINDOW + port_stream.READ_MIN + sep))
+    assert port_stream._windows_per_search(WINDOW, sep) == 2
+    want = _jax_stream(jax_e, data, 0.8)
+    texts = []
+    search_raw = port_e.search_raw
+    port_e.search_raw = lambda text, thr: texts.append(text) or search_raw(text, thr)
+    port_e.backend = "device"
+    got = []
+    n = port_e.search_stream_parallel(_Chunked(data), 0.8, 8, lambda m: got.append(_key(m)))
+    assert n == len(data)
+    assert got == want and len(want) > 100
+    windows = len(data) // WINDOW
+    assert len(texts) >= windows // 2 >= 8
+    assert all(len(t) <= tpb.RESIDENT_MAX for t in texts)
+
+
 def test_parallel_stream_separator_isolation():
     """Patterns containing control chars must not break the batched-window
     separator (a different dead char is chosen automatically)."""
