@@ -163,6 +163,33 @@ torch version. Phases:
    (d)'s seed pass, and ``frontier_cpu_check``: the first run of chunks of
    (a), (b) and (c) through the frontier on the card and on the CPU, bit
    for bit;
+4k. the sharded lanes and the multi-host entry points (``parallel/``),
+   the plain versions and the oracle locked out, the launch counters set
+   to 0 just before each search and read just after: (a)
+   ``sharded_exact_search`` (the goto walk per shard, torch) and
+   ``sharded_fuzzy_search`` of the exact, fuzzy1, forbid, typed and
+   mapped engines over their phase 4-4e
+   texts, on 3 logical shards of the card (``[cuda:0] * 3``) and on
+   ``default_mesh()`` (every card), a first search and best of 3, each
+   equal to the engine's ``search_raw`` tuple for tuple (14,222 / 42,666 /
+   116,171 / 23,648 / 62,956 matches), the profiler's launches, copies,
+   waits and busy share on the 3 shards, and the host's transcode of the two
+   symbol streams alone; (b) ``dryrun_multichip`` over every card and over
+   3 logical shards; (c) ``replace_multihost`` to the bench's recipe
+   (``bench.py:552-566``: 24 MiB, fuzzy1 at 0.8, the first 8 dictionary
+   words upper-cased) with 2 logical hosts in this process, best of 3 in
+   MB/s, equal to ``replace_stream``, and once more with each host's slice
+   on 3 logical shards; (d) two processes under ``initialize`` (gloo, both
+   on ``cuda:0``, the kernels built in phase 2 and loaded from the build
+   directory), each running ``search_multihost`` and ``replace_multihost``
+   over the same 24 MiB: the two ranks' lists identical and equal to the
+   whole-input ``search_raw``, their segments in rank order equal to (c)'s
+   bytes; a worker that fails or passes ``WORKER_TIMEOUT_S`` fails the
+   phase and the other is killed; (e) ``scan_bits``, ``block_offsets``,
+   ``hit_words``, ``dp_pipeline`` and the typed step against their plain
+   versions on the extended buffers of the first and the last of (a)'s 3
+   shards (zero left halo, zero right margin), captured from one more
+   search of fuzzy1 and of the typed engine;
 5. parity (run between phases 3 and 4, while the context oracle's workers
    are busy): device vs the port's oracle on 64 KiB (exact) and 32 KiB with
    planted edits (fuzzy, each of the three lanes, and a typed engine with
@@ -512,29 +539,10 @@ def compare_slice_pipeline(tpb, vdp, torch, np, plan, run, part, thr, what, shif
     (``plan``, ``run``)."""
     hits, pos, words = tpb.packed_hits(part.ids_pf[shift:], run.T_scan, run.halo)
     args = pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift, wide)
-    rows_k, cand_k, tags_k = vdp.dp_pipeline(*args, tags=True)
-    rows_p, cand_p, tags_p = vdp.dp_pipeline_torch(*args, tags=True)
-    torch.cuda.synchronize()
-    same = rows_k.shape == rows_p.shape and cand_k == cand_p and torch.equal(tags_k, tags_p)
-    err = float((rows_k.long() - rows_p.long()).abs().max()) if same and rows_k.numel() else 0.0
-    n_counts, err_offs = [], 0
-    if hits:
-        for counts in vdp.dp_pipeline_counts(*args):
-            n_counts.append(counts.numel())
-            err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
-                                          - tpb.block_offsets_torch(counts).long()).abs().max()))
-        if run.variant.typed is not None:
-            for key, e in compare_typed_step(tpb, vdp, torch, args, what).items():
-                if errs is not None:
-                    errs[key] = max(errs.get(key, 0), e)
-    log(f"  {what}: {variant_name(run)} E={plan.E} k={plan.k} damerau={plan.dam} "
-        f"dead-end={run.deadend} n={part.local_n - shift} hits={hits} candidates={cand_k} vs {cand_p} "
-        f"rows={rows_k.shape[0]} vs {rows_p.shape[0]}, max_abs_err {err}; block_offsets over "
-        f"the step's {n_counts} counts, max_abs_err {err_offs}")
-    require(same and err == 0.0, f"{what}: dp_pipeline disagrees with dp_pipeline_torch")
-    require(err_offs == 0, f"{what}: block_offsets disagrees on the step's counts")
-    require(rows_p.shape[0] > 0 or not want_rows, f"{what}: no rows to compare")
-    return err, err_offs
+    return compare_step(
+        tpb, vdp, torch, args, hits, what,
+        f"{variant_name(run)} E={plan.E} k={plan.k} damerau={plan.dam} dead-end={run.deadend} "
+        f"n={part.local_n - shift} ", want_rows, errs)
 
 
 def dp_only(vdp, run, cf, cs, ids, limit, E):
@@ -3003,6 +3011,355 @@ def small_entry_points(ctx, fuzzy, many_e, corpus: str, many_text: str, locked, 
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4k: the sharded lanes and the multi-host entry points (parallel/)
+# ---------------------------------------------------------------------------
+
+#: Phase 4k (c) and (d): ``bench.py:552-566``'s recipe, 24 MiB of the corpus,
+#: fuzzy1 at 0.8, the first 8 dictionary words upper-cased as the table.
+MULTIHOST_BYTES = 24 << 20
+MULTIHOST_TABLE = [w.upper() for w in HEADLINE[:8]]
+#: The groups of phase 4k's launch counts whose ``dp_pipeline`` launches all
+#: ran the count-channel step without a forbid mask or mappings (the dry
+#: run's mix the three; the JSON line lists them apart).
+K4_FAST = ("fuzzy1", "multihost")
+#: Seconds a 4k (d) worker may take, start-up and the process group included.
+WORKER_TIMEOUT_S = 300
+
+
+def sharded_cell(ctx, tag: str, engine, text: str, thr: float, mesh, locked, want_keys,
+                 keys: tuple, profile: bool):
+    """Phase 4k (a): one sharded search of ``engine`` over ``text`` on
+    ``mesh`` (``sharded_exact_search`` for an exact engine, else
+    ``sharded_fuzzy_search``): a first search and best of 3, the plain
+    versions and the oracle locked out, the launch counters set to 0 just
+    before and read just after; the tuples must equal ``want_keys`` (the
+    engine's ``search_raw``), the kernels ``keys`` must have launched and no
+    other; with ``profile`` the profiler's launches, copies, waits and busy
+    share over 2 more searches."""
+    from fuzzy_aho_corasick_tpu_torch.parallel.shard_search import (
+        sharded_exact_search,
+        sharded_fuzzy_search,
+    )
+
+    torch, tpb = ctx.torch, ctx.tpb
+    exact = engine.max_edits_fast == 0
+    search = sharded_exact_search if exact else sharded_fuzzy_search
+    backend = "device-exact-sharded" if exact else "device-fuzzy-sharded"
+    reset_launches(tpb)
+    with plain_locked(*locked):
+        t0 = time.perf_counter()
+        got = search(engine, text, thr, mesh)
+        first = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = search(engine, text, thr, mesh)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = dict(tpb.LAUNCHES)
+    stats = dict(engine.last_stats)
+    got_keys = sorted(map(match_key, got))
+    best = min(times)
+    log(f"  {tag}: {len(mesh)} shards on {', '.join(str(d) for d in mesh)}: first "
+        f"{first * 1e3:.3f} ms, best of 3 {best * 1e3:.3f} ms (all "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) = {len(text) / best / 1e6:.1f} MB/s, "
+        f"{len(got)} matches, equal to search_raw {got_keys == want_keys}; last_stats {stats}; "
+        f"launches {launches}")
+    require(stats["backend"] == backend and stats["shards"] == len(mesh),
+            f"{tag}: last_stats {stats}")
+    require(got_keys == want_keys, f"{tag}: the sharded search differs from search_raw")
+    require(all(launches[k] > 0 for k in keys), f"{tag}: the search did not launch {keys}")
+    require(all(v == 0 for k, v in launches.items() if k not in keys),
+            f"{tag}: the search launched a kernel of another lane")
+    prof = None
+    if profile:
+        prof = profile_search(torch, lambda: search(engine, text, thr, mesh), 2, tpb.LAUNCHES)
+        log(f"    torch.profiler over 2 searches: wall {prof['wall']:.3f} ms, device busy "
+            f"{prof['busy']:.3f} ms ({prof['busy'] / prof['wall']:.4f} of wall); per search "
+            f"{prof['kernels']:.1f} kernel launches, {prof['copies']:.1f} copies, "
+            f"{prof['waits']:.1f} host waits")
+        for line in prof["lines"][:6]:
+            log(f"      {line}")
+    return SimpleNamespace(first=first, times=times, launches=launches, stats=stats,
+                           matches=len(got), prof=prof, nbytes=len(text.encode()))
+
+
+def host_transcode_ms(engine, text: str) -> float:
+    """The host's transcode of ``text`` into the two symbol streams the
+    sharded fuzzy lane ships per search (the prefilter's and the dense
+    classes'), best of 2, ms."""
+    from fuzzy_aho_corasick_tpu_torch.ops.packed_bitap import packed_fuzzy_of
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    pk = packed_fuzzy_of(engine)
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        view = view_of(text, engine.case_insensitive)
+        pk.filt.transcode(text, hay_bytes=view.hay_bytes() if view.ascii else None)
+        engine.dense.transcode(text, view)
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def compare_step(tpb, vdp, torch, args, hits: int, what: str, prefix: str = "",
+                 want_rows: bool = True, errs=None):
+    """``dp_pipeline`` (the count-channel kernel, or the typed step's
+    kernels) against ``dp_pipeline_torch`` on one slice's hits and inputs
+    (``args``, the arguments of ``dp_pipeline``): the same rows in the same
+    order, bit for bit, the same row tags and the same candidate count; for
+    a typed variant each kernel of the step against its plain version
+    (``compare_typed_step``); and ``block_offsets`` against its plain
+    version on every count array the step scans. Returns the step's and
+    block_offsets' max_abs_err; with ``errs`` (a dict) the typed kernels'
+    errors are folded into it."""
+    rows_k, cand_k, tags_k = vdp.dp_pipeline(*args, tags=True)
+    rows_p, cand_p, tags_p = vdp.dp_pipeline_torch(*args, tags=True)
+    torch.cuda.synchronize()
+    same = rows_k.shape == rows_p.shape and cand_k == cand_p and torch.equal(tags_k, tags_p)
+    err = float((rows_k.long() - rows_p.long()).abs().max()) if same and rows_k.numel() else 0.0
+    n_counts, err_offs = [], 0
+    if hits:
+        for counts in vdp.dp_pipeline_counts(*args):
+            n_counts.append(counts.numel())
+            err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
+                                          - tpb.block_offsets_torch(counts).long()).abs().max()))
+        if args[-1].typed is not None:
+            for key, e in compare_typed_step(tpb, vdp, torch, args, what).items():
+                if errs is not None:
+                    errs[key] = max(errs.get(key, 0), e)
+    log(f"  {what}: {prefix}hits={hits} candidates={cand_k} vs {cand_p} rows={rows_k.shape[0]} "
+        f"vs {rows_p.shape[0]}, max_abs_err {err}; block_offsets over the step's {n_counts} "
+        f"counts, max_abs_err {err_offs}")
+    require(same and err == 0.0, f"{what}: dp_pipeline disagrees with dp_pipeline_torch")
+    require(err_offs == 0, f"{what}: block_offsets disagrees on the step's counts")
+    require(rows_p.shape[0] > 0 or not want_rows, f"{what}: no rows to compare")
+    return err, err_offs
+
+
+def shard_kernel_checks(ctx, engine, text: str, thr: float, mesh, what: str, errs: dict):
+    """Phase 4k (e): one ``sharded_fuzzy_search`` of ``engine`` over ``text``
+    on ``mesh`` with the inputs it hands the scan and the step captured
+    (``packed_hits`` and ``dp_pipeline_ranges`` wrapped), then on the first
+    shard's extended buffers (a zero left halo) and the last's (a zero right
+    margin) the scan's three kernels and the step's kernels against their
+    plain versions, bit for bit. Folds the max_abs_err into ``errs``."""
+    from fuzzy_aho_corasick_tpu_torch.parallel.shard_search import sharded_fuzzy_search
+
+    tpb, vdp, torch = ctx.tpb, ctx.vdp, ctx.torch
+    scans, steps = [], []
+    hits_fn, ranges_fn = tpb.packed_hits, vdp.dp_pipeline_ranges
+
+    def spy_hits(ids, T, halo, *rest):
+        scans.append((ids, T, halo))
+        return hits_fn(ids, T, halo, *rest)
+
+    def spy_ranges(pos, words, max_hits, *args):
+        steps.append((pos, words, args))
+        return ranges_fn(pos, words, max_hits, *args)
+
+    tpb.packed_hits, vdp.dp_pipeline_ranges = spy_hits, spy_ranges
+    try:
+        sharded_fuzzy_search(engine, text, thr, mesh)
+    finally:
+        tpb.packed_hits, vdp.dp_pipeline_ranges = hits_fn, ranges_fn
+    require(len(scans) == len(steps) == len(mesh), f"{what}: {len(scans)} scans captured")
+    for d, edge in ((0, "zero left halo"), (len(mesh) - 1, "zero right margin")):
+        ids, T, halo = scans[d]
+        hits, e_scan = compare_scan(tpb, torch, ids, T, halo, f"{what}, shard {d} ({edge})")
+        for key, e in zip(("scan_bits", "block_offsets", "hit_words"), e_scan):
+            errs[key] = max(errs.get(key, 0), e)
+        pos, words, args = steps[d]
+        require(pos.numel() == hits, f"{what}, shard {d}: the captured hit list")
+        window = args[0]
+        err, err_offs = compare_step(
+            tpb, vdp, torch, (pos, words) + tuple(args), hits, f"{what}, shard {d}",
+            f"window [{window.start_lo}, {window.start_hi}) of {ids.numel()} symbols, ",
+            errs=errs)
+        key = "typed_step" if args[-1].typed is not None else "dp_pipeline"
+        errs[key] = max(errs.get(key, 0), err)
+        errs["block_offsets"] = max(errs["block_offsets"], err_offs)
+
+
+def multihost_worker(argv) -> int:
+    """Phase 4k (d), one process: ``initialize`` (rank ``argv[2]`` of 2, rank
+    0 on ``127.0.0.1:argv[1]``), then ``search_multihost`` (a warm-up and
+    one timed) and ``replace_multihost`` over the bytes of ``argv[3]`` with
+    the fuzzy1 engine on ``cuda:0``; writes its match rows and segment
+    beside them and prints one ``WORKER`` JSON line (times, launches)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern
+    from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
+    from fuzzy_aho_corasick_tpu_torch.parallel import multihost
+
+    port, rank, path = argv[0], int(argv[1]), argv[2]
+    t0 = time.perf_counter()
+    require(multihost.initialize(f"127.0.0.1:{port}", 2, rank, timeout_s=WORKER_TIMEOUT_S)
+            == rank, "initialize returned another rank")
+    init_s = time.perf_counter() - t0
+    ctx = SimpleNamespace(dev=torch.device("cuda", 0), Builder=FuzzyAhoCorasickBuilder,
+                          Limits=FuzzyLimits, Pattern=Pattern)
+    engine = recipe_engine(ctx, "fuzzy1")
+    with open(path, "rb") as f:
+        corpus = f.read()
+    multihost.search_multihost(engine, corpus, 0.8)
+    reset_launches(tpb)
+    t0 = time.perf_counter()
+    found = multihost.search_multihost(engine, corpus, 0.8)
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg = multihost.replace_multihost(engine, corpus, 0.8, MULTIHOST_TABLE)
+    replace_s = time.perf_counter() - t0
+    launches = dict(tpb.LAUNCHES)
+    np.save(f"{path}.rows{rank}.npy", multihost._encode_matches(found))
+    with open(f"{path}.seg{rank}", "wb") as f:
+        f.write(seg)
+    print("WORKER " + json.dumps({
+        "rank": rank, "world": dist.get_world_size(), "init_s": init_s, "search_s": search_s,
+        "replace_s": replace_s, "matches": len(found), "segment_bytes": len(seg),
+        "backend": engine.last_stats["backend"], "launches": launches}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_workers(path: str):
+    """Phase 4k (d): two ``multihost_worker`` processes joined by
+    ``initialize``, both on ``cuda:0``. Returns their ``WORKER`` records.
+    A worker that fails or passes ``WORKER_TIMEOUT_S`` fails the phase, and
+    every worker still running then is killed."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "sys.exit(chip_smoke.multihost_worker(sys.argv[2:]))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, HERE, str(port), str(rank), path],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for rank in range(2)]
+    records = []
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=WORKER_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+                raise AssertionError(f"4k (d): worker {rank} passed {WORKER_TIMEOUT_S} s:\n"
+                                     f"{err[-3000:]}")
+            lines = [l for l in out.splitlines() if l.startswith("WORKER ")]
+            require(proc.returncode == 0 and len(lines) == 1,
+                    f"4k (d): worker {rank} exited {proc.returncode}:\n{out[-2000:]}{err[-3000:]}")
+            records.append(json.loads(lines[0][len("WORKER "):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return records
+
+
+def multihost_cells(ctx, fuzzy, corpus: str, locked):
+    """Phase 4k (c) and (d): ``replace_multihost`` to the bench's recipe
+    (``bench.py:552-566``) over the first ``MULTIHOST_BYTES`` of the corpus
+    with two logical hosts in this process (best of 3, MB/s; one more pass
+    with each host's slice sharded over 3 logical shards of the card),
+    equal to ``replace_stream``; then two processes under ``initialize``:
+    both ranks' match lists identical and equal to the whole-input
+    ``search_raw``, their segments concatenated in rank order equal to
+    (c)'s bytes."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fuzzy_aho_corasick_tpu_torch.parallel import multihost
+
+    torch, tpb = ctx.torch, ctx.tpb
+    text = corpus[:MULTIHOST_BYTES]
+    src = text.encode()
+    out = {}
+    reset_launches(tpb)
+    with plain_locked(*locked):
+        multihost.replace_multihost(fuzzy, src, 0.8, MULTIHOST_TABLE, 2)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = multihost.replace_multihost(fuzzy, src, 0.8, MULTIHOST_TABLE, 2)
+            times.append(time.perf_counter() - t0)
+        launches = dict(tpb.LAUNCHES)
+        sharded = multihost.replace_multihost(fuzzy, src, 0.8, MULTIHOST_TABLE, 2,
+                                              [ctx.dev] * 3)
+        sharded_backend = fuzzy.last_stats["backend"]
+        whole = sorted(map(match_key, fuzzy.search_raw(text, 0.8)))
+        seq = io.BytesIO()
+        fuzzy.replace_stream(io.BytesIO(src), seq, 0.8, lambda m: (
+            MULTIHOST_TABLE[m.pattern_index] if m.pattern_index < len(MULTIHOST_TABLE) else None))
+    seq = seq.getvalue()
+    best = min(times)
+    n_rep = sum(got.count(w.encode()) for w in MULTIHOST_TABLE)
+    log(f"  (c) replace_multihost, 2 logical hosts, {len(src)} bytes: best of 3 "
+        f"{best * 1e3:.3f} ms (all {', '.join(f'{t * 1e3:.3f}' for t in times)}) = "
+        f"{len(src) / best / 1e6:.1f} MB/s, {len(got)} bytes out, {n_rep} replacements, equal to "
+        f"replace_stream {got == seq}; with 3 logical shards per host ({sharded_backend}) equal "
+        f"{sharded == got}; launches {launches}")
+    require(got == seq, "4k (c): replace_multihost differs from replace_stream")
+    require(sharded == got and sharded_backend == "device-fuzzy-sharded",
+            "4k (c): the sharded hosts' replace differs")
+    require(all(launches[k] > 0 for k in ("scan_bits", "block_offsets", "hit_words",
+                                          "dp_pipeline")),
+            "4k (c): replace_multihost did not launch the fuzzy lane's kernels")
+    require(n_rep > 1000, "4k (c): too few replacements to be a real check")
+    out["c"] = {"bytes": len(src), "ms": [t * 1e3 for t in times],
+                "mb_per_s": len(src) / best / 1e6, "replacements": n_rep, "launches": launches}
+
+    scratch = os.path.join(HERE, "build", "smoke")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)
+    try:
+        path = os.path.join(tmp, "corpus.bin")
+        with open(path, "wb") as f:
+            f.write(src)
+        t0 = time.perf_counter()
+        records = run_workers(path)
+        wall = time.perf_counter() - t0
+        rows = [np.load(f"{path}.rows{r}.npy") for r in range(2)]
+        segs = []
+        for r in range(2):
+            with open(f"{path}.seg{r}", "rb") as f:
+                segs.append(f.read())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gathered = [sorted(map(match_key, multihost._decode_matches(fuzzy, src, r))) for r in rows]
+    log(f"  (d) 2 processes under initialize (gloo), both on cuda:0, {wall:.1f} s of wall: "
+        + "; ".join(f"rank {rec['rank']}: init {rec['init_s']:.2f} s, search_multihost "
+                    f"{rec['search_s'] * 1e3:.1f} ms, replace_multihost "
+                    f"{rec['replace_s'] * 1e3:.1f} ms, {rec['matches']} matches, segment "
+                    f"{rec['segment_bytes']} bytes, {rec['backend']}, launches {rec['launches']}"
+                    for rec in records))
+    log(f"  (d) the ranks' lists identical {np.array_equal(rows[0], rows[1])}, equal to the "
+        f"whole-input search_raw {gathered[0] == whole}; segments concatenated equal to (c) "
+        f"{segs[0] + segs[1] == got}")
+    require(np.array_equal(rows[0], rows[1]), "4k (d): the two ranks' lists differ")
+    require(gathered[0] == whole, "4k (d): the gathered list differs from the whole-input search")
+    require(len(whole) > 1000, "4k (d): too few matches to be a real check")
+    require(segs[0] + segs[1] == got, "4k (d): the segments differ from (c)'s bytes")
+    require(all(rec["world"] == 2 for rec in records), "4k (d): a worker's group is not of 2")
+    require(all(rec["launches"][k] > 0 for rec in records
+                for k in ("scan_bits", "block_offsets", "hit_words", "dp_pipeline")),
+            "4k (d): a worker did not launch the fuzzy lane's kernels")
+    out["d"] = {"wall_s": wall, "workers": records, "matches": len(whole)}
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG}/ is not beside this script; run it from the "
@@ -3613,6 +3970,69 @@ def smoke(torch, start_pool, workers: int) -> int:
         frontier_cpu_check(ctx, eng, text, thr, beam[tag].stages, tag)
     log(f"  phase 4j {time.perf_counter() - t_4j:.1f} s")
 
+    # 4k. The sharded lanes and the multi-host entry points (parallel/): the
+    # engines of phases 4-4e over their 96 MiB texts on 3 logical shards of
+    # the card and on default_mesh() (every card), the dry run,
+    # replace_multihost in one process and in two under initialize, and the
+    # kernels on the first and the last shard's buffers.
+    from fuzzy_aho_corasick_tpu_torch.parallel.dryrun import dryrun_multichip
+    from fuzzy_aho_corasick_tpu_torch.parallel.shard_search import default_mesh
+
+    t_4k = time.perf_counter()
+    mesh3 = [dev] * 3
+    meshes = (("3 logical shards", mesh3), ("default_mesh()", default_mesh()))
+    step_keys = scan_keys + ("dp_pipeline",)
+    sharded, k4 = {}, {}
+    for name, eng, text, thr, keys, want_n in (
+        ("exact", engine, corpus, 0.5, (), len(got)),
+        ("fuzzy1", fuzzy, corpus, 0.8, step_keys, len(got_f)),
+        ("forbid", forbid_e, lane_runs["4c"].text, 0.62, step_keys, lane_runs["4c"].matches),
+        ("typed", typed_e, lane_runs["4d"].text, 0.8, scan_keys + TYPED_KEYS,
+         lane_runs["4d"].matches),
+        ("mapped", mapped_e, lane_runs["4e"].text, 0.8, step_keys, lane_runs["4e"].matches),
+    ):
+        phase(f"phase 4k (a) {name}: the sharded lane over {len(text)} bytes, threshold {thr}:")
+        with plain_locked(*locked):
+            want = sorted(map(match_key, eng.search_raw(text, thr)))
+        require(len(want) == want_n, f"4k (a) {name}: search_raw found {len(want)}, its phase "
+                f"{want_n}")
+        for mesh_name, mesh in meshes:
+            cell = sharded_cell(ctx, f"4k (a) {name}, {mesh_name}", eng, text, thr, mesh, locked,
+                                want, keys, profile=mesh is mesh3)
+            sharded[f"{name}, {mesh_name}"] = cell
+            k4.setdefault(name, []).append(cell.launches)
+        if name != "exact":
+            log(f"  host transcode of the two symbol streams per search: "
+                f"{host_transcode_ms(eng, text):.3f} ms")
+    phase("phase 4k (b): dryrun_multichip over every card and over 3 logical shards:")
+    reset_launches(tpb)
+    with plain_locked(*plain_names):
+        dry = {"default_mesh": dryrun_multichip(torch.cuda.device_count()),
+               "3 logical shards": dryrun_multichip(3, mesh3)}
+    k4["dryrun"] = [dict(tpb.LAUNCHES)]
+    log(f"  {dry}; launches {k4['dryrun'][0]}")
+    phase(f"phase 4k (c), (d): replace_multihost and search_multihost over {MULTIHOST_BYTES} "
+          f"bytes, fuzzy1 at 0.8, table {MULTIHOST_TABLE[0]!r}..:")
+    multi = multihost_cells(ctx, fuzzy, corpus, locked)
+    k4["multihost"] = [multi["c"]["launches"]] + [w["launches"] for w in multi["d"]["workers"]]
+    phase("phase 4k (e): the kernels against their plain versions on the first and the last "
+          "shard's extended buffers of (a), 3 logical shards:")
+    errs_4k = {}
+    shard_kernel_checks(ctx, fuzzy, corpus, 0.8, mesh3, "4k (e) fuzzy1", errs_4k)
+    shard_kernel_checks(ctx, typed_e, lane_runs["4d"].text, 0.8, mesh3, "4k (e) typed", errs_4k)
+    for i, key in enumerate(scan_keys):
+        errs_scan[i] = max(errs_scan[i], errs_4k[key])
+    err_pipe_all = max(err_pipe_all, errs_4k["dp_pipeline"])
+    for key in TYPED_KEYS + ("typed_step",):
+        lane_errs[key] = max(lane_errs[key], errs_4k.get(key, 0))
+    log(f"  max_abs_err {errs_4k}")
+    k4_s = time.perf_counter() - t_4k
+    log(f"  phase 4k {k4_s:.1f} s")
+
+    def k4_sum(name, groups=None):
+        return sum(counts[name] for group, sets in k4.items() if groups is None or group in groups
+                   for counts in sets)
+
     # 6. times, bounds and agreement at the main paths' shapes
     phase("phase 6 times at main-path shapes (CUDA events; device time is the profiler's above):")
     plan, run = lane_inputs(vdp, fuzzy, corpus, 0.8, "main-path shapes")
@@ -3808,9 +4228,11 @@ def smoke(torch, start_pool, workers: int) -> int:
         kernels.append(record(
             name, src, replaces, launches[name] + launches_f[name]
             + sum(lane.launches[name] for lane in (*lane_runs.values(), *many_runs.values(),
-                                                   *exact_runs.values())) + entry_sum(name),
+                                                   *exact_runs.values())) + entry_sum(name)
+            + k4_sum(name),
             errs_scan[i], ms, plain,
-            bound, lib, fuzzy_ms=f_ms, fuzzy_plain_ms=f_plain, fuzzy_bound_ms=f_bound[0],
+            bound, lib, launches_4k=k4_sum(name), fuzzy_ms=f_ms, fuzzy_plain_ms=f_plain,
+            fuzzy_bound_ms=f_bound[0],
             **({"pipeline_counts_ms": offs_pipe_rec[0], "pipeline_counts_plain_ms": offs_pipe_rec[1],
                 "pipeline_counts_bound_ms": offs_pipe_rec[2][0],
                 "pipeline_counts_library_ms": offs_pipe_rec[3],
@@ -3825,8 +4247,9 @@ def smoke(torch, start_pool, workers: int) -> int:
             device_ms_per_fuzzy_search=search_ms(prof_f, name)))
     kernels.append(record(
         "dp_pipeline", f"{PKG}/csrc/dp_pipeline.cu", "fuzzy_aho_corasick_tpu/ops/verify_dp.py:1297",
-        launches_f["dp_pipeline"] + entry_sum("dp_pipeline"),
+        launches_f["dp_pipeline"] + entry_sum("dp_pipeline") + k4_sum("dp_pipeline", K4_FAST),
         err_pipe_all, pipe_ms, pipe_plain_ms, pipe_bound, None,
+        launches_4k=k4_sum("dp_pipeline", K4_FAST),
         device_ms_per_fuzzy_search=search_ms(prof_f, "dp_pipeline")))
     # The DP-only kernel shares the pipeline's DP body; no search runs it, so
     # it is held against its plain version here and not counted on a path.
@@ -3836,16 +4259,18 @@ def smoke(torch, start_pool, workers: int) -> int:
     # The lanes of phases 4c-4e: the pipeline kernel each one's searches
     # launched, and its DP-only entry point.
     jax_vd = "fuzzy_aho_corasick_tpu/ops/verify_dp.py"
-    for tag, name, dp_name, source, replaces, dp_replaces, err, dp_err in (
-        ("4c", "dp_pipeline[forbid]", "banded_dp[forbid]", "dp_pipeline.cu", f"{jax_vd}:355",
-         f"{jax_vd}:355", err_pipe_all, err_dp_all),
-        ("4e", "dp_pipeline[maps]", "banded_dp[maps]", "dp_pipeline.cu", f"{jax_vd}:611",
-         f"{jax_vd}:611", err_pipe_all, err_dp_all),
+    for tag, k4_group, name, dp_name, source, replaces, dp_replaces, err, dp_err in (
+        ("4c", "forbid", "dp_pipeline[forbid]", "banded_dp[forbid]", "dp_pipeline.cu",
+         f"{jax_vd}:355", f"{jax_vd}:355", err_pipe_all, err_dp_all),
+        ("4e", "mapped", "dp_pipeline[maps]", "banded_dp[maps]", "dp_pipeline.cu",
+         f"{jax_vd}:611", f"{jax_vd}:611", err_pipe_all, err_dp_all),
     ):
         lane, lane_t = lane_runs[tag], lane_times[tag]
+        n4k = k4_sum("dp_pipeline", (k4_group,))
         kernels.append(record(
-            name, f"{PKG}/csrc/{source}", replaces, lane.launches["dp_pipeline"], err,
-            *lane_t.pipe, None, device_ms_per_search=search_ms(lane.prof, "dp_pipeline")))
+            name, f"{PKG}/csrc/{source}", replaces, lane.launches["dp_pipeline"] + n4k, err,
+            *lane_t.pipe, None, launches_4k=n4k,
+            device_ms_per_search=search_ms(lane.prof, "dp_pipeline")))
         held.append(record(dp_name, f"{PKG}/csrc/banded_dp.cu", dp_replaces, 0, dp_err,
                            *lane_t.dp, None))
     # The typed step of phase 4d, a kernel each: what its searches launched,
@@ -3856,8 +4281,9 @@ def smoke(torch, start_pool, workers: int) -> int:
     for name, replaces in (("typed_expand", f"{jax_vd}:1411"), ("typed_dp", f"{jax_vd}:935"),
                            ("typed_emit", f"{jax_vd}:1208")):
         kernels.append(record(
-            name, f"{PKG}/csrc/dp_typed.cu", replaces, lane.launches[name], lane_errs[name],
-            *lane_t.typed[name], device_ms_per_search=search_ms(lane.prof, name, name),
+            name, f"{PKG}/csrc/dp_typed.cu", replaces, lane.launches[name] + k4_sum(name),
+            lane_errs[name], *lane_t.typed[name], launches_4k=k4_sum(name),
+            device_ms_per_search=search_ms(lane.prof, name, name),
             typed14_ms=t14.typed[name][0], typed14_plain_ms=t14.typed[name][1],
             typed14_bound_ms=t14.typed[name][2][0]))
     held.append(record("banded_dp_typed", f"{PKG}/csrc/dp_typed.cu", f"{jax_vd}:935", 0,
@@ -3872,9 +4298,10 @@ def smoke(torch, start_pool, workers: int) -> int:
     ):
         kernels.append(record(
             name, f"{PKG}/csrc/{source}", replaces,
-            sum(run.launches[name] for run in many_runs.values()) + entry_sum(name),
+            sum(run.launches[name] for run in many_runs.values()) + entry_sum(name)
+            + k4_sum(name),
             many_errs[name],
-            *many_rec[name],
+            *many_rec[name], launches_4k=k4_sum(name),
             device_ms_per_search={tag: search_ms(run.prof, name)
                                   for tag, run in many_runs.items()},
             **({"pass_device_ms": step_passes} if name == "many_step" else
@@ -3885,7 +4312,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         base = name.split("[")[0]
         kernels.append(record(
             name, f"{PKG}/csrc/scan_wide.cu", replaces, exact_runs["exact-wide"].launches[base],
-            wide_errs[name], *wide_rec[name],
+            wide_errs[name], *wide_rec[name], launches_4k=0,
             device_ms_per_search=search_ms(exact_runs["exact-wide"].prof, base),
             **wide_fields(wide_detail, base)))
     ranged = [{"name": f"{key}[3 ranges]", "one_range_ms": one, "three_ranges_ms": three,
@@ -3905,6 +4332,24 @@ def smoke(torch, start_pool, workers: int) -> int:
     print(json.dumps({"kernels": kernels, "held_against_plain_only": held,
                       "entry_points": streams,
                       "ranged_pipelines": ranged,
+                      "phase_4k": {
+                          "seconds": k4_s,
+                          "sharded": {tag: {
+                              "bytes": cell.nbytes, "first_ms": cell.first * 1e3,
+                              "ms": [t * 1e3 for t in cell.times],
+                              "mb_per_s": cell.nbytes / min(cell.times) / 1e6,
+                              "matches": cell.matches, "last_stats": cell.stats,
+                              "launches": cell.launches,
+                              **({"launches_copies_waits": [cell.prof["kernels"],
+                                                            cell.prof["copies"],
+                                                            cell.prof["waits"]],
+                                  "profiled_wall_ms": cell.prof["wall"],
+                                  "device_busy_ms": cell.prof["busy"]}
+                                 if cell.prof is not None else {})}
+                              for tag, cell in sharded.items()},
+                          "dryrun": dry, "dryrun_launches": k4["dryrun"][0],
+                          "replace_multihost": multi["c"], "two_processes": multi["d"],
+                          "max_abs_err": errs_4k},
                       "torch_paths": [walk_rec] + [beam_record(tag, run)
                                                    for tag, run in beam.items()],
                       "scan_chunk_sweep": sweep,

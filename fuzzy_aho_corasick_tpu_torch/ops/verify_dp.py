@@ -1915,25 +1915,27 @@ class DpRun(NamedTuple):
     parts: List[_Part]
 
 
-def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int,
-              typed: Optional[TypedSpec] = None, maps: Optional[MappedSpec] = None,
-              forbid: Optional[tuple] = None) -> DpRun:
-    """The device tables and resident corpus slices for ``plan``; ``typed``
-    / ``maps`` / ``forbid`` as :func:`dp_plan` took them.
+class LaneTables(NamedTuple):
+    """The lane's tables on one device: scan tables, DP tables with this
+    threshold's ceilings, penalties, the DP variant and the dead-end flag."""
 
-    Corpora of at least 1.5 ``SLICE_SYMS`` (with a dense alphabet of at most
-    256 classes) are cut into overlapping slices: slice i owns match starts
-    in its core range, its buffer carries a left scan warm-up halo (pattern
-    length + error budget) and a right completion halo (max depth + E), so
-    every owned match ends in-buffer (reference stream-window rule
-    src/stream.rs:262-297)."""
-    from ..utils import device_corpus
-    from .packed_bitap import _space_token, tables_from_numpy
+    T_scan: object
+    T: DpTables
+    pens: DpPenalties
+    variant: DpVariant
+    deadend: bool
 
-    pk, vf, E = plan.pk, plan.vf, plan.E
-    halo = pk.m_max + plan.k
+
+def lane_tables(engine, plan: _Plan, device, typed: Optional[TypedSpec] = None,
+                maps: Optional[MappedSpec] = None, forbid: Optional[tuple] = None
+                ) -> LaneTables:
+    """The device tables of ``plan`` on ``device``, built once per engine
+    and device (``typed`` / ``maps`` / ``forbid`` as :func:`dp_plan` took
+    them)."""
+    from .packed_bitap import tables_from_numpy
+
+    pk, vf = plan.pk, plan.vf
     dense = engine.dense
-    device = engine.device
     dkey = str(device)
     T_scan = _dev_cache(engine, ("scan", plan.ks, plan.dam, dkey), lambda: tables_from_numpy(
         pk.word_tbl, pk.starts, *pk.fuzzy_masks(list(plan.ks))[:2],
@@ -1967,6 +1969,30 @@ def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int,
     # configurations run the reference's general path, which has none
     # (src/search.rs:204-393), and mapped engines have no multi-byte edges.
     deadend = bool(dense.has_multibyte_edges) and typed is None and forbid is None
+    return LaneTables(T_scan, T, dp_pens, variant, deadend)
+
+
+def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int,
+              typed: Optional[TypedSpec] = None, maps: Optional[MappedSpec] = None,
+              forbid: Optional[tuple] = None) -> DpRun:
+    """The device tables (:func:`lane_tables` on ``engine.device``) and
+    resident corpus slices for ``plan``; ``typed`` / ``maps`` / ``forbid``
+    as :func:`dp_plan` took them.
+
+    Corpora of at least 1.5 ``SLICE_SYMS`` (with a dense alphabet of at most
+    256 classes) are cut into overlapping slices: slice i owns match starts
+    in its core range, its buffer carries a left scan warm-up halo (pattern
+    length + error budget) and a right completion halo (max depth + E), so
+    every owned match ends in-buffer (reference stream-window rule
+    src/stream.rs:262-297)."""
+    from ..utils import device_corpus
+    from .packed_bitap import _space_token
+
+    pk, vf, E = plan.pk, plan.vf, plan.E
+    halo = pk.m_max + plan.k
+    dense = engine.dense
+    device = engine.device
+    lt = lane_tables(engine, plan, device, typed, maps, forbid)
 
     tok = _space_token(engine)
     hay_bytes = view.hay_bytes() if view.ascii else None
@@ -2000,8 +2026,8 @@ def dp_inputs(engine, haystack: str, plan: _Plan, view, n: int,
         ids_de, n_de = device_corpus.resident(haystack, ("dense", tok), de_transcode, device)
         assert n_pf == n_de == n
         parts = [_Part(ids_pf, ids_de, n, 0, n, 0)]
-    return DpRun(plan, T_scan, T, dp_pens, _statics(engine, pk, vf), deadend, variant,
-                 halo, parts)
+    return DpRun(plan, lt.T_scan, lt.T, lt.pens, _statics(engine, pk, vf), lt.deadend,
+                 lt.variant, halo, parts)
 
 
 def dp_candidates(run: DpRun, part: _Part):

@@ -132,10 +132,50 @@ def test_port_sources_import_no_jax():
     sources = {str(p.relative_to(PORT)): p for p in PORT.rglob("*.py")}
     # The modules above search_raw are scanned too.
     assert {"stream.py", "serialize.py", "replacer.py", "prefilter.py", "ops/native_bfs.py",
-            "ops/bitap.py", "utils/native.py", "ops/seeds.py", "ops/fuzzy.py"} <= set(sources)
+            "ops/bitap.py", "utils/native.py", "ops/seeds.py", "ops/fuzzy.py",
+            "parallel/shard_search.py", "parallel/multihost.py", "parallel/dryrun.py"
+            } <= set(sources)
     offenders = [name for name, p in sources.items() if bad.search(p.read_text())]
     assert offenders == []
     assert not bad.search((ROOT / "chip_smoke.py").read_text())
+
+
+_CHILD_PARALLEL = r"""
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, sys.argv[1])
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits
+from fuzzy_aho_corasick_tpu_torch.parallel import multihost
+from fuzzy_aho_corasick_tpu_torch.parallel.shard_search import sharded_fuzzy_search
+engine = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(1))
+          .case_insensitive(True).device("cpu").build(["tincidunt", "phaetra"]))
+got = sharded_fuzzy_search(engine, sys.argv[2], 0.8, ["cpu", "cpu"])
+print(sorted((m.pattern_index, m.start, m.end) for m in got))
+print(engine.last_stats["backend"], engine.last_stats["shards"], multihost.initialize(),
+      sys.modules["jax"] is not None, "fuzzy_aho_corasick_tpu" in sys.modules)
+"""
+
+
+def test_sharded_search_runs_without_jax():
+    """``parallel.shard_search`` and ``parallel.multihost`` import with
+    ``jax`` blocked, and a 2-shard CPU search runs there, returning the
+    oracle's matches."""
+    hay = ("Ushers and his TINCIDNT, tincidunt\r\nshe tnicidunt phaetra " * 40)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _CHILD_PARALLEL, str(ROOT), hay],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    matches_line, state_line = out.stdout.strip().splitlines()[-2:]
+    from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+
+    ref = JaxBuilder.new().fuzzy(JaxLimits.new().edits(1)).case_insensitive(True).build(
+        ["tincidunt", "phaetra"])
+    ref.backend = "oracle"
+    want = sorted((m.pattern_index, m.start, m.end) for m in ref.search_raw(hay, 0.8))
+    assert len(want) >= 120
+    assert matches_line == repr(want)
+    assert state_line == "device-fuzzy-sharded 2 0 False False"
 
 
 #: The entry points above search_raw on one engine; the same code runs in

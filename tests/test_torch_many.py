@@ -464,6 +464,31 @@ def test_many_lane_tie_order_across_fields_equals_jax(monkeypatch):
     assert [t[4:] for t in ties] == [(0, 0, 1, 0)] * 2  # the substitution row
 
 
+def test_many_lane_tie_order_across_ranges(monkeypatch):
+    """The tie of ``test_many_lane_tie_order_across_fields_equals_jax`` with
+    each hit a range of its own (``many_max_hits`` = 1). Two hits of one
+    chunk (ends 5 and 6 of the first ``bazz``, 21 and 22 of the second)
+    each emit rows of ``zz`` over its span, a substitution and a swap, so
+    the tied rows lie in two ranges. The tuples, edit counts included, are
+    the one-range run's, and the tie still keeps the substitution row."""
+    monkeypatch.setattr(many, "MANY_LIMBS", 2)
+    monkeypatch.setattr(many, "FOLD", False)
+    words = ["abzz", "bbzz", "zz"] + _dictionary(120, seed=7)
+    port_e = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(1))
+              .penalties(FuzzyPenalties().with_substitution(0.6).with_swap(0.6))
+              .device("cpu").build(words))
+    hay = "xx bazz yy abzz ww bazz q bbaz bazzz"
+    view = view_of(hay, False)
+    one = sorted(map(_key, many.fuzzy_search_many(port_e, hay, 0.5, view, len(view))))
+    hits = port_e.last_stats["hits"]
+    monkeypatch.setattr(many, "many_max_hits", lambda X, E, nch: 1)
+    got = sorted(map(_key, many.fuzzy_search_many(port_e, hay, 0.5, view, len(view))))
+    assert port_e.last_stats["backend"] == "device-fuzzy-many" and hits > 2
+    assert got == one
+    ties = [t for t in got if t[0] == 2 and (t[1], t[2]) in ((3, 7), (19, 23))]
+    assert [t[4:] for t in ties] == [(0, 0, 1, 0)] * 2
+
+
 # ---------------------------------------------------------------------------
 # (c) the wide scan
 # ---------------------------------------------------------------------------
