@@ -10,7 +10,7 @@ path above it), and checks every CUDA kernel they run against its plain
 torch version. Phases:
 
 1. card: ``nvidia-smi`` name and power limit, CUDA version, device name;
-2. build: compile the seven sources of ``csrc/`` with nvcc (sm_90a, one
+2. build: compile the eight sources of ``csrc/`` with nvcc (sm_90a, one
    process per source, in parallel) from the checkout; report build seconds
    and ptxas registers / spills;
 3. kernel vs plain on the card, bit for bit. The hit-list scan's three
@@ -107,9 +107,14 @@ torch version. Phases:
    kernel, equal to an independent overlapping ``str.find`` set and to the
    oracle on 32 KiB with 300 planted words;
 4h. exact1k: all 1,000 words, exact, over the same corpus: past 64 limbs,
-   so the goto walk (torch code, no kernel of ``csrc/``) serves it; checked
-   as 4g, with the walk's stage times (root step, compaction, walk,
-   readback) and its bound; then a 70-character pattern (past the packed
+   so the goto walk serves it, launching ``goto_walk`` (count and emit
+   passes) and ``block_offsets`` and no other kernel; checked as 4g; then
+   the walk's kernels against their plain version, arrivals and alive
+   counts bit for bit, on exact1k's corpus and table, on a dictionary past
+   256 classes (int32 ids: CJK words over 1 Mi characters of the cjk1
+   corpus), on the unmasked table of the seed filter's exact pass
+   (``exact_scan_hits``) and on walks of 300 and 1,100 symbols; then a
+   70-character pattern (past the packed
    lane's 64) over 1 MiB with 64 planted runs of 70-80 a's against
    ``str.find``;
 4i. the entry points above ``search_raw`` (``stream_replace_cell``,
@@ -166,7 +171,7 @@ torch version. Phases:
 4k. the sharded lanes and the multi-host entry points (``parallel/``),
    the plain versions and the oracle locked out, the launch counters set
    to 0 just before each search and read just after: (a)
-   ``sharded_exact_search`` (the goto walk per shard, torch) and
+   ``sharded_exact_search`` (the goto walk's kernels per shard) and
    ``sharded_fuzzy_search`` of the exact, fuzzy1, forbid, typed and
    mapped engines over their phase 4-4e
    texts, on 3 logical shards of the card (``[cuda:0] * 3``) and on
@@ -189,7 +194,9 @@ torch version. Phases:
    ``hit_words``, ``dp_pipeline`` and the typed step against their plain
    versions on the extended buffers of the first and the last of (a)'s 3
    shards (zero left halo, zero right margin), captured from one more
-   search of fuzzy1 and of the typed engine;
+   search of fuzzy1 and of the typed engine, and the goto walk's kernels on
+   the first and the last shard of one more exact search (shard 0 walks
+   fewer starts than it reads);
 5. parity (run between phases 3 and 4, while the context oracle's workers
    are busy): device vs the port's oracle on 64 KiB (exact) and 32 KiB with
    planted edits (fuzzy, each of the three lanes, and a typed engine with
@@ -220,7 +227,11 @@ torch version. Phases:
    kernel timed three ways (CUDA events around 10 back-to-back calls,
    around one call after a synchronise, the profiler's device ms per
    launch), its registers, the scan's instance (LPL, G, padded width) and
-   the SASS of its main loop per symbol (``cuobjdump -sass``); slice 1's hit list of the fuzzy and the typed lane run
+   the SASS of its main loop per symbol (``cuobjdump -sass``); the goto
+   walk at exact1k's shape (``walk_times``: the kernel pair, its plain
+   version and ``torch.gather`` of the root row, each kernel's device ms
+   and the launches, copies and waits per walk from the profiler); slice
+   1's hit list of the fuzzy and the typed lane run
    by the pipeline kernels in 3 ranges (each handed its preceding hit, the
    rows put back in one range's order by their tags) against one range,
    each range's kernel call against its plain version, rows and tags bit for
@@ -2009,17 +2020,27 @@ def make_exact(ctx, words):
     return eng
 
 
-def find_set(text: str, words):
-    """Every (pattern, start, end) of ``words`` in the lowercased ASCII
-    ``text``, overlapping, by ``str.find``."""
-    low = text.lower()
+def find_pairs(low: str, pairs):
+    """Every (pattern, start, end) of the (pattern, word) ``pairs`` in
+    ``low``, overlapping, by ``str.find``."""
     want = set()
-    for pi, w in enumerate(words):
+    for pi, w in pairs:
         at = low.find(w)
         while at >= 0:
             want.add((pi, at, at + len(w)))
             at = low.find(w, at + 1)
     return want
+
+
+def find_set(text: str, words, pool=None, workers: int = 1):
+    """Every (pattern, start, end) of ``words`` in the lowercased ASCII
+    ``text``, overlapping, by ``str.find``; with a ``pool``, the words
+    dealt out to its ``workers`` processes."""
+    low, pairs = text.lower(), list(enumerate(words))
+    if pool is None:
+        return find_pairs(low, pairs)
+    return set().union(*pool.starmap(find_pairs, [(low, pairs[i::workers])
+                                                  for i in range(workers)]))
 
 
 def exact_main_path(ctx, tag: str, engine, words, text: str, backend: str, locked, keys):
@@ -2060,7 +2081,7 @@ def exact_main_path(ctx, tag: str, engine, words, text: str, backend: str, locke
     require(all(m.similarity == 1.0 and m.edits == 0 for m in got),
             f"{tag}: exact matches carry weight 1.0")
     t0 = time.perf_counter()
-    want = find_set(text, words)
+    want = find_set(text, words, ctx.pool, ctx.workers)
     log(f"  independent str.find count {len(want)} ({time.perf_counter() - t0:.1f} s); equal: "
         f"{dev_set == want}")
     require(len(got) == len(dev_set) and dev_set == want, f"{tag}: disagrees with str.find")
@@ -2086,57 +2107,157 @@ def exact_main_path(ctx, tag: str, engine, words, text: str, backend: str, locke
                            matches=len(got))
 
 
-def walk_stages(ctx, engine, text: str):
-    """The goto walk of ``engine`` over ``text`` stage by stage (host clock,
-    each stage ended by a synchronise, best of 3): the root step, the
-    compaction of its survivors, the walk, the readback; the whole walk by
-    CUDA events; the bound (one gather of a symbol and a goto entry per
-    walk and step, the arrivals written once, over the memory rate); and a
-    ``torch.gather`` of the root row as the one PyTorch call that computes
-    the root step."""
-    torch, np, tpb = ctx.torch, ctx.np, ctx.tpb
+def walk_inputs(ctx, engine, text: str):
+    """The goto walk's arguments ``(ids, n, n, goto, emits, L)`` for the exact
+    search of ``text`` by ``engine``, as ``exact_search_walk`` makes them:
+    the resident class stream (u8, or int32 past 256 classes) and the
+    threshold 0.5's tables."""
+    np, tpb = ctx.np, ctx.tpb
     from fuzzy_aho_corasick_tpu_torch.ops import exact
     from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
     dense = engine.dense
+    dtype = np.uint8 if dense.num_classes <= 256 else np.int32
     ids, n = device_corpus.resident(
         text, ("dense", tpb._space_token(engine)),
-        lambda h: np.ascontiguousarray(dense.transcode(h, view_of(h, True)), dtype=np.uint8),
+        lambda h: np.ascontiguousarray(dense.transcode(h, view_of(h, engine.case_insensitive)),
+                                       dtype=dtype),
         ctx.dev)
     goto, emits = exact.walk_tables(engine, 0.5, ctx.dev)
-    L = dense.max_depth
-    ms = dict.fromkeys(("root step", "compaction", "walk", "readback"), float("inf"))
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        root = exact.walk_root(ids, n, goto)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        pos, st = exact.walk_compact(root)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        found, alive = exact.walk_steps(ids, n, pos, st, goto, emits, L)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        found.cpu()
-        t4 = time.perf_counter()
-        for key, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            ms[key] = min(ms[key], dt * 1e3)
-    whole = event_ms(torch, lambda: exact.goto_walk(ids, n, goto, emits, L), 5)
+    return ids, n, n, goto, emits, max(dense.max_depth, 1)
+
+
+def compare_walk(ctx, args, what: str) -> float:
+    """The goto walk's kernel pair (``exact.goto_walk`` on the card) against
+    its plain version on the same inputs: the arrivals and the alive counts
+    bit for bit. Returns the max_abs_err of the arrivals."""
+    from fuzzy_aho_corasick_tpu_torch.ops import exact
+
+    torch = ctx.torch
+    ids, n_starts, n_read, goto, emits, L = args
+    found, alive = exact.goto_walk(*args)
+    torch.cuda.synchronize()
+    p_found, p_alive = exact.goto_walk_torch(*args)
+    err = int_err(found, p_found)
+    log(f"  goto_walk vs plain, {what}: {n_starts} starts, {n_read} symbols read "
+        f"({str(ids.dtype).replace('torch.', '')}), {goto.shape[0]} nodes x {goto.shape[1]} "
+        f"classes, L {L}: {found.shape[1]} arrivals, alive per span {alive[:12]}"
+        f"{f' .. ({len(alive)} spans)' if len(alive) > 12 else ''}; max_abs_err {err}, "
+        f"alive equal {alive == p_alive}")
+    require(err == 0 and alive == p_alive, f"goto_walk differs from its plain version: {what}")
+    require(found.shape[1] > 0, f"goto_walk, {what}: no arrival, not a real check")
+    return err
+
+
+def captured_walks(exact, run) -> list:
+    """The arguments of every ``exact.goto_walk`` call that ``run()`` makes."""
+    calls, walk = [], exact.goto_walk
+
+    def spy(*args):
+        calls.append(args)
+        return walk(*args)
+
+    exact.goto_walk = spy
+    try:
+        run()
+    finally:
+        exact.goto_walk = walk
+    return calls
+
+
+def walk_kernel_checks(ctx, engine, text: str, cjk_text: str) -> float:
+    """Phase 4h: the goto walk's kernels against their plain version on
+    exact1k's corpus and table, on a dictionary past 256 classes (int32 ids:
+    the distinct words of the first 64 Ki characters of ``cjk_text`` and 300
+    CJK words, over its first 1 Mi characters), on the unmasked table of
+    the seed filter's exact pass (``exact_scan_hits`` of ``engine``), and on
+    walks past 256 spans and past the symbols a block stages."""
+    from fuzzy_aho_corasick_tpu_torch.ops import exact
+
+    err = compare_walk(ctx, walk_inputs(ctx, engine, text), "exact1k's corpus and table")
+    words = sorted(set(cjk_text[: 1 << 16].split(" ")) - {""}) + cjk_words(300, SEED + 23, (2, 5))
+    wide = make_exact(ctx, words)
+    require(wide.dense.num_classes > 256, f"{wide.dense.num_classes} classes, not past 256")
+    args = walk_inputs(ctx, wide, cjk_text[: 1 << 20])
+    require(args[0].dtype == ctx.torch.int32, "the dictionary past 256 classes: not int32 ids")
+    err = max(err, compare_walk(ctx, args, f"{len(words)} CJK words, {wide.dense.num_classes} "
+                                           "classes"))
+    calls = captured_walks(exact, lambda: exact.exact_scan_hits(engine, text))
+    require(len(calls) == 1, f"exact_scan_hits walked {len(calls)} times")
+    err = max(err, compare_walk(ctx, calls[0], "exact_scan_hits' unmasked goto-all table"))
+    # Walks deeper than the spans the kernel counts in shared memory and
+    # than the symbols it stages past its tile.
+    deep = make_exact(ctx, ["a" * 1100, "a" * 300])
+    return max(err, compare_walk(ctx, walk_inputs(ctx, deep, "x" + "a" * 5000 + " aa"),
+                                 "patterns of 1,100 and 300 a's over a run of 5,000"))
+
+
+def shard_walk_checks(ctx, engine, text: str, mesh) -> float:
+    """Phase 4k (e): the goto walk's kernels against their plain version on
+    the first and the last shard of one ``sharded_exact_search`` (their
+    inputs captured): the first walks fewer starts than it reads."""
+    from fuzzy_aho_corasick_tpu_torch.ops import exact
+    from fuzzy_aho_corasick_tpu_torch.parallel.shard_search import sharded_exact_search
+
+    calls = captured_walks(exact, lambda: sharded_exact_search(engine, text, 0.5, mesh))
+    require(len(calls) == len(mesh), f"{len(calls)} shard walks captured")
+    require(calls[0][1] < calls[0][2], "shard 0 reads no halo past its starts")
+    return max(compare_walk(ctx, calls[d], f"sharded exact, shard {d} of {len(mesh)}")
+               for d in (0, len(mesh) - 1))
+
+
+def seed_walk_checks(ctx, beam_engines, tags) -> float:
+    """Phase 4j (e): the goto walk's kernels against their plain version on
+    every walk that the seed filter's exact pass makes in one search of each
+    cell in ``tags`` (their inputs captured)."""
+    from fuzzy_aho_corasick_tpu_torch.ops import exact
+
+    err = 0
+    for tag in tags:
+        eng, text, thr = beam_engines[tag]
+        calls = captured_walks(exact, lambda: eng.search_raw(text, thr))
+        require(calls, f"{tag}: the seed filter's exact pass did not walk")
+        for i, args in enumerate(calls):
+            err = max(err, compare_walk(ctx, args, f"{tag}'s seed filter, walk {i + 1} of "
+                                                   f"{len(calls)}"))
+    return err
+
+
+def walk_times(ctx, args) -> dict:
+    """The goto walk at exact1k's shape: the kernel pair through its wrapper
+    (CUDA events around 10 calls; each call's host read of the tally is
+    inside), the plain version (3 calls), ``torch.gather`` of the goto
+    table's root row (the one PyTorch call that computes a part of it, the
+    root step), the profiler's device ms per call of each kernel with the
+    launches, copies and host waits per call; the bound (the symbols read,
+    the goto table and the emits flags each read once, the arrivals written
+    once, over the memory rate, against an integer instruction per root
+    step and per later step of a walk)."""
+    from fuzzy_aho_corasick_tpu_torch.ops import exact
+
+    torch, tpb = ctx.torch, ctx.tpb
+    ids, n, n_read, goto, emits, L = args
+    found, alive = exact.goto_walk(*args)
+    ms = event_ms(torch, lambda: exact.goto_walk(*args), 10)
+    plain = event_ms(torch, lambda: exact.goto_walk_torch(*args), 3)
     idsl = ids[:n].long()
     gather = event_ms(torch, lambda: torch.gather(goto[0], 0, idsl), 20)
-    nbytes = 5 * n + 5 * sum(alive) + 24 * found.shape[1]
-    bound = bound_ms(nbytes, sum(alive) + n, INT_RATE)
+    prof = profile_search(torch, lambda: exact.goto_walk(*args), 10, tpb.LAUNCHES)
+    passes = {name: device_ms(prof, f"{name}_kernel")
+              for name in ("goto_walk_count", "block_offsets", "goto_walk_emit")}
+    nbytes = n_read * ids.element_size() + goto.nbytes + emits.nbytes + found.nbytes
+    bound = bound_ms(nbytes, n + sum(alive[:L - 1]), INT_RATE)
     log(f"  goto walk: {n} symbols, {goto.shape[0]} nodes x {goto.shape[1]} classes, depth {L}; "
-        f"alive per span {alive}; {found.shape[1]} arrivals; stages (host clock, synchronised, "
-        f"best of 3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-        + f"; the whole walk {whole:.4f} ms (CUDA events), bound {bound[0]:.4f} ms by {bound[1]} "
-        f"({bound[0] / whole:.3g} of it); torch.gather of the root row {gather:.4f} ms")
-    return {"name": "goto_walk", "route": "torch", "source": f"{PKG}/ops/exact.py",
-            "replaces": "fuzzy_aho_corasick_tpu/ops/exact.py:45", "ms": whole,
-            "stages_ms": ms, "alive_per_span": alive, "arrivals": int(found.shape[1]),
-            "bound_ms": bound[0], "bound_by": bound[1], "root_step_library_ms": gather}
+        f"alive per span {alive}; {found.shape[1]} arrivals; the kernel pair {ms:.4f} ms per "
+        f"walk (CUDA events), device ms per walk " + ", ".join(
+            f"{k} {v:.4f}" for k, v in passes.items())
+        + f"; {prof['kernels']:.1f} launches, {prof['copies']:.1f} copies, {prof['waits']:.1f} "
+        f"host waits per walk; bound {bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.3g} of it); "
+        f"plain version {plain:.4f} ms; torch.gather of the root row {gather:.4f} ms")
+    return {"ms": ms, "plain_ms": plain, "bound": bound, "library_ms": gather,
+            "pass_device_ms": passes, "alive_per_span": alive, "arrivals": int(found.shape[1]),
+            "launches_copies_waits_per_walk": [prof["kernels"], prof["copies"], prof["waits"]]}
 
 
 def exact_wide_inputs(ctx, engine, text: str):
@@ -3398,7 +3519,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     import numpy as np
 
     from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern, oracle
-    from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build, many
+    from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build, exact, many
     from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
     from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as vdp
     from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
@@ -3439,7 +3560,8 @@ def smoke(torch, start_pool, workers: int) -> int:
 
     # 3. kernel vs plain on the card
     phase("phase 3 kernel vs plain:")
-    pool = start_pool()
+    pool = ctx.pool = start_pool()
+    ctx.workers = workers
     corpus = build_corpus(CORPUS_BYTES, SEED)
     require(len(corpus) == CORPUS_BYTES, "corpus size")
     mapped_corpus = sparse_modem(corpus)
@@ -3618,6 +3740,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     plain_names += [(many, n) for n in ("expand_candidates_sparse", "dp_list_torch",
                                         "many_step_torch", "many_pipeline_torch",
                                         "_packed_hits_torch")]
+    plain_names.append((exact, "goto_walk_torch"))
     scan_keys = ("scan_bits", "block_offsets", "hit_words")
 
     # 5. parity, ahead of phase 4: the oracle's workers are busy meanwhile.
@@ -3854,7 +3977,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     # 4g, 4h. Exact dictionaries past the narrow packed lane, over the 24 MiB
     # many1k corpus with 4,000 exact copies of the first 300 words planted:
     # exact-wide (those 300 words, the wide packed scan at k = 0) and exact1k
-    # (all 1,000 words, past 64 limbs: the goto walk, torch code).
+    # (all 1,000 words, past 64 limbs: the goto walk's kernels).
     words1k = many_words(1000, 7)
     exact_text = plant_words(many_text, SEED + 11, MANY_TYPOS, words1k[:300])
     wide_e, k1_e = make_exact(ctx, words1k[:300]), make_exact(ctx, words1k)
@@ -3870,9 +3993,10 @@ def smoke(torch, start_pool, workers: int) -> int:
     phase(f"phase 4h exact1k: the {len(words1k)} many1k words, exact, threshold 0.5, past "
           f"{tpb.MAX_SCAN_LIMBS} limbs (the goto walk):")
     require(tpb.packed_exact_of(k1_e) is None, "exact1k: the dictionary packs")
+    walk_keys = ("goto_walk", "block_offsets")
     exact_runs["exact1k"] = exact_main_path(ctx, "exact1k", k1_e, words1k, exact_text,
-                                            "device-exact", locked, ())
-    walk_rec = walk_stages(ctx, k1_e, exact_text)
+                                            "device-exact", locked, walk_keys)
+    walk_err = walk_kernel_checks(ctx, k1_e, exact_text, beam_texts["cjk1"])
     # A 70-character pattern (past the packed lane's 64) over 1 MiB with 64
     # runs of 70-80 a's: overlapping matches.
     long_e = make_exact(ctx, ["a" * 70])
@@ -3963,6 +4087,7 @@ def smoke(torch, start_pool, workers: int) -> int:
           "and one run of the frontier on the card against the CPU:")
     errs_4j = beam_kernel_checks(ctx, fuzzy, joined, beam_engines["4j (d)"][0],
                                  beam_texts["long"])
+    walk_err = max(walk_err, seed_walk_checks(ctx, beam_engines, ("4j (b)", "4j (c)")))
     for i, e in enumerate(errs_4j):
         errs_scan[i] = max(errs_scan[i], e)
     for tag in ("4j (a)", "4j (b)", "4j (c)"):
@@ -3984,7 +4109,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     step_keys = scan_keys + ("dp_pipeline",)
     sharded, k4 = {}, {}
     for name, eng, text, thr, keys, want_n in (
-        ("exact", engine, corpus, 0.5, (), len(got)),
+        ("exact", engine, corpus, 0.5, walk_keys, len(got)),
         ("fuzzy1", fuzzy, corpus, 0.8, step_keys, len(got_f)),
         ("forbid", forbid_e, lane_runs["4c"].text, 0.62, step_keys, lane_runs["4c"].matches),
         ("typed", typed_e, lane_runs["4d"].text, 0.8, scan_keys + TYPED_KEYS,
@@ -4020,6 +4145,8 @@ def smoke(torch, start_pool, workers: int) -> int:
     errs_4k = {}
     shard_kernel_checks(ctx, fuzzy, corpus, 0.8, mesh3, "4k (e) fuzzy1", errs_4k)
     shard_kernel_checks(ctx, typed_e, lane_runs["4d"].text, 0.8, mesh3, "4k (e) typed", errs_4k)
+    errs_4k["goto_walk"] = shard_walk_checks(ctx, engine, corpus, mesh3)
+    walk_err = max(walk_err, errs_4k["goto_walk"])
     for i, key in enumerate(scan_keys):
         errs_scan[i] = max(errs_scan[i], errs_4k[key])
     err_pipe_all = max(err_pipe_all, errs_4k["dp_pipeline"])
@@ -4174,6 +4301,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     errs_scan[1] = max(errs_scan[1], many_errs["block_offsets"])
     wide_rec, wide_errs, wide_detail = wide_exact_times(ctx, wide_e, exact_text, errs_scan[1])
     errs_scan[1] = wide_errs["block_offsets"]
+    walk_t = walk_times(ctx, walk_inputs(ctx, k1_e, exact_text))
     # block_offsets at every shape the searches hand it, and two more, beside
     # torch.cumsum.
     offs_shapes = []
@@ -4315,6 +4443,19 @@ def smoke(torch, start_pool, workers: int) -> int:
             wide_errs[name], *wide_rec[name], launches_4k=0,
             device_ms_per_search=search_ms(exact_runs["exact-wide"].prof, base),
             **wide_fields(wide_detail, base)))
+    # The goto walk at exact1k's shape; its launches on every main path:
+    # exact1k (4h), the seed filter's exact pass (4j) and the sharded exact
+    # lane (4k).
+    kernels.append(record(
+        "goto_walk", f"{PKG}/csrc/goto_walk.cu", "fuzzy_aho_corasick_tpu/ops/exact.py:45",
+        exact_runs["exact1k"].launches["goto_walk"] + entry_sum("goto_walk")
+        + k4_sum("goto_walk"), walk_err, walk_t["ms"], walk_t["plain_ms"], walk_t["bound"],
+        walk_t["library_ms"], launches_4k=k4_sum("goto_walk"),
+        kernels=["goto_walk_count_kernel", "goto_walk_emit_kernel"],
+        library_call="torch.gather of the goto table's root row (the root step alone)",
+        device_ms_per_search=device_ms(exact_runs["exact1k"].prof, "goto_walk_"),
+        **{k: walk_t[k] for k in ("pass_device_ms", "alive_per_span", "arrivals",
+                                  "launches_copies_waits_per_walk")}))
     ranged = [{"name": f"{key}[3 ranges]", "one_range_ms": one, "three_ranges_ms": three,
                "plain_three_ranges_ms": plain} for key, one, three, plain in range_recs]
     streams = {tag: {"bytes": run.nbytes, "ms": [t * 1e3 for t in run.times],
@@ -4350,8 +4491,7 @@ def smoke(torch, start_pool, workers: int) -> int:
                           "dryrun": dry, "dryrun_launches": k4["dryrun"][0],
                           "replace_multihost": multi["c"], "two_processes": multi["d"],
                           "max_abs_err": errs_4k},
-                      "torch_paths": [walk_rec] + [beam_record(tag, run)
-                                                   for tag, run in beam.items()],
+                      "torch_paths": [beam_record(tag, run) for tag, run in beam.items()],
                       "scan_chunk_sweep": sweep,
                       "searches": {
                           "exact_ms": [t * 1e3 for t in times],

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("packed_bitap.cu", "scan_wide.cu", "scan_offsets.cu", "many_step.cu",
-                 "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu")
+                 "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu", "goto_walk.cu")
 )
 #: Headers the sources include (part of the build's hash).
 HEADERS = tuple(_PKG / "csrc" / name for name in ("packed_bitap.cuh", "banded_dp.cuh"))
@@ -116,6 +116,10 @@ _SIGNATURES = {
     # stream
     "fac_typed_emit": [_c_void_p] * 4 + [_c_ll] + [_c_void_p] * 3 + [_c_int] * 3
     + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 3,
+    # ids, sym_bytes, n_starts, n_read, goto, C, emits, L, write, counts,
+    # tally, offsets, total, found, stream
+    "fac_goto_walk": [_c_void_p, _c_int, _c_ll, _c_ll, _c_void_p, _c_int, _c_void_p, _c_int,
+                      _c_int] + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 2,
     "fac_scan_block_syms": [],
     "fac_scan_wide_chunk": [],
     # W, k
@@ -125,6 +129,7 @@ _SIGNATURES = {
     "fac_offsets_chain_tile": [],
     "fac_typed_tile": [],
     "fac_typed_expand_items": [],
+    "fac_goto_walk_tile": [],
 }
 
 

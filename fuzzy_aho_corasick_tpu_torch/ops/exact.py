@@ -13,14 +13,15 @@ an output-bearing trie node. Two lanes find them:
 * the goto walk (:func:`exact_search_walk`) for what does not pack: more
   than 128 symbol classes, a field longer than 64 graphemes, or more than
   ``MAX_SCAN_LIMBS`` limbs. It is the JAX package's
-  ``exact._exact_scan_rows`` as torch code on the engine's device: the root
-  step is a gather of the goto table's root row (the JAX one-hot matmul
-  over three u8 planes was a TPU workaround), the starts alive after it are
-  compacted once, and the survivors walk the goto table one symbol per step,
-  compacted again after every step and emitting at output nodes. Each start
-  is walked once over the whole corpus, so each match is reported once
-  (ownership by start, with no halo duplicates to drop), and the buffers are
-  sized by the counts ``torch.nonzero`` reads, with no capacity retries.
+  ``exact._exact_scan_rows`` (:func:`goto_walk`): on the card a hand kernel
+  pair (``csrc/goto_walk.cu``), a thread per start walking the goto table
+  until its node dies, a count pass and a write pass around
+  ``block_offsets`` with one host read between them; on the CPU its plain
+  version, a gather of the root row (the JAX one-hot matmul over three u8
+  planes was a TPU workaround) and one compaction per step. Each start is
+  walked once over the whole corpus, so each match is reported once
+  (ownership by start, with no halo duplicates to drop), and the buffers
+  are sized by the counts, with no capacity retries.
 
 Both match the oracle exactly, including the per-node prune ceiling
 ``0 > prune_len - prune_len_over_weight * thr`` which can drop a match whose
@@ -35,6 +36,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from . import _cuda_build
 
 
 def _packed_path_alive(engine, thr: np.float32):
@@ -145,35 +148,27 @@ def walk_tables(engine, thr, device):
     return _dev_cache(engine, ("goto", alive.tobytes(), str(device)), build)
 
 
-def walk_root(ids: torch.Tensor, n: int, goto: torch.Tensor) -> torch.Tensor:
-    """The root step: int32 [n], the node every start reaches on its first
-    symbol (-1: none), a gather of the goto table's root row."""
-    return goto[0][ids[:n].long()]
-
-
-def walk_compact(st: torch.Tensor):
-    """(starts int64 [S], nodes int32 [S]) of the live entries of ``st``,
-    ascending; ``torch.nonzero`` reads their count."""
-    pos = torch.nonzero(st >= 0).squeeze(1)
-    return pos, st[pos]
-
-
-def walk_steps(ids: torch.Tensor, n: int, pos: torch.Tensor, st: torch.Tensor,
-               goto: torch.Tensor, emits: torch.Tensor, L: int):
-    """The walk of the survivors ``pos`` (at nodes ``st`` after one symbol)
-    over at most ``L`` symbols: (starts, spans, nodes) int64 [3, H] of every
-    arrival at an output node, span by span, starts ascending within a span,
-    and the walks alive at each span. A walk that would read past symbol
-    ``n - 1`` ends."""
+def goto_walk_torch(ids: torch.Tensor, n_starts: int, n_read: int, goto: torch.Tensor,
+                    emits: torch.Tensor, L: int):
+    """Plain version of the ``goto_walk_count_kernel`` / ``goto_walk_emit_kernel``
+    pair: the root step is a gather of the goto table's root row for the
+    starts below ``n_starts``, the survivors are compacted once, and they
+    walk one symbol per step, compacted again after every step (a
+    ``torch.nonzero`` reads each count); a walk that would read at or past
+    symbol ``n_read`` ends. Returns the arrivals in the kernels' order (start,
+    then span) and the walks alive at each span."""
     C = goto.shape[1]
     flat = goto.reshape(-1)
-    sym = ids[:n].long()
+    sym = ids[:n_read].long()
+    st = goto[0][sym[:n_starts]]
+    pos = torch.nonzero(st >= 0).squeeze(1)
+    st = st[pos]
     out, alive = [], []
     for span in range(1, L + 1):
         if span > 1:
             at = pos + (span - 1)
-            nxt = flat[st.long() * C + sym[at.clamp(max=n - 1)]]
-            live = torch.nonzero((nxt >= 0) & (at < n)).squeeze(1)
+            nxt = flat[st.long() * C + sym[at.clamp(max=n_read - 1)]]
+            live = torch.nonzero((nxt >= 0) & (at < n_read)).squeeze(1)
             pos, st = pos[live], nxt[live]
         if pos.numel() == 0:
             break
@@ -182,16 +177,69 @@ def walk_steps(ids: torch.Tensor, n: int, pos: torch.Tensor, st: torch.Tensor,
         out.append(torch.stack([pos[hit], torch.full_like(hit, span), st[hit].long()]))
     if not out:
         return torch.zeros((3, 0), dtype=torch.int64, device=ids.device), alive
-    return torch.cat(out, dim=1), alive
+    found = torch.cat(out, dim=1)  # span by span, starts ascending in each
+    return found[:, torch.argsort(found[0], stable=True)], alive
 
 
-def goto_walk(ids: torch.Tensor, n: int, goto: torch.Tensor, emits: torch.Tensor, L: int):
-    """Every exact arrival at an output node from a start below ``n``:
-    (starts, spans, nodes) int64 [3, H] on the device, and the walks alive
-    at each span (the first two are the JAX package's ``survivors_stage1``
-    and ``survivors_stage2``)."""
-    pos, st = walk_compact(walk_root(ids, n, goto))
-    return walk_steps(ids, n, pos, st, goto, emits, L)
+def goto_walk(ids: torch.Tensor, n_starts: int, n_read: int, goto: torch.Tensor,
+              emits: torch.Tensor, L: int):
+    """Every exact arrival at an output node of a walk from a start below
+    ``n_starts`` over at most ``L`` symbols, none at or past symbol
+    ``n_read`` (a shard's halo lies between the two): (found int64 [3, H] of
+    (start, span, node), ordered by start then span, on the ids' device;
+    the walks alive after each span, a list whose first two entries are the
+    JAX package's ``survivors_stage1`` and ``survivors_stage2``). ``ids`` is
+    u8 or int32, ``goto`` int32 [N, C] with -1 for a missing or pruned edge,
+    ``emits`` bool [N]. CPU tensors run :func:`goto_walk_torch`; CUDA tensors
+    launch ``goto_walk_count_kernel``, ``block_offsets`` and
+    ``goto_walk_emit_kernel`` (``csrc/goto_walk.cu``), with one host read
+    of the arrivals and the alive counts between them."""
+    from . import packed_bitap as pb
+
+    dev = ids.device
+    if not 0 <= n_starts <= n_read <= ids.numel():
+        raise ValueError(f"need 0 <= n_starts {n_starts} <= n_read {n_read} <= {ids.numel()}")
+    if dev.type == "cpu":
+        return goto_walk_torch(ids, n_starts, n_read, goto, emits, L)
+    if dev.type != "cuda":
+        raise ValueError(f"no goto walk kernel for device {dev}")
+    if ids.dtype not in (torch.uint8, torch.int32) or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous 1-D uint8 or int32 tensor")
+    if goto.dtype != torch.int32 or goto.dim() != 2 or not goto.is_contiguous() \
+            or goto.device != dev or emits.dtype != torch.bool \
+            or emits.shape != goto.shape[:1] or emits.device != dev:
+        raise ValueError(f"goto must be a contiguous int32 [N, C] and emits a bool [N] on {dev}")
+    if n_read >= 1 << 31 or L < 1:
+        raise ValueError(f"n_read {n_read} past 2^31 - 1 or L {L} < 1")
+    if n_starts == 0:
+        return torch.zeros((3, 0), dtype=torch.int64, device=dev), []
+    kern = _cuda_build.load()
+    counts = torch.empty(-(-n_starts // kern.lib.fac_goto_walk_tile()), dtype=torch.int32,
+                         device=dev)
+    tally = torch.zeros(L + 1, dtype=torch.int64, device=dev)
+    args = (ids.data_ptr(), ids.element_size(), n_starts, n_read, goto.data_ptr(),
+            goto.shape[1], emits.data_ptr(), L)
+
+    def launch(write: int, offsets, total: int, found):
+        with pb.on_device(dev):
+            rc = kern.lib.fac_goto_walk(
+                *args, write, counts.data_ptr(), tally.data_ptr(),
+                None if offsets is None else offsets.data_ptr(), total,
+                None if found is None else found.data_ptr(), pb.stream_of(dev))
+        kern.check(rc, "goto_walk")
+        pb.LAUNCHES["goto_walk"] += 1
+
+    launch(0, None, 0, None)
+    offsets = pb.block_offsets(counts)
+    total, *alive = tally.tolist()
+    if total >= 1 << 31:
+        raise ValueError(f"{total} arrivals: the block offsets would overflow int32")
+    while alive and alive[-1] == 0:
+        alive.pop()
+    found = torch.empty((3, total), dtype=torch.int64, device=dev)
+    if total:
+        launch(1, offsets, total, found)
+    return found, alive
 
 
 def exact_search_walk(engine, haystack: str, threshold: float, view) -> List["FuzzyMatch"]:
@@ -217,7 +265,7 @@ def exact_search_walk(engine, haystack: str, threshold: float, view) -> List["Fu
                                        dtype=np.uint8 if narrow else np.int32),
         device)
     assert n_ids == n
-    found, alive = goto_walk(ids, n, goto, emits, max(dense.max_depth, 1))
+    found, alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1))
     start, span, node = found.cpu().numpy()
     stage1, stage2 = (alive + [0, 0])[:2]
     engine.last_stats = {
@@ -289,6 +337,6 @@ def exact_scan_hits(engine, haystack: str, view=None):
                                        dtype=np.uint8 if narrow else np.int32),
         device)
     assert n_ids == n
-    found, _alive = goto_walk(ids, n, goto, emits, max(dense.max_depth, 1))
+    found, _alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1))
     start, _span, node = found.cpu().numpy()
     return _outputs_of(engine, start, node)

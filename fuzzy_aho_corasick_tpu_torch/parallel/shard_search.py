@@ -116,13 +116,13 @@ def sharded_exact_search(engine, haystack: str, threshold: float, mesh=None):
     """Multi-device exact search: the single-device path's matches.
 
     The dense class stream is sharded over the mesh; each shard runs the
-    goto walk (``ops/exact``: root step, compaction, walk) over its own
+    goto walk (``ops/exact.goto_walk``) on its own device over its own
     symbols and a right halo of the longest pattern's length from its
     neighbour, walking only the starts it owns, and the arrivals decode
     once on the host with byte offsets from the whole haystack.
     ``last_stats`` holds the shards, positions and the summed emissions
     (the JAX package's ``psum``)."""
-    from ..ops.exact import _emit, walk_compact, walk_root, walk_steps, walk_tables
+    from ..ops.exact import _emit, goto_walk, walk_tables
     from ..utils.graphemes import view_of
 
     devs = mesh_devices(mesh)
@@ -144,9 +144,8 @@ def sharded_exact_search(engine, haystack: str, threshold: float, mesh=None):
             continue
         goto, emits = walk_tables(engine, thr, dev)
         ids_ext = extended(shards, d, 0, L, dev)
-        pos, st = walk_compact(walk_root(ids_ext, own, goto))
-        arrivals, _alive = walk_steps(ids_ext, min(shard_len + L, n - base), pos, st, goto,
-                                      emits, L)
+        arrivals, _alive = goto_walk(ids_ext, own, min(shard_len + L, n - base), goto, emits,
+                                     L)
         found.append((base, arrivals))
     start, span, node = np.concatenate(
         [arrivals.cpu().numpy() + [[base], [0], [0]] for base, arrivals in found], axis=1)

@@ -23,6 +23,8 @@ that ``"\\r\\n"`` is one cluster (UAX #29 GB3).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 _GRAPHEME_RE = None
@@ -157,6 +159,11 @@ _VIEW_LRU_MAX = 4
 _VIEW_LRU_MAX_BYTES = 256 << 20
 
 
+#: Guards ``_VIEW_LRU`` and ``_VIEW_BY_ID``: searches run on several threads
+#: (the parallel streams' workers), and the caps' sums iterate the dicts.
+_VIEW_LOCK = threading.Lock()
+
+
 def _view_cost(view: "HaystackView") -> int:
     return len(view.haystack) * (1 if view.ascii else 8)
 
@@ -183,19 +190,21 @@ def _registered_cost(view: "HaystackView") -> int:
 def register_view(view: "HaystackView") -> None:
     """Pre-register a view for identity-based lookup (producer threads build
     views ahead of the search; see stream._PrepProducer)."""
-    _VIEW_BY_ID[id(view.haystack)] = view
-    while len(_VIEW_BY_ID) > 1 and (
-        len(_VIEW_BY_ID) > _VIEW_BY_ID_MAX
-        or sum(_registered_cost(v) for v in _VIEW_BY_ID.values())
-        > _VIEW_BY_ID_MAX_BYTES
-    ):
-        _VIEW_BY_ID.pop(next(iter(_VIEW_BY_ID)))
+    with _VIEW_LOCK:
+        _VIEW_BY_ID[id(view.haystack)] = view
+        while len(_VIEW_BY_ID) > 1 and (
+            len(_VIEW_BY_ID) > _VIEW_BY_ID_MAX
+            or sum(_registered_cost(v) for v in _VIEW_BY_ID.values())
+            > _VIEW_BY_ID_MAX_BYTES
+        ):
+            _VIEW_BY_ID.pop(next(iter(_VIEW_BY_ID)))
 
 
 def clear_registered_views() -> None:
     """Drop all identity-registered views (streaming drivers call this when a
     stream completes so finished superwindow batches don't stay pinned)."""
-    _VIEW_BY_ID.clear()
+    with _VIEW_LOCK:
+        _VIEW_BY_ID.clear()
 
 
 def view_of(haystack: str, case_insensitive: bool) -> "HaystackView":
@@ -212,20 +221,25 @@ def view_of(haystack: str, case_insensitive: bool) -> "HaystackView":
             and v.case_insensitive == case_insensitive:
         return v
     key = (hash(haystack), len(haystack), case_insensitive)
-    hit = _VIEW_LRU.get(key)
-    if hit is not None and (hit.haystack is haystack or hit.haystack == haystack):
-        # True LRU: refresh recency so hot views survive eviction.
-        _VIEW_LRU.pop(key)
-        _VIEW_LRU[key] = hit
-        return hit
+    with _VIEW_LOCK:
+        hit = _VIEW_LRU.get(key)
+        if hit is not None and (hit.haystack is haystack or hit.haystack == haystack):
+            # True LRU: refresh recency so hot views survive eviction.
+            _VIEW_LRU.pop(key)
+            _VIEW_LRU[key] = hit
+            return hit
+    # Built outside the lock: two threads that miss on one key both build,
+    # and the second insert replaces the first.
     view = HaystackView(haystack, case_insensitive)
-    _VIEW_LRU[key] = view
-    # Evict oldest entries past either cap (never the one just inserted).
-    while len(_VIEW_LRU) > 1 and (
-        len(_VIEW_LRU) > _VIEW_LRU_MAX
-        or sum(_view_cost(v) for v in _VIEW_LRU.values()) > _VIEW_LRU_MAX_BYTES
-    ):
-        _VIEW_LRU.pop(next(iter(_VIEW_LRU)))
+    with _VIEW_LOCK:
+        _VIEW_LRU.pop(key, None)
+        _VIEW_LRU[key] = view
+        # Evict oldest entries past either cap (never the one just inserted).
+        while len(_VIEW_LRU) > 1 and (
+            len(_VIEW_LRU) > _VIEW_LRU_MAX
+            or sum(_view_cost(v) for v in _VIEW_LRU.values()) > _VIEW_LRU_MAX_BYTES
+        ):
+            _VIEW_LRU.pop(next(iter(_VIEW_LRU)))
     return view
 
 
