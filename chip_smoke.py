@@ -110,10 +110,14 @@ torch version. Phases:
    so the goto walk serves it, launching ``goto_walk`` (count and emit
    passes) and ``block_offsets`` and no other kernel; checked as 4g; then
    the walk's kernels against their plain version, arrivals and alive
-   counts bit for bit, on exact1k's corpus and table, on a dictionary past
-   256 classes (int32 ids: CJK words over 1 Mi characters of the cjk1
-   corpus), on the unmasked table of the seed filter's exact pass
-   (``exact_scan_hits``) and on walks of 300 and 1,100 symbols; then a
+   counts bit for bit, on exact1k's corpus and table (and on all but its
+   last 1,000 starts: a persistent block's last tile ends mid-tile), on a
+   dictionary past 256 classes (int32 ids: CJK words over 1 Mi characters
+   of the cjk1 corpus), on the unmasked table of the seed filter's exact
+   pass (``exact_scan_hits``), on tiles of exactly ``exact.WALK_KEEP``
+   and ``WALK_KEEP + 1`` arrivals (``exact.keep_edge_text``: the write
+   pass copies the first tile's kept rows and walks the second again) and
+   on walks of 300 and 1,100 symbols; then a
    70-character pattern (past the packed
    lane's 64) over 1 MiB with 64 planted runs of 70-80 a's against
    ``str.find``;
@@ -230,7 +234,10 @@ torch version. Phases:
    the SASS of its main loop per symbol (``cuobjdump -sass``); the goto
    walk at exact1k's shape (``walk_times``: the kernel pair, its plain
    version and ``torch.gather`` of the root row, each kernel's device ms
-   and the launches, copies and waits per walk from the profiler); slice
+   and the launches, copies and waits per walk from the profiler, the
+   arrivals per tile; ``exact1k_host_split``: the search's wall split into
+   the tally read, ``found.cpu()``, ``_emit`` and the rest; the kernels'
+   variants are ``tools/walk_variants.py``'s); slice
    1's hit list of the fuzzy and the typed lane run
    by the pipeline kernels in 3 ranges (each handed its preceding hit, the
    rows put back in one range's order by their tags) against one range,
@@ -2108,10 +2115,10 @@ def exact_main_path(ctx, tag: str, engine, words, text: str, backend: str, locke
 
 
 def walk_inputs(ctx, engine, text: str):
-    """The goto walk's arguments ``(ids, n, n, goto, emits, L)`` for the exact
-    search of ``text`` by ``engine``, as ``exact_search_walk`` makes them:
-    the resident class stream (u8, or int32 past 256 classes) and the
-    threshold 0.5's tables."""
+    """The goto walk's call ``(args, kw)`` for the exact search of ``text``
+    by ``engine``, as ``exact_search_walk`` makes it: ``args = (ids, n, n,
+    goto, emits, L)`` with the resident class stream (u8, or int32 past 256
+    classes) and the threshold 0.5's tables, ``kw`` the folded table."""
     np, tpb = ctx.np, ctx.tpb
     from fuzzy_aho_corasick_tpu_torch.ops import exact
     from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
@@ -2124,39 +2131,43 @@ def walk_inputs(ctx, engine, text: str):
         lambda h: np.ascontiguousarray(dense.transcode(h, view_of(h, engine.case_insensitive)),
                                        dtype=dtype),
         ctx.dev)
-    goto, emits = exact.walk_tables(engine, 0.5, ctx.dev)
-    return ids, n, n, goto, emits, max(dense.max_depth, 1)
+    goto, emits, folded = exact.walk_tables(engine, 0.5, ctx.dev)
+    return (ids, n, n, goto, emits, max(dense.max_depth, 1)), {"folded": folded}
 
 
-def compare_walk(ctx, args, what: str) -> float:
+def compare_walk(ctx, call, what: str) -> float:
     """The goto walk's kernel pair (``exact.goto_walk`` on the card) against
-    its plain version on the same inputs: the arrivals and the alive counts
-    bit for bit. Returns the max_abs_err of the arrivals."""
+    its plain version on the same call ``(args, kw)``: the arrivals and the
+    alive counts bit for bit. Returns the max_abs_err of the arrivals."""
     from fuzzy_aho_corasick_tpu_torch.ops import exact
 
     torch = ctx.torch
+    args, kw = call
     ids, n_starts, n_read, goto, emits, L = args
-    found, alive = exact.goto_walk(*args)
+    found, alive = exact.goto_walk(*args, **kw)
     torch.cuda.synchronize()
     p_found, p_alive = exact.goto_walk_torch(*args)
     err = int_err(found, p_found)
+    per_tile = (torch.bincount(found[0] // exact.WALK_TILE).max().item() if found.shape[1]
+                else 0)
     log(f"  goto_walk vs plain, {what}: {n_starts} starts, {n_read} symbols read "
         f"({str(ids.dtype).replace('torch.', '')}), {goto.shape[0]} nodes x {goto.shape[1]} "
-        f"classes, L {L}: {found.shape[1]} arrivals, alive per span {alive[:12]}"
-        f"{f' .. ({len(alive)} spans)' if len(alive) > 12 else ''}; max_abs_err {err}, "
-        f"alive equal {alive == p_alive}")
+        f"classes, L {L}: {found.shape[1]} arrivals (at most {per_tile} a tile), alive per "
+        f"span {alive[:12]}{f' .. ({len(alive)} spans)' if len(alive) > 12 else ''}; "
+        f"max_abs_err {err}, alive equal {alive == p_alive}")
     require(err == 0 and alive == p_alive, f"goto_walk differs from its plain version: {what}")
     require(found.shape[1] > 0, f"goto_walk, {what}: no arrival, not a real check")
     return err
 
 
 def captured_walks(exact, run) -> list:
-    """The arguments of every ``exact.goto_walk`` call that ``run()`` makes."""
+    """The calls ``(args, kw)`` of every ``exact.goto_walk`` that ``run()``
+    makes."""
     calls, walk = [], exact.goto_walk
 
-    def spy(*args):
-        calls.append(args)
-        return walk(*args)
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return walk(*args, **kw)
 
     exact.goto_walk = spy
     try:
@@ -2168,26 +2179,49 @@ def captured_walks(exact, run) -> list:
 
 def walk_kernel_checks(ctx, engine, text: str, cjk_text: str) -> float:
     """Phase 4h: the goto walk's kernels against their plain version on
-    exact1k's corpus and table, on a dictionary past 256 classes (int32 ids:
-    the distinct words of the first 64 Ki characters of ``cjk_text`` and 300
-    CJK words, over its first 1 Mi characters), on the unmasked table of
-    the seed filter's exact pass (``exact_scan_hits`` of ``engine``), and on
-    walks past 256 spans and past the symbols a block stages."""
-    from fuzzy_aho_corasick_tpu_torch.ops import exact
+    exact1k's corpus and table (and on all but its last 1,000 starts, so
+    that a persistent block's last tile ends mid-tile), on a dictionary
+    past 256 classes (int32 ids: the distinct words of the first 64 Ki
+    characters of ``cjk_text`` and 300 CJK words, over its first 1 Mi
+    characters), on the unmasked table of the seed filter's exact pass
+    (``exact_scan_hits`` of ``engine``), on the kept rows' edge (a tile
+    with exactly ``WALK_KEEP`` arrivals and one with one more:
+    ``exact.keep_edge_text``), and on walks past 256 spans and past the
+    symbols a block stages. The Python mirrors of the kernels' tile, kept
+    rows and pair-table classes equal the library's."""
+    from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build, exact
 
-    err = compare_walk(ctx, walk_inputs(ctx, engine, text), "exact1k's corpus and table")
+    lib = _cuda_build.load().lib
+    mirrors = ((exact.WALK_TILE, lib.fac_goto_walk_tile()),
+               (exact.WALK_KEEP, lib.fac_goto_walk_keep()),
+               (exact.WALK_PAIR_MAX, lib.fac_goto_walk_pair_max()))
+    require(all(a == b for a, b in mirrors), f"goto walk constants: mirrors {mirrors}")
+    call = walk_inputs(ctx, engine, text)
+    err = compare_walk(ctx, call, "exact1k's corpus and table")
+    args, kw = call
+    short = (args[0], args[1] - 1000) + args[2:]
+    require(short[1] % exact.WALK_TILE != 0, "exact1k's short walk ends on a tile's edge")
+    err = max(err, compare_walk(ctx, (short, kw), "exact1k, all but the last 1,000 starts"))
     words = sorted(set(cjk_text[: 1 << 16].split(" ")) - {""}) + cjk_words(300, SEED + 23, (2, 5))
     wide = make_exact(ctx, words)
     require(wide.dense.num_classes > 256, f"{wide.dense.num_classes} classes, not past 256")
-    args = walk_inputs(ctx, wide, cjk_text[: 1 << 20])
-    require(args[0].dtype == ctx.torch.int32, "the dictionary past 256 classes: not int32 ids")
-    err = max(err, compare_walk(ctx, args, f"{len(words)} CJK words, {wide.dense.num_classes} "
+    call = walk_inputs(ctx, wide, cjk_text[: 1 << 20])
+    require(call[0][0].dtype == ctx.torch.int32, "the dictionary past 256 classes: not int32 ids")
+    err = max(err, compare_walk(ctx, call, f"{len(words)} CJK words, {wide.dense.num_classes} "
                                            "classes"))
     calls = captured_walks(exact, lambda: exact.exact_scan_hits(engine, text))
     require(len(calls) == 1, f"exact_scan_hits walked {len(calls)} times")
     err = max(err, compare_walk(ctx, calls[0], "exact_scan_hits' unmasked goto-all table"))
+    patterns, edge_text = exact.keep_edge_text()
+    call = walk_inputs(ctx, make_exact(ctx, patterns), edge_text)
+    found, _alive = exact.goto_walk(*call[0], **call[1])
+    per_tile = ctx.torch.bincount(found[0] // exact.WALK_TILE, minlength=3).tolist()
+    require(per_tile == [exact.WALK_KEEP, exact.WALK_KEEP + 1, 0],
+            f"the kept rows' edge input: arrivals per tile {per_tile}")
+    err = max(err, compare_walk(ctx, call, f"tiles of {exact.WALK_KEEP} and "
+                                           f"{exact.WALK_KEEP + 1} arrivals"))
     # Walks deeper than the spans the kernel counts in shared memory and
-    # than the symbols it stages past its tile.
+    # than the symbols it stages past its tile; every tile walks again.
     deep = make_exact(ctx, ["a" * 1100, "a" * 300])
     return max(err, compare_walk(ctx, walk_inputs(ctx, deep, "x" + "a" * 5000 + " aa"),
                                  "patterns of 1,100 and 300 a's over a run of 5,000"))
@@ -2202,7 +2236,7 @@ def shard_walk_checks(ctx, engine, text: str, mesh) -> float:
 
     calls = captured_walks(exact, lambda: sharded_exact_search(engine, text, 0.5, mesh))
     require(len(calls) == len(mesh), f"{len(calls)} shard walks captured")
-    require(calls[0][1] < calls[0][2], "shard 0 reads no halo past its starts")
+    require(calls[0][0][1] < calls[0][0][2], "shard 0 reads no halo past its starts")
     return max(compare_walk(ctx, calls[d], f"sharded exact, shard {d} of {len(mesh)}")
                for d in (0, len(mesh) - 1))
 
@@ -2218,46 +2252,112 @@ def seed_walk_checks(ctx, beam_engines, tags) -> float:
         eng, text, thr = beam_engines[tag]
         calls = captured_walks(exact, lambda: eng.search_raw(text, thr))
         require(calls, f"{tag}: the seed filter's exact pass did not walk")
-        for i, args in enumerate(calls):
-            err = max(err, compare_walk(ctx, args, f"{tag}'s seed filter, walk {i + 1} of "
+        for i, call in enumerate(calls):
+            err = max(err, compare_walk(ctx, call, f"{tag}'s seed filter, walk {i + 1} of "
                                                    f"{len(calls)}"))
     return err
 
 
-def walk_times(ctx, args) -> dict:
+def walk_times(ctx, call) -> dict:
     """The goto walk at exact1k's shape: the kernel pair through its wrapper
     (CUDA events around 10 calls; each call's host read of the tally is
     inside), the plain version (3 calls), ``torch.gather`` of the goto
     table's root row (the one PyTorch call that computes a part of it, the
     root step), the profiler's device ms per call of each kernel with the
-    launches, copies and host waits per call; the bound (the symbols read,
-    the goto table and the emits flags each read once, the arrivals written
-    once, over the memory rate, against an integer instruction per root
-    step and per later step of a walk)."""
+    launches, copies and host waits per call (the device ms per launch:
+    the profiler drops events now and then); the tiles' arrivals (the most
+    in one tile, the tiles past ``WALK_KEEP`` that walk again); the bound
+    (the symbols read, the folded table the kernels read and the arrivals
+    written, each once, over the memory rate, against an integer
+    instruction per root step and per later step of a walk)."""
     from fuzzy_aho_corasick_tpu_torch.ops import exact
 
     torch, tpb = ctx.torch, ctx.tpb
+    args, kw = call
     ids, n, n_read, goto, emits, L = args
-    found, alive = exact.goto_walk(*args)
-    ms = event_ms(torch, lambda: exact.goto_walk(*args), 10)
+    found, alive = exact.goto_walk(*args, **kw)
+    ms = event_ms(torch, lambda: exact.goto_walk(*args, **kw), 10)
     plain = event_ms(torch, lambda: exact.goto_walk_torch(*args), 3)
     idsl = ids[:n].long()
     gather = event_ms(torch, lambda: torch.gather(goto[0], 0, idsl), 20)
-    prof = profile_search(torch, lambda: exact.goto_walk(*args), 10, tpb.LAUNCHES)
-    passes = {name: device_ms(prof, f"{name}_kernel")
+    prof = profile_search(torch, lambda: exact.goto_walk(*args, **kw), 10, tpb.LAUNCHES)
+    # One launch of each per walk: the mean event, right where the profile
+    # drops events.
+    passes = {name: launch_ms(prof, f"{name}_kernel")
               for name in ("goto_walk_count", "block_offsets", "goto_walk_emit")}
-    nbytes = n_read * ids.element_size() + goto.nbytes + emits.nbytes + found.nbytes
+    per_tile = torch.bincount(found[0] // exact.WALK_TILE)
+    tiles = {"most": int(per_tile.max()), "with_arrivals": int((per_tile > 0).sum()),
+             "past_keep": int((per_tile > exact.WALK_KEEP).sum()),
+             "tiles": -(-n // exact.WALK_TILE)}
+    nbytes = n_read * ids.element_size() + kw["folded"].nbytes + found.nbytes
     bound = bound_ms(nbytes, n + sum(alive[:L - 1]), INT_RATE)
-    log(f"  goto walk: {n} symbols, {goto.shape[0]} nodes x {goto.shape[1]} classes, depth {L}; "
-        f"alive per span {alive}; {found.shape[1]} arrivals; the kernel pair {ms:.4f} ms per "
-        f"walk (CUDA events), device ms per walk " + ", ".join(
-            f"{k} {v:.4f}" for k, v in passes.items())
+    log(f"  goto walk: {n} symbols, {goto.shape[0]} nodes x {goto.shape[1]} classes (folded "
+        f"table {kw['folded'].nbytes} bytes), depth {L}; alive per span {alive}; "
+        f"{found.shape[1]} arrivals, tiles {tiles}; the kernel pair {ms:.4f} ms per walk (CUDA "
+        f"events), device ms per walk " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
         + f"; {prof['kernels']:.1f} launches, {prof['copies']:.1f} copies, {prof['waits']:.1f} "
         f"host waits per walk; bound {bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.3g} of it); "
         f"plain version {plain:.4f} ms; torch.gather of the root row {gather:.4f} ms")
     return {"ms": ms, "plain_ms": plain, "bound": bound, "library_ms": gather,
             "pass_device_ms": passes, "alive_per_span": alive, "arrivals": int(found.shape[1]),
+            "tiles": tiles,
             "launches_copies_waits_per_walk": [prof["kernels"], prof["copies"], prof["waits"]]}
+
+
+def exact1k_host_split(ctx, engine, text: str) -> dict:
+    """Where exact1k's search spends its wall, on the host clock with a
+    synchronise around each step (best of 5): the steps of
+    ``exact_search_walk`` one by one (the view, tables and resident stream;
+    the walk, and inside it the host read of the tally, timed by wrapping
+    ``torch.Tensor.tolist`` for the call; ``found.cpu()``; ``_emit``), and
+    ``search_raw`` whole; the rest is the search less the steps."""
+    import numpy as np
+
+    from fuzzy_aho_corasick_tpu_torch.ops import exact
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    torch = ctx.torch
+    tolist = torch.Tensor.tolist
+    reads = []
+
+    def timed_tolist(t):
+        t0 = time.perf_counter()
+        out = tolist(t)
+        reads.append(time.perf_counter() - t0)
+        return out
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    best = {}
+    for _ in range(5):
+        _got, search = clock(lambda: engine.search_raw(text, 0.5))
+        call, prep = clock(lambda: (view_of(text, engine.case_insensitive),
+                                    walk_inputs(ctx, engine, text)))
+        view, (args, kw) = call
+        reads.clear()
+        torch.Tensor.tolist = timed_tolist
+        try:
+            (found, _alive), walk = clock(lambda: exact.goto_walk(*args, **kw))
+        finally:
+            torch.Tensor.tolist = tolist
+        tally_read = sum(reads) * 1e3
+        (start, span, node), copy = clock(lambda: found.cpu().numpy())
+        _m, emit = clock(lambda: exact._emit(engine, view, start, start + span, node,
+                                             np.float32(0.5)))
+        steps = {"search_raw": search, "view, tables, resident stream": prep, "walk": walk,
+                 "of which the tally read": tally_read, "found.cpu()": copy, "_emit": emit}
+        for k, v in steps.items():
+            best[k] = min(best.get(k, v), v)
+    best["rest"] = best["search_raw"] - best["view, tables, resident stream"] - best["walk"] \
+        - best["found.cpu()"] - best["_emit"]
+    log("  exact1k host split, ms (best of 5, host clock, synchronised): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in best.items()))
+    return best
 
 
 def exact_wide_inputs(ctx, engine, text: str):
@@ -4302,6 +4402,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     wide_rec, wide_errs, wide_detail = wide_exact_times(ctx, wide_e, exact_text, errs_scan[1])
     errs_scan[1] = wide_errs["block_offsets"]
     walk_t = walk_times(ctx, walk_inputs(ctx, k1_e, exact_text))
+    walk_t["exact1k_host_split_ms"] = exact1k_host_split(ctx, k1_e, exact_text)
     # block_offsets at every shape the searches hand it, and two more, beside
     # torch.cumsum.
     offs_shapes = []
@@ -4454,8 +4555,8 @@ def smoke(torch, start_pool, workers: int) -> int:
         kernels=["goto_walk_count_kernel", "goto_walk_emit_kernel"],
         library_call="torch.gather of the goto table's root row (the root step alone)",
         device_ms_per_search=device_ms(exact_runs["exact1k"].prof, "goto_walk_"),
-        **{k: walk_t[k] for k in ("pass_device_ms", "alive_per_span", "arrivals",
-                                  "launches_copies_waits_per_walk")}))
+        **{k: walk_t[k] for k in ("pass_device_ms", "alive_per_span", "arrivals", "tiles",
+                                  "launches_copies_waits_per_walk", "exact1k_host_split_ms")}))
     ranged = [{"name": f"{key}[3 ranges]", "one_range_ms": one, "three_ranges_ms": three,
                "plain_three_ranges_ms": plain} for key, one, three, plain in range_recs]
     streams = {tag: {"bytes": run.nbytes, "ms": [t * 1e3 for t in run.times],

@@ -116,10 +116,10 @@ _SIGNATURES = {
     # stream
     "fac_typed_emit": [_c_void_p] * 4 + [_c_ll] + [_c_void_p] * 3 + [_c_int] * 3
     + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 3,
-    # ids, sym_bytes, n_starts, n_read, goto, C, emits, L, write, counts,
-    # tally, offsets, total, found, stream
-    "fac_goto_walk": [_c_void_p, _c_int, _c_ll, _c_ll, _c_void_p, _c_int, _c_void_p, _c_int,
-                      _c_int] + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 2,
+    # ids, sym_bytes, n_starts, n_read, folded, N, C, L, write, counts, keep,
+    # overflow, tally, offsets, total, n_over, found, stream
+    "fac_goto_walk": [_c_void_p, _c_int, _c_ll, _c_ll, _c_void_p] + [_c_int] * 4
+    + [_c_void_p] * 5 + [_c_ll, _c_int] + [_c_void_p] * 2,
     "fac_scan_block_syms": [],
     "fac_scan_wide_chunk": [],
     # W, k
@@ -130,6 +130,8 @@ _SIGNATURES = {
     "fac_typed_tile": [],
     "fac_typed_expand_items": [],
     "fac_goto_walk_tile": [],
+    "fac_goto_walk_keep": [],
+    "fac_goto_walk_pair_max": [],
 }
 
 

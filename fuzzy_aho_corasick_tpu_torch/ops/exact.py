@@ -14,8 +14,9 @@ an output-bearing trie node. Two lanes find them:
   than 128 symbol classes, a field longer than 64 graphemes, or more than
   ``MAX_SCAN_LIMBS`` limbs. It is the JAX package's
   ``exact._exact_scan_rows`` (:func:`goto_walk`): on the card a hand kernel
-  pair (``csrc/goto_walk.cu``), a thread per start walking the goto table
-  until its node dies, a count pass and a write pass around
+  pair (``csrc/goto_walk.cu``) that walks every start over the folded goto
+  table (:func:`fold_table`) until its node dies, a count pass that keeps
+  each tile's few arrivals and a write pass that copies them, around
   ``block_offsets`` with one host read between them; on the CPU its plain
   version, a gather of the root row (the JAX one-hot matmul over three u8
   planes was a TPU workaround) and one compaction per step. Each start is
@@ -126,11 +127,38 @@ def exact_search_packed(engine, haystack: str, threshold: float, view) -> Option
 # The goto walk
 # ---------------------------------------------------------------------------
 
+#: Mirrors of ``csrc/goto_walk.cu``: the starts of one tile (``WALK_TILE``),
+#: the arrivals a tile keeps for the write pass (``WALK_KEEP``), and the
+#: classes up to which the folded table carries the pair table
+#: (``PAIR_MAX``). ``chip_smoke.py`` holds them against the library's.
+WALK_TILE = 2048
+WALK_KEEP = 16
+WALK_PAIR_MAX = 64
+
+
+def fold_table(goto: torch.Tensor, emits: torch.Tensor) -> torch.Tensor:
+    """The goto table as the card's walk reads it, int32 [N (+ C), C] on
+    the goto table's device, built once per table: each entry ``t >= 0`` as
+    ``2 t + emits[t]`` (one lookup gives the next node and whether it
+    emits), -1 kept; where ``C <= WALK_PAIR_MAX``, ``C`` rows more, the
+    pair table: row ``c0`` is the folded row of the root's child by
+    ``c0``, all -1 where the root has none (spans 1 and 2 of a walk are
+    then two independent lookups)."""
+    t = goto.long()
+    folded = torch.where(t >= 0, 2 * t + emits[t.clamp(min=0)].long(), -1)
+    if goto.shape[1] <= WALK_PAIR_MAX:
+        root = t[0]
+        pair = torch.where((root >= 0)[:, None], folded[root.clamp(min=0)], -1)
+        folded = torch.cat([folded, pair])
+    return folded.to(torch.int32).contiguous()
+
+
 def walk_tables(engine, thr, device):
     """(goto int32 [N, C] with the threshold's alive mask folded in, emits
-    bool [N]: the node has outputs) on ``device``, cached per threshold
-    (``engine.to`` drops them); None where the root itself is pruned. A
-    pruned node becomes unreachable (JAX ``exact.py:276-283``)."""
+    bool [N]: the node has outputs, :func:`fold_table` of the two) on
+    ``device``, cached per threshold (``engine.to`` drops them); None where
+    the root itself is pruned. A pruned node becomes unreachable (JAX
+    ``exact.py:276-283``)."""
     from .verify_dp import _dev_cache
 
     dense = engine.dense
@@ -142,10 +170,36 @@ def walk_tables(engine, thr, device):
     def build():
         goto = np.where((dense.goto >= 0) & alive[np.maximum(dense.goto, 0)], dense.goto, -1)
         goto[~alive, :] = -1
-        return (torch.from_numpy(np.ascontiguousarray(goto, dtype=np.int32)).to(device),
-                torch.from_numpy(np.asarray(dense.out_count > 0)).to(device))
+        return _tables_on(goto, dense.out_count > 0, device)
 
     return _dev_cache(engine, ("goto", alive.tobytes(), str(device)), build)
+
+
+def _tables_on(goto: np.ndarray, emits: np.ndarray, device):
+    """(goto, emits, folded) built on the host, then moved to ``device``."""
+    goto = torch.from_numpy(np.ascontiguousarray(goto, dtype=np.int32))
+    emits = torch.from_numpy(np.asarray(emits, dtype=bool))
+    return tuple(x.to(device) for x in (goto, emits, fold_table(goto, emits)))
+
+
+def keep_edge_text(tile: int = WALK_TILE, keep: int = WALK_KEEP):
+    """(patterns, text): an input on which the walk's first tile holds
+    exactly ``keep`` arrivals and its second ``keep + 1`` (the write pass
+    copies the first tile's kept rows and walks the second again), the
+    third none. Patterns "a", "ab", "b" over a text of three tiles of
+    "x": an "ab" is three arrivals (two at its start, spans 1 and 2), a
+    lone "b" one, and one "ab" straddles the first two tiles."""
+    buf = ["x"] * (3 * tile)
+    buf[tile - 1], buf[tile] = "a", "b"  # 2 arrivals in tile 0, 1 in tile 1
+    for first, need in ((0, keep - 2), (tile, keep)):
+        at = first + 8
+        for i in range(need // 3 + need % 3):
+            if i < need // 3:
+                buf[at], buf[at + 1] = "a", "b"
+            else:
+                buf[at] = "b"
+            at += 8
+    return ["a", "ab", "b"], "".join(buf)
 
 
 def goto_walk_torch(ids: torch.Tensor, n_starts: int, n_read: int, goto: torch.Tensor,
@@ -182,7 +236,7 @@ def goto_walk_torch(ids: torch.Tensor, n_starts: int, n_read: int, goto: torch.T
 
 
 def goto_walk(ids: torch.Tensor, n_starts: int, n_read: int, goto: torch.Tensor,
-              emits: torch.Tensor, L: int):
+              emits: torch.Tensor, L: int, folded: Optional[torch.Tensor] = None):
     """Every exact arrival at an output node of a walk from a start below
     ``n_starts`` over at most ``L`` symbols, none at or past symbol
     ``n_read`` (a shard's halo lies between the two): (found int64 [3, H] of
@@ -193,7 +247,10 @@ def goto_walk(ids: torch.Tensor, n_starts: int, n_read: int, goto: torch.Tensor,
     ``emits`` bool [N]. CPU tensors run :func:`goto_walk_torch`; CUDA tensors
     launch ``goto_walk_count_kernel``, ``block_offsets`` and
     ``goto_walk_emit_kernel`` (``csrc/goto_walk.cu``), with one host read
-    of the arrivals and the alive counts between them."""
+    of the arrivals, the alive counts and the tiles that walk again between
+    them. The kernels read ``folded``, :func:`fold_table` of ``goto`` and
+    ``emits``, which the caller builds once per table (``walk_tables``
+    caches it); on the card it is required."""
     from . import packed_bitap as pb
 
     dev = ids.device
@@ -209,36 +266,47 @@ def goto_walk(ids: torch.Tensor, n_starts: int, n_read: int, goto: torch.Tensor,
             or goto.device != dev or emits.dtype != torch.bool \
             or emits.shape != goto.shape[:1] or emits.device != dev:
         raise ValueError(f"goto must be a contiguous int32 [N, C] and emits a bool [N] on {dev}")
+    N, C = goto.shape
+    rows = N + (C if C <= WALK_PAIR_MAX else 0)
+    if folded is None or folded.dtype != torch.int32 or not folded.is_contiguous() \
+            or folded.shape != (rows, C) or folded.device != dev:
+        raise ValueError(f"the card's walk reads folded = fold_table(goto, emits), int32 "
+                         f"[{rows}, {C}] on {dev}, built once per table")
     if n_read >= 1 << 31 or L < 1:
         raise ValueError(f"n_read {n_read} past 2^31 - 1 or L {L} < 1")
     if n_starts == 0:
         return torch.zeros((3, 0), dtype=torch.int64, device=dev), []
     kern = _cuda_build.load()
-    counts = torch.empty(-(-n_starts // kern.lib.fac_goto_walk_tile()), dtype=torch.int32,
-                         device=dev)
-    tally = torch.zeros(L + 1, dtype=torch.int64, device=dev)
-    args = (ids.data_ptr(), ids.element_size(), n_starts, n_read, goto.data_ptr(),
-            goto.shape[1], emits.data_ptr(), L)
+    tiles = -(-n_starts // kern.lib.fac_goto_walk_tile())
+    keep = kern.lib.fac_goto_walk_keep()
+    # One buffer: each tile's kept rows (int32 x 4 each, first: 16-byte
+    # aligned), its arrivals, and the list of tiles past ``keep``.
+    scratch = torch.empty(tiles * (4 * keep + 2), dtype=torch.int32, device=dev)
+    slots = scratch[: tiles * 4 * keep]
+    counts = scratch[tiles * 4 * keep: tiles * (4 * keep + 1)]
+    overflow = scratch[tiles * (4 * keep + 1):]
+    tally = torch.zeros(L + 2, dtype=torch.int64, device=dev)
+    args = (ids.data_ptr(), ids.element_size(), n_starts, n_read, folded.data_ptr(), N, C, L)
 
-    def launch(write: int, offsets, total: int, found):
+    def launch(write: int, offsets, total: int, n_over: int, found):
         with pb.on_device(dev):
             rc = kern.lib.fac_goto_walk(
-                *args, write, counts.data_ptr(), tally.data_ptr(),
-                None if offsets is None else offsets.data_ptr(), total,
+                *args, write, counts.data_ptr(), slots.data_ptr(), overflow.data_ptr(),
+                tally.data_ptr(), None if offsets is None else offsets.data_ptr(), total, n_over,
                 None if found is None else found.data_ptr(), pb.stream_of(dev))
         kern.check(rc, "goto_walk")
         pb.LAUNCHES["goto_walk"] += 1
 
-    launch(0, None, 0, None)
+    launch(0, None, 0, 0, None)
     offsets = pb.block_offsets(counts)
-    total, *alive = tally.tolist()
+    total, *alive, n_over = tally.tolist()
     if total >= 1 << 31:
         raise ValueError(f"{total} arrivals: the block offsets would overflow int32")
     while alive and alive[-1] == 0:
         alive.pop()
     found = torch.empty((3, total), dtype=torch.int64, device=dev)
     if total:
-        launch(1, offsets, total, found)
+        launch(1, offsets, total, n_over, found)
     return found, alive
 
 
@@ -257,7 +325,7 @@ def exact_search_walk(engine, haystack: str, threshold: float, view) -> List["Fu
     tables = walk_tables(engine, thr, device)
     if tables is None:
         return []
-    goto, emits = tables
+    goto, emits, folded = tables
     narrow = dense.num_classes <= 256
     ids, n_ids = device_corpus.resident(
         haystack, ("dense", _space_token(engine)),
@@ -265,7 +333,7 @@ def exact_search_walk(engine, haystack: str, threshold: float, view) -> List["Fu
                                        dtype=np.uint8 if narrow else np.int32),
         device)
     assert n_ids == n
-    found, alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1))
+    found, alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1), folded=folded)
     start, span, node = found.cpu().numpy()
     stage1, stage2 = (alive + [0, 0])[:2]
     engine.last_stats = {
@@ -327,9 +395,8 @@ def exact_scan_hits(engine, haystack: str, view=None):
     device = engine.device
     from .verify_dp import _dev_cache
 
-    goto, emits = _dev_cache(engine, ("goto-all", str(device)), lambda: (
-        torch.from_numpy(np.ascontiguousarray(dense.goto, dtype=np.int32)).to(device),
-        torch.from_numpy(np.asarray(dense.out_count > 0)).to(device)))
+    goto, emits, folded = _dev_cache(engine, ("goto-all", str(device)), lambda: _tables_on(
+        dense.goto, dense.out_count > 0, device))
     narrow = dense.num_classes <= 256
     ids, n_ids = device_corpus.resident(
         haystack, ("dense", _space_token(engine)),
@@ -337,6 +404,6 @@ def exact_scan_hits(engine, haystack: str, view=None):
                                        dtype=np.uint8 if narrow else np.int32),
         device)
     assert n_ids == n
-    found, _alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1))
+    found, _alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1), folded=folded)
     start, _span, node = found.cpu().numpy()
     return _outputs_of(engine, start, node)

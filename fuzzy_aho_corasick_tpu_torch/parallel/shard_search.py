@@ -142,10 +142,10 @@ def sharded_exact_search(engine, haystack: str, threshold: float, mesh=None):
         own = min(shard_len, n - base)
         if own <= 0:
             continue
-        goto, emits = walk_tables(engine, thr, dev)
+        goto, emits, folded = walk_tables(engine, thr, dev)
         ids_ext = extended(shards, d, 0, L, dev)
         arrivals, _alive = goto_walk(ids_ext, own, min(shard_len + L, n - base), goto, emits,
-                                     L)
+                                     L, folded=folded)
         found.append((base, arrivals))
     start, span, node = np.concatenate(
         [arrivals.cpu().numpy() + [[base], [0], [0]] for base, arrivals in found], axis=1)

@@ -7,6 +7,11 @@ fewer starts than symbols read (a shard), a pattern of depth ``L``, a node
 the prune ceiling cuts, u8 and int32 symbol ids, no survivor at all and an
 empty corpus. The goto tables are the engines' own (``exact.walk_tables``,
 the prune mask folded in, and the unmasked table the seed filter walks).
+At each of them the folded table the kernels read (``exact.fold_table``:
+``2 t + emits[t]`` per edge and the pair table's rows) is walked as the
+kernels walk it, in numpy, and must give the same arrivals and alive
+counts. ``exact.keep_edge_text`` is the input whose first tile holds
+exactly the kept rows a tile has room for and whose second holds one more.
 The JAX package's walk is held against the port's in
 ``tests/test_torch_exact.py`` (``walk-*``), ``tests/test_torch_parallel.py``
 and ``tests/test_torch_beam.py``. Inputs are seeded; tolerance: exact."""
@@ -38,6 +43,29 @@ def _brute(ids, n_starts, n_read, goto, emits, L):
     return found, alive
 
 
+def _brute_folded(ids, n_starts, n_read, folded, N, C, L):
+    """The walk as the kernels make it, from the folded table alone: span 1
+    from row 0, span 2 from the pair table's row ``ids[s]`` where it is
+    there, later spans from the row of ``entry >> 1``; an entry's low bit
+    is the emits flag."""
+    pair = C <= exact.WALK_PAIR_MAX
+    assert folded.shape == (N + (C if pair else 0), C)
+    found, alive = [], [0] * L
+    for s in range(n_starts):
+        e, span = int(folded[0, ids[s]]), 1
+        while e >= 0:
+            alive[span - 1] += 1
+            if e & 1:
+                found.append((s, span, e >> 1))
+            if span == L or s + span >= n_read:
+                break
+            row = N + ids[s] if span == 1 and pair else e >> 1
+            e, span = int(folded[row, ids[s + span]]), span + 1
+    while alive and alive[-1] == 0:
+        alive.pop()
+    return found, alive
+
+
 def _engine(patterns, ci=True):
     return FuzzyAhoCorasickBuilder.new().case_insensitive(ci).device("cpu").build(patterns)
 
@@ -52,20 +80,25 @@ def _tables(engine, thr=0.5, masked=True):
     if masked:
         return exact.walk_tables(engine, thr, torch.device("cpu"))
     dense = engine.dense
-    return (torch.from_numpy(np.ascontiguousarray(dense.goto, dtype=np.int32)),
-            torch.from_numpy(np.asarray(dense.out_count > 0)))
+    goto = torch.from_numpy(np.ascontiguousarray(dense.goto, dtype=np.int32))
+    emits = torch.from_numpy(np.asarray(dense.out_count > 0))
+    return goto, emits, exact.fold_table(goto, emits)
 
 
 def _check(engine, ids: np.ndarray, n_starts: int, n_read: int, thr=0.5, masked=True):
-    goto, emits = _tables(engine, thr, masked)
+    goto, emits, folded = _tables(engine, thr, masked)
     L = max(engine.dense.max_depth, 1)
     before = dict(tpb.LAUNCHES)
-    found, alive = exact.goto_walk(torch.from_numpy(ids), n_starts, n_read, goto, emits, L)
+    found, alive = exact.goto_walk(torch.from_numpy(ids), n_starts, n_read, goto, emits, L,
+                                   folded=folded)
     assert tpb.LAUNCHES == before  # CPU tensors run the plain version
     assert found.dtype == torch.int64 and found.shape[0] == 3
     want, want_alive = _brute(ids, n_starts, n_read, goto.numpy(), emits.numpy(), L)
     assert [tuple(r) for r in found.t().tolist()] == want
     assert alive == want_alive
+    assert folded.dtype == torch.int32
+    assert _brute_folded(ids, n_starts, n_read, folded.numpy(), *goto.shape, L) == (
+        want, want_alive)
     return want, alive
 
 
@@ -124,7 +157,7 @@ def test_walk_with_a_pruned_node():
     engine = _engine([("prune", 0.578), ("kepted", 0.578), "tincidunt"])
     hay = " ".join(["prune", "kepted", "tincidunt", "lorem"] * 40)
     ids = _ids(engine, hay)
-    goto, _emits = _tables(engine, thr)
+    goto, _emits, _folded = _tables(engine, thr)
     assert (goto.numpy() < 0).sum() > (engine.dense.goto < 0).sum()  # the mask cut edges
     found, _alive = _check(engine, ids, len(ids), len(ids), thr=thr)
     pats = {int(engine.dense.out_list[node][0]) for _s, _span, node in found}
@@ -156,9 +189,45 @@ def test_walk_without_survivors_and_on_an_empty_corpus():
     assert _check(engine, ids, 0, len(ids)) == ([], [])
 
 
+def test_walk_tiles_at_the_kept_rows_edge():
+    """``keep_edge_text``: tile 0 holds exactly ``WALK_KEEP`` arrivals (its
+    rows are copied from the count pass's slots), tile 1 one more (walked
+    again), tile 2 none; an "ab" straddles tiles 0 and 1, and a start with
+    arrivals at spans 1 and 2 fixes the order within a start."""
+    patterns, hay = exact.keep_edge_text()
+    engine = _engine(patterns)
+    ids = _ids(engine, hay)
+    assert len(ids) == 3 * exact.WALK_TILE
+    found, _alive = _check(engine, ids, len(ids), len(ids))
+    per_tile = np.bincount([s // exact.WALK_TILE for s, _span, _node in found], minlength=3)
+    assert per_tile.tolist() == [exact.WALK_KEEP, exact.WALK_KEEP + 1, 0]
+    t = exact.WALK_TILE
+    assert [(s, span) for s, span, _ in found if t - 2 <= s <= t] == [(t - 1, 1), (t - 1, 2),
+                                                                       (t, 1)]
+    # The same tiles walked as a shard: fewer starts than symbols read.
+    _check(engine, ids, 2 * t - 5, 2 * t)
+
+
+def test_fold_table():
+    """Each edge ``t`` becomes ``2 t + emits[t]``; the pair table's row
+    ``c0`` is the folded row of the root's child by ``c0`` (all -1 where
+    the root has none); none past ``WALK_PAIR_MAX`` classes."""
+    engine = _engine(_ABC)
+    goto, emits, folded = _tables(engine)
+    N, C = goto.shape
+    g, f = goto.numpy(), folded.numpy()
+    assert f.shape == (N + C, C) and (g[0] < 0).any()
+    want = np.where(g >= 0, 2 * g + emits.numpy()[np.maximum(g, 0)], -1)
+    assert (f[:N] == want).all()
+    for c0 in range(C):
+        assert (f[N + c0] == (want[g[0, c0]] if g[0, c0] >= 0 else -1)).all()
+    wide = torch.zeros((5, exact.WALK_PAIR_MAX + 1), dtype=torch.int32)
+    assert exact.fold_table(wide, torch.ones(5, dtype=torch.bool)).shape == wide.shape
+
+
 def test_wrapper_raises_off_the_cpu_and_the_card():
     engine = _engine(_ABC)
-    goto, emits = _tables(engine)
+    goto, emits, _folded = _tables(engine)
     ids = torch.from_numpy(_ids(engine, "abc abc"))
     with pytest.raises(ValueError, match="meta"):
         exact.goto_walk(ids.to("meta"), 7, 7, goto.to("meta"), emits.to("meta"), 4)
