@@ -10,7 +10,7 @@ path above it), and checks every CUDA kernel they run against its plain
 torch version. Phases:
 
 1. card: ``nvidia-smi`` name and power limit, CUDA version, device name;
-2. build: compile the eight sources of ``csrc/`` with nvcc (sm_90a, one
+2. build: compile the nine sources of ``csrc/`` with nvcc (sm_90a, one
    process per source, in parallel) from the checkout; report build seconds
    and ptxas registers / spills;
 3. kernel vs plain on the card, bit for bit. The hit-list scan's three
@@ -29,11 +29,18 @@ torch version. Phases:
    without hits and on one with a hit run at every word, each time with
    ``block_offsets`` held on the count pass's counts. The forbid, mapped
    and typed variants (``lane_kernel_checks``): ``banded_dp`` and
-   ``dp_pipeline`` with each forbid flag (``edits(2)`` and ``edits(3)``
-   without swaps; ``edits(2)`` without insertions, deletions,
-   substitutions) and with mapping arrivals (rn <-> m on the headline
-   dictionary + ``modern``; ß <-> ss and æ <-> ae, drift +1 and -1 in both
-   directions; a scored mapping; ``edits(2)`` mapped); ``banded_dp_typed``
+   the count-channel list step (``compare_step_kernels``: ``typed_expand``,
+   ``count_dp``, ``count_emit``, each alone, and the whole step) with each
+   forbid flag (``edits(1)`` (G = 8), ``edits(2)``, ``edits(3)`` (G = 32)
+   and ``edits(4)`` (shared rows) without swaps; ``edits(2)`` without
+   insertions, deletions, substitutions), on int32 ids, at a tied
+   threshold, on a range with h0 = 1 and tags, and with mapping arrivals
+   (rn <-> m on the headline dictionary + ``modern``; ß <-> ss and æ <-> ae,
+   drift +1 and -1 in both directions; a scored mapping; ``edits(2)`` and
+   ``edits(3)`` (G = 32) mapped; ``edits(4)`` mapped, which the lane
+   declines to the oracle, its scan budget past the scan's rows), and for ``edits(2)``
+   with swaps and a multi-byte-edge dictionary at ``edits(2)``;
+   ``banded_dp_typed``
    and the typed step (``typed_expand``, ``typed_dp``, ``typed_emit``, each
    also alone) on ``substitutions(1)`` (2 channels),
    ``insertions(1).deletions(1)``, ``edits(2).substitutions(1)`` (14),
@@ -72,21 +79,25 @@ torch version. Phases:
    one built by the port's oracle over each distinct word context (no scan,
    no DP, no slicing; the contexts are found once per corpus and searched
    by one pool of worker processes kept for the run, which works through
-   the four engines' contexts during phases 3 and 5 and is idle before the
+   the engines' contexts during phases 3 and 5 and is idle before the
    first timed search); launches, copies and
    waits per search, with the wrapper's launch count beside the profiler's
    event count; the stages' host-clock times;
-4c, 4d, 4e. the forbid, typed and mapped lanes at full width
+4c, 4c', 4d, 4e. the forbid lane, the default ``edits(2)``, the typed and
+   the mapped lanes at full width
    (``lane_main_path``), each through ``search_raw`` over the 96 MiB corpus
    after a probe on 1 MiB through the same entry point with the oracle
    locked out (the engine's own routing picks the lane), two warm-ups and three timed searches with the
    plain versions and the oracle locked out: 4c the headline dictionary
-   with ``edits(2).swaps(0)`` at 0.62; 4d the same with ``edits(1)``, one
+   with ``edits(2).swaps(0)`` at 0.62; 4c' ``edits(2)`` with swaps at 0.62
+   (fuzzy2_default, ``bench.py:347-384``); 4d the same with ``edits(1)``, one
    pattern exact-only and one ``substitutions(1)`` only, at 0.8; 4e the
    dictionary + ``modern`` with the mapping rn <-> m and ``edits(1)`` at
    0.8, every 50th ``commodo`` of the corpus a ``modem``. Each must report
-   its lane's backend name, launch the scan's kernels and its own pipeline
-   kernel and no other lane's, and equal the context oracle's match set; a
+   its lane's backend name, launch the scan's kernels and its own step's
+   kernels and no other lane's (4c, 4c' and 4e the list step:
+   ``typed_expand``, ``count_dp``, ``count_emit``; never
+   ``dp_pipeline_kernel``), and equal the context oracle's match set; a
    lane that declined at 96 MiB would run at the largest power-of-two
    prefix it serves and say so;
 4f. the large-dictionary lane, many1k (``bench.py:187-229``: 1,000 random
@@ -178,7 +189,8 @@ torch version. Phases:
    ``sharded_exact_search`` (the goto walk's kernels per shard) and
    ``sharded_fuzzy_search`` of the exact, fuzzy1, forbid, typed and
    mapped engines over their phase 4-4e
-   texts, on 3 logical shards of the card (``[cuda:0] * 3``) and on
+   texts (the forbid and mapped ones launching the list step and no
+   ``dp_pipeline_kernel``), on 3 logical shards of the card (``[cuda:0] * 3``) and on
    ``default_mesh()`` (every card), a first search and best of 3, each
    equal to the engine's ``search_raw`` tuple for tuple (14,222 / 42,666 /
    116,171 / 23,648 / 62,956 matches), the profiler's launches, copies,
@@ -212,8 +224,9 @@ torch version. Phases:
    pipeline's; each lane's pipeline and DP-only kernel on slice 1 of its
    phase's search, where the scan's three kernels on the lane's own tables
    and ``block_offsets`` on every count array the step scans are held
-   against their plain versions too; for the typed lane each of the step's
-   kernels alone; the same for ``edits(2).substitutions(1)``, typed with 14
+   against their plain versions too; for the typed lane, and for the list
+   step of the forbid and mapped lanes (with the DP instance's registers and
+   spill bytes), each of the step's kernels alone; the same for ``edits(2).substitutions(1)``, typed with 14
    channels behind a k = 2 scan, beside its searches over the whole
    corpus; ``block_offsets`` beside ``torch.cumsum(..., dtype=torch.int32)``
    at every shape the searches hand it and at 129,864 and 2^22 + 7 counts),
@@ -288,6 +301,10 @@ CONTEXT_TAIL = 15
 LANES = ("forbid", "typed", "mapped")
 #: The launch counters of the typed step's kernels.
 TYPED_KEYS = ("typed_expand", "typed_dp", "typed_emit")
+#: The launch counters of the count-channel list step's kernels (E >= 2,
+#: forbidden edit types or mappings): the typed step's expansion, then
+#: ``count_dp`` and ``count_emit`` (``csrc/dp_list.cu``).
+LIST_KEYS = ("typed_expand", "count_dp", "count_emit")
 #: The many1k configuration (``bench.py:187-229``): 1,000 random lowercase
 #: words of 6-11 letters drawn from seed 7, ``edits(1)``, case-insensitive,
 #: threshold 0.82, over the first 24 MiB of the corpus with 4,000 planted
@@ -505,47 +522,83 @@ def pipeline_args(vdp, np, plan, run, part, pos, words, thr, shift=0, wide=False
             run.pens, np.float32(thr), plan.E, run.deadend, run.statics, run.variant)
 
 
-def compare_typed_step(tpb, vdp, torch, args, what: str, h0: int = 0) -> dict:
-    """Each kernel of the typed step against its plain version on one
-    slice's hits (``args``, the arguments of ``dp_pipeline``), bit for bit,
-    each fed the plain version's inputs: the candidate list
-    (``typed_expand``), the live candidates' decisions and the per-tile row
-    counts (``typed_dp``), the rows and tags (``typed_emit``). Returns
-    {kernel: max_abs_err}."""
-    pos, words, window, ids, limit, T, pens, thr, E, _dead, statics, variant = args
+def step_kind(vdp, args) -> str:
+    """Which step ``dp_pipeline`` runs for its arguments ``args``: "typed",
+    "list" (the count-channel list step) or "pipeline" (``dp_pipeline_kernel``)."""
+    E, variant = args[8], args[-1]
+    if variant.typed is not None:
+        return "typed"
+    return "list" if vdp._list_step(E, variant) else "pipeline"
+
+
+#: The launch counters and the error key of each step kind.
+STEP_KEYS = {"typed": TYPED_KEYS, "list": LIST_KEYS, "pipeline": ("dp_pipeline",)}
+STEP_ERR = {"typed": "typed_step", "list": "list_step", "pipeline": "dp_pipeline"}
+
+
+def step_pieces(vdp, args):
+    """The DP and the emission of the typed or the list step for ``args``
+    (the arguments of ``dp_pipeline``), each a (wrapper, plain version)
+    pair: ``dp(cands)`` -> (dec, row_counts), ``emit(dec, offsets, cands,
+    n_rows, n_cand)`` -> (rows, tags)."""
+    _pos, _words, _win, ids, limit, T, pens, thr, E, dead, statics, variant = args
+    n_combo = vdp._combos(E, *statics).shape[1]
     TT = variant.typed
+    if TT is not None:
+        d = (ids, limit, T, pens, thr, E, TT)
+        return ((lambda c: vdp.typed_dp(c, *d), lambda c: vdp.typed_dp_torch(c, *d)),
+                (lambda dec, o, c, n, M: vdp.typed_emit(dec, o, c, T, TT, E, n_combo, n, True),
+                 lambda dec, o, c, n, M: vdp.typed_emit_torch(dec, o, c, T, TT, E, n_combo, n,
+                                                              True)))
+    d = (ids, limit, T, pens, thr, E, dead, variant.forbid, variant.maps)
+    return ((lambda c: vdp.count_dp(c, *d), lambda c: vdp.count_dp_torch(c, *d)),
+            (lambda dec, o, c, n, M: vdp.count_emit(dec, o, c, T, E, n_combo, n, M, True),
+             lambda dec, o, c, n, M: vdp.count_emit_torch(dec, o, c, T, E, n_combo, n, True)))
+
+
+def compare_step_kernels(tpb, vdp, torch, args, what: str, h0: int = 0) -> dict:
+    """Each kernel of the typed or the list step against its plain version
+    on one slice's hits (``args``, the arguments of ``dp_pipeline``), bit
+    for bit, each fed the plain version's inputs: the candidate list
+    (``typed_expand``), the decisions and the per-tile row counts
+    (``typed_dp`` / ``count_dp``), the rows and tags (``typed_emit`` /
+    ``count_emit``). Returns {kernel: max_abs_err}."""
+    pos, words, window, E, statics = args[0], args[1], args[2], args[8], args[10]
+    kind = step_kind(vdp, args)
+    k_expand, k_dp, k_emit = STEP_KEYS[kind]
+    (dp, dp_plain), (emit, emit_plain) = step_pieces(vdp, args)
     ck = vdp.typed_expand(pos, words, window, E, statics, h0)
     cp = vdp.typed_expand_torch(pos, words, window, E, statics, h0)
     M = int(cp.total[0])
-    errs = {"typed_expand": max([int_err(int(ck.total[0]), M)]
-                                + [int_err(a[:M], b) for a, b in zip(ck[:3], cp[:3])])}
-    dec_k, counts_k = vdp.typed_dp(cp, ids, limit, T, pens, thr, E, TT)
-    dec_p, counts_p = vdp.typed_dp_torch(cp, ids, limit, T, pens, thr, E, TT)
-    errs["typed_dp"] = max(int_err(dec_k[:, :M], dec_p[:, :M]), int_err(counts_k, counts_p))
+    errs = {k_expand: max([int_err(int(ck.total[0]), M)]
+                          + [int_err(a[:M], b) for a, b in zip(ck[:3], cp[:3])])}
+    dec_k, counts_k = dp(cp)
+    dec_p, counts_p = dp_plain(cp)
+    errs[k_dp] = max(int_err(dec_k[:, :M], dec_p[:, :M]), int_err(counts_k, counts_p))
     offs = tpb.block_offsets_torch(counts_p)
     n_rows = int(offs[-2])
-    n_combo = vdp._combos(E, *statics).shape[1]
-    rows_k, tags_k = vdp.typed_emit(dec_p, offs, cp, T, TT, E, n_combo, n_rows, tags=True)
-    rows_p, tags_p = vdp.typed_emit_torch(dec_p, offs, cp, T, TT, E, n_combo, n_rows, tags=True)
+    rows_k, tags_k = emit(dec_p, offs, cp, n_rows, M)
+    rows_p, tags_p = emit_plain(dec_p, offs, cp, n_rows, M)
     torch.cuda.synchronize()
-    errs["typed_emit"] = max(int_err(rows_k, rows_p), int_err(tags_k, tags_p))
-    log(f"  {what}: typed step h0={h0}, {ck.items} items, {M} candidates, {n_rows} rows, "
-        f"{counts_p.numel()} row counts; max_abs_err " + ", ".join(f"{k} {v}" for k, v in errs.items()))
-    require(all(v == 0 for v in errs.values()), f"{what}: a typed kernel disagrees with its plain "
-            "version")
+    errs[k_emit] = max(int_err(rows_k, rows_p), int_err(tags_k, tags_p))
+    log(f"  {what}: {kind} step E={E} h0={h0}, {ck.items} items, {M} candidates, {n_rows} rows, "
+        f"{counts_p.numel()} row counts; max_abs_err "
+        + ", ".join(f"{k} {v}" for k, v in errs.items()))
+    require(all(v == 0 for v in errs.values()), f"{what}: a kernel of the {kind} step disagrees "
+            "with its plain version")
     return errs
 
 
 def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want_rows=True,
                      wide=False, errs=None):
-    """``dp_pipeline`` (the count-channel kernel, or the typed step's
-    kernels) against ``dp_pipeline_torch`` on the first slice of ``text``:
-    the same rows in the same order, bit for bit, the same row tags and the
-    same candidate count; for a typed engine each kernel of the step against
-    its plain version (``compare_typed_step``); and ``block_offsets`` against
-    its plain version on every count array the step scans. Returns the
-    step's and block_offsets' max_abs_err; with ``errs`` (a dict) the typed
-    kernels' errors are folded into it."""
+    """``dp_pipeline`` (the count-channel kernel, or the typed or the list
+    step's kernels) against ``dp_pipeline_torch`` on the first slice of
+    ``text``: the same rows in the same order, bit for bit, the same row
+    tags and the same candidate count; for the typed and the list step each
+    kernel against its plain version (``compare_step_kernels``); and
+    ``block_offsets`` against its plain version on every count array the
+    step scans. Returns the step's and block_offsets' max_abs_err; with
+    ``errs`` (a dict) the step's kernels' errors are folded into it."""
     plan, run = lane_inputs(vdp, engine, text, thr, what)
     return compare_slice_pipeline(tpb, vdp, torch, np, plan, run, run.parts[0], thr, what,
                                   shift, want_rows, wide, errs)
@@ -608,8 +661,9 @@ def ptxas_summary(log_text: str):
     """(lines for the main paths' instantiations: the W=3 scan and hit-list
     kernels at k=0 and at k=1 with Damerau rows, the offsets scan, every
     banded DP instantiation, the u8 pipeline ones, the typed kernels, the
-    wide scan at k=0 (every LPL) and k=1, the wide hit-list kernel at k=0
-    and k=1, the many lane's step at E=1 and E=2;
+    list step's DP (every G and MAPS, the shared-rows form) and emission,
+    the wide scan at k=0 (every LPL) and k=1, the wide hit-list kernel at
+    k=0 and k=1, the many lane's step at E=1 and E=2;
     number of instantiations, number of them with spills, max registers)."""
     import re
 
@@ -630,7 +684,12 @@ def ptxas_summary(log_text: str):
         wide = re.search(r"scan_bits_wide_kernelILi(\d)ELi(\d+)ELi(\d)ELb([01])E", name)
         wide_hits = re.search(r"hit_words_wide_kernelILi(\d)ELb([01])E", name)
         step = re.search(r"many_step_kernelILi(\d)ELb([01])E", name)
-        if wide:
+        cdp = re.search(r"count_dp_kernelILi(\d+)ELb([01])E", name)
+        if cdp:
+            label = f"count_dp<G={cdp.group(1)},MAPS={cdp.group(2)}>"
+        elif "count_dp_rows_kernel" in name or "count_emit_kernel" in name:
+            label = "count_dp_rows" if "count_dp_rows_kernel" in name else "count_emit"
+        elif wide:
             if wide.group(3) not in ("0", "1"):
                 continue
             label = (f"scan_bits_wide<LPL={wide.group(1)},G={wide.group(2)},"
@@ -843,13 +902,15 @@ def match_key(m):
 
 def recipe_engine(ctx, name: str):
     """The engines of the full-size phases by name, so that a worker process
-    can build its own: ``fuzzy1`` (4b), ``forbid`` (4c), ``typed`` (4d),
-    ``mapped`` (4e)."""
+    can build its own: ``fuzzy1`` (4b), ``forbid`` (4c), ``fuzzy2`` (4c'),
+    ``typed`` (4d), ``mapped`` (4e)."""
     L, P = ctx.Limits, ctx.Pattern
     if name == "fuzzy1":
         return make_engine(ctx, HEADLINE, L.new().edits(1))
     if name == "forbid":
         return make_engine(ctx, HEADLINE, L.new().edits(2).swaps(0))
+    if name == "fuzzy2":
+        return make_engine(ctx, HEADLINE, L.new().edits(2))
     if name == "typed":
         words = [P.of(("phaetra", 1.0, 0)) if w == "phaetra"
                  else P.of("sollicitudin").fuzzy(L.new().substitutions(1)) if w == "sollicitudin"
@@ -1377,8 +1438,11 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
     head = lambda lim: make_engine(ctx, HEADLINE, lim)
     # (what, engine, text, threshold, also on int32 ids)
     cases = [
+        ("forbid edits(1).swaps(0), G = 8", head(L.new().edits(1).swaps(0)), quarter, 0.8, False),
         ("forbid edits(2).swaps(0)", forbid2, edited, 0.62, True),
         ("forbid edits(3).swaps(0)", head(L.new().edits(3).swaps(0)), quarter, 0.5, False),
+        ("forbid edits(4).swaps(0), rows in shared memory", make_engine(
+            ctx, HEADLINE[:4], L.new().edits(4).swaps(0)), edited[: 64 << 10], 0.5, False),
         ("forbid edits(2).insertions(0)", head(L.new().edits(2).insertions(0)), quarter, 0.62, False),
         ("forbid edits(2).deletions(0)", head(L.new().edits(2).deletions(0)), quarter, 0.62, False),
         ("forbid edits(2).substitutions(0)", head(L.new().edits(2).substitutions(0)), quarter,
@@ -1392,6 +1456,9 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
          False),
         ("mapped edits(2) ß<->ss, Unicode", make_engine(
             ctx, GERMAN, L.new().edits(2), mappings=[("ß", "ss")]), de_text, 0.5, False),
+        ("mapped edits(3) ß<->ss, Unicode, G = 32", make_engine(
+            ctx, GERMAN, L.new().edits(3), mappings=[("ß", "ss")]), de_text[: 256 << 10], 0.5,
+         False),
         ("typed substitutions(1)", head(L.new().substitutions(1)), edited, 0.8, True),
         ("typed insertions(1).deletions(1)", head(L.new().insertions(1).deletions(1)), mib, 0.7,
          False),
@@ -1403,23 +1470,55 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
          False),
     ]
     errs = dict.fromkeys(("banded_dp", "dp_pipeline", "banded_dp_typed", "typed_step",
-                          "typed_expand", "typed_dp", "typed_emit", "block_offsets"), 0.0)
+                          "typed_expand", "typed_dp", "typed_emit", "list_step", "count_dp",
+                          "count_emit", "block_offsets"), 0.0)
 
-    def pipe_case(eng, text, thr, what, want_rows=True):
-        typed = vdp.lane_specs_of(eng)[0] is not None
-        err, err_offs = compare_pipeline(tpb, vdp, torch, np, eng, text, thr, "pipeline " + what,
-                                         want_rows=want_rows, errs=errs)
-        key = "typed_step" if typed else "dp_pipeline"
-        errs[key] = max(errs[key], err)
+    def pipe_case(eng, text, thr, what, want_rows=True, wide=False):
+        _err, err_offs = compare_pipeline(tpb, vdp, torch, np, eng, text, thr,
+                                          "pipeline " + what, want_rows=want_rows, wide=wide,
+                                          errs=errs)
         errs["block_offsets"] = max(errs["block_offsets"], err_offs)
 
     for what, eng, text, thr, wide in cases:
         key = "banded_dp_typed" if vdp.lane_specs_of(eng)[0] is not None else "banded_dp"
         errs[key] = max(errs[key], compare_dp(vdp, torch, eng, text, thr, "DP " + what))
+        pipe_case(eng, text, thr, what)
         if wide:
             errs[key] = max(errs[key], compare_dp(vdp, torch, eng, text, thr,
                                                   "DP " + what + ", int32 ids", wide=True))
-        pipe_case(eng, text, thr, what)
+            pipe_case(eng, text, thr, what + ", int32 ids", wide=True)
+    # A threshold that a forbid2 match's similarity ties: the first from the
+    # top that the lane keeps at itself.
+    tie_text = edited[: 64 << 10]
+    sims = sorted({np.float32(m.similarity) for m in forbid2.search_raw(tie_text, 0.62)
+                   if m.similarity < 1.0}, reverse=True)
+    f_tie = next(t for t in sims if any(np.float32(m.similarity) == t
+                                        for m in forbid2.search_raw(tie_text, float(t))))
+    tie_dev = sorted(map(keyf, forbid2.search_raw(tie_text, float(f_tie))))
+    forbid2.backend = "oracle"
+    tie_ora = sorted(map(keyf, forbid2.search_raw(tie_text, float(f_tie))))
+    forbid2.backend = "device"
+    log(f"  forbid lane, threshold {float(f_tie)!r}, tied: device {len(tie_dev)} vs oracle "
+        f"{len(tie_ora)} matches, equal {tie_dev == tie_ora}")
+    require(tie_dev == tie_ora, "forbid lane disagrees with the oracle at a tied threshold")
+    pipe_case(forbid2, tie_text, float(f_tie), "forbid at the tied threshold")
+    # The list step on a range of slice 1's hits: a first hit h0 = 1 and
+    # the rows' tags, each kernel against its plain version.
+    for eng, thr, what in ((forbid2, 0.62, "forbid"), (mapped_rn, 0.8, "mapped")):
+        plan, run = lane_inputs(vdp, eng, rn_text if eng is mapped_rn else tie_text, thr,
+                                what + " range")
+        part = run.parts[0]
+        _h, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+        half = pos.numel() // 2
+        args = pipeline_args(vdp, np, plan, run, part, pos[half - 1:], words[half - 1:], thr)
+        for key, e in compare_step_kernels(tpb, vdp, torch, args,
+                                           f"{what}, the second half of the hits", h0=1).items():
+            errs[key] = max(errs[key], e)
+        got = vdp.dp_pipeline(*args, h0=1, tags=True)
+        want = vdp.dp_pipeline_torch(*args, h0=1, tags=True)
+        require(torch.equal(got[0], want[0]) and got[1] == want[1]
+                and torch.equal(got[2], want[2]) and got[0].shape[0] > 0,
+                f"the list step disagrees with its plain version on a {what} range")
     # A threshold that a typed match's similarity ties; texts without hits.
     tie_text = edited[: 256 << 10]
     tie = max(np.float32(m.similarity) for m in typed2.search_raw(tie_text, 0.8)
@@ -1440,13 +1539,32 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
     _h, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
     half = pos.numel() // 2
     args = pipeline_args(vdp, np, plan, run, part, pos[half - 1:], words[half - 1:], 0.8)
-    for key, e in compare_typed_step(tpb, vdp, torch, args, "typed, the second half of the hits",
-                                     h0=1).items():
+    for key, e in compare_step_kernels(tpb, vdp, torch, args,
+                                       "typed, the second half of the hits", h0=1).items():
         errs[key] = max(errs[key], e)
     got = vdp.dp_pipeline(*args, h0=1, tags=True)
     want = vdp.dp_pipeline_torch(*args, h0=1, tags=True)
     require(torch.equal(got[0], want[0]) and got[1] == want[1] and torch.equal(got[2], want[2]),
             "the typed step disagrees with its plain version on a range")
+    # Mappings at edits(4): the lane scans with 2E = 8 error rows, past the
+    # scan kernels' MAX_K, so it declines and the search is the oracle's
+    # (count_dp takes mappings up to E = 3).
+    mapped4 = make_engine(ctx, GERMAN, L.new().edits(4), mappings=[("ß", "ss")])
+    de_small = de_text[: 16 << 10]
+    specs = vdp.lane_specs_of(mapped4)
+    require(specs[1] is not None and specs[1].k > tpb.MAX_K
+            and vdp.dp_plan(mapped4, 0.5, len(de_small), *specs) is None,
+            "the mapped lane serves edits(4) past the scan's error rows")
+    for k in tpb.LAUNCHES:
+        tpb.LAUNCHES[k] = 0
+    got4 = sorted(map(keyf, mapped4.search_raw(de_small, 0.5)))
+    backend4 = mapped4.last_stats["backend"]
+    mapped4.backend = "oracle"
+    want4 = sorted(map(keyf, mapped4.search_raw(de_small, 0.5)))
+    log(f"  mapped edits(4): the lane declines (scan budget {specs[1].k} > {tpb.MAX_K} rows), "
+        f"backend {backend4}, {len(got4)} matches, equal to the oracle {got4 == want4}")
+    require(backend4 == "oracle" and got4 == want4 and len(got4) > 0
+            and not any(tpb.LAUNCHES.values()), "mapped edits(4) is not the oracle's search")
     nothing = "lorem ipsum dolor sit amet " * 20000
     for eng, thr, what in ((forbid2, 0.9, "forbid"), (mapped_rn, 0.95, "mapped"),
                            (typed2, 0.8, "typed")):
@@ -1538,50 +1656,61 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
                            matches=len(got), stages=stages, step_ms=step_ms, offsets_ms=offs_ms)
 
 
-def typed_step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
-    """Phase 6 for the typed step's kernels on one slice's hits (``args``,
-    the arguments of ``dp_pipeline``): CUDA-event ms of each wrapper beside
-    its plain version, and its bound from these inputs (``tables`` bytes of
-    the DP's tables, ``window`` bytes of the candidates' haystack windows,
-    ``cells`` the DP's cells). Returns ({kernel: (ms, plain ms, bound,
-    None)}, the expansion's and the DP's count arrays)."""
+def step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
+    """Phase 6 for the typed or the list step's kernels on one slice's hits
+    (``args``, the arguments of ``dp_pipeline``): CUDA-event ms of each
+    wrapper beside its plain version, and its bound from these inputs
+    (``tables`` bytes of the DP's tables, ``window`` bytes of the
+    candidates' haystack windows, ``cells`` the DP's cells); for the list
+    step the instances' registers and spill bytes. Returns ({kernel: (ms,
+    plain ms, bound, None)}, {kernel: (instance, registers, spill bytes)}
+    or None)."""
     torch, tpb, vdp = ctx.torch, ctx.tpb, ctx.vdp
-    pos, words, win, ids, limit, T, pens, thr, E, _dead, statics, variant = args
-    TT = variant.typed
+    pos, words, win, _ids, _limit, _T, _pens, _thr, E, _dead, statics, variant = args
+    kind = step_kind(vdp, args)
+    k_expand, k_dp, k_emit = STEP_KEYS[kind]
+    (dp, dp_plain), (emit, emit_plain) = step_pieces(vdp, args)
     cands = vdp.typed_expand(pos, words, win, E, statics)
-    dec, row_counts = vdp.typed_dp(cands, ids, limit, T, pens, thr, E, TT)
+    dec, row_counts = dp(cands)
     offsets = tpb.block_offsets(row_counts)
     n_rows, M = (int(x) for x in offsets[-2:].tolist())
     M -= n_rows
     plain_c = vdp.typed_expand_torch(pos, words, win, E, statics)
-    plain_d = vdp.typed_dp_torch(plain_c, ids, limit, T, pens, thr, E, TT)
+    plain_d = dp_plain(plain_c)
     n_combo = vdp._combos(E, *statics).shape[1]
     nce, items = dec.shape[0], cands.items
     nblk = cands.block_counts.numel()
     recs = {
-        "typed_expand": (
+        k_expand: (
             event_ms(torch, lambda: vdp.typed_expand(pos, words, win, E, statics), 20),
             event_ms(torch, lambda: vdp.typed_expand_torch(pos, words, win, E, statics), 3),
             bound_ms(pos.numel() * 8 + words.numel() * 8 + 20 * n_combo + 12 * M + 12 * nblk,
                      12 * items, INT_RATE), None),
-        "typed_dp": (
-            event_ms(torch, lambda: vdp.typed_dp(cands, ids, limit, T, pens, thr, E, TT), 20),
-            event_ms(torch, lambda: vdp.typed_dp_torch(plain_c, ids, limit, T, pens, thr, E, TT),
-                     3),
+        k_dp: (
+            event_ms(torch, lambda: dp(cands), 20),
+            event_ms(torch, lambda: dp_plain(plain_c), 1),
             bound_ms(8 * M + tables + window + 8 * nce * M + 4 * row_counts.numel(),
                      cells * DP_CELL_INSTR, F32_RATE), None),
-        "typed_emit": (
-            event_ms(torch, lambda: vdp.typed_emit(dec, offsets, cands, T, TT, E, n_combo,
-                                                   n_rows), 20),
-            event_ms(torch, lambda: vdp.typed_emit_torch(plain_d[0], offsets, plain_c, T, TT, E,
-                                                         n_combo, n_rows), 3),
+        k_emit: (
+            event_ms(torch, lambda: emit(dec, offsets, cands, n_rows, M), 20),
+            event_ms(torch, lambda: emit_plain(plain_d[0], offsets, plain_c, n_rows, M), 3),
             bound_ms(8 * nce * M + 12 * M + 4 * offsets.numel() + 20 * n_rows, nce * M,
                      INT_RATE), None),
     }
+    regs = None
+    if kind == "list":
+        cells_per = (2 * E + 1) * (E + 1)
+        G = 8 if cells_per <= 8 else 16 if cells_per <= 16 else 32 if cells_per <= 32 else 0
+        maps = int(variant.maps is not None)
+        regs = {k_dp: ptxas_entry(ctx.kern.log, rf"count_dp_kernelILi{G}ELb{maps}E" if G
+                                  else r"count_dp_rows_kernel"),
+                k_emit: ptxas_entry(ctx.kern.log, r"count_emit_kernel"),
+                k_expand: ptxas_entry(ctx.kern.log, r"typed_expand_kernel")}
     for name, (ms, plain, (b_ms, b_by), _lib) in recs.items():
         log(f"  {tag} {name}: {items} items, {M} candidates, {n_rows} rows; wrapper {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {b_ms:.4g} ms by {b_by} ({b_ms / ms:.3g} of the time)")
-    return recs, (cands.block_counts, row_counts)
+            f"plain {plain:.4f} ms, bound {b_ms:.4g} ms by {b_by} ({b_ms / ms:.3g} of the time)"
+            + (f"; instance {regs[name]}" if regs else ""))
+    return recs, regs
 
 
 def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
@@ -1590,12 +1719,13 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     tables and slice, ``block_offsets`` against its plain version on every
     count array the step scans and its times there (beside
     ``torch.cumsum``), CUDA-event ms of the step's wrapper and of the DP-only
-    kernel beside their plain versions, for a typed lane of each of the
-    step's kernels too (``typed_step_times``), the bound from these inputs,
+    kernel beside their plain versions, for a typed or a list step of each
+    of the step's kernels too (``step_times``), the bound from these inputs,
     and their agreement there. Returns a namespace: ``pipe`` and ``dp``
     (ms, plain ms, bound) of the step and of the DP-only kernel, ``scan_errs``
-    (max_abs_err of scan_bits, block_offsets, hit_words), ``typed``
-    {kernel: (ms, plain ms, bound, None)} or None, ``offsets`` the
+    (max_abs_err of scan_bits, block_offsets, hit_words), ``steps``
+    {kernel: (ms, plain ms, bound, None)} and ``regs`` {kernel: (instance,
+    registers, spill bytes)} (the list step's) or None, ``offsets`` the
     ``offsets_times`` records, and ``device_ms`` the step's kernels' device
     ms per call of the wrapper (torch.profiler)."""
     torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
@@ -1606,12 +1736,15 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
         f"{tag} main-path shape, k={plan.k} damerau={plan.dam} halo={run.halo}")
     hits, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
     p_args = pipeline_args(vdp, np, plan, run, part, pos, words, thr)
-    typed = run.variant.typed is not None
+    kind = step_kind(vdp, p_args)
+    typed = kind == "typed"
     err_offs, offs_recs = 0, []
     for i, counts in enumerate(vdp.dp_pipeline_counts(*p_args)):
         err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
                                       - tpb.block_offsets_torch(counts).long()).abs().max()))
-        what = (("typed expansion's", "typed step's row")[i] if typed else "count pass's")
+        what = ({"typed": ("typed expansion's", "typed step's row"),
+                 "list": ("list expansion's", "list step's row")}[kind][i]
+                if kind != "pipeline" else "count pass's")
         offs_recs.append(offsets_times(tpb, torch, counts, f"{tag}, the {what} counts"))
     log(f"  {tag}: block_offsets over the step's counts, max_abs_err {err_offs}")
     require(err_offs == 0, f"{tag}: block_offsets disagrees on the step's counts")
@@ -1639,15 +1772,15 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     dp_bound = bound_ms(cf.numel() * 8 + tables + window
                         + pen_k.numel() * (4 if cnt_k is None else 8),
                         cells * DP_CELL_INSTR, F32_RATE)
-    typed_recs = None
-    if typed:
-        typed_recs, _counts = typed_step_times(ctx, tag, p_args, tables, window, cells)
+    step_recs = regs = None
+    if kind != "pipeline":
+        step_recs, regs = step_times(ctx, tag, p_args, tables, window, cells)
     pipe_ms = event_ms(torch, lambda: vdp.dp_pipeline(*p_args), 10)
     pipe_plain_ms = event_ms(torch, lambda: vdp.dp_pipeline_torch(*p_args), 1)
     dp_ms = event_ms(torch, kernel, 10)
     dp_plain_ms = event_ms(torch, plain, 1)
     prof = profile_search(torch, lambda: vdp.dp_pipeline(*p_args), 20, tpb.LAUNCHES)
-    keys = TYPED_KEYS if typed else ("dp_pipeline",)
+    keys = STEP_KEYS[kind]
     dev_ms = {k: device_ms(prof, k) for k in keys}
     dev_ms["block_offsets"] = device_ms(prof, "block_offsets_kernel")
     counted = ", ".join(f"{k} {prof['counted'][k]} launches counted, "
@@ -1661,7 +1794,8 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
         f"by {dp_bound[1]}; max_abs_err 0 both")
     return SimpleNamespace(pipe=(pipe_ms, pipe_plain_ms, pipe_bound),
                            dp=(dp_ms, dp_plain_ms, dp_bound), scan_errs=scan_errs,
-                           typed=typed_recs, offsets=offs_recs, device_ms=dev_ms)
+                           steps=step_recs, regs=regs,
+                           offsets=offs_recs, device_ms=dev_ms, prof_counted=prof["counted"])
 
 
 def wide_tables(tpb, W: int, k: int, damerau: bool, A: int, seed: int, device):
@@ -3240,9 +3374,9 @@ def small_entry_points(ctx, fuzzy, many_e, corpus: str, many_text: str, locked, 
 #: fuzzy1 at 0.8, the first 8 dictionary words upper-cased as the table.
 MULTIHOST_BYTES = 24 << 20
 MULTIHOST_TABLE = [w.upper() for w in HEADLINE[:8]]
-#: The groups of phase 4k's launch counts whose ``dp_pipeline`` launches all
-#: ran the count-channel step without a forbid mask or mappings (the dry
-#: run's mix the three; the JSON line lists them apart).
+#: The groups of phase 4k's launch counts whose ``dp_pipeline`` launches
+#: count on the ``dp_pipeline`` record (the dry run's, of its ``edits(1)``
+#: engine, are listed apart in the JSON line).
 K4_FAST = ("fuzzy1", "multihost")
 #: Seconds a 4k (d) worker may take, start-up and the process group included.
 WORKER_TIMEOUT_S = 300
@@ -3327,15 +3461,15 @@ def host_transcode_ms(engine, text: str) -> float:
 
 def compare_step(tpb, vdp, torch, args, hits: int, what: str, prefix: str = "",
                  want_rows: bool = True, errs=None):
-    """``dp_pipeline`` (the count-channel kernel, or the typed step's
-    kernels) against ``dp_pipeline_torch`` on one slice's hits and inputs
-    (``args``, the arguments of ``dp_pipeline``): the same rows in the same
-    order, bit for bit, the same row tags and the same candidate count; for
-    a typed variant each kernel of the step against its plain version
-    (``compare_typed_step``); and ``block_offsets`` against its plain
-    version on every count array the step scans. Returns the step's and
-    block_offsets' max_abs_err; with ``errs`` (a dict) the typed kernels'
-    errors are folded into it."""
+    """``dp_pipeline`` (the count-channel kernel, the list step's or the
+    typed step's kernels) against ``dp_pipeline_torch`` on one slice's hits
+    and inputs (``args``, the arguments of ``dp_pipeline``): the same rows
+    in the same order, bit for bit, the same row tags and the same candidate
+    count; for a typed or a list step each kernel of the step against its
+    plain version (``compare_step_kernels``); and
+    ``block_offsets`` against its plain version on every count array the
+    step scans. Returns the step's and block_offsets' max_abs_err; with
+    ``errs`` (a dict) the step's kernels' errors are folded into it."""
     rows_k, cand_k, tags_k = vdp.dp_pipeline(*args, tags=True)
     rows_p, cand_p, tags_p = vdp.dp_pipeline_torch(*args, tags=True)
     torch.cuda.synchronize()
@@ -3347,8 +3481,8 @@ def compare_step(tpb, vdp, torch, args, hits: int, what: str, prefix: str = "",
             n_counts.append(counts.numel())
             err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
                                           - tpb.block_offsets_torch(counts).long()).abs().max()))
-        if args[-1].typed is not None:
-            for key, e in compare_typed_step(tpb, vdp, torch, args, what).items():
+        if step_kind(vdp, args) != "pipeline":
+            for key, e in compare_step_kernels(tpb, vdp, torch, args, what).items():
                 if errs is not None:
                     errs[key] = max(errs.get(key, 0), e)
     log(f"  {what}: {prefix}hits={hits} candidates={cand_k} vs {cand_p} rows={rows_k.shape[0]} "
@@ -3357,6 +3491,9 @@ def compare_step(tpb, vdp, torch, args, hits: int, what: str, prefix: str = "",
     require(same and err == 0.0, f"{what}: dp_pipeline disagrees with dp_pipeline_torch")
     require(err_offs == 0, f"{what}: block_offsets disagrees on the step's counts")
     require(rows_p.shape[0] > 0 or not want_rows, f"{what}: no rows to compare")
+    if errs is not None:
+        key = STEP_ERR[step_kind(vdp, args)]
+        errs[key] = max(errs.get(key, 0), err)
     return err, err_offs
 
 
@@ -3399,7 +3536,7 @@ def shard_kernel_checks(ctx, engine, text: str, thr: float, mesh, what: str, err
             tpb, vdp, torch, (pos, words) + tuple(args), hits, f"{what}, shard {d}",
             f"window [{window.start_lo}, {window.start_hi}) of {ids.numel()} symbols, ",
             errs=errs)
-        key = "typed_step" if args[-1].typed is not None else "dp_pipeline"
+        key = STEP_ERR[step_kind(vdp, (pos, words) + tuple(args))]
         errs[key] = max(errs.get(key, 0), err)
         errs["block_offsets"] = max(errs["block_offsets"], err_offs)
 
@@ -3704,7 +3841,8 @@ def smoke(torch, start_pool, workers: int) -> int:
                 len(contexts))
 
     oracle_jobs = (("many1k", many_text, MANY_THRESHOLD), ("forbid", corpus, 0.62),
-                   ("fuzzy1", corpus, 0.8), ("typed", corpus, 0.8), ("mapped", mapped_corpus, 0.8))
+                   ("fuzzy1", corpus, 0.8), ("typed", corpus, 0.8), ("mapped", mapped_corpus, 0.8),
+                   ("fuzzy2", corpus, 0.62))
     for job in oracle_jobs:
         if job[1] is mapped_corpus:
             contexts_of[mapped_corpus] = mapped_contexts.get()
@@ -3720,7 +3858,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         f"{len(corpus)}-byte corpus, {len(contexts_of[mapped_corpus][0])} in the "
         f"{len(mapped_corpus)}-byte one, {len(contexts_of[many_text][0])} in the "
         f"{len(many_text)}-byte many1k one, {time.perf_counter() - t0:.1f} s; the oracle's "
-        f"{workers} workers have the five engines' searches")
+        f"{workers} workers have the six engines' searches")
     engine = (FuzzyAhoCorasickBuilder.new().case_insensitive(True).device(dev)
               .build(HEADLINE))
     engine.backend = "device"
@@ -3807,25 +3945,35 @@ def smoke(torch, start_pool, workers: int) -> int:
     log(f"  threshold {float(tie)!r} tied by {n_tied} matches: device {len(tie_dev)} vs oracle "
         f"{len(tie_ora)} matches, equal {tie_dev == tie_ora}")
     require(tie_dev == tie_ora and n_tied > 0, "device disagrees with the oracle at a tied threshold")
-    err_pipe_all, err_offs = compare_pipeline(
+    # The step's errors by kind (dp_pipeline, list_step and its kernels).
+    step_errs = {"dp_pipeline": 0.0}
+    _err, err_offs = compare_pipeline(
         tpb, vdp, torch, np, uni, uni_text, 0.6,
-        "pipeline multi-byte edges (dead-end), Unicode, int32 ids", wide=True)
+        "pipeline multi-byte edges (dead-end), Unicode, int32 ids", wide=True, errs=step_errs)
     errs_scan[1] = max(errs_scan[1], err_offs)
+    uni2 = make_engine(ctx, UNICODE_WORDS, FuzzyLimits.new().edits(2))
     for eng, text, thr, what, shift, want_rows in (
         (fuzzy, edited, 0.8, "pipeline headline edits(1), 4 MiB planted edits", 0, True),
         (fuzzy, edited, 0.8, "pipeline headline edits(1), views unaligned by 3", 3, True),
         (fuzzy2, edited, 0.8, "pipeline headline edits(2) (k=2 scan), 4 MiB planted edits", 0, True),
+        (fuzzy2, edited, 0.8, "pipeline headline edits(2), views unaligned by 3", 3, True),
         (uni, uni_text, 0.6, "pipeline multi-byte edges (dead-end), Unicode", 0, True),
+        (uni2, uni_text, 0.6, "pipeline multi-byte edges (dead-end) edits(2), Unicode", 0, True),
         (fuzzy, tie_text, float(tie), "pipeline at the tied threshold", 0, True),
         (fuzzy, "lorem ipsum dolor sit amet " * 20000, 0.8, "pipeline, filler only", 0, False),
+        (fuzzy2, "lorem ipsum dolor sit amet " * 20000, 0.9, "pipeline edits(2), filler only", 0,
+         False),
         (fuzzy, "tincidunt " * 30000, 0.8, "pipeline, a hit run at every word", 0, True),
     ):
-        err, err_offs = compare_pipeline(tpb, vdp, torch, np, eng, text, thr, what, shift,
-                                         want_rows)
-        err_pipe_all, errs_scan[1] = max(err_pipe_all, err), max(errs_scan[1], err_offs)
+        _err, err_offs = compare_pipeline(tpb, vdp, torch, np, eng, text, thr, what, shift,
+                                          want_rows, errs=step_errs)
+        errs_scan[1] = max(errs_scan[1], err_offs)
+    err_pipe_all = step_errs["dp_pipeline"]
 
     lanes = tuple(recipe_engine(ctx, name) for name in LANES)
     lane_errs = lane_kernel_checks(ctx, edited, keyf, lanes)
+    for key, err in step_errs.items():
+        lane_errs[key] = max(lane_errs.get(key, 0), err)
     err_dp_all = max(err_dp_all, lane_errs["banded_dp"])
     err_pipe_all = max(err_pipe_all, lane_errs["dp_pipeline"])
     errs_scan[1] = max(errs_scan[1], lane_errs["block_offsets"])
@@ -4004,7 +4152,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     require(all(launches_f[k] > 0 for k in scan_keys + ("dp_pipeline",)),
             "fuzzy main path did not launch the scan's kernels and the pipeline kernel")
     require(launches_f["dp"] == launches_f["dp_typed"] == 0
-            and all(launches_f[k] == 0 for k in TYPED_KEYS),
+            and all(launches_f[k] == 0 for k in TYPED_KEYS + LIST_KEYS),
             "fuzzy main path went through a kernel of another lane")
     dev_f = {keyf(m) for m in got_f}
     require(len(dev_f) == len(got_f), "fuzzy main path repeats a match")
@@ -4037,19 +4185,24 @@ def smoke(torch, start_pool, workers: int) -> int:
         + f"; sum {sum(stages.values()):.3f}")
     log(f"  phase 4b {time.perf_counter() - t_phase:.1f} s")
 
-    # 4c, 4d, 4e. the forbid, typed and mapped lanes, full size. The oracle is
-    # locked out beside the plain versions: a lane that declined would run
-    # for hours on it.
+    # 4c, 4c', 4d, 4e. the forbid lane, the default edits(2), the typed and
+    # the mapped lanes, full size. The oracle is locked out beside the plain
+    # versions: a lane that declined would run for hours on it. The forbid,
+    # edits(2) and mapped searches run the count-channel list step, none of
+    # them dp_pipeline_kernel (lane_main_path holds every other counter at 0).
     locked = plain_names + [(oracle, "search_raw")]
     lane_runs = {}
+    fuzzy2_e = recipe_engine(ctx, "fuzzy2")
     for tag, name, title, eng, text, thr, backend, pipe_keys, floor in (
         ("4c", "forbid", "forbid lane, edits(2).swaps(0), threshold 0.62", forbid_e, corpus, 0.62,
-         "device-fuzzy-dp-forbid", ("dp_pipeline",), 1000),
+         "device-fuzzy-dp-forbid", LIST_KEYS, 1000),
+        ("4c'", "fuzzy2", "fuzzy2_default, edits(2) with swaps, threshold 0.62 (bench.py:347-384)",
+         fuzzy2_e, corpus, 0.62, "device-fuzzy-dp", LIST_KEYS, 1000),
         ("4d", "typed", "typed lane, edits(1) with an exact-only and a substitutions(1) pattern, "
          "threshold 0.8", typed_e, corpus, 0.8, "device-fuzzy-dp-typed", TYPED_KEYS, 1000),
         ("4e", "mapped", "mapped lane, headline + modern, rn <-> m, edits(1), threshold 0.8, every 50th "
          "commodo a modem", mapped_e, mapped_corpus, 0.8, "device-fuzzy-dp-mapped",
-         ("dp_pipeline",), 1000),
+         LIST_KEYS, 1000),
     ):
         phase(f"phase {tag} {title}:")
         lane_runs[tag] = lane_main_path(ctx, tag, name, eng, text, thr, backend, locked,
@@ -4211,10 +4364,12 @@ def smoke(torch, start_pool, workers: int) -> int:
     for name, eng, text, thr, keys, want_n in (
         ("exact", engine, corpus, 0.5, walk_keys, len(got)),
         ("fuzzy1", fuzzy, corpus, 0.8, step_keys, len(got_f)),
-        ("forbid", forbid_e, lane_runs["4c"].text, 0.62, step_keys, lane_runs["4c"].matches),
+        ("forbid", forbid_e, lane_runs["4c"].text, 0.62, scan_keys + LIST_KEYS,
+         lane_runs["4c"].matches),
         ("typed", typed_e, lane_runs["4d"].text, 0.8, scan_keys + TYPED_KEYS,
          lane_runs["4d"].matches),
-        ("mapped", mapped_e, lane_runs["4e"].text, 0.8, step_keys, lane_runs["4e"].matches),
+        ("mapped", mapped_e, lane_runs["4e"].text, 0.8, scan_keys + LIST_KEYS,
+         lane_runs["4e"].matches),
     ):
         phase(f"phase 4k (a) {name}: the sharded lane over {len(text)} bytes, threshold {thr}:")
         with plain_locked(*locked):
@@ -4485,36 +4640,47 @@ def smoke(torch, start_pool, workers: int) -> int:
     held = [record("banded_dp", f"{PKG}/csrc/banded_dp.cu",
                    "fuzzy_aho_corasick_tpu/ops/verify_dp.py:292", 0, err_dp_all, dp_ms,
                    dp_plain_ms, dp_bound, None)]
-    # The lanes of phases 4c-4e: the pipeline kernel each one's searches
-    # launched, and its DP-only entry point.
+    # The count-channel list step of phases 4c, 4c' and 4e (and of their
+    # sharded searches and the dry run in 4k): its DP and its emission, timed
+    # at slice 1 of forbid2 (the record's ms) and of mapped; the DP-only
+    # entry point of the forbid and mapped variants.
     jax_vd = "fuzzy_aho_corasick_tpu/ops/verify_dp.py"
-    for tag, k4_group, name, dp_name, source, replaces, dp_replaces, err, dp_err in (
-        ("4c", "forbid", "dp_pipeline[forbid]", "banded_dp[forbid]", "dp_pipeline.cu",
-         f"{jax_vd}:355", f"{jax_vd}:355", err_pipe_all, err_dp_all),
-        ("4e", "mapped", "dp_pipeline[maps]", "banded_dp[maps]", "dp_pipeline.cu",
-         f"{jax_vd}:611", f"{jax_vd}:611", err_pipe_all, err_dp_all),
-    ):
-        lane, lane_t = lane_runs[tag], lane_times[tag]
-        n4k = k4_sum("dp_pipeline", (k4_group,))
+    list_tags = ("4c", "4c'", "4e")
+    f_t, m_t = lane_times["4c"], lane_times["4e"]
+    for name, replaces in (("count_dp", f"{jax_vd}:355, {jax_vd}:611"),
+                           ("count_emit", f"{jax_vd}:1487")):
         kernels.append(record(
-            name, f"{PKG}/csrc/{source}", replaces, lane.launches["dp_pipeline"] + n4k, err,
-            *lane_t.pipe, None, launches_4k=n4k,
-            device_ms_per_search=search_ms(lane.prof, "dp_pipeline")))
-        held.append(record(dp_name, f"{PKG}/csrc/banded_dp.cu", dp_replaces, 0, dp_err,
-                           *lane_t.dp, None))
+            name, f"{PKG}/csrc/dp_list.cu", replaces,
+            sum(lane_runs[tag].launches[name] for tag in list_tags) + entry_sum(name)
+            + k4_sum(name), lane_errs[name], *f_t.steps[name], launches_4k=k4_sum(name),
+            device_ms_per_search={tag: search_ms(lane_runs[tag].prof, name)
+                                  for tag in list_tags},
+            mapped_ms=m_t.steps[name][0], mapped_plain_ms=m_t.steps[name][1],
+            mapped_bound_ms=m_t.steps[name][2][0],
+            instance={"forbid2": f_t.regs[name], "mapped": m_t.regs[name]},
+            step_ms={"forbid2": f_t.pipe[0], "mapped": m_t.pipe[0]},
+            step_device_ms={"forbid2": f_t.device_ms, "mapped": m_t.device_ms}))
+    for tag, dp_name, dp_replaces in (("4c", "banded_dp[forbid]", f"{jax_vd}:355"),
+                                      ("4e", "banded_dp[maps]", f"{jax_vd}:611")):
+        held.append(record(dp_name, f"{PKG}/csrc/banded_dp.cu", dp_replaces, 0, err_dp_all,
+                           *lane_times[tag].dp, None))
     # The typed step of phase 4d, a kernel each: what its searches launched,
     # its times at slice 1 of 4d and of the 14-channel engine, and the
     # DP-only entry point.
     lane, lane_t, t14 = lane_runs["4d"], lane_times["4d"], lane_times["typed14"]
     lane_errs["typed_emit"] = max(lane_errs["typed_emit"], lane_errs["typed_step"])
+    lane_errs["count_emit"] = max(lane_errs["count_emit"], lane_errs["list_step"])
     for name, replaces in (("typed_expand", f"{jax_vd}:1411"), ("typed_dp", f"{jax_vd}:935"),
                            ("typed_emit", f"{jax_vd}:1208")):
+        # The expansion serves the list step too: its launches are both steps'.
+        n_list = sum(lane_runs[tag].launches[name] for tag in list_tags)
         kernels.append(record(
-            name, f"{PKG}/csrc/dp_typed.cu", replaces, lane.launches[name] + k4_sum(name),
-            lane_errs[name], *lane_t.typed[name], launches_4k=k4_sum(name),
+            name, f"{PKG}/csrc/dp_typed.cu", replaces,
+            lane.launches[name] + n_list + k4_sum(name),
+            lane_errs[name], *lane_t.steps[name], launches_4k=k4_sum(name),
             device_ms_per_search=search_ms(lane.prof, name, name),
-            typed14_ms=t14.typed[name][0], typed14_plain_ms=t14.typed[name][1],
-            typed14_bound_ms=t14.typed[name][2][0]))
+            typed14_ms=t14.steps[name][0], typed14_plain_ms=t14.steps[name][1],
+            typed14_bound_ms=t14.steps[name][2][0]))
     held.append(record("banded_dp_typed", f"{PKG}/csrc/dp_typed.cu", f"{jax_vd}:935", 0,
                        lane_errs["banded_dp_typed"], *lane_t.dp, None))
     # The large-dictionary lane of phase 4f: the kernels its searches

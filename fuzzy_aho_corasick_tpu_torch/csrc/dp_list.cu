@@ -1,0 +1,842 @@
+// Count-channel banded Damerau DP over a candidate list, and its emission,
+// for Hopper (sm_90a): the step of one corpus slice for every count-channel
+// engine with E >= 2, forbidden edit types or mapping arrivals.
+//
+// Replaces, behind the expansion, the device body of the JAX package's
+// fuzzy_aho_corasick_tpu/ops/verify_dp.py::_dp_pipeline_jit for those
+// engines: _banded_dp (with its FORBID and MAPS options, verify_dp.py:355,
+// :611) and _emit_rows, which XLA fused from whole-array ops. Plain torch
+// versions (ops/verify_dp.py): count_dp_torch (banded_dp_torch, the band
+// minimum and the emission test: count_decisions_torch) and
+// count_emit_torch; wrappers verify_dp.count_dp and count_emit. The
+// expansion in front is typed_expand_kernel (dp_typed.cu), unchanged: the
+// candidate list (field, start, combo) in (combo, hit) item order, its
+// total on the card.
+//
+// What it computes. Per candidate the recurrences of banded_dp.cuh's
+// dp_body, cell for cell and in its f32 order: per row, the exact,
+// substitution and swap arrivals into the consuming channel, the deletion
+// into the continuation channel, then the mapping arrivals in the table's
+// order (MAPS; the guard (q + mp) > max_pen), the emission channel (the
+// consuming arrival or the trailing deletion from the previous row's
+// emission channel), the insertions ascending b over the updated band b-1,
+// the ceilings and the latch at i == depth. The forbid mask and the
+// dead-end filter (an edit into the last level survives only where the
+// row's node has output or a single-byte edge matching the next symbol)
+// are run-time switches. Emission: per band the strict-< minimum over the
+// NE edit channels, then per output slot the span test and the f32
+// similarity test of banded_dp.cuh's emits(); the rows (start, penalty
+// bits, span, pattern, packed counts) in (channel, candidate) order, which
+// is the (channel, item) order emit_rows gives, and on request the tags
+// channel * n_combo + combo.
+//
+// What bounds it on the H100, and the design. dp_pipeline_kernel ran one
+// thread per uncompacted (combo, hit) item, a count pass and a write pass:
+// about 4 % of a warp's lanes held a live chain, each chain's B x NE cells
+// (15 at E = 2) were a dependent sequence in one thread, and every DP ran
+// twice. The step is bound by that per-candidate latency, not by bytes (a
+// slice reads ~1 MB of hits and tables). So, as the typed step does:
+//   1. typed_expand_kernel compacts the candidates once;
+//   2. count_dp_kernel<G, MAPS> gives each listed candidate a group of
+//      G = 8, 16 or 32 lanes, one cell (b, e) per lane in registers (6, 15
+//      and 28 cells at E = 1, 2, 3): the arrivals from rows i-1 and i-2 are
+//      shuffles from lanes gl - 1 and gl + NE - 1, a mapping arrival from
+//      lane (b - drift) NE + e - 1 of row i-1, i-2 or i-3 (row i-3 is kept
+//      only in the MAPS instances), and the insertions a serial chain of
+//      B - 1 shuffles. Past 32 cells (E >= 4) count_dp_rows_kernel gives each
+//      candidate a warp and keeps its rows in shared memory; it takes no
+//      mappings, which no search brings past E = 3 (the mapped lane scans
+//      with 2E error rows, and the scan has 6). The path's
+//      classes, ceilings (and, with the dead-end filter, nodes and output
+//      flags) and the haystack window are staged in shared memory by the
+//      group before the row loop; the similarity table too where it fits
+//      beside them in 48 KiB. The DP runs once. Per emission channel (band,
+//      output slot) the group keeps (penalty bits, packed counts), or
+//      (0, -1) for no row, in dec [nce, items], and counts its rows per
+//      (channel, tile of LIST_TILE candidates). The grid is capped and its
+//      blocks stride over the list, whose total only the card knows.
+//   3. block_offsets_kernel over those counts; the host reads the rows' and
+//      the candidates' totals (the step's one host wait);
+//   4. count_emit_kernel, a block per tile, a thread per candidate: per
+//      channel a block scan of the row flags places its rows.
+
+#include "banded_dp.cuh"
+
+namespace {
+
+using namespace fac_dp;
+
+constexpr int CL_THREADS = 256;   // the DP with register cells
+constexpr int CW_THREADS = 128;   // the DP with shared rows: a warp per candidate
+constexpr int CW_WARPS = CW_THREADS / 32;
+constexpr int LIST_TILE = 1024;   // candidates per row-count tile, threads of the emission
+constexpr int MAX_CHANNELS = 128;  // B * MO emission channels a call may have
+constexpr int BLOCKS_PER_SM = 8;  // the capped grid of the DP
+static_assert(LIST_TILE % (CL_THREADS / 8) == 0 && LIST_TILE % CW_WARPS == 0,
+              "a block's candidates of one stride lie in one tile");
+
+struct ListArgs {
+  DpCore core;
+  int ids_u8;
+  int E;
+  int deadend;
+  const int32_t* cand_field;  // [items] the candidate list, n_cand of them
+  const int32_t* cand_start;
+  const int32_t* n_cand;      // on the card: the expansion's offsets[nblk]
+  long long items;            // the list's bound, dec's row stride
+  EmitTables emit;
+  int2* dec;                  // [nce, items]: (penalty bits, packed counts), counts -1 = no row
+  int32_t* row_counts;        // [nce * ntile + 1]: rows per (channel, tile); n_cand last
+  long long ntile;
+  int sim_smem;               // the similarity table is staged in shared memory
+  int group_words;            // 4-byte words of shared memory per group
+};
+
+__device__ __forceinline__ int hay(const ListArgs& a, long long p) {
+  return a.ids_u8 ? hay_at(static_cast<const uint8_t*>(a.core.ids), p, a.core.limit)
+                  : hay_at(static_cast<const int32_t*>(a.core.ids), p, a.core.limit);
+}
+
+// A group's staged copy of what its candidate's rows read: the path's
+// classes and ceilings, with the dead-end filter its nodes and output flags,
+// and the haystack window, win[o] = hay(s + o - E - 1) for o = -2 ..
+// d + 2E + 1 (two symbols on the left for mapping arrivals, one on the
+// right for the dead-end filter's next symbol).
+// The emission's per-slot values of the candidate's output node: pattern
+// (-1 where the slot is empty), its length and weight.
+struct Staged {
+  const int32_t* cls;
+  const float* ceil;
+  const int32_t* node;
+  const int32_t* hasout;
+  const int32_t* win;
+  const int32_t* pat;
+  const float* pl;
+  const float* pw;
+};
+
+__host__ __device__ inline int staged_words(int Lmax, int E, bool deadend, int MO) {
+  return (deadend ? 4 : 2) * Lmax + Lmax + 2 * E + 4 + 3 * MO;
+}
+
+// The group's lanes (gl of G) stage candidate (f, depth d, start s). The
+// path's rows are read up to Lmax, so that no load waits for the depth.
+__device__ __forceinline__ Staged stage(const ListArgs& a, int32_t* mem, int f, int d, int s,
+                                        int gl, int G) {
+  const DpCore& c = a.core;
+  const int L = c.Lmax, E = a.E, MO = a.emit.MO;
+  Staged st;
+  int32_t* cls = mem;
+  float* ceil = reinterpret_cast<float*>(mem + L);
+  int32_t* node = mem + 2 * L;
+  int32_t* hasout = mem + 3 * L;
+  int32_t* win = mem + (a.deadend ? 4 : 2) * L;
+  int32_t* pat = win + L + 2 * E + 4;
+  float* pl = reinterpret_cast<float*>(pat + MO);
+  float* pw = pl + MO;
+  const int32_t* pcls = c.path_cls + (long long)f * L;
+  const int32_t* pnode = c.path_node + (long long)f * L;
+  for (int r = gl; r < L; r += G) {
+    cls[r] = __ldg(pcls + r);
+    const int pn = max(__ldg(pnode + r), 0);  // rows past the depth are never read
+    ceil[r] = __ldg(c.node_ceil + pn);
+    if (a.deadend) {
+      node[r] = pn;
+      hasout[r] = __ldg(c.out_count + pn) > 0;
+    }
+  }
+  for (int t = gl; t < d + 2 * E + 4; t += G) win[t] = hay(a, (long long)s + t - 2 - E - 1);
+  const int out = __ldg(a.emit.node + f);
+  for (int o = gl; o < MO; o += G) {
+    const int p = __ldg(a.emit.out_list + (long long)out * MO + o);
+    pat[o] = p;
+    pl[o] = p >= 0 ? __ldg(a.emit.pat_len + p) : 0.f;
+    pw[o] = p >= 0 ? __ldg(a.emit.pat_weight + p) : 0.f;
+  }
+  st.cls = cls;
+  st.ceil = ceil;
+  st.node = node;
+  st.hasout = hasout;
+  st.win = win + 2;
+  st.pat = pat;
+  st.pl = pl;
+  st.pw = pw;
+  return st;
+}
+
+__device__ __forceinline__ float sim_of(const DpCore& c, const float* s_sim, bool staged, int k) {
+  return staged ? s_sim[k] : __ldg(c.sim + k);
+}
+
+// Whether an edit into the last level of band b survives the dead-end
+// filter at row i.
+__device__ __forceinline__ bool ok_row(const DpCore& c, const Staged& st, int i, int b) {
+  const int nxt = st.win[i + b + 1];
+  return st.hasout[i - 1] != 0 ||
+         (nxt >= 0 && __ldg(c.sb_edge + (long long)st.node[i - 1] * c.C + nxt) > 0);
+}
+
+// The DP of one candidate (field f, depth d) with one cell per lane: lane
+// gl < B * NE of a group of G lanes (mask gm) holds cell (b, e) = (gl / NE,
+// gl % NE). Returns the lane's cell of the emission channel at row d
+// (+inf where dead).
+template <int G, bool MAPS>
+__device__ __forceinline__ void count_dp_lanes(const ListArgs& a, const float* s_sim,
+                                               const Staged& st, int f, int d, int gl,
+                                               unsigned gm, float& out_pen, int& out_cnt) {
+  const DpCore& c = a.core;
+  const int E = a.E, B = 2 * E + 1, NE = E + 1;
+  const float INF = __int_as_float(0x7f800000);
+  const float max_pen = c.max_pen;
+  const bool sim_smem = a.sim_smem != 0;
+  const bool no_ins = c.forbid & 1, no_del = c.forbid & 2, no_sub = c.forbid & 4,
+             no_swap = c.forbid & 8;
+  const bool mine = gl < B * NE;
+  const int b = mine ? gl / NE : 0, e = mine ? gl - (gl / NE) * NE : 0;
+  // Each arrival's source lane (the lane itself where there is none).
+  const bool has_sub = mine && e >= 1;               // (b, e-1): substitution, swap
+  const bool has_del = has_sub && b + 1 < B;         // (b+1, e-1): deletions
+  const bool has_ins = has_sub && b >= 1;            // (b-1, e-1): insertion
+  const int l_sub = has_sub ? gl - 1 : gl;
+  const int l_del = has_del ? gl + NE - 1 : gl;
+  const int l_ins = has_ins ? gl - NE - 1 : gl;
+  const bool last = a.deadend && mine && e == NE - 1;
+
+  // Row 0 is the origin (band E, no edits); rows below 0 are dead.
+  float prev_pen = (mine && b == E && e == 0) ? 0.f : INF, prev2_pen = INF, prev3_pen = INF;
+  int prev_cnt = 0, prev2_cnt = 0, prev3_cnt = 0;
+  float preve_pen = prev_pen;
+  int preve_cnt = 0;
+  // Row i-1's path class and this band's symbol there: row i's pc_prev and
+  // hc_jm1 (row 1 reads path class 0, as dp_body does).
+  int pc_prev = st.cls[0], hc_jm1 = st.win[b];
+#pragma unroll 1
+  for (int i = 1; i <= d; ++i) {
+    const int pc = st.cls[i - 1];
+    const float ceil_i = st.ceil[i - 1];
+    const int j = i + b - E;  // haystack symbols consumed at this cell
+    const int hc = st.win[i + b];
+    const bool okrow = !last || ok_row(c, st, i, b);
+    float sim = 0.f;
+    if (hc >= 0) sim = sim_of(c, s_sim, sim_smem, pc * c.C + hc);
+    const float spen = __fmul_rn(c.p_sub, __fsub_rn(1.f, sim));
+    const float q = __shfl_sync(gm, prev_pen, l_sub, G);
+    const int qc = __shfl_sync(gm, prev_cnt, l_sub, G);
+    const float sw = __shfl_sync(gm, prev2_pen, l_sub, G);
+    const int swc = __shfl_sync(gm, prev2_cnt, l_sub, G);
+    const float dl = __shfl_sync(gm, prev_pen, l_del, G);
+    const int dlc = __shfl_sync(gm, prev_cnt, l_del, G);
+    const float te = __shfl_sync(gm, preve_pen, l_del, G);
+    const int tec = __shfl_sync(gm, preve_cnt, l_del, G);
+
+    // exact: (i-1, b, e), no edit; the count rides along even where dead.
+    // A penalty is finite or +inf, never -inf or NaN: dp_body's fin() tests
+    // are left out where the result is the same without them (an +inf
+    // source fails the budget guard or loses the strict-< merge).
+    float bp = (j >= 1 && hc == pc) ? prev_pen : INF;
+    int bc = prev_cnt;
+    if (has_sub) {
+      // substitution: (i-1, b, e-1)
+      const bool ok_s = !no_sub && j >= 1 && hc >= 0 && hc != pc && !(sim < c.floor_) &&
+                        !(spen > __fsub_rn(max_pen, q)) && okrow;
+      merge(bp, bc, __fadd_rn(q, spen), qc + 0x10000, ok_s);
+      // swap: (i-2, b, e-1); the symbol test first, which few cells pass.
+      if (hc == pc_prev && hc_jm1 == pc) {
+        const bool ok_sw = !no_swap && i >= 2 && j >= 2 && hc >= 0 && hc_jm1 >= 0 &&
+                           !(c.p_swap > __fsub_rn(max_pen, sw));
+        merge(bp, bc, __fadd_rn(sw, c.p_swap), swc + 0x1000000, ok_sw);
+      }
+    }
+    float cons_pen = bp;
+    int cons_cnt = bc;
+    if (has_del) {
+      // deletion: (i-1, b+1, e-1), consumes pc only
+      const bool ok_d = !no_del && !(c.p_del > __fsub_rn(max_pen, dl)) && okrow;
+      merge(bp, bc, __fadd_rn(dl, c.p_del), dlc + 0x100, ok_d);
+    }
+
+    // Mapping arrivals targeting row i, in the table's order: from (row
+    // i-pb, band b-drift, e-1), consuming ha symbols equal to the entry's
+    // classes, into the consuming and the continuation channel.
+    if constexpr (MAPS) {
+      const int m1 = __ldg(c.map_rowptr + i + 1);
+#pragma unroll 1
+      for (int mi = __ldg(c.map_rowptr + i); mi < m1; ++mi) {
+        const int32_t* me = c.map_tab + (long long)mi * MAP_COLS;
+        const int pb = __ldg(me + 1);
+        if (i - pb < 0) continue;
+        const int fw = __ldg(c.map_fields + (long long)mi * c.map_fw + (f >> 5));
+        if (!((fw >> (f & 31)) & 1)) continue;
+        const int drift = __ldg(me + 2), ha = __ldg(me + 3);
+        const float mp = __int_as_float(__ldg(me + 8));
+        const int bs = b - drift;
+        bool ok_m = has_sub && bs >= 0 && bs < B && j >= ha;
+#pragma unroll
+        for (int u = 0; u < MAP_HA_MAX; ++u)
+          ok_m = ok_m && (u >= ha || st.win[i + b - u] == __ldg(me + 4 + u));
+        const int l_m = ok_m ? bs * NE + e - 1 : gl;
+        const float src_p = pb == 1 ? prev_pen : pb == 2 ? prev2_pen : prev3_pen;
+        const int src_c = pb == 1 ? prev_cnt : pb == 2 ? prev2_cnt : prev3_cnt;
+        const float qm = __shfl_sync(gm, src_p, l_m, G);
+        const int qmc = __shfl_sync(gm, src_c, l_m, G);
+        if (ok_m) {
+          const float val = __fadd_rn(qm, mp);
+          const bool ok_e = !(val > max_pen);
+          merge(cons_pen, cons_cnt, val, qmc + 0x10000, ok_e);
+          merge(bp, bc, val, qmc + 0x10000, ok_e);
+        }
+      }
+    }
+
+    // The emission channel: the consuming arrival, or the trailing deletion
+    // from the emission channel of row i-1 at band b+1.
+    float ep = cons_pen;
+    int ec = cons_cnt;
+    if (has_del) {
+      const bool ok_t = !no_del && !(c.p_del > __fsub_rn(max_pen, te)) && okrow;
+      merge(ep, ec, __fadd_rn(te, c.p_del), tec + 0x100, ok_t);
+    }
+
+    // insertion: same row, (b-1, e-1) -> b, ascending b over the updated
+    // band b-1; none from cells with zero hay consumed (j - 1 >= 1). A
+    // cell's source sits one edit level lower and is final once that level
+    // has merged its own, so the levels e = 1 .. E take turns: the value
+    // each cell reads is the one dp_body's ascending-b loop reads.
+    for (int t = 1; t < NE; ++t) {
+      const float ip = __shfl_sync(gm, bp, l_ins, G);
+      const int ic = __shfl_sync(gm, bc, l_ins, G);
+      if (has_ins && e == t) {
+        const bool ok_i = !no_ins && j >= 2 && hc >= 0 && !(c.p_ins > __fsub_rn(max_pen, ip)) &&
+                          okrow;
+        merge(bp, bc, __fadd_rn(ip, c.p_ins), ic + 1, ok_i);
+      }
+    }
+
+    // Ceilings, then the rows move up.
+    if (bp > ceil_i) bp = INF;
+    if constexpr (MAPS) {
+      prev3_pen = prev2_pen;
+      prev3_cnt = prev2_cnt;
+    }
+    prev2_pen = prev_pen;
+    prev2_cnt = prev_cnt;
+    prev_pen = bp;
+    prev_cnt = bc;
+    preve_pen = ep > ceil_i ? INF : ep;
+    preve_cnt = ec;
+    pc_prev = pc;
+    hc_jm1 = hc;
+    // Where every cell of the rows later rows read is dead, so is every
+    // later cell and the emission at row d: the group stops.
+    if (!__any_sync(gm, fin(prev_pen) || fin(prev2_pen) || fin(preve_pen) ||
+                            (MAPS && fin(prev3_pen))))
+      break;
+  }
+  out_pen = d >= 1 ? preve_pen : INF;
+  out_cnt = d >= 1 ? preve_cnt : 0;
+}
+
+// 4-byte words of count_dp_rows_kernel's rows per warp: rows i-2, i-1, i
+// and the emission channels of rows i-1 and i, penalty and counts each, and
+// a dead-end flag per band.
+__host__ __device__ inline int rows_words(int E) {
+  return 5 * 2 * (2 * E + 1) * (E + 1) + 2 * E + 1;
+}
+
+// The same DP run by the 32 lanes of a warp over rows in shared memory
+// (``rows``, rows_words() words), cell c = b * NE + e. Returns the emission
+// channel at row d: pen [B * NE] and cnt [B * NE] in shared memory.
+__device__ void count_dp_warp(const ListArgs& a, const float* s_sim, const Staged& st,
+                              int32_t* rows, int d, int lane, const float*& out_pen,
+                              const int*& out_cnt) {
+  const DpCore& c = a.core;
+  const int E = a.E, B = 2 * E + 1, NE = E + 1, cells = B * NE;
+  const float INF = __int_as_float(0x7f800000);
+  const float max_pen = c.max_pen;
+  const bool sim_smem = a.sim_smem != 0;
+  const bool no_ins = c.forbid & 1, no_del = c.forbid & 2, no_sub = c.forbid & 4,
+             no_swap = c.forbid & 8;
+  float* pen[5];
+  int* cnt[5];
+  for (int r = 0; r < 5; ++r) {
+    pen[r] = reinterpret_cast<float*>(rows + 2 * r * cells);
+    cnt[r] = rows + (2 * r + 1) * cells;
+  }
+  int* okb = rows + 5 * 2 * cells;
+  // Rows i-1 (P), i-2 (P2), i (N), the emission channels of rows i-1 (PE)
+  // and i (NEW).
+  int P = 0, P2 = 1, N = 2, PE = 3, NEW = 4;
+  for (int x = lane; x < cells; x += 32) {
+    const float origin = x == E * NE ? 0.f : INF;
+    for (int r = 0; r < 5; ++r) {
+      pen[r][x] = INF;
+      cnt[r][x] = 0;
+    }
+    pen[P][x] = origin;
+    pen[PE][x] = origin;
+  }
+  __syncwarp();
+  for (int i = 1; i <= d; ++i) {
+    const int pc = st.cls[i - 1], pc_prev = st.cls[i >= 2 ? i - 2 : 0];
+    const float ceil_i = st.ceil[i - 1];
+    // Every cell's arrivals but the insertion, and its emission channel.
+    for (int x = lane; x < cells; x += 32) {
+      const int b = x / NE, e = x - (x / NE) * NE;
+      const int j = i + b - E;
+      const int hc = st.win[i + b], hc_jm1 = st.win[i + b - 1];
+      const bool last = a.deadend && e == NE - 1;
+      const bool okrow = !last || ok_row(c, st, i, b);
+      if (last) okb[b] = okrow;
+      float sim = 0.f;
+      if (hc >= 0) sim = sim_of(c, s_sim, sim_smem, pc * c.C + hc);
+      const float spen = __fmul_rn(c.p_sub, __fsub_rn(1.f, sim));
+      const float p = pen[P][x];
+      float bp = (j >= 1 && fin(p) && hc == pc) ? p : INF;
+      int bc = cnt[P][x];
+      if (e >= 1) {
+        const float q = pen[P][x - 1];
+        const bool ok_s = !no_sub && j >= 1 && fin(q) && hc >= 0 && hc != pc &&
+                          !(sim < c.floor_) && !(spen > __fsub_rn(max_pen, q)) && okrow;
+        merge(bp, bc, __fadd_rn(q, spen), cnt[P][x - 1] + 0x10000, ok_s);
+        const float sw = pen[P2][x - 1];
+        const bool ok_sw = !no_swap && i >= 2 && j >= 2 && fin(sw) &&
+                           !(c.p_swap > __fsub_rn(max_pen, sw)) && hc >= 0 && hc_jm1 >= 0 &&
+                           hc == pc_prev && hc_jm1 == pc;
+        merge(bp, bc, __fadd_rn(sw, c.p_swap), cnt[P2][x - 1] + 0x1000000, ok_sw);
+      }
+      float cons_pen = bp;
+      int cons_cnt = bc;
+      if (e >= 1 && b + 1 < B) {
+        const float dl = pen[P][x + NE - 1];
+        const bool ok_d = !no_del && fin(dl) && !(c.p_del > __fsub_rn(max_pen, dl)) && okrow;
+        merge(bp, bc, __fadd_rn(dl, c.p_del), cnt[P][x + NE - 1] + 0x100, ok_d);
+      }
+      float ep = cons_pen;
+      int ec = cons_cnt;
+      if (e >= 1 && b + 1 < B) {
+        const float t = pen[PE][x + NE - 1];
+        const bool ok_t = !no_del && fin(t) && !(c.p_del > __fsub_rn(max_pen, t)) && okrow;
+        merge(ep, ec, __fadd_rn(t, c.p_del), cnt[PE][x + NE - 1] + 0x100, ok_t);
+      }
+      pen[N][x] = bp;
+      cnt[N][x] = bc;
+      pen[NEW][x] = ep > ceil_i ? INF : ep;
+      cnt[NEW][x] = ec;
+    }
+    __syncwarp();
+    // insertion: same row, (b-1, e-1) -> b, ascending b over the updated band b-1.
+    for (int b = 1; b < B; ++b) {
+      const int j = i + b - E, hc = st.win[i + b];
+      if (lane >= 1 && lane < NE && !no_ins && j >= 2 && hc >= 0) {
+        const int x = b * NE + lane, src = x - NE - 1;
+        const float ip = pen[N][src];
+        const bool ok_i = fin(ip) && !(c.p_ins > __fsub_rn(max_pen, ip)) &&
+                          (!(a.deadend && lane == NE - 1) || okb[b] != 0);
+        merge(pen[N][x], cnt[N][x], __fadd_rn(ip, c.p_ins), cnt[N][src] + 1, ok_i);
+      }
+      __syncwarp();
+    }
+    for (int x = lane; x < cells; x += 32)
+      if (pen[N][x] > ceil_i) pen[N][x] = INF;
+    __syncwarp();
+    // The rows move up.
+    const int old = P2;
+    P2 = P;
+    P = N;
+    N = old;
+    const int t = PE;
+    PE = NEW;
+    NEW = t;
+  }
+  out_pen = pen[PE];
+  out_cnt = cnt[PE];
+}
+
+// Per emission channel ce = (band, slot) of candidate m, the lanes of its
+// group (gl of G) decide the row from its emission channel at row d
+// (pen / cnt [B * NE], shared memory) and count it in s_cnt: emits() of
+// banded_dp.cuh on the staged slot values.
+__device__ __forceinline__ void count_decide(const ListArgs& a, const Staged& st,
+                                             const float* pen, const int* cnt, int d, int start,
+                                             long long m, int gl, int G, int* s_cnt) {
+  const int E = a.E, NE = E + 1, MO = a.emit.MO, nce = (2 * E + 1) * MO;
+  for (int ce = gl; ce < nce; ce += G) {
+    const int b = ce / MO, o = ce - b * MO;
+    // Strict <, edit counts ascending: the fewest edits win penalty ties.
+    float pb = d >= 1 ? pen[b * NE] : __int_as_float(0x7f800000);
+    int cb = cnt[b * NE];
+    for (int e = 1; e < NE; ++e) {
+      if (pen[b * NE + e] < pb) {
+        pb = pen[b * NE + e];
+        cb = cnt[b * NE + e];
+      }
+    }
+    const int ends_b = start + d + (b - E);
+    bool row = fin(pb) && ends_b <= a.core.limit && ends_b >= start && st.pat[o] >= 0;
+    if (row) {
+      const float pl = st.pl[o];
+      row = __fmul_rn(__fdiv_rn(__fsub_rn(pl, pb), pl), st.pw[o]) >= a.emit.bound;
+    }
+    int2 out = make_int2(0, -1);
+    if (row) {
+      out = make_int2(__float_as_int(pb), cb);
+      atomicAdd(s_cnt + ce, 1);
+    }
+    a.dec[(long long)ce * a.items + m] = out;
+  }
+}
+
+// Shared memory of a DP block, in 4-byte words: the block's row counts,
+// the groups' staged rows and their cells, then the similarity table where
+// it is staged.
+__host__ __device__ inline int block_words(const ListArgs& a, int groups) {
+  return MAX_CHANNELS + groups * a.group_words;
+}
+
+// Every thread of a block that holds a candidate stages the similarity
+// table; the block-uniform test comes first.
+__device__ __forceinline__ void load_sim_table(const ListArgs& a, float* s_sim) {
+  if (a.sim_smem) {
+    const int n = a.core.C * a.core.C;
+    for (int t = threadIdx.x; t < n; t += blockDim.x) s_sim[t] = __ldg(a.core.sim + t);
+  }
+}
+
+// One stride of a block: candidates first .. first + groups - 1 run by
+// ``run(m, group, lane of the group)``, then the stride's row counts are
+// added to their tile's.
+template <typename Run>
+__device__ __forceinline__ void strides(const ListArgs& a, int* s_cnt, float* s_sim, int groups,
+                                        Run run) {
+  const int nce = (2 * a.E + 1) * a.emit.MO;
+  const int n_cand = __ldg(a.n_cand);
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.row_counts[(long long)nce * a.ntile] = n_cand;
+  long long first = (long long)blockIdx.x * groups;
+  if (first >= n_cand) return;
+  load_sim_table(a, s_sim);
+  for (; first < n_cand; first += (long long)gridDim.x * groups) {
+    for (int t = threadIdx.x; t < nce; t += blockDim.x) s_cnt[t] = 0;
+    __syncthreads();
+    run(first);
+    __syncthreads();
+    for (int t = threadIdx.x; t < nce; t += blockDim.x)
+      if (s_cnt[t] != 0)
+        atomicAdd(a.row_counts + (long long)t * a.ntile + first / LIST_TILE, s_cnt[t]);
+    __syncthreads();  // s_cnt is zeroed again
+  }
+}
+
+// The DP over the list with one cell per lane: a group of G lanes per
+// candidate ((2E+1)(E+1) <= G).
+template <int G, bool MAPS>
+__global__ void __launch_bounds__(CL_THREADS) count_dp_kernel(ListArgs a) {
+  extern __shared__ int32_t s_mem[];
+  constexpr int GROUPS = CL_THREADS / G;
+  int* s_cnt = s_mem;
+  int32_t* s_groups = s_mem + MAX_CHANNELS;
+  float* s_sim = reinterpret_cast<float*>(s_mem + block_words(a, GROUPS));
+  const int grp = threadIdx.x / G, gl = threadIdx.x % G;
+  const unsigned gm =
+      G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  int32_t* mem = s_groups + grp * a.group_words;
+  strides(a, s_cnt, s_sim, GROUPS, [&](long long first) {
+    const long long m = first + grp;
+    if (m >= __ldg(a.n_cand)) return;
+    const int f = __ldg(a.cand_field + m);
+    const int start = __ldg(a.cand_start + m);
+    const int d = __ldg(a.core.depth + f);
+    const Staged st = stage(a, mem, f, d, start, gl, G);
+    __syncwarp(gm);
+    float pen;
+    int cnt;
+    count_dp_lanes<G, MAPS>(a, s_sim, st, f, d, gl, gm, pen, cnt);
+    float* ebuf =
+        reinterpret_cast<float*>(mem + staged_words(a.core.Lmax, a.E, a.deadend, a.emit.MO));
+    int* cbuf = reinterpret_cast<int*>(ebuf + G);
+    ebuf[gl] = pen;
+    cbuf[gl] = cnt;
+    __syncwarp(gm);
+    count_decide(a, st, ebuf, cbuf, d, start, m, gl, G, s_cnt);
+    __syncwarp(gm);  // the group's memory is staged again
+  });
+}
+
+// The DP over the list for E >= 4 without mappings: a warp per candidate,
+// its rows in shared memory.
+__global__ void __launch_bounds__(CW_THREADS) count_dp_rows_kernel(ListArgs a) {
+  extern __shared__ int32_t s_mem[];
+  int* s_cnt = s_mem;
+  int32_t* s_groups = s_mem + MAX_CHANNELS;
+  float* s_sim = reinterpret_cast<float*>(s_mem + block_words(a, CW_WARPS));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t* mem = s_groups + warp * a.group_words;
+  strides(a, s_cnt, s_sim, CW_WARPS, [&](long long first) {
+    const long long m = first + warp;
+    if (m >= __ldg(a.n_cand)) return;
+    const int f = __ldg(a.cand_field + m);
+    const int start = __ldg(a.cand_start + m);
+    const int d = __ldg(a.core.depth + f);
+    const Staged st = stage(a, mem, f, d, start, lane, 32);
+    __syncwarp();
+    const float* pen;
+    const int* cnt;
+    count_dp_warp(a, s_sim, st, mem + staged_words(a.core.Lmax, a.E, a.deadend, a.emit.MO), d,
+                  lane, pen, cnt);
+    count_decide(a, st, pen, cnt, d, start, m, lane, 32, s_cnt);
+    __syncwarp();
+  });
+}
+
+struct EmitArgs {
+  const int32_t* cand_field;  // the candidate list
+  const int32_t* cand_start;
+  const int32_t* cand_combo;
+  const int32_t* n_cand;
+  long long items;
+  const int32_t* depth;       // [F]
+  const int32_t* node;        // [F]
+  const int32_t* out_list;    // [N, MO]
+  int MO, E, n_combo;
+  const int2* dec;            // [nce, items]
+  const int32_t* row_offsets; // exclusive scan of row_counts
+  long long ntile;
+  int32_t* rows;              // [total, 5]
+  int32_t* tags;              // [total] or null
+};
+
+// Block t places the rows of candidates t * LIST_TILE .. + LIST_TILE - 1, a
+// thread each, channel by channel; the grid covers the candidates the host
+// counted, or the list's bound.
+__global__ void __launch_bounds__(LIST_TILE) count_emit_kernel(EmitArgs a) {
+  __shared__ int s_warp[LIST_TILE / 32];
+  __shared__ int s_base[MAX_CHANNELS];  // the tile's first row of each channel, -1: none
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_cand = __ldg(a.n_cand);
+  const long long m = (long long)blockIdx.x * LIST_TILE + threadIdx.x;
+  if ((long long)blockIdx.x * LIST_TILE >= n_cand) return;
+  const bool live = m < n_cand;
+  const int nce = (2 * a.E + 1) * a.MO;
+  if ((int)threadIdx.x < nce) {
+    const int32_t* off = a.row_offsets + (long long)threadIdx.x * a.ntile + blockIdx.x;
+    const int base = __ldg(off);
+    s_base[threadIdx.x] = __ldg(off + 1) == base ? -1 : base;
+  }
+  int start = 0, d = 0, node = 0, combo = 0;
+  if (live) {
+    const int f = __ldg(a.cand_field + m);
+    start = __ldg(a.cand_start + m);
+    combo = __ldg(a.cand_combo + m);
+    d = __ldg(a.depth + f);
+    node = __ldg(a.node + f);
+  }
+  __syncthreads();
+  for (int ce = 0; ce < nce; ++ce) {
+    const int base = s_base[ce];
+    if (base < 0) continue;  // no row of this channel in the tile
+    const int2 dv = live ? a.dec[(long long)ce * a.items + m] : make_int2(0, -1);
+    const bool row = dv.y >= 0;
+    const unsigned bal = __ballot_sync(0xFFFFFFFFu, row);
+    if (lane == 0) s_warp[warp] = __popc(bal);
+    __syncthreads();
+    if (warp == 0) {
+      const int w = s_warp[lane];
+      int incl = w;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      s_warp[lane] = incl - w;  // rows of the warps before
+    }
+    __syncthreads();
+    if (row) {
+      const long long r = base + s_warp[warp] + __popc(bal & ((1u << lane) - 1u));
+      const int b = ce / a.MO, o = ce - b * a.MO;
+      int32_t* out = a.rows + r * 5;
+      out[0] = start;
+      out[1] = dv.x;
+      out[2] = d + (b - a.E);
+      out[3] = __ldg(a.out_list + (long long)node * a.MO + o);
+      out[4] = dv.y;
+      if (a.tags != nullptr) a.tags[r] = ce * a.n_combo + combo;
+    }
+    __syncthreads();  // s_warp is written again
+  }
+}
+
+// Kernels whose shared memory passes 48 KiB must be allowed it.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// Launches kernel ``k`` of ``threads`` threads and ``groups`` candidates a
+// block, sizing its shared memory; the grid is capped at BLOCKS_PER_SM
+// blocks an SM.
+template <typename K>
+cudaError_t launch_dp(K k, ListArgs a, int threads, int groups, cudaStream_t s) {
+  const size_t rest = sizeof(int32_t) * (size_t)block_words(a, groups);
+  const size_t sim = sim_smem_bytes(a.core.C, rest);
+  a.sim_smem = sim != 0;
+  const size_t shm = rest + sim;
+  cudaError_t rc = allow_smem(k, shm);
+  if (rc != cudaSuccess) return rc;
+  long long blocks = (a.items + groups - 1) / groups;
+  const long long cap = (long long)sm_count() * BLOCKS_PER_SM;
+  if (blocks > cap) blocks = cap;
+  k<<<(unsigned)blocks, threads, shm, s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Candidates per row-count tile of the list step, and threads per block of
+// its emission: the callers size row_counts (ntile = ceil(items / tile)).
+int fac_count_tile() { return LIST_TILE; }
+
+// The count-channel DP over a candidate list and its decisions.
+// cand_field, cand_start: int32 [items], the first *n_cand (on the card)
+// live; the DP tables, forbid and the map_* tables as fac_banded_dp takes
+// them; node: int32 [F]; out_list: int32 [N, MO]; pat_len, pat_weight: f32
+// [P] (mappings up to E = 3); dec: int32 [(2E+1) MO, items, 2] (columns
+// past n_cand untouched);
+// row_counts: int32 [(2E+1) MO * ntile + 1], ntile = ceil(items /
+// fac_count_tile()): zeroed, then the rows per (channel, tile) are added,
+// and n_cand written last. Returns the launch's cudaError_t.
+int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_cand,
+                 long long items, const void* ids, int ids_u8, long long npad, long long limit,
+                 const void* path_cls, const void* path_node, const void* depth,
+                 const void* node, int Lmax, int F, const void* sim, int C,
+                 const void* node_ceil, const void* sb_edge, const void* out_count, int N,
+                 const void* out_list, int MO, const void* pat_len, const void* pat_weight,
+                 float max_pen, float p_sub, float p_ins, float p_del, float p_swap,
+                 float floor_, float bound, int E, int deadend, int forbid,
+                 const void* map_tab, const void* map_rowptr, const void* map_fields,
+                 int map_fw, void* dec, void* row_counts, long long ntile, void* stream) {
+  const bool maps = map_tab != nullptr;
+  if (items < 1 || E < 1 || E > MAX_E || Lmax < 1 || F < 1 || C < 1 || N < 1 || MO < 1 ||
+      (2 * E + 1) * MO > MAX_CHANNELS || limit < 0 || limit > npad || forbid < 0 ||
+      forbid > 15 || (deadend && maps) || (maps && E > 3) ||
+      (maps && (map_rowptr == nullptr || map_fields == nullptr || map_fw < (F + 31) / 32)) ||
+      cand_field == nullptr || cand_start == nullptr || n_cand == nullptr || dec == nullptr ||
+      row_counts == nullptr || ntile != (items + LIST_TILE - 1) / LIST_TILE) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ListArgs a{};
+  a.core.ids = ids;
+  a.core.limit = limit;
+  a.core.path_cls = static_cast<const int32_t*>(path_cls);
+  a.core.path_node = static_cast<const int32_t*>(path_node);
+  a.core.depth = static_cast<const int32_t*>(depth);
+  a.core.Lmax = Lmax;
+  a.core.sim = static_cast<const float*>(sim);
+  a.core.C = C;
+  a.core.node_ceil = static_cast<const float*>(node_ceil);
+  a.core.sb_edge = static_cast<const int8_t*>(sb_edge);
+  a.core.out_count = static_cast<const int32_t*>(out_count);
+  a.core.max_pen = max_pen;
+  a.core.p_sub = p_sub;
+  a.core.p_ins = p_ins;
+  a.core.p_del = p_del;
+  a.core.p_swap = p_swap;
+  a.core.floor_ = floor_;
+  a.core.forbid = forbid;
+  a.core.map_tab = static_cast<const int32_t*>(map_tab);
+  a.core.map_rowptr = static_cast<const int32_t*>(map_rowptr);
+  a.core.map_fields = static_cast<const int32_t*>(map_fields);
+  a.core.map_fw = map_fw;
+  a.ids_u8 = ids_u8 != 0;
+  a.E = E;
+  a.deadend = deadend != 0;
+  a.cand_field = static_cast<const int32_t*>(cand_field);
+  a.cand_start = static_cast<const int32_t*>(cand_start);
+  a.n_cand = static_cast<const int32_t*>(n_cand);
+  a.items = items;
+  a.emit.node = static_cast<const int32_t*>(node);
+  a.emit.out_list = static_cast<const int32_t*>(out_list);
+  a.emit.MO = MO;
+  a.emit.pat_len = static_cast<const float*>(pat_len);
+  a.emit.pat_weight = static_cast<const float*>(pat_weight);
+  a.emit.bound = bound;
+  a.dec = static_cast<int2*>(dec);
+  a.row_counts = static_cast<int32_t*>(row_counts);
+  a.ntile = ntile;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(row_counts, 0,
+                                   sizeof(int32_t) * ((2 * E + 1) * MO * ntile + 1), s);
+  if (rc != cudaSuccess) return (int)rc;
+  const int cells = (2 * E + 1) * (E + 1);
+  const int staged = staged_words(Lmax, E, a.deadend, MO);
+  if (cells <= 32) {
+    const int G = cells <= 8 ? 8 : cells <= 16 ? 16 : 32;
+    a.group_words = staged + 2 * G;
+    if (G == 8)
+      rc = maps ? launch_dp(count_dp_kernel<8, true>, a, CL_THREADS, CL_THREADS / 8, s)
+                : launch_dp(count_dp_kernel<8, false>, a, CL_THREADS, CL_THREADS / 8, s);
+    else if (G == 16)
+      rc = maps ? launch_dp(count_dp_kernel<16, true>, a, CL_THREADS, CL_THREADS / 16, s)
+                : launch_dp(count_dp_kernel<16, false>, a, CL_THREADS, CL_THREADS / 16, s);
+    else
+      rc = maps ? launch_dp(count_dp_kernel<32, true>, a, CL_THREADS, CL_THREADS / 32, s)
+                : launch_dp(count_dp_kernel<32, false>, a, CL_THREADS, CL_THREADS / 32, s);
+  } else {
+    a.group_words = staged + rows_words(E);
+    rc = launch_dp(count_dp_rows_kernel, a, CW_THREADS, CW_WARPS, s);
+  }
+  return (int)rc;
+}
+
+// The list step's emission. The candidate list (cand_combo too) and n_cand
+// as fac_count_dp read them; depth, node: int32 [F]; out_list: int32 [N,
+// MO]; dec as fac_count_dp wrote it; row_offsets: the exclusive scan of its
+// row_counts; rows: int32 [total, 5]; tags: int32 [total] or null. Returns
+// the launch's cudaError_t. live: the candidates' total, which the host has
+// read; the grid covers its tiles.
+int fac_count_emit(const void* cand_field, const void* cand_start, const void* cand_combo,
+                   const void* n_cand, long long items, long long live, const void* depth,
+                   const void* node, const void* out_list, int MO, int E, int n_combo,
+                   const void* dec, const void* row_offsets, long long ntile, void* rows,
+                   void* tags, void* stream) {
+  if (items < 1 || MO < 1 || E < 1 || E > MAX_E || n_combo < 1 ||
+      (2 * E + 1) * MO > MAX_CHANNELS || ntile != (items + LIST_TILE - 1) / LIST_TILE ||
+      ntile > 0x7FFFFFFFll || rows == nullptr || live < 0 || live > items) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long blocks = (live + LIST_TILE - 1) / LIST_TILE;
+  if (blocks == 0) return (int)cudaSuccess;
+  EmitArgs a;
+  a.cand_field = static_cast<const int32_t*>(cand_field);
+  a.cand_start = static_cast<const int32_t*>(cand_start);
+  a.cand_combo = static_cast<const int32_t*>(cand_combo);
+  a.n_cand = static_cast<const int32_t*>(n_cand);
+  a.items = items;
+  a.depth = static_cast<const int32_t*>(depth);
+  a.node = static_cast<const int32_t*>(node);
+  a.out_list = static_cast<const int32_t*>(out_list);
+  a.MO = MO;
+  a.E = E;
+  a.n_combo = n_combo;
+  a.dec = static_cast<const int2*>(dec);
+  a.row_offsets = static_cast<const int32_t*>(row_offsets);
+  a.ntile = ntile;
+  a.rows = static_cast<int32_t*>(rows);
+  a.tags = static_cast<int32_t*>(tags);
+  count_emit_kernel<<<(unsigned)blocks, LIST_TILE, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

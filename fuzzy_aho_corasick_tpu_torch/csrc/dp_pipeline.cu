@@ -1,15 +1,16 @@
 // Candidate expansion, banded Damerau DP and emission of one corpus slice
-// as one kernel, for Hopper (sm_90a).
+// as one kernel, for Hopper (sm_90a), at E = 1 without forbidden edit types
+// or mappings (the fuzzy1 engines, with or without the dead-end filter).
 //
 // Replaces the device body of the JAX package's one-dispatch pipeline
-// fuzzy_aho_corasick_tpu/ops/verify_dp.py::_dp_pipeline_jit behind the scan:
-// _expand_candidates, _banded_dp (with its FORBID and MAPS options, see
-// banded_dp.cuh) and _emit_rows, which XLA fused from whole-array ops with
-// static capacities. Its plain torch version is
-// ops/verify_dp.py::dp_pipeline_torch (expand_candidates -> banded_dp_torch
-// -> emit_rows); the wrapper is verify_dp.dp_pipeline. The typed lane's
-// counterpart of this kernel is dp_typed.cu, the large-dictionary lane's
-// many_step.cu.
+// fuzzy_aho_corasick_tpu/ops/verify_dp.py::_dp_pipeline_jit behind the scan
+// for those engines: _expand_candidates, _banded_dp and _emit_rows, which
+// XLA fused from whole-array ops with static capacities. Its plain torch
+// version is ops/verify_dp.py::dp_pipeline_torch (expand_candidates ->
+// banded_dp_torch -> emit_rows); the wrapper is verify_dp.dp_pipeline. Every
+// other count-channel engine (E >= 2, a forbid mask, mapping arrivals) runs
+// the list step of dp_list.cu; the typed lane's counterpart is dp_typed.cu,
+// the large-dictionary lane's many_step.cu.
 //
 // What it computes. The grid is the uncompacted (combo, hit) product,
 // combo-major: item g = c * (K - h0) + h - h0 pairs combo c = (pattern bit,
@@ -200,24 +201,18 @@ dp_pipeline_kernel(PipeArgs a, bool sim_smem, bool write) {
   dp_emit<E, DEADEND, MAPS, Sym>(a, s_sim, sim_smem, write, alive, f, s, c, s_wc);
 }
 
-// The mapped lane has no multi-byte edges, so MAPS and DEADEND never meet.
-template <int E>
-cudaError_t launch_e(const PipeArgs& a, bool deadend, bool maps, bool u8, bool write,
-                     cudaStream_t stream) {
+// The instances a route reaches: E = 1, with or without the dead-end filter.
+cudaError_t launch_e1(const PipeArgs& a, bool deadend, bool u8, bool write,
+                      cudaStream_t stream) {
+  constexpr int E = 1;
   const size_t shm = sim_smem_bytes(a.core.C, sizeof(int) * (MAX_CHANNELS + 1) * NWARPS);
   const bool smem = shm != 0;
   const unsigned g = (unsigned)a.nblk;
-  if (deadend && maps) return cudaErrorInvalidValue;
   if (deadend) {
     if (u8)
       dp_pipeline_kernel<E, true, false, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
     else
       dp_pipeline_kernel<E, true, false, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
-  } else if (maps) {
-    if (u8)
-      dp_pipeline_kernel<E, false, true, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
-    else
-      dp_pipeline_kernel<E, false, true, int32_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
   } else {
     if (u8)
       dp_pipeline_kernel<E, false, false, uint8_t><<<g, DP_THREADS, shm, stream>>>(a, smem, write);
@@ -281,7 +276,8 @@ int fac_dp_pipeline_threads() { return DP_THREADS; }
 // pos: int64 [K]; words: int64 [K, W2]; the hits h0..K-1 are expanded;
 // combos: int32 [5, n_combo]; the DP tables as fac_banded_dp takes them;
 // node: int32 [F]; out_list: int32 [N, MO]; pat_len, pat_weight: f32 [P];
-// forbid and the map_* tables as fac_banded_dp takes them. write == 0:
+// E = 1 only (the list step of dp_list.cu serves every other count-channel
+// call: E >= 2, a forbid mask, mapping arrivals). write == 0:
 // counts int32 [(2E+1) MO + 1, nblk] is written; write == 1: offsets (the
 // exclusive scan of counts, int32) is read and rows int32 [total, 5]
 // written, and where tags is not null the rows' tags int32 [total]. Returns
@@ -297,25 +293,17 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, long long h
                     const void* pat_len, const void* pat_weight,
                     float max_pen, float p_sub, float p_ins, float p_del,
                     float p_swap, float floor_, float bound, int E, int deadend,
-                    int forbid, const void* map_tab, const void* map_rowptr,
-                    const void* map_fields, int map_fw, int write, long long nblk,
+                    int write, long long nblk,
                     void* counts, const void* offsets, void* rows, void* tags, void* stream) {
   PipeArgs a{};
   if (K < 1 || h0 < 0 || h0 >= K || W2 < 2 || n_combo < 1 ||
       nblk != ((K - h0) * n_combo + DP_THREADS - 1) / DP_THREADS ||
-      forbid < 0 || forbid > 15 ||
-      (map_tab != nullptr && (map_rowptr == nullptr || map_fields == nullptr ||
-                              map_fw < (F + 31) / 32)) ||
+      E != 1 ||
       !fill_core(a, ids, npad, limit, path_cls, path_node, depth, node, Lmax, F, sim, C,
                  node_ceil, sb_edge, out_count, N, out_list, MO, pat_len, pat_weight, max_pen,
                  p_sub, p_ins, p_del, p_swap, floor_, bound, E, nblk, counts, offsets, rows)) {
     return (int)cudaErrorInvalidValue;
   }
-  a.core.forbid = forbid;
-  a.core.map_tab = static_cast<const int32_t*>(map_tab);
-  a.core.map_rowptr = static_cast<const int32_t*>(map_rowptr);
-  a.core.map_fields = static_cast<const int32_t*>(map_fields);
-  a.core.map_fw = map_fw;
   a.pos = static_cast<const long long*>(pos);
   a.words = static_cast<const long long*>(words);
   a.K = K;
@@ -327,17 +315,8 @@ int fac_dp_pipeline(const void* pos, const void* words, long long K, long long h
   a.start_hi = start_hi;
   a.pos_hi = pos_hi;
   a.tags = static_cast<int32_t*>(tags);
-  const bool de = deadend != 0, mp = map_tab != nullptr, u8 = ids_u8 != 0, wr = write != 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (E) {
-    case 1: return (int)launch_e<1>(a, de, mp, u8, wr, s);
-    case 2: return (int)launch_e<2>(a, de, mp, u8, wr, s);
-    case 3: return (int)launch_e<3>(a, de, mp, u8, wr, s);
-    case 4: return (int)launch_e<4>(a, de, mp, u8, wr, s);
-    case 5: return (int)launch_e<5>(a, de, mp, u8, wr, s);
-    case 6: return (int)launch_e<6>(a, de, mp, u8, wr, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_e1(a, deadend != 0, ids_u8 != 0, write != 0,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("packed_bitap.cu", "scan_wide.cu", "scan_offsets.cu", "many_step.cu",
-                 "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu", "goto_walk.cu")
+                 "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu", "goto_walk.cu", "dp_list.cu")
 )
 #: Headers the sources include (part of the build's hash).
 HEADERS = tuple(_PKG / "csrc" / name for name in ("packed_bitap.cuh", "banded_dp.cuh"))
@@ -85,13 +85,12 @@ _SIGNATURES = {
     # ids, ids_u8, npad, limit, path_cls, path_node, depth, node, Lmax, F,
     # sim, C, node_ceil, sb_edge, out_count, N, out_list, MO, pat_len,
     # pat_weight, max_pen, p_sub, p_ins, p_del, p_swap, floor, bound, E,
-    # deadend, forbid, map_tab, map_rowptr, map_fields, map_fw, write, nblk,
-    # counts, offsets, rows, tags, stream
+    # deadend, write, nblk, counts, offsets, rows, tags, stream
     "fac_dp_pipeline": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_void_p, _c_int]
     + [_c_ll] * 3 + [_c_void_p, _c_int, _c_ll, _c_ll] + [_c_void_p] * 4
     + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int]
     + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3
-    + [_c_void_p] * 3 + [_c_int] * 2 + [_c_ll] + [_c_void_p] * 5,
+    + [_c_ll] + [_c_void_p] * 5,
     # cand_field, cand_start, M, ids, ids_u8, npad, limit, path_cls,
     # path_node, depth, Lmax, F, sim, C, node_ceil, N, max_pen, p_sub, p_ins,
     # p_del, p_swap, floor, E, graph, nch, node_caps, root_caps, pen, stream
@@ -116,6 +115,19 @@ _SIGNATURES = {
     # stream
     "fac_typed_emit": [_c_void_p] * 4 + [_c_ll] + [_c_void_p] * 3 + [_c_int] * 3
     + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 3,
+    # cand_field, cand_start, n_cand, items, ids, ids_u8, npad, limit,
+    # path_cls, path_node, depth, node, Lmax, F, sim, C, node_ceil, sb_edge,
+    # out_count, N, out_list, MO, pat_len, pat_weight, max_pen, p_sub, p_ins,
+    # p_del, p_swap, floor, bound, E, deadend, forbid, map_tab, map_rowptr,
+    # map_fields, map_fw, dec, row_counts, ntile, stream
+    "fac_count_dp": [_c_void_p] * 3 + [_c_ll, _c_void_p, _c_int, _c_ll, _c_ll]
+    + [_c_void_p] * 4 + [_c_int] * 2 + [_c_void_p, _c_int] + [_c_void_p] * 3
+    + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3
+    + [_c_void_p] * 3 + [_c_int] + [_c_void_p] * 2 + [_c_ll, _c_void_p],
+    # cand_field, cand_start, cand_combo, n_cand, items, live, depth, node,
+    # out_list, MO, E, n_combo, dec, row_offsets, ntile, rows, tags, stream
+    "fac_count_emit": [_c_void_p] * 4 + [_c_ll] * 2 + [_c_void_p] * 3 + [_c_int] * 3
+    + [_c_void_p] * 2 + [_c_ll] + [_c_void_p] * 3,
     # ids, sym_bytes, n_starts, n_read, folded, N, C, L, write, counts, keep,
     # overflow, tally, offsets, total, n_over, found, stream
     "fac_goto_walk": [_c_void_p, _c_int, _c_ll, _c_ll, _c_void_p] + [_c_int] * 4
@@ -129,6 +141,7 @@ _SIGNATURES = {
     "fac_offsets_chain_tile": [],
     "fac_typed_tile": [],
     "fac_typed_expand_items": [],
+    "fac_count_tile": [],
     "fac_goto_walk_tile": [],
     "fac_goto_walk_keep": [],
     "fac_goto_walk_pair_max": [],

@@ -27,12 +27,18 @@ states per anchor, the lane:
    (:func:`emit_rows`), which cross to the host in one copy per slice and are
    decoded there (``ops/emit.decode_matches``).
 
-On the card steps 2-4 are one kernel per slice, ``dp_pipeline_kernel``
-(``csrc/dp_pipeline.cu``, wrapper :func:`dp_pipeline`): it takes the hit list
-and writes the match rows, in the order the three functions above give them
-(:func:`dp_pipeline_torch` is their composition, the kernel's plain version).
-:func:`banded_dp` stays as the entry point that holds the DP body, which both
-kernels share, against its plain version channel by channel.
+On the card steps 2-4 are one step per slice (wrapper :func:`dp_pipeline`):
+it takes the hit list and writes the match rows, in the order the three
+functions above give them (:func:`dp_pipeline_torch` is their composition,
+the steps' plain version). At E = 1 without forbidden edit types or
+mappings that step is one kernel, ``dp_pipeline_kernel``
+(``csrc/dp_pipeline.cu``, a count and a write pass); every other
+count-channel call runs the list step (:func:`typed_expand`,
+:func:`count_dp`, ``block_offsets``, :func:`count_emit`; ``csrc/dp_list.cu``),
+which compacts the candidates once and runs each candidate's DP once, a
+group of lanes per candidate. :func:`banded_dp` stays as the entry point
+that holds the DP body of ``csrc/banded_dp.cuh`` against its plain version
+channel by channel.
 
 Emission semantics: the oracle's span end ``me`` is the column of the last
 *consuming* move (exact/substitution/swap); insertions advance ``j`` without
@@ -62,7 +68,7 @@ the engines the JAX package claims with :func:`forbid_spec_of`,
 * mapped — multi-char mappings (``.mapping("ß", "ss")``) as extra arrivals
   ``(row i-pb, band b-drift) -> (row i, band b)`` of the count-channel DP,
   from a flat table (:class:`MapTables`); the ``MAPS`` instances of
-  ``dp_body`` in ``csrc/banded_dp.cuh``;
+  ``count_dp_kernel`` (and of ``dp_body`` in ``csrc/banded_dp.cuh``);
 * typed — per-type caps and per-pattern limits: the DP's channels become
   edit-type vectors (insertions, deletions, substitutions, swaps) with
   per-node caps on every move and per-pattern admissibility at emission
@@ -1310,13 +1316,12 @@ def typed_decisions_torch(pen, cand_field, cand_start, T: DpTables, TT: TypedTab
     return torch.stack(dec).to(torch.int32)
 
 
-def typed_rows_torch(dec, cand_field, cand_start, T: DpTables, TT: TypedTables, E,
-                     combo=None, n_combo: int = 0):
-    """The typed rows of decisions ``dec`` (:func:`typed_decisions_torch`,
-    [B * MO, M, 2]), int32 [K, 5] as :func:`emit_rows` gives them: (start,
-    penalty bits, span, pattern, the winning channel's packed counts), in
-    (channel, candidate) order; with the candidates' ``combo`` indices also
-    the rows' tags (:func:`_row_tags`)."""
+def _placed_rows(dec, cand_field, cand_start, T: DpTables, E, counts_of, combo, n_combo: int):
+    """The rows of decisions ``dec`` ([B * MO, M, 2], no row where column 1
+    is negative) in (channel, candidate) order, int32 [K, 5] as
+    :func:`emit_rows` gives them; ``counts_of(y)`` maps a row's column 1 to
+    its packed counts. With the candidates' ``combo`` indices also the rows'
+    tags (:func:`_row_tags`)."""
     M = cand_field.numel()
     MO = T.out_list.shape[1]
     gidx = compact_indices((dec[..., 1] >= 0).reshape(-1))
@@ -1327,9 +1332,58 @@ def typed_rows_torch(dec, cand_field, cand_start, T: DpTables, TT: TypedTables, 
     f = cand_field.long()[m]
     rows = torch.stack([
         cand_start[m], dec[chan, m, 0], T.depth[f] + (b - E).to(torch.int32),
-        T.out_list[T.node[f].long(), o], TT.graph[dec[chan, m, 1].long(), 9],
+        T.out_list[T.node[f].long(), o], counts_of(dec[chan, m, 1]),
     ], dim=1).to(torch.int32)
     return rows if combo is None else (rows, _row_tags(chan, m, combo, n_combo))
+
+
+def typed_rows_torch(dec, cand_field, cand_start, T: DpTables, TT: TypedTables, E,
+                     combo=None, n_combo: int = 0):
+    """The typed rows of decisions ``dec`` (:func:`typed_decisions_torch`,
+    [B * MO, M, 2]), int32 [K, 5] as :func:`emit_rows` gives them: (start,
+    penalty bits, span, pattern, the winning channel's packed counts), in
+    (channel, candidate) order; with the candidates' ``combo`` indices also
+    the rows' tags (:func:`_row_tags`)."""
+    return _placed_rows(dec, cand_field, cand_start, T, E,
+                        lambda ch: TT.graph[ch.long(), 9], combo, n_combo)
+
+
+def count_decisions_torch(pen, cnt, cand_field, cand_start, T: DpTables, limit, thr, E):
+    """What the count-channel emission decides per emission channel (band,
+    output slot) and candidate, int32 [B * MO, M, 2]: the band's strict-<
+    minimum over the edit channels as (penalty f32 bits, packed counts), or
+    (0, -1) where the channel emits no row. The same test as
+    :func:`emit_rows`: the span in the text, a finite penalty, a pattern in
+    the slot and the similarity against :func:`emit_bound`."""
+    B, NE = 2 * E + 1, E + 1
+    M = cand_field.numel()
+    MO = T.out_list.shape[1]
+    if M == 0:
+        return torch.zeros((B * MO, 0, 2), dtype=torch.int32, device=pen.device)
+    alive = cand_field >= 0
+    f = cand_field.clamp(min=0).long()
+    d = T.depth[f]
+    pats = T.out_list[T.node[f].long()]                              # [M, MO]
+    p_safe = pats.clamp(min=0).long()
+    pl, pw = T.pat_len[p_safe], T.pat_weight[p_safe]
+    bound = emit_bound(thr)
+    dec = []
+    for b in range(B):
+        ends_b = cand_start + d + (b - E)
+        span_ok = alive & (ends_b <= limit) & (ends_b >= cand_start)
+        pen_b, cnt_b = pen[b * NE], cnt[b * NE]
+        for e in range(1, NE):
+            take = pen[b * NE + e] < pen_b
+            pen_b = torch.where(take, pen[b * NE + e], pen_b)
+            cnt_b = torch.where(take, cnt[b * NE + e], cnt_b)
+        fin = torch.isfinite(pen_b)
+        pen_s = torch.where(fin, pen_b, 0.0)
+        for o in range(MO):
+            sim = ((pl[:, o] - pen_s) / pl[:, o]) * pw[:, o]
+            ok = span_ok & fin & (pats[:, o] >= 0) & (sim >= bound)
+            dec.append(torch.stack([torch.where(ok, pen_b.view(torch.int32), 0),
+                                    torch.where(ok, cnt_b, -1)], dim=1))
+    return torch.stack(dec).to(torch.int32)
 
 
 def emit_rows_typed(pen, cand_field, cand_start, T: DpTables, TT: TypedTables,
@@ -1393,11 +1447,33 @@ def pipeline_max_hits(n_combo: int, MO: int, E: int) -> int:
     """Most hits :func:`dp_pipeline` takes in one call (one range of a
     longer hit list, :func:`dp_pipeline_ranges`): int32 offsets over their
     (combo, hit) items' candidates and rows (at most one of each per item
-    and emission channel). The typed step's decisions (one per item and
-    emission channel) stay inside the same bound."""
+    and emission channel). The typed and the list step keep one decision
+    per (candidate, emission channel), a candidate per item at most, and
+    scan row counts per (channel, tile of ``TYPED_TILE`` candidates) with
+    the candidates' total last: items x channels decisions and at most
+    items x (channels + 1) rows and candidates in that scan, so the same
+    bound keeps their offsets and indices inside int32."""
     channels = (2 * E + 1) * MO
     items = ((1 << 31) - 1) // (channels + 1)
     return max(1, items // max(n_combo, 1))
+
+
+#: Bytes of one range's per-item buffers in the list and typed steps: the
+#: candidate list (3 int32) and the decisions (2 int32 per emission channel)
+#: are sized by the (combo, hit) items, live or not.
+STEP_RANGE_BYTES = 2 << 30
+
+
+def step_max_hits(n_combo: int, MO: int, E: int, variant: DpVariant) -> int:
+    """Most hits one :func:`dp_pipeline` call of ``variant`` takes:
+    :func:`pipeline_max_hits`, and for the list and typed steps also the
+    hits whose items' candidate list and decisions fit ``STEP_RANGE_BYTES``
+    (an unselective search then runs in more ranges, not out of memory)."""
+    most = pipeline_max_hits(n_combo, MO, E)
+    if variant.typed is None and not _list_step(E, variant):
+        return most
+    per_hit = (12 + 8 * (2 * E + 1) * MO) * max(n_combo, 1)
+    return max(1, min(most, STEP_RANGE_BYTES // per_hit))
 
 
 @functools.lru_cache(maxsize=64)
@@ -1441,6 +1517,8 @@ def _check_pipeline(pos, words, ids, T: DpTables, E: int, deadend: bool, statics
     nch = (2 * E + 1) * T.out_list.shape[1]
     if nch > MAX_CHANNELS:
         raise ValueError(f"{nch} emission channels, the kernel takes {MAX_CHANNELS}")
+    # Candidates and rows (and the list and typed steps' decisions and row
+    # counts, pipeline_max_hits) of one call stay inside int32.
     if H * n_combo * (nch + 1) >= 1 << 31:
         raise ValueError(f"{H} hits x {n_combo} combos x {nch} channels overflow int32 offsets")
     if nch * n_combo >= 1 << 31:
@@ -1448,10 +1526,10 @@ def _check_pipeline(pos, words, ids, T: DpTables, E: int, deadend: bool, statics
 
 
 def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
-                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
-                variant: DpVariant = FAST, h0: int = 0):
-    """The count pass of the count-channel step (``dp_pipeline_kernel``) on
-    CUDA tensors with at least one hit; the caller checked the arguments.
+                pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple, h0: int = 0):
+    """The count pass of the count-channel step at E = 1 without a forbid
+    mask or mappings (``dp_pipeline_kernel``) on CUDA tensors with at least
+    one hit; the caller checked the arguments.
     Returns (launch, counts, channels, units): ``counts`` int32 [(channels +
     1) * units] holds every block's rows per emission channel and, in the
     last row, its candidates; ``launch(1, offsets, rows, tags)`` runs the
@@ -1475,8 +1553,7 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
         T.node_ceil.data_ptr(), T.sb_edge.data_ptr(), T.out_count.data_ptr(),
         T.out_count.numel(), T.out_list.data_ptr(), MO,
         T.pat_len.data_ptr(), T.pat_weight.data_ptr(),
-        *_pen_floats(pens), emit_bound(thr), E,
-        int(bool(deadend)), _forbid_mask(variant.forbid), *_map_args(variant.maps, T),
+        *_pen_floats(pens), emit_bound(thr), E, int(bool(deadend)),
     )
 
     def launch(write: int, offsets, rows, tags=None):
@@ -1599,15 +1676,23 @@ def typed_dp_torch(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties
     M = int(cands.total[0])
     cf, cs = cands.field[:M], cands.start[:M]
     pen = banded_dp_typed_torch(cf, cs, ids, limit, T, pens, E, TT)
-    live = typed_decisions_torch(pen, cf, cs, T, TT, limit, thr, E)
+    return _tiled(typed_decisions_torch(pen, cf, cs, T, TT, limit, thr, E), cands)
+
+
+def _tiled(live, cands: TypedCands):
+    """(dec int32 [nce, items, 2], row_counts int32 [nce * ntile + 1]) of the
+    decisions ``live`` [nce, total, 2] of the list's candidates: (0, -1) past
+    the total, the rows of each (channel, tile of ``TYPED_TILE``
+    candidates) channel-major, and the total last."""
+    M = live.shape[1]
     nce, ntile = live.shape[0], _typed_tiles(cands.items)
-    dec = torch.zeros((nce, cands.items, 2), dtype=torch.int32, device=ids.device)
+    dec = torch.zeros((nce, cands.items, 2), dtype=torch.int32, device=live.device)
     dec[..., 1] = -1
     dec[:, :M] = live
-    flags = torch.zeros((nce, ntile * TYPED_TILE), dtype=torch.int32, device=ids.device)
+    flags = torch.zeros((nce, ntile * TYPED_TILE), dtype=torch.int32, device=live.device)
     flags[:, :M] = (live[..., 1] >= 0).to(torch.int32)
     counts = flags.reshape(nce, ntile, TYPED_TILE).sum(dim=2).reshape(-1)
-    return dec, torch.cat([counts, cands.total]).to(torch.int32)
+    return dec, torch.cat([counts, cands.total.to(live.device)]).to(torch.int32)
 
 
 def typed_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr, E: int,
@@ -1689,39 +1774,182 @@ def typed_emit(dec, row_offsets, cands: TypedCands, T: DpTables, TT: TypedTables
     return rows, row_tags
 
 
+# ---------------------------------------------------------------------------
+# The count-channel list step: the typed step's expansion, then the
+# count-channel DP over the candidate list and its emission
+# ---------------------------------------------------------------------------
+
+_LIST_CHECKED: Optional[_cuda_build.Kernels] = None
+#: Largest edit budget at which ``count_dp`` takes mappings on the card: the
+#: mapped lane scans with 2E error rows (:class:`MappedSpec`), and the scan
+#: kernels have ``packed_bitap.MAX_K``, so :func:`dp_plan` declines past it.
+LIST_MAPS_MAX_E = 3
+
+
+def _list_kernels():
+    """The built library, checked once against the list step's tile."""
+    global _LIST_CHECKED
+    kern = _typed_kernels()
+    if kern is not _LIST_CHECKED:
+        if kern.lib.fac_count_tile() != TYPED_TILE:
+            raise RuntimeError("csrc/dp_list.cu and verify_dp disagree on the row-count tile")
+        _LIST_CHECKED = kern
+    return kern
+
+
+def _list_step(E: int, variant: DpVariant) -> bool:
+    """Whether :func:`dp_pipeline` runs the count-channel list step
+    (:func:`typed_expand`, :func:`count_dp`, ``block_offsets``,
+    :func:`count_emit`): every count-channel call with E >= 2, forbidden
+    edit types or mapping arrivals. E = 1 without either stays on
+    ``dp_pipeline_kernel``."""
+    return variant.typed is None and (
+        E >= 2 or variant.forbid is not None or variant.maps is not None)
+
+
+def count_dp_torch(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
+                   E: int, deadend: bool = False, forbid=None,
+                   maps: Optional[MapTables] = None):
+    """Plain version of ``count_dp_kernel`` (and ``count_dp_rows_kernel``):
+    (dec int32 [B * MO, items, 2], row_counts int32 [B * MO * ntile + 1]).
+    ``dec`` holds :func:`count_decisions_torch` of the first ``total``
+    candidates (of :func:`banded_dp_torch`'s channels) and (0, -1) past
+    them; ``row_counts`` the rows of each (channel, tile of ``TYPED_TILE``
+    candidates), channel-major, and ``total`` last."""
+    M = int(cands.total[0])
+    cf, cs = cands.field[:M], cands.start[:M]
+    pen, cnt = banded_dp_torch(cf, cs, ids, limit, T, pens, E, deadend, forbid, maps)
+    return _tiled(count_decisions_torch(pen, cnt, cf, cs, T, limit, thr, E), cands)
+
+
+def count_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr, E: int,
+             deadend: bool = False, forbid=None, maps: Optional[MapTables] = None):
+    """(dec, row_counts) of :func:`count_dp_torch` (the caller checked the
+    arguments). CPU tensors run the plain version; CUDA tensors launch
+    ``count_dp_kernel`` (a group of 8, 16 or 32 lanes per candidate, one
+    cell each, up to E = 3) or ``count_dp_rows_kernel`` (a warp per
+    candidate, rows in shared memory, no mappings) over the list's bound;
+    columns of ``dec`` past the total are left unwritten."""
+    from . import packed_bitap as pb
+
+    if ids.device.type == "cpu":
+        return count_dp_torch(cands, ids, limit, T, pens, thr, E, deadend, forbid, maps)
+    if maps is not None and E > LIST_MAPS_MAX_E:
+        raise ValueError(f"the list step takes mappings up to E = {LIST_MAPS_MAX_E}, not {E}")
+    dev = ids.device
+    MO = T.out_list.shape[1]
+    nce, ntile = (2 * E + 1) * MO, _typed_tiles(cands.items)
+    dec = torch.empty((nce, cands.items, 2), dtype=torch.int32, device=dev)
+    row_counts = torch.empty(nce * ntile + 1, dtype=torch.int32, device=dev)
+    kern = _list_kernels()
+    with pb.on_device(dev):
+        rc = kern.lib.fac_count_dp(
+            cands.field.data_ptr(), cands.start.data_ptr(), cands.total.data_ptr(), cands.items,
+            ids.data_ptr(), int(ids.dtype == torch.uint8), ids.numel(), int(limit),
+            T.path_cls.data_ptr(), T.path_node.data_ptr(), T.depth.data_ptr(), T.node.data_ptr(),
+            T.Lmax, T.depth.numel(), T.sim.data_ptr(), T.C, T.node_ceil.data_ptr(),
+            T.sb_edge.data_ptr(), T.out_count.data_ptr(), T.out_count.numel(),
+            T.out_list.data_ptr(), MO, T.pat_len.data_ptr(), T.pat_weight.data_ptr(),
+            *_pen_floats(pens), emit_bound(thr), E, int(bool(deadend)), _forbid_mask(forbid),
+            *_map_args(maps, T), dec.data_ptr(), row_counts.data_ptr(), ntile,
+            pb.stream_of(dev))
+    kern.check(rc, "count_dp")
+    pb.LAUNCHES["count_dp"] += 1
+    return dec, row_counts
+
+
+def count_emit_torch(dec, row_offsets, cands: TypedCands, T: DpTables, E: int, n_combo: int,
+                     n_rows: int, tags: bool = False):
+    """Plain version of ``count_emit_kernel``: (rows int32 [n_rows, 5], tags
+    int32 [n_rows] or None), the decisions of the first ``total``
+    candidates in (channel, candidate) order, which ``row_offsets`` (the
+    exclusive scan of ``count_dp``'s row_counts) also gives; a row's packed
+    counts are its decision's."""
+    M = int(cands.total[0])
+    combo = cands.combo[:M] if tags else None
+    out = _placed_rows(dec[:, :M], cands.field[:M], cands.start[:M], T, E, lambda y: y, combo,
+                       n_combo)
+    rows, row_tags = out if tags else (out, None)
+    if rows.shape[0] != n_rows or int(row_offsets[-2]) != n_rows:
+        raise ValueError(f"{rows.shape[0]} rows decided, offsets give {n_rows}")
+    return rows, row_tags
+
+
+def count_emit(dec, row_offsets, cands: TypedCands, T: DpTables, E: int, n_combo: int,
+               n_rows: int, n_cand: int, tags: bool = False):
+    """(rows, tags or None) of :func:`count_emit_torch`. CPU tensors run the
+    plain version; CUDA tensors launch ``count_emit_kernel``, a block per
+    tile of the first ``n_cand`` candidates (the total, which the caller
+    read), where there is a row to place."""
+    from . import packed_bitap as pb
+
+    if dec.device.type == "cpu":
+        return count_emit_torch(dec, row_offsets, cands, T, E, n_combo, n_rows, tags)
+    dev = dec.device
+    rows = torch.empty((n_rows, 5), dtype=torch.int32, device=dev)
+    row_tags = torch.empty(n_rows, dtype=torch.int32, device=dev) if tags else None
+    if n_rows == 0:
+        return rows, row_tags
+    kern = _list_kernels()
+    with pb.on_device(dev):
+        rc = kern.lib.fac_count_emit(
+            cands.field.data_ptr(), cands.start.data_ptr(), cands.combo.data_ptr(),
+            cands.total.data_ptr(), cands.items, int(n_cand),
+            T.depth.data_ptr(), T.node.data_ptr(),
+            T.out_list.data_ptr(), T.out_list.shape[1], E, n_combo, dec.data_ptr(),
+            row_offsets.data_ptr(), _typed_tiles(cands.items), rows.data_ptr(),
+            None if row_tags is None else row_tags.data_ptr(), pb.stream_of(dev))
+    kern.check(rc, "count_emit")
+    pb.LAUNCHES["count_emit"] += 1
+    return rows, row_tags
+
+
 def dp_pipeline_counts(pos, words, window: DpWindow, ids, limit, T: DpTables,
                        pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
                        variant: DpVariant = FAST, h0: int = 0) -> tuple:
     """The counts :func:`dp_pipeline` hands ``block_offsets``, on CUDA tensors
-    with at least one hit: the count-channel step's per-block counts, or the
-    typed step's expansion counts and row counts."""
+    with at least one hit: the count pass's per-block counts, or the list
+    or typed step's expansion counts and row counts."""
     _check_pipeline(pos, words, ids, T, E, deadend, statics, variant, h0)
     if ids.device.type != "cuda" or pos.numel() - h0 <= 0:
         raise ValueError("the count pass runs on CUDA tensors with at least one hit")
-    if variant.typed is not None:
+    if variant.typed is not None or _list_step(E, variant):
         cands = typed_expand(pos, words, window, E, statics, h0)
-        _dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, variant.typed)
+        if variant.typed is not None:
+            _dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, variant.typed)
+        else:
+            _dec, row_counts = count_dp(cands, ids, limit, T, pens, thr, E, deadend,
+                                        variant.forbid, variant.maps)
         return cands.block_counts, row_counts
     return (_count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics,
-                        variant, h0)[1],)
+                        h0)[1],)
 
 
-def _typed_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
-                    pens: DpPenalties, thr, E: int, statics: tuple, TT: TypedTables,
-                    h0: int, tags: bool):
-    """The typed step of :func:`dp_pipeline` on any device: the candidate
-    list, its DP and decisions, the scan of the row counts, one read of the
-    two totals, the emission."""
+def _list_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
+                   pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
+                   variant: DpVariant, h0: int, tags: bool):
+    """The typed step, or the count-channel list step, of :func:`dp_pipeline`
+    on any device: the candidate list, its DP and decisions, the scan of the
+    row counts, one read of the two totals, the emission."""
     from . import packed_bitap as pb
 
     cands = typed_expand(pos, words, window, E, statics, h0)
-    dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, TT)
+    TT = variant.typed
+    if TT is not None:
+        dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, TT)
+    else:
+        dec, row_counts = count_dp(cands, ids, limit, T, pens, thr, E, deadend, variant.forbid,
+                                   variant.maps)
     offsets = pb.block_offsets(row_counts)
     # The rows' total ends the channels' counts, the candidates' total
     # follows it: one read of two values.
     n_rows, n_all = offsets[row_counts.numel() - 1:].tolist()
-    rows, row_tags = typed_emit(dec, offsets, cands, T, TT, E, _combos(E, *statics).shape[1],
-                                n_rows, tags)
+    n_combo = _combos(E, *statics).shape[1]
+    if TT is not None:
+        rows, row_tags = typed_emit(dec, offsets, cands, T, TT, E, n_combo, n_rows, tags)
+    else:
+        rows, row_tags = count_emit(dec, offsets, cands, T, E, n_combo, n_rows,
+                                    n_all - n_rows, tags)
     return (rows, n_all - n_rows) + ((row_tags,) if tags else ())
 
 
@@ -1736,19 +1964,22 @@ def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
     ``statics`` the (BITS, P2F, DEPTHS) of :func:`expand_candidates`;
     ``variant`` the DP the lane runs; rows as :func:`emit_rows` orders them.
 
-    The count-channel variants: CPU tensors run :func:`dp_pipeline_torch`;
-    CUDA tensors launch ``dp_pipeline_kernel`` twice, a count pass and a
-    write pass with ``block_offsets_kernel`` between them, and read the two
-    totals back. The typed variant runs :func:`typed_expand`,
-    :func:`typed_dp`, ``block_offsets`` and :func:`typed_emit` (each its
-    plain version on CPU tensors), so each candidate's DP runs once."""
+    The count-channel variant at E = 1 without a forbid mask or mappings:
+    CPU tensors run :func:`dp_pipeline_torch`; CUDA tensors launch
+    ``dp_pipeline_kernel`` twice, a count pass and a write pass with
+    ``block_offsets_kernel`` between them, and read the two totals back.
+    Every other count-channel variant runs the list step
+    (:func:`typed_expand`, :func:`count_dp`, ``block_offsets``,
+    :func:`count_emit`), the typed variant :func:`typed_expand`,
+    :func:`typed_dp`, ``block_offsets`` and :func:`typed_emit` (each piece
+    its plain version on CPU tensors), so each candidate's DP runs once."""
     from . import packed_bitap as pb
 
     _check_pipeline(pos, words, ids, T, E, deadend, statics, variant, h0)
     empty = pos.numel() - h0 <= 0 or _combos(E, *statics).shape[1] == 0
-    if variant.typed is not None and not empty:
-        return _typed_pipeline(pos, words, window, ids, limit, T, pens, thr, E, statics,
-                               variant.typed, h0, tags)
+    if (variant.typed is not None or _list_step(E, variant)) and not empty:
+        return _list_pipeline(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics,
+                              variant, h0, tags)
     if ids.device.type == "cpu":
         return dp_pipeline_torch(pos, words, window, ids, limit, T, pens, thr, E,
                                  deadend, statics, variant, h0, tags)
@@ -1756,7 +1987,7 @@ def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
         rows = torch.zeros((0, 5), dtype=torch.int32, device=ids.device)
         return (rows, 0) + ((rows[:, 0],) if tags else ())
     launch, counts, nch, nunits = _count_pass(pos, words, window, ids, limit, T, pens, thr, E,
-                                              deadend, statics, variant, h0)
+                                              deadend, statics, h0)
     offsets = pb.block_offsets(counts)
     # The rows' total ends the last channel's counts, the grand total (rows
     # and candidates) the array: one strided read of two values.
@@ -1771,7 +2002,7 @@ def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
 def dp_pipeline_ranges(pos, words, max_hits: int, *args):
     """:func:`dp_pipeline` (arguments ``args`` after the hits) over a hit
     list of any length: in ranges of at most ``max_hits`` hits
-    (:func:`pipeline_max_hits`), each handed its preceding hit for the run
+    (:func:`step_max_hits`), each handed its preceding hit for the run
     dedup, so that every count stays inside int32. Returns what one call over
     the whole list would: the rows in its order and the candidates' count.
     Each range's rows are ordered by (channel, combo, hit) within the range;
@@ -1819,11 +2050,12 @@ def dp_plan(engine, threshold, n: int, typed=None, maps=None, forbid=None
     """The host decisions the JAX package's ``fuzzy_search_dp`` makes before
     any device work, or None where it declines (the caller falls back):
     corpus past ``RESIDENT_MAX``, no packed tables or DP fields, or a
-    threshold budget the scan cannot serve. ``typed`` / ``maps`` / ``forbid``
+    threshold budget the scan cannot serve (for ``maps``, a budget past the
+    scan kernels' ``MAX_K`` rows). ``typed`` / ``maps`` / ``forbid``
     pick the lane's budgets: the mapped lane scans with the uniform budget
     ``maps.k`` and no Damerau rows, and the DP's ``E`` is the forbid spec's,
     the typed spec's, or ``engine.max_edits_fast``."""
-    from .packed_bitap import RESIDENT_MAX, packed_fuzzy_of
+    from .packed_bitap import MAX_K, RESIDENT_MAX, packed_fuzzy_of
 
     thr = np.float32(threshold)
     if n > RESIDENT_MAX:
@@ -1835,6 +2067,8 @@ def dp_plan(engine, threshold, n: int, typed=None, maps=None, forbid=None
     if vf is None:
         return None
     if maps is not None:
+        if maps.k > MAX_K:
+            return None  # past the scan kernels' error rows (E >= 4)
         ks = [maps.k] * len(pk.filt.patterns)
         dam = False
     else:
@@ -2056,7 +2290,7 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int,
     The JAX package declines up front on a guess of the hit capacity (its
     callers then take the beam lanes, or the oracle for beamed, typed and
     mapped engines); here a slice's hit list of any length is served, in
-    ranges of at most :func:`pipeline_max_hits` hits where it is longer
+    ranges of at most :func:`step_max_hits` hits where it is longer
     (:func:`dp_pipeline_ranges`), with the rows of one range's order, so the
     matches are the JAX package's.
 
@@ -2078,7 +2312,7 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int,
     timing = os.environ.get("FAC_TIME") == "1"
     dev_parts = []
     sum_h = sum_c = 0
-    max_hits = pipeline_max_hits(plan.n_combo, run.T.out_list.shape[1], E)
+    max_hits = step_max_hits(plan.n_combo, run.T.out_list.shape[1], E, run.variant)
     t0 = time.perf_counter()
     for part in run.parts:
         count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo)

@@ -247,7 +247,7 @@ def sharded_fuzzy_search(engine, haystack: str, threshold: float, mesh=None):
         count, pos, words = packed_hits(
             extended(pf_shards, d, halo, margin, dev, TAIL_MARGIN), lt.T_scan, halo)
         rows, n_cand = vdp.dp_pipeline_ranges(
-            pos, words, vdp.pipeline_max_hits(plan.n_combo, lt.T.out_list.shape[1], E),
+            pos, words, vdp.step_max_hits(plan.n_combo, lt.T.out_list.shape[1], E, lt.variant),
             vdp.DpWindow(halo, min(halo + shard_len, limit), limit),
             extended(dn_shards, d, halo, margin, dev, TAIL_MARGIN), limit, lt.T, lt.pens,
             thr, E, lt.deadend, statics, lt.variant)

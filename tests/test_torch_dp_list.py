@@ -1,0 +1,421 @@
+"""The count-channel list step (``typed_expand`` -> ``count_dp`` ->
+``block_offsets`` -> ``count_emit``), port against the JAX package on the
+CPU.
+
+(a) For the forbid lane (each forbid flag, ``edits(2)`` and ``edits(3)``
+    without swaps), ``edits(2)`` with swaps, the mapped lane (rn <-> m,
+    ß <-> ss and æ <-> ae with drift +1 and -1, a scored mapping,
+    ``edits(2)`` mapped) and a dictionary with multi-byte edges (the
+    dead-end filter) at ``edits(2)``: per slice, the step's pieces, each its
+    plain version on CPU tensors (``count_dp_torch``, ``count_emit_torch``),
+    give the rows the JAX ``_dp_pipeline_jit`` (``FORBID`` / ``MAPS`` /
+    ``DEADEND``; its scan in Pallas interpret mode) returns, in the same
+    order, with the same hit and candidate counts; the decisions and the
+    per-tile row counts agree with ``banded_dp_torch`` and the emission;
+    the rows and tags equal ``dp_pipeline_torch``'s; the whole search
+    equals the JAX device search.
+(b) A threshold that a match's similarity ties exactly.
+(c) Random hit lists: the step equals ``dp_pipeline_torch`` with a first
+    hit h0 = 1 and tags, and in three ranges equals one range.
+(d) The routing (which calls take the list step) and the int32 bound.
+(e) The byte bound of a range (``step_max_hits``), and a search cut by it
+    into many ranges equal to the JAX search.
+(f) The mapped lane past E = 3 (a scan budget past the scan's rows):
+    declined, and the search equal to the JAX package's.
+
+Both sides get the same inputs, made from a seed. The tolerance is exact
+equality everywhere: equal int32 rows and equal f32 bits (the DP replays the
+JAX package's f32 operations in the same order; everything else is
+integer)."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
+from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+from fuzzy_aho_corasick_tpu.ops import verify_dp as jvd
+from fuzzy_aho_corasick_tpu.utils import device_corpus as jax_corpus
+from fuzzy_aho_corasick_tpu.utils.graphemes import view_of
+from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits
+from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
+from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as tvd
+from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+
+WORDS = ["tincidunt", "phaetra", "sagittis", "venenatis", "condim"]
+FILLER = ["lorem", "ipsum", "dolor", "sit", "amet", "elit", "eros", "porta"]
+CYRILLIC = ["привет", "москва", "ирина", "тест"]
+GERMAN = ["strasse", "weiss", "fussball", "aether"]
+GERMAN_TEXT = ["der", "die", "und", "straße", "strasse", "weiß", "wiess", "fußball", "æther",
+               "aether", "strase", "grosze", "größe", "fusball", "aeter"]
+
+
+def _edit(word: str, rng) -> str:
+    i, op = int(rng.integers(1, len(word) - 1)), int(rng.integers(4))
+    return [word[:i] + "x" + word[i + 1:], word[:i] + word[i + 1:],
+            word[:i] + "q" + word[i:], word[:i] + word[i + 1] + word[i] + word[i + 2:]][op]
+
+
+def _corpus(seed: int, size: int, needles, filler=FILLER, rate: int = 3,
+            max_edits: int = 3) -> str:
+    """Filler words with needles at 1 in ``rate``, each with up to
+    ``max_edits`` edits, cut to ``size`` characters."""
+    rng = np.random.default_rng(seed)
+    out, n = [], 0
+    while n < size:
+        if rng.integers(rate) == 0:
+            w = needles[int(rng.integers(len(needles)))]
+            for _ in range(int(rng.integers(0, max_edits + 1))):
+                w = _edit(w, rng) if len(w) > 3 else w
+        else:
+            w = filler[int(rng.integers(len(filler)))]
+        out.append(w)
+        n += len(w) + 1
+    return " ".join(out)[:size]
+
+
+def _words(words, count, seed):
+    rng = np.random.default_rng(seed)
+    return " ".join(words[i] for i in rng.integers(len(words), size=count).tolist())
+
+
+#: name -> (engine configuration, patterns, haystack, threshold, lane).
+CASES = {
+    "forbid-swaps-e2": (lambda b, L: b.fuzzy(L.new().edits(2).swaps(0)), WORDS,
+                        _corpus(71, 3000, WORDS), 0.62, "forbid"),
+    "forbid-insertions": (lambda b, L: b.fuzzy(L.new().edits(2).insertions(0)), WORDS,
+                          _corpus(72, 2500, WORDS), 0.62, "forbid"),
+    "forbid-deletions": (lambda b, L: b.fuzzy(L.new().edits(2).deletions(0)), WORDS,
+                         _corpus(73, 2500, WORDS), 0.62, "forbid"),
+    "forbid-substitutions": (lambda b, L: b.fuzzy(L.new().edits(2).substitutions(0)), WORDS,
+                             _corpus(74, 2500, WORDS), 0.62, "forbid"),
+    "forbid-swaps-e3": (lambda b, L: b.fuzzy(L.new().edits(3).swaps(0)), WORDS[:3],
+                        _corpus(75, 2000, WORDS[:3]), 0.5, "forbid"),
+    "fast-e2": (lambda b, L: b.fuzzy(L.new().edits(2)), WORDS, _corpus(76, 3000, WORDS), 0.62,
+                "dp"),
+    "mapped-rn-m": (lambda b, L: b.fuzzy(L.new().edits(1)).mapping("rn", "m"),
+                    ["modern", "tincidunt"],
+                    ("pad " * 30) + "modem and modern and moderm and tincidnut rnodem " * 12,
+                    0.5, "mapped"),
+    "mapped-eszett": (lambda b, L: b.fuzzy(L.new().edits(1)).mapping("ß", "ss").mapping("æ", "ae"),
+                      GERMAN, _words(GERMAN_TEXT, 300, 5), 0.45, "mapped"),
+    "mapped-scored": (lambda b, L: b.fuzzy(L.new().edits(1)).mapping_scored("ou", "o", 0.6),
+                      ["color", "honor"],
+                      ("pad " * 30) + "colour and color and coluor honour honr " * 10, 0.5,
+                      "mapped"),
+    "mapped-edits2": (lambda b, L: b.fuzzy(L.new().edits(2)).mapping("ß", "ss"),
+                      ["strasse", "grosse"],
+                      ("pad " * 30) + "straße grosze straze größe strasse gröse " * 8, 0.4,
+                      "mapped"),
+    "deadend-e2": (lambda b, L: b.fuzzy(L.new().edits(2)), CYRILLIC,
+                   _corpus(77, 2000, CYRILLIC + ["прuвет", "мирр"],
+                           ["и", "мы", "тесты", "кафе", "она"]), 0.6, "dp"),
+}
+BACKEND = {"dp": "device-fuzzy-dp", "forbid": "device-fuzzy-dp-forbid",
+           "mapped": "device-fuzzy-dp-mapped"}
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(name):
+    """The configuration built by both packages (case-insensitive), cached:
+    the JAX side compiles its pipeline once per engine."""
+    configure, patterns, _hay, _thr, _lane = CASES[name]
+    jax_e = configure(JaxBuilder.new(), JaxLimits).case_insensitive(True).build(patterns)
+    port_e = (configure(FuzzyAhoCorasickBuilder.new(), FuzzyLimits).case_insensitive(True)
+              .device("cpu").build(patterns))
+    jax_e.backend = port_e.backend = "device"
+    return jax_e, port_e
+
+
+def _tuples(matches):
+    return [
+        (m.pattern_index, m.start, m.end, np.float32(m.similarity).view(np.uint32).item(),
+         m.insertions, m.deletions, m.substitutions, m.swaps)
+        for m in matches
+    ]
+
+
+def _jax_pipeline_rows(monkeypatch, jax_e, hay, thr, lane):
+    """What ``_dp_pipeline_jit`` returned for each slice of the JAX search:
+    {(limit, start_lo, start_hi, the slice's symbols): (hits, candidates,
+    rows [total, 5])}, the 12-byte rows unpacked to (start, penalty bits,
+    span, pattern, counts); and the JAX search's matches."""
+    real = jvd._dp_pipeline_jit
+    seen = {}
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        limit = int(args[15])
+        key = (limit, int(args[16]), int(args[17]),
+               np.asarray(args[0]).reshape(-1)[:limit].tobytes())
+        seen[key] = (np.asarray(out), kwargs.get("FORBID"), kwargs.get("MAPS"),
+                     kwargs.get("DEADEND"))
+        return out
+
+    monkeypatch.setattr(jvd, "_dp_pipeline_jit", spy)
+    jax_corpus.clear()
+    matches = jax_e.search_raw(hay, thr)
+    assert jax_e.last_stats["backend"] == BACKEND[lane]
+    monkeypatch.setattr(jvd, "_dp_pipeline_jit", real)
+    out = {}
+    for key, (buf, forbid, maps, deadend) in seen.items():
+        assert (forbid is not None) == (lane == "forbid") and (maps is not None) == (
+            lane == "mapped")
+        hits, cands, total = (int(x) for x in buf[0])
+        body = buf[1:1 + total].astype(np.int64)
+        col2 = body[:, 2]
+        c12 = col2 & 0xFFF
+        cnt = ((c12 & 7) | (((c12 >> 3) & 7) << 8) | (((c12 >> 6) & 7) << 16)
+               | (((c12 >> 9) & 7) << 24))
+        rows = np.stack([body[:, 0], body[:, 1], (col2 >> 24) & 0xFF, (col2 >> 12) & 0xFFF, cnt],
+                        axis=1)
+        out[key] = (hits, cands, rows, bool(deadend))
+    return out, matches
+
+
+def _lane_inputs(port_e, hay, thr):
+    view = view_of(hay, True)
+    n = len(view)
+    specs = tvd.lane_specs_of(port_e)
+    plan = tvd.dp_plan(port_e, thr, n, *specs)
+    device_corpus.clear()
+    return plan, tvd.dp_inputs(port_e, hay, plan, view, n, *specs)
+
+
+def _step(plan, run, part, thr, ids=None):
+    """The list step's pieces on one slice: (hits, cands, dec, row_counts,
+    offsets, rows, tags, the arguments of ``dp_pipeline`` after the hits,
+    pos, words)."""
+    hits, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    window = tvd.DpWindow(part.lo, part.hi, part.local_n)
+    ids = part.ids_de if ids is None else ids
+    E, v = plan.E, run.variant
+    assert tvd._list_step(E, v)
+    n_combo = tvd._combos(E, *run.statics).shape[1]
+    cands = tvd.typed_expand(pos, words, window, E, run.statics)
+    dec, row_counts = tvd.count_dp(cands, ids, part.local_n, run.T, run.pens, np.float32(thr), E,
+                                   run.deadend, v.forbid, v.maps)
+    offsets = tpb.block_offsets(row_counts)
+    n_rows = int(offsets[-2])
+    rows, tags = tvd.count_emit(dec, offsets, cands, run.T, E, n_combo, n_rows,
+                                int(cands.total[0]), tags=True)
+    args = (window, ids, part.local_n, run.T, run.pens, np.float32(thr), E, run.deadend,
+            run.statics, v)
+    return hits, cands, dec, row_counts, offsets, rows, tags, args, pos, words
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_list_step_rows_equal_to_jax(monkeypatch, name):
+    _c, _p, hay, thr, lane = CASES[name]
+    jax_e, port_e = _pair(name)
+    want, jax_matches = _jax_pipeline_rows(monkeypatch, jax_e, hay, thr, lane)
+    plan, run = _lane_inputs(port_e, hay, thr)
+    assert sorted(want) == sorted(
+        (p.local_n, p.lo, p.hi, p.ids_pf.numpy()[:p.local_n].tobytes()) for p in run.parts)
+    E, T = plan.E, run.T
+    MO = T.out_list.shape[1]
+    nce = (2 * E + 1) * MO
+    total = 0
+    for part in run.parts:
+        key = (part.local_n, part.lo, part.hi, part.ids_pf.numpy()[:part.local_n].tobytes())
+        w_hits, w_cands, w_rows, w_dead = want[key]
+        assert w_dead == run.deadend
+        for ids in (part.ids_de, part.ids_de.int()):
+            before = dict(tpb.LAUNCHES)
+            hits, cands, dec, row_counts, offsets, rows, tags, args, pos, words = _step(
+                plan, run, part, thr, ids)
+            assert tpb.LAUNCHES == before  # CPU tensors run the plain versions
+            M = int(cands.total[0])
+            assert (hits, M) == (w_hits, w_cands)
+            assert rows.numpy().astype(np.int64).tolist() == w_rows.tolist()
+            # The decisions are the emission's on banded_dp_torch's channels.
+            ntile = -(-cands.items // tvd.TYPED_TILE)
+            assert dec.shape == (nce, cands.items, 2) and row_counts.shape == (nce * ntile + 1,)
+            assert int(row_counts[-1]) == M and (dec[:, M:, 1] == -1).all()
+            cf, cs = cands.field[:M], cands.start[:M]
+            pen, cnt = tvd.banded_dp_torch(cf, cs, ids, part.local_n, T, run.pens, E, run.deadend,
+                                           run.variant.forbid, run.variant.maps)
+            assert torch.equal(dec[:, :M], tvd.count_decisions_torch(
+                pen, cnt, cf, cs, T, part.local_n, np.float32(thr), E))
+            per_tile = torch.zeros((nce, ntile * tvd.TYPED_TILE), dtype=torch.int64)
+            per_tile[:, :M] = (dec[:, :M, 1] >= 0).long()
+            assert torch.equal(row_counts[:-1].long(),
+                               per_tile.reshape(nce, ntile, -1).sum(2).reshape(-1))
+            # The old composition, and the routed wrapper.
+            p_rows, p_n, p_tags = tvd.dp_pipeline_torch(pos, words, *args, tags=True)
+            assert torch.equal(rows, p_rows) and torch.equal(tags, p_tags) and p_n == M
+            got = tvd.dp_pipeline(pos, words, *args, tags=True)
+            assert torch.equal(got[0], rows) and got[1] == M and torch.equal(got[2], tags)
+        total += len(w_rows)
+    assert total >= 10
+    got = _tuples(port_e.search_raw(hay, thr))
+    assert port_e.last_stats["backend"] == BACKEND[lane]
+    assert got == _tuples(jax_matches) and len(got) > 0
+    if lane == "mapped":
+        assert any(t[6] >= 1 for t in got)
+
+
+def test_list_step_at_a_tied_threshold(monkeypatch):
+    """A threshold that a match's similarity ties exactly (the first
+    similarity, from the top, that is kept at itself): the rows equal the
+    JAX pipeline's and the old composition's, and the search keeps the tied
+    match, as the JAX package's does."""
+    name = "forbid-swaps-e2"
+    _c, _p, hay, _thr, lane = CASES[name]
+    jax_e, port_e = _pair(name)
+    sims = sorted({np.float32(m.similarity) for m in port_e.search_raw(hay, 0.62)
+                   if m.similarity < 1}, reverse=True)
+    tie = next(t for t in sims if any(np.float32(m.similarity) == t
+                                      for m in port_e.search_raw(hay, float(t))))
+    want, jax_matches = _jax_pipeline_rows(monkeypatch, jax_e, hay, float(tie), lane)
+    plan, run = _lane_inputs(port_e, hay, float(tie))
+    part, = run.parts
+    key = (part.local_n, part.lo, part.hi, part.ids_pf.numpy()[:part.local_n].tobytes())
+    _h, _c, _d, _r, _o, rows, tags, args, pos, words = _step(plan, run, part, float(tie))
+    assert rows.numpy().astype(np.int64).tolist() == want[key][2].tolist()
+    p_rows, _n, p_tags = tvd.dp_pipeline_torch(pos, words, *args, tags=True)
+    assert torch.equal(rows, p_rows) and torch.equal(tags, p_tags)
+    got = _tuples(port_e.search_raw(hay, float(tie)))
+    assert got == _tuples(jax_matches)
+    assert tie.view(np.uint32).item() in {t[3] for t in got}
+
+
+def _random_hits(run, n: int, count: int, seed: int):
+    """``count`` ascending hit positions below ``n`` (every third one a run
+    of consecutive positions) with random match words over the scan's
+    pattern bits."""
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.choice(n - 4, size=count // 2, replace=False))
+    pos = np.unique(np.concatenate([starts, starts[::3] + 1, starts[::3] + 2]))[:count]
+    W2 = 2 * run.T_scan.W
+    words = rng.integers(0, 1 << 32, size=(pos.size, W2), dtype=np.int64)
+    words &= rng.integers(0, 1 << 32, size=(pos.size, W2), dtype=np.int64)
+    return torch.from_numpy(pos.astype(np.int64)), torch.from_numpy(words)
+
+
+@pytest.mark.parametrize("name", ["forbid-swaps-e2", "mapped-eszett", "deadend-e2"])
+def test_list_step_on_random_hit_lists(monkeypatch, name):
+    """On random hit lists the list step equals ``dp_pipeline_torch`` with a
+    first hit h0 = 1 and tags, and run in three ranges (each handed its
+    preceding hit, the rows put back by their tags) equals one range."""
+    _c, _p, hay, thr, _lane = CASES[name]
+    _jax_e, port_e = _pair(name)
+    plan, run = _lane_inputs(port_e, hay, thr)
+    part = run.parts[0]
+    pos, words = _random_hits(run, part.local_n, 600, 11)
+    window = tvd.DpWindow(part.lo, part.hi, part.local_n)
+    args = (window, part.ids_de, part.local_n, run.T, run.pens, np.float32(thr), plan.E,
+            run.deadend, run.statics, run.variant)
+    got = tvd.dp_pipeline(pos, words, *args, h0=1, tags=True)
+    want = tvd.dp_pipeline_torch(pos, words, *args, h0=1, tags=True)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1] and torch.equal(got[2], want[2])
+    assert got[0].shape[0] > 20 and got[1] > got[0].shape[0] // 4
+    one, n_one = tvd.dp_pipeline(pos, words, *args)
+    calls = []
+    real = tvd.dp_pipeline
+    monkeypatch.setattr(tvd, "dp_pipeline",
+                        lambda *a, **k: calls.append(k.get("h0", 0)) or real(*a, **k))
+    three, n_three = tvd.dp_pipeline_ranges(pos, words, -(-pos.numel() // 3), *args)
+    assert calls == [0, 1, 1]
+    assert torch.equal(three, one) and n_three == n_one
+
+
+def test_list_step_routing_and_bounds():
+    """Which count-channel calls take the list step: E >= 2, forbidden edit
+    types or mapping arrivals; E = 1 without either stays on
+    ``dp_pipeline_kernel``, the typed lane on its own step. The step's
+    candidates, rows, decisions and row counts stay inside int32 at
+    ``pipeline_max_hits``; the emission refuses offsets that disagree with
+    its decisions."""
+    _jax_e, mapped_e = _pair("mapped-rn-m")
+    maps = tvd.mapped_spec_of(mapped_e)
+    assert maps is not None
+    _plan, mrun = _lane_inputs(mapped_e, CASES["mapped-rn-m"][2], 0.5)
+    TT = tvd.TypedTables(*(torch.zeros(1, dtype=torch.int32),) * 5)
+    assert not tvd._list_step(1, tvd.FAST)
+    assert all(tvd._list_step(E, tvd.FAST) for E in range(2, tvd.MAX_E + 1))
+    assert tvd._list_step(1, tvd.DpVariant(forbid=(False, False, False, True)))
+    assert tvd._list_step(1, mrun.variant) and mrun.variant.maps is not None
+    assert not tvd._list_step(2, tvd.DpVariant(typed=TT))
+    for n_c, MO, E in ((48, 1, 2), (80, 16, 2), (600, 40, 3), (1, 1, 6)):
+        most = tvd.pipeline_max_hits(n_c, MO, E)
+        nce = (2 * E + 1) * MO
+        items = most * n_c
+        assert items * (nce + 1) < 1 << 31
+        assert items * nce + -(-items // tvd.TYPED_TILE) * nce + 1 < 1 << 31
+    # The emission refuses offsets that give another row total.
+    name = "forbid-swaps-e2"
+    _c, _p, hay, thr, _lane = CASES[name]
+    plan, run = _lane_inputs(_pair(name)[1], hay, thr)
+    _h, cands, dec, _rc, offsets, rows, _t, _a, _p, _w = _step(plan, run, run.parts[0], thr)
+    n_combo = tvd._combos(plan.E, *run.statics).shape[1]
+    M = int(cands.total[0])
+    with pytest.raises(ValueError, match="rows decided"):
+        tvd.count_emit(dec, offsets, cands, run.T, plan.E, n_combo, rows.shape[0] + 1, M)
+    again, no_tags = tvd.count_emit(dec, offsets, cands, run.T, plan.E, n_combo, rows.shape[0], M)
+    assert torch.equal(again, rows) and no_tags is None
+
+
+def test_step_ranges_bounded_by_bytes(monkeypatch):
+    """``step_max_hits``: the int32 bound alone for ``dp_pipeline_kernel``
+    (E = 1 without forbid flags or mappings), and for the list and typed
+    steps also the hits whose items' candidate list and decisions fit
+    ``STEP_RANGE_BYTES``. With that budget cut to a few hits' worth, a
+    forbid search runs in many ranges and equals the JAX search."""
+    TT = tvd.TypedTables(*(torch.zeros(1, dtype=torch.int32),) * 5)
+    forbid = tvd.DpVariant(forbid=(False, False, False, True))
+    for n_c, MO, E in ((48, 1, 1), (80, 16, 2), (600, 40, 3), (1, 1, 6), (10 ** 6, 4, 2)):
+        most = tvd.pipeline_max_hits(n_c, MO, E)
+        per_hit = (12 + 8 * (2 * E + 1) * MO) * n_c
+        for v in (forbid, tvd.DpVariant(typed=TT)) + ((tvd.FAST,) if E >= 2 else ()):
+            got = tvd.step_max_hits(n_c, MO, E, v)
+            assert 1 <= got <= most
+            assert got * per_hit <= tvd.STEP_RANGE_BYTES or got == 1
+            assert got == most or (got + 1) * per_hit > tvd.STEP_RANGE_BYTES
+    assert tvd.step_max_hits(48, 1, 1, tvd.FAST) == tvd.pipeline_max_hits(48, 1, 1)
+    name = "forbid-swaps-e2"
+    _c, _p, hay, thr, lane = CASES[name]
+    jax_e, port_e = _pair(name)
+    jax_corpus.clear()
+    want = _tuples(jax_e.search_raw(hay, thr))
+    plan, run = _lane_inputs(port_e, hay, thr)
+    per_hit = (12 + 8 * (2 * plan.E + 1) * run.T.out_list.shape[1]) * plan.n_combo
+    monkeypatch.setattr(tvd, "STEP_RANGE_BYTES", 5 * per_hit)
+    calls = []
+    real = tvd.dp_pipeline
+    monkeypatch.setattr(tvd, "dp_pipeline",
+                        lambda *a, **k: calls.append(k.get("h0", 0)) or real(*a, **k))
+    device_corpus.clear()
+    got = _tuples(port_e.search_raw(hay, thr))
+    assert port_e.last_stats["backend"] == BACKEND[lane]
+    assert got == want and len(got) > 0
+    assert len(calls) == -(-port_e.last_stats["hits"] // 5) and set(calls) == {0, 1}
+
+
+def test_mapped_lane_declines_past_the_scan_rows():
+    """A mapped engine at ``edits(4)`` scans with a budget of 2E = 8 error
+    rows, past the scan kernels' ``MAX_K``: the lane declines (the search
+    falls back to the oracle) instead of raising, and the matches equal the
+    JAX package's device search; ``count_dp`` takes mappings up to E = 3
+    on the card."""
+    patterns = ["strasse", "grosse"]
+    hay = ("pad " * 10) + "straße grosze strasse gröse " * 3
+    jax_e = (JaxBuilder.new().fuzzy(JaxLimits.new().edits(4)).mapping("ß", "ss")
+             .case_insensitive(True).build(patterns))
+    port_e = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(4)).mapping("ß", "ss")
+              .case_insensitive(True).device("cpu").build(patterns))
+    jax_e.backend = port_e.backend = "device"
+    spec = tvd.mapped_spec_of(port_e)
+    assert spec is not None and spec.k == 8 > tpb.MAX_K
+    assert tvd.dp_plan(port_e, 0.5, len(view_of(hay, True)), None, spec) is None
+    jax_corpus.clear()
+    device_corpus.clear()
+    want = sorted(_tuples(jax_e.search_raw(hay, 0.5)))
+    assert jax_e.last_stats["backend"] == BACKEND["mapped"]
+    got = sorted(_tuples(port_e.search_raw(hay, 0.5)))
+    assert port_e.last_stats["backend"] == "oracle"
+    # The same match set; the oracle lists it in its own order.
+    assert got == want and any(t[6] >= 1 for t in got)
+    assert tvd.LIST_MAPS_MAX_E == 3 and 2 * (tvd.LIST_MAPS_MAX_E + 1) > tpb.MAX_K
