@@ -37,8 +37,12 @@ torch version. Phases:
    threshold, on a range with h0 = 1 and tags, and with mapping arrivals
    (rn <-> m on the headline dictionary + ``modern``; ß <-> ss and æ <-> ae,
    drift +1 and -1 in both directions; a scored mapping; ``edits(2)`` and
-   ``edits(3)`` (G = 32) mapped; ``edits(4)`` mapped, which the lane
-   declines to the oracle, its scan budget past the scan's rows), and for ``edits(2)``
+   ``edits(3)`` (G = 32) mapped; ``edits(4)``-``(6)`` mapped, the rows
+   form with mapping arrivals behind scan budgets of 8-12 rows;
+   ``edits(2)`` with sch <-> tsch, a 4-symbol side, k = 8, and ``edits(3)``
+   with sch <-> sh, k = 9; and a mapped ``edits(4)`` search through
+   ``search_raw`` on the card's lane, its launches counted, against the
+   oracle), and for ``edits(2)``
    with swaps and a multi-byte-edge dictionary at ``edits(2)``;
    ``banded_dp_typed``
    and the typed step (``typed_expand``, ``typed_dp``, ``typed_emit``, each
@@ -65,7 +69,15 @@ torch version. Phases:
    ``edits(2)``, the chunk step ``many_step`` (expansion, DP and emission in
    one kernel) with and without the containment test and the whole chunk
    (``many_pipeline``), and on the first chunk the step on a range handed
-   its preceding hit (h0 = 1) and the chunk in 3 ranges;
+   its preceding hit (h0 = 1) and the chunk in 3 ranges. The wide
+   kernels past six rows (``deep_kernel_checks``): the library's instance
+   table at W = 1..64, k = 7..24; the scan and the replay at k = 7, 8, 12,
+   13 and 24 and W = 1, 8, 9, 31 and 64, with and without the Damerau rows,
+   at W = 2 and 4, on a stream without a hit and on segments
+   with halos; ``fuzzy_anchors_packed`` at a budget of 8 rows against the
+   same call on the CPU, resident and in segments. Mapped4's text and
+   plain-scan windows are made here, and the oracle's searches over them
+   begun (``mapped4_start``);
 4. exact main path: the headline 16-word case-insensitive dictionary
    searched exact (threshold 0.5) over a 96 MiB seeded corpus, two warm-up
    searches then three timed ones, the plain versions locked out; the match
@@ -100,6 +112,15 @@ torch version. Phases:
    ``dp_pipeline_kernel``), and equal the context oracle's match set; a
    lane that declined at 96 MiB would run at the largest power-of-two
    prefix it serves and say so;
+4e''. mapped4: 16 two-word names (``MAPPED4_WORDS``), rn <-> m,
+   ``edits(4)`` at 0.8 (a scan budget of 8 rows: the wide kernels' deep
+   instances and ``count_dp_rows_kernel`` with mapping arrivals) over the
+   corpus with 4,000 copies planted, each with 1-4 edits, every m of every
+   second one written rn; timed as 4c-4e; its set equal to the oracle's
+   over every merged window around a planted copy or a hit of the plain
+   scan, and over the first 32 KiB in whole, as (pattern, start, end,
+   similarity bits), the matches whose tied paths carry other edit counts
+   counted;
 4f. the large-dictionary lane, many1k (``bench.py:187-229``: 1,000 random
    words, ``edits(1)``, 0.82, the first 24 MiB of the corpus with 4,000
    planted typos), through ``search_raw`` with the folded layout and then
@@ -187,9 +208,9 @@ torch version. Phases:
    the plain versions and the oracle locked out, the launch counters set
    to 0 just before each search and read just after: (a)
    ``sharded_exact_search`` (the goto walk's kernels per shard) and
-   ``sharded_fuzzy_search`` of the exact, fuzzy1, forbid, typed and
-   mapped engines over their phase 4-4e
-   texts (the forbid and mapped ones launching the list step and no
+   ``sharded_fuzzy_search`` of the exact, fuzzy1, forbid, typed, mapped
+   and mapped4 engines over their phase 4-4e'' texts (mapped4 launching
+   the deep scan instances; the forbid and mapped ones the list step and no
    ``dp_pipeline_kernel``), on 3 logical shards of the card (``[cuda:0] * 3``) and on
    ``default_mesh()`` (every card), a first search and best of 3, each
    equal to the engine's ``search_raw`` tuple for tuple (14,222 / 42,666 /
@@ -225,8 +246,11 @@ torch version. Phases:
    phase's search, where the scan's three kernels on the lane's own tables
    and ``block_offsets`` on every count array the step scans are held
    against their plain versions too; for the typed lane, and for the list
-   step of the forbid and mapped lanes (with the DP instance's registers and
-   spill bytes), each of the step's kernels alone; the same for ``edits(2).substitutions(1)``, typed with 14
+   step of the forbid, mapped and mapped4 lanes (with the DP instance's
+   registers and spill bytes; mapped4's ``count_dp_rows_kernel`` with
+   mapping arrivals), each of the step's kernels alone; the wide kernels'
+   deep instances at mapped4's shape (``deep_times``: three timings,
+   registers, spills, SASS); the same for ``edits(2).substitutions(1)``, typed with 14
    channels behind a k = 2 scan, beside its searches over the whole
    corpus; ``block_offsets`` beside ``torch.cumsum(..., dtype=torch.int32)``
    at every shape the searches hand it and at 129,864 and 2^22 + 7 counts),
@@ -305,6 +329,9 @@ TYPED_KEYS = ("typed_expand", "typed_dp", "typed_emit")
 #: forbidden edit types or mappings): the typed step's expansion, then
 #: ``count_dp`` and ``count_emit`` (``csrc/dp_list.cu``).
 LIST_KEYS = ("typed_expand", "count_dp", "count_emit")
+#: The launch counters of the scan past six error rows (the wide kernels'
+#: deep instances, at every W).
+DEEP_SCAN_KEYS = ("scan_bits_wide", "block_offsets", "hit_words_wide")
 #: The many1k configuration (``bench.py:187-229``): 1,000 random lowercase
 #: words of 6-11 letters drawn from seed 7, ``edits(1)``, case-insensitive,
 #: threshold 0.82, over the first 24 MiB of the corpus with 4,000 planted
@@ -662,8 +689,9 @@ def ptxas_summary(log_text: str):
     kernels at k=0 and at k=1 with Damerau rows, the offsets scan, every
     banded DP instantiation, the u8 pipeline ones, the typed kernels, the
     list step's DP (every G and MAPS, the shared-rows form) and emission,
-    the wide scan at k=0 (every LPL) and k=1, the wide hit-list kernel at
-    k=0 and k=1, the many lane's step at E=1 and E=2;
+    the wide scan at k=0 (every LPL), k=1 and the deep row templates 12 and
+    24 (every instance), the wide hit-list kernel at k=0, 1, 12 and 24, the
+    many lane's step at E=1 and E=2;
     number of instantiations, number of them with spills, max registers)."""
     import re
 
@@ -681,8 +709,8 @@ def ptxas_summary(log_text: str):
         name = e["name"]
         dp = re.search(r"(banded_dp|dp_pipeline)_kernelILi(\d)ELb([01])ELb([01])E([hi])", name)
         scan = re.search(r"(scan_bits|hit_words)_kernelILi3ELi([01])ELb([01])E(?:Li(\d+)E)?", name)
-        wide = re.search(r"scan_bits_wide_kernelILi(\d)ELi(\d+)ELi(\d)ELb([01])E", name)
-        wide_hits = re.search(r"hit_words_wide_kernelILi(\d)ELb([01])E", name)
+        wide = re.search(r"scan_bits_wide_kernelILi(\d)ELi(\d+)ELi(\d+)ELb([01])E", name)
+        wide_hits = re.search(r"hit_words_wide_kernelILi(\d+)ELb([01])E", name)
         step = re.search(r"many_step_kernelILi(\d)ELb([01])E", name)
         cdp = re.search(r"count_dp_kernelILi(\d+)ELb([01])E", name)
         if cdp:
@@ -690,12 +718,12 @@ def ptxas_summary(log_text: str):
         elif "count_dp_rows_kernel" in name or "count_emit_kernel" in name:
             label = "count_dp_rows" if "count_dp_rows_kernel" in name else "count_emit"
         elif wide:
-            if wide.group(3) not in ("0", "1"):
+            if wide.group(3) not in ("0", "1", "12", "24"):
                 continue
             label = (f"scan_bits_wide<LPL={wide.group(1)},G={wide.group(2)},"
                      f"K={wide.group(3)},Damerau={wide.group(4)}>")
         elif wide_hits:
-            if wide_hits.group(1) not in ("0", "1"):
+            if wide_hits.group(1) not in ("0", "1", "12", "24"):
                 continue
             label = f"hit_words_wide<K={wide_hits.group(1)},Damerau={wide_hits.group(2)}>"
         elif step:
@@ -892,6 +920,14 @@ def stage_breakdown(torch, tpb, vdp, engine, corpus: str, thr: float):
     return ms, len(out)
 
 
+def spans_of(keys):
+    """The (pattern, start, end, similarity bits) of match keys, as a sorted
+    list: where paths of one penalty tie, the mapped lane at E >= 4 (the
+    JAX package's and the port's alike) may report another path's edit
+    counts than the oracle."""
+    return sorted(k[:4] for k in keys)
+
+
 def match_key(m):
     """(pattern, start, end, f32 similarity bits, the four edit counts)."""
     import numpy as np
@@ -903,7 +939,7 @@ def match_key(m):
 def recipe_engine(ctx, name: str):
     """The engines of the full-size phases by name, so that a worker process
     can build its own: ``fuzzy1`` (4b), ``forbid`` (4c), ``fuzzy2`` (4c'),
-    ``typed`` (4d), ``mapped`` (4e)."""
+    ``typed`` (4d), ``mapped`` (4e), ``mapped4`` (4e'')."""
     L, P = ctx.Limits, ctx.Pattern
     if name == "fuzzy1":
         return make_engine(ctx, HEADLINE, L.new().edits(1))
@@ -918,6 +954,8 @@ def recipe_engine(ctx, name: str):
         return make_engine(ctx, words, L.new().edits(1))
     if name == "mapped":
         return make_engine(ctx, HEADLINE + ["modern"], L.new().edits(1), mappings=[("rn", "m")])
+    if name == "mapped4":
+        return make_engine(ctx, MAPPED4_WORDS, L.new().edits(4), mappings=[("rn", "m")])
     if name == "many1k":
         return make_engine(ctx, many_words(1000, 7), L.new().edits(1))
     if name in ("cjk1", "long"):
@@ -1302,6 +1340,12 @@ def bound_ms(nbytes: float, ops: float, rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def row_template(tpb, k: int) -> int:
+    """The row count K of the scan instance that serves ``k`` error rows: k
+    itself up to 2, then the masked 6, 12 and 24."""
+    return k if k <= 2 else tpb.MAX_K if k <= tpb.MAX_K else 12 if k <= 12 else tpb.MAX_SCAN_K
+
+
 def wide_kernel_detail(ctx, kern, ids, T, halo, instance) -> dict:
     """The wide kernels at one main-path shape (``ids``, tables ``T``): for
     ``scan_bits_wide`` and ``hit_words_wide`` the three times of
@@ -1319,7 +1363,7 @@ def wide_kernel_detail(ctx, kern, ids, T, halo, instance) -> dict:
     hits = int(offs[-1])
     N, instr = ids.numel(), scan_instr(T.W, T.k, T.damerau)
     lpl, g = instance(T.W, T.k)
-    K, dam = (T.k if T.k <= 2 else tpb.MAX_K), int(T.damerau)
+    K, dam = row_template(tpb, T.k), int(T.damerau)
     rec = {"n": N, "W": T.W, "k": T.k, "damerau": T.damerau, "A": T.A, "halo": halo,
            "hits": hits, "instance": {"LPL": lpl, "G": g, "padded_W": lpl * g}}
     scan = three_way_ms(torch, lambda: tpb.scan_bits(ids, T, halo), "scan_bits_wide",
@@ -1329,8 +1373,8 @@ def wide_kernel_detail(ctx, kern, ids, T, halo, instance) -> dict:
     if entry is not None:
         scan["registers"], scan["spill"] = entry[1], entry[2]
         # a lane reads its limbs in 16-byte pairs (an odd count's last half
-        # empty) per symbol
-        loop = sass_loop(str(kern.path), entry[0], 16 * -(-lpl // 2))
+        # empty) per symbol at k = 0, a u64 a limb past it
+        loop = sass_loop(str(kern.path), entry[0], 16 * -(-lpl // 2) if T.k == 0 else 8 * lpl)
         if loop is not None:
             loop["per_symbol_per_lane"] = loop["instructions"] / loop["symbols"]
             loop["per_symbol_per_chain"] = loop["instructions"] * g / loop["symbols"]
@@ -1372,6 +1416,19 @@ def wide_kernel_detail(ctx, kern, ids, T, halo, instance) -> dict:
 GERMAN = ["strasse", "weiss", "fussball", "aether", "grosse"]
 GERMAN_TEXT = ["der", "die", "und", "mit", "straße", "strasse", "weiß", "wiess", "fußball",
                "æther", "aether", "wei", "ss", "ß", "strase", "fusball", "große", "grosze"]
+#: Longer words for the mapped DP at E = 4..6 (scan budgets 8-12 rows, below
+#: their lengths, so that a hit is not every position), and their corpus.
+GERMAN_LONG = ["strassenbahnhof", "fussballspieler", "grossmutterhaus", "weissbierglas"]
+GERMAN_LONG_TEXT = ["der", "die", "und", "mit", "straßenbahnhof", "strassenbahnhof",
+                    "fußballspieler", "fussbalspieler", "großmutterhaus", "grosmutterhaus",
+                    "weißbierglas", "weisbierglas", "strassenbanhof", "großmuterhaus"]
+#: Words with ``sch`` (and none with ``tsch``, a pattern side past the mapped
+#: DP's three symbols) for sch <-> tsch (a 4-symbol side: k = 4E) and
+#: sch <-> sh (k = 3E), and their corpus.
+SCH_WORDS = ["schiffsschraube", "fischmarkt", "schulbuecher", "tischlerei"]
+SCH_TEXT = ["der", "und", "ein", "schiffsschraube", "shiffsshraube", "tschiffsschraube",
+            "fischmarkt", "fishmarkt", "fitschmarkt", "schulbuecher", "shulbuecher",
+            "tschulbuecher", "tischlerei", "tishlerei", "titschlerei", "fischmrkt", "schulbucher"]
 
 
 def plant_words(text: str, seed: int, count: int, words) -> str:
@@ -1435,6 +1492,8 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
     de_text = word_corpus(GERMAN_TEXT, 60000, SEED + 7)
     ou_text = word_corpus(["colour", "color", "honour", "honor", "colr", "the", "and", "coulor",
                            "hounor", "of"], 60000, SEED + 8)
+    long_text = word_corpus(GERMAN_LONG_TEXT, 12000, SEED + 24)
+    sch_text = word_corpus(SCH_TEXT, 12000, SEED + 25)
     head = lambda lim: make_engine(ctx, HEADLINE, lim)
     # (what, engine, text, threshold, also on int32 ids)
     cases = [
@@ -1459,6 +1518,16 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
         ("mapped edits(3) ß<->ss, Unicode, G = 32", make_engine(
             ctx, GERMAN, L.new().edits(3), mappings=[("ß", "ss")]), de_text[: 256 << 10], 0.5,
          False),
+        ("mapped edits(4) ß<->ss, Unicode, k = 8, rows in shared memory", make_engine(
+            ctx, GERMAN_LONG, L.new().edits(4), mappings=[("ß", "ss")]), long_text, 0.5, False),
+        ("mapped edits(5) ß<->ss, Unicode, k = 10, rows in shared memory", make_engine(
+            ctx, GERMAN_LONG, L.new().edits(5), mappings=[("ß", "ss")]), long_text, 0.5, False),
+        ("mapped edits(6) ß<->ss, Unicode, k = 12, rows in shared memory", make_engine(
+            ctx, GERMAN_LONG, L.new().edits(6), mappings=[("ß", "ss")]), long_text, 0.5, False),
+        ("mapped edits(2) sch<->tsch, a 4-symbol side, k = 8", make_engine(
+            ctx, SCH_WORDS, L.new().edits(2), mappings=[("sch", "tsch")]), sch_text, 0.6, False),
+        ("mapped edits(3) sch<->sh, k = 9", make_engine(
+            ctx, SCH_WORDS, L.new().edits(3), mappings=[("sch", "sh")]), sch_text, 0.5, False),
         ("typed substitutions(1)", head(L.new().substitutions(1)), edited, 0.8, True),
         ("typed insertions(1).deletions(1)", head(L.new().insertions(1).deletions(1)), mib, 0.7,
          False),
@@ -1547,24 +1616,32 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
     require(torch.equal(got[0], want[0]) and got[1] == want[1] and torch.equal(got[2], want[2]),
             "the typed step disagrees with its plain version on a range")
     # Mappings at edits(4): the lane scans with 2E = 8 error rows, past the
-    # scan kernels' MAX_K, so it declines and the search is the oracle's
-    # (count_dp takes mappings up to E = 3).
+    # one-thread scan's six, on the wide kernels' deep instances, and its DP
+    # is count_dp_rows_kernel with mapping arrivals; the search equals the
+    # oracle's as (pattern, start, end, similarity bits). Where two paths
+    # tie, the lane's edit counts may be another path's than the oracle's
+    # (the JAX device lane's are the port's: tests/test_torch_dp_list.py).
     mapped4 = make_engine(ctx, GERMAN, L.new().edits(4), mappings=[("ß", "ss")])
     de_small = de_text[: 16 << 10]
     specs = vdp.lane_specs_of(mapped4)
-    require(specs[1] is not None and specs[1].k > tpb.MAX_K
-            and vdp.dp_plan(mapped4, 0.5, len(de_small), *specs) is None,
-            "the mapped lane serves edits(4) past the scan's error rows")
-    for k in tpb.LAUNCHES:
-        tpb.LAUNCHES[k] = 0
-    got4 = sorted(map(keyf, mapped4.search_raw(de_small, 0.5)))
-    backend4 = mapped4.last_stats["backend"]
+    require(specs[1] is not None and specs[1].k == 8
+            and vdp.dp_plan(mapped4, 0.5, len(de_small), *specs) is not None,
+            "the mapped lane declines edits(4)")
+    reset_launches(tpb)
+    with plain_locked((ctx.oracle, "search_raw")):
+        got4 = sorted(map(keyf, mapped4.search_raw(de_small, 0.5)))
+    backend4, launches4 = mapped4.last_stats["backend"], dict(tpb.LAUNCHES)
     mapped4.backend = "oracle"
     want4 = sorted(map(keyf, mapped4.search_raw(de_small, 0.5)))
-    log(f"  mapped edits(4): the lane declines (scan budget {specs[1].k} > {tpb.MAX_K} rows), "
-        f"backend {backend4}, {len(got4)} matches, equal to the oracle {got4 == want4}")
-    require(backend4 == "oracle" and got4 == want4 and len(got4) > 0
-            and not any(tpb.LAUNCHES.values()), "mapped edits(4) is not the oracle's search")
+    log(f"  mapped edits(4) (scan budget {specs[1].k} rows): backend {backend4}, {len(got4)} "
+        f"matches, equal to the oracle as (pattern, start, end, similarity) "
+        f"{spans_of(got4) == spans_of(want4)}, with the edit counts {got4 == want4} "
+        f"({len(set(got4) - set(want4))} tied matches with other counts); launches {launches4}")
+    require(backend4 == "device-fuzzy-dp-mapped" and spans_of(got4) == spans_of(want4)
+            and len(got4) > 0, "mapped edits(4) differs from the oracle's search")
+    require(all(launches4[k] > 0 for k in DEEP_SCAN_KEYS + LIST_KEYS)
+            and launches4["scan_bits"] == launches4["hit_words"] == 0,
+            "mapped edits(4) did not run the deep scan instances and the list step")
     nothing = "lorem ipsum dolor sit amet " * 20000
     for eng, thr, what in ((forbid2, 0.9, "forbid"), (mapped_rn, 0.95, "mapped"),
                            (typed2, 0.8, "typed")):
@@ -1573,7 +1650,8 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
 
 
 def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, backend: str,
-                   locked, scan_keys, pipe_keys: tuple, oracle_set, min_matches: int):
+                   locked, scan_keys, pipe_keys: tuple, oracle_set, min_matches: int,
+                   ties=False):
     """One DP lane (``engine`` is ``recipe_engine(name)``) at full width through
     ``search_raw``: a probe on 1 MiB,
     then over ``corpus`` (or, where the lane declines there, over its largest
@@ -1581,7 +1659,9 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
     three timed ones with the plain versions and the oracle locked out; the
     launch counters; the match set against the context oracle
     (``oracle_set(name, text, thr)``); the profiler's launches, copies and
-    waits per search."""
+    waits per search. With ``ties`` the match sets are compared as
+    ``spans_of`` them, and the matches whose edit counts differ counted.
+    """
     torch, tpb, vdp = ctx.torch, ctx.tpb, ctx.vdp
     t_phase = time.perf_counter()
 
@@ -1629,9 +1709,17 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
     require(len(dev_set) == len(got), f"{tag}: the lane repeats a match")
     t0 = time.perf_counter()
     want, n_ctx = oracle_set(name, text, thr)
-    log(f"  independent context oracle (tail {CONTEXT_TAIL}): {n_ctx} contexts, {len(want)} "
-        f"matches, {time.perf_counter() - t0:.1f} s; equal: {dev_set == want}")
-    require(dev_set == want, f"{tag}: the lane disagrees with the context oracle")
+    if ties:
+        equal = spans_of(dev_set) == spans_of(want)
+        log(f"  independent oracle: {n_ctx} windows, {len(want)} matches, "
+            f"{time.perf_counter() - t0:.1f} s; equal as (pattern, start, end, similarity): "
+            f"{equal}; with the edit counts: {dev_set == want} ({len(dev_set - want)} tied "
+            "matches with other counts)")
+    else:
+        equal = dev_set == want
+        log(f"  independent context oracle (tail {CONTEXT_TAIL}): {n_ctx} contexts, {len(want)} "
+            f"matches, {time.perf_counter() - t0:.1f} s; equal: {equal}")
+    require(equal, f"{tag}: the lane disagrees with the oracle")
     require(len(want) > min_matches, f"{tag}: too few matches to be a real check")
     prof = profile_search(torch, lambda: engine.search_raw(text, thr), 3, tpb.LAUNCHES)
     log(f"  torch.profiler over 3 searches: wall {prof['wall']:.3f} ms per search, device busy "
@@ -1798,16 +1886,17 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
                            offsets=offs_recs, device_ms=dev_ms, prof_counted=prof["counted"])
 
 
-def wide_tables(tpb, W: int, k: int, damerau: bool, A: int, seed: int, device):
+def wide_tables(tpb, W: int, k: int, damerau: bool, A: int, seed: int, device, length=(6, 15)):
     """Scan tables of exactly ``W`` limbs over an alphabet of ``A`` symbols:
-    random words (symbol lists of 6-14 symbols) packed first-fit until the
-    next one would open limb W. Returns (tables, words, halo)."""
+    random words (symbol lists of ``length`` symbols, a half-open range)
+    packed first-fit until the next one would open limb W. Returns (tables,
+    words, halo)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     words = []
     while True:
-        w = rng.integers(1, A, size=int(rng.integers(6, 15))).tolist()
+        w = rng.integers(1, A, size=int(rng.integers(*length))).tolist()
         offs = tpb._pack_fields([len(x) for x in words + [w]])
         if max(lw for lw, _ in offs) + 1 > W:
             break
@@ -1834,7 +1923,7 @@ def wide_stream(words, A: int, n: int, seed: int, k: int):
 
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, A, size=n).astype(np.uint8)
-    for at in rng.integers(0, n - 16, size=n // 40).tolist():
+    for at in rng.integers(0, n - max(16, max(map(len, words))), size=n // 40).tolist():
         w = list(words[int(rng.integers(len(words)))])
         for _ in range(int(rng.integers(0, k + 1))):
             w[int(rng.integers(len(w)))] = int(rng.integers(1, A))
@@ -1900,6 +1989,76 @@ def wide_kernel_checks(ctx) -> dict:
     case(43, 27, 0, False, dense=tpb.SCAN_BLOCK_SYMS)
     case(31, 27, 1, True, dense=tpb.SCAN_BLOCK_SYMS)
     case(43, 27, 0, False, want_hits=False, ids=np.zeros(50013, np.uint8))
+    return errs
+
+
+#: Phase 3's grid of the wide kernels past the one-thread chains' six rows:
+#: k on both sides of the K = 12 / 24 row templates, W at each lane count
+#: (1, 8, 16 and 32 lanes of one limb, 32 lanes of two).
+DEEP_KS = (7, 8, 12, 13, 24)
+DEEP_WIDTHS = (1, 8, 9, 31, 64)
+
+
+def deep_kernel_checks(ctx) -> dict:
+    """Phase 3 for the wide kernels at k = 7..24 (the deep instances): the
+    library's instance table against ``wide_scan_instance`` at W = 1..64, k =
+    7..24; then ``compare_scan`` (the scan, the offsets and the replay bit
+    for bit against their plain versions) on streams of 20,013 symbols of an
+    alphabet of 128 with the dictionary's words planted, each with up to k
+    substitutions: every k of ``DEEP_KS`` at every W of ``DEEP_WIDTHS``,
+    with the Damerau rows where the two indices' sum is odd (so that each
+    row template runs both ways at every lane count: the K = 12 template
+    takes three k, the K = 24 one two); W = 2 and 4 (the other lane counts)
+    at k = 8; a stream without a hit at W = 64, k = 24 with the Damerau
+    rows; and a segment of a stream with halos on both sides, its
+    view unaligned, at k = 8 and 13 (the streamed anchors' form). Words are
+    k + 8 to k + 24 symbols long, so that a hit is not every position.
+    Returns {kernel: max_abs_err} under the deep instances' names."""
+    torch, np, tpb = ctx.torch, ctx.np, ctx.tpb
+    names = ("scan_bits_wide[k=7..24]", "block_offsets", "hit_words_wide[k=7..24]")
+    errs = dict.fromkeys(names, 0)
+    lib = ctx.kern.lib
+    for W in range(1, tpb.MAX_SCAN_LIMBS + 1):
+        for k in range(tpb.MAX_K + 1, tpb.MAX_SCAN_K + 1):
+            lpl, g = tpb.wide_scan_instance(W, k)
+            require(lib.fac_scan_wide_instance(W, k) == lpl * 256 + g,
+                    f"W={W} k={k}: the library's instance {lib.fac_scan_wide_instance(W, k)} "
+                    f"is not wide_scan_instance's ({lpl}, {g})")
+        for k in range(tpb.MAX_K + 1):
+            require((lib.fac_scan_wide_instance(W, k) < 0) == (W <= tpb.MAX_LIMBS),
+                    f"W={W} k={k}: the library's instance table has the wrong edge")
+    log(f"  the wide scan's instance at W = 1..{tpb.MAX_SCAN_LIMBS}, k = {tpb.MAX_K + 1}.."
+        f"{tpb.MAX_SCAN_K}: the library's equals wide_scan_instance's")
+
+    def case(W, k, dam, A=128, n=20013, want_hits=True, zeros=False, segment=False):
+        t0 = time.perf_counter()
+        T, words, halo = wide_tables(tpb, W, k, dam, A, SEED + 3 * W + k, ctx.dev,
+                                     length=(k + 8, min(k + 25, 65)))
+        ids = (np.zeros(n, np.uint8) if zeros
+               else wide_stream(words, A, n, SEED + W * (k + 1) + dam, k))
+        ids = torch.from_numpy(ids).to(ctx.dev)
+        what = f"deep W={W} k={k} {'Damerau' if dam else 'plain'}"
+        if segment:  # 15,001 symbols with halos on both sides, from an odd offset
+            ids = ids[1001 - halo: 16002 + halo]
+            what += f", a segment with {halo}-symbol halos, unaligned"
+        count, e = compare_scan(tpb, torch, ids, T, halo, what + ("" if want_hits else ", no hit"),
+                                want_hits=want_hits)
+        require(count == 0 or want_hits, f"{what}: {count} hits")
+        require(count < ids.numel(), f"{what}: every position hits")
+        for key, err in zip(names, e):
+            errs[key] = max(errs[key], err)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for i, k in enumerate(DEEP_KS):
+        for j, W in enumerate(DEEP_WIDTHS):
+            case(W, k, (i + j) % 2 == 1)
+    for W in (2, 4):
+        case(W, 8, False)
+    case(64, 24, True, want_hits=False, zeros=True)
+    case(1, 8, False, segment=True)
+    case(9, 13, True, segment=True)
+    log(f"  the deep instances' checks {time.perf_counter() - t0:.1f} s")
     return errs
 
 
@@ -2539,6 +2698,39 @@ def wide_exact_times(ctx, engine, text: str, errs_in):
             f"({b_ms / ms:.3g} of the kernel's event time)")
     return rec, {"scan_bits_wide[k=0]": errs[0], "hit_words_wide[k=0]": errs[2],
                  "block_offsets": max(errs_in, errs[1])}, detail
+
+
+def deep_times(ctx, engine, text: str, thr: float):
+    """Phase 6 for the wide kernels' deep instances at mapped4's main-path
+    shape (slice 1 of its text, the lane's own tables): both against their
+    plain versions (``compare_scan``), their times, bound, registers and
+    SASS (``wide_kernel_detail``) beside their plain versions' CUDA-event
+    ms. Returns ({kernel: (ms, plain ms, (bound ms, by), library ms)},
+    {kernel: max_abs_err}, the detail)."""
+    torch, tpb = ctx.torch, ctx.tpb
+    plan, run = lane_inputs(ctx.vdp, engine, text, thr, "mapped4 main-path shape")
+    ids, T, halo = run.parts[0].ids_pf, run.T_scan, run.halo
+    hits, errs = compare_scan(tpb, torch, ids, T, halo,
+                              f"mapped4 main-path shape, W={T.W} k={T.k}")
+    bits, counts = tpb.scan_bits(ids, T, halo)
+    offs = tpb.block_offsets(counts)
+    detail = wide_kernel_detail(ctx, ctx.kern, ids, T, halo, tpb.wide_scan_instance)
+    rec = {
+        "scan_bits_wide[k=7..24]": (
+            detail["scan_bits_wide"]["events_ms"],
+            event_ms(torch, lambda: tpb.scan_bits_torch(ids, T, halo), 1),
+            detail["scan_bits_wide"]["bound"], None),
+        "hit_words_wide[k=7..24]": (
+            detail["hit_words_wide"]["events_ms"],
+            event_ms(torch, lambda: tpb.hit_words_torch(ids, bits, offs, hits, T, halo), 3),
+            detail["hit_words_wide"]["bound"], None),
+    }
+    for name, (ms, plain, (b_ms, b_by), _lib) in rec.items():
+        log(f"  {name} mapped4: {ids.numel()} symbols, W={T.W}, k={T.k}, {hits} hits, kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.3g} ms by {b_by} "
+            f"({b_ms / ms:.3g} of the kernel's event time)")
+    return rec, {"scan_bits_wide[k=7..24]": errs[0], "hit_words_wide[k=7..24]": errs[2],
+                 "block_offsets": errs[1]}, detail
 
 
 def compare_ranges(ctx, engine, text: str, thr: float, what: str):
@@ -3367,6 +3559,160 @@ def small_entry_points(ctx, fuzzy, many_e, corpus: str, many_text: str, locked, 
 
 
 # ---------------------------------------------------------------------------
+# Phase 4e'': mapped4, the mapped lane past six scan rows at full size
+# ---------------------------------------------------------------------------
+
+#: OCR post-correction of names (``rn`` read for ``m``): 16 two-word names of
+#: 18-24 characters (6 scan limbs) from the 13 headline words that are not
+#: the corpus's ``NEEDLES``, name i = ``w[i % 13] + " " + w[(i + 5 + i // 13)
+#: % 13]``. Three words (26-38 characters) would pass the mapped DP's 24
+#: rows (``verify_dp.MAPPED_LMAX``) and 8 scan limbs, where both packages'
+#: mapped lane declines; a name holding a needle would make each of the
+#: corpus's ~12,000 needles a hit of the 8-row scan, three quarters of the
+#: oracle's windows, with no match among them.
+_MAPPED4_BASE = [w for w in HEADLINE if w not in NEEDLES]
+MAPPED4_WORDS = [_MAPPED4_BASE[i % 13] + " " + _MAPPED4_BASE[(i + 5 + i // 13) % 13]
+                 for i in range(16)]
+MAPPED4_THRESHOLD = 0.8
+#: Copies of the names planted in the 96 MiB corpus, each with 1-4 edits.
+MAPPED4_COPIES = 4000
+#: The prefix over which the oracle runs in whole (the host oracle takes
+#: about 1.4 ms a character at edits(4) on these names).
+MAPPED4_PREFIX = 32 << 10
+
+
+def plant_phrases(text: str, seed: int, count: int, phrases):
+    """``text`` (ASCII) with ``count`` of ``phrases`` written over it at
+    seeded positions, in every second copy each ``m`` written ``rn`` first,
+    then 1-4 ``edit()``s. Returns (text, [(start, end)] of the copies)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    buf = bytearray(text.encode())
+    spans = []
+    for j, at in enumerate(rng.integers(0, len(buf) - 64, size=count).tolist()):
+        w = phrases[int(rng.integers(len(phrases)))]
+        if j % 2:
+            w = w.replace("m", "rn")
+        for _ in range(int(rng.integers(1, 5))):
+            w = edit(w, rng)
+        buf[at:at + len(w)] = w.encode()
+        spans.append((at, at + len(w)))
+    return buf.decode(), spans
+
+
+def merged_windows(intervals):
+    """[lo, hi) intervals merged where they overlap or touch, ascending."""
+    out = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return [tuple(w) for w in out]
+
+
+def _oracle_windows(job):
+    """Worker: the oracle's match keys over each of ``texts``, positions
+    relative to the text."""
+    name, thr, texts = job
+    import torch
+
+    from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern, oracle
+
+    ctx = SimpleNamespace(dev=torch.device("cpu"), Builder=FuzzyAhoCorasickBuilder,
+                          Limits=FuzzyLimits, Pattern=Pattern)
+    engine = recipe_engine(ctx, name)
+    return [[match_key(m) for m in oracle.search_raw(engine, t, thr)] for t in texts]
+
+
+def mapped4_start(ctx, corpus: str, pool, workers: int):
+    """Phase 3's share of phase 4e'': the mapped4 text (``corpus`` with
+    ``MAPPED4_COPIES`` names planted), the engine, and the oracle's searches
+    dealt out to the workers: over every merged window around a planted copy
+    or a hit of the PLAIN scan on the card (``scan_bits_torch`` on the
+    lane's own tables: a superset of match ends that no kernel computes),
+    each hit with the ``m_max + E`` characters before it (the longest span
+    a match has), and over the first ``MAPPED4_PREFIX`` characters in whole.
+    Returns a namespace for :func:`mapped4_bar`."""
+    torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
+    t0 = time.perf_counter()
+    text, spans = plant_phrases(corpus, SEED + 23, MAPPED4_COPIES, MAPPED4_WORDS)
+    engine = recipe_engine(ctx, "mapped4")
+    pk = tpb.packed_fuzzy_of(engine)
+    plan, run = lane_inputs(vdp, engine, text, MAPPED4_THRESHOLD, "mapped4")
+    require(plan.k == 8 and not plan.dam and pk.W <= tpb.MAX_LIMBS,
+            f"mapped4: scan budget {plan.k}, W {pk.W}")
+    ids = torch.from_numpy(np.ascontiguousarray(pk.filt.transcode(text)[0])).to(ctx.dev)
+    bits, _counts = tpb.scan_bits_torch(ids, run.T_scan, run.halo)
+    hits = torch.nonzero(tpb.hit_flags(bits, ids.numel())).reshape(-1).cpu().numpy()
+    reach = pk.m_max + plan.E
+    windows = merged_windows([(max(0, p - reach + 1), p + 1) for p in hits.tolist()] + spans)
+    # The prefix first (the longest job), then the windows in 8 shares a
+    # worker, taken as workers come free.
+    prefix = pool.apply_async(_oracle_windows,
+                              (("mapped4", MAPPED4_THRESHOLD, [text[:MAPPED4_PREFIX]]),))
+    shares = [list(range(len(windows)))[j::8 * workers] for j in range(8 * workers)]
+    jobs = [("mapped4", MAPPED4_THRESHOLD, [text[slice(*windows[i])] for i in share])
+            for share in shares]
+    pending = pool.map_async(_oracle_windows, jobs, chunksize=1)
+    covered = sum(hi - lo for lo, hi in windows)
+    log(f"  mapped4: {len(MAPPED4_WORDS)} names of {min(map(len, MAPPED4_WORDS))}-"
+        f"{max(map(len, MAPPED4_WORDS))} characters, W = {pk.W} limbs, A = {pk.A}, scan budget "
+        f"k = {plan.k}, halo {run.halo}; {MAPPED4_COPIES} copies planted; the plain scan on the "
+        f"card: {hits.size} hits; {len(windows)} merged windows of {covered} characters "
+        f"({covered / len(text):.5f} of the text) dealt to the oracle's {workers} workers with "
+        f"the first {MAPPED4_PREFIX} characters in whole; {time.perf_counter() - t0:.1f} s")
+    return SimpleNamespace(text=text, engine=engine, windows=windows, shares=shares,
+                           pending=pending, prefix=prefix, plain_hits=int(hits.size))
+
+
+def mapped4_bar(m4):
+    """The oracle's match set over mapped4's windows (``mapped4_start``),
+    shifted to the text's positions, and the window count."""
+    want = set()
+    for share, found in zip(m4.shares, m4.pending.get()):
+        for i, keys in zip(share, found):
+            lo = m4.windows[i][0]
+            want.update((p, lo + st, lo + en, *rest) for p, st, en, *rest in keys)
+    return want, len(m4.windows)
+
+
+def anchors_deep_check(ctx, text: str) -> int:
+    """``fuzzy_anchors_packed`` at a plain budget of 8 rows (``edits(4)`` at
+    0.5) on the card, resident and streamed in segments with halos, against
+    the same call with the engine on the CPU; the card's calls must launch
+    the deep scan instance. Returns the anchor count."""
+    torch, np, tpb = ctx.torch, ctx.np, ctx.tpb
+    words = ["sollicitudin", "ullamcorper", "pellentesque"]
+    thr = np.float32(0.5)
+    card = make_engine(ctx, words, ctx.Limits.new().edits(4))
+    host = ctx.Builder.new().fuzzy(ctx.Limits.new().edits(4)).case_insensitive(True).device(
+        "cpu").build(words)
+    pk = tpb.packed_fuzzy_of(card)
+    k = max(pk.filt.k_for(bp, thr) for bp in pk.filt.patterns)
+    require(k == 8, f"the anchors' budget is {k}")
+    n = 0
+    saved = tpb.RESIDENT_MAX, tpb.STREAM_CHUNK
+    for form, limits in (("resident", saved), ("streamed, 64 KiB segments", (1 << 16, 1 << 16))):
+        tpb.RESIDENT_MAX, tpb.STREAM_CHUNK = limits
+        try:
+            reset_launches(tpb)
+            got = tpb.fuzzy_anchors_packed(card, text, thr)
+            launched = tpb.LAUNCHES["scan_bits_wide"]
+            want = tpb.fuzzy_anchors_packed(host, text, thr)
+        finally:
+            tpb.RESIDENT_MAX, tpb.STREAM_CHUNK = saved
+        equal = got.cpu().tolist() == want.tolist()
+        log(f"  fuzzy_anchors_packed edits(4) at 0.5 (k = {k}), {len(text)} characters, {form}: "
+            f"{got.numel()} anchors on the card, {want.numel()} on the CPU, equal {equal}; "
+            f"scan_bits_wide launched {launched} times")
+        require(equal and 0 < got.numel() < len(text) and launched > 0,
+                f"the anchors at k = 8 ({form}) differ from the CPU's")
+        n = got.numel()
+    return n
+
+
 # Phase 4k: the sharded lanes and the multi-host entry points (parallel/)
 # ---------------------------------------------------------------------------
 
@@ -3378,6 +3724,9 @@ MULTIHOST_TABLE = [w.upper() for w in HEADLINE[:8]]
 #: count on the ``dp_pipeline`` record (the dry run's, of its ``edits(1)``
 #: engine, are listed apart in the JSON line).
 K4_FAST = ("fuzzy1", "multihost")
+#: The group of phase 4k's launch counts that runs the deep scan instances
+#: and count_dp_rows_kernel (mapped4's), counted on their own records.
+DEEP_K4 = ("mapped4",)
 #: Seconds a 4k (d) worker may take, start-up and the process group included.
 WORKER_TIMEOUT_S = 300
 
@@ -3859,6 +4208,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         f"{len(mapped_corpus)}-byte one, {len(contexts_of[many_text][0])} in the "
         f"{len(many_text)}-byte many1k one, {time.perf_counter() - t0:.1f} s; the oracle's "
         f"{workers} workers have the six engines' searches")
+    m4 = mapped4_start(ctx, corpus, pool, workers)
     engine = (FuzzyAhoCorasickBuilder.new().case_insensitive(True).device(dev)
               .build(HEADLINE))
     engine.backend = "device"
@@ -3972,6 +4322,8 @@ def smoke(torch, start_pool, workers: int) -> int:
 
     lanes = tuple(recipe_engine(ctx, name) for name in LANES)
     lane_errs = lane_kernel_checks(ctx, edited, keyf, lanes)
+    deep_errs = deep_kernel_checks(ctx)
+    anchors_deep_check(ctx, plant(corpus[: 256 << 10], SEED + 26, 300, (1, 3)))
     for key, err in step_errs.items():
         lane_errs[key] = max(lane_errs.get(key, 0), err)
     err_dp_all = max(err_dp_all, lane_errs["banded_dp"])
@@ -4072,7 +4424,11 @@ def smoke(torch, start_pool, workers: int) -> int:
     t0 = time.perf_counter()
     for job in oracle_jobs + beam_jobs:
         pending[job].wait()
-    log(f"  waited {time.perf_counter() - t0:.1f} s more for the context oracle's workers")
+    t1 = time.perf_counter()
+    m4.pending.wait()
+    m4.prefix.wait()
+    log(f"  waited {time.perf_counter() - t0:.1f} s more for the context oracle's workers "
+        f"({time.perf_counter() - t1:.1f} s of it for mapped4's windows and prefix)")
     phase("phase 4 main path:")
     for key in tpb.LAUNCHES:
         tpb.LAUNCHES[key] = 0
@@ -4212,6 +4568,27 @@ def smoke(torch, start_pool, workers: int) -> int:
                   and m.substitutions == 1)
     log(f"  4e: {n_modem} modem -> modern matches at similarity 1.0 in the first 4 MiB")
     require(n_modem > 0, "the mapped lane found no modem through the mapping")
+
+    # 4e''. mapped4: the mapped lane past six scan rows (edits(4), rn <-> m,
+    # a scan budget of 8 rows) at full size, held against the oracle over
+    # every window around a planted copy or a hit of the plain scan, and
+    # over a prefix in whole.
+    phase(f"phase 4e'' mapped4: {len(MAPPED4_WORDS)} two-word names, rn <-> m, edits(4), "
+          f"threshold {MAPPED4_THRESHOLD}, {MAPPED4_COPIES} copies with 1-4 edits planted:")
+    lane_runs["4e''"] = lane_main_path(
+        ctx, "4e''", "mapped4", m4.engine, m4.text, MAPPED4_THRESHOLD, "device-fuzzy-dp-mapped",
+        locked, DEEP_SCAN_KEYS, LIST_KEYS, lambda _n, _t, _thr: mapped4_bar(m4), MAPPED4_COPIES,
+        ties=True)
+    require(lane_runs["4e''"].text is m4.text, "4e'': the lane declined at full size")
+    with plain_locked(*locked):
+        head = sorted(map(match_key, m4.engine.search_raw(m4.text[:MAPPED4_PREFIX],
+                                                           MAPPED4_THRESHOLD)))
+    whole = sorted(m4.prefix.get()[0])
+    log(f"  4e'': the first {MAPPED4_PREFIX} characters in whole: {len(head)} matches on the card, "
+        f"{len(whole)} by the oracle, equal as (pattern, start, end, similarity) "
+        f"{spans_of(head) == spans_of(whole)}, with the edit counts {head == whole}")
+    require(spans_of(head) == spans_of(whole) and len(head) > 0,
+            "4e'': the prefix differs from the oracle's")
 
     # 4f. the large-dictionary lane, many1k, folded then plain.
     many_e = recipe_engine(ctx, "many1k")
@@ -4370,6 +4747,8 @@ def smoke(torch, start_pool, workers: int) -> int:
          lane_runs["4d"].matches),
         ("mapped", mapped_e, lane_runs["4e"].text, 0.8, scan_keys + LIST_KEYS,
          lane_runs["4e"].matches),
+        ("mapped4", m4.engine, m4.text, MAPPED4_THRESHOLD, DEEP_SCAN_KEYS + LIST_KEYS,
+         lane_runs["4e''"].matches),
     ):
         phase(f"phase 4k (a) {name}: the sharded lane over {len(text)} bytes, threshold {thr}:")
         with plain_locked(*locked):
@@ -4411,8 +4790,9 @@ def smoke(torch, start_pool, workers: int) -> int:
     k4_s = time.perf_counter() - t_4k
     log(f"  phase 4k {k4_s:.1f} s")
 
-    def k4_sum(name, groups=None):
-        return sum(counts[name] for group, sets in k4.items() if groups is None or group in groups
+    def k4_sum(name, groups=None, skip=()):
+        return sum(counts[name] for group, sets in k4.items()
+                   if (groups is None or group in groups) and group not in skip
                    for counts in sets)
 
     # 6. times, bounds and agreement at the main paths' shapes
@@ -4528,7 +4908,8 @@ def smoke(torch, start_pool, workers: int) -> int:
     lane_times = {
         tag: lane_kernel_times(ctx, f"{tag} {what}", eng, lane_runs[tag].text, thr)
         for tag, what, eng, thr in (("4c", "forbid", forbid_e, 0.62), ("4d", "typed", typed_e, 0.8),
-                                    ("4e", "mapped", mapped_e, 0.8))}
+                                    ("4e", "mapped", mapped_e, 0.8),
+                                    ("4e''", "mapped4", m4.engine, MAPPED4_THRESHOLD))}
     # A typed engine with many channels (5 bands x 14 type vectors behind a
     # k = 2 scan) at a full slice, and its searches over the whole corpus.
     with plain_locked(*locked):
@@ -4546,7 +4927,12 @@ def smoke(torch, start_pool, workers: int) -> int:
     require(typed14.last_stats["backend"] == "device-fuzzy-dp-typed", "typed14 backend")
     lane_times["typed14"] = lane_kernel_times(ctx, "typed edits(2).substitutions(1)", typed14,
                                               corpus, 0.62)
-    for lane_t in lane_times.values():
+    for tag, lane_t in lane_times.items():
+        if tag == "4e''":  # the deep instances
+            for key, e in zip(("scan_bits_wide[k=7..24]", "block_offsets",
+                               "hit_words_wide[k=7..24]"), lane_t.scan_errs):
+                deep_errs[key] = max(deep_errs[key], e)
+            continue
         for i, e in enumerate(lane_t.scan_errs):
             errs_scan[i] = max(errs_scan[i], e)
     many_rec, many_main_errs, step_passes, many_detail = many_kernel_times(
@@ -4556,6 +4942,10 @@ def smoke(torch, start_pool, workers: int) -> int:
     errs_scan[1] = max(errs_scan[1], many_errs["block_offsets"])
     wide_rec, wide_errs, wide_detail = wide_exact_times(ctx, wide_e, exact_text, errs_scan[1])
     errs_scan[1] = wide_errs["block_offsets"]
+    deep_rec, deep_main_errs, deep_detail = deep_times(ctx, m4.engine, m4.text, MAPPED4_THRESHOLD)
+    for key, err in deep_main_errs.items():
+        deep_errs[key] = max(deep_errs[key], err)
+    errs_scan[1] = max(errs_scan[1], deep_errs["block_offsets"], wide_errs["block_offsets"])
     walk_t = walk_times(ctx, walk_inputs(ctx, k1_e, exact_text))
     walk_t["exact1k_host_split_ms"] = exact1k_host_split(ctx, k1_e, exact_text)
     # block_offsets at every shape the searches hand it, and two more, beside
@@ -4647,12 +5037,16 @@ def smoke(torch, start_pool, workers: int) -> int:
     jax_vd = "fuzzy_aho_corasick_tpu/ops/verify_dp.py"
     list_tags = ("4c", "4c'", "4e")
     f_t, m_t = lane_times["4c"], lane_times["4e"]
-    for name, replaces in (("count_dp", f"{jax_vd}:355, {jax_vd}:611"),
-                           ("count_emit", f"{jax_vd}:1487")):
+    # count_dp's E >= 4 form, count_dp_rows_kernel, has its own record below
+    # (mapped4's searches): its launches are left out here, count_emit's not.
+    for name, replaces, tags, skip in (
+            ("count_dp", f"{jax_vd}:355, {jax_vd}:611", list_tags, DEEP_K4),
+            ("count_emit", f"{jax_vd}:1487", list_tags + ("4e''",), ())):
         kernels.append(record(
             name, f"{PKG}/csrc/dp_list.cu", replaces,
-            sum(lane_runs[tag].launches[name] for tag in list_tags) + entry_sum(name)
-            + k4_sum(name), lane_errs[name], *f_t.steps[name], launches_4k=k4_sum(name),
+            sum(lane_runs[tag].launches[name] for tag in tags) + entry_sum(name)
+            + k4_sum(name, skip=skip), lane_errs[name], *f_t.steps[name],
+            launches_4k=k4_sum(name, skip=skip),
             device_ms_per_search={tag: search_ms(lane_runs[tag].prof, name)
                                   for tag in list_tags},
             mapped_ms=m_t.steps[name][0], mapped_plain_ms=m_t.steps[name][1],
@@ -4660,6 +5054,16 @@ def smoke(torch, start_pool, workers: int) -> int:
             instance={"forbid2": f_t.regs[name], "mapped": m_t.regs[name]},
             step_ms={"forbid2": f_t.pipe[0], "mapped": m_t.pipe[0]},
             step_device_ms={"forbid2": f_t.device_ms, "mapped": m_t.device_ms}))
+    # count_dp_rows_kernel with mapping arrivals: mapped4's searches (4e'' and
+    # its sharded ones in 4k (a)), timed at slice 1 of mapped4.
+    m4_t, m4_run = lane_times["4e''"], lane_runs["4e''"]
+    kernels.append(record(
+        "count_dp[rows, maps]", f"{PKG}/csrc/dp_list.cu", f"{jax_vd}:611",
+        m4_run.launches["count_dp"] + k4_sum("count_dp", DEEP_K4), lane_errs["count_dp"],
+        *m4_t.steps["count_dp"], launches_4k=k4_sum("count_dp", DEEP_K4),
+        device_ms_per_search=search_ms(m4_run.prof, "count_dp", "count_dp_rows_kernel"),
+        instance=m4_t.regs["count_dp"],
+        step_ms=m4_t.pipe[0], step_device_ms=m4_t.device_ms))
     for tag, dp_name, dp_replaces in (("4c", "banded_dp[forbid]", f"{jax_vd}:355"),
                                       ("4e", "banded_dp[maps]", f"{jax_vd}:611")):
         held.append(record(dp_name, f"{PKG}/csrc/banded_dp.cu", dp_replaces, 0, err_dp_all,
@@ -4673,7 +5077,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     for name, replaces in (("typed_expand", f"{jax_vd}:1411"), ("typed_dp", f"{jax_vd}:935"),
                            ("typed_emit", f"{jax_vd}:1208")):
         # The expansion serves the list step too: its launches are both steps'.
-        n_list = sum(lane_runs[tag].launches[name] for tag in list_tags)
+        n_list = sum(lane_runs[tag].launches[name] for tag in list_tags + ("4e''",))
         kernels.append(record(
             name, f"{PKG}/csrc/dp_typed.cu", replaces,
             lane.launches[name] + n_list + k4_sum(name),
@@ -4694,9 +5098,9 @@ def smoke(torch, start_pool, workers: int) -> int:
         kernels.append(record(
             name, f"{PKG}/csrc/{source}", replaces,
             sum(run.launches[name] for run in many_runs.values()) + entry_sum(name)
-            + k4_sum(name),
+            + k4_sum(name, skip=DEEP_K4),
             many_errs[name],
-            *many_rec[name], launches_4k=k4_sum(name),
+            *many_rec[name], launches_4k=k4_sum(name, skip=DEEP_K4),
             device_ms_per_search={tag: search_ms(run.prof, name)
                                   for tag, run in many_runs.items()},
             **({"pass_device_ms": step_passes} if name == "many_step" else
@@ -4710,6 +5114,17 @@ def smoke(torch, start_pool, workers: int) -> int:
             wide_errs[name], *wide_rec[name], launches_4k=0,
             device_ms_per_search=search_ms(exact_runs["exact-wide"].prof, base),
             **wide_fields(wide_detail, base)))
+    # The wide kernels past six rows (the deep instances): mapped4's searches
+    # (4e'' and its sharded ones in 4k (a)), timed at mapped4's shape.
+    for name, replaces in (("scan_bits_wide[k=7..24]", f"{jax_pb}:534"),
+                           ("hit_words_wide[k=7..24]", f"{jax_pb}:620")):
+        base = name.split("[")[0]
+        kernels.append(record(
+            name, f"{PKG}/csrc/scan_wide.cu", replaces,
+            lane_runs["4e''"].launches[base] + k4_sum(base, DEEP_K4), deep_errs[name],
+            *deep_rec[name], launches_4k=k4_sum(base, DEEP_K4),
+            device_ms_per_search=search_ms(lane_runs["4e''"].prof, base),
+            **wide_fields(deep_detail, base)))
     # The goto walk at exact1k's shape; its launches on every main path:
     # exact1k (4h), the seed filter's exact pass (4j) and the sharded exact
     # lane (4k).

@@ -44,9 +44,9 @@
 //      lane (b - drift) NE + e - 1 of row i-1, i-2 or i-3 (row i-3 is kept
 //      only in the MAPS instances), and the insertions a serial chain of
 //      B - 1 shuffles. Past 32 cells (E >= 4) count_dp_rows_kernel gives each
-//      candidate a warp and keeps its rows in shared memory; it takes no
-//      mappings, which no search brings past E = 3 (the mapped lane scans
-//      with 2E error rows, and the scan has 6). The path's
+//      candidate a warp and keeps its rows in shared memory, row i-3 too
+//      where the call has mappings (the mapped lane at edits(4)-(6), which
+//      scans with 8-24 error rows). The path's
 //      classes, ceilings (and, with the dead-end filter, nodes and output
 //      flags) and the haystack window are staged in shared memory by the
 //      group before the row loop; the similarity table too where it fits
@@ -336,17 +336,23 @@ __device__ __forceinline__ void count_dp_lanes(const ListArgs& a, const float* s
   out_cnt = d >= 1 ? preve_cnt : 0;
 }
 
-// 4-byte words of count_dp_rows_kernel's rows per warp: rows i-2, i-1, i
-// and the emission channels of rows i-1 and i, penalty and counts each, and
-// a dead-end flag per band.
-__host__ __device__ inline int rows_words(int E) {
-  return 5 * 2 * (2 * E + 1) * (E + 1) + 2 * E + 1;
+// Rows of count_dp_rows_kernel per warp: rows i-2, i-1, i and the emission
+// channels of rows i-1 and i, and row i-3 with mappings.
+__host__ __device__ inline int row_bufs(bool maps) { return maps ? 6 : 5; }
+
+// 4-byte words of count_dp_rows_kernel's rows per warp: row_bufs() rows,
+// penalty and counts each, and a dead-end flag per band.
+__host__ __device__ inline int rows_words(int E, bool maps) {
+  return row_bufs(maps) * 2 * (2 * E + 1) * (E + 1) + 2 * E + 1;
 }
 
 // The same DP run by the 32 lanes of a warp over rows in shared memory
 // (``rows``, rows_words() words), cell c = b * NE + e. Returns the emission
-// channel at row d: pen [B * NE] and cnt [B * NE] in shared memory.
-__device__ void count_dp_warp(const ListArgs& a, const float* s_sim, const Staged& st,
+// channel at row d: pen [B * NE] and cnt [B * NE] in shared memory. A
+// cell's mapping arrivals read only rows i-1 .. i-3, so each cell runs them
+// in the table's order right after its deletion, which is the order of
+// dp_body for that cell's consuming and continuation channels.
+__device__ void count_dp_warp(const ListArgs& a, const float* s_sim, const Staged& st, int f,
                               int32_t* rows, int d, int lane, const float*& out_pen,
                               const int*& out_cnt) {
   const DpCore& c = a.core;
@@ -356,19 +362,21 @@ __device__ void count_dp_warp(const ListArgs& a, const float* s_sim, const Stage
   const bool sim_smem = a.sim_smem != 0;
   const bool no_ins = c.forbid & 1, no_del = c.forbid & 2, no_sub = c.forbid & 4,
              no_swap = c.forbid & 8;
-  float* pen[5];
-  int* cnt[5];
-  for (int r = 0; r < 5; ++r) {
+  const bool maps = c.map_tab != nullptr;
+  const int R = row_bufs(maps);
+  float* pen[6];
+  int* cnt[6];
+  for (int r = 0; r < R; ++r) {
     pen[r] = reinterpret_cast<float*>(rows + 2 * r * cells);
     cnt[r] = rows + (2 * r + 1) * cells;
   }
-  int* okb = rows + 5 * 2 * cells;
+  int* okb = rows + R * 2 * cells;
   // Rows i-1 (P), i-2 (P2), i (N), the emission channels of rows i-1 (PE)
-  // and i (NEW).
-  int P = 0, P2 = 1, N = 2, PE = 3, NEW = 4;
+  // and i (NEW), and with mappings row i-3 (P3).
+  int P = 0, P2 = 1, N = 2, PE = 3, NEW = 4, P3 = 5;
   for (int x = lane; x < cells; x += 32) {
     const float origin = x == E * NE ? 0.f : INF;
-    for (int r = 0; r < 5; ++r) {
+    for (int r = 0; r < R; ++r) {
       pen[r][x] = INF;
       cnt[r][x] = 0;
     }
@@ -411,6 +419,33 @@ __device__ void count_dp_warp(const ListArgs& a, const float* s_sim, const Stage
         const bool ok_d = !no_del && fin(dl) && !(c.p_del > __fsub_rn(max_pen, dl)) && okrow;
         merge(bp, bc, __fadd_rn(dl, c.p_del), cnt[P][x + NE - 1] + 0x100, ok_d);
       }
+      // Mapping arrivals targeting row i, in the table's order: from (row
+      // i-pb, band b-drift, e-1), consuming ha symbols equal to the entry's
+      // classes, into the consuming and the continuation channel; the
+      // oracle's guard (q + mp) > max_pen.
+      if (maps && e >= 1) {
+        const int m1 = __ldg(c.map_rowptr + i + 1);
+        for (int mi = __ldg(c.map_rowptr + i); mi < m1; ++mi) {
+          const int32_t* me = c.map_tab + (long long)mi * MAP_COLS;
+          const int pb = __ldg(me + 1);
+          if (i - pb < 0) continue;
+          const int fw = __ldg(c.map_fields + (long long)mi * c.map_fw + (f >> 5));
+          if (!((fw >> (f & 31)) & 1)) continue;
+          const int drift = __ldg(me + 2), ha = __ldg(me + 3);
+          const int bs = b - drift;
+          bool ok_m = bs >= 0 && bs < B && j >= ha;
+          for (int u = 0; u < MAP_HA_MAX; ++u)
+            ok_m = ok_m && (u >= ha || st.win[i + b - u] == __ldg(me + 4 + u));
+          if (!ok_m) continue;
+          const int src = pb == 1 ? P : pb == 2 ? P2 : P3;
+          const float q = pen[src][bs * NE + e - 1];
+          const float val = __fadd_rn(q, __int_as_float(__ldg(me + 8)));
+          const bool ok_e = fin(q) && !(val > max_pen);
+          const int qc = cnt[src][bs * NE + e - 1] + 0x10000;
+          merge(cons_pen, cons_cnt, val, qc, ok_e);
+          merge(bp, bc, val, qc, ok_e);
+        }
+      }
       float ep = cons_pen;
       int ec = cons_cnt;
       if (e >= 1 && b + 1 < B) {
@@ -440,7 +475,8 @@ __device__ void count_dp_warp(const ListArgs& a, const float* s_sim, const Stage
       if (pen[N][x] > ceil_i) pen[N][x] = INF;
     __syncwarp();
     // The rows move up.
-    const int old = P2;
+    const int old = maps ? P3 : P2;
+    if (maps) P3 = P2;
     P2 = P;
     P = N;
     N = old;
@@ -561,8 +597,8 @@ __global__ void __launch_bounds__(CL_THREADS) count_dp_kernel(ListArgs a) {
   });
 }
 
-// The DP over the list for E >= 4 without mappings: a warp per candidate,
-// its rows in shared memory.
+// The DP over the list for E >= 4: a warp per candidate, its rows in shared
+// memory.
 __global__ void __launch_bounds__(CW_THREADS) count_dp_rows_kernel(ListArgs a) {
   extern __shared__ int32_t s_mem[];
   int* s_cnt = s_mem;
@@ -580,8 +616,8 @@ __global__ void __launch_bounds__(CW_THREADS) count_dp_rows_kernel(ListArgs a) {
     __syncwarp();
     const float* pen;
     const int* cnt;
-    count_dp_warp(a, s_sim, st, mem + staged_words(a.core.Lmax, a.E, a.deadend, a.emit.MO), d,
-                  lane, pen, cnt);
+    count_dp_warp(a, s_sim, st, f, mem + staged_words(a.core.Lmax, a.E, a.deadend, a.emit.MO),
+                  d, lane, pen, cnt);
     count_decide(a, st, pen, cnt, d, start, m, lane, 32, s_cnt);
     __syncwarp();
   });
@@ -712,8 +748,7 @@ int fac_count_tile() { return LIST_TILE; }
 // cand_field, cand_start: int32 [items], the first *n_cand (on the card)
 // live; the DP tables, forbid and the map_* tables as fac_banded_dp takes
 // them; node: int32 [F]; out_list: int32 [N, MO]; pat_len, pat_weight: f32
-// [P] (mappings up to E = 3); dec: int32 [(2E+1) MO, items, 2] (columns
-// past n_cand untouched);
+// [P]; dec: int32 [(2E+1) MO, items, 2] (columns past n_cand untouched);
 // row_counts: int32 [(2E+1) MO * ntile + 1], ntile = ceil(items /
 // fac_count_tile()): zeroed, then the rows per (channel, tile) are added,
 // and n_cand written last. Returns the launch's cudaError_t.
@@ -730,7 +765,7 @@ int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_c
   const bool maps = map_tab != nullptr;
   if (items < 1 || E < 1 || E > MAX_E || Lmax < 1 || F < 1 || C < 1 || N < 1 || MO < 1 ||
       (2 * E + 1) * MO > MAX_CHANNELS || limit < 0 || limit > npad || forbid < 0 ||
-      forbid > 15 || (deadend && maps) || (maps && E > 3) ||
+      forbid > 15 || (deadend && maps) ||
       (maps && (map_rowptr == nullptr || map_fields == nullptr || map_fw < (F + 31) / 32)) ||
       cand_field == nullptr || cand_start == nullptr || n_cand == nullptr || dec == nullptr ||
       row_counts == nullptr || ntile != (items + LIST_TILE - 1) / LIST_TILE) {
@@ -794,7 +829,7 @@ int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_c
       rc = maps ? launch_dp(count_dp_kernel<32, true>, a, CL_THREADS, CL_THREADS / 32, s)
                 : launch_dp(count_dp_kernel<32, false>, a, CL_THREADS, CL_THREADS / 32, s);
   } else {
-    a.group_words = staged + rows_words(E);
+    a.group_words = staged + rows_words(E, maps);
     rc = launch_dp(count_dp_rows_kernel, a, CW_THREADS, CW_WARPS, s);
   }
   return (int)rc;

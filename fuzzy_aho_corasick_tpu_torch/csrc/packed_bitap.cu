@@ -1,5 +1,6 @@
 // Packed multi-pattern shift-AND (Wu-Manber) NFA for Hopper (sm_90a): the
-// ordered hit-list scan at W = 1..8 limbs (scan_wide.cu takes W = 9..64).
+// ordered hit-list scan at W = 1..8 limbs and k = 0..6 (scan_wide.cu takes
+// W = 9..64, and every W at k = 7..24).
 //
 // Replaces the JAX package's one Pallas kernel body
 // (fuzzy_aho_corasick_tpu/ops/packed_bitap.py::_kernel_factory) in its two
@@ -126,7 +127,7 @@ scan_bits_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb,
   int hits = 0;
   if (c0 < n) {
     Nfa<W, K, DAM> nfa;
-    nfa.reset(s_init);
+    nfa.reset(s_init, k);
     for (int q = -halo; q < 0; ++q)
       nfa.step_any(s_tbl, sym_at(ids, n, c0 + q), st, nl, s_match, k);
     // 16 symbols a round; the next round's bytes are loaded before this
@@ -192,7 +193,7 @@ hit_words_kernel(const uint8_t* __restrict__ ids, long long n,
   for (int r = base + tid; r < next; r += HITS_THREADS) {
     const long long p = pos[r];
     Nfa<W, K, DAM> nfa;
-    nfa.reset(s_init);
+    nfa.reset(s_init, k);
     uint64_t out[W];
 #pragma unroll
     for (int w = 0; w < W; ++w) out[w] = 0ull;
@@ -246,7 +247,7 @@ cudaError_t launch_w(const Call& c) {
 }
 
 cudaError_t dispatch(const Call& c, int W) {
-  if (!call_ok(c) || W < 1 || W > MAX_W) return cudaErrorInvalidValue;
+  if (!call_ok(c, MAX_K) || W < 1 || W > MAX_W) return cudaErrorInvalidValue;
   switch (W) {
     case 1: return launch_w<1>(c);
     case 2: return launch_w<2>(c);

@@ -1,9 +1,9 @@
 // Shared device code of the packed shift-AND scan (see packed_bitap.cu for
 // what it computes and the semantics it keeps): the tables, the per-chain NFA
 // state, the stream loads, and the positions step of the hit-word kernels.
-// Included by packed_bitap.cu (W = 1..8 limbs, one thread per chain) and
-// scan_wide.cu (W = 9..64 limbs, a group of lanes per chain), so both run the
-// same recurrence.
+// Included by packed_bitap.cu (W = 1..8 limbs at k <= 6, one thread per
+// chain) and scan_wide.cu (W = 9..64 limbs at k <= 6, and W = 1..64 at
+// k = 7..24, a group of lanes per chain), so both run the same recurrence.
 
 #pragma once
 
@@ -22,7 +22,8 @@ constexpr int HITS_THREADS = 256;
 constexpr int HALO_MAX = 128;
 constexpr int MAX_A = 128;
 constexpr int MAX_W = 8;
-constexpr int MAX_K = 6;
+constexpr int MAX_K = 6;    // error rows of the one-thread chains (packed_bitap.cu)
+constexpr int MAX_KW = 24;  // error rows of the lane-group chains (scan_wide.cu)
 
 static_assert(CHUNK_MIN % 32 == 0 && BLOCK_SYMS % CHUNK_MAX == 0 &&
               (BLOCK_SYMS / CHUNK_MAX) % 32 == 0, "whole bit words and whole warps");
@@ -36,22 +37,24 @@ struct Tables {
 };
 
 // Per-chain NFA state over W limbs. K is the row count the instance is built
-// for: for K <= 2 the call's k equals K; the K == MAX_K instance serves
-// k = 3..6 and masks the rows past k at run time. Every array index is
-// static, so the state stays in registers. ``stride`` is the limb count of a
-// row of the shared tables the chain reads (W itself, or the padded width of
-// the wide kernels, whose chains hold a slice of the limbs).
+// for: for K <= 2 the call's k equals K; an instance with K > 2 (6, 12, 24)
+// serves every k above the next smaller instance up to K and masks the rows
+// past k at run time: they hold 0, and no table row past k is read. Every
+// array index is static, so the state stays in registers. ``stride`` is the
+// limb count of a row of the tables the chain reads (W itself, the padded
+// width of the wide kernels, whose chains hold a slice of the limbs, or the
+// table's own width where a thread reads one limb of it).
 template <int W, int K, bool DAM>
 struct Nfa {
   static constexpr int ROWS = (K + 1) + (DAM ? K : 0);
-  static constexpr bool MASKED = K == MAX_K;
+  static constexpr bool MASKED = K > 2;
   uint64_t r[ROWS][W];
 
-  __device__ __forceinline__ void reset(const uint64_t* s_init, int stride = W) {
+  __device__ __forceinline__ void reset(const uint64_t* s_init, int k, int stride = W) {
 #pragma unroll
     for (int d = 0; d <= K; ++d)
 #pragma unroll
-      for (int w = 0; w < W; ++w) r[d][w] = s_init[d * stride + w];  // rows > k hold 0
+      for (int w = 0; w < W; ++w) r[d][w] = (!MASKED || d <= k) ? s_init[d * stride + w] : 0ull;
 #pragma unroll
     for (int d = K + 1; d < ROWS; ++d)
 #pragma unroll
@@ -231,10 +234,10 @@ struct Call {
   cudaStream_t stream;
 };
 
-// Whether a call's shapes are inside what every scan kernel takes; W is
-// checked by the caller against its own limb range.
-inline bool call_ok(const Call& c) {
-  return c.A >= 1 && c.A <= MAX_A && c.k >= 0 && c.k <= MAX_K && c.halo >= 1 &&
+// Whether a call's shapes are inside what every scan kernel takes, at up to
+// ``kmax`` error rows; W is checked by the caller against its own limb range.
+inline bool call_ok(const Call& c, int kmax) {
+  return c.A >= 1 && c.A <= MAX_A && c.k >= 0 && c.k <= kmax && c.halo >= 1 &&
          c.halo <= HALO_MAX && c.n >= 1 && c.nblocks == (c.n + BLOCK_SYMS - 1) / BLOCK_SYMS &&
          c.nblocks <= 0x7FFFFFFFll;
 }

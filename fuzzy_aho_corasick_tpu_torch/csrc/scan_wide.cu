@@ -1,12 +1,15 @@
 // Packed multi-pattern shift-AND (Wu-Manber) NFA for Hopper (sm_90a): the
-// ordered hit-list scan at W = 9..64 u64 limbs.
+// ordered hit-list scan at W = 9..64 u64 limbs with k = 0..6 error rows, and
+// at W = 1..64 with k = 7..24.
 //
 // Replaces the traced-table form of the JAX package's one Pallas kernel body
 // (fuzzy_aho_corasick_tpu/ops/packed_bitap.py::_kernel_factory with
 // consts=None: tables in SMEM, the Damerau recurrence switched on by a traced
 // ``notlast``) in its two call shapes, at the widths the large-dictionary
 // lane (fuzzy_aho_corasick_tpu/ops/many.py) and the wide exact dictionaries
-// scan with:
+// scan with, and at the budgets past the one-thread chains' six rows that
+// the mapped lane (2E-4E rows at E = 2..6), the beam anchors and the Damerau
+// budgets of a high edit count scan with (up to MAX_USEFUL_K = 24 rows):
 //
 //   scan_bits_wide_kernel <- _pallas_scan  : one hit BIT per stream position
 //                                            and the hits of every block;
@@ -39,6 +42,21 @@
 // word table, padded to G x LPL limbs with zero columns and to MAX_A rows,
 // sits in dynamic shared memory (18-73 KiB).
 //
+// k = 7..24 (scan_chains again, the deep instances). A one-thread chain
+// cannot carry these rows: at W = 8 and K = 24 under Damerau that is 49 x 8
+// u64 of state. Here a lane carries ONE limb (LPL = 1, G = the power of two
+// >= W, 1..32 lanes) up to W = 32, and two past it (LPL = 2, G = 32): at
+// most 49 and 98 u64 of state. Two masked row templates, K = 12 (k =
+// 7..12) and K = 24 (k = 13..24), with and without the Damerau rows; the
+// rows past k are skipped, not computed. Past 8 lanes a block holds 256 /
+// G chains (256 threads, so that ptxas may give a lane up to 255
+// registers), each scanning BLOCK_SYMS / chains symbols (1,024 or 2,048);
+// up to 8 lanes 32 chains of WIDE_CHUNK. The table, padded to G x LPL
+// limbs, and K + 1 match and init rows sit in dynamic shared memory
+// (1.4-91 KiB). The chain's step is a serial chain over the rows (row d
+// reads row d - 1's new word), about 4 dependent operations a row: a
+// simple design that is right, not a fast one (PERF.md has its times).
+//
 // k = 0 (scan_chains_k0). One u64 of state per limb and 6 instructions per
 // limb and symbol, so the per-symbol work a lane repeats whatever its limb
 // count (the byte, the row address, the hit test) and the table reads are
@@ -67,8 +85,10 @@
 // loads, then their steps. The batch is 12, so that the halos of the
 // exact-wide and many1k dictionaries (11 and 12) take one batch, in 64
 // registers without spills (16 spilled, 8 took two batches: both measured
-// slower). One instance per k (0, 1, 2, the masked 3..6) with and without
-// the Damerau rows.
+// slower). One instance per k (0, 1, 2, the masked 3..6, 7..12 and 13..24)
+// with and without the Damerau rows; past k = 6 a replay reads its match and
+// init rows through the read-only cache instead of holding K + 1 of each in
+// registers beside its (K + 1) + K state words.
 //
 // An instance that needs more than 48 KiB of dynamic shared memory (the
 // k >= 1 scan, the k = 0 scan at large A x W) is allowed its largest need
@@ -90,6 +110,12 @@ constexpr int G0 = 8;                                     // lanes per k = 0 cha
 constexpr int REPLAY_BATCH = 12;                          // symbols a replay loads at once
 constexpr int WIDE_HITS_THREADS = 128;                    // threads of a hit-word block
 constexpr int HIT_CACHE = 512;                            // positions a block keeps in smem
+constexpr int DEEP_THREADS = 256;                         // threads of a deep block past 8 lanes
+
+// Chains per block of a k >= 1 instance with G lanes a chain and K rows.
+__host__ __device__ constexpr int chains_of(int G, int K) {
+  return K > MAX_K && G > 8 ? DEEP_THREADS / G : WIDE_CHAINS;
+}
 
 // Dynamic shared memory of a k >= 1 instance: the [MAX_A, WP] word table and
 // the [K + 1, WP] match and init rows.
@@ -152,14 +178,17 @@ __device__ __forceinline__ void put_count(int hits, int* s_count, int* __restric
   if (threadIdx.x == 0) block_counts[blockIdx.x] = *s_count;
 }
 
-// k >= 1: a block of WIDE_CHAINS chains of G lanes covers BLOCK_SYMS symbols.
+// k >= 1: a block of chains_of(G, K) chains of G lanes covers BLOCK_SYMS
+// symbols.
 template <int LPL, int G, int K, bool DAM>
 __device__ __forceinline__ void scan_chains(const uint8_t* __restrict__ ids, long long n,
                                             const Tables& tb, int A, int W, int k, int halo,
                                             uint32_t* __restrict__ bits,
                                             int* __restrict__ block_counts) {
   constexpr int WP = LPL * G;
-  constexpr int THREADS = WIDE_CHAINS * G;
+  constexpr int CHAINS = chains_of(G, K);
+  constexpr int CHUNK = BLOCK_SYMS / CHAINS;
+  constexpr int THREADS = CHAINS * G;
   extern __shared__ uint64_t s_wide[];
   uint64_t* s_tbl = s_wide;
   uint64_t* s_match = s_tbl + MAX_A * WP;
@@ -173,20 +202,20 @@ __device__ __forceinline__ void scan_chains(const uint8_t* __restrict__ ids, lon
   if (tid == 0) s_count = 0;
   __syncthreads();
 
-  // This chain reports positions [c0, c0 + WIDE_CHUNK), warmed up from the
+  // This chain reports positions [c0, c0 + CHUNK), warmed up from the
   // fresh state over [c0 - halo, c0); this lane holds limbs l0 .. l0+LPL-1.
-  const long long c0 = ((long long)blockIdx.x * WIDE_CHAINS + chain) * WIDE_CHUNK;
+  const long long c0 = ((long long)blockIdx.x * CHAINS + chain) * CHUNK;
   const bool aligned = (reinterpret_cast<uintptr_t>(ids) & 15) == 0;
   const uint64_t* m0 = s_match + l0;
   Nfa<LPL, K, DAM> nfa;
-  nfa.reset(s_init + l0, WP);
+  nfa.reset(s_init + l0, k, WP);
   for (int q = -halo; q < 0; ++q)
     nfa.step_any_row(s_tbl + (sym_at(ids, n, c0 + q) & (MAX_A - 1)) * WP + l0, st, nl, m0, k,
                      WP);
   uint4 cur = load16(ids, n, c0, aligned), nxt = cur;
   uint32_t word = 0u;
   int hits = 0;
-  constexpr int rounds = WIDE_CHUNK / 16;
+  constexpr int rounds = CHUNK / 16;
 #pragma unroll 1
   for (int h = 0; h < rounds; ++h) {
     if (h + 1 < rounds) nxt = load16(ids, n, c0 + (h + 1) * 16, aligned);
@@ -314,7 +343,7 @@ __device__ __forceinline__ void scan_chains_k0(const uint8_t* __restrict__ ids, 
 }
 
 template <int LPL, int G, int K, bool DAM>
-__global__ void __launch_bounds__(WIDE_CHAINS * G)
+__global__ void __launch_bounds__(chains_of(G, K) * G)
 scan_bits_wide_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb, int A, int W,
                       int k, int halo, uint32_t* __restrict__ bits,
                       int* __restrict__ block_counts) {
@@ -324,11 +353,42 @@ scan_bits_wide_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb, i
     scan_chains<LPL, G, K, DAM>(ids, n, tb, A, W, k, halo, bits, block_counts);
 }
 
+// The match word of limb w at hit position p: the NFA replayed over
+// ids[p - halo + 1 .. p] from the fresh state (reads outside the stream are
+// the dead symbol 0, symbols >= A a zero row), each thread issuing
+// REPLAY_BATCH symbol loads, then their table loads, then their steps. The
+// limb's init and match rows are ``in`` and ``mt``, ``stride`` apart.
+template <int K, bool DAM>
+__device__ __forceinline__ uint64_t replay_limb(const uint8_t* __restrict__ ids, long long n,
+                                                const Tables& tb, int A, int W, int w, int k,
+                                                int halo, long long p, uint64_t st,
+                                                uint64_t nl, const uint64_t* in,
+                                                const uint64_t* mt, int stride) {
+  Nfa<1, K, DAM> nfa;
+  nfa.reset(in, k, stride);
+  uint64_t out = 0ull;
+  const long long q0 = p - halo + 1;
+  for (int j0 = 0; j0 < halo; j0 += REPLAY_BATCH) {
+    uint64_t bc[REPLAY_BATCH];
+#pragma unroll
+    for (int t = 0; t < REPLAY_BATCH; ++t) {
+      const int sym = j0 + t < halo ? sym_at(ids, n, q0 + j0 + t) : 0;
+      bc[t] = sym < A ? __ldg(tb.tbl + (size_t)sym * W + w) : 0ull;
+    }
+#pragma unroll
+    for (int t = 0; t < REPLAY_BATCH; ++t)
+      if (j0 + t < halo) nfa.step_row(bc + t, &st, &nl, mt, k, &out, stride);
+  }
+  return out;
+}
+
 // Block b writes the positions of its set bits to pos[offsets[b] ..) in
 // ascending order (the first HIT_CACHE of them to shared memory too), then
 // its threads replay the NFA over the ``halo`` symbols that end at each hit,
 // a thread per (hit, limb). At k <= 1 the registers are held to 64, so that
-// 8 blocks fit an SM.
+// 8 blocks fit an SM. Up to k = 6 a thread holds its limb's K + 1 match and
+// init words in registers; past it (K = 12, 24) it reads them from the
+// tables, and only the live rows (d <= k).
 template <int K, bool DAM>
 __global__ void __launch_bounds__(WIDE_HITS_THREADS, K <= 1 ? 8 : 1)
 hit_words_wide_kernel(const uint8_t* __restrict__ ids, long long n,
@@ -348,29 +408,19 @@ hit_words_wide_kernel(const uint8_t* __restrict__ ids, long long n,
   for (int i = threadIdx.x; i < items; i += WIDE_HITS_THREADS) {
     const int h = i / W, w = i - h * W, r = base + h;
     const long long p = h < HIT_CACHE ? s_pos[h] : pos[r];
-    uint64_t st = __ldg(tb.starts + w), nl = ~0ull, mt[K + 1], in[K + 1];
+    uint64_t st = __ldg(tb.starts + w), nl = ~0ull, out;
     if constexpr (DAM) nl = __ldg(tb.notlast + w);
+    if constexpr (K <= MAX_K) {
+      uint64_t mt[K + 1], in[K + 1];
 #pragma unroll
-    for (int d = 0; d <= K; ++d) {  // rows past the call's k read as zero
-      mt[d] = d <= k ? __ldg(tb.match + d * W + w) : 0ull;
-      in[d] = d <= k ? __ldg(tb.init + d * W + w) : 0ull;
-    }
-    Nfa<1, K, DAM> nfa;
-    nfa.reset(in, 1);
-    uint64_t out = 0ull;
-    // Replay ids[p - halo + 1 .. p] from the fresh state; reads outside the
-    // stream are the dead symbol 0, symbols >= A a zero row.
-    const long long q0 = p - halo + 1;
-    for (int j0 = 0; j0 < halo; j0 += REPLAY_BATCH) {
-      uint64_t bc[REPLAY_BATCH];
-#pragma unroll
-      for (int t = 0; t < REPLAY_BATCH; ++t) {
-        const int sym = j0 + t < halo ? sym_at(ids, n, q0 + j0 + t) : 0;
-        bc[t] = sym < A ? __ldg(tb.tbl + (size_t)sym * W + w) : 0ull;
+      for (int d = 0; d <= K; ++d) {  // rows past the call's k read as zero
+        mt[d] = d <= k ? __ldg(tb.match + d * W + w) : 0ull;
+        in[d] = d <= k ? __ldg(tb.init + d * W + w) : 0ull;
       }
-#pragma unroll
-      for (int t = 0; t < REPLAY_BATCH; ++t)
-        if (j0 + t < halo) nfa.step_row(bc + t, &st, &nl, mt, k, &out, 1);
+      out = replay_limb<K, DAM>(ids, n, tb, A, W, w, k, halo, p, st, nl, in, mt, 1);
+    } else {
+      out = replay_limb<K, DAM>(ids, n, tb, A, W, w, k, halo, p, st, nl, tb.init + w,
+                                tb.match + w, W);
     }
     long long* dst = words + (long long)r * (2 * W) + 2 * w;
     dst[0] = (long long)(out & 0xFFFFFFFFull);
@@ -409,8 +459,8 @@ cudaError_t launch_scan(const Call& c, int W) {
   const size_t most = K == 0 ? K0Row<LPL>::smem(MAX_A) : shm;
   const cudaError_t err = opt_in.allow(kern, shm, most);
   if (err != cudaSuccess) return err;
-  kern<<<(unsigned)c.nblocks, WIDE_CHAINS * G, shm, c.stream>>>(c.ids, c.n, c.tb, c.A, W, c.k,
-                                                                c.halo, c.bits, c.counts);
+  kern<<<(unsigned)c.nblocks, chains_of(G, K) * G, shm, c.stream>>>(
+      c.ids, c.n, c.tb, c.A, W, c.k, c.halo, c.bits, c.counts);
   return cudaGetLastError();
 }
 
@@ -421,8 +471,9 @@ cudaError_t launch_hits(const Call& c, int W) {
   return cudaGetLastError();
 }
 
-// An instance per exact row count k = 0, 1, 2, the masked one for k = 3..6,
-// with the Damerau rows at k >= 1 where the call has ``notlast``.
+// An instance per exact row count k = 0, 1, 2, the masked ones for k = 3..6,
+// 7..12 and 13..24, with the Damerau rows at k >= 1 where the call has
+// ``notlast``.
 template <int LPL, int G, int K>
 cudaError_t launch_k(const Call& c, int W) {
   const bool dam = K >= 1 && c.tb.notlast != nullptr;
@@ -439,24 +490,52 @@ cudaError_t launch_fuzzy(const Call& c, int W) {
   }
 }
 
+template <int LPL, int G>
+cudaError_t launch_deep(const Call& c, int W) {
+  return c.k <= 12 ? launch_k<LPL, G, 12>(c, W) : launch_k<LPL, G, MAX_KW>(c, W);
+}
+
 // The scan's instance table, (LPL, G) for W limbs at k: at k = 0 G0 lanes of
-// ceil(W / G0) limbs; at k >= 1 (2, 8) for W <= 16, (4, 8) for W <= 32, else
-// (4, 16). ops/packed_bitap.py::wide_scan_instance mirrors it. The hit-word
-// kernel has one instance per k.
+// ceil(W / G0) limbs; at k = 1..6 (2, 8) for W <= 16, (4, 8) for W <= 32,
+// else (4, 16); at k = 7..24 one limb a lane, G the power of two >= W, up to
+// W = 32, else (2, 32). ops/packed_bitap.py::wide_scan_instance mirrors it.
+// The hit-word kernel has one instance per k.
 struct Shape {
   int lpl, g;
 };
 
+constexpr int pow2_at_least(int W) {
+  return W <= 1 ? 1 : W <= 2 ? 2 : W <= 4 ? 4 : W <= 8 ? 8 : W <= 16 ? 16 : 32;
+}
+
 constexpr Shape wide_shape(int W, int k) {
-  return k == 0 ? Shape{(W + G0 - 1) / G0, G0}
-         : W <= 16 ? Shape{2, 8}
-         : W <= 32 ? Shape{4, 8}
-                   : Shape{4, 16};
+  return k == 0       ? Shape{(W + G0 - 1) / G0, G0}
+         : k > MAX_K  ? (W <= 32 ? Shape{1, pow2_at_least(W)} : Shape{2, 32})
+         : W <= 16    ? Shape{2, 8}
+         : W <= 32    ? Shape{4, 8}
+                      : Shape{4, 16};
+}
+
+// Whether the wide kernels take W limbs at k rows: W = 9..64 at k <= 6,
+// W = 1..64 at k = 7..24.
+constexpr bool wide_ok(int W, int k) {
+  return k >= 0 && k <= MAX_KW && W >= 1 && W <= WIDE_MAX_W && (W > MAX_W || k > MAX_K);
 }
 
 cudaError_t dispatch_wide(const Call& c, int W) {
-  if (!call_ok(c) || W <= MAX_W || W > WIDE_MAX_W) return cudaErrorInvalidValue;
+  if (!call_ok(c, MAX_KW) || !wide_ok(W, c.k)) return cudaErrorInvalidValue;
   const Shape s = wide_shape(W, c.k);
+  if (c.k > MAX_K) {
+    if (s.lpl == 2) return launch_deep<2, 32>(c, W);
+    switch (s.g) {
+      case 1: return launch_deep<1, 1>(c, W);
+      case 2: return launch_deep<1, 2>(c, W);
+      case 4: return launch_deep<1, 4>(c, W);
+      case 8: return launch_deep<1, 8>(c, W);
+      case 16: return launch_deep<1, 16>(c, W);
+      default: return launch_deep<1, 32>(c, W);
+    }
+  }
   if (c.k == 0) {
     switch (s.lpl) {
       case 2: return launch_k<2, G0, 0>(c, W);
@@ -482,15 +561,17 @@ extern "C" {
 int fac_scan_wide_chunk() { return WIDE_CHUNK; }
 
 // The scan's instance for W limbs at k: LPL * 256 + G, or -1 outside W =
-// 9..64, k = 0..6.
+// 9..64 at k = 0..6 and W = 1..64 at k = 7..24.
 int fac_scan_wide_instance(int W, int k) {
-  if (W <= MAX_W || W > WIDE_MAX_W || k < 0 || k > MAX_K) return -1;
+  if (!wide_ok(W, k)) return -1;
   const Shape s = wide_shape(W, k);
   return s.lpl * 256 + s.g;
 }
 
-// As fac_scan_bits (packed_bitap.cu), for W = 9..64; chunk must be
-// fac_scan_wide_chunk().
+// As fac_scan_bits (packed_bitap.cu), for W = 9..64 at k = 0..6 and W =
+// 1..64 at k = 7..24; chunk must be fac_scan_wide_chunk() (the deep
+// instances of 16 and 32 lanes give a chain more, which the caller does not
+// see).
 int fac_scan_bits_wide(const void* ids, long long n, const void* tbl, const void* starts,
                        const void* match, const void* init, const void* notlast, int A, int W,
                        int k, int halo, int chunk, long long nblocks, void* bits, void* counts,
@@ -500,7 +581,8 @@ int fac_scan_bits_wide(const void* ids, long long n, const void* tbl, const void
   return (int)dispatch_wide(c, W);
 }
 
-// As fac_hit_words (packed_bitap.cu), for W = 9..64.
+// As fac_hit_words (packed_bitap.cu), for the tables fac_scan_bits_wide
+// takes.
 int fac_hit_words_wide(const void* ids, long long n, const void* bits, const void* offsets,
                        const void* tbl, const void* starts, const void* match,
                        const void* init, const void* notlast, int A, int W, int k, int halo,

@@ -213,13 +213,16 @@ def _build(out_dir: Path, so: Path) -> str:
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((cmd, obj, proc))
-    log, failed = "", False
+    log, failed, errors = "", False, ""
     t0 = time.perf_counter()
     for cmd, _obj, proc in jobs:
         out, _ = proc.communicate()
         # Jobs run together, so this is the time until this one had ended.
         log += " ".join(cmd) + f"\n[done {time.perf_counter() - t0:.1f} s after start]\n" + out
-        failed |= proc.returncode != 0
+        if proc.returncode != 0:
+            failed = True
+            errors += cmd[-1] + ":\n" + "\n".join(
+                line for line in out.splitlines() if "error" in line.lower()) + "\n"
     if not failed:
         tmp = out_dir / f"libfac_kernels.{os.getpid()}.so.tmp"
         cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _c, obj, _p in jobs)]
@@ -232,7 +235,7 @@ def _build(out_dir: Path, so: Path) -> str:
         obj.unlink(missing_ok=True)
     (out_dir / "build.log").write_text(log)
     if failed:
-        raise RuntimeError(f"nvcc failed:\n{log[-6000:]}")
+        raise RuntimeError(f"nvcc failed:\n{errors[-6000:] or log[-6000:]}")
     return log
 
 

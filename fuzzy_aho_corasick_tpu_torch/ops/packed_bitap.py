@@ -30,12 +30,13 @@ scalar read back:
    ascending hit positions behind its offset and replays the NFA from the
    fresh state over each hit's trailing ``halo`` symbols for its match words.
 
-Tables of up to ``MAX_LIMBS`` limbs run those kernels; wider ones, up to
-``MAX_SCAN_LIMBS`` (exact dictionaries past 8 limbs, and the
-large-dictionary lane, ``ops/many``), run
-``scan_bits_wide_kernel`` and ``hit_words_wide_kernel`` of
-``csrc/scan_wide.cu``, whose outputs are the same, so the plain versions and
-``block_offsets`` serve both.
+Tables of up to ``MAX_LIMBS`` limbs at up to ``MAX_K`` error rows run those
+kernels; wider ones, up to ``MAX_SCAN_LIMBS`` (exact dictionaries past 8
+limbs, and the large-dictionary lane, ``ops/many``), and every table at
+``MAX_K`` < k <= ``MAX_SCAN_K`` (the mapped lane where E x its longest side
+passes 6, the beam anchors at a low threshold) run ``scan_bits_wide_kernel``
+and ``hit_words_wide_kernel`` of ``csrc/scan_wide.cu``, whose outputs are the
+same, so the plain versions and ``block_offsets`` serve both.
 
 Each wrapper runs its plain torch version (``scan_bits_torch``,
 ``block_offsets_torch``, ``hit_words_torch``; built from
@@ -72,9 +73,13 @@ MAX_LIMBS = 8
 #: Max u64 limbs the scan takes (the wide kernels serve W = 9..64), and the
 #: exact lane's limb bound.
 MAX_SCAN_LIMBS = 64
-#: Max error rows the kernels are instantiated for.
+#: Max error rows of the one-thread kernels (``scan_bits_kernel``,
+#: ``hit_words_kernel``); past it the wide kernels serve every W.
 MAX_K = 6
-#: Largest warm-up halo the scan kernels take (m_max + k <= 64 + 6).
+#: Max error rows the scan takes (``MAX_KW`` in ``csrc/packed_bitap.cuh``):
+#: the prefilter's ``MAX_USEFUL_K``, the most any budget reaches.
+MAX_SCAN_K = 24
+#: Largest warm-up halo the scan kernels take (m_max + k <= 64 + 24).
 HALO_MAX = 128
 #: Outer corpus slice per dispatch on the streaming branch.
 STREAM_CHUNK = 1 << 26
@@ -579,7 +584,7 @@ def _check(ids: torch.Tensor, T: ScanTables, halo: int) -> None:
         raise ValueError(f"no scan kernel for device {ids.device}")
     if not (1 <= halo <= HALO_MAX):
         raise ValueError(f"halo {halo} outside 1..{HALO_MAX}")
-    if T.A > MAX_ALPHABET_PACKED or T.W > MAX_SCAN_LIMBS or T.k > MAX_K:
+    if T.A > MAX_ALPHABET_PACKED or T.W > MAX_SCAN_LIMBS or T.k > MAX_SCAN_K:
         raise ValueError(f"tables A={T.A} W={T.W} k={T.k} beyond the kernel limits")
     if not 1 <= ids.numel() < 1 << 31:
         raise ValueError(f"stream of {ids.numel()} symbols outside 1..2^31 - 1")
@@ -642,18 +647,31 @@ def _kernels():
     return kern
 
 
+def _wide(T: ScanTables) -> bool:
+    """Whether the wide kernels scan ``T`` (past ``MAX_LIMBS`` limbs or past
+    ``MAX_K`` error rows)."""
+    return T.W > MAX_LIMBS or T.k > MAX_K
+
+
 def wide_scan_instance(W: int, k: int) -> Tuple[int, int]:
     """(limbs per lane LPL, lanes per chain G) of the ``scan_bits_wide_kernel``
-    instance that scans ``W`` limbs (``MAX_LIMBS`` < W <= ``MAX_SCAN_LIMBS``)
-    at ``k`` error rows: the table of ``dispatch_wide`` in
+    instance that scans ``W`` limbs at ``k`` error rows (``MAX_LIMBS`` < W <=
+    ``MAX_SCAN_LIMBS`` at k <= ``MAX_K``, 1 <= W <= ``MAX_SCAN_LIMBS`` at
+    ``MAX_K`` < k <= ``MAX_SCAN_K``): the table of ``dispatch_wide`` in
     ``csrc/scan_wide.cu``, mirrored. A chain computes LPL x G >= W limbs, the
     ones past W zero: at k = 0 ``WIDE_K0_LANES`` lanes of ceil(W / 8) limbs
-    (at most 7 past W); at k >= 1 (2, 8) up to 16 limbs, (4, 8) up to 32,
-    else (4, 16) (at most 31 past W)."""
-    if not MAX_LIMBS < W <= MAX_SCAN_LIMBS:
-        raise ValueError(f"W = {W} outside the wide scan's {MAX_LIMBS + 1}..{MAX_SCAN_LIMBS}")
+    (at most 7 past W); at k = 1..6 (2, 8) up to 16 limbs, (4, 8) up to 32,
+    else (4, 16) (at most 31 past W); at k = 7..24 one limb a lane, G the
+    power of two >= W, up to 32 limbs, else (2, 32)."""
+    if not 0 <= k <= MAX_SCAN_K:
+        raise ValueError(f"k = {k} outside the scan's 0..{MAX_SCAN_K}")
+    lo = 1 if k > MAX_K else MAX_LIMBS + 1
+    if not lo <= W <= MAX_SCAN_LIMBS:
+        raise ValueError(f"W = {W} outside the wide scan's {lo}..{MAX_SCAN_LIMBS} at k = {k}")
     if k == 0:
         return -(-W // WIDE_K0_LANES), WIDE_K0_LANES
+    if k > MAX_K:
+        return (1, 1 << (W - 1).bit_length()) if W <= 32 else (2, 32)
     return (2, 8) if W <= 16 else (4, 8) if W <= 32 else (4, 16)
 
 
@@ -675,10 +693,10 @@ def scan_bits(ids: torch.Tensor, T: ScanTables, halo: int, chunk: Optional[int] 
     :func:`scan_bits_torch`). CPU tensors run the plain version; CUDA tensors
     launch ``scan_bits_kernel``, each thread scanning ``chunk`` symbols
     (:func:`scan_chunk` of the stream where None; the result does not depend
-    on it), or for tables wider than ``MAX_LIMBS`` ``scan_bits_wide_kernel``,
-    each chain scanning ``SCAN_WIDE_CHUNK``."""
+    on it), or for tables wider than ``MAX_LIMBS`` or deeper than ``MAX_K``
+    rows ``scan_bits_wide_kernel``, whose chunk is ``SCAN_WIDE_CHUNK``."""
     _check(ids, T, halo)
-    wide = T.W > MAX_LIMBS
+    wide = _wide(T)
     chunks = (SCAN_WIDE_CHUNK,) if wide else SCAN_CHUNKS
     if chunk is not None and chunk not in chunks:
         raise ValueError(f"chunk {chunk} is none of {chunks}")
@@ -767,7 +785,7 @@ def hit_words(ids: torch.Tensor, bits: torch.Tensor, offsets: torch.Tensor,
     :func:`block_offsets`; ``count`` is ``offsets[-1]``, read by the caller.
     CPU tensors run :func:`hit_words_torch`; CUDA tensors launch
     ``hit_words_kernel``, or ``hit_words_wide_kernel`` for tables wider than
-    ``MAX_LIMBS``."""
+    ``MAX_LIMBS`` or deeper than ``MAX_K`` rows."""
     _check(ids, T, halo)
     dev = ids.device
     nblocks = -(-ids.numel() // SCAN_BLOCK_SYMS)
@@ -781,7 +799,7 @@ def hit_words(ids: torch.Tensor, bits: torch.Tensor, offsets: torch.Tensor,
     pos = torch.empty(count, dtype=torch.int64, device=dev)
     words = torch.empty((count, 2 * T.W), dtype=torch.int64, device=dev)
     kern = _CHECKED if _CHECKED is not None else _kernels()
-    wide = T.W > MAX_LIMBS
+    wide = _wide(T)
     entry = kern.lib.fac_hit_words_wide if wide else kern.lib.fac_hit_words
     with on_device(dev):
         rc = entry(ids.data_ptr(), ids.numel(), bits.data_ptr(), offsets.data_ptr(),
@@ -955,11 +973,8 @@ def fuzzy_anchors_packed(engine, haystack: str, threshold) -> Optional[torch.Ten
     (the engine's for ASCII and for the first-char class stream).
 
     The scan runs the JAX package's per-pattern budgets (a swap costs two
-    errors). Where one of them is past the kernels' ``MAX_K`` (``edits(4)``
-    and more at a low threshold), the Damerau recurrence runs with the
-    Damerau budgets (at most the edit budget): a smaller superset of the
-    same starts, so the matches are the same and ``last_stats["anchors"]``
-    can be smaller than the JAX package's.
+    errors) without the Damerau rows, up to ``MAX_SCAN_K`` rows, so the
+    anchors are the JAX package's.
 
     Haystacks of up to ``RESIDENT_MAX`` characters scan the resident
     prefilter stream once; longer ones stream ``STREAM_CHUNK`` segments,
@@ -975,16 +990,12 @@ def fuzzy_anchors_packed(engine, haystack: str, threshold) -> Optional[torch.Ten
     ks = [pk.filt.k_for(bp, thr) for bp in pk.filt.patterns]
     if None in ks:
         return None
-    dam = max(ks) > MAX_K
-    if dam:
-        ks = [pk.filt.k_for(bp, thr, damerau=True) for bp in pk.filt.patterns]
     match, init, k = pk.fuzzy_masks(ks)
     halo = pk.m_max + k
     span = halo  # the longest window m + k over the patterns
     device = engine.device
-    T = _dev_cache(engine, ("anchors", tuple(ks), dam, str(device)), lambda: tables_from_numpy(
-        pk.word_tbl, pk.starts, match, init, notlast=pk.notlast() if dam else None,
-        device=device))
+    T = _dev_cache(engine, ("anchors", tuple(ks), str(device)), lambda: tables_from_numpy(
+        pk.word_tbl, pk.starts, match, init, device=device))
     transcode = lambda h: np.ascontiguousarray(pk.filt.transcode(h)[0], dtype=np.uint8)
 
     if len(haystack) == 0:

@@ -1780,10 +1780,6 @@ def typed_emit(dec, row_offsets, cands: TypedCands, T: DpTables, TT: TypedTables
 # ---------------------------------------------------------------------------
 
 _LIST_CHECKED: Optional[_cuda_build.Kernels] = None
-#: Largest edit budget at which ``count_dp`` takes mappings on the card: the
-#: mapped lane scans with 2E error rows (:class:`MappedSpec`), and the scan
-#: kernels have ``packed_bitap.MAX_K``, so :func:`dp_plan` declines past it.
-LIST_MAPS_MAX_E = 3
 
 
 def _list_kernels():
@@ -1828,14 +1824,13 @@ def count_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
     arguments). CPU tensors run the plain version; CUDA tensors launch
     ``count_dp_kernel`` (a group of 8, 16 or 32 lanes per candidate, one
     cell each, up to E = 3) or ``count_dp_rows_kernel`` (a warp per
-    candidate, rows in shared memory, no mappings) over the list's bound;
-    columns of ``dec`` past the total are left unwritten."""
+    candidate, rows in shared memory, E = 4..6) over the list's bound, both
+    with or without mappings; columns of ``dec`` past the total are left
+    unwritten."""
     from . import packed_bitap as pb
 
     if ids.device.type == "cpu":
         return count_dp_torch(cands, ids, limit, T, pens, thr, E, deadend, forbid, maps)
-    if maps is not None and E > LIST_MAPS_MAX_E:
-        raise ValueError(f"the list step takes mappings up to E = {LIST_MAPS_MAX_E}, not {E}")
     dev = ids.device
     MO = T.out_list.shape[1]
     nce, ntile = (2 * E + 1) * MO, _typed_tiles(cands.items)
@@ -2050,12 +2045,13 @@ def dp_plan(engine, threshold, n: int, typed=None, maps=None, forbid=None
     """The host decisions the JAX package's ``fuzzy_search_dp`` makes before
     any device work, or None where it declines (the caller falls back):
     corpus past ``RESIDENT_MAX``, no packed tables or DP fields, or a
-    threshold budget the scan cannot serve (for ``maps``, a budget past the
-    scan kernels' ``MAX_K`` rows). ``typed`` / ``maps`` / ``forbid``
-    pick the lane's budgets: the mapped lane scans with the uniform budget
-    ``maps.k`` and no Damerau rows, and the DP's ``E`` is the forbid spec's,
-    the typed spec's, or ``engine.max_edits_fast``."""
-    from .packed_bitap import MAX_K, RESIDENT_MAX, packed_fuzzy_of
+    threshold budget past ``MAX_USEFUL_K`` (for ``maps``,
+    :meth:`MappedSpec.build` already declined those). ``typed`` / ``maps`` /
+    ``forbid`` pick the lane's budgets: the mapped lane scans with the
+    uniform budget ``maps.k`` (2E-4E rows, up to 24) and no Damerau rows,
+    and the DP's ``E`` is the forbid spec's, the typed spec's, or
+    ``engine.max_edits_fast``."""
+    from .packed_bitap import RESIDENT_MAX, packed_fuzzy_of
 
     thr = np.float32(threshold)
     if n > RESIDENT_MAX:
@@ -2067,8 +2063,6 @@ def dp_plan(engine, threshold, n: int, typed=None, maps=None, forbid=None
     if vf is None:
         return None
     if maps is not None:
-        if maps.k > MAX_K:
-            return None  # past the scan kernels' error rows (E >= 4)
         ks = [maps.k] * len(pk.filt.patterns)
         dam = False
     else:

@@ -186,9 +186,11 @@ def sharded_fuzzy_search(engine, haystack: str, threshold: float, mesh=None):
     overlap): the single-device path's and the oracle's matches. Returns
     None where the lane declines (no packed prefilter or DP fields, a
     mapped engine on a haystack with multi-code-point graphemes, a
-    configuration without a forbid or typed spec, a threshold budget the
-    scan cannot serve) — the caller falls back (reference parallel fuzzy
-    windows, src/stream.rs:378-429).
+    configuration without a forbid or typed spec, a threshold budget past
+    ``MAX_USEFUL_K``) — the caller falls back (reference parallel fuzzy
+    windows, src/stream.rs:378-429). A mapped engine's scan budget
+    E x its longest side may pass the one-thread scan's six rows (up to
+    24): its shards then scan on the wide kernels' deep instances.
 
     Per shard ``d`` on ``mesh[d]``: the prefilter and dense class streams
     extended to ``[left halo | local | right margin | zeros]`` (left halo =

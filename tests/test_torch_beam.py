@@ -33,7 +33,7 @@ past its DP and many lanes, and every source of candidate starts:
 
 The modules under them are held against their JAX counterparts on the
 same inputs: ``compact.dilate_any``, ``packed_bitap.fuzzy_anchors_packed``
-(resident branch, and the Damerau budgets past the scan's ``MAX_K``),
+(resident branch, and the budgets past the one-thread scan's six rows),
 ``exact.exact_scan_hits`` (packed and goto-walk seed engines) and the
 candidate starts of every case; and the frontier takes its starts
 unpadded, in runs whose size does not change its output.
@@ -323,21 +323,25 @@ def test_fuzzy_anchors_packed_equal_to_jax(thr):
     assert 0 < got.numel() < len(hay)
 
 
-def test_fuzzy_anchors_past_max_k_take_the_damerau_budgets():
-    """With ``edits(4)`` at 0.5 the JAX package's plain budgets reach 8,
-    past the scan kernels' ``MAX_K`` = 6: the port scans the Damerau
-    recurrence at its budgets (at most 4), which keeps every match start."""
+def test_fuzzy_anchors_past_six_rows_equal_to_jax():
+    """With ``edits(4)`` at 0.5 the JAX package's plain budgets reach 8, past
+    the one-thread scan's six rows: the port scans the same budgets (on the
+    card the wide kernels' deep instances), so its anchors, the count
+    included, are the JAX package's, and they keep every match start."""
     words = ["sollicitudin", "ullamcorper", "pellentesque"]
     hay = _ascii_corpus(11, 3000)
+    jax_e = JaxBuilder.new().fuzzy(JaxLimits.new().edits(4)).build(words)
     port_e = FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(4)).device(
         "cpu").build(words)
     pk = tpb.packed_fuzzy_of(port_e)
     thr = np.float32(0.5)
-    assert max(pk.filt.k_for(bp, thr) for bp in pk.filt.patterns) > tpb.MAX_K
-    got = set(tpb.fuzzy_anchors_packed(port_e, hay, thr).tolist())
+    assert max(pk.filt.k_for(bp, thr) for bp in pk.filt.patterns) == 8 > tpb.MAX_K
+    got = tpb.fuzzy_anchors_packed(port_e, hay, thr)
+    want = np.asarray(jpb.fuzzy_anchors_packed(jax_e, hay, thr))
+    assert got.numel() == want.size and got.tolist() == want.tolist()
     port_e.backend = "oracle"
     starts = {m.start for m in port_e.search_raw(hay, float(thr))}
-    assert starts and starts <= got and len(got) < len(hay)
+    assert starts and starts <= set(got.tolist()) and len(got) < len(hay)
 
 
 @pytest.mark.parametrize("which", ["cjk-goto-walk", "ascii-packed"])

@@ -20,8 +20,10 @@ CPU.
 (d) The routing (which calls take the list step) and the int32 bound.
 (e) The byte bound of a range (``step_max_hits``), and a search cut by it
     into many ranges equal to the JAX search.
-(f) The mapped lane past E = 3 (a scan budget past the scan's rows):
-    declined, and the search equal to the JAX package's.
+(f) The mapped lane past six scan rows (``edits(4)`` with ß <-> ss, k = 8;
+    ``edits(3)`` with sch <-> sh, k = 9): served on the card's lane, the
+    list equal to the JAX device search's; ``edits(6)`` (k = 12) equal to
+    the host oracle; ``dp_plan`` serving every mapped budget up to 24.
 
 Both sides get the same inputs, made from a seed. The tolerance is exact
 equality everywhere: equal int32 rows and equal f32 bits (the DP replays the
@@ -394,28 +396,63 @@ def test_step_ranges_bounded_by_bytes(monkeypatch):
     assert len(calls) == -(-port_e.last_stats["hits"] // 5) and set(calls) == {0, 1}
 
 
-def test_mapped_lane_declines_past_the_scan_rows():
-    """A mapped engine at ``edits(4)`` scans with a budget of 2E = 8 error
-    rows, past the scan kernels' ``MAX_K``: the lane declines (the search
-    falls back to the oracle) instead of raising, and the matches equal the
-    JAX package's device search; ``count_dp`` takes mappings up to E = 3
-    on the card."""
-    patterns = ["strasse", "grosse"]
-    hay = ("pad " * 10) + "straße grosze strasse gröse " * 3
-    jax_e = (JaxBuilder.new().fuzzy(JaxLimits.new().edits(4)).mapping("ß", "ss")
-             .case_insensitive(True).build(patterns))
-    port_e = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(4)).mapping("ß", "ss")
+#: Mapped engines whose scan budget E x max(2, longest side) passes the
+#: one-thread scan's six rows: name -> (edits, mapping, patterns, haystack,
+#: threshold, scan budget, whether the JAX device search is the reference;
+#: past E = 4 its compile takes minutes, and the host oracle is).
+PAST_SIX = {
+    "edits4-eszett": (4, ("ß", "ss"), ["strasse", "grosse"],
+                      ("pad " * 10) + "straße grosze strasse gröse " * 3, 0.5, 8, True),
+    "edits3-sch-sh": (3, ("sch", "sh"), ["schiff", "fisch"],
+                      ("pad " * 10) + "shiff fish schif fisch shif fsh " * 3, 0.5, 9, True),
+    "edits6-eszett": (6, ("ß", "ss"), ["strassenbahnhof", "grossmutter"],
+                      ("pad " * 10) + "straßenbahnhof großmuter strasenbahnhof grosmutter " * 2,
+                      0.5, 12, False),
+}
+
+
+@pytest.mark.parametrize("name", list(PAST_SIX))
+def test_mapped_lane_serves_past_six_scan_rows(name):
+    """A mapped engine whose scan budget passes six rows (the wide kernels'
+    deep instances on the card; ``count_dp_rows_kernel`` with mapping
+    arrivals past E = 3) runs the mapped lane: at ``edits(4)`` (k = 8) and
+    ``edits(3)`` with a 3-symbol side (k = 9) its list equals the JAX
+    device search's, tuple for tuple and in order, both on
+    ``device-fuzzy-dp-mapped``; at ``edits(6)`` (k = 12) its match set
+    equals the host oracle's."""
+    E, (a, b), patterns, hay, thr, k, vs_jax = PAST_SIX[name]
+    port_e = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(E)).mapping(a, b)
               .case_insensitive(True).device("cpu").build(patterns))
-    jax_e.backend = port_e.backend = "device"
+    port_e.backend = "device"
     spec = tvd.mapped_spec_of(port_e)
-    assert spec is not None and spec.k == 8 > tpb.MAX_K
-    assert tvd.dp_plan(port_e, 0.5, len(view_of(hay, True)), None, spec) is None
-    jax_corpus.clear()
+    assert spec is not None and spec.k == k > tpb.MAX_K
+    plan = tvd.dp_plan(port_e, thr, len(view_of(hay, True)), None, spec)
+    assert plan is not None and plan.k == k and not plan.dam and plan.E == E
     device_corpus.clear()
-    want = sorted(_tuples(jax_e.search_raw(hay, 0.5)))
-    assert jax_e.last_stats["backend"] == BACKEND["mapped"]
-    got = sorted(_tuples(port_e.search_raw(hay, 0.5)))
-    assert port_e.last_stats["backend"] == "oracle"
-    # The same match set; the oracle lists it in its own order.
-    assert got == want and any(t[6] >= 1 for t in got)
-    assert tvd.LIST_MAPS_MAX_E == 3 and 2 * (tvd.LIST_MAPS_MAX_E + 1) > tpb.MAX_K
+    got = _tuples(port_e.search_raw(hay, thr))
+    assert port_e.last_stats["backend"] == BACKEND["mapped"]
+    assert any(t[6] >= 1 for t in got)
+    if vs_jax:
+        jax_e = (JaxBuilder.new().fuzzy(JaxLimits.new().edits(E)).mapping(a, b)
+                 .case_insensitive(True).build(patterns))
+        jax_e.backend = "device"
+        jax_corpus.clear()
+        assert got == _tuples(jax_e.search_raw(hay, thr))
+        assert jax_e.last_stats["backend"] == BACKEND["mapped"]
+    else:
+        port_e.backend = "oracle"
+        assert sorted(got) == sorted(_tuples(port_e.search_raw(hay, thr)))
+
+
+@pytest.mark.parametrize("E", range(1, 7))
+def test_dp_plan_serves_every_mapped_budget(E):
+    """``dp_plan`` returns a plan for every mapped budget the spec allows:
+    sch <-> tsch (a 4-symbol side) at E = 1..6 gives k = 4E, up to
+    ``MAX_USEFUL_K`` = 24; the plan scans with it and no Damerau rows."""
+    port_e = (FuzzyAhoCorasickBuilder.new().fuzzy(FuzzyLimits.new().edits(E))
+              .mapping("sch", "tsch").case_insensitive(True).device("cpu")
+              .build(["schiffsschraube", "fischmarkt"]))
+    spec = tvd.mapped_spec_of(port_e)
+    assert spec is not None and spec.k == 4 * E <= tpb.MAX_SCAN_K
+    plan = tvd.dp_plan(port_e, 0.5, 1000, None, spec)
+    assert plan is not None and plan.k == spec.k and plan.ks == (spec.k,) * 2 and not plan.dam

@@ -8,7 +8,9 @@ package's ``parallel/shard_search``, the oracle and the port's own
     (the JAX ``psum``) equals the matches.
 (b) ``sharded_fuzzy_search`` for ``edits(1)``, the Damerau swaps case,
     ``edits(2)``, forbid (``edits(2).swaps(0)``), typed limits and mapped
-    engines, the needles planted across every shard boundary and the
+    engines (one at ``edits(4)``, a scan budget of 8 rows, where the lane
+    returned None before it took budgets past six rows), the needles
+    planted across every shard boundary and the
     Unicode text: equal to the oracle and ``search_raw`` at 1, 2 and 3
     shards, and to the JAX package at 3 shards (one JAX compile per
     engine): pattern, start, end, f32 similarity bits and the four edit
@@ -165,6 +167,12 @@ FUZZY = {
     "mapped": (lambda L: L.edits(1), ["strasse"], [("ß", "ss")],
                ("wort satz " * 11 + "straße ") * 24 + "strasse am ende", 0.6,
                "device-fuzzy-dp-mapped", 24),
+    # A scan budget of 2E = 8 rows, past the one-thread scan's six; the
+    # words are longer than 8, so that a hit is not every position (the
+    # hit count then does not depend on the buffers' padding).
+    "mapped-edits4": (lambda L: L.edits(4), ["weissbier", "grossbaum"], [("ß", "ss")],
+                      ("wort satz " * 11 + "weißbier großbaum grosbaum ") * 12, 0.6,
+                      "device-fuzzy-dp-mapped", 24),
     "straddle": (lambda L: L.edits(1), ["needle", "haystack", "boundary"], (),
                  _straddle_text(), 0.72, "device-fuzzy-dp", 11),
     "unicode": (lambda L: L.edits(1), ["héllo", "wörld"], (), _unicode_text(), 0.7,

@@ -1,6 +1,6 @@
-"""The wide packed scan (W = 9..64 limbs) at k = 0 on the CPU, where
-``packed_hits`` runs the plain versions of ``scan_bits_wide_kernel`` and
-``hit_words_wide_kernel``.
+"""The wide packed scan (W = 9..64 limbs, and every W past six error rows)
+on the CPU, where ``packed_hits`` runs the plain versions of
+``scan_bits_wide_kernel`` and ``hit_words_wide_kernel``.
 
 (a) At every edge of the k = 0 instance table (chains of 8 lanes of
     ceil(W / 8) limbs) and at W = 43 (the exact-wide dictionary's width),
@@ -12,6 +12,10 @@
     ``packed_hits`` (``consts=None``, Pallas in interpret mode).
 (c) ``wide_scan_instance``, the Python mirror of the kernels' instance
     table, covers W with at most 7 padded limbs at k = 0 and 31 at k >= 1.
+(d) Past the one-thread kernels' six rows (the wide kernels' deep
+    instances, every W): at k = 8 and 13, W = 1 and 9, with and without
+    the Damerau rows, the plain scan and replay equal the JAX
+    ``packed_hits``; ``wide_scan_instance`` covers W = 1..64 at k = 7..24.
 
 Inputs are made with numpy from a seed; the tolerance is exact equality
 (the scan is integer)."""
@@ -150,3 +154,101 @@ def test_wide_scan_instance_covers_every_width(k):
     for W in (tpb.MAX_LIMBS, tpb.MAX_SCAN_LIMBS + 1):
         with pytest.raises(ValueError):
             tpb.wide_scan_instance(W, k)
+
+
+# ---------------------------------------------------------------------------
+# Past the one-thread kernels' six rows (k = 7..24): the wide kernels' deep
+# instances, at every W
+# ---------------------------------------------------------------------------
+
+def _deep_tables(W: int, k: int, damerau: bool, A: int, seed: int):
+    """Tables of exactly ``W`` limbs at ``k`` error rows: random words of
+    k + 8 to k + 23 symbols of 1..A-1 (longer than k, so that a hit is not
+    every position), packed until the next one would open limb W. Returns
+    (ScanTables, numpy word table, starts, match, init, notlast or None,
+    words, halo)."""
+    rng = np.random.default_rng(seed)
+    words = []
+    while True:
+        w = rng.integers(1, A, size=int(rng.integers(k + 8, min(k + 24, 65)))).tolist()
+        offs = tpb._pack_fields([len(x) for x in words + [w]])
+        if max(lw for lw, _ in offs) + 1 > W:
+            break
+        words.append(w)
+    ms = [len(w) for w in words]
+    offs = tpb._pack_fields(ms)
+    assert max(lw for lw, _ in offs) + 1 == W
+    limb = np.zeros((A, W), np.uint64)
+    for w, (lw, lo) in zip(words, offs):
+        for i, c in enumerate(w):
+            limb[c, lw] |= np.uint64(1) << np.uint64(lo + i)
+    match, init, kk = tpb.fuzzy_masks(offs, ms, W, [k] * len(words))
+    assert kk == k
+    notlast = tpb.notlast_mask(offs, ms, W) if damerau else None
+    word_tbl, starts = tpb._word_table(limb, A, W), tpb._starts_mask(offs, W)
+    T = tpb.tables_from_numpy(word_tbl, starts, match, init, notlast)
+    return T, word_tbl, starts, match, init, notlast, words, max(ms) + k
+
+
+@pytest.mark.parametrize("damerau", (False, True))
+@pytest.mark.parametrize("k", (8, 13))
+@pytest.mark.parametrize("W", (1, 9))
+def test_deep_plain_equal_to_jax_traced_tables(W, k, damerau):
+    """k = 8 (the K = 12 row template) and 13 (K = 24), one limb and the
+    narrowest wide table, with and without the Damerau rows: the plain scan
+    and replay, which the deep instances are held to on the card, equal
+    the JAX ``packed_hits`` (traced tables, Pallas in interpret mode) over
+    3,001 symbols of an 8-symbol alphabet with the words planted at 1 in 50
+    positions, each with up to k substitutions."""
+    A = 8
+    T, tbl, starts, match, init, notlast, words, halo = _deep_tables(W, k, damerau, A,
+                                                                     seed=10 * W + k)
+    assert T.k == k > tpb.MAX_K and T.damerau == damerau
+    rng = np.random.default_rng(3 * W + k)
+    n, nb = 3001, 8192  # 128 JAX lanes of 64 >= halo symbols
+    ids = rng.integers(0, A, size=n).astype(np.uint8)
+    for at in rng.integers(0, n - 64, size=n // 50).tolist():
+        w = list(words[int(rng.integers(len(words)))])
+        for _ in range(int(rng.integers(0, k + 1))):
+            w[int(rng.integers(len(w)))] = int(rng.integers(1, A))
+        ids[at:at + len(w)] = w
+    NL, TB, chunk, grid = jpb._derive_layout_resident(nb, halo, W, k=k, tables_in_vmem=True,
+                                                      damerau=damerau)
+    ids_pad = np.zeros(nb, np.uint8)
+    ids_pad[:n] = ids
+    i32 = lambda a: jnp.asarray(np.ascontiguousarray(a).view(np.int32))
+    count, pos, jw = jpb.packed_hits(
+        jnp.asarray(ids_pad), jnp.asarray(tbl), i32(starts), i32(match), i32(init), A, W, NL, TB,
+        grid, chunk, halo, k, 4096, consts=None,
+        notlast=None if notlast is None else i32(notlast))
+    count = int(count)
+    assert count <= 4096
+    pos = np.asarray(pos)[:count].astype(np.int64)
+    keep = pos < n
+    before = dict(tpb.LAUNCHES)
+    got_count, got_pos, got_words = tpb.packed_hits(torch.from_numpy(ids), T, halo)
+    assert tpb.LAUNCHES == before  # CPU tensors run the plain versions
+    assert got_pos.tolist() == pos[keep].tolist() and got_count == int(keep.sum())
+    assert 100 < got_count < n  # not every position
+    assert np.array_equal(got_words.numpy(), np.asarray(jw)[:count][keep].astype(np.int64))
+
+
+@pytest.mark.parametrize("k", range(tpb.MAX_K + 1, tpb.MAX_SCAN_K + 1))
+def test_wide_scan_instance_past_six_rows_covers_every_width(k):
+    """At k = 7..24 the wide kernels take every W = 1..64: one limb a lane
+    and the least power-of-two lane count >= W up to 32 limbs, two limbs on
+    32 lanes past it."""
+    for W in range(1, tpb.MAX_SCAN_LIMBS + 1):
+        lpl, g = tpb.wide_scan_instance(W, k)
+        assert lpl * g >= W and g & (g - 1) == 0 and g <= 32
+        if W <= 32:
+            assert lpl == 1 and g // 2 < W
+        else:
+            assert (lpl, g) == (2, 32)
+    for W in (0, tpb.MAX_SCAN_LIMBS + 1):
+        with pytest.raises(ValueError):
+            tpb.wide_scan_instance(W, k)
+    with pytest.raises(ValueError):
+        tpb.wide_scan_instance(1, tpb.MAX_SCAN_K + 1)
+    with pytest.raises(ValueError):
+        tpb.wide_scan_instance(tpb.MAX_LIMBS, tpb.MAX_K)
