@@ -599,7 +599,9 @@ def compare_step_kernels(tpb, vdp, torch, args, what: str, h0: int = 0) -> dict:
     M = int(cp.total[0])
     errs = {k_expand: max([int_err(int(ck.total[0]), M)]
                           + [int_err(a[:M], b) for a, b in zip(ck[:3], cp[:3])])}
-    dec_k, counts_k = dp(cp)
+    # The plain list of no candidate is empty tensors, which the kernel
+    # refuses as null pointers: it then reads the kernel's list, equal above.
+    dec_k, counts_k = dp(cp if M else ck)
     dec_p, counts_p = dp_plain(cp)
     errs[k_dp] = max(int_err(dec_k[:, :M], dec_p[:, :M]), int_err(counts_k, counts_p))
     offs = tpb.block_offsets_torch(counts_p)
@@ -1649,6 +1651,215 @@ def lane_kernel_checks(ctx, edited: str, keyf, lanes):
     return errs
 
 
+#: The six instances of the list step's DP past 32 cells, (E, mappings).
+ROWS_INSTANCES = tuple((E, maps) for E in (4, 5, 6) for maps in (False, True))
+
+
+def rows_instances(log_text: str) -> dict:
+    """{"E=4", "E=4 maps", ...: (mangled name, registers, spill bytes)} of
+    ``count_dp_rows_kernel<E, MAPS>`` from the ``ptxas -v`` report."""
+    return {f"E={E}" + (" maps" if maps else ""):
+            ptxas_entry(log_text, rf"count_dp_rows_kernelILi{E}ELb{int(maps)}E")
+            for E, maps in ROWS_INSTANCES}
+
+
+def rows_kernel_checks(ctx, edited: str, uni_text: str) -> dict:
+    """Phase 3 for ``count_dp_rows_kernel<E, MAPS>``, the list step's DP past
+    32 cells (a band per lane, early stop): the step (``compare_pipeline``,
+    each kernel alone too) bit for bit against its plain version at E = 4, 5
+    and 6 without mappings (the instances with mappings are
+    ``lane_kernel_checks``' mapped edits(4)-(6) cases); at E = 4 each forbid
+    flag, the dead-end filter (the Cyrillic dictionary), a threshold that a
+    similarity ties exactly, a range with h0 = 1 and tags, a hit list with
+    no candidate, candidates that all die at row 1 (every arrival but the
+    exact one over the budget, over a text with no dictionary symbol) and
+    candidates at the depth Lmax. Returns {kernel: max_abs_err} and the
+    registers and spill bytes of the six instances."""
+    torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
+    L = ctx.Limits
+    small = edited[: 64 << 10]
+    long_text = word_corpus(GERMAN_LONG_TEXT, 6000, SEED + 27)
+    errs = dict.fromkeys(("list_step", "typed_expand", "count_dp", "count_emit",
+                          "block_offsets"), 0.0)
+
+    def step_case(eng, text, thr, what, E, want_rows=True, deadend=False):
+        plan, run = lane_inputs(vdp, eng, text, thr, what)
+        require(plan.E == E and run.variant.typed is None and run.deadend == deadend,
+                f"{what}: E = {plan.E}, dead-end {run.deadend}")
+        _e, err_offs = compare_slice_pipeline(tpb, vdp, torch, np, plan, run, run.parts[0], thr,
+                                              "rows DP " + what, want_rows=want_rows, errs=errs)
+        errs["block_offsets"] = max(errs["block_offsets"], err_offs)
+        return plan, run
+
+    head4 = HEADLINE[:4]
+    forbid4 = make_engine(ctx, head4, L.new().edits(4).swaps(0))
+    for eng, text, thr, what, E in (
+        (make_engine(ctx, head4, L.new().edits(4)), small, 0.5, "edits(4)", 4),
+        (make_engine(ctx, GERMAN_LONG, L.new().edits(5)), long_text, 0.5, "edits(5)", 5),
+        (make_engine(ctx, GERMAN_LONG, L.new().edits(6)), long_text, 0.45, "edits(6)", 6),
+        (make_engine(ctx, head4, L.new().edits(4).insertions(0)), small, 0.5,
+         "edits(4).insertions(0)", 4),
+        (make_engine(ctx, head4, L.new().edits(4).deletions(0)), small, 0.5,
+         "edits(4).deletions(0)", 4),
+        (make_engine(ctx, head4, L.new().edits(4).substitutions(0)), small, 0.5,
+         "edits(4).substitutions(0)", 4),
+        (forbid4, small, 0.5, "edits(4).swaps(0)", 4),
+    ):
+        step_case(eng, text, thr, what, E)
+    step_case(make_engine(ctx, UNICODE_WORDS[:4], L.new().edits(4)), uni_text, 0.3,
+              "edits(4), Cyrillic dictionary (dead-end filter)", 4, deadend=True)
+    # A threshold that a similarity of the lane ties exactly: the first from
+    # the top that the lane keeps at itself.
+    sims = sorted({np.float32(m.similarity) for m in forbid4.search_raw(small, 0.5)
+                   if m.similarity < 1.0}, reverse=True)
+    tie = next(t for t in sims if any(np.float32(m.similarity) == t
+                                      for m in forbid4.search_raw(small, float(t))))
+    step_case(forbid4, small, float(tie), f"edits(4).swaps(0) at the tied threshold {tie!r}", 4)
+    # A range of the hits (h0 = 1, tags), a hit list with no candidate, the
+    # early stop at row 1, and candidates at the depth Lmax.
+    plan, run = lane_inputs(vdp, forbid4, small, 0.5, "rows DP range")
+    part = run.parts[0]
+    _h, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    half = pos.numel() // 2
+    args = pipeline_args(vdp, np, plan, run, part, pos[half - 1:], words[half - 1:], 0.5)
+    for key, e in compare_step_kernels(tpb, vdp, torch, args, "rows DP edits(4).swaps(0), the "
+                                       "second half of the hits", h0=1).items():
+        errs[key] = max(errs[key], e)
+    got = vdp.dp_pipeline(*args, h0=1, tags=True)
+    want = vdp.dp_pipeline_torch(*args, h0=1, tags=True)
+    require(torch.equal(got[0], want[0]) and got[1] == want[1] and torch.equal(got[2], want[2])
+            and got[0].shape[0] > 0, "the rows DP disagrees with its plain version on a range")
+    none = pipeline_args(vdp, np, plan, run, part, pos, torch.zeros_like(words), 0.5)
+    compare_step(tpb, vdp, torch, none, pos.numel(), "rows DP, no candidate", want_rows=False,
+                 errs=errs)
+    require(int(vdp.typed_expand(*none[:3], plan.E, run.statics).total[0]) == 0,
+            "the hit list with no fired bit has candidates")
+    digits = "0123456789 " * 6000
+    plan_d, run_d = lane_inputs(vdp, forbid4, digits, 0.5, "rows DP early stop")
+    part_d = run_d.parts[0]
+    pos_d = torch.arange(part_d.lo + 16, part_d.hi - 16, 11, dtype=torch.int64, device=ctx.dev)
+    words_d = torch.full((pos_d.numel(), words.shape[1]), 0xFFFFFFFF, dtype=torch.int64,
+                         device=ctx.dev)
+    d_args = list(pipeline_args(vdp, np, plan_d, run_d, part_d, pos_d, words_d, 0.5))
+    pens = d_args[6]
+    d_args[6] = pens._replace(max_pen=np.float32(min(pens.p_sub, pens.p_ins, pens.p_del,
+                                                     pens.p_swap) / 2))
+    _e, _o = compare_step(tpb, vdp, torch, tuple(d_args), pos_d.numel(),
+                          "rows DP, every candidate dead at row 1", want_rows=False, errs=errs)
+    n_dead = int(vdp.typed_expand(*d_args[:3], plan_d.E, run_d.statics).total[0])
+    log(f"  rows DP early stop: {n_dead} candidates over a text without a dictionary symbol, "
+        f"max_pen {float(d_args[6].max_pen)}")
+    require(n_dead > 1000, "the early-stop case has too few candidates")
+    longest = max(head4, key=len)
+    deep_text = (" lorem " + longest) * 4000
+    plan_l, run_l = step_case(forbid4, deep_text, 0.5, f"candidates at the depth Lmax "
+                              f"({longest!r})", 4)
+    depth = int(run_l.T.depth.max())
+    rows_l = vdp.dp_pipeline(*pipeline_args(vdp, np, plan_l, run_l, run_l.parts[0],
+                                            *tpb.packed_hits(run_l.parts[0].ids_pf,
+                                                             run_l.T_scan, run_l.halo)[1:],
+                                            0.5))[0]
+    n_deep = int((rows_l[:, 3] == head4.index(longest)).sum())
+    log(f"  rows DP depth: Lmax {run_l.T.Lmax}, deepest field {depth}, {n_deep} rows of "
+        f"{longest!r}")
+    require(depth == run_l.T.Lmax == len(longest) and n_deep >= 4000,
+            "the depth case did not reach Lmax")
+    regs = rows_instances(ctx.kern.log)
+    for inst, entry in regs.items():
+        log(f"  count_dp_rows_kernel {inst}: "
+            + (f"{entry[1]} registers, {entry[2]} bytes spill stores" if entry else "not found"))
+    require(all(regs.values()), "an instance of count_dp_rows_kernel is missing from ptxas")
+    require(regs["E=4 maps"][2] == 0, "count_dp_rows_kernel<4, true> spills")
+    log(f"  rows DP checks: max_abs_err {errs}")
+    require(all(v == 0 for v in errs.values()), "the rows DP disagrees with its plain version")
+    return errs, regs
+
+
+def expand_inputs(torch, np, dev, K: int, n_pat: int, density: float, seed: int):
+    """A synthetic hit list for the expansion: ``K`` ascending positions from
+    100 on (gaps of 1-3, so runs of consecutive ends), match words of two
+    u32 halves with each bit set at ``density``, and statics (BITS, P2F,
+    DEPTHS) of ``n_pat`` patterns, one field each."""
+    rng = np.random.default_rng(seed)
+    pos = 100 + np.cumsum(rng.integers(1, 4, K))
+    words = (rng.random((K, 2, 32)) < density).astype(np.int64)
+    words = (words << np.arange(32, dtype=np.int64)).sum(axis=2)
+    statics = (tuple((p % 2, (7 * p) % 32) for p in range(n_pat)),
+               tuple((p,) for p in range(n_pat)), tuple(5 + p % 9 for p in range(n_pat)))
+    return (torch.from_numpy(pos.astype(np.int64)).to(dev), torch.from_numpy(words).to(dev),
+            statics)
+
+
+def expand_kernel_checks(ctx) -> float:
+    """Phase 3 for the one-pass ``typed_expand_kernel``: the list (field,
+    start, combo and the total on the card) against ``typed_expand_torch``,
+    bit for bit, at 1, 255, 256, 257 and 4096 items (and 2047-2049 around a
+    block's tile, ``verify_dp.TYPED_EXPAND_ITEMS``), at 2^22 + 3 items (past
+    the blocks the card holds at once, so the look-back crosses waves), with
+    no candidate and with every item a candidate, at h0 = 0 and 1; one
+    launch per call and no ``block_offsets``; 50 calls on one input give
+    the same list every time, with a chained ``block_offsets`` (past one
+    tile) between every fifth call and the next, so the two kernels take
+    turns on the stream's one look-back status array
+    (``packed_bitap.lookback_launch``). Returns the max_abs_err."""
+    torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
+    err = 0.0
+    big = None
+    # (what, E, items wanted, patterns, bit density, h0)
+    for what, E, items, n_pat, dens, h0 in (
+        ("1 item", 0, 1, 1, 1.0, 0), ("1 item, h0 = 1", 0, 1, 1, 1.0, 1),
+        ("255 items", 0, 255, 1, 0.5, 0), ("256 items", 0, 256, 1, 0.5, 0),
+        ("257 items", 0, 257, 1, 0.5, 1), ("2047 items", 0, 2047, 1, 0.5, 0),
+        ("2048 items", 0, 2048, 1, 0.5, 0), ("2049 items", 0, 2049, 1, 0.5, 1),
+        ("4096 items", 0, 4096, 4, 0.5, 0),
+        ("4096 items, h0 = 1", 1, 4095, 5, 0.3, 1),
+        ("2^22 + 3 items", 0, (1 << 22) + 3, 1, 0.5, 0),
+        ("2^22 + 3 items, 3 combos, h0 = 1", 1, 3 * ((1 << 22) // 3 + 1), 1, 0.4, 1),
+        ("no candidate", 1, 30000, 2, 0.0, 0), ("every item a candidate", 0, 30000, 3, 1.0, 1),
+    ):
+        n_combo = n_pat * (2 * E + 1)
+        require(items % n_combo == 0, f"{what}: {items} items over {n_combo} combos")
+        K = items // n_combo + h0
+        pos, words, statics = expand_inputs(torch, np, ctx.dev, K, n_pat, dens, SEED + items)
+        window = vdp.DpWindow(0, 1 << 30, 1 << 30)
+        before = dict(tpb.LAUNCHES)
+        ck = vdp.typed_expand(pos, words, window, E, statics, h0)
+        launched = {k: tpb.LAUNCHES[k] - before[k] for k in tpb.LAUNCHES
+                    if tpb.LAUNCHES[k] != before[k]}
+        cp = vdp.typed_expand_torch(pos, words, window, E, statics, h0)
+        M = int(cp.total[0])
+        e = max([int_err(int(ck.total[0]), M)] + [int_err(a[:M], b)
+                                                  for a, b in zip(ck[:3], cp[:3])])
+        log(f"  typed_expand {what}: {ck.items} items, {M} candidates, launches {launched}, "
+            f"max_abs_err {e}")
+        require(ck.items == cp.items == items and launched == {"typed_expand": 1},
+                f"typed_expand {what}: {ck.items} items, launches {launched}")
+        if dens == 0.0:
+            require(M == 0, "typed_expand: candidates without a fired bit")
+        if what == "every item a candidate":
+            require(M == items, "typed_expand: not every item a candidate")
+        err = max(err, e)
+        if items > 1 << 22 and big is None:
+            big = (pos, words, window, E, statics, h0, ck, M)
+    pos, words, window, E, statics, h0, first, M = big
+    same, between = 0, []
+    rng = np.random.default_rng(SEED + 29)
+    for i in range(50):
+        again = vdp.typed_expand(pos, words, window, E, statics, h0)
+        same += int(int(again.total[0]) == M
+                    and all(torch.equal(a[:M], b[:M]) for a, b in zip(again[:3], first[:3])))
+        if i % 5 == 4:
+            n = tpb.OFFSETS_TILE * (1 + i // 5) + 3 * i
+            counts = torch.from_numpy(rng.integers(0, 100, n).astype(np.int32)).to(ctx.dev)
+            between.append(int_err(tpb.block_offsets(counts), tpb.block_offsets_torch(counts)))
+    log(f"  typed_expand 50 calls on the 2^22 + 3 items: {same} of 50 equal to the first; "
+        f"chained block_offsets between them: max_abs_err {max(between)} over {len(between)}")
+    require(same == 50, "typed_expand gives another list on the same input")
+    require(max(between) == 0, "block_offsets disagrees between typed_expand calls")
+    require(err == 0, "typed_expand disagrees with its plain version")
+    return err
+
+
 def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, backend: str,
                    locked, scan_keys, pipe_keys: tuple, oracle_set, min_matches: int,
                    ties=False):
@@ -1705,6 +1916,10 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
             f"{tag}: the lane did not launch the scan's kernels and {pipe_keys}")
     require(all(v == 0 for k, v in launches.items() if k not in scan_keys + pipe_keys),
             f"{tag}: the lane launched a kernel of another lane")
+    if "typed_expand" in pipe_keys:
+        require(launches["typed_expand"] == launches[pipe_keys[1]],
+                f"{tag}: {launches['typed_expand']} expansion launches for "
+                f"{launches[pipe_keys[1]]} steps, not one each")
     dev_set = {match_key(m) for m in got}
     require(len(dev_set) == len(got), f"{tag}: the lane repeats a match")
     t0 = time.perf_counter()
@@ -1767,12 +1982,13 @@ def step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
     plain_d = dp_plain(plain_c)
     n_combo = vdp._combos(E, *statics).shape[1]
     nce, items = dec.shape[0], cands.items
-    nblk = cands.block_counts.numel()
     recs = {
+        # One pass: the hits and combos read once, the list and its total
+        # written once (the status words are the kernel's scratch).
         k_expand: (
             event_ms(torch, lambda: vdp.typed_expand(pos, words, win, E, statics), 20),
             event_ms(torch, lambda: vdp.typed_expand_torch(pos, words, win, E, statics), 3),
-            bound_ms(pos.numel() * 8 + words.numel() * 8 + 20 * n_combo + 12 * M + 12 * nblk,
+            bound_ms(pos.numel() * 8 + words.numel() * 8 + 20 * n_combo + 12 * M + 4,
                      12 * items, INT_RATE), None),
         k_dp: (
             event_ms(torch, lambda: dp(cands), 20),
@@ -1791,7 +2007,7 @@ def step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
         G = 8 if cells_per <= 8 else 16 if cells_per <= 16 else 32 if cells_per <= 32 else 0
         maps = int(variant.maps is not None)
         regs = {k_dp: ptxas_entry(ctx.kern.log, rf"count_dp_kernelILi{G}ELb{maps}E" if G
-                                  else r"count_dp_rows_kernel"),
+                                  else rf"count_dp_rows_kernelILi{E}ELb{maps}E"),
                 k_emit: ptxas_entry(ctx.kern.log, r"count_emit_kernel"),
                 k_expand: ptxas_entry(ctx.kern.log, r"typed_expand_kernel")}
     for name, (ms, plain, (b_ms, b_by), _lib) in recs.items():
@@ -1827,11 +2043,10 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     kind = step_kind(vdp, p_args)
     typed = kind == "typed"
     err_offs, offs_recs = 0, []
-    for i, counts in enumerate(vdp.dp_pipeline_counts(*p_args)):
+    for counts in vdp.dp_pipeline_counts(*p_args):
         err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
                                       - tpb.block_offsets_torch(counts).long()).abs().max()))
-        what = ({"typed": ("typed expansion's", "typed step's row"),
-                 "list": ("list expansion's", "list step's row")}[kind][i]
+        what = ({"typed": "typed step's row", "list": "list step's row"}[kind]
                 if kind != "pipeline" else "count pass's")
         offs_recs.append(offsets_times(tpb, torch, counts, f"{tag}, the {what} counts"))
     log(f"  {tag}: block_offsets over the step's counts, max_abs_err {err_offs}")
@@ -4322,6 +4537,10 @@ def smoke(torch, start_pool, workers: int) -> int:
 
     lanes = tuple(recipe_engine(ctx, name) for name in LANES)
     lane_errs = lane_kernel_checks(ctx, edited, keyf, lanes)
+    rows_errs, rows_regs = rows_kernel_checks(ctx, edited, uni_text[: 16 << 10])
+    for key, err in rows_errs.items():
+        lane_errs[key] = max(lane_errs[key], err)
+    lane_errs["typed_expand"] = max(lane_errs["typed_expand"], expand_kernel_checks(ctx))
     deep_errs = deep_kernel_checks(ctx)
     anchors_deep_check(ctx, plant(corpus[: 256 << 10], SEED + 26, 300, (1, 3)))
     for key, err in step_errs.items():
@@ -5054,15 +5273,16 @@ def smoke(torch, start_pool, workers: int) -> int:
             instance={"forbid2": f_t.regs[name], "mapped": m_t.regs[name]},
             step_ms={"forbid2": f_t.pipe[0], "mapped": m_t.pipe[0]},
             step_device_ms={"forbid2": f_t.device_ms, "mapped": m_t.device_ms}))
-    # count_dp_rows_kernel with mapping arrivals: mapped4's searches (4e'' and
-    # its sharded ones in 4k (a)), timed at slice 1 of mapped4.
+    # count_dp_rows_kernel<E, MAPS> (E = 4..6): mapped4's searches (4e'' and
+    # its sharded ones in 4k (a)), timed at slice 1 of mapped4; every
+    # instance held against its plain version in phase 3.
     m4_t, m4_run = lane_times["4e''"], lane_runs["4e''"]
     kernels.append(record(
         "count_dp[rows, maps]", f"{PKG}/csrc/dp_list.cu", f"{jax_vd}:611",
         m4_run.launches["count_dp"] + k4_sum("count_dp", DEEP_K4), lane_errs["count_dp"],
         *m4_t.steps["count_dp"], launches_4k=k4_sum("count_dp", DEEP_K4),
         device_ms_per_search=search_ms(m4_run.prof, "count_dp", "count_dp_rows_kernel"),
-        instance=m4_t.regs["count_dp"],
+        instance=m4_t.regs["count_dp"], instances=rows_regs,
         step_ms=m4_t.pipe[0], step_device_ms=m4_t.device_ms))
     for tag, dp_name, dp_replaces in (("4c", "banded_dp[forbid]", f"{jax_vd}:355"),
                                       ("4e", "banded_dp[maps]", f"{jax_vd}:611")):
@@ -5084,7 +5304,14 @@ def smoke(torch, start_pool, workers: int) -> int:
             lane_errs[name], *lane_t.steps[name], launches_4k=k4_sum(name),
             device_ms_per_search=search_ms(lane.prof, name, name),
             typed14_ms=t14.steps[name][0], typed14_plain_ms=t14.steps[name][1],
-            typed14_bound_ms=t14.steps[name][2][0]))
+            typed14_bound_ms=t14.steps[name][2][0],
+            **({"list_step": {tag: {"ms": lane_times[tag].steps[name][0],
+                                    "plain_ms": lane_times[tag].steps[name][1],
+                                    "bound_ms": lane_times[tag].steps[name][2][0],
+                                    "device_ms_per_search": search_ms(lane_runs[tag].prof, name,
+                                                                      name)}
+                              for tag in ("4c", "4e", "4e''")},
+                "instance": lane_times["4c"].regs[name]} if name == "typed_expand" else {})))
     held.append(record("banded_dp_typed", f"{PKG}/csrc/dp_typed.cu", f"{jax_vd}:935", 0,
                        lane_errs["banded_dp_typed"], *lane_t.dp, None))
     # The large-dictionary lane of phase 4f: the kernels its searches

@@ -9,9 +9,9 @@
 // versions (ops/verify_dp.py): count_dp_torch (banded_dp_torch, the band
 // minimum and the emission test: count_decisions_torch) and
 // count_emit_torch; wrappers verify_dp.count_dp and count_emit. The
-// expansion in front is typed_expand_kernel (dp_typed.cu), unchanged: the
-// candidate list (field, start, combo) in (combo, hit) item order, its
-// total on the card.
+// expansion in front is the typed step's typed_expand_kernel (dp_typed.cu,
+// one launch): the candidate list (field, start, combo) in (combo, hit)
+// item order, its total on the card.
 //
 // What it computes. Per candidate the recurrences of banded_dp.cuh's
 // dp_body, cell for cell and in its f32 order: per row, the exact,
@@ -43,10 +43,27 @@
 //      shuffles from lanes gl - 1 and gl + NE - 1, a mapping arrival from
 //      lane (b - drift) NE + e - 1 of row i-1, i-2 or i-3 (row i-3 is kept
 //      only in the MAPS instances), and the insertions a serial chain of
-//      B - 1 shuffles. Past 32 cells (E >= 4) count_dp_rows_kernel gives each
-//      candidate a warp and keeps its rows in shared memory, row i-3 too
-//      where the call has mappings (the mapped lane at edits(4)-(6), which
-//      scans with 8-24 error rows). The path's
+//      B - 1 shuffles. Past 32 cells (E = 4..6: 45-91 cells, the mapped
+//      lane at edits(4)-(6) scans with 8-24 error rows) the cells no longer
+//      fit a warp. A warp per candidate with its rows in shared memory
+//      ran at 0.03 of its bound: two strided passes of 32 lanes over
+//      the cells, each with a / NE and a % NE, 2E warp-synchronised
+//      insertion steps with E lanes active, the mapping table reloaded for
+//      every cell, every row to the depth, and a block barrier per stride
+//      that held each warp to its stride's deepest candidate. So
+//      count_dp_rows_kernel<E, MAPS> gives each candidate a group of 16
+//      lanes, band b in lane b: its E + 1 channels of rows i-1, i-2 (i-3
+//      with mappings) and of the emission channel in registers (compile-
+//      time indices, an instance per E and MAPS); the substitution and the
+//      swap read the lane itself, the deletions are one shuffle down, a
+//      mapping arrival one shuffle from lane b - drift per channel (the
+//      row's entries loaded once by the group's lanes, one each, and
+//      broadcast), the insertions E shuffle steps; the band minimum and the
+//      dead-end flag stay in the lane. A group stops once no lane holds a
+//      finite value a later row reads (most candidates at E = 4 and 0.8 die
+//      long before the depth), and the groups of a grid the size of the
+//      card's resident blocks stride over the list with no block barrier,
+//      adding their rows to the tiles' counts by atomics. The path's
 //      classes, ceilings (and, with the dead-end filter, nodes and output
 //      flags) and the haystack window are staged in shared memory by the
 //      group before the row loop; the similarity table too where it fits
@@ -60,6 +77,9 @@
 //   4. count_emit_kernel, a block per tile, a thread per candidate: per
 //      channel a block scan of the row flags places its rows.
 
+#include <mutex>
+#include <vector>
+
 #include "banded_dp.cuh"
 
 namespace {
@@ -67,13 +87,14 @@ namespace {
 using namespace fac_dp;
 
 constexpr int CL_THREADS = 256;   // the DP with register cells
-constexpr int CW_THREADS = 128;   // the DP with shared rows: a warp per candidate
-constexpr int CW_WARPS = CW_THREADS / 32;
+constexpr int CR_THREADS = 128;   // the DP for E >= 4: groups of CR_G lanes, a band each
+constexpr int CR_G = 16;          // lanes per candidate, B = 2E + 1 <= 13 of them live
 constexpr int LIST_TILE = 1024;   // candidates per row-count tile, threads of the emission
 constexpr int MAX_CHANNELS = 128;  // B * MO emission channels a call may have
 constexpr int BLOCKS_PER_SM = 8;  // the capped grid of the DP
-static_assert(LIST_TILE % (CL_THREADS / 8) == 0 && LIST_TILE % CW_WARPS == 0,
+static_assert(LIST_TILE % (CL_THREADS / 8) == 0,
               "a block's candidates of one stride lie in one tile");
+static_assert(2 * MAX_E + 1 <= CR_G, "a band per lane of the rows DP's group");
 
 struct ListArgs {
   DpCore core;
@@ -89,6 +110,7 @@ struct ListArgs {
   int32_t* row_counts;        // [nce * ntile + 1]: rows per (channel, tile); n_cand last
   long long ntile;
   int sim_smem;               // the similarity table is staged in shared memory
+  int lead_words;             // 4-byte words of shared memory before the groups'
   int group_words;            // 4-byte words of shared memory per group
 };
 
@@ -336,156 +358,262 @@ __device__ __forceinline__ void count_dp_lanes(const ListArgs& a, const float* s
   out_cnt = d >= 1 ? preve_cnt : 0;
 }
 
-// Rows of count_dp_rows_kernel per warp: rows i-2, i-1, i and the emission
-// channels of rows i-1 and i, and row i-3 with mappings.
-__host__ __device__ inline int row_bufs(bool maps) { return maps ? 6 : 5; }
-
-// 4-byte words of count_dp_rows_kernel's rows per warp: row_bufs() rows,
-// penalty and counts each, and a dead-end flag per band.
-__host__ __device__ inline int rows_words(int E, bool maps) {
-  return row_bufs(maps) * 2 * (2 * E + 1) * (E + 1) + 2 * E + 1;
-}
-
-// The same DP run by the 32 lanes of a warp over rows in shared memory
-// (``rows``, rows_words() words), cell c = b * NE + e. Returns the emission
-// channel at row d: pen [B * NE] and cnt [B * NE] in shared memory. A
-// cell's mapping arrivals read only rows i-1 .. i-3, so each cell runs them
-// in the table's order right after its deletion, which is the order of
-// dp_body for that cell's consuming and continuation channels.
-__device__ void count_dp_warp(const ListArgs& a, const float* s_sim, const Staged& st, int f,
-                              int32_t* rows, int d, int lane, const float*& out_pen,
-                              const int*& out_cnt) {
+// The same DP for E >= 4 with one band per lane: lane b < B = 2E + 1 of a
+// group of CR_G = 16 lanes (mask gm) holds the NE = E + 1 channels of band b
+// of rows i-1, i-2 (and i-3 with mappings) and of row i-1's emission
+// channel in registers. The substitution and the swap read the lane's own
+// registers; the deletions (band b+1) are a shuffle down by one lane; a
+// mapping arrival (band b - drift) one shuffle from that lane per channel;
+// the insertions E shuffle steps up by one lane, step t settling channel t
+// of every band from channel t-1 of the band below, which step t-1
+// settled: the value dp_body's ascending-b loop reads. ``rowptr`` is
+// map_rowptr staged in shared memory (MAPS). Returns the lane's band of the
+// emission channel at row d (+inf where dead); the group stops once no
+// lane holds a finite value that a later row reads.
+template <int E, bool MAPS>
+__device__ __forceinline__ void count_dp_bands(const ListArgs& a, const float* s_sim,
+                                               const int32_t* rowptr, const Staged& st, int f,
+                                               int d, int b, unsigned gm, float (&out_pen)[E + 1],
+                                               int (&out_cnt)[E + 1]) {
+  constexpr int B = 2 * E + 1, NE = E + 1;
   const DpCore& c = a.core;
-  const int E = a.E, B = 2 * E + 1, NE = E + 1, cells = B * NE;
   const float INF = __int_as_float(0x7f800000);
   const float max_pen = c.max_pen;
   const bool sim_smem = a.sim_smem != 0;
   const bool no_ins = c.forbid & 1, no_del = c.forbid & 2, no_sub = c.forbid & 4,
              no_swap = c.forbid & 8;
-  const bool maps = c.map_tab != nullptr;
-  const int R = row_bufs(maps);
-  float* pen[6];
-  int* cnt[6];
-  for (int r = 0; r < R; ++r) {
-    pen[r] = reinterpret_cast<float*>(rows + 2 * r * cells);
-    cnt[r] = rows + (2 * r + 1) * cells;
-  }
-  int* okb = rows + R * 2 * cells;
-  // Rows i-1 (P), i-2 (P2), i (N), the emission channels of rows i-1 (PE)
-  // and i (NEW), and with mappings row i-3 (P3).
-  int P = 0, P2 = 1, N = 2, PE = 3, NEW = 4, P3 = 5;
-  for (int x = lane; x < cells; x += 32) {
-    const float origin = x == E * NE ? 0.f : INF;
-    for (int r = 0; r < R; ++r) {
-      pen[r][x] = INF;
-      cnt[r][x] = 0;
+  const bool mine = b < B;
+  const bool has_del = mine && b + 1 < B;  // (b+1, e-1): deletions
+  const bool has_ins = mine && b >= 1;     // (b-1, e-1): insertion
+  const int bw = mine ? b : 0;             // the band whose window an idle lane reads
+  const int gbase = threadIdx.x & 31 & ~(CR_G - 1);
+
+  float p1[NE], p2[NE], pe[NE], p3[MAPS ? NE : 1];
+  int c1[NE], c2[NE], ce[NE], c3[MAPS ? NE : 1];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    p1[e] = p2[e] = pe[e] = INF;
+    c1[e] = c2[e] = ce[e] = 0;
+    if constexpr (MAPS) {
+      p3[e] = INF;
+      c3[e] = 0;
     }
-    pen[P][x] = origin;
-    pen[PE][x] = origin;
   }
-  __syncwarp();
+  // Row 0 is the origin (band E, no edits); rows below 0 are dead.
+  if (b == E) p1[0] = pe[0] = 0.f;
+  // Whether the lane's row i-1 (and i-2) held a finite cell: with rows i
+  // and its emission channel, what later rows read. Penalties are finite
+  // or +inf, so a row's minimum tells.
+  bool held1 = b == E, held2 = false;
+  // The band's symbols of rows i-1, i-2 and i-3 (row i reads win[i + b - u],
+  // u = 0..3: the swap u = 1, a mapping arrival up to 3); row i-1's class.
+  int h1 = st.win[bw], h2 = st.win[bw - 1], h3 = st.win[bw - 2];
+  int pc_prev = st.cls[0];
+#pragma unroll 1
   for (int i = 1; i <= d; ++i) {
-    const int pc = st.cls[i - 1], pc_prev = st.cls[i >= 2 ? i - 2 : 0];
+    const int pc = st.cls[i - 1];
     const float ceil_i = st.ceil[i - 1];
-    // Every cell's arrivals but the insertion, and its emission channel.
-    for (int x = lane; x < cells; x += 32) {
-      const int b = x / NE, e = x - (x / NE) * NE;
-      const int j = i + b - E;
-      const int hc = st.win[i + b], hc_jm1 = st.win[i + b - 1];
-      const bool last = a.deadend && e == NE - 1;
-      const bool okrow = !last || ok_row(c, st, i, b);
-      if (last) okb[b] = okrow;
-      float sim = 0.f;
-      if (hc >= 0) sim = sim_of(c, s_sim, sim_smem, pc * c.C + hc);
-      const float spen = __fmul_rn(c.p_sub, __fsub_rn(1.f, sim));
-      const float p = pen[P][x];
+    const int j = i + b - E;  // haystack symbols consumed at this cell
+    const int hc = st.win[i + bw];
+    const bool okrow = !a.deadend || ok_row(c, st, i, bw);
+    float sim = 0.f;
+    if (hc >= 0) sim = sim_of(c, s_sim, sim_smem, pc * c.C + hc);
+    const float spen = __fmul_rn(c.p_sub, __fsub_rn(1.f, sim));
+    // Band b+1's channels of row i-1 and of its emission channel.
+    float dl[E], te[E];
+    int dlc[E], tec[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      dl[e] = __shfl_down_sync(gm, p1[e], 1, CR_G);
+      dlc[e] = __shfl_down_sync(gm, c1[e], 1, CR_G);
+      te[e] = __shfl_down_sync(gm, pe[e], 1, CR_G);
+      tec[e] = __shfl_down_sync(gm, ce[e], 1, CR_G);
+    }
+    const bool sw_sym = i >= 2 && j >= 2 && hc >= 0 && h1 >= 0 && hc == pc_prev && h1 == pc;
+
+    // Per channel: exact, substitution and swap into the consuming
+    // channel, then the deletion into the continuation channel.
+    float np[NE], cp[NE];
+    int nc[NE], cc[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const bool ok_last = e < NE - 1 || okrow;  // the dead-end filter: last level only
+      const float p = p1[e];
       float bp = (j >= 1 && fin(p) && hc == pc) ? p : INF;
-      int bc = cnt[P][x];
+      int bc = c1[e];
       if (e >= 1) {
-        const float q = pen[P][x - 1];
-        const bool ok_s = !no_sub && j >= 1 && fin(q) && hc >= 0 && hc != pc &&
-                          !(sim < c.floor_) && !(spen > __fsub_rn(max_pen, q)) && okrow;
-        merge(bp, bc, __fadd_rn(q, spen), cnt[P][x - 1] + 0x10000, ok_s);
-        const float sw = pen[P2][x - 1];
-        const bool ok_sw = !no_swap && i >= 2 && j >= 2 && fin(sw) &&
-                           !(c.p_swap > __fsub_rn(max_pen, sw)) && hc >= 0 && hc_jm1 >= 0 &&
-                           hc == pc_prev && hc_jm1 == pc;
-        merge(bp, bc, __fadd_rn(sw, c.p_swap), cnt[P2][x - 1] + 0x1000000, ok_sw);
+        const float q = p1[e - 1];
+        const bool ok_s = mine && !no_sub && j >= 1 && fin(q) && hc >= 0 && hc != pc &&
+                          !(sim < c.floor_) && !(spen > __fsub_rn(max_pen, q)) && ok_last;
+        merge(bp, bc, __fadd_rn(q, spen), c1[e - 1] + 0x10000, ok_s);
+        const float sw = p2[e - 1];
+        const bool ok_sw = mine && !no_swap && sw_sym && fin(sw) &&
+                           !(c.p_swap > __fsub_rn(max_pen, sw));
+        merge(bp, bc, __fadd_rn(sw, c.p_swap), c2[e - 1] + 0x1000000, ok_sw);
       }
-      float cons_pen = bp;
-      int cons_cnt = bc;
-      if (e >= 1 && b + 1 < B) {
-        const float dl = pen[P][x + NE - 1];
-        const bool ok_d = !no_del && fin(dl) && !(c.p_del > __fsub_rn(max_pen, dl)) && okrow;
-        merge(bp, bc, __fadd_rn(dl, c.p_del), cnt[P][x + NE - 1] + 0x100, ok_d);
+      cp[e] = bp;
+      cc[e] = bc;
+      if (e >= 1) {
+        const float x = dl[e - 1];
+        const bool ok_d = has_del && !no_del && fin(x) && !(c.p_del > __fsub_rn(max_pen, x)) &&
+                          ok_last;
+        merge(bp, bc, __fadd_rn(x, c.p_del), dlc[e - 1] + 0x100, ok_d);
       }
-      // Mapping arrivals targeting row i, in the table's order: from (row
-      // i-pb, band b-drift, e-1), consuming ha symbols equal to the entry's
-      // classes, into the consuming and the continuation channel; the
-      // oracle's guard (q + mp) > max_pen.
-      if (maps && e >= 1) {
-        const int m1 = __ldg(c.map_rowptr + i + 1);
-        for (int mi = __ldg(c.map_rowptr + i); mi < m1; ++mi) {
+      np[e] = bp;
+      nc[e] = bc;
+    }
+
+    // Mapping arrivals targeting row i, in the table's order: from (row
+    // i-pb, band b-drift, e-1), consuming ha symbols equal to the entry's
+    // classes, into the consuming and the continuation channel; the
+    // oracle's guard (q + mp) > max_pen. The group's lanes load the row's
+    // entries, one each, and broadcast those that apply to field f.
+    if constexpr (MAPS) {
+      const int m1 = rowptr[i + 1];
+#pragma unroll 1
+      for (int m0 = rowptr[i]; m0 < m1; m0 += CR_G) {
+        const int mi = m0 + b;
+        int meta = 0, k0 = -2, k1 = -2, k2 = -2, k3 = -2;
+        float mp = 0.f;
+        bool applies = false;
+        if (mi < m1) {
           const int32_t* me = c.map_tab + (long long)mi * MAP_COLS;
           const int pb = __ldg(me + 1);
-          if (i - pb < 0) continue;
           const int fw = __ldg(c.map_fields + (long long)mi * c.map_fw + (f >> 5));
-          if (!((fw >> (f & 31)) & 1)) continue;
-          const int drift = __ldg(me + 2), ha = __ldg(me + 3);
+          applies = i - pb >= 0 && ((fw >> (f & 31)) & 1);
+          meta = pb | ((__ldg(me + 2) + 64) << 2) | (__ldg(me + 3) << 9);
+          k0 = __ldg(me + 4);
+          k1 = __ldg(me + 5);
+          k2 = __ldg(me + 6);
+          k3 = __ldg(me + 7);
+          mp = __int_as_float(__ldg(me + 8));
+        }
+        unsigned todo = (__ballot_sync(gm, applies) >> gbase) & 0xFFFFu;
+        while (todo != 0) {
+          const int src = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int em = __shfl_sync(gm, meta, src, CR_G);
+          const int u0 = __shfl_sync(gm, k0, src, CR_G), u1 = __shfl_sync(gm, k1, src, CR_G),
+                    u2 = __shfl_sync(gm, k2, src, CR_G), u3 = __shfl_sync(gm, k3, src, CR_G);
+          const float emp = __shfl_sync(gm, mp, src, CR_G);
+          const int pb = em & 3, drift = ((em >> 2) & 127) - 64, ha = em >> 9;
           const int bs = b - drift;
-          bool ok_m = bs >= 0 && bs < B && j >= ha;
-          for (int u = 0; u < MAP_HA_MAX; ++u)
-            ok_m = ok_m && (u >= ha || st.win[i + b - u] == __ldg(me + 4 + u));
-          if (!ok_m) continue;
-          const int src = pb == 1 ? P : pb == 2 ? P2 : P3;
-          const float q = pen[src][bs * NE + e - 1];
-          const float val = __fadd_rn(q, __int_as_float(__ldg(me + 8)));
-          const bool ok_e = fin(q) && !(val > max_pen);
-          const int qc = cnt[src][bs * NE + e - 1] + 0x10000;
-          merge(cons_pen, cons_cnt, val, qc, ok_e);
-          merge(bp, bc, val, qc, ok_e);
+          const bool ok_m = mine && bs >= 0 && bs < B && j >= ha && (ha < 1 || hc == u0) &&
+                            (ha < 2 || h1 == u1) && (ha < 3 || h2 == u2) && (ha < 4 || h3 == u3);
+#pragma unroll
+          for (int e = 1; e < NE; ++e) {
+            const float sp = pb == 1 ? p1[e - 1] : pb == 2 ? p2[e - 1] : p3[e - 1];
+            const int sc = pb == 1 ? c1[e - 1] : pb == 2 ? c2[e - 1] : c3[e - 1];
+            const float q = __shfl_sync(gm, sp, bs & (CR_G - 1), CR_G);
+            const int qc = __shfl_sync(gm, sc, bs & (CR_G - 1), CR_G) + 0x10000;
+            const float val = __fadd_rn(q, emp);
+            const bool ok_e = ok_m && fin(q) && !(val > max_pen);
+            merge(cp[e], cc[e], val, qc, ok_e);
+            merge(np[e], nc[e], val, qc, ok_e);
+          }
         }
       }
-      float ep = cons_pen;
-      int ec = cons_cnt;
-      if (e >= 1 && b + 1 < B) {
-        const float t = pen[PE][x + NE - 1];
-        const bool ok_t = !no_del && fin(t) && !(c.p_del > __fsub_rn(max_pen, t)) && okrow;
-        merge(ep, ec, __fadd_rn(t, c.p_del), cnt[PE][x + NE - 1] + 0x100, ok_t);
-      }
-      pen[N][x] = bp;
-      cnt[N][x] = bc;
-      pen[NEW][x] = ep > ceil_i ? INF : ep;
-      cnt[NEW][x] = ec;
     }
-    __syncwarp();
-    // insertion: same row, (b-1, e-1) -> b, ascending b over the updated band b-1.
-    for (int b = 1; b < B; ++b) {
-      const int j = i + b - E, hc = st.win[i + b];
-      if (lane >= 1 && lane < NE && !no_ins && j >= 2 && hc >= 0) {
-        const int x = b * NE + lane, src = x - NE - 1;
-        const float ip = pen[N][src];
-        const bool ok_i = fin(ip) && !(c.p_ins > __fsub_rn(max_pen, ip)) &&
-                          (!(a.deadend && lane == NE - 1) || okb[b] != 0);
-        merge(pen[N][x], cnt[N][x], __fadd_rn(ip, c.p_ins), cnt[N][src] + 1, ok_i);
+
+    // The emission channel: the consuming arrival, or the trailing deletion
+    // from the emission channel of row i-1 at band b+1; its ceiling.
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      float ep = cp[e];
+      int ec = cc[e];
+      if (e >= 1) {
+        const float x = te[e - 1];
+        const bool ok_t = has_del && !no_del && fin(x) && !(c.p_del > __fsub_rn(max_pen, x)) &&
+                          (e < NE - 1 || okrow);
+        merge(ep, ec, __fadd_rn(x, c.p_del), tec[e - 1] + 0x100, ok_t);
       }
-      __syncwarp();
+      pe[e] = ep > ceil_i ? INF : ep;
+      ce[e] = ec;
     }
-    for (int x = lane; x < cells; x += 32)
-      if (pen[N][x] > ceil_i) pen[N][x] = INF;
-    __syncwarp();
-    // The rows move up.
-    const int old = maps ? P3 : P2;
-    if (maps) P3 = P2;
-    P2 = P;
-    P = N;
-    N = old;
-    const int t = PE;
-    PE = NEW;
-    NEW = t;
+
+    // insertion: same row, (b-1, e-1) -> b over the updated band b-1; none
+    // from cells with zero hay consumed (j - 1 >= 1).
+    const bool ins_row = has_ins && !no_ins && j >= 2 && hc >= 0;
+#pragma unroll
+    for (int e = 1; e < NE; ++e) {
+      const float ip = __shfl_up_sync(gm, np[e - 1], 1, CR_G);
+      const int ic = __shfl_up_sync(gm, nc[e - 1], 1, CR_G);
+      const bool ok_i = ins_row && fin(ip) && !(c.p_ins > __fsub_rn(max_pen, ip)) &&
+                        (e < NE - 1 || okrow);
+      merge(np[e], nc[e], __fadd_rn(ip, c.p_ins), ic + 1, ok_i);
+    }
+
+    // Ceilings, then the rows move up.
+    float lo = INF;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      if constexpr (MAPS) {
+        p3[e] = p2[e];
+        c3[e] = c2[e];
+      }
+      p2[e] = p1[e];
+      c2[e] = c1[e];
+      p1[e] = np[e] > ceil_i ? INF : np[e];
+      c1[e] = nc[e];
+      lo = fminf(lo, p1[e]);
+    }
+    float lo_e = INF;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) lo_e = fminf(lo_e, pe[e]);
+    const bool held0 = lo < INF;
+    const bool live = held0 || lo_e < INF || held1 || (MAPS && held2);
+    held2 = held1;
+    held1 = held0;
+    pc_prev = pc;
+    h3 = h2;
+    h2 = h1;
+    h1 = hc;
+    // Where no cell that a later row reads is finite, no later cell is,
+    // nor the emission at row d: the group stops.
+    if (!__any_sync(gm, live)) break;
   }
-  out_pen = pen[PE];
-  out_cnt = cnt[PE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    out_pen[e] = d >= 1 ? pe[e] : INF;
+    out_cnt[e] = ce[e];
+  }
+}
+
+// Per emission channel (b, slot o) of candidate m, lane b of its group
+// decides the row from its band of the emission channel at row d (strict
+// <, edit counts ascending: the fewest edits win penalty ties), writes dec
+// and adds the row to its (channel, tile) count: emits() of banded_dp.cuh
+// on the staged slot values.
+template <int E>
+__device__ __forceinline__ void band_decide(const ListArgs& a, const Staged& st,
+                                            const float (&pen)[E + 1], const int (&cnt)[E + 1],
+                                            int d, int start, long long m, int b) {
+  const int MO = a.emit.MO;
+  float pb = pen[0];
+  int cb = cnt[0];
+#pragma unroll
+  for (int e = 1; e < E + 1; ++e) {
+    if (pen[e] < pb) {
+      pb = pen[e];
+      cb = cnt[e];
+    }
+  }
+  const int ends_b = start + d + (b - E);
+  const bool span = fin(pb) && ends_b <= a.core.limit && ends_b >= start;
+  for (int o = 0; o < MO; ++o) {
+    const int ce = b * MO + o;
+    bool row = span && st.pat[o] >= 0;
+    if (row) {
+      const float pl = st.pl[o];
+      row = __fmul_rn(__fdiv_rn(__fsub_rn(pl, pb), pl), st.pw[o]) >= a.emit.bound;
+    }
+    int2 out = make_int2(0, -1);
+    if (row) {
+      out = make_int2(__float_as_int(pb), cb);
+      atomicAdd(a.row_counts + (long long)ce * a.ntile + m / LIST_TILE, 1);
+    }
+    a.dec[(long long)ce * a.items + m] = out;
+  }
 }
 
 // Per emission channel ce = (band, slot) of candidate m, the lanes of its
@@ -522,11 +650,12 @@ __device__ __forceinline__ void count_decide(const ListArgs& a, const Staged& st
   }
 }
 
-// Shared memory of a DP block, in 4-byte words: the block's row counts,
-// the groups' staged rows and their cells, then the similarity table where
-// it is staged.
+// Shared memory of a DP block, in 4-byte words: the block's row counts
+// (count_dp_kernel) or the staged map_rowptr (count_dp_rows_kernel with
+// mappings), the groups' staged rows and their cells, then the similarity
+// table where it is staged.
 __host__ __device__ inline int block_words(const ListArgs& a, int groups) {
-  return MAX_CHANNELS + groups * a.group_words;
+  return a.lead_words + groups * a.group_words;
 }
 
 // Every thread of a block that holds a candidate stages the similarity
@@ -569,7 +698,7 @@ __global__ void __launch_bounds__(CL_THREADS) count_dp_kernel(ListArgs a) {
   extern __shared__ int32_t s_mem[];
   constexpr int GROUPS = CL_THREADS / G;
   int* s_cnt = s_mem;
-  int32_t* s_groups = s_mem + MAX_CHANNELS;
+  int32_t* s_groups = s_mem + a.lead_words;
   float* s_sim = reinterpret_cast<float*>(s_mem + block_words(a, GROUPS));
   const int grp = threadIdx.x / G, gl = threadIdx.x % G;
   const unsigned gm =
@@ -597,30 +726,43 @@ __global__ void __launch_bounds__(CL_THREADS) count_dp_kernel(ListArgs a) {
   });
 }
 
-// The DP over the list for E >= 4: a warp per candidate, its rows in shared
-// memory.
-__global__ void __launch_bounds__(CW_THREADS) count_dp_rows_kernel(ListArgs a) {
+// The DP over the list for E >= 4: a group of CR_G = 16 lanes per
+// candidate, a band per lane (count_dp_bands). The groups of the capped
+// grid stride over the list on their own: a group whose candidate dies
+// early takes its next one at once, with no block barrier after the
+// staging; its rows go to their tiles' counts by atomics.
+template <int E, bool MAPS>
+__global__ void __launch_bounds__(CR_THREADS) count_dp_rows_kernel(ListArgs a) {
   extern __shared__ int32_t s_mem[];
-  int* s_cnt = s_mem;
-  int32_t* s_groups = s_mem + MAX_CHANNELS;
-  float* s_sim = reinterpret_cast<float*>(s_mem + block_words(a, CW_WARPS));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t* mem = s_groups + warp * a.group_words;
-  strides(a, s_cnt, s_sim, CW_WARPS, [&](long long first) {
-    const long long m = first + warp;
-    if (m >= __ldg(a.n_cand)) return;
+  constexpr int GROUPS = CR_THREADS / CR_G;
+  int32_t* rowptr = s_mem;
+  int32_t* s_groups = s_mem + a.lead_words;
+  float* s_sim = reinterpret_cast<float*>(s_mem + block_words(a, GROUPS));
+  const int n_cand = __ldg(a.n_cand);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    a.row_counts[(long long)(2 * E + 1) * a.emit.MO * a.ntile] = n_cand;
+  if ((long long)blockIdx.x * GROUPS >= n_cand) return;
+  load_sim_table(a, s_sim);
+  if constexpr (MAPS)
+    for (int t = threadIdx.x; t < a.core.Lmax + 2; t += CR_THREADS)
+      rowptr[t] = __ldg(a.core.map_rowptr + t);
+  __syncthreads();
+  const int grp = threadIdx.x / CR_G, b = threadIdx.x % CR_G;
+  const unsigned gm = 0xFFFFu << (threadIdx.x & 31 & ~(CR_G - 1));
+  int32_t* mem = s_groups + grp * a.group_words;
+  const long long stride = (long long)gridDim.x * GROUPS;
+  for (long long m = (long long)blockIdx.x * GROUPS + grp; m < n_cand; m += stride) {
     const int f = __ldg(a.cand_field + m);
     const int start = __ldg(a.cand_start + m);
     const int d = __ldg(a.core.depth + f);
-    const Staged st = stage(a, mem, f, d, start, lane, 32);
-    __syncwarp();
-    const float* pen;
-    const int* cnt;
-    count_dp_warp(a, s_sim, st, f, mem + staged_words(a.core.Lmax, a.E, a.deadend, a.emit.MO),
-                  d, lane, pen, cnt);
-    count_decide(a, st, pen, cnt, d, start, m, lane, 32, s_cnt);
-    __syncwarp();
-  });
+    const Staged st = stage(a, mem, f, d, start, b, CR_G);
+    __syncwarp(gm);
+    float pen[E + 1];
+    int cnt[E + 1];
+    count_dp_bands<E, MAPS>(a, s_sim, rowptr, st, f, d, b, gm, pen, cnt);
+    if (b < 2 * E + 1) band_decide<E>(a, st, pen, cnt, d, start, m, b);
+    __syncwarp(gm);  // the group's memory is staged again
+  }
 }
 
 struct EmitArgs {
@@ -718,19 +860,54 @@ int sm_count() {
   return sms;
 }
 
+// The blocks of ``k`` (``threads`` threads, ``shm`` bytes of shared memory)
+// an SM holds at once. The answer is fixed per kernel and size, so the
+// occupancy query runs once per (kernel, threads, bytes), not on every
+// slice's launch.
+template <typename K>
+cudaError_t resident_per_sm(K k, int threads, size_t shm, int* per_sm) {
+  struct Seen {
+    const void* k;
+    int threads;
+    size_t shm;
+    int per_sm;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  const void* key = reinterpret_cast<const void*>(k);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& e : seen) {
+    if (e.k == key && e.threads == threads && e.shm == shm) {
+      *per_sm = e.per_sm;
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k, threads, shm);
+  if (rc == cudaSuccess) seen.push_back(Seen{key, threads, shm, *per_sm});
+  return rc;
+}
+
 // Launches kernel ``k`` of ``threads`` threads and ``groups`` candidates a
 // block, sizing its shared memory; the grid is capped at BLOCKS_PER_SM
-// blocks an SM.
+// blocks an SM, or with ``resident`` at the blocks the card holds at once
+// (the rows DP, whose groups stride over the list without a barrier).
 template <typename K>
-cudaError_t launch_dp(K k, ListArgs a, int threads, int groups, cudaStream_t s) {
+cudaError_t launch_dp(K k, ListArgs a, int threads, int groups, cudaStream_t s,
+                      bool resident = false) {
   const size_t rest = sizeof(int32_t) * (size_t)block_words(a, groups);
   const size_t sim = sim_smem_bytes(a.core.C, rest);
   a.sim_smem = sim != 0;
   const size_t shm = rest + sim;
   cudaError_t rc = allow_smem(k, shm);
   if (rc != cudaSuccess) return rc;
+  int per_sm = BLOCKS_PER_SM;
+  if (resident) {
+    rc = resident_per_sm(k, threads, shm, &per_sm);
+    if (rc != cudaSuccess) return rc;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  }
   long long blocks = (a.items + groups - 1) / groups;
-  const long long cap = (long long)sm_count() * BLOCKS_PER_SM;
+  const long long cap = (long long)sm_count() * per_sm;
   if (blocks > cap) blocks = cap;
   k<<<(unsigned)blocks, threads, shm, s>>>(a);
   return cudaGetLastError();
@@ -818,6 +995,7 @@ int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_c
   const int staged = staged_words(Lmax, E, a.deadend, MO);
   if (cells <= 32) {
     const int G = cells <= 8 ? 8 : cells <= 16 ? 16 : 32;
+    a.lead_words = MAX_CHANNELS;
     a.group_words = staged + 2 * G;
     if (G == 8)
       rc = maps ? launch_dp(count_dp_kernel<8, true>, a, CL_THREADS, CL_THREADS / 8, s)
@@ -829,8 +1007,18 @@ int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_c
       rc = maps ? launch_dp(count_dp_kernel<32, true>, a, CL_THREADS, CL_THREADS / 32, s)
                 : launch_dp(count_dp_kernel<32, false>, a, CL_THREADS, CL_THREADS / 32, s);
   } else {
-    a.group_words = staged + rows_words(E, maps);
-    rc = launch_dp(count_dp_rows_kernel, a, CW_THREADS, CW_WARPS, s);
+    a.lead_words = maps ? Lmax + 2 : 0;
+    a.group_words = staged;
+    constexpr int GR = CR_THREADS / CR_G;
+    if (E == 4)
+      rc = maps ? launch_dp(count_dp_rows_kernel<4, true>, a, CR_THREADS, GR, s, true)
+                : launch_dp(count_dp_rows_kernel<4, false>, a, CR_THREADS, GR, s, true);
+    else if (E == 5)
+      rc = maps ? launch_dp(count_dp_rows_kernel<5, true>, a, CR_THREADS, GR, s, true)
+                : launch_dp(count_dp_rows_kernel<5, false>, a, CR_THREADS, GR, s, true);
+    else
+      rc = maps ? launch_dp(count_dp_rows_kernel<6, true>, a, CR_THREADS, GR, s, true)
+                : launch_dp(count_dp_rows_kernel<6, false>, a, CR_THREADS, GR, s, true);
   }
   return (int)rc;
 }

@@ -34,10 +34,20 @@
 // at once; the step is four launches and one host wait:
 //   1. typed_expand_kernel, a thread per (combo, hit) item (items
 //      combo-major over the hits h0..K-1; a hit before h0 is read only as
-//      the predecessor of hit h0), run as a count pass and a write pass
-//      around block_offsets_kernel (csrc/scan_offsets.cu): the candidate
-//      list (field, start, combo) in item order. At most one candidate per
-//      item, so a block's candidates are a ballot away.
+//      the predecessor of hit h0): the candidate list (field, start, combo)
+//      in item order, and its total, on the card. Its work is a few bytes
+//      an item (~1 MB a slice), so its cost is launches and host calls; it
+//      was a count pass and a write pass around block_offsets_kernel, three
+//      launches that each re-read the hits. It is one launch now: at most one candidate per item, so a block's candidates
+//      are a ballot and a scan of its 8 warp counts away; the block takes
+//      its offset by decoupled look-back over the status words of the
+//      blocks before it and writes its candidates at once. The look-back
+//      is lookback.cuh's, which the chained block_offsets_kernel shares: a
+//      tile from a ticket (so every block waited on has started),
+//      epoch-tagged status words that live across calls (so nothing is
+//      cleared: no memset), release stores and acquire loads. Here all
+//      TE_THREADS threads of a block read the words of TE_THREADS blocks
+//      before it in one round.
 //   2. typed_dp_kernel, one group of G = 8, 16 or 32 lanes per candidate of
 //      the list, G picked at launch from the B x NCH cells. The grid covers
 //      the item bound (the candidate total is on the card only); blocks past
@@ -67,13 +77,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int TY_THREADS = 128;   // the DP-only kernel, and the wide DP: a warp per candidate
 constexpr int TY_WARPS = TY_THREADS / 32;
 constexpr int TD_THREADS = 256;   // the DP over the list with register cells
-constexpr int TE_THREADS = 256;   // items per block of the expansion
+constexpr int TE_THREADS = 256;   // threads of an expansion block
 constexpr int TE_WARPS = TE_THREADS / 32;
+constexpr int TE_ITEMS = 8;       // items per thread: a block's tile of TE_TILE items
+constexpr int TE_TILE = TE_THREADS * TE_ITEMS;
+constexpr int TE_SLOTS = TE_ITEMS * TE_WARPS;   // (item row, warp) counts of a tile
+constexpr int TE_PER_LANE = (TE_SLOTS + 31) / 32;  // of them scanned by each lane of warp 0
 constexpr int TYPED_TILE = 1024;  // candidates per row-count tile, and threads of the emission
 constexpr int MAX_E = 6;
 constexpr int MAX_NCH = 96;
@@ -474,57 +490,105 @@ struct TypedExpandArgs {
   const int32_t* combos;    // [5, n_combo]: word column, bit, field, start offset, b == 0
   int n_combo;
   long long start_lo, start_hi, pos_hi;
-  int32_t* counts;          // [nblk] candidates per block (count pass)
-  const int32_t* offsets;   // exclusive scan of counts (write pass)
-  int32_t* cand_field;      // [items] (write pass; the first offsets[nblk] are written)
+  long long nblk;           // blocks of TE_TILE items
+  unsigned long long* status;  // lookback.cuh's array, nblk tiles
+  unsigned epoch;
+  unsigned long long base;
+  int32_t* cand_field;      // [items] (the first *total are written)
   int32_t* cand_start;
   int32_t* cand_combo;
+  int32_t* total;           // [1] the candidates' total, by the last block
 };
 
-// Thread g of the grid: item g = c * (K - h0) + h - h0. dp_pipeline.cu's
-// expansion test, a candidate or none per item.
-__global__ void __launch_bounds__(TE_THREADS)
-typed_expand_kernel(TypedExpandArgs a, bool write) {
-  __shared__ int s_warp[TE_WARPS];
+// The t-th block to take a ticket expands the tile of items t * TE_TILE ..,
+// item row r of it (TE_THREADS items) by threads 0..TE_THREADS-1: item g =
+// c * (K - h0) + h - h0, dp_pipeline.cu's expansion test, a candidate or
+// none. Its candidates follow those of blocks 0..t-1 (a ballot per item
+// row and warp, a scan of those counts in (row, warp) order, the look-back
+// across blocks), so the list is in item order; the last block writes the
+// total.
+__global__ void __launch_bounds__(TE_THREADS) typed_expand_kernel(TypedExpandArgs a) {
+  __shared__ int s_cnt[TE_SLOTS];
+  __shared__ int s_first[TE_WARPS], s_part[TE_WARPS];
+  __shared__ long long s_t;
+  __shared__ int s_count;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long gi = (long long)blockIdx.x * TE_THREADS + threadIdx.x;
-  const long long KI = a.K - a.h0;
-  bool alive = false;
-  int f = 0, c = 0;
-  long long s = 0;
-  if (gi < KI * a.n_combo) {
-    c = (int)(gi / KI);
-    const long long h = a.h0 + gi - (long long)c * KI;
-    const int col = __ldg(a.combos + c);
-    const int sh = __ldg(a.combos + a.n_combo + c);
-    const long long p = __ldg(a.pos + h);
-    const bool fired = ((__ldg(a.words + h * a.W2 + col) >> sh) & 1) != 0;
-    bool dup = false;
-    if (h > 0 && __ldg(a.pos + h - 1) + 1 == p)
-      dup = ((__ldg(a.words + (h - 1) * a.W2 + col) >> sh) & 1) != 0;
-    s = p + 1 - __ldg(a.combos + 3 * a.n_combo + c);
-    alive = fired && p >= 0 && p < a.pos_hi && s >= a.start_lo && s < a.start_hi &&
-            (__ldg(a.combos + 4 * a.n_combo + c) != 0 || !dup);
-    f = __ldg(a.combos + 2 * a.n_combo + c);
-  }
-  const unsigned bal = __ballot_sync(0xFFFFFFFFu, alive);
-  if (lane == 0) s_warp[warp] = __popc(bal);
-  __syncthreads();
-  if (!write) {
-    if (threadIdx.x == 0) {
-      int total = 0;
+  const long long t = lookback::take_tile(a.status, a.base, &s_t);
+  // Items fit int32 (the caller checked): 32-bit division.
+  const unsigned KI = (unsigned)(a.K - a.h0), n_items = KI * (unsigned)a.n_combo;
+  unsigned bal[TE_ITEMS];
+  int cf[TE_ITEMS], cs[TE_ITEMS], cc[TE_ITEMS];
 #pragma unroll
-      for (int w = 0; w < TE_WARPS; ++w) total += s_warp[w];
-      a.counts[blockIdx.x] = total;
+  for (int r = 0; r < TE_ITEMS; ++r) {
+    const long long gl = t * TE_TILE + (long long)r * TE_THREADS + threadIdx.x;
+    bool alive = false;
+    cf[r] = cs[r] = cc[r] = 0;
+    if (gl < n_items) {
+      const unsigned gi = (unsigned)gl;
+      const int c = (int)(gi / KI);
+      const long long h = a.h0 + (gi - (unsigned)c * KI);
+      const int col = __ldg(a.combos + c);
+      const int sh = __ldg(a.combos + a.n_combo + c);
+      const long long p = __ldg(a.pos + h);
+      const bool fired = ((__ldg(a.words + h * a.W2 + col) >> sh) & 1) != 0;
+      bool dup = false;
+      if (h > 0 && __ldg(a.pos + h - 1) + 1 == p)
+        dup = ((__ldg(a.words + (h - 1) * a.W2 + col) >> sh) & 1) != 0;
+      const long long s = p + 1 - __ldg(a.combos + 3 * a.n_combo + c);
+      alive = fired && p >= 0 && p < a.pos_hi && s >= a.start_lo && s < a.start_hi &&
+              (__ldg(a.combos + 4 * a.n_combo + c) != 0 || !dup);
+      cf[r] = __ldg(a.combos + 2 * a.n_combo + c);
+      cs[r] = (int32_t)s;
+      cc[r] = c;
     }
-    return;
+    bal[r] = __ballot_sync(0xFFFFFFFFu, alive);
+    if (lane == 0) s_cnt[r * TE_WARPS + warp] = __popc(bal[r]);
   }
-  if (!alive) return;
-  long long at = __ldg(a.offsets + blockIdx.x) + __popc(bal & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) at += s_warp[w];
-  a.cand_field[at] = f;
-  a.cand_start[at] = (int32_t)s;
-  a.cand_combo[at] = c;
+  __syncthreads();
+  if (warp == 0) {
+    // Lane l scans slots l * TE_PER_LANE .. in order, then the lanes.
+    int v[TE_PER_LANE], w = 0;
+#pragma unroll
+    for (int q = 0; q < TE_PER_LANE; ++q) {
+      const int k = lane * TE_PER_LANE + q;
+      v[q] = k < TE_SLOTS ? s_cnt[k] : 0;
+      w += v[q];
+    }
+    int incl = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+      if (lane >= o) incl += up;
+    }
+    int run = incl - w;
+#pragma unroll
+    for (int q = 0; q < TE_PER_LANE; ++q) {
+      const int k = lane * TE_PER_LANE + q;
+      if (k < TE_SLOTS) s_cnt[k] = run;  // candidates of the slots before
+      run += v[q];
+    }
+    if (lane == 31) {
+      s_count = incl;
+      lookback::publish(a.status, a.epoch, t, t == 0, incl);
+    }
+  }
+  __syncthreads();
+  const int count = s_count;
+  const int before =
+      t == 0 ? 0 : lookback::look_back<TE_THREADS>(a.status, a.epoch, t, s_first, s_part);
+  if (threadIdx.x == 0) {
+    if (t > 0) lookback::publish(a.status, a.epoch, t, true, before + count);
+    if (t == a.nblk - 1) *a.total = before + count;
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < TE_ITEMS; ++r) {
+    if (!((bal[r] >> lane) & 1)) continue;
+    const int at = before + s_cnt[r * TE_WARPS + warp] + __popc(bal[r] & below);
+    a.cand_field[at] = cf[r];
+    a.cand_start[at] = cs[r];
+    a.cand_combo[at] = cc[r];
+  }
 }
 
 struct TypedListArgs {
@@ -816,7 +880,7 @@ extern "C" {
 // callers size row_counts (ntile = ceil(items / tile)) and the expansion's
 // counts (nblk = ceil(items / expand_items)) from them.
 int fac_typed_tile() { return TYPED_TILE; }
-int fac_typed_expand_items() { return TE_THREADS; }
+int fac_typed_expand_items() { return TE_TILE; }
 
 // The typed DP alone. cand_field, cand_start: int32 [M]; the DP tables as
 // fac_banded_dp takes them; graph: int32 [nch, 10]; node_caps: int32 [N, 5];
@@ -849,21 +913,23 @@ int fac_banded_dp_typed(const void* cand_field, const void* cand_start, long lon
   return (int)cudaGetLastError();
 }
 
-// The typed step's expansion. pos: int64 [K]; words: int64 [K, W2]; the
-// hits h0..K-1 are expanded; combos: int32 [5, n_combo]. write == 0: counts
-// int32 [nblk] is written; write == 1: offsets (the exclusive scan of
-// counts) is read and the candidates written to cand_field, cand_start,
-// cand_combo int32 [items]. Returns the launch's cudaError_t.
+// The typed step's expansion, one launch. pos: int64 [K]; words: int64 [K,
+// W2]; the hits h0..K-1 are expanded; combos: int32 [5, n_combo]; nblk =
+// ceil((K - h0) n_combo / fac_typed_expand_items()); status, epoch, base:
+// lookback.cuh's array for nblk tiles (as fac_block_offsets takes them);
+// the candidates go to cand_field, cand_start, cand_combo int32 [items] in
+// item order, their total to total int32 [1]. Returns the launch's
+// cudaError_t.
 int fac_typed_expand(const void* pos, const void* words, long long K, long long h0, int W2,
                      const void* combos, int n_combo, long long start_lo, long long start_hi,
-                     long long pos_hi, int write, long long nblk, void* counts,
-                     const void* offsets, void* cand_field, void* cand_start, void* cand_combo,
-                     void* stream) {
-  if (K < 1 || h0 < 0 || h0 >= K || W2 < 2 || n_combo < 1 ||
-      nblk != ((K - h0) * n_combo + TE_THREADS - 1) / TE_THREADS || nblk > 0x7FFFFFFFll ||
-      (write == 0 && counts == nullptr) ||
-      (write != 0 && (offsets == nullptr || cand_field == nullptr || cand_start == nullptr ||
-                      cand_combo == nullptr))) {
+                     long long pos_hi, long long nblk, void* status, long long epoch,
+                     long long base, void* cand_field, void* cand_start, void* cand_combo,
+                     void* total, void* stream) {
+  if (K < 1 || h0 < 0 || h0 >= K || W2 < 2 || n_combo < 1 || (K - h0) * n_combo > 0x7FFFFFFFll ||
+      nblk != ((K - h0) * n_combo + TE_TILE - 1) / TE_TILE ||
+      epoch < 1 || epoch > 0xFFFFFFFFll || base < 0 ||
+      status == nullptr || cand_field == nullptr || cand_start == nullptr ||
+      cand_combo == nullptr || total == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   TypedExpandArgs a;
@@ -877,13 +943,15 @@ int fac_typed_expand(const void* pos, const void* words, long long K, long long 
   a.start_lo = start_lo;
   a.start_hi = start_hi;
   a.pos_hi = pos_hi;
-  a.counts = static_cast<int32_t*>(counts);
-  a.offsets = static_cast<const int32_t*>(offsets);
+  a.nblk = nblk;
+  a.status = static_cast<unsigned long long*>(status);
+  a.epoch = (unsigned)epoch;
+  a.base = (unsigned long long)base;
   a.cand_field = static_cast<int32_t*>(cand_field);
   a.cand_start = static_cast<int32_t*>(cand_start);
   a.cand_combo = static_cast<int32_t*>(cand_combo);
-  typed_expand_kernel<<<(unsigned)nblk, TE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, write != 0);
+  a.total = static_cast<int32_t*>(total);
+  typed_expand_kernel<<<(unsigned)nblk, TE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -23,18 +23,18 @@
 // that the blocks take tiles of CHAIN_ITEMS (4) counts a thread, so a
 // long array has more blocks than the card holds at once and one block's
 // loads overlap another's stores, and the blocks
-// chain by decoupled look-back: block t publishes its tile's total in a
-// status word, then its first warp reads the words of the 32 tiles before
-// it at once and adds their totals back to the nearest one that already
-// published its inclusive prefix, and publishes its own. A status word is
-// (epoch << 32 | prefix flag << 31 | value): the caller hands a status
-// array that lives across calls and a new epoch per call, so words of an
-// earlier call read as not yet published and nothing is reset between
-// calls. Blocks are dispatched in index order, so the tiles a block waits
-// for are running or done.
+// chain by decoupled look-back (lookback.cuh, the protocol the typed
+// expansion shares): a block takes its tile from a ticket, publishes the
+// tile's total in a status word, then its first warp reads the words of the
+// 32 tiles before it at once and adds their totals back to the nearest one
+// that already published its inclusive prefix, and publishes its own. The
+// words are epoch-tagged, so the caller's status array lives across calls
+// and nothing is reset between them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lookback.cuh"
 
 namespace {
 
@@ -46,7 +46,6 @@ constexpr long long OFFSETS_TILE = (long long)OFFSETS_THREADS * OFFSETS_ITEMS;
 constexpr int CHAIN_ITEMS = 4;
 constexpr long long CHAIN_TILE = (long long)OFFSETS_THREADS * CHAIN_ITEMS;
 constexpr int OFFSETS_WARPS = OFFSETS_THREADS / 32;
-constexpr unsigned long long PREFIX = 1ull << 31;  // the word holds an inclusive prefix
 static_assert(OFFSETS_WARPS == 32, "the block scan scans the 32 warp totals in one warp");
 
 // The ITEMS counts from ``at`` on (zeros past len).
@@ -69,47 +68,19 @@ __device__ __forceinline__ void load_counts(const int* __restrict__ counts, long
   }
 }
 
-// The totals of the tiles before tile t (> 0), whose own total is
-// ``total``, read by the 32 lanes of one warp from the status words, and
-// published: first the tile's total, then its inclusive prefix.
-__device__ __forceinline__ int look_back(volatile unsigned long long* status, unsigned epoch,
-                                         long long t, int total, int lane) {
-  const unsigned long long tag = (unsigned long long)epoch << 32;
-  if (lane == 0) status[t] = tag | (unsigned)total;
-  int carry = 0;
-  for (long long top = t - 1;; top -= 32) {
-    const long long idx = top - lane;
-    unsigned long long w = tag | PREFIX;  // before tile 0: an empty prefix
-    if (idx >= 0) {
-      do {
-        w = status[idx];
-      } while ((unsigned)(w >> 32) != epoch);
-    }
-    // Lane 0 reads the nearest tile: the lanes up to the first one holding
-    // a prefix add up to everything before tile t.
-    const unsigned pre = __ballot_sync(0xFFFFFFFFu, (w & PREFIX) != 0);
-    const int first = pre != 0 ? __ffs(pre) - 1 : 31;
-    int part = lane <= first ? (int)(w & (PREFIX - 1)) : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xFFFFFFFFu, part, o);
-    carry += part;
-    if (pre != 0) break;
-  }
-  if (lane == 0) status[t] = tag | PREFIX | (unsigned)(carry + total);
-  return carry;
-}
-
-// Block t scans tile t (OFFSETS_THREADS x ITEMS counts) and writes
-// offsets[i] for i in the tile, the last block offsets[len]. ``status``
-// (null where there is one tile) holds a word per tile.
+// The block of tile t scans it (OFFSETS_THREADS x ITEMS counts) and
+// writes offsets[i] for i in the tile, the last tile's block offsets[len].
+// ``status`` (null where there is one tile) is lookback.cuh's array.
 template <int ITEMS>
 __global__ void __launch_bounds__(OFFSETS_THREADS)
 block_offsets_kernel(const int* __restrict__ counts, long long len, bool vec,
-                     unsigned long long* status, unsigned epoch, int* __restrict__ offsets) {
+                     unsigned long long* status, unsigned epoch, unsigned long long base,
+                     int* __restrict__ offsets) {
   __shared__ int s_scan[OFFSETS_WARPS];
   __shared__ int s_carry;
+  __shared__ long long s_tile;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long t = blockIdx.x;
+  const long long t = status == nullptr ? 0 : lookback::take_tile(status, base, &s_tile);
   const long long at = t * ITEMS * OFFSETS_THREADS + (long long)tid * ITEMS;
   int v[ITEMS];
   load_counts<ITEMS>(counts, len, at, vec, v);
@@ -140,14 +111,11 @@ block_offsets_kernel(const int* __restrict__ counts, long long len, bool vec,
     const int tile_total = __shfl_sync(0xFFFFFFFFu, w, 31);
     int carry = 0;
     if (status != nullptr) {
-      if (t == 0) {
-        if (lane == 0) {
-          reinterpret_cast<volatile unsigned long long*>(status)[0] =
-              ((unsigned long long)epoch << 32) | PREFIX | (unsigned)tile_total;
-        }
-      } else {
-        carry = look_back(status, epoch, t, tile_total, lane);
+      if (t > 0) {
+        if (lane == 0) lookback::publish(status, epoch, t, false, tile_total);
+        carry = lookback::look_back<32>(status, epoch, t, nullptr, nullptr);
       }
+      if (lane == 0) lookback::publish(status, epoch, t, true, carry + tile_total);
     }
     if (lane == 0) s_carry = carry;
   }
@@ -167,7 +135,7 @@ block_offsets_kernel(const int* __restrict__ counts, long long len, bool vec,
     for (int q = 0; q < ITEMS; ++q)
       if (at + q < len) offsets[at + q] = before + v[q];
   }
-  if (blockIdx.x == gridDim.x - 1 && tid == OFFSETS_THREADS - 1)
+  if (t == gridDim.x - 1 && tid == OFFSETS_THREADS - 1)
     offsets[len] = carry + s_scan[OFFSETS_WARPS - 1];
 }
 
@@ -177,21 +145,22 @@ extern "C" {
 
 // Counts one block of the scan takes: up to it one block scans them all;
 // past it the blocks take fac_offsets_chain_tile() counts each, and the
-// caller hands a status array of at least ceil(len / chain tile) words.
+// caller hands lookback.cuh's status array for ceil(len / chain tile) tiles.
 int fac_offsets_tile() { return (int)OFFSETS_TILE; }
 int fac_offsets_chain_tile() { return (int)CHAIN_TILE; }
 
-// counts: int32 [len]; offsets: int32 [len + 1], 16-byte aligned; status:
-// uint64 [>= ceil(len / fac_offsets_chain_tile())] where len passes one tile (else
-// unused), zeroed when made and never reset; epoch: 1..2^32 - 1, a value no
-// earlier call on this status array used. Returns the launch's cudaError_t (0 =
-// launched).
+// counts: int32 [len]; offsets: int32 [len + 1], 16-byte aligned. Where len
+// passes one tile (else unused): status: uint64 [>= 1 + ceil(len /
+// fac_offsets_chain_tile())], lookback.cuh's array, zeroed when made and
+// never reset; epoch: 1..2^32 - 1, a value no earlier call on this array
+// used; base: its ticket counter's value when this call starts. Returns the
+// launch's cudaError_t (0 = launched).
 int fac_block_offsets(const void* counts, long long len, void* offsets, void* status,
-                      long long epoch, void* stream) {
+                      long long epoch, long long base, void* stream) {
   const bool chain = len > OFFSETS_TILE;
   const long long tiles = chain ? (len + CHAIN_TILE - 1) / CHAIN_TILE : 1;
   if (len < 1 || tiles > 0x7FFFFFFFll ||
-      (chain && (status == nullptr || epoch < 1 || epoch > 0xFFFFFFFFll)) ||
+      (chain && (status == nullptr || epoch < 1 || epoch > 0xFFFFFFFFll || base < 0)) ||
       reinterpret_cast<uintptr_t>(offsets) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -201,9 +170,10 @@ int fac_block_offsets(const void* counts, long long len, void* offsets, void* st
   int* out = static_cast<int*>(offsets);
   if (chain) {
     block_offsets_kernel<CHAIN_ITEMS><<<(unsigned)tiles, OFFSETS_THREADS, 0, s>>>(
-        c, len, vec, static_cast<unsigned long long*>(status), (unsigned)epoch, out);
+        c, len, vec, static_cast<unsigned long long*>(status), (unsigned)epoch,
+        (unsigned long long)base, out);
   } else {
-    block_offsets_kernel<OFFSETS_ITEMS><<<1, OFFSETS_THREADS, 0, s>>>(c, len, vec, nullptr, 0,
+    block_offsets_kernel<OFFSETS_ITEMS><<<1, OFFSETS_THREADS, 0, s>>>(c, len, vec, nullptr, 0, 0,
                                                                       out);
   }
   return (int)cudaGetLastError();

@@ -33,7 +33,8 @@ SOURCES = tuple(
                  "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu", "goto_walk.cu", "dp_list.cu")
 )
 #: Headers the sources include (part of the build's hash).
-HEADERS = tuple(_PKG / "csrc" / name for name in ("packed_bitap.cuh", "banded_dp.cuh"))
+HEADERS = tuple(_PKG / "csrc" / name
+                for name in ("packed_bitap.cuh", "banded_dp.cuh", "lookback.cuh"))
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,8 +55,8 @@ _SIGNATURES = {
     # the same for W = 9..64 (csrc/scan_wide.cu)
     "fac_scan_bits_wide": [_c_void_p, _c_ll] + [_c_void_p] * 5 + [_c_int] * 5
     + [_c_ll] + [_c_void_p] * 3,
-    # counts, len, offsets, status, epoch, stream
-    "fac_block_offsets": [_c_void_p, _c_ll, _c_void_p, _c_void_p, _c_ll, _c_void_p],
+    # counts, len, offsets, status, epoch, base, stream
+    "fac_block_offsets": [_c_void_p, _c_ll, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_void_p],
     # ids, n, bits, offsets, tbl, starts, match, init, notlast, A, W, k, halo,
     # nblocks, pos, words, stream
     "fac_hit_words": [_c_void_p, _c_ll] + [_c_void_p] * 7 + [_c_int] * 4
@@ -98,9 +99,9 @@ _SIGNATURES = {
     + [_c_void_p] * 3 + [_c_int] * 2 + [_c_void_p, _c_int, _c_void_p, _c_int]
     + [_c_f] * 6 + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 4,
     # pos, words, K, h0, W2, combos, n_combo, start_lo, start_hi, pos_hi,
-    # write, nblk, counts, offsets, cand_field, cand_start, cand_combo, stream
+    # nblk, status, epoch, base, cand_field, cand_start, cand_combo, total, stream
     "fac_typed_expand": [_c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_void_p, _c_int]
-    + [_c_ll] * 3 + [_c_int, _c_ll] + [_c_void_p] * 6,
+    + [_c_ll] * 4 + [_c_void_p, _c_ll, _c_ll] + [_c_void_p] * 5,
     # cand_field, cand_start, n_cand, items, ids, ids_u8, npad, limit,
     # path_cls, path_node, depth, node, Lmax, F, sim, C, node_ceil, N,
     # out_list, MO, pat_len, pat_weight, max_pen, p_sub, p_ins, p_del,

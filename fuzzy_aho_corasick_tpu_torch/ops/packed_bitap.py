@@ -55,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import os
+import threading
 import time
 from typing import List, Optional, Tuple
 
@@ -114,7 +115,7 @@ SCAN_FILL_THREADS = 640
 #: Kernel launches per wrapper (CUDA launches only; the plain versions on CPU
 #: tensors do not count). ``dp`` counts ``verify_dp.banded_dp``,
 #: ``dp_pipeline`` both passes of ``verify_dp.dp_pipeline``'s count-channel
-#: step; ``typed_expand`` both passes of ``verify_dp.typed_expand``,
+#: step; ``typed_expand`` the one launch of ``verify_dp.typed_expand``,
 #: ``typed_dp`` and ``typed_emit`` the typed step's DP and emission;
 #: ``block_offsets`` the launches of :func:`block_offsets`; ``scan_bits`` and ``hit_words`` count the narrow kernels, the
 #: ``_wide`` keys the wide ones; ``many_step`` both passes of
@@ -720,31 +721,42 @@ def scan_bits(ids: torch.Tensor, T: ScanTables, halo: int, chunk: Optional[int] 
     return bits, counts
 
 
-#: The multi-tile scan's status words, per (device index, stream handle):
-#: int64 tensors, zeroed when made and never reset (see ``_scan_status``).
-_SCAN_STATUS: dict = {}
-#: Epochs of the multi-tile scan, unique per call.
-_SCAN_EPOCHS = itertools.count(1)
+#: The status arrays of ``csrc/lookback.cuh``, per (device index, stream
+#: handle): [int64 tensor, ticket base]. Word 0 of a tensor is the blocks'
+#: ticket counter, then one word per tile; zeroed when made, never reset.
+_LOOKBACK: dict = {}
+#: Epochs of the chained launches, unique per call.
+_LOOKBACK_EPOCHS = itertools.count(1)
+#: Held from a call's ticket base to its launch, so the calls on one stream
+#: are enqueued in the order of their bases.
+_LOOKBACK_LOCK = threading.Lock()
 
 
-def _scan_status(dev: torch.device, stream: int, tiles: int):
-    """(status words, epoch) for one multi-tile ``block_offsets_kernel`` call
-    on ``stream``: the stream's status array (grown to ``tiles`` words) and
-    an epoch no earlier call used, so the kernel tells this call's words
-    from any earlier call's without a reset. Calls on one stream run in
-    order, so one array serves them all."""
-    epoch = next(_SCAN_EPOCHS) & 0xFFFFFFFF
-    if epoch == 0:  # 2^32 calls on: every word could be mistaken, so zero them
-        for words in _SCAN_STATUS.values():
-            words.zero_()
-        epoch = next(_SCAN_EPOCHS) & 0xFFFFFFFF
-    key = (dev.index, stream)
-    words = _SCAN_STATUS.get(key)
-    if words is None or words.numel() < tiles:
-        words = torch.zeros(max(tiles, 64, 0 if words is None else 2 * words.numel()),
-                            dtype=torch.int64, device=dev)
-        _SCAN_STATUS[key] = words
-    return words, epoch
+def lookback_launch(dev: torch.device, stream: int, tiles: int, launch) -> int:
+    """Enqueue on ``stream`` a kernel whose ``tiles`` blocks chain by
+    ``csrc/lookback.cuh``'s look-back (the multi-tile ``block_offsets``
+    and ``verify_dp.typed_expand``): ``launch(status, epoch, base)`` gets
+    the stream's status array (a data pointer, grown to ``tiles`` tiles),
+    an epoch no earlier call used, and the ticket counter's value after the
+    earlier calls' blocks took theirs, and returns the launch's
+    cudaError_t, which this returns. Calls on one stream run in order, so
+    one array serves them all and nothing is reset between them."""
+    with _LOOKBACK_LOCK:
+        epoch = next(_LOOKBACK_EPOCHS) & 0xFFFFFFFF
+        if epoch == 0:  # 2^32 calls on: every word could be mistaken, so zero them
+            for slot in _LOOKBACK.values():
+                slot[0].zero_()
+                slot[1] = 0
+            epoch = next(_LOOKBACK_EPOCHS) & 0xFFFFFFFF
+        key = (dev.index, stream)
+        slot = _LOOKBACK.get(key)
+        if slot is None or slot[0].numel() < tiles + 1:
+            n = max(tiles + 1, 64, 0 if slot is None else 2 * slot[0].numel())
+            slot = _LOOKBACK[key] = [torch.zeros(n, dtype=torch.int64, device=dev), 0]
+        rc = launch(slot[0].data_ptr(), epoch, slot[1])
+        if rc == 0:
+            slot[1] += tiles
+    return rc
 
 
 def block_offsets(counts: torch.Tensor) -> torch.Tensor:
@@ -752,7 +764,7 @@ def block_offsets(counts: torch.Tensor) -> torch.Tensor:
     last. CPU tensors run :func:`block_offsets_torch`; CUDA tensors launch
     ``block_offsets_kernel`` once: one block up to ``OFFSETS_TILE`` counts,
     past it blocks of ``OFFSETS_CHAIN_TILE`` chained by look-back
-    (``_scan_status``). The checks are kept lean:
+    (:func:`lookback_launch`). The checks are kept lean:
     at the callers' sizes the call's host time is most of its cost."""
     n = counts.numel()
     dev = counts.device
@@ -768,11 +780,14 @@ def block_offsets(counts: torch.Tensor) -> torch.Tensor:
     kern = _CHECKED if _CHECKED is not None else _kernels()
     with on_device(dev):
         stream = stream_of(dev)
-        status, epoch = (None, 0) if n <= OFFSETS_TILE else _scan_status(
-            dev, stream, -(-n // OFFSETS_CHAIN_TILE))
-        rc = kern.lib.fac_block_offsets(counts.data_ptr(), n, offsets.data_ptr(),
-                                        None if status is None else status.data_ptr(), epoch,
-                                        stream)
+        if n <= OFFSETS_TILE:
+            rc = kern.lib.fac_block_offsets(counts.data_ptr(), n, offsets.data_ptr(), None, 0, 0,
+                                            stream)
+        else:
+            rc = lookback_launch(dev, stream, -(-n // OFFSETS_CHAIN_TILE),
+                                 lambda status, epoch, base: kern.lib.fac_block_offsets(
+                                     counts.data_ptr(), n, offsets.data_ptr(), status, epoch,
+                                     base, stream))
     kern.check(rc, "block_offsets")
     LAUNCHES["block_offsets"] += 1
     return offsets

@@ -1578,23 +1578,21 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
 #: Candidates per row-count tile of the typed step, and threads per block of
 #: its emission (TYPED_TILE of csrc/dp_typed.cu; checked against the library).
 TYPED_TILE = 1024
-#: (combo, hit) items per block of the typed expansion (TE_THREADS).
-TYPED_EXPAND_ITEMS = 256
+#: (combo, hit) items per block of the typed expansion (TE_TILE).
+TYPED_EXPAND_ITEMS = 2048
 
 
 class TypedCands(NamedTuple):
     """The typed step's candidate list: ``field``, ``start``, ``combo``
     int32, at least ``total`` long, in (combo, hit) item order; ``total``
     int32 [1] on the list's device (the kernel's count stays on the card);
-    ``items`` the list's bound, (hits - h0) x combos; ``block_counts`` the
-    expansion's per-block counts on CUDA tensors, else None."""
+    ``items`` the list's bound, (hits - h0) x combos."""
 
     field: torch.Tensor
     start: torch.Tensor
     combo: torch.Tensor
     total: torch.Tensor
     items: int
-    block_counts: Optional[torch.Tensor] = None
 
 
 _TYPED_CHECKED: Optional[_cuda_build.Kernels] = None
@@ -1629,9 +1627,9 @@ def typed_expand(pos, words, window: DpWindow, E: int, statics: tuple,
                  h0: int = 0) -> TypedCands:
     """The typed step's candidate list (see :func:`typed_expand_torch`; the
     caller checked the arguments). CPU tensors run the plain version; CUDA
-    tensors launch ``typed_expand_kernel`` twice, a count pass and a write
-    pass with ``block_offsets_kernel`` between them, and leave the total on
-    the card."""
+    tensors launch ``typed_expand_kernel`` once: its blocks place their
+    candidates by decoupled look-back (``packed_bitap.lookback_launch``),
+    and the last writes the total, which stays on the card."""
     from . import packed_bitap as pb
 
     if pos.device.type == "cpu":
@@ -1641,24 +1639,19 @@ def typed_expand(pos, words, window: DpWindow, E: int, statics: tuple,
     n_combo = combos.shape[1]
     items = (pos.numel() - h0) * n_combo
     nblk = -(-items // TYPED_EXPAND_ITEMS)
-    counts = torch.empty(nblk, dtype=torch.int32, device=dev)
+    cand = torch.empty(3 * items + 1, dtype=torch.int32, device=dev)
+    at = cand.data_ptr()  # field, start, combo [items] each, then the total
     kern = _typed_kernels()
-    head = (pos.data_ptr(), words.data_ptr(), pos.numel(), h0, words.shape[1],
-            combos.data_ptr(), n_combo, *(int(x) for x in window))
-    stream = pb.stream_of(dev)
     with pb.on_device(dev):
-        rc = kern.lib.fac_typed_expand(*head, 0, nblk, counts.data_ptr(), None, None, None,
-                                       None, stream)
+        stream = pb.stream_of(dev)
+        rc = pb.lookback_launch(dev, stream, nblk, lambda status, epoch, base: (
+            kern.lib.fac_typed_expand(
+                pos.data_ptr(), words.data_ptr(), pos.numel(), h0, words.shape[1],
+                combos.data_ptr(), n_combo, window[0], window[1], window[2], nblk, status, epoch,
+                base, at, at + 4 * items, at + 8 * items, at + 12 * items, stream)))
     kern.check(rc, "typed_expand")
-    offsets = pb.block_offsets(counts)
-    cand = torch.empty((3, items), dtype=torch.int32, device=dev)
-    with pb.on_device(dev):
-        rc = kern.lib.fac_typed_expand(*head, 1, nblk, None, offsets.data_ptr(),
-                                       cand[0].data_ptr(), cand[1].data_ptr(),
-                                       cand[2].data_ptr(), stream)
-    kern.check(rc, "typed_expand")
-    pb.LAUNCHES["typed_expand"] += 2
-    return TypedCands(cand[0], cand[1], cand[2], offsets[nblk:], items, counts)
+    pb.LAUNCHES["typed_expand"] += 1
+    return TypedCands(*cand.split((items, items, items, 1)), items)
 
 
 def _typed_tiles(items: int) -> int:
@@ -1823,10 +1816,10 @@ def count_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
     """(dec, row_counts) of :func:`count_dp_torch` (the caller checked the
     arguments). CPU tensors run the plain version; CUDA tensors launch
     ``count_dp_kernel`` (a group of 8, 16 or 32 lanes per candidate, one
-    cell each, up to E = 3) or ``count_dp_rows_kernel`` (a warp per
-    candidate, rows in shared memory, E = 4..6) over the list's bound, both
-    with or without mappings; columns of ``dec`` past the total are left
-    unwritten."""
+    cell each, up to E = 3) or ``count_dp_rows_kernel<E, MAPS>`` (a group
+    of 16 lanes per candidate, a band of channels each in registers, E =
+    4..6) over the list's bound, both with or without mappings; columns of
+    ``dec`` past the total are left unwritten."""
     from . import packed_bitap as pb
 
     if ids.device.type == "cpu":
@@ -1904,7 +1897,7 @@ def dp_pipeline_counts(pos, words, window: DpWindow, ids, limit, T: DpTables,
                        variant: DpVariant = FAST, h0: int = 0) -> tuple:
     """The counts :func:`dp_pipeline` hands ``block_offsets``, on CUDA tensors
     with at least one hit: the count pass's per-block counts, or the list
-    or typed step's expansion counts and row counts."""
+    or typed step's row counts."""
     _check_pipeline(pos, words, ids, T, E, deadend, statics, variant, h0)
     if ids.device.type != "cuda" or pos.numel() - h0 <= 0:
         raise ValueError("the count pass runs on CUDA tensors with at least one hit")
@@ -1915,7 +1908,7 @@ def dp_pipeline_counts(pos, words, window: DpWindow, ids, limit, T: DpTables,
         else:
             _dec, row_counts = count_dp(cands, ids, limit, T, pens, thr, E, deadend,
                                         variant.forbid, variant.maps)
-        return cands.block_counts, row_counts
+        return (row_counts,)
     return (_count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics,
                         h0)[1],)
 

@@ -3,10 +3,12 @@
 CPU.
 
 (a) For the forbid lane (each forbid flag, ``edits(2)`` and ``edits(3)``
-    without swaps), ``edits(2)`` with swaps, the mapped lane (rn <-> m,
-    ß <-> ss and æ <-> ae with drift +1 and -1, a scored mapping,
-    ``edits(2)`` mapped) and a dictionary with multi-byte edges (the
-    dead-end filter) at ``edits(2)``: per slice, the step's pieces, each its
+    without swaps, ``edits(4)`` without swaps), ``edits(2)`` with swaps, the
+    mapped lane (rn <-> m, ß <-> ss and æ <-> ae with drift +1 and -1, a
+    scored mapping, ``edits(2)`` mapped) and a dictionary with multi-byte
+    edges (the dead-end filter) at ``edits(2)`` and ``edits(4)`` (the cases
+    at E = 4 reach the rows form of the DP, ``count_dp_rows_kernel`` on the
+    card): per slice, the step's pieces, each its
     plain version on CPU tensors (``count_dp_torch``, ``count_emit_torch``),
     give the rows the JAX ``_dp_pipeline_jit`` (``FORBID`` / ``MAPS`` /
     ``DEADEND``; its scan in Pallas interpret mode) returns, in the same
@@ -24,6 +26,11 @@ CPU.
     ``edits(3)`` with sch <-> sh, k = 9): served on the card's lane, the
     list equal to the JAX device search's; ``edits(6)`` (k = 12) equal to
     the host oracle; ``dp_plan`` serving every mapped budget up to 24.
+(g) The expansion's list (``typed_expand_torch``, the plain version of the
+    one-pass ``typed_expand_kernel``): equal to the JAX
+    ``_expand_candidates`` in item order with its total, and at h0 = 1 the
+    same list without the first hit's candidates, over a hit run in which
+    every item past the run's first hit but the b = 0 copies is a duplicate.
 
 Both sides get the same inputs, made from a seed. The tolerance is exact
 equality everywhere: equal int32 rows and equal f32 bits (the DP replays the
@@ -114,7 +121,15 @@ CASES = {
     "deadend-e2": (lambda b, L: b.fuzzy(L.new().edits(2)), CYRILLIC,
                    _corpus(77, 2000, CYRILLIC + ["прuвет", "мирр"],
                            ["и", "мы", "тесты", "кафе", "она"]), 0.6, "dp"),
+    # E = 4: the rows form of the DP (past 32 cells), without mappings.
+    "forbid-swaps-e4": (lambda b, L: b.fuzzy(L.new().edits(4).swaps(0)), WORDS[:2],
+                        _corpus(78, 1500, WORDS[:2]), 0.5, "forbid"),
+    "deadend-e4": (lambda b, L: b.fuzzy(L.new().edits(4)), CYRILLIC,
+                   _corpus(79, 1200, CYRILLIC + ["прuвет", "мирр"],
+                           ["и", "мы", "тесты", "кафе", "она"], max_edits=4), 0.3, "dp"),
 }
+#: The cases whose DP runs at E = 4, and whether with the dead-end filter.
+ROWS_FORM = {"forbid-swaps-e4": False, "deadend-e4": True}
 BACKEND = {"dp": "device-fuzzy-dp", "forbid": "device-fuzzy-dp-forbid",
            "mapped": "device-fuzzy-dp-mapped"}
 
@@ -217,6 +232,8 @@ def test_list_step_rows_equal_to_jax(monkeypatch, name):
     assert sorted(want) == sorted(
         (p.local_n, p.lo, p.hi, p.ids_pf.numpy()[:p.local_n].tobytes()) for p in run.parts)
     E, T = plan.E, run.T
+    if name in ROWS_FORM:
+        assert E == 4 and run.deadend == ROWS_FORM[name]
     MO = T.out_list.shape[1]
     nce = (2 * E + 1) * MO
     total = 0
@@ -456,3 +473,67 @@ def test_dp_plan_serves_every_mapped_budget(E):
     assert spec is not None and spec.k == 4 * E <= tpb.MAX_SCAN_K
     plan = tvd.dp_plan(port_e, 0.5, 1000, None, spec)
     assert plan is not None and plan.k == spec.k and plan.ks == (spec.k,) * 2 and not plan.dam
+
+
+def test_typed_expand_list_equal_to_jax():
+    """``typed_expand`` on CPU tensors (``typed_expand_torch``, the plain
+    version of the one-pass ``typed_expand_kernel``) over a random hit list
+    and a run of consecutive hits with every bit set: a ``TypedCands`` of
+    (field, start, combo, total, items) whose (field, start) list and total
+    equal the JAX ``_expand_candidates``, in item order (combo-major, hits
+    ascending, each combo's field); past the run's first hit only the b = 0
+    copies stay; with h0 = 1 the list is the h0 = 0 list without the first
+    hit's candidates, hit 0 still feeding hit 1's dedup."""
+    import jax
+    import jax.numpy as jnp
+
+    name = "forbid-swaps-e2"
+    _c, _p, hay, thr, _lane = CASES[name]
+    plan, run = _lane_inputs(_pair(name)[1], hay, thr)
+    E, (BITS, P2F, DEPTHS) = plan.E, run.statics
+    combos = tvd._combos(E, BITS, P2F, DEPTHS)
+    n_combo = combos.shape[1]
+    rng = np.random.default_rng(17)
+    W2 = 2 * run.T_scan.W
+    pos = 100 + np.cumsum(rng.integers(1, 4, 300))
+    words = (rng.integers(0, 1 << 32, (300, W2), dtype=np.int64)
+             & rng.integers(0, 1 << 32, (300, W2), dtype=np.int64))
+    run_len = 20
+    pos = np.concatenate([pos, pos[-1] + 10 + np.arange(run_len)])
+    words = np.concatenate([words, np.full((run_len, W2), 0xFFFFFFFF, dtype=np.int64)])
+    K = pos.size
+    window = tvd.DpWindow(0, 1 << 20, 1 << 20)
+    pos_t, words_t = torch.from_numpy(pos.astype(np.int64)), torch.from_numpy(words)
+    before = dict(tpb.LAUNCHES)
+    full = tvd.typed_expand(pos_t, words_t, window, E, run.statics)
+    ranged = tvd.typed_expand(pos_t, words_t, window, E, run.statics, h0=1)
+    assert tpb.LAUNCHES == before  # CPU tensors run the plain version
+    assert type(full)._fields == ("field", "start", "combo", "total", "items")
+    M = int(full.total[0])
+    assert full.total.dtype == torch.int32 and full.total.shape == (1,)
+    assert full.items == K * n_combo and ranged.items == (K - 1) * n_combo
+    assert all(t.dtype == torch.int32 and t.numel() == M for t in full[:3])
+    count, jf, js = jax.jit(jvd._expand_candidates, static_argnames=(
+        "E", "CAND", "BITS", "P2F", "DEPTHS"))(
+        jnp.asarray(pos.astype(np.int32)), jnp.asarray(words.astype(np.uint32)),
+        np.int32(window.start_lo), np.int32(window.start_hi), np.int32(window.pos_hi),
+        E=E, CAND=1 << 16, BITS=BITS, P2F=P2F, DEPTHS=DEPTHS)
+    assert int(count) == M > 0
+    assert np.array_equal(full.field.numpy(), np.asarray(jf)[:M])
+    assert np.array_equal(full.start.numpy(), np.asarray(js)[:M])
+    # Item order: combos ascending, each combo's field, its hits ascending.
+    c = full.combo.numpy().astype(np.int64)
+    assert (np.diff(c) >= 0).all() and (full.field.numpy() == combos[2][c]).all()
+    h = np.searchsorted(pos, full.start.numpy() + combos[3][c] - 1)
+    assert (pos[h] == full.start.numpy() + combos[3][c] - 1).all()
+    assert all((np.diff(h[c == k]) > 0).all() for k in np.unique(c))
+    # The run: its first hit keeps every combo, the rest only b == 0.
+    in_run = h >= K - run_len
+    first = combos[4][c] == 1
+    assert in_run.sum() == n_combo + (run_len - 1) * int(combos[4].sum())
+    assert (first[in_run & (h > K - run_len)]).all()
+    # h0 = 1: the same list without hit 0's candidates.
+    keep = h != 0
+    assert int(ranged.total[0]) == int(keep.sum()) < M
+    for a, b in zip(ranged[:3], full[:3]):
+        assert np.array_equal(a.numpy(), b.numpy()[keep])

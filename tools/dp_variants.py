@@ -1,15 +1,24 @@
 #!/usr/bin/env python3
-"""Time the count-channel DP step of the forbid2, mapped and fuzzy1 cells,
-and variants of its kernel, on one CUDA card.
+"""Time the DP step of the forbid2, fuzzy2, mapped, mapped4, typed and
+fuzzy1 cells, and variants of its kernel, on one CUDA card.
 
-The cells are ``chip_smoke.py``'s phases 4c, 4e and 4b: the headline
-dictionary with ``edits(2).swaps(0)`` at 0.62 over the 96 MiB corpus
-(forbid2), the headline dictionary + ``modern`` with rn <-> m, ``edits(1)``,
-at 0.8 over the corpus with every 50th ``commodo`` a ``modem`` (mapped), and
-the headline dictionary with ``edits(1)`` at 0.8 over the corpus (fuzzy1).
-For the checkout at ``--root`` (default: the one this script is in; a
-checkout of this script's commit or later), per cell, with every slice's
-hit list made once on the card:
+The cells are ``chip_smoke.py``'s phases 4c, 4c', 4e, 4e'', 4d and 4b: the
+headline dictionary with ``edits(2).swaps(0)`` at 0.62 over the 96 MiB
+corpus (forbid2), with ``edits(2)`` at 0.62 (fuzzy2), the headline dictionary + ``modern`` with rn <-> m,
+``edits(1)``, at 0.8 over the corpus with every 50th ``commodo`` a
+``modem`` (mapped), 16 two-word names with rn <-> m, ``edits(4)``, at 0.8
+over the corpus with 4,000 copies planted (mapped4: the list step's DP past
+32 cells, ``count_dp_rows_kernel``), the typed engine at 0.8 over the
+corpus (typed: the typed step), and the headline dictionary with
+``edits(1)`` at 0.8 over the corpus (fuzzy1). For the checkout at
+``--root`` (default: the one this script is in; a checkout whose list
+step is ``csrc/dp_list.cu``), per cell, with every slice's hit list made once on the
+card:
+
+* the whole search (``search_raw``): best of 3 wall ms, host clock around a
+  synchronised search, and the host-clock stages of one search
+  (``chip_smoke.stage_breakdown``, best of 3 per stage: the step's host
+  stage is its "dp_pipeline");
 
 * the step (``verify_dp.dp_pipeline``, whichever kernels that checkout
   routes the cell to) over every slice of one search: CUDA events around
@@ -18,11 +27,14 @@ hit list made once on the card:
 * slice 1's rows and candidate count against ``dp_pipeline_torch``;
 * each variant of ``VARIANTS`` whose texts all occur in the checkout's
   ``csrc/dp_pipeline.cu`` (where the cell runs on ``dp_pipeline_kernel``,
-  two passes around ``block_offsets``) or ``csrc/dp_list.cu`` (where it
-  runs the list step): that source with the texts replaced, built alone
+  two passes around ``block_offsets``), ``csrc/dp_list.cu`` (where it
+  runs the list step) or ``csrc/dp_typed.cu`` (the expansion of the list
+  and the typed step): that source with the texts replaced, built alone
   with the checkout's nvcc flags (all variants in parallel) and routed
-  into the wrapper in place of the main library's ``fac_dp_pipeline*`` or
-  ``fac_count_*`` entries; per variant the step as above with ptxas's
+  into the wrapper in place of the main library's ``fac_dp_pipeline*``,
+  ``fac_count_*`` or ``fac_typed_expand*`` entries (the expansion's tile,
+  ``verify_dp.TYPED_EXPAND_ITEMS``, read from the variant); per variant the
+  step as above with ptxas's
   registers and spill bytes and, for ``dp_pipeline_kernel``, on slice 1
   the count pass and the write pass alone (CUDA events around 20 launches
   of each);
@@ -61,15 +73,16 @@ import time
 
 #: (name, same, source, ((old text, new text), ...)). ``same``: the
 #: variant returns what the kernel returns; ``source``: the file of csrc/ it
-#: patches (``dp_pipeline.cu``, routed in place of ``fac_dp_pipeline*``, or
-#: ``dp_list.cu``, in place of ``fac_count_*``). A variant applies where
-#: every old text occurs in that checkout's source.
+#: patches (``dp_pipeline.cu``, routed in place of ``fac_dp_pipeline*``,
+#: ``dp_list.cu``, in place of ``fac_count_*``, or ``dp_typed.cu``, in place
+#: of ``fac_typed_expand*``). A variant applies where every old text occurs
+#: in that checkout's source.
 _DP_CALL = "    dp_body<E, DEADEND, MAPS, Sym>(a.core, s_sim, sim_smem, f, s, emit_pen, emit_cnt);\n"
 _NO_DP = ("#pragma unroll\n    for (int b = 0; b < B; ++b)\n#pragma unroll\n"
           "      for (int e = 0; e < NE; ++e) {\n"
           "        emit_pen[b][e] = __int_as_float(0x7f800000);\n"
           "        emit_cnt[b][e] = 0;\n      }\n")
-_PIPE, _LIST = "dp_pipeline.cu", "dp_list.cu"
+_PIPE, _LIST, _TYPED = "dp_pipeline.cu", "dp_list.cu", "dp_typed.cu"
 VARIANTS = (
     ("as is", True, None, ()),
     # The expansion, the idle lanes, the ballots and the row counts alone:
@@ -103,6 +116,16 @@ VARIANTS = (
          "  int per_sm = 0;\n  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, shm);\n"
          "  const long long cap = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);"),)),
     ("list: no early exit", True, _LIST, (("    if (!__any_sync(gm, fin(prev_pen)", "    if (false && !__any_sync(gm, fin(prev_pen)"),)),
+    # The rows DP (E >= 4) without its early stop: every group runs its
+    # candidate's rows to the depth.
+    ("rows: no early stop", True, _LIST, (("    if (!__any_sync(gm, live)) break;",
+                                           "    if (false && !__any_sync(gm, live)) break;"),)),
+    # The one-pass expansion with smaller tiles: 1,024 items a block, and 256
+    # (one item a thread, the first one-pass design).
+    ("expand: 1,024 items a block", True, _TYPED, (("constexpr int TE_ITEMS = 8;",
+                                                    "constexpr int TE_ITEMS = 4;"),)),
+    ("expand: 256 items a block", True, _TYPED, (("constexpr int TE_ITEMS = 8;",
+                                                  "constexpr int TE_ITEMS = 1;"),)),
 )
 #: The routing variant: E = 1 without forbid flags or mappings on the list step.
 _ROUTED = "list step at E = 1"
@@ -143,14 +166,19 @@ def _label(mangled: str) -> str:
         return f"dp_pipeline<E={m.group(1)},{kind},{'u8' if m.group(4) == 'h' else 'int32'}>"
     m = re.search(r"(count_dp_\w*?kernel)(?:ILi(\d+)ELb([01])E)?", mangled)
     if m:
-        return m.group(1) + (f"<G={m.group(2)},MAPS={m.group(3)}>" if m.group(2) else "")
+        param = "E" if "rows" in m.group(1) else "G"
+        return m.group(1) + (f"<{param}={m.group(2)},MAPS={m.group(3)}>" if m.group(2) else "")
     m = re.search(r"(count_emit_kernel|typed_expand_kernel)", mangled)
     return m.group(1) if m else mangled
 
 
 #: The entries a variant of each source takes over, and the launch counter
 #: that shows the cell ran on it.
-_ROUTE = {_PIPE: ("fac_dp_pipeline", "dp_pipeline"), _LIST: ("fac_count_", "count_dp")}
+_ROUTE = {_PIPE: ("fac_dp_pipeline", "dp_pipeline"), _LIST: ("fac_count_", "count_dp"),
+          _TYPED: ("fac_typed_expand", "typed_expand")}
+#: The cells by name: (``recipe_engine`` name, threshold).
+_CELLS = {"forbid2": ("forbid", 0.62), "fuzzy2": ("fuzzy2", 0.62), "mapped": ("mapped", 0.8),
+          "mapped4": ("mapped4", 0.8), "typed": ("typed", 0.8), "fuzzy1": ("fuzzy1", 0.8)}
 
 
 class _Routed:
@@ -170,7 +198,8 @@ def main() -> int:
     ap.add_argument("--root", default=here)
     ap.add_argument("--label", default=None)
     ap.add_argument("--only", nargs="*", default=None, help="the variants to run, by name")
-    ap.add_argument("--cells", nargs="*", default=["forbid2", "mapped"])
+    ap.add_argument("--cells", nargs="*", default=["forbid2", "mapped", "mapped4", "typed"],
+                    choices=sorted(_CELLS))
     ap.add_argument("--range-peak", action="store_true",
                     help="the peak bytes of one range of step_max_hits random hits")
     args = ap.parse_args()
@@ -202,7 +231,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(root, "fuzzy_aho_corasick_tpu_torch", "csrc")
     sources = {name: open(os.path.join(csrc, name)).read()
-               for name in (_PIPE, _LIST) if os.path.exists(os.path.join(csrc, name))}
+               for name in (_PIPE, _LIST, _TYPED) if os.path.exists(os.path.join(csrc, name))}
     t0 = time.perf_counter()
     nvcc = _cuda_build._nvcc()
     jobs = []
@@ -242,12 +271,18 @@ def main() -> int:
     ctx = SimpleNamespace(torch=torch, np=np, tpb=tpb, vdp=vdp, dev=torch.device("cuda"),
                           Builder=FuzzyAhoCorasickBuilder, Limits=FuzzyLimits, Pattern=Pattern)
     corpus = cs.build_corpus(cs.CORPUS_BYTES, cs.SEED)
-    cells = {"forbid2": ("forbid", corpus, 0.62), "mapped": ("mapped", cs.sparse_modem(corpus), 0.8),
-             "fuzzy1": ("fuzzy1", corpus, 0.8)}
-    base, list_step = kern.lib, vdp._list_step
+    texts = {"mapped": lambda: cs.sparse_modem(corpus),
+             "mapped4": lambda: cs.plant_phrases(corpus, cs.SEED + 23, cs.MAPPED4_COPIES,
+                                                 cs.MAPPED4_WORDS)[0]}
+    base, list_step, expand_items = kern.lib, vdp._list_step, vdp.TYPED_EXPAND_ITEMS
     for cell in args.cells:
-        name, text, thr = cells[cell]
+        name, thr = _CELLS[cell]
+        text = texts.get(cell, lambda: corpus)()
         engine = cs.recipe_engine(ctx, name)
+        wall, stages = search_walls(torch, cs, tpb, vdp, engine, text, thr)
+        print(f"dp_variants {label} {cell}: search best of 3 {min(wall):.3f} ms (all "
+              f"{', '.join(f'{t:.3f}' for t in wall)}); stages {stages}", file=sys.stderr,
+              flush=True)
         plan, run = cs.lane_inputs(vdp, engine, text, thr, cell)
         slices = []
         for part in run.parts:
@@ -257,7 +292,8 @@ def main() -> int:
         rec = {"slices": len(slices), "E": plan.E, "variant": cs.variant_name(run),
                "slice1_hits": int(slices[0][0].numel()), "slice1_candidates": cand_p,
                "slice1_rows": int(rows_p.shape[0]), "n_combo": plan.n_combo,
-               "MO": int(run.T.out_list.shape[1]), "variants": {}}
+               "MO": int(run.T.out_list.shape[1]), "search_ms": wall,
+               "search_best_ms": min(wall), "stages_ms": stages, "variants": {}}
         pipeline_cell = not list_step(plan.E, run.variant) and run.variant.typed is None
 
         def step():
@@ -269,6 +305,8 @@ def main() -> int:
                 continue
             if lib is not None:
                 kern.lib = _Routed(base, lib, _ROUTE[src][0])
+                if src == _TYPED:  # the variant's tile sizes the grid
+                    vdp.TYPED_EXPAND_ITEMS = lib.fac_typed_expand_items()
             if vname == _ROUTED:
                 vdp._list_step = lambda E, variant: variant.typed is None
             try:
@@ -295,6 +333,7 @@ def main() -> int:
                               "write_ms": cs.event_ms(torch, lambda: launch(1, offsets, rows), 20)}
             finally:
                 kern.lib, vdp._list_step = base, list_step
+                vdp.TYPED_EXPAND_ITEMS = expand_items
             kernels = {k: {"ms_per_search": prof["by_event"][k],
                            "ms_per_launch": cs.launch_ms(prof, k),
                            "events_per_search": prof["events"][k] / prof["reps"]}
@@ -324,6 +363,25 @@ def main() -> int:
         out["cells"][cell] = rec
     print(json.dumps(out))
     return 0
+
+
+def search_walls(torch, cs, tpb, vdp, engine, text: str, thr: float):
+    """Best-of-3 material of the whole search: the wall ms of 3 synchronised
+    ``search_raw`` calls after a warm-up, and the host-clock stages of one
+    search (``chip_smoke.stage_breakdown``), each stage's least of 3."""
+    engine.search_raw(text, thr)
+    wall = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.search_raw(text, thr)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    stages = {}
+    for _ in range(3):
+        ms, _n = cs.stage_breakdown(torch, tpb, vdp, engine, text, thr)
+        stages = {k: min(v, stages.get(k, v)) for k, v in ms.items()}
+    return wall, stages
 
 
 def range_peak(torch, cs, vdp, args, plan, run) -> dict:
