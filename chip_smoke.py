@@ -73,7 +73,9 @@ torch version. Phases:
    kernels past six rows (``deep_kernel_checks``): the library's instance
    table at W = 1..64, k = 7..24; the scan and the replay at k = 7, 8, 12,
    13 and 24 and W = 1, 8, 9, 31 and 64, with and without the Damerau rows,
-   at W = 2 and 4, on a stream without a hit and on segments
+   at W = 2 and 4, at W = 33 (two limbs a lane) with k = 13 and 24, on
+   2^18-symbol streams at W = 33, k = 24 and W = 64, k = 17, on a stream
+   without a hit and on segments
    with halos; ``fuzzy_anchors_packed`` at a budget of 8 rows against the
    same call on the CPU, resident and in segments. Mapped4's text and
    plain-scan windows are made here, and the oracle's searches over them
@@ -108,8 +110,10 @@ torch version. Phases:
    0.8, every 50th ``commodo`` of the corpus a ``modem``. Each must report
    its lane's backend name, launch the scan's kernels and its own step's
    kernels and no other lane's (4c, 4c' and 4e the list step:
-   ``typed_expand``, ``count_dp``, ``count_emit``; never
-   ``dp_pipeline_kernel``), and equal the context oracle's match set; a
+   ``typed_expand``, ``count_dp``, ``count_emit``, and ``block_offsets``
+   only for the scan's counts: the emission places its rows from the DP's
+   channel totals;
+   never ``dp_pipeline_kernel``), and equal the context oracle's match set; a
    lane that declined at 96 MiB would run at the largest power-of-two
    prefix it serves and say so;
 4e''. mapped4: 16 two-word names (``MAPPED4_WORDS``), rn <-> m,
@@ -248,7 +252,10 @@ torch version. Phases:
    against their plain versions too; for the typed lane, and for the list
    step of the forbid, mapped and mapped4 lanes (with the DP instance's
    registers and spill bytes; mapped4's ``count_dp_rows_kernel`` with
-   mapping arrivals), each of the step's kernels alone; the wide kernels'
+   mapping arrivals), each of the step's kernels alone, and for the list
+   step of those and of fuzzy2 ``count_emit`` at its grid's edges
+   (``emit_edge_checks``: 1 candidate, a whole tile of 1,024, 1,025, all,
+   and pairs without a row beside pairs with rows); the wide kernels'
    deep instances at mapped4's shape (``deep_times``: three timings,
    registers, spills, SASS); the same for ``edits(2).substitutions(1)``, typed with 14
    channels behind a k = 2 scan, beside its searches over the whole
@@ -563,11 +570,27 @@ STEP_KEYS = {"typed": TYPED_KEYS, "list": LIST_KEYS, "pipeline": ("dp_pipeline",
 STEP_ERR = {"typed": "typed_step", "list": "list_step", "pipeline": "dp_pipeline"}
 
 
+def step_handoff(tpb, vdp, args, row_counts):
+    """What the typed or the list step (``args``, the arguments of
+    ``dp_pipeline``) hands its emission after the DP's ``row_counts``:
+    (the typed step's offsets, the exclusive scan of the row counts, or the
+    list step's row counts themselves, which end with the rows' and the
+    candidates' totals; the rows' total; the candidates' total)."""
+    if step_kind(vdp, args) == "list":
+        n_rows, M = (int(x) for x in row_counts[-2:].tolist())
+        return row_counts, n_rows, M
+    scan = tpb.block_offsets if row_counts.device.type == "cuda" else tpb.block_offsets_torch
+    offsets = scan(row_counts)
+    n_rows, n_all = (int(x) for x in offsets[-2:].tolist())
+    return offsets, n_rows, n_all - n_rows
+
+
 def step_pieces(vdp, args):
     """The DP and the emission of the typed or the list step for ``args``
     (the arguments of ``dp_pipeline``), each a (wrapper, plain version)
-    pair: ``dp(cands)`` -> (dec, row_counts), ``emit(dec, offsets, cands,
-    n_rows, n_cand)`` -> (rows, tags)."""
+    pair: ``dp(cands)`` -> (dec, row_counts), ``emit(dec, handed, cands,
+    n_rows, n_cand)`` -> (rows, tags), ``handed`` what ``step_handoff``
+    gives."""
     _pos, _words, _win, ids, limit, T, pens, thr, E, dead, statics, variant = args
     n_combo = vdp._combos(E, *statics).shape[1]
     TT = variant.typed
@@ -604,10 +627,9 @@ def compare_step_kernels(tpb, vdp, torch, args, what: str, h0: int = 0) -> dict:
     dec_k, counts_k = dp(cp if M else ck)
     dec_p, counts_p = dp_plain(cp)
     errs[k_dp] = max(int_err(dec_k[:, :M], dec_p[:, :M]), int_err(counts_k, counts_p))
-    offs = tpb.block_offsets_torch(counts_p)
-    n_rows = int(offs[-2])
-    rows_k, tags_k = emit(dec_p, offs, cp, n_rows, M)
-    rows_p, tags_p = emit_plain(dec_p, offs, cp, n_rows, M)
+    handed, n_rows, _m = step_handoff(tpb, vdp, args, counts_p)
+    rows_k, tags_k = emit(dec_p, handed, cp, n_rows, M)
+    rows_p, tags_p = emit_plain(dec_p, handed, cp, n_rows, M)
     torch.cuda.synchronize()
     errs[k_emit] = max(int_err(rows_k, rows_p), int_err(tags_k, tags_p))
     log(f"  {what}: {kind} step E={E} h0={h0}, {ck.items} items, {M} candidates, {n_rows} rows, "
@@ -616,6 +638,53 @@ def compare_step_kernels(tpb, vdp, torch, args, what: str, h0: int = 0) -> dict:
     require(all(v == 0 for v in errs.values()), f"{what}: a kernel of the {kind} step disagrees "
             "with its plain version")
     return errs
+
+
+def emit_edge_checks(ctx, tag: str, args) -> int:
+    """``count_emit`` against ``count_emit_torch`` on one list-step slice
+    (``args``, the arguments of ``dp_pipeline``) at the edges of its grid of
+    (channel, tile) pairs: the plain candidate list cut to its first 1
+    candidate, 1,024 (one whole tile), 1,025 and all of them, each with its
+    plain decisions and row counts, and the whole list with the rows of
+    channel 0 in tile 0 and of the last channel in the last tile taken out
+    (pairs without a row beside pairs with rows). Rows and tags bit for
+    bit; every launch counted. Returns the max_abs_err."""
+    torch, tpb, vdp = ctx.torch, ctx.tpb, ctx.vdp
+    pos, words, win, ids, limit, T, pens, thr, E, dead, statics, variant = args
+    (_dp, dp_plain), (emit, emit_plain) = step_pieces(vdp, args)
+    full = vdp.typed_expand_torch(pos, words, win, E, statics)
+    M_all = int(full.total[0])
+    require(M_all > vdp.TYPED_TILE + 1, f"{tag}: {M_all} candidates, too few for the edges")
+    err, seen = 0, []
+    for M in (1, vdp.TYPED_TILE, vdp.TYPED_TILE + 1, M_all, -1):
+        cut = full._replace(total=torch.full_like(full.total, abs(M) if M > 0 else M_all))
+        dec, counts = dp_plain(cut)
+        m = int(cut.total[0])
+        if M < 0:  # take out two pairs' rows
+            nce, ntile = dec.shape[0], -(-cut.items // vdp.TYPED_TILE)
+            last = (m - 1) // vdp.TYPED_TILE
+            live = dec[:, :m].clone()
+            live[0, :vdp.TYPED_TILE, 1] = -1
+            live[nce - 1, last * vdp.TYPED_TILE:, 1] = -1
+            live[..., 0] = torch.where(live[..., 1] >= 0, live[..., 0], 0)
+            dec, counts = vdp._tiled(live, cut, True)
+            pairs = counts[:nce * ntile].reshape(nce, ntile)[:, :last + 1]
+            require(int((pairs == 0).sum()) >= 2 and int((pairs > 0).sum()) >= 1,
+                    f"{tag}: the cut decisions hold no empty pair beside a full one")
+        n_rows = int(counts[-2])
+        before = tpb.LAUNCHES["count_emit"]
+        rows_k, tags_k = emit(dec, counts, cut, n_rows, m)
+        rows_p, tags_p = emit_plain(dec, counts, cut, n_rows, m)
+        torch.cuda.synchronize()
+        e = max(int_err(rows_k, rows_p), int_err(tags_k, tags_p))
+        require(tpb.LAUNCHES["count_emit"] == before + (n_rows > 0 and dec.is_cuda),
+                f"{tag}: count_emit launched {tpb.LAUNCHES['count_emit'] - before} times")
+        seen.append(f"{m} candidates{' (two pairs emptied)' if M < 0 else ''}: {n_rows} rows, "
+                    f"{vdp.emit_pairs(m, E, T.out_list.shape[1])} pairs, err {e}")
+        err = max(err, e)
+    log(f"  {tag} count_emit at its grid's edges: " + "; ".join(seen))
+    require(err == 0, f"{tag}: count_emit disagrees with its plain version at an edge")
+    return err
 
 
 def compare_pipeline(tpb, vdp, torch, np, engine, text, thr, what, shift=0, want_rows=True,
@@ -870,8 +939,8 @@ def wide_fields(detail: dict, name: str) -> dict:
     the scan, its SASS per symbol."""
     x = detail[name]
     out = {key: x.get(key) for key in ("events_ms", "single_ms", "single_min_ms",
-                                        "profiler_launch_ms", "profiler_events",
-                                        "registers", "spill")}
+                                        "profiler_launch_ms", "profiler_call_ms",
+                                        "profiler_events", "registers", "spill")}
     out["instance"] = detail["instance"] if name == "scan_bits_wide" else None
     loop = x.get("sass_loop")
     if loop:
@@ -1236,13 +1305,17 @@ def three_way_ms(torch, fn, kernel: str, counters, reps: int = 10) -> dict:
     back-to-back calls (ms per call), events around one call after a
     synchronise (median and min of 20), and the profiler's device ms per
     launch of the kernel named ``kernel`` (``launch_ms``) over ``reps`` calls,
-    with the profile's event count beside the launches the wrapper counted
-    (``counters[kernel]``)."""
+    and per call (the mean event of every kernel whose name holds it, summed:
+    a wrapper may launch two), with the profile's event count beside the
+    launches the wrapper counted (``counters[kernel]``)."""
     prof = profile_search(torch, fn, reps, counters)
     single, single_min = single_launch_ms(torch, fn)
     name = kernel + "_kernel"
     return {"events_ms": event_ms(torch, fn, reps), "single_ms": single,
             "single_min_ms": single_min, "profiler_launch_ms": launch_ms(prof, name),
+            # each kernel's mean event, summed: the profiler drops events
+            "profiler_call_ms": sum(ms * prof["reps"] / prof["events"][k]
+                                    for k, ms in prof["by_event"].items() if name in k),
             "profiler_events": event_count(prof, name),
             "launches_counted": prof["counted"].get(kernel, 0),
             "instances": sorted(k[:80] for k in prof["events"] if name in k)}
@@ -1348,6 +1421,13 @@ def row_template(tpb, k: int) -> int:
     return k if k <= 2 else tpb.MAX_K if k <= tpb.MAX_K else 12 if k <= 12 else tpb.MAX_SCAN_K
 
 
+def replay_template(tpb, k: int) -> int:
+    """The row count K of the hit-word instance that replays ``k`` error
+    rows: the scan's up to ``MAX_K``, past it the multiple of 4 >= k (8 ..
+    24; ``replay_rows`` in ``csrc/scan_wide.cu``)."""
+    return row_template(tpb, k) if k <= tpb.MAX_K else max(8, -(-k // 4) * 4)
+
+
 def wide_kernel_detail(ctx, kern, ids, T, halo, instance) -> dict:
     """The wide kernels at one main-path shape (``ids``, tables ``T``): for
     ``scan_bits_wide`` and ``hit_words_wide`` the three times of
@@ -1388,7 +1468,7 @@ def wide_kernel_detail(ctx, kern, ids, T, halo, instance) -> dict:
                            instr * hits * halo, INT_RATE)
     # One instance per k (and Damerau), or, in a library that predates
     # that, one per (LPL, G) too.
-    entry = (ptxas_entry(kern.log, f"hit_words_wide_kernelILi{K}ELb{dam}E")
+    entry = (ptxas_entry(kern.log, f"hit_words_wide_kernelILi{replay_template(tpb, T.k)}ELb{dam}E")
              or ptxas_entry(kern.log, f"hit_words_wide_kernelILi{lpl}ELi{g}ELi{K}ELb{dam}E"))
     if entry is not None:
         hw["registers"], hw["spill"] = entry[1], entry[2]
@@ -1399,9 +1479,10 @@ def wide_kernel_detail(ctx, kern, ids, T, halo, instance) -> dict:
             f"hits, instance {re.sub(r'[^<]*<', '<', x['instances'][0]) if x['instances'] else '?'}: "
             f"events {x['events_ms']:.4f} ms per call over 10, one call after a synchronise "
             f"{x['single_ms']:.4f} (min {x['single_min_ms']:.4f}), profiler "
-            f"{x['profiler_launch_ms']:.4f} ms per launch ({x['profiler_events']} events, "
-            f"{x['launches_counted']} launches); bound {x['bound'][0]:.4g} ms by {x['bound'][1]} "
-            f"({x['bound'][0] / max(x['profiler_launch_ms'], 1e-9):.3f} of the profiler's time); "
+            f"{x['profiler_launch_ms']:.4f} ms per launch, {x['profiler_call_ms']:.4f} per call "
+            f"({x['profiler_events']} events, {x['launches_counted']} calls); bound "
+            f"{x['bound'][0]:.4g} ms by {x['bound'][1]} "
+            f"({x['bound'][0] / max(x['profiler_call_ms'], 1e-9):.3f} of the profiler's time); "
             f"{x.get('registers')} registers, {x.get('spill')} bytes spilled"
             + (f"; SASS main loop {x['sass_loop']['instructions']} instructions for "
                f"{x['sass_loop']['symbols']} symbols = {x['sass_loop']['per_symbol_per_lane']:.1f} "
@@ -1920,6 +2001,15 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
         require(launches["typed_expand"] == launches[pipe_keys[1]],
                 f"{tag}: {launches['typed_expand']} expansion launches for "
                 f"{launches[pipe_keys[1]]} steps, not one each")
+    if pipe_keys == LIST_KEYS:
+        # The list step scans nothing: its emission places its rows from
+        # the DP's channel totals, so block_offsets runs for the scan's
+        # counts alone.
+        scans = launches.get("scan_bits", 0) + launches.get("scan_bits_wide", 0)
+        require(launches["count_emit"] <= launches["count_dp"]
+                and launches["block_offsets"] == scans,
+                f"{tag}: {launches['block_offsets']} block_offsets launches for {scans} scans, "
+                f"{launches['count_emit']} emissions for {launches['count_dp']} steps")
     dev_set = {match_key(m) for m in got}
     require(len(dev_set) == len(got), f"{tag}: the lane repeats a match")
     t0 = time.perf_counter()
@@ -1975,9 +2065,7 @@ def step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
     (dp, dp_plain), (emit, emit_plain) = step_pieces(vdp, args)
     cands = vdp.typed_expand(pos, words, win, E, statics)
     dec, row_counts = dp(cands)
-    offsets = tpb.block_offsets(row_counts)
-    n_rows, M = (int(x) for x in offsets[-2:].tolist())
-    M -= n_rows
+    handed, n_rows, M = step_handoff(tpb, vdp, args, row_counts)
     plain_c = vdp.typed_expand_torch(pos, words, win, E, statics)
     plain_d = dp_plain(plain_c)
     n_combo = vdp._combos(E, *statics).shape[1]
@@ -1996,9 +2084,9 @@ def step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
             bound_ms(8 * M + tables + window + 8 * nce * M + 4 * row_counts.numel(),
                      cells * DP_CELL_INSTR, F32_RATE), None),
         k_emit: (
-            event_ms(torch, lambda: emit(dec, offsets, cands, n_rows, M), 20),
-            event_ms(torch, lambda: emit_plain(plain_d[0], offsets, plain_c, n_rows, M), 3),
-            bound_ms(8 * nce * M + 12 * M + 4 * offsets.numel() + 20 * n_rows, nce * M,
+            event_ms(torch, lambda: emit(dec, handed, cands, n_rows, M), 20),
+            event_ms(torch, lambda: emit_plain(plain_d[0], handed, plain_c, n_rows, M), 3),
+            bound_ms(8 * nce * M + 12 * M + 4 * handed.numel() + 24 * n_rows, nce * M,
                      INT_RATE), None),
     }
     regs = None
@@ -2043,11 +2131,12 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     kind = step_kind(vdp, p_args)
     typed = kind == "typed"
     err_offs, offs_recs = 0, []
-    for counts in vdp.dp_pipeline_counts(*p_args):
+    # The list step hands block_offsets nothing: its emission places its
+    # rows from the DP's channel totals.
+    for counts in vdp.dp_pipeline_counts(*p_args) if kind != "list" else ():
         err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
                                       - tpb.block_offsets_torch(counts).long()).abs().max()))
-        what = ({"typed": "typed step's row", "list": "list step's row"}[kind]
-                if kind != "pipeline" else "count pass's")
+        what = "typed step's row" if kind == "typed" else "count pass's"
         offs_recs.append(offsets_times(tpb, torch, counts, f"{tag}, the {what} counts"))
     log(f"  {tag}: block_offsets over the step's counts, max_abs_err {err_offs}")
     require(err_offs == 0, f"{tag}: block_offsets disagrees on the step's counts")
@@ -2076,6 +2165,7 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
                         + pen_k.numel() * (4 if cnt_k is None else 8),
                         cells * DP_CELL_INSTR, F32_RATE)
     step_recs = regs = None
+    emit_err = emit_edge_checks(ctx, tag, p_args) if kind == "list" else 0
     if kind != "pipeline":
         step_recs, regs = step_times(ctx, tag, p_args, tables, window, cells)
     pipe_ms = event_ms(torch, lambda: vdp.dp_pipeline(*p_args), 10)
@@ -2097,7 +2187,7 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
         f"by {dp_bound[1]}; max_abs_err 0 both")
     return SimpleNamespace(pipe=(pipe_ms, pipe_plain_ms, pipe_bound),
                            dp=(dp_ms, dp_plain_ms, dp_bound), scan_errs=scan_errs,
-                           steps=step_recs, regs=regs,
+                           steps=step_recs, regs=regs, emit_err=emit_err,
                            offsets=offs_recs, device_ms=dev_ms, prof_counted=prof["counted"])
 
 
@@ -2224,8 +2314,11 @@ def deep_kernel_checks(ctx) -> dict:
     with the Damerau rows where the two indices' sum is odd (so that each
     row template runs both ways at every lane count: the K = 12 template
     takes three k, the K = 24 one two); W = 2 and 4 (the other lane counts)
-    at k = 8; a stream without a hit at W = 64, k = 24 with the Damerau
-    rows; and a segment of a stream with halos on both sides, its
+    at k = 8; W = 33 (two limbs a lane) at k = 13 and 24, both ways; a
+    stream without a hit at W = 64, k = 24 with the Damerau rows; streams
+    of 2^18 symbols at W = 33, k = 24 with the Damerau rows and at W = 64,
+    k = 17 without (the K = 24 and two-limb instances at a size a search
+    hands them); and a segment of a stream with halos on both sides, its
     view unaligned, at k = 8 and 13 (the streamed anchors' form). Words are
     k + 8 to k + 24 symbols long, so that a hit is not every position.
     Returns {kernel: max_abs_err} under the deep instances' names."""
@@ -2270,7 +2363,12 @@ def deep_kernel_checks(ctx) -> dict:
             case(W, k, (i + j) % 2 == 1)
     for W in (2, 4):
         case(W, 8, False)
+    for k in (13, 24):
+        for dam in (False, True):
+            case(33, k, dam)
     case(64, 24, True, want_hits=False, zeros=True)
+    case(33, 24, True, n=1 << 18)
+    case(64, 17, False, n=1 << 18)
     case(1, 8, False, segment=True)
     case(9, 13, True, segment=True)
     log(f"  the deep instances' checks {time.perf_counter() - t0:.1f} s")
@@ -4041,7 +4139,7 @@ def compare_step(tpb, vdp, torch, args, hits: int, what: str, prefix: str = "",
     err = float((rows_k.long() - rows_p.long()).abs().max()) if same and rows_k.numel() else 0.0
     n_counts, err_offs = [], 0
     if hits:
-        for counts in vdp.dp_pipeline_counts(*args):
+        for counts in vdp.dp_pipeline_counts(*args) if step_kind(vdp, args) != "list" else ():
             n_counts.append(counts.numel())
             err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
                                           - tpb.block_offsets_torch(counts).long()).abs().max()))
@@ -5146,6 +5244,14 @@ def smoke(torch, start_pool, workers: int) -> int:
     require(typed14.last_stats["backend"] == "device-fuzzy-dp-typed", "typed14 backend")
     lane_times["typed14"] = lane_kernel_times(ctx, "typed edits(2).substitutions(1)", typed14,
                                               corpus, 0.62)
+    # The list step's emission at its grid's edges on fuzzy2's slice 1 too
+    # (forbid2's, mapped's and mapped4's ran in lane_kernel_times).
+    plan2, run2 = lane_inputs(vdp, fuzzy2_e, lane_runs["4c'"].text, 0.62, "4c' fuzzy2")
+    _h2, pos2, words2 = tpb.packed_hits(run2.parts[0].ids_pf, run2.T_scan, run2.halo)
+    lane_errs["count_emit"] = max(
+        [lane_errs["count_emit"], emit_edge_checks(ctx, "4c' fuzzy2", pipeline_args(
+            vdp, np, plan2, run2, run2.parts[0], pos2, words2, 0.62))]
+        + [lane_t.emit_err for lane_t in lane_times.values()])
     for tag, lane_t in lane_times.items():
         if tag == "4e''":  # the deep instances
             for key, e in zip(("scan_bits_wide[k=7..24]", "block_offsets",

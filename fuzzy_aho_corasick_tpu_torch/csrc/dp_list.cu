@@ -70,12 +70,26 @@
 //      beside them in 48 KiB. The DP runs once. Per emission channel (band,
 //      output slot) the group keeps (penalty bits, packed counts), or
 //      (0, -1) for no row, in dec [nce, items], and counts its rows per
-//      (channel, tile of LIST_TILE candidates). The grid is capped and its
-//      blocks stride over the list, whose total only the card knows.
-//   3. block_offsets_kernel over those counts; the host reads the rows' and
-//      the candidates' totals (the step's one host wait);
-//   4. count_emit_kernel, a block per tile, a thread per candidate: per
-//      channel a block scan of the row flags places its rows.
+//      (channel, tile of LIST_TILE candidates) and in all (one atomic a
+//      warp). The grid is capped and its blocks stride over the list, whose
+//      total only the card knows.
+//   3. the host reads the rows' and the candidates' totals, the last two
+//      words of the row counts (the step's one host wait);
+//   4. count_emit_kernel. It was a block of 1,024 threads per tile that
+//      walked the nce channels in turn, each a dependent load, a ballot and
+//      a warp-0 scan between three barriers, behind a block_offsets launch
+//      over the row counts: forbid2's slice had 21 blocks for 132 SMs, and
+//      its rows were five scattered 4-byte stores each. Bytes bound none of
+//      it (a slice moves under 1 MB): the serial rounds and the launches
+//      did. Now a block per (channel, tile) pair, nce x tiles blocks in
+//      (channel, tile) order: a pair without a row leaves after one read;
+//      four candidates a thread, one block scan ranks the rows, which are
+//      staged in shared memory and stored as one stretch (int4 stores where
+//      it aligns). No launch scans the counts: the DP also adds its rows per
+//      channel, so a pair's first row is the totals of the channels before
+//      it and the counts of the tiles before it in its channel, which the
+//      block adds up beside its loads (a look-back over the pairs, and a
+//      block_offsets launch's scan, both measured slower on the H100).
 
 #include <mutex>
 #include <vector>
@@ -89,9 +103,11 @@ using namespace fac_dp;
 constexpr int CL_THREADS = 256;   // the DP with register cells
 constexpr int CR_THREADS = 128;   // the DP for E >= 4: groups of CR_G lanes, a band each
 constexpr int CR_G = 16;          // lanes per candidate, B = 2E + 1 <= 13 of them live
-constexpr int LIST_TILE = 1024;   // candidates per row-count tile, threads of the emission
+constexpr int LIST_TILE = 1024;   // candidates per row-count tile (an emission block's)
 constexpr int MAX_CHANNELS = 128;  // B * MO emission channels a call may have
 constexpr int BLOCKS_PER_SM = 8;  // the capped grid of the DP
+constexpr int EMIT_THREADS = 256;  // threads of an emission block: one (channel, tile) pair
+constexpr int EMIT_PER = LIST_TILE / EMIT_THREADS;  // candidates per emission thread
 static_assert(LIST_TILE % (CL_THREADS / 8) == 0,
               "a block's candidates of one stride lie in one tile");
 static_assert(2 * MAX_E + 1 <= CR_G, "a band per lane of the rows DP's group");
@@ -583,11 +599,11 @@ __device__ __forceinline__ void count_dp_bands(const ListArgs& a, const float* s
 // decides the row from its band of the emission channel at row d (strict
 // <, edit counts ascending: the fewest edits win penalty ties), writes dec
 // and adds the row to its (channel, tile) count: emits() of banded_dp.cuh
-// on the staged slot values.
+// on the staged slot values. Returns the band's rows.
 template <int E>
-__device__ __forceinline__ void band_decide(const ListArgs& a, const Staged& st,
-                                            const float (&pen)[E + 1], const int (&cnt)[E + 1],
-                                            int d, int start, long long m, int b) {
+__device__ __forceinline__ int band_decide(const ListArgs& a, const Staged& st,
+                                           const float (&pen)[E + 1], const int (&cnt)[E + 1],
+                                           int d, int start, long long m, int b) {
   const int MO = a.emit.MO;
   float pb = pen[0];
   int cb = cnt[0];
@@ -600,6 +616,7 @@ __device__ __forceinline__ void band_decide(const ListArgs& a, const Staged& st,
   }
   const int ends_b = start + d + (b - E);
   const bool span = fin(pb) && ends_b <= a.core.limit && ends_b >= start;
+  int rows = 0;
   for (int o = 0; o < MO; ++o) {
     const int ce = b * MO + o;
     bool row = span && st.pat[o] >= 0;
@@ -611,9 +628,12 @@ __device__ __forceinline__ void band_decide(const ListArgs& a, const Staged& st,
     if (row) {
       out = make_int2(__float_as_int(pb), cb);
       atomicAdd(a.row_counts + (long long)ce * a.ntile + m / LIST_TILE, 1);
+      atomicAdd(a.row_counts + (long long)(2 * E + 1) * MO * a.ntile + ce, 1);
+      ++rows;
     }
     a.dec[(long long)ce * a.items + m] = out;
   }
+  return rows;
 }
 
 // Per emission channel ce = (band, slot) of candidate m, the lanes of its
@@ -667,6 +687,22 @@ __device__ __forceinline__ void load_sim_table(const ListArgs& a, float* s_sim) 
   }
 }
 
+// The row counts' layout: rows per (channel, tile) channel-major from
+// word 0, then rows per channel from word nce * ntile, the rows' total and
+// the candidates' total.
+__device__ __forceinline__ long long channel_totals(const ListArgs& a, int nce) {
+  return (long long)nce * a.ntile;
+}
+
+// Adds ``rows`` of each lane of the warp to the rows' total: one atomic a
+// warp.
+__device__ __forceinline__ void add_rows(const ListArgs& a, int nce, int rows) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) rows += __shfl_xor_sync(0xFFFFFFFFu, rows, o);
+  if ((threadIdx.x & 31) == 0 && rows != 0)
+    atomicAdd(a.row_counts + channel_totals(a, nce) + nce, rows);
+}
+
 // One stride of a block: candidates first .. first + groups - 1 run by
 // ``run(m, group, lane of the group)``, then the stride's row counts are
 // added to their tile's.
@@ -675,7 +711,7 @@ __device__ __forceinline__ void strides(const ListArgs& a, int* s_cnt, float* s_
                                         Run run) {
   const int nce = (2 * a.E + 1) * a.emit.MO;
   const int n_cand = __ldg(a.n_cand);
-  if (blockIdx.x == 0 && threadIdx.x == 0) a.row_counts[(long long)nce * a.ntile] = n_cand;
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.row_counts[channel_totals(a, nce) + nce + 1] = n_cand;
   long long first = (long long)blockIdx.x * groups;
   if (first >= n_cand) return;
   load_sim_table(a, s_sim);
@@ -684,9 +720,15 @@ __device__ __forceinline__ void strides(const ListArgs& a, int* s_cnt, float* s_
     __syncthreads();
     run(first);
     __syncthreads();
-    for (int t = threadIdx.x; t < nce; t += blockDim.x)
-      if (s_cnt[t] != 0)
+    int rows = 0;
+    for (int t = threadIdx.x; t < nce; t += blockDim.x) {
+      if (s_cnt[t] != 0) {
         atomicAdd(a.row_counts + (long long)t * a.ntile + first / LIST_TILE, s_cnt[t]);
+        atomicAdd(a.row_counts + channel_totals(a, nce) + t, s_cnt[t]);
+        rows += s_cnt[t];
+      }
+    }
+    add_rows(a, nce, rows);
     __syncthreads();  // s_cnt is zeroed again
   }
 }
@@ -739,8 +781,9 @@ __global__ void __launch_bounds__(CR_THREADS) count_dp_rows_kernel(ListArgs a) {
   int32_t* s_groups = s_mem + a.lead_words;
   float* s_sim = reinterpret_cast<float*>(s_mem + block_words(a, GROUPS));
   const int n_cand = __ldg(a.n_cand);
+  constexpr int B = 2 * E + 1;
   if (blockIdx.x == 0 && threadIdx.x == 0)
-    a.row_counts[(long long)(2 * E + 1) * a.emit.MO * a.ntile] = n_cand;
+    a.row_counts[channel_totals(a, B * a.emit.MO) + B * a.emit.MO + 1] = n_cand;
   if ((long long)blockIdx.x * GROUPS >= n_cand) return;
   load_sim_table(a, s_sim);
   if constexpr (MAPS)
@@ -751,6 +794,7 @@ __global__ void __launch_bounds__(CR_THREADS) count_dp_rows_kernel(ListArgs a) {
   const unsigned gm = 0xFFFFu << (threadIdx.x & 31 & ~(CR_G - 1));
   int32_t* mem = s_groups + grp * a.group_words;
   const long long stride = (long long)gridDim.x * GROUPS;
+  int rows = 0;  // this lane's rows over its group's candidates
   for (long long m = (long long)blockIdx.x * GROUPS + grp; m < n_cand; m += stride) {
     const int f = __ldg(a.cand_field + m);
     const int start = __ldg(a.cand_start + m);
@@ -760,9 +804,10 @@ __global__ void __launch_bounds__(CR_THREADS) count_dp_rows_kernel(ListArgs a) {
     float pen[E + 1];
     int cnt[E + 1];
     count_dp_bands<E, MAPS>(a, s_sim, rowptr, st, f, d, b, gm, pen, cnt);
-    if (b < 2 * E + 1) band_decide<E>(a, st, pen, cnt, d, start, m, b);
+    if (b < 2 * E + 1) rows += band_decide<E>(a, st, pen, cnt, d, start, m, b);
     __syncwarp(gm);  // the group's memory is staged again
   }
+  add_rows(a, (2 * E + 1) * a.emit.MO, rows);  // the warp's groups have all left the loop
 }
 
 struct EmitArgs {
@@ -776,70 +821,91 @@ struct EmitArgs {
   const int32_t* out_list;    // [N, MO]
   int MO, E, n_combo;
   const int2* dec;            // [nce, items]
-  const int32_t* row_offsets; // exclusive scan of row_counts
-  long long ntile;
+  const int32_t* row_counts;  // [nce * ntile + nce + 2], count_dp's
+  long long ntile;            // tiles of the list's bound (the row counts' stride)
+  long long live_tiles;       // tiles of the candidates the host counted
   int32_t* rows;              // [total, 5]
   int32_t* tags;              // [total] or null
 };
 
-// Block t places the rows of candidates t * LIST_TILE .. + LIST_TILE - 1, a
-// thread each, channel by channel; the grid covers the candidates the host
-// counted, or the list's bound.
-__global__ void __launch_bounds__(LIST_TILE) count_emit_kernel(EmitArgs a) {
-  __shared__ int s_warp[LIST_TILE / 32];
-  __shared__ int s_base[MAX_CHANNELS];  // the tile's first row of each channel, -1: none
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_cand = __ldg(a.n_cand);
-  const long long m = (long long)blockIdx.x * LIST_TILE + threadIdx.x;
-  if ((long long)blockIdx.x * LIST_TILE >= n_cand) return;
-  const bool live = m < n_cand;
+// Block p places the rows of the (channel, tile) pair p = channel *
+// live_tiles + tile: EMIT_PER candidates a thread, one block scan of their
+// row flags ranks the rows, which are staged in shared memory in rank
+// order and stored as one stretch (16-byte stores where the stretch
+// aligns), the tags beside them. The pair's first row is the rows of the
+// channels before it (their totals) and of the tiles before it in its
+// channel, added up by the block beside its loads and its ranking.
+__global__ void __launch_bounds__(EMIT_THREADS) count_emit_kernel(EmitArgs a) {
+  __shared__ int s_warp[EMIT_THREADS / 32];
+  __shared__ int s_part[EMIT_THREADS / 32];
+  __shared__ __align__(16) int32_t s_rows[LIST_TILE * 5];
+  __shared__ int32_t s_tags[LIST_TILE];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long p = blockIdx.x;
+  const long long ce = p / a.live_tiles, t = p - ce * a.live_tiles;
   const int nce = (2 * a.E + 1) * a.MO;
-  if ((int)threadIdx.x < nce) {
-    const int32_t* off = a.row_offsets + (long long)threadIdx.x * a.ntile + blockIdx.x;
-    const int base = __ldg(off);
-    s_base[threadIdx.x] = __ldg(off + 1) == base ? -1 : base;
+  const int c = __ldg(a.row_counts + ce * a.ntile + t);
+  if (c == 0) return;  // no row of this channel in the tile (block-uniform)
+  int part = 0;  // this thread's share of the rows before the pair
+  for (long long i = tid; i < t; i += EMIT_THREADS) part += __ldg(a.row_counts + ce * a.ntile + i);
+  for (int i = tid; i < ce; i += EMIT_THREADS) part += __ldg(a.row_counts + nce * a.ntile + i);
+  const int n_cand = __ldg(a.n_cand);
+  const long long m0 = t * LIST_TILE + (long long)tid * EMIT_PER;
+  const int2* dec = a.dec + ce * a.items;
+  int2 dv[EMIT_PER];
+  int mine = 0;
+#pragma unroll
+  for (int q = 0; q < EMIT_PER; ++q) {
+    dv[q] = m0 + q < n_cand ? dec[m0 + q] : make_int2(0, -1);
+    mine += dv[q].y >= 0;
   }
-  int start = 0, d = 0, node = 0, combo = 0;
-  if (live) {
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += up;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xFFFFFFFFu, part, o);
+  if (lane == 31) s_warp[warp] = incl;
+  if (lane == 0) s_part[warp] = part;
+  __syncthreads();  // the warps' row counts and shares of the pair's first row
+  int rank = incl - mine;
+  for (int v = 0; v < warp; ++v) rank += s_warp[v];
+  long long base = 0;
+#pragma unroll
+  for (int v = 0; v < EMIT_THREADS / 32; ++v) base += s_part[v];
+  const int b = (int)(ce / a.MO), o = (int)(ce - (long long)b * a.MO);
+#pragma unroll
+  for (int q = 0; q < EMIT_PER; ++q) {
+    if (dv[q].y < 0) continue;
+    const long long m = m0 + q;
     const int f = __ldg(a.cand_field + m);
-    start = __ldg(a.cand_start + m);
-    combo = __ldg(a.cand_combo + m);
-    d = __ldg(a.depth + f);
-    node = __ldg(a.node + f);
+    int32_t* r = s_rows + rank * 5;
+    r[0] = __ldg(a.cand_start + m);
+    r[1] = dv[q].x;
+    r[2] = __ldg(a.depth + f) + (b - a.E);
+    r[3] = __ldg(a.out_list + (long long)__ldg(a.node + f) * a.MO + o);
+    r[4] = dv[q].y;
+    if (a.tags != nullptr) s_tags[rank] = (int)ce * a.n_combo + __ldg(a.cand_combo + m);
+    ++rank;
   }
   __syncthreads();
-  for (int ce = 0; ce < nce; ++ce) {
-    const int base = s_base[ce];
-    if (base < 0) continue;  // no row of this channel in the tile
-    const int2 dv = live ? a.dec[(long long)ce * a.items + m] : make_int2(0, -1);
-    const bool row = dv.y >= 0;
-    const unsigned bal = __ballot_sync(0xFFFFFFFFu, row);
-    if (lane == 0) s_warp[warp] = __popc(bal);
-    __syncthreads();
-    if (warp == 0) {
-      const int w = s_warp[lane];
-      int incl = w;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-        if (lane >= o) incl += up;
-      }
-      s_warp[lane] = incl - w;  // rows of the warps before
-    }
-    __syncthreads();
-    if (row) {
-      const long long r = base + s_warp[warp] + __popc(bal & ((1u << lane) - 1u));
-      const int b = ce / a.MO, o = ce - b * a.MO;
-      int32_t* out = a.rows + r * 5;
-      out[0] = start;
-      out[1] = dv.x;
-      out[2] = d + (b - a.E);
-      out[3] = __ldg(a.out_list + (long long)node * a.MO + o);
-      out[4] = dv.y;
-      if (a.tags != nullptr) a.tags[r] = ce * a.n_combo + combo;
-    }
-    __syncthreads();  // s_warp is written again
+  // The pair's rows [base, base + c) are rows[5 base .. 5 (base + c)): the
+  // words before the first 16-byte boundary one by one, then int4 stores.
+  int32_t* dst = a.rows + 5 * base;
+  const int words = 5 * c;
+  const int head = min(words, (int)((4 - ((5 * base) & 3)) & 3));
+  if (tid < head) dst[tid] = s_rows[tid];
+  const int nvec = (words - head) / 4;
+  for (int v = tid; v < nvec; v += EMIT_THREADS) {
+    const int i = head + 4 * v;
+    reinterpret_cast<int4*>(dst + i)[0] =
+        make_int4(s_rows[i], s_rows[i + 1], s_rows[i + 2], s_rows[i + 3]);
   }
+  for (int i = head + 4 * nvec + tid; i < words; i += EMIT_THREADS) dst[i] = s_rows[i];
+  if (a.tags != nullptr)
+    for (int i = tid; i < c; i += EMIT_THREADS) a.tags[base + i] = s_tags[i];
 }
 
 // Kernels whose shared memory passes 48 KiB must be allowed it.
@@ -917,8 +983,9 @@ cudaError_t launch_dp(K k, ListArgs a, int threads, int groups, cudaStream_t s,
 
 extern "C" {
 
-// Candidates per row-count tile of the list step, and threads per block of
-// its emission: the callers size row_counts (ntile = ceil(items / tile)).
+// Candidates per row-count tile of the list step (a block of its emission
+// takes one tile of one channel): the callers size row_counts (ntile =
+// ceil(items / tile)).
 int fac_count_tile() { return LIST_TILE; }
 
 // The count-channel DP over a candidate list and its decisions.
@@ -926,9 +993,10 @@ int fac_count_tile() { return LIST_TILE; }
 // live; the DP tables, forbid and the map_* tables as fac_banded_dp takes
 // them; node: int32 [F]; out_list: int32 [N, MO]; pat_len, pat_weight: f32
 // [P]; dec: int32 [(2E+1) MO, items, 2] (columns past n_cand untouched);
-// row_counts: int32 [(2E+1) MO * ntile + 1], ntile = ceil(items /
-// fac_count_tile()): zeroed, then the rows per (channel, tile) are added,
-// and n_cand written last. Returns the launch's cudaError_t.
+// row_counts: int32 [nce * ntile + nce + 2], nce = (2E+1) MO, ntile =
+// ceil(items / fac_count_tile()): zeroed, then the rows per (channel, tile),
+// per channel after them and in all are added, and n_cand written last.
+// Returns the launch's cudaError_t.
 int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_cand,
                  long long items, const void* ids, int ids_u8, long long npad, long long limit,
                  const void* path_cls, const void* path_node, const void* depth,
@@ -989,7 +1057,7 @@ int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_c
   a.ntile = ntile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc = cudaMemsetAsync(row_counts, 0,
-                                   sizeof(int32_t) * ((2 * E + 1) * MO * ntile + 1), s);
+                                   sizeof(int32_t) * ((2 * E + 1) * MO * (ntile + 1) + 2), s);
   if (rc != cudaSuccess) return (int)rc;
   const int cells = (2 * E + 1) * (E + 1);
   const int staged = staged_words(Lmax, E, a.deadend, MO);
@@ -1025,21 +1093,24 @@ int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_c
 
 // The list step's emission. The candidate list (cand_combo too) and n_cand
 // as fac_count_dp read them; depth, node: int32 [F]; out_list: int32 [N,
-// MO]; dec as fac_count_dp wrote it; row_offsets: the exclusive scan of its
-// row_counts; rows: int32 [total, 5]; tags: int32 [total] or null. Returns
-// the launch's cudaError_t. live: the candidates' total, which the host has
-// read; the grid covers its tiles.
+// MO]; dec and row_counts as fac_count_dp wrote them; rows: int32 [total,
+// 5], 16-byte aligned; tags: int32 [total] or null. live: the candidates'
+// total, which the host has read; the grid is a block per (channel, tile
+// of them), (2E+1) MO x ceil(live / fac_count_tile()) blocks. Returns the
+// launch's cudaError_t.
 int fac_count_emit(const void* cand_field, const void* cand_start, const void* cand_combo,
                    const void* n_cand, long long items, long long live, const void* depth,
                    const void* node, const void* out_list, int MO, int E, int n_combo,
-                   const void* dec, const void* row_offsets, long long ntile, void* rows,
-                   void* tags, void* stream) {
+                   const void* dec, const void* row_counts, long long ntile,
+                   void* rows, void* tags, void* stream) {
   if (items < 1 || MO < 1 || E < 1 || E > MAX_E || n_combo < 1 ||
       (2 * E + 1) * MO > MAX_CHANNELS || ntile != (items + LIST_TILE - 1) / LIST_TILE ||
-      ntile > 0x7FFFFFFFll || rows == nullptr || live < 0 || live > items) {
+      ntile > 0x7FFFFFFFll || rows == nullptr || live < 0 || live > items ||
+      reinterpret_cast<uintptr_t>(rows) % 16 != 0 || row_counts == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long blocks = (live + LIST_TILE - 1) / LIST_TILE;
+  const long long live_tiles = (live + LIST_TILE - 1) / LIST_TILE;
+  const long long blocks = (2 * E + 1) * MO * live_tiles;
   if (blocks == 0) return (int)cudaSuccess;
   EmitArgs a;
   a.cand_field = static_cast<const int32_t*>(cand_field);
@@ -1054,11 +1125,12 @@ int fac_count_emit(const void* cand_field, const void* cand_start, const void* c
   a.E = E;
   a.n_combo = n_combo;
   a.dec = static_cast<const int2*>(dec);
-  a.row_offsets = static_cast<const int32_t*>(row_offsets);
+  a.row_counts = static_cast<const int32_t*>(row_counts);
   a.ntile = ntile;
+  a.live_tiles = live_tiles;
   a.rows = static_cast<int32_t*>(rows);
   a.tags = static_cast<int32_t*>(tags);
-  count_emit_kernel<<<(unsigned)blocks, LIST_TILE, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  count_emit_kernel<<<(unsigned)blocks, EMIT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -62,7 +62,9 @@ struct Nfa {
   }
 
   // Advance one symbol whose limb words are ``row``; out[w] = OR over rows
-  // of (new & match) for limb w.
+  // of (new & match) for limb w. Without MATCH only the state advances
+  // (``s_match`` and ``out`` are not read).
+  template <bool MATCH = true>
   __device__ __forceinline__ void step_row(const uint64_t* row, const uint64_t* st,
                                            const uint64_t* nl, const uint64_t* s_match,
                                            int k, uint64_t* out, int stride = W) {
@@ -73,7 +75,8 @@ struct Nfa {
       uint64_t x = (old0 << 1) | st[w];  // ((prev[d-1] << 1) | starts), d = 1
       const uint64_t n0 = x & bc;
       r[0][w] = n0;
-      uint64_t acc = n0 & s_match[w];
+      uint64_t acc = 0ull;
+      if constexpr (MATCH) acc = n0 & s_match[w];
       uint64_t bcn = 0;
       if constexpr (DAM) bcn = (bc >> 1) & nl[w];
       uint64_t prev_dm1 = old0, new_dm1 = n0;
@@ -88,13 +91,13 @@ struct Nfa {
           }
           const uint64_t nd = ((old << 1) & bc) | (carry << 1) | prev_dm1 | st[w];
           r[d][w] = nd;
-          acc |= nd & s_match[d * stride + w];
+          if constexpr (MATCH) acc |= nd & s_match[d * stride + w];
           x = (old << 1) | st[w];
           prev_dm1 = old;
           new_dm1 = nd;
         }
       }
-      out[w] = acc;
+      if constexpr (MATCH) out[w] = acc;
     }
   }
 

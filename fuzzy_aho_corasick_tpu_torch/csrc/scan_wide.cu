@@ -85,10 +85,32 @@
 // loads, then their steps. The batch is 12, so that the halos of the
 // exact-wide and many1k dictionaries (11 and 12) take one batch, in 64
 // registers without spills (16 spilled, 8 took two batches: both measured
-// slower). One instance per k (0, 1, 2, the masked 3..6, 7..12 and 13..24)
-// with and without the Damerau rows; past k = 6 a replay reads its match and
-// init rows through the read-only cache instead of holding K + 1 of each in
-// registers beside its (K + 1) + K state words.
+// slower). One instance per k (0, 1, 2 and the masked 3..6) with and
+// without the Damerau rows.
+//
+// The deep replay, k = 7..24 (row templates K = 8, 12, 16, 20 and 24, the
+// multiple of 4 >= k, with and without the Damerau rows; a thread per limb,
+// so one design at every W: one limb a lane, or two past W = 32, is the
+// scan's geometry, not the replay's). It replaces the form above at those
+// k, which read the K + 1 match and init rows from
+// device memory at every symbol (ptxas kept the loads: each unrolled step's
+// word may be the last) and ran in the scan's geometry: a block per 16,384
+// symbols, so at mapped4's shape (7,833 hits in 1,152 blocks, W = 6, k = 8)
+// a block held about 42 items for its 128 threads, 150 registers allowed 3
+// blocks an SM, and the hits' clusters set the waves. What bounds the
+// function is the integer work of the replays, halo x (k + 1) row steps
+// of about 6 operations per (hit, limb); what bounded the kernel was the
+// latency of that serial chain, run by few threads at once. So the deep
+// replay is two launches. hit_words_wide_kernel_positions writes every
+// block's positions, as the block above does. hit_words_wide_kernel<K, D>
+// then gives a thread to each (hit, limb) of the whole hit list, a grid of
+// resident blocks striding over it, so the clusters spread over the card:
+// one wave at mapped4. A thread steps all K + 1 rows of its template
+// (K = replay_rows(k), at most 3 rows past k) without a branch per row
+// (the rows past k start at zero and no row at or below k reads them),
+// the full batches of its halo without a test per symbol, each batch's
+// loads issued before the previous batch's steps, and reads its match rows
+// once, after the replay.
 //
 // An instance that needs more than 48 KiB of dynamic shared memory (the
 // k >= 1 scan, the k = 0 scan at large A x W) is allowed its largest need
@@ -108,6 +130,7 @@ constexpr int WIDE_MAX_W = 64;
 constexpr int SMEM_DEFAULT = 48 * 1024;
 constexpr int G0 = 8;                                     // lanes per k = 0 chain
 constexpr int REPLAY_BATCH = 12;                          // symbols a replay loads at once
+constexpr int DEEP_BATCH = 8;                             // the same, double-buffered, past k = 6
 constexpr int WIDE_HITS_THREADS = 128;                    // threads of a hit-word block
 constexpr int HIT_CACHE = 512;                            // positions a block keeps in smem
 constexpr int DEEP_THREADS = 256;                         // threads of a deep block past 8 lanes
@@ -353,19 +376,19 @@ scan_bits_wide_kernel(const uint8_t* __restrict__ ids, long long n, Tables tb, i
     scan_chains<LPL, G, K, DAM>(ids, n, tb, A, W, k, halo, bits, block_counts);
 }
 
-// The match word of limb w at hit position p: the NFA replayed over
-// ids[p - halo + 1 .. p] from the fresh state (reads outside the stream are
-// the dead symbol 0, symbols >= A a zero row), each thread issuing
+// The match word of limb w at hit position p (k <= 6): the NFA replayed
+// over ids[p - halo + 1 .. p] from the fresh state (reads outside the stream
+// are the dead symbol 0, symbols >= A a zero row), each thread issuing
 // REPLAY_BATCH symbol loads, then their table loads, then their steps. The
-// limb's init and match rows are ``in`` and ``mt``, ``stride`` apart.
+// limb's init and match rows are ``in`` and ``mt``, in registers.
 template <int K, bool DAM>
 __device__ __forceinline__ uint64_t replay_limb(const uint8_t* __restrict__ ids, long long n,
                                                 const Tables& tb, int A, int W, int w, int k,
                                                 int halo, long long p, uint64_t st,
                                                 uint64_t nl, const uint64_t* in,
-                                                const uint64_t* mt, int stride) {
+                                                const uint64_t* mt) {
   Nfa<1, K, DAM> nfa;
-  nfa.reset(in, k, stride);
+  nfa.reset(in, k);
   uint64_t out = 0ull;
   const long long q0 = p - halo + 1;
   for (int j0 = 0; j0 < halo; j0 += REPLAY_BATCH) {
@@ -377,54 +400,131 @@ __device__ __forceinline__ uint64_t replay_limb(const uint8_t* __restrict__ ids,
     }
 #pragma unroll
     for (int t = 0; t < REPLAY_BATCH; ++t)
-      if (j0 + t < halo) nfa.step_row(bc + t, &st, &nl, mt, k, &out, stride);
+      if (j0 + t < halo) nfa.step_row(bc + t, &st, &nl, mt, k, &out);
   }
   return out;
 }
 
-// Block b writes the positions of its set bits to pos[offsets[b] ..) in
-// ascending order (the first HIT_CACHE of them to shared memory too), then
-// its threads replay the NFA over the ``halo`` symbols that end at each hit,
-// a thread per (hit, limb). At k <= 1 the registers are held to 64, so that
-// 8 blocks fit an SM. Up to k = 6 a thread holds its limb's K + 1 match and
-// init words in registers; past it (K = 12, 24) it reads them from the
-// tables, and only the live rows (d <= k).
-template <int K, bool DAM>
-__global__ void __launch_bounds__(WIDE_HITS_THREADS, K <= 1 ? 8 : 1)
-hit_words_wide_kernel(const uint8_t* __restrict__ ids, long long n,
-                      const uint32_t* __restrict__ bits, const int* __restrict__ offsets,
-                      Tables tb, int A, int W, int k, int halo, long long* pos,
-                      long long* __restrict__ words) {
+// The positions step of the deep replay (k = 7..24), its first launch:
+// block b writes the positions of its set bits to pos[offsets[b] ..) in
+// ascending order.
+__global__ void __launch_bounds__(WIDE_HITS_THREADS)
+hit_words_wide_kernel_positions(const uint32_t* __restrict__ bits,
+                                const int* __restrict__ offsets, long long* pos) {
   __shared__ int s_warp[WIDE_HITS_THREADS / 32];
-  __shared__ long long s_pos[HIT_CACHE];
-
   BlockWords<WIDE_HITS_THREADS> mine;
   mine.load(bits);  // in flight beside the offsets
   const int base = offsets[blockIdx.x], next = offsets[blockIdx.x + 1];
   if (next == base) return;  // no hit in this block
-  mine.positions(base, pos, s_warp, s_pos, HIT_CACHE);
+  mine.positions(base, pos, s_warp);
+}
 
-  const int items = (next - base) * W;  // at most BLOCK_SYMS x WIDE_MAX_W
-  for (int i = threadIdx.x; i < items; i += WIDE_HITS_THREADS) {
-    const int h = i / W, w = i - h * W, r = base + h;
-    const long long p = h < HIT_CACHE ? s_pos[h] : pos[r];
-    uint64_t st = __ldg(tb.starts + w), nl = ~0ull, out;
+// The deep replay's second launch: a thread per (hit i / W, limb i % W)
+// over the whole hit list (offsets[nblocks] hits, read on the card), the
+// threads of a grid of resident blocks striding over it. Each replays the
+// limb's rows over the halo symbols ending at its hit, in registers, from
+// the init words. All K + 1 rows (and K Damerau rows) are stepped, not the
+// call's k + 1: the rows past k start at zero and no row at or below k reads
+// them, and stepping them costs less than a branch per row and step. Only
+// the last symbol's match words count, so they are read once, after the
+// replay, for the rows up to k. The symbols come in batches of DEEP_BATCH,
+// the next batch's loads in flight while a batch is stepped; the batches
+// that the halo fills are stepped without a test per symbol.
+template <int K, bool DAM>
+__device__ __forceinline__ void replay_deep(const uint8_t* __restrict__ ids, long long n,
+                                            const Tables& tb, int A, int W, int k, int halo,
+                                            long long hits, const long long* __restrict__ pos,
+                                            long long* __restrict__ words) {
+  const long long items = hits * W;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < items; i += stride) {
+    const long long h = i / W;
+    const int w = (int)(i - h * W);
+    const long long q0 = __ldg(pos + h) - halo + 1;
+    uint64_t st = __ldg(tb.starts + w), nl = ~0ull;
     if constexpr (DAM) nl = __ldg(tb.notlast + w);
-    if constexpr (K <= MAX_K) {
+    Nfa<1, K, DAM> nfa;
+    nfa.reset(tb.init + w, k, W);
+    // The table words of symbols j0 .. j0 + DEEP_BATCH - 1 of the window
+    // (zero past the halo): each batch's loads are issued before the
+    // previous batch's steps.
+    auto load = [&](int j0, uint64_t* bc) {
+#pragma unroll
+      for (int t = 0; t < DEEP_BATCH; ++t) {
+        const int sym = j0 + t < halo ? sym_at(ids, n, q0 + j0 + t) : 0;
+        bc[t] = sym < A ? __ldg(tb.tbl + (size_t)sym * W + w) : 0ull;
+      }
+    };
+    uint64_t bc[DEEP_BATCH], next[DEEP_BATCH];
+    load(0, bc);
+    for (int j0 = 0;; j0 += DEEP_BATCH) {
+      const bool more = j0 + DEEP_BATCH < halo;
+      if (more) load(j0 + DEEP_BATCH, next);
+      if (j0 + DEEP_BATCH <= halo) {  // a full batch: no test per symbol
+#pragma unroll
+        for (int t = 0; t < DEEP_BATCH; ++t)
+          nfa.template step_row<false>(bc + t, &st, &nl, nullptr, K, nullptr);
+      } else {
+#pragma unroll
+        for (int t = 0; t < DEEP_BATCH; ++t)
+          if (j0 + t < halo) nfa.template step_row<false>(bc + t, &st, &nl, nullptr, K, nullptr);
+      }
+      if (!more) break;
+#pragma unroll
+      for (int t = 0; t < DEEP_BATCH; ++t) bc[t] = next[t];
+    }
+    uint64_t out = 0ull;
+#pragma unroll
+    for (int d = 0; d <= K; ++d)
+      if (d <= k) out |= nfa.r[d][0] & __ldg(tb.match + d * W + w);
+    *reinterpret_cast<longlong2*>(words + i * 2) =
+        make_longlong2((long long)(out & 0xFFFFFFFFull), (long long)(out >> 32));
+  }
+}
+
+// Up to k = 6, block b writes the positions of its set bits to
+// pos[offsets[b] ..) in ascending order (the first HIT_CACHE of them to
+// shared memory too), then its threads replay the NFA over the ``halo``
+// symbols that end at each hit, a thread per (hit, limb). At k <= 1 the
+// registers are held to 64, so that 8 blocks fit an SM; a thread holds its
+// limb's K + 1 match and init words in registers. Past it (K = 8 .. 24) the
+// kernel is the deep replay's second launch (replay_deep), behind
+// hit_words_wide_kernel_positions.
+template <int K, bool DAM>
+__global__ void __launch_bounds__(WIDE_HITS_THREADS, K <= 1 ? 8 : K <= MAX_K ? 1 : K <= 16 ? 4 : 2)
+hit_words_wide_kernel(const uint8_t* __restrict__ ids, long long n,
+                      const uint32_t* __restrict__ bits, const int* __restrict__ offsets,
+                      long long nblocks, Tables tb, int A, int W, int k, int halo,
+                      long long* pos, long long* __restrict__ words) {
+  if constexpr (K > MAX_K) {
+    replay_deep<K, DAM>(ids, n, tb, A, W, k, halo, __ldg(offsets + nblocks), pos, words);
+  } else {
+    __shared__ int s_warp[WIDE_HITS_THREADS / 32];
+    __shared__ long long s_pos[HIT_CACHE];
+
+    BlockWords<WIDE_HITS_THREADS> mine;
+    mine.load(bits);  // in flight beside the offsets
+    const int base = offsets[blockIdx.x], next = offsets[blockIdx.x + 1];
+    if (next == base) return;  // no hit in this block
+    mine.positions(base, pos, s_warp, s_pos, HIT_CACHE);
+
+    const int items = (next - base) * W;  // at most BLOCK_SYMS x WIDE_MAX_W
+    for (int i = threadIdx.x; i < items; i += WIDE_HITS_THREADS) {
+      const int h = i / W, w = i - h * W, r = base + h;
+      const long long p = h < HIT_CACHE ? s_pos[h] : pos[r];
+      uint64_t st = __ldg(tb.starts + w), nl = ~0ull;
+      if constexpr (DAM) nl = __ldg(tb.notlast + w);
       uint64_t mt[K + 1], in[K + 1];
 #pragma unroll
       for (int d = 0; d <= K; ++d) {  // rows past the call's k read as zero
         mt[d] = d <= k ? __ldg(tb.match + d * W + w) : 0ull;
         in[d] = d <= k ? __ldg(tb.init + d * W + w) : 0ull;
       }
-      out = replay_limb<K, DAM>(ids, n, tb, A, W, w, k, halo, p, st, nl, in, mt, 1);
-    } else {
-      out = replay_limb<K, DAM>(ids, n, tb, A, W, w, k, halo, p, st, nl, tb.init + w,
-                                tb.match + w, W);
+      const uint64_t out = replay_limb<K, DAM>(ids, n, tb, A, W, w, k, halo, p, st, nl, in, mt);
+      long long* dst = words + (long long)r * (2 * W) + 2 * w;
+      dst[0] = (long long)(out & 0xFFFFFFFFull);
+      dst[1] = (long long)(out >> 32);
     }
-    long long* dst = words + (long long)r * (2 * W) + 2 * w;
-    dst[0] = (long long)(out & 0xFFFFFFFFull);
-    dst[1] = (long long)(out >> 32);
   }
 }
 
@@ -464,10 +564,37 @@ cudaError_t launch_scan(const Call& c, int W) {
   return cudaGetLastError();
 }
 
+// Blocks of hit_words_wide_kernel<K, DAM> (WIDE_HITS_THREADS threads) the
+// card holds at once; the query runs once per instance.
+template <int K, bool DAM>
+long long resident_blocks() {
+  static const long long blocks = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hit_words_wide_kernel<K, DAM>,
+                                                      WIDE_HITS_THREADS, 0) != cudaSuccess)
+      return 0ll;
+    return (long long)sms * per_sm;
+  }();
+  return blocks;
+}
+
 template <int K, bool DAM>
 cudaError_t launch_hits(const Call& c, int W) {
-  hit_words_wide_kernel<K, DAM><<<(unsigned)c.nblocks, WIDE_HITS_THREADS, 0, c.stream>>>(
-      c.ids, c.n, c.bits, c.counts, c.tb, c.A, W, c.k, c.halo, c.pos, c.words);
+  auto kern = hit_words_wide_kernel<K, DAM>;
+  unsigned grid = (unsigned)c.nblocks;
+  if constexpr (K > MAX_K) {
+    hit_words_wide_kernel_positions<<<grid, WIDE_HITS_THREADS, 0, c.stream>>>(c.bits, c.counts,
+                                                                             c.pos);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const long long resident = resident_blocks<K, DAM>();
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+    grid = (unsigned)resident;
+  }
+  kern<<<grid, WIDE_HITS_THREADS, 0, c.stream>>>(c.ids, c.n, c.bits, c.counts, c.nblocks, c.tb,
+                                                 c.A, W, c.k, c.halo, c.pos, c.words);
   return cudaGetLastError();
 }
 
@@ -490,8 +617,26 @@ cudaError_t launch_fuzzy(const Call& c, int W) {
   }
 }
 
+// The deep replay's row template for k = 7..24: the multiple of 4 >= k
+// (8 .. 24), so that a replay steps at most 3 rows past k.
+constexpr int replay_rows(int k) { return k <= 8 ? 8 : (k + 3) / 4 * 4; }
+
+template <int K>
+cudaError_t launch_replay(const Call& c, int W) {
+  return c.tb.notlast != nullptr ? launch_hits<K, true>(c, W) : launch_hits<K, false>(c, W);
+}
+
 template <int LPL, int G>
 cudaError_t launch_deep(const Call& c, int W) {
+  if (c.hits) {
+    switch (replay_rows(c.k)) {
+      case 8: return launch_replay<8>(c, W);
+      case 12: return launch_replay<12>(c, W);
+      case 16: return launch_replay<16>(c, W);
+      case 20: return launch_replay<20>(c, W);
+      default: return launch_replay<MAX_KW>(c, W);
+    }
+  }
   return c.k <= 12 ? launch_k<LPL, G, 12>(c, W) : launch_k<LPL, G, MAX_KW>(c, W);
 }
 
@@ -499,7 +644,8 @@ cudaError_t launch_deep(const Call& c, int W) {
 // ceil(W / G0) limbs; at k = 1..6 (2, 8) for W <= 16, (4, 8) for W <= 32,
 // else (4, 16); at k = 7..24 one limb a lane, G the power of two >= W, up to
 // W = 32, else (2, 32). ops/packed_bitap.py::wide_scan_instance mirrors it.
-// The hit-word kernel has one instance per k.
+// The hit-word kernel has one instance per k up to 6, and past it one per
+// replay_rows(k).
 struct Shape {
   int lpl, g;
 };

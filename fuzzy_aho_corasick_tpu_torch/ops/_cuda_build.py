@@ -126,7 +126,7 @@ _SIGNATURES = {
     + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3
     + [_c_void_p] * 3 + [_c_int] + [_c_void_p] * 2 + [_c_ll, _c_void_p],
     # cand_field, cand_start, cand_combo, n_cand, items, live, depth, node,
-    # out_list, MO, E, n_combo, dec, row_offsets, ntile, rows, tags, stream
+    # out_list, MO, E, n_combo, dec, row_counts, ntile, rows, tags, stream
     "fac_count_emit": [_c_void_p] * 4 + [_c_ll] * 2 + [_c_void_p] * 3 + [_c_int] * 3
     + [_c_void_p] * 2 + [_c_ll] + [_c_void_p] * 3,
     # ids, sym_bytes, n_starts, n_read, folded, N, C, L, write, counts, keep,

@@ -34,7 +34,8 @@ the steps' plain version). At E = 1 without forbidden edit types or
 mappings that step is one kernel, ``dp_pipeline_kernel``
 (``csrc/dp_pipeline.cu``, a count and a write pass); every other
 count-channel call runs the list step (:func:`typed_expand`,
-:func:`count_dp`, ``block_offsets``, :func:`count_emit`; ``csrc/dp_list.cu``),
+:func:`count_dp`, one read of two totals, :func:`count_emit`;
+``csrc/dp_list.cu``),
 which compacts the candidates once and runs each candidate's DP once, a
 group of lanes per candidate. :func:`banded_dp` stays as the entry point
 that holds the DP body of ``csrc/banded_dp.cuh`` against its plain version
@@ -1672,11 +1673,13 @@ def typed_dp_torch(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties
     return _tiled(typed_decisions_torch(pen, cf, cs, T, TT, limit, thr, E), cands)
 
 
-def _tiled(live, cands: TypedCands):
+def _tiled(live, cands: TypedCands, totals: bool = False):
     """(dec int32 [nce, items, 2], row_counts int32 [nce * ntile + 1]) of the
     decisions ``live`` [nce, total, 2] of the list's candidates: (0, -1) past
     the total, the rows of each (channel, tile of ``TYPED_TILE``
-    candidates) channel-major, and the total last."""
+    candidates) channel-major, and the total last; with ``totals`` [nce *
+    ntile + nce + 2]: after the tiles' counts the rows of each channel and
+    the rows' total, then the candidates'."""
     M = live.shape[1]
     nce, ntile = live.shape[0], _typed_tiles(cands.items)
     dec = torch.zeros((nce, cands.items, 2), dtype=torch.int32, device=live.device)
@@ -1685,7 +1688,9 @@ def _tiled(live, cands: TypedCands):
     flags = torch.zeros((nce, ntile * TYPED_TILE), dtype=torch.int32, device=live.device)
     flags[:, :M] = (live[..., 1] >= 0).to(torch.int32)
     counts = flags.reshape(nce, ntile, TYPED_TILE).sum(dim=2).reshape(-1)
-    return dec, torch.cat([counts, cands.total.to(live.device)]).to(torch.int32)
+    per_channel = counts.reshape(nce, ntile).sum(dim=1)
+    sums = [per_channel, counts.sum().reshape(1)] if totals else []
+    return dec, torch.cat([counts] + sums + [cands.total.to(live.device)]).to(torch.int32)
 
 
 def typed_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr, E: int,
@@ -1788,7 +1793,7 @@ def _list_kernels():
 
 def _list_step(E: int, variant: DpVariant) -> bool:
     """Whether :func:`dp_pipeline` runs the count-channel list step
-    (:func:`typed_expand`, :func:`count_dp`, ``block_offsets``,
+    (:func:`typed_expand`, :func:`count_dp`, one read of two totals,
     :func:`count_emit`): every count-channel call with E >= 2, forbidden
     edit types or mapping arrivals. E = 1 without either stays on
     ``dp_pipeline_kernel``."""
@@ -1800,15 +1805,16 @@ def count_dp_torch(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties
                    E: int, deadend: bool = False, forbid=None,
                    maps: Optional[MapTables] = None):
     """Plain version of ``count_dp_kernel`` (and ``count_dp_rows_kernel``):
-    (dec int32 [B * MO, items, 2], row_counts int32 [B * MO * ntile + 1]).
-    ``dec`` holds :func:`count_decisions_torch` of the first ``total``
+    (dec int32 [B * MO, items, 2], row_counts int32 [B * MO * (ntile + 1) +
+    2]). ``dec`` holds :func:`count_decisions_torch` of the first ``total``
     candidates (of :func:`banded_dp_torch`'s channels) and (0, -1) past
     them; ``row_counts`` the rows of each (channel, tile of ``TYPED_TILE``
-    candidates), channel-major, and ``total`` last."""
+    candidates), channel-major, the rows of each channel, then the rows'
+    total and ``total``: the two values the host reads."""
     M = int(cands.total[0])
     cf, cs = cands.field[:M], cands.start[:M]
     pen, cnt = banded_dp_torch(cf, cs, ids, limit, T, pens, E, deadend, forbid, maps)
-    return _tiled(count_decisions_torch(pen, cnt, cf, cs, T, limit, thr, E), cands)
+    return _tiled(count_decisions_torch(pen, cnt, cf, cs, T, limit, thr, E), cands, True)
 
 
 def count_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr, E: int,
@@ -1828,7 +1834,7 @@ def count_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
     MO = T.out_list.shape[1]
     nce, ntile = (2 * E + 1) * MO, _typed_tiles(cands.items)
     dec = torch.empty((nce, cands.items, 2), dtype=torch.int32, device=dev)
-    row_counts = torch.empty(nce * ntile + 1, dtype=torch.int32, device=dev)
+    row_counts = torch.empty(nce * (ntile + 1) + 2, dtype=torch.int32, device=dev)
     kern = _list_kernels()
     with pb.on_device(dev):
         rc = kern.lib.fac_count_dp(
@@ -1846,33 +1852,34 @@ def count_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
     return dec, row_counts
 
 
-def count_emit_torch(dec, row_offsets, cands: TypedCands, T: DpTables, E: int, n_combo: int,
+def count_emit_torch(dec, row_counts, cands: TypedCands, T: DpTables, E: int, n_combo: int,
                      n_rows: int, tags: bool = False):
     """Plain version of ``count_emit_kernel``: (rows int32 [n_rows, 5], tags
     int32 [n_rows] or None), the decisions of the first ``total``
-    candidates in (channel, candidate) order, which ``row_offsets`` (the
-    exclusive scan of ``count_dp``'s row_counts) also gives; a row's packed
-    counts are its decision's."""
+    candidates in (channel, candidate) order, whose row count ``row_counts``
+    (``count_dp``'s) ends with; a row's packed counts are its decision's."""
     M = int(cands.total[0])
     combo = cands.combo[:M] if tags else None
     out = _placed_rows(dec[:, :M], cands.field[:M], cands.start[:M], T, E, lambda y: y, combo,
                        n_combo)
     rows, row_tags = out if tags else (out, None)
-    if rows.shape[0] != n_rows or int(row_offsets[-2]) != n_rows:
-        raise ValueError(f"{rows.shape[0]} rows decided, offsets give {n_rows}")
+    if rows.shape[0] != n_rows or int(row_counts[-2]) != n_rows:
+        raise ValueError(f"{rows.shape[0]} rows decided, the row counts give "
+                         f"{int(row_counts[-2])}, {n_rows} asked for")
     return rows, row_tags
 
 
-def count_emit(dec, row_offsets, cands: TypedCands, T: DpTables, E: int, n_combo: int,
+def count_emit(dec, row_counts, cands: TypedCands, T: DpTables, E: int, n_combo: int,
                n_rows: int, n_cand: int, tags: bool = False):
     """(rows, tags or None) of :func:`count_emit_torch`. CPU tensors run the
     plain version; CUDA tensors launch ``count_emit_kernel``, a block per
-    tile of the first ``n_cand`` candidates (the total, which the caller
-    read), where there is a row to place."""
+    (channel, tile) pair of the first ``n_cand`` candidates (the total,
+    which the caller read), each placed by the channel totals and the tile
+    counts before it."""
     from . import packed_bitap as pb
 
     if dec.device.type == "cpu":
-        return count_emit_torch(dec, row_offsets, cands, T, E, n_combo, n_rows, tags)
+        return count_emit_torch(dec, row_counts, cands, T, E, n_combo, n_rows, tags)
     dev = dec.device
     rows = torch.empty((n_rows, 5), dtype=torch.int32, device=dev)
     row_tags = torch.empty(n_rows, dtype=torch.int32, device=dev) if tags else None
@@ -1882,22 +1889,28 @@ def count_emit(dec, row_offsets, cands: TypedCands, T: DpTables, E: int, n_combo
     with pb.on_device(dev):
         rc = kern.lib.fac_count_emit(
             cands.field.data_ptr(), cands.start.data_ptr(), cands.combo.data_ptr(),
-            cands.total.data_ptr(), cands.items, int(n_cand),
-            T.depth.data_ptr(), T.node.data_ptr(),
-            T.out_list.data_ptr(), T.out_list.shape[1], E, n_combo, dec.data_ptr(),
-            row_offsets.data_ptr(), _typed_tiles(cands.items), rows.data_ptr(),
+            cands.total.data_ptr(), cands.items, int(n_cand), T.depth.data_ptr(),
+            T.node.data_ptr(), T.out_list.data_ptr(), T.out_list.shape[1], E, n_combo,
+            dec.data_ptr(), row_counts.data_ptr(), _typed_tiles(cands.items), rows.data_ptr(),
             None if row_tags is None else row_tags.data_ptr(), pb.stream_of(dev))
     kern.check(rc, "count_emit")
     pb.LAUNCHES["count_emit"] += 1
     return rows, row_tags
 
 
+def emit_pairs(n_cand: int, E: int, MO: int) -> int:
+    """Blocks of ``count_emit_kernel`` for ``n_cand`` candidates: one per
+    (channel, tile of ``TYPED_TILE`` candidates), (2E + 1) MO channels."""
+    return (2 * E + 1) * MO * -(-n_cand // TYPED_TILE)
+
+
 def dp_pipeline_counts(pos, words, window: DpWindow, ids, limit, T: DpTables,
                        pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
                        variant: DpVariant = FAST, h0: int = 0) -> tuple:
-    """The counts :func:`dp_pipeline` hands ``block_offsets``, on CUDA tensors
-    with at least one hit: the count pass's per-block counts, or the list
-    or typed step's row counts."""
+    """The counts :func:`dp_pipeline` scans, on CUDA tensors with at least
+    one hit: the count pass's per-block counts or the typed step's row
+    counts, which it hands ``block_offsets``, or the list step's row
+    counts, from which its emission places its rows itself."""
     _check_pipeline(pos, words, ids, T, E, deadend, statics, variant, h0)
     if ids.device.type != "cuda" or pos.numel() - h0 <= 0:
         raise ValueError("the count pass runs on CUDA tensors with at least one hit")
@@ -1923,22 +1936,23 @@ def _list_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
 
     cands = typed_expand(pos, words, window, E, statics, h0)
     TT = variant.typed
+    n_combo = _combos(E, *statics).shape[1]
     if TT is not None:
         dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, TT)
+        offsets = pb.block_offsets(row_counts)
+        # The rows' total ends the channels' counts, the candidates' total
+        # follows it: one read of two values.
+        n_rows, n_all = offsets[row_counts.numel() - 1:].tolist()
+        n_cand = n_all - n_rows
+        rows, row_tags = typed_emit(dec, offsets, cands, T, TT, E, n_combo, n_rows, tags)
     else:
         dec, row_counts = count_dp(cands, ids, limit, T, pens, thr, E, deadend, variant.forbid,
                                    variant.maps)
-    offsets = pb.block_offsets(row_counts)
-    # The rows' total ends the channels' counts, the candidates' total
-    # follows it: one read of two values.
-    n_rows, n_all = offsets[row_counts.numel() - 1:].tolist()
-    n_combo = _combos(E, *statics).shape[1]
-    if TT is not None:
-        rows, row_tags = typed_emit(dec, offsets, cands, T, TT, E, n_combo, n_rows, tags)
-    else:
-        rows, row_tags = count_emit(dec, offsets, cands, T, E, n_combo, n_rows,
-                                    n_all - n_rows, tags)
-    return (rows, n_all - n_rows) + ((row_tags,) if tags else ())
+        # The DP kept the rows' total and the candidates': one read.
+        n_rows, n_cand = row_counts[-2:].tolist()
+        rows, row_tags = count_emit(dec, row_counts, cands, T, E, n_combo, n_rows, n_cand,
+                                    tags)
+    return (rows, n_cand) + ((row_tags,) if tags else ())
 
 
 def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
@@ -1957,8 +1971,8 @@ def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
     ``dp_pipeline_kernel`` twice, a count pass and a write pass with
     ``block_offsets_kernel`` between them, and read the two totals back.
     Every other count-channel variant runs the list step
-    (:func:`typed_expand`, :func:`count_dp`, ``block_offsets``,
-    :func:`count_emit`), the typed variant :func:`typed_expand`,
+    (:func:`typed_expand`, :func:`count_dp`, one read of the rows' and the
+    candidates' totals, :func:`count_emit`), the typed variant :func:`typed_expand`,
     :func:`typed_dp`, ``block_offsets`` and :func:`typed_emit` (each piece
     its plain version on CPU tensors), so each candidate's DP runs once."""
     from . import packed_bitap as pb

@@ -62,6 +62,11 @@ from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfuzzy
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
 from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
+
 CJK = [chr(0x4E00 + i) for i in range(600)]
 ASCII_WORDS = ["tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla",
                "malesuada", "vulputate", "ridiculus"]

@@ -1,6 +1,6 @@
-"""The count-channel list step (``typed_expand`` -> ``count_dp`` ->
-``block_offsets`` -> ``count_emit``), port against the JAX package on the
-CPU.
+"""The count-channel list step (``typed_expand`` -> ``count_dp`` -> one
+read of the rows' and candidates' totals -> ``count_emit``), port against
+the JAX package on the CPU.
 
 (a) For the forbid lane (each forbid flag, ``edits(2)`` and ``edits(3)``
     without swaps, ``edits(4)`` without swaps), ``edits(2)`` with swaps, the
@@ -26,6 +26,9 @@ CPU.
     ``edits(3)`` with sch <-> sh, k = 9): served on the card's lane, the
     list equal to the JAX device search's; ``edits(6)`` (k = 12) equal to
     the host oracle; ``dp_plan`` serving every mapped budget up to 24.
+(h) The emission's grid (a block per (channel, tile) pair, placed by the
+    running sum of the pairs' row counts) modelled in numpy, and the rows'
+    total the DP keeps beside the candidates', at a tile's edges.
 (g) The expansion's list (``typed_expand_torch``, the plain version of the
     one-pass ``typed_expand_kernel``): equal to the JAX
     ``_expand_candidates`` in item order with its total, and at h0 = 1 the
@@ -45,6 +48,7 @@ import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
 from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
+from fuzzy_aho_corasick_tpu.ops import packed_bitap as jpb
 from fuzzy_aho_corasick_tpu.ops import verify_dp as jvd
 from fuzzy_aho_corasick_tpu.utils import device_corpus as jax_corpus
 from fuzzy_aho_corasick_tpu.utils.graphemes import view_of
@@ -52,6 +56,11 @@ from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
 from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as tvd
 from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 WORDS = ["tincidunt", "phaetra", "sagittis", "venenatis", "condim"]
 FILLER = ["lorem", "ipsum", "dolor", "sit", "amet", "elit", "eros", "porta"]
@@ -154,6 +163,34 @@ def _tuples(matches):
     ]
 
 
+def _seed_jax_caps(jax_e, counts):
+    """Start the JAX lane at the capacities its retry loop converges to:
+    ``counts`` {bucket length: (hits, candidates, rows)} of the slices, as
+    the port counts them. Its results do not depend on them; one compile of
+    ``_dp_pipeline_jit`` then serves the search (an overflow would compile
+    it again at grown capacities, a later search at the tightened ones)."""
+    caps = jpb._cap_cache(jax_e)
+    for nb, (hits, cands, rows) in counts.items():
+        for key, n in (("dp-KH", hits), ("dp-CAND", cands), ("dp-KG", rows)):
+            caps[(key, nb)] = max(caps.get((key, nb), 0), jvd._fine_cap(n))
+
+
+def _port_counts(port_e, hay, thr):
+    """{bucket length: (hits, candidates, rows)} of the port's slices of
+    ``hay`` (plain versions), the most over the slices of a bucket."""
+    plan, run = _lane_inputs(port_e, hay, thr)
+    out = {}
+    for part in run.parts:
+        _h, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+        rows, n_cand = tvd.dp_pipeline_torch(
+            pos, words, tvd.DpWindow(part.lo, part.hi, part.local_n), part.ids_de, part.local_n,
+            run.T, run.pens, np.float32(thr), plan.E, run.deadend, run.statics, run.variant)
+        nb = part.ids_pf.numel()
+        got = (pos.numel(), n_cand, rows.shape[0])
+        out[nb] = tuple(max(a, b) for a, b in zip(out.get(nb, got), got))
+    return out
+
+
 def _jax_pipeline_rows(monkeypatch, jax_e, hay, thr, lane):
     """What ``_dp_pipeline_jit`` returned for each slice of the JAX search:
     {(limit, start_lo, start_hi, the slice's symbols): (hits, candidates,
@@ -201,11 +238,11 @@ def _lane_inputs(port_e, hay, thr):
     return plan, tvd.dp_inputs(port_e, hay, plan, view, n, *specs)
 
 
-def _step(plan, run, part, thr, ids=None):
+def _step(plan, run, part, thr, ids=None, hit_list=None):
     """The list step's pieces on one slice: (hits, cands, dec, row_counts,
-    offsets, rows, tags, the arguments of ``dp_pipeline`` after the hits,
-    pos, words)."""
-    hits, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    rows, tags, the arguments of ``dp_pipeline`` after the hits, pos,
+    words); ``hit_list`` the slice's ``packed_hits``, where already made."""
+    hits, pos, words = hit_list or tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
     window = tvd.DpWindow(part.lo, part.hi, part.local_n)
     ids = part.ids_de if ids is None else ids
     E, v = plan.E, run.variant
@@ -214,45 +251,54 @@ def _step(plan, run, part, thr, ids=None):
     cands = tvd.typed_expand(pos, words, window, E, run.statics)
     dec, row_counts = tvd.count_dp(cands, ids, part.local_n, run.T, run.pens, np.float32(thr), E,
                                    run.deadend, v.forbid, v.maps)
-    offsets = tpb.block_offsets(row_counts)
-    n_rows = int(offsets[-2])
-    rows, tags = tvd.count_emit(dec, offsets, cands, run.T, E, n_combo, n_rows,
-                                int(cands.total[0]), tags=True)
+    n_rows, n_cand = row_counts[-2:].tolist()
+    rows, tags = tvd.count_emit(dec, row_counts, cands, run.T, E, n_combo, n_rows, n_cand,
+                                tags=True)
     args = (window, ids, part.local_n, run.T, run.pens, np.float32(thr), E, run.deadend,
             run.statics, v)
-    return hits, cands, dec, row_counts, offsets, rows, tags, args, pos, words
+    return hits, cands, dec, row_counts, rows, tags, args, pos, words
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_list_step_rows_equal_to_jax(monkeypatch, name):
     _c, _p, hay, thr, lane = CASES[name]
     jax_e, port_e = _pair(name)
-    want, jax_matches = _jax_pipeline_rows(monkeypatch, jax_e, hay, thr, lane)
     plan, run = _lane_inputs(port_e, hay, thr)
-    assert sorted(want) == sorted(
-        (p.local_n, p.lo, p.hi, p.ids_pf.numpy()[:p.local_n].tobytes()) for p in run.parts)
     E, T = plan.E, run.T
     if name in ROWS_FORM:
         assert E == 4 and run.deadend == ROWS_FORM[name]
     MO = T.out_list.shape[1]
     nce = (2 * E + 1) * MO
+    # The port's pieces per slice and ids form first (the slice's hit list
+    # made once), then the JAX search, started at the capacities they give.
+    steps, counts = {}, {}
+    for part in run.parts:
+        hit_list = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+        for ids in (part.ids_de, part.ids_de.int()):
+            before = dict(tpb.LAUNCHES)
+            steps[id(part), ids.dtype] = _step(plan, run, part, thr, ids, hit_list)
+            assert tpb.LAUNCHES == before  # CPU tensors run the plain versions
+        hits, cands, _d, _rc, rows = steps[id(part), torch.uint8][:5]
+        counts[part.ids_pf.numel()] = (hits, int(cands.total[0]), rows.shape[0])
+    _seed_jax_caps(jax_e, counts)
+    want, jax_matches = _jax_pipeline_rows(monkeypatch, jax_e, hay, thr, lane)
+    assert sorted(want) == sorted(
+        (p.local_n, p.lo, p.hi, p.ids_pf.numpy()[:p.local_n].tobytes()) for p in run.parts)
     total = 0
     for part in run.parts:
         key = (part.local_n, part.lo, part.hi, part.ids_pf.numpy()[:part.local_n].tobytes())
         w_hits, w_cands, w_rows, w_dead = want[key]
         assert w_dead == run.deadend
         for ids in (part.ids_de, part.ids_de.int()):
-            before = dict(tpb.LAUNCHES)
-            hits, cands, dec, row_counts, offsets, rows, tags, args, pos, words = _step(
-                plan, run, part, thr, ids)
-            assert tpb.LAUNCHES == before  # CPU tensors run the plain versions
+            hits, cands, dec, row_counts, rows, tags, args, pos, words = steps[id(part), ids.dtype]
             M = int(cands.total[0])
             assert (hits, M) == (w_hits, w_cands)
             assert rows.numpy().astype(np.int64).tolist() == w_rows.tolist()
             # The decisions are the emission's on banded_dp_torch's channels.
             ntile = -(-cands.items // tvd.TYPED_TILE)
-            assert dec.shape == (nce, cands.items, 2) and row_counts.shape == (nce * ntile + 1,)
-            assert int(row_counts[-1]) == M and (dec[:, M:, 1] == -1).all()
+            assert dec.shape == (nce, cands.items, 2)
+            assert row_counts.shape == (nce * (ntile + 1) + 2,)
+            assert row_counts[-2:].tolist() == [rows.shape[0], M] and (dec[:, M:, 1] == -1).all()
             cf, cs = cands.field[:M], cands.start[:M]
             pen, cnt = tvd.banded_dp_torch(cf, cs, ids, part.local_n, T, run.pens, E, run.deadend,
                                            run.variant.forbid, run.variant.maps)
@@ -260,8 +306,10 @@ def test_list_step_rows_equal_to_jax(monkeypatch, name):
                 pen, cnt, cf, cs, T, part.local_n, np.float32(thr), E))
             per_tile = torch.zeros((nce, ntile * tvd.TYPED_TILE), dtype=torch.int64)
             per_tile[:, :M] = (dec[:, :M, 1] >= 0).long()
-            assert torch.equal(row_counts[:-1].long(),
+            assert torch.equal(row_counts[:nce * ntile].long(),
                                per_tile.reshape(nce, ntile, -1).sum(2).reshape(-1))
+            assert torch.equal(row_counts[nce * ntile:-2].long(),
+                               per_tile.reshape(nce, -1).sum(1))
             # The old composition, and the routed wrapper.
             p_rows, p_n, p_tags = tvd.dp_pipeline_torch(pos, words, *args, tags=True)
             assert torch.equal(rows, p_rows) and torch.equal(tags, p_tags) and p_n == M
@@ -288,11 +336,12 @@ def test_list_step_at_a_tied_threshold(monkeypatch):
                    if m.similarity < 1}, reverse=True)
     tie = next(t for t in sims if any(np.float32(m.similarity) == t
                                       for m in port_e.search_raw(hay, float(t))))
+    _seed_jax_caps(jax_e, _port_counts(port_e, hay, float(tie)))
     want, jax_matches = _jax_pipeline_rows(monkeypatch, jax_e, hay, float(tie), lane)
     plan, run = _lane_inputs(port_e, hay, float(tie))
     part, = run.parts
     key = (part.local_n, part.lo, part.hi, part.ids_pf.numpy()[:part.local_n].tobytes())
-    _h, _c, _d, _r, _o, rows, tags, args, pos, words = _step(plan, run, part, float(tie))
+    _h, _c, _d, _r, rows, tags, args, pos, words = _step(plan, run, part, float(tie))
     assert rows.numpy().astype(np.int64).tolist() == want[key][2].tolist()
     p_rows, _n, p_tags = tvd.dp_pipeline_torch(pos, words, *args, tags=True)
     assert torch.equal(rows, p_rows) and torch.equal(tags, p_tags)
@@ -346,8 +395,8 @@ def test_list_step_routing_and_bounds():
     types or mapping arrivals; E = 1 without either stays on
     ``dp_pipeline_kernel``, the typed lane on its own step. The step's
     candidates, rows, decisions and row counts stay inside int32 at
-    ``pipeline_max_hits``; the emission refuses offsets that disagree with
-    its decisions."""
+    ``pipeline_max_hits``; the emission refuses row counts that disagree
+    with its decisions."""
     _jax_e, mapped_e = _pair("mapped-rn-m")
     maps = tvd.mapped_spec_of(mapped_e)
     assert maps is not None
@@ -363,18 +412,104 @@ def test_list_step_routing_and_bounds():
         nce = (2 * E + 1) * MO
         items = most * n_c
         assert items * (nce + 1) < 1 << 31
-        assert items * nce + -(-items // tvd.TYPED_TILE) * nce + 1 < 1 << 31
-    # The emission refuses offsets that give another row total.
+        assert items * nce + (-(-items // tvd.TYPED_TILE) + 1) * nce + 2 < 1 << 31
+    # The emission refuses row counts that give another row total.
     name = "forbid-swaps-e2"
     _c, _p, hay, thr, _lane = CASES[name]
     plan, run = _lane_inputs(_pair(name)[1], hay, thr)
-    _h, cands, dec, _rc, offsets, rows, _t, _a, _p, _w = _step(plan, run, run.parts[0], thr)
+    _h, cands, dec, row_counts, rows, _t, _a, _p, _w = _step(plan, run, run.parts[0], thr)
     n_combo = tvd._combos(plan.E, *run.statics).shape[1]
     M = int(cands.total[0])
     with pytest.raises(ValueError, match="rows decided"):
-        tvd.count_emit(dec, offsets, cands, run.T, plan.E, n_combo, rows.shape[0] + 1, M)
-    again, no_tags = tvd.count_emit(dec, offsets, cands, run.T, plan.E, n_combo, rows.shape[0], M)
+        tvd.count_emit(dec, row_counts, cands, run.T, plan.E, n_combo, rows.shape[0] + 1, M)
+    again, no_tags = tvd.count_emit(dec, row_counts, cands, run.T, plan.E, n_combo,
+                                    rows.shape[0], M)
     assert torch.equal(again, rows) and no_tags is None
+
+
+def _pair_placement(dec, row_counts, cands, T, E: int, n_combo: int):
+    """The emission's grid in numpy: one block per (channel, tile) pair of
+    the candidates' tiles, in (channel, tile) order, each placing the rows
+    of its pair's candidates (ascending) at the running sum of the pairs'
+    counts before it. Returns (rows [total, 5], tags [total], pairs)."""
+    M = int(cands.total[0])
+    nce, items = dec.shape[0], cands.items
+    ntile, live_tiles = -(-items // tvd.TYPED_TILE), -(-M // tvd.TYPED_TILE)
+    MO = T.out_list.shape[1]
+    counts = row_counts.numpy()
+    dec_np = dec.numpy()
+    field, start, combo = (x.numpy() for x in (cands.field, cands.start, cands.combo))
+    depth, node, out_list = T.depth.numpy(), T.node.numpy(), T.out_list.numpy()
+    rows, tags, base = [], [], 0
+    for p in range(tvd.emit_pairs(M, E, MO)):
+        ce, t = divmod(p, live_tiles)
+        c = int(counts[ce * ntile + t])
+        m = np.arange(t * tvd.TYPED_TILE, min((t + 1) * tvd.TYPED_TILE, M))
+        m = m[dec_np[ce, m, 1] >= 0]
+        assert m.size == c and len(rows) == base  # the pair's count, its first row
+        b, o = divmod(ce, MO)
+        f = field[m]
+        for j, mm in enumerate(m):
+            rows.append([start[mm], dec_np[ce, mm, 0], depth[f[j]] + b - E,
+                         out_list[node[f[j]], o], dec_np[ce, mm, 1]])
+            tags.append(ce * n_combo + combo[mm])
+        base += c
+    return (np.asarray(rows, np.int64).reshape(-1, 5), np.asarray(tags, np.int64),
+            tvd.emit_pairs(M, E, MO))
+
+
+@pytest.mark.parametrize("name", ["forbid-swaps-e2", "mapped-eszett", "forbid-swaps-e4"])
+def test_emission_grid_and_rows_total(name):
+    """The list step's emission as its kernel is laid out (a block per
+    (channel, tile) pair, placed by the running sum of the pairs' row
+    counts) equals ``count_emit_torch``, and the DP's row counts end with
+    the rows of each channel, the rows' total and the candidates' total,
+    on random hit lists cut to 1
+    candidate, one whole tile (1,024), a tile and one, and all of them, and
+    with the rows of two pairs taken out (pairs without a row between pairs
+    with rows). ``emit_pairs`` counts (2E + 1) MO channels of ceil(M /
+    1,024) tiles. Exact equality."""
+    _c, _p, hay, thr, _lane = CASES[name]
+    plan, run = _lane_inputs(_pair(name)[1], hay, thr)
+    part = run.parts[0]
+    E, T = plan.E, run.T
+    MO = T.out_list.shape[1]
+    assert [tvd.emit_pairs(m, E, MO) for m in (0, 1, 1024, 1025, 2048)] == [
+        0, (2 * E + 1) * MO, (2 * E + 1) * MO, 2 * (2 * E + 1) * MO, 2 * (2 * E + 1) * MO]
+    pos, words = _random_hits(run, part.local_n, 900, 23)
+    window = tvd.DpWindow(part.lo, part.hi, part.local_n)
+    full = tvd.typed_expand(pos, words, window, E, run.statics)
+    M_all = int(full.total[0])
+    assert M_all > tvd.TYPED_TILE + 1
+    n_combo = tvd._combos(E, *run.statics).shape[1]
+    dp = (part.ids_de, part.local_n, T, run.pens, np.float32(thr), E, run.deadend,
+          run.variant.forbid, run.variant.maps)
+    seen = set()
+    for M in (1, tvd.TYPED_TILE, tvd.TYPED_TILE + 1, M_all, -1):
+        cut = full._replace(total=torch.full_like(full.total, M if M > 0 else M_all))
+        dec, row_counts = tvd.count_dp(cut, *dp)
+        m = int(cut.total[0])
+        nce, ntile = dec.shape[0], -(-cut.items // tvd.TYPED_TILE)
+        if M < 0:  # the rows of channel 0 in tile 0 and the last channel's last tile out
+            live = dec[:, :m].clone()
+            last = (m - 1) // tvd.TYPED_TILE
+            live[0, :tvd.TYPED_TILE, 1] = -1
+            live[nce - 1, last * tvd.TYPED_TILE:, 1] = -1
+            live[..., 0] = torch.where(live[..., 1] >= 0, live[..., 0], 0)
+            dec, row_counts = tvd._tiled(live, cut, True)
+            pairs = row_counts[:nce * ntile].reshape(nce, ntile)[:, :last + 1]
+            assert (pairs == 0).sum() >= 2 and (pairs > 0).any()
+        n_rows = int((dec[:, :m, 1] >= 0).sum())
+        assert row_counts.shape == (nce * (ntile + 1) + 2,)
+        tiles = row_counts[:nce * ntile].reshape(nce, ntile)
+        assert torch.equal(row_counts[nce * ntile:-2], tiles.sum(1).to(torch.int32))
+        assert row_counts[-2:].tolist() == [n_rows, m] == [int(tiles.sum()), m]
+        rows, tags = tvd.count_emit(dec, row_counts, cut, T, E, n_combo, n_rows, m, tags=True)
+        want_rows, want_tags, n_pairs = _pair_placement(dec, row_counts, cut, T, E, n_combo)
+        assert rows.numpy().astype(np.int64).tolist() == want_rows.tolist()
+        assert tags.numpy().astype(np.int64).tolist() == want_tags.tolist()
+        seen.add((M, m, n_rows > 0, n_pairs))
+    assert len(seen) == 5
 
 
 def test_step_ranges_bounded_by_bytes(monkeypatch):
@@ -397,6 +532,7 @@ def test_step_ranges_bounded_by_bytes(monkeypatch):
     name = "forbid-swaps-e2"
     _c, _p, hay, thr, lane = CASES[name]
     jax_e, port_e = _pair(name)
+    _seed_jax_caps(jax_e, _port_counts(port_e, hay, thr))
     jax_corpus.clear()
     want = _tuples(jax_e.search_raw(hay, thr))
     plan, run = _lane_inputs(port_e, hay, thr)
@@ -453,6 +589,7 @@ def test_mapped_lane_serves_past_six_scan_rows(name):
         jax_e = (JaxBuilder.new().fuzzy(JaxLimits.new().edits(E)).mapping(a, b)
                  .case_insensitive(True).build(patterns))
         jax_e.backend = "device"
+        _seed_jax_caps(jax_e, _port_counts(port_e, hay, thr))
         jax_corpus.clear()
         assert got == _tuples(jax_e.search_raw(hay, thr))
         assert jax_e.last_stats["backend"] == BACKEND["mapped"]

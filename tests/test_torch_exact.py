@@ -6,6 +6,7 @@ bitwise, and similarities are pattern weights copied, not computed."""
 
 import numpy as np
 import pytest
+import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
 from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
@@ -14,6 +15,11 @@ from fuzzy_aho_corasick_tpu.ops import packed_bitap as jpb
 from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, SearchOptions
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
 from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 HEADLINE = [
     "tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla",

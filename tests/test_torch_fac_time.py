@@ -7,8 +7,14 @@ plain versions)."""
 
 import numpy as np
 import pytest
+import torch
 
 from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 STAGE_KEYS = {"dispatch_ms", "readback_ms", "decode_ms", "result_buf_kib"}
 WORDS = ["tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla", "malesuada"]

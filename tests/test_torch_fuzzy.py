@@ -10,6 +10,7 @@ package does; where it does not, ``auto`` serves the oracle's matches."""
 
 import numpy as np
 import pytest
+import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
 from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
@@ -19,6 +20,11 @@ from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, P
 from fuzzy_aho_corasick_tpu_torch import SearchOptions
 from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as tvd
 from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 HEADLINE = [
     "tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla",

@@ -25,6 +25,11 @@ from fuzzy_aho_corasick_tpu_torch.ops import exact
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
 from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
+
 
 def _brute(ids, n_starts, n_read, goto, emits, L):
     """Every start walked one symbol at a time in Python."""

@@ -15,6 +15,11 @@ from fuzzy_aho_corasick_tpu.utils import graphemes as jax_graphemes
 from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder
 from fuzzy_aho_corasick_tpu_torch.utils import graphemes as port_graphemes
 
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "fuzzy_aho_corasick_tpu_torch"
 

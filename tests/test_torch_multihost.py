@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
 from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
@@ -33,6 +34,11 @@ from fuzzy_aho_corasick_tpu_torch.parallel.multihost import (
     replace_multihost,
     search_multihost,
 )
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH2 = ["cpu", "cpu"]

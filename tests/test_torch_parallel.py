@@ -34,6 +34,11 @@ from fuzzy_aho_corasick_tpu_torch.ops.packed_bitap import packed_fuzzy_of
 from fuzzy_aho_corasick_tpu_torch.parallel import shard_search as pss
 from fuzzy_aho_corasick_tpu_torch.parallel.dryrun import dryrun_multichip
 
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
+
 SHARDS = (1, 2, 3)
 
 
@@ -171,7 +176,7 @@ FUZZY = {
     # words are longer than 8, so that a hit is not every position (the
     # hit count then does not depend on the buffers' padding).
     "mapped-edits4": (lambda L: L.edits(4), ["weissbier", "grossbaum"], [("ß", "ss")],
-                      ("wort satz " * 11 + "weißbier großbaum grosbaum ") * 12, 0.6,
+                      ("wort satz " * 2 + "weißbier großbaum grosbaum ") * 12, 0.6,
                       "device-fuzzy-dp-mapped", 24),
     "straddle": (lambda L: L.edits(1), ["needle", "haystack", "boundary"], (),
                  _straddle_text(), 0.72, "device-fuzzy-dp", 11),
@@ -186,13 +191,28 @@ SAME_ENGINE = {"damerau-swaps": "edits1", "straddle": "edits1"}
 _JAX_ENGINES, _JAX = {}, {}
 
 
-def _jax_sharded(name):
+def _jax_sharded(name, port_stats):
+    """The JAX package's sharded search of case ``name`` at 3 shards (keys,
+    stats), once per process. Its step starts at capacities no shard of
+    this text passes, the port's totals over the shards (``port_stats``):
+    the results do not depend on them, and its interpret-mode step then
+    does a few thousand items' work where its default capacities for a
+    short text made tens of thousands."""
     if name not in _JAX:
         limits, words, maps, text, thr, _lane, _floor = FUZZY[name]
         cfg = SAME_ENGINE.get(name, name)
         if cfg not in _JAX_ENGINES:
             _JAX_ENGINES[cfg] = build(jax_pkg, limits, words, maps)
         eng = _JAX_ENGINES[cfg]
+        # The lane's capacity key: (devices, shard length), the shard length
+        # as the lane sizes it for the text's graphemes.
+        n, n_dev = port_stats["positions"], 3
+        shard_len = max(128, -(-(-(-n // n_dev)) // 128) * 128)
+        caps = getattr(eng, "_shard_fuzzy_caps", None)
+        if caps is None:
+            caps = eng._shard_fuzzy_caps = {}
+        for cap, stat in (("KH", "hits"), ("CAND", "candidates"), ("KG", "emissions")):
+            caps.setdefault((cap, n_dev, shard_len), max(port_stats[stat], 1))
         got = jss.sharded_fuzzy_search(eng, text, thr, jss.default_mesh(3))
         _JAX[name] = (sorted(map(key, got)), dict(eng.last_stats))
     return _JAX[name]
@@ -215,7 +235,7 @@ def test_sharded_fuzzy_equal_to_jax_oracle_and_search_raw(name, shards):
     hb = text.encode("utf-8")
     assert all(hb[m.start:m.end].decode("utf-8") == m.text for m in got)
     if shards == 3:
-        want, want_stats = _jax_sharded(name)
+        want, want_stats = _jax_sharded(name, stats)
         assert sorted(map(key, got)) == want
         assert stats == want_stats
 
@@ -272,9 +292,10 @@ def test_sharded_fuzzy_without_matches_has_the_jax_stats():
     edits1's engine and text length, so the JAX package reuses its step)."""
     limits, words, _maps, _text, thr, _lane, _floor = FUZZY["edits1"]
     text = ("lorem ipsum " * 300)[:EDITS1_LEN]
-    _jax_sharded("edits1")
-    jax_e = _JAX_ENGINES["edits1"]
     port_e = build(port_pkg, limits, words)
+    pss.sharded_fuzzy_search(port_e, FUZZY["edits1"][3], thr, cpu_mesh(3))
+    _jax_sharded("edits1", port_e.last_stats)
+    jax_e = _JAX_ENGINES["edits1"]
     assert jss.sharded_fuzzy_search(jax_e, text, thr, jss.default_mesh(3)) == []
     assert pss.sharded_fuzzy_search(port_e, text, thr, cpu_mesh(3)) == []
     assert port_e.last_stats == jax_e.last_stats == {

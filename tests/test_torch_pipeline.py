@@ -38,6 +38,11 @@ from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
 from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as tvd
 from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
 
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
+
 WORDS = ["tincidunt", "phaetra", "sagittis", "venenatis"]
 HEADLINE = WORDS + [
     "sollicitudin", "fringilla", "ullamcorper", "pellentesque", "condimentum",

@@ -16,6 +16,16 @@ on the CPU, where ``packed_hits`` runs the plain versions of
     instances, every W): at k = 8 and 13, W = 1 and 9, with and without
     the Damerau rows, the plain scan and replay equal the JAX
     ``packed_hits``; ``wide_scan_instance`` covers W = 1..64 at k = 7..24.
+(e) The deep replay's design (``replay_deep`` in ``csrc/scan_wide.cu``: a
+    grid striding over the items (hit i // W, limb i % W) of the whole hit
+    list, each replaying all rows of its template (the multiple of 4 >= k)
+    with no match word read during the replay and ANDing the match rows up
+    to k once after it, its two halves at words[2 i]), modelled in numpy,
+    equals the plain replay at k = 7, 8, 12,
+    13 and 24, W = 1, 6 and 33, with and without the Damerau rows.
+(f) At W = 33 and k = 24 the plain scan and replay equal an edit-distance
+    brute force: a field's last bit is set at an end position where its
+    Levenshtein distance to some text span ending there is at most k.
 
 Inputs are made with numpy from a seed; the tolerance is exact equality
 (the scan is integer)."""
@@ -27,6 +37,11 @@ import torch
 
 from fuzzy_aho_corasick_tpu.ops import packed_bitap as jpb
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 #: Edges of the k = 0 instance table (LPL = 2..8 limbs per lane) and W = 43.
 K0_EDGES = (9, 16, 17, 24, 25, 32, 33, 40, 41, 43, 48, 49, 56, 57, 64)
@@ -161,16 +176,17 @@ def test_wide_scan_instance_covers_every_width(k):
 # instances, at every W
 # ---------------------------------------------------------------------------
 
-def _deep_tables(W: int, k: int, damerau: bool, A: int, seed: int):
+def _deep_tables(W: int, k: int, damerau: bool, A: int, seed: int, length=None):
     """Tables of exactly ``W`` limbs at ``k`` error rows: random words of
-    k + 8 to k + 23 symbols of 1..A-1 (longer than k, so that a hit is not
-    every position), packed until the next one would open limb W. Returns
-    (ScanTables, numpy word table, starts, match, init, notlast or None,
-    words, halo)."""
+    ``length`` = (shortest, longest + 1) symbols of 1..A-1, by default k + 8
+    to k + 23 (longer than k, so that a hit is not every position), packed
+    until the next one would open limb W. Returns (ScanTables, numpy word
+    table, starts, match, init, notlast or None, words, halo)."""
     rng = np.random.default_rng(seed)
+    lo, hi = length or (k + 8, min(k + 24, 65))
     words = []
     while True:
-        w = rng.integers(1, A, size=int(rng.integers(k + 8, min(k + 24, 65)))).tolist()
+        w = rng.integers(1, A, size=int(rng.integers(lo, hi))).tolist()
         offs = tpb._pack_fields([len(x) for x in words + [w]])
         if max(lw for lw, _ in offs) + 1 > W:
             break
@@ -252,3 +268,120 @@ def test_wide_scan_instance_past_six_rows_covers_every_width(k):
         tpb.wide_scan_instance(1, tpb.MAX_SCAN_K + 1)
     with pytest.raises(ValueError):
         tpb.wide_scan_instance(tpb.MAX_LIMBS, tpb.MAX_K)
+
+
+def _deep_replay_model(ids: np.ndarray, pos: np.ndarray, T, halo: int,
+                       threads: int) -> np.ndarray:
+    """What the deep replay's second launch computes, item by item: ``threads``
+    threads striding over the items i = (hit i // W, limb i % W) of the hit
+    list, each advancing all K + 1 rows of its instance (K the multiple of 4
+    >= k, at least 8: ``replay_rows``; the rows past k from zero, and K
+    Damerau rows) over the halo symbols ending at its hit from the init
+    words, with no match word read during the replay, then ORing (row d &
+    match row d) once over d <= k; item i's two u32 halves land at
+    words[2 i], words[2 i + 1] of the [hits, 2W] output. Returns u64 [hits,
+    W]; every item is written exactly once."""
+    u64 = lambda t: t.numpy().view(np.uint64).reshape(-1, T.W)
+    W, k, A, n = T.W, T.k, T.A, ids.size
+    tbl, starts, match, init = u64(T.tbl), u64(T.starts)[0], u64(T.match), u64(T.init)
+    nl = u64(T.notlast)[0] if T.notlast is not None else None
+    one = np.uint64(1)
+    K = max(8, -(-k // 4) * 4)  # csrc/scan_wide.cu's replay_rows
+    flat = np.zeros(2 * pos.size * W, np.uint64)
+    written = np.zeros(pos.size * W, np.int64)
+    items = pos.size * W
+    for t0 in range(threads):  # the grid's threads; each strides by ``threads``
+        i = np.arange(t0, items, threads)
+        if i.size == 0:
+            continue
+        h, w = i // W, i % W
+        r = [init[d, w].copy() if d <= k else np.zeros(i.size, np.uint64) for d in range(K + 1)]
+        dam = [np.zeros(i.size, np.uint64) for _ in range(K + 1)]
+        st = starts[w]
+        q0 = pos[h] - halo + 1
+        for j in range(halo):
+            q = q0 + j
+            sym = np.where((q >= 0) & (q < n), ids[np.clip(q, 0, n - 1)], 0)
+            bc = np.where(sym < A, tbl[np.minimum(sym, A - 1), w], np.uint64(0))
+            old = [x.copy() for x in r]
+            r[0] = ((old[0] << one) | st) & bc
+            for d in range(1, K + 1):
+                carry = old[d - 1] | r[d - 1]
+                if nl is not None:
+                    carry = carry | (dam[d] & bc)
+                    dam[d] = ((old[d - 1] << one) | st) & ((bc >> one) & nl[w])
+                r[d] = ((old[d] << one) & bc) | (carry << one) | old[d - 1] | st
+        out = np.zeros(i.size, np.uint64)
+        for d in range(k + 1):
+            out |= r[d] & match[d, w]
+        flat[2 * i] = out & np.uint64(0xFFFFFFFF)
+        flat[2 * i + 1] = out >> np.uint64(32)
+        written[i] += 1
+    assert (written == 1).all()
+    pairs = flat.reshape(pos.size, W, 2)
+    return pairs[..., 0] | (pairs[..., 1] << np.uint64(32))
+
+
+@pytest.mark.parametrize("k", (7, 8, 12, 13, 24))
+@pytest.mark.parametrize("W", (1, 6, 33))
+def test_deep_replay_model_equals_plain_replay(W, k):
+    """(e): 1,500 symbols of an alphabet of 64 with the words planted at 1
+    in 40 positions, each with up to k + 4 substitutions; the Damerau rows
+    where W + k is odd; a grid of 7 threads (items left over on some)."""
+    A, damerau = 64, (W + k) % 2 == 1
+    T, _t, _s, _m, _i, _n, words, halo = _deep_tables(W, k, damerau, A, seed=7 * W + k)
+    assert T.damerau == damerau
+    rng = np.random.default_rng(W * 31 + k)
+    n = 1500
+    ids = rng.integers(0, A, size=n).astype(np.uint8)
+    for at in rng.integers(0, n - 64, size=n // 40).tolist():
+        w = list(words[int(rng.integers(len(words)))])
+        for _ in range(int(rng.integers(0, k + 5))):
+            w[int(rng.integers(len(w)))] = int(rng.integers(1, A))
+        ids[at:at + len(w)] = w
+    count, pos, words_t = tpb.packed_hits(torch.from_numpy(ids), T, halo)
+    assert 10 < count < n
+    got = _deep_replay_model(ids, pos.numpy(), T, halo, threads=7)
+    assert np.array_equal(got, _limb_words(words_t))
+
+
+def _sellers(pat, ids: np.ndarray) -> np.ndarray:
+    """Per end position of ``ids``, the least Levenshtein distance between
+    ``pat`` and a span of ``ids`` ending there (any start)."""
+    m = len(pat)
+    p = np.asarray(pat)
+    idx = np.arange(m + 1)
+    col = idx.copy()
+    out = np.empty(ids.size, np.int64)
+    for t, c in enumerate(ids.tolist()):
+        a = np.empty(m + 1, np.int64)
+        a[0] = 0
+        a[1:] = np.minimum(col[1:] + 1, col[:-1] + (p != c))
+        col = np.minimum.accumulate(a - idx) + idx  # the insertions' chain
+        out[t] = col[m]
+    return out
+
+
+def test_deep_replay_w33_k24_equals_brute_force():
+    """(f): 900 symbols of an alphabet of 64 with the words planted every
+    45 symbols, each with up to k + 8 substitutions (some beyond reach)."""
+    W, k, A = 33, 24, 64
+    T, _t, _s, _m, _i, _n, words, halo = _deep_tables(W, k, False, A, seed=5)
+    offs = tpb._pack_fields([len(w) for w in words])
+    rng = np.random.default_rng(1)
+    n = 900
+    ids = rng.integers(1, A, size=n).astype(np.uint8)
+    for at in range(10, n - 60, 45):
+        w = list(words[int(rng.integers(len(words)))])
+        for _ in range(int(rng.integers(0, k + 8))):
+            w[int(rng.integers(len(w)))] = int(rng.integers(1, A))
+        ids[at:at + len(w)] = w
+    want = np.zeros((n, W), np.uint64)
+    for w, (lw, lo) in zip(words, offs):
+        near = _sellers(w, ids) <= k
+        want[near, lw] |= np.uint64(1) << np.uint64(lo + len(w) - 1)
+    want_pos = np.nonzero(want.any(axis=1))[0]
+    count, pos, words_t = tpb.packed_hits(torch.from_numpy(ids), T, halo)
+    assert 50 < count == want_pos.size < n - 100
+    assert pos.tolist() == want_pos.tolist()
+    assert np.array_equal(_limb_words(words_t), want[want_pos])

@@ -9,6 +9,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasick as JaxEngine
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
@@ -21,6 +22,11 @@ from fuzzy_aho_corasick_tpu_torch import (
     Pattern,
     SearchOptions,
 )
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 
 def key(m):

@@ -14,6 +14,7 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
 from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
@@ -23,6 +24,11 @@ from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, S
 from fuzzy_aho_corasick_tpu_torch import stream as port_stream
 from fuzzy_aho_corasick_tpu_torch.stream import _ReplaceCursor
 from fuzzy_aho_corasick_tpu_torch.utils import native
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 #: Both packages' window target in these tests (bytes).
 WINDOW = 8 << 10

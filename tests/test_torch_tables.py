@@ -3,12 +3,18 @@ automaton, the packed exact tables and the fuzzy mask helpers."""
 
 import numpy as np
 import pytest
+import torch
 
 from fuzzy_aho_corasick_tpu import FuzzyAhoCorasickBuilder as JaxBuilder
 from fuzzy_aho_corasick_tpu import FuzzyLimits as JaxLimits
 from fuzzy_aho_corasick_tpu.ops import packed_bitap as jpb
 from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
+
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
 
 HEADLINE = [
     "tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla",

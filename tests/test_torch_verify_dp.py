@@ -29,6 +29,11 @@ from fuzzy_aho_corasick_tpu_torch import FuzzyPenalties, Similarity
 from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
 from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as tvd
 
+# Tier-1 runs the suite in several worker processes on a few cores: one
+# intra-op thread each, so that torch's idle threads do not spin on the
+# others' cores.
+torch.set_num_threads(1)
+
 HEADLINE = [
     "tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla",
     "ullamcorper", "pellentesque", "sagittis", "condimentum", "habitasse",
