@@ -51,7 +51,12 @@ torch version. Phases:
    ``edits(4).substitutions(1)`` (55) and a dictionary with three limits
    classes; the DP-only kernels on int32 ids too; a threshold that a typed
    match's similarity ties; the typed step on the second half of a hit list
-   (a first hit h0 and the rows' tags); a text without hits per lane;
+   (a first hit h0 and the rows' tags); a text without hits per lane; the
+   typed DP past 32 cells (``typed_rows_checks``): each of the 16
+   instances of ``typed_dp_rows_kernel<E, S, G>`` (E = 2..6, 14-96
+   channels), at 14, 55 and 96 channels on int32 ids too, a tied threshold,
+   filler only, and the first 16 MiB of the corpus, whose candidate list is
+   longer than any grid of resident groups; its ptxas registers and spills;
    ``block_offsets`` at 1, 2, 31, 1023-1025 counts, one tile (16,384) and
    one either side, 129,864 and 2^22 + 7 counts, all zeros, a total just
    under 2^31 and an unaligned view. The large-dictionary lane
@@ -97,22 +102,25 @@ torch version. Phases:
    first timed search); launches, copies and
    waits per search, with the wrapper's launch count beside the profiler's
    event count; the stages' host-clock times;
-4c, 4c', 4d, 4e. the forbid lane, the default ``edits(2)``, the typed and
-   the mapped lanes at full width
+4c, 4c', 4d, 4d', 4e. the forbid lane, the default ``edits(2)``, the typed
+   lane twice and the mapped lane at full width
    (``lane_main_path``), each through ``search_raw`` over the 96 MiB corpus
    after a probe on 1 MiB through the same entry point with the oracle
    locked out (the engine's own routing picks the lane), two warm-ups and three timed searches with the
    plain versions and the oracle locked out: 4c the headline dictionary
    with ``edits(2).swaps(0)`` at 0.62; 4c' ``edits(2)`` with swaps at 0.62
    (fuzzy2_default, ``bench.py:347-384``); 4d the same with ``edits(1)``, one
-   pattern exact-only and one ``substitutions(1)`` only, at 0.8; 4e the
+   pattern exact-only and one ``substitutions(1)`` only, at 0.8; 4d' (typed14)
+   the headline dictionary with ``edits(2).substitutions(1)`` at 0.62 (5
+   bands x 14 type vectors: the typed DP past 32 cells); 4e the
    dictionary + ``modern`` with the mapping rn <-> m and ``edits(1)`` at
    0.8, every 50th ``commodo`` of the corpus a ``modem``. Each must report
    its lane's backend name, launch the scan's kernels and its own step's
    kernels and no other lane's (4c, 4c' and 4e the list step:
-   ``typed_expand``, ``count_dp``, ``count_emit``, and ``block_offsets``
-   only for the scan's counts: the emission places its rows from the DP's
-   channel totals;
+   ``typed_expand``, ``count_dp``, ``count_emit``; 4d and 4d' the typed
+   step: ``typed_expand``, ``typed_dp``, ``typed_emit``; both with
+   ``block_offsets`` only for the scan's counts: the emission places its
+   rows from the DP's channel totals;
    never ``dp_pipeline_kernel``), and equal the context oracle's match set; a
    lane that declined at 96 MiB would run at the largest power-of-two
    prefix it serves and say so;
@@ -249,17 +257,16 @@ torch version. Phases:
    pipeline's; each lane's pipeline and DP-only kernel on slice 1 of its
    phase's search, where the scan's three kernels on the lane's own tables
    and ``block_offsets`` on every count array the step scans are held
-   against their plain versions too; for the typed lane, and for the list
-   step of the forbid, mapped and mapped4 lanes (with the DP instance's
-   registers and spill bytes; mapped4's ``count_dp_rows_kernel`` with
-   mapping arrivals), each of the step's kernels alone, and for the list
-   step of those and of fuzzy2 ``count_emit`` at its grid's edges
+   against their plain versions too; for the typed and typed14 lanes and
+   the list step of the forbid, mapped and mapped4 lanes (with the DP
+   instance's registers and spill bytes: typed14's
+   ``typed_dp_rows_kernel<2, 1, 16>``, mapped4's ``count_dp_rows_kernel``
+   with mapping arrivals), each of the step's kernels alone, and for those
+   and fuzzy2 the emission (``count_emit_kernel``) at its grid's edges
    (``emit_edge_checks``: 1 candidate, a whole tile of 1,024, 1,025, all,
    and pairs without a row beside pairs with rows); the wide kernels'
    deep instances at mapped4's shape (``deep_times``: three timings,
-   registers, spills, SASS); the same for ``edits(2).substitutions(1)``, typed with 14
-   channels behind a k = 2 scan, beside its searches over the whole
-   corpus; ``block_offsets`` beside ``torch.cumsum(..., dtype=torch.int32)``
+   registers, spills, SASS); ``block_offsets`` beside ``torch.cumsum(..., dtype=torch.int32)``
    at every shape the searches hand it and at 129,864 and 2^22 + 7 counts),
    the bound worked out from those inputs alone (bytes
    over the card's memory rate against integer or float32 instructions over
@@ -332,6 +339,9 @@ CONTEXT_TAIL = 15
 LANES = ("forbid", "typed", "mapped")
 #: The launch counters of the typed step's kernels.
 TYPED_KEYS = ("typed_expand", "typed_dp", "typed_emit")
+#: The kernel a launch counter counts where its name is not the counter's:
+#: the typed step's emission is the list step's kernel.
+KERNEL_OF = {"typed_emit": "count_emit_kernel"}
 #: The launch counters of the count-channel list step's kernels (E >= 2,
 #: forbidden edit types or mappings): the typed step's expansion, then
 #: ``count_dp`` and ``count_emit`` (``csrc/dp_list.cu``).
@@ -570,19 +580,12 @@ STEP_KEYS = {"typed": TYPED_KEYS, "list": LIST_KEYS, "pipeline": ("dp_pipeline",
 STEP_ERR = {"typed": "typed_step", "list": "list_step", "pipeline": "dp_pipeline"}
 
 
-def step_handoff(tpb, vdp, args, row_counts):
-    """What the typed or the list step (``args``, the arguments of
-    ``dp_pipeline``) hands its emission after the DP's ``row_counts``:
-    (the typed step's offsets, the exclusive scan of the row counts, or the
-    list step's row counts themselves, which end with the rows' and the
-    candidates' totals; the rows' total; the candidates' total)."""
-    if step_kind(vdp, args) == "list":
-        n_rows, M = (int(x) for x in row_counts[-2:].tolist())
-        return row_counts, n_rows, M
-    scan = tpb.block_offsets if row_counts.device.type == "cuda" else tpb.block_offsets_torch
-    offsets = scan(row_counts)
-    n_rows, n_all = (int(x) for x in offsets[-2:].tolist())
-    return offsets, n_rows, n_all - n_rows
+def step_handoff(row_counts):
+    """What the typed or the list step hands its emission after the DP's
+    ``row_counts``: (the row counts themselves, which end with the rows' and
+    the candidates' totals; the rows' total; the candidates' total)."""
+    n_rows, M = (int(x) for x in row_counts[-2:].tolist())
+    return row_counts, n_rows, M
 
 
 def step_pieces(vdp, args):
@@ -597,7 +600,7 @@ def step_pieces(vdp, args):
     if TT is not None:
         d = (ids, limit, T, pens, thr, E, TT)
         return ((lambda c: vdp.typed_dp(c, *d), lambda c: vdp.typed_dp_torch(c, *d)),
-                (lambda dec, o, c, n, M: vdp.typed_emit(dec, o, c, T, TT, E, n_combo, n, True),
+                (lambda dec, o, c, n, M: vdp.typed_emit(dec, o, c, T, TT, E, n_combo, n, M, True),
                  lambda dec, o, c, n, M: vdp.typed_emit_torch(dec, o, c, T, TT, E, n_combo, n,
                                                               True)))
     d = (ids, limit, T, pens, thr, E, dead, variant.forbid, variant.maps)
@@ -627,7 +630,7 @@ def compare_step_kernels(tpb, vdp, torch, args, what: str, h0: int = 0) -> dict:
     dec_k, counts_k = dp(cp if M else ck)
     dec_p, counts_p = dp_plain(cp)
     errs[k_dp] = max(int_err(dec_k[:, :M], dec_p[:, :M]), int_err(counts_k, counts_p))
-    handed, n_rows, _m = step_handoff(tpb, vdp, args, counts_p)
+    handed, n_rows, _m = step_handoff(counts_p)
     rows_k, tags_k = emit(dec_p, handed, cp, n_rows, M)
     rows_p, tags_p = emit_plain(dec_p, handed, cp, n_rows, M)
     torch.cuda.synchronize()
@@ -641,16 +644,18 @@ def compare_step_kernels(tpb, vdp, torch, args, what: str, h0: int = 0) -> dict:
 
 
 def emit_edge_checks(ctx, tag: str, args) -> int:
-    """``count_emit`` against ``count_emit_torch`` on one list-step slice
-    (``args``, the arguments of ``dp_pipeline``) at the edges of its grid of
-    (channel, tile) pairs: the plain candidate list cut to its first 1
-    candidate, 1,024 (one whole tile), 1,025 and all of them, each with its
-    plain decisions and row counts, and the whole list with the rows of
-    channel 0 in tile 0 and of the last channel in the last tile taken out
-    (pairs without a row beside pairs with rows). Rows and tags bit for
-    bit; every launch counted. Returns the max_abs_err."""
+    """The emission of a list-step or a typed-step slice (``args``, the
+    arguments of ``dp_pipeline``; ``count_emit`` or ``typed_emit``, one
+    kernel, ``count_emit_kernel``) against its plain version at the edges
+    of its grid of (channel, tile) pairs: the plain candidate list cut to
+    its first 1 candidate, 1,024 (one whole tile), 1,025 and all of them,
+    each with its plain decisions and row counts, and the whole list with
+    the rows of channel 0 in tile 0 and of the last channel in the last
+    tile taken out (pairs without a row beside pairs with rows). Rows and
+    tags bit for bit; every launch counted. Returns the max_abs_err."""
     torch, tpb, vdp = ctx.torch, ctx.tpb, ctx.vdp
     pos, words, win, ids, limit, T, pens, thr, E, dead, statics, variant = args
+    key = STEP_KEYS[step_kind(vdp, args)][2]
     (_dp, dp_plain), (emit, emit_plain) = step_pieces(vdp, args)
     full = vdp.typed_expand_torch(pos, words, win, E, statics)
     M_all = int(full.total[0])
@@ -672,18 +677,18 @@ def emit_edge_checks(ctx, tag: str, args) -> int:
             require(int((pairs == 0).sum()) >= 2 and int((pairs > 0).sum()) >= 1,
                     f"{tag}: the cut decisions hold no empty pair beside a full one")
         n_rows = int(counts[-2])
-        before = tpb.LAUNCHES["count_emit"]
+        before = tpb.LAUNCHES[key]
         rows_k, tags_k = emit(dec, counts, cut, n_rows, m)
         rows_p, tags_p = emit_plain(dec, counts, cut, n_rows, m)
         torch.cuda.synchronize()
         e = max(int_err(rows_k, rows_p), int_err(tags_k, tags_p))
-        require(tpb.LAUNCHES["count_emit"] == before + (n_rows > 0 and dec.is_cuda),
-                f"{tag}: count_emit launched {tpb.LAUNCHES['count_emit'] - before} times")
+        require(tpb.LAUNCHES[key] == before + (n_rows > 0 and dec.is_cuda),
+                f"{tag}: {key} launched {tpb.LAUNCHES[key] - before} times")
         seen.append(f"{m} candidates{' (two pairs emptied)' if M < 0 else ''}: {n_rows} rows, "
                     f"{vdp.emit_pairs(m, E, T.out_list.shape[1])} pairs, err {e}")
         err = max(err, e)
-    log(f"  {tag} count_emit at its grid's edges: " + "; ".join(seen))
-    require(err == 0, f"{tag}: count_emit disagrees with its plain version at an edge")
+    log(f"  {tag} {key} at its grid's edges: " + "; ".join(seen))
+    require(err == 0, f"{tag}: {key} disagrees with its plain version at an edge")
     return err
 
 
@@ -1010,7 +1015,7 @@ def match_key(m):
 def recipe_engine(ctx, name: str):
     """The engines of the full-size phases by name, so that a worker process
     can build its own: ``fuzzy1`` (4b), ``forbid`` (4c), ``fuzzy2`` (4c'),
-    ``typed`` (4d), ``mapped`` (4e), ``mapped4`` (4e'')."""
+    ``typed`` (4d), ``typed14`` (4d'), ``mapped`` (4e), ``mapped4`` (4e'')."""
     L, P = ctx.Limits, ctx.Pattern
     if name == "fuzzy1":
         return make_engine(ctx, HEADLINE, L.new().edits(1))
@@ -1023,6 +1028,8 @@ def recipe_engine(ctx, name: str):
                  else P.of("sollicitudin").fuzzy(L.new().substitutions(1)) if w == "sollicitudin"
                  else w for w in HEADLINE]
         return make_engine(ctx, words, L.new().edits(1))
+    if name == "typed14":
+        return make_engine(ctx, HEADLINE, L.new().edits(2).substitutions(1))
     if name == "mapped":
         return make_engine(ctx, HEADLINE + ["modern"], L.new().edits(1), mappings=[("rn", "m")])
     if name == "mapped4":
@@ -1856,6 +1863,119 @@ def rows_kernel_checks(ctx, edited: str, uni_text: str) -> dict:
     return errs, regs
 
 
+#: The instances of the typed DP past 32 cells, typed_dp_rows_kernel<E, S,
+#: G> (G lanes a candidate, S channel slots a lane), each with a typed limit
+#: that routes to it: (E, S, G, channels, limits).
+TYPED_ROWS = (
+    (2, 1, 16, 14, lambda L: L.new().edits(2).substitutions(1)),
+    (3, 1, 16, 15, lambda L: L.new().edits(3).insertions(1).deletions(1).substitutions(1)
+     .swaps(1)),
+    (3, 1, 32, 20, lambda L: L.new().edits(3).insertions(1).deletions(1).substitutions(1)),
+    (3, 2, 32, 33, lambda L: L.new().edits(3).insertions(2).deletions(2)),
+    (4, 1, 16, 16, lambda L: L.new().edits(4).insertions(1).deletions(1).substitutions(1)
+     .swaps(1)),
+    (4, 1, 32, 28, lambda L: L.new().edits(4).insertions(1).deletions(1).substitutions(1)),
+    (4, 2, 32, 55, lambda L: L.new().edits(4).substitutions(1)),
+    (4, 3, 32, 65, lambda L: L.new().edits(4).insertions(2)),
+    (5, 1, 16, 16, lambda L: L.new().edits(5).insertions(1).deletions(1).substitutions(1)
+     .swaps(1)),
+    (5, 1, 32, 24, lambda L: L.new().edits(5).insertions(1).deletions(1).substitutions(1)
+     .swaps(2)),
+    (5, 2, 32, 48, lambda L: L.new().edits(5).insertions(1).deletions(1).substitutions(2)),
+    (5, 3, 32, 96, lambda L: L.new().edits(5).insertions(2).deletions(2)),
+    (6, 1, 16, 16, lambda L: L.new().edits(6).insertions(1).deletions(1).substitutions(1)
+     .swaps(1)),
+    (6, 1, 32, 24, lambda L: L.new().edits(6).insertions(1).deletions(1).substitutions(1)
+     .swaps(2)),
+    (6, 2, 32, 44, lambda L: L.new().edits(6).insertions(1).deletions(1).substitutions(1)),
+    (6, 3, 32, 96, lambda L: L.new().edits(6).insertions(1).deletions(2).substitutions(3)),
+)
+
+
+def typed_rows_instances(log_text: str) -> dict:
+    """{"E=2 S=1 G=16", ...: (mangled name, registers, spill bytes)} of
+    ``typed_dp_rows_kernel<E, S, G>`` from the ``ptxas -v`` report."""
+    return {f"E={E} S={S} G={G}": ptxas_entry(log_text, rf"typed_dp_rows_kernelILi{E}ELi{S}ELi{G}E")
+            for E, S, G, _n, _l in TYPED_ROWS}
+
+
+def typed_rows_checks(ctx, edited: str, corpus: str) -> tuple:
+    """Phase 3 for ``typed_dp_rows_kernel<E, S, G>``, the typed DP past 32
+    cells (a channel per lane and slot, the bands in registers, early stop,
+    a grid of resident blocks): the typed step (``compare_pipeline``, each
+    kernel alone too: the decisions and the row counts of ``typed_dp``
+    against ``typed_dp_torch``, the rows of ``typed_emit``) bit for bit at
+    every instance, E = 2..6 and 14 to 96 channels; at 14, 55 and 96
+    channels also on int32 ids; the 14-channel engine at a threshold that a
+    similarity ties exactly, over filler only, and over the first 16 MiB
+    of ``corpus`` (slice 1 of phase 4d'); the 96-channel E = 6 engine over
+    filler only; the 16-channel E = 4 engine over a text whose candidate
+    list is longer than any grid the kernel launches, so that its groups
+    take several candidates in turn. Returns ({kernel: max_abs_err}, the
+    instances' registers and spill bytes)."""
+    torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
+    L = ctx.Limits
+    t0 = time.perf_counter()
+    mib = edited[: 1 << 20]
+    long_text = word_corpus(GERMAN_LONG_TEXT, 3000, SEED + 27)
+    errs = dict.fromkeys(("typed_step", "typed_expand", "typed_dp", "typed_emit"), 0.0)
+
+    def case(eng, text, thr, what, E, nch, G=None, want_rows=True, wide=False):
+        plan, run = lane_inputs(vdp, eng, text, thr, what)
+        TT = run.variant.typed
+        require(TT is not None and plan.E == E and TT.nch == nch,
+                f"{what}: E = {plan.E}, {TT.nch if TT is not None else 'no'} typed channels")
+        require(G is None or (2 * E + 1) * nch > 32,
+                f"{what}: {(2 * E + 1) * nch} cells, not the rows kernel")
+        compare_slice_pipeline(tpb, vdp, torch, np, plan, run, run.parts[0], thr,
+                               "typed rows DP " + what, want_rows=want_rows, wide=wide,
+                               errs=errs)
+        return plan, run
+
+    engines = {}
+    for E, S, G, nch, limits in TYPED_ROWS:
+        words, text, thr = (HEADLINE, mib, 0.62) if E == 2 else (
+            HEADLINE[:4], edited[: 256 << 10], 0.5) if E == 3 else (GERMAN_LONG, long_text, 0.5)
+        eng = engines[E, nch] = make_engine(ctx, words, limits(L))
+        what = f"E={E} {nch} channels (S={S}, G={G})"
+        case(eng, text, thr, what, E, nch, G)
+        if nch in (14, 55, 96):
+            case(eng, text, thr, what + ", int32 ids", E, nch, G, wide=True)
+    typed14, typed96 = engines[2, 14], engines[6, 96]
+    # A threshold that a typed14 match's similarity ties exactly: the first
+    # from the top that the lane keeps at itself.
+    tie_text = mib[: 256 << 10]
+    sims = sorted({np.float32(m.similarity) for m in typed14.search_raw(tie_text, 0.62)
+                   if m.similarity < 1.0}, reverse=True)
+    tie = next(t for t in sims if any(np.float32(m.similarity) == t
+                                      for m in typed14.search_raw(tie_text, float(t))))
+    case(typed14, tie_text, float(tie), f"E=2 14 channels at the tied threshold {tie!r}", 2, 14)
+    nothing = "lorem ipsum dolor sit amet " * 20000
+    case(typed14, nothing, 0.9, "E=2 14 channels, filler only", 2, 14, want_rows=False)
+    case(typed96, nothing, 0.9, "E=6 96 channels, filler only", 6, 96, want_rows=False)
+    case(typed14, corpus[: 16 << 20], 0.62, "E=2 14 channels, a 16 MiB slice", 2, 14)
+    # A list longer than any grid the kernel launches: at most 2,048
+    # threads an SM, so SMs x 2048 / 16 groups of 16 lanes a wave.
+    plan, run = case(engines[4, 16], word_corpus(GERMAN_LONG_TEXT, 12000, SEED + 28), 0.5,
+                     "E=4 16 channels (S=1, G=16), a list past the grid", 4, 16)
+    part = run.parts[0]
+    _h, pos, words = tpb.packed_hits(part.ids_pf, run.T_scan, run.halo)
+    n_cand = int(vdp.typed_expand(pos, words, vdp.DpWindow(part.lo, part.hi, part.local_n),
+                                  plan.E, run.statics).total[0])
+    groups = (ctx.kern.lib.fac_typed_rows_waves()
+              * torch.cuda.get_device_properties(0).multi_processor_count * 2048 // 16)
+    log(f"  typed rows DP: {n_cand} candidates, at most {groups} groups of 16 lanes in the grid")
+    require(n_cand > groups, "the typed rows DP's list is not longer than its grid")
+    regs = typed_rows_instances(ctx.kern.log)
+    for inst, entry in regs.items():
+        log(f"  typed_dp_rows_kernel {inst}: "
+            + (f"{entry[1]} registers, {entry[2]} bytes spill stores" if entry else "not found"))
+    require(all(regs.values()), "an instance of typed_dp_rows_kernel is missing from ptxas")
+    log(f"  typed rows DP checks: max_abs_err {errs}, {time.perf_counter() - t0:.1f} s")
+    require(all(v == 0 for v in errs.values()), "the typed rows DP disagrees with its plain version")
+    return errs, regs
+
+
 def expand_inputs(torch, np, dev, K: int, n_pat: int, density: float, seed: int):
     """A synthetic hit list for the expansion: ``K`` ascending positions from
     100 on (gaps of 1-3, so runs of consecutive ends), match words of two
@@ -2001,15 +2121,15 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
         require(launches["typed_expand"] == launches[pipe_keys[1]],
                 f"{tag}: {launches['typed_expand']} expansion launches for "
                 f"{launches[pipe_keys[1]]} steps, not one each")
-    if pipe_keys == LIST_KEYS:
-        # The list step scans nothing: its emission places its rows from
-        # the DP's channel totals, so block_offsets runs for the scan's
-        # counts alone.
+    if pipe_keys in (LIST_KEYS, TYPED_KEYS):
+        # The list and the typed step scan nothing: their emission places
+        # its rows from the DP's channel totals, so block_offsets runs for
+        # the scan's counts alone.
         scans = launches.get("scan_bits", 0) + launches.get("scan_bits_wide", 0)
-        require(launches["count_emit"] <= launches["count_dp"]
+        require(launches[pipe_keys[2]] <= launches[pipe_keys[1]]
                 and launches["block_offsets"] == scans,
                 f"{tag}: {launches['block_offsets']} block_offsets launches for {scans} scans, "
-                f"{launches['count_emit']} emissions for {launches['count_dp']} steps")
+                f"{launches[pipe_keys[2]]} emissions for {launches[pipe_keys[1]]} steps")
     dev_set = {match_key(m) for m in got}
     require(len(dev_set) == len(got), f"{tag}: the lane repeats a match")
     t0 = time.perf_counter()
@@ -2032,8 +2152,8 @@ def lane_main_path(ctx, tag: str, name: str, engine, corpus: str, thr: float, ba
         f"{prof['kernels']:.1f} kernel launches, {prof['copies']:.1f} copies, "
         f"{prof['waits']:.1f} host waits, over {stats['slices']} slices; "
         + "; ".join(f"{k}: the wrapper counted {prof['counted'][k]} launches, the profiler "
-                    f"shows {event_count(prof, k)} events" for k in pipe_keys))
-    step_ms = sum(device_ms(prof, k) for k in pipe_keys)
+                    f"shows {event_count(prof, KERNEL_OF.get(k, k))} events" for k in pipe_keys))
+    step_ms = sum(device_ms(prof, KERNEL_OF.get(k, k)) for k in pipe_keys)
     offs_ms = device_ms(prof, "block_offsets_kernel")
     log(f"  device ms per search: the step's kernels ({', '.join(pipe_keys)}) {step_ms:.4f}, "
         f"block_offsets {offs_ms:.4f}, the scan {device_ms(prof, 'scan_bits'):.4f}")
@@ -2054,10 +2174,9 @@ def step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
     (``args``, the arguments of ``dp_pipeline``): CUDA-event ms of each
     wrapper beside its plain version, and its bound from these inputs
     (``tables`` bytes of the DP's tables, ``window`` bytes of the
-    candidates' haystack windows, ``cells`` the DP's cells); for the list
-    step the instances' registers and spill bytes. Returns ({kernel: (ms,
-    plain ms, bound, None)}, {kernel: (instance, registers, spill bytes)}
-    or None)."""
+    candidates' haystack windows, ``cells`` the DP's cells); the instances'
+    registers and spill bytes. Returns ({kernel: (ms, plain ms, bound,
+    None)}, {kernel: (instance, registers, spill bytes)})."""
     torch, tpb, vdp = ctx.torch, ctx.tpb, ctx.vdp
     pos, words, win, _ids, _limit, _T, _pens, _thr, E, _dead, statics, variant = args
     kind = step_kind(vdp, args)
@@ -2065,7 +2184,7 @@ def step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
     (dp, dp_plain), (emit, emit_plain) = step_pieces(vdp, args)
     cands = vdp.typed_expand(pos, words, win, E, statics)
     dec, row_counts = dp(cands)
-    handed, n_rows, M = step_handoff(tpb, vdp, args, row_counts)
+    handed, n_rows, M = step_handoff(row_counts)
     plain_c = vdp.typed_expand_torch(pos, words, win, E, statics)
     plain_d = dp_plain(plain_c)
     n_combo = vdp._combos(E, *statics).shape[1]
@@ -2089,15 +2208,23 @@ def step_times(ctx, tag: str, args, tables: int, window: int, cells: int):
             bound_ms(8 * nce * M + 12 * M + 4 * handed.numel() + 24 * n_rows, nce * M,
                      INT_RATE), None),
     }
-    regs = None
     if kind == "list":
         cells_per = (2 * E + 1) * (E + 1)
         G = 8 if cells_per <= 8 else 16 if cells_per <= 16 else 32 if cells_per <= 32 else 0
         maps = int(variant.maps is not None)
-        regs = {k_dp: ptxas_entry(ctx.kern.log, rf"count_dp_kernelILi{G}ELb{maps}E" if G
-                                  else rf"count_dp_rows_kernelILi{E}ELb{maps}E"),
-                k_emit: ptxas_entry(ctx.kern.log, r"count_emit_kernel"),
-                k_expand: ptxas_entry(ctx.kern.log, r"typed_expand_kernel")}
+        dp_inst = (rf"count_dp_kernelILi{G}ELb{maps}E" if G
+                   else rf"count_dp_rows_kernelILi{E}ELb{maps}E")
+    else:
+        nch = variant.typed.nch
+        cells_per = (2 * E + 1) * nch
+        if cells_per <= 32:
+            dp_inst = rf"typed_dp_kernelILi{8 if cells_per <= 8 else 16 if cells_per <= 16 else 32}E"
+        else:
+            S, G = (1, 16) if nch <= 16 else (-(-nch // 32), 32)
+            dp_inst = rf"typed_dp_rows_kernelILi{E}ELi{S}ELi{G}E"
+    regs = {k_dp: ptxas_entry(ctx.kern.log, dp_inst),
+            k_emit: ptxas_entry(ctx.kern.log, r"count_emit_kernel"),
+            k_expand: ptxas_entry(ctx.kern.log, r"typed_expand_kernel")}
     for name, (ms, plain, (b_ms, b_by), _lib) in recs.items():
         log(f"  {tag} {name}: {items} items, {M} candidates, {n_rows} rows; wrapper {ms:.4f} ms, "
             f"plain {plain:.4f} ms, bound {b_ms:.4g} ms by {b_by} ({b_ms / ms:.3g} of the time)"
@@ -2117,7 +2244,7 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     (ms, plain ms, bound) of the step and of the DP-only kernel, ``scan_errs``
     (max_abs_err of scan_bits, block_offsets, hit_words), ``steps``
     {kernel: (ms, plain ms, bound, None)} and ``regs`` {kernel: (instance,
-    registers, spill bytes)} (the list step's) or None, ``offsets`` the
+    registers, spill bytes)} (the typed or the list step's) or None, ``offsets`` the
     ``offsets_times`` records, and ``device_ms`` the step's kernels' device
     ms per call of the wrapper (torch.profiler)."""
     torch, np, tpb, vdp = ctx.torch, ctx.np, ctx.tpb, ctx.vdp
@@ -2131,13 +2258,12 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     kind = step_kind(vdp, p_args)
     typed = kind == "typed"
     err_offs, offs_recs = 0, []
-    # The list step hands block_offsets nothing: its emission places its
-    # rows from the DP's channel totals.
-    for counts in vdp.dp_pipeline_counts(*p_args) if kind != "list" else ():
+    # The list and the typed step hand block_offsets nothing: their
+    # emission places its rows from the DP's channel totals.
+    for counts in vdp.dp_pipeline_counts(*p_args) if kind == "pipeline" else ():
         err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
                                       - tpb.block_offsets_torch(counts).long()).abs().max()))
-        what = "typed step's row" if kind == "typed" else "count pass's"
-        offs_recs.append(offsets_times(tpb, torch, counts, f"{tag}, the {what} counts"))
+        offs_recs.append(offsets_times(tpb, torch, counts, f"{tag}, the count pass's counts"))
     log(f"  {tag}: block_offsets over the step's counts, max_abs_err {err_offs}")
     require(err_offs == 0, f"{tag}: block_offsets disagrees on the step's counts")
     scan_errs = (scan_errs[0], max(scan_errs[1], err_offs), scan_errs[2])
@@ -2165,7 +2291,7 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
                         + pen_k.numel() * (4 if cnt_k is None else 8),
                         cells * DP_CELL_INSTR, F32_RATE)
     step_recs = regs = None
-    emit_err = emit_edge_checks(ctx, tag, p_args) if kind == "list" else 0
+    emit_err = emit_edge_checks(ctx, tag, p_args) if kind != "pipeline" else 0
     if kind != "pipeline":
         step_recs, regs = step_times(ctx, tag, p_args, tables, window, cells)
     pipe_ms = event_ms(torch, lambda: vdp.dp_pipeline(*p_args), 10)
@@ -2174,10 +2300,10 @@ def lane_kernel_times(ctx, tag: str, engine, text: str, thr: float):
     dp_plain_ms = event_ms(torch, plain, 1)
     prof = profile_search(torch, lambda: vdp.dp_pipeline(*p_args), 20, tpb.LAUNCHES)
     keys = STEP_KEYS[kind]
-    dev_ms = {k: device_ms(prof, k) for k in keys}
+    dev_ms = {k: device_ms(prof, KERNEL_OF.get(k, k)) for k in keys}
     dev_ms["block_offsets"] = device_ms(prof, "block_offsets_kernel")
     counted = ", ".join(f"{k} {prof['counted'][k]} launches counted, "
-                        f"{event_count(prof, k)} events" for k in keys)
+                        f"{event_count(prof, KERNEL_OF.get(k, k))} events" for k in keys)
     log(f"  {tag} slice 1 of {len(run.parts)} ({variant_name(run)}, E={plan.E}, k={plan.k}): "
         f"{hits} hits x {plan.n_combo} combos, {cand_k} candidates, {rows_k.shape[0]} rows; "
         f"step wrapper {pipe_ms:.4f} ms, device ms per call "
@@ -4139,7 +4265,7 @@ def compare_step(tpb, vdp, torch, args, hits: int, what: str, prefix: str = "",
     err = float((rows_k.long() - rows_p.long()).abs().max()) if same and rows_k.numel() else 0.0
     n_counts, err_offs = [], 0
     if hits:
-        for counts in vdp.dp_pipeline_counts(*args) if step_kind(vdp, args) != "list" else ():
+        for counts in vdp.dp_pipeline_counts(*args) if step_kind(vdp, args) == "pipeline" else ():
             n_counts.append(counts.numel())
             err_offs = max(err_offs, int((tpb.block_offsets(counts).long()
                                           - tpb.block_offsets_torch(counts).long()).abs().max()))
@@ -4504,7 +4630,7 @@ def smoke(torch, start_pool, workers: int) -> int:
 
     oracle_jobs = (("many1k", many_text, MANY_THRESHOLD), ("forbid", corpus, 0.62),
                    ("fuzzy1", corpus, 0.8), ("typed", corpus, 0.8), ("mapped", mapped_corpus, 0.8),
-                   ("fuzzy2", corpus, 0.62))
+                   ("fuzzy2", corpus, 0.62), ("typed14", corpus, 0.62))
     for job in oracle_jobs:
         if job[1] is mapped_corpus:
             contexts_of[mapped_corpus] = mapped_contexts.get()
@@ -4638,6 +4764,9 @@ def smoke(torch, start_pool, workers: int) -> int:
     rows_errs, rows_regs = rows_kernel_checks(ctx, edited, uni_text[: 16 << 10])
     for key, err in rows_errs.items():
         lane_errs[key] = max(lane_errs[key], err)
+    typed_rows_errs, typed_rows_regs = typed_rows_checks(ctx, edited, corpus)
+    for key, err in typed_rows_errs.items():
+        lane_errs[key] = max(lane_errs[key], err)
     lane_errs["typed_expand"] = max(lane_errs["typed_expand"], expand_kernel_checks(ctx))
     deep_errs = deep_kernel_checks(ctx)
     anchors_deep_check(ctx, plant(corpus[: 256 << 10], SEED + 26, 300, (1, 3)))
@@ -4707,7 +4836,7 @@ def smoke(torch, start_pool, workers: int) -> int:
     require(n_slices == 8 and sliced_r == whole_r and len(whole_r) > 0,
             "sliced fuzzy search disagrees with unsliced")
 
-    typed14 = make_engine(ctx, HEADLINE, FuzzyLimits.new().edits(2).substitutions(1))
+    typed14 = recipe_engine(ctx, "typed14")
     for eng, thr, backend, what in ((forbid_e, 0.62, "device-fuzzy-dp-forbid", "forbid"),
                                     (typed_e, 0.8, "device-fuzzy-dp-typed", "typed"),
                                     (typed14, 0.62, "device-fuzzy-dp-typed",
@@ -4873,6 +5002,9 @@ def smoke(torch, start_pool, workers: int) -> int:
          fuzzy2_e, corpus, 0.62, "device-fuzzy-dp", LIST_KEYS, 1000),
         ("4d", "typed", "typed lane, edits(1) with an exact-only and a substitutions(1) pattern, "
          "threshold 0.8", typed_e, corpus, 0.8, "device-fuzzy-dp-typed", TYPED_KEYS, 1000),
+        ("4d'", "typed14", "typed14, edits(2).substitutions(1): 5 bands x 14 type vectors, the "
+         "typed DP past 32 cells, threshold 0.62", typed14, corpus, 0.62,
+         "device-fuzzy-dp-typed", TYPED_KEYS, 1000),
         ("4e", "mapped", "mapped lane, headline + modern, rn <-> m, edits(1), threshold 0.8, every 50th "
          "commodo a modem", mapped_e, mapped_corpus, 0.8, "device-fuzzy-dp-mapped",
          LIST_KEYS, 1000),
@@ -5227,23 +5359,10 @@ def smoke(torch, start_pool, workers: int) -> int:
         for tag, what, eng, thr in (("4c", "forbid", forbid_e, 0.62), ("4d", "typed", typed_e, 0.8),
                                     ("4e", "mapped", mapped_e, 0.8),
                                     ("4e''", "mapped4", m4.engine, MAPPED4_THRESHOLD))}
-    # A typed engine with many channels (5 bands x 14 type vectors behind a
-    # k = 2 scan) at a full slice, and its searches over the whole corpus.
-    with plain_locked(*locked):
-        typed14.search_raw(corpus, 0.62)
-        times_14 = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got_14 = typed14.search_raw(corpus, 0.62)
-            torch.cuda.synchronize()
-            times_14.append(time.perf_counter() - t0)
-    log(f"  typed edits(2).substitutions(1), {len(corpus)} bytes: best of 3 "
-        f"{min(times_14) * 1e3:.3f} ms (all {', '.join(f'{t * 1e3:.3f}' for t in times_14)}), "
-        f"{len(got_14)} matches, last_stats {typed14.last_stats}")
-    require(typed14.last_stats["backend"] == "device-fuzzy-dp-typed", "typed14 backend")
-    lane_times["typed14"] = lane_kernel_times(ctx, "typed edits(2).substitutions(1)", typed14,
-                                              corpus, 0.62)
+    # typed14 (4d'): 5 bands x 14 type vectors behind a k = 2 scan, the
+    # typed DP past 32 cells, at its full slice.
+    lane_times["4d'"] = lane_kernel_times(ctx, "4d' typed14", typed14, lane_runs["4d'"].text,
+                                          0.62)
     # The list step's emission at its grid's edges on fuzzy2's slice 1 too
     # (forbid2's, mapped's and mapped4's ran in lane_kernel_times).
     plan2, run2 = lane_inputs(vdp, fuzzy2_e, lane_runs["4c'"].text, 0.62, "4c' fuzzy2")
@@ -5251,7 +5370,9 @@ def smoke(torch, start_pool, workers: int) -> int:
     lane_errs["count_emit"] = max(
         [lane_errs["count_emit"], emit_edge_checks(ctx, "4c' fuzzy2", pipeline_args(
             vdp, np, plan2, run2, run2.parts[0], pos2, words2, 0.62))]
-        + [lane_t.emit_err for lane_t in lane_times.values()])
+        + [lane_t.emit_err for tag, lane_t in lane_times.items() if tag not in ("4d", "4d'")])
+    lane_errs["typed_emit"] = max(lane_errs["typed_emit"], lane_times["4d"].emit_err,
+                                  lane_times["4d'"].emit_err)
     for tag, lane_t in lane_times.items():
         if tag == "4e''":  # the deep instances
             for key, e in zip(("scan_bits_wide[k=7..24]", "block_offsets",
@@ -5292,7 +5413,6 @@ def smoke(torch, start_pool, workers: int) -> int:
     for n_o in (129864, (1 << 22) + 7):
         counts_o = torch.from_numpy(rng_o.integers(0, 100, n_o).astype(np.int32)).to(dev)
         offs_shapes.append(offsets_times(tpb, torch, counts_o, f"synthetic, {n_o} counts"))
-    typed_offs = lane_times["4d"].offsets[-1]
     range_recs = [compare_ranges(ctx, fuzzy, corpus, 0.8, "dp_pipeline (FAST) in ranges"),
                   compare_ranges(ctx, typed_e, lane_runs["4d"].text, 0.8,
                                  "the typed step in ranges")]
@@ -5338,9 +5458,6 @@ def smoke(torch, start_pool, workers: int) -> int:
                 "many1k_counts_ms": many_rec[name][0], "many1k_counts_plain_ms": many_rec[name][1],
                 "many1k_counts_bound_ms": many_rec[name][2][0],
                 "many1k_counts_library_ms": many_rec[name][3],
-                "typed_counts_ms": typed_offs["ms"], "typed_counts_plain_ms": typed_offs["plain_ms"],
-                "typed_counts_bound_ms": typed_offs["bound_ms"],
-                "typed_counts_library_ms": typed_offs["library_ms"],
                 "shapes": offs_shapes} if name == "block_offsets" else {}),
             device_ms_per_exact_search=search_ms(prof_x, name),
             device_ms_per_fuzzy_search=search_ms(prof_f, name)))
@@ -5394,30 +5511,47 @@ def smoke(torch, start_pool, workers: int) -> int:
                                       ("4e", "banded_dp[maps]", f"{jax_vd}:611")):
         held.append(record(dp_name, f"{PKG}/csrc/banded_dp.cu", dp_replaces, 0, err_dp_all,
                            *lane_times[tag].dp, None))
-    # The typed step of phase 4d, a kernel each: what its searches launched,
-    # its times at slice 1 of 4d and of the 14-channel engine, and the
-    # DP-only entry point.
-    lane, lane_t, t14 = lane_runs["4d"], lane_times["4d"], lane_times["typed14"]
+    # The typed step of phases 4d and 4d', a kernel each: what their
+    # searches launched, the times at slice 1 of 4d (typed) and of 4d'
+    # (typed14), and the DP-only entry point. The DP is two kernels: up to
+    # 32 cells typed_dp_kernel<G> (4d), past them typed_dp_rows_kernel<E, S,
+    # G> (4d', every instance held against its plain version in phase 3).
+    # The emission is the list step's count_emit_kernel.
+    lane, lane_t, t14, run14 = lane_runs["4d"], lane_times["4d"], lane_times["4d'"], lane_runs["4d'"]
     lane_errs["typed_emit"] = max(lane_errs["typed_emit"], lane_errs["typed_step"])
     lane_errs["count_emit"] = max(lane_errs["count_emit"], lane_errs["list_step"])
-    for name, replaces in (("typed_expand", f"{jax_vd}:1411"), ("typed_dp", f"{jax_vd}:935"),
-                           ("typed_emit", f"{jax_vd}:1208")):
+    for name, source, replaces in (("typed_expand", "dp_typed.cu", f"{jax_vd}:1411"),
+                                   ("typed_emit", "dp_list.cu", f"{jax_vd}:1208")):
         # The expansion serves the list step too: its launches are both steps'.
         n_list = sum(lane_runs[tag].launches[name] for tag in list_tags + ("4e''",))
+        kern_name = KERNEL_OF.get(name, name + "_kernel")
         kernels.append(record(
-            name, f"{PKG}/csrc/dp_typed.cu", replaces,
-            lane.launches[name] + n_list + k4_sum(name),
+            name, f"{PKG}/csrc/{source}", replaces,
+            lane.launches[name] + run14.launches[name] + n_list + k4_sum(name),
             lane_errs[name], *lane_t.steps[name], launches_4k=k4_sum(name),
-            device_ms_per_search=search_ms(lane.prof, name, name),
+            device_ms_per_search={tag: search_ms(lane_runs[tag].prof, name, kern_name)
+                                  for tag in ("4d", "4d'")},
             typed14_ms=t14.steps[name][0], typed14_plain_ms=t14.steps[name][1],
-            typed14_bound_ms=t14.steps[name][2][0],
+            typed14_bound_ms=t14.steps[name][2][0], instance=lane_t.regs[name],
             **({"list_step": {tag: {"ms": lane_times[tag].steps[name][0],
                                     "plain_ms": lane_times[tag].steps[name][1],
                                     "bound_ms": lane_times[tag].steps[name][2][0],
                                     "device_ms_per_search": search_ms(lane_runs[tag].prof, name,
                                                                       name)}
-                              for tag in ("4c", "4e", "4e''")},
-                "instance": lane_times["4c"].regs[name]} if name == "typed_expand" else {})))
+                              for tag in ("4c", "4e", "4e''")}} if name == "typed_expand"
+               else {"kernel": "count_emit_kernel"})))
+    kernels.append(record(
+        "typed_dp", f"{PKG}/csrc/dp_typed.cu", f"{jax_vd}:935",
+        lane.launches["typed_dp"] + k4_sum("typed_dp"), lane_errs["typed_dp"],
+        *lane_t.steps["typed_dp"], launches_4k=k4_sum("typed_dp"),
+        device_ms_per_search=search_ms(lane.prof, "typed_dp"), instance=lane_t.regs["typed_dp"]))
+    kernels.append(record(
+        "typed_dp[rows]", f"{PKG}/csrc/dp_typed.cu", f"{jax_vd}:935",
+        run14.launches["typed_dp"], lane_errs["typed_dp"], *t14.steps["typed_dp"],
+        launches_4k=0,
+        device_ms_per_search=search_ms(run14.prof, "typed_dp", "typed_dp_rows_kernel"),
+        instance=t14.regs["typed_dp"], instances=typed_rows_regs,
+        step_ms=t14.pipe[0], step_device_ms=t14.device_ms))
     held.append(record("banded_dp_typed", f"{PKG}/csrc/dp_typed.cu", f"{jax_vd}:935", 0,
                        lane_errs["banded_dp_typed"], *lane_t.dp, None))
     # The large-dictionary lane of phase 4f: the kernels its searches
@@ -5511,8 +5645,6 @@ def smoke(torch, start_pool, workers: int) -> int:
                       "searches": {
                           "exact_ms": [t * 1e3 for t in times],
                           "typed_step_device_ms_per_search": lane_runs["4d"].step_ms,
-                          "typed_block_offsets_device_ms_per_search": lane_runs["4d"].offsets_ms,
-                          "typed14_ms": [t * 1e3 for t in times_14],
                           "fuzzy_ms": [t * 1e3 for t in times_f],
                           **{f"{tag.replace(' ', '_')}_ms": [t * 1e3 for t in run.times]
                              for tag, run in many_runs.items()},

@@ -821,7 +821,12 @@ struct EmitArgs {
   const int32_t* out_list;    // [N, MO]
   int MO, E, n_combo;
   const int2* dec;            // [nce, items]
-  const int32_t* row_counts;  // [nce * ntile + nce + 2], count_dp's
+  // A row's packed counts: counts[y * counts_stride] of its decision's
+  // column y (the typed step's graph column of channel y), or y itself
+  // where counts is null (the count step's).
+  const int32_t* counts;
+  int counts_stride;
+  const int32_t* row_counts;  // [nce * ntile + nce + 2], count_dp's (or typed_dp's)
   long long ntile;            // tiles of the list's bound (the row counts' stride)
   long long live_tiles;       // tiles of the candidates the host counted
   int32_t* rows;              // [total, 5]
@@ -886,7 +891,7 @@ __global__ void __launch_bounds__(EMIT_THREADS) count_emit_kernel(EmitArgs a) {
     r[1] = dv[q].x;
     r[2] = __ldg(a.depth + f) + (b - a.E);
     r[3] = __ldg(a.out_list + (long long)__ldg(a.node + f) * a.MO + o);
-    r[4] = dv[q].y;
+    r[4] = a.counts == nullptr ? dv[q].y : __ldg(a.counts + (long long)dv[q].y * a.counts_stride);
     if (a.tags != nullptr) s_tags[rank] = (int)ce * a.n_combo + __ldg(a.cand_combo + m);
     ++rank;
   }
@@ -1091,22 +1096,27 @@ int fac_count_dp(const void* cand_field, const void* cand_start, const void* n_c
   return (int)rc;
 }
 
-// The list step's emission. The candidate list (cand_combo too) and n_cand
-// as fac_count_dp read them; depth, node: int32 [F]; out_list: int32 [N,
-// MO]; dec and row_counts as fac_count_dp wrote them; rows: int32 [total,
-// 5], 16-byte aligned; tags: int32 [total] or null. live: the candidates'
-// total, which the host has read; the grid is a block per (channel, tile
-// of them), (2E+1) MO x ceil(live / fac_count_tile()) blocks. Returns the
-// launch's cudaError_t.
+// The emission of the list step and of the typed step. The candidate list
+// (cand_combo too) and n_cand as fac_count_dp (fac_typed_dp) read them;
+// depth, node: int32 [F]; out_list: int32 [N, MO]; counts: null for the
+// list step, whose decisions hold the packed counts, or the typed step's
+// packed-counts column of its graph (int32, counts_stride >= 1 apart, one
+// per channel); dec and row_counts as fac_count_dp (fac_typed_dp) wrote
+// them; rows: int32 [total, 5], 16-byte aligned; tags: int32 [total] or
+// null. live: the candidates' total, which the host has read; the grid is a
+// block per (channel, tile of them), (2E+1) MO x ceil(live /
+// fac_count_tile()) blocks. Returns the launch's cudaError_t.
 int fac_count_emit(const void* cand_field, const void* cand_start, const void* cand_combo,
                    const void* n_cand, long long items, long long live, const void* depth,
                    const void* node, const void* out_list, int MO, int E, int n_combo,
-                   const void* dec, const void* row_counts, long long ntile,
-                   void* rows, void* tags, void* stream) {
+                   const void* counts, int counts_stride, const void* dec,
+                   const void* row_counts, long long ntile, void* rows, void* tags,
+                   void* stream) {
   if (items < 1 || MO < 1 || E < 1 || E > MAX_E || n_combo < 1 ||
       (2 * E + 1) * MO > MAX_CHANNELS || ntile != (items + LIST_TILE - 1) / LIST_TILE ||
       ntile > 0x7FFFFFFFll || rows == nullptr || live < 0 || live > items ||
-      reinterpret_cast<uintptr_t>(rows) % 16 != 0 || row_counts == nullptr) {
+      reinterpret_cast<uintptr_t>(rows) % 16 != 0 || row_counts == nullptr ||
+      (counts != nullptr && counts_stride < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long live_tiles = (live + LIST_TILE - 1) / LIST_TILE;
@@ -1124,6 +1134,8 @@ int fac_count_emit(const void* cand_field, const void* cand_start, const void* c
   a.MO = MO;
   a.E = E;
   a.n_combo = n_combo;
+  a.counts = static_cast<const int32_t*>(counts);
+  a.counts_stride = counts_stride;
   a.dec = static_cast<const int2*>(dec);
   a.row_counts = static_cast<const int32_t*>(row_counts);
   a.ntile = ntile;

@@ -1,15 +1,16 @@
 // Banded Damerau DP with edit-type-vector channels, alone and as the
-// expansion -> DP -> emission step of one corpus slice, for Hopper (sm_90a).
+// expansion -> DP step of one corpus slice, for Hopper (sm_90a).
 //
-// Replaces the JAX package's XLA device functions
-// fuzzy_aho_corasick_tpu/ops/verify_dp.py::_banded_dp_typed and
-// _emit_rows_typed (and, in front of them, _expand_candidates), the typed
-// branch of _dp_pipeline_jit, which XLA compiled per engine from an unrolled
-// graph of Lmax x B x NCH vector ops. Plain torch versions (ops/verify_dp.py):
-// expand_candidates, typed_dp_torch (banded_dp_typed_torch, then
-// typed_decisions_torch), typed_rows_torch, and banded_dp_typed_torch for the
-// DP alone; wrappers verify_dp.typed_expand, typed_dp, typed_emit,
-// banded_dp_typed.
+// Replaces the JAX package's XLA device function
+// fuzzy_aho_corasick_tpu/ops/verify_dp.py::_banded_dp_typed (and, in front
+// of it, _expand_candidates), the typed branch of _dp_pipeline_jit, which
+// XLA compiled per engine from an unrolled graph of Lmax x B x NCH vector
+// ops; its emission, _emit_rows_typed, is the list step's count_emit_kernel
+// (dp_list.cu). Plain torch versions (ops/verify_dp.py): expand_candidates,
+// typed_dp_torch (banded_dp_typed_torch, then typed_decisions_torch), and
+// banded_dp_typed_torch for the DP alone; wrappers verify_dp.typed_expand,
+// typed_dp, banded_dp_typed (and typed_emit, which launches
+// count_emit_kernel).
 //
 // What it computes. Per candidate (field f, start s) the recurrences of
 // banded_dp.cuh without counts and without a dead-end filter, over NCH
@@ -31,7 +32,7 @@
 // is bound by the dependent-instruction latency of each candidate's row
 // loop, not by bytes: slice 1 of the typed main path is ~10^4 candidates of
 // ~10 rows. So every live candidate gets its own worker and they all start
-// at once; the step is four launches and one host wait:
+// at once; the step is three launches and one host wait:
 //   1. typed_expand_kernel, a thread per (combo, hit) item (items
 //      combo-major over the hits h0..K-1; a hit before h0 is read only as
 //      the predecessor of hit h0): the candidate list (field, start, combo)
@@ -48,49 +49,75 @@
 //      cleared: no memset), release stores and acquire loads. Here all
 //      TE_THREADS threads of a block read the words of TE_THREADS blocks
 //      before it in one round.
-//   2. typed_dp_kernel, one group of G = 8, 16 or 32 lanes per candidate of
-//      the list, G picked at launch from the B x NCH cells. The grid covers
-//      the item bound (the candidate total is on the card only); blocks past
-//      the total leave at once. Where the cells fit the group (15 for
-//      edits(1) with 5 channels), each lane holds one cell in registers: the
-//      arrivals from row i-1 and i-2 and the insertion pass band by band are
-//      shuffles within the group. Wider engines (70 cells for
-//      edits(2).substitutions(1), up to 13 x 96) keep the five rows in
-//      shared memory, a warp per candidate (typed_dp_warp). The path's
-//      per-row values (class, ceiling, the two caps rows) and the haystack
-//      window are staged in shared memory by the group's lanes in parallel
-//      before the row loop, so the dependent reads node -> ceiling / caps
-//      are paid once per candidate, not once per row. The DP runs once: per
-//      emission channel (band, output slot) it keeps the winning penalty
-//      bits and channel, or no row, in dec [nce, items], and counts its rows
-//      per (channel, tile of TYPED_TILE candidates) (a block's counts
-//      summed in shared memory, then one atomic per channel).
-//   3. block_offsets_kernel over those counts; the host reads the rows' and
-//      the candidates' totals (one strided read, the step's host wait).
-//   4. typed_emit_kernel, a block per tile, a thread per candidate: per
-//      emission channel a block scan of the row flags places the rows, and
-//      the tags (channel * n_combo + combo) where asked, in (channel,
-//      candidate) order, which is (channel, item) order.
+//   2. the DP over the list. Where the B x NCH cells fit a group of G = 8,
+//      16 or 32 lanes (15 for edits(1) with 5 channels), typed_dp_kernel<G>
+//      holds one cell per lane in registers: the arrivals from row i-1 and
+//      i-2 and the insertion pass band by band are shuffles within the
+//      group; its grid covers the item bound (the candidate total is on the
+//      card only) and blocks past the total leave at once. Past 32 cells
+//      (70 for edits(2).substitutions(1), up to 13 x 96) a warp per
+//      candidate kept five rows of B x NCH floats in shared memory, re-read
+//      ~10 graph words per cell and row, ran B - 1 insertion rounds and a
+//      ceiling pass each behind a __syncwarp, walked every row to the depth
+//      though most candidates die in a few, and launched a block per four
+//      items of the bound. typed_dp_rows_kernel<E, S, G> gives a candidate
+//      a group of G = 16 lanes (NCH <= 16: two candidates a warp) or 32,
+//      channel ch = s G + lane in slot s < S of a lane (S = 1..3: NCH up
+//      to 96), and holds the B bands of each slot's rows i-1, i-2 and of
+//      its emission channel in registers (E and S template parameters, so
+//      band and slot indices are compile-time). Substitution and swap come
+//      from band b of the source channel, deletion and the trailing
+//      deletion from band b+1, the insertion from band b-1 of the same row,
+//      ascending b: each a shuffle from the source's lane (S shuffles where
+//      a lane has S slots, the source's slot picked). The lane's graph
+//      constants (sources, their edit totals and type counts) are read once
+//      per kernel, the band symbols slide in registers (one staged load a
+//      row), and the group stops once no value a later row reads (rows i,
+//      i-1, the emission channel of row i) is finite. Its grid holds four
+//      waves of the card's resident blocks and their groups stride over
+//      the list with no block barrier. The path's per-row values (class, ceiling, the two
+//      caps rows) and the haystack window are staged in shared memory by
+//      the group's lanes in parallel before the row loop, so the dependent
+//      reads node -> ceiling / caps are paid once per candidate, not once
+//      per row. The DP runs once: per emission channel (band, output slot)
+//      it keeps the winning penalty bits and channel, or no row, in dec
+//      [nce, items], and counts its rows per (channel, tile of TYPED_TILE
+//      candidates), per channel and in all, and writes the candidates'
+//      total last: count_dp's layout (dp_list.cu).
+//   3. the host reads the rows' and the candidates' totals (the last two
+//      words of the row counts, the step's host wait);
+//   4. count_emit_kernel (dp_list.cu), the list step's emission, with the
+//      graph's packed-counts column for a row's counts: a block per
+//      (channel, tile) pair placed by the channel totals and the tile
+//      counts before it, the rows staged in shared memory and stored as one
+//      stretch, and the tags (channel * n_combo + combo) where asked, in
+//      (channel, candidate) order, which is (channel, item) order. It
+//      replaces a block per tile that walked the channels in turn behind a
+//      block_offsets launch over the row counts.
 // NCH, E, the graph and the admissibility table are run-time tables: one
 // instance of each kernel serves every engine.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
+#include <vector>
 
 #include "lookback.cuh"
 
 namespace {
 
-constexpr int TY_THREADS = 128;   // the DP-only kernel, and the wide DP: a warp per candidate
+constexpr int TY_THREADS = 128;   // the DP-only kernel: a warp per candidate
 constexpr int TY_WARPS = TY_THREADS / 32;
 constexpr int TD_THREADS = 256;   // the DP over the list with register cells
+constexpr int TR_THREADS = 128;   // the DP over the list past 32 cells: groups of 16 or 32
+constexpr int TR_WAVES = 4;       // its grid: this many times the blocks the card holds at once
 constexpr int TE_THREADS = 256;   // threads of an expansion block
 constexpr int TE_WARPS = TE_THREADS / 32;
 constexpr int TE_ITEMS = 8;       // items per thread: a block's tile of TE_TILE items
 constexpr int TE_TILE = TE_THREADS * TE_ITEMS;
 constexpr int TE_SLOTS = TE_ITEMS * TE_WARPS;   // (item row, warp) counts of a tile
 constexpr int TE_PER_LANE = (TE_SLOTS + 31) / 32;  // of them scanned by each lane of warp 0
-constexpr int TYPED_TILE = 1024;  // candidates per row-count tile, and threads of the emission
+constexpr int TYPED_TILE = 1024;  // candidates per row-count tile (dp_list.cu's LIST_TILE)
 constexpr int MAX_E = 6;
 constexpr int MAX_NCH = 96;
 constexpr int MAX_CHANNELS = 128;  // B * MO emission channels a call may have
@@ -100,9 +127,9 @@ constexpr int MAX_CHANNELS = 128;  // B * MO emission channels a call may have
 constexpr int GCOLS = 10;
 constexpr int G_SUB = 0, G_INS = 1, G_DEL = 2, G_SWAP = 3, G_SUM = 4, G_NI = 5, G_ND = 6,
               G_NS = 7, G_NW = 8, G_CNT = 9;
-static_assert(TYPED_TILE % (TD_THREADS / 8) == 0 && TYPED_TILE % TY_WARPS == 0,
-              "a block's candidates lie in one tile");
-static_assert(MAX_CHANNELS <= TY_THREADS, "a thread per emission channel flushes the counts");
+static_assert(TYPED_TILE % (TD_THREADS / 8) == 0, "a block's candidates lie in one tile");
+static_assert(MAX_CHANNELS <= TD_THREADS, "a thread per emission channel flushes the counts");
+static_assert(3 * 32 >= MAX_NCH, "three channel slots of a warp hold every channel");
 
 struct TypedCore {
   const void* ids;            // dense class ids, u8 or int32 [npad]
@@ -595,7 +622,7 @@ struct TypedListArgs {
   TypedCore core;
   const int32_t* cand_field;  // [items] the candidate list, n_cand of them
   const int32_t* cand_start;
-  const int32_t* n_cand;      // on the card: the expansion's offsets[nblk]
+  const int32_t* n_cand;      // on the card: the expansion's total
   long long items;            // the list's bound, dec's row stride
   const int32_t* node;        // [F] output node of each field
   const int32_t* out_list;    // [N, MO] patterns of each node, -1 padded
@@ -606,70 +633,94 @@ struct TypedListArgs {
   const int32_t* limcls;      // [P] limits class of each pattern
   const int32_t* adm;         // [NLC, nch] whether a class admits a channel
   int2* dec;                  // [nce, items]: (penalty bits, channel), channel -1 = no row
-  int32_t* row_counts;        // [nce * ntile + 1]: rows per (channel, tile); n_cand last
+  // [nce * ntile + nce + 2]: rows per (channel, tile) channel-major, rows
+  // per channel, the rows' total, the candidates' total (dp_list.cu's layout)
+  int32_t* row_counts;
   long long ntile;
 };
 
+// The row counts' words after the tiles': the channels' totals from here,
+// then the rows' total and the candidates' total.
+__device__ __forceinline__ long long channel_totals(const TypedListArgs& a, int nce) {
+  return (long long)nce * a.ntile;
+}
+
+// What emission channel ce = (band, slot) of a candidate (field f, depth d,
+// start, output node ``node``) decides from the emission channel ``emit``
+// [B][nch] (shared memory): the strict-< minimum, channels ascending (the
+// fewest edits win penalty ties), over the channels the pattern's limits
+// class admits, and the span and similarity tests; (0, -1) for no row.
+__device__ __forceinline__ int2 typed_decision(const TypedListArgs& a, const float* emit,
+                                               int node, int d, int start, int ce) {
+  const int E = a.core.E, nch = a.core.nch;
+  const int b = ce / a.MO, o = ce - b * a.MO;
+  const int pat = __ldg(a.out_list + (long long)node * a.MO + o);
+  const int ends_b = start + d + (b - E);
+  if (pat < 0 || ends_b > a.core.limit || ends_b < start) return make_int2(0, -1);
+  const int32_t* ad = a.adm + (long long)__ldg(a.limcls + pat) * nch;
+  float best = __int_as_float(0x7f800000);
+  int bch = 0;
+  for (int ch = 0; ch < nch; ++ch) {
+    const float v = emit[b * nch + ch];
+    if (__ldg(ad + ch) != 0 && v < best) {
+      best = v;
+      bch = ch;
+    }
+  }
+  if (!fin(best)) return make_int2(0, -1);
+  const float pl = __ldg(a.pat_len + pat);
+  const float sim = __fmul_rn(__fdiv_rn(__fsub_rn(pl, best), pl), __ldg(a.pat_weight + pat));
+  return sim >= a.bound ? make_int2(__float_as_int(best), bch) : make_int2(0, -1);
+}
+
 // Per emission channel ce = (band, slot) of candidate m, the lanes of its
-// group (gl of G) decide the row from the emission channel ``emit``
-// [B][nch] (shared memory) and count it in s_cnt.
+// group (gl of G) decide the row and count it in s_cnt.
 __device__ __forceinline__ void typed_decide(const TypedListArgs& a, const float* emit, int f,
                                              int d, int start, long long m, int gl, int G,
                                              int* s_cnt) {
-  const int E = a.core.E, nch = a.core.nch, nce = (2 * E + 1) * a.MO;
+  const int nce = (2 * a.core.E + 1) * a.MO;
   const int node = __ldg(a.node + f);
   for (int ce = gl; ce < nce; ce += G) {
-    const int b = ce / a.MO, o = ce - b * a.MO;
-    const int pat = __ldg(a.out_list + (long long)node * a.MO + o);
-    const int ends_b = start + d + (b - E);
-    int2 out = make_int2(0, -1);
-    if (pat >= 0 && ends_b <= a.core.limit && ends_b >= start) {
-      // Strict <, channels ascending: the fewest edits win penalty ties.
-      const int32_t* ad = a.adm + (long long)__ldg(a.limcls + pat) * nch;
-      float best = __int_as_float(0x7f800000);
-      int bch = 0;
-      for (int ch = 0; ch < nch; ++ch) {
-        const float v = emit[b * nch + ch];
-        if (__ldg(ad + ch) != 0 && v < best) {
-          best = v;
-          bch = ch;
-        }
-      }
-      if (fin(best)) {
-        const float pl = __ldg(a.pat_len + pat);
-        const float sim =
-            __fmul_rn(__fdiv_rn(__fsub_rn(pl, best), pl), __ldg(a.pat_weight + pat));
-        if (sim >= a.bound) {
-          out = make_int2(__float_as_int(best), bch);
-          atomicAdd(s_cnt + ce, 1);
-        }
-      }
-    }
+    const int2 out = typed_decision(a, emit, node, d, start, ce);
+    if (out.y >= 0) atomicAdd(s_cnt + ce, 1);
     a.dec[(long long)ce * a.items + m] = out;
   }
 }
 
-// The block's row counts into row_counts (every thread calls it).
+// Adds ``rows`` of each lane of the warp to the rows' total: one atomic a
+// warp (every lane of the warp calls it).
+__device__ __forceinline__ void add_rows(const TypedListArgs& a, int nce, int rows) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) rows += __shfl_xor_sync(0xFFFFFFFFu, rows, o);
+  if ((threadIdx.x & 31) == 0 && rows != 0)
+    atomicAdd(a.row_counts + channel_totals(a, nce) + nce, rows);
+}
+
+// The block's row counts into row_counts: its tile's, the channels' and
+// the rows' total (every thread calls it).
 __device__ __forceinline__ void flush_counts(const TypedListArgs& a, const int* s_cnt,
                                              long long first) {
   __syncthreads();
   const int nce = (2 * a.core.E + 1) * a.MO;
-  if ((int)threadIdx.x < nce && s_cnt[threadIdx.x] != 0)
-    atomicAdd(a.row_counts + (long long)threadIdx.x * a.ntile + first / TYPED_TILE,
-              s_cnt[threadIdx.x]);
+  int rows = 0;
+  if ((int)threadIdx.x < nce && s_cnt[threadIdx.x] != 0) {
+    rows = s_cnt[threadIdx.x];
+    atomicAdd(a.row_counts + (long long)threadIdx.x * a.ntile + first / TYPED_TILE, rows);
+    atomicAdd(a.row_counts + channel_totals(a, nce) + threadIdx.x, rows);
+  }
+  add_rows(a, nce, rows);
 }
 
-// Shared memory of a block of the DP over the list, in 4-byte words: the
-// graph, the block's row counts, then per group its staged rows and, with
-// register cells, the window and G emission cells, else typed_dp_warp's.
-__host__ __device__ inline int list_group_words(int G, bool regs, int E, int nch, int Lmax) {
-  return staged_words(Lmax) + (regs ? Lmax + 2 * E + 1 + G : warp_words(E, nch, Lmax));
+// Shared memory of a block of typed_dp_kernel<G>, in 4-byte words: the
+// graph, the block's row counts, then per group its staged rows, the
+// window and G emission cells.
+__host__ __device__ inline int list_group_words(int G, int E, int Lmax) {
+  return staged_words(Lmax) + Lmax + 2 * E + 1 + G;
 }
 
-inline size_t list_smem_bytes(int G, bool regs, int E, int nch, int Lmax) {
-  const int groups = (regs ? TD_THREADS : TY_THREADS) / G;
+inline size_t list_smem_bytes(int G, int E, int nch, int Lmax) {
   return sizeof(int32_t) * ((size_t)nch * GCOLS + MAX_CHANNELS +
-                            (size_t)groups * list_group_words(G, regs, E, nch, Lmax));
+                            (size_t)(TD_THREADS / G) * list_group_words(G, E, Lmax));
 }
 
 // Block start: the first candidate of the block, the candidate total; every
@@ -680,7 +731,7 @@ __device__ __forceinline__ bool list_block_start(const TypedListArgs& a, int32_t
                                                  int& n_cand) {
   const int nce = (2 * a.core.E + 1) * a.MO;
   n_cand = __ldg(a.n_cand);
-  if (blockIdx.x == 0 && threadIdx.x == 0) a.row_counts[(long long)nce * a.ntile] = n_cand;
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.row_counts[channel_totals(a, nce) + nce + 1] = n_cand;
   first = (long long)blockIdx.x * groups;
   if (first >= n_cand) return false;
   load_graph(a.core, s_mem, nthreads);
@@ -707,7 +758,7 @@ __global__ void __launch_bounds__(TD_THREADS) typed_dp_kernel(TypedListArgs a) {
     const unsigned gm =
         G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
     int32_t* mem = s_mem + core.nch * GCOLS + MAX_CHANNELS +
-                   grp * list_group_words(G, true, core.E, core.nch, core.Lmax);
+                   grp * list_group_words(G, core.E, core.Lmax);
     const int f = __ldg(a.cand_field + m);
     const int start = __ldg(a.cand_start + m);
     const int d = __ldg(core.depth + f);
@@ -722,101 +773,240 @@ __global__ void __launch_bounds__(TD_THREADS) typed_dp_kernel(TypedListArgs a) {
   flush_counts(a, s_cnt, first);
 }
 
-// The DP over the list for engines whose cells pass a warp: a warp per
-// candidate, its rows in shared memory.
-__global__ void __launch_bounds__(TY_THREADS) typed_dp_rows_kernel(TypedListArgs a) {
+// ---------------------------------------------------------------------------
+// The DP over the list past 32 cells: a channel per lane and slot, the bands
+// in registers.
+// ---------------------------------------------------------------------------
+
+// The arrivals into one channel slot of a lane, by type (T_SUB, T_SWAP,
+// T_DEL, T_INS): the source channel's lane in the group and slot, lane |
+// slot << 5 (the lane itself where there is none), and the source's edit
+// total and count of the arrival's type, which the caps of a row test
+// (a total no cap passes where there is no source).
+constexpr int T_SUB = 0, T_SWAP = 1, T_DEL = 2, T_INS = 3;
+constexpr int NO_SOURCE = 1 << 30;
+struct Arrival {
+  int src, sum, cnt;
+};
+
+template <int G>
+__device__ __forceinline__ Arrival arrival_of(const TypedCore& a, int ch, int col, int cnt_col,
+                                              int gl, int s) {
+  const int src = ch < a.nch ? __ldg(a.graph + ch * GCOLS + col) : -1;
+  Arrival x;
+  x.src = src >= 0 ? (src % G) | (src / G) << 5 : gl | s << 5;
+  x.sum = src >= 0 ? __ldg(a.graph + src * GCOLS + G_SUM) : NO_SOURCE;
+  x.cnt = src >= 0 ? __ldg(a.graph + src * GCOLS + cnt_col) : 0;
+  return x;
+}
+
+// Band b of the arrival's source channel in ``x`` [slot][band]: a shuffle
+// from the source's lane per slot, the source's slot kept.
+template <int S, int B, int G>
+__device__ __forceinline__ float source_band(unsigned gm, const float (&x)[S][B], int b,
+                                             const Arrival& ar) {
+  const int lane = ar.src & 31;
+  float v = __shfl_sync(gm, x[0][b], lane, G);
+#pragma unroll
+  for (int k = 1; k < S; ++k) {
+    const float t = __shfl_sync(gm, x[k][b], lane, G);
+    if ((ar.src >> 5) == k) v = t;
+  }
+  return v;
+}
+
+// The DP of one candidate (depth d) over its group's G lanes (mask gm):
+// channel s * G + gl in slot s of lane gl; ``ar`` the slots' arrivals,
+// ``rows`` the staged path rows, ``win`` the staged window (win[o] =
+// hay(s + o - E - 1)). Returns the emission channel of row d in ``out``
+// [slot][band] (+inf where dead) and whether any of the group's is finite.
+// The recurrences, guards, merges and f32 order are typed_dp_warp's.
+template <int E, int S, int G>
+__device__ __forceinline__ bool typed_dp_slots(const TypedCore& a, const Arrival (&ar)[S][4],
+                                               const StagedRows& rows, const int32_t* win,
+                                               int d, int gl, unsigned gm,
+                                               float (&PE)[S][2 * E + 1]) {
+  constexpr int B = 2 * E + 1;
+  const float INF = __int_as_float(0x7f800000);
+  const float max_pen = a.max_pen;
+  float P1[S][B], P2[S][B];  // rows i-1 and i-2
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int b = 0; b < B; ++b) P1[s][b] = P2[s][b] = PE[s][b] = INF;
+  // Row 0 is the origin (band E, the zero vector: channel 0); row -1 is dead.
+  if (gl == 0) P1[0][E] = PE[0][E] = 0.f;
+  // The band symbols of row i: w[b + 1] = win[i + b] (band b consumes it),
+  // w[b] = win[i - 1 + b] (the symbol before).
+  int w[B + 1];
+#pragma unroll
+  for (int k = 0; k <= B; ++k) w[k] = win[k];
+#pragma unroll 1
+  for (int i = 1; i <= d; ++i) {
+    const RowVals r = rows(i);
+    bool c_sub[S], c_swap[S], c_del[S], c_ins[S];  // the caps the arrivals pass
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      c_sub[s] = ar[s][T_SUB].sum < r.ce_1 && ar[s][T_SUB].cnt < r.cs_1;
+      c_swap[s] = ar[s][T_SWAP].sum < r.ce_0 && ar[s][T_SWAP].cnt < r.cw_0;
+      c_del[s] = ar[s][T_DEL].sum < r.ce_1 && ar[s][T_DEL].cnt < r.cd_1;
+      c_ins[s] = ar[s][T_INS].sum < r.ce_0 && ar[s][T_INS].cnt < r.ci_0;
+    }
+    // Every cell's arrivals but the insertion, and the emission channel,
+    // band by band: band b reads the emission channel of row i-1 at band
+    // b+1, which it replaces only after band b-1 has read it.
+    float N[S][B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int j = i + b - E;  // haystack symbols consumed at this band
+      const int hc = w[b + 1], hc_jm1 = w[b];
+      float sim = 0.f;
+      if (hc >= 0) sim = __ldg(a.sim + r.pc * a.C + hc);
+      const float spen = __fmul_rn(a.p_sub, __fsub_rn(1.f, sim));
+      const bool sub_band = j >= 1 && hc >= 0 && hc != r.pc && !(sim < a.floor_);
+      const bool swap_band = i >= 2 && j >= 2 && hc >= 0 && hc_jm1 >= 0 && hc == r.pc_prev &&
+                             hc_jm1 == r.pc;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        // exact: (i-1, b, ch), no edit
+        const float p = P1[s][b];
+        float bp = (j >= 1 && fin(p) && hc == r.pc) ? p : INF;
+        // substitution: (i-1, b, src), caps of row i-1
+        const float q = source_band<S, B, G>(gm, P1, b, ar[s][T_SUB]);
+        if (c_sub[s] && sub_band && fin(q) && !(spen > __fsub_rn(max_pen, q))) {
+          const float v = __fadd_rn(q, spen);
+          if (v < bp) bp = v;
+        }
+        // swap: (i-2, b, src), caps of row i
+        const float sw = source_band<S, B, G>(gm, P2, b, ar[s][T_SWAP]);
+        if (c_swap[s] && swap_band && fin(sw) && !(a.p_swap > __fsub_rn(max_pen, sw))) {
+          const float v = __fadd_rn(sw, a.p_swap);
+          if (v < bp) bp = v;
+        }
+        float ep = bp;  // the consuming arrivals
+        if (b + 1 < B) {
+          // deletion: (i-1, b+1, src), consumes pc only, caps of row i-1;
+          // the emission channel's trailing deletion, from its row i-1
+          const float dl = source_band<S, B, G>(gm, P1, b + 1, ar[s][T_DEL]);
+          const float te = source_band<S, B, G>(gm, PE, b + 1, ar[s][T_DEL]);
+          if (c_del[s]) {
+            const float v = __fadd_rn(dl, a.p_del);
+            if (fin(dl) && !(a.p_del > __fsub_rn(max_pen, dl)) && v < bp) bp = v;
+            const float vt = __fadd_rn(te, a.p_del);
+            if (fin(te) && !(a.p_del > __fsub_rn(max_pen, te)) && vt < ep) ep = vt;
+          }
+        }
+        N[s][b] = bp;
+        PE[s][b] = ep > r.ceil_i ? INF : ep;
+      }
+    }
+    // insertion: same row, (b-1, src) -> (b, ch), ascending b over the
+    // updated band b-1; none from cells with zero hay consumed; caps of row i.
+#pragma unroll
+    for (int b = 1; b < B; ++b) {
+      const bool ins_band = i + b - E >= 2 && w[b + 1] >= 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float ip = source_band<S, B, G>(gm, N, b - 1, ar[s][T_INS]);
+        if (ins_band && c_ins[s] && fin(ip) && !(a.p_ins > __fsub_rn(max_pen, ip))) {
+          const float v = __fadd_rn(ip, a.p_ins);
+          if (v < N[s][b]) N[s][b] = v;
+        }
+      }
+    }
+    // Ceiling of the continuation channel, then the rows move up.
+    float lo = INF;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        P2[s][b] = P1[s][b];
+        P1[s][b] = N[s][b] > r.ceil_i ? INF : N[s][b];
+        lo = fminf(lo, fminf(fminf(P1[s][b], P2[s][b]), PE[s][b]));
+      }
+#pragma unroll
+    for (int k = 0; k < B; ++k) w[k] = w[k + 1];
+    w[B] = i < d ? win[i + B] : -1;
+    // Where no value that a later row reads is finite (rows i and i-1, the
+    // emission channel of row i), no later cell is, nor the emission at row
+    // d: the group stops. Penalties are finite or +inf, never NaN.
+    if (!__any_sync(gm, lo < INF)) return false;
+  }
+  float lo = INF;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int b = 0; b < B; ++b) lo = fminf(lo, PE[s][b]);
+  return __any_sync(gm, lo < INF);
+}
+
+// Shared memory of a group of typed_dp_rows_kernel, in 4-byte words: its
+// staged rows, the window and the emission channel [B][nch].
+__host__ __device__ inline int rows_group_words(int E, int nch, int Lmax) {
+  return staged_words(Lmax) + Lmax + 2 * E + 1 + (2 * E + 1) * nch;
+}
+
+// The DP over the list past 32 cells: a group of G lanes per candidate, S
+// channel slots a lane, their bands in registers (typed_dp_slots).
+// The groups of a capped grid (TR_WAVES times the card's resident blocks)
+// stride over the list on their own, with no block barrier: a group whose
+// candidate dies early takes its next one at once; its rows go to their
+// tiles' and channels' counts by atomics.
+template <int E, int S, int G>
+__global__ void __launch_bounds__(TR_THREADS) typed_dp_rows_kernel(TypedListArgs a) {
   extern __shared__ int32_t s_mem[];
-  long long first;
-  int n_cand;
-  if (!list_block_start(a, s_mem, TY_WARPS, TY_THREADS, first, n_cand)) return;
+  constexpr int GROUPS = TR_THREADS / G, B = 2 * E + 1;
   const TypedCore& core = a.core;
-  int* s_cnt = s_mem + core.nch * GCOLS;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long m = first + warp;
-  if (m < n_cand) {
-    int32_t* mem = s_mem + core.nch * GCOLS + MAX_CHANNELS +
-                   warp * list_group_words(32, false, core.E, core.nch, core.Lmax);
+  const int nce = B * a.MO;
+  const int n_cand = __ldg(a.n_cand);
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.row_counts[channel_totals(a, nce) + nce + 1] = n_cand;
+  if ((long long)blockIdx.x * GROUPS >= n_cand) return;
+  const int grp = threadIdx.x / G, gl = threadIdx.x % G;
+  const unsigned gm = G == 32 ? 0xFFFFFFFFu : 0xFFFFu << (threadIdx.x & 31 & ~(G - 1));
+  int32_t* mem = s_mem + grp * rows_group_words(E, core.nch, core.Lmax);
+  int32_t* win = mem + staged_words(core.Lmax);
+  float* ebuf = reinterpret_cast<float*>(win + core.Lmax + 2 * E + 1);
+  Arrival ar[S][4];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int ch = s * G + gl;
+    ar[s][T_SUB] = arrival_of<G>(core, ch, G_SUB, G_NS, gl, s);
+    ar[s][T_SWAP] = arrival_of<G>(core, ch, G_SWAP, G_NW, gl, s);
+    ar[s][T_DEL] = arrival_of<G>(core, ch, G_DEL, G_ND, gl, s);
+    ar[s][T_INS] = arrival_of<G>(core, ch, G_INS, G_NI, gl, s);
+  }
+  const long long stride = (long long)gridDim.x * GROUPS;
+  int rows = 0;  // this lane's rows over its group's candidates
+  for (long long m = (long long)blockIdx.x * GROUPS + grp; m < n_cand; m += stride) {
     const int f = __ldg(a.cand_field + m);
     const int start = __ldg(a.cand_start + m);
     const int d = __ldg(core.depth + f);
-    const StagedRows rows = stage_rows(core, mem, f, d, lane, 32);
-    __syncwarp();
-    const float* emit =
-        typed_dp_warp(core, s_mem, mem + staged_words(core.Lmax), d, start, lane, rows);
-    typed_decide(a, emit, f, d, start, m, lane, 32, s_cnt);
-  }
-  flush_counts(a, s_cnt, first);
-}
-
-struct TypedEmitArgs {
-  const int32_t* cand_field;  // the candidate list
-  const int32_t* cand_start;
-  const int32_t* cand_combo;
-  const int32_t* n_cand;
-  long long items;
-  const int32_t* depth;       // [F]
-  const int32_t* node;        // [F]
-  const int32_t* out_list;    // [N, MO]
-  int MO, E, n_combo;
-  const int32_t* graph;       // [nch, GCOLS]
-  const int2* dec;            // [nce, items]
-  const int32_t* row_offsets; // exclusive scan of row_counts
-  long long ntile;
-  int32_t* rows;              // [total, 5]
-  int32_t* tags;              // [total] or null
-};
-
-// Block t places the rows of candidates t * TYPED_TILE .. + TYPED_TILE - 1,
-// a thread each, channel by channel.
-__global__ void __launch_bounds__(TYPED_TILE) typed_emit_kernel(TypedEmitArgs a) {
-  __shared__ int s_warp[TYPED_TILE / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_cand = __ldg(a.n_cand);
-  const long long m = (long long)blockIdx.x * TYPED_TILE + threadIdx.x;
-  if ((long long)blockIdx.x * TYPED_TILE >= n_cand) return;
-  const bool live = m < n_cand;
-  int start = 0, d = 0, node = 0, combo = 0;
-  if (live) {
-    const int f = __ldg(a.cand_field + m);
-    start = __ldg(a.cand_start + m);
-    combo = __ldg(a.cand_combo + m);
-    d = __ldg(a.depth + f);
-    node = __ldg(a.node + f);
-  }
-  const int nce = (2 * a.E + 1) * a.MO;
-  for (int ce = 0; ce < nce; ++ce) {
-    const int32_t* off = a.row_offsets + (long long)ce * a.ntile + blockIdx.x;
-    const int base = __ldg(off);
-    if (__ldg(off + 1) == base) continue;  // no row of this channel in the tile
-    const int2 dv = live ? a.dec[(long long)ce * a.items + m] : make_int2(0, -1);
-    const bool row = dv.y >= 0;
-    const unsigned bal = __ballot_sync(0xFFFFFFFFu, row);
-    if (lane == 0) s_warp[warp] = __popc(bal);
-    __syncthreads();
-    if (warp == 0) {
-      const int w = s_warp[lane];
-      int incl = w;
+    const StagedRows staged = stage_rows(core, mem, f, d, gl, G);
+    for (int t = gl; t < d + 2 * E + 1; t += G) win[t] = hay_at(core, start - E - 1 + t);
+    __syncwarp(gm);
+    float pe[S][B];
+    const bool any = typed_dp_slots<E, S, G>(core, ar, staged, win, d, gl, gm, pe);
+    if (any) {
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-        if (lane >= o) incl += up;
+      for (int s = 0; s < S; ++s)
+        if (s * G + gl < core.nch)
+#pragma unroll
+          for (int b = 0; b < B; ++b) ebuf[b * core.nch + s * G + gl] = pe[s][b];
+      __syncwarp(gm);
+    }
+    const int node = __ldg(a.node + f);
+    for (int ce = gl; ce < nce; ce += G) {
+      const int2 out = any ? typed_decision(a, ebuf, node, d, start, ce) : make_int2(0, -1);
+      if (out.y >= 0) {
+        atomicAdd(a.row_counts + (long long)ce * a.ntile + m / TYPED_TILE, 1);
+        atomicAdd(a.row_counts + channel_totals(a, nce) + ce, 1);
+        ++rows;
       }
-      s_warp[lane] = incl - w;  // rows of the warps before
+      a.dec[(long long)ce * a.items + m] = out;
     }
-    __syncthreads();
-    if (row) {
-      const long long r = base + s_warp[warp] + __popc(bal & ((1u << lane) - 1u));
-      const int b = ce / a.MO, o = ce - b * a.MO;
-      int32_t* out = a.rows + r * 5;
-      out[0] = start;
-      out[1] = dv.x;
-      out[2] = d + (b - a.E);
-      out[3] = __ldg(a.out_list + (long long)node * a.MO + o);
-      out[4] = __ldg(a.graph + dv.y * GCOLS + G_CNT);
-      if (a.tags != nullptr) a.tags[r] = ce * a.n_combo + combo;
-    }
-    __syncthreads();  // s_warp is written again
+    __syncwarp(gm);  // the group's memory is staged again
   }
+  add_rows(a, nce, rows);  // the warp's groups have all left the loop
 }
 
 // Kernels whose shared memory passes 48 KiB must be allowed it.
@@ -862,7 +1052,7 @@ bool fill_core(TypedCore& c, const void* ids, int ids_u8, long long npad, long l
 
 template <int G>
 cudaError_t launch_list_regs(const TypedListArgs& a, cudaStream_t stream) {
-  const size_t shm = list_smem_bytes(G, true, a.core.E, a.core.nch, a.core.Lmax);
+  const size_t shm = list_smem_bytes(G, a.core.E, a.core.nch, a.core.Lmax);
   cudaError_t rc = allow_smem(typed_dp_kernel<G>, shm);
   if (rc != cudaSuccess) return rc;
   const long long blocks = (a.items + TD_THREADS / G - 1) / (TD_THREADS / G);
@@ -871,16 +1061,85 @@ cudaError_t launch_list_regs(const TypedListArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The blocks of typed_dp_rows_kernel<E, S, G> the card holds at once with
+// ``shm`` bytes of shared memory a block: SMs x the occupancy query's
+// answer, asked once per (instance, bytes).
+template <int E, int S, int G>
+cudaError_t resident_blocks(size_t shm, long long* blocks) {
+  static std::mutex mu;
+  static std::vector<std::pair<size_t, long long>> seen;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& e : seen) {
+    if (e.first == shm) {
+      *blocks = e.second;
+      return cudaSuccess;
+    }
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, typed_dp_rows_kernel<E, S, G>,
+                                                       TR_THREADS, shm);
+  if (rc != cudaSuccess) return rc;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = (long long)sms * per_sm;
+  seen.emplace_back(shm, *blocks);
+  return cudaSuccess;
+}
+
+// Launches typed_dp_rows_kernel<E, S, G> over the list: a grid of TR_WAVES
+// times the card's resident blocks (a group's candidates then differ in
+// depth and life less from its neighbours', and the blocks of later waves
+// fill the SMs that finish first: 9 % less device time than one wave at
+// typed14, NVIDIA H100), or of one block per TR_THREADS / G items where
+// the list's bound is smaller.
+template <int E, int S, int G>
+cudaError_t launch_rows(const TypedListArgs& a, cudaStream_t stream) {
+  const size_t shm = sizeof(int32_t) * (size_t)(TR_THREADS / G) *
+                     rows_group_words(E, a.core.nch, a.core.Lmax);
+  cudaError_t rc = allow_smem(typed_dp_rows_kernel<E, S, G>, shm);
+  if (rc != cudaSuccess) return rc;
+  long long cap = 0;
+  rc = resident_blocks<E, S, G>(shm, &cap);
+  if (rc != cudaSuccess) return rc;
+  long long blocks = (a.items + TR_THREADS / G - 1) / (TR_THREADS / G);
+  if (blocks > TR_WAVES * cap) blocks = TR_WAVES * cap;
+  typed_dp_rows_kernel<E, S, G><<<(unsigned)blocks, TR_THREADS, shm, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The instance of typed_dp_rows_kernel for E and nch > 32 / (2E + 1)
+// channels: G = 16 lanes a candidate up to 16 channels, else 32 with
+// ceil(nch / 32) slots a lane. E = 2 has at most 15 channels, E = 3 at most
+// 35 (the vectors of four counts with sum <= E).
+template <int E>
+cudaError_t launch_rows_e(const TypedListArgs& a, cudaStream_t stream) {
+  const int nch = a.core.nch;
+  if (nch <= 16) return launch_rows<E, 1, 16>(a, stream);
+  if constexpr (E >= 3) {
+    if (nch <= 32) return launch_rows<E, 1, 32>(a, stream);
+    if (nch <= 64) return launch_rows<E, 2, 32>(a, stream);
+  }
+  if constexpr (E >= 4) {
+    if (nch <= 96) return launch_rows<E, 3, 32>(a, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Candidates per row-count tile of the typed step (and threads per block of
-// its emission), and (combo, hit) items per block of its expansion: the
-// callers size row_counts (ntile = ceil(items / tile)) and the expansion's
-// counts (nblk = ceil(items / expand_items)) from them.
+// Candidates per row-count tile of the typed step, and (combo, hit) items
+// per block of its expansion: the callers size row_counts (ntile =
+// ceil(items / tile)) and the expansion's counts (nblk = ceil(items /
+// expand_items)) from them.
 int fac_typed_tile() { return TYPED_TILE; }
 int fac_typed_expand_items() { return TE_TILE; }
+// Waves of resident blocks in the grid of the typed DP past 32 cells (a
+// list longer than that many groups makes its groups take turns).
+int fac_typed_rows_waves() { return TR_WAVES; }
 
 // The typed DP alone. cand_field, cand_start: int32 [M]; the DP tables as
 // fac_banded_dp takes them; graph: int32 [nch, 10]; node_caps: int32 [N, 5];
@@ -960,9 +1219,11 @@ int fac_typed_expand(const void* pos, const void* words, long long K, long long 
 // tables as fac_banded_dp_typed takes them; node: int32 [F]; out_list:
 // int32 [N, MO]; pat_len, pat_weight: f32 [P]; limcls: int32 [P]; adm:
 // int32 [nlc, nch]; dec: int32 [(2E+1) MO, items, 2] (columns past n_cand
-// untouched); row_counts: int32 [(2E+1) MO * ntile + 1], ntile =
-// ceil(items / fac_typed_tile()): zeroed, then the rows per (channel, tile)
-// are added, and n_cand written last. Returns the launch's cudaError_t.
+// untouched); row_counts: int32 [nce * ntile + nce + 2], nce = (2E+1) MO,
+// ntile = ceil(items / fac_typed_tile()): zeroed, then the rows per
+// (channel, tile), per channel after them and in all are added, and n_cand
+// written last (fac_count_dp's layout, which fac_count_emit reads). Returns
+// the launch's cudaError_t.
 int fac_typed_dp(const void* cand_field, const void* cand_start, const void* n_cand,
                  long long items, const void* ids, int ids_u8, long long npad, long long limit,
                  const void* path_cls, const void* path_node, const void* depth,
@@ -999,62 +1260,20 @@ int fac_typed_dp(const void* cand_field, const void* cand_start, const void* n_c
   a.ntile = ntile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc = cudaMemsetAsync(row_counts, 0,
-                                   sizeof(int32_t) * ((2 * E + 1) * MO * ntile + 1), s);
+                                   sizeof(int32_t) * ((2 * E + 1) * MO * (ntile + 1) + 2), s);
   if (rc != cudaSuccess) return (int)rc;
   const int cells = (2 * E + 1) * nch;
-  if (cells <= 8) {
-    rc = launch_list_regs<8>(a, s);
-  } else if (cells <= 16) {
-    rc = launch_list_regs<16>(a, s);
-  } else if (cells <= 32) {
-    rc = launch_list_regs<32>(a, s);
-  } else {
-    const size_t shm = list_smem_bytes(32, false, E, nch, Lmax);
-    rc = allow_smem(typed_dp_rows_kernel, shm);
-    if (rc != cudaSuccess) return (int)rc;
-    const long long blocks = (items + TY_WARPS - 1) / TY_WARPS;
-    if (blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
-    typed_dp_rows_kernel<<<(unsigned)blocks, TY_THREADS, shm, s>>>(a);
-    rc = cudaGetLastError();
+  if (cells <= 8) return (int)launch_list_regs<8>(a, s);
+  if (cells <= 16) return (int)launch_list_regs<16>(a, s);
+  if (cells <= 32) return (int)launch_list_regs<32>(a, s);
+  switch (E) {
+    case 2: return (int)launch_rows_e<2>(a, s);
+    case 3: return (int)launch_rows_e<3>(a, s);
+    case 4: return (int)launch_rows_e<4>(a, s);
+    case 5: return (int)launch_rows_e<5>(a, s);
+    case 6: return (int)launch_rows_e<6>(a, s);
+    default: return (int)cudaErrorInvalidValue;  // E = 1 has at most 15 cells
   }
-  return (int)rc;
-}
-
-// The typed step's emission. The candidate list (cand_combo too) and n_cand
-// as fac_typed_dp read them; depth, node: int32 [F]; out_list: int32 [N,
-// MO]; graph: int32 [nch, 10]; dec as fac_typed_dp wrote it; row_offsets:
-// the exclusive scan of its row_counts; rows: int32 [total, 5]; tags: int32
-// [total] or null. Returns the launch's cudaError_t.
-int fac_typed_emit(const void* cand_field, const void* cand_start, const void* cand_combo,
-                   const void* n_cand, long long items, const void* depth, const void* node,
-                   const void* out_list, int MO, int E, int n_combo, const void* graph,
-                   const void* dec, const void* row_offsets, long long ntile, void* rows,
-                   void* tags, void* stream) {
-  if (items < 1 || MO < 1 || E < 1 || E > MAX_E || n_combo < 1 || (2 * E + 1) * MO > MAX_CHANNELS ||
-      ntile != (items + TYPED_TILE - 1) / TYPED_TILE || ntile > 0x7FFFFFFFll ||
-      rows == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  TypedEmitArgs a;
-  a.cand_field = static_cast<const int32_t*>(cand_field);
-  a.cand_start = static_cast<const int32_t*>(cand_start);
-  a.cand_combo = static_cast<const int32_t*>(cand_combo);
-  a.n_cand = static_cast<const int32_t*>(n_cand);
-  a.items = items;
-  a.depth = static_cast<const int32_t*>(depth);
-  a.node = static_cast<const int32_t*>(node);
-  a.out_list = static_cast<const int32_t*>(out_list);
-  a.MO = MO;
-  a.E = E;
-  a.n_combo = n_combo;
-  a.graph = static_cast<const int32_t*>(graph);
-  a.dec = static_cast<const int2*>(dec);
-  a.row_offsets = static_cast<const int32_t*>(row_offsets);
-  a.ntile = ntile;
-  a.rows = static_cast<int32_t*>(rows);
-  a.tags = static_cast<int32_t*>(tags);
-  typed_emit_kernel<<<(unsigned)ntile, TYPED_TILE, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -111,11 +111,6 @@ _SIGNATURES = {
     + [_c_void_p] * 4 + [_c_int] * 2 + [_c_void_p, _c_int, _c_void_p, _c_int]
     + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int, _c_void_p, _c_int]
     + [_c_void_p] * 4 + [_c_int] + [_c_void_p] * 2 + [_c_ll, _c_void_p],
-    # cand_field, cand_start, cand_combo, n_cand, items, depth, node,
-    # out_list, MO, E, n_combo, graph, dec, row_offsets, ntile, rows, tags,
-    # stream
-    "fac_typed_emit": [_c_void_p] * 4 + [_c_ll] + [_c_void_p] * 3 + [_c_int] * 3
-    + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 3,
     # cand_field, cand_start, n_cand, items, ids, ids_u8, npad, limit,
     # path_cls, path_node, depth, node, Lmax, F, sim, C, node_ceil, sb_edge,
     # out_count, N, out_list, MO, pat_len, pat_weight, max_pen, p_sub, p_ins,
@@ -126,9 +121,10 @@ _SIGNATURES = {
     + [_c_int, _c_void_p, _c_int] + [_c_void_p] * 2 + [_c_f] * 7 + [_c_int] * 3
     + [_c_void_p] * 3 + [_c_int] + [_c_void_p] * 2 + [_c_ll, _c_void_p],
     # cand_field, cand_start, cand_combo, n_cand, items, live, depth, node,
-    # out_list, MO, E, n_combo, dec, row_counts, ntile, rows, tags, stream
+    # out_list, MO, E, n_combo, counts, counts_stride, dec, row_counts,
+    # ntile, rows, tags, stream
     "fac_count_emit": [_c_void_p] * 4 + [_c_ll] * 2 + [_c_void_p] * 3 + [_c_int] * 3
-    + [_c_void_p] * 2 + [_c_ll] + [_c_void_p] * 3,
+    + [_c_void_p, _c_int] + [_c_void_p] * 2 + [_c_ll] + [_c_void_p] * 3,
     # ids, sym_bytes, n_starts, n_read, folded, N, C, L, write, counts, keep,
     # overflow, tally, offsets, total, n_over, found, stream
     "fac_goto_walk": [_c_void_p, _c_int, _c_ll, _c_ll, _c_void_p] + [_c_int] * 4
@@ -142,6 +138,7 @@ _SIGNATURES = {
     "fac_offsets_chain_tile": [],
     "fac_typed_tile": [],
     "fac_typed_expand_items": [],
+    "fac_typed_rows_waves": [],
     "fac_count_tile": [],
     "fac_goto_walk_tile": [],
     "fac_goto_walk_keep": [],

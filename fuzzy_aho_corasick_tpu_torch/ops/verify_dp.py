@@ -1420,7 +1420,8 @@ def dp_pipeline_torch(pos, words, window: DpWindow, ids, limit, T: DpTables,
                       pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
                       variant: DpVariant = FAST, h0: int = 0, tags: bool = False):
     """Plain version of ``dp_pipeline_kernel`` and of the typed step
-    (``typed_expand_kernel``, ``typed_dp_kernel``, ``typed_emit_kernel``):
+    (``typed_expand_kernel``, ``typed_dp_kernel`` / ``typed_dp_rows_kernel``,
+    ``count_emit_kernel``):
     :func:`expand_candidates` of the hits from ``h0`` on, then
     :func:`banded_dp_torch` and :func:`emit_rows`, or for a typed
     ``variant`` :func:`banded_dp_typed_torch` and :func:`emit_rows_typed`.
@@ -1576,8 +1577,9 @@ def _count_pass(pos, words, window: DpWindow, ids, limit, T: DpTables,
 # The typed step: expansion, DP over the candidate list, emission
 # ---------------------------------------------------------------------------
 
-#: Candidates per row-count tile of the typed step, and threads per block of
-#: its emission (TYPED_TILE of csrc/dp_typed.cu; checked against the library).
+#: Candidates per row-count tile of the typed and the list step (TYPED_TILE
+#: of csrc/dp_typed.cu, LIST_TILE of csrc/dp_list.cu; checked against the
+#: library).
 TYPED_TILE = 1024
 #: (combo, hit) items per block of the typed expansion (TE_TILE).
 TYPED_EXPAND_ITEMS = 2048
@@ -1662,15 +1664,16 @@ def _typed_tiles(items: int) -> int:
 def typed_dp_torch(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
                    E: int, TT: TypedTables):
     """Plain version of ``typed_dp_kernel`` (and ``typed_dp_rows_kernel``):
-    (dec int32 [B * MO, items, 2], row_counts int32 [B * MO * ntile + 1]).
-    ``dec`` holds :func:`typed_decisions_torch` of the first ``total``
+    (dec int32 [B * MO, items, 2], row_counts int32 [B * MO * (ntile + 1) +
+    2]). ``dec`` holds :func:`typed_decisions_torch` of the first ``total``
     candidates (of :func:`banded_dp_typed_torch`'s penalties) and (0, -1)
     past them; ``row_counts`` the rows of each (channel, tile of
-    ``TYPED_TILE`` candidates), channel-major, and ``total`` last."""
+    ``TYPED_TILE`` candidates), channel-major, the rows of each channel,
+    then the rows' total and ``total``: :func:`count_dp_torch`'s layout."""
     M = int(cands.total[0])
     cf, cs = cands.field[:M], cands.start[:M]
     pen = banded_dp_typed_torch(cf, cs, ids, limit, T, pens, E, TT)
-    return _tiled(typed_decisions_torch(pen, cf, cs, T, TT, limit, thr, E), cands)
+    return _tiled(typed_decisions_torch(pen, cf, cs, T, TT, limit, thr, E), cands, True)
 
 
 def _tiled(live, cands: TypedCands, totals: bool = False):
@@ -1698,9 +1701,11 @@ def typed_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
     """(dec, row_counts) of :func:`typed_dp_torch` (the caller checked the
     arguments). CPU tensors run the plain version; CUDA tensors launch
     ``typed_dp_kernel`` (a group of 8, 16 or 32 lanes per candidate, one
-    cell each, where B x NCH fits 32 lanes) or ``typed_dp_rows_kernel`` (a
-    warp per candidate, rows in shared memory) over the list's bound;
-    columns of ``dec`` past the total are left unwritten."""
+    cell each, where B x NCH fits 32 lanes; a grid over the list's bound)
+    or ``typed_dp_rows_kernel<E, S, G>`` (a group of 16 or 32 lanes per
+    candidate, a channel per lane and slot with its bands in registers; a
+    grid of four waves of the card's resident blocks striding over the
+    list); columns of ``dec`` past the total are left unwritten."""
     from . import packed_bitap as pb
 
     if ids.device.type == "cpu":
@@ -1709,7 +1714,7 @@ def typed_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
     MO = T.out_list.shape[1]
     nce, ntile = (2 * E + 1) * MO, _typed_tiles(cands.items)
     dec = torch.empty((nce, cands.items, 2), dtype=torch.int32, device=dev)
-    row_counts = torch.empty(nce * ntile + 1, dtype=torch.int32, device=dev)
+    row_counts = torch.empty(nce * (ntile + 1) + 2, dtype=torch.int32, device=dev)
     kern = _typed_kernels()
     with pb.on_device(dev):
         rc = kern.lib.fac_typed_dp(
@@ -1727,49 +1732,30 @@ def typed_dp(cands: TypedCands, ids, limit, T: DpTables, pens: DpPenalties, thr,
     return dec, row_counts
 
 
-def typed_emit_torch(dec, row_offsets, cands: TypedCands, T: DpTables, TT: TypedTables,
+def typed_emit_torch(dec, row_counts, cands: TypedCands, T: DpTables, TT: TypedTables,
                      E: int, n_combo: int, n_rows: int, tags: bool = False):
-    """Plain version of ``typed_emit_kernel``: (rows int32 [n_rows, 5],
-    tags int32 [n_rows] or None), the decisions of the first ``total``
-    candidates placed by :func:`typed_rows_torch` in (channel, candidate)
-    order, which ``row_offsets`` (the exclusive scan of ``typed_dp``'s
-    row_counts) also gives."""
-    M = int(cands.total[0])
-    combo = cands.combo[:M] if tags else None
-    out = typed_rows_torch(dec[:, :M], cands.field[:M], cands.start[:M], T, TT, E, combo,
-                           n_combo)
-    rows, row_tags = out if tags else (out, None)
-    if rows.shape[0] != n_rows or int(row_offsets[-2]) != n_rows:
-        raise ValueError(f"{rows.shape[0]} rows decided, offsets give {n_rows}")
-    return rows, row_tags
+    """Plain version of the typed step's emission (``count_emit_kernel``
+    with the graph's packed-counts column): (rows int32 [n_rows, 5], tags
+    int32 [n_rows] or None), the decisions of the first ``total`` candidates
+    placed by :func:`typed_rows_torch` in (channel, candidate) order, whose
+    row count ``row_counts`` (``typed_dp``'s) ends with."""
+    return _emit_torch(dec, row_counts, cands, T, E, n_combo, n_rows, tags,
+                       lambda ch: TT.graph[ch.long(), TYPED_COLS - 1])
 
 
-def typed_emit(dec, row_offsets, cands: TypedCands, T: DpTables, TT: TypedTables, E: int,
-               n_combo: int, n_rows: int, tags: bool = False):
+def typed_emit(dec, row_counts, cands: TypedCands, T: DpTables, TT: TypedTables, E: int,
+               n_combo: int, n_rows: int, n_cand: int, tags: bool = False):
     """(rows, tags or None) of :func:`typed_emit_torch`. CPU tensors run the
-    plain version; CUDA tensors launch ``typed_emit_kernel``, a block per
-    tile of candidates, where there is a row to place."""
-    from . import packed_bitap as pb
-
+    plain version; CUDA tensors launch ``count_emit_kernel`` (the list
+    step's emission, :func:`count_emit`) with the graph's packed-counts
+    column: a block per (channel, tile) pair of the first ``n_cand``
+    candidates (the total, which the caller read), each placed by the
+    channel totals and the tile counts before it."""
     if dec.device.type == "cpu":
-        return typed_emit_torch(dec, row_offsets, cands, T, TT, E, n_combo, n_rows, tags)
-    dev = dec.device
-    rows = torch.empty((n_rows, 5), dtype=torch.int32, device=dev)
-    row_tags = torch.empty(n_rows, dtype=torch.int32, device=dev) if tags else None
-    if n_rows == 0:
-        return rows, row_tags
-    kern = _typed_kernels()
-    with pb.on_device(dev):
-        rc = kern.lib.fac_typed_emit(
-            cands.field.data_ptr(), cands.start.data_ptr(), cands.combo.data_ptr(),
-            cands.total.data_ptr(), cands.items, T.depth.data_ptr(), T.node.data_ptr(),
-            T.out_list.data_ptr(), T.out_list.shape[1], E, n_combo, TT.graph.data_ptr(),
-            dec.data_ptr(), row_offsets.data_ptr(), _typed_tiles(cands.items), rows.data_ptr(),
-            None if row_tags is None else row_tags.data_ptr(),
-            pb.stream_of(dev))
-    kern.check(rc, "typed_emit")
-    pb.LAUNCHES["typed_emit"] += 1
-    return rows, row_tags
+        return typed_emit_torch(dec, row_counts, cands, T, TT, E, n_combo, n_rows, tags)
+    # The packed counts of each channel: a strided column of the graph.
+    return _emit_launch(dec, row_counts, cands, T, E, n_combo, n_rows, n_cand, tags,
+                        TT.graph[:, TYPED_COLS - 1], "typed_emit")
 
 
 # ---------------------------------------------------------------------------
@@ -1858,9 +1844,18 @@ def count_emit_torch(dec, row_counts, cands: TypedCands, T: DpTables, E: int, n_
     int32 [n_rows] or None), the decisions of the first ``total``
     candidates in (channel, candidate) order, whose row count ``row_counts``
     (``count_dp``'s) ends with; a row's packed counts are its decision's."""
+    return _emit_torch(dec, row_counts, cands, T, E, n_combo, n_rows, tags, lambda y: y)
+
+
+def _emit_torch(dec, row_counts, cands: TypedCands, T: DpTables, E: int, n_combo: int,
+                n_rows: int, tags: bool, counts_of):
+    """The plain emission of both steps: the first ``total`` candidates'
+    decisions placed by :func:`_placed_rows` (``counts_of`` maps a
+    decision's column 1 to the row's packed counts), checked against the
+    rows' total that ``row_counts`` ends with and ``n_rows``."""
     M = int(cands.total[0])
     combo = cands.combo[:M] if tags else None
-    out = _placed_rows(dec[:, :M], cands.field[:M], cands.start[:M], T, E, lambda y: y, combo,
+    out = _placed_rows(dec[:, :M], cands.field[:M], cands.start[:M], T, E, counts_of, combo,
                        n_combo)
     rows, row_tags = out if tags else (out, None)
     if rows.shape[0] != n_rows or int(row_counts[-2]) != n_rows:
@@ -1876,10 +1871,20 @@ def count_emit(dec, row_counts, cands: TypedCands, T: DpTables, E: int, n_combo:
     (channel, tile) pair of the first ``n_cand`` candidates (the total,
     which the caller read), each placed by the channel totals and the tile
     counts before it."""
-    from . import packed_bitap as pb
-
     if dec.device.type == "cpu":
         return count_emit_torch(dec, row_counts, cands, T, E, n_combo, n_rows, tags)
+    return _emit_launch(dec, row_counts, cands, T, E, n_combo, n_rows, n_cand, tags, None,
+                        "count_emit")
+
+
+def _emit_launch(dec, row_counts, cands: TypedCands, T: DpTables, E: int, n_combo: int,
+                 n_rows: int, n_cand: int, tags: bool, counts, key: str):
+    """``count_emit_kernel`` on CUDA tensors for both steps, counted under
+    the launch counter ``key``: a row's packed counts are ``counts`` (int32,
+    a value per channel, any stride) at its decision's column 1, or that
+    column itself where ``counts`` is None."""
+    from . import packed_bitap as pb
+
     dev = dec.device
     rows = torch.empty((n_rows, 5), dtype=torch.int32, device=dev)
     row_tags = torch.empty(n_rows, dtype=torch.int32, device=dev) if tags else None
@@ -1891,10 +1896,12 @@ def count_emit(dec, row_counts, cands: TypedCands, T: DpTables, E: int, n_combo:
             cands.field.data_ptr(), cands.start.data_ptr(), cands.combo.data_ptr(),
             cands.total.data_ptr(), cands.items, int(n_cand), T.depth.data_ptr(),
             T.node.data_ptr(), T.out_list.data_ptr(), T.out_list.shape[1], E, n_combo,
-            dec.data_ptr(), row_counts.data_ptr(), _typed_tiles(cands.items), rows.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            0 if counts is None else counts.stride(0), dec.data_ptr(), row_counts.data_ptr(),
+            _typed_tiles(cands.items), rows.data_ptr(),
             None if row_tags is None else row_tags.data_ptr(), pb.stream_of(dev))
-    kern.check(rc, "count_emit")
-    pb.LAUNCHES["count_emit"] += 1
+    kern.check(rc, key)
+    pb.LAUNCHES[key] += 1
     return rows, row_tags
 
 
@@ -1908,20 +1915,14 @@ def dp_pipeline_counts(pos, words, window: DpWindow, ids, limit, T: DpTables,
                        pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
                        variant: DpVariant = FAST, h0: int = 0) -> tuple:
     """The counts :func:`dp_pipeline` scans, on CUDA tensors with at least
-    one hit: the count pass's per-block counts or the typed step's row
-    counts, which it hands ``block_offsets``, or the list step's row
-    counts, from which its emission places its rows itself."""
+    one hit: the count pass's per-block counts, which it hands
+    ``block_offsets``. The typed and the list step scan nothing: their
+    emission places its rows from the DP's channel totals."""
     _check_pipeline(pos, words, ids, T, E, deadend, statics, variant, h0)
     if ids.device.type != "cuda" or pos.numel() - h0 <= 0:
         raise ValueError("the count pass runs on CUDA tensors with at least one hit")
     if variant.typed is not None or _list_step(E, variant):
-        cands = typed_expand(pos, words, window, E, statics, h0)
-        if variant.typed is not None:
-            _dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, variant.typed)
-        else:
-            _dec, row_counts = count_dp(cands, ids, limit, T, pens, thr, E, deadend,
-                                        variant.forbid, variant.maps)
-        return (row_counts,)
+        raise ValueError("the typed and the list step hand block_offsets no counts")
     return (_count_pass(pos, words, window, ids, limit, T, pens, thr, E, deadend, statics,
                         h0)[1],)
 
@@ -1930,26 +1931,22 @@ def _list_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
                    pens: DpPenalties, thr, E: int, deadend: bool, statics: tuple,
                    variant: DpVariant, h0: int, tags: bool):
     """The typed step, or the count-channel list step, of :func:`dp_pipeline`
-    on any device: the candidate list, its DP and decisions, the scan of the
-    row counts, one read of the two totals, the emission."""
-    from . import packed_bitap as pb
-
+    on any device: the candidate list, its DP and decisions, one read of the
+    rows' and the candidates' totals, the emission."""
     cands = typed_expand(pos, words, window, E, statics, h0)
     TT = variant.typed
     n_combo = _combos(E, *statics).shape[1]
     if TT is not None:
         dec, row_counts = typed_dp(cands, ids, limit, T, pens, thr, E, TT)
-        offsets = pb.block_offsets(row_counts)
-        # The rows' total ends the channels' counts, the candidates' total
-        # follows it: one read of two values.
-        n_rows, n_all = offsets[row_counts.numel() - 1:].tolist()
-        n_cand = n_all - n_rows
-        rows, row_tags = typed_emit(dec, offsets, cands, T, TT, E, n_combo, n_rows, tags)
     else:
         dec, row_counts = count_dp(cands, ids, limit, T, pens, thr, E, deadend, variant.forbid,
                                    variant.maps)
-        # The DP kept the rows' total and the candidates': one read.
-        n_rows, n_cand = row_counts[-2:].tolist()
+    # The DP kept the rows' total and the candidates': one read.
+    n_rows, n_cand = row_counts[-2:].tolist()
+    if TT is not None:
+        rows, row_tags = typed_emit(dec, row_counts, cands, T, TT, E, n_combo, n_rows, n_cand,
+                                    tags)
+    else:
         rows, row_tags = count_emit(dec, row_counts, cands, T, E, n_combo, n_rows, n_cand,
                                     tags)
     return (rows, n_cand) + ((row_tags,) if tags else ())
@@ -1973,8 +1970,8 @@ def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
     Every other count-channel variant runs the list step
     (:func:`typed_expand`, :func:`count_dp`, one read of the rows' and the
     candidates' totals, :func:`count_emit`), the typed variant :func:`typed_expand`,
-    :func:`typed_dp`, ``block_offsets`` and :func:`typed_emit` (each piece
-    its plain version on CPU tensors), so each candidate's DP runs once."""
+    :func:`typed_dp`, the same read and :func:`typed_emit` (each piece its
+    plain version on CPU tensors), so each candidate's DP runs once."""
     from . import packed_bitap as pb
 
     _check_pipeline(pos, words, ids, T, E, deadend, statics, variant, h0)

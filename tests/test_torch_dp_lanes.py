@@ -379,10 +379,12 @@ def _typed_step_case(name):
 @pytest.mark.parametrize("name", list(TYPED_STEP))
 def test_typed_step_pieces_equal_to_plain_and_jax(name):
     """``typed_expand`` (the candidate list), ``typed_dp`` (decisions and
-    per-tile row counts) and ``typed_emit`` (rows and tags), each its plain
-    version on CPU tensors, bit for bit against ``dp_pipeline_torch`` and,
-    on the same candidates and penalties, the JAX ``_emit_rows_typed``; u8
-    and int32 ids; the whole step with a first hit ``h0`` and tags."""
+    row counts: per (channel, tile), per channel, the rows' total and the
+    candidates' total) and ``typed_emit`` (rows and tags, placed by those
+    totals), each its plain version on CPU tensors, bit for bit against
+    ``dp_pipeline_torch`` and, on the same candidates and penalties, the
+    JAX ``_emit_rows_typed``; u8 and int32 ids; the whole step with a first
+    hit ``h0`` and tags."""
     port_e, hay, thr, plan, run, part, pos, words, window = _typed_step_case(name)
     TT, E, T = run.variant.typed, plan.E, run.T
     MO = T.out_list.shape[1]
@@ -396,7 +398,8 @@ def test_typed_step_pieces_equal_to_plain_and_jax(name):
         assert all(torch.equal(a[:M], b) for a, b in zip(cands[:3], (cf, cs, cc)))
         dec, row_counts = tvd.typed_dp(cands, ids, part.local_n, T, run.pens, thr, E, TT)
         ntile = -(-cands.items // tvd.TYPED_TILE)
-        assert dec.shape == (nce, cands.items, 2) and row_counts.shape == (nce * ntile + 1,)
+        assert dec.shape == (nce, cands.items, 2)
+        assert row_counts.shape == (nce * (ntile + 1) + 2,)
         assert int(row_counts[-1]) == M and (dec[:, M:, 1] == -1).all()
         pen = tvd.banded_dp_typed_torch(cf, cs, ids, part.local_n, T, run.pens, E, TT)
         live = dec[:, :M]
@@ -404,11 +407,13 @@ def test_typed_step_pieces_equal_to_plain_and_jax(name):
                                                            E))
         per_tile = torch.zeros((nce, ntile * tvd.TYPED_TILE), dtype=torch.int64)
         per_tile[:, :M] = (live[..., 1] >= 0).long()
-        assert torch.equal(row_counts[:-1].long(),
-                           per_tile.reshape(nce, ntile, -1).sum(2).reshape(-1))
-        offsets = tpb.block_offsets(row_counts)
-        n_rows = int(offsets[-2])
-        rows, tags = tvd.typed_emit(dec, offsets, cands, T, TT, E, n_combo, n_rows, tags=True)
+        tiles = per_tile.reshape(nce, ntile, -1).sum(2)
+        assert torch.equal(row_counts[:nce * ntile].long(), tiles.reshape(-1))
+        assert torch.equal(row_counts[nce * ntile:-2].long(), tiles.sum(1))
+        n_rows, n_cand = row_counts[-2:].tolist()
+        assert n_rows == int(tiles.sum()) and n_cand == M
+        rows, tags = tvd.typed_emit(dec, row_counts, cands, T, TT, E, n_combo, n_rows, n_cand,
+                                    tags=True)
         want_rows, want_n, want_tags = tvd.dp_pipeline_torch(
             pos, words, window, ids, part.local_n, T, run.pens, thr, E, False, run.statics,
             run.variant, tags=True)
@@ -436,6 +441,107 @@ def test_typed_step_pieces_equal_to_plain_and_jax(name):
     got = tvd.dp_pipeline(pos[h0 - 1:], words[h0 - 1:], *args, h0=1, tags=True)
     want = tvd.dp_pipeline_torch(pos[h0 - 1:], words[h0 - 1:], *args, h0=1, tags=True)
     assert torch.equal(got[0], want[0]) and got[1] == want[1] and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("name", ["fourteen", "fifty-five"])
+def test_typed_emission_grid_edges_equal_to_jax(name):
+    """The typed emission (``typed_emit``, its plain version on CPU tensors)
+    at the edges of its kernel's grid of (channel, tile of 1,024) pairs,
+    against the JAX ``_emit_rows_typed`` on the same candidates and
+    penalties, at 14 and 55 channels: the case's candidate list repeated
+    past two tiles (the JAX emission runs once on the list, at the shape of
+    ``test_typed_step_pieces_equal_to_plain_and_jax``; a repeated candidate
+    has its rows again), cut to 1 candidate, 1,024, 1,025 and all of them,
+    and whole with the rows of channel 0 in tile 0 and of the last channel
+    in the last tile taken out (pairs without a row beside pairs with
+    rows). The row counts hold the rows per (channel, tile), per channel,
+    the rows' and the candidates' total. Exact equality."""
+    port_e, hay, thr, plan, run, part, pos, words, window = _typed_step_case(name)
+    TT, E, T = run.variant.typed, plan.E, run.T
+    tile = tvd.TYPED_TILE
+    n_combo = tvd._combos(E, *run.statics).shape[1]
+    cf, cs, cc = tvd.expand_candidates(pos, words, *window, E, *run.statics, combos=True)
+    M = cf.numel()
+    pen = tvd.banded_dp_typed_torch(cf, cs, part.ids_de, part.local_n, T, run.pens, E, TT)
+    base = tvd.typed_decisions_torch(pen, cf, cs, T, TT, part.local_n, thr, E)
+    spec = tvd.typed_spec_of(port_e)
+    total, packed = _jax_emit_typed(
+        jnp.asarray(pen.numpy()), jnp.asarray(cf.numpy()), jnp.asarray(cs.numpy()),
+        plan.vf.depth, plan.vf.node, port_e.dense.out_list, port_e.dense.pat_len,
+        port_e.dense.pat_weight, spec.limcls, np.int32(part.local_n), np.float32(thr),
+        E=E, MO=port_e.dense.max_out, CAND=M, KG=1 << 14,
+        TYPED_EMIT=(spec.vecs, spec.cnts, spec.adm))
+    # The JAX rows come in (channel, candidate) order: channel ce's are those
+    # of its candidates with a row, ascending.
+    has = (base[..., 1] >= 0).numpy()
+    assert int(total) == int(has.sum()) > 4
+    groups = np.split(_unpack_jax_rows(np.asarray(packed)[:int(total)]),
+                      np.cumsum(has.sum(1))[:-1])
+    jax_row = [dict(zip(np.flatnonzero(has[ce]).tolist(), g.tolist()))
+               for ce, g in enumerate(groups)]
+    reps = -(-(2 * tile + 1) // M)
+    L = reps * M
+    full = tvd.TypedCands(cf.repeat(reps), cs.repeat(reps), cc.repeat(reps),
+                          torch.tensor([L], dtype=torch.int32), L)
+    of = np.arange(L) % M  # the case's candidate at each place of the list
+    nce, ntile = base.shape[0], -(-L // tile)
+    seen = []
+    for cut in (1, tile, tile + 1, L, -1):
+        m = abs(cut) if cut > 0 else L
+        live = base[:, torch.from_numpy(of[:m])].clone()
+        if cut < 0:  # the rows of channel 0 in tile 0 and the last channel's last tile out
+            last = (m - 1) // tile
+            live[0, :tile, 1] = -1
+            live[nce - 1, last * tile:, 1] = -1
+            live[..., 0] = torch.where(live[..., 1] >= 0, live[..., 0], 0)
+        lst = full._replace(total=torch.tensor([m], dtype=torch.int32))
+        dec, row_counts = tvd._tiled(live, lst, True)
+        tiles = row_counts[:nce * ntile].reshape(nce, ntile)
+        if cut < 0:
+            pairs = tiles[:, :last + 1]
+            assert (pairs == 0).sum() >= 2 and (pairs > 0).any()
+        n_rows, n_cand = row_counts[-2:].tolist()
+        assert torch.equal(row_counts[nce * ntile:-2], tiles.sum(1).to(torch.int32))
+        assert n_rows == int(tiles.sum()) == int((live[..., 1] >= 0).sum()) and n_cand == m
+        rows, tags = tvd.typed_emit(dec, row_counts, lst, T, TT, E, n_combo, n_rows, n_cand,
+                                    tags=True)
+        keep = (live[..., 1] >= 0).numpy()
+        want = [(jax_row[ce][of[i]], ce * n_combo + int(cc[of[i]]))
+                for ce in range(nce) for i in np.flatnonzero(keep[ce]).tolist()]
+        assert rows.numpy().astype(np.int64).tolist() == [r for r, _t in want]
+        assert tags.tolist() == [t for _r, t in want]
+        seen.append((m, n_rows, tvd.emit_pairs(m, E, T.out_list.shape[1])))
+    assert len({s[:2] for s in seen}) == 5 and all(s[1] > 0 for s in seen)
+
+
+def test_typed_step_scans_no_row_counts(monkeypatch):
+    """The typed step reads the rows' and the candidates' totals that its
+    DP keeps: ``dp_pipeline`` calls ``typed_expand``, ``typed_dp`` and
+    ``typed_emit`` once each and neither ``block_offsets`` nor its plain
+    version (the CPU route's counters), and its rows and tags equal
+    ``dp_pipeline_torch``'s."""
+    port_e, hay, thr, plan, run, part, pos, words, window = _typed_step_case("fourteen")
+    calls = {}
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+
+        monkeypatch.setattr(mod, name, wrapper)
+
+    for mod, name in ((tpb, "block_offsets"), (tpb, "block_offsets_torch"),
+                      (tvd, "typed_expand"), (tvd, "typed_dp"), (tvd, "typed_emit")):
+        counted(mod, name)
+    args = (pos, words, window, part.ids_de, part.local_n, run.T, run.pens, np.float32(thr),
+            plan.E, False, run.statics, run.variant)
+    got = tvd.dp_pipeline(*args, tags=True)
+    assert calls == {"typed_expand": 1, "typed_dp": 1, "typed_emit": 1}
+    want = tvd.dp_pipeline_torch(*args, tags=True)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1] and torch.equal(got[2], want[2])
+    assert got[0].shape[0] > 4
 
 
 def _unpack_jax_rows(packed):

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time the DP step of the forbid2, fuzzy2, mapped, mapped4, typed and
-fuzzy1 cells, and variants of its kernel, on one CUDA card.
+"""Time the DP step of the forbid2, fuzzy2, mapped, mapped4, typed, typed14
+and fuzzy1 cells, and variants of its kernel, on one CUDA card.
 
-The cells are ``chip_smoke.py``'s phases 4c, 4c', 4e, 4e'', 4d and 4b: the
+The cells are ``chip_smoke.py``'s phases 4c, 4c', 4e, 4e'', 4d, 4d' and 4b: the
 headline dictionary with ``edits(2).swaps(0)`` at 0.62 over the 96 MiB
 corpus (forbid2), with ``edits(2)`` at 0.62 (fuzzy2), the headline dictionary + ``modern`` with rn <-> m,
 ``edits(1)``, at 0.8 over the corpus with every 50th ``commodo`` a
 ``modem`` (mapped), 16 two-word names with rn <-> m, ``edits(4)``, at 0.8
 over the corpus with 4,000 copies planted (mapped4: the list step's DP past
 32 cells, ``count_dp_rows_kernel``), the typed engine at 0.8 over the
-corpus (typed: the typed step), and the headline dictionary with
-``edits(1)`` at 0.8 over the corpus (fuzzy1). For the checkout at
+corpus (typed: the typed step), the headline dictionary with
+``edits(2).substitutions(1)`` at 0.62 over the corpus (typed14: the typed
+step's DP past 32 cells, ``typed_dp_rows_kernel``), and the headline
+dictionary with ``edits(1)`` at 0.8 over the corpus (fuzzy1). For the checkout at
 ``--root`` (default: the one this script is in; a checkout whose list
 step is ``csrc/dp_list.cu``), per cell, with every slice's hit list made once on the
 card:
@@ -28,11 +30,12 @@ card:
 * each variant of ``VARIANTS`` whose texts all occur in the checkout's
   ``csrc/dp_pipeline.cu`` (where the cell runs on ``dp_pipeline_kernel``,
   two passes around ``block_offsets``), ``csrc/dp_list.cu`` (where it
-  runs the list step) or ``csrc/dp_typed.cu`` (the expansion of the list
-  and the typed step): that source with the texts replaced, built alone
-  with the checkout's nvcc flags (all variants in parallel) and routed
-  into the wrapper in place of the main library's ``fac_dp_pipeline*``,
-  ``fac_count_*`` or ``fac_typed_expand*`` entries (the expansion's tile,
+  runs the list step, or the typed step's emission) or ``csrc/dp_typed.cu``
+  (the expansion of the list and the typed step, the typed DP): that
+  source with the texts replaced, built alone with the checkout's nvcc
+  flags (all variants in parallel) and routed into the wrapper in place of
+  the main library's ``fac_dp_pipeline*``, ``fac_count_*`` or
+  ``fac_typed_*`` entries (the expansion's tile,
   ``verify_dp.TYPED_EXPAND_ITEMS``, read from the variant); per variant the
   step as above with ptxas's
   registers and spill bytes and, for ``dp_pipeline_kernel``, on slice 1
@@ -75,8 +78,8 @@ import time
 #: variant returns what the kernel returns; ``source``: the file of csrc/ it
 #: patches (``dp_pipeline.cu``, routed in place of ``fac_dp_pipeline*``,
 #: ``dp_list.cu``, in place of ``fac_count_*``, or ``dp_typed.cu``, in place
-#: of ``fac_typed_expand*``). A variant applies where every old text occurs
-#: in that checkout's source.
+#: of ``fac_typed_*``). A variant applies where every old text occurs in
+#: that checkout's source.
 _DP_CALL = "    dp_body<E, DEADEND, MAPS, Sym>(a.core, s_sim, sim_smem, f, s, emit_pen, emit_cnt);\n"
 _NO_DP = ("#pragma unroll\n    for (int b = 0; b < B; ++b)\n#pragma unroll\n"
           "      for (int e = 0; e < NE; ++e) {\n"
@@ -126,11 +129,26 @@ VARIANTS = (
                                                     "constexpr int TE_ITEMS = 4;"),)),
     ("expand: 256 items a block", True, _TYPED, (("constexpr int TE_ITEMS = 8;",
                                                   "constexpr int TE_ITEMS = 1;"),)),
+    # The typed DP past 32 cells without its early stop: every group runs
+    # its candidate's rows to the depth.
+    ("typed rows: no early stop", True, _TYPED, (("    if (!__any_sync(gm, lo < INF)) return false;",
+                                                  "    if (false && !__any_sync(gm, lo < INF)) return false;"),)),
+    # ... without its decisions (no row: the DP, the staging and the dec
+    # stores alone), and with a grid of one and of 16 waves of the resident
+    # blocks (4 kept).
+    ("typed rows: no decisions", False, _TYPED, (
+        ("      const int2 out = any ? typed_decision(a, ebuf, node, d, start, ce) : make_int2(0, -1);",
+         "      const int2 out = make_int2(0, -1);"),)),
+    ("typed rows: one wave of resident blocks", True, _TYPED, (
+        ("constexpr int TR_WAVES = 4;", "constexpr int TR_WAVES = 1;"),)),
+    ("typed rows: 16 waves", True, _TYPED, (
+        ("constexpr int TR_WAVES = 4;", "constexpr int TR_WAVES = 16;"),)),
 )
 #: The routing variant: E = 1 without forbid flags or mappings on the list step.
 _ROUTED = "list step at E = 1"
 #: The DP kernels whose ptxas lines the report lists.
-_DP_KERNELS = r"(dp_pipeline_kernel|count_dp_\w*kernel|count_emit_kernel|typed_expand_kernel)"
+_DP_KERNELS = (r"(dp_pipeline_kernel|count_dp_\w*kernel|count_emit_kernel|typed_expand_kernel"
+               r"|typed_dp_\w*kernel)")
 
 
 def _build(nvcc, flags, include, src_text, out_dir, name):
@@ -168,17 +186,25 @@ def _label(mangled: str) -> str:
     if m:
         param = "E" if "rows" in m.group(1) else "G"
         return m.group(1) + (f"<{param}={m.group(2)},MAPS={m.group(3)}>" if m.group(2) else "")
+    m = re.search(r"typed_dp_rows_kernelILi(\d)ELi(\d)ELi(\d+)E", mangled)
+    if m:
+        return f"typed_dp_rows_kernel<E={m.group(1)},S={m.group(2)},G={m.group(3)}>"
+    m = re.search(r"typed_dp_kernelILi(\d+)E", mangled)
+    if m:
+        return f"typed_dp_kernel<G={m.group(1)}>"
     m = re.search(r"(count_emit_kernel|typed_expand_kernel)", mangled)
     return m.group(1) if m else mangled
 
 
-#: The entries a variant of each source takes over, and the launch counter
-#: that shows the cell ran on it.
-_ROUTE = {_PIPE: ("fac_dp_pipeline", "dp_pipeline"), _LIST: ("fac_count_", "count_dp"),
-          _TYPED: ("fac_typed_expand", "typed_expand")}
+#: The entries a variant of each source takes over, and the launch counters
+#: of which one shows the cell ran on it.
+_ROUTE = {_PIPE: ("fac_dp_pipeline", ("dp_pipeline",)),
+          _LIST: ("fac_count_", ("count_dp", "typed_emit")),
+          _TYPED: ("fac_typed_", ("typed_expand",))}
 #: The cells by name: (``recipe_engine`` name, threshold).
 _CELLS = {"forbid2": ("forbid", 0.62), "fuzzy2": ("fuzzy2", 0.62), "mapped": ("mapped", 0.8),
-          "mapped4": ("mapped4", 0.8), "typed": ("typed", 0.8), "fuzzy1": ("fuzzy1", 0.8)}
+          "mapped4": ("mapped4", 0.8), "typed": ("typed", 0.8), "typed14": ("typed14", 0.62),
+          "fuzzy1": ("fuzzy1", 0.8)}
 
 
 class _Routed:
@@ -319,7 +345,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 peak = torch.cuda.max_memory_allocated() - before
                 launched = {k: v for k, v in tpb.LAUNCHES.items() if v}
-                if lib is not None and not launched.get(_ROUTE[src][1]):
+                if lib is not None and not any(launched.get(k) for k in _ROUTE[src][1]):
                     continue  # the cell does not run on the patched kernel
                 ms = cs.event_ms(torch, step, 5)
                 prof = cs.profile_search(torch, step, 5, tpb.LAUNCHES)
