@@ -197,8 +197,9 @@ torch version. Phases:
    plain versions locked out (and the oracle, but in (c), whose starts may
    overflow), the launch counters set to 0 just before and read just after,
    each a first search and best of 3, then its stages alone
-   (``beam_stage_profile``: the candidate starts, the frontier with its
-   expanded states counted, the whole search profiled) with launches,
+   (``beam_stage_profile``: the candidate starts, the frontier with the
+   kernels' counts of expanded states and rounds, the whole search
+   profiled; each search must launch its lane's frontier kernel) with launches,
    copies, host waits and the device's busy share: (a) the ``edits(1)``
    engine over phase 4i (c)'s joined text (past ``RESIDENT_MAX``: the
    packed anchors in ``STREAM_CHUNK`` segments, the E = 1 pool), equal to
@@ -213,9 +214,13 @@ torch version. Phases:
    a-run for the long pattern (``arun_oracle_set``); (e)
    ``beam_kernel_checks``: ``scan_bits``, ``block_offsets`` and
    ``hit_words`` against their plain versions on (a)'s anchor segments and
-   (d)'s seed pass, and ``frontier_cpu_check``: the first run of chunks of
-   (a), (b) and (c) through the frontier on the card and on the CPU, bit
-   for bit;
+   (d)'s seed pass; ``frontier_kernel_check``: the frontier's kernels
+   (``beam_pool_kernel`` (a), (b), (d), ``beam_sorted_kernel`` (c),
+   ``csrc/beam.cu``) against their plain versions on the card over each
+   cell's first run of chunks, bit for bit, timed; and
+   ``frontier_shape_checks``: both kernels on six small shapes the cells do
+   not reach (overflowing starts, E = 3, each kernel's global scratch, int32
+   ids), bit for bit;
 4k. the sharded lanes and the multi-host entry points (``parallel/``),
    the plain versions and the oracle locked out, the launch counters set
    to 0 just before each search and read just after: (a)
@@ -3669,8 +3674,8 @@ def beam_stage_profile(ctx, engine, text: str, thr: float):
     the packed anchors or the seed filter's exact pass), the frontier
     (``beam_emissions``), and the rest (the emissions' copy, the host's
     best-per-span reduction and any oracle rescue) as the search's wall less
-    those two. Counts the frontier's expanded states and their candidates
-    (a wrapper on ``_expand``) for its byte bound."""
+    those two. The frontier kernels count its expanded states and rounds
+    (their stats, one entry a run) for its byte bound."""
     import numpy as np
 
     from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
@@ -3687,34 +3692,28 @@ def beam_stage_profile(ctx, engine, text: str, thr: float):
         found["cand"] = tfz._candidate_starts(engine, text, view, n, thr32)
 
     prof_a = profile_search(torch, anchors, 1, ctx.tpb.LAUNCHES)
-    counted = {"states": 0, "candidates": 0, "rounds": 0}
-    expand = tfz._expand
-
-    def counting(st, et, *args):
-        counted["states"] += st.node.numel()
-        counted["candidates"] += st.node.numel() * (2 * et.shape[1] + 3)
-        counted["rounds"] += 1
-        return expand(st, et, *args)
+    runs = []
 
     def frontier():
-        found["em"] = tfz.beam_emissions(engine, text, view, n, found["cand"], thr32, ceil)
+        runs.clear()
+        found["em"] = tfz.beam_emissions(engine, text, view, n, found["cand"], thr32, ceil,
+                                         stats=runs)
 
-    tfz._expand = counting
-    try:
-        prof_f = profile_search(torch, frontier, 1)
-    finally:
-        tfz._expand = expand
-    counted = {k: v // 2 for k, v in counted.items()}  # the warm-up call of profile_search
+    prof_f = profile_search(torch, frontier, 1, ctx.tpb.LAUNCHES)
+    # Each run's stats: (emissions, states expanded, rounds, overflowed).
+    counted = {"states": sum(r[1] for r in runs), "rounds": sum(r[2] for r in runs)}
     em, overflow = found["em"]
     tabs = tfz.beam_tables(engine, ctx.dev)
     E = engine.max_edits_fast
-    nchunk = tfz._chunk_len(E, engine.dense.max_depth + E, tabs.et_deep.shape[1])
+    T = engine.dense.max_depth + E
+    nchunk = tfz._chunk_len(E, T, tabs.et_deep.shape[1])
     anchors = int(found["cand"].numel())
+    require(len(runs) == -(-anchors // tfz.run_len(E, tabs, nchunk, T, True)),
+            "the frontier's runs are not the kernels' run sizing")
     return SimpleNamespace(anchors=anchors, n=n, prof_a=prof_a, prof_f=prof_f, counted=counted,
                            emissions=int(em[0].numel()), overflow=len(overflow),
                            cand=found["cand"], view=view, ceil=ceil, nchunk=nchunk,
-                           chunks=-(-anchors // nchunk),
-                           runs=-(-anchors // tfz.run_len(E, tabs, nchunk)))
+                           chunks=-(-anchors // nchunk), runs=len(runs))
 
 
 def anchors_bound(ctx, engine, thr: float, stages):
@@ -3740,46 +3739,196 @@ def anchors_bound(ctx, engine, thr: float, stages):
     return bound_ms(n + out, 0, INT_RATE)
 
 
-def frontier_cpu_check(ctx, engine, text: str, thr: float, stages, what: str) -> int:
-    """The frontier on the card against the same code on the CPU, over the
-    first chunk of ``text``'s candidate starts (the JAX package's chunk
-    size): emissions and overflow flags bit for bit. Returns the emissions
-    compared."""
+#: The frontier kernels by lane: (launch counter, kernel name, the JAX
+#: function it replaces).
+FRONTIER_KERNELS = {
+    1: ("beam_pool", "beam_pool_kernel", "fuzzy_aho_corasick_tpu/ops/fuzzy.py:342"),
+    2: ("beam_sorted", "beam_sorted_kernel", "fuzzy_aho_corasick_tpu/ops/fuzzy.py:237"),
+}
+
+
+def frontier_inputs(ctx, engine, text: str, thr: float):
+    """(tables, params, symbol ids, nchunk) of a frontier call over ``text`` on
+    the card, as ``beam_emissions`` builds them."""
     import numpy as np
 
     from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
-    from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
     from fuzzy_aho_corasick_tpu_torch.ops.packed_bitap import _space_token
+    from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
-    torch = ctx.torch
-    E, thr32, n = engine.max_edits_fast, np.float32(thr), stages.n
+    thr32 = np.float32(thr)
     dense = engine.dense
+    view = view_of(text, engine.case_insensitive)
+    n = len(view)
+    ceil = engine.prune_len_arr - np.float32(engine.prune_len_over_weight_arr * thr32)
     ids, _n = device_corpus.resident(
         text, ("dense", _space_token(engine)),
-        lambda h: np.ascontiguousarray(dense.transcode(h, stages.view),
+        lambda h: np.ascontiguousarray(dense.transcode(h, view),
                                        dtype=np.uint8 if dense.num_classes <= 256 else np.int32),
         ctx.dev)
-    out = []
-    for device, ids_d in ((ctx.dev, ids), (torch.device("cpu"), ids.cpu())):
-        tabs = tfz.beam_tables(engine, device)
-        prm = tfz.beam_params(engine, thr32, stages.ceil, n, device)
-        nchunk = tfz._chunk_len(E, prm.T, tabs.et_deep.shape[1])
-        run = nchunk
-        starts = stages.cand[:run].to(device)
-        if E == 1:
-            em, ov = tfz._pool_chunk(starts, tabs, prm, ids_d, nchunk), torch.zeros(0)
-        else:
-            em, ov = tfz._beam_chunk(starts, tabs, prm, ids_d, nchunk, 32 + 24 * E)
-        out.append([f.cpu() for f in em] + [ov.cpu()])
-    err = max(int((a.double() - b.double()).abs().max()) if a.numel() else 0
-              for a, b in zip(*out))
+    tabs = tfz.beam_tables(engine, ctx.dev)
+    prm = tfz.beam_params(engine, thr32, ceil, n, ctx.dev)
+    return tabs, prm, ids, tfz._chunk_len(prm.E, prm.T, tabs.et_deep.shape[1])
+
+
+def compare_frontier(ctx, engine, text: str, thr: float, starts, what: str, nchunk=None,
+                     timed=False) -> dict:
+    """The frontier kernel (``pool_frontier`` / ``sorted_frontier`` on the
+    card) against its plain version (``_pool_chunk`` / ``_beam_chunk``) on
+    the card, on the same run of ``starts``: emissions and overflow flags
+    bit for bit. With ``timed``, the wrapper's CUDA-event ms (count launch,
+    ``block_offsets``, the read, write launch), the profiler's device ms per
+    launch of the kernel, the plain version's event ms and the kernel's I/O
+    bound (the starts read, a symbol each, the emissions and flags written)."""
+    from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
+
+    torch, tpb = ctx.torch, ctx.tpb
+    tabs, prm, ids, chunk = frontier_inputs(ctx, engine, text, thr)
+    nchunk = nchunk or chunk
+    E = prm.E
+    key, kernel, _jax = FRONTIER_KERNELS[min(E, 2)]
+    B = 32 + 24 * E
+    starts = starts.to(ctx.dev)
+    if E == 1:
+        kern = lambda: (lambda em, st: ((em, None), st))(
+            *tfz.pool_frontier(starts, tabs, prm, ids, nchunk))
+        plain = lambda: (tfz._pool_chunk(starts, tabs, prm, ids, nchunk), None)
+    else:
+        kern = lambda: (lambda em, ov, st: ((em, ov), st))(
+            *tfz.sorted_frontier(starts, tabs, prm, ids, nchunk, B))
+        plain = lambda: tfz._beam_chunk(starts, tabs, prm, ids, nchunk, B)
+    before = tpb.LAUNCHES[key]
+    (em, ov), stats = kern()
+    torch.cuda.synchronize()
+    require(tpb.LAUNCHES[key] > before, f"{what}: the {kernel} wrapper launched nothing")
+    want_em, want_ov = plain()
+    got = [f.cpu() for f in em] + ([ov.cpu()] if ov is not None else [])
+    want = [f.cpu() for f in want_em] + ([want_ov.cpu()] if want_ov is not None else [])
     same = all(a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
-               for a, b in zip(*out))
-    log(f"  {what}: the frontier over {min(run, stages.anchors)} starts on the card and on the "
-        f"CPU: {out[0][0].numel()} emissions each, bit-equal {same} (max_abs_err {err})")
-    require(same and out[0][0].numel() > 0, f"{what}: the frontier differs on the card and "
-            "on the CPU")
-    return out[0][0].numel()
+               for a, b in zip(got, want))
+    err = max((float((a.double() - b.double()).abs().max()) if a.shape == b.shape and a.numel()
+               else 0.0 if a.shape == b.shape else float("inf") for a, b in zip(got, want)),
+              default=0.0)
+    Df, Dd = tabs.k32.et_full.shape[1], tabs.k32.et_deep.shape[1]
+    ws, on_chip = tfz.frontier_workspace(E, Df, Dd, prm.T)
+    n_over = int(ov.sum()) if ov is not None else 0
+    rec = {"kernel": kernel, "E": E, "starts": int(starts.numel()), "nchunk": nchunk,
+           "T": prm.T, "Df": Df, "Dd": Dd, "classes": tabs.C, "ids": str(ids.dtype),
+           "workspace_bytes": ws, "on_chip": on_chip, "emissions": int(em[0].numel()),
+           "overflowed": n_over, "stats": list(stats), "max_abs_err": err, "equal": same}
+    log(f"  {what}: {kernel} over {rec['starts']} starts (chunks of {nchunk}, T = {prm.T}, "
+        f"Df / Dd {Df} / {Dd}, {tabs.C} classes, {ids.dtype}, workspace {ws} bytes "
+        f"{'on chip' if on_chip else 'in global scratch'}): {rec['emissions']} emissions, "
+        f"{n_over} overflowed, stats (emissions, states, rounds, overflowed) {list(stats)}; "
+        f"bit-equal to the plain version on the card {same} (max_abs_err {err})")
+    require(same, f"{what}: {kernel} differs from its plain version")
+    require(stats[0] == rec["emissions"] and stats[3] == n_over,
+            f"{what}: the kernel's stats disagree with its output")
+    if timed:
+        rec["ms"] = event_ms(torch, kern, 3)
+        prof = profile_search(torch, kern, 1, tpb.LAUNCHES)
+        rec["launch_ms"] = launch_ms(prof, kernel)
+        rec["device_ms"] = device_ms(prof, kernel)
+        rec["plain_ms"] = event_ms(torch, plain, 1)
+        nbytes = starts.numel() * (8 + ids.element_size() + (E >= 2)) + 36 * rec["emissions"]
+        rec["bound"] = bound_ms(nbytes, 0, INT_RATE)
+        log(f"    wrapper {rec['ms']:.4f} ms by events (count launch, block_offsets, the read, "
+            f"write launch), {kernel} {rec['launch_ms']:.4f} device ms a launch "
+            f"({rec['device_ms']:.4f} both), plain version {rec['plain_ms']:.3f} ms; bound "
+            f"{rec['bound'][0]:.5f} ms by {rec['bound'][1]} = {rec['bound'][0] / rec['ms']:.2e} "
+            f"of the wrapper")
+    return rec
+
+
+def frontier_kernel_check(ctx, engine, text: str, thr: float, stages, what: str) -> dict:
+    """Phase 4j (e): the frontier kernel against its plain version on the
+    card over the first run of ``text``'s candidate starts (as many chunks
+    as ``beam_emissions`` gives a run on the card), timed."""
+    from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
+
+    tabs, prm, _ids, nchunk = frontier_inputs(ctx, engine, text, thr)
+    run = tfz.run_len(prm.E, tabs, nchunk, prm.T, True)
+    return compare_frontier(ctx, engine, text, thr, stages.cand[:run], f"{what}, first run",
+                            timed=True)
+
+
+def frontier_shapes(ctx):
+    """Phase 4j (e)'s small shapes the cells do not reach, each (title,
+    engine, text, threshold): an E = 2 text whose starts overflow (a node of
+    41 children behind a two-character prefix the text spells); an E = 3
+    engine (B = 104); a deep width past the block's shared memory at E = 2
+    (a node of 100 children: the sorted kernel's global scratch); a pool
+    past it (a 200-character pattern beside a node of 10 children: P = 4,406
+    walks); more than 256 classes (int32 ids) at E = 1 and E = 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 40)
+    cjk = [chr(0x4E00 + i) for i in range(700)]
+    L = ctx.Limits
+    fill = lambda lo, hi, k: "".join(cjk[i] for i in rng.integers(lo, hi, k))
+
+    def spelled(words, lo, hi, count, edit=True):
+        parts = []
+        for i in range(count):
+            w = list(words[int(rng.integers(len(words)))])
+            if edit and i % 2:
+                w[int(rng.integers(len(w)))] = cjk[int(rng.integers(lo, hi))]
+            parts.append(fill(lo, hi, int(rng.integers(2, 8))) + "".join(w))
+        return "".join(parts)
+
+    over = [cjk[0] + cjk[1] + cjk[10 + i] + cjk[100 + i] for i in range(41)]
+    over += [cjk[200 + i] + fill(300, 500, 3) for i in range(30)]
+    ascii_words = ["hello", "world", "help", "held", "yellow", "fellow", "mellow", "below"]
+    e3_text = " ".join(ascii_words[int(i)] for i in rng.integers(0, 8, 400))
+    e3_text += " helo wrld hepl yelow fellw mello bellow"
+    deep = [cjk[0] + cjk[10 + i] + cjk[200 + i] for i in range(100)]
+    pool_words = ["a" * 200] + ["b" + c for c in "cdefghijkl"]
+    pool_text = " ".join(("a" * int(rng.integers(190, 206))) if i % 3 == 0 else
+                         "b" + "cdefghijkl"[int(rng.integers(10))] for i in range(60))
+    wide = sorted({fill(0, 600, 4) for _ in range(150)})
+    # At E = 2 a root of 136 edges would overflow every start at its first
+    # round: first characters from 20, the rest from 600.
+    wide2 = sorted({cjk[600 + int(rng.integers(20))] + fill(0, 600, 3) for _ in range(150)})
+    return [
+        ("E = 2, overflowing starts", make_engine(ctx, over, L.new().edits(2)),
+         spelled(over, 500, 700, 300), 0.6),
+        ("E = 3, B = 104", make_engine(ctx, ascii_words, L.new().edits(3)), e3_text, 0.5),
+        ("E = 2, a node of 100 children (global scratch)", make_engine(ctx, deep, L.new().edits(2)),
+         spelled(deep, 300, 700, 300), 0.6),
+        ("E = 1, a 200-character pattern (global scratch)",
+         make_engine(ctx, pool_words, L.new().edits(1)), pool_text, 0.8),
+        ("E = 1, more than 256 classes", make_engine(ctx, wide, L.new().edits(1)),
+         spelled(wide, 0, 600, 400), 0.7),
+        ("E = 2, more than 256 classes", make_engine(ctx, wide2, L.new().edits(2)),
+         spelled(wide2, 0, 620, 400), 0.6),
+    ]
+
+
+def frontier_shape_checks(ctx) -> list:
+    """Phase 4j (e): both frontier kernels against their plain versions on
+    the card at ``frontier_shapes``, every position a start, in chunks of
+    256 (several chunks, the last short). Each shape must reach what it is
+    for: overflowed starts, the global scratch, int32 ids."""
+    import numpy as np
+
+    from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
+
+    torch = ctx.torch
+    recs = []
+    for title, engine, text, thr in frontier_shapes(ctx):
+        n = len(view_of(text, engine.case_insensitive))
+        rec = compare_frontier(ctx, engine, text, thr, torch.arange(n), title, nchunk=256)
+        rec["what"] = title
+        require(rec["emissions"] > 0, f"{title}: no emission")
+        if "overflowing" in title:
+            require(rec["overflowed"] > 0, f"{title}: no start overflowed")
+        if "scratch" in title:
+            require(not rec["on_chip"], f"{title}: the workspace fits on chip")
+        if "256 classes" in title:
+            require(rec["ids"] == "torch.int32", f"{title}: the ids are not int32")
+        recs.append(rec)
+    return recs
 
 
 def beam_cell(ctx, tag: str, engine, text: str, thr: float, locked, want, oracle_locked=True):
@@ -3815,6 +3964,8 @@ def beam_cell(ctx, tag: str, engine, text: str, thr: float, locked, want, oracle
         f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) = {len(text.encode()) / best / 1e6:.2f} "
         f"MB/s, {len(got)} matches; last_stats {stats}; launches {launches}")
     require(stats["backend"] == "device-fuzzy", f"{tag}: backend {stats['backend']}")
+    frontier_key = FRONTIER_KERNELS[min(engine.max_edits_fast, 2)][0]
+    require(launches[frontier_key] > 0, f"{tag}: the search did not launch {frontier_key}")
     require(len(set(keys)) == len(keys), f"{tag}: a match repeats")
     outside, missing = set(keys) - want, want - set(keys)
     log(f"  context oracle: {len(want)} matches; equal {not outside and not missing} "
@@ -3829,8 +3980,8 @@ def beam_cell(ctx, tag: str, engine, text: str, thr: float, locked, want, oracle
     a_bound = anchors_bound(ctx, engine, thr, stages)
     log(f"  anchors {stages.anchors} ({stages.anchors / stages.n:.4f} of the positions), "
         f"frontier: {st['rounds']} rounds, {st['states']} states expanded, "
-        f"{st['candidates']} candidates, {stages.emissions} emissions, {stages.overflow} "
-        f"overflowed starts")
+        f"{stages.emissions} emissions, {stages.overflow} overflowed starts; frontier "
+        f"launches {({k: v for k, v in stages.prof_f['counted'].items() if v})}")
     for name, p in (("candidate starts", stages.prof_a), ("frontier", stages.prof_f),
                     ("whole search", prof)):
         log(f"  {name}: wall {p['wall']:.3f} ms, device busy {p['busy']:.3f} ms "
@@ -4545,6 +4696,7 @@ def smoke(torch, start_pool, workers: int) -> int:
 
     from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits, Pattern, oracle
     from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build, exact, many
+    from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
     from fuzzy_aho_corasick_tpu_torch.ops import packed_bitap as tpb
     from fuzzy_aho_corasick_tpu_torch.ops import verify_dp as vdp
     from fuzzy_aho_corasick_tpu_torch.utils import device_corpus
@@ -4787,6 +4939,7 @@ def smoke(torch, start_pool, workers: int) -> int:
                                         "many_step_torch", "many_pipeline_torch",
                                         "_packed_hits_torch")]
     plain_names.append((exact, "goto_walk_torch"))
+    plain_names += [(tfz, n) for n in ("_pool_chunk", "_beam_chunk")]
     scan_keys = ("scan_bits", "block_offsets", "hit_words")
 
     # 5. parity, ahead of phase 4: the oracle's workers are busy meanwhile.
@@ -5162,16 +5315,18 @@ def smoke(torch, start_pool, workers: int) -> int:
     for tag, keys in (("4j (a)", ("scan_bits",)), ("4j (d)", scan_keys)):
         require(all(beam[tag].launches[k] > 0 for k in keys),
                 f"{tag}: the search did not launch {', '.join(keys)}")
-    phase("phase 4j (e): the kernels of 4j's paths against their plain versions on its inputs, "
-          "and one run of the frontier on the card against the CPU:")
+    phase("phase 4j (e): the kernels of 4j's paths against their plain versions on its inputs "
+          "(the frontier kernels on each cell's first run and on six small shapes):")
     errs_4j = beam_kernel_checks(ctx, fuzzy, joined, beam_engines["4j (d)"][0],
                                  beam_texts["long"])
     walk_err = max(walk_err, seed_walk_checks(ctx, beam_engines, ("4j (b)", "4j (c)")))
     for i, e in enumerate(errs_4j):
         errs_scan[i] = max(errs_scan[i], e)
-    for tag in ("4j (a)", "4j (b)", "4j (c)"):
+    frontier_runs = {}
+    for tag in ("4j (a)", "4j (b)", "4j (c)", "4j (d)"):
         eng, text, thr = beam_engines[tag]
-        frontier_cpu_check(ctx, eng, text, thr, beam[tag].stages, tag)
+        frontier_runs[tag] = frontier_kernel_check(ctx, eng, text, thr, beam[tag].stages, tag)
+    frontier_small = frontier_shape_checks(ctx)
     log(f"  phase 4j {time.perf_counter() - t_4j:.1f} s")
 
     # 4k. The sharded lanes and the multi-host entry points (parallel/): the
@@ -5605,6 +5760,23 @@ def smoke(torch, start_pool, workers: int) -> int:
         device_ms_per_search=device_ms(exact_runs["exact1k"].prof, "goto_walk_"),
         **{k: walk_t[k] for k in ("pass_device_ms", "alive_per_span", "arrivals", "tiles",
                                   "launches_copies_waits_per_walk", "exact1k_host_split_ms")}))
+    # The beam frontier's kernels: their launches on 4j (a)-(d), the record's
+    # times on the first run of (d) (the pool) and of (c) (the sorted beam),
+    # every cell's first run and 4j (e)'s small shapes beside them.
+    for lane, cells in ((1, ("4j (a)", "4j (b)", "4j (d)")), (2, ("4j (c)",))):
+        key, kname, replaces = FRONTIER_KERNELS[lane]
+        runs = {tag: frontier_runs[tag] for tag in cells}
+        main = runs[cells[-1]]
+        small = [r for r in frontier_small if (r["E"] == 1) == (lane == 1)]
+        kernels.append(record(
+            key, f"{PKG}/csrc/beam.cu", replaces, entry_sum(key),
+            max(r["max_abs_err"] for r in (*runs.values(), *small)), main["ms"],
+            main["plain_ms"], main["bound"], None, launches_4k=0, kernel=kname,
+            launch_ms=main["launch_ms"],
+            device_ms_per_search={tag: search_ms(beam[tag].prof, key, kname) for tag in cells},
+            first_runs={tag: {k: (v[0] if k == "bound" else v) for k, v in r.items()}
+                        for tag, r in runs.items()},
+            shapes=small))
     ranged = [{"name": f"{key}[3 ranges]", "one_range_ms": one, "three_ranges_ms": three,
                "plain_three_ranges_ms": plain} for key, one, three, plain in range_recs]
     streams = {tag: {"bytes": run.nbytes, "ms": [t * 1e3 for t in run.times],

@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("packed_bitap.cu", "scan_wide.cu", "scan_offsets.cu", "many_step.cu",
-                 "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu", "goto_walk.cu", "dp_list.cu")
+                 "banded_dp.cu", "dp_pipeline.cu", "dp_typed.cu", "goto_walk.cu", "dp_list.cu",
+                 "beam.cu")
 )
 #: Headers the sources include (part of the build's hash).
 HEADERS = tuple(_PKG / "csrc" / name
@@ -129,6 +130,18 @@ _SIGNATURES = {
     # overflow, tally, offsets, total, n_over, found, stream
     "fac_goto_walk": [_c_void_p, _c_int, _c_ll, _c_ll, _c_void_p] + [_c_int] * 4
     + [_c_void_p] * 5 + [_c_ll, _c_int] + [_c_void_p] * 2,
+    # ids, sym_bytes, limit, go, sb, N, C, et_full, ec_full, Df, et_deep,
+    # ec_deep, Dd, sim, out_count, out_list, MO, pat_len, pat_weight, ceil,
+    # max_pen, p_sub, p_ins, p_del, p_swap, floor, slack, E, T, starts, n,
+    # nchunk, write, counts, offsets, out, out_pen, total, overflow, stats,
+    # scratch, ws_bytes, grid, stream
+    "fac_beam_frontier": [_c_void_p, _c_int, _c_ll, _c_void_p, _c_void_p, _c_int, _c_int]
+    + [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 3 + [_c_int]
+    + [_c_void_p] * 3 + [_c_f] * 7 + [_c_int] * 2 + [_c_void_p, _c_ll, _c_int, _c_int]
+    + [_c_void_p] * 4 + [_c_ll] + [_c_void_p] * 3 + [_c_ll, _c_int, _c_void_p],
+    "fac_beam_smem_max": [],
+    "fac_beam_misc_bytes": [],
+    "fac_beam_pool_warps": [],
     "fac_scan_block_syms": [],
     "fac_scan_wide_chunk": [],
     # W, k

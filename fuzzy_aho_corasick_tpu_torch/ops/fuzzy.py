@@ -13,12 +13,12 @@ The JAX package serves these engines on three device lanes, tried in order
    graphemes.
 
 The beam frontier is the reference's per-start BFS (reference
-src/search.rs:418-1119, SURVEY §7) advanced in lockstep *rounds* over a
-chunk of candidate starts, as torch code on the engine's device (the JAX
-package's is XLA code, not Pallas). Each round expands every live state by
-one reference BFS pop (:func:`_expand`: the exact, substitution, swap,
-insertion and deletion pushes with every push guard, f32 in the oracle's op
-order, the dead-end filters on the ``sb_edge`` single-byte-edge table), then:
+src/search.rs:418-1119, SURVEY §7) advanced in *rounds* over a chunk of
+candidate starts (the JAX package's is XLA code, not Pallas). Each round
+expands every live state by one reference BFS pop (:func:`_expand`: the
+exact, substitution, swap, insertion and deletion pushes with every push
+guard, f32 in the oracle's op order, the dead-end filters on the ``sb_edge``
+single-byte-edge table), then:
 
 * E = 1 (:func:`_pool_chunk`): a state that has spent its edit can only take
   exact transitions, so the frontier is the 0-edit walk ``s0`` per start plus
@@ -33,12 +33,20 @@ every BFS path reaching state key ``(node, j, me, counts)`` has length
 ``rounds = d + insertions - swaps``, a function of the key alone, so all
 paths to equal keys meet in the same round.
 
-Unlike the JAX package (static shapes, padded chunks, capacity retries), the
-frontier holds only live states: each round compacts with ``torch.nonzero``,
-and a chunk stops when no state is left. Chunks keep the JAX package's size,
-a memory cap here, and the emission order within a chunk (round, start,
-slot, output), so the host's best-per-span reduction keeps the same first
-emission on a tie and returns the JAX package's list, in its order.
+On the card each lane is one hand kernel that runs all of a run's rounds
+(``csrc/beam.cu``: ``beam_pool_kernel``, a warp per start, and
+``beam_sorted_kernel``, a block per start, each a count launch and a write
+launch around ``block_offsets``; :func:`pool_frontier`,
+:func:`sorted_frontier`); a start's frontier never reads another's, so each
+start takes its own rounds until its frontier empties. On CPU tensors the
+wrappers run the plain versions :func:`_pool_chunk` and :func:`_beam_chunk`:
+torch in lockstep rounds that hold only live states (each round compacts
+with ``torch.nonzero``; a run stops when no state is left). Unlike the JAX
+package (static shapes, padded chunks, capacity retries) both take the
+starts unpadded. Chunks keep the JAX package's size and the emission order
+(chunk, round, start, slot, output), so the host's best-per-span reduction
+keeps the same first emission on a tie and returns the JAX package's list,
+in its order.
 
 The JAX package's fused E = 1 pipeline (``_fuzzy1_fused``) is not ported: it
 runs only where the packed prefilter takes the engine with every plain
@@ -54,6 +62,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import _cuda_build
+
 #: Start positions per chunk (the JAX package's dispatch size; the chunk
 #: bound below keeps its memory cap).
 NCHUNK = 1 << 13
@@ -63,13 +73,41 @@ FILTER_MIN_N = 1 << 14
 #: The per-pattern bitap pre-pass is linear in pattern count; past this
 #: every position is a candidate start.
 FILTER_MAX_PATTERNS = 64
-#: Candidates the frontier may hold in one round: it takes whole chunks of
-#: the JAX package's size, as many as fit this many candidates at the most a
-#: start can have in a round (2 D + 3 at the root; at E >= 2 up to B slots
-#: of 2 D + 3 each later), at least one. One round costs about the same
-#: host time whatever its size, and a run takes as many rounds as its
+#: Candidates the plain frontier may hold in one round: it takes whole
+#: chunks of the JAX package's size, as many as fit this many candidates at
+#: the most a start can have in a round (2 D + 3 at the root; at E >= 2 up to
+#: B slots of 2 D + 3 each later), at least one. One round costs about the
+#: same host time whatever its size, and a run takes as many rounds as its
 #: longest-lived walk, so fewer, larger runs take fewer rounds.
 GROUP_CANDIDATES = 1 << 24
+#: Bytes of the kernels' count grid (int32 per (chunk, round, start)) a run
+#: may take: the card's run is as many whole chunks as fit it, at least one.
+COUNT_GRID_BYTES = 1 << 27
+#: The most dynamic shared memory a block may opt in to on sm_90
+#: (``csrc/beam.cu`` SMEM_MAX), the sorted kernel's counters beside its keys
+#: (MISC_BYTES), the pool kernel's starts per block (POOL_WARPS) and the bytes
+#: of a pool walk or a sort key (ENTRY_BYTES).
+FRONTIER_SMEM_MAX = 232448
+FRONTIER_MISC_BYTES = 256
+POOL_WARPS = 4
+FRONTIER_ENTRY_BYTES = 16
+#: Blocks an SM gets on the kernels' global-scratch path (each its own
+#: workspace in device memory).
+SCRATCH_BLOCKS_PER_SM = 2
+
+
+class KernelTables(NamedTuple):
+    """The tables the frontier kernels read: int32 ``goto`` [nodes, C], the
+    edge lists, ``out_count`` and ``out_list``, and ``sb`` as uint8."""
+
+    goto: torch.Tensor
+    sb: torch.Tensor
+    et_full: torch.Tensor
+    ec_full: torch.Tensor
+    et_deep: torch.Tensor
+    ec_deep: torch.Tensor
+    out_count: torch.Tensor
+    out_list: torch.Tensor
 
 
 class BeamTables(NamedTuple):
@@ -77,7 +115,8 @@ class BeamTables(NamedTuple):
     ``goto`` and ``sb`` flat [nodes * C]; the edge lists at full width
     (``et_full`` / ``ec_full``, the root round) and at the deepest non-root
     degree (``et_deep`` / ``ec_deep``); ``sim`` flat [C * C]; outputs and
-    per-pattern length and weight."""
+    per-pattern length and weight (int64 and bool, as the plain versions
+    gather them); ``k32`` the same for the kernels."""
 
     C: int
     num_nodes: int
@@ -92,13 +131,16 @@ class BeamTables(NamedTuple):
     out_list: torch.Tensor
     pat_len: torch.Tensor
     pat_weight: torch.Tensor
+    k32: KernelTables
 
 
 class BeamParams(NamedTuple):
     """One search's scalars: the node ceilings [nodes], and the budget,
     penalties, symbol floor and slack threshold as 0-dim float32 tensors on
     the device (so every product and sum is float32, in the oracle's order);
-    the edit budget ``E``, the rounds ``T`` and the corpus length."""
+    the edit budget ``E``, the rounds ``T`` and the corpus length; ``host``
+    the seven float32 scalars (max_pen, p_sub, p_ins, p_del, p_swap, floor,
+    slack) as numpy values, which the kernels take by value."""
 
     ceil: torch.Tensor
     max_pen: torch.Tensor
@@ -111,6 +153,7 @@ class BeamParams(NamedTuple):
     E: int
     T: int
     limit: int
+    host: tuple
 
 
 class States(NamedTuple):
@@ -150,14 +193,18 @@ def beam_tables(engine, device) -> BeamTables:
 
     def build():
         put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
-        i64, f32 = torch.int64, torch.float32
+        i64, i32, f32 = torch.int64, torch.int32, torch.float32
+        tables = (dense.edge_target, dense.edge_class, dense.edge_target[:, :d_deep],
+                  dense.edge_class[:, :d_deep])
         return BeamTables(
             dense.num_classes, dense.num_nodes,
             put(dense.goto.reshape(-1), i64), put(dense.sb_edge.reshape(-1) > 0, torch.bool),
-            put(dense.edge_target, i64), put(dense.edge_class, i64),
-            put(dense.edge_target[:, :d_deep], i64), put(dense.edge_class[:, :d_deep], i64),
+            *(put(t, i64) for t in tables),
             put(dense.sim.reshape(-1), f32), put(dense.out_count, i64),
             put(dense.out_list, i64), put(dense.pat_len, f32), put(dense.pat_weight, f32),
+            KernelTables(put(dense.goto, i32), put(dense.sb_edge > 0, torch.uint8),
+                         *(put(t, i32) for t in tables), put(dense.out_count, i32),
+                         put(dense.out_list, i32)),
         )
 
     return _dev_cache(engine, ("beam", str(device)), build)
@@ -165,18 +212,22 @@ def beam_tables(engine, device) -> BeamTables:
 
 def beam_params(engine, thr: np.float32, ceil: np.ndarray, n: int, device) -> BeamParams:
     """The search's :class:`BeamParams` (the slack threshold is the JAX
-    kernels': ``thr - (1e-4 + 1e-4 |thr|)``; the host refilters exactly)."""
+    kernels': ``thr - (1e-4 + 1e-4 |thr|)``; the host refilters exactly).
+    The device copies are cached per engine and threshold: each upload is a
+    host wait."""
     from .verify_dp import _dev_cache
 
     pens = engine.penalties
     E = engine.max_edits_fast
-    f = lambda x: torch.tensor(np.float32(x), dtype=torch.float32, device=device)
     slack = np.float32(thr - (np.float32(1e-4) + np.float32(1e-4) * np.abs(thr)))
     dev_ceil = _dev_cache(engine, ("ceil", ceil.tobytes(), str(device)), lambda: torch.from_numpy(
         np.ascontiguousarray(ceil, np.float32)).to(device))
-    return BeamParams(dev_ceil, f(ceil[0]), f(pens.substitution), f(pens.insertion),
-                      f(pens.deletion), f(pens.swap), f(engine.min_symbol_similarity), f(slack),
-                      E, engine.dense.max_depth + E, n)
+    host = tuple(np.float32(x) for x in (ceil[0], pens.substitution, pens.insertion,
+                                         pens.deletion, pens.swap,
+                                         engine.min_symbol_similarity, slack))
+    scalars = _dev_cache(engine, ("beam-scalars", np.asarray(host).tobytes(), str(device)),
+                         lambda: torch.from_numpy(np.asarray(host)).to(device).unbind())
+    return BeamParams(dev_ceil, *scalars, E, engine.dense.max_depth + E, n, host)
 
 
 def _expand(st: States, et: torch.Tensor, ec: torch.Tensor, tabs: BeamTables,
@@ -504,13 +555,167 @@ def _chunk_len(E: int, T: int, d_deep: int) -> int:
     return nchunk
 
 
-def run_len(E: int, tabs: BeamTables, nchunk: int) -> int:
-    """Starts the frontier takes at once: whole chunks of ``nchunk``, as
-    many as ``GROUP_CANDIDATES`` allows (at least one)."""
+def run_len(E: int, tabs: BeamTables, nchunk: int, T: int, kernels: bool) -> int:
+    """Starts the frontier takes at once: whole chunks of ``nchunk``, at
+    least one; for the kernels (``kernels``) as many as keep their count
+    grid (``T`` int32 a start) within ``COUNT_GRID_BYTES``, for the plain
+    versions as many as ``GROUP_CANDIDATES`` allows."""
+    if kernels:
+        return max(1, COUNT_GRID_BYTES // (4 * T * nchunk)) * nchunk
     width = 2 * tabs.et_full.shape[1] + 3
     if E >= 2:
         width = max(width, (32 + 24 * E) * (2 * tabs.et_deep.shape[1] + 3))
     return max(1, GROUP_CANDIDATES // (width * nchunk)) * nchunk
+
+
+def grid_index(si: torch.Tensor, t, n: int, nchunk: int, T: int) -> torch.Tensor:
+    """The count grid's entry of (start ``si`` of a run of ``n``, round
+    ``t``), as ``csrc/beam.cu`` lays it out: chunks of ``nchunk * T``
+    entries, round-major inside a chunk, the start in its chunk last (the
+    last chunk short), so the grid's order is the JAX emission order's
+    (chunk, round, start) and every entry belongs to one start."""
+    chunk = si // nchunk
+    length = torch.clamp(n - chunk * nchunk, max=nchunk)
+    return chunk * nchunk * T + t * length + (si - chunk * nchunk)
+
+
+def frontier_workspace(E: int, Df: int, Dd: int, T: int):
+    """(bytes, on chip) of one block's workspace in ``csrc/beam.cu``: the
+    pool kernel's ``POOL_WARPS`` pools of P = S0 + (T - 1) Sd walks, or the
+    sorted kernel's keys, max(2 Df + 3, B (2 Dd + 3)) candidates and B beam
+    states (B = 32 + 24 E), 16 bytes each; on chip (dynamic shared memory,
+    beside the sorted kernel's counters) where that fits
+    ``FRONTIER_SMEM_MAX``, else a global scratch per block."""
+    if E == 1:
+        ws = POOL_WARPS * FRONTIER_ENTRY_BYTES * ((2 * Df + 2) + (T - 1) * (2 * Dd + 2))
+        return ws, ws <= FRONTIER_SMEM_MAX
+    B = 32 + 24 * E
+    ws = FRONTIER_ENTRY_BYTES * (max(2 * Df + 3, B * (2 * Dd + 3)) + B)
+    return ws, ws + FRONTIER_MISC_BYTES <= FRONTIER_SMEM_MAX
+
+
+_CHECKED = None
+
+
+def _frontier_lib():
+    """The built library, its frontier constants checked once against this
+    module's mirrors (the C entry checks each call's workspace bytes)."""
+    global _CHECKED
+    kern = _cuda_build.load()
+    if kern is not _CHECKED:
+        lib = kern.lib
+        got = (lib.fac_beam_smem_max(), lib.fac_beam_misc_bytes(), lib.fac_beam_pool_warps())
+        if got != (FRONTIER_SMEM_MAX, FRONTIER_MISC_BYTES, POOL_WARPS):
+            raise RuntimeError(f"csrc/beam.cu's (SMEM_MAX, MISC_BYTES, POOL_WARPS) {got} differ "
+                               "from ops/fuzzy.py's")
+        _CHECKED = kern
+    return kern
+
+
+def _frontier_kernels(starts: torch.Tensor, tabs: BeamTables, prm: BeamParams,
+                      ids: torch.Tensor, nchunk: int):
+    """One run of the frontier on the card: the count launch, ``block_offsets``
+    over its grid, one read of the run's stats, the write launch. Returns
+    (emissions (si, me, pattern, penalty, counts), overflow flags [n] bool
+    (E >= 2, else None), stats (emissions, states expanded, rounds,
+    overflowed starts) as ints)."""
+    from . import packed_bitap as pb
+
+    dev = starts.device
+    E, T, n = prm.E, prm.T, starts.numel()
+    k32 = tabs.k32
+    if starts.dtype != torch.int64 or starts.dim() != 1 or not starts.is_contiguous():
+        raise ValueError("starts must be a contiguous 1-D int64 tensor")
+    if ids.dtype not in (torch.uint8, torch.int32) or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous 1-D uint8 or int32 tensor")
+    if any(x.device != dev for x in (ids, k32.goto, prm.ceil, tabs.sim)):
+        raise ValueError(f"starts on {dev}, but the ids, tables or ceilings elsewhere")
+    if not 1 <= E <= 6 or n * T >= 1 << 31 or T + 2 >= 1 << 16:
+        raise ValueError(f"E {E}, {n} starts x {T} rounds outside the kernels' range")
+    Df, Dd = k32.et_full.shape[1], k32.et_deep.shape[1]
+    ws, on_chip = frontier_workspace(E, Df, Dd, T)
+    kern = _frontier_lib()
+    grid = 0
+    scratch = None
+    if not on_chip:
+        grid = min(SCRATCH_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+            dev).multi_processor_count, -(-n // (POOL_WARPS if E == 1 else 1)))
+        scratch = torch.empty(grid * ws, dtype=torch.uint8, device=dev)
+    counts = torch.empty(n * T, dtype=torch.int32, device=dev)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    overflow = torch.empty(n, dtype=torch.uint8, device=dev) if E >= 2 else None
+    C, N = tabs.C, tabs.num_nodes
+    args = (ids.data_ptr(), ids.element_size(), prm.limit, k32.goto.data_ptr(),
+            k32.sb.data_ptr(), N, C, k32.et_full.data_ptr(), k32.ec_full.data_ptr(), Df,
+            k32.et_deep.data_ptr(), k32.ec_deep.data_ptr(), Dd, tabs.sim.data_ptr(),
+            k32.out_count.data_ptr(), k32.out_list.data_ptr(), k32.out_list.shape[1],
+            tabs.pat_len.data_ptr(), tabs.pat_weight.data_ptr(), prm.ceil.data_ptr(),
+            *(float(x) for x in prm.host), E, T, starts.data_ptr(), n, nchunk)
+    name = "beam_pool" if E == 1 else "beam_sorted"
+
+    def launch(write: int, offsets, out, pen, total: int):
+        with pb.on_device(dev):
+            rc = kern.lib.fac_beam_frontier(
+                *args, write, counts.data_ptr(), None if offsets is None else offsets.data_ptr(),
+                None if out is None else out.data_ptr(), None if pen is None else pen.data_ptr(),
+                total, None if overflow is None else overflow.data_ptr(), stats.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), ws, grid, pb.stream_of(dev))
+        kern.check(rc, name)
+        pb.LAUNCHES[name] += 1
+
+    launch(0, None, None, None, 0)
+    offsets = pb.block_offsets(counts)
+    total, states, rounds, n_over = stats.tolist()
+    if total >= 1 << 31:
+        raise ValueError(f"{total} emissions in a run: the grid's offsets would overflow int32")
+    out = torch.empty((4, total), dtype=torch.int64, device=dev)
+    pen = torch.empty(total, dtype=torch.float32, device=dev)
+    if total:
+        launch(1, offsets, out, pen, total)
+    em = (out[0], out[1], out[2], pen, out[3])
+    return em, None if overflow is None else overflow.view(torch.bool), (total, states, rounds,
+                                                                         n_over)
+
+
+def _frontier_device(starts: torch.Tensor) -> bool:
+    """Whether the kernels take ``starts``: False on the CPU (the plain
+    versions), True on CUDA; any other device raises."""
+    if starts.device.type == "cpu":
+        return False
+    if starts.device.type != "cuda":
+        raise ValueError(f"no frontier kernel for device {starts.device}")
+    return True
+
+
+def pool_frontier(starts: torch.Tensor, tabs: BeamTables, prm: BeamParams, ids: torch.Tensor,
+                  nchunk: int):
+    """The E = 1 frontier over a run of chunks of ``nchunk`` starts:
+    (emissions (si, me, pattern, penalty, counts) in the JAX pool kernel's
+    order, stats). CPU tensors run :func:`_pool_chunk` (stats None); CUDA
+    tensors launch ``beam_pool_kernel`` (``csrc/beam.cu``) twice around
+    ``block_offsets``, with one host read, and return its stats (emissions,
+    states expanded, rounds, overflowed starts)."""
+    if not _frontier_device(starts):
+        return _pool_chunk(starts, tabs, prm, ids, nchunk), None
+    if prm.E != 1:
+        raise ValueError(f"the pool frontier takes E = 1, not {prm.E}")
+    em, _ov, stats = _frontier_kernels(starts, tabs, prm, ids, nchunk)
+    return em, stats
+
+
+def sorted_frontier(starts: torch.Tensor, tabs: BeamTables, prm: BeamParams, ids: torch.Tensor,
+                    nchunk: int, B: int):
+    """The E >= 2 beam over a run of chunks of ``nchunk`` starts:
+    (emissions as :func:`_beam_chunk` gives them, bool overflow per start,
+    stats). CPU tensors run :func:`_beam_chunk` (stats None); CUDA tensors
+    launch ``beam_sorted_kernel`` (``csrc/beam.cu``) twice around
+    ``block_offsets``, with one host read, and return its stats."""
+    if not _frontier_device(starts):
+        return (*_beam_chunk(starts, tabs, prm, ids, nchunk, B), None)
+    if not 2 <= prm.E <= 6 or B != 32 + 24 * prm.E:
+        raise ValueError(f"the sorted beam takes E = 2..6 and B = 32 + 24 E, not E = {prm.E}, "
+                         f"B = {B}")
+    return _frontier_kernels(starts, tabs, prm, ids, nchunk)
 
 
 def _best_per_span(engine, view, n: int, em, thr):
@@ -543,13 +748,14 @@ def _best_per_span(engine, view, n: int, em, thr):
 
 
 def beam_emissions(engine, haystack: str, view, n: int, cand: torch.Tensor, thr,
-                   ceil: np.ndarray):
-    """The frontier over the candidate starts ``cand``: chunks of the JAX
-    package's size through :func:`_pool_chunk` (E = 1) or
-    :func:`_beam_chunk` (E >= 2) against the resident dense corpus. Returns
-    the emissions (start, me, pattern, penalty, counts) as tensors on the
-    engine's device in the JAX package's order, and the overflowed starts in
-    the order the JAX package rescues them."""
+                   ceil: np.ndarray, stats: Optional[list] = None):
+    """The frontier over the candidate starts ``cand``: runs of chunks of
+    the JAX package's size through :func:`pool_frontier` (E = 1) or
+    :func:`sorted_frontier` (E >= 2) against the resident dense corpus.
+    Returns the emissions (start, me, pattern, penalty, counts) as tensors
+    on the engine's device in the JAX package's order, and the overflowed
+    starts in the order the JAX package rescues them. On the card each run's
+    kernel stats are appended to ``stats`` where it is given."""
     from ..utils import device_corpus
     from .packed_bitap import _space_token
 
@@ -569,15 +775,15 @@ def beam_emissions(engine, haystack: str, view, n: int, cand: torch.Tensor, thr,
 
     # Chunks of the JAX package's size order the emissions (and the
     # rescues); runs of them go through the frontier together.
-    run = run_len(E, tabs, nchunk)
+    run = run_len(E, tabs, nchunk, prm.T, _frontier_device(cand))
     parts, overflow_starts = [], []
     for g0 in range(0, cand.numel(), run):
         starts = cand[g0:g0 + run]
         if E == 1:
-            em = _pool_chunk(starts, tabs, prm, ids, nchunk)
+            em, st = pool_frontier(starts, tabs, prm, ids, nchunk)
         else:
-            em, ov = _beam_chunk(starts, tabs, prm, ids, nchunk, 32 + 24 * E)
-            ov_idx = torch.nonzero(ov).squeeze(1).tolist()
+            em, ov, st = sorted_frontier(starts, tabs, prm, ids, nchunk, 32 + 24 * E)
+            ov_idx = torch.nonzero(ov).squeeze(1).tolist() if st is None or st[3] else []
             if ov_idx:
                 pos = starts.tolist()
                 for c0 in range(0, len(pos), nchunk):
@@ -585,10 +791,14 @@ def beam_emissions(engine, haystack: str, view, n: int, cand: torch.Tensor, thr,
                     # chunk's overflowed indices, filled in ascending order.
                     ov_local = set(i - c0 for i in ov_idx if c0 <= i < c0 + nchunk)
                     overflow_starts.extend(pos[c0 + i] for i in ov_local)
+        if stats is not None and st is not None:
+            stats.append(st)
         parts.append((starts[em[0]],) + em[1:])
     if not parts:
         z = torch.zeros(0, dtype=torch.int64, device=device)
         return (z, z, z, torch.zeros(0, dtype=torch.float32, device=device), z), overflow_starts
+    if len(parts) == 1:
+        return parts[0], overflow_starts
     return tuple(torch.cat([p[k] for p in parts]) for k in range(5)), overflow_starts
 
 
