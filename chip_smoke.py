@@ -215,12 +215,16 @@ torch version. Phases:
    ``beam_kernel_checks``: ``scan_bits``, ``block_offsets`` and
    ``hit_words`` against their plain versions on (a)'s anchor segments and
    (d)'s seed pass; ``frontier_kernel_check``: the frontier's kernels
-   (``beam_pool_kernel`` (a), (b), (d), ``beam_sorted_kernel`` (c),
-   ``csrc/beam.cu``) against their plain versions on the card over each
-   cell's first run of chunks, bit for bit, timed; and
-   ``frontier_shape_checks``: both kernels on six small shapes the cells do
-   not reach (overflowing starts, E = 3, each kernel's global scratch, int32
-   ids), bit for bit;
+   (``beam_pool_kernel`` (a), (b), (d), ``beam_sorted_kernel`` (c), and
+   ``beam_order_kernel`` after either, ``csrc/beam.cu``) against their
+   plain versions on the card over each cell's first run of chunks, bit for
+   bit, timed; and ``frontier_shape_checks``: the kernels on twelve small
+   shapes, each required to reach its branch (``FRONTIER_SHAPE_NEEDS``:
+   overflowing starts, rounds past the register sort, the tables on chip and
+   in global memory for both kernels, each kernel's global scratch, int32
+   ids, a run with no emission and so no write launch, a run in which every
+   start emits, the order kernel's histograms in global memory), bit for
+   bit; ptxas's registers of every frontier kernel, none spilling;
 4k. the sharded lanes and the multi-host entry points (``parallel/``),
    the plain versions and the oracle locked out, the launch counters set
    to 0 just before each search and read just after: (a)
@@ -3739,11 +3743,13 @@ def anchors_bound(ctx, engine, thr: float, stages):
     return bound_ms(n + out, 0, INT_RATE)
 
 
-#: The frontier kernels by lane: (launch counter, kernel name, the JAX
-#: function it replaces).
+#: The frontier kernels by lane: (launch counter, kernel name) of each, and
+#: the JAX function they replace. E = 1 runs two: the thread path, and the
+#: warp path for the starts whose pool outgrows a thread's walks.
 FRONTIER_KERNELS = {
-    1: ("beam_pool", "beam_pool_kernel", "fuzzy_aho_corasick_tpu/ops/fuzzy.py:342"),
-    2: ("beam_sorted", "beam_sorted_kernel", "fuzzy_aho_corasick_tpu/ops/fuzzy.py:237"),
+    1: ((("beam_pool", "beam_pool_thread_kernel"), ("beam_pool_warp", "beam_pool_kernel")),
+        "fuzzy_aho_corasick_tpu/ops/fuzzy.py:342"),
+    2: ((("beam_sorted", "beam_sorted_kernel"),), "fuzzy_aho_corasick_tpu/ops/fuzzy.py:237"),
 }
 
 
@@ -3772,22 +3778,49 @@ def frontier_inputs(ctx, engine, text: str, thr: float):
     return tabs, prm, ids, tfz._chunk_len(prm.E, prm.T, tabs.et_deep.shape[1])
 
 
+def frontier_registers(log_text: str) -> dict:
+    """ptxas's (registers, spill-store bytes) of every frontier kernel
+    instance in the build log: ``beam_pool_thread_kernel``,
+    ``beam_pool_kernel`` and ``beam_sorted_kernel`` for u8 ids with the
+    tables on chip or in global memory and for int32 ids (tables global),
+    and ``beam_order_kernel``."""
+    import re
+
+    out = {}
+    for sym, chip in (("h", 1), ("h", 0), ("i", 0)):
+        label = f"{'u8' if sym == 'h' else 'int32'},{'tables on chip' if chip else 'tables global'}"
+        for name in ("beam_pool_thread_kernel", "beam_pool_kernel", "beam_sorted_kernel"):
+            e = ptxas_entry(log_text, rf"{name}I{sym}Lb{chip}E")
+            out[f"{name}<{label}>"] = e and e[1:]
+    e = ptxas_entry(log_text, re.escape("beam_order_kernel"))
+    out["beam_order_kernel"] = e and e[1:]
+    return out
+
+
 def compare_frontier(ctx, engine, text: str, thr: float, starts, what: str, nchunk=None,
                      timed=False) -> dict:
     """The frontier kernel (``pool_frontier`` / ``sorted_frontier`` on the
     card) against its plain version (``_pool_chunk`` / ``_beam_chunk``) on
     the card, on the same run of ``starts``: emissions and overflow flags
-    bit for bit. With ``timed``, the wrapper's CUDA-event ms (count launch,
-    ``block_offsets``, the read, write launch), the profiler's device ms per
-    launch of the kernel, the plain version's event ms and the kernel's I/O
-    bound (the starts read, a symbol each, the emissions and flags written)."""
+    bit for bit; the order kernel (``order_emissions``, captured from the
+    call) against ``order_emissions_torch`` on the staged emissions, bit for
+    bit. Records the launches of each (the write launch only where the run
+    emits), the layout, whether the tables went on chip, and the kernel's
+    stats (spilled starts, rounds sorted in memory). With ``timed``, the
+    wrapper's CUDA-event ms (count launch, ``block_offsets``, the read, write
+    launch, order kernel), the profiler's device ms per launch of the
+    frontier kernel and of the order kernel, the order kernel's event ms
+    beside its plain version's, the plain frontier's event ms and the I/O
+    bounds (the starts read, a symbol each, the emissions and flags written;
+    the order kernel's staged emissions read and outputs written)."""
     from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
 
     torch, tpb = ctx.torch, ctx.tpb
     tabs, prm, ids, chunk = frontier_inputs(ctx, engine, text, thr)
     nchunk = nchunk or chunk
     E = prm.E
-    key, kernel, _jax = FRONTIER_KERNELS[min(E, 2)]
+    pairs = FRONTIER_KERNELS[min(E, 2)][0]
+    kernel = " + ".join(k for _c, k in pairs)
     B = 32 + 24 * E
     starts = starts.to(ctx.dev)
     if E == 1:
@@ -3798,46 +3831,117 @@ def compare_frontier(ctx, engine, text: str, thr: float, starts, what: str, nchu
         kern = lambda: (lambda em, ov, st: ((em, ov), st))(
             *tfz.sorted_frontier(starts, tabs, prm, ids, nchunk, B))
         plain = lambda: tfz._beam_chunk(starts, tabs, prm, ids, nchunk, B)
-    before = tpb.LAUNCHES[key]
-    (em, ov), stats = kern()
+    captured = []
+    order = tfz.order_emissions
+
+    def capture(*args):
+        captured.append(args)
+        return order(*args)
+
+    before = dict(tpb.LAUNCHES)
+    tfz.order_emissions = capture
+    try:
+        (em, ov), stats = kern()
+    finally:
+        tfz.order_emissions = order
     torch.cuda.synchronize()
-    require(tpb.LAUNCHES[key] > before, f"{what}: the {kernel} wrapper launched nothing")
+    keys = [c for c, _k in pairs] + ["beam_order"]
+    launched = {k: tpb.LAUNCHES[k] - before[k] for k in keys}
+    require(all(launched[c] > 0 for c, _k in pairs), f"{what}: {kernel}: a kernel was not launched")
     want_em, want_ov = plain()
     got = [f.cpu() for f in em] + ([ov.cpu()] if ov is not None else [])
     want = [f.cpu() for f in want_em] + ([want_ov.cpu()] if want_ov is not None else [])
-    same = all(a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
-               for a, b in zip(got, want))
-    err = max((float((a.double() - b.double()).abs().max()) if a.shape == b.shape and a.numel()
-               else 0.0 if a.shape == b.shape else float("inf") for a, b in zip(got, want)),
-              default=0.0)
+
+    def diff(got, want):
+        same = all(a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+                   for a, b in zip(got, want))
+        err = max((float((a.double() - b.double()).abs().max()) if a.shape == b.shape and
+                   a.numel() else 0.0 if a.shape == b.shape else float("inf")
+                   for a, b in zip(got, want)), default=0.0)
+        return same, err
+
+    same, err = diff(got, want)
+    order_same, order_err = True, 0.0
+    if captured:
+        staged, offsets, n_run, nc, T = captured[0]
+        order_same, order_err = diff([f.cpu() for f in order(*captured[0])],
+                                     [f.cpu() for f in tfz.order_emissions_torch(*captured[0])])
     Df, Dd = tabs.k32.et_full.shape[1], tabs.k32.et_deep.shape[1]
-    ws, on_chip = tfz.frontier_workspace(E, Df, Dd, prm.T)
+    MO, npat = tabs.k32.out_list.shape[1], tabs.pat_len.numel()
+    lay = tfz.frontier_workspace(E, Df, Dd, prm.T)
+    tb = tfz.tables_bytes(tabs.num_nodes, tabs.C, Df, MO, npat)
+    mirror = (lay, tb, tfz.tables_on_chip(tb, lay, ids.element_size()))
+    lib = tfz.frontier_layout(E, Df, Dd, prm.T, tabs.num_nodes, tabs.C, MO, npat,
+                              ids.element_size())
+    require(lib == mirror, f"{what}: the library's layout {lib} differs from ops/fuzzy.py's "
+                           f"mirror {mirror}")
     n_over = int(ov.sum()) if ov is not None else 0
+    emitting = int(torch.unique(em[0]).numel())
     rec = {"kernel": kernel, "E": E, "starts": int(starts.numel()), "nchunk": nchunk,
-           "T": prm.T, "Df": Df, "Dd": Dd, "classes": tabs.C, "ids": str(ids.dtype),
-           "workspace_bytes": ws, "on_chip": on_chip, "emissions": int(em[0].numel()),
-           "overflowed": n_over, "stats": list(stats), "max_abs_err": err, "equal": same}
+           "T": prm.T, "Df": Df, "Dd": Dd, "classes": tabs.C, "nodes": tabs.num_nodes,
+           "ids": str(ids.dtype), "layout": lay._asdict(), "tables_bytes": tb,
+           "tables_on_chip": bool(stats[8]),
+           "order_hist_on_chip": tfz.order_hist_on_chip(prm.T),
+           "emissions": int(em[0].numel()), "emitting_starts": emitting, "overflowed": n_over,
+           "stats": list(stats), "spilled_starts": stats[4], "memory_sorted_rounds": stats[5],
+           "handed_starts": stats[6], "handed_emissions": stats[7], "launches": launched, "max_abs_err": max(err, order_err), "equal": same,
+           "order_equal": order_same}
     log(f"  {what}: {kernel} over {rec['starts']} starts (chunks of {nchunk}, T = {prm.T}, "
-        f"Df / Dd {Df} / {Dd}, {tabs.C} classes, {ids.dtype}, workspace {ws} bytes "
-        f"{'on chip' if on_chip else 'in global scratch'}): {rec['emissions']} emissions, "
-        f"{n_over} overflowed, stats (emissions, states, rounds, overflowed) {list(stats)}; "
-        f"bit-equal to the plain version on the card {same} (max_abs_err {err})")
+        f"Df / Dd {Df} / {Dd}, {tabs.C} classes, {tabs.num_nodes} nodes, {ids.dtype}; "
+        f"{lay.light_chip} walks a thread, {lay.chip} entries a warp on chip, {lay.ws} bytes a "
+        f"block, global scratch {lay.spill} bytes a warp; tables {tb} bytes "
+        f"{'on chip' if rec['tables_on_chip'] else 'in global memory'}): {rec['emissions']} "
+        f"emissions from {emitting} starts, {n_over} overflowed, stats (emissions, states, "
+        f"rounds, overflowed, spilled, memory-sorted rounds, handed on, their emissions, tables "
+        f"on chip) {list(stats)}; launches "
+        f"{launched}; bit-equal to the plain version on the card {same}, the order kernel "
+        f"{order_same} (max_abs_err {rec['max_abs_err']})")
     require(same, f"{what}: {kernel} differs from its plain version")
+    require(order_same, f"{what}: beam_order_kernel differs from its plain version")
     require(stats[0] == rec["emissions"] and stats[3] == n_over,
             f"{what}: the kernel's stats disagree with its output")
+    require(rec["tables_on_chip"] == lib[2],
+            f"{what}: the count launch read the tables from "
+            f"{'shared' if rec['tables_on_chip'] else 'global'} memory, its layout says otherwise")
+    phases = 2 if rec["emissions"] else 1
+    require(launched == {**{c: phases for c, _k in pairs}, "beam_order": phases - 1},
+            f"{what}: launches {launched}: a write phase and an order launch exactly where the "
+            f"run emits")
     if timed:
         rec["ms"] = event_ms(torch, kern, 3)
-        prof = profile_search(torch, kern, 1, tpb.LAUNCHES)
-        rec["launch_ms"] = launch_ms(prof, kernel)
-        rec["device_ms"] = device_ms(prof, kernel)
+        # Three calls: the profiler on that machine drops an event now and
+        # then, and launch_ms takes the mean of the events it kept.
+        prof = profile_search(torch, kern, 3, tpb.LAUNCHES)
+        rec["launch_ms"] = {k: launch_ms(prof, k) for _c, k in pairs}
+        rec["device_ms"] = {k: device_ms(prof, k) for _c, k in pairs}
+        rec["order_launch_ms"] = launch_ms(prof, "beam_order_kernel")
         rec["plain_ms"] = event_ms(torch, plain, 1)
         nbytes = starts.numel() * (8 + ids.element_size() + (E >= 2)) + 36 * rec["emissions"]
         rec["bound"] = bound_ms(nbytes, 0, INT_RATE)
-        log(f"    wrapper {rec['ms']:.4f} ms by events (count launch, block_offsets, the read, "
-            f"write launch), {kernel} {rec['launch_ms']:.4f} device ms a launch "
-            f"({rec['device_ms']:.4f} both), plain version {rec['plain_ms']:.3f} ms; bound "
-            f"{rec['bound'][0]:.5f} ms by {rec['bound'][1]} = {rec['bound'][0] / rec['ms']:.2e} "
-            f"of the wrapper")
+        if E == 1:
+            # The pool's warp path alone: each start handed to it, its list
+            # entry, position and symbol read, its count written and its
+            # offset read; each of its emissions staged once (24 bytes).
+            rec["warp_bound"] = bound_ms(
+                stats[6] * (4 + 8 + ids.element_size() + 4 + 4) + 24 * stats[7], 0, INT_RATE)
+        if captured:
+            rec["order_ms"] = event_ms(torch, lambda: order(*captured[0]), 10)
+            rec["order_plain_ms"] = event_ms(
+                torch, lambda: tfz.order_emissions_torch(*captured[0]), 3)
+            rec["order_bound"] = bound_ms(
+                60 * rec["emissions"] + 4 * (-(-rec["starts"] // nchunk) + 1), 0, INT_RATE)
+        log(f"    wrapper {rec['ms']:.4f} ms by events (count phase, block_offsets, the read, "
+            f"write phase, order kernel), device ms a launch {rec['launch_ms']} (both phases "
+            f"{rec['device_ms']}), beam_order_kernel {rec['order_launch_ms']:.4f} device ms, "
+            f"plain version {rec['plain_ms']:.3f} ms; bound {rec['bound'][0]:.5f} ms by "
+            f"{rec['bound'][1]} = {rec['bound'][0] / rec['ms']:.2e} of the wrapper"
+            + (f"; the warp path's own bound {rec['warp_bound'][0]:.6f} ms by "
+               f"{rec['warp_bound'][1]} ({stats[6]} starts handed on, {stats[7]} emissions)"
+               if E == 1 else ""))
+        if captured:
+            log(f"    order kernel {rec['order_ms']:.4f} ms by events, its plain version "
+                f"{rec['order_plain_ms']:.4f} ms, bound {rec['order_bound'][0]:.5f} ms by "
+                f"{rec['order_bound'][1]}")
     return rec
 
 
@@ -3847,20 +3951,49 @@ def frontier_kernel_check(ctx, engine, text: str, thr: float, stages, what: str)
     as ``beam_emissions`` gives a run on the card), timed."""
     from fuzzy_aho_corasick_tpu_torch.ops import fuzzy as tfz
 
+    t0 = time.perf_counter()
     tabs, prm, _ids, nchunk = frontier_inputs(ctx, engine, text, thr)
     run = tfz.run_len(prm.E, tabs, nchunk, prm.T, True)
-    return compare_frontier(ctx, engine, text, thr, stages.cand[:run], f"{what}, first run",
-                            timed=True)
+    rec = compare_frontier(ctx, engine, text, thr, stages.cand[:run], f"{what}, first run",
+                           timed=True)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"    {rec['seconds']:.1f} s")
+    return rec
+
+
+#: Phase 4j (e)'s small shapes by title: what each must reach (checked in
+#: ``frontier_shape_checks``).
+FRONTIER_SHAPE_NEEDS = {
+    "E = 2, overflowing starts": ("overflow", "memory sort", "tables global"),
+    "E = 3, B = 104": ("memory sort", "tables on chip"),
+    "E = 4, rounds past the keys on chip": ("sort scratch", "memory sort", "tables on chip"),
+    "E = 2, a node of 100 children": ("overflow", "memory sort"),
+    "E = 1, a 200-character pattern": ("handed on", "pool scratch", "tables on chip"),
+    "E = 1, more than 256 classes": ("int32", "tables global"),
+    "E = 2, more than 256 classes": ("int32",),
+    "E = 1, no start emits": ("no emission",),
+    "E = 2, no start emits": ("no emission",),
+    "E = 1, every start emits": ("every start emits",),
+    "E = 2, every start emits": ("every start emits",),
+    "E = 1, a 400-character pattern": ("order histograms global", "handed on", "pool scratch"),
+}
 
 
 def frontier_shapes(ctx):
     """Phase 4j (e)'s small shapes the cells do not reach, each (title,
-    engine, text, threshold): an E = 2 text whose starts overflow (a node of
-    41 children behind a two-character prefix the text spells); an E = 3
-    engine (B = 104); a deep width past the block's shared memory at E = 2
-    (a node of 100 children: the sorted kernel's global scratch); a pool
-    past it (a 200-character pattern beside a node of 10 children: P = 4,406
-    walks); more than 256 classes (int32 ids) at E = 1 and E = 2."""
+    engine, text, threshold, starts or None for every position): an E = 2
+    text whose starts overflow (a node of 41 children behind a two-character
+    prefix the text spells: rounds past the register sort, the tables in
+    global memory); an E = 3 engine (B = 104, tables on chip); the same
+    dictionary at E = 4 and 0.3, whose rounds pass the keys a warp keeps on
+    chip (its global scratch); a node of 100 children at E = 2 (overflowing
+    starts); a pool past a thread's and a warp's walks on chip (a
+    200-character pattern beside a node of 10 children: P = 4,406 walks);
+    more than 256 classes (int32 ids) at E = 1 and E = 2; a run in which no
+    start emits and one in which every start does, at E = 1 and E = 2; and
+    the first 4 starts of a 400-a run for a 400-character pattern, beside
+    hello's (T = 401: the order kernel's round histograms in global memory,
+    emissions in rounds past 384)."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 40)
@@ -3890,43 +4023,77 @@ def frontier_shapes(ctx):
     # At E = 2 a root of 136 edges would overflow every start at its first
     # round: first characters from 20, the rest from 600.
     wide2 = sorted({cjk[600 + int(rng.integers(20))] + fill(0, 600, 3) for _ in range(150)})
-    return [
+    none_text = "zq xk vj " * 300
+    every = ["a", "aa", "aaa"]
+    long_text = "hello " * 20 + "a" * 400 + " hello"
+    long_starts = ctx.torch.arange(124)
+    shapes = [
         ("E = 2, overflowing starts", make_engine(ctx, over, L.new().edits(2)),
-         spelled(over, 500, 700, 300), 0.6),
-        ("E = 3, B = 104", make_engine(ctx, ascii_words, L.new().edits(3)), e3_text, 0.5),
-        ("E = 2, a node of 100 children (global scratch)", make_engine(ctx, deep, L.new().edits(2)),
-         spelled(deep, 300, 700, 300), 0.6),
-        ("E = 1, a 200-character pattern (global scratch)",
-         make_engine(ctx, pool_words, L.new().edits(1)), pool_text, 0.8),
+         spelled(over, 500, 700, 300), 0.6, None),
+        ("E = 3, B = 104", make_engine(ctx, ascii_words, L.new().edits(3)), e3_text, 0.5, None),
+        ("E = 4, rounds past the keys on chip", make_engine(ctx, ascii_words, L.new().edits(4)),
+         e3_text, 0.3, None),
+        ("E = 2, a node of 100 children", make_engine(ctx, deep, L.new().edits(2)),
+         spelled(deep, 300, 700, 300), 0.6, None),
+        ("E = 1, a 200-character pattern", make_engine(ctx, pool_words, L.new().edits(1)),
+         pool_text, 0.8, None),
         ("E = 1, more than 256 classes", make_engine(ctx, wide, L.new().edits(1)),
-         spelled(wide, 0, 600, 400), 0.7),
+         spelled(wide, 0, 600, 400), 0.7, None),
         ("E = 2, more than 256 classes", make_engine(ctx, wide2, L.new().edits(2)),
-         spelled(wide2, 0, 620, 400), 0.6),
+         spelled(wide2, 0, 620, 400), 0.6, None),
+        ("E = 1, no start emits", make_engine(ctx, ascii_words, L.new().edits(1)), none_text,
+         0.8, None),
+        ("E = 2, no start emits", make_engine(ctx, ascii_words, L.new().edits(2)), none_text,
+         0.8, None),
+        ("E = 1, every start emits", make_engine(ctx, every, L.new().edits(1)), "a" * 3000,
+         0.8, None),
+        ("E = 2, every start emits", make_engine(ctx, every, L.new().edits(2)), "a" * 3000,
+         0.6, None),
+        ("E = 1, a 400-character pattern", make_engine(ctx, ["a" * 400, "hello"],
+                                                        L.new().edits(1)),
+         long_text, 0.8, long_starts),
     ]
+    assert [s[0] for s in shapes] == list(FRONTIER_SHAPE_NEEDS)
+    return shapes
 
 
 def frontier_shape_checks(ctx) -> list:
-    """Phase 4j (e): both frontier kernels against their plain versions on
-    the card at ``frontier_shapes``, every position a start, in chunks of
-    256 (several chunks, the last short). Each shape must reach what it is
-    for: overflowed starts, the global scratch, int32 ids."""
-    import numpy as np
-
+    """Phase 4j (e): both frontier kernels and the order kernel against
+    their plain versions on the card at ``frontier_shapes``, in chunks of
+    256 (several chunks, the last short). Each shape must reach what
+    ``FRONTIER_SHAPE_NEEDS`` names: overflowed starts, rounds sorted in
+    memory, the tables on chip or in global memory, starts handed from the
+    pool's thread path to its warp path, a pool's or a sorted warp's global
+    scratch, int32 ids, no emission (no write phase), every start emitting,
+    the order kernel's histograms in global memory."""
     from fuzzy_aho_corasick_tpu_torch.utils.graphemes import view_of
 
     torch = ctx.torch
     recs = []
-    for title, engine, text, thr in frontier_shapes(ctx):
+    for title, engine, text, thr, starts in frontier_shapes(ctx):
+        t0 = time.perf_counter()
         n = len(view_of(text, engine.case_insensitive))
-        rec = compare_frontier(ctx, engine, text, thr, torch.arange(n), title, nchunk=256)
-        rec["what"] = title
-        require(rec["emissions"] > 0, f"{title}: no emission")
-        if "overflowing" in title:
-            require(rec["overflowed"] > 0, f"{title}: no start overflowed")
-        if "scratch" in title:
-            require(not rec["on_chip"], f"{title}: the workspace fits on chip")
-        if "256 classes" in title:
-            require(rec["ids"] == "torch.int32", f"{title}: the ids are not int32")
+        starts = torch.arange(n) if starts is None else starts
+        rec = compare_frontier(ctx, engine, text, thr, starts, title, nchunk=256)
+        rec["what"], rec["seconds"] = title, time.perf_counter() - t0
+        log(f"    {rec['seconds']:.1f} s")
+        reached = {
+            "overflow": rec["overflowed"] > 0,
+            "memory sort": rec["memory_sorted_rounds"] > 0,
+            "tables on chip": rec["tables_on_chip"],
+            "tables global": not rec["tables_on_chip"],
+            "sort scratch": rec["E"] >= 2 and rec["spilled_starts"] > 0,
+            "pool scratch": rec["E"] == 1 and rec["spilled_starts"] > 0,
+            "handed on": rec["E"] == 1 and rec["handed_starts"] > 0,
+            "int32": rec["ids"] == "torch.int32",
+            "no emission": rec["emissions"] == 0,
+            "every start emits": rec["emitting_starts"] == rec["starts"],
+            "order histograms global": not rec["order_hist_on_chip"] and rec["emissions"] > 0,
+        }
+        rec["reached"] = [k for k in FRONTIER_SHAPE_NEEDS[title] if reached[k]]
+        require(rec["reached"] == list(FRONTIER_SHAPE_NEEDS[title]),
+                f"{title}: reached {rec['reached']} of {list(FRONTIER_SHAPE_NEEDS[title])}")
+        require(rec["emissions"] > 0 or "no emission" in rec["reached"], f"{title}: no emission")
         recs.append(rec)
     return recs
 
@@ -3964,8 +4131,8 @@ def beam_cell(ctx, tag: str, engine, text: str, thr: float, locked, want, oracle
         f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) = {len(text.encode()) / best / 1e6:.2f} "
         f"MB/s, {len(got)} matches; last_stats {stats}; launches {launches}")
     require(stats["backend"] == "device-fuzzy", f"{tag}: backend {stats['backend']}")
-    frontier_key = FRONTIER_KERNELS[min(engine.max_edits_fast, 2)][0]
-    require(launches[frontier_key] > 0, f"{tag}: the search did not launch {frontier_key}")
+    for frontier_key, _k in FRONTIER_KERNELS[min(engine.max_edits_fast, 2)][0]:
+        require(launches[frontier_key] > 0, f"{tag}: the search did not launch {frontier_key}")
     require(len(set(keys)) == len(keys), f"{tag}: a match repeats")
     outside, missing = set(keys) - want, want - set(keys)
     log(f"  context oracle: {len(want)} matches; equal {not outside and not missing} "
@@ -4939,7 +5106,7 @@ def smoke(torch, start_pool, workers: int) -> int:
                                         "many_step_torch", "many_pipeline_torch",
                                         "_packed_hits_torch")]
     plain_names.append((exact, "goto_walk_torch"))
-    plain_names += [(tfz, n) for n in ("_pool_chunk", "_beam_chunk")]
+    plain_names += [(tfz, n) for n in ("_pool_chunk", "_beam_chunk", "order_emissions_torch")]
     scan_keys = ("scan_bits", "block_offsets", "hit_words")
 
     # 5. parity, ahead of phase 4: the oracle's workers are busy meanwhile.
@@ -5316,7 +5483,7 @@ def smoke(torch, start_pool, workers: int) -> int:
         require(all(beam[tag].launches[k] > 0 for k in keys),
                 f"{tag}: the search did not launch {', '.join(keys)}")
     phase("phase 4j (e): the kernels of 4j's paths against their plain versions on its inputs "
-          "(the frontier kernels on each cell's first run and on six small shapes):")
+          "(the frontier kernels on each cell's first run and on twelve small shapes):")
     errs_4j = beam_kernel_checks(ctx, fuzzy, joined, beam_engines["4j (d)"][0],
                                  beam_texts["long"])
     walk_err = max(walk_err, seed_walk_checks(ctx, beam_engines, ("4j (b)", "4j (c)")))
@@ -5327,6 +5494,11 @@ def smoke(torch, start_pool, workers: int) -> int:
         eng, text, thr = beam_engines[tag]
         frontier_runs[tag] = frontier_kernel_check(ctx, eng, text, thr, beam[tag].stages, tag)
     frontier_small = frontier_shape_checks(ctx)
+    regs_f = frontier_registers(kern.log)
+    log(f"  ptxas of the frontier kernels (registers, spill-store bytes): {regs_f}")
+    require(all(v is not None for v in regs_f.values()),
+            "a frontier kernel instance is missing from ptxas")
+    require(not any(v[1] for v in regs_f.values()), "a frontier kernel spills registers")
     log(f"  phase 4j {time.perf_counter() - t_4j:.1f} s")
 
     # 4k. The sharded lanes and the multi-host entry points (parallel/): the
@@ -5762,21 +5934,54 @@ def smoke(torch, start_pool, workers: int) -> int:
                                   "launches_copies_waits_per_walk", "exact1k_host_split_ms")}))
     # The beam frontier's kernels: their launches on 4j (a)-(d), the record's
     # times on the first run of (d) (the pool) and of (c) (the sorted beam),
-    # every cell's first run and 4j (e)'s small shapes beside them.
+    # every cell's first run and 4j (e)'s small shapes beside them, ptxas's
+    # registers and spills, and the frontier's launches and host waits per
+    # search; the order kernel timed on (a)'s first run (the most emissions).
+    per_search = {tag: {"launches": run.stages.prof_f["kernels"],
+                        "waits": run.stages.prof_f["waits"],
+                        "counted": {k: v for k, v in run.stages.prof_f["counted"].items() if v},
+                        "runs": run.stages.runs} for tag, run in beam.items()}
     for lane, cells in ((1, ("4j (a)", "4j (b)", "4j (d)")), (2, ("4j (c)",))):
-        key, kname, replaces = FRONTIER_KERNELS[lane]
+        pairs, replaces = FRONTIER_KERNELS[lane]
         runs = {tag: frontier_runs[tag] for tag in cells}
         main = runs[cells[-1]]
         small = [r for r in frontier_small if (r["E"] == 1) == (lane == 1)]
-        kernels.append(record(
-            key, f"{PKG}/csrc/beam.cu", replaces, entry_sum(key),
-            max(r["max_abs_err"] for r in (*runs.values(), *small)), main["ms"],
-            main["plain_ms"], main["bound"], None, launches_4k=0, kernel=kname,
-            launch_ms=main["launch_ms"],
-            device_ms_per_search={tag: search_ms(beam[tag].prof, key, kname) for tag in cells},
-            first_runs={tag: {k: (v[0] if k == "bound" else v) for k, v in r.items()}
-                        for tag, r in runs.items()},
-            shapes=small))
+        for i, (key, kname) in enumerate(pairs):
+            # The lane's first kernel carries the wrapper's time (both of its
+            # kernels, block_offsets, the read, the order kernel) and the
+            # lane's bound; a second one (the pool's warp path) its own device
+            # time over both phases and the bound of what it moves (the
+            # starts handed to it and their emissions). The plain version is
+            # the lane's function's.
+            kernels.append(record(
+                key, f"{PKG}/csrc/beam.cu", replaces, entry_sum(key),
+                max(r["max_abs_err"] for r in (*runs.values(), *small)),
+                main["ms"] if i == 0 else main["device_ms"][kname], main["plain_ms"],
+                main["bound"] if i == 0 else main["warp_bound"], None, launches_4k=0,
+                kernel=kname,
+                ms_is="the wrapper by events" if i == 0 else "its device ms over both phases",
+                launch_ms=main["launch_ms"][kname],
+                device_ms_per_search={tag: search_ms(beam[tag].prof, key, kname) for tag in cells},
+                frontier_per_search={tag: per_search[tag] for tag in cells},
+                registers={k: v for k, v in regs_f.items() if kname + "<" in k},
+                first_runs={tag: {k: (v[0] if k in ("bound", "order_bound", "warp_bound")
+                                      else v)
+                                  for k, v in r.items()} for tag, r in runs.items()},
+                shapes=small))
+    first = frontier_runs["4j (a)"]
+    kernels.append(record(
+        "beam_order", f"{PKG}/csrc/beam.cu",
+        "fuzzy_aho_corasick_tpu/ops/fuzzy.py:57 (the emission order of both frontier kernels)",
+        entry_sum("beam_order"),
+        max(r["max_abs_err"] for r in (*frontier_runs.values(), *frontier_small)),
+        first["order_ms"], first["order_plain_ms"], first["order_bound"], None, launches_4k=0,
+        kernel="beam_order_kernel", launch_ms=first["order_launch_ms"],
+        registers={"beam_order_kernel": regs_f["beam_order_kernel"]},
+        first_runs={tag: {k: r.get(k) for k in ("emissions", "order_ms", "order_plain_ms",
+                                                 "order_launch_ms")}
+                    for tag, r in frontier_runs.items()},
+        library_call="none: a stable sort of the run's (chunk, round) keys gives the "
+                     "permutation, not the moved emissions"))
     ranged = [{"name": f"{key}[3 ranges]", "one_range_ms": one, "three_ranges_ms": three,
                "plain_three_ranges_ms": plain} for key, one, three, plain in range_recs]
     streams = {tag: {"bytes": run.nbytes, "ms": [t * 1e3 for t in run.times],

@@ -131,17 +131,22 @@ _SIGNATURES = {
     "fac_goto_walk": [_c_void_p, _c_int, _c_ll, _c_ll, _c_void_p] + [_c_int] * 4
     + [_c_void_p] * 5 + [_c_ll, _c_int] + [_c_void_p] * 2,
     # ids, sym_bytes, limit, go, sb, N, C, et_full, ec_full, Df, et_deep,
-    # ec_deep, Dd, sim, out_count, out_list, MO, pat_len, pat_weight, ceil,
-    # max_pen, p_sub, p_ins, p_del, p_swap, floor, slack, E, T, starts, n,
-    # nchunk, write, counts, offsets, out, out_pen, total, overflow, stats,
-    # scratch, ws_bytes, grid, stream
+    # ec_deep, Dd, sim, out_count, out_list, MO, pat_len, pat_weight, npat,
+    # ceil, max_pen, p_sub, p_ins, p_del, p_swap, floor, slack, E, T, starts,
+    # n, write, counts, offsets, staged, total, flags, handed, stats,
+    # scratch, scratch_bytes, stream
     "fac_beam_frontier": [_c_void_p, _c_int, _c_ll, _c_void_p, _c_void_p, _c_int, _c_int]
     + [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 3 + [_c_int]
-    + [_c_void_p] * 3 + [_c_f] * 7 + [_c_int] * 2 + [_c_void_p, _c_ll, _c_int, _c_int]
-    + [_c_void_p] * 4 + [_c_ll] + [_c_void_p] * 3 + [_c_ll, _c_int, _c_void_p],
-    "fac_beam_smem_max": [],
-    "fac_beam_misc_bytes": [],
-    "fac_beam_pool_warps": [],
+    + [_c_void_p] * 2 + [_c_int, _c_void_p] + [_c_f] * 7 + [_c_int] * 2
+    + [_c_void_p, _c_ll, _c_int] + [_c_void_p] * 3 + [_c_ll] + [_c_void_p] * 4
+    + [_c_ll, _c_void_p],
+    # E, Df, Dd, T, N, C, MO, npat, sym_bytes, out
+    "fac_beam_layout": [_c_int] * 9 + [_c_void_p],
+    # staged, offsets, n, nchunk, T, out, out_pen, total, hist, stream
+    "fac_beam_order": [_c_void_p] * 2 + [_c_ll] + [_c_int] * 2 + [_c_void_p] * 2 + [_c_ll]
+    + [_c_void_p] * 2,
+    # i
+    "fac_beam_const": [_c_int],
     "fac_scan_block_syms": [],
     "fac_scan_wide_chunk": [],
     # W, k

@@ -33,12 +33,16 @@ every BFS path reaching state key ``(node, j, me, counts)`` has length
 ``rounds = d + insertions - swaps``, a function of the key alone, so all
 paths to equal keys meet in the same round.
 
-On the card each lane is one hand kernel that runs all of a run's rounds
-(``csrc/beam.cu``: ``beam_pool_kernel``, a warp per start, and
-``beam_sorted_kernel``, a block per start, each a count launch and a write
-launch around ``block_offsets``; :func:`pool_frontier`,
-:func:`sorted_frontier`); a start's frontier never reads another's, so each
-start takes its own rounds until its frontier empties. On CPU tensors the
+On the card hand kernels run all of a run's rounds (``csrc/beam.cu``): at
+E = 1 ``beam_pool_thread_kernel``, a thread a start, and
+``beam_pool_kernel``, a warp a start for the starts whose pool outgrows a
+thread's walks; at E >= 2 ``beam_sorted_kernel``, a warp a start
+(:func:`pool_frontier`, :func:`sorted_frontier`). A count phase keeps one
+count a start, ``block_offsets`` scans them, a write phase runs again the
+starts that emit and stages each start's emissions together, and
+``beam_order_kernel`` (:func:`order_emissions`) puts each chunk in round
+order; a start's frontier never reads another's, so each start takes its
+own rounds until its frontier empties. On CPU tensors the
 wrappers run the plain versions :func:`_pool_chunk` and :func:`_beam_chunk`:
 torch in lockstep rounds that hold only live states (each round compacts
 with ``torch.nonzero``; a run stops when no state is left). Unlike the JAX
@@ -57,6 +61,7 @@ are defined), so no search reaches it.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -80,20 +85,54 @@ FILTER_MAX_PATTERNS = 64
 #: same host time whatever its size, and a run takes as many rounds as its
 #: longest-lived walk, so fewer, larger runs take fewer rounds.
 GROUP_CANDIDATES = 1 << 24
-#: Bytes of the kernels' count grid (int32 per (chunk, round, start)) a run
-#: may take: the card's run is as many whole chunks as fit it, at least one.
-COUNT_GRID_BYTES = 1 << 27
-#: The most dynamic shared memory a block may opt in to on sm_90
-#: (``csrc/beam.cu`` SMEM_MAX), the sorted kernel's counters beside its keys
-#: (MISC_BYTES), the pool kernel's starts per block (POOL_WARPS) and the bytes
-#: of a pool walk or a sort key (ENTRY_BYTES).
+#: Bytes a run of the kernels may hold per start on the card (its count,
+#: offset, flag and place in the handed-off list: ``RUN_START_BYTES``): the
+#: card's run is as many whole chunks as fit ``RUN_BYTES``, at least one.
+RUN_BYTES = 1 << 27
+RUN_START_BYTES = 13
+#: ``csrc/beam.cu``'s constants (``fac_beam_const``): the most dynamic shared
+#: memory a block may opt in to on sm_90 (SMEM_MAX), the pool and the sorted
+#: kernels' threads a block (POOL_THREADS, SORT_THREADS: a warp a start on
+#: the warp paths), the order kernel's warps (ORDER_WARPS) and the bytes its
+#: round histograms may take on chip (ORDER_SMEM), the bytes of a pool walk
+#: or a sort key (ENTRY_BYTES), the most candidates a round sorts in
+#: registers (WARP_SORT_KEYS), the most starts a warp takes at once (BATCH)
+#: and the stats' slots (emissions, states expanded, rounds, overflowed
+#: starts, starts that went to the global scratch, rounds sorted in memory,
+#: starts handed from the pool's thread path to its warp path, their
+#: emissions, whether the tables were read from shared memory, the work
+#: counters).
 FRONTIER_SMEM_MAX = 232448
-FRONTIER_MISC_BYTES = 256
-POOL_WARPS = 4
+POOL_THREADS = 256
+SORT_THREADS = 256
+ORDER_WARPS = 32
+ORDER_SMEM = 49152
 FRONTIER_ENTRY_BYTES = 16
-#: Blocks an SM gets on the kernels' global-scratch path (each its own
-#: workspace in device memory).
-SCRATCH_BLOCKS_PER_SM = 2
+WARP_SORT_KEYS = 64
+FRONTIER_BATCH = 32
+STATS_SLOTS = 16
+#: Walks a pool thread keeps in shared memory: a start whose pool grows past
+#: them is handed to the pool's warp path.
+THREAD_POOL_WALKS = 8
+#: Walks a pool warp keeps in shared memory, and candidates a sorted warp
+#: keeps there beside its beam: a start whose pool, or a round whose
+#: candidates, grow past them moves to the warp's region of the global
+#: scratch.
+POOL_CHIP_WALKS = 256
+SORT_CHIP_KEYS = 128
+#: The automaton's tables are staged into each block's shared memory up to
+#: this many bytes (``tables_bytes``), where they fit beside the workspace.
+#: These four are ``csrc/beam.cu``'s too (``fac_beam_const`` 9-12): the
+#: kernels' layout is the library's (``fac_beam_layout``), and
+#: :func:`frontier_workspace`, :func:`tables_bytes` and
+#: :func:`tables_on_chip` mirror it.
+TABLES_SMEM_MAX = 1 << 16
+#: The most global scratch a launch takes for spilled pools or keys; the
+#: persistent grid shrinks to fit it (at least one block).
+FRONTIER_SPILL_BYTES = 1 << 27
+#: The staged emission's int32 fields (``csrc/beam.cu`` ``Em``): the start's
+#: index in the run, me, pattern, counts, the penalty's bits, the round.
+STAGED_FIELDS = 6
 
 
 class KernelTables(NamedTuple):
@@ -356,13 +395,18 @@ def _flat(st: States, cand, slot_base: int = 0, first_col: int = 0) -> States:
     return States(st.si[row], st.pos0[row], node, j, me, counts, pen, live % w + slot_base)
 
 
+def _empty_emissions(device):
+    """No emissions: (si, me, pattern, penalty, counts), each empty."""
+    z = torch.zeros(0, dtype=torch.int64, device=device)
+    return z, z, z, torch.zeros(0, dtype=torch.float32, device=device), z
+
+
 def _emissions(parts, keys, tabs: BeamTables):
     """(si, me, pattern, penalty, counts) of the emissions ``parts``, a list
     of (frontier, state index, output column), in the order of their
     ``keys`` (int64, one tensor per part)."""
     if not parts:
-        z = torch.zeros(0, dtype=torch.int64, device=tabs.goto.device)
-        return z, z, z, torch.zeros(0, dtype=torch.float32, device=z.device), z
+        return _empty_emissions(tabs.goto.device)
     fields = [(st.si[i], st.me[i], tabs.out_list[st.node[i], o], st.pen[i], st.counts[i])
               for st, i, o in parts]
     order = torch.argsort(torch.cat(keys))
@@ -557,41 +601,85 @@ def _chunk_len(E: int, T: int, d_deep: int) -> int:
 
 def run_len(E: int, tabs: BeamTables, nchunk: int, T: int, kernels: bool) -> int:
     """Starts the frontier takes at once: whole chunks of ``nchunk``, at
-    least one; for the kernels (``kernels``) as many as keep their count
-    grid (``T`` int32 a start) within ``COUNT_GRID_BYTES``, for the plain
-    versions as many as ``GROUP_CANDIDATES`` allows."""
+    least one; for the kernels (``kernels``) as many as keep a run's per-start
+    arrays (``RUN_START_BYTES`` a start: its count, offset and overflow flag)
+    within ``RUN_BYTES``, for the plain versions as many as
+    ``GROUP_CANDIDATES`` allows."""
     if kernels:
-        return max(1, COUNT_GRID_BYTES // (4 * T * nchunk)) * nchunk
+        return max(1, RUN_BYTES // (RUN_START_BYTES * nchunk)) * nchunk
     width = 2 * tabs.et_full.shape[1] + 3
     if E >= 2:
         width = max(width, (32 + 24 * E) * (2 * tabs.et_deep.shape[1] + 3))
     return max(1, GROUP_CANDIDATES // (width * nchunk)) * nchunk
 
 
-def grid_index(si: torch.Tensor, t, n: int, nchunk: int, T: int) -> torch.Tensor:
-    """The count grid's entry of (start ``si`` of a run of ``n``, round
-    ``t``), as ``csrc/beam.cu`` lays it out: chunks of ``nchunk * T``
-    entries, round-major inside a chunk, the start in its chunk last (the
-    last chunk short), so the grid's order is the JAX emission order's
-    (chunk, round, start) and every entry belongs to one start."""
-    chunk = si // nchunk
-    length = torch.clamp(n - chunk * nchunk, max=nchunk)
-    return chunk * nchunk * T + t * length + (si - chunk * nchunk)
+class FrontierLayout(NamedTuple):
+    """A frontier launch's workspace (``csrc/beam.cu`` ``layout_of``, whose
+    first six entries ``fac_beam_layout`` returns): the
+    warp path's ``units`` (warps, a start each) a block, the entries a warp
+    keeps on chip (``chip``: pool walks, or candidate keys beside its beam of
+    B), the block's on-chip bytes ``ws`` (beside any tables) and the global
+    scratch bytes ``spill`` a warp needs (0 where its most entries fit on
+    chip); at E = 1 the walks a thread of the thread path keeps on chip
+    (``light_chip``) and that path's on-chip bytes a block (``light_ws``)."""
+
+    units: int
+    chip: int
+    ws: int
+    spill: int
+    light_chip: int
+    light_ws: int
 
 
-def frontier_workspace(E: int, Df: int, Dd: int, T: int):
-    """(bytes, on chip) of one block's workspace in ``csrc/beam.cu``: the
-    pool kernel's ``POOL_WARPS`` pools of P = S0 + (T - 1) Sd walks, or the
-    sorted kernel's keys, max(2 Df + 3, B (2 Dd + 3)) candidates and B beam
-    states (B = 32 + 24 E), 16 bytes each; on chip (dynamic shared memory,
-    beside the sorted kernel's counters) where that fits
-    ``FRONTIER_SMEM_MAX``, else a global scratch per block."""
+def frontier_workspace(E: int, Df: int, Dd: int, T: int) -> FrontierLayout:
+    """The :class:`FrontierLayout` of the pool kernels (E = 1: a thread keeps
+    ``THREAD_POOL_WALKS`` walks; a start's pool holds at most P = (2 Df + 2)
+    + (T - 1) (2 Dd + 2) walks, ``POOL_CHIP_WALKS`` of them on chip on the
+    warp path) or of the sorted kernel (a warp's round has at most max(2 Df
+    + 3, B (2 Dd + 3)) candidates, B = 32 + 24 E, ``SORT_CHIP_KEYS`` of them
+    on chip beside its B beam states), 16 bytes an entry."""
     if E == 1:
-        ws = POOL_WARPS * FRONTIER_ENTRY_BYTES * ((2 * Df + 2) + (T - 1) * (2 * Dd + 2))
-        return ws, ws <= FRONTIER_SMEM_MAX
-    B = 32 + 24 * E
-    ws = FRONTIER_ENTRY_BYTES * (max(2 * Df + 3, B * (2 * Dd + 3)) + B)
-    return ws, ws + FRONTIER_MISC_BYTES <= FRONTIER_SMEM_MAX
+        most = (2 * Df + 2) + (T - 1) * (2 * Dd + 2)
+        units = POOL_THREADS // 32
+        chip = min(POOL_CHIP_WALKS, most)
+        ws = units * FRONTIER_ENTRY_BYTES * chip
+        light = THREAD_POOL_WALKS
+        light_ws = POOL_THREADS * FRONTIER_ENTRY_BYTES * light
+    else:
+        B = 32 + 24 * E
+        most = max(2 * Df + 3, B * (2 * Dd + 3))
+        units = SORT_THREADS // 32
+        chip = min(SORT_CHIP_KEYS, most)
+        ws = units * FRONTIER_ENTRY_BYTES * (B + chip)
+        light = light_ws = 0
+    return FrontierLayout(units, chip, ws, FRONTIER_ENTRY_BYTES * most if most > chip else 0,
+                          light, light_ws)
+
+
+def tables_bytes(N: int, C: int, Df: int, MO: int, npat: int) -> int:
+    """Bytes of the automaton's tables staged into a block's shared memory
+    (``csrc/beam.cu`` ``tables_layout``), each from a 16-byte boundary:
+    ``go`` and ``sim`` (int32 / f32 [N, C], [C, C]), the full edge lists
+    ``et`` and ``ec`` (int32 [N, Df]; the deep rounds read them with stride
+    Df), ``out_count`` and ``ceil`` [N], ``out_list`` [N, MO], ``pat_len``
+    and ``pat_weight`` [npat], ``sb`` (uint8 [N, C])."""
+    r16 = lambda b: -(-b // 16) * 16
+    return (r16(4 * N * C) + r16(4 * C * C) + 2 * r16(4 * N * Df) + 2 * r16(4 * N)
+            + r16(4 * N * MO) + 2 * r16(4 * npat) + r16(N * C))
+
+
+def tables_on_chip(table_bytes: int, layout: FrontierLayout, sym_bytes: int) -> bool:
+    """Whether a launch stages the tables: for u8 ids (``sym_bytes`` 1) up to
+    ``TABLES_SMEM_MAX`` bytes, where they fit beside each of its kernels'
+    workspace."""
+    return (sym_bytes == 1 and table_bytes <= TABLES_SMEM_MAX
+            and table_bytes + max(layout.ws, layout.light_ws) <= FRONTIER_SMEM_MAX)
+
+
+def order_hist_on_chip(T: int) -> bool:
+    """Whether the order kernel's round histograms (``ORDER_WARPS`` x T int32
+    a block) fit ``ORDER_SMEM``; past it they take a global scratch."""
+    return 4 * ORDER_WARPS * T <= ORDER_SMEM
 
 
 _CHECKED = None
@@ -599,26 +687,92 @@ _CHECKED = None
 
 def _frontier_lib():
     """The built library, its frontier constants checked once against this
-    module's mirrors (the C entry checks each call's workspace bytes)."""
+    module's mirrors."""
     global _CHECKED
     kern = _cuda_build.load()
     if kern is not _CHECKED:
-        lib = kern.lib
-        got = (lib.fac_beam_smem_max(), lib.fac_beam_misc_bytes(), lib.fac_beam_pool_warps())
-        if got != (FRONTIER_SMEM_MAX, FRONTIER_MISC_BYTES, POOL_WARPS):
-            raise RuntimeError(f"csrc/beam.cu's (SMEM_MAX, MISC_BYTES, POOL_WARPS) {got} differ "
-                               "from ops/fuzzy.py's")
+        got = tuple(kern.lib.fac_beam_const(i) for i in range(13))
+        want = (FRONTIER_SMEM_MAX, POOL_THREADS, SORT_THREADS, ORDER_WARPS, ORDER_SMEM,
+                FRONTIER_ENTRY_BYTES, WARP_SORT_KEYS, FRONTIER_BATCH, STATS_SLOTS,
+                THREAD_POOL_WALKS, POOL_CHIP_WALKS, SORT_CHIP_KEYS, TABLES_SMEM_MAX)
+        if got != want:
+            raise RuntimeError(f"csrc/beam.cu's constants {got} differ from ops/fuzzy.py's {want}")
         _CHECKED = kern
     return kern
+
+
+def frontier_layout(E: int, Df: int, Dd: int, T: int, N: int, C: int, MO: int, npat: int,
+                    sym_bytes: int):
+    """The library's layout of a frontier launch (``fac_beam_layout``): a
+    :class:`FrontierLayout`, the tables' bytes, and whether they go into
+    shared memory."""
+    out = (ctypes.c_longlong * 8)()
+    kern = _frontier_lib()
+    kern.check(kern.lib.fac_beam_layout(E, Df, Dd, T, N, C, MO, npat, sym_bytes, out),
+               "beam_layout")
+    return FrontierLayout(*out[:6]), int(out[6]), bool(out[7])
+
+
+def order_emissions_torch(staged: torch.Tensor, offsets: torch.Tensor, n: int, nchunk: int,
+                          T: int):
+    """Plain version of ``beam_order_kernel``: the staged emissions (int32
+    [total, ``STAGED_FIELDS``], start-major at ``offsets``, int32 [n + 1])
+    in the JAX order, each chunk of ``nchunk`` starts sorted by round,
+    stably: (si, me, pattern, penalty, counts)."""
+    if staged.shape[0] != int(offsets[-1]) or offsets.numel() != n + 1:
+        raise ValueError(f"{staged.shape[0]} staged emissions, offsets end at {int(offsets[-1])}")
+    if staged.shape[0] == 0:
+        return _empty_emissions(staged.device)
+    si = staged[:, 0].long()
+    order = torch.argsort((si // nchunk) * T + staged[:, 5].long(), stable=True)
+    pen = staged[:, 4].contiguous().view(torch.float32)
+    return (si[order], staged[:, 1].long()[order], staged[:, 2].long()[order], pen[order],
+            staged[:, 3].long()[order])
+
+
+def order_emissions(staged: torch.Tensor, offsets: torch.Tensor, n: int, nchunk: int, T: int):
+    """The JAX order of a run's staged emissions, as
+    :func:`order_emissions_torch` computes it: CPU tensors run that, CUDA
+    tensors launch ``beam_order_kernel`` (``csrc/beam.cu``) once, a block per
+    chunk."""
+    dev = staged.device
+    if dev.type == "cpu":
+        return order_emissions_torch(staged, offsets, n, nchunk, T)
+    if dev.type != "cuda":
+        raise ValueError(f"no order kernel for device {dev}")
+    from . import packed_bitap as pb
+
+    total = staged.shape[0]
+    if (staged.dtype != torch.int32 or staged.dim() != 2 or staged.shape[1] != STAGED_FIELDS
+            or not staged.is_contiguous() or offsets.dtype != torch.int32
+            or offsets.numel() != n + 1 or offsets.device != dev or total < 1):
+        raise ValueError(f"staged must be contiguous int32 [total >= 1, {STAGED_FIELDS}] and "
+                         f"offsets int32 [{n + 1}] on {dev}")
+    out = torch.empty((4, total), dtype=torch.int64, device=dev)
+    pen = torch.empty(total, dtype=torch.float32, device=dev)
+    hist = None if order_hist_on_chip(T) else torch.empty(
+        -(-n // nchunk) * ORDER_WARPS * T, dtype=torch.int32, device=dev)
+    kern = _frontier_lib()
+    with pb.on_device(dev):
+        rc = kern.lib.fac_beam_order(staged.data_ptr(), offsets.data_ptr(), n, nchunk, T,
+                                     out.data_ptr(), pen.data_ptr(), total,
+                                     None if hist is None else hist.data_ptr(), pb.stream_of(dev))
+    kern.check(rc, "beam_order")
+    pb.LAUNCHES["beam_order"] += 1
+    return out[0], out[1], out[2], pen, out[3]
 
 
 def _frontier_kernels(starts: torch.Tensor, tabs: BeamTables, prm: BeamParams,
                       ids: torch.Tensor, nchunk: int):
     """One run of the frontier on the card: the count launch, ``block_offsets``
-    over its grid, one read of the run's stats, the write launch. Returns
-    (emissions (si, me, pattern, penalty, counts), overflow flags [n] bool
-    (E >= 2, else None), stats (emissions, states expanded, rounds,
-    overflowed starts) as ints)."""
+    over its n counts, one read of the run's stats, and where the run emits
+    the write launch (the starts that emit) and :func:`order_emissions`.
+    Returns (emissions (si, me, pattern, penalty, counts), overflow flags [n]
+    bool (E >= 2, else None), stats (emissions, states expanded, rounds,
+    overflowed starts, starts that went to the global scratch, rounds
+    sorted in memory, starts the pool's thread path handed to its warp
+    path, their emissions, 1 where the count launch read the tables from
+    shared memory) as ints)."""
     from . import packed_bitap as pb
 
     dev = starts.device
@@ -630,51 +784,57 @@ def _frontier_kernels(starts: torch.Tensor, tabs: BeamTables, prm: BeamParams,
         raise ValueError("ids must be a contiguous 1-D uint8 or int32 tensor")
     if any(x.device != dev for x in (ids, k32.goto, prm.ceil, tabs.sim)):
         raise ValueError(f"starts on {dev}, but the ids, tables or ceilings elsewhere")
-    if not 1 <= E <= 6 or n * T >= 1 << 31 or T + 2 >= 1 << 16:
+    if not 1 <= E <= 6 or not 1 <= n < 1 << 31 or T + 2 >= 1 << 16:
         raise ValueError(f"E {E}, {n} starts x {T} rounds outside the kernels' range")
     Df, Dd = k32.et_full.shape[1], k32.et_deep.shape[1]
-    ws, on_chip = frontier_workspace(E, Df, Dd, T)
+    C, N, MO, npat = tabs.C, tabs.num_nodes, k32.out_list.shape[1], tabs.pat_len.numel()
+    lay, _tb, _on_chip = frontier_layout(E, Df, Dd, T, N, C, MO, npat, ids.element_size())
     kern = _frontier_lib()
-    grid = 0
     scratch = None
-    if not on_chip:
-        grid = min(SCRATCH_BLOCKS_PER_SM * torch.cuda.get_device_properties(
-            dev).multi_processor_count, -(-n // (POOL_WARPS if E == 1 else 1)))
-        scratch = torch.empty(grid * ws, dtype=torch.uint8, device=dev)
-    counts = torch.empty(n * T, dtype=torch.int32, device=dev)
-    stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    overflow = torch.empty(n, dtype=torch.uint8, device=dev) if E >= 2 else None
-    C, N = tabs.C, tabs.num_nodes
+    if lay.spill:
+        per_block = lay.units * lay.spill
+        blocks = max(1, min(-(-n // lay.units), FRONTIER_SPILL_BYTES // per_block))
+        scratch = torch.empty(blocks * per_block, dtype=torch.uint8, device=dev)
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    stats = torch.zeros(STATS_SLOTS, dtype=torch.int64, device=dev)
+    # E >= 2: the overflowed starts; E = 1: the starts handed to the warp
+    # path, and their list.
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    handed = torch.empty(n, dtype=torch.int32, device=dev) if E == 1 else None
     args = (ids.data_ptr(), ids.element_size(), prm.limit, k32.goto.data_ptr(),
             k32.sb.data_ptr(), N, C, k32.et_full.data_ptr(), k32.ec_full.data_ptr(), Df,
             k32.et_deep.data_ptr(), k32.ec_deep.data_ptr(), Dd, tabs.sim.data_ptr(),
-            k32.out_count.data_ptr(), k32.out_list.data_ptr(), k32.out_list.shape[1],
-            tabs.pat_len.data_ptr(), tabs.pat_weight.data_ptr(), prm.ceil.data_ptr(),
-            *(float(x) for x in prm.host), E, T, starts.data_ptr(), n, nchunk)
+            k32.out_count.data_ptr(), k32.out_list.data_ptr(), MO, tabs.pat_len.data_ptr(),
+            tabs.pat_weight.data_ptr(), npat, prm.ceil.data_ptr(),
+            *(float(x) for x in prm.host), E, T, starts.data_ptr(), n)
+    tail = (flags.data_ptr(), None if handed is None else handed.data_ptr(), stats.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel())
     name = "beam_pool" if E == 1 else "beam_sorted"
 
-    def launch(write: int, offsets, out, pen, total: int):
+    def launch(write: int, offsets, staged, total: int):
         with pb.on_device(dev):
             rc = kern.lib.fac_beam_frontier(
                 *args, write, counts.data_ptr(), None if offsets is None else offsets.data_ptr(),
-                None if out is None else out.data_ptr(), None if pen is None else pen.data_ptr(),
-                total, None if overflow is None else overflow.data_ptr(), stats.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), ws, grid, pb.stream_of(dev))
+                None if staged is None else staged.data_ptr(), total, *tail, pb.stream_of(dev))
         kern.check(rc, name)
         pb.LAUNCHES[name] += 1
+        if E == 1:
+            pb.LAUNCHES["beam_pool_warp"] += 1
 
-    launch(0, None, None, None, 0)
+    launch(0, None, None, 0)
     offsets = pb.block_offsets(counts)
-    total, states, rounds, n_over = stats.tolist()
+    got = stats.tolist()
+    total = got[0]
     if total >= 1 << 31:
-        raise ValueError(f"{total} emissions in a run: the grid's offsets would overflow int32")
-    out = torch.empty((4, total), dtype=torch.int64, device=dev)
-    pen = torch.empty(total, dtype=torch.float32, device=dev)
+        raise ValueError(f"{total} emissions in a run: the offsets would overflow int32")
     if total:
-        launch(1, offsets, out, pen, total)
-    em = (out[0], out[1], out[2], pen, out[3])
-    return em, None if overflow is None else overflow.view(torch.bool), (total, states, rounds,
-                                                                         n_over)
+        staged = torch.empty((total, STAGED_FIELDS), dtype=torch.int32, device=dev)
+        launch(1, offsets, staged, total)
+        em = order_emissions(staged, offsets, n, nchunk, T)
+    else:
+        em = _empty_emissions(dev)
+    return em, flags.view(torch.bool) if E >= 2 else None, tuple(got[:9])
 
 
 def _frontier_device(starts: torch.Tensor) -> bool:
@@ -692,9 +852,14 @@ def pool_frontier(starts: torch.Tensor, tabs: BeamTables, prm: BeamParams, ids: 
     """The E = 1 frontier over a run of chunks of ``nchunk`` starts:
     (emissions (si, me, pattern, penalty, counts) in the JAX pool kernel's
     order, stats). CPU tensors run :func:`_pool_chunk` (stats None); CUDA
-    tensors launch ``beam_pool_kernel`` (``csrc/beam.cu``) twice around
-    ``block_offsets``, with one host read, and return its stats (emissions,
-    states expanded, rounds, overflowed starts)."""
+    tensors launch ``beam_pool_thread_kernel`` and ``beam_pool_kernel``
+    (``csrc/beam.cu``: a thread a start, and a warp a start for the starts
+    whose pool outgrows a thread's walks) around ``block_offsets`` (the
+    write phase only where the run emits), with one host read, then
+    :func:`order_emissions`, and return its stats (emissions, states
+    expanded, rounds, overflowed starts, starts that went to the global
+    scratch, rounds sorted in memory, starts handed to the warp path, their
+    emissions, whether the tables were read from shared memory)."""
     if not _frontier_device(starts):
         return _pool_chunk(starts, tabs, prm, ids, nchunk), None
     if prm.E != 1:
@@ -708,8 +873,8 @@ def sorted_frontier(starts: torch.Tensor, tabs: BeamTables, prm: BeamParams, ids
     """The E >= 2 beam over a run of chunks of ``nchunk`` starts:
     (emissions as :func:`_beam_chunk` gives them, bool overflow per start,
     stats). CPU tensors run :func:`_beam_chunk` (stats None); CUDA tensors
-    launch ``beam_sorted_kernel`` (``csrc/beam.cu``) twice around
-    ``block_offsets``, with one host read, and return its stats."""
+    launch ``beam_sorted_kernel`` (``csrc/beam.cu``) around ``block_offsets``
+    as :func:`pool_frontier` does and return its stats."""
     if not _frontier_device(starts):
         return (*_beam_chunk(starts, tabs, prm, ids, nchunk, B), None)
     if not 2 <= prm.E <= 6 or B != 32 + 24 * prm.E:
@@ -795,8 +960,7 @@ def beam_emissions(engine, haystack: str, view, n: int, cand: torch.Tensor, thr,
             stats.append(st)
         parts.append((starts[em[0]],) + em[1:])
     if not parts:
-        z = torch.zeros(0, dtype=torch.int64, device=device)
-        return (z, z, z, torch.zeros(0, dtype=torch.float32, device=device), z), overflow_starts
+        return _empty_emissions(device), overflow_starts
     if len(parts) == 1:
         return parts[0], overflow_starts
     return tuple(torch.cat([p[k] for p in parts]) for k in range(5)), overflow_starts

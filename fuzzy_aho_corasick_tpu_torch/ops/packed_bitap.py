@@ -121,14 +121,15 @@ SCAN_FILL_THREADS = 640
 #: ``_wide`` keys the wide ones; ``many_step`` both passes of
 #: ``many.many_step``; ``goto_walk`` both passes of ``exact.goto_walk``;
 #: ``count_dp`` and ``count_emit`` the count-channel list step's DP and
-#: emission (its expansion counts under ``typed_expand``); ``beam_pool`` and
-#: ``beam_sorted`` both launches of ``fuzzy.pool_frontier`` and
-#: ``fuzzy.sorted_frontier``.
+#: emission (its expansion counts under ``typed_expand``); ``beam_pool`` (the
+#: thread path) and ``beam_pool_warp`` (the warp path) the count and write
+#: launches of ``fuzzy.pool_frontier``, ``beam_sorted`` those of
+#: ``fuzzy.sorted_frontier``, ``beam_order`` those of ``fuzzy.order_emissions``.
 LAUNCHES = {"scan_bits": 0, "block_offsets": 0, "hit_words": 0, "dp": 0, "dp_pipeline": 0,
             "dp_typed": 0, "typed_expand": 0, "typed_dp": 0, "typed_emit": 0,
             "count_dp": 0, "count_emit": 0,
             "scan_bits_wide": 0, "hit_words_wide": 0, "many_step": 0, "goto_walk": 0,
-            "beam_pool": 0, "beam_sorted": 0}
+            "beam_pool": 0, "beam_pool_warp": 0, "beam_sorted": 0, "beam_order": 0}
 
 _M32 = 0xFFFFFFFF
 
