@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 from ..structs import FuzzyMatch
+from ..utils import trace
 
 
 def _max_edit_budget(engine) -> Optional[int]:
@@ -113,6 +114,13 @@ class DeviceEngine:
         return True
 
     def search_raw(self, haystack: str, threshold: float) -> List[FuzzyMatch]:
+        """The lane's search, under the root span of ``utils/trace``: every
+        device lane's ``last_stats`` gets ``host_waits``, and where
+        ``FAC_TIME=1`` the search's spans."""
+        with trace.search(self.engine, haystack):
+            return self._search_raw(haystack, threshold)
+
+    def _search_raw(self, haystack: str, threshold: float) -> List[FuzzyMatch]:
         from .. import oracle
         from ..automaton import checked_device
         from ..utils.graphemes import view_of

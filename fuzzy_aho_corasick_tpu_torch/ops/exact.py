@@ -38,6 +38,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _cuda_build
 
 
@@ -106,21 +107,21 @@ def exact_search_packed(engine, haystack: str, threshold: float, view) -> Option
     got = exact_hits_packed(engine, haystack, view)
     if got is None:
         return None
-    ends, fidx = got
-
-    n = len(haystack) if view.ascii else len(view)
-    engine.last_stats = {
-        "backend": "device-exact-packed",
-        "positions": int(n),
-        "emissions": int(len(ends)),
-        "limbs": int(pk.W),
-    }
-    keep = field_alive[fidx]
-    ends = np.asarray(ends, dtype=np.int64)[keep]
-    fidx = np.asarray(fidx, dtype=np.int64)[keep]
-    depth_arr = np.asarray([d for _, d, _, _, _ in pk.fields], dtype=np.int64)
-    node_arr = np.asarray([ni for ni, _, _, _, _ in pk.fields], dtype=np.int64)
-    return _emit(engine, view, ends - depth_arr[fidx], ends, node_arr[fidx], thr)
+    with trace.span("finish"):
+        ends, fidx = got
+        n = len(haystack) if view.ascii else len(view)
+        engine.last_stats = {
+            "backend": "device-exact-packed",
+            "positions": int(n),
+            "emissions": int(len(ends)),
+            "limbs": int(pk.W),
+        }
+        keep = field_alive[fidx]
+        ends = np.asarray(ends, dtype=np.int64)[keep]
+        fidx = np.asarray(fidx, dtype=np.int64)[keep]
+        depth_arr = np.asarray([d for _, d, _, _, _ in pk.fields], dtype=np.int64)
+        node_arr = np.asarray([ni for ni, _, _, _, _ in pk.fields], dtype=np.int64)
+        return _emit(engine, view, ends - depth_arr[fidx], ends, node_arr[fidx], thr)
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +300,8 @@ def goto_walk(ids: torch.Tensor, n_starts: int, n_read: int, goto: torch.Tensor,
 
     launch(0, None, 0, 0, None)
     offsets = pb.block_offsets(counts)
-    total, *alive, n_over = tally.tolist()
+    with trace.wait("walk_totals"):
+        total, *alive, n_over = tally.tolist()
     if total >= 1 << 31:
         raise ValueError(f"{total} arrivals: the block offsets would overflow int32")
     while alive and alive[-1] == 0:
@@ -333,17 +335,23 @@ def exact_search_walk(engine, haystack: str, threshold: float, view) -> List["Fu
                                        dtype=np.uint8 if narrow else np.int32),
         device)
     assert n_ids == n
-    found, alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1), folded=folded)
-    start, span, node = found.cpu().numpy()
-    stage1, stage2 = (alive + [0, 0])[:2]
-    engine.last_stats = {
-        "backend": "device-exact",
-        "positions": int(n),
-        "survivors_stage1": stage1,
-        "survivors_stage2": stage2,
-        "emissions": int(start.size),
-    }
-    return _emit(engine, view, start, start + span, node, thr)
+    trace.launch()
+    with trace.span("step", ids.device) as sp:
+        found, alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1), folded=folded)
+        if sp:
+            sp.set(rows=found.shape[1])
+    with trace.span("finish"):
+        with trace.wait("rows", found.nbytes):
+            start, span, node = found.cpu().numpy()
+        stage1, stage2 = (alive + [0, 0])[:2]
+        engine.last_stats = {
+            "backend": "device-exact",
+            "positions": int(n),
+            "survivors_stage1": stage1,
+            "survivors_stage2": stage2,
+            "emissions": int(start.size),
+        }
+        return _emit(engine, view, start, start + span, node, thr)
 
 
 def exact_search_device(engine, haystack: str, threshold: float, view=None) -> List["FuzzyMatch"]:

@@ -67,6 +67,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _cuda_build
 
 #: Start positions per chunk (the JAX package's dispatch size; the chunk
@@ -975,6 +976,7 @@ def beam_search(engine, haystack: str, threshold, view, n: int, ceil: np.ndarray
     from .. import oracle
     from ..structs import LazyMatchList
 
+    trace.opaque()
     thr = np.float32(threshold)
     cand = _candidate_starts(engine, haystack, view, n, thr)
     em, overflow_starts = beam_emissions(engine, haystack, view, n, cand, thr, ceil)

@@ -50,15 +50,13 @@ environment variable; ``FOLD`` switches the folded layout off.
 
 from __future__ import annotations
 
-import os
-import sys
-import time
 from collections import OrderedDict
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _cuda_build
 from .compact import compact_indices
 
@@ -511,7 +509,8 @@ def many_step(pos, words, window, ids, limit, T, pens, thr, E: int, deadend: boo
     offsets = pb.block_offsets(counts)
     # The rows' total ends the channels' counts, the candidates' and the
     # pairs' follow: one strided read of three values.
-    n_rows, n_rc, n_all = offsets[nch * items::items].tolist()
+    with trace.wait("step_totals"):
+        n_rows, n_rc, n_all = offsets[nch * items::items].tolist()
     rows = torch.empty((n_rows, 5), dtype=torch.int32, device=dev)
     if n_rows:
         launch(1, offsets, rows)
@@ -567,15 +566,19 @@ def _step(hits_fn, step_fn, ids_pf, ids_de, n: int, chunk: ManyChunk, halo: int,
     # each range but the first takes its preceding hit along for the dedup.
     max_hits = many_max_hits(chunk.X, E, (2 * E + 1) * T.out_list.shape[1])
     rows, pairs, cands = [], 0, 0
-    for a in range(0, max(count, 1), max_hits):
-        h0 = min(a, 1)
-        r, p, c = step_fn(pos[a - h0:a + max_hits], words[a - h0:a + max_hits],
-                          DpWindow(0, n, n), ids_de, n, T, pens, thr, E, deadend, chunk.X,
-                          chunk.T_scan.k, h0)
-        rows.append(r)
-        pairs += p
-        cands += c
-    return ManyStep(rows[0] if len(rows) == 1 else torch.cat(rows), count, pairs, cands)
+    with trace.span("step", ids_de.device) as sp:
+        for a in range(0, max(count, 1), max_hits):
+            h0 = min(a, 1)
+            r, p, c = step_fn(pos[a - h0:a + max_hits], words[a - h0:a + max_hits],
+                              DpWindow(0, n, n), ids_de, n, T, pens, thr, E, deadend, chunk.X,
+                              chunk.T_scan.k, h0)
+            rows.append(r)
+            pairs += p
+            cands += c
+        rows = rows[0] if len(rows) == 1 else torch.cat(rows)
+        if sp:
+            sp.set(candidates=cands, rows=rows.shape[0])
+    return ManyStep(rows, count, pairs, cands)
 
 
 def many_pipeline(ids_pf, ids_de, n: int, chunk: ManyChunk, halo: int, T, pens, thr, E: int,
@@ -756,16 +759,14 @@ def many_inputs(engine, spec: ManyPackSpec, haystack: str, threshold, view, n: i
 
 def _many_search_spec(engine, spec, haystack: str, threshold, view, n: int):
     from .emit import decode_matches
-    from .verify_dp import stage_stats, stage_sync
 
     run = many_inputs(engine, spec, haystack, threshold, view, n)
     if not isinstance(run, ManyRun):
         return run
     thr = np.float32(threshold)
-    timing = os.environ.get("FAC_TIME") == "1"
     dev_parts = []
     sum_h = sum_c = 0
-    t0 = time.perf_counter()
+    at = trace.mark()
     for chunk in run.chunks:
         step = many_pipeline(run.ids_pf, run.ids_de, n, chunk, run.halo, run.T, run.pens, thr,
                              run.E, run.deadend, run.hit_ceil)
@@ -774,34 +775,31 @@ def _many_search_spec(engine, spec, haystack: str, threshold, view, n: int):
         dev_parts.append(step.rows)
         sum_h += step.hits
         sum_c += step.candidates
-    if timing:
-        stage_sync(engine.device)
-    t1 = time.perf_counter()
-    parts = [rows.cpu().numpy() for rows in dev_parts]
-    t2 = time.perf_counter()
-    # One merged decode over all chunks: decode_matches sorts globally by
-    # (pattern, start, end), so the result does not depend on chunk order;
-    # duplicate emissions (a verify field shared by patterns in two chunks)
-    # collapse in its best-per-span pass with identical values.
-    rows = parts[0] if len(parts) == 1 else np.concatenate(parts)
-    t3 = time.perf_counter()
-    results = decode_matches(
-        engine, view, haystack, n, rows[:, 0], rows[:, 2], rows[:, 3],
-        np.ascontiguousarray(rows[:, 1]).view(np.float32), rows[:, 4], thr,
-    )
-    engine.last_stats = {
-        "backend": "device-fuzzy-many",
-        "hits": sum_h,
-        "candidates": sum_c,
-        "positions": int(n),
-        "emissions": len(rows),
-        "matches": len(results),
-        "chunks": len(run.chunks),
-        "damerau": run.dam,
-        "folded": spec.folded,
-    }
-    if timing:
-        engine.last_stats.update(stage_stats(t0, t1, t2, t3, sum(r.nbytes for r in parts) >> 10))
-        print(f"[FAC_TIME many] dispatch={(t1 - t0) * 1e3:.1f}ms "
-              f"readback={(t2 - t1) * 1e3:.1f}ms chunks={len(run.chunks)}", file=sys.stderr)
+    with trace.span("finish"):
+        trace.timing_sync(engine.device)
+        parts = []
+        for rows in dev_parts:
+            with trace.wait("rows", rows.nbytes):
+                parts.append(rows.cpu().numpy())
+        # One merged decode over all chunks: decode_matches sorts globally by
+        # (pattern, start, end), so the result does not depend on chunk order;
+        # duplicate emissions (a verify field shared by patterns in two chunks)
+        # collapse in its best-per-span pass with identical values.
+        rows = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        results = decode_matches(
+            engine, view, haystack, n, rows[:, 0], rows[:, 2], rows[:, 3],
+            np.ascontiguousarray(rows[:, 1]).view(np.float32), rows[:, 4], thr,
+        )
+        engine.last_stats = {
+            "backend": "device-fuzzy-many",
+            "hits": sum_h,
+            "candidates": sum_c,
+            "positions": int(n),
+            "emissions": len(rows),
+            "matches": len(results),
+            "chunks": len(run.chunks),
+            "damerau": run.dam,
+            "folded": spec.folded,
+        }
+        engine.last_stats.update(trace.stage_stats(at, parts))
     return results

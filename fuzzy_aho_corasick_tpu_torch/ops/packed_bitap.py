@@ -54,14 +54,13 @@ from __future__ import annotations
 
 import contextlib
 import itertools
-import os
 import threading
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _cuda_build
 from .compact import compact_indices
 
@@ -842,12 +841,17 @@ def packed_hits(ids: torch.Tensor, T: ScanTables, halo: int, max_count: Optional
     if ids.numel() == 0:
         return (0, torch.zeros(0, dtype=torch.int64, device=ids.device),
                 torch.zeros((0, 2 * T.W), dtype=torch.int64, device=ids.device))
-    bits, counts = scan_bits(ids, T, halo)
-    offsets = block_offsets(counts)
-    count = int(offsets[-1])
-    if max_count is not None and count > max_count:
-        return count, None, None
-    pos, words = hit_words(ids, bits, offsets, count, T, halo)
+    trace.launch()
+    with trace.span("hit_list", ids.device) as sp:
+        bits, counts = scan_bits(ids, T, halo)
+        offsets = block_offsets(counts)
+        with trace.wait("hit_count"):
+            count = int(offsets[-1])
+        if sp:
+            sp.set(hits=count)
+        if max_count is not None and count > max_count:
+            return count, None, None
+        pos, words = hit_words(ids, bits, offsets, count, T, halo)
     return count, pos, words
 
 
@@ -891,24 +895,18 @@ def _run_exact_kernel(ids: torch.Tensor, T: ScanTables, halo: int, cols, shs):
     int64, field-major with positions ascending within each field. Field
     bits are expanded on the device, so one (pos, field) pair per emission
     crosses to the host, in one copy."""
-    timing = os.environ.get("FAC_TIME") == "1"
-    t0 = time.perf_counter()
     count, pos, w = packed_hits(ids, T, halo)
     if count == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    bits = (w[:, cols] >> shs) & 1                      # [K, F]
-    eidx = compact_indices(bits.T.reshape(-1))          # field-major
-    out = torch.stack([pos[eidx % count], eidx // count])
-    if timing:
-        from .verify_dp import stage_sync
-
-        stage_sync(ids.device)
-        t1 = time.perf_counter()
-    out = out.cpu().numpy()
-    if timing:
-        print(f"[FAC_TIME exact] dispatch={(t1 - t0) * 1e3:.1f}ms "
-              f"readback={(time.perf_counter() - t1) * 1e3:.1f}ms buf={out.nbytes >> 10}KiB "
-              f"hits={count}")
+    with trace.span("step", ids.device) as sp:
+        bits = (w[:, cols] >> shs) & 1                      # [K, F]
+        with trace.wait("emission_count"):
+            eidx = compact_indices(bits.T.reshape(-1))      # field-major
+        out = torch.stack([pos[eidx % count], eidx // count])
+        if sp:
+            sp.set(rows=out.shape[1])
+    with trace.wait("rows", out.nbytes):
+        out = out.cpu().numpy()
     return out[0], out[1]
 
 

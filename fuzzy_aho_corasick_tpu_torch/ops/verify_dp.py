@@ -80,14 +80,12 @@ the engines the JAX package claims with :func:`forbid_spec_of`,
 from __future__ import annotations
 
 import functools
-import os
-import sys
-import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _cuda_build
 from .compact import compact_indices
 
@@ -1942,7 +1940,8 @@ def _list_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
         dec, row_counts = count_dp(cands, ids, limit, T, pens, thr, E, deadend, variant.forbid,
                                    variant.maps)
     # The DP kept the rows' total and the candidates': one read.
-    n_rows, n_cand = row_counts[-2:].tolist()
+    with trace.wait("row_totals"):
+        n_rows, n_cand = row_counts[-2:].tolist()
     if TT is not None:
         rows, row_tags = typed_emit(dec, row_counts, cands, T, TT, E, n_combo, n_rows, n_cand,
                                     tags)
@@ -1990,7 +1989,8 @@ def dp_pipeline(pos, words, window: DpWindow, ids, limit, T: DpTables,
     offsets = pb.block_offsets(counts)
     # The rows' total ends the last channel's counts, the grand total (rows
     # and candidates) the array: one strided read of two values.
-    n_rows, n_all = offsets[nch * nunits::nunits].tolist()
+    with trace.wait("step_totals"):
+        n_rows, n_all = offsets[nch * nunits::nunits].tolist()
     rows = torch.empty((n_rows, 5), dtype=torch.int32, device=ids.device)
     row_tags = torch.empty(n_rows, dtype=torch.int32, device=ids.device) if tags else None
     if n_rows:
@@ -2307,79 +2307,51 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int,
     thr = np.float32(threshold)
     E = plan.E
     run = dp_inputs(engine, haystack, plan, view, n, typed, maps, forbid)
-    timing = os.environ.get("FAC_TIME") == "1"
     dev_parts = []
     sum_h = sum_c = 0
     max_hits = step_max_hits(plan.n_combo, run.T.out_list.shape[1], E, run.variant)
-    t0 = time.perf_counter()
+    at = trace.mark()
     for part in run.parts:
         count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo)
-        rows, n_cand = dp_pipeline_ranges(
-            pos, words, max_hits, DpWindow(part.lo, part.hi, part.local_n), part.ids_de,
-            part.local_n, run.T, run.pens, thr, E, run.deadend, run.statics, run.variant)
+        with trace.span("step", part.ids_de.device) as sp:
+            rows, n_cand = dp_pipeline_ranges(
+                pos, words, max_hits, DpWindow(part.lo, part.hi, part.local_n), part.ids_de,
+                part.local_n, run.T, run.pens, thr, E, run.deadend, run.statics, run.variant)
+            if sp:
+                sp.set(candidates=n_cand, rows=rows.shape[0])
         dev_parts.append(rows)
         sum_h += count
         sum_c += n_cand
-    if timing:
-        stage_sync(engine.device)
-    t1 = time.perf_counter()
-    row_parts = []
-    for part, rows in zip(run.parts, dev_parts):
-        rows = rows.cpu().numpy()
-        rows[:, 0] += part.base  # slice-local starts -> global graphemes
-        row_parts.append(rows)
-    t2 = time.perf_counter()
-    rows = row_parts[0] if len(row_parts) == 1 else np.concatenate(row_parts)
-    buf_kib = sum(r.nbytes for r in row_parts) >> 10
-    if timing:
-        print(f"[FAC_TIME dp] dispatch={(t1 - t0) * 1e3:.1f}ms readback={(t2 - t1) * 1e3:.1f}ms "
-              f"buf={buf_kib}KiB slices={len(run.parts)}", file=sys.stderr)
-    t3 = time.perf_counter()
-    results = decode_matches(
-        engine, view, haystack, n,
-        rows[:, 0], rows[:, 2], rows[:, 3],
-        np.ascontiguousarray(rows[:, 1]).view(np.float32), rows[:, 4], thr,
-    )
-    if timing:
-        print(f"[FAC_TIME dp] decode={(time.perf_counter() - t3) * 1e3:.1f}ms "
-              f"emissions={len(rows)} matches={len(results)}", file=sys.stderr)
-    engine.last_stats = {
-        "backend": (
-            "device-fuzzy-dp-typed" if typed is not None
-            else "device-fuzzy-dp-mapped" if maps is not None
-            else "device-fuzzy-dp-forbid" if forbid is not None
-            else "device-fuzzy-dp"
-        ),
-        "hits": sum_h,
-        "candidates": sum_c,
-        "positions": int(n),
-        "emissions": len(rows),
-        "matches": len(results),
-        "slices": len(run.parts),
-    }
-    if timing:
-        engine.last_stats.update(stage_stats(t0, t1, t2, t3, buf_kib))
+    with trace.span("finish"):
+        trace.timing_sync(engine.device)
+        row_parts = []
+        for part, rows in zip(run.parts, dev_parts):
+            with trace.wait("rows", rows.nbytes):
+                rows = rows.cpu().numpy()
+            rows[:, 0] += part.base  # slice-local starts -> global graphemes
+            row_parts.append(rows)
+        rows = row_parts[0] if len(row_parts) == 1 else np.concatenate(row_parts)
+        results = decode_matches(
+            engine, view, haystack, n,
+            rows[:, 0], rows[:, 2], rows[:, 3],
+            np.ascontiguousarray(rows[:, 1]).view(np.float32), rows[:, 4], thr,
+        )
+        engine.last_stats = {
+            "backend": (
+                "device-fuzzy-dp-typed" if typed is not None
+                else "device-fuzzy-dp-mapped" if maps is not None
+                else "device-fuzzy-dp-forbid" if forbid is not None
+                else "device-fuzzy-dp"
+            ),
+            "hits": sum_h,
+            "candidates": sum_c,
+            "positions": int(n),
+            "emissions": len(rows),
+            "matches": len(results),
+            "slices": len(run.parts),
+        }
+        engine.last_stats.update(trace.stage_stats(at, row_parts))
     return results
-
-
-def stage_sync(device) -> None:
-    """End a timed stage: wait for the card's queued work where ``device``
-    is a CUDA device (else the stage would time the launches only)."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def stage_stats(t0: float, t1: float, t2: float, t3: float, buf_kib: int) -> dict:
-    """The ``FAC_TIME=1`` stage keys of the DP and many lanes' ``last_stats``
-    (the JAX package's): dispatch ``t0 -> t1`` (device work, synchronised),
-    readback ``t1 -> t2`` (the result rows' copy), decode ``t3 -> now`` (the
-    host's best-per-span reduction), and the rows' KiB."""
-    return {
-        "dispatch_ms": round((t1 - t0) * 1e3, 1),
-        "readback_ms": round((t2 - t1) * 1e3, 1),
-        "decode_ms": round((time.perf_counter() - t3) * 1e3, 1),
-        "result_buf_kib": buf_kib,
-    }
 
 
 def lane_specs_of(engine) -> tuple:

@@ -34,6 +34,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import trace
+
 #: Device bytes the cache may hold before LRU eviction.
 CAPACITY_BYTES = 8 << 30
 #: Smallest bucketed length.
@@ -161,23 +163,28 @@ def resident(
     alphabet id); zero must be a dead symbol in that space (the pad tail).
     Returns (tensor, n).
     """
-    hkey = _content_key(haystack)
-    key = hkey + (space, str(device))
-    with _LOCK:
-        hit = _lookup(hkey, key, haystack)
-    if hit is not None:
-        return hit[1], hit[2]
+    with trace.span("residency") as sp:
+        hkey = _content_key(haystack)
+        key = hkey + (space, str(device))
+        with _LOCK:
+            hit = _lookup(hkey, key, haystack)
+        if hit is not None:
+            if sp:
+                sp.set(hit=True)
+            return hit[1], hit[2]
 
-    ids = transcode(haystack)
-    n = len(ids)
-    nb = bucket_len(max(n, 1) + TAIL_MARGIN)
-    pad = np.zeros(nb, dtype=ids.dtype)
-    pad[:n] = ids
-    dev = torch.from_numpy(pad).to(device)
+        ids = transcode(haystack)
+        n = len(ids)
+        nb = bucket_len(max(n, 1) + TAIL_MARGIN)
+        pad = np.zeros(nb, dtype=ids.dtype)
+        pad[:n] = ids
+        dev = torch.from_numpy(pad).to(device)
+        if sp:
+            sp.set(hit=False, upload=pad.nbytes)
 
-    with _LOCK:
-        _insert(key, (haystack, dev, n))
-        _evict_to_capacity()
+        with _LOCK:
+            _insert(key, (haystack, dev, n))
+            _evict_to_capacity()
     return dev, n
 
 
@@ -197,32 +204,35 @@ def resident_sliced(
     corpus, so every symbol past a slice's ``local_n`` is the dead symbol 0.
     Transcodes the whole haystack at most once per miss and ships each slice
     at most once per (content, space, device)."""
-    hkey = _content_key(haystack)
-    keys = [hkey + (space, "sl", base, ln, pad_len, str(device)) for base, ln in bounds]
-    res: List[Optional[torch.Tensor]] = [None] * len(bounds)
-    missing = []
-    with _LOCK:
-        for i, key in enumerate(keys):
-            hit = _lookup(hkey, key, haystack)
-            if hit is not None:
-                res[i] = hit[1]
-            else:
-                missing.append(i)
-    if not missing:
-        return res
+    with trace.span("residency") as sp:
+        hkey = _content_key(haystack)
+        keys = [hkey + (space, "sl", base, ln, pad_len, str(device)) for base, ln in bounds]
+        res: List[Optional[torch.Tensor]] = [None] * len(bounds)
+        missing = []
+        with _LOCK:
+            for i, key in enumerate(keys):
+                hit = _lookup(hkey, key, haystack)
+                if hit is not None:
+                    res[i] = hit[1]
+                else:
+                    missing.append(i)
+        if sp:
+            sp.set(hit=not missing, upload=len(missing) * pad_len)
+        if not missing:
+            return res
 
-    ids_full = transcode(haystack)
-    if ids_full.dtype != np.uint8:
-        raise ValueError("sliced residency is for uint8 symbol spaces only")
-    for i in missing:
-        base, ln = bounds[i]
-        pad = np.zeros(pad_len, dtype=np.uint8)
-        pad[:ln] = ids_full[base : base + ln]
-        res[i] = torch.from_numpy(pad).to(device)
-    with _LOCK:
+        ids_full = transcode(haystack)
+        if ids_full.dtype != np.uint8:
+            raise ValueError("sliced residency is for uint8 symbol spaces only")
         for i in missing:
-            _insert(keys[i], (haystack, res[i], bounds[i][1]))
-        _evict_to_capacity()
+            base, ln = bounds[i]
+            pad = np.zeros(pad_len, dtype=np.uint8)
+            pad[:ln] = ids_full[base : base + ln]
+            res[i] = torch.from_numpy(pad).to(device)
+        with _LOCK:
+            for i in missing:
+                _insert(keys[i], (haystack, res[i], bounds[i][1]))
+            _evict_to_capacity()
     return res
 
 

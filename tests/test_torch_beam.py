@@ -162,6 +162,24 @@ _PATCHED = {"NCHUNK": (jfuzzy, tfuzzy), "GROUP_CANDIDATES": (tfuzzy,),
             "RESIDENT_MAX": (jpb, tpb), "STREAM_CHUNK": (jpb, tpb)}
 
 
+#: The settings the cases change, as the modules held them when this module
+#: was imported.
+_OWN = {(mod, name): getattr(mod, name) for name, mods in _PATCHED.items() for mod in mods}
+
+
+@pytest.fixture(autouse=True)
+def _own_settings(request, monkeypatch):
+    """A test that takes no ``case`` runs at the modules' own settings, the
+    port's chunk at the JAX package's, even where its worker still holds a
+    ``case`` around it: the fixture is module-scoped, so the last case a
+    worker set up keeps its settings until the module's last test there."""
+    if "case" in request.fixturenames:
+        return
+    for (mod, name), value in _OWN.items():
+        monkeypatch.setattr(mod, name, value)
+    monkeypatch.setattr(tfuzzy, "NCHUNK", jfuzzy.NCHUNK)
+
+
 def _patch(mp, patches):
     for name, value in patches:
         for mod in _PATCHED[name]:

@@ -1,9 +1,9 @@
-"""``FAC_TIME=1`` in the port's device lanes: the exact lane prints its
-``[FAC_TIME exact]`` line, the DP and many lanes print theirs and add the
+"""``FAC_TIME=1`` in the port's device lanes: every lane records its spans
+(``utils/trace``) into ``last_stats``, and the DP and many lanes add the
 JAX package's stage keys (``dispatch_ms``, ``readback_ms``, ``decode_ms``,
-``result_buf_kib``) to ``last_stats``. Without the switch there is no
-line and no key, and the switch changes no match. On the CPU (the kernels'
-plain versions)."""
+``result_buf_kib``), read from those spans. Without the switch there are
+no spans and no stage key, nothing is printed, and the switch changes no
+match. On the CPU (the kernels' plain versions)."""
 
 import numpy as np
 import pytest
@@ -17,6 +17,7 @@ from fuzzy_aho_corasick_tpu_torch import FuzzyAhoCorasickBuilder, FuzzyLimits
 torch.set_num_threads(1)
 
 STAGE_KEYS = {"dispatch_ms", "readback_ms", "decode_ms", "result_buf_kib"}
+TRACE_KEYS = {"spans", "search_id", "prepare_us", "host_wait_us"}
 WORDS = ["tincidunt", "phaetra", "sollicitudin", "venenatis", "fringilla", "malesuada"]
 LETTERS = "abcdefghijklmnopqrstuvwxyz"
 
@@ -39,17 +40,24 @@ def _text(words, seed: int) -> str:
     return " ".join(out)
 
 
-#: lane -> (dictionary, edit budget, threshold, backend, its FAC_TIME tag)
+#: lane -> (dictionary, edit budget, threshold, backend, spans it records)
 LANES = {
-    "exact": (WORDS, 0, 0.5, "device-exact-packed", "exact"),
-    "dp": (WORDS, 1, 0.8, "device-fuzzy-dp", "dp"),
-    "many": (None, 1, 0.82, "device-fuzzy-many", "many"),
+    "exact": (WORDS, 0, 0.5, "device-exact-packed",
+              {"search", "prepare", "residency", "hit_list", "step", "host_wait", "finish"}),
+    "dp": (WORDS, 1, 0.8, "device-fuzzy-dp",
+           {"search", "prepare", "residency", "hit_list", "step", "host_wait", "finish",
+            "timing_sync", "decode", "decode:filter", "decode:sort", "decode:offsets",
+            "decode:build"}),
+    "many": (None, 1, 0.82, "device-fuzzy-many",
+             {"search", "prepare", "residency", "hit_list", "step", "host_wait", "finish",
+              "timing_sync", "decode", "decode:filter", "decode:sort", "decode:offsets",
+              "decode:build"}),
 }
 
 
 @pytest.mark.parametrize("lane", list(LANES))
 def test_fac_time_stage_stats(lane, monkeypatch, capsys):
-    words, E, thr, backend, tag = LANES[lane]
+    words, E, thr, backend, names = LANES[lane]
     words = words or _many_words()
     b = FuzzyAhoCorasickBuilder.new().device("cpu")
     if E:
@@ -62,19 +70,23 @@ def test_fac_time_stage_stats(lane, monkeypatch, capsys):
     monkeypatch.delenv("FAC_TIME", raising=False)
     plain = [key(m) for m in engine.search_raw(text, thr)]
     stats = dict(engine.last_stats)
-    out = capsys.readouterr()
     assert stats["backend"] == backend and len(plain) > 50
-    assert not STAGE_KEYS & set(stats) and "FAC_TIME" not in out.out + out.err
+    assert not (STAGE_KEYS | TRACE_KEYS) & set(stats)
 
     monkeypatch.setenv("FAC_TIME", "1")
     timed = [key(m) for m in engine.search_raw(text, thr)]
     out = capsys.readouterr()
     assert timed == plain
-    assert f"[FAC_TIME {tag}] dispatch=" in out.out + out.err
+    assert out.out + out.err == ""
     stats_t = engine.last_stats
+    spans = stats_t["spans"]
+    assert {s[0] for s in spans} == names and spans[0][0] == "search"
+    assert spans[0][4]["lane"] == backend
     if lane == "exact":
         assert not STAGE_KEYS & set(stats_t)
     else:
         assert STAGE_KEYS <= set(stats_t)
         assert all(stats_t[k] >= 0 for k in STAGE_KEYS) and stats_t["result_buf_kib"] >= 1
-        assert {k: v for k, v in stats_t.items() if k not in STAGE_KEYS} == stats
+        (decode,) = [s for s in spans if s[0] == "decode"]
+        assert stats_t["decode_ms"] == round((decode[3] - decode[2]) / 1e6, 1)
+    assert {k: v for k, v in stats_t.items() if k not in STAGE_KEYS | TRACE_KEYS} == stats
