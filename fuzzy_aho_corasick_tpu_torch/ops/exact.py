@@ -336,7 +336,7 @@ def exact_search_walk(engine, haystack: str, threshold: float, view) -> List["Fu
         device)
     assert n_ids == n
     trace.launch()
-    with trace.span("step", ids.device) as sp:
+    with trace.span("step") as sp:
         found, alive = goto_walk(ids, n, n, goto, emits, max(dense.max_depth, 1), folded=folded)
         if sp:
             sp.set(rows=found.shape[1])

@@ -566,7 +566,7 @@ def _step(hits_fn, step_fn, ids_pf, ids_de, n: int, chunk: ManyChunk, halo: int,
     # each range but the first takes its preceding hit along for the dedup.
     max_hits = many_max_hits(chunk.X, E, (2 * E + 1) * T.out_list.shape[1])
     rows, pairs, cands = [], 0, 0
-    with trace.span("step", ids_de.device) as sp:
+    with trace.span("step") as sp:
         for a in range(0, max(count, 1), max_hits):
             h0 = min(a, 1)
             r, p, c = step_fn(pos[a - h0:a + max_hits], words[a - h0:a + max_hits],

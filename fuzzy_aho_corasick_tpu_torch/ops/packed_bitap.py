@@ -842,9 +842,10 @@ def packed_hits(ids: torch.Tensor, T: ScanTables, halo: int, max_count: Optional
         return (0, torch.zeros(0, dtype=torch.int64, device=ids.device),
                 torch.zeros((0, 2 * T.W), dtype=torch.int64, device=ids.device))
     trace.launch()
-    with trace.span("hit_list", ids.device) as sp:
-        bits, counts = scan_bits(ids, T, halo)
-        offsets = block_offsets(counts)
+    with trace.span("hit_list") as sp:
+        with trace.timed(ids.device):
+            bits, counts = scan_bits(ids, T, halo)
+            offsets = block_offsets(counts)
         with trace.wait("hit_count"):
             count = int(offsets[-1])
         if sp:
@@ -898,7 +899,7 @@ def _run_exact_kernel(ids: torch.Tensor, T: ScanTables, halo: int, cols, shs):
     count, pos, w = packed_hits(ids, T, halo)
     if count == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    with trace.span("step", ids.device) as sp:
+    with trace.span("step") as sp:
         bits = (w[:, cols] >> shs) & 1                      # [K, F]
         with trace.wait("emission_count"):
             eidx = compact_indices(bits.T.reshape(-1))      # field-major

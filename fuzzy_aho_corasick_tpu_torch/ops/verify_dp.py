@@ -2313,7 +2313,7 @@ def fuzzy_search_dp(engine, haystack: str, threshold, view, n: int,
     at = trace.mark()
     for part in run.parts:
         count, pos, words = packed_hits(part.ids_pf, run.T_scan, run.halo)
-        with trace.span("step", part.ids_de.device) as sp:
+        with trace.span("step") as sp:
             rows, n_cand = dp_pipeline_ranges(
                 pos, words, max_hits, DpWindow(part.lo, part.hi, part.local_n), part.ids_de,
                 part.local_n, run.T, run.pens, thr, E, run.deadend, run.statics, run.variant)

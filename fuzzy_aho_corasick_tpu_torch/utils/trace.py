@@ -7,13 +7,14 @@ Each span keeps ``[name, parent index, start_ns, end_ns, attrs]`` on
 process-wide counter. Under ``torch.profiler`` each span is also a
 ``record_function`` range ``fac:<name>``, so the chrome trace puts every
 kernel and every idle gap of the card under the innermost span the host
-was in, and the ``hit_list`` and ``step`` spans time their launches with a
-CUDA event pair too (``attrs["device_ms"]``, the stream's time from the
-span's start to its end, the device's idle stretches inside it included;
-read once the search is over, after its rows' copy has synchronised: the
-events add no synchronise). At
-the end of the search the spans go into ``engine.last_stats["spans"]``,
-with ``search_id``, ``prepare_us`` and ``host_wait_us``.
+was in, and a :func:`timed` block (the hit-list scan's launches, up to its
+count's read) records a CUDA event pair too: ``attrs["device_ms"]`` of the
+span it sits in, the stream's time between the two, a second source of the
+scan's device time where the profiler drops its kernels. The events are
+read once the search is over, after its rows' copy has synchronised: they
+add no synchronise. At the end of the search the spans go into
+``engine.last_stats["spans"]``, with ``search_id``, ``prepare_us`` and
+``host_wait_us``.
 
 While the switch is off, a span site tests a thread-local and returns one
 shared null context: no span is made, no profiler op runs, no event is
@@ -27,10 +28,11 @@ The spans, from the root down (PERF.md §3 names the metric each feeds):
   the grapheme view, the lane's plan and budgets, its inputs, the tables'
   caches, and ``residency`` (``utils/device_corpus``; attrs ``hit`` or
   ``upload`` bytes);
-- ``hit_list``: a chunk's or slice's hit-list scan (``packed_hits``), and
-  ``step``: its step (``many_step`` ranges, ``dp_pipeline_ranges``, the
-  exact lane's field expansion); attrs ``slice`` (their order in the
-  search), ``hits``, ``candidates``, ``rows``;
+- ``hit_list``: a chunk's or slice's hit-list scan (``packed_hits``;
+  ``device_ms`` under the profiler), and ``step``: its step (``many_step``
+  ranges, ``dp_pipeline_ranges``, the exact lane's field expansion); attrs
+  ``slice`` (their order in the search), ``hits``, ``candidates``,
+  ``rows``;
 - ``host_wait``: one blocking device-to-host read; attrs ``what`` and, for
   the rows' copies, ``bytes``;
 - ``finish``: from the end of the device stage to the return: the rows'
@@ -57,12 +59,10 @@ import time
 
 import torch
 
-#: Spans numbered in their order in the search (``slice``), which time their
-#: launches with CUDA events under the profiler.
+#: Spans numbered in their order in the search (``slice``).
 SLICED = ("hit_list", "step")
 
 _IDS = itertools.count(1)
-
 
 
 class _State(threading.local):
@@ -96,13 +96,13 @@ NULL = _Null()
 
 
 class _Span:
-    __slots__ = ("rec", "i", "name", "dev", "attrs")
+    __slots__ = ("rec", "i", "name", "attrs")
 
-    def __init__(self, rec, name, dev, attrs):
-        self.rec, self.name, self.dev, self.attrs = rec, name, dev, attrs
+    def __init__(self, rec, name, attrs):
+        self.rec, self.name, self.attrs = rec, name, attrs
 
     def __enter__(self):
-        self.i = self.rec.open(self.name, self.dev, self.attrs)
+        self.i = self.rec.open(self.name, self.attrs)
         return self
 
     def __exit__(self, *exc):
@@ -126,7 +126,7 @@ class _Recorder:
         self.counts = {}
         self.prepare = None
 
-    def open(self, name: str, dev=None, attrs=None) -> int:
+    def open(self, name: str, attrs=None) -> int:
         i = len(self.spans)
         attrs = dict(attrs) if attrs else {}
         if name in SLICED:
@@ -141,26 +141,19 @@ class _Recorder:
             # range then took 40-50 us more to end, outside every span.
             rf = self.ranges[i] = torch.profiler.record_function("fac:" + name)
             rf.__enter__()
-            if name in SLICED and dev is not None and dev.type == "cuda":
-                self.events[i] = (dev, _event(dev), None)
         return i
 
     def close(self, i: int) -> None:
         if self.profile:
-            ev = self.events.get(i)
-            if ev is not None:
-                self.events[i] = (ev[0], ev[1], _event(ev[0]))
             self.ranges.pop(i).__exit__(None, None, None)
         self.spans[i][3] = time.perf_counter_ns()
         self.stack.remove(i)
 
     def device_times(self) -> None:
-        """``device_ms`` of each evented span, from its event pair: the
-        stream's time from the span's start to its end, the device's idle
-        stretches inside it included (its waits, its launch gaps). Read
-        where the end event has completed (the search's last copy to the
-        host waited for it)."""
-        for i, (_, start, end) in self.events.items():
+        """``device_ms`` of each span with a :func:`timed` block, from its
+        event pair. Read where the end event has completed (the search's
+        last copy to the host waited for it)."""
+        for i, (start, end) in self.events.items():
             if end.query():
                 self.spans[i][4]["device_ms"] = start.elapsed_time(end)
         self.events.clear()
@@ -171,6 +164,23 @@ def _event(dev):
     ev = torch.cuda.Event(enable_timing=True)
     ev.record(torch.cuda.current_stream(dev))
     return ev
+
+
+class _Timed:
+    """An event pair around launches on ``dev`` (:func:`timed`)."""
+
+    __slots__ = ("rec", "dev", "start")
+
+    def __init__(self, rec, dev):
+        self.rec, self.dev = rec, dev
+
+    def __enter__(self):
+        self.start = _event(self.dev)
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.events[self.rec.stack[-1]] = (self.start, _event(self.dev))
+        return False
 
 
 class _Root:
@@ -187,7 +197,7 @@ class _Root:
         self.rec = None
         if os.environ.get("FAC_TIME") == "1":
             rec = self.rec = t.rec = _Recorder(next(_IDS), torch.autograd._profiler_enabled())
-            rec.open("search", None, {"bytes": self.nbytes})
+            rec.open("search", {"bytes": self.nbytes})
             rec.prepare = rec.open("prepare")
         return self
 
@@ -223,14 +233,24 @@ def search(engine, haystack: str) -> _Root:
     return _Root(engine, len(haystack) if haystack.isascii() else None)
 
 
-def span(name: str, dev=None):
+def span(name: str):
     """A span of the current search, or :data:`NULL` where it is not traced
-    (false: test it before ``set(**attrs)``). ``dev``: the device whose
-    launches a ``hit_list`` or ``step`` span times."""
+    (false: test it before ``set(**attrs)``)."""
     rec = _TLS.rec
     if rec is None:
         return NULL
-    return _Span(rec, name, dev, None)
+    return _Span(rec, name, None)
+
+
+def timed(dev):
+    """Launches on ``dev`` to time by a CUDA event pair, with no host read
+    among them: their stream time becomes ``device_ms`` of the innermost
+    span. :data:`NULL` unless the search is traced under the profiler on a
+    CUDA device."""
+    rec = _TLS.rec
+    if rec is None or not rec.profile or dev.type != "cuda":
+        return NULL
+    return _Timed(rec, dev)
 
 
 def wait(what: str, nbytes: int = 0):
@@ -241,8 +261,7 @@ def wait(what: str, nbytes: int = 0):
     rec = t.rec
     if rec is None:
         return NULL
-    return _Span(rec, "host_wait", None, {"what": what, "bytes": nbytes} if nbytes
-                 else {"what": what})
+    return _Span(rec, "host_wait", {"what": what, "bytes": nbytes} if nbytes else {"what": what})
 
 
 def launch() -> None:
@@ -268,7 +287,7 @@ def timing_sync(device) -> None:
     rec = _TLS.rec
     if rec is None:
         return
-    with _Span(rec, "timing_sync", None, None):
+    with _Span(rec, "timing_sync", None):
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
 

@@ -33,29 +33,7 @@ import jax  # noqa: E402
 if os.environ.get("FAC_REAL_DEVICE") != "1":
     jax.config.update("jax_platforms", "cpu")
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-
-def _build_jax_native() -> None:
-    """Load the JAX package's native library, one test process at a time.
-    Its first use compiles into one ``fastpath.so.tmp`` beside its source
-    (``fuzzy_aho_corasick_tpu/utils/native.py``), so workers that start
-    together race on that file, and a worker that loses has no native lane
-    for the rest of the run: its native cases skip, and its host searches
-    take the oracle, whose match order differs. Under the lock the first
-    process builds and the others load what it built."""
-    import fcntl
-
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with open(os.path.join(ROOT, "build", ".jax-native.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        from fuzzy_aho_corasick_tpu.utils import native
-
-        native.lib()
-
-
-_build_jax_native()
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 # --- fast default subset -----------------------------------------------------

@@ -190,10 +190,11 @@ def test_span_sites_outside_a_search():
 
 
 def test_evented_spans_time_their_launches(monkeypatch):
-    """Under the profiler a ``hit_list`` or ``step`` span on a CUDA device
-    records an event pair on the device's stream, and ``device_ms`` is the
-    stream's time between them, the waits inside included; a span on another
-    device, or whose end event has not completed, gets none."""
+    """Under the profiler a ``timed`` block on a CUDA device records an
+    event pair on the device's stream, and ``device_ms`` of the span it sits
+    in is the stream's time between them; a span without one, a block on
+    another device or outside the profiler, or a pair whose end has not
+    completed, gives none."""
     clock = iter(range(0, 1000, 10))
 
     class Event:
@@ -214,19 +215,26 @@ def test_evented_spans_time_their_launches(monkeypatch):
     monkeypatch.setattr(trace.torch.cuda, "Event", Event)
     monkeypatch.setattr(trace.torch.cuda, "current_stream", lambda dev: ("stream", dev))
     rec = trace._Recorder(1, profile=True)
-    step = rec.open("step", cuda)                       # event at 0
-    wait = rec.open("host_wait", None, {"what": "a"})   # no event
-    rec.close(wait)
-    rec.close(step)                                     # event at 10
-    hits = rec.open("hit_list", cuda)                   # event at 20
-    rec.close(hits)                                     # event at 30
-    rec.events[hits][2].done = False
-    cpu = rec.open("hit_list", torch.device("cpu"))
-    rec.close(cpu)
+    monkeypatch.setattr(trace._TLS, "rec", rec)
+    with trace.span("hit_list"):
+        with trace.timed(cuda):                         # events at 0 and 10
+            pass
+        with trace.wait("hit_count"):
+            assert trace.timed(torch.device("cpu")) is trace.NULL
+    with trace.span("step"):
+        pass
+    with trace.span("hit_list"):
+        with trace.timed(cuda):                         # events at 20 and 30
+            pass
+    hits, wait, step, late = 0, 1, 2, 3
+    rec.events[late][1].done = False
     rec.device_times()
-    assert rec.spans[step][4] == {"slice": 0, "device_ms": 10.0}
-    assert rec.spans[hits][4] == {"slice": 0} and rec.spans[cpu][4] == {"slice": 1}
-    assert rec.spans[wait][4] == {"what": "a"} and rec.events == {}
+    assert rec.spans[hits][4] == {"slice": 0, "device_ms": 10.0}
+    assert rec.spans[wait][4] == {"what": "hit_count"}
+    assert rec.spans[step][4] == {"slice": 0} and rec.spans[late][4] == {"slice": 1}
+    assert rec.events == {}
+    monkeypatch.setattr(trace._TLS, "rec", trace._Recorder(2, profile=False))
+    assert trace.timed(cuda) is trace.NULL
 
 
 def test_each_thread_traces_its_own_search(monkeypatch):

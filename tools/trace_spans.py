@@ -3,33 +3,22 @@
 for one cell of ``BENCHMARK.json`` on one CUDA card:
 
     python tools/trace_spans.py --workload <cell> --seed <n> [--searches 24]
-        [--on-cost 6] [--out <file.json>] [--keep-trace <file.json.gz>]
-
-(``--device cpu --scale 0.001`` runs it on the CPU at a small size, the
-kernels' plain versions, to check the script: no device time there.)
+        [--out <file.json>]
 
 Set-up as ``portbench/run.py``'s (the cell's dictionary and corpus from the
-seed, the engine, the upload, two warm-up searches); then:
-
-* one search under ``torch.cuda.set_sync_debug_mode("warn")``: the
-  synchronising CUDA calls torch reports, each with the line of the port
-  that made it, beside the search's ``host_waits``;
-* ``--searches`` searches with ``FAC_TIME=1`` under ``torch.profiler``,
-  each inside a ``search`` range, as the benchmark's traced run makes them
-  (after one more, left out: the profiler's first range costs it ms).
-  From the spans in ``last_stats``: each span's host time a search, self
-  time (its own, less its children's), and how much of the root the root's
-  children cover. From the profiler's chrome trace: the card's idle time in
-  the ``search`` ranges, each idle stretch put down to the innermost
-  ``fac:`` range the host was in (``outside`` where it was in none), and
-  each kernel's device time put down to the span its launch was made in,
-  beside the CUDA-event ``device_ms`` of the ``hit_list`` and ``step``
-  spans;
-* with ``--on-cost k``: k rounds of 12 traced searches each way, in turns
-  (each round's first way the other's in the next): as shipped, and with the span and wait sites stubbed to the null context
-  (the root, ``prepare`` and ``timing_sync`` kept, so the synchronise is
-  the same): the per-search wall on the host clock, the tracing's cost
-  when it is on.
+seed, the engine, the upload, two warm-up searches); then ``--searches``
+untraced searches (their wall), and as many with ``FAC_TIME=1`` under
+``torch.profiler``, each inside a ``search`` range, as the benchmark's
+traced run makes them (after one more, left out: the profiler's first range
+costs it ms). From the spans in ``last_stats``: each span's host time a
+search, self time (its own, less its children's), and how much of the root
+the root's children cover. From the profiler's chrome trace: the card's
+idle time in the ``search`` ranges, each idle stretch put down to the
+innermost ``fac:`` range the host was in (``outside`` where it was in
+none); each kernel's device time put down to the span its launch was made
+in; and the scan side of the hit lists (the kernels launched in a
+``hit_list`` range before its count's read) beside the ``hit_list`` spans'
+CUDA-event ``device_ms``, which time the same launches.
 
 The report is one JSON object (``--out``, and the last line of standard
 output). No JAX module is imported.
@@ -44,8 +33,6 @@ import statistics
 import sys
 import tempfile
 import time
-import traceback
-import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -56,70 +43,24 @@ if str(ROOT) not in sys.path:
 BUSY = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def sync() -> None:
-    import torch
-
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-def activities():
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return acts
-
-
-def setup(name: str, seed: int, device: str, scale: float):
+def setup(name: str, seed: int):
     import torch
 
     from fuzzy_aho_corasick_tpu_torch.ops import _cuda_build
     from portbench import manifest, run, traffic
 
-    if device == "cuda":
-        torch.cuda.init()
-        _cuda_build.load()
+    torch.cuda.init()
+    _cuda_build.load()
     man = manifest.Manifest(ROOT)
     cell = man.cell(name)
     config = man.config(cell["config"])
     words = traffic.dictionary(config, seed)
-    text = traffic.text(man.traffic(cell["traffic"]), words, seed, scale)
-    engine = run.build_engine(config, words, device)
+    text = traffic.text(man.traffic(cell["traffic"]), words, seed)
+    engine = run.build_engine(config, words, "cuda")
     for _ in range(2):
         engine.search_raw(text, config["threshold"])
-    sync()
+    torch.cuda.synchronize()
     return engine, text, config["threshold"]
-
-
-def sync_calls(engine, text, thr) -> dict:
-    """The synchronising CUDA calls torch reports in one untraced search,
-    each where torch puts it and at the innermost line of the port on the
-    stack (``file:line <- port_file:line``), beside ``host_waits``."""
-    import torch
-
-    os.environ.pop("FAC_TIME", None)
-    calls = []
-
-    def note(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        port = [f for f in traceback.extract_stack()
-                if "fuzzy_aho_corasick_tpu_torch" in f.filename]
-        at = f" <- {Path(port[-1].filename).name}:{port[-1].lineno}" if port else ""
-        calls.append(f"{Path(filename).name}:{lineno}{at}")
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = note
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            engine.search_raw(text, thr)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return {"host_waits": engine.last_stats.get("host_waits"), "sync_warnings": len(calls),
-            "where": sorted(set(calls))}
 
 
 def traced(engine, text, thr, searches: int):
@@ -130,7 +71,8 @@ def traced(engine, text, thr, searches: int):
     os.environ["FAC_TIME"] = "1"
     stats, walls, outputs = [], [], []
     try:
-        with torch.profiler.profile(activities=activities()) as prof:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
             for _ in range(searches + 1):
                 t = time.perf_counter()
                 with torch.profiler.record_function("search"):
@@ -140,7 +82,7 @@ def traced(engine, text, thr, searches: int):
                 # Kept, as the benchmark keeps them: a result freed inside
                 # the next ``search`` range would be host time of no span.
                 outputs.append(out)
-            sync()
+            torch.cuda.synchronize()
     finally:
         os.environ.pop("FAC_TIME", None)
     with tempfile.TemporaryDirectory() as d:
@@ -178,9 +120,10 @@ def innermost(ranges, t):
 
 
 def device_by_span(events, stats) -> dict:
-    """Idle ms a search by innermost ``fac:`` range, device ms a search by
-    the span of each kernel's launch (the profiler's clock), and the
-    ``hit_list`` and ``step`` spans' event-timed ``device_ms``."""
+    """Idle ms a search by innermost ``fac:`` range; device ms a search by
+    the span of each kernel's launch (the profiler's clock); and the hit
+    lists' scan side, by the profiler and by the ``hit_list`` spans' event
+    pairs."""
     from portbench import stats as st
 
     xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
@@ -200,68 +143,32 @@ def device_by_span(events, stats) -> dict:
             for p, q in zip(edges, edges[1:]):
                 name = innermost(fac, (p + q) / 2) or "outside"
                 idle[name] = idle.get(name, 0.0) + (q - p) / 1e3
+    # Each hit list's scan side: from the range's start to its first wait.
+    hit_lists = [(lo, hi) for lo, hi, name in fac if name == "hit_list"]
+    waits = [lo for lo, _, name in fac if name == "host_wait"]
+    scan_side = [(lo, min([w for w in waits if lo <= w < hi], default=hi)) for lo, hi in hit_lists
+                 if any(a <= lo < b for a, b in searches)]
     launch_at = {e["args"]["correlation"]: e["ts"] for e in xs
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-    dev, lag = {}, []
+    dev, scan_ms = {}, 0.0
     for e in xs:
         if e.get("cat") not in BUSY:
             continue
         at = launch_at.get(e.get("args", {}).get("correlation"), e["ts"])
         if not any(lo <= at < hi for lo, hi in searches):
             continue
-        lag.append(e["ts"] - at)
         key = innermost(fac, at) or "outside"
         dev[key] = dev.get(key, 0.0) + e["dur"] / 1e3
-    evented = {}
-    for s in stats:
-        for name, _, _, _, attrs in s["spans"]:
-            if "device_ms" in attrs:
-                evented[name] = evented.get(name, 0.0) + attrs["device_ms"]
+        if any(lo <= at < w for lo, w in scan_side):
+            scan_ms += e["dur"] / 1e3
+    evented = [a["device_ms"] for s in stats for name, _, _, _, a in s["spans"]
+               if name == "hit_list" and "device_ms" in a]
     per = lambda d: {k: v / n for k, v in sorted(d.items(), key=lambda kv: -kv[1])}
-    lag.sort()
     return {"searches_in_trace": n, "window_ms": window_ms / n, "busy_ms": busy_ms / n,
-            # The device's start of an operation after its launch call, on
-            # the profiler's clock (us): min, median, max.
-            "launch_to_start_us": [lag[0], lag[len(lag) // 2], lag[-1]] if lag else None,
             "idle_ms_by_innermost_span": per(idle),
             "profiler_device_ms_by_launch_span": per(dev),
-            "event_device_ms_by_span": {k: v / len(stats) for k, v in evented.items()}}
-
-
-def on_cost(engine, text, thr, rounds: int) -> dict:
-    """Per-search wall (ms) of traced searches under the profiler, as
-    shipped and with the span and wait sites stubbed, in turns."""
-    import torch
-
-    from fuzzy_aho_corasick_tpu_torch.utils import trace
-
-    real = (trace.span, trace.wait, trace.stage_stats)
-
-    def stub_wait(what, nbytes=0):
-        trace._TLS.waits += 1
-        return trace.NULL
-
-    stubs = (lambda name, dev=None: trace.NULL, stub_wait, lambda at, parts: {})
-    walls = {"shipped": [], "stubbed": []}
-    os.environ["FAC_TIME"] = "1"
-    try:
-        for r in range(rounds):
-            turns = [("shipped", real), ("stubbed", stubs)]
-            for how, fns in turns[::1 if r % 2 == 0 else -1]:
-                trace.span, trace.wait, trace.stage_stats = fns
-                outputs = []
-                with torch.profiler.profile(activities=activities()):
-                    for _ in range(12):
-                        t = time.perf_counter()
-                        with torch.profiler.record_function("search"):
-                            out = engine.search_raw(text, thr)
-                        walls[how].append((time.perf_counter() - t) * 1e3)
-                        outputs.append(out)
-                    sync()
-    finally:
-        trace.span, trace.wait, trace.stage_stats = real
-        os.environ.pop("FAC_TIME", None)
-    return {how: {"median_ms": statistics.median(w), "n": len(w)} for how, w in walls.items()}
+            "scan_side_ms": {"profiler": scan_ms / n, "events": sum(evented) / len(stats),
+                             "hit_lists": len(scan_side) / n, "evented": len(evented) / len(stats)}}
 
 
 def main(argv=None) -> int:
@@ -269,20 +176,12 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--searches", type=int, default=24)
-    ap.add_argument("--on-cost", type=int, default=0)
     ap.add_argument("--out")
-    ap.add_argument("--keep-trace", help="also write the chrome trace's events here (.json.gz)")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--scale", type=float, default=1.0)
     args = ap.parse_args(argv)
     import torch
 
-    engine, text, thr = setup(args.workload, args.seed, args.device, args.scale)
-    cuda = args.device == "cuda"
-    report = {"workload": args.workload, "seed": args.seed,
-              "card": torch.cuda.get_device_name(0) if cuda else "cpu"}
-    if cuda:
-        report["sync_calls"] = sync_calls(engine, text, thr)
+    engine, text, thr = setup(args.workload, args.seed)
+    report = {"workload": args.workload, "seed": args.seed, "card": torch.cuda.get_device_name(0)}
     untraced = []
     for _ in range(args.searches):
         t = time.perf_counter()
@@ -294,18 +193,8 @@ def main(argv=None) -> int:
     keys = ("host_waits", "prepare_us", "host_wait_us", "dispatch_ms", "decode_ms")
     report["stats_median"] = {k: statistics.median(s[k] for s in stats) for k in keys
                               if all(k in s for s in stats)}
-    report["root_in_wall"] = statistics.median(
-        (s["spans"][0][3] - s["spans"][0][2]) / 1e9 / w for s, w in zip(stats, walls))
     report["host"] = host_by_span(stats)
     report["device"] = device_by_span(events, stats)
-    if args.keep_trace:
-        import gzip
-
-        Path(args.keep_trace).parent.mkdir(parents=True, exist_ok=True)
-        with gzip.open(args.keep_trace, "wt") as f:
-            json.dump({"traceEvents": events, "stats": stats}, f)
-    if args.on_cost:
-        report["on_cost"] = on_cost(engine, text, thr, args.on_cost)
     line = json.dumps(report)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
